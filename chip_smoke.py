@@ -1,0 +1,651 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (llmlb_tpu_torch) on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+1. device  — the card's name and power limit (nvidia-smi), TF32 off.
+2. build   — compile llmlb_tpu_torch/csrc/*.cu with nvcc for sm_90a.
+3. kernels — hold each kernel against its plain PyTorch version on the card,
+             in bf16 and fp32 at the serving shapes of Llama-3-8B and in fp32
+             at debug-tiny's head_dim, show that the bf16 limit rejects the
+             plain version with one page or key tile left out, and time
+             kernel / plain / library call with CUDA events.
+4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
+5. model   — the model's three paged entry points on the card (kernels)
+             against the CPU (plain path) at debug size.
+6. serve   — the port's HTTP server in-process, Llama-3-8B at full width and
+             depth with random bf16 weights from seed 0: concurrent chat
+             requests (streaming and not), a ~1500-token prompt that takes
+             the chunked path, a repeat whose text must match, then
+             token-level determinism, TTFT and decode rate on the same core.
+             Every kernel's launch count over this phase must be above 0.
+
+The second-to-last line is one JSON object {"kernels": [...]}; the last is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+import traceback
+import urllib.request
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (dense): bf16 tensor cores and HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Llama-3-8B serving shapes at the engine defaults.
+H, KV, D = 32, 8, 128
+SLOTS, CAPACITY, PAGE = 8, 4096, 128
+# bf16: inputs, probabilities and outputs are rounded to bf16 (8 significant
+# bits), and the kernel's online softmax rescales its sums in another order
+# than the plain version's two passes. Allow two bf16 steps of the element and
+# of its (query, head) row's RMS: |err| <= 2^-6 (|plain| + rms(plain row)).
+# Attention outputs shrink with the context (RMS ~ sqrt(e / keys) for unit
+# normal q, k, v: 0.026 at 4096 keys), so the limit follows each row's scale;
+# phase_kernels shows that one dropped page or key tile fails it.
+BF16_REL = 2.0**-6
+FP32_ATOL = 1e-4  # fp32: the same math summed in another order
+# fp32 logits of the 8B vocab projection: fp32 sums of 4096 exact bf16
+# products in another order than the fp32 product's (logits ~ N(0, 1))
+UNEMBED_ATOL = 1e-3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls, after one
+    warm-up call (CUDA events on the current stream)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------- phases
+
+
+def phase_device() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch: {torch.__version__} cuda {torch.version.cuda}; device 0: {kind}; "
+        f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"smi": smi, "kind": kind, "count": torch.cuda.device_count()}
+
+
+def phase_build() -> None:
+    from llmlb_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.load()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall "
+        f"(nvcc {build.BUILD_INFO.get('seconds', 0.0):.2f} s, "
+        f"cached={build.BUILD_INFO.get('cached')})")
+    for name, report in (build.BUILD_INFO.get("ptxas") or {}).items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+
+def _pool(torch, gen, pages, dtype, kv=KV, d=D, page=PAGE):
+    shape = (pages, page, kv, d)
+    k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return k, v
+
+
+def _pairs(got, want, rows):
+    """(kernel, plain) pairs over the defined rows: all rows, or the first
+    rows[b] of batch row b."""
+    if rows is None:
+        return [(got.float(), want.float())]
+    return [(got[b, :n].float(), want[b, :n].float())
+            for b, n in enumerate(rows) if n > 0]
+
+
+def _within(got, want, atol, rel, rows) -> tuple[float, bool]:
+    """(max |got - want|, whether every element is within
+    atol + rel * (|want| + rms of want's last-dim row)). NaN fails."""
+    err, ok = 0.0, True
+    for g, w in _pairs(got, want, rows):
+        rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        diff = (g - w).abs()
+        err = max(err, diff.max().item())
+        ok = ok and bool((diff <= atol + rel * (w.abs() + rms)).all())
+    return err, ok
+
+
+def _check(name, got, want, *, atol=0.0, rel=0.0, rows=None) -> float:
+    """Max |kernel - plain| over the defined rows; raises if any element is
+    outside the limit of `_within`."""
+    err, ok = _within(got, want, atol, rel, rows)
+    log(f"  {name}: max_abs_err {err:.3e} (atol {atol:g}, rel {rel:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max_abs_err {err:.3e})")
+    return err
+
+
+def _must_fail(name, mutant, want, *, rel, rows=None) -> None:
+    """The bf16 limit must reject `mutant`, the plain version with part of
+    the work left out, as it would reject a kernel that skipped it."""
+    err, ok = _within(mutant, want, 0.0, rel, rows)
+    log(f"  {name}: max_abs_err {err:.3e} -> "
+        f"{'REJECTED' if not ok else 'ACCEPTED (limit too loose)'}")
+    if ok:
+        raise AssertionError(f"{name}: the bf16 limit accepts a mutant")
+
+
+def _plain(torch, q, k_cache, v_cache, mask, drop=None):
+    """masked_attention with keys [lo, hi) of batch rows `rows` hidden, or
+    the unchanged mask for drop=None; q [B, T, H, D], mask [B, T, S]."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    if drop is not None:
+        lo, hi, rows = drop
+        cols = torch.arange(mask.shape[-1], device=mask.device)
+        hide = (cols >= lo) & (cols < hi)
+        sel = torch.zeros(mask.shape[0], dtype=torch.bool, device=mask.device)
+        sel[list(rows)] = True
+        mask = mask & ~(hide[None, None, :] & sel[:, None, None])
+    return ca.masked_attention(q, k_cache, v_cache, mask)
+
+
+def phase_kernels() -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # -- flash_prefill: a 512-token bucket, 8 ragged prompts -----------------
+    b, t = SLOTS, 512
+    q, k, v = randn((b, t, H, D), bf16), randn((b, t, KV, D), bf16), \
+        randn((b, t, KV, D), bf16)
+    plens_host = [512, 500, 384, 256, 200, 129, 64, 1]
+    plens = torch.tensor(plens_host, dtype=torch.int32, device="cuda")
+    got = ca.flash_prefill(q, k, v, plens)
+    want = ca.flash_prefill_reference(q, k, v, plens)
+    torch.cuda.synchronize()
+    err = _check("flash_prefill bf16 [8,512,32,128]", got, want, rel=BF16_REL,
+                 rows=plens_host)
+    pos = torch.arange(t, device="cuda")
+    mask = ((pos[None, :, None] >= pos[None, None, :])
+            & (pos[None, None, :] < plens[:, None, None]))
+    if not torch.equal(_plain(torch, q, k, v, mask), want):
+        raise AssertionError("flash_prefill: the mutants' mask is not the "
+                             "plain version's")
+    _must_fail("flash_prefill bf16, key tile [64, 128) of row 0 dropped",
+               _plain(torch, q, k, v, mask, (64, 128, [0])), want,
+               rel=BF16_REL, rows=plens_host)
+    # the yardstick call takes SDPA's [B, H, T, D] layout with the KV heads
+    # repeated for the group, prepared outside the timed region
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None]), 10)
+    # the function's work: the defined rows read q, k, v and write out once
+    visible = sum(n * (n + 1) // 2 for n in plens_host)
+    nbytes = (2 * H + 2 * KV) * D * 2 * sum(plens_host) + b * 4
+    bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
+    rows.append(dict(
+        name="flash_prefill", route="cuda",
+        source="llmlb_tpu_torch/csrc/flash_prefill.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:494",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.flash_prefill(q, k, v, plens), 20),
+        plain_ms=cuda_ms(lambda: ca.flash_prefill_reference(q, k, v, plens), 3),
+        bound_ms=bms, bound_by=by, library_ms=lib))
+    del q, k, v, qt, kt, vt, got, want, mask
+
+    # -- paged_flash_decode: 8 rows up to 4096 tokens through block tables ---
+    ppn = CAPACITY // PAGE
+    pages_total = SLOTS * ppn + 1
+    kp, vp = _pool(torch, gen, pages_total, bf16)
+    perm = torch.randperm(pages_total - 1, generator=gen, device="cuda") + 1
+    tables = perm.reshape(SLOTS, ppn).to(torch.int32).contiguous()
+    lens_host = [4096, 3000, 2048, 1500, 1024, 513, 129, 1]
+    lens = torch.tensor(lens_host, dtype=torch.int32, device="cuda")
+    q = randn((SLOTS, H, D), bf16)
+    got = ca.paged_flash_decode(q, kp, vp, tables, lens, pages=ppn)
+    want = ca.paged_flash_decode_reference(q, kp, vp, tables, lens, pages=ppn)
+    torch.cuda.synchronize()
+    err = _check("paged_flash_decode bf16 [8,32,128] ctx<=4096", got, want,
+                 rel=BF16_REL)
+    kc, vc = ca.gather_kv_pages(kp, tables), ca.gather_kv_pages(vp, tables)
+    cols = torch.arange(ppn * PAGE, device="cuda")
+    mask = (cols[None, :] < lens[:, None])[:, None]
+    if not torch.equal(_plain(torch, q[:, None], kc, vc, mask)[:, 0], want):
+        raise AssertionError("paged_flash_decode: the mutants' mask is not "
+                             "the plain version's")
+    for what, drop in (("page 5", (5 * PAGE, 6 * PAGE, [0])),
+                       ("last key tile", (4096 - 64, 4096, [0]))):
+        _must_fail(f"paged_flash_decode bf16, {what} of the 4096-token row "
+                   "dropped",
+                   _plain(torch, q[:, None], kc, vc, mask, drop)[:, 0], want,
+                   rel=BF16_REL)
+    del kc, vc
+    kv_cells = sum(lens_host)
+    table_reads = sum(-(-n // PAGE) for n in lens_host)
+    nbytes = (kv_cells * KV * D * 2 * 2 + 2 * q.numel() * 2
+              + table_reads * 4 + SLOTS * 4)
+    bms, by = bound_ms(nbytes, 4 * H * D * kv_cells, PEAK_BF16_FLOPS)
+    rows.append(dict(
+        name="paged_flash_decode", route="cuda",
+        source="llmlb_tpu_torch/csrc/paged_decode.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:211",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.paged_flash_decode(q, kp, vp, tables, lens,
+                                                 pages=ppn), 50),
+        plain_ms=cuda_ms(lambda: ca.paged_flash_decode_reference(
+            q, kp, vp, tables, lens, pages=ppn), 5),
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+    # -- paged_flash_extend: the last 476-token chunk of a 1500-token prompt --
+    t, start_host, chunk_host = 512, 1024, 476
+    q = randn((1, t, H, D), bf16)
+    tab1 = tables[:1].contiguous()
+    start = torch.tensor([start_host], dtype=torch.int32, device="cuda")
+    chunk = torch.tensor([chunk_host], dtype=torch.int32, device="cuda")
+    got = ca.paged_flash_extend(q, kp, vp, tab1, start, chunk)
+    want = ca.paged_flash_extend_reference(q, kp, vp, tab1, start, chunk)
+    torch.cuda.synchronize()
+    err = _check("paged_flash_extend bf16 [1,512,32,128] start 1024", got,
+                 want, rel=BF16_REL, rows=[chunk_host])
+    kc, vc = ca.gather_kv_pages(kp, tab1), ca.gather_kv_pages(vp, tab1)
+    q_pos = start_host + torch.arange(t, device="cuda")
+    mask = (cols[None, None, :] <= q_pos[None, :, None])
+    if not torch.equal(_plain(torch, q, kc, vc, mask), want):
+        raise AssertionError("paged_flash_extend: the mutants' mask is not "
+                             "the plain version's")
+    _must_fail("paged_flash_extend bf16, page 5 (keys 640..767) dropped",
+               _plain(torch, q, kc, vc, mask, (5 * PAGE, 6 * PAGE, [0])), want,
+               rel=BF16_REL, rows=[chunk_host])
+    del kc, vc, mask
+    # the function's work: the defined rows, and the keys they see
+    keys = start_host + chunk_host
+    visible = sum(start_host + i + 1 for i in range(chunk_host))
+    nbytes = (keys * KV * D * 2 * 2 + 2 * chunk_host * H * D * 2
+              + -(-keys // PAGE) * 4 + 8)
+    bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
+    rows.append(dict(
+        name="paged_flash_extend", route="cuda",
+        source="llmlb_tpu_torch/csrc/paged_extend.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:732",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.paged_flash_extend(q, kp, vp, tab1, start,
+                                                 chunk), 20),
+        plain_ms=cuda_ms(lambda: ca.paged_flash_extend_reference(
+            q, kp, vp, tab1, start, chunk), 3),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    del kp, vp, q, got, want
+
+    # -- fp32 at the serving shapes (D 128, pages of 128) --------------------
+    q, k, v = randn((2, 128, H, D), f32), randn((2, 128, KV, D), f32), \
+        randn((2, 128, KV, D), f32)
+    pl = torch.tensor([128, 77], dtype=torch.int32, device="cuda")
+    _check("flash_prefill fp32 [2,128,32,128]",
+           ca.flash_prefill(q, k, v, pl),
+           ca.flash_prefill_reference(q, k, v, pl), atol=FP32_ATOL,
+           rows=[128, 77])
+    kp, vp = _pool(torch, gen, pages_total, f32)
+    q = randn((SLOTS, H, D), f32)
+    _check("paged_flash_decode fp32 [8,32,128] ctx<=4096",
+           ca.paged_flash_decode(q, kp, vp, tables, lens, pages=ppn),
+           ca.paged_flash_decode_reference(q, kp, vp, tables, lens, pages=ppn),
+           atol=FP32_ATOL)
+    q = randn((1, t, H, D), f32)
+    _check("paged_flash_extend fp32 [1,512,32,128] start 1024",
+           ca.paged_flash_extend(q, kp, vp, tab1, start, chunk),
+           ca.paged_flash_extend_reference(q, kp, vp, tab1, start, chunk),
+           atol=FP32_ATOL, rows=[chunk_host])
+    del kp, vp, q, k, v
+
+    # -- fp32 at debug-tiny's head_dim 16, pages of 16, the `pages` bound ----
+    kp, vp = _pool(torch, gen, 13, f32, kv=4, d=16, page=16)
+    tab = (torch.randperm(12, generator=gen, device="cuda") + 1).reshape(3, 4)
+    tab = tab.to(torch.int32).contiguous()
+    q = randn((3, 8, 16), f32)
+    kl = torch.tensor([1, 16, 45], dtype=torch.int32, device="cuda")
+    _check("paged_flash_decode fp32 [3,8,16] G=2 pages=3",
+           ca.paged_flash_decode(q, kp, vp, tab, kl, pages=3),
+           ca.paged_flash_decode_reference(q, kp, vp, tab, kl, pages=3),
+           atol=FP32_ATOL)
+    q = randn((3, 16, 8, 16), f32)
+    st = torch.tensor([0, 13, 40], dtype=torch.int32, device="cuda")
+    ch = torch.tensor([16, 9, 3], dtype=torch.int32, device="cuda")
+    _check("paged_flash_extend fp32 [3,16,8,16] G=2",
+           ca.paged_flash_extend(q, kp, vp, tab, st, ch),
+           ca.paged_flash_extend_reference(q, kp, vp, tab, st, ch),
+           atol=FP32_ATOL, rows=[16, 9, 3])
+    for r in rows:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return rows
+
+
+def phase_unembed() -> None:
+    """The Llama-3-8B vocab projection on the card, untied and tied (the
+    head a transposed view): bf16 operands, fp32 logits held against the
+    fp32 product of the same bf16 values, and the same argmax per row."""
+    import dataclasses
+
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.ops.norms import rms_norm
+
+    cfg = get_preset("llama-3-8b")
+    e, vocab = cfg.hidden_size, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((SLOTS, e), generator=gen, device="cuda").to(cfg.dtype)
+    head = (torch.randn((e, vocab), generator=gen, device="cuda")
+            * e**-0.5).to(cfg.dtype)
+    ln = torch.ones(e, dtype=cfg.dtype, device="cuda")
+    want = rms_norm(x, ln, cfg.rms_eps).float() @ head.float()
+    rounded = (want.to(cfg.dtype).float() - want).abs().max().item()
+    for name, c, params in (
+            ("untied", cfg, {"ln_final": ln, "lm_head": head}),
+            ("tied", dataclasses.replace(cfg, tie_word_embeddings=True),
+             {"ln_final": ln, "embed": head.T.contiguous()})):
+        got = llama._unembed(c, params, x)
+        err = (got - want).abs().max().item()
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        log(f"  unembed llama-3-8b {name} [8,4096]x[4096,128256] "
+            f"{got.dtype}: max_abs_err {err:.3e} (atol {UNEMBED_ATOL:g}; "
+            f"logits rounded to bf16 would be off by {rounded:.3e}); "
+            f"argmax {'equal' if same else 'DIFFERS'}")
+        if got.dtype != torch.float32 or not err <= UNEMBED_ATOL or not same:
+            raise AssertionError(f"unembed {name}: fp32 logits disagree")
+        del got, params
+    del x, head, want
+
+
+def phase_model_entry_points() -> None:
+    """The three paged entry points at debug size: card (kernels) against
+    CPU (plain path), fp32 logits within FP32_ATOL * 10 (two layers)."""
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.models import llama
+
+    cfg = get_preset("debug-tiny")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gparams = {k: v.cuda() for k, v in params.items()}
+    tables = torch.tensor([[3, 7, 1, 10], [5, 2, 9, 11]], dtype=torch.int32)
+    rng = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 512, (2, 32), generator=rng)
+    lens = torch.tensor([5, 21], dtype=torch.int32)
+    chunk = torch.randint(0, 512, (2, 16), generator=rng)
+    chunk_lens = torch.tensor([16, 3], dtype=torch.int32)
+    toks = torch.randint(0, 512, (2,), generator=rng)
+
+    def run(dev, p):
+        tb = tables.to(dev)
+        ck, cv = llama.init_kv_pages(cfg, 12, 16, dev)
+        out = [llama.prefill_into_pages(p, cfg, ids.to(dev), lens.to(dev), tb,
+                                        ck, cv)[0]]
+        out.append(llama.prefill_extend_pages(
+            p, cfg, chunk.to(dev), chunk_lens.to(dev), lens.to(dev), tb,
+            ck, cv)[0])
+        seq = (lens + chunk_lens).to(dev)
+        for _ in range(2):
+            out.append(llama.decode_step_paged(p, cfg, toks.to(dev), seq, ck,
+                                               cv, tb, window=64)[0])
+            seq = seq + 1
+        return [o.cpu() for o in out]
+
+    for name, g, c in zip(("prefill_into_pages", "prefill_extend_pages",
+                           "decode_step_paged#1", "decode_step_paged#2"),
+                          run("cuda", gparams), run("cpu", params)):
+        err = (g - c).abs().max().item()
+        log(f"  model {name} debug-tiny fp32 logits card vs cpu: "
+            f"max_abs_err {err:.3e}")
+        if not (err <= FP32_ATOL * 10 and torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: card logits disagree with the "
+                                 f"plain path (max_abs_err {err:.3e})")
+
+
+def _post(url: str, body: dict, timeout: float = 600):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def _chat(base: str, content: str, max_tokens: int, stream: bool) -> dict:
+    """One greedy chat request; returns {text, usage, finish} after checking
+    the response shape."""
+    body = {"model": "llama-3-8b", "temperature": 0, "max_tokens": max_tokens,
+            "stream": stream,
+            "messages": [{"role": "user", "content": content}]}
+    with _post(base + "/v1/chat/completions", body) as resp:
+        if not stream:
+            out = json.loads(resp.read())
+            assert out["object"] == "chat.completion", out
+            choice = out["choices"][0]
+            return {"text": choice["message"]["content"], "usage": out["usage"],
+                    "finish": choice["finish_reason"]}
+        lines = [ln.decode().strip() for ln in resp if ln.strip()]
+    assert lines[-1] == "data: [DONE]", lines[-3:]
+    chunks = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+    assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+    assert all(c["object"] == "chat.completion.chunk" for c in chunks)
+    usage = chunks[-1]["usage"]
+    finish = chunks[-2]["choices"][0]["finish_reason"]
+    text = "".join(c["choices"][0]["delta"].get("content", "")
+                   for c in chunks[:-1] if c["choices"])
+    return {"text": text, "usage": usage, "finish": finish}
+
+
+def _timed_core_request(core, prompt: list[int], max_tokens: int):
+    """Submit straight to the serving core; returns (ids, ttft_s, decode
+    tokens/s of this request)."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    req = core.submit(Request(prompt_ids=list(prompt), sampling=SamplingParams(
+        temperature=0.0, max_tokens=max_tokens)))
+    ids, stamps = [], []
+    while True:
+        kind, value = req.events.get(timeout=600)
+        if kind == "token":
+            ids.append(int(value))
+            stamps.append(time.monotonic())
+        elif kind == "done":
+            break
+        else:
+            raise RuntimeError(f"engine error: {value}")
+    ttft = stamps[0] - req.submitted_at
+    rate = (len(ids) - 1) / (stamps[-1] - stamps[0]) if len(ids) > 1 else 0.0
+    return ids, ttft, rate
+
+
+def phase_serve(dev: dict) -> dict:
+    import torch
+
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    t0 = time.perf_counter()
+    engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
+                                num_slots=SLOTS, slot_capacity=CAPACITY,
+                                eos_id=-1)
+    torch.cuda.synchronize()
+    log(f"serve: llama-3-8b bf16 random weights (seed 0) on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"decode burst {engine.core.decode_burst}")
+    server, thread = start_server(engine)
+    base = "http://%s:%d" % server.server_address[:2]
+    stats = {}
+    try:
+        ca.reset_launch_counts()
+        # the main path, over HTTP
+        first = _chat(base, "Tell me about paged attention.", 32, True)
+        results: dict[int, dict] = {}
+        errors: list[BaseException] = []
+
+        def worker(i: int) -> None:
+            try:
+                results[i] = _chat(base, f"Request {i}: write a haiku about "
+                                   "GPUs and TPUs.", 32, stream=i % 2 == 0)
+            except BaseException as e:  # collected and re-raised below
+                errors.append(e)
+
+        workers = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        if errors or len(results) != 4:
+            raise RuntimeError(f"concurrent chat failed: {errors!r}")
+        long_text = " ".join(f"w{i % 97}" for i in range(380))  # ~1500 tokens
+        long = _chat(base, long_text, 32, False)
+        again = _chat(base, "Tell me about paged attention.", 32, True)
+        for r in [first, again, long, *results.values()]:
+            assert r["usage"]["completion_tokens"] == 32, r["usage"]
+            assert r["finish"] == "length", r["finish"]
+        assert long["usage"]["prompt_tokens"] > 1024, long["usage"]
+        assert again["text"] == first["text"], (first, again)
+        log(f"serve: 4 concurrent chats + {long['usage']['prompt_tokens']}-token "
+            "prompt + repeat over HTTP ok; repeat text identical")
+
+        # token-level determinism and timing on the same core
+        core = engine.core
+        prompt = engine.encode_chat([{"role": "user",
+                                      "content": "x" * 100}])
+        ids1, ttft1, rate1 = _timed_core_request(core, prompt, 64)
+        ids2, ttft2, rate2 = _timed_core_request(core, prompt, 64)
+        assert ids1 == ids2, "greedy token ids differ between identical runs"
+        batch: dict[int, tuple] = {}
+        t_batch = time.monotonic()
+        ths = [threading.Thread(target=lambda i=i: batch.__setitem__(
+            i, _timed_core_request(core, prompt[:-1] + [i], 64)))
+            for i in range(SLOTS)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=900)
+        wall = time.monotonic() - t_batch
+        if len(batch) != SLOTS:
+            raise RuntimeError("concurrent core requests failed")
+        agg = SLOTS * 64 / wall
+        nan_rows = core.nan_logit_rows()
+        launches = dict(ca.LAUNCHES)
+        stats = {"ttft_s": min(ttft1, ttft2), "decode_tok_s_1": max(rate1, rate2),
+                 "tok_s_8": agg, "launches": launches}
+        log(f"serve [{dev['smi']}]: single-request TTFT {stats['ttft_s'] * 1e3:.1f} ms "
+            f"({len(prompt)}-token prompt), decode {stats['decode_tok_s_1']:.1f} tok/s; "
+            f"8 concurrent x 64 tokens: {agg:.1f} tok/s incl. prefill")
+        log(f"serve: launches over the main path {launches}; NaN logit rows "
+            f"{nan_rows}")
+        if nan_rows:
+            raise AssertionError(f"{nan_rows} logit rows had NaN")
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the main path: "
+                                 f"{missing}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        engine.shutdown()
+    return stats
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    try:
+        import llmlb_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is not here ({e}); run from the "
+              "repository root", file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    phase = "device"
+    try:
+        dev = phase_device()
+        phase = "build"
+        phase_build()
+        phase = "kernels"
+        kernels = phase_kernels()
+        phase = "unembed"
+        phase_unembed()
+        phase = "model entry points"
+        phase_model_entry_points()
+        phase = "serve"
+        stats = phase_serve(dev)
+    except BaseException:
+        traceback.print_exc()
+        print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
+        return 1
+    for k in kernels:
+        k["launches"] = stats["launches"][k["name"]]
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": [{key: k[key] for key in order}
+                                for k in kernels]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": dev["kind"],
+                                           "count": dev["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

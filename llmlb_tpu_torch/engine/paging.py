@@ -1,0 +1,118 @@
+"""Refcounted page allocator for the paged KV cache.
+
+The paged layout replaces the engine's dense per-slot KV block
+[L, slots, slot_capacity, K, D] with one global page pool
+[L, num_pages, page_size, K, D] plus a per-slot block table mapping logical
+token positions to pool pages. This module owns the pure host-side
+bookkeeping: a free list and per-page refcounts. No locks — every call
+happens on the scheduler's step-loop thread.
+
+The port's own copy of `llmlb_tpu/engine/paging.py` (the port imports
+nothing of the JAX package).
+
+Refcount semantics:
+- `alloc(n)` hands out n pages with refcount 1, all-or-nothing (None when the
+  pool cannot cover the request — the caller evicts prefix pages or queues).
+- `ref(page)` adds an owner: the prefix cache pins donated prompt pages this
+  way, and a cache hit adds the reading slot as a second owner of the shared
+  pages (zero-copy sharing — no KV bytes move).
+- `unref(page)` drops an owner and returns the page to the free list at zero.
+  Unref of an already-free page raises PageError: a double free means two
+  owners think they hold the same page and silent reuse would corrupt KV.
+
+Page 0 is reserved as the *trash page* (refcount pinned forever): block-table
+entries default to it, so the batched decode step's garbage writes for
+empty/parked slot rows land in cells nothing ever reads — the paged
+counterpart of the dense layout's "garbage lands in the unused last cell".
+"""
+
+from __future__ import annotations
+
+
+class PageError(RuntimeError):
+    """Page-pool bookkeeping violation (double free / unknown page)."""
+
+
+class PagePool:
+    """Free-list allocator with refcounted pages over `num_pages` pages.
+
+    `reserved` pages are pinned at construction and never allocated or
+    freed (the trash page). Not threadsafe by design — step-loop only.
+    """
+
+    def __init__(self, num_pages: int, *, reserved: tuple[int, ...] = (0,)):
+        if num_pages < len(reserved) + 1:
+            raise ValueError(
+                f"pool of {num_pages} pages cannot reserve {reserved} and "
+                "still serve traffic"
+            )
+        self.num_pages = num_pages
+        self.reserved = frozenset(reserved)
+        self._refs = [0] * num_pages
+        for p in self.reserved:
+            self._refs[p] = 1  # pinned forever
+        # LIFO free list: recently-freed pages are reused first (their HBM
+        # is warm in whatever cache hierarchy the platform has)
+        self._free = [p for p in range(num_pages - 1, -1, -1)
+                      if p not in self.reserved]
+
+    # ------------------------------------------------------------- inspection
+
+    @property
+    def total(self) -> int:
+        """Allocatable pages (reserved pages excluded)."""
+        return self.num_pages - len(self.reserved)
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def used(self) -> int:
+        return self.total - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._refs[page]
+
+    # ------------------------------------------------------------- allocation
+
+    def alloc(self, n: int) -> list[int] | None:
+        """Take `n` pages (refcount 1 each). All-or-nothing: returns None
+        without side effects when fewer than `n` pages are free."""
+        if n < 0:
+            raise ValueError("cannot allocate a negative page count")
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def ref(self, page: int) -> None:
+        """Add an owner to a live page (prefix-cache pin / zero-copy share)."""
+        self._check(page)
+        if self._refs[page] <= 0:
+            raise PageError(f"ref of free page {page}")
+        self._refs[page] += 1
+
+    def unref(self, page: int) -> None:
+        """Drop an owner; the page returns to the free list at refcount 0.
+        Raises PageError on double free (page already free or reserved)."""
+        self._check(page)
+        if page in self.reserved:
+            raise PageError(f"unref of reserved page {page}")
+        if self._refs[page] <= 0:
+            raise PageError(f"double free of page {page}")
+        self._refs[page] -= 1
+        if self._refs[page] == 0:
+            self._free.append(page)
+
+    def _check(self, page: int) -> None:
+        if not 0 <= page < self.num_pages:
+            raise PageError(f"page {page} outside pool of {self.num_pages}")
+
+    def reset(self) -> None:
+        """Return every non-reserved page to the free list (engine failure
+        path: the device pool is rebuilt, every mapping is void)."""
+        for p in range(self.num_pages):
+            self._refs[p] = 1 if p in self.reserved else 0
+        self._free = [p for p in range(self.num_pages - 1, -1, -1)
+                      if p not in self.reserved]

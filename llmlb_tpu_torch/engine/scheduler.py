@@ -1,0 +1,698 @@
+"""Continuous-batching engine core: counterpart of `EngineCore` in
+`llmlb_tpu/engine/scheduler.py`, paged KV layout only.
+
+The step loop runs on one thread and owns every device tensor. Each
+iteration it:
+
+1. admits queued requests into free slots (`_try_insert`): pages are
+   reserved for the whole prompt up front, same-bucket prompts prefill
+   together in one dispatch (`_prefill_group`, at most MAX_PREFILL_GROUP,
+   padded to a power of two by repeating the last row), and prompts longer
+   than the largest bucket claim a slot for chunked prefill (`_insert_long`);
+2. feeds ONE chunk of one long prompt (`_advance_prefill`), so decode steps
+   interleave with a long prefill;
+3. runs a k-step decode burst over every decoding slot (`_decode_active`):
+   each step's sampled tokens feed the next on the device, and the host
+   syncs once per burst, through one `.cpu()` of the [k+1, slots] token block
+   (row 0 carries first tokens sampled at activation).
+
+Left out of this slice (see ROADMAP.md): priority classes and preemption,
+park/resume, speculative decoding, grammar constraints, LoRA, int8
+quantization, the prefix cache, disaggregation and KV shipping. Without
+preemption a page-starved decoding row finishes with "length", the
+reference's behavior before parking existed.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import queue
+import threading
+import time
+import uuid
+
+import numpy as np
+import torch
+
+from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.engine.paging import PagePool
+from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.models.llama import LlamaConfig
+from llmlb_tpu_torch.ops.sampling import sample_tokens
+
+log = logging.getLogger("llmlb_tpu_torch.engine.scheduler")
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0
+    max_tokens: int = 128
+    # Rows with a seed draw from a generator seeded by (seed, position), so
+    # the token sequence reproduces whatever else shares the batch.
+    seed: int | None = None
+
+
+@dataclasses.dataclass
+class Request:
+    prompt_ids: list[int]
+    sampling: SamplingParams
+    request_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
+    # events: ("token", token_id) ... ("done", finish_reason) | ("error", msg)
+    events: queue.SimpleQueue = dataclasses.field(default_factory=queue.SimpleQueue)
+    submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    # Set by the consumer (stop hit / client gone); the step loop frees the
+    # slot at its next emit for this request. A plain bool write.
+    cancelled: bool = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Request | None = None
+    generated: int = 0
+    # Chunked prefill: while prefilling, the slot is excluded from decode
+    # emission and its device seq_len is parked at capacity-1, so the batched
+    # decode step's garbage writes land in the unused last cell.
+    prefilling: bool = False
+    prefill_pos: int = 0
+    # The first token is sampled on the device at activation and emitted
+    # with the next decode fetch instead of its own host readback.
+    first_pending: bool = False
+
+    def clear(self) -> None:
+        self.request = None
+        self.generated = 0
+        self.prefilling = False
+        self.prefill_pos = 0
+        self.first_pending = False
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineStats:
+    num_slots: int
+    active_slots: int
+    queued: int
+    total_requests: int
+    total_tokens: int
+    uptime_s: float
+
+
+class EngineCore:
+    """The compute side of the engine: owns params, the page pool and the
+    step loop."""
+
+    # Same-bucket pending prompts prefill together in one dispatch; bounded
+    # so a deep backlog cannot starve decode for longer than one group.
+    MAX_PREFILL_GROUP = 8
+
+    def __init__(
+        self,
+        cfg: LlamaConfig,
+        params: dict[str, torch.Tensor] | None = None,
+        *,
+        num_slots: int = 8,
+        slot_capacity: int = 512,
+        prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512),
+        eos_id: int = -1,
+        seed: int = 0,
+        decode_burst: int | None = None,
+        kv_page_size: int | None = None,
+        kv_pages: int | None = None,
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.slot_capacity = min(slot_capacity, cfg.max_position_embeddings)
+        self.prefill_buckets = tuple(
+            b for b in sorted(prefill_buckets) if b <= self.slot_capacity
+        )
+        if not self.prefill_buckets:
+            raise ValueError("no prefill bucket fits the slot capacity "
+                             f"({self.slot_capacity})")
+        self.eos_id = eos_id
+
+        # Page size: 128 tokens by default, clamped into the slot capacity.
+        self.kv_page_size = max(1, min(kv_page_size or 128, self.slot_capacity))
+        self.pages_per_slot = -(-self.slot_capacity // self.kv_page_size)
+        # Default pool: every slot's full capacity plus the trash page.
+        self.kv_num_pages = max(
+            int(kv_pages or num_slots * self.pages_per_slot + 1),
+            self.pages_per_slot + 1,
+        )
+
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            params = llama.init_params(cfg, gen, self.device)
+        for name, p in params.items():
+            if p.device != self.device:
+                raise ValueError(f"param {name!r} is on {p.device}, the engine "
+                                 f"runs on {self.device}")
+        self.params = params
+
+        self.page_pool = PagePool(self.kv_num_pages)
+        self.cache_k, self.cache_v = llama.init_kv_pages(
+            cfg, self.kv_num_pages, self.kv_page_size, self.device)
+        self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        # host block tables + their device copy, refreshed before the next
+        # dispatch whenever a row changed
+        self._block_tables = np.zeros((num_slots, self.pages_per_slot),
+                                      np.int32)
+        self._d_block_tables = self._to_device(self._block_tables)
+        self._tables_dirty = False
+        # A request the pool cannot cover yet waits here, retried first.
+        self._held_request: Request | None = None
+        log.info(
+            "KV cache: paged, %d pages x %d tokens (%d slots, %d pages/slot) "
+            "= %.2f GiB on %s", self.kv_num_pages, self.kv_page_size,
+            num_slots, self.pages_per_slot,
+            2 * self.cache_k.numel() * self.cache_k.element_size() / 2**30,
+            self.device,
+        )
+
+        # Host mirrors of the slot state (lengths for stop checks without a
+        # device read; seeds because a seeded row's generator needs host
+        # ints). Sampling params and tokens live on the device and are only
+        # touched at activation — a decode burst does no host-to-device copy.
+        self.slots = [_Slot() for _ in range(num_slots)]
+        self._seq_lens = np.zeros((num_slots,), np.int64)
+        self._seeds = np.full((num_slots,), -1, np.int64)
+        z32 = dict(dtype=torch.int32, device=self.device)
+        self._d_seq_lens = torch.zeros(num_slots, **z32)
+        self._d_last_tokens = torch.zeros(num_slots, **z32)
+        self._d_top_ks = torch.zeros(num_slots, **z32)
+        self._d_temps = torch.ones(num_slots, dtype=torch.float32,
+                                   device=self.device)
+        self._d_top_ps = torch.ones(num_slots, dtype=torch.float32,
+                                    device=self.device)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+        # Rows of NaN logits seen by any dispatch, counted on the device and
+        # read only on request (nan_logit_rows()).
+        self._d_nan_rows = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        # Decode burst: k decode+sample steps per host sync. 8 on the card;
+        # 1 on the CPU, like the reference off its accelerator.
+        if decode_burst is None:
+            decode_burst = 8 if self.device.type == "cuda" else 1
+        self.decode_burst = max(1, int(decode_burst))
+
+        # Context-window buckets (pow2 up to capacity): a decode reads only
+        # the smallest bucket covering every active sequence.
+        buckets = []
+        w = 256
+        while w < self.slot_capacity:
+            buckets.append(w)
+            w *= 2
+        buckets.append(self.slot_capacity)
+        self._window_buckets = tuple(buckets)
+
+        self.pending: queue.Queue[Request] = queue.Queue()
+        self._queue: collections.deque[Request] = collections.deque()
+        self._running = False
+        self._thread: threading.Thread | None = None
+        self._started_at = time.monotonic()
+        self._lock = threading.Lock()
+        self.total_requests = 0
+        self.total_tokens = 0
+        self.prefill_dispatches = 0
+        self.decode_bursts = 0
+        self._prefill_rr = 0  # rotation among concurrently-prefilling slots
+
+    # ------------------------------------------------------------------ public
+
+    def start(self) -> None:
+        self._running = True
+        self._thread = threading.Thread(target=self._loop,
+                                        name="engine-step-loop", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        # terminal events for everything still in flight so waiters unblock
+        self._fail_all("engine shutting down")
+
+    def submit(self, request: Request) -> Request:
+        n = len(request.prompt_ids)
+        if n == 0:
+            raise ValueError("prompt must contain at least one token")
+        # Prompts beyond the largest one-shot bucket run through chunked
+        # prefill; the only hard cap is slot capacity.
+        if n + 1 >= self.slot_capacity:
+            raise ValueError(
+                f"prompt of {n} tokens does not fit the slot capacity "
+                f"({self.slot_capacity}) with room to generate"
+            )
+        bad = [t for t in request.prompt_ids
+               if not 0 <= int(t) < self.cfg.vocab_size]
+        if bad:
+            raise ValueError(f"token id {bad[0]} out of range for vocab size "
+                             f"{self.cfg.vocab_size}")
+        with self._lock:
+            self.total_requests += 1
+        self.pending.put(request)
+        return request
+
+    def stats(self) -> EngineStats:
+        active = sum(1 for s in self.slots if s.request is not None)
+        queued = self.pending.qsize() + len(self._queue)
+        if self._held_request is not None:
+            queued += 1
+        return EngineStats(
+            num_slots=self.num_slots, active_slots=active, queued=queued,
+            total_requests=self.total_requests, total_tokens=self.total_tokens,
+            uptime_s=time.monotonic() - self._started_at,
+        )
+
+    def kv_cache_info(self) -> dict:
+        return {
+            "layout": "paged",
+            "page_size": self.kv_page_size,
+            "pages_total": self.page_pool.total,
+            "pages_free": self.page_pool.available(),
+            "dtype": str(self.cache_k.dtype).replace("torch.", ""),
+        }
+
+    def nan_logit_rows(self) -> int:
+        """Logit rows with a NaN in any dispatch so far (syncs the device)."""
+        return int(self._d_nan_rows.item())
+
+    # ------------------------------------------------------------------- loop
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while self._running:
+            did_work = False
+            try:
+                did_work |= self._try_insert()
+                # At most ONE prefill chunk per iteration: decode steps run
+                # between chunks, so active slots keep emitting tokens during
+                # a long prompt's prefill.
+                did_work |= self._advance_prefill()
+                did_work |= self._decode_active()
+            except Exception:  # boundary: fail the requests, keep serving
+                log.exception("engine step failed; resetting engine state")
+                self._fail_all("engine step error")
+                self._reset_caches()
+            if not did_work:
+                time.sleep(0.001)
+
+    def _reset_caches(self) -> None:
+        self.cache_k.zero_()
+        self.cache_v.zero_()
+        self.page_pool.reset()
+        self._slot_pages = [[] for _ in range(self.num_slots)]
+        self._block_tables[:] = 0
+        self._d_block_tables = self._to_device(self._block_tables)
+        self._tables_dirty = False
+        self._seq_lens[:] = 0
+        self._d_seq_lens.zero_()
+        self._d_last_tokens.zero_()
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"no prefill bucket for prompt of {n} tokens")
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s.request is None]
+
+    def _pop_request(self) -> Request | None:
+        """Next request to admit: the page-starved held one first, then FIFO."""
+        while True:
+            try:
+                self._queue.append(self.pending.get_nowait())
+            except queue.Empty:
+                break
+        if self._held_request is not None:
+            request, self._held_request = self._held_request, None
+            return request
+        return self._queue.popleft() if self._queue else None
+
+    def _finish(self, request: Request, kind: str, value: str) -> None:
+        request.finished_at = time.monotonic()
+        request.events.put((kind, value))
+
+    def _finish_slot(self, slot_id: int, reason: str) -> None:
+        """Terminal teardown of an occupied slot: terminal event, KV pages
+        back to the pool, every slot field reset."""
+        slot = self.slots[slot_id]
+        self._finish(slot.request, "done", reason)
+        self._free_slot_kv(slot_id)
+        slot.clear()
+
+    # ------------------------------------------------------------- paged KV
+
+    def _pages_for_tokens(self, n: int) -> int:
+        return -(-n // self.kv_page_size)
+
+    def _try_reserve_pages(self, count: int) -> list[int] | None:
+        """Alloc `count` fresh pages; None when the pool cannot cover it."""
+        if count <= 0:
+            return []
+        return self.page_pool.alloc(count)
+
+    def _assign_slot_pages(self, slot_id: int, fresh: list[int]) -> None:
+        self._slot_pages[slot_id] = list(fresh)
+        self._block_tables[slot_id, :] = 0
+        self._block_tables[slot_id, :len(fresh)] = fresh
+        self._tables_dirty = True
+
+    def _extend_slot_pages(self, slot_id: int, fresh: list[int]) -> None:
+        row = self._slot_pages[slot_id]
+        start = len(row)
+        row.extend(fresh)
+        self._block_tables[slot_id, start:start + len(fresh)] = fresh
+        self._tables_dirty = True
+
+    def _free_slot_kv(self, slot_id: int) -> None:
+        """Return a slot's pages to the pool and point its table row at the
+        trash page, so the batched decode step's ongoing garbage writes for
+        the freed row never land in a page a new owner holds."""
+        pages = self._slot_pages[slot_id]
+        if pages:
+            for p in pages:
+                self.page_pool.unref(p)
+            self._slot_pages[slot_id] = []
+            self._block_tables[slot_id, :] = 0
+            self._tables_dirty = True
+
+    def _sync_block_tables(self) -> None:
+        """Refresh the device block tables before a dispatch that reads them
+        (one small host-to-device copy, only when a row changed)."""
+        if self._tables_dirty:
+            self._d_block_tables = self._to_device(self._block_tables)
+            self._tables_dirty = False
+
+    def _ensure_decode_pages(self, active: list[int], k: int) -> list[int]:
+        """Alloc-on-extend before a decode burst: grow each active row's
+        pages to cover the k tokens the burst writes. A row the pool cannot
+        cover finishes with "length" (no preemption in this slice). Returns
+        the rows that remain active."""
+        kept = []
+        for i in active:
+            target = min(int(self._seq_lens[i]) + k + 1, self.slot_capacity)
+            need = self._pages_for_tokens(target) - len(self._slot_pages[i])
+            if need > 0:
+                fresh = self._try_reserve_pages(need)
+                if fresh is None:
+                    log.warning("page pool exhausted mid-decode; finishing "
+                                "request %s at %d tokens",
+                                self.slots[i].request.request_id,
+                                int(self._seq_lens[i]))
+                    self._finish_slot(i, "length")
+                    continue
+                self._extend_slot_pages(i, fresh)
+            kept.append(i)
+        return kept
+
+    # -------------------------------------------------------------- admission
+
+    def _try_insert(self) -> bool:
+        free = self._free_slots()
+        if not free:
+            return False
+        max_oneshot = self.prefill_buckets[-1]
+        handled = False
+        inserted = 0  # long inserts count toward the group cap too
+        batch: list[tuple[int, Request, int]] = []  # (slot_id, request, n)
+        while free and len(batch) + inserted < self.MAX_PREFILL_GROUP:
+            request = self._pop_request()
+            if request is None:
+                break
+            if request.cancelled:
+                self._finish(request, "done", "cancelled")
+                handled = True
+                continue
+            n = len(request.prompt_ids)
+            if self.slot_capacity - n - 1 <= 0:
+                self._finish(request, "error", "prompt does not fit slot capacity")
+                handled = True
+                continue
+            pages = self._try_reserve_pages(self._pages_for_tokens(n))
+            if pages is None:
+                self._held_request = request
+                break
+            slot_id = free.pop(0)
+            self._assign_slot_pages(slot_id, pages)
+            if n > max_oneshot:
+                self._insert_long(slot_id, request)
+                handled = True
+                inserted += 1
+                continue
+            # claim the slot before any dispatch: a failed prefill then
+            # reaches the request through _fail_all
+            self.slots[slot_id].request = request
+            self.slots[slot_id].generated = 0
+            batch.append((slot_id, request, n))
+        if not batch:
+            return handled
+        by_bucket: dict[int, list[tuple[int, Request, int]]] = {}
+        for entry in batch:
+            by_bucket.setdefault(self._bucket_for(entry[2]), []).append(entry)
+        for bucket, group in by_bucket.items():
+            self._prefill_group(bucket, group)
+        return True
+
+    def _insert_long(self, slot_id: int, request: Request) -> None:
+        """Claim a slot for a prompt beyond the largest one-shot bucket:
+        park its device seq_len at capacity-1 and let _advance_prefill feed
+        chunks between decode steps."""
+        slot = self.slots[slot_id]
+        slot.request = request
+        slot.generated = 0
+        slot.prefilling = True
+        slot.prefill_pos = 0
+        self._seq_lens[slot_id] = 0
+        self._d_seq_lens[slot_id] = self.slot_capacity - 1
+
+    def _prefill_group(self, bucket: int,
+                       group: list[tuple[int, Request, int]]) -> None:
+        """Prefill G same-bucket prompts in one dispatch, padded to the next
+        power of two by repeating the last row — the duplicate scatters write
+        identical data to the same cells."""
+        g = len(group)
+        padded = 1
+        while padded < g:
+            padded *= 2
+        ids = np.zeros((padded, bucket), np.int64)
+        lens = np.zeros((padded,), np.int32)
+        slot_ids = np.zeros((padded,), np.int64)
+        for row, (slot_id, request, n) in enumerate(group):
+            ids[row, :n] = request.prompt_ids
+            lens[row] = n
+            slot_ids[row] = slot_id
+        ids[g:] = ids[g - 1]
+        lens[g:] = lens[g - 1]
+        slot_ids[g:] = slot_ids[g - 1]
+        self._sync_block_tables()
+        logits, _, _ = llama.prefill_into_pages(
+            self.params, self.cfg, self._to_device(ids), self._to_device(lens),
+            self._to_device(self._block_tables[slot_ids]),
+            self.cache_k, self.cache_v,
+        )
+        self.prefill_dispatches += 1
+        self._activate_group(group, slot_ids, lens, logits)
+
+    def _advance_prefill(self) -> bool:
+        """Feed ONE chunk of ONE prefilling slot's prompt into the pool,
+        rotating among prefilling slots."""
+        prefilling = [i for i, s in enumerate(self.slots) if s.prefilling]
+        if not prefilling:
+            return False
+        slot_id = prefilling[self._prefill_rr % len(prefilling)]
+        self._prefill_rr += 1
+        slot = self.slots[slot_id]
+        request = slot.request
+        if request.cancelled:
+            self._finish_slot(slot_id, "cancelled")
+            return True
+        prompt = request.prompt_ids
+        n = len(prompt)
+        start = slot.prefill_pos
+        chunk_len = min(self.prefill_buckets[-1], n - start)
+        bucket = self._bucket_for(chunk_len)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :chunk_len] = prompt[start:start + chunk_len]
+        logits, _, _ = llama.prefill_extend_pages(
+            self.params, self.cfg, self._to_device(ids),
+            self._to_device(np.asarray([chunk_len], np.int32)),
+            self._to_device(np.asarray([start], np.int32)),
+            self._to_device(self._block_tables[slot_id:slot_id + 1]),
+            self.cache_k, self.cache_v,
+        )
+        self.prefill_dispatches += 1
+        slot.prefill_pos = start + chunk_len
+        if slot.prefill_pos >= n:
+            slot.prefilling = False
+            self._activate_group([(slot_id, request, n)],
+                                 np.asarray([slot_id], np.int64),
+                                 np.asarray([n], np.int32), logits)
+        return True
+
+    def _activate_group(self, group: list[tuple[int, Request, int]],
+                        padded_slot_ids: np.ndarray, padded_lens: np.ndarray,
+                        logits: torch.Tensor) -> None:
+        """Sample each row's first token on the device and scatter the
+        sampling params, lengths and first tokens into the per-slot device
+        state. Padding rows repeat the last real row."""
+        self._count_nan(logits)
+        padded = len(padded_slot_ids)
+        temps = np.ones((padded,), np.float32)
+        top_ps = np.ones((padded,), np.float32)
+        top_ks = np.zeros((padded,), np.int32)
+        seeds = np.full((padded,), -1, np.int64)
+        for row, (_slot_id, request, _n) in enumerate(group):
+            s = request.sampling
+            temps[row] = s.temperature
+            top_ps[row] = s.top_p
+            top_ks[row] = s.top_k
+            if s.seed is not None:
+                seeds[row] = s.seed & 0x7FFFFFFF
+        for arr in (temps, top_ps, top_ks, seeds):
+            arr[len(group):] = arr[len(group) - 1]
+        d_temps = self._to_device(temps)
+        d_top_ps = self._to_device(top_ps)
+        d_top_ks = self._to_device(top_ks)
+        # steps = lens - 1: decode samples with the pre-increment seq_len, so
+        # the activation sample must use a different step for seeded rows
+        firsts = sample_tokens(logits, self._generator, d_temps, d_top_ps,
+                               d_top_ks, seeds=seeds.tolist(),
+                               steps=(padded_lens - 1).tolist())
+        idx = self._to_device(padded_slot_ids)
+        self._d_temps[idx] = d_temps
+        self._d_top_ps[idx] = d_top_ps
+        self._d_top_ks[idx] = d_top_ks
+        self._d_seq_lens[idx] = self._to_device(padded_lens)
+        self._d_last_tokens[idx] = firsts
+        for row, (slot_id, request, n) in enumerate(group):
+            self._seq_lens[slot_id] = n
+            self._seeds[slot_id] = seeds[row]
+            slot = self.slots[slot_id]
+            slot.request = request
+            slot.generated = 0
+            slot.first_pending = True
+
+    def _count_nan(self, logits: torch.Tensor) -> None:
+        self._d_nan_rows += torch.isnan(logits).any(dim=-1).sum()
+
+    # ----------------------------------------------------------------- decode
+
+    def _window_for(self, active: list[int], k: int) -> int:
+        """Smallest context-window bucket covering every active sequence
+        plus the k tokens this dispatch adds."""
+        needed = max(int(self._seq_lens[i]) for i in active) + k + 1
+        for w in self._window_buckets:
+            if w >= needed:
+                return w
+        return self.slot_capacity
+
+    def _decode_active(self) -> bool:
+        active = [i for i, s in enumerate(self.slots)
+                  if s.request is not None and not s.prefilling]
+        if not active:
+            return False
+        # alloc-on-extend: every page the burst writes exists before the
+        # tables ship to the device
+        active = self._ensure_decode_pages(active, self.decode_burst)
+        if not active:
+            return True
+        self._sync_block_tables()
+        k = self.decode_burst
+        window = self._window_for(active, k)
+        seeded = bool((self._seeds[active] >= 0).any())
+        last, lens = self._d_last_tokens, self._d_seq_lens
+        rows = [last]  # row 0: pending first tokens
+        for step in range(k):
+            logits, _, _ = llama.decode_step_paged(
+                self.params, self.cfg, last, lens, self.cache_k, self.cache_v,
+                self._d_block_tables, window=window,
+            )
+            self._count_nan(logits)
+            toks = sample_tokens(
+                logits, self._generator, self._d_temps, self._d_top_ps,
+                self._d_top_ks,
+                seeds=self._seeds.tolist() if seeded else None,
+                steps=(self._seq_lens + step).tolist() if seeded else None,
+            )
+            rows.append(toks)
+            last, lens = toks, lens + 1
+        self._d_last_tokens, self._d_seq_lens = last, lens
+        tokens = torch.stack(rows).cpu().numpy()  # the ONE host sync per burst
+        self.decode_bursts += 1
+        self._emit_fetched(tokens, active)
+        return True
+
+    def _emit_fetched(self, tokens: np.ndarray, active: list[int]) -> None:
+        """Deliver one fetched token block [k+1, slots]: row 0 holds first
+        tokens of slots activated since the previous fetch (no seq_len
+        advance — the first token is prefill output); rows 1.. are decode
+        steps. Tokens of a slot that finishes mid-block are dropped."""
+        for i in active:
+            slot = self.slots[i]
+            if slot.first_pending and slot.request is not None:
+                slot.first_pending = False
+                self._emit(i, int(tokens[0, i]))
+        for t in range(1, tokens.shape[0]):
+            for i in active:
+                slot = self.slots[i]
+                if slot.request is None or slot.prefilling:
+                    continue
+                self._seq_lens[i] += 1
+                self._emit(i, int(tokens[t, i]))
+
+    def _emit(self, slot_id: int, token: int) -> None:
+        """Deliver one generated token and apply the finish rules: EOS,
+        max_tokens, and the slot-capacity edge."""
+        slot = self.slots[slot_id]
+        request = slot.request
+        if request.cancelled:
+            self._finish_slot(slot_id, "cancelled")
+            return
+        slot.generated += 1
+        if request.first_token_at is None:
+            request.first_token_at = time.monotonic()
+        with self._lock:
+            self.total_tokens += 1
+        finish: str | None = None
+        if token == self.eos_id:
+            finish = "stop"  # EOS itself is not emitted as content
+        else:
+            request.events.put(("token", token))
+            if slot.generated >= request.sampling.max_tokens:
+                finish = "length"
+            elif self._seq_lens[slot_id] + 1 >= self.slot_capacity:
+                finish = "length"
+        if finish is not None:
+            self._finish_slot(slot_id, finish)
+
+    def _fail_all(self, message: str) -> None:
+        for slot_id, slot in enumerate(self.slots):
+            if slot.request is not None:
+                self._finish(slot.request, "error", message)
+            self._free_slot_kv(slot_id)
+            slot.clear()
+        if self._held_request is not None:
+            self._finish(self._held_request, "error", message)
+            self._held_request = None
+        while True:
+            request = self._pop_request()
+            if request is None:
+                break
+            self._finish(request, "error", message)

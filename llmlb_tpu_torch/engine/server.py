@@ -1,0 +1,322 @@
+"""OpenAI-compatible HTTP server of the port's engine, on the standard
+library (`http.server.ThreadingHTTPServer`, one thread per connection).
+
+Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
+
+- `GET /v1/models`
+- `POST /v1/chat/completions`, streaming (SSE, written and flushed chunk by
+  chunk, ending with a usage chunk and `data: [DONE]`) and non-streaming,
+  with the reference's chunk and usage shapes;
+- `GET /api/health`;
+- `GET /api/system`, carrying `"tpu_engine": true` — the field the
+  gateway's endpoint detection keys on to treat this as an in-tree engine —
+  and `"backend": "cuda"`.
+
+Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
+card; `--device cpu` for the plain PyTorch path).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import re
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from llmlb_tpu_torch import __version__
+from llmlb_tpu_torch.engine.scheduler import SamplingParams
+from llmlb_tpu_torch.engine.service import Engine, EngineError
+
+log = logging.getLogger("llmlb_tpu_torch.engine.server")
+
+SYSTEM_FINGERPRINT = f"fp_llmlb_tpu_torch_{__version__}"
+MAX_BODY_BYTES = 20 * 1024 * 1024
+_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9_.:\-]{1,128}$")
+
+
+def _sampling_from(body: dict, default_max: int = 256) -> SamplingParams:
+    def pick(*names, default):
+        for n in names:
+            if body.get(n) is not None:
+                return body[n]
+        return default
+
+    temperature = float(pick("temperature", default=1.0))
+    top_p = float(pick("top_p", default=1.0))
+    top_k = int(pick("top_k", default=0))
+    max_tokens = int(pick("max_tokens", "max_completion_tokens",
+                          default=default_max))
+    if temperature < 0:
+        raise ValueError("'temperature' must be >= 0")
+    if not 0 < top_p <= 1:
+        raise ValueError("'top_p' must be in (0, 1]")
+    if top_k < 0:
+        raise ValueError("'top_k' must be >= 0")
+    if max_tokens < 1:
+        raise ValueError("'max_tokens' must be >= 1")
+    seed = body.get("seed")
+    if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int)):
+        raise ValueError("'seed' must be an integer")
+    return SamplingParams(temperature=temperature, top_p=top_p, top_k=top_k,
+                          max_tokens=max_tokens, seed=seed)
+
+
+def _stops_from(body: dict) -> list[str]:
+    stop = body.get("stop") or []
+    if isinstance(stop, str):
+        return [stop]
+    return [s for s in stop if isinstance(s, str)]
+
+
+def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
+    return {
+        "prompt_tokens": prompt_tokens,
+        "completion_tokens": completion_tokens,
+        "total_tokens": prompt_tokens + completion_tokens,
+    }
+
+
+class EngineHTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, address: tuple[str, int], engine: Engine):
+        self.engine = engine
+        super().__init__(address, _Handler)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: EngineHTTPServer
+    server_version = f"llmlb_tpu_torch/{__version__}"
+
+    def log_message(self, fmt, *args):  # route access logs through logging
+        log.debug("%s - " + fmt, self.address_string(), *args)
+
+    # ---------------------------------------------------------------- helpers
+
+    def _json(self, status: int, body: dict, headers: dict | None = None):
+        data = json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, status: int, message: str,
+               err_type: str = "invalid_request_error"):
+        self._json(status, {"error": {"message": message, "type": err_type,
+                                      "code": None}})
+
+    def _sse(self, payload: dict | str) -> None:
+        data = payload if isinstance(payload, str) else json.dumps(
+            payload, separators=(",", ":"))
+        self.wfile.write(f"data: {data}\n\n".encode())
+        self.wfile.flush()
+
+    def _request_id(self) -> str | None:
+        rid = self.headers.get("X-Request-Id")
+        return rid if rid and _REQUEST_ID_RE.match(rid) else None
+
+    # ----------------------------------------------------------------- routes
+
+    def do_GET(self):
+        engine = self.server.engine
+        path = self.path.split("?", 1)[0]
+        if path == "/v1/models":
+            self._json(200, {"object": "list", "data": [{
+                "id": engine.model_id, "object": "model", "created": 0,
+                "owned_by": "llmlb_tpu_torch",
+                "capabilities": ["chat_completion"],
+            }]})
+        elif path == "/api/health":
+            self._json(200, engine.health())
+        elif path == "/api/system":
+            self._json(200, {
+                "name": "llmlb_tpu_torch-engine",
+                "version": __version__,
+                "tpu_engine": True,
+                "backend": "cuda",
+                "device": str(engine.core.device),
+                "model": engine.model_id,
+                "kv_cache": engine.core.kv_cache_info(),
+            })
+        else:
+            self._error(404, f"no route for GET {path}")
+
+    def do_POST(self):
+        path = self.path.split("?", 1)[0]
+        if path != "/v1/chat/completions":
+            self._error(404, f"no route for POST {path}")
+            return
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            self._error(413, "request body too large")
+            return
+        try:
+            body = json.loads(self.rfile.read(length) or b"null")
+        except ValueError:
+            self._error(400, "invalid JSON body")
+            return
+        if not isinstance(body, dict):
+            self._error(400, "body must be a JSON object")
+            return
+        self._chat(body)
+
+    def _chat(self, body: dict) -> None:
+        engine = self.server.engine
+        messages = body.get("messages")
+        try:
+            if not isinstance(messages, list) or not messages:
+                raise ValueError("'messages' must be a non-empty array")
+            if int(body.get("n") or 1) != 1:
+                raise ValueError("only n=1 is supported")
+            prompt_ids = engine.encode_chat(messages)
+            sampling = _sampling_from(body)
+            stops = _stops_from(body)
+            deltas = engine.stream(prompt_ids, sampling, stops,
+                                   request_id=self._request_id())
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        model = body.get("model") or engine.model_id
+        completion_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        if body.get("stream"):
+            include_usage = bool(
+                (body.get("stream_options") or {}).get("include_usage", True))
+            self._stream_chat(deltas, completion_id, created, model,
+                              len(prompt_ids), include_usage)
+            return
+        text, final = [], None
+        try:
+            for delta in deltas:
+                text.append(delta.text)
+                if delta.finish_reason is not None:
+                    final = delta
+        except EngineError as e:
+            self._error(500, str(e), "server_error")
+            return
+        self._json(200, {
+            "id": completion_id,
+            "object": "chat.completion",
+            "created": created,
+            "model": model,
+            "system_fingerprint": SYSTEM_FINGERPRINT,
+            "choices": [{"index": 0,
+                         "message": {"role": "assistant",
+                                     "content": "".join(text)},
+                         "finish_reason": final.finish_reason}],
+            "usage": _usage(final.prompt_tokens, final.completion_tokens),
+        })
+
+    def _stream_chat(self, deltas, completion_id: str, created: int,
+                     model: str, prompt_tokens: int,
+                     include_usage: bool) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+
+        def chunk(delta: dict, finish: str | None = None) -> dict:
+            return {
+                "id": completion_id,
+                "object": "chat.completion.chunk",
+                "created": created,
+                "model": model,
+                "system_fingerprint": SYSTEM_FINGERPRINT,
+                "choices": [{"index": 0, "delta": delta,
+                             "finish_reason": finish}],
+            }
+
+        usage = _usage(prompt_tokens, 0)
+        finish = "stop"
+        try:
+            self._sse(chunk({"role": "assistant", "content": ""}))
+            for delta in deltas:
+                if delta.text:
+                    self._sse(chunk({"content": delta.text}))
+                if delta.finish_reason is not None:
+                    finish = delta.finish_reason
+                    usage = _usage(delta.prompt_tokens,
+                                   delta.completion_tokens)
+            self._sse(chunk({}, finish))
+            if include_usage:
+                final = chunk({}, None)
+                final["choices"] = []
+                final["usage"] = usage
+                self._sse(final)
+            self._sse("[DONE]")
+        except EngineError as e:
+            self._sse({"error": {"message": str(e)}})
+            self._sse("[DONE]")
+        except OSError:
+            deltas.close()  # client gone: cancel the request, free the slot
+
+
+def start_server(engine: Engine, host: str = "127.0.0.1",
+                 port: int = 0) -> tuple[EngineHTTPServer, threading.Thread]:
+    """Serve `engine` from a background thread; port 0 picks a free port
+    (read it from `server.server_address`). Stop with server.shutdown()."""
+    server = EngineHTTPServer((host, port), engine)
+    thread = threading.Thread(target=server.serve_forever,
+                              name="engine-http", daemon=True)
+    thread.start()
+    return server, thread
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(
+        description="llmlb_tpu_torch inference engine (PyTorch/CUDA)")
+    parser.add_argument("--preset", default="debug-tiny")
+    parser.add_argument("--model-id", default=None)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8100)
+    parser.add_argument("--num-slots", type=int, default=8)
+    parser.add_argument("--slot-capacity", type=int, default=4096)
+    parser.add_argument(
+        "--prefill-buckets", default=None,
+        help="comma-separated one-shot prefill lengths (default 32..512); "
+             "prompts beyond the largest run through chunked prefill")
+    parser.add_argument("--kv-page-size", type=int, default=None,
+                        help="tokens per KV page (default 128)")
+    parser.add_argument("--kv-pages", type=int, default=None,
+                        help="total pages in the pool (default: every slot's "
+                             "full capacity plus the trash page)")
+    parser.add_argument("--decode-burst", type=int, default=None,
+                        help="decode+sample steps per host sync (default 8 on "
+                             "the card, 1 on the CPU)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random weights and the sampler")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    core_kwargs = dict(num_slots=args.num_slots,
+                       slot_capacity=args.slot_capacity, seed=args.seed,
+                       kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
+                       decode_burst=args.decode_burst)
+    if args.prefill_buckets:
+        core_kwargs["prefill_buckets"] = tuple(
+            int(b) for b in args.prefill_buckets.split(","))
+    engine = Engine.from_preset(args.preset, model_id=args.model_id,
+                                device=args.device, **core_kwargs)
+    server = EngineHTTPServer((args.host, args.port), engine)
+    log.info("serving %s on http://%s:%d (%s)", engine.model_id,
+             *server.server_address[:2], engine.core.device)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        engine.shutdown()
+
+
+if __name__ == "__main__":
+    main()

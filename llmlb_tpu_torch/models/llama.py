@@ -1,0 +1,345 @@
+"""Llama-family decoder (Llama-2/3, Qwen-2/2.5, Mistral): counterpart of
+`llmlb_tpu/models/llama.py`, paged serving entry points only.
+
+Layouts match the reference at every public function so the two compare
+like with like: params are a flat dict with layers stacked on the leading
+axis (`wq` [L, E, H*D], ...); the KV page pool is [L, P, PS, K, D] with page
+0 as the engine's trash page; q/k/v are [B, T, H|K, D].
+
+JAX donates the cache buffers and returns new ones; here every entry point
+writes the pools IN PLACE (index_put_ on the layer slice) and returns the
+same tensors, so callers can keep the reference's `logits, ck, cv = f(...)`
+shape. Each write is issued on the current stream before the attention that
+reads it, so the kernel sees it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from llmlb_tpu_torch.ops.attention import (
+    gqa_attention_prefill,
+    paged_attention_decode,
+    paged_attention_extend,
+)
+from llmlb_tpu_torch.ops.norms import rms_norm
+from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
+
+Params = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int | None = None  # default hidden_size // num_heads
+    rope_theta: float = 10000.0
+    rope_scaling: RopeScaling | None = None
+    rms_eps: float = 1e-5
+    attention_bias: bool = False  # Qwen-2/2.5 use qkv bias
+    tie_word_embeddings: bool = False
+    max_position_embeddings: int = 8192
+    dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
+    """Leaf name -> (shape, fan_in) for the random init; fan_in 0 marks the
+    ones-initialized norms and zero-initialized biases."""
+    d = cfg.head_dim_
+    h, kv, e, f, n = (cfg.num_heads, cfg.num_kv_heads, cfg.hidden_size,
+                      cfg.intermediate_size, cfg.num_layers)
+    shapes = {
+        "embed": ((cfg.vocab_size, e), e),
+        "wq": ((n, e, h * d), e),
+        "wk": ((n, e, kv * d), e),
+        "wv": ((n, e, kv * d), e),
+        "wo": ((n, h * d, e), h * d),
+        "wg": ((n, e, f), e),
+        "wu": ((n, e, f), e),
+        "wd": ((n, f, e), f),
+        "ln_attn": ((n, e), 0),
+        "ln_mlp": ((n, e), 0),
+        "ln_final": ((e,), 0),
+    }
+    if cfg.attention_bias:
+        shapes["bq"] = ((n, h * d), 0)
+        shapes["bk"] = ((n, kv * d), 0)
+        shapes["bv"] = ((n, kv * d), 0)
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = ((e, cfg.vocab_size), e)
+    return shapes
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device: torch.device | str) -> Params:
+    """Random init with the reference's scheme: normal * fan_in**-0.5 for
+    the matrices, ones for the norms, zeros for the biases. Stacked leaves
+    are filled one layer (or, for the vocab matrices, one row block) at a
+    time on `device`, so the fp32 temporaries stay small at 8B. The numbers
+    differ from JAX's (another generator): tests carry the reference's
+    weights across with engine.weights.params_from_numpy instead."""
+    params: Params = {}
+    for name, (shape, fan_in) in param_shapes(cfg).items():
+        if fan_in == 0:
+            fill = torch.zeros if name.startswith("b") else torch.ones
+            params[name] = fill(shape, dtype=cfg.dtype, device=device)
+            continue
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        rows = out.view(-1, shape[-1]) if len(shape) == 2 else out
+        step = 8192 if len(shape) == 2 else 1
+        for i in range(0, rows.shape[0], step):
+            block = rows[i:i + step]
+            noise = torch.randn(block.shape, generator=generator,
+                                dtype=torch.float32, device=device)
+            block.copy_(noise * fan_in**-0.5)
+        params[name] = out
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
+                  device: torch.device | str, dtype=None):
+    """Global page pool shared by every slot: a slot's logical row is the
+    concatenation of the pool pages its block table names. Page 0 is the
+    engine's trash page (see engine/paging.py)."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.head_dim_)
+    dtype = dtype or cfg.dtype
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write_pool(pool_layer: torch.Tensor, page: torch.Tensor,
+                off: torch.Tensor, kv: torch.Tensor) -> None:
+    """Scatter K/V rows into cells [page, off] of one layer's pool, in place
+    (the reference returns an updated copy of a donated buffer)."""
+    pool_layer.index_put_((page.long(), off.long()), kv.to(pool_layer.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
+    names = ["wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp"]
+    if cfg.attention_bias:
+        names += ["bq", "bk", "bv"]
+    return {n: params[n][i] for n in names}
+
+
+def _proj(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """`x @ W` for unquantized weights (int8 weights wait for a later slice)."""
+    return x @ lp[name]
+
+
+def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor):
+    b, t, _ = x.shape
+    d = cfg.head_dim_
+    q = _proj(lp, "wq", x)
+    k = _proj(lp, "wk", x)
+    v = _proj(lp, "wv", x)
+    if cfg.attention_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    return (q.reshape(b, t, cfg.num_heads, d),
+            k.reshape(b, t, cfg.num_kv_heads, d),
+            v.reshape(b, t, cfg.num_kv_heads, d))
+
+
+def _mlp(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    return _proj(lp, "wd", F.silu(_proj(lp, "wg", x)) * _proj(lp, "wu", x))
+
+
+def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
+                inv_freq, attn_fn):
+    """Pre-norm attention sub-block: norm -> qkv -> rope -> attn_fn -> wo
+    residual. `attn_fn(q, k, v)` writes the KV and attends."""
+    b, t, _ = x.shape
+    h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
+    q, k, v = _qkv(cfg, lp, h)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    attn = attn_fn(q, k, v)
+    return x + _proj(lp, "wo", attn.reshape(b, t, -1))
+
+
+def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and vocab projection -> fp32 logits [B, V]: model-dtype
+    inputs, fp32 accumulation and fp32 output, as the reference's
+    preferred_element_type=float32. On the card a bf16 model takes cuBLAS's
+    bf16-in/fp32-out product, so the logits are never rounded to bf16 and no
+    fp32 copy of the vocab matrix is made; the CPU has no such product and
+    widens the operands instead (the same values)."""
+    x = rms_norm(x, params["ln_final"], cfg.rms_eps)
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return torch.mm(x, head, out_dtype=torch.float32)
+    return x.float() @ head.float()
+
+
+def _last_rows(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """x [B, T, E] -> row lens[b]-1 of each batch entry, [B, E]."""
+    last = torch.clamp(lens.long() - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+def _rope_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
+    return rope_frequencies(cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling,
+                            device=device)
+
+
+def _page_cells(block_tables: torch.Tensor, positions: torch.Tensor,
+                page_size: int):
+    """Physical (page, offset) of logical positions [B, T]. Table columns
+    past the end clamp to the last, as the reference's gather does."""
+    col = torch.clamp(positions // page_size, max=block_tables.shape[1] - 1)
+    return torch.gather(block_tables, 1, col.long()), positions % page_size
+
+
+def prefill_into_pages(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, T] int, right-padded
+    prompt_lens: torch.Tensor,  # [B] int32
+    block_tables: torch.Tensor,  # [B, PPN] int32 — target pages per prompt
+    cache_k: torch.Tensor,  # [L, P, PS, K, D] — the engine's live page pool
+    cache_v: torch.Tensor,
+):
+    """Prefill B prompts and scatter their KV through the block tables into
+    the global page pool. Returns (last_logits [B, V] fp32, cache_k,
+    cache_v), the pools updated in place.
+
+    HANDOFF CONTRACT (kept from the reference): row i of `last_logits` is the
+    FINAL-position logits of prompt i, and every KV row lands at its absolute
+    token position. The first token samples from exactly this logits row,
+    and position-exact KV is what lets a later chunk or decode step continue
+    the sequence token-identically."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    inv_freq = _rope_freqs(cfg, dev)
+    positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+    page, off = _page_cells(block_tables, positions, cache_k.shape[2])
+    prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+
+    x = params["embed"][input_ids.long()]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        lp = _layer(params, cfg, i)
+
+        def attn_fn(q, k, v, i=i):
+            _write_pool(cache_k[i], page, off, k)
+            _write_pool(cache_v[i], page, off, v)
+            return gqa_attention_prefill(q, k, v, prompt_lens)
+
+        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
+        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+
+    logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
+    return logits, cache_k, cache_v
+
+
+def prefill_extend_pages(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, T] int, right-padded chunk
+    chunk_lens: torch.Tensor,  # [B] int32 — valid tokens in this chunk
+    start_pos: torch.Tensor,  # [B] int32 — tokens already in the row's pages
+    block_tables: torch.Tensor,  # [B, PPN] int32
+    cache_k: torch.Tensor,  # [L, P, PS, K, D]
+    cache_v: torch.Tensor,
+):
+    """Paged chunked prefill: append a chunk of prompt tokens to rows that
+    already hold `start_pos` tokens, attending over everything so far
+    through the block tables. Padding tokens write garbage past the chunk —
+    into the row's own later pages or the trash page, never another row's
+    cells. Returns (chunk-last logits [B, V] fp32, cache_k, cache_v)."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    ps = cache_k.shape[2]
+    capacity = block_tables.shape[1] * ps
+    inv_freq = _rope_freqs(cfg, dev)
+    start_pos = start_pos.to(device=dev, dtype=torch.int32)
+    chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
+    positions = start_pos[:, None] + torch.arange(t, device=dev,
+                                                  dtype=torch.int32)[None, :]
+    page, off = _page_cells(block_tables,
+                            torch.clamp(positions, max=capacity - 1), ps)
+
+    x = params["embed"][input_ids.long()]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        lp = _layer(params, cfg, i)
+
+        def attn_fn(q, k, v, i=i):
+            _write_pool(cache_k[i], page, off, k)
+            _write_pool(cache_v[i], page, off, v)
+            return paged_attention_extend(q, cache_k[i], cache_v[i],
+                                          block_tables, positions, chunk_lens)
+
+        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
+        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+
+    logits = _unembed(cfg, params, _last_rows(x, chunk_lens))
+    return logits, cache_k, cache_v
+
+
+def decode_step_paged(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B] int — previous sampled token per row
+    seq_lens: torch.Tensor,  # [B] int32 — tokens already in the row's pages
+    cache_k: torch.Tensor,  # [L, P, PS, K, D]
+    cache_v: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, PPN] int32
+    window: int | None = None,  # context-window bucket (>= max seq + 1)
+):
+    """One paged decode step across all rows. Returns (logits [B, V] fp32,
+    cache_k, cache_v). Each layer's one-token KV lands at page
+    block_tables[b, pos // PS], offset pos % PS, before attention reads the
+    pool; freed or parked rows clamp into their own last cell or the trash
+    page (their table rows are zeroed on free), so garbage writes never land
+    in a page another row owns."""
+    b = input_ids.shape[0]
+    dev = input_ids.device
+    ps = cache_k.shape[2]
+    capacity = block_tables.shape[1] * ps
+    inv_freq = _rope_freqs(cfg, dev)
+    write_pos = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32),
+                            max=capacity - 1)
+    positions = write_pos[:, None]  # [B, 1]
+    page, off = _page_cells(block_tables, positions, ps)
+    kv_lens = (write_pos + 1).to(torch.int32)
+
+    x = params["embed"][input_ids.long()][:, None, :]  # [B, 1, E]
+    for i in range(cfg.num_layers):
+        lp = _layer(params, cfg, i)
+
+        def attn_fn(q, k, v, i=i):
+            _write_pool(cache_k[i], page, off, k)
+            _write_pool(cache_v[i], page, off, v)
+            return paged_attention_decode(q, cache_k[i], cache_v[i],
+                                          block_tables, kv_lens, window=window)
+
+        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
+        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+
+    logits = _unembed(cfg, params, x[:, 0])
+    return logits, cache_k, cache_v

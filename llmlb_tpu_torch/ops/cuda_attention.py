@@ -1,0 +1,271 @@
+"""Hand-written Hopper attention kernels: counterpart of
+`llmlb_tpu/ops/pallas_attention.py`.
+
+Three kernels carry the paged serving path, each a CUDA C++ source under
+`llmlb_tpu_torch/csrc/` built by `kernels/build.py`:
+
+- `flash_prefill`: causal ragged GQA prefill over a fresh bucketed prompt
+  (`csrc/flash_prefill.cu`).
+- `paged_flash_decode`: one-token GQA decode through the block tables
+  (`csrc/paged_decode.cu`).
+- `paged_flash_extend`: a chunk of contiguous queries attending causally over
+  a row's pages (`csrc/paged_extend.cu`).
+
+Each wrapper takes the JAX kernel's signature. On CUDA tensors it checks
+device, dtype, shape, contiguity and alignment, allocates the output with
+`torch.empty`, launches on the current stream, raises if the launch is
+refused, and adds one to `LAUNCHES[name]`. On CPU tensors it returns its
+plain PyTorch version (`*_reference`, beside it here), which the tests hold
+against the Pallas kernels in interpret mode and `chip_smoke.py` holds against
+the kernel on the card. Any other device raises.
+
+Defined outputs, as in the Pallas kernels: prefill rows t < prompt_lens[b];
+decode rows with kv_lens[b] <= pages * PS; extend rows i < chunk_lens[b].
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from llmlb_tpu_torch.kernels import build
+
+_NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
+
+# Kernel launches since the last reset, by kernel name. Only the CUDA branch
+# of each wrapper adds to these.
+LAUNCHES: dict[str, int] = {
+    "flash_prefill": 0,
+    "paged_flash_decode": 0,
+    "paged_flash_extend": 0,
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DECODE_MAX_GROUP = 8  # kDecodeRows in csrc/attention_common.cuh
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Masked GQA attention with the kernels' numerics: fp32 scores scaled
+    after the dot, fp32 softmax with finite -1e30 masking, probabilities
+    rounded to v.dtype before the fp32 PV product, and 0 for a row with no
+    visible key. GQA folds into the einsum; the KV heads are not repeated.
+
+    q [B, T, H, D]; k, v [B, S, K, D]; mask [B, T, S] bool -> [B, T, H, D]."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.float().reshape(b, t, kh, h // kh, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * d**-0.5
+    m = mask[:, None, None]  # [B, 1, 1, T, S]
+    scores = scores.masked_fill(~m, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1) * m.any(dim=-1, keepdim=True)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def gather_kv_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Materialize contiguous per-row KV from the page pool: [P, PS, K, D]
+    gathered by block tables [B, N] -> [B, N*PS, K, D]. The plain versions
+    only: the kernels read the pool through the table and build no copy."""
+    b, n = tables.shape
+    _, ps, kh, d = pages.shape
+    return pages[tables.long()].reshape(b, n * ps, kh, d)
+
+
+def flash_prefill_reference(q, k, v, prompt_lens):
+    """Plain version of flash_prefill: key j visible to query t iff
+    j <= t and j < prompt_lens[b]."""
+    t = q.shape[1]
+    pos = torch.arange(t, device=q.device)
+    mask = ((pos[None, :, None] >= pos[None, None, :])
+            & (pos[None, None, :] < prompt_lens.to(q.device)[:, None, None]))
+    return masked_attention(q, k, v, mask)
+
+
+def paged_flash_decode_reference(q, k_pages, v_pages, block_tables, kv_lens,
+                                 *, pages: int | None = None):
+    """Plain version of paged_flash_decode: the first `pages` logical pages
+    are swept and keys j < kv_lens[b] are visible. q [B, H, D]."""
+    ps = k_pages.shape[1]
+    ppn = block_tables.shape[1]
+    sweep = ppn if pages is None else max(1, min(pages, ppn))
+    tables = block_tables[:, :sweep]
+    k_cache = gather_kv_pages(k_pages, tables)
+    v_cache = gather_kv_pages(v_pages, tables)
+    cols = torch.arange(sweep * ps, device=q.device)
+    mask = cols[None, None, :] < kv_lens.to(q.device)[:, None, None]
+    return masked_attention(q[:, None], k_cache, v_cache, mask)[:, 0]
+
+
+def paged_flash_extend_reference(q, k_pages, v_pages, block_tables,
+                                 start_pos, chunk_lens):
+    """Plain version of paged_flash_extend: query i of row b at position
+    start_pos[b] + i sees keys j <= its position. Every row is computed;
+    rows i >= chunk_lens[b] are undefined in the kernel's contract."""
+    del chunk_lens  # only decides which rows are defined
+    t = q.shape[1]
+    k_cache = gather_kv_pages(k_pages, block_tables)
+    v_cache = gather_kv_pages(v_pages, block_tables)
+    q_pos = (start_pos.to(q.device)[:, None]
+             + torch.arange(t, device=q.device)[None, :])
+    cols = torch.arange(k_cache.shape[1], device=q.device)
+    mask = cols[None, None, :] <= q_pos[:, :, None]
+    return masked_attention(q, k_cache, v_cache, mask)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, main: torch.Tensor, floats: dict, ints: dict) -> int:
+    """Validate what the kernel takes; returns the dtype code."""
+    dev = main.device
+    if main.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {main.dtype} not supported "
+                        "(float32 or bfloat16)")
+    d = main.shape[-1]
+    if d > 128 or d % 8 or 256 % d:
+        raise ValueError(f"{name}: head_dim {d} not supported "
+                         "(a divisor of 256, multiple of 8, at most 128)")
+    for arg, t in {**floats, **ints}.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    for arg, t in floats.items():
+        if t.dtype != main.dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, q is {main.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    for arg, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
+    return _DTYPE_CODES[main.dtype]
+
+
+def _route(name: str, q: torch.Tensor) -> bool:
+    """True for the CUDA launch, False for the plain version on the CPU."""
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  prompt_lens: torch.Tensor) -> torch.Tensor:
+    """Causal ragged GQA prefill attention. q [B, T, H, D], k/v [B, T, K, D],
+    prompt_lens [B] int32 -> [B, T, H, D] in q.dtype."""
+    if not _route("flash_prefill", q):
+        return flash_prefill_reference(q, k, v, prompt_lens)
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    if k.shape != (b, t, kh, d) or v.shape != k.shape or h % kh:
+        raise ValueError(f"flash_prefill: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if prompt_lens.shape != (b,):
+        raise ValueError("flash_prefill: prompt_lens must be [B]")
+    code = _check("flash_prefill", q, {"q": q, "k": k, "v": v},
+                  {"prompt_lens": prompt_lens})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    _launch("flash_prefill", "llmlb_flash_prefill", q.device,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(prompt_lens), _ptr(out),
+            b, t, h, kh, d, ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       kv_lens: torch.Tensor, *,
+                       pages: int | None = None) -> torch.Tensor:
+    """Ragged paged one-token GQA decode. q [B, H, D], pools [P, PS, K, D],
+    block_tables [B, PPN] int32, kv_lens [B] int32 -> [B, H, D]. `pages`
+    (static) bounds the sweep to the first `pages` logical pages."""
+    if not _route("paged_flash_decode", q):
+        return paged_flash_decode_reference(q, k_pages, v_pages, block_tables,
+                                            kv_lens, pages=pages)
+    b, h, d = q.shape
+    _, ps, kh, _ = k_pages.shape
+    ppn = block_tables.shape[1]
+    if (k_pages.shape[-1] != d or v_pages.shape != k_pages.shape or h % kh
+            or block_tables.shape != (b, ppn) or kv_lens.shape != (b,)):
+        raise ValueError("paged_flash_decode: shapes q "
+                         f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
+                         f"tables {tuple(block_tables.shape)}, kv_lens "
+                         f"{tuple(kv_lens.shape)}")
+    if h // kh > _DECODE_MAX_GROUP:
+        raise ValueError(f"paged_flash_decode: {h // kh} query heads per KV "
+                         f"head; the kernel takes at most {_DECODE_MAX_GROUP}")
+    sweep = ppn if pages is None else max(1, min(int(pages), ppn))
+    code = _check("paged_flash_decode", q,
+                  {"q": q, "k_pages": k_pages, "v_pages": v_pages},
+                  {"block_tables": block_tables, "kv_lens": kv_lens})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    _launch("paged_flash_decode", "llmlb_paged_flash_decode", q.device,
+            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+            _ptr(kv_lens), _ptr(out), b, h, kh, d, ps, ppn, sweep,
+            ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def paged_flash_extend(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       start_pos: torch.Tensor,
+                       chunk_lens: torch.Tensor) -> torch.Tensor:
+    """Paged chunked-prefill attention. q [B, T, H, D], pools [P, PS, K, D],
+    block_tables [B, PPN], start_pos / chunk_lens [B] int32 -> [B, T, H, D]."""
+    if not _route("paged_flash_extend", q):
+        return paged_flash_extend_reference(q, k_pages, v_pages, block_tables,
+                                            start_pos, chunk_lens)
+    b, t, h, d = q.shape
+    _, ps, kh, _ = k_pages.shape
+    ppn = block_tables.shape[1]
+    if (k_pages.shape[-1] != d or v_pages.shape != k_pages.shape or h % kh
+            or block_tables.shape != (b, ppn) or start_pos.shape != (b,)
+            or chunk_lens.shape != (b,)):
+        raise ValueError("paged_flash_extend: shapes q "
+                         f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
+                         f"tables {tuple(block_tables.shape)}")
+    code = _check("paged_flash_extend", q,
+                  {"q": q, "k_pages": k_pages, "v_pages": v_pages},
+                  {"block_tables": block_tables, "start_pos": start_pos,
+                   "chunk_lens": chunk_lens})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    _launch("paged_flash_extend", "llmlb_paged_flash_extend", q.device,
+            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+            _ptr(start_pos), _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps,
+            ppn, ctypes.c_float(d**-0.5), code)
+    return out

@@ -1,0 +1,188 @@
+"""Where the port's serving dispatches spend their time on the card.
+
+Builds a model from a preset with random weights (seed 0) and a full page
+pool, then times the dispatches the engine issues, at the engine's shapes:
+
+- `decode`: one decode step plus sampling over 8 rows (what the burst loop
+  runs k times per host sync), at a short and a long context;
+- `prefill`: one bucketed `prefill_into_pages` dispatch;
+- `extend`: one 512-token `prefill_extend_pages` chunk at position 1024.
+
+For each it prints the host wall time per dispatch (host clock around many
+back-to-back dispatches ending in a synchronize), the device time the
+profiler saw (`torch.profiler`, kernel durations summed), the device's idle
+share (1 - device / wall), the launches per dispatch, and the device time
+split into the port's attention kernels, matrix products (cuBLAS) and
+everything else, with the top kernels by name.
+
+Run on the card from the repository root:
+
+    python -m llmlb_tpu_torch.profile_step --preset llama-3-8b
+
+`--device cpu` rehearses the same dispatches at a small preset on the CPU
+and prints no timing (there is no device to time).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import time
+
+import torch
+
+from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.engine.presets import get_preset
+from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.ops import cuda_attention
+from llmlb_tpu_torch.ops.sampling import sample_tokens
+
+ROWS = 8  # the engine's default slots
+CAPACITY = 4096  # its default slot capacity, in tokens
+PAGE = 128
+REPS = 20
+ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
+                     "paged_extend_kernel")
+MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in ATTENTION_KERNELS):
+        return "attention"
+    if any(m in low for m in MATMUL_MARKS):
+        return "matmul"
+    return "other"
+
+
+def _profile(fn, reps: int) -> dict:
+    """Wall and device time of fn() per call, on the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_cat: dict[str, float] = collections.defaultdict(float)
+    by_name: dict[str, float] = collections.defaultdict(float)
+    launches = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        by_cat[_category(e.name)] += us
+        by_name[e.name] += us
+        launches += 1
+    device_ms = sum(by_cat.values()) / reps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "idle_share": (1.0 - device_ms / wall_ms) if device_ms else None,
+        "launches": launches / reps,
+        "device_ms_by_kind": {k: v / reps / 1e3 for k, v in sorted(by_cat.items())},
+        "top_kernels_ms": [[n[:80], v / reps / 1e3] for n, v in top],
+    }
+
+
+def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx):
+    """name -> zero-argument callable issuing one engine dispatch."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    temps = torch.zeros(ROWS, device=device)  # greedy, as chip_smoke serves
+    top_p = torch.ones(ROWS, device=device)
+    top_k = torch.zeros(ROWS, dtype=torch.int32, device=device)
+    toks = torch.randint(0, 256, (ROWS,), generator=gen, device=device,
+                         dtype=torch.int32)
+    capacity = tables.shape[1] * ck.shape[2]
+
+    def decode(ctx):
+        lens = torch.full((ROWS,), ctx, dtype=torch.int32, device=device)
+        window = min(capacity, 1 << max(8, (ctx + 9 - 1).bit_length()))
+
+        def step():
+            logits, _, _ = llama.decode_step_paged(params, cfg, toks, lens, ck,
+                                                   cv, tables, window=window)
+            sample_tokens(logits, gen, temps, top_p, top_k)
+        return step
+
+    def prefill(rows, bucket):
+        ids = torch.randint(0, 256, (rows, bucket), generator=gen,
+                            device=device)
+        lens = torch.full((rows,), bucket - 4, dtype=torch.int32,
+                          device=device)
+        return lambda: llama.prefill_into_pages(params, cfg, ids, lens,
+                                                tables[:rows], ck, cv)
+
+    def extend(start, chunk):
+        ids = torch.randint(0, 256, (1, chunk), generator=gen, device=device)
+        n = torch.tensor([chunk], dtype=torch.int32, device=device)
+        s = torch.tensor([start], dtype=torch.int32, device=device)
+        return lambda: llama.prefill_extend_pages(params, cfg, ids, n, s,
+                                                  tables[:1], ck, cv)
+
+    bucket = min(512, capacity // 2)
+    return {
+        f"decode rows={ROWS} ctx={short_ctx}": decode(short_ctx),
+        f"decode rows={ROWS} ctx={long_ctx}": decode(long_ctx),
+        f"prefill rows=1 bucket={min(128, bucket)}": prefill(1, min(128, bucket)),
+        f"prefill rows={ROWS} bucket={bucket}": prefill(ROWS, bucket),
+        f"extend chunk={bucket} start={long_ctx // 2}": extend(long_ctx // 2,
+                                                               bucket),
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--preset", default=None,
+                        help="default llama-3-8b on the card, debug-tiny on "
+                             "the CPU")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    on_card = device.type == "cuda"
+    cfg = get_preset(args.preset or ("llama-3-8b" if on_card else "debug-tiny"))
+    capacity = CAPACITY if on_card else 256
+    page = min(PAGE, capacity)
+    ppn = capacity // page
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                               device)
+    ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device)
+    tables = (torch.arange(ROWS * ppn, dtype=torch.int32, device=device) + 1
+              ).reshape(ROWS, ppn)
+    dispatches = _dispatches(cfg, params, ck, cv, tables, device,
+                             short_ctx=min(160, capacity // 4),
+                             long_ctx=capacity // 2)
+    for name, fn in dispatches.items():
+        if not on_card:
+            fn()  # rehearsal: shapes and control flow only
+            print(f"rehearsal on cpu: {name} ran (no device to time)")
+            continue
+        cuda_attention.reset_launch_counts()
+        row = {"dispatch": name, "preset": args.preset or "llama-3-8b",
+               "card": smi, **_profile(fn, REPS)}
+        print(json.dumps(row), flush=True)
+        if not any(cuda_attention.LAUNCHES.values()):
+            raise RuntimeError(f"{name}: no attention kernel launched")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
