@@ -12,17 +12,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              in bf16 and fp32 at the serving shapes of Llama-3-8B and in fp32
              at debug-tiny's head_dim, show that the bf16 limit rejects the
-             plain version with one page or key tile left out, and time
-             kernel / plain / library call with CUDA events.
+             plain version with one page or key tile left out (and, for the
+             int8 kernels, with the wrong page's scales or K's scales for
+             V), and time kernel / plain / library call with CUDA events.
 4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
 5. model   — the model's three paged entry points on the card (kernels)
-             against the CPU (plain path) at debug size.
+             against the CPU (plain path) at debug size, with model-dtype
+             and with int8 pools and weights.
 6. serve   — the port's HTTP server in-process, Llama-3-8B at full width and
              depth with random bf16 weights from seed 0: concurrent chat
              requests (streaming and not), a ~1500-token prompt that takes
              the chunked path, a repeat whose text must match, then
              token-level determinism, TTFT and decode rate on the same core.
-             Every kernel's launch count over this phase must be above 0.
+             Each kernel of the path launches over this phase; the int8
+             kernels do not.
+7. serve int8 — the same with quantize="all": the same seed-0 weights
+             quantized on the card, int8 KV pages; flash_prefill and the two
+             int8 kernels launch, the bf16 paged kernels do not, and the
+             greedy tokens that agree with the bf16 run are counted.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -193,6 +200,7 @@ def phase_kernels() -> list[dict]:
     import torch.nn.functional as F
 
     from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.quant import quantize_kv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -322,7 +330,12 @@ def phase_kernels() -> list[dict]:
         plain_ms=cuda_ms(lambda: ca.paged_flash_extend_reference(
             q, kp, vp, tab1, start, chunk), 3),
         bound_ms=bms, bound_by=by, library_ms=None))
-    del kp, vp, q, got, want
+    del q, got, want
+
+    # -- the int8 kernels, on the same pages quantized -----------------------
+    rows += _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1,
+                           start_host, chunk_host)
+    del kp, vp
 
     # -- fp32 at the serving shapes (D 128, pages of 128) --------------------
     q, k, v = randn((2, 128, H, D), f32), randn((2, 128, KV, D), f32), \
@@ -362,11 +375,150 @@ def phase_kernels() -> list[dict]:
            ca.paged_flash_extend(q, kp, vp, tab, st, ch),
            ca.paged_flash_extend_reference(q, kp, vp, tab, st, ch),
            atol=FP32_ATOL, rows=[16, 9, 3])
+    qk, qv = quantize_kv(kp), quantize_kv(vp)
+    q = randn((3, 8, 16), f32)
+    _check("paged_flash_decode_quant fp32 [3,8,16] G=2 pages=3",
+           ca.paged_flash_decode_quant(q, *qk, *qv, tab, kl, pages=3),
+           ca.paged_flash_decode_quant_reference(q, *qk, *qv, tab, kl, pages=3),
+           atol=FP32_ATOL)
+    q = randn((3, 16, 8, 16), f32)
+    _check("paged_flash_extend_quant fp32 [3,16,8,16] G=2",
+           ca.paged_flash_extend_quant(q, *qk, *qv, tab, st, ch),
+           ca.paged_flash_extend_quant_reference(q, *qk, *qv, tab, st, ch),
+           atol=FP32_ATOL, rows=[16, 9, 3])
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
+
+
+def _dequant(codes, scales, tables, dtype, scale_tables=None):
+    """The plain versions' dequantized rows [B, N*PS, K, D]: codes gathered
+    through `tables`, scales through `scale_tables` (default the same)."""
+    from llmlb_tpu_torch.quant import dequantize_kv
+
+    idx = tables.long()
+    sidx = idx if scale_tables is None else scale_tables.long()
+    b, n = idx.shape
+    _, ps, kv, d = codes.shape
+    return dequantize_kv(codes[idx].reshape(b, n * ps, kv, d),
+                         scales[sidx].reshape(b, n * ps, kv), dtype)
+
+
+def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
+                   chunk_host) -> list[dict]:
+    """paged_flash_decode_quant and paged_flash_extend_quant at the shapes of
+    the bf16 checks above, on those pools quantized: bf16 and fp32 against
+    the plain versions, four mutants the bf16 limit must reject, timings."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.quant import quantize_kv
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    ppn = tables.shape[1]
+    lens = torch.tensor(lens_host, dtype=torch.int32, device="cuda")
+    cols = torch.arange(ppn * PAGE, device="cuda")
+    out = []
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def mutants(q, mask, tab, decode):
+        """(name, plain version with the fault) for faults a kernel reading
+        int8 pages could have."""
+        kc, vc = (_dequant(kq, ks, tab, q.dtype), _dequant(vq, vs, tab, q.dtype))
+        yield "page 5 of row 0 left out", _plain(torch, q, kc, vc, mask,
+                                                   (5 * PAGE, 6 * PAGE, [0]))
+        if decode:  # the 4096-token row's last key tile
+            yield "last 64-key tile of row 0 left out", _plain(
+                torch, q, kc, vc, mask, (4096 - 64, 4096, [0]))
+        # an off-by-one in the scale index: K scales of the next page
+        wrong = _dequant(kq, ks, tab, q.dtype, torch.roll(tab, -1, dims=1))
+        yield "K scales read from the next page", _plain(torch, q, wrong, vc,
+                                                         mask)
+        yield "K's scales used for V", _plain(
+            torch, q, kc, _dequant(vq, ks, tab, q.dtype), mask)
+
+    # -- decode: 8 rows, contexts 4096..1 -------------------------------------
+    q = randn((SLOTS, H, D), bf16)
+    got = ca.paged_flash_decode_quant(q, kq, ks, vq, vs, tables, lens, pages=ppn)
+    want = ca.paged_flash_decode_quant_reference(q, kq, ks, vq, vs, tables,
+                                                 lens, pages=ppn)
+    torch.cuda.synchronize()
+    err = _check("paged_flash_decode_quant bf16 [8,32,128] ctx<=4096", got,
+                 want, rel=BF16_REL)
+    mask = (cols[None, :] < lens[:, None])[:, None]
+    kc, vc = _dequant(kq, ks, tables, bf16), _dequant(vq, vs, tables, bf16)
+    if not torch.equal(_plain(torch, q[:, None], kc, vc, mask)[:, 0], want):
+        raise AssertionError("paged_flash_decode_quant: the mutants' plain "
+                             "version is not the plain version")
+    del kc, vc
+    for what, mutant in mutants(q[:, None], mask, tables, True):
+        _must_fail(f"paged_flash_decode_quant bf16, {what}", mutant[:, 0],
+                   want, rel=BF16_REL)
+    kv_cells = sum(lens_host)
+    table_reads = sum(-(-n // PAGE) for n in lens_host)
+    # codes and a float32 scale per (position, KV head), for K and V
+    nbytes = (kv_cells * KV * (D + 4) * 2 + 2 * q.numel() * 2
+              + table_reads * 4 + SLOTS * 4)
+    bms, by = bound_ms(nbytes, 4 * H * D * kv_cells, PEAK_BF16_FLOPS)
+    out.append(dict(
+        name="paged_flash_decode_quant", route="cuda",
+        source="llmlb_tpu_torch/csrc/paged_decode_quant.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:346",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.paged_flash_decode_quant(
+            q, kq, ks, vq, vs, tables, lens, pages=ppn), 50),
+        plain_ms=cuda_ms(lambda: ca.paged_flash_decode_quant_reference(
+            q, kq, ks, vq, vs, tables, lens, pages=ppn), 5),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    qf = randn((SLOTS, H, D), f32)
+    _check("paged_flash_decode_quant fp32 [8,32,128] ctx<=4096",
+           ca.paged_flash_decode_quant(qf, kq, ks, vq, vs, tables, lens,
+                                       pages=ppn),
+           ca.paged_flash_decode_quant_reference(qf, kq, ks, vq, vs, tables,
+                                                 lens, pages=ppn),
+           atol=FP32_ATOL)
+
+    # -- extend: one 476-token chunk at position 1024 ------------------------
+    t = 512
+    q = randn((1, t, H, D), bf16)
+    start = torch.tensor([start_host], dtype=torch.int32, device="cuda")
+    chunk = torch.tensor([chunk_host], dtype=torch.int32, device="cuda")
+    got = ca.paged_flash_extend_quant(q, kq, ks, vq, vs, tab1, start, chunk)
+    want = ca.paged_flash_extend_quant_reference(q, kq, ks, vq, vs, tab1,
+                                                 start, chunk)
+    torch.cuda.synchronize()
+    err = _check("paged_flash_extend_quant bf16 [1,512,32,128] start 1024",
+                 got, want, rel=BF16_REL, rows=[chunk_host])
+    q_pos = start_host + torch.arange(t, device="cuda")
+    mask = cols[None, None, :] <= q_pos[None, :, None]
+    for what, mutant in mutants(q, mask, tab1, False):
+        _must_fail(f"paged_flash_extend_quant bf16, {what}", mutant, want,
+                   rel=BF16_REL, rows=[chunk_host])
+    keys = start_host + chunk_host
+    visible = sum(start_host + i + 1 for i in range(chunk_host))
+    nbytes = (keys * KV * (D + 4) * 2 + 2 * chunk_host * H * D * 2
+              + -(-keys // PAGE) * 4 + 8)
+    bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
+    out.append(dict(
+        name="paged_flash_extend_quant", route="cuda",
+        source="llmlb_tpu_torch/csrc/paged_extend_quant.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:885",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.paged_flash_extend_quant(
+            q, kq, ks, vq, vs, tab1, start, chunk), 20),
+        plain_ms=cuda_ms(lambda: ca.paged_flash_extend_quant_reference(
+            q, kq, ks, vq, vs, tab1, start, chunk), 3),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    qf = randn((1, t, H, D), f32)
+    _check("paged_flash_extend_quant fp32 [1,512,32,128] start 1024",
+           ca.paged_flash_extend_quant(qf, kq, ks, vq, vs, tab1, start, chunk),
+           ca.paged_flash_extend_quant_reference(qf, kq, ks, vq, vs, tab1,
+                                                 start, chunk),
+           atol=FP32_ATOL, rows=[chunk_host])
+    return out
 
 
 def phase_unembed() -> None:
@@ -409,15 +561,16 @@ def phase_unembed() -> None:
 
 def phase_model_entry_points() -> None:
     """The three paged entry points at debug size: card (kernels) against
-    CPU (plain path), fp32 logits within FP32_ATOL * 10 (two layers)."""
+    CPU (plain path), fp32 logits within FP32_ATOL * 10 (two layers), with
+    model-dtype pools and weights and then with int8 pools and weights."""
     import torch
 
     from llmlb_tpu_torch.engine.presets import get_preset
     from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.quant import quantize_params
 
     cfg = get_preset("debug-tiny")
     params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    gparams = {k: v.cuda() for k, v in params.items()}
     tables = torch.tensor([[3, 7, 1, 10], [5, 2, 9, 11]], dtype=torch.int32)
     rng = torch.Generator().manual_seed(1)
     ids = torch.randint(0, 512, (2, 32), generator=rng)
@@ -426,9 +579,9 @@ def phase_model_entry_points() -> None:
     chunk_lens = torch.tensor([16, 3], dtype=torch.int32)
     toks = torch.randint(0, 512, (2,), generator=rng)
 
-    def run(dev, p):
+    def run(dev, p, quantized):
         tb = tables.to(dev)
-        ck, cv = llama.init_kv_pages(cfg, 12, 16, dev)
+        ck, cv = llama.init_kv_pages(cfg, 12, 16, dev, quantized=quantized)
         out = [llama.prefill_into_pages(p, cfg, ids.to(dev), lens.to(dev), tb,
                                         ck, cv)[0]]
         out.append(llama.prefill_extend_pages(
@@ -441,15 +594,20 @@ def phase_model_entry_points() -> None:
             seq = seq + 1
         return [o.cpu() for o in out]
 
-    for name, g, c in zip(("prefill_into_pages", "prefill_extend_pages",
-                           "decode_step_paged#1", "decode_step_paged#2"),
-                          run("cuda", gparams), run("cpu", params)):
-        err = (g - c).abs().max().item()
-        log(f"  model {name} debug-tiny fp32 logits card vs cpu: "
-            f"max_abs_err {err:.3e}")
-        if not (err <= FP32_ATOL * 10 and torch.isfinite(g).all()):
-            raise AssertionError(f"{name}: card logits disagree with the "
-                                 f"plain path (max_abs_err {err:.3e})")
+    for quantized in (False, True):
+        p = quantize_params(params) if quantized else params
+        gp = {k: v.cuda() for k, v in p.items()}
+        tag = "int8 pools and weights" if quantized else cfg.dtype
+        for name, g, c in zip(("prefill_into_pages", "prefill_extend_pages",
+                               "decode_step_paged#1", "decode_step_paged#2"),
+                              run("cuda", gp, quantized), run("cpu", p,
+                                                              quantized)):
+            err = (g - c).abs().max().item()
+            log(f"  model {name} debug-tiny ({tag}) fp32 logits card vs cpu: "
+                f"max_abs_err {err:.3e}")
+            if not (err <= FP32_ATOL * 10 and torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: card logits disagree with the "
+                                     f"plain path (max_abs_err {err:.3e})")
 
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -505,22 +663,44 @@ def _timed_core_request(core, prompt: list[int], max_tokens: int):
     return ids, ttft, rate
 
 
-def phase_serve(dev: dict) -> dict:
+# The kernels each serving path must launch, and those it must not.
+BF16_PATH = ("flash_prefill", "paged_flash_decode", "paged_flash_extend")
+INT8_PATH = ("flash_prefill", "paged_flash_decode_quant",
+             "paged_flash_extend_quant")
+
+
+def phase_serve(dev: dict, quantize: str | None = None,
+                bf16_ids: list[int] | None = None) -> dict:
+    """Serve Llama-3-8B at full width and depth, random weights from seed 0
+    (quantized on the card for `quantize`), through the HTTP server, then
+    time requests on its core. Returns the metrics, the greedy ids of the
+    timed prompt and the kernel launches of this run."""
+    import gc
+
     import torch
 
     from llmlb_tpu_torch.engine.server import start_server
     from llmlb_tpu_torch.engine.service import Engine
     from llmlb_tpu_torch.ops import cuda_attention as ca
 
+    path = INT8_PATH if quantize == "all" else BF16_PATH
+    label = f"quantize={quantize}" if quantize else "bf16"
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
                                 num_slots=SLOTS, slot_capacity=CAPACITY,
-                                eos_id=-1)
+                                eos_id=-1, quantize=quantize)
     torch.cuda.synchronize()
-    log(f"serve: llama-3-8b bf16 random weights (seed 0) on the card in "
+    kv_dtype = engine.core.kv_cache_info()["kv_dtype"]
+    log(f"serve {label}: llama-3-8b random weights (seed 0) on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
-        f"decode burst {engine.core.decode_burst}")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"(params {engine.core.param_bytes / 2**30:.2f} GiB, KV "
+        f"{engine.core.kv_cache_info()['hbm_bytes'] / 2**30:.2f} GiB "
+        f"{kv_dtype}); decode burst {engine.core.decode_burst}")
+    if quantize == "all" and kv_dtype != "int8":
+        raise AssertionError(f"quantize=all serves a {kv_dtype} KV pool")
     server, thread = start_server(engine)
     base = "http://%s:%d" % server.server_address[:2]
     stats = {}
@@ -553,8 +733,9 @@ def phase_serve(dev: dict) -> dict:
             assert r["finish"] == "length", r["finish"]
         assert long["usage"]["prompt_tokens"] > 1024, long["usage"]
         assert again["text"] == first["text"], (first, again)
-        log(f"serve: 4 concurrent chats + {long['usage']['prompt_tokens']}-token "
-            "prompt + repeat over HTTP ok; repeat text identical")
+        log(f"serve {label}: 4 concurrent chats + "
+            f"{long['usage']['prompt_tokens']}-token prompt + repeat over HTTP "
+            "ok; repeat text identical")
 
         # token-level determinism and timing on the same core
         core = engine.core
@@ -579,23 +760,35 @@ def phase_serve(dev: dict) -> dict:
         nan_rows = core.nan_logit_rows()
         launches = dict(ca.LAUNCHES)
         stats = {"ttft_s": min(ttft1, ttft2), "decode_tok_s_1": max(rate1, rate2),
-                 "tok_s_8": agg, "launches": launches}
-        log(f"serve [{dev['smi']}]: single-request TTFT {stats['ttft_s'] * 1e3:.1f} ms "
-            f"({len(prompt)}-token prompt), decode {stats['decode_tok_s_1']:.1f} tok/s; "
-            f"8 concurrent x 64 tokens: {agg:.1f} tok/s incl. prefill")
-        log(f"serve: launches over the main path {launches}; NaN logit rows "
-            f"{nan_rows}")
+                 "tok_s_8": agg, "launches": launches, "ids": ids1}
+        log(f"serve {label} [{dev['smi']}]: single-request TTFT "
+            f"{stats['ttft_s'] * 1e3:.1f} ms ({len(prompt)}-token prompt), "
+            f"decode {stats['decode_tok_s_1']:.1f} tok/s; 8 concurrent x 64 "
+            f"tokens: {agg:.1f} tok/s incl. prefill")
+        if bf16_ids is not None:
+            agree = next((i for i, (a, b) in enumerate(zip(ids1, bf16_ids))
+                          if a != b), min(len(ids1), len(bf16_ids)))
+            log(f"serve {label}: the first {agree} of {len(ids1)} greedy "
+                "tokens of the timed prompt agree with the bf16 run")
+        log(f"serve {label}: launches over the main path {launches}; NaN "
+            f"logit rows {nan_rows}")
         if nan_rows:
             raise AssertionError(f"{nan_rows} logit rows had NaN")
-        missing = [k for k, n in launches.items() if n <= 0]
+        missing = [k for k in path if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{missing}")
+        stray = [k for k, n in launches.items() if k not in path and n]
+        if stray:
+            raise AssertionError(f"kernels of another path launched: {stray}")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
         engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -630,12 +823,15 @@ def main() -> int:
         phase_model_entry_points()
         phase = "serve"
         stats = phase_serve(dev)
+        phase = "serve int8"
+        stats_int8 = phase_serve(dev, quantize="all", bf16_ids=stats["ids"])
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
         return 1
-    for k in kernels:
-        k["launches"] = stats["launches"][k["name"]]
+    for k in kernels:  # each kernel's count from the path it belongs to
+        run = stats if k["name"] in BF16_PATH else stats_int8
+        k["launches"] = run["launches"][k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
-// Shared tile machinery of the three attention kernels (flash_prefill.cu,
-// paged_decode.cu, paged_extend.cu).
+// Shared tile machinery of the attention kernels (flash_prefill.cu,
+// paged_decode.cu, paged_extend.cu, and the int8-pool paged_decode_quant.cu
+// and paged_extend_quant.cu).
 //
 // One thread block owns a set of query ROWS that share one KV head: the G
 // query heads of a GQA group, times a tile of query positions (the Pallas
@@ -23,7 +24,11 @@
 // The kernel family differs only in how rows map to query positions and
 // heads, where key rows live (a fresh [B, T, K, D] tensor or a paged pool
 // read through a block table) and which keys a row may see. Each kernel file
-// supplies that as a small "Rows" policy struct.
+// supplies that as a small "Rows" policy struct. How a tile of K and V rows
+// reaches shared memory is a second policy, the "Stage": StagePlain copies
+// rows of T; StageInt8 reads int8 codes and their float32 scales and writes
+// the dequantized values, rounded to T, so the rest of the block body is the
+// same for both.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,7 +91,77 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block body shared by all three kernels. kRows bounds the block's rows
+// Staging policies: copy the K and V rows of key positions [t0, t0 + n)
+// into k_s (row stride kd elements) and v_s (row stride d). Loads are 16
+// bytes wide and unrolled, so a thread's loads are in flight together
+// rather than one after another.
+//
+// StagePlain: Rows supplies `const T* k_row(int c), v_row(int c)`, the
+// D-element key / value rows of position c.
+struct StagePlain {
+  template <typename T, typename Rows>
+  __device__ static void run(const Rows& rw, T* k_s, T* v_s, int kd, int d,
+                             int t0, int n) {
+    const int vec_per_row = d * (int)sizeof(T) / 16;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n * vec_per_row; i += kThreads) {
+      const int c = i / vec_per_row, j = i % vec_per_row;
+      const uint4 kv = __ldg(reinterpret_cast<const uint4*>(rw.k_row(t0 + c)) + j);
+      const uint4 vv = __ldg(reinterpret_cast<const uint4*>(rw.v_row(t0 + c)) + j);
+      uint32_t* kdst = reinterpret_cast<uint32_t*>(k_s + (size_t)c * kd) + 4 * j;
+      kdst[0] = kv.x;
+      kdst[1] = kv.y;
+      kdst[2] = kv.z;
+      kdst[3] = kv.w;
+      reinterpret_cast<uint4*>(v_s + (size_t)c * d)[j] = vv;
+    }
+  }
+};
+
+// Sixteen dequantized values rounded to T, stored at dst (4-byte aligned).
+template <typename T> __device__ __forceinline__ void store16(T* dst, const float* x);
+template <> __device__ __forceinline__ void store16<float>(float* dst, const float* x) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dst[e] = x[e];
+}
+template <> __device__ __forceinline__ void store16<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                                   const float* x) {
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) d2[e] = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+}
+
+// StageInt8: Rows supplies `const int8_t* k_codes(int c), v_codes(int c)`,
+// the D int8 codes of position c, and `float k_scale(int c), v_scale(int c)`,
+// the vector's scale, read through the same block-table page. Each thread
+// loads 16 codes per 16-byte load (D / 16 loads per row) and writes
+// from_f<T>(float(code) * scale) into the tile: fp32 dequant, then the round
+// to q's dtype that the Pallas quant kernels do before their dots.
+struct StageInt8 {
+  template <typename T, typename Rows>
+  __device__ static void run(const Rows& rw, T* k_s, T* v_s, int kd, int d,
+                             int t0, int n) {
+    const int vec_per_row = d / 16;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n * vec_per_row; i += kThreads) {
+      const int c = i / vec_per_row, j = i % vec_per_row;
+      union { uint4 u; int8_t b[16]; } kc, vc;
+      kc.u = __ldg(reinterpret_cast<const uint4*>(rw.k_codes(t0 + c)) + j);
+      vc.u = __ldg(reinterpret_cast<const uint4*>(rw.v_codes(t0 + c)) + j);
+      const float ks = rw.k_scale(t0 + c), vs = rw.v_scale(t0 + c);
+      float kx[16], vx[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        kx[e] = static_cast<float>(kc.b[e]) * ks;
+        vx[e] = static_cast<float>(vc.b[e]) * vs;
+      }
+      store16<T>(k_s + (size_t)c * kd + 16 * j, kx);
+      store16<T>(v_s + (size_t)c * d + 16 * j, vx);
+    }
+  }
+};
+
+// The block body shared by all the kernels. kRows bounds the block's rows
 // at compile time and sizes the per-thread register arrays: the prefill and
 // extend blocks fill 64 rows, a decode block holds one GQA group (G <= 8), so
 // its loops run over 4 accumulators and 2 score rows, not 32 and 16.
@@ -96,8 +171,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   size_t q_off(int r)         element offset of row r in q and in out
 //   int kv_end()                keys [0, kv_end) are swept
 //   bool allowed(int r, int c)  key position c is visible to row r
-//   const T* k_row(int c), v_row(int c)   D-element key / value rows
-template <typename T, int kRows, typename Rows>
+// and what its `Stage` reads (see StagePlain and StageInt8).
+template <typename T, int kRows, typename Stage = StagePlain, typename Rows>
 __device__ void attend_block(const Rows& rw, const T* __restrict__ q,
                              T* __restrict__ out, int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -141,27 +216,14 @@ __device__ void attend_block(const Rows& rw, const T* __restrict__ q,
   const int s_r0 = tid / kTileK;
   constexpr int s_rstep = kThreads / kTileK;
 
-  const int vec_per_row = d * (int)sizeof(T) / 16;
   const int kv_end = rw.kv_end();
   __syncthreads();
 
   for (int t0 = 0; t0 < kv_end; t0 += kTileK) {
     const int n = min(kTileK, kv_end - t0);
 
-    // -- stage K and V rows of the tile (16-byte global loads; unrolled so a
-    // thread's loads are in flight together rather than one after another)
-#pragma unroll 4
-    for (int i = tid; i < n * vec_per_row; i += kThreads) {
-      const int c = i / vec_per_row, j = i % vec_per_row;
-      const uint4 kv = __ldg(reinterpret_cast<const uint4*>(rw.k_row(t0 + c)) + j);
-      const uint4 vv = __ldg(reinterpret_cast<const uint4*>(rw.v_row(t0 + c)) + j);
-      uint32_t* kdst = reinterpret_cast<uint32_t*>(k_s + (size_t)c * kd) + 4 * j;
-      kdst[0] = kv.x;
-      kdst[1] = kv.y;
-      kdst[2] = kv.z;
-      kdst[3] = kv.w;
-      reinterpret_cast<uint4*>(v_s + (size_t)c * d)[j] = vv;
-    }
+    // -- stage K and V rows of the tile
+    Stage::template run<T>(rw, k_s, v_s, kd, d, t0, n);
     __syncthreads();
 
     // -- scores: fp32 dot, scaled after the dot ------------------------------

@@ -16,9 +16,13 @@ iteration it:
    syncs once per burst, through one `.cpu()` of the [k+1, slots] token block
    (row 0 carries first tokens sampled at activation).
 
+int8 quantization (`quantize=` / LLMLB_QUANTIZE, off by default) is the
+reference's: projection weights quantized on the device one layer at a
+time, and int8 KV pools with one float32 scale per (token, head) vector.
+
 Left out of this slice (see ROADMAP.md): priority classes and preemption,
-park/resume, speculative decoding, grammar constraints, LoRA, int8
-quantization, the prefix cache, disaggregation and KV shipping. Without
+park/resume, speculative decoding, grammar constraints, LoRA, the prefix
+cache, disaggregation and KV shipping. Without
 preemption a page-starved decoding row finishes with "length", the
 reference's behavior before parking existed.
 """
@@ -41,6 +45,12 @@ from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.ops.sampling import sample_tokens
+from llmlb_tpu_torch.quant import (
+    SCALE_SUFFIX,
+    kv_cell_bytes,
+    parse_quant_mode,
+    quantize_params,
+)
 
 log = logging.getLogger("llmlb_tpu_torch.engine.scheduler")
 
@@ -51,8 +61,9 @@ class SamplingParams:
     top_p: float = 1.0
     top_k: int = 0
     max_tokens: int = 128
-    # Rows with a seed draw from a generator seeded by (seed, position), so
-    # the token sequence reproduces whatever else shares the batch.
+    # Rows with a seed draw JAX's fold_in(PRNGKey(seed), position) stream,
+    # so the token sequence reproduces whatever else shares the batch and
+    # matches the JAX engine's.
     seed: int | None = None
 
 
@@ -95,6 +106,23 @@ class _Slot:
         self.first_pending = False
 
 
+def kv_page_bytes(cfg: LlamaConfig, page_size: int,
+                  quantized: bool = False) -> int:
+    """Device bytes ONE page holds across all layers, K and V included: a
+    cell is D values of the model dtype, or D int8 codes plus one float32
+    scale (quant.kv_cell_bytes)."""
+    itemsize = cfg.dtype.itemsize
+    cell = kv_cell_bytes(cfg.head_dim_, quantized, itemsize)
+    return int(cfg.num_layers * page_size * cfg.num_kv_heads * 2 * cell)
+
+
+def kv_pool_bytes(cfg: LlamaConfig, num_pages: int, page_size: int,
+                  quantized: bool = False) -> int:
+    """Device bytes of the paged pool [L, pages, page_size, K, D] x 2 (K and
+    V; int8 pools include their scale arrays)."""
+    return num_pages * kv_page_bytes(cfg, page_size, quantized)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     num_slots: int
@@ -127,9 +155,13 @@ class EngineCore:
         kv_page_size: int | None = None,
         kv_pages: int | None = None,
         device: str | torch.device | None = None,
+        quantize: str | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # int8 knobs from `quantize` or LLMLB_QUANTIZE (off by default: every
+        # path below is then the unquantized engine)
+        self.quant = parse_quant_mode(quantize)
         self.num_slots = num_slots
         self.slot_capacity = min(slot_capacity, cfg.max_position_embeddings)
         self.prefill_buckets = tuple(
@@ -157,11 +189,21 @@ class EngineCore:
             if p.device != self.device:
                 raise ValueError(f"param {name!r} is on {p.device}, the engine "
                                  f"runs on {self.device}")
+        if self.quant.weights:
+            # on the device, one layer at a time; an already-quantized
+            # pytree passes through
+            params = quantize_params(params)
         self.params = params
+        # parameter count without the scale leaves; bytes with them
+        self.n_params = sum(p.numel() for k, p in params.items()
+                            if not k.endswith(SCALE_SUFFIX))
+        self.param_bytes = sum(p.numel() * p.element_size()
+                               for p in params.values())
 
         self.page_pool = PagePool(self.kv_num_pages)
         self.cache_k, self.cache_v = llama.init_kv_pages(
-            cfg, self.kv_num_pages, self.kv_page_size, self.device)
+            cfg, self.kv_num_pages, self.kv_page_size, self.device,
+            quantized=self.quant.kv)
         self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
         # host block tables + their device copy, refreshed before the next
         # dispatch whenever a row changed
@@ -172,17 +214,20 @@ class EngineCore:
         # A request the pool cannot cover yet waits here, retried first.
         self._held_request: Request | None = None
         log.info(
-            "KV cache: paged, %d pages x %d tokens (%d slots, %d pages/slot) "
-            "= %.2f GiB on %s", self.kv_num_pages, self.kv_page_size,
-            num_slots, self.pages_per_slot,
-            2 * self.cache_k.numel() * self.cache_k.element_size() / 2**30,
+            "KV cache: paged%s, %d pages x %d tokens (%d slots, %d pages/slot) "
+            "= %.2f GiB on %s", " int8" if self.quant.kv else "",
+            self.kv_num_pages, self.kv_page_size, num_slots,
+            self.pages_per_slot,
+            kv_pool_bytes(cfg, self.kv_num_pages, self.kv_page_size,
+                          self.quant.kv) / 2**30,
             self.device,
         )
 
         # Host mirrors of the slot state (lengths for stop checks without a
-        # device read; seeds because a seeded row's generator needs host
-        # ints). Sampling params and tokens live on the device and are only
-        # touched at activation — a decode burst does no host-to-device copy.
+        # device read; seeds to know without a device read whether a burst
+        # has seeded rows). Sampling params, seeds and tokens live on the
+        # device and are only touched at activation — a decode burst does no
+        # host-to-device copy.
         self.slots = [_Slot() for _ in range(num_slots)]
         self._seq_lens = np.zeros((num_slots,), np.int64)
         self._seeds = np.full((num_slots,), -1, np.int64)
@@ -190,6 +235,8 @@ class EngineCore:
         self._d_seq_lens = torch.zeros(num_slots, **z32)
         self._d_last_tokens = torch.zeros(num_slots, **z32)
         self._d_top_ks = torch.zeros(num_slots, **z32)
+        self._d_seeds = torch.full((num_slots,), -1, dtype=torch.int64,
+                                   device=self.device)
         self._d_temps = torch.ones(num_slots, dtype=torch.float32,
                                    device=self.device)
         self._d_top_ps = torch.ones(num_slots, dtype=torch.float32,
@@ -275,13 +322,38 @@ class EngineCore:
             uptime_s=time.monotonic() - self._started_at,
         )
 
+    def _kv_dtype(self) -> str:
+        return ("int8" if self.quant.kv
+                else str(self.cfg.dtype).replace("torch.", ""))
+
     def kv_cache_info(self) -> dict:
         return {
             "layout": "paged",
+            # the pool's ACTUAL dtype: capacity math from an implied model
+            # dtype would be 2x off under int8
+            "kv_dtype": self._kv_dtype(),
+            "effective_kv_dtype": self._kv_dtype(),
             "page_size": self.kv_page_size,
             "pages_total": self.page_pool.total,
             "pages_free": self.page_pool.available(),
-            "dtype": str(self.cache_k.dtype).replace("torch.", ""),
+            "bytes_per_page": kv_page_bytes(self.cfg, self.kv_page_size,
+                                            self.quant.kv),
+            "hbm_bytes": kv_pool_bytes(self.cfg, self.kv_num_pages,
+                                       self.kv_page_size, self.quant.kv),
+        }
+
+    def quant_info(self) -> dict:
+        """The resolved int8 knobs and the byte footprints they produce."""
+        itemsize = self.cfg.dtype.itemsize
+        return {
+            "mode": self.quant.mode,
+            "weights_int8": self.quant.weights,
+            "kv_int8": self.quant.kv,
+            "effective_kv_dtype": self._kv_dtype(),
+            "param_bytes": self.param_bytes,
+            "param_bytes_bf16": self.n_params * itemsize,
+            "kv_cell_bytes": kv_cell_bytes(self.cfg.head_dim_, self.quant.kv,
+                                           itemsize),
         }
 
     def nan_logit_rows(self) -> int:
@@ -313,8 +385,9 @@ class EngineCore:
                 time.sleep(0.001)
 
     def _reset_caches(self) -> None:
-        self.cache_k.zero_()
-        self.cache_v.zero_()
+        for pool in (self.cache_k, self.cache_v):
+            for t in (pool.values() if isinstance(pool, dict) else (pool,)):
+                t.zero_()
         self.page_pool.reset()
         self._slot_pages = [[] for _ in range(self.num_slots)]
         self._block_tables[:] = 0
@@ -572,13 +645,16 @@ class EngineCore:
         d_top_ks = self._to_device(top_ks)
         # steps = lens - 1: decode samples with the pre-increment seq_len, so
         # the activation sample must use a different step for seeded rows
+        d_seeds = self._to_device(seeds)
+        seeded = bool((seeds >= 0).any())
         firsts = sample_tokens(logits, self._generator, d_temps, d_top_ps,
-                               d_top_ks, seeds=seeds.tolist(),
-                               steps=(padded_lens - 1).tolist())
+                               d_top_ks, seeds=d_seeds if seeded else None,
+                               steps=self._to_device(padded_lens - 1))
         idx = self._to_device(padded_slot_ids)
         self._d_temps[idx] = d_temps
         self._d_top_ps[idx] = d_top_ps
         self._d_top_ks[idx] = d_top_ks
+        self._d_seeds[idx] = d_seeds
         self._d_seq_lens[idx] = self._to_device(padded_lens)
         self._d_last_tokens[idx] = firsts
         for row, (slot_id, request, n) in enumerate(group):
@@ -625,11 +701,11 @@ class EngineCore:
                 self._d_block_tables, window=window,
             )
             self._count_nan(logits)
+            # seeded rows fold in the pre-increment length, as the reference
             toks = sample_tokens(
                 logits, self._generator, self._d_temps, self._d_top_ps,
-                self._d_top_ks,
-                seeds=self._seeds.tolist() if seeded else None,
-                steps=(self._seq_lens + step).tolist() if seeded else None,
+                self._d_top_ks, seeds=self._d_seeds if seeded else None,
+                steps=lens if seeded else None,
             )
             rows.append(toks)
             last, lens = toks, lens + 1

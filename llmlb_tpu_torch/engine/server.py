@@ -13,7 +13,8 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   and `"backend": "cuda"`.
 
 Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
-card; `--device cpu` for the plain PyTorch path).
+card; `--device cpu` for the plain PyTorch path; `--quantize all` for int8
+weights and KV pages).
 """
 
 from __future__ import annotations
@@ -144,6 +145,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "device": str(engine.core.device),
                 "model": engine.model_id,
                 "kv_cache": engine.core.kv_cache_info(),
+                "quant": engine.core.quant_info(),
             })
         else:
             self._error(404, f"no route for GET {path}")
@@ -269,7 +271,7 @@ def start_server(engine: Engine, host: str = "127.0.0.1",
     return server, thread
 
 
-def main(argv: list[str] | None = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="llmlb_tpu_torch inference engine (PyTorch/CUDA)")
     parser.add_argument("--preset", default="debug-tiny")
@@ -294,13 +296,23 @@ def main(argv: list[str] | None = None) -> None:
                         help="seed of the random weights and the sampler")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    parser.add_argument(
+        "--quantize", choices=("off", "weights", "kv", "all"), default=None,
+        help="int8 quantization (default off; also via LLMLB_QUANTIZE): "
+             "'weights' = per-output-channel int8 projection weights, 'kv' "
+             "= int8 KV pages with per-vector scales, 'all' = both")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     core_kwargs = dict(num_slots=args.num_slots,
                        slot_capacity=args.slot_capacity, seed=args.seed,
                        kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
-                       decode_burst=args.decode_burst)
+                       decode_burst=args.decode_burst,
+                       quantize=args.quantize)
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))

@@ -57,7 +57,8 @@ class Engine:
         """Build from a named preset with random weights from `seed` (or the
         given params) and start the step loop. Runs on the card unless
         `device="cpu"`. `eos_id` defaults to the tokenizer's; pass -1 to
-        decode every request to its max_tokens."""
+        decode every request to its max_tokens. Other keywords go to
+        EngineCore, e.g. `quantize="all"` for int8 weights and KV pages."""
         cfg = get_preset(preset)
         tokenizer = ByteTokenizer(cfg.vocab_size)
         core_kwargs.setdefault("eos_id", tokenizer.eos_id)
@@ -183,6 +184,8 @@ class Engine:
             },
             "device": device,
             "kv_cache": self.core.kv_cache_info(),
+            # int8 knobs and the byte footprints they produce
+            "quant": self.core.quant_info(),
         }
 
 

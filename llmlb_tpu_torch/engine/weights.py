@@ -3,8 +3,10 @@
 `params_from_numpy` carries a params pytree made by the JAX package (as
 numpy arrays, leaf for leaf: `{name: np.asarray(leaf)}`) into the port's
 tensors. The layouts are the same on both sides — stacked [L, in, out]
-matrices, [L, E] norms — so each leaf converts as it is. Loading HF
-checkpoints arrives in a later slice.
+matrices, [L, E] norms — so each leaf converts as it is. A pytree quantized
+by the JAX package (`quantize_params`) carries int8 weights with float32
+`<name>_scale` leaves; those cross bit for bit. Loading HF checkpoints
+arrives in a later slice.
 """
 
 from __future__ import annotations
@@ -13,13 +15,36 @@ import numpy as np
 import torch
 
 from llmlb_tpu_torch.models.llama import LlamaConfig, param_shapes
+from llmlb_tpu_torch.quant import SCALE_SUFFIX, WEIGHT_QUANT_NAMES
+
+
+def _quantized_names(np_params: dict[str, np.ndarray]) -> tuple[str, ...]:
+    """Names whose weight is int8 with a scale; raises on a weight without
+    its scale or a scale without an int8 weight."""
+    names = []
+    for name in WEIGHT_QUANT_NAMES:
+        if name not in np_params:
+            continue
+        is_int8 = np.asarray(np_params[name]).dtype == np.int8
+        has_scale = name + SCALE_SUFFIX in np_params
+        if is_int8 != has_scale:
+            raise ValueError(
+                f"param {name!r}: " + ("int8 weight without its "
+                                       f"{name}{SCALE_SUFFIX}" if is_int8 else
+                                       f"{name}{SCALE_SUFFIX} beside a weight "
+                                       "that is not int8"))
+        if is_int8:
+            names.append(name)
+    return tuple(names)
 
 
 def params_from_numpy(np_params: dict[str, np.ndarray], cfg: LlamaConfig,
                       device: torch.device | str) -> dict[str, torch.Tensor]:
-    """Convert a numpy params dict to tensors of cfg.dtype on `device`.
-    Raises on a missing, unexpected or misshaped leaf."""
-    expected = param_shapes(cfg)
+    """Convert a numpy params dict to tensors on `device`: int8 weights stay
+    int8, their scales float32, every other leaf becomes cfg.dtype. Raises on
+    a missing, unexpected or misshaped leaf."""
+    quantized = _quantized_names(np_params)
+    expected = param_shapes(cfg, quantized)
     missing = sorted(set(expected) - set(np_params))
     extra = sorted(set(np_params) - set(expected))
     if missing or extra:
@@ -31,7 +56,13 @@ def params_from_numpy(np_params: dict[str, np.ndarray], cfg: LlamaConfig,
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"param {name!r} has shape {arr.shape}, "
                              f"expected {shape}")
-        # numpy has no bfloat16: widen to fp32 first, round on the device
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        out[name] = t.to(device=device, dtype=cfg.dtype)
+        if name in quantized:
+            out[name] = torch.from_numpy(arr.copy()).to(device)
+        elif name.endswith(SCALE_SUFFIX):
+            out[name] = torch.from_numpy(
+                np.array(arr, dtype=np.float32)).to(device)
+        else:
+            # numpy has no bfloat16: widen to fp32 first, round on the device
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+            out[name] = t.to(device=device, dtype=cfg.dtype)
     return out

@@ -26,7 +26,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_prefill.cu", "paged_decode.cu", "paged_extend.cu")
+SOURCES = ("flash_prefill.cu", "paged_decode.cu", "paged_extend.cu",
+           "paged_decode_quant.cu", "paged_extend_quant.cu")
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -43,6 +44,14 @@ SIGNATURES = {
     # PS, PPN, scale, dtype, stream
     "llmlb_paged_flash_extend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _P],
+    # q, k_codes, k_scales, v_codes, v_scales, tables, kv_lens, out, B, H, K,
+    # D, PS, PPN, pages, scale, dtype, stream
+    "llmlb_paged_flash_decode_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_codes, k_scales, v_codes, v_scales, tables, start_pos, chunk_lens,
+    # out, B, T, H, K, D, PS, PPN, scale, dtype, stream
+    "llmlb_paged_flash_extend_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

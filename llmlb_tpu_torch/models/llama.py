@@ -11,6 +11,12 @@ writes the pools IN PLACE (index_put_ on the layer slice) and returns the
 same tensors, so callers can keep the reference's `logits, ck, cv = f(...)`
 shape. Each write is issued on the current stream before the attention that
 reads it, so the kernel sees it.
+
+int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
+may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
+quantized on write and dequantized by the attention on read; a projection
+weight may be int8 with a float32 `<name>_scale` [L, out] companion, applied
+to the product's fp32 output.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ from llmlb_tpu_torch.ops.attention import (
     gqa_attention_prefill,
     paged_attention_decode,
     paged_attention_extend,
+    pool_shape,
 )
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
+from llmlb_tpu_torch.quant import SCALE_SUFFIX, quantize_kv
 
 Params = dict[str, torch.Tensor]
 
@@ -58,9 +66,12 @@ class LlamaConfig:
 # Params
 # ---------------------------------------------------------------------------
 
-def param_shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
+def param_shapes(cfg: LlamaConfig, quantized: tuple[str, ...] = ()
+                 ) -> dict[str, tuple[tuple[int, ...], int]]:
     """Leaf name -> (shape, fan_in) for the random init; fan_in 0 marks the
-    ones-initialized norms and zero-initialized biases."""
+    ones-initialized norms and zero-initialized biases. Each name in
+    `quantized` (int8 weights) also names its `<name>_scale` leaf, one
+    float32 per layer and output channel (the init makes none of these)."""
     d = cfg.head_dim_
     h, kv, e, f, n = (cfg.num_heads, cfg.num_kv_heads, cfg.hidden_size,
                       cfg.intermediate_size, cfg.num_layers)
@@ -83,6 +94,9 @@ def param_shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
         shapes["bv"] = ((n, kv * d), 0)
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = ((e, cfg.vocab_size), e)
+    for name in quantized:
+        shape = shapes[name][0]
+        shapes[name + SCALE_SUFFIX] = (shape[:-2] + shape[-1:], 0)
     return shapes
 
 
@@ -117,22 +131,49 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
-                  device: torch.device | str, dtype=None):
+                  device: torch.device | str, dtype=None,
+                  quantized: bool = False):
     """Global page pool shared by every slot: a slot's logical row is the
     concatenation of the pool pages its block table names. Page 0 is the
-    engine's trash page (see engine/paging.py)."""
+    engine's trash page (see engine/paging.py).
+
+    `quantized` makes each pool an int8 {"q", "s"} pair: codes [L, P, PS, K,
+    D] int8 and one float32 scale per written (token, head) vector
+    [L, P, PS, K], indexed by the same page ids."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim_)
+    if quantized:
+        def pool():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)}
+
+        return pool(), pool()
     dtype = dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _write_pool(pool_layer: torch.Tensor, page: torch.Tensor,
-                off: torch.Tensor, kv: torch.Tensor) -> None:
+def _pool_layer(pool, i: int):
+    """One layer's slice of the pool (both members of an int8 pair)."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"][i], "s": pool["s"][i]}
+    return pool[i]
+
+
+def _write_pool(pool_layer, page: torch.Tensor, off: torch.Tensor,
+                kv: torch.Tensor) -> None:
     """Scatter K/V rows into cells [page, off] of one layer's pool, in place
-    (the reference returns an updated copy of a donated buffer)."""
-    pool_layer.index_put_((page.long(), off.long()), kv.to(pool_layer.dtype))
+    (the reference returns an updated copy of a donated buffer). An int8
+    pair takes the codes and the per-vector scales of quantize_kv at the
+    same cells: quantize on write."""
+    idx = (page.long(), off.long())
+    if isinstance(pool_layer, dict):
+        codes, scales = quantize_kv(kv)
+        pool_layer["q"].index_put_(idx, codes)
+        pool_layer["s"].index_put_(idx, scales)
+        return
+    pool_layer.index_put_(idx, kv.to(pool_layer.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +181,36 @@ def _write_pool(pool_layer: torch.Tensor, page: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
+    """Layer i of every stacked leaf, with the `<name>_scale` companions of
+    int8 weights (the reference's _with_scales)."""
     names = ["wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp"]
     if cfg.attention_bias:
         names += ["bq", "bk", "bv"]
+    names += [n + SCALE_SUFFIX for n in names if n + SCALE_SUFFIX in params]
     return {n: params[n][i] for n in names}
 
 
 def _proj(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    """`x @ W` for unquantized weights (int8 weights wait for a later slice)."""
-    return x @ lp[name]
+    """`x @ W`. An int8 W takes its per-output-channel scale on the fp32
+    output, as the reference does: the operand is W widened to x's dtype
+    (exact: |code| <= 127), the product accumulates and returns fp32, then
+    `* scale` and a round to x's dtype. On the card a bf16 x takes cuBLAS's
+    bf16-in/fp32-out product; elsewhere the operands widen to fp32 (the
+    same values)."""
+    w = lp[name]
+    scale = lp.get(name + SCALE_SUFFIX)
+    if scale is None:
+        if w.dtype == torch.int8:
+            raise TypeError(f"param {name!r} is int8 but its {name}"
+                            f"{SCALE_SUFFIX} companion is missing from the "
+                            "layer slice")
+        return x @ w
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        y32 = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
+                       out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y32 = x.float() @ w.float()
+    return (y32 * scale).to(x.dtype)
 
 
 def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor):
@@ -222,8 +284,8 @@ def prefill_into_pages(
     input_ids: torch.Tensor,  # [B, T] int, right-padded
     prompt_lens: torch.Tensor,  # [B] int32
     block_tables: torch.Tensor,  # [B, PPN] int32 — target pages per prompt
-    cache_k: torch.Tensor,  # [L, P, PS, K, D] — the engine's live page pool
-    cache_v: torch.Tensor,
+    cache_k,  # [L, P, PS, K, D] — the engine's live page pool, or int8 pair
+    cache_v,
 ):
     """Prefill B prompts and scatter their KV through the block tables into
     the global page pool. Returns (last_logits [B, V] fp32, cache_k,
@@ -238,7 +300,8 @@ def prefill_into_pages(
     dev = input_ids.device
     inv_freq = _rope_freqs(cfg, dev)
     positions = torch.arange(t, device=dev)[None, :].expand(b, t)
-    page, off = _page_cells(block_tables, positions, cache_k.shape[2])
+    page, off = _page_cells(block_tables, positions,
+                            pool_shape(cache_k)[2])
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
@@ -246,8 +309,8 @@ def prefill_into_pages(
         lp = _layer(params, cfg, i)
 
         def attn_fn(q, k, v, i=i):
-            _write_pool(cache_k[i], page, off, k)
-            _write_pool(cache_v[i], page, off, v)
+            _write_pool(_pool_layer(cache_k, i), page, off, k)
+            _write_pool(_pool_layer(cache_v, i), page, off, v)
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
         x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
@@ -264,8 +327,8 @@ def prefill_extend_pages(
     chunk_lens: torch.Tensor,  # [B] int32 — valid tokens in this chunk
     start_pos: torch.Tensor,  # [B] int32 — tokens already in the row's pages
     block_tables: torch.Tensor,  # [B, PPN] int32
-    cache_k: torch.Tensor,  # [L, P, PS, K, D]
-    cache_v: torch.Tensor,
+    cache_k,  # [L, P, PS, K, D], or an int8 {"q", "s"} pair
+    cache_v,
 ):
     """Paged chunked prefill: append a chunk of prompt tokens to rows that
     already hold `start_pos` tokens, attending over everything so far
@@ -274,7 +337,7 @@ def prefill_extend_pages(
     cells. Returns (chunk-last logits [B, V] fp32, cache_k, cache_v)."""
     b, t = input_ids.shape
     dev = input_ids.device
-    ps = cache_k.shape[2]
+    ps = pool_shape(cache_k)[2]
     capacity = block_tables.shape[1] * ps
     inv_freq = _rope_freqs(cfg, dev)
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
@@ -289,10 +352,11 @@ def prefill_extend_pages(
         lp = _layer(params, cfg, i)
 
         def attn_fn(q, k, v, i=i):
-            _write_pool(cache_k[i], page, off, k)
-            _write_pool(cache_v[i], page, off, v)
-            return paged_attention_extend(q, cache_k[i], cache_v[i],
-                                          block_tables, positions, chunk_lens)
+            ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
+            _write_pool(ck, page, off, k)
+            _write_pool(cv, page, off, v)
+            return paged_attention_extend(q, ck, cv, block_tables, positions,
+                                          chunk_lens)
 
         x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
         x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
@@ -306,8 +370,8 @@ def decode_step_paged(
     cfg: LlamaConfig,
     input_ids: torch.Tensor,  # [B] int — previous sampled token per row
     seq_lens: torch.Tensor,  # [B] int32 — tokens already in the row's pages
-    cache_k: torch.Tensor,  # [L, P, PS, K, D]
-    cache_v: torch.Tensor,
+    cache_k,  # [L, P, PS, K, D], or an int8 {"q", "s"} pair
+    cache_v,
     block_tables: torch.Tensor,  # [B, PPN] int32
     window: int | None = None,  # context-window bucket (>= max seq + 1)
 ):
@@ -319,7 +383,7 @@ def decode_step_paged(
     in a page another row owns."""
     b = input_ids.shape[0]
     dev = input_ids.device
-    ps = cache_k.shape[2]
+    ps = pool_shape(cache_k)[2]
     capacity = block_tables.shape[1] * ps
     inv_freq = _rope_freqs(cfg, dev)
     write_pos = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32),
@@ -333,10 +397,11 @@ def decode_step_paged(
         lp = _layer(params, cfg, i)
 
         def attn_fn(q, k, v, i=i):
-            _write_pool(cache_k[i], page, off, k)
-            _write_pool(cache_v[i], page, off, v)
-            return paged_attention_decode(q, cache_k[i], cache_v[i],
-                                          block_tables, kv_lens, window=window)
+            ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
+            _write_pool(ck, page, off, k)
+            _write_pool(cv, page, off, v)
+            return paged_attention_decode(q, ck, cv, block_tables, kv_lens,
+                                          window=window)
 
         x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
         x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))

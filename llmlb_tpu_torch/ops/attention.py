@@ -9,6 +9,10 @@ PyTorch versions (fp32 scores scaled after the dot, fp32 softmax with finite
 -1e30 masking, GQA folded into the einsum with no repeated KV copy). There is
 no switch, and nothing on the card takes the plain path.
 
+A paged pool is a tensor [P, PS, K, D] or an int8 {"q": codes [P, PS, K, D],
+"s": float32 scales [P, PS, K]} pair; a pair goes to the quant kernels, as
+in the reference.
+
 `gqa_attention_decode` reads the dense slot cache, whose kernel
 (`flash_decode`) is not ported yet: it computes on CPU tensors only and
 raises on any other device rather than run the plain version there.
@@ -23,6 +27,7 @@ from llmlb_tpu_torch.ops import cuda_attention
 from llmlb_tpu_torch.ops.cuda_attention import (  # noqa: F401
     gather_kv_pages,
     masked_attention,
+    pool_shape,
 )
 
 
@@ -61,8 +66,8 @@ def gqa_attention_decode(
 
 def paged_attention_decode(
     q: torch.Tensor,  # [B, 1, H, D]
-    k_pages: torch.Tensor,  # [P, PS, K, D]
-    v_pages: torch.Tensor,  # [P, PS, K, D]
+    k_pages,  # [P, PS, K, D] pool, or an int8 {"q", "s"} pair
+    v_pages,  # [P, PS, K, D]
     block_tables: torch.Tensor,  # [B, PPN] int32
     kv_lens: torch.Tensor,  # [B] int32 — valid logical length per row
     window: int | None = None,  # read only the first `window` cells
@@ -70,19 +75,24 @@ def paged_attention_decode(
     """One-token decode attention against the PAGED KV pool. `window`
     bounds the logical sweep, rounded up to whole pages; rows with kv_lens
     beyond the swept pages produce garbage the caller must discard."""
-    ps = k_pages.shape[1]
+    ps = pool_shape(k_pages)[1]
     ppn = block_tables.shape[1]
     pages = ppn if window is None else max(1, min(ppn, -(-window // ps)))
-    return cuda_attention.paged_flash_decode(
-        q[:, 0].contiguous(), k_pages, v_pages, block_tables, kv_lens,
-        pages=pages,
-    )[:, None]
+    q1 = q[:, 0].contiguous()
+    if isinstance(k_pages, dict):
+        out = cuda_attention.paged_flash_decode_quant(
+            q1, k_pages["q"], k_pages["s"], v_pages["q"], v_pages["s"],
+            block_tables, kv_lens, pages=pages)
+    else:
+        out = cuda_attention.paged_flash_decode(
+            q1, k_pages, v_pages, block_tables, kv_lens, pages=pages)
+    return out[:, None]
 
 
 def paged_attention_extend(
     q: torch.Tensor,  # [B, T, H, D] — chunk of queries
-    k_pages: torch.Tensor,  # [P, PS, K, D]
-    v_pages: torch.Tensor,  # [P, PS, K, D]
+    k_pages,  # [P, PS, K, D] pool, or an int8 {"q", "s"} pair
+    v_pages,  # [P, PS, K, D]
     block_tables: torch.Tensor,  # [B, PPN] int32
     q_positions: torch.Tensor,  # [B, T] — global position of each query
     chunk_lens: torch.Tensor,  # [B] int32 — valid queries in the chunk
@@ -91,6 +101,10 @@ def paged_attention_extend(
     queries attend causally over row b's pages. Assumes contiguous chunk
     positions (q_positions[b] = start + iota), as the engine builds them."""
     start = q_positions[:, 0].to(torch.int32).contiguous()
+    if isinstance(k_pages, dict):
+        return cuda_attention.paged_flash_extend_quant(
+            q, k_pages["q"], k_pages["s"], v_pages["q"], v_pages["s"],
+            block_tables, start, chunk_lens)
     return cuda_attention.paged_flash_extend(
         q, k_pages, v_pages, block_tables, start, chunk_lens,
     )

@@ -1,7 +1,7 @@
 """Hand-written Hopper attention kernels: counterpart of
 `llmlb_tpu/ops/pallas_attention.py`.
 
-Three kernels carry the paged serving path, each a CUDA C++ source under
+Five kernels carry the paged serving path, each a CUDA C++ source under
 `llmlb_tpu_torch/csrc/` built by `kernels/build.py`:
 
 - `flash_prefill`: causal ragged GQA prefill over a fresh bucketed prompt
@@ -10,6 +10,11 @@ Three kernels carry the paged serving path, each a CUDA C++ source under
   (`csrc/paged_decode.cu`).
 - `paged_flash_extend`: a chunk of contiguous queries attending causally over
   a row's pages (`csrc/paged_extend.cu`).
+- `paged_flash_decode_quant`, `paged_flash_extend_quant`: the same two over
+  int8 pools with one float32 scale per (token, head) vector
+  (`csrc/paged_decode_quant.cu`, `csrc/paged_extend_quant.cu`). Each cell is
+  dequantized in fp32 and rounded to q.dtype before the dot, as the Pallas
+  kernels do.
 
 Each wrapper takes the JAX kernel's signature. On CUDA tensors it checks
 device, dtype, shape, contiguity and alignment, allocates the output with
@@ -30,6 +35,7 @@ import ctypes
 import torch
 
 from llmlb_tpu_torch.kernels import build
+from llmlb_tpu_torch.quant import dequantize_kv
 
 _NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
 
@@ -39,6 +45,8 @@ LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
     "paged_flash_decode": 0,
     "paged_flash_extend": 0,
+    "paged_flash_decode_quant": 0,
+    "paged_flash_extend_quant": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,13 +83,29 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def gather_kv_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def gather_kv_pages(pages, tables: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Materialize contiguous per-row KV from the page pool: [P, PS, K, D]
     gathered by block tables [B, N] -> [B, N*PS, K, D]. The plain versions
-    only: the kernels read the pool through the table and build no copy."""
+    only: the kernels read the pool through the table and build no copy.
+
+    An int8 pool is a {"q": int8 [P, PS, K, D], "s": float32 [P, PS, K]}
+    pair: both members gather through the same table, and the cells are
+    dequantized in fp32 and rounded to `dtype`, the attention's compute
+    dtype, as the Pallas quant kernels do before their dots."""
     b, n = tables.shape
+    idx = tables.long()
+    if isinstance(pages, dict):
+        _, ps, kh, d = pages["q"].shape
+        return dequantize_kv(pages["q"][idx].reshape(b, n * ps, kh, d),
+                             pages["s"][idx].reshape(b, n * ps, kh), dtype)
     _, ps, kh, d = pages.shape
-    return pages[tables.long()].reshape(b, n * ps, kh, d)
+    return pages[idx].reshape(b, n * ps, kh, d)
+
+
+def pool_shape(pages) -> torch.Size:
+    """Shape of a pool's values (the codes of an int8 pair)."""
+    return (pages["q"] if isinstance(pages, dict) else pages).shape
 
 
 def flash_prefill_reference(q, k, v, prompt_lens):
@@ -97,13 +121,14 @@ def flash_prefill_reference(q, k, v, prompt_lens):
 def paged_flash_decode_reference(q, k_pages, v_pages, block_tables, kv_lens,
                                  *, pages: int | None = None):
     """Plain version of paged_flash_decode: the first `pages` logical pages
-    are swept and keys j < kv_lens[b] are visible. q [B, H, D]."""
-    ps = k_pages.shape[1]
+    are swept and keys j < kv_lens[b] are visible. q [B, H, D]. The pools
+    may be int8 {"q", "s"} pairs (see gather_kv_pages)."""
+    ps = pool_shape(k_pages)[1]
     ppn = block_tables.shape[1]
     sweep = ppn if pages is None else max(1, min(pages, ppn))
     tables = block_tables[:, :sweep]
-    k_cache = gather_kv_pages(k_pages, tables)
-    v_cache = gather_kv_pages(v_pages, tables)
+    k_cache = gather_kv_pages(k_pages, tables, q.dtype)
+    v_cache = gather_kv_pages(v_pages, tables, q.dtype)
     cols = torch.arange(sweep * ps, device=q.device)
     mask = cols[None, None, :] < kv_lens.to(q.device)[:, None, None]
     return masked_attention(q[:, None], k_cache, v_cache, mask)[:, 0]
@@ -113,11 +138,12 @@ def paged_flash_extend_reference(q, k_pages, v_pages, block_tables,
                                  start_pos, chunk_lens):
     """Plain version of paged_flash_extend: query i of row b at position
     start_pos[b] + i sees keys j <= its position. Every row is computed;
-    rows i >= chunk_lens[b] are undefined in the kernel's contract."""
+    rows i >= chunk_lens[b] are undefined in the kernel's contract. The
+    pools may be int8 {"q", "s"} pairs (see gather_kv_pages)."""
     del chunk_lens  # only decides which rows are defined
     t = q.shape[1]
-    k_cache = gather_kv_pages(k_pages, block_tables)
-    v_cache = gather_kv_pages(v_pages, block_tables)
+    k_cache = gather_kv_pages(k_pages, block_tables, q.dtype)
+    v_cache = gather_kv_pages(v_pages, block_tables, q.dtype)
     q_pos = (start_pos.to(q.device)[:, None]
              + torch.arange(t, device=q.device)[None, :])
     cols = torch.arange(k_cache.shape[1], device=q.device)
@@ -125,14 +151,37 @@ def paged_flash_extend_reference(q, k_pages, v_pages, block_tables,
     return masked_attention(q, k_cache, v_cache, mask)
 
 
+def paged_flash_decode_quant_reference(q, k_pages, k_scales, v_pages,
+                                       v_scales, block_tables, kv_lens, *,
+                                       pages: int | None = None):
+    """Plain version of paged_flash_decode_quant: paged_flash_decode over
+    int8 pools [P, PS, K, D] with float32 scales [P, PS, K]."""
+    return paged_flash_decode_reference(
+        q, {"q": k_pages, "s": k_scales}, {"q": v_pages, "s": v_scales},
+        block_tables, kv_lens, pages=pages)
+
+
+def paged_flash_extend_quant_reference(q, k_pages, k_scales, v_pages,
+                                       v_scales, block_tables, start_pos,
+                                       chunk_lens):
+    """Plain version of paged_flash_extend_quant: paged_flash_extend over
+    int8 pools [P, PS, K, D] with float32 scales [P, PS, K]."""
+    return paged_flash_extend_reference(
+        q, {"q": k_pages, "s": k_scales}, {"q": v_pages, "s": v_scales},
+        block_tables, start_pos, chunk_lens)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, main: torch.Tensor, floats: dict, ints: dict) -> int:
-    """Validate what the kernel takes; returns the dtype code."""
+def _check(name: str, main: torch.Tensor, floats: dict, ints: dict,
+           codes: dict | None = None, scales: dict | None = None) -> int:
+    """Validate what the kernel takes; returns the dtype code. `floats` share
+    q's dtype; `codes` are int8 pools and `scales` their float32 scales."""
     dev = main.device
+    codes, scales = codes or {}, scales or {}
     if main.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {main.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -140,7 +189,10 @@ def _check(name: str, main: torch.Tensor, floats: dict, ints: dict) -> int:
     if d > 128 or d % 8 or 256 % d:
         raise ValueError(f"{name}: head_dim {d} not supported "
                          "(a divisor of 256, multiple of 8, at most 128)")
-    for arg, t in {**floats, **ints}.items():
+    if codes and d % 16:
+        raise ValueError(f"{name}: head_dim {d} not supported for int8 pools "
+                         "(a multiple of 16: one 16-byte load per 16 codes)")
+    for arg, t in {**floats, **ints, **codes, **scales}.items():
         if t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -148,8 +200,15 @@ def _check(name: str, main: torch.Tensor, floats: dict, ints: dict) -> int:
     for arg, t in floats.items():
         if t.dtype != main.dtype:
             raise TypeError(f"{name}: {arg} is {t.dtype}, q is {main.dtype}")
+    for arg, t in {**floats, **codes}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    for arg, t in codes.items():
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: {arg} must be int8, got {t.dtype}")
+    for arg, t in scales.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     for arg, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
@@ -268,4 +327,92 @@ def paged_flash_extend(q: torch.Tensor, k_pages: torch.Tensor,
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
             _ptr(start_pos), _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps,
             ppn, ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def _check_quant_pools(name: str, k_pages, k_scales, v_pages, v_scales) -> None:
+    if (v_pages.shape != k_pages.shape or k_scales.shape != k_pages.shape[:-1]
+            or v_scales.shape != k_scales.shape):
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} with scales "
+                         f"{tuple(k_scales.shape)} / {tuple(v_scales.shape)}; "
+                         "expected [P, PS, K, D] codes and [P, PS, K] scales")
+
+
+def paged_flash_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                             k_scales: torch.Tensor, v_pages: torch.Tensor,
+                             v_scales: torch.Tensor, block_tables: torch.Tensor,
+                             kv_lens: torch.Tensor, *,
+                             pages: int | None = None) -> torch.Tensor:
+    """paged_flash_decode over int8 pools: q [B, H, D], codes [P, PS, K, D]
+    int8, scales [P, PS, K] float32, block_tables [B, PPN] int32, kv_lens
+    [B] int32 -> [B, H, D] in q.dtype."""
+    name = "paged_flash_decode_quant"
+    if not _route(name, q):
+        return paged_flash_decode_quant_reference(
+            q, k_pages, k_scales, v_pages, v_scales, block_tables, kv_lens,
+            pages=pages)
+    b, h, d = q.shape
+    _, ps, kh, _ = k_pages.shape
+    ppn = block_tables.shape[1]
+    _check_quant_pools(name, k_pages, k_scales, v_pages, v_scales)
+    if (k_pages.shape[-1] != d or h % kh or block_tables.shape != (b, ppn)
+            or kv_lens.shape != (b,)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pages.shape)}, tables "
+                         f"{tuple(block_tables.shape)}, kv_lens "
+                         f"{tuple(kv_lens.shape)}")
+    if h // kh > _DECODE_MAX_GROUP:
+        raise ValueError(f"{name}: {h // kh} query heads per KV head; the "
+                         f"kernel takes at most {_DECODE_MAX_GROUP}")
+    sweep = ppn if pages is None else max(1, min(int(pages), ppn))
+    code = _check(name, q, {"q": q},
+                  {"block_tables": block_tables, "kv_lens": kv_lens},
+                  codes={"k_pages": k_pages, "v_pages": v_pages},
+                  scales={"k_scales": k_scales, "v_scales": v_scales})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    _launch(name, "llmlb_paged_flash_decode_quant", q.device,
+            _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
+            _ptr(v_scales), _ptr(block_tables), _ptr(kv_lens), _ptr(out),
+            b, h, kh, d, ps, ppn, sweep, ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def paged_flash_extend_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                             k_scales: torch.Tensor, v_pages: torch.Tensor,
+                             v_scales: torch.Tensor, block_tables: torch.Tensor,
+                             start_pos: torch.Tensor,
+                             chunk_lens: torch.Tensor) -> torch.Tensor:
+    """paged_flash_extend over int8 pools: q [B, T, H, D], codes [P, PS, K,
+    D] int8, scales [P, PS, K] float32, block_tables [B, PPN], start_pos /
+    chunk_lens [B] int32 -> [B, T, H, D] in q.dtype."""
+    name = "paged_flash_extend_quant"
+    if not _route(name, q):
+        return paged_flash_extend_quant_reference(
+            q, k_pages, k_scales, v_pages, v_scales, block_tables, start_pos,
+            chunk_lens)
+    b, t, h, d = q.shape
+    _, ps, kh, _ = k_pages.shape
+    ppn = block_tables.shape[1]
+    _check_quant_pools(name, k_pages, k_scales, v_pages, v_scales)
+    if (k_pages.shape[-1] != d or h % kh or block_tables.shape != (b, ppn)
+            or start_pos.shape != (b,) or chunk_lens.shape != (b,)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pages.shape)}, tables "
+                         f"{tuple(block_tables.shape)}")
+    code = _check(name, q, {"q": q},
+                  {"block_tables": block_tables, "start_pos": start_pos,
+                   "chunk_lens": chunk_lens},
+                  codes={"k_pages": k_pages, "v_pages": v_pages},
+                  scales={"k_scales": k_scales, "v_scales": v_scales})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    _launch(name, "llmlb_paged_flash_extend_quant", q.device,
+            _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
+            _ptr(v_scales), _ptr(block_tables), _ptr(start_pos),
+            _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps, ppn,
+            ctypes.c_float(d**-0.5), code)
     return out

@@ -8,13 +8,14 @@ The steps run in the reference's order: additive `mask_bias` on the full
 logits (before both the greedy argmax and the prefilter), top-k inside the
 window, temperature, then top-p over the sorted window.
 
-Randomness comes from explicit `torch.Generator`s, never the global RNG:
-rows without a seed share the caller's generator; a row with seed >= 0 draws
-from its own generator seeded from (seed, step), so it reproduces whatever
-else shares the batch. The draws are not bit-identical to JAX's threefry
-stream; greedy rows are exact (argmax, first index on ties). Nothing here
-syncs with the host, so a decode burst can sample step after step on the
-card.
+Randomness: rows without a seed draw from the caller's `torch.Generator`
+(never the global RNG), which makes no promise across engines. A row with
+seed >= 0 draws the Gumbel noise of JAX's
+`categorical(fold_in(PRNGKey(seed), step), scaled)` (`ops/_threefry.py`),
+so it samples the token ids the JAX package samples, whatever else shares
+the batch. Greedy rows are exact (argmax, first index on ties). Nothing
+here syncs with the host, so a decode burst can sample step after step on
+the card.
 """
 
 from __future__ import annotations
@@ -23,14 +24,9 @@ from typing import Sequence
 
 import torch
 
+from llmlb_tpu_torch.ops import _threefry
+
 TOPK_PREFILTER = 64
-
-
-def row_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The generator of a seeded row at one sequence position."""
-    g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    return g
 
 
 def sample_tokens(
@@ -40,8 +36,8 @@ def sample_tokens(
     top_p: torch.Tensor,  # [B] float32 in (0, 1]
     top_k: torch.Tensor,  # [B] int; 0 => disabled (the window caps it at 64)
     mask_bias: torch.Tensor | None = None,  # [B, V] float32 additive, or None
-    seeds: Sequence[int] | None = None,  # [B] host ints; < 0 => shared generator
-    steps: Sequence[int] | None = None,  # [B] host ints: position for the seed
+    seeds: torch.Tensor | Sequence[int] | None = None,  # [B]; < 0 => generator
+    steps: torch.Tensor | Sequence[int] | None = None,  # [B] position folded in
 ) -> torch.Tensor:
     """Returns sampled token ids [B] int32 on the logits' device."""
     logits = logits.float()
@@ -76,16 +72,14 @@ def sample_tokens(
 
     # Gumbel-max over the window: argmax(scaled + Gumbel noise)
     u = torch.rand((b, k), generator=generator, device=logits.device)
-    if seeds is not None:
-        for row, seed in enumerate(seeds):
-            if seed is not None and seed >= 0:
-                step = int(steps[row]) if steps is not None else 0
-                u[row] = torch.rand(
-                    (k,), generator=row_generator(seed, step, logits.device),
-                    device=logits.device,
-                )
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u))
+    if seeds is not None:
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=logits.device)
+        steps = (torch.zeros_like(seeds) if steps is None else
+                 torch.as_tensor(steps, dtype=torch.int64, device=logits.device))
+        gumbel = torch.where((seeds >= 0)[:, None],
+                             _threefry.gumbel(seeds, steps, k), gumbel)
     sampled_idx = torch.argmax(scaled + gumbel, dim=-1)
     sampled_ids = torch.gather(top_ids, 1, sampled_idx[:, None])[:, 0]
     return torch.where(temperature <= 0.0, greedy_ids,

@@ -19,6 +19,9 @@ Run on the card from the repository root:
 
     python -m llmlb_tpu_torch.profile_step --preset llama-3-8b
 
+`--quantize all` (or `weights`, `kv`) profiles the int8 engine: the same
+seed-0 weights quantized on the card one layer at a time, and int8 pools.
+
 `--device cpu` rehearses the same dispatches at a small preset on the CPU
 and prints no timing (there is no device to time).
 """
@@ -37,14 +40,17 @@ from llmlb_tpu_torch.device import resolve_device
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.ops import cuda_attention
+from llmlb_tpu_torch.ops.attention import pool_shape
 from llmlb_tpu_torch.ops.sampling import sample_tokens
+from llmlb_tpu_torch.quant import parse_quant_mode, quantize_params
 
 ROWS = 8  # the engine's default slots
 CAPACITY = 4096  # its default slot capacity, in tokens
 PAGE = 128
 REPS = 20
 ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
-                     "paged_extend_kernel")
+                     "paged_extend_kernel", "paged_decode_quant_kernel",
+                     "paged_extend_quant_kernel")
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
 
 
@@ -103,7 +109,7 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx):
     top_k = torch.zeros(ROWS, dtype=torch.int32, device=device)
     toks = torch.randint(0, 256, (ROWS,), generator=gen, device=device,
                          dtype=torch.int32)
-    capacity = tables.shape[1] * ck.shape[2]
+    capacity = tables.shape[1] * pool_shape(ck)[2]
 
     def decode(ctx):
         lens = torch.full((ROWS,), ctx, dtype=torch.int32, device=device)
@@ -147,7 +153,10 @@ def main(argv: list[str] | None = None) -> int:
                         help="default llama-3-8b on the card, debug-tiny on "
                              "the CPU")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--quantize", choices=("off", "weights", "kv", "all"),
+                        default="off", help="int8 weights and/or KV pages")
     args = parser.parse_args(argv)
+    quant = parse_quant_mode(args.quantize)
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     cfg = get_preset(args.preset or ("llama-3-8b" if on_card else "debug-tiny"))
@@ -164,7 +173,10 @@ def main(argv: list[str] | None = None) -> int:
 
     params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                                device)
-    ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device)
+    if quant.weights:
+        params = quantize_params(params)
+    ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device,
+                                 quantized=quant.kv)
     tables = (torch.arange(ROWS * ppn, dtype=torch.int32, device=device) + 1
               ).reshape(ROWS, ppn)
     dispatches = _dispatches(cfg, params, ck, cv, tables, device,
@@ -177,7 +189,7 @@ def main(argv: list[str] | None = None) -> int:
             continue
         cuda_attention.reset_launch_counts()
         row = {"dispatch": name, "preset": args.preset or "llama-3-8b",
-               "card": smi, **_profile(fn, REPS)}
+               "quantize": quant.mode, "card": smi, **_profile(fn, REPS)}
         print(json.dumps(row), flush=True)
         if not any(cuda_attention.LAUNCHES.values()):
             raise RuntimeError(f"{name}: no attention kernel launched")

@@ -46,6 +46,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = _port_modules()
     assert "llmlb_tpu_torch.engine.server" in modules
     assert "llmlb_tpu_torch.ops.cuda_attention" in modules
+    assert "llmlb_tpu_torch.quant.core" in modules
+    assert "llmlb_tpu_torch.ops._threefry" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"

@@ -3,8 +3,9 @@
 Inputs are made from a seed with numpy and handed to both sides. fp32
 tolerance 1e-5 absolute for rms_norm and apply_rope (same fp32 formulas,
 sin/cos and rsqrt from different libraries). Greedy sampling must be
-identical; stochastic draws use torch generators and are checked for their
-contract, not for JAX's threefry bits.
+identical; unseeded stochastic draws use torch generators and are checked
+for their contract here (seeded rows draw JAX's threefry stream:
+tests/test_torch_sampling.py).
 """
 
 import jax
