@@ -11,14 +11,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build   — compile llmlb_tpu_torch/csrc/*.cu with nvcc for sm_90a.
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              in bf16 and fp32 at the serving shapes of Llama-3-8B and in fp32
-             at debug-tiny's head_dim, show that the bf16 limit rejects the
-             plain version with one page or key tile left out (and, for the
-             int8 kernels, with the wrong page's scales or K's scales for
-             V), and time kernel / plain / library call with CUDA events.
+             at debug-tiny's widths, show that the limit rejects the plain
+             version with a fault a kernel could have (a page or key tile
+             left out; for the int8 kernels the wrong page's scales or K's
+             scales for V; for the dense kernels the next slot's row; for
+             lora_delta the next adapter's rows or the last rank column
+             left out), and time kernel / plain / library call with CUDA
+             events.
 4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
-5. model   — the model's three paged entry points on the card (kernels)
-             against the CPU (plain path) at debug size, with model-dtype
-             and with int8 pools and weights.
+5. model   — the model's serving entry points on the card (kernels)
+             against the CPU (plain path) at debug size: the paged ones with
+             model-dtype, int8, adapter-pool (mixed lora_idx) and int8 +
+             adapter params; the dense-slot ones with and without adapters.
 6. serve   — the port's HTTP server in-process, Llama-3-8B at full width and
              depth with random bf16 weights from seed 0: concurrent chat
              requests (streaming and not), a ~1500-token prompt that takes
@@ -30,6 +34,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
              quantized on the card, int8 KV pages; flash_prefill and the two
              int8 kernels launch, the bf16 paged kernels do not, and the
              greedy tokens that agree with the bf16 run are counted.
+8. serve lora — the paged bf16 engine with a temporary adapter directory
+             (two adapters written by the port's save_adapter): HTTP traffic
+             mixing the base model, the `lora` field and `model:adapter`
+             names; the adapter-free timed prompt's greedy ids equal the
+             bf16 run's, an adapter's differ, lora_delta and the paged
+             kernels launch, adapter refcounts drain to {}.
+9. serve dense — the bf16 traffic with kv_layout="dense": flash_prefill,
+             flash_decode and flash_extend launch, no paged kernel does.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,6 +77,11 @@ SLOTS, CAPACITY, PAGE = 8, 4096, 128
 # phase_kernels shows that one dropped page or key tile fails it.
 BF16_REL = 2.0**-6
 FP32_ATOL = 1e-4  # fp32: the same math summed in another order
+# lora_delta: an fp32 result of exact products (bf16 x bf16 fits fp32) summed
+# in another order than the plain version's fp32 einsum: relative sum-order
+# error ~ sqrt(IN) * 2^-24 ~ 1e-5 at IN 14336. Allow 1e-4 of the element and
+# of its row's RMS; one rank column of 16 left out moves ~25% of the RMS.
+LORA_REL = 1e-4
 # fp32 logits of the 8B vocab projection: fp32 sums of 4096 exact bf16
 # products in another order than the fp32 product's (logits ~ N(0, 1))
 UNEMBED_ATOL = 1e-3
@@ -89,6 +106,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, reps: int, marks: tuple[str, ...]) -> float:
+    """Device time per fn() call of the kernels whose names hold one of
+    `marks`, as torch.profiler saw them (no host time between launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(m in e.name for m in marks))
+    return us / reps / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -337,6 +372,10 @@ def phase_kernels() -> list[dict]:
                            start_host, chunk_host)
     del kp, vp
 
+    # -- the dense slot cache kernels and the LoRA bgmv ----------------------
+    rows += _dense_kernels(torch, gen, lens_host, start_host, chunk_host)
+    rows += _lora_kernel(torch, gen)
+
     # -- fp32 at the serving shapes (D 128, pages of 128) --------------------
     q, k, v = randn((2, 128, H, D), f32), randn((2, 128, KV, D), f32), \
         randn((2, 128, KV, D), f32)
@@ -391,6 +430,242 @@ def phase_kernels() -> list[dict]:
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
+
+
+def _sdpa_ms(torch, q, k, v, mask) -> float:
+    """The yardstick call for the dense kernels: SDPA with a boolean mask
+    and the KV heads shared by their query group (enable_gqa), on the
+    [B, heads, T, D] layout prepared outside the timed region. Timed only;
+    the port never calls it."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    m = mask[:, None]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=m, enable_gqa=True), 10)
+
+
+def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
+    """flash_decode and flash_extend over the dense slot cache at the
+    serving shapes (8 slots of 4096 cells; one 476-token chunk at 1024),
+    bf16 and fp32 against their plain versions, the mutants the bf16 limit
+    must reject (the last 64-key tile left out; the next slot's row read),
+    fp32 at debug-tiny's head_dim with a window below S, timings."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = []
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # -- flash_decode: 8 slots, contexts 4096..1, the full sweep -------------
+    kc, vc = randn((SLOTS, CAPACITY, KV, D), bf16), \
+        randn((SLOTS, CAPACITY, KV, D), bf16)
+    lens = torch.tensor(lens_host, dtype=torch.int32, device="cuda")
+    q = randn((SLOTS, H, D), bf16)
+    got = ca.flash_decode(q, kc, vc, lens, window=CAPACITY)
+    want = ca.flash_decode_reference(q, kc, vc, lens, window=CAPACITY)
+    torch.cuda.synchronize()
+    err = _check("flash_decode bf16 [8,32,128] cache [8,4096,8,128]", got,
+                 want, rel=BF16_REL)
+    cols = torch.arange(CAPACITY, device="cuda")
+    mask = (cols[None, :] < lens[:, None])[:, None]
+    if not torch.equal(_plain(torch, q[:, None], kc, vc, mask)[:, 0], want):
+        raise AssertionError("flash_decode: the mutants' mask is not the "
+                             "plain version's")
+    _must_fail("flash_decode bf16, last 64-key tile of the 4096-token row "
+               "left out",
+               _plain(torch, q[:, None], kc, vc, mask,
+                      (CAPACITY - 64, CAPACITY, [0]))[:, 0], want,
+               rel=BF16_REL)
+    _must_fail("flash_decode bf16, the next slot's row read",
+               _plain(torch, q[:, None], kc.roll(-1, 0), vc.roll(-1, 0),
+                      mask)[:, 0], want, rel=BF16_REL)
+    cells = sum(lens_host)
+    nbytes = cells * KV * D * 2 * 2 + 2 * q.numel() * 2 + SLOTS * 4
+    bms, by = bound_ms(nbytes, 4 * H * D * cells, PEAK_BF16_FLOPS)
+    out.append(dict(
+        name="flash_decode", route="cuda",
+        source="llmlb_tpu_torch/csrc/flash_decode.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:128",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.flash_decode(q, kc, vc, lens,
+                                           window=CAPACITY), 50),
+        plain_ms=cuda_ms(lambda: ca.flash_decode_reference(
+            q, kc, vc, lens, window=CAPACITY), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=_sdpa_ms(torch, q[:, None], kc, vc, mask)))
+    qf = randn((SLOTS, H, D), f32)
+    kf, vf = kc.float(), vc.float()
+    _check("flash_decode fp32 [8,32,128] cache [8,4096,8,128]",
+           ca.flash_decode(qf, kf, vf, lens, window=CAPACITY),
+           ca.flash_decode_reference(qf, kf, vf, lens, window=CAPACITY),
+           atol=FP32_ATOL)
+    del kf, vf, qf
+
+    # -- flash_extend: the 476-token chunk at 1024 of slot 0's row -----------
+    t = 512
+    q = randn((1, t, H, D), bf16)
+    rows_k, rows_v = kc[:1].contiguous(), vc[:1].contiguous()
+    start = torch.tensor([start_host], dtype=torch.int32, device="cuda")
+    chunk = torch.tensor([chunk_host], dtype=torch.int32, device="cuda")
+    got = ca.flash_extend(q, rows_k, rows_v, start, chunk)
+    want = ca.flash_extend_reference(q, rows_k, rows_v, start, chunk)
+    torch.cuda.synchronize()
+    err = _check("flash_extend bf16 [1,512,32,128] rows [1,4096,8,128] "
+                 "start 1024", got, want, rel=BF16_REL, rows=[chunk_host])
+    keys = start_host + chunk_host
+    q_pos = start_host + torch.arange(t, device="cuda")
+    mask = cols[None, None, :] <= q_pos[None, :, None]
+    if not torch.equal(_plain(torch, q, rows_k, rows_v, mask), want):
+        raise AssertionError("flash_extend: the mutants' mask is not the "
+                             "plain version's")
+    last = (keys - 1) // 64 * 64
+    _must_fail(f"flash_extend bf16, last 64-key tile [{last}, {keys}) left out",
+               _plain(torch, q, rows_k, rows_v, mask, (last, keys, [0])), want,
+               rel=BF16_REL, rows=[chunk_host])
+    _must_fail("flash_extend bf16, the next slot's row read",
+               _plain(torch, q, kc[1:2], vc[1:2], mask), want, rel=BF16_REL,
+               rows=[chunk_host])
+    visible = sum(start_host + i + 1 for i in range(chunk_host))
+    nbytes = keys * KV * D * 2 * 2 + 2 * chunk_host * H * D * 2 + 8
+    bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
+    out.append(dict(
+        name="flash_extend", route="cuda",
+        source="llmlb_tpu_torch/csrc/flash_extend.cu",
+        replaces="llmlb_tpu/ops/pallas_attention.py:642",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ca.flash_extend(q, rows_k, rows_v, start, chunk),
+                   20),
+        plain_ms=cuda_ms(lambda: ca.flash_extend_reference(
+            q, rows_k, rows_v, start, chunk), 3),
+        bound_ms=bms, bound_by=by,
+        library_ms=_sdpa_ms(torch, q, rows_k, rows_v, mask)))
+    qf = randn((1, t, H, D), f32)
+    kf, vf = rows_k.float(), rows_v.float()
+    _check("flash_extend fp32 [1,512,32,128] rows [1,4096,8,128] start 1024",
+           ca.flash_extend(qf, kf, vf, start, chunk),
+           ca.flash_extend_reference(qf, kf, vf, start, chunk),
+           atol=FP32_ATOL, rows=[chunk_host])
+    del kc, vc, rows_k, rows_v, kf, vf, q, qf
+
+    # -- fp32 at debug-tiny's head_dim 16, G=2, a window below S -------------
+    kc, vc = randn((3, 320, 4, 16), f32), randn((3, 320, 4, 16), f32)
+    q = randn((3, 8, 16), f32)
+    kl = torch.tensor([1, 137, 256], dtype=torch.int32, device="cuda")
+    _check("flash_decode fp32 [3,8,16] cache [3,320,4,16] window 256",
+           ca.flash_decode(q, kc, vc, kl, window=256),
+           ca.flash_decode_reference(q, kc, vc, kl, window=256),
+           atol=FP32_ATOL)
+    q = randn((3, 16, 8, 16), f32)
+    st = torch.tensor([0, 13, 300], dtype=torch.int32, device="cuda")
+    ch = torch.tensor([16, 9, 3], dtype=torch.int32, device="cuda")
+    _check("flash_extend fp32 [3,16,8,16] rows [3,320,4,16]",
+           ca.flash_extend(q, kc, vc, st, ch),
+           ca.flash_extend_reference(q, kc, vc, st, ch), atol=FP32_ATOL,
+           rows=[16, 9, 3])
+    return out
+
+
+def _lora_kernel(torch, gen) -> list[dict]:
+    """lora_delta at Llama-3-8B's four projection shapes, 9 pool rows (8
+    adapters and the identity) at rank 16, decode (8, 1) and prefill
+    (8, 512) rows, bf16 and fp32 against the plain version, the mutants the
+    limit must reject, an all-identity batch that must give exactly +0.0,
+    fp32 at debug-tiny widths, timings."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.lora import lora_target_dims
+    from llmlb_tpu_torch.ops import lora
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_preset("llama-3-8b")
+    rank, n_rows = 16, 9
+    idx_host = [0, 3, 1, 0, 8, 2, 2, 5]
+    idx = torch.tensor(idx_host, dtype=torch.int32, device="cuda")
+
+    def pools(in_dim, out_dim, dtype, rank=rank, n_rows=n_rows):
+        a = torch.randn((n_rows, in_dim, rank), generator=gen,
+                        device="cuda") * in_dim**-0.5
+        b = torch.randn((n_rows, rank, out_dim), generator=gen,
+                        device="cuda") * rank**-0.5
+        a[0] = 0.0  # the identity adapter
+        b[0] = 0.0
+        return a.to(dtype).contiguous(), b.to(dtype).contiguous()
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    row = None
+    dims = lora_target_dims(cfg, ("wq", "wk", "wg", "wd"))
+    for tgt, (in_dim, out_dim) in dims.items():
+        a, b = pools(in_dim, out_dim, bf16)
+        for t in (1, 512):
+            x = randn((SLOTS, t, in_dim), bf16)
+            got = lora.lora_delta(x, a, b, idx)
+            want = lora.lora_delta_reference(x, a, b, idx)
+            torch.cuda.synchronize()
+            tag = f"lora_delta bf16 {tgt} x [8,{t},{in_dim}] -> {out_dim}"
+            err = _check(tag, got, want, rel=LORA_REL)
+            if got.dtype != torch.float32:
+                raise AssertionError(f"{tag}: output is {got.dtype}")
+            if t == 1 and tgt == "wg":
+                _must_fail(f"{tag}, row i reading adapter idx_i + 1",
+                           lora.lora_delta_reference(x, a, b, (idx + 1) % n_rows),
+                           want, rel=LORA_REL)
+                a_cut = a.clone()
+                a_cut[..., -1] = 0
+                _must_fail(f"{tag}, the last rank column dropped",
+                           lora.lora_delta_reference(x, a_cut, b, idx), want,
+                           rel=LORA_REL)
+                zero = lora.lora_delta(x, a, b, torch.zeros_like(idx))
+                if not (torch.equal(zero, torch.zeros_like(zero))
+                        and not torch.signbit(zero).any()):
+                    raise AssertionError("lora_delta: the identity row's delta "
+                                         "is not exactly +0.0")
+                log(f"  {tag}, idx all 0: delta exactly +0.0")
+                ms = cuda_ms(lambda: lora.lora_delta(x, a, b, idx), 50)
+                # back to back, a call this short is bound by the host's
+                # launch path; the profiler gives the two kernels' own time
+                dev_ms = profiled_ms(lambda: lora.lora_delta(x, a, b, idx),
+                                     50, ("shrink_kernel", "expand_kernel"))
+                log(f"  {tag}: device time of its two kernels "
+                    f"{dev_ms:.4f} ms a call (torch.profiler)")
+                # x once, the 7 distinct rows the batch selects once, the
+                # fp32 output once; two products per (row, position)
+                distinct = len(set(idx_host))
+                nbytes = (x.numel() * 2 + distinct * rank * (in_dim + out_dim)
+                          * 2 + SLOTS * t * out_dim * 4 + SLOTS * 4)
+                bms, by = bound_ms(nbytes, 2 * SLOTS * t * rank
+                                   * (in_dim + out_dim), PEAK_BF16_FLOPS)
+                row = dict(
+                    name="lora_delta", route="cuda",
+                    source="llmlb_tpu_torch/csrc/lora_bgmv.cu",
+                    replaces="llmlb_tpu/ops/lora.py:87", max_abs_err=err,
+                    ms=ms, plain_ms=cuda_ms(lambda: lora.lora_delta_reference(
+                        x, a, b, idx), 5),
+                    bound_ms=bms, bound_by=by, library_ms=None)
+            else:
+                ms = cuda_ms(lambda: lora.lora_delta(x, a, b, idx), 10)
+            log(f"  {tag}: kernel {ms:.4f} ms (CUDA events, back to back)")
+            del x, got, want
+        af, bf = a.float(), b.float()
+        xf = randn((SLOTS, 1, in_dim), f32)
+        _check(f"lora_delta fp32 {tgt} x [8,1,{in_dim}] -> {out_dim}",
+               lora.lora_delta(xf, af, bf, idx),
+               lora.lora_delta_reference(xf, af, bf, idx), rel=LORA_REL)
+        del a, b, af, bf, xf
+    # fp32 at debug-tiny's widths (hidden 128, KV 64, ffn 256), rank 8
+    tiny = get_preset("debug-tiny")
+    for tgt, (in_dim, out_dim) in lora_target_dims(
+            tiny, ("wq", "wk", "wg", "wd")).items():
+        a, b = pools(in_dim, out_dim, f32, rank=8, n_rows=3)
+        x = randn((5, 7, in_dim), f32)
+        ix = torch.tensor([0, 1, 2, 1, 0], dtype=torch.int32, device="cuda")
+        _check(f"lora_delta fp32 debug-tiny {tgt} x [5,7,{in_dim}] -> "
+               f"{out_dim}", lora.lora_delta(x, a, b, ix),
+               lora.lora_delta_reference(x, a, b, ix), rel=LORA_REL)
+    return [row]
 
 
 def _dequant(codes, scales, tables, dtype, scale_tables=None):
@@ -560,12 +835,18 @@ def phase_unembed() -> None:
 
 
 def phase_model_entry_points() -> None:
-    """The three paged entry points at debug size: card (kernels) against
-    CPU (plain path), fp32 logits within FP32_ATOL * 10 (two layers), with
-    model-dtype pools and weights and then with int8 pools and weights."""
+    """The serving entry points at debug size: card (kernels) against CPU
+    (plain path), fp32 logits within FP32_ATOL * 10 (two layers). The three
+    paged ones with model-dtype pools and weights, with int8 pools and
+    weights, with an adapter pool and mixed `lora_idx`, and with int8
+    weights and adapters; the three dense-slot ones, with and without
+    adapters."""
+    import tempfile
+
     import torch
 
     from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.lora import LoraManager, save_adapter
     from llmlb_tpu_torch.models import llama
     from llmlb_tpu_torch.quant import quantize_params
 
@@ -578,30 +859,85 @@ def phase_model_entry_points() -> None:
     chunk = torch.randint(0, 512, (2, 16), generator=rng)
     chunk_lens = torch.tensor([16, 3], dtype=torch.int32)
     toks = torch.randint(0, 512, (2,), generator=rng)
+    slots = torch.tensor([2, 0], dtype=torch.int64)
 
-    def run(dev, p, quantized):
+    # an adapter pool with two adapters in rows 1 and 2 (row 0 identity)
+    with tempfile.TemporaryDirectory() as lora_dir:
+        save_adapter(lora_dir, "acme", cfg, rank=4)
+        save_adapter(lora_dir, "beta", cfg, rank=8,
+                     targets=("wq", "wk", "wv", "wo", "wg", "wu", "wd"))
+        mgr = LoraManager(cfg, lora_dir=lora_dir, max_adapters=2, rank_cap=8)
+        pool = mgr.init_pool_leaves(cfg.dtype, "cpu")
+        mgr.attach(pool)
+        for i, name in enumerate(("acme", "beta")):
+            mgr.acquire(name, f"r{i}")
+    lora_idx = torch.tensor([2, 1], dtype=torch.int32)
+
+    def paged(dev, p, quantized, lidx):
         tb = tables.to(dev)
+        li = None if lidx is None else lidx.to(dev)
         ck, cv = llama.init_kv_pages(cfg, 12, 16, dev, quantized=quantized)
         out = [llama.prefill_into_pages(p, cfg, ids.to(dev), lens.to(dev), tb,
-                                        ck, cv)[0]]
+                                        ck, cv, lora_idx=li)[0]]
         out.append(llama.prefill_extend_pages(
             p, cfg, chunk.to(dev), chunk_lens.to(dev), lens.to(dev), tb,
-            ck, cv)[0])
+            ck, cv, lora_idx=li)[0])
         seq = (lens + chunk_lens).to(dev)
         for _ in range(2):
             out.append(llama.decode_step_paged(p, cfg, toks.to(dev), seq, ck,
-                                               cv, tb, window=64)[0])
+                                               cv, tb, window=64,
+                                               lora_idx=li)[0])
             seq = seq + 1
         return [o.cpu() for o in out]
 
-    for quantized in (False, True):
+    def dense(dev, p, _quantized, lidx):
+        # 3 slots of 320 cells: the prompts land in slots 2 and 0; decode
+        # runs over all 3 rows (row 1 idle) with a 256-cell window
+        li = None if lidx is None else lidx.to(dev)
+        ck, cv = llama.init_kv_cache(cfg, 3, 320, dev)
+        out = [llama.prefill_into_slots(p, cfg, ids.to(dev), lens.to(dev),
+                                        slots.to(dev), ck, cv,
+                                        lora_idx=li)[0]]
+        out.append(llama.prefill_extend_slots(
+            p, cfg, chunk.to(dev), chunk_lens.to(dev), lens.to(dev),
+            slots.to(dev), ck, cv, lora_idx=li)[0])
+        seq = torch.zeros(3, dtype=torch.int32)
+        seq[slots] = lens + chunk_lens
+        rows_li = None
+        if li is not None:
+            rows_li = torch.zeros(3, dtype=torch.int32)
+            rows_li[slots] = lidx
+            rows_li = rows_li.to(dev)
+        last = torch.zeros(3, dtype=torch.int64)
+        last[slots] = toks
+        seq = seq.to(dev)
+        for _ in range(2):
+            logits = llama.decode_step(p, cfg, last.to(dev), seq, ck, cv,
+                                       window=256, lora_idx=rows_li)[0]
+            out.append(logits[slots.to(dev)])
+            seq = seq + 1
+        return [o.cpu() for o in out]
+
+    cases = (("paged", paged, False, None, cfg.dtype),
+             ("paged", paged, True, None, "int8 pools and weights"),
+             ("paged", paged, False, lora_idx, "adapters, lora_idx [2, 1]"),
+             ("paged", paged, "weights", lora_idx,
+              "int8 weights + adapters"),
+             ("dense", dense, False, None, cfg.dtype),
+             ("dense", dense, False, lora_idx, "adapters, lora_idx [2, 1]"))
+    for layout, fn, quantized, lidx, tag in cases:
         p = quantize_params(params) if quantized else params
+        if lidx is not None:
+            p = {**p, **pool}
         gp = {k: v.cuda() for k, v in p.items()}
-        tag = "int8 pools and weights" if quantized else cfg.dtype
-        for name, g, c in zip(("prefill_into_pages", "prefill_extend_pages",
-                               "decode_step_paged#1", "decode_step_paged#2"),
-                              run("cuda", gp, quantized), run("cpu", p,
-                                                              quantized)):
+        names = ((f"prefill_into_{'pages' if layout == 'paged' else 'slots'}",
+                  f"prefill_extend_{'pages' if layout == 'paged' else 'slots'}")
+                 + (("decode_step_paged#1", "decode_step_paged#2")
+                    if layout == "paged" else ("decode_step#1",
+                                               "decode_step#2")))
+        pools_int8 = quantized is True
+        for name, g, c in zip(names, fn("cuda", gp, pools_int8, lidx),
+                              fn("cpu", p, pools_int8, lidx)):
             err = (g - c).abs().max().item()
             log(f"  model {name} debug-tiny ({tag}) fp32 logits card vs cpu: "
                 f"max_abs_err {err:.3e}")
@@ -616,19 +952,22 @@ def _post(url: str, body: dict, timeout: float = 600):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
-def _chat(base: str, content: str, max_tokens: int, stream: bool) -> dict:
-    """One greedy chat request; returns {text, usage, finish} after checking
-    the response shape."""
-    body = {"model": "llama-3-8b", "temperature": 0, "max_tokens": max_tokens,
+def _chat(base: str, content: str, max_tokens: int, stream: bool,
+          model: str = "llama-3-8b", lora: str | None = None) -> dict:
+    """One greedy chat request; returns {text, usage, finish, model} after
+    checking the response shape."""
+    body = {"model": model, "temperature": 0, "max_tokens": max_tokens,
             "stream": stream,
             "messages": [{"role": "user", "content": content}]}
+    if lora is not None:
+        body["lora"] = lora
     with _post(base + "/v1/chat/completions", body) as resp:
         if not stream:
             out = json.loads(resp.read())
             assert out["object"] == "chat.completion", out
             choice = out["choices"][0]
             return {"text": choice["message"]["content"], "usage": out["usage"],
-                    "finish": choice["finish_reason"]}
+                    "finish": choice["finish_reason"], "model": out["model"]}
         lines = [ln.decode().strip() for ln in resp if ln.strip()]
     assert lines[-1] == "data: [DONE]", lines[-3:]
     chunks = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
@@ -638,16 +977,18 @@ def _chat(base: str, content: str, max_tokens: int, stream: bool) -> dict:
     finish = chunks[-2]["choices"][0]["finish_reason"]
     text = "".join(c["choices"][0]["delta"].get("content", "")
                    for c in chunks[:-1] if c["choices"])
-    return {"text": text, "usage": usage, "finish": finish}
+    return {"text": text, "usage": usage, "finish": finish,
+            "model": chunks[0]["model"]}
 
 
-def _timed_core_request(core, prompt: list[int], max_tokens: int):
+def _timed_core_request(core, prompt: list[int], max_tokens: int,
+                        lora: str | None = None):
     """Submit straight to the serving core; returns (ids, ttft_s, decode
     tokens/s of this request)."""
     from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
 
     req = core.submit(Request(prompt_ids=list(prompt), sampling=SamplingParams(
-        temperature=0.0, max_tokens=max_tokens)))
+        temperature=0.0, max_tokens=max_tokens, lora=lora)))
     ids, stamps = [], []
     while True:
         kind, value = req.events.get(timeout=600)
@@ -663,18 +1004,57 @@ def _timed_core_request(core, prompt: list[int], max_tokens: int):
     return ids, ttft, rate
 
 
+def _concurrent(fns: list) -> list:
+    """Run the zero-argument callables on threads at once; their results in
+    order, or the first error raised."""
+    results: dict[int, object] = {}
+    errors: list[BaseException] = []
+
+    def worker(i: int) -> None:
+        try:
+            results[i] = fns[i]()
+        except BaseException as e:  # collected and re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or len(results) != len(fns):
+        raise RuntimeError(f"concurrent requests failed: {errors!r}")
+    return [results[i] for i in range(len(fns))]
+
+
+def _shared(a: list[int], b: list[int]) -> int:
+    """Length of the common prefix of two token lists."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
 # The kernels each serving path must launch, and those it must not.
 BF16_PATH = ("flash_prefill", "paged_flash_decode", "paged_flash_extend")
 INT8_PATH = ("flash_prefill", "paged_flash_decode_quant",
              "paged_flash_extend_quant")
+LORA_PATH = BF16_PATH + ("lora_delta",)
+DENSE_PATH = ("flash_prefill", "flash_decode", "flash_extend")
+# Adapters of the LoRA phase: (name, rank, targets). Their factors are
+# drawn at scale 0.03: the delta of a projection is then ~0.1-0.3 of the
+# base output at Llama-3-8B's widths (0.25, the default, is sized for
+# debug-tiny and would swamp the base model).
+ADAPTERS = (("acme", 8, ("wq", "wk", "wv", "wo")),
+            ("beta", 16, ("wq", "wk", "wv", "wo", "wg", "wu", "wd")))
+ADAPTER_SCALE = 0.03
 
 
-def phase_serve(dev: dict, quantize: str | None = None,
-                bf16_ids: list[int] | None = None) -> dict:
-    """Serve Llama-3-8B at full width and depth, random weights from seed 0
-    (quantized on the card for `quantize`), through the HTTP server, then
-    time requests on its core. Returns the metrics, the greedy ids of the
-    timed prompt and the kernel launches of this run."""
+def phase_serve(dev: dict, label: str, path: tuple[str, ...],
+                bf16_ids: list[int] | None = None, **core_kwargs) -> dict:
+    """Serve Llama-3-8B at full width and depth, random weights from seed 0,
+    through the HTTP server, then time requests on its core. `core_kwargs`
+    pick the path (quantize="all", kv_layout="dense", lora_dir=...).
+    Returns the metrics, the greedy ids of the timed prompt and the kernel
+    launches of this run."""
     import gc
 
     import torch
@@ -683,93 +1063,117 @@ def phase_serve(dev: dict, quantize: str | None = None,
     from llmlb_tpu_torch.engine.service import Engine
     from llmlb_tpu_torch.ops import cuda_attention as ca
 
-    path = INT8_PATH if quantize == "all" else BF16_PATH
-    label = f"quantize={quantize}" if quantize else "bf16"
+    lora = "lora_dir" in core_kwargs
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
                                 num_slots=SLOTS, slot_capacity=CAPACITY,
-                                eos_id=-1, quantize=quantize)
+                                eos_id=-1, **core_kwargs)
+    core = engine.core
     torch.cuda.synchronize()
-    kv_dtype = engine.core.kv_cache_info()["kv_dtype"]
+    kv_info = core.kv_cache_info()
     log(f"serve {label}: llama-3-8b random weights (seed 0) on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
-        f"(params {engine.core.param_bytes / 2**30:.2f} GiB, KV "
-        f"{engine.core.kv_cache_info()['hbm_bytes'] / 2**30:.2f} GiB "
-        f"{kv_dtype}); decode burst {engine.core.decode_burst}")
-    if quantize == "all" and kv_dtype != "int8":
-        raise AssertionError(f"quantize=all serves a {kv_dtype} KV pool")
+        f"(params {core.param_bytes / 2**30:.2f} GiB, KV "
+        f"{kv_info['hbm_bytes'] / 2**30:.2f} GiB {kv_info['layout']} "
+        f"{kv_info['kv_dtype']}); decode burst {core.decode_burst}")
+    if core_kwargs.get("quantize") == "all" and kv_info["kv_dtype"] != "int8":
+        raise AssertionError(f"quantize=all serves a {kv_info['kv_dtype']} "
+                             "KV pool")
+    if kv_info["layout"] != core_kwargs.get("kv_layout", "paged"):
+        raise AssertionError(f"the engine serves the {kv_info['layout']} "
+                             "layout")
     server, thread = start_server(engine)
     base = "http://%s:%d" % server.server_address[:2]
     stats = {}
     try:
         ca.reset_launch_counts()
-        # the main path, over HTTP
+        # the main path, over HTTP; with adapters, a mix of the base model,
+        # the `lora` field and the `model:adapter` suffix
         first = _chat(base, "Tell me about paged attention.", 32, True)
-        results: dict[int, dict] = {}
-        errors: list[BaseException] = []
 
-        def worker(i: int) -> None:
-            try:
-                results[i] = _chat(base, f"Request {i}: write a haiku about "
-                                   "GPUs and TPUs.", 32, stream=i % 2 == 0)
-            except BaseException as e:  # collected and re-raised below
-                errors.append(e)
+        def request(i: int) -> dict:
+            content = f"Request {i}: write a haiku about GPUs and TPUs."
+            if lora and i % 3 == 1:
+                return _chat(base, content, 32, i % 2 == 0, lora="acme")
+            if lora and i % 3 == 2:
+                return _chat(base, content, 32, i % 2 == 0,
+                             model="llama-3-8b:beta")
+            return _chat(base, content, 32, stream=i % 2 == 0)
 
-        workers = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
-        for w in workers:
-            w.start()
-        for w in workers:
-            w.join(timeout=900)
-        if errors or len(results) != 4:
-            raise RuntimeError(f"concurrent chat failed: {errors!r}")
+        results = _concurrent([lambda i=i: request(i) for i in range(4)])
         long_text = " ".join(f"w{i % 97}" for i in range(380))  # ~1500 tokens
-        long = _chat(base, long_text, 32, False)
+        long = _chat(base, long_text, 32, False,
+                     lora="beta" if lora else None)
         again = _chat(base, "Tell me about paged attention.", 32, True)
-        for r in [first, again, long, *results.values()]:
+        for r in [first, again, long, *results]:
             assert r["usage"]["completion_tokens"] == 32, r["usage"]
             assert r["finish"] == "length", r["finish"]
         assert long["usage"]["prompt_tokens"] > 1024, long["usage"]
         assert again["text"] == first["text"], (first, again)
-        log(f"serve {label}: 4 concurrent chats + "
-            f"{long['usage']['prompt_tokens']}-token prompt + repeat over HTTP "
-            "ok; repeat text identical")
+        if lora:
+            assert results[2]["model"] == "llama-3-8b", results[2]["model"]
+            with urllib.request.urlopen(base + "/v1/models",
+                                        timeout=60) as resp:
+                ids = [m["id"] for m in json.loads(resp.read())["data"]]
+            assert {"llama-3-8b:acme", "llama-3-8b:beta"} <= set(ids), ids
+        log(f"serve {label}: 4 concurrent chats"
+            + (" (base, lora field, model:adapter suffix)" if lora else "")
+            + f" + {long['usage']['prompt_tokens']}-token prompt"
+            + (" with adapter beta" if lora else "")
+            + " + repeat over HTTP ok; repeat text identical")
 
         # token-level determinism and timing on the same core
-        core = engine.core
         prompt = engine.encode_chat([{"role": "user",
                                       "content": "x" * 100}])
         ids1, ttft1, rate1 = _timed_core_request(core, prompt, 64)
         ids2, ttft2, rate2 = _timed_core_request(core, prompt, 64)
         assert ids1 == ids2, "greedy token ids differ between identical runs"
-        batch: dict[int, tuple] = {}
         t_batch = time.monotonic()
-        ths = [threading.Thread(target=lambda i=i: batch.__setitem__(
-            i, _timed_core_request(core, prompt[:-1] + [i], 64)))
-            for i in range(SLOTS)]
-        for th in ths:
-            th.start()
-        for th in ths:
-            th.join(timeout=900)
-        wall = time.monotonic() - t_batch
-        if len(batch) != SLOTS:
-            raise RuntimeError("concurrent core requests failed")
-        agg = SLOTS * 64 / wall
-        nan_rows = core.nan_logit_rows()
-        launches = dict(ca.LAUNCHES)
+        _concurrent([lambda i=i: _timed_core_request(
+            core, prompt[:-1] + [i], 64) for i in range(SLOTS)])
+        agg = SLOTS * 64 / (time.monotonic() - t_batch)
         stats = {"ttft_s": min(ttft1, ttft2), "decode_tok_s_1": max(rate1, rate2),
-                 "tok_s_8": agg, "launches": launches, "ids": ids1}
+                 "tok_s_8": agg, "ids": ids1}
         log(f"serve {label} [{dev['smi']}]: single-request TTFT "
             f"{stats['ttft_s'] * 1e3:.1f} ms ({len(prompt)}-token prompt), "
             f"decode {stats['decode_tok_s_1']:.1f} tok/s; 8 concurrent x 64 "
             f"tokens: {agg:.1f} tok/s incl. prefill")
         if bf16_ids is not None:
-            agree = next((i for i, (a, b) in enumerate(zip(ids1, bf16_ids))
-                          if a != b), min(len(ids1), len(bf16_ids)))
+            agree = _shared(ids1, bf16_ids)
             log(f"serve {label}: the first {agree} of {len(ids1)} greedy "
-                "tokens of the timed prompt agree with the bf16 run")
+                "tokens of the timed prompt agree with the bf16 paged run")
+            if lora and ids1 != bf16_ids:
+                raise AssertionError("an adapter-free request differs from the "
+                                     "LoRA-free engine's: the identity row "
+                                     "must add exactly 0.0")
+        if lora:
+            acme, _, _ = _timed_core_request(core, prompt, 64, lora="acme")
+            if acme == ids1:
+                raise AssertionError("adapter acme changed no greedy token")
+            # a mixed batch against each row's solo run (logged, not
+            # asserted: cuBLAS may round a 1-row and a 4-row prefill apart)
+            mix = [None, "acme", "beta", "acme"]
+            solo = [_timed_core_request(core, prompt[:-1] + [i], 32, name)[0]
+                    for i, name in enumerate(mix)]
+            batch = _concurrent([lambda i=i, name=name: _timed_core_request(
+                core, prompt[:-1] + [i], 32, name)[0]
+                for i, name in enumerate(mix)])
+            log(f"serve {label}: acme's greedy ids share the first "
+                f"{_shared(acme, ids1)} of 64 with the base model's; mixed "
+                f"batch {mix} rows share "
+                f"{[_shared(a, b) for a, b in zip(batch, solo)]} of 32 "
+                "tokens with their solo runs")
+            info = core.lora_info()
+            if info["active"] != {}:
+                raise AssertionError(f"adapter refcounts left: {info['active']}")
+            log(f"serve {label}: resident {info['resident']}, loads "
+                f"{info['loads_total']}, refcounts drained to {{}}")
+        nan_rows = core.nan_logit_rows()
+        launches = dict(ca.LAUNCHES)
+        stats["launches"] = launches
         log(f"serve {label}: launches over the main path {launches}; NaN "
             f"logit rows {nan_rows}")
         if nan_rows:
@@ -786,10 +1190,31 @@ def phase_serve(dev: dict, quantize: str | None = None,
         server.server_close()
         thread.join(timeout=30)
         engine.shutdown()
-        del engine
+        del engine, core
         gc.collect()
         torch.cuda.empty_cache()
     return stats
+
+
+def phase_serve_lora(dev: dict, bf16_ids: list[int]) -> dict:
+    """The LoRA path: a temporary adapter directory with the two ADAPTERS,
+    written by the port's save_adapter, served by the paged bf16 engine."""
+    import tempfile
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.kernels import build
+    from llmlb_tpu_torch.lora import save_adapter
+
+    cfg = get_preset("llama-3-8b")
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as lora_dir:
+        t0 = time.perf_counter()
+        for name, rank, targets in ADAPTERS:
+            save_adapter(lora_dir, name, cfg, rank=rank, targets=targets,
+                         scale=ADAPTER_SCALE)
+        log(f"serve lora: adapters {[a[0] for a in ADAPTERS]} written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return phase_serve(dev, "lora", LORA_PATH, bf16_ids=bf16_ids,
+                           lora_dir=lora_dir)
 
 
 def main() -> int:
@@ -822,16 +1247,24 @@ def main() -> int:
         phase = "model entry points"
         phase_model_entry_points()
         phase = "serve"
-        stats = phase_serve(dev)
+        stats = phase_serve(dev, "bf16", BF16_PATH)
         phase = "serve int8"
-        stats_int8 = phase_serve(dev, quantize="all", bf16_ids=stats["ids"])
+        stats_int8 = phase_serve(dev, "quantize=all", INT8_PATH,
+                                 bf16_ids=stats["ids"], quantize="all")
+        phase = "serve lora"
+        stats_lora = phase_serve_lora(dev, stats["ids"])
+        phase = "serve dense"
+        stats_dense = phase_serve(dev, "dense", DENSE_PATH,
+                                  bf16_ids=stats["ids"], kv_layout="dense")
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
         return 1
+    own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,
+                "flash_extend": stats_dense,
+                **{n: stats_int8 for n in INT8_PATH if n != "flash_prefill"}}
     for k in kernels:  # each kernel's count from the path it belongs to
-        run = stats if k["name"] in BF16_PATH else stats_int8
-        k["launches"] = run["launches"][k["name"]]
+        k["launches"] = own_path.get(k["name"], stats)["launches"][k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
 """Continuous-batching engine core: counterpart of `EngineCore` in
-`llmlb_tpu/engine/scheduler.py`, paged KV layout only.
+`llmlb_tpu/engine/scheduler.py`.
 
 The step loop runs on one thread and owns every device tensor. Each
 iteration it:
@@ -16,13 +16,29 @@ iteration it:
    syncs once per burst, through one `.cpu()` of the [k+1, slots] token block
    (row 0 carries first tokens sampled at activation).
 
+KV layout (`kv_layout=` / LLMLB_KV_LAYOUT): "paged" (the default) backs
+every slot with pages of a shared pool through a block table; "dense" keeps
+one contiguous row of `slot_capacity` positions per slot, [L, slots, cap, K,
+D], and dispatches the slot entry points (`prefill_into_slots`,
+`prefill_extend_slots`, `decode_step`); the page pool and tables do not
+exist then.
+
 int8 quantization (`quantize=` / LLMLB_QUANTIZE, off by default) is the
 reference's: projection weights quantized on the device one layer at a
-time, and int8 KV pools with one float32 scale per (token, head) vector.
+time, and int8 KV pools with one float32 scale per (token, head) vector
+(paged only: the dense cache stays in the model dtype, with the reference's
+warning).
+
+Multi-LoRA (`lora_dir=` / LLMLB_LORA_DIR, off by default): a LoraManager
+pool rides the params as `<name>_lora_a/_lora_b` leaves (added after any
+weight quantization), a request names its adapter in `SamplingParams.lora`,
+pinned at submit and released at its terminal event, and every dispatch
+carries per-row pool rows (`lora_idx`); the decode rows live on the device
+in `_d_lora_idx`, set at activation, so a burst copies none.
 
 Left out of this slice (see ROADMAP.md): priority classes and preemption,
-park/resume, speculative decoding, grammar constraints, LoRA, the prefix
-cache, disaggregation and KV shipping. Without
+park/resume, speculative decoding, grammar constraints, the prefix cache,
+context-parallel prefill, disaggregation and KV shipping. Without
 preemption a page-starved decoding row finishes with "length", the
 reference's behavior before parking existed.
 """
@@ -32,6 +48,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -42,6 +59,7 @@ import torch
 
 from llmlb_tpu_torch.device import resolve_device
 from llmlb_tpu_torch.engine.paging import PagePool
+from llmlb_tpu_torch.lora import LoraManager
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.ops.sampling import sample_tokens
@@ -65,6 +83,9 @@ class SamplingParams:
     # so the token sequence reproduces whatever else shares the batch and
     # matches the JAX engine's.
     seed: int | None = None
+    # LoRA adapter name (the `lora` field or a `model:adapter` suffix);
+    # None serves the base model (pool row 0, the identity adapter).
+    lora: str | None = None
 
 
 @dataclasses.dataclass
@@ -106,6 +127,13 @@ class _Slot:
         self.first_pending = False
 
 
+def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
+    """Device bytes of the DENSE slot cache [L, slots, cap, K, D] x 2 (K and
+    V) in the model dtype."""
+    return (cfg.num_layers * num_slots * slot_capacity * cfg.num_kv_heads
+            * cfg.head_dim_ * 2 * cfg.dtype.itemsize)
+
+
 def kv_page_bytes(cfg: LlamaConfig, page_size: int,
                   quantized: bool = False) -> int:
     """Device bytes ONE page holds across all layers, K and V included: a
@@ -134,8 +162,8 @@ class EngineStats:
 
 
 class EngineCore:
-    """The compute side of the engine: owns params, the page pool and the
-    step loop."""
+    """The compute side of the engine: owns params, the KV cache (page pool
+    or slot cache), the adapter pool and the step loop."""
 
     # Same-bucket pending prompts prefill together in one dispatch; bounded
     # so a deep backlog cannot starve decode for longer than one group.
@@ -156,12 +184,28 @@ class EngineCore:
         kv_pages: int | None = None,
         device: str | torch.device | None = None,
         quantize: str | None = None,
+        kv_layout: str | None = None,
+        lora_dir: str | None = None,
+        lora_max_adapters: int | None = None,
+        lora_rank_cap: int | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        if kv_layout is None:
+            kv_layout = os.environ.get("LLMLB_KV_LAYOUT", "paged")
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(
+                f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
+        self.kv_layout = kv_layout
         # int8 knobs from `quantize` or LLMLB_QUANTIZE (off by default: every
         # path below is then the unquantized engine)
         self.quant = parse_quant_mode(quantize)
+        if self.quant.kv and kv_layout != "paged":
+            log.warning(
+                "int8 KV quantization requires the paged layout; the dense "
+                "slot cache stays %s (weights quantization, if requested, "
+                "still applies)", str(cfg.dtype).replace("torch.", ""))
+            self.quant = dataclasses.replace(self.quant, kv=False)
         self.num_slots = num_slots
         self.slot_capacity = min(slot_capacity, cfg.max_position_embeddings)
         self.prefill_buckets = tuple(
@@ -176,10 +220,12 @@ class EngineCore:
         self.kv_page_size = max(1, min(kv_page_size or 128, self.slot_capacity))
         self.pages_per_slot = -(-self.slot_capacity // self.kv_page_size)
         # Default pool: every slot's full capacity plus the trash page.
-        self.kv_num_pages = max(
-            int(kv_pages or num_slots * self.pages_per_slot + 1),
-            self.pages_per_slot + 1,
-        )
+        self.kv_num_pages = 0
+        if kv_layout == "paged":
+            self.kv_num_pages = max(
+                int(kv_pages or num_slots * self.pages_per_slot + 1),
+                self.pages_per_slot + 1,
+            )
 
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -193,35 +239,72 @@ class EngineCore:
             # on the device, one layer at a time; an already-quantized
             # pytree passes through
             params = quantize_params(params)
+
+        # Multi-LoRA: the adapter pool leaves join the params AFTER weight
+        # quantization (adapters stay in the model dtype over int8 bases).
+        # Off, no leaf is added and every forward is the LoRA-free one.
+        if lora_dir is None:
+            lora_dir = os.environ.get("LLMLB_LORA_DIR") or None
+        self.lora: LoraManager | None = None
+        if lora_dir:
+            if lora_max_adapters is None:
+                lora_max_adapters = int(os.environ.get(
+                    "LLMLB_LORA_MAX_ADAPTERS", "8"))
+            if lora_rank_cap is None:
+                lora_rank_cap = int(os.environ.get("LLMLB_LORA_RANK_CAP", "16"))
+            self.lora = LoraManager(cfg, lora_dir=lora_dir,
+                                    max_adapters=lora_max_adapters,
+                                    rank_cap=lora_rank_cap)
+            params = {**params,
+                      **self.lora.init_pool_leaves(cfg.dtype, self.device)}
+            self.lora.attach(params)
+            log.info("lora: pool of %d adapter slots at rank cap %d over %s "
+                     "(%d adapter(s) discovered in %s)",
+                     self.lora.max_adapters, self.lora.rank_cap,
+                     "/".join(self.lora.targets), len(self.lora.available),
+                     lora_dir)
         self.params = params
-        # parameter count without the scale leaves; bytes with them
+        # parameter count without the scale and adapter-pool leaves; bytes
+        # with them
         self.n_params = sum(p.numel() for k, p in params.items()
-                            if not k.endswith(SCALE_SUFFIX))
+                            if not (k.endswith(SCALE_SUFFIX) or "_lora_" in k))
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in params.values())
 
-        self.page_pool = PagePool(self.kv_num_pages)
-        self.cache_k, self.cache_v = llama.init_kv_pages(
-            cfg, self.kv_num_pages, self.kv_page_size, self.device,
-            quantized=self.quant.kv)
+        # Paged state (page pool, per-slot pages, block tables) exists only
+        # in the paged layout; the dense layout's slot s is cache row s.
+        self.page_pool: PagePool | None = None
         self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
         # host block tables + their device copy, refreshed before the next
         # dispatch whenever a row changed
         self._block_tables = np.zeros((num_slots, self.pages_per_slot),
                                       np.int32)
-        self._d_block_tables = self._to_device(self._block_tables)
+        self._d_block_tables = None
         self._tables_dirty = False
         # A request the pool cannot cover yet waits here, retried first.
         self._held_request: Request | None = None
-        log.info(
-            "KV cache: paged%s, %d pages x %d tokens (%d slots, %d pages/slot) "
-            "= %.2f GiB on %s", " int8" if self.quant.kv else "",
-            self.kv_num_pages, self.kv_page_size, num_slots,
-            self.pages_per_slot,
-            kv_pool_bytes(cfg, self.kv_num_pages, self.kv_page_size,
-                          self.quant.kv) / 2**30,
-            self.device,
-        )
+        if kv_layout == "paged":
+            self.page_pool = PagePool(self.kv_num_pages)
+            self.cache_k, self.cache_v = llama.init_kv_pages(
+                cfg, self.kv_num_pages, self.kv_page_size, self.device,
+                quantized=self.quant.kv)
+            self._d_block_tables = self._to_device(self._block_tables)
+            log.info(
+                "KV cache: paged%s, %d pages x %d tokens (%d slots, %d "
+                "pages/slot) = %.2f GiB on %s",
+                " int8" if self.quant.kv else "", self.kv_num_pages,
+                self.kv_page_size, num_slots, self.pages_per_slot,
+                kv_pool_bytes(cfg, self.kv_num_pages, self.kv_page_size,
+                              self.quant.kv) / 2**30,
+                self.device,
+            )
+        else:
+            self.cache_k, self.cache_v = llama.init_kv_cache(
+                cfg, num_slots, self.slot_capacity, self.device)
+            log.info("KV cache: dense, %d slots x %d capacity = %.2f GiB on %s",
+                     num_slots, self.slot_capacity,
+                     kv_cache_bytes(cfg, num_slots, self.slot_capacity) / 2**30,
+                     self.device)
 
         # Host mirrors of the slot state (lengths for stop checks without a
         # device read; seeds to know without a device read whether a burst
@@ -241,6 +324,8 @@ class EngineCore:
                                    device=self.device)
         self._d_top_ps = torch.ones(num_slots, dtype=torch.float32,
                                     device=self.device)
+        # adapter pool row per slot (0 = none), consulted only with LoRA on
+        self._d_lora_idx = torch.zeros(num_slots, **z32)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         # Rows of NaN logits seen by any dispatch, counted on the device and
@@ -292,20 +377,30 @@ class EngineCore:
 
     def submit(self, request: Request) -> Request:
         n = len(request.prompt_ids)
-        if n == 0:
-            raise ValueError("prompt must contain at least one token")
-        # Prompts beyond the largest one-shot bucket run through chunked
-        # prefill; the only hard cap is slot capacity.
-        if n + 1 >= self.slot_capacity:
-            raise ValueError(
-                f"prompt of {n} tokens does not fit the slot capacity "
-                f"({self.slot_capacity}) with room to generate"
-            )
-        bad = [t for t in request.prompt_ids
-               if not 0 <= int(t) < self.cfg.vocab_size]
-        if bad:
-            raise ValueError(f"token id {bad[0]} out of range for vocab size "
-                             f"{self.cfg.vocab_size}")
+        try:
+            if n == 0:
+                raise ValueError("prompt must contain at least one token")
+            # Prompts beyond the largest one-shot bucket run through chunked
+            # prefill; the only hard cap is slot capacity.
+            if n + 1 >= self.slot_capacity:
+                raise ValueError(
+                    f"prompt of {n} tokens does not fit the slot capacity "
+                    f"({self.slot_capacity}) with room to generate"
+                )
+            bad = [t for t in request.prompt_ids
+                   if not 0 <= int(t) < self.cfg.vocab_size]
+            if bad:
+                raise ValueError(f"token id {bad[0]} out of range for vocab "
+                                 f"size {self.cfg.vocab_size}")
+        except ValueError:
+            # a refused submit must not leak a pin the service layer's
+            # prepare_lora already took for this request
+            self._release_lora(request)
+            raise
+        # pin (and load) the adapter before the request can reach a slot:
+        # the step loop never waits on disk, and eviction sees queued
+        # requests as active. Idempotent after the service's own call.
+        self.prepare_lora(request)
         with self._lock:
             self.total_requests += 1
         self.pending.put(request)
@@ -322,11 +417,54 @@ class EngineCore:
             uptime_s=time.monotonic() - self._started_at,
         )
 
+    def prepare_lora(self, request: Request) -> None:
+        """Resolve and pin a request's adapter (loading it if cold).
+        Callable from the service's thread or from submit; idempotent per
+        request. Raises ValueError naming the `lora` field when this engine
+        cannot serve the adapter."""
+        name = request.sampling.lora
+        if not name:
+            return
+        if self.lora is None:
+            raise ValueError("'lora' adapters are not enabled on this engine "
+                             "(start it with --lora-dir)")
+        self.lora.acquire(name, request.request_id)
+
+    def _release_lora(self, request: Request) -> None:
+        """Unpin a request's adapter (idempotent: a request may reach more
+        than one terminal path)."""
+        if self.lora is not None and request.sampling.lora:
+            self.lora.release(request.request_id)
+
+    def _lora_rows(self, requests) -> np.ndarray:
+        """Adapter pool rows of an ordered request list."""
+        return np.asarray([self.lora.slot_of(r.sampling.lora)
+                           for r in requests], np.int32)
+
+    def lora_info(self) -> dict:
+        """The multi-LoRA block of /api/health and /api/system."""
+        if self.lora is None:
+            return {"enabled": False}
+        # no context-parallel prefill in the port: no LoRA prompt falls
+        # back from it
+        return {**self.lora.info(), "cp_fallback_total": 0}
+
     def _kv_dtype(self) -> str:
         return ("int8" if self.quant.kv
                 else str(self.cfg.dtype).replace("torch.", ""))
 
     def kv_cache_info(self) -> dict:
+        if self.page_pool is None:
+            return {
+                "layout": "dense",
+                "kv_dtype": self._kv_dtype(),
+                # what the cache serves: int8 KV downgrades on this layout
+                "effective_kv_dtype": self._kv_dtype(),
+                "num_slots": self.num_slots,
+                "slot_capacity": self.slot_capacity,
+                "hbm_bytes": kv_cache_bytes(self.cfg, self.num_slots,
+                                            self.slot_capacity),
+            }
         return {
             "layout": "paged",
             # the pool's ACTUAL dtype: capacity math from an implied model
@@ -388,11 +526,12 @@ class EngineCore:
         for pool in (self.cache_k, self.cache_v):
             for t in (pool.values() if isinstance(pool, dict) else (pool,)):
                 t.zero_()
-        self.page_pool.reset()
-        self._slot_pages = [[] for _ in range(self.num_slots)]
-        self._block_tables[:] = 0
-        self._d_block_tables = self._to_device(self._block_tables)
-        self._tables_dirty = False
+        if self.page_pool is not None:
+            self.page_pool.reset()
+            self._slot_pages = [[] for _ in range(self.num_slots)]
+            self._block_tables[:] = 0
+            self._d_block_tables = self._to_device(self._block_tables)
+            self._tables_dirty = False
         self._seq_lens[:] = 0
         self._d_seq_lens.zero_()
         self._d_last_tokens.zero_()
@@ -419,7 +558,10 @@ class EngineCore:
         return self._queue.popleft() if self._queue else None
 
     def _finish(self, request: Request, kind: str, value: str) -> None:
+        """Every terminal event of a request goes through here, and so does
+        the release of its adapter."""
         request.finished_at = time.monotonic()
+        self._release_lora(request)
         request.events.put((kind, value))
 
     def _finish_slot(self, slot_id: int, reason: str) -> None:
@@ -436,12 +578,15 @@ class EngineCore:
         return -(-n // self.kv_page_size)
 
     def _try_reserve_pages(self, count: int) -> list[int] | None:
-        """Alloc `count` fresh pages; None when the pool cannot cover it."""
-        if count <= 0:
+        """Alloc `count` fresh pages; None when the pool cannot cover it.
+        The dense layout needs none."""
+        if count <= 0 or self.page_pool is None:
             return []
         return self.page_pool.alloc(count)
 
     def _assign_slot_pages(self, slot_id: int, fresh: list[int]) -> None:
+        if self.page_pool is None:
+            return
         self._slot_pages[slot_id] = list(fresh)
         self._block_tables[slot_id, :] = 0
         self._block_tables[slot_id, :len(fresh)] = fresh
@@ -469,7 +614,7 @@ class EngineCore:
     def _sync_block_tables(self) -> None:
         """Refresh the device block tables before a dispatch that reads them
         (one small host-to-device copy, only when a row changed)."""
-        if self._tables_dirty:
+        if self._tables_dirty and self.page_pool is not None:
             self._d_block_tables = self._to_device(self._block_tables)
             self._tables_dirty = False
 
@@ -477,7 +622,10 @@ class EngineCore:
         """Alloc-on-extend before a decode burst: grow each active row's
         pages to cover the k tokens the burst writes. A row the pool cannot
         cover finishes with "length" (no preemption in this slice). Returns
-        the rows that remain active."""
+        the rows that remain active. The dense layout's rows hold their
+        whole capacity already."""
+        if self.page_pool is None:
+            return active
         kept = []
         for i in active:
             target = min(int(self._seq_lens[i]) + k + 1, self.slot_capacity)
@@ -574,12 +722,28 @@ class EngineCore:
         ids[g:] = ids[g - 1]
         lens[g:] = lens[g - 1]
         slot_ids[g:] = slot_ids[g - 1]
-        self._sync_block_tables()
-        logits, _, _ = llama.prefill_into_pages(
-            self.params, self.cfg, self._to_device(ids), self._to_device(lens),
-            self._to_device(self._block_tables[slot_ids]),
-            self.cache_k, self.cache_v,
-        )
+        # per-row adapter rows: a mixed-adapter group prefills in this one
+        # dispatch; padding rows repeat the last real row
+        lora_idx = None
+        if self.lora is not None:
+            lidx = np.zeros((padded,), np.int32)
+            lidx[:g] = self._lora_rows([r for _, r, _ in group])
+            lidx[g:] = lidx[g - 1]
+            lora_idx = self._to_device(lidx)
+        if self.page_pool is not None:
+            self._sync_block_tables()
+            logits, _, _ = llama.prefill_into_pages(
+                self.params, self.cfg, self._to_device(ids),
+                self._to_device(lens),
+                self._to_device(self._block_tables[slot_ids]),
+                self.cache_k, self.cache_v, lora_idx=lora_idx,
+            )
+        else:
+            logits, _, _ = llama.prefill_into_slots(
+                self.params, self.cfg, self._to_device(ids),
+                self._to_device(lens), self._to_device(slot_ids),
+                self.cache_k, self.cache_v, lora_idx=lora_idx,
+            )
         self.prefill_dispatches += 1
         self._activate_group(group, slot_ids, lens, logits)
 
@@ -603,13 +767,19 @@ class EngineCore:
         bucket = self._bucket_for(chunk_len)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :chunk_len] = prompt[start:start + chunk_len]
-        logits, _, _ = llama.prefill_extend_pages(
-            self.params, self.cfg, self._to_device(ids),
-            self._to_device(np.asarray([chunk_len], np.int32)),
-            self._to_device(np.asarray([start], np.int32)),
-            self._to_device(self._block_tables[slot_id:slot_id + 1]),
-            self.cache_k, self.cache_v,
-        )
+        lora_idx = (self._to_device(self._lora_rows([request]))
+                    if self.lora is not None else None)
+        args = (self.params, self.cfg, self._to_device(ids),
+                self._to_device(np.asarray([chunk_len], np.int32)),
+                self._to_device(np.asarray([start], np.int32)))
+        if self.page_pool is not None:
+            logits, _, _ = llama.prefill_extend_pages(
+                *args, self._to_device(self._block_tables[slot_id:slot_id + 1]),
+                self.cache_k, self.cache_v, lora_idx=lora_idx)
+        else:
+            logits, _, _ = llama.prefill_extend_slots(
+                *args, self._to_device(np.asarray([slot_id], np.int64)),
+                self.cache_k, self.cache_v, lora_idx=lora_idx)
         self.prefill_dispatches += 1
         slot.prefill_pos = start + chunk_len
         if slot.prefill_pos >= n:
@@ -655,6 +825,13 @@ class EngineCore:
         self._d_top_ps[idx] = d_top_ps
         self._d_top_ks[idx] = d_top_ks
         self._d_seeds[idx] = d_seeds
+        if self.lora is not None:
+            # adapter rows ride the activation scatter with the sampling
+            # params: a decode burst then copies none
+            lidx = np.zeros((padded,), np.int32)
+            lidx[:len(group)] = self._lora_rows([r for _, r, _ in group])
+            lidx[len(group):] = lidx[len(group) - 1]
+            self._d_lora_idx[idx] = self._to_device(lidx)
         self._d_seq_lens[idx] = self._to_device(padded_lens)
         self._d_last_tokens[idx] = firsts
         for row, (slot_id, request, n) in enumerate(group):
@@ -694,12 +871,20 @@ class EngineCore:
         window = self._window_for(active, k)
         seeded = bool((self._seeds[active] >= 0).any())
         last, lens = self._d_last_tokens, self._d_seq_lens
+        lora_idx = self._d_lora_idx if self.lora is not None else None
         rows = [last]  # row 0: pending first tokens
         for step in range(k):
-            logits, _, _ = llama.decode_step_paged(
-                self.params, self.cfg, last, lens, self.cache_k, self.cache_v,
-                self._d_block_tables, window=window,
-            )
+            if self.page_pool is not None:
+                logits, _, _ = llama.decode_step_paged(
+                    self.params, self.cfg, last, lens, self.cache_k,
+                    self.cache_v, self._d_block_tables, window=window,
+                    lora_idx=lora_idx,
+                )
+            else:
+                logits, _, _ = llama.decode_step(
+                    self.params, self.cfg, last, lens, self.cache_k,
+                    self.cache_v, window=window, lora_idx=lora_idx,
+                )
             self._count_nan(logits)
             # seeded rows fold in the pre-increment length, as the reference
             toks = sample_tokens(

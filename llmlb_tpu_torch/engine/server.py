@@ -12,9 +12,17 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   gateway's endpoint detection keys on to treat this as an in-tree engine —
   and `"backend": "cuda"`.
 
+Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
+or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
+unknown, unservable or conflicting adapters are 400s naming `lora`.
+`/v1/models` gives the base entry the `lora` capability and one
+`base:adapter` entry per resident adapter; `/api/health` and `/api/system`
+carry a `lora` block.
+
 Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
 card; `--device cpu` for the plain PyTorch path; `--quantize all` for int8
-weights and KV pages).
+weights and KV pages; `--kv-layout dense` for the slot cache; `--lora-dir
+DIR` for adapters).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from llmlb_tpu_torch import __version__
 from llmlb_tpu_torch.engine.scheduler import SamplingParams
 from llmlb_tpu_torch.engine.service import Engine, EngineError
+from llmlb_tpu_torch.lora import adapter_from_body
 
 log = logging.getLogger("llmlb_tpu_torch.engine.server")
 
@@ -129,11 +138,7 @@ class _Handler(BaseHTTPRequestHandler):
         engine = self.server.engine
         path = self.path.split("?", 1)[0]
         if path == "/v1/models":
-            self._json(200, {"object": "list", "data": [{
-                "id": engine.model_id, "object": "model", "created": 0,
-                "owned_by": "llmlb_tpu_torch",
-                "capabilities": ["chat_completion"],
-            }]})
+            self._json(200, {"object": "list", "data": _models(engine)})
         elif path == "/api/health":
             self._json(200, engine.health())
         elif path == "/api/system":
@@ -146,6 +151,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "model": engine.model_id,
                 "kv_cache": engine.core.kv_cache_info(),
                 "quant": engine.core.quant_info(),
+                "lora": engine.core.lora_info(),
             })
         else:
             self._error(404, f"no route for GET {path}")
@@ -180,12 +186,16 @@ class _Handler(BaseHTTPRequestHandler):
             prompt_ids = engine.encode_chat(messages)
             sampling = _sampling_from(body)
             stops = _stops_from(body)
+            model = body.get("model") or engine.model_id
+            adapter, base = _parse_lora(engine, body)
+            if adapter is not None:
+                sampling.lora = adapter
+                model = base or model
             deltas = engine.stream(prompt_ids, sampling, stops,
                                    request_id=self._request_id())
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
-        model = body.get("model") or engine.model_id
         completion_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         if body.get("stream"):
@@ -260,6 +270,44 @@ class _Handler(BaseHTTPRequestHandler):
             deltas.close()  # client gone: cancel the request, free the slot
 
 
+def _models(engine: Engine) -> list[dict]:
+    """The /v1/models entries: the base model, with the `lora` capability
+    when adapters are on ("this endpoint can load any adapter of its
+    store"), then one `base:adapter` entry per RESIDENT adapter, so the
+    gateway routes adapter traffic where it is already loaded."""
+    caps = ["chat_completion"]
+    lora = engine.core.lora
+    if lora is not None:
+        caps.append("lora")
+
+    def entry(model_id: str) -> dict:
+        return {"id": model_id, "object": "model", "created": 0,
+                "owned_by": "llmlb_tpu_torch", "capabilities": list(caps)}
+
+    data = [entry(engine.model_id)]
+    if lora is not None:
+        for name in lora.resident_names():
+            data.append({**entry(f"{engine.model_id}:{name}"), "lora": name})
+    return data
+
+
+def _parse_lora(engine: Engine, body: dict) -> tuple[str | None, str | None]:
+    """(adapter, base model) of a body, validated against the engine's
+    adapter store; ValueError naming the `lora` field otherwise. A `:suffix`
+    counts only on a LoRA-enabled engine."""
+    lora = engine.core.lora
+    if body.get("lora") is None and lora is None:
+        return None, None
+    if lora is None:
+        raise ValueError("'lora' adapters are not enabled on this engine "
+                         "(start it with --lora-dir)")
+    base, adapter = adapter_from_body(body)
+    if adapter is None:
+        return None, None
+    lora.validate(adapter)
+    return adapter, base
+
+
 def start_server(engine: Engine, host: str = "127.0.0.1",
                  port: int = 0) -> tuple[EngineHTTPServer, threading.Thread]:
     """Serve `engine` from a background thread; port 0 picks a free port
@@ -301,6 +349,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="int8 quantization (default off; also via LLMLB_QUANTIZE): "
              "'weights' = per-output-channel int8 projection weights, 'kv' "
              "= int8 KV pages with per-vector scales, 'all' = both")
+    parser.add_argument(
+        "--kv-layout", choices=("paged", "dense"), default=None,
+        help="KV cache layout (default paged; also via LLMLB_KV_LAYOUT): "
+             "'dense' keeps one contiguous row of --slot-capacity positions "
+             "per slot")
+    parser.add_argument(
+        "--lora-dir", default=None,
+        help="directory of LoRA adapters in the HF/PEFT layout, one "
+             "subdirectory each (also via LLMLB_LORA_DIR); enables the "
+             "'lora' request field and 'model:adapter' names")
+    parser.add_argument("--lora-max-adapters", type=int, default=None,
+                        help="resident adapter rows of the pool (default 8; "
+                             "LLMLB_LORA_MAX_ADAPTERS)")
+    parser.add_argument("--lora-rank-cap", type=int, default=None,
+                        help="largest adapter rank served, the pool's rank "
+                             "(default 16; LLMLB_LORA_RANK_CAP)")
     return parser
 
 
@@ -312,7 +376,10 @@ def main(argv: list[str] | None = None) -> None:
                        slot_capacity=args.slot_capacity, seed=args.seed,
                        kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
                        decode_burst=args.decode_burst,
-                       quantize=args.quantize)
+                       quantize=args.quantize, kv_layout=args.kv_layout,
+                       lora_dir=args.lora_dir,
+                       lora_max_adapters=args.lora_max_adapters,
+                       lora_rank_cap=args.lora_rank_cap)
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))

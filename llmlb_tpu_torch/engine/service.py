@@ -58,7 +58,8 @@ class Engine:
         given params) and start the step loop. Runs on the card unless
         `device="cpu"`. `eos_id` defaults to the tokenizer's; pass -1 to
         decode every request to its max_tokens. Other keywords go to
-        EngineCore, e.g. `quantize="all"` for int8 weights and KV pages."""
+        EngineCore, e.g. `quantize="all"` for int8 weights and KV pages,
+        `kv_layout="dense"` for the slot cache, `lora_dir=` for adapters."""
         cfg = get_preset(preset)
         tokenizer = ByteTokenizer(cfg.vocab_size)
         core_kwargs.setdefault("eos_id", tokenizer.eos_id)
@@ -83,6 +84,10 @@ class Engine:
         output) and return a generator of deltas; the final delta carries
         finish_reason and usage.
 
+        A request that names an adapter pins it (loading it if cold) here,
+        on the caller's thread, before the submit; a submit that fails
+        releases it again.
+
         Stop sequences may straddle token boundaries, so the last
         `max(len(stop)) - 1` characters are held back until the stream
         resolves; a stop hit truncates before anything past it is emitted.
@@ -93,7 +98,12 @@ class Engine:
             prompt_ids=list(prompt_ids), sampling=sampling,
             request_id=f"{request_id}.{rid[:8]}" if request_id else rid,
         )
-        self.core.submit(request)
+        self.core.prepare_lora(request)
+        try:
+            self.core.submit(request)
+        except BaseException:
+            self.core._release_lora(request)  # idempotent
+            raise
         return self._deltas(request, stop)
 
     def _deltas(self, request: Request,
@@ -186,6 +196,8 @@ class Engine:
             "kv_cache": self.core.kv_cache_info(),
             # int8 knobs and the byte footprints they produce
             "quant": self.core.quant_info(),
+            # adapter pool: resident names (the gateway's lora_loaded)
+            "lora": self.core.lora_info(),
         }
 
 

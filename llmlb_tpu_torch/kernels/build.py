@@ -10,6 +10,11 @@ Loading uses ctypes: every pointer and the CUDA stream pass as
 `ctypes.c_void_p`, every int as `ctypes.c_int`, the scale as
 `ctypes.c_float`; each entry point returns a cudaError_t. A missing compiler
 or a failed build raises — there is no fallback.
+
+`launch` calls an entry point on the current stream, raises if the launch
+was refused, and adds one to `LAUNCHES[name]`: the count of every kernel of
+the port since the last `reset_launch_counts()`. Only a CUDA launch adds to
+it; the plain versions do not.
 """
 
 from __future__ import annotations
@@ -23,11 +28,14 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flash_prefill.cu", "paged_decode.cu", "paged_extend.cu",
-           "paged_decode_quant.cu", "paged_extend_quant.cu")
+           "paged_decode_quant.cu", "paged_extend_quant.cu", "flash_decode.cu",
+           "flash_extend.cu", "lora_bgmv.cu")
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -52,6 +60,30 @@ SIGNATURES = {
     # out, B, T, H, K, D, PS, PPN, scale, dtype, stream
     "llmlb_paged_flash_extend_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_cache, v_cache, kv_lens, out, B, H, K, D, S, sweep, scale, dtype,
+    # stream
+    "llmlb_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                           _P],
+    # q, k_cache, v_cache, start_pos, chunk_lens, out, B, T, H, K, D, S,
+    # scale, dtype, stream
+    "llmlb_flash_extend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _I, _P],
+    # x, a, b, idx, u (fp32 scratch), out, B, T, IN, R, OUT, splits, dtype,
+    # stream
+    "llmlb_lora_bgmv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+}
+
+# Kernel launches since the last reset, by kernel name.
+LAUNCHES: dict[str, int] = {
+    "flash_prefill": 0,
+    "paged_flash_decode": 0,
+    "paged_flash_extend": 0,
+    "paged_flash_decode_quant": 0,
+    "paged_flash_extend_quant": 0,
+    "flash_decode": 0,
+    "flash_extend": 0,
+    "lora_delta": 0,
 }
 
 _lock = threading.Lock()
@@ -128,6 +160,23 @@ def build() -> Path:
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
                       ptxas=reports, nvcc=nvcc)
     return lib_path
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call entry point `entry` on `device`'s current stream and count one
+    launch of kernel `name`; raises if the launch was refused."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+    LAUNCHES[name] += 1
 
 
 def load() -> ctypes.CDLL:

@@ -1,16 +1,22 @@
 """Llama-family decoder (Llama-2/3, Qwen-2/2.5, Mistral): counterpart of
-`llmlb_tpu/models/llama.py`, paged serving entry points only.
+`llmlb_tpu/models/llama.py`, the serving entry points of both KV layouts.
 
 Layouts match the reference at every public function so the two compare
 like with like: params are a flat dict with layers stacked on the leading
 axis (`wq` [L, E, H*D], ...); the KV page pool is [L, P, PS, K, D] with page
-0 as the engine's trash page; q/k/v are [B, T, H|K, D].
+0 as the engine's trash page; the dense slot cache is [L, slots, cap, K, D];
+q/k/v are [B, T, H|K, D].
 
 JAX donates the cache buffers and returns new ones; here every entry point
-writes the pools IN PLACE (index_put_ on the layer slice) and returns the
+writes the caches IN PLACE (index_put_ on the layer slice) and returns the
 same tensors, so callers can keep the reference's `logits, ck, cv = f(...)`
 shape. Each write is issued on the current stream before the attention that
 reads it, so the kernel sees it.
+
+Multi-LoRA (`llmlb_tpu_torch/lora`): a projection may carry adapter pools
+`<name>_lora_a` [L, N, in, R] / `<name>_lora_b` [L, N, R, out]; with
+`lora_idx` ([B] int32 pool rows) every entry point adds each row's delta
+(ops/lora.py) to that projection's output, after any int8 dequant.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -27,12 +33,16 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
 from llmlb_tpu_torch.ops.attention import (
+    gqa_attention_decode,
+    gqa_attention_extend,
     gqa_attention_prefill,
     paged_attention_decode,
     paged_attention_extend,
     pool_shape,
 )
+from llmlb_tpu_torch.ops.lora import lora_delta
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
 from llmlb_tpu_torch.quant import SCALE_SUFFIX, quantize_kv
@@ -127,8 +137,18 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# Paged KV cache
+# KV caches
 # ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LlamaConfig, num_slots: int, capacity: int,
+                  device: torch.device | str):
+    """The dense slot cache: one contiguous row of `capacity` positions per
+    slot, [L, slots, capacity, K, D] for K and for V, in cfg.dtype."""
+    shape = (cfg.num_layers, num_slots, capacity, cfg.num_kv_heads,
+             cfg.head_dim_)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
 
 def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
                   device: torch.device | str, dtype=None,
@@ -181,22 +201,30 @@ def _write_pool(pool_layer, page: torch.Tensor, off: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
-    """Layer i of every stacked leaf, with the `<name>_scale` companions of
-    int8 weights (the reference's _with_scales)."""
+    """Layer i of every stacked leaf, with the companions the params carry:
+    `<name>_scale` of int8 weights and `<name>_lora_a` / `<name>_lora_b`
+    adapter pools (the reference's _with_scales)."""
     names = ["wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp"]
     if cfg.attention_bias:
         names += ["bq", "bk", "bv"]
-    names += [n + SCALE_SUFFIX for n in names if n + SCALE_SUFFIX in params]
+    names += [n + suffix for n in names
+              for suffix in (SCALE_SUFFIX, LORA_A, LORA_B)
+              if n + suffix in params]
     return {n: params[n][i] for n in names}
 
 
-def _proj(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+def _proj(lp: Params, name: str, x: torch.Tensor,
+          lora_idx: torch.Tensor | None = None) -> torch.Tensor:
     """`x @ W`. An int8 W takes its per-output-channel scale on the fp32
     output, as the reference does: the operand is W widened to x's dtype
     (exact: |code| <= 127), the product accumulates and returns fp32, then
     `* scale` and a round to x's dtype. On the card a bf16 x takes cuBLAS's
     bf16-in/fp32-out product; elsewhere the operands widen to fp32 (the
-    same values)."""
+    same values).
+
+    With `lora_idx` and this projection's adapter pools in the layer slice,
+    each row's fp32 LoRA delta, rounded to the output's dtype, is added to
+    the output after the dequant; row 0 adds exactly 0.0."""
     w = lp[name]
     scale = lp.get(name + SCALE_SUFFIX)
     if scale is None:
@@ -204,21 +232,26 @@ def _proj(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
             raise TypeError(f"param {name!r} is int8 but its {name}"
                             f"{SCALE_SUFFIX} companion is missing from the "
                             "layer slice")
-        return x @ w
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        y32 = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
-                       out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        y = x @ w
     else:
-        y32 = x.float() @ w.float()
-    return (y32 * scale).to(x.dtype)
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            y32 = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
+                           out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        else:
+            y32 = x.float() @ w.float()
+        y = (y32 * scale).to(x.dtype)
+    if lora_idx is not None and name + LORA_A in lp:
+        delta = lora_delta(x, lp[name + LORA_A], lp[name + LORA_B], lora_idx)
+        y = y + delta.to(y.dtype)
+    return y
 
 
-def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor):
+def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx=None):
     b, t, _ = x.shape
     d = cfg.head_dim_
-    q = _proj(lp, "wq", x)
-    k = _proj(lp, "wk", x)
-    v = _proj(lp, "wv", x)
+    q = _proj(lp, "wq", x, lora_idx)
+    k = _proj(lp, "wk", x, lora_idx)
+    v = _proj(lp, "wv", x, lora_idx)
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -228,21 +261,34 @@ def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor):
             v.reshape(b, t, cfg.num_kv_heads, d))
 
 
-def _mlp(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return _proj(lp, "wd", F.silu(_proj(lp, "wg", x)) * _proj(lp, "wu", x))
+def _mlp(lp: Params, x: torch.Tensor, lora_idx=None) -> torch.Tensor:
+    return _proj(lp, "wd", F.silu(_proj(lp, "wg", x, lora_idx))
+                 * _proj(lp, "wu", x, lora_idx), lora_idx)
 
 
 def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
-                inv_freq, attn_fn):
+                inv_freq, attn_fn, lora_idx=None):
     """Pre-norm attention sub-block: norm -> qkv -> rope -> attn_fn -> wo
     residual. `attn_fn(q, k, v)` writes the KV and attends."""
     b, t, _ = x.shape
     h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    q, k, v = _qkv(cfg, lp, h)
+    q, k, v = _qkv(cfg, lp, h, lora_idx)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = attn_fn(q, k, v)
-    return x + _proj(lp, "wo", attn.reshape(b, t, -1))
+    return x + _proj(lp, "wo", attn.reshape(b, t, -1), lora_idx)
+
+
+def _layer_step(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
+                inv_freq, attn_fn, lora_idx) -> torch.Tensor:
+    """One decoder layer: the attention sub-block, then the MLP residual."""
+    x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn, lora_idx)
+    return x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps), lora_idx)
+
+
+def _lora_rows(lora_idx, dev) -> torch.Tensor | None:
+    return None if lora_idx is None else lora_idx.to(device=dev,
+                                                     dtype=torch.int32)
 
 
 def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -286,6 +332,7 @@ def prefill_into_pages(
     block_tables: torch.Tensor,  # [B, PPN] int32 — target pages per prompt
     cache_k,  # [L, P, PS, K, D] — the engine's live page pool, or int8 pair
     cache_v,
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
 ):
     """Prefill B prompts and scatter their KV through the block tables into
     the global page pool. Returns (last_logits [B, V] fp32, cache_k,
@@ -303,18 +350,17 @@ def prefill_into_pages(
     page, off = _page_cells(block_tables, positions,
                             pool_shape(cache_k)[2])
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+    lora_idx = _lora_rows(lora_idx, dev)
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
     for i in range(cfg.num_layers):
-        lp = _layer(params, cfg, i)
-
         def attn_fn(q, k, v, i=i):
             _write_pool(_pool_layer(cache_k, i), page, off, k)
             _write_pool(_pool_layer(cache_v, i), page, off, v)
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
-        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
-        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
 
     logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
     return logits, cache_k, cache_v
@@ -329,6 +375,7 @@ def prefill_extend_pages(
     block_tables: torch.Tensor,  # [B, PPN] int32
     cache_k,  # [L, P, PS, K, D], or an int8 {"q", "s"} pair
     cache_v,
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
 ):
     """Paged chunked prefill: append a chunk of prompt tokens to rows that
     already hold `start_pos` tokens, attending over everything so far
@@ -346,11 +393,10 @@ def prefill_extend_pages(
                                                   dtype=torch.int32)[None, :]
     page, off = _page_cells(block_tables,
                             torch.clamp(positions, max=capacity - 1), ps)
+    lora_idx = _lora_rows(lora_idx, dev)
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
     for i in range(cfg.num_layers):
-        lp = _layer(params, cfg, i)
-
         def attn_fn(q, k, v, i=i):
             ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
             _write_pool(ck, page, off, k)
@@ -358,8 +404,8 @@ def prefill_extend_pages(
             return paged_attention_extend(q, ck, cv, block_tables, positions,
                                           chunk_lens)
 
-        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
-        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
 
     logits = _unembed(cfg, params, _last_rows(x, chunk_lens))
     return logits, cache_k, cache_v
@@ -374,6 +420,7 @@ def decode_step_paged(
     cache_v,
     block_tables: torch.Tensor,  # [B, PPN] int32
     window: int | None = None,  # context-window bucket (>= max seq + 1)
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
 ):
     """One paged decode step across all rows. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer's one-token KV lands at page
@@ -381,7 +428,6 @@ def decode_step_paged(
     pool; freed or parked rows clamp into their own last cell or the trash
     page (their table rows are zeroed on free), so garbage writes never land
     in a page another row owns."""
-    b = input_ids.shape[0]
     dev = input_ids.device
     ps = pool_shape(cache_k)[2]
     capacity = block_tables.shape[1] * ps
@@ -391,11 +437,10 @@ def decode_step_paged(
     positions = write_pos[:, None]  # [B, 1]
     page, off = _page_cells(block_tables, positions, ps)
     kv_lens = (write_pos + 1).to(torch.int32)
+    lora_idx = _lora_rows(lora_idx, dev)
 
     x = params["embed"][input_ids.long()][:, None, :]  # [B, 1, E]
     for i in range(cfg.num_layers):
-        lp = _layer(params, cfg, i)
-
         def attn_fn(q, k, v, i=i):
             ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
             _write_pool(ck, page, off, k)
@@ -403,8 +448,144 @@ def decode_step_paged(
             return paged_attention_decode(q, ck, cv, block_tables, kv_lens,
                                           window=window)
 
-        x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn)
-        x = x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps))
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
+
+    logits = _unembed(cfg, params, x[:, 0])
+    return logits, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Dense slot layout: row s of the cache [L, slots, cap, K, D] is slot s
+# ---------------------------------------------------------------------------
+
+def _write_slots(cache_layer: torch.Tensor, rows: torch.Tensor,
+                 cols: torch.Tensor, kv: torch.Tensor) -> None:
+    """Scatter K/V into cells [rows, cols] of one layer's slot cache, in
+    place (the reference's `.at[slot_ids[:, None], positions].set`)."""
+    cache_layer.index_put_((rows.long(), cols.long()),
+                           kv.to(cache_layer.dtype))
+
+
+def prefill_into_slots(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, T] int, right-padded
+    prompt_lens: torch.Tensor,  # [B] int32
+    slot_ids: torch.Tensor,  # [B] int — target rows in the slot cache
+    cache_k: torch.Tensor,  # [L, NUM_SLOTS, CAP, K, D] — the live cache
+    cache_v: torch.Tensor,
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+):
+    """Prefill B prompts (flash_prefill over their fresh K/V) and scatter
+    their KV into rows `slot_ids` of the live slot cache, positions 0..T-1.
+    Returns (last_logits [B, V] fp32, cache_k, cache_v), the caches updated
+    in place. Padding rows that repeat a slot write identical cells."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    inv_freq = _rope_freqs(cfg, dev)
+    positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+    rows = slot_ids.to(dev)[:, None].expand(b, t)
+    prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+    lora_idx = _lora_rows(lora_idx, dev)
+
+    x = params["embed"][input_ids.long()]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        def attn_fn(q, k, v, i=i):
+            _write_slots(cache_k[i], rows, positions, k)
+            _write_slots(cache_v[i], rows, positions, v)
+            return gqa_attention_prefill(q, k, v, prompt_lens)
+
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
+
+    logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
+    return logits, cache_k, cache_v
+
+
+def prefill_extend_slots(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, T] int, right-padded chunk
+    chunk_lens: torch.Tensor,  # [B] int32 — valid tokens in this chunk
+    start_pos: torch.Tensor,  # [B] int32 — tokens already in the slot's row
+    slot_ids: torch.Tensor,  # [B] int — target rows in the slot cache
+    cache_k: torch.Tensor,  # [L, NUM_SLOTS, CAP, K, D]
+    cache_v: torch.Tensor,
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+):
+    """Dense chunked prefill: append a chunk of prompt tokens to slots that
+    already hold `start_pos` tokens. Each layer writes the chunk's K/V into
+    the slot rows (positions clamped into the row, as the reference), gathers
+    those rows (`ck[slot_ids]`) and runs flash_extend over them. Padding
+    tokens write garbage past the chunk, in cells later attention masks and
+    the sequence overwrites as it grows. Returns (chunk-last logits [B, V]
+    fp32, cache_k, cache_v)."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    capacity = cache_k.shape[2]
+    inv_freq = _rope_freqs(cfg, dev)
+    start_pos = start_pos.to(device=dev, dtype=torch.int32)
+    chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
+    positions = start_pos[:, None] + torch.arange(t, device=dev,
+                                                  dtype=torch.int32)[None, :]
+    write_pos = torch.clamp(positions, max=capacity - 1)
+    slots = slot_ids.to(dev).long()
+    rows = slots[:, None].expand(b, t)
+    lora_idx = _lora_rows(lora_idx, dev)
+
+    x = params["embed"][input_ids.long()]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        def attn_fn(q, k, v, i=i):
+            _write_slots(cache_k[i], rows, write_pos, k)
+            _write_slots(cache_v[i], rows, write_pos, v)
+            return gqa_attention_extend(q, cache_k[i][slots],
+                                        cache_v[i][slots], positions,
+                                        chunk_lens)
+
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
+
+    logits = _unembed(cfg, params, _last_rows(x, chunk_lens))
+    return logits, cache_k, cache_v
+
+
+def decode_step(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B] int — previous sampled token per slot
+    seq_lens: torch.Tensor,  # [B] int32 — tokens already in the slot's row
+    cache_k: torch.Tensor,  # [L, B, CAP, K, D] — row b is slot b
+    cache_v: torch.Tensor,
+    window: int | None = None,  # context-window bucket (>= max seq + 1)
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+):
+    """One dense decode step across all slots. Returns (logits [B, V] fp32,
+    cache_k, cache_v). Each layer writes slot b's one-token KV at
+    min(seq_lens[b], cap - 1) (freed slots keep counting; the clamp keeps
+    their garbage in their own row) before flash_decode reads the row over
+    `window` cells."""
+    b = input_ids.shape[0]
+    dev = input_ids.device
+    capacity = cache_k.shape[2]
+    inv_freq = _rope_freqs(cfg, dev)
+    write_pos = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32),
+                            max=capacity - 1)
+    positions = write_pos[:, None]  # [B, 1]
+    rows = torch.arange(b, device=dev)
+    kv_lens = (write_pos + 1).to(torch.int32)
+    lora_idx = _lora_rows(lora_idx, dev)
+
+    x = params["embed"][input_ids.long()][:, None, :]  # [B, 1, E]
+    for i in range(cfg.num_layers):
+        def attn_fn(q, k, v, i=i):
+            _write_slots(cache_k[i], rows, write_pos, k[:, 0])
+            _write_slots(cache_v[i], rows, write_pos, v[:, 0])
+            return gqa_attention_decode(q, cache_k[i], cache_v[i], kv_lens,
+                                        window=window)
+
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, lora_idx)
 
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache_k, cache_v

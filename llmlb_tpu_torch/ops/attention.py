@@ -11,11 +11,8 @@ no switch, and nothing on the card takes the plain path.
 
 A paged pool is a tensor [P, PS, K, D] or an int8 {"q": codes [P, PS, K, D],
 "s": float32 scales [P, PS, K]} pair; a pair goes to the quant kernels, as
-in the reference.
-
-`gqa_attention_decode` reads the dense slot cache, whose kernel
-(`flash_decode`) is not ported yet: it computes on CPU tensors only and
-raises on any other device rather than run the plain version there.
+in the reference. The dense slot cache's rows [B, S, K, D] go to
+`flash_decode` and `flash_extend`.
 """
 
 from __future__ import annotations
@@ -48,20 +45,37 @@ def gqa_attention_decode(
     kv_lens: torch.Tensor,  # [B] — valid length per row (incl. current)
     window: int | None = None,  # read only the first `window` cells
 ) -> torch.Tensor:
-    """One-token decode attention against materialized rows. Returns
-    [B, 1, H, D]. Rows with kv_lens > window produce garbage the caller
-    discards. CPU tensors only, until the dense-layout kernel is ported."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "gqa_attention_decode: the dense-cache decode kernel (flash_decode) "
-            f"is not ported; tensors on {q.device} are refused")
-    s = k_cache.shape[1]
-    if window is not None and window < s:
-        k_cache, v_cache, s = k_cache[:, :window], v_cache[:, :window], window
-    b, t = q.shape[:2]
-    valid = torch.arange(s, device=q.device)[None, :] < kv_lens[:, None]
-    return masked_attention(q, k_cache, v_cache,
-                            valid[:, None, :].expand(b, t, s))
+    """One-token decode attention against the dense slot cache. Returns
+    [B, 1, H, D]. `window` bounds the sweep without slicing the cache; rows
+    with kv_lens > window produce garbage the caller discards."""
+    out = cuda_attention.flash_decode(
+        q[:, 0].contiguous(), k_cache, v_cache,
+        kv_lens.to(torch.int32).contiguous(), window=window)
+    return out[:, None]
+
+
+def gqa_attention_extend(
+    q: torch.Tensor,  # [B, T, H, D] — chunk of queries
+    k_cache: torch.Tensor,  # [B, S, K, D] — slot rows incl. this chunk's keys
+    v_cache: torch.Tensor,  # [B, S, K, D]
+    q_positions: torch.Tensor,  # [B, T] — global position of each query
+    chunk_lens: torch.Tensor | None = None,  # [B] int32 — valid queries
+) -> torch.Tensor:
+    """Chunked-prefill attention: query i at global position p sees cache
+    positions <= p. With `chunk_lens` it is flash_extend, which assumes the
+    engine's contiguous chunk positions (q_positions[b] = start + iota).
+    Without, it is the reference's general einsum, computed on CPU tensors
+    only: on the card such a call raises rather than run the plain way."""
+    if chunk_lens is None:
+        if q.device.type != "cpu":
+            raise ValueError("gqa_attention_extend: chunk_lens is required on "
+                             f"{q.device} (the flash_extend kernel's form)")
+        cols = torch.arange(k_cache.shape[1], device=q.device)
+        mask = cols[None, None, :] <= q_positions.to(q.device)[:, :, None]
+        return masked_attention(q, k_cache, v_cache, mask)
+    start = q_positions[:, 0].to(torch.int32).contiguous()
+    return cuda_attention.flash_extend(q, k_cache, v_cache, start,
+                                       chunk_lens.to(torch.int32).contiguous())
 
 
 def paged_attention_decode(

@@ -1,8 +1,8 @@
 """Hand-written Hopper attention kernels: counterpart of
 `llmlb_tpu/ops/pallas_attention.py`.
 
-Five kernels carry the paged serving path, each a CUDA C++ source under
-`llmlb_tpu_torch/csrc/` built by `kernels/build.py`:
+Seven kernels, each a CUDA C++ source under `llmlb_tpu_torch/csrc/` built by
+`kernels/build.py`:
 
 - `flash_prefill`: causal ragged GQA prefill over a fresh bucketed prompt
   (`csrc/flash_prefill.cu`).
@@ -15,17 +15,22 @@ Five kernels carry the paged serving path, each a CUDA C++ source under
   (`csrc/paged_decode_quant.cu`, `csrc/paged_extend_quant.cu`). Each cell is
   dequantized in fp32 and rounded to q.dtype before the dot, as the Pallas
   kernels do.
+- `flash_decode`, `flash_extend`: the decode and the chunk over the dense
+  slot cache [B, S, K, D], whose row b is slot b's cells in order
+  (`csrc/flash_decode.cu`, `csrc/flash_extend.cu`).
 
 Each wrapper takes the JAX kernel's signature. On CUDA tensors it checks
 device, dtype, shape, contiguity and alignment, allocates the output with
 `torch.empty`, launches on the current stream, raises if the launch is
-refused, and adds one to `LAUNCHES[name]`. On CPU tensors it returns its
-plain PyTorch version (`*_reference`, beside it here), which the tests hold
-against the Pallas kernels in interpret mode and `chip_smoke.py` holds against
-the kernel on the card. Any other device raises.
+refused, and adds one to `LAUNCHES[name]` (kernels/build.py). On CPU tensors
+it returns its plain PyTorch version (`*_reference`, beside it here), which
+the tests hold against the Pallas kernels in interpret mode and
+`chip_smoke.py` holds against the kernel on the card. Any other device
+raises.
 
 Defined outputs, as in the Pallas kernels: prefill rows t < prompt_lens[b];
-decode rows with kv_lens[b] <= pages * PS; extend rows i < chunk_lens[b].
+decode rows with kv_lens[b] <= the swept cells (pages * PS, or the dense
+decode's sweep); extend rows i < chunk_lens[b].
 """
 
 from __future__ import annotations
@@ -35,27 +40,18 @@ import ctypes
 import torch
 
 from llmlb_tpu_torch.kernels import build
+# the launch counts of every kernel of the port, public here too
+from llmlb_tpu_torch.kernels.build import (  # noqa: F401
+    LAUNCHES,
+    reset_launch_counts,
+)
 from llmlb_tpu_torch.quant import dequantize_kv
 
 _NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
 
-# Kernel launches since the last reset, by kernel name. Only the CUDA branch
-# of each wrapper adds to these.
-LAUNCHES: dict[str, int] = {
-    "flash_prefill": 0,
-    "paged_flash_decode": 0,
-    "paged_flash_extend": 0,
-    "paged_flash_decode_quant": 0,
-    "paged_flash_extend_quant": 0,
-}
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DECODE_MAX_GROUP = 8  # kDecodeRows in csrc/attention_common.cuh
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+_DENSE_DECODE_BLOCK = 128  # the Pallas flash_decode's default block_k
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +167,40 @@ def paged_flash_extend_quant_reference(q, k_pages, k_scales, v_pages,
         block_tables, start_pos, chunk_lens)
 
 
+def dense_decode_sweep(s: int, window: int | None) -> int:
+    """Cells of the dense cache the decode sweeps: the Pallas flash_decode's
+    max(block, min(window, S)) with its 128-cell block (S without a
+    window)."""
+    blk = min(_DENSE_DECODE_BLOCK, s)
+    return s if window is None else max(blk, min(int(window), s))
+
+
+def flash_decode_reference(q, k_cache, v_cache, kv_lens, *,
+                           window: int | None = None):
+    """Plain version of flash_decode: the first dense_decode_sweep cells of
+    each row are swept and keys j < kv_lens[b] are visible. q [B, H, D],
+    caches [B, S, K, D]."""
+    sweep = dense_decode_sweep(k_cache.shape[1], window)
+    cols = torch.arange(sweep, device=q.device)
+    mask = cols[None, None, :] < kv_lens.to(q.device)[:, None, None]
+    return masked_attention(q[:, None], k_cache[:, :sweep], v_cache[:, :sweep],
+                            mask)[:, 0]
+
+
+def flash_extend_reference(q, k_cache, v_cache, start_pos, chunk_lens):
+    """Plain version of flash_extend: query i of row b at position
+    start_pos[b] + i sees cells j <= its position of the row. Every row is
+    computed; rows i >= chunk_lens[b] are undefined in the kernel's
+    contract."""
+    del chunk_lens  # only decides which rows are defined
+    t = q.shape[1]
+    q_pos = (start_pos.to(q.device)[:, None]
+             + torch.arange(t, device=q.device)[None, :])
+    cols = torch.arange(k_cache.shape[1], device=q.device)
+    mask = cols[None, None, :] <= q_pos[:, :, None]
+    return masked_attention(q, k_cache, v_cache, mask)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -224,16 +254,6 @@ def _route(name: str, q: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def _launch(name: str, entry: str, device: torch.device, *args) -> None:
-    lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
-    LAUNCHES[name] += 1
-
-
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -256,9 +276,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _launch("flash_prefill", "llmlb_flash_prefill", q.device,
-            _ptr(q), _ptr(k), _ptr(v), _ptr(prompt_lens), _ptr(out),
-            b, t, h, kh, d, ctypes.c_float(d**-0.5), code)
+    build.launch("flash_prefill", "llmlb_flash_prefill", q.device,
+                 _ptr(q), _ptr(k), _ptr(v), _ptr(prompt_lens), _ptr(out),
+                 b, t, h, kh, d, ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -291,10 +311,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _launch("paged_flash_decode", "llmlb_paged_flash_decode", q.device,
-            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-            _ptr(kv_lens), _ptr(out), b, h, kh, d, ps, ppn, sweep,
-            ctypes.c_float(d**-0.5), code)
+    build.launch("paged_flash_decode", "llmlb_paged_flash_decode", q.device,
+                 _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+                 _ptr(kv_lens), _ptr(out), b, h, kh, d, ps, ppn, sweep,
+                 ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -323,10 +343,10 @@ def paged_flash_extend(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _launch("paged_flash_extend", "llmlb_paged_flash_extend", q.device,
-            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-            _ptr(start_pos), _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps,
-            ppn, ctypes.c_float(d**-0.5), code)
+    build.launch("paged_flash_extend", "llmlb_paged_flash_extend", q.device,
+                 _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+                 _ptr(start_pos), _ptr(chunk_lens), _ptr(out), b, t, h, kh, d,
+                 ps, ppn, ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -373,10 +393,10 @@ def paged_flash_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _launch(name, "llmlb_paged_flash_decode_quant", q.device,
-            _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
-            _ptr(v_scales), _ptr(block_tables), _ptr(kv_lens), _ptr(out),
-            b, h, kh, d, ps, ppn, sweep, ctypes.c_float(d**-0.5), code)
+    build.launch(name, "llmlb_paged_flash_decode_quant", q.device,
+                 _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
+                 _ptr(v_scales), _ptr(block_tables), _ptr(kv_lens), _ptr(out),
+                 b, h, kh, d, ps, ppn, sweep, ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -410,9 +430,69 @@ def paged_flash_extend_quant(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    _launch(name, "llmlb_paged_flash_extend_quant", q.device,
-            _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
-            _ptr(v_scales), _ptr(block_tables), _ptr(start_pos),
-            _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps, ppn,
-            ctypes.c_float(d**-0.5), code)
+    build.launch(name, "llmlb_paged_flash_extend_quant", q.device,
+                 _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
+                 _ptr(v_scales), _ptr(block_tables), _ptr(start_pos),
+                 _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, ps, ppn,
+                 ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 kv_lens: torch.Tensor, *,
+                 window: int | None = None) -> torch.Tensor:
+    """Ragged one-token GQA decode over the dense slot cache. q [B, H, D],
+    caches [B, S, K, D], kv_lens [B] int32 -> [B, H, D]. `window` (static)
+    bounds the sweep (dense_decode_sweep); the input is not sliced."""
+    if not _route("flash_decode", q):
+        return flash_decode_reference(q, k_cache, v_cache, kv_lens,
+                                      window=window)
+    b, h, d = q.shape
+    _, s, kh, _ = k_cache.shape
+    if (k_cache.shape != (b, s, kh, d) or v_cache.shape != k_cache.shape
+            or h % kh or kv_lens.shape != (b,)):
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
+                         f"kv_lens {tuple(kv_lens.shape)}")
+    if h // kh > _DECODE_MAX_GROUP:
+        raise ValueError(f"flash_decode: {h // kh} query heads per KV head; "
+                         f"the kernel takes at most {_DECODE_MAX_GROUP}")
+    code = _check("flash_decode", q,
+                  {"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                  {"kv_lens": kv_lens})
+    out = torch.empty_like(q)
+    if q.numel() == 0 or s == 0:
+        return out
+    build.launch("flash_decode", "llmlb_flash_decode", q.device,
+                 _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(kv_lens),
+                 _ptr(out), b, h, kh, d, s, dense_decode_sweep(s, window),
+                 ctypes.c_float(d**-0.5), code)
+    return out
+
+
+def flash_extend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 start_pos: torch.Tensor,
+                 chunk_lens: torch.Tensor) -> torch.Tensor:
+    """Chunked-prefill attention over the dense slot cache. q [B, T, H, D],
+    caches [B, S, K, D] (the chunk's rows), start_pos / chunk_lens [B] int32
+    -> [B, T, H, D]."""
+    if not _route("flash_extend", q):
+        return flash_extend_reference(q, k_cache, v_cache, start_pos,
+                                      chunk_lens)
+    b, t, h, d = q.shape
+    _, s, kh, _ = k_cache.shape
+    if (k_cache.shape != (b, s, kh, d) or v_cache.shape != k_cache.shape
+            or h % kh or start_pos.shape != (b,) or chunk_lens.shape != (b,)):
+        raise ValueError(f"flash_extend: shapes q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    code = _check("flash_extend", q,
+                  {"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                  {"start_pos": start_pos, "chunk_lens": chunk_lens})
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    build.launch("flash_extend", "llmlb_flash_extend", q.device,
+                 _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(start_pos),
+                 _ptr(chunk_lens), _ptr(out), b, t, h, kh, d, s,
+                 ctypes.c_float(d**-0.5), code)
     return out

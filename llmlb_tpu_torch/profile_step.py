@@ -1,7 +1,7 @@
 """Where the port's serving dispatches spend their time on the card.
 
-Builds a model from a preset with random weights (seed 0) and a full page
-pool, then times the dispatches the engine issues, at the engine's shapes:
+Builds a model from a preset with random weights (seed 0) and a full KV
+cache, then times the dispatches the engine issues, at the engine's shapes:
 
 - `decode`: one decode step plus sampling over 8 rows (what the burst loop
   runs k times per host sync), at a short and a long context;
@@ -12,8 +12,8 @@ For each it prints the host wall time per dispatch (host clock around many
 back-to-back dispatches ending in a synchronize), the device time the
 profiler saw (`torch.profiler`, kernel durations summed), the device's idle
 share (1 - device / wall), the launches per dispatch, and the device time
-split into the port's attention kernels, matrix products (cuBLAS) and
-everything else, with the top kernels by name.
+split into the port's attention kernels, its LoRA kernels, matrix
+products (cuBLAS) and everything else, with the top kernels by name.
 
 Run on the card from the repository root:
 
@@ -21,6 +21,15 @@ Run on the card from the repository root:
 
 `--quantize all` (or `weights`, `kv`) profiles the int8 engine: the same
 seed-0 weights quantized on the card one layer at a time, and int8 pools.
+
+`--kv-layout dense` profiles the dense slot cache [L, 8, 4096, K, D]
+instead of the page pool: `decode_step`, `prefill_into_slots` and
+`prefill_extend_slots`.
+
+`--lora N` adds an adapter pool of N random rank-16 adapters on all seven
+projections (seed 2), as the engine's LoraManager lays it out (row 0 the
+identity), and gives the dispatches mixed rows: row i uses pool row
+i % (N + 1), so the base model shares the batch with the adapters.
 
 `--device cpu` rehearses the same dispatches at a small preset on the CPU
 and prints no timing (there is no device to time).
@@ -38,6 +47,8 @@ import torch
 
 from llmlb_tpu_torch.device import resolve_device
 from llmlb_tpu_torch.engine.presets import get_preset
+from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
+from llmlb_tpu_torch.lora.store import HF_TARGET_MAP, lora_target_dims
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.ops import cuda_attention
 from llmlb_tpu_torch.ops.attention import pool_shape
@@ -48,9 +59,12 @@ ROWS = 8  # the engine's default slots
 CAPACITY = 4096  # its default slot capacity, in tokens
 PAGE = 128
 REPS = 20
+LORA_RANK = 16  # the engine's default rank cap
 ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
                      "paged_extend_kernel", "paged_decode_quant_kernel",
-                     "paged_extend_quant_kernel")
+                     "paged_extend_quant_kernel", "flash_decode_kernel",
+                     "flash_extend_kernel")
+LORA_KERNELS = ("shrink_kernel", "expand_kernel")  # csrc/lora_bgmv.cu
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
 
 
@@ -58,6 +72,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if any(k in name for k in ATTENTION_KERNELS):
         return "attention"
+    if "llmlb" in name and any(k in name for k in LORA_KERNELS):
+        return "lora"
     if any(m in low for m in MATMUL_MARKS):
         return "matmul"
     return "other"
@@ -101,23 +117,52 @@ def _profile(fn, reps: int) -> dict:
     }
 
 
-def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx):
-    """name -> zero-argument callable issuing one engine dispatch."""
+def _lora_pool(cfg, n: int, device) -> dict[str, torch.Tensor]:
+    """Pool leaves [L, n+1, in, R] / [L, n+1, R, out] for all seven targets:
+    row 0 zero (the identity), rows 1..n random, small enough that no logit
+    overflows."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    leaves = {}
+    for tgt, (in_dim, out_dim) in lora_target_dims(
+            cfg, tuple(HF_TARGET_MAP.values())).items():
+        for suffix, shape in ((LORA_A, (in_dim, LORA_RANK)),
+                              (LORA_B, (LORA_RANK, out_dim))):
+            pool = torch.randn((cfg.num_layers, n + 1, *shape), generator=gen,
+                               device=device, dtype=torch.float32)
+            pool *= 0.01
+            pool[:, 0] = 0.0
+            leaves[tgt + suffix] = pool.to(cfg.dtype)
+    return leaves
+
+
+def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
+                lora_idx=None):
+    """name -> zero-argument callable issuing one engine dispatch. `tables`
+    None selects the dense slot entry points (row i is slot i)."""
     gen = torch.Generator(device=device).manual_seed(1)
     temps = torch.zeros(ROWS, device=device)  # greedy, as chip_smoke serves
     top_p = torch.ones(ROWS, device=device)
     top_k = torch.zeros(ROWS, dtype=torch.int32, device=device)
     toks = torch.randint(0, 256, (ROWS,), generator=gen, device=device,
                          dtype=torch.int32)
-    capacity = tables.shape[1] * pool_shape(ck)[2]
+    dense = tables is None
+    capacity = (ck.shape[2] if dense
+                else tables.shape[1] * pool_shape(ck)[2])
+    slots = torch.arange(ROWS, device=device)
 
     def decode(ctx):
         lens = torch.full((ROWS,), ctx, dtype=torch.int32, device=device)
         window = min(capacity, 1 << max(8, (ctx + 9 - 1).bit_length()))
 
         def step():
-            logits, _, _ = llama.decode_step_paged(params, cfg, toks, lens, ck,
-                                                   cv, tables, window=window)
+            if dense:
+                logits, _, _ = llama.decode_step(params, cfg, toks, lens, ck,
+                                                 cv, window=window,
+                                                 lora_idx=lora_idx)
+            else:
+                logits, _, _ = llama.decode_step_paged(
+                    params, cfg, toks, lens, ck, cv, tables, window=window,
+                    lora_idx=lora_idx)
             sample_tokens(logits, gen, temps, top_p, top_k)
         return step
 
@@ -126,15 +171,26 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx):
                             device=device)
         lens = torch.full((rows,), bucket - 4, dtype=torch.int32,
                           device=device)
+        lidx = None if lora_idx is None else lora_idx[-rows:]
+        if dense:
+            return lambda: llama.prefill_into_slots(
+                params, cfg, ids, lens, slots[:rows], ck, cv, lora_idx=lidx)
         return lambda: llama.prefill_into_pages(params, cfg, ids, lens,
-                                                tables[:rows], ck, cv)
+                                                tables[:rows], ck, cv,
+                                                lora_idx=lidx)
 
     def extend(start, chunk):
         ids = torch.randint(0, 256, (1, chunk), generator=gen, device=device)
         n = torch.tensor([chunk], dtype=torch.int32, device=device)
         s = torch.tensor([start], dtype=torch.int32, device=device)
+        # the chunk's row takes an adapter when there is one
+        lidx = None if lora_idx is None else lora_idx[-1:]
+        if dense:
+            return lambda: llama.prefill_extend_slots(
+                params, cfg, ids, n, s, slots[:1], ck, cv, lora_idx=lidx)
         return lambda: llama.prefill_extend_pages(params, cfg, ids, n, s,
-                                                  tables[:1], ck, cv)
+                                                  tables[:1], ck, cv,
+                                                  lora_idx=lidx)
 
     bucket = min(512, capacity // 2)
     return {
@@ -155,8 +211,14 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--quantize", choices=("off", "weights", "kv", "all"),
                         default="off", help="int8 weights and/or KV pages")
+    parser.add_argument("--kv-layout", choices=("paged", "dense"),
+                        default="paged", help="page pool or dense slot cache")
+    parser.add_argument("--lora", type=int, default=0, metavar="N",
+                        help="N resident random adapters, mixed rows")
     args = parser.parse_args(argv)
     quant = parse_quant_mode(args.quantize)
+    if quant.kv and args.kv_layout == "dense":
+        parser.error("int8 KV needs the paged layout (--kv-layout paged)")
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     cfg = get_preset(args.preset or ("llama-3-8b" if on_card else "debug-tiny"))
@@ -175,13 +237,23 @@ def main(argv: list[str] | None = None) -> int:
                                device)
     if quant.weights:
         params = quantize_params(params)
-    ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device,
-                                 quantized=quant.kv)
-    tables = (torch.arange(ROWS * ppn, dtype=torch.int32, device=device) + 1
-              ).reshape(ROWS, ppn)
+    lora_idx = None
+    if args.lora:
+        # adapter leaves join after quantization, as in the engine
+        params = {**params, **_lora_pool(cfg, args.lora, device)}
+        lora_idx = torch.arange(ROWS, dtype=torch.int32,
+                                device=device) % (args.lora + 1)
+    if args.kv_layout == "dense":
+        ck, cv = llama.init_kv_cache(cfg, ROWS, capacity, device)
+        tables = None
+    else:
+        ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device,
+                                     quantized=quant.kv)
+        tables = (torch.arange(ROWS * ppn, dtype=torch.int32, device=device)
+                  + 1).reshape(ROWS, ppn)
     dispatches = _dispatches(cfg, params, ck, cv, tables, device,
                              short_ctx=min(160, capacity // 4),
-                             long_ctx=capacity // 2)
+                             long_ctx=capacity // 2, lora_idx=lora_idx)
     for name, fn in dispatches.items():
         if not on_card:
             fn()  # rehearsal: shapes and control flow only
@@ -189,7 +261,12 @@ def main(argv: list[str] | None = None) -> int:
             continue
         cuda_attention.reset_launch_counts()
         row = {"dispatch": name, "preset": args.preset or "llama-3-8b",
-               "quantize": quant.mode, "card": smi, **_profile(fn, REPS)}
+               "quantize": quant.mode, "kv_layout": args.kv_layout,
+               "lora": args.lora, "card": smi, **_profile(fn, REPS),
+               # the port's kernels per dispatch (_profile ran fn 2 REPS + 1
+               # times)
+               "port_launches": {k: v / (2 * REPS + 1) for k, v in
+                                 cuda_attention.LAUNCHES.items() if v}}
         print(json.dumps(row), flush=True)
         if not any(cuda_attention.LAUNCHES.values()):
             raise RuntimeError(f"{name}: no attention kernel launched")

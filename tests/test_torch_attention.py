@@ -190,9 +190,9 @@ def test_public_functions_take_the_plain_path_on_cpu():
 
 def test_dense_decode_is_plain_on_cpu_and_refused_elsewhere():
     """gqa_attention_decode matches the reference's einsum path on CPU
-    tensors (rows within the window), and refuses tensors on any other
-    device: its dense-cache kernel is not ported, and the plain version
-    must not run in its place."""
+    tensors (rows within the window); CUDA tensors go to the flash_decode
+    kernel, and tensors on any other device are refused rather than run
+    through the plain version."""
     rng = np.random.default_rng(11)
     b, s, h, kv, d = 3, 24, 8, 2, 16
     q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
@@ -209,7 +209,7 @@ def test_dense_decode_is_plain_on_cpu_and_refused_elsewhere():
                                    np.asarray(want)[:rows], atol=ATOL)
     meta = torch.empty((b, 1, h, d), device="meta")
     cache = torch.empty((b, s, kv, d), device="meta")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="flash_decode: unsupported device"):
         attention.gqa_attention_decode(meta, cache, cache,
                                        torch.empty(b, device="meta"))
 

@@ -48,6 +48,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "llmlb_tpu_torch.ops.cuda_attention" in modules
     assert "llmlb_tpu_torch.quant.core" in modules
     assert "llmlb_tpu_torch.ops._threefry" in modules
+    for name in ("lora", "lora.api", "lora.store", "lora.manager", "ops.lora",
+                 "engine.safetensors_io", "kernels.build"):
+        assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"
