@@ -15,9 +15,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
              version with a fault a kernel could have (a page or key tile
              left out; for the int8 kernels the wrong page's scales or K's
              scales for V; for the dense kernels the next slot's row; for
+             the tensor-core prefill and extend a causal diagonal shifted by
+             one key and a GQA head's output taken from its neighbour; for
              lora_delta the next adapter's rows or the last rank column
-             left out), and time kernel / plain / library call with CUDA
-             events.
+             left out), hold the tensor-core prefill and extend in bf16 at
+             head_dim 64 with GQA groups of 7 and 8 (Qwen2.5-0.5B,
+             TinyLlama) and an extend start inside a key tile, and time
+             kernel / plain / library call with CUDA events, the attention
+             kernels and their SDPA calls also with the L2 cache cold.
 4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
 5. model   — the model's serving entry points on the card (kernels)
              against the CPU (plain path) at debug size: the paged ones with
@@ -106,6 +111,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean device time of fn() with the L2 cache cold: before each call a
+    128 MB buffer is read and written (outside the timed region), so fn()
+    finds none of its inputs in the 50 MB L2, as a serving step whose
+    other layers ran in between would. CUDA events around each call."""
+    import torch
+
+    flush = torch.zeros(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.add_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def profiled_ms(fn, reps: int, marks: tuple[str, ...]) -> float:
@@ -264,13 +292,19 @@ def phase_kernels() -> list[dict]:
     _must_fail("flash_prefill bf16, key tile [64, 128) of row 0 dropped",
                _plain(torch, q, k, v, mask, (64, 128, [0])), want,
                rel=BF16_REL, rows=plens_host)
+    _tc_mutants(torch, "flash_prefill", q, k, v,
+                (pos[None, :, None] + 1 >= pos[None, None, :])
+                & (pos[None, None, :] < plens[:, None, None]), want, plens_host)
     # the yardstick call takes SDPA's [B, H, T, D] layout with the KV heads
     # repeated for the group, prepared outside the timed region
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
               for x in (k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None]), 10)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt,
+                                              attn_mask=mask[:, None])
+
     # the function's work: the defined rows read q, k, v and write out once
     visible = sum(n * (n + 1) // 2 for n in plens_host)
     nbytes = (2 * H + 2 * KV) * D * 2 * sum(plens_host) + b * 4
@@ -281,9 +315,12 @@ def phase_kernels() -> list[dict]:
         replaces="llmlb_tpu/ops/pallas_attention.py:494",
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.flash_prefill(q, k, v, plens), 20),
+        ms_cold=cuda_ms_cold(lambda: ca.flash_prefill(q, k, v, plens), 20),
         plain_ms=cuda_ms(lambda: ca.flash_prefill_reference(q, k, v, plens), 3),
-        bound_ms=bms, bound_by=by, library_ms=lib))
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(sdpa, 10),
+        library_ms_cold=cuda_ms_cold(sdpa, 10)))
     del q, k, v, qt, kt, vt, got, want, mask
+    _tc_head_dim_64(torch, gen)
 
     # -- paged_flash_decode: 8 rows up to 4096 tokens through block tables ---
     ppn = CAPACITY // PAGE
@@ -324,6 +361,8 @@ def phase_kernels() -> list[dict]:
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.paged_flash_decode(q, kp, vp, tables, lens,
                                                  pages=ppn), 50),
+        ms_cold=cuda_ms_cold(lambda: ca.paged_flash_decode(
+            q, kp, vp, tables, lens, pages=ppn), 20),
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_reference(
             q, kp, vp, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -362,6 +401,8 @@ def phase_kernels() -> list[dict]:
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.paged_flash_extend(q, kp, vp, tab1, start,
                                                  chunk), 20),
+        ms_cold=cuda_ms_cold(lambda: ca.paged_flash_extend(
+            q, kp, vp, tab1, start, chunk), 20),
         plain_ms=cuda_ms(lambda: ca.paged_flash_extend_reference(
             q, kp, vp, tab1, start, chunk), 3),
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -426,23 +467,86 @@ def phase_kernels() -> list[dict]:
            ca.paged_flash_extend_quant_reference(q, *qk, *qv, tab, st, ch),
            atol=FP32_ATOL, rows=[16, 9, 3])
     for r in rows:
-        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        lib = ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms warm"
+               + (f", {r['library_ms_cold']:.4f} ms L2 cold"
+                  if "library_ms_cold" in r else ""))
+        cold = (f", {r['ms_cold']:.4f} ms L2 cold" if "ms_cold" in r else "")
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms warm{cold}, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
 
 
-def _sdpa_ms(torch, q, k, v, mask) -> float:
+def _sdpa_ms(torch, q, k, v, mask) -> tuple[float, float]:
     """The yardstick call for the dense kernels: SDPA with a boolean mask
     and the KV heads shared by their query group (enable_gqa), on the
-    [B, heads, T, D] layout prepared outside the timed region. Timed only;
-    the port never calls it."""
+    [B, heads, T, D] layout prepared outside the timed region. Timed only,
+    warm and with the L2 cold; the port never calls it."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     m = mask[:, None]
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=m, enable_gqa=True), 10)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m,
+                                              enable_gqa=True)
+
+    return cuda_ms(sdpa, 10), cuda_ms_cold(sdpa, 10)
+
+
+def _tc_mutants(torch, name, q, k, v, shifted, want, rows) -> None:
+    """Faults a fragment-layout error in the tensor-core body would make,
+    which the bf16 limit must reject: the causal diagonal shifted by one
+    (`shifted`: row t also sees key t + 1), and one head of a GQA group
+    writing its neighbour's output (head 1 given head 0's rows)."""
+    _must_fail(f"{name} bf16, causal diagonal shifted by one key",
+               _plain(torch, q, k, v, shifted), want, rel=BF16_REL, rows=rows)
+    swapped = want.clone()
+    swapped[:, :, 1] = want[:, :, 0]
+    _must_fail(f"{name} bf16, head 1 of the group given head 0's output",
+               swapped, want, rel=BF16_REL, rows=rows)
+
+
+def _tc_head_dim_64(torch, gen) -> None:
+    """The tensor-core prefill and extend at head_dim 64 in bf16, with GQA
+    groups that do not fill the 64 rows alike: Qwen2.5-0.5B (14 heads over
+    2 KV heads, G = 7: 9 positions, 63 live rows) and TinyLlama-1.1B (32
+    over 4, G = 8). Prompt lengths on the 64-key tile's edges; extend starts
+    inside a tile, and one chunk whose second query tile is all padding."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for tag, h, kv in (("Qwen2.5-0.5B G=7", 14, 2), ("TinyLlama G=8", 32, 4)):
+        lens_host = [1, 63, 64, 65, 127, 129]
+        b, t, d = len(lens_host), 192, 64
+        q, k, v = randn((b, t, h, d)), randn((b, t, kv, d)), randn((b, t, kv, d))
+        plens = torch.tensor(lens_host, dtype=torch.int32, device="cuda")
+        got = ca.flash_prefill(q, k, v, plens)
+        want = ca.flash_prefill_reference(q, k, v, plens)
+        torch.cuda.synchronize()
+        _check(f"flash_prefill bf16 [{b},{t},{h},{d}] kv {kv} ({tag}) lens "
+               f"{lens_host}", got, want, rel=BF16_REL, rows=lens_host)
+        pos = torch.arange(t, device="cuda")
+        shifted = ((pos[None, :, None] + 1 >= pos[None, None, :])
+                   & (pos[None, None, :] < plens[:, None, None]))
+        _tc_mutants(torch, f"flash_prefill ({tag})", q, k, v, shifted, want,
+                    lens_host)
+        s_len, t = 1024, 256
+        q = randn((2, t, h, d))
+        kc, vc = randn((2, s_len, kv, d)), randn((2, s_len, kv, d))
+        start_host, chunk_host = [777, 37], [200, 50]
+        start = torch.tensor(start_host, dtype=torch.int32, device="cuda")
+        chunk = torch.tensor(chunk_host, dtype=torch.int32, device="cuda")
+        got = ca.flash_extend(q, kc, vc, start, chunk)
+        want = ca.flash_extend_reference(q, kc, vc, start, chunk)
+        torch.cuda.synchronize()
+        _check(f"flash_extend bf16 [2,{t},{h},{d}] rows [2,{s_len},{kv},{d}] "
+               f"({tag}) start {start_host} chunk {chunk_host}", got, want,
+               rel=BF16_REL, rows=chunk_host)
 
 
 def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
@@ -492,10 +596,13 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.flash_decode(q, kc, vc, lens,
                                            window=CAPACITY), 50),
+        ms_cold=cuda_ms_cold(lambda: ca.flash_decode(q, kc, vc, lens,
+                                                     window=CAPACITY), 20),
         plain_ms=cuda_ms(lambda: ca.flash_decode_reference(
             q, kc, vc, lens, window=CAPACITY), 5),
         bound_ms=bms, bound_by=by,
-        library_ms=_sdpa_ms(torch, q[:, None], kc, vc, mask)))
+        **dict(zip(("library_ms", "library_ms_cold"),
+                   _sdpa_ms(torch, q[:, None], kc, vc, mask)))))
     qf = randn((SLOTS, H, D), f32)
     kf, vf = kc.float(), vc.float()
     _check("flash_decode fp32 [8,32,128] cache [8,4096,8,128]",
@@ -528,6 +635,9 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
     _must_fail("flash_extend bf16, the next slot's row read",
                _plain(torch, q, kc[1:2], vc[1:2], mask), want, rel=BF16_REL,
                rows=[chunk_host])
+    _tc_mutants(torch, "flash_extend", q, rows_k, rows_v,
+                cols[None, None, :] <= q_pos[None, :, None] + 1, want,
+                [chunk_host])
     visible = sum(start_host + i + 1 for i in range(chunk_host))
     nbytes = keys * KV * D * 2 * 2 + 2 * chunk_host * H * D * 2 + 8
     bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
@@ -538,10 +648,19 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.flash_extend(q, rows_k, rows_v, start, chunk),
                    20),
+        ms_cold=cuda_ms_cold(lambda: ca.flash_extend(q, rows_k, rows_v, start,
+                                                     chunk), 20),
         plain_ms=cuda_ms(lambda: ca.flash_extend_reference(
             q, rows_k, rows_v, start, chunk), 3),
         bound_ms=bms, bound_by=by,
-        library_ms=_sdpa_ms(torch, q, rows_k, rows_v, mask)))
+        **dict(zip(("library_ms", "library_ms_cold"),
+                   _sdpa_ms(torch, q, rows_k, rows_v, mask)))))
+    # the same chunk starting inside a key tile (1000 = 15 * 64 + 40)
+    st = torch.tensor([1000], dtype=torch.int32, device="cuda")
+    _check("flash_extend bf16 [1,512,32,128] rows [1,4096,8,128] start 1000",
+           ca.flash_extend(q, rows_k, rows_v, st, chunk),
+           ca.flash_extend_reference(q, rows_k, rows_v, st, chunk),
+           rel=BF16_REL, rows=[chunk_host])
     qf = randn((1, t, H, D), f32)
     kf, vf = rows_k.float(), rows_v.float()
     _check("flash_extend fp32 [1,512,32,128] rows [1,4096,8,128] start 1024",
@@ -745,6 +864,8 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.paged_flash_decode_quant(
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 50),
+        ms_cold=cuda_ms_cold(lambda: ca.paged_flash_decode_quant(
+            q, kq, ks, vq, vs, tables, lens, pages=ppn), 20),
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_quant_reference(
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -783,6 +904,8 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
         replaces="llmlb_tpu/ops/pallas_attention.py:885",
         max_abs_err=err,
         ms=cuda_ms(lambda: ca.paged_flash_extend_quant(
+            q, kq, ks, vq, vs, tab1, start, chunk), 20),
+        ms_cold=cuda_ms_cold(lambda: ca.paged_flash_extend_quant(
             q, kq, ks, vq, vs, tab1, start, chunk), 20),
         plain_ms=cuda_ms(lambda: ca.paged_flash_extend_quant_reference(
             q, kq, ks, vq, vs, tab1, start, chunk), 3),

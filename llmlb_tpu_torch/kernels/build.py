@@ -36,7 +36,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flash_prefill.cu", "paged_decode.cu", "paged_extend.cu",
            "paged_decode_quant.cu", "paged_extend_quant.cu", "flash_decode.cu",
            "flash_extend.cu", "lora_bgmv.cu")
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "attention_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 

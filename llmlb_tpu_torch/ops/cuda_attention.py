@@ -19,6 +19,11 @@ Seven kernels, each a CUDA C++ source under `llmlb_tpu_torch/csrc/` built by
   slot cache [B, S, K, D], whose row b is slot b's cells in order
   (`csrc/flash_decode.cu`, `csrc/flash_extend.cu`).
 
+In bf16, `flash_prefill` and `flash_extend` run on the tensor cores
+(`csrc/attention_tc.cuh`), built for head_dim 64 and 128 only: any other
+bf16 head_dim raises (`check_tc_head_dim`) instead of reaching another
+kernel. In float32 they run on the CUDA cores at any head_dim the others take.
+
 Each wrapper takes the JAX kernel's signature. On CUDA tensors it checks
 device, dtype, shape, contiguity and alignment, allocates the output with
 `torch.empty`, launches on the current stream, raises if the launch is
@@ -52,6 +57,8 @@ _NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DECODE_MAX_GROUP = 8  # kDecodeRows in csrc/attention_common.cuh
 _DENSE_DECODE_BLOCK = 128  # the Pallas flash_decode's default block_k
+# head_dims of the bf16 tensor-core body's instantiations (attention_tc.cuh)
+TC_HEAD_DIMS = (64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +252,14 @@ def _check(name: str, main: torch.Tensor, floats: dict, ints: dict,
     return _DTYPE_CODES[main.dtype]
 
 
+def check_tc_head_dim(name: str, d: int) -> None:
+    """Raise unless the bf16 tensor-core kernels are built for head_dim `d`
+    (TC_HEAD_DIMS: the bf16 presets' 64 and 128)."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not supported in bfloat16 "
+                         f"(the tensor-core kernel is built for {TC_HEAD_DIMS})")
+
+
 def _route(name: str, q: torch.Tensor) -> bool:
     """True for the CUDA launch, False for the plain version on the CPU."""
     if q.device.type == "cuda":
@@ -273,6 +288,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_prefill: prompt_lens must be [B]")
     code = _check("flash_prefill", q, {"q": q, "k": k, "v": v},
                   {"prompt_lens": prompt_lens})
+    if q.dtype == torch.bfloat16:
+        check_tc_head_dim("flash_prefill", d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -488,6 +505,8 @@ def flash_extend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     code = _check("flash_extend", q,
                   {"q": q, "k_cache": k_cache, "v_cache": v_cache},
                   {"start_pos": start_pos, "chunk_lens": chunk_lens})
+    if q.dtype == torch.bfloat16:
+        check_tc_head_dim("flash_extend", d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

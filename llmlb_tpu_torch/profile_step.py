@@ -13,7 +13,11 @@ back-to-back dispatches ending in a synchronize), the device time the
 profiler saw (`torch.profiler`, kernel durations summed), the device's idle
 share (1 - device / wall), the launches per dispatch, and the device time
 split into the port's attention kernels, its LoRA kernels, matrix
-products (cuBLAS) and everything else, with the top kernels by name.
+products (cuBLAS) and everything else, with the top kernels by name. Beside
+them, under "clocks", the card's SM clock, power draw, power limit and
+temperature as `nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit,
+temperature.gpu` read them on a thread while the dispatch ran: a card held
+below its clock by power or heat runs every kernel slower.
 
 Run on the card from the repository root:
 
@@ -31,6 +35,9 @@ projections (seed 2), as the engine's LoraManager lays it out (row 0 the
 identity), and gives the dispatches mixed rows: row i uses pool row
 i % (N + 1), so the base model shares the batch with the adapters.
 
+`--only prefill,extend` (any of decode, prefill, extend) runs those
+dispatches alone.
+
 `--device cpu` rehearses the same dispatches at a small preset on the CPU
 and prints no timing (there is no device to time).
 """
@@ -41,6 +48,7 @@ import argparse
 import collections
 import json
 import subprocess
+import threading
 import time
 
 import torch
@@ -63,7 +71,8 @@ LORA_RANK = 16  # the engine's default rank cap
 ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
                      "paged_extend_kernel", "paged_decode_quant_kernel",
                      "paged_extend_quant_kernel", "flash_decode_kernel",
-                     "flash_extend_kernel")
+                     "flash_extend_kernel", "flash_prefill_tc_kernel",
+                     "flash_extend_tc_kernel")
 LORA_KERNELS = ("shrink_kernel", "expand_kernel")  # csrc/lora_bgmv.cu
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
 
@@ -79,15 +88,62 @@ def _category(name: str) -> str:
     return "other"
 
 
+SMI_QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
+
+
+def _smi_sample() -> list[float]:
+    """[SM clock MHz, power draw W, power limit W, temperature C] of card
+    0, as nvidia-smi reads them now."""
+    line = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={SMI_QUERY}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return [float(x) for x in line.split(",")]
+
+
+class _Clocks:
+    """nvidia-smi samples taken on a thread while the `with` block runs:
+    one at its start, then one every 0.2 s or so, and one at its end."""
+
+    def __init__(self):
+        self.samples: list[list[float]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while True:
+            self.samples.append(_smi_sample())
+            if self._stop.wait(0.2):
+                self.samples.append(_smi_sample())
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+    def summary(self) -> dict:
+        sm, power, limit, temp = zip(*self.samples)
+        return {"query": SMI_QUERY, "samples": len(self.samples),
+                "sm_mhz_min": min(sm), "sm_mhz_max": max(sm),
+                "power_w_max": max(power), "power_limit_w": limit[0],
+                "temperature_c_max": max(temp)}
+
+
 def _profile(fn, reps: int) -> dict:
-    """Wall and device time of fn() per call, on the card."""
+    """Wall and device time of fn() per call, on the card, and the card's
+    clocks while the wall-clock loop ran."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with _Clocks() as clocks:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -114,6 +170,7 @@ def _profile(fn, reps: int) -> dict:
         "launches": launches / reps,
         "device_ms_by_kind": {k: v / reps / 1e3 for k, v in sorted(by_cat.items())},
         "top_kernels_ms": [[n[:80], v / reps / 1e3] for n, v in top],
+        "clocks": clocks.summary(),
     }
 
 
@@ -215,7 +272,12 @@ def main(argv: list[str] | None = None) -> int:
                         default="paged", help="page pool or dense slot cache")
     parser.add_argument("--lora", type=int, default=0, metavar="N",
                         help="N resident random adapters, mixed rows")
+    parser.add_argument("--only", default="decode,prefill,extend",
+                        help="comma-separated dispatch kinds to run")
     args = parser.parse_args(argv)
+    kinds = set(args.only.split(","))
+    if not kinds <= {"decode", "prefill", "extend"}:
+        parser.error(f"--only: unknown kinds {sorted(kinds)}")
     quant = parse_quant_mode(args.quantize)
     if quant.kv and args.kv_layout == "dense":
         parser.error("int8 KV needs the paged layout (--kv-layout paged)")
@@ -255,6 +317,8 @@ def main(argv: list[str] | None = None) -> int:
                              short_ctx=min(160, capacity // 4),
                              long_ctx=capacity // 2, lora_idx=lora_idx)
     for name, fn in dispatches.items():
+        if name.split()[0] not in kinds:
+            continue
         if not on_card:
             fn()  # rehearsal: shapes and control flow only
             print(f"rehearsal on cpu: {name} ran (no device to time)")
