@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the tensor-core prefill and extend a causal diagonal shifted by
              one key and a GQA head's output taken from its neighbour; for
              lora_delta the next adapter's rows or the last rank column
-             left out), hold the tensor-core prefill and extend in bf16 at
+             left out; for the split-K decodes a lost partial, the keys of
+             the second split left out), hold the split-K flash_decode and
+             paged_flash_decode_quant at kv_lens on the split edges and
+             bit for bit across batch (a row alone and in the batch of 8)
+             and sweep (4096 and 256 keys), time the three decode kernels
+             at the serving shape too (8 rows near 160 keys, window 256),
+             hold the tensor-core prefill and extend in bf16 at
              head_dim 64 with GQA groups of 7 and 8 (Qwen2.5-0.5B,
              TinyLlama) and an extend start inside a key tile, and time
              kernel / plain / library call with CUDA events, the attention
@@ -73,6 +79,8 @@ PEAK_BYTES = 3.35e12
 # Llama-3-8B serving shapes at the engine defaults.
 H, KV, D = 32, 8, 128
 SLOTS, CAPACITY, PAGE = 8, 4096, 128
+# the decode steps of the serve phases: 8 rows near 160 keys, window 256
+SERVE_LENS, SERVE_WINDOW = [156, 157, 158, 159, 160, 161, 162, 163], 256
 # bf16: inputs, probabilities and outputs are rounded to bf16 (8 significant
 # bits), and the kernel's online softmax rescales its sums in another order
 # than the plain version's two passes. Allow two bf16 steps of the element and
@@ -366,6 +374,10 @@ def phase_kernels() -> list[dict]:
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_reference(
             q, kp, vp, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
+    serve = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
+    serve_pages = SERVE_WINDOW // PAGE
+    _serve_times(torch, "paged_flash_decode", lambda: ca.paged_flash_decode(
+        q, kp, vp, tables, serve, pages=serve_pages), rows[-1])
 
     # -- paged_flash_extend: the last 476-token chunk of a 1500-token prompt --
     t, start_host, chunk_host = 512, 1024, 476
@@ -472,9 +484,12 @@ def phase_kernels() -> list[dict]:
                + (f", {r['library_ms_cold']:.4f} ms L2 cold"
                   if "library_ms_cold" in r else ""))
         cold = (f", {r['ms_cold']:.4f} ms L2 cold" if "ms_cold" in r else "")
+        serve = (f"; serve shape {r['serve_ms']:.4f} ms warm, "
+                 f"{r['serve_ms_cold']:.4f} ms L2 cold" if "serve_ms" in r
+                 else "")
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms warm{cold}, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}){serve}")
     return rows
 
 
@@ -549,6 +564,50 @@ def _tc_head_dim_64(torch, gen) -> None:
                rel=BF16_REL, rows=chunk_host)
 
 
+def _edge_lens(ca) -> list[int]:
+    """kv_lens on the split-K decodes' split edges: one below, at and one
+    above kSplitKeys, an empty row, the full 4096, one a few keys into the
+    fourth split, one key, and two whole splits."""
+    sk = ca.DECODE_SPLIT_KEYS
+    return [sk - 1, sk, sk + 1, 0, CAPACITY, 3 * sk + 7, 1, 2 * sk]
+
+
+def _bitwise(torch, name, run, lens_host) -> None:
+    """A split-K decode's rows do not depend on the batch or the sweep:
+    row 0 computed alone equals its row in the batch, bit for bit, and the
+    rows with kv_len <= kSplitKeys (one split) give the same bits under a
+    sweep of 4096 keys (split kernel + combine) as under 256 (one launch).
+    `run(rows, sweep)` runs the kernel on the batch rows `rows` (a slice)
+    with that sweep."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    full = run(slice(None), CAPACITY)
+    alone = run(slice(0, 1), CAPACITY)
+    torch.cuda.synchronize()
+    if not torch.equal(alone[0], full[0]):
+        raise AssertionError(f"{name}: row 0 alone differs from its row in "
+                             "the batch")
+    short = [i for i, n in enumerate(lens_host) if n <= ca.DECODE_SPLIT_KEYS]
+    narrow = run(slice(None), SERVE_WINDOW)
+    torch.cuda.synchronize()
+    if not torch.equal(narrow[short], full[short]):
+        raise AssertionError(f"{name}: rows {short} differ between sweeps "
+                             f"{CAPACITY} and {SERVE_WINDOW}")
+    log(f"  {name}: row 0 alone == its row in the batch of {len(lens_host)}, "
+        f"bit for bit; rows {short} (kv_len <= {ca.DECODE_SPLIT_KEYS}) equal "
+        f"under sweeps {CAPACITY} and {SERVE_WINDOW}, bit for bit")
+
+
+def _serve_times(torch, name, call, row) -> None:
+    """Time `call` (the kernel at the serve phases' decode shape) warm and
+    with the L2 cold, into row["serve_ms"], row["serve_ms_cold"]."""
+    row["serve_ms"] = cuda_ms(call, 50)
+    row["serve_ms_cold"] = cuda_ms_cold(call, 20)
+    log(f"  {name} at the serve shape (kv_lens {SERVE_LENS}, sweep "
+        f"{SERVE_WINDOW}): kernel {row['serve_ms']:.4f} ms warm, "
+        f"{row['serve_ms_cold']:.4f} ms L2 cold")
+
+
 def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
     """flash_decode and flash_extend over the dense slot cache at the
     serving shapes (8 slots of 4096 cells; one 476-token chunk at 1024),
@@ -586,6 +645,20 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
     _must_fail("flash_decode bf16, the next slot's row read",
                _plain(torch, q[:, None], kc.roll(-1, 0), vc.roll(-1, 0),
                       mask)[:, 0], want, rel=BF16_REL)
+    sk = ca.DECODE_SPLIT_KEYS
+    _must_fail(f"flash_decode bf16, keys [{sk}, {2 * sk}) of the 4096-token "
+               "row left out (a lost partial)",
+               _plain(torch, q[:, None], kc, vc, mask,
+                      (sk, 2 * sk, [0]))[:, 0], want, rel=BF16_REL)
+    edge_host = _edge_lens(ca)
+    edge = torch.tensor(edge_host, dtype=torch.int32, device="cuda")
+    _check(f"flash_decode bf16 kv_lens {edge_host} (split edges)",
+           ca.flash_decode(q, kc, vc, edge, window=CAPACITY),
+           ca.flash_decode_reference(q, kc, vc, edge, window=CAPACITY),
+           rel=BF16_REL)
+    _bitwise(torch, "flash_decode bf16", lambda rows, sweep: ca.flash_decode(
+        q[rows].contiguous(), kc[rows].contiguous(), vc[rows].contiguous(),
+        edge[rows].contiguous(), window=sweep), edge_host)
     cells = sum(lens_host)
     nbytes = cells * KV * D * 2 * 2 + 2 * q.numel() * 2 + SLOTS * 4
     bms, by = bound_ms(nbytes, 4 * H * D * cells, PEAK_BF16_FLOPS)
@@ -603,11 +676,22 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
         bound_ms=bms, bound_by=by,
         **dict(zip(("library_ms", "library_ms_cold"),
                    _sdpa_ms(torch, q[:, None], kc, vc, mask)))))
+    serve = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
+    _check(f"flash_decode bf16 kv_lens {SERVE_LENS} window {SERVE_WINDOW}",
+           ca.flash_decode(q, kc, vc, serve, window=SERVE_WINDOW),
+           ca.flash_decode_reference(q, kc, vc, serve, window=SERVE_WINDOW),
+           rel=BF16_REL)
+    _serve_times(torch, "flash_decode", lambda: ca.flash_decode(
+        q, kc, vc, serve, window=SERVE_WINDOW), out[-1])
     qf = randn((SLOTS, H, D), f32)
     kf, vf = kc.float(), vc.float()
     _check("flash_decode fp32 [8,32,128] cache [8,4096,8,128]",
            ca.flash_decode(qf, kf, vf, lens, window=CAPACITY),
            ca.flash_decode_reference(qf, kf, vf, lens, window=CAPACITY),
+           atol=FP32_ATOL)
+    _check(f"flash_decode fp32 kv_lens {edge_host} (split edges)",
+           ca.flash_decode(qf, kf, vf, edge, window=CAPACITY),
+           ca.flash_decode_reference(qf, kf, vf, edge, window=CAPACITY),
            atol=FP32_ATOL)
     del kf, vf, qf
 
@@ -824,9 +908,13 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
         kc, vc = (_dequant(kq, ks, tab, q.dtype), _dequant(vq, vs, tab, q.dtype))
         yield "page 5 of row 0 left out", _plain(torch, q, kc, vc, mask,
                                                    (5 * PAGE, 6 * PAGE, [0]))
-        if decode:  # the 4096-token row's last key tile
+        if decode:  # the 4096-token row's last key tile, a lost partial
             yield "last 64-key tile of row 0 left out", _plain(
                 torch, q, kc, vc, mask, (4096 - 64, 4096, [0]))
+            sk = ca.DECODE_SPLIT_KEYS
+            yield (f"keys [{sk}, {2 * sk}) of row 0 left out (a lost "
+                   "partial)", _plain(torch, q, kc, vc, mask,
+                                      (sk, 2 * sk, [0])))
         # an off-by-one in the scale index: K scales of the next page
         wrong = _dequant(kq, ks, tab, q.dtype, torch.roll(tab, -1, dims=1))
         yield "K scales read from the next page", _plain(torch, q, wrong, vc,
@@ -869,12 +957,44 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_quant_reference(
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
+    edge_host = _edge_lens(ca)
+    edge = torch.tensor(edge_host, dtype=torch.int32, device="cuda")
+    _check(f"paged_flash_decode_quant bf16 kv_lens {edge_host} (split edges)",
+           ca.paged_flash_decode_quant(q, kq, ks, vq, vs, tables, edge,
+                                       pages=ppn),
+           ca.paged_flash_decode_quant_reference(q, kq, ks, vq, vs, tables,
+                                                 edge, pages=ppn),
+           rel=BF16_REL)
+    _bitwise(torch, "paged_flash_decode_quant bf16",
+             lambda rows, sweep: ca.paged_flash_decode_quant(
+                 q[rows].contiguous(), kq, ks, vq, vs,
+                 tables[rows].contiguous(), edge[rows].contiguous(),
+                 pages=sweep // PAGE), edge_host)
+    serve = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
+    serve_pages = SERVE_WINDOW // PAGE
+    _check(f"paged_flash_decode_quant bf16 kv_lens {SERVE_LENS} pages "
+           f"{serve_pages}",
+           ca.paged_flash_decode_quant(q, kq, ks, vq, vs, tables, serve,
+                                       pages=serve_pages),
+           ca.paged_flash_decode_quant_reference(q, kq, ks, vq, vs, tables,
+                                                 serve, pages=serve_pages),
+           rel=BF16_REL)
+    _serve_times(torch, "paged_flash_decode_quant",
+                 lambda: ca.paged_flash_decode_quant(
+                     q, kq, ks, vq, vs, tables, serve, pages=serve_pages),
+                 out[-1])
     qf = randn((SLOTS, H, D), f32)
     _check("paged_flash_decode_quant fp32 [8,32,128] ctx<=4096",
            ca.paged_flash_decode_quant(qf, kq, ks, vq, vs, tables, lens,
                                        pages=ppn),
            ca.paged_flash_decode_quant_reference(qf, kq, ks, vq, vs, tables,
                                                  lens, pages=ppn),
+           atol=FP32_ATOL)
+    _check(f"paged_flash_decode_quant fp32 kv_lens {edge_host} (split edges)",
+           ca.paged_flash_decode_quant(qf, kq, ks, vq, vs, tables, edge,
+                                       pages=ppn),
+           ca.paged_flash_decode_quant_reference(qf, kq, ks, vq, vs, tables,
+                                                 edge, pages=ppn),
            atol=FP32_ATOL)
 
     # -- extend: one 476-token chunk at position 1024 ------------------------

@@ -16,46 +16,43 @@
 // 512 in bf16), and the block does G multiply-adds per dequantized element
 // (G = 4 for Llama-3-8B), far below the ~295 ops/byte line.
 //
-// Design: paged_decode.cu's (one block per (KV head, batch row), the G
-// query rows of the head, the 8-row build) with the StageInt8 policy of
-// attention_common.cuh: a tile's codes arrive 16 per 16-byte load, its
-// scales through the same block-table page, and the tile in shared memory
-// holds the dequantized values in q's dtype, so the score, softmax and PV
-// code is the bf16 kernel's. Split-K and pipelined loads are later work, as
-// for paged_decode.cu.
-#include "attention_common.cuh"
+// Design: the split-K decode body of attention_decode.cuh with the block
+// table as the cell map and the StageInt8 policy: a split's cells are looked
+// up in the block table once, when the block starts; each tile's codes
+// arrive by 16-byte cp.async and its scales by 4-byte cp.async into the
+// ring, and a code is dequantized (code * scale in fp32, rounded to q's
+// dtype) when the score or P V loop reads it.
+#include "attention_decode.cuh"
 
 namespace llmlb {
 namespace {
 
 struct DecodeQuantRows {
   const int8_t* k_pages;
-  const float* k_scales;
+  const float* k_scale_pool;
   const int8_t* v_pages;
-  const float* v_scales;
+  const float* v_scale_pool;
   const int* tables;
   int heads, kv_heads, d, groups, page_size, ppn;
   int b, kh, kv_stop;
 
   __device__ int rows() const { return groups; }
-  __device__ bool row_valid(int) const { return true; }
   __device__ size_t q_off(int r) const {
     return ((size_t)b * heads + kh * groups + r) * d;
   }
   __device__ int kv_end() const { return kv_stop; }
-  __device__ bool allowed(int, int) const { return true; }
   // index of the (position c, head kh) cell in [P, PS, K]
   __device__ size_t cell(int c) const {
     const int page = tables[(size_t)b * ppn + c / page_size];
     return ((size_t)page * page_size + c % page_size) * kv_heads + kh;
   }
-  __device__ const int8_t* k_codes(int c) const { return k_pages + cell(c) * d; }
-  __device__ const int8_t* v_codes(int c) const { return v_pages + cell(c) * d; }
-  __device__ float k_scale(int c) const { return __ldg(k_scales + cell(c)); }
-  __device__ float v_scale(int c) const { return __ldg(v_scales + cell(c)); }
+  __device__ const int8_t* k_src() const { return k_pages; }
+  __device__ const int8_t* v_src() const { return v_pages; }
+  __device__ const float* k_scales() const { return k_scale_pool; }
+  __device__ const float* v_scales() const { return v_scale_pool; }
 };
 
-template <typename T>
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_quant_kernel(const T* __restrict__ q,
                           const int8_t* __restrict__ k_pages,
@@ -64,55 +61,80 @@ paged_decode_quant_kernel(const T* __restrict__ q,
                           const float* __restrict__ v_scales,
                           const int* __restrict__ tables,
                           const int* __restrict__ kv_lens, T* __restrict__ out,
-                          int heads, int kv_heads, int d, int page_size,
-                          int ppn, int pages, float scale) {
+                          float* __restrict__ part, int heads, int kv_heads,
+                          int d, int page_size, int ppn, int sweep,
+                          float scale) {
   const int b = blockIdx.z;
-  const int stop = max(0, min(kv_lens[b], pages * page_size));
+  const int stop = max(0, min(kv_lens[b], sweep));
   DecodeQuantRows rw{k_pages, k_scales, v_pages, v_scales, tables, heads,
                      kv_heads, d, heads / kv_heads, page_size, ppn, b,
                      (int)blockIdx.y, stop};
-  attend_block<T, kDecodeRows, StageInt8>(rw, q, out, d, scale);
+  dec::decode_split<T, kRows, dec::StageInt8<T>>(rw, q, out, part, d, scale);
+}
+
+template <typename T, int kRows>
+int run_rows(const void* q, const void* k_pages, const void* k_scales,
+             const void* v_pages, const void* v_scales, const void* tables,
+             const void* kv_lens, void* out, void* part, int batch, int heads,
+             int kv_heads, int d, int page_size, int ppn, int sweep,
+             int splits, float scale, cudaStream_t stream) {
+  const int* lens = static_cast<const int*>(kv_lens);
+  T* o = static_cast<T*>(out);
+  float* p = static_cast<float*>(part);
+  return dec::launch_split<T>(
+      paged_decode_quant_kernel<T, kRows>,
+      dec::smem_bytes<kRows, dec::StageInt8<T>>(d), splits, kv_heads, batch,
+      p, lens, o, heads, d, sweep, stream, static_cast<const T*>(q),
+      static_cast<const int8_t*>(k_pages), static_cast<const float*>(k_scales),
+      static_cast<const int8_t*>(v_pages), static_cast<const float*>(v_scales),
+      static_cast<const int*>(tables), lens, o, splits == 1 ? nullptr : p,
+      heads, kv_heads, d, page_size, ppn, sweep, scale);
 }
 
 template <typename T>
 int run(const void* q, const void* k_pages, const void* k_scales,
         const void* v_pages, const void* v_scales, const void* tables,
-        const void* kv_lens, void* out, int batch, int heads, int kv_heads,
-        int d, int page_size, int ppn, int pages, float scale,
-        cudaStream_t stream) {
+        const void* kv_lens, void* out, void* part, int batch, int heads,
+        int kv_heads, int d, int page_size, int ppn, int pages, int splits,
+        float scale, cudaStream_t stream) {
   const int groups = heads / kv_heads;
-  if (groups > kDecodeRows || d % 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid(1, kv_heads, batch);
-  return launch(paged_decode_quant_kernel<T>, grid, smem_bytes<T>(groups, d),
-                stream, static_cast<const T*>(q),
-                static_cast<const int8_t*>(k_pages),
-                static_cast<const float*>(k_scales),
-                static_cast<const int8_t*>(v_pages),
-                static_cast<const float*>(v_scales),
-                static_cast<const int*>(tables),
-                static_cast<const int*>(kv_lens), static_cast<T*>(out), heads,
-                kv_heads, d, page_size, ppn, pages, scale);
+  const int sweep = pages * page_size;  // keys of the swept pages
+  if (d % 16 || splits != dec::n_splits(sweep) ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (groups <= 4)
+    return run_rows<T, 4>(q, k_pages, k_scales, v_pages, v_scales, tables,
+                          kv_lens, out, part, batch, heads, kv_heads, d,
+                          page_size, ppn, sweep, splits, scale, stream);
+  if (groups <= 8)
+    return run_rows<T, 8>(q, k_pages, k_scales, v_pages, v_scales, tables,
+                          kv_lens, out, part, batch, heads, kv_heads, d,
+                          page_size, ppn, sweep, splits, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace llmlb
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. Returns a cudaError_t
-// (0 = launched).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. part: fp32 scratch of
+// B * K * splits * G * (D + 2) floats when splits > 1 (else unused); splits
+// must be ceil(pages * PS / kSplitKeys). Returns a cudaError_t (0 =
+// launched).
 extern "C" int llmlb_paged_flash_decode_quant(
     const void* q, const void* k_pages, const void* k_scales,
     const void* v_pages, const void* v_scales, const void* tables,
-    const void* kv_lens, void* out, int batch, int heads, int kv_heads, int d,
-    int page_size, int ppn, int pages, float scale, int dtype, void* stream) {
+    const void* kv_lens, void* out, void* part, int batch, int heads,
+    int kv_heads, int d, int page_size, int ppn, int pages, int splits,
+    float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return llmlb::run<float>(q, k_pages, k_scales, v_pages, v_scales, tables,
-                             kv_lens, out, batch, heads, kv_heads, d,
-                             page_size, ppn, pages, scale, s);
+                             kv_lens, out, part, batch, heads, kv_heads, d,
+                             page_size, ppn, pages, splits, scale, s);
   if (dtype == 1)
     return llmlb::run<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales,
-                                     tables, kv_lens, out, batch, heads,
-                                     kv_heads, d, page_size, ppn, pages, scale,
-                                     s);
+                                     tables, kv_lens, out, part, batch, heads,
+                                     kv_heads, d, page_size, ppn, pages,
+                                     splits, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flash_prefill.cu", "paged_decode.cu", "paged_extend.cu",
            "paged_decode_quant.cu", "paged_extend_quant.cu", "flash_decode.cu",
            "flash_extend.cu", "lora_bgmv.cu")
-HEADERS = ("attention_common.cuh", "attention_tc.cuh")
+HEADERS = ("attention_common.cuh", "attention_tc.cuh",
+           "attention_decode.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -52,18 +53,19 @@ SIGNATURES = {
     # PS, PPN, scale, dtype, stream
     "llmlb_paged_flash_extend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _P],
-    # q, k_codes, k_scales, v_codes, v_scales, tables, kv_lens, out, B, H, K,
-    # D, PS, PPN, pages, scale, dtype, stream
-    "llmlb_paged_flash_decode_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_codes, k_scales, v_codes, v_scales, tables, kv_lens, out, part
+    # (fp32 split scratch), B, H, K, D, PS, PPN, pages, splits, scale, dtype,
+    # stream
+    "llmlb_paged_flash_decode_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k_codes, k_scales, v_codes, v_scales, tables, start_pos, chunk_lens,
     # out, B, T, H, K, D, PS, PPN, scale, dtype, stream
     "llmlb_paged_flash_extend_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k_cache, v_cache, kv_lens, out, B, H, K, D, S, sweep, scale, dtype,
-    # stream
-    "llmlb_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                           _P],
+    # q, k_cache, v_cache, kv_lens, out, part (fp32 split scratch), B, H, K,
+    # D, S, sweep, splits, scale, dtype, stream
+    "llmlb_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _I, _P],
     # q, k_cache, v_cache, start_pos, chunk_lens, out, B, T, H, K, D, S,
     # scale, dtype, stream
     "llmlb_flash_extend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

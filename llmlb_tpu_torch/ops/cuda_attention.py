@@ -19,6 +19,14 @@ Seven kernels, each a CUDA C++ source under `llmlb_tpu_torch/csrc/` built by
   slot cache [B, S, K, D], whose row b is slot b's cells in order
   (`csrc/flash_decode.cu`, `csrc/flash_extend.cu`).
 
+`flash_decode` and `paged_flash_decode_quant` run on the split-K decode body
+(`csrc/attention_decode.cuh`): each row's keys are cut into splits of
+DECODE_SPLIT_KEYS absolute positions, one block per (split, KV head, row),
+and a combine kernel merges the splits when the sweep holds more than one
+(`decode_splits`). The wrapper allocates the fp32 scratch of the partials.
+The split boundaries depend on no other row and not on the sweep, so a row
+gives the same bits alone or in a batch, under any window that covers it.
+
 In bf16, `flash_prefill` and `flash_extend` run on the tensor cores
 (`csrc/attention_tc.cuh`), built for head_dim 64 and 128 only: any other
 bf16 head_dim raises (`check_tc_head_dim`) instead of reaching another
@@ -55,7 +63,10 @@ from llmlb_tpu_torch.quant import dequantize_kv
 _NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DECODE_MAX_GROUP = 8  # kDecodeRows in csrc/attention_common.cuh
+# query heads per KV head the decode kernels take: kDecodeRows in
+# csrc/attention_common.cuh; the split-K body's largest build (4 and 8 rows)
+_DECODE_MAX_GROUP = 8
+DECODE_SPLIT_KEYS = 256  # kSplitKeys in csrc/attention_decode.cuh
 _DENSE_DECODE_BLOCK = 128  # the Pallas flash_decode's default block_k
 # head_dims of the bf16 tensor-core body's instantiations (attention_tc.cuh)
 TC_HEAD_DIMS = (64, 128)
@@ -269,8 +280,26 @@ def _route(name: str, q: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def decode_splits(sweep: int) -> int:
+    """Key splits of a split-K decode over `sweep` keys: ceil(sweep /
+    DECODE_SPLIT_KEYS), at least 1. It depends on the sweep alone (not on
+    the batch), as the kernel's split boundaries do."""
+    return max(1, -(-int(sweep) // DECODE_SPLIT_KEYS))
+
+
+def _split_scratch(q: torch.Tensor, kv_heads: int,
+                   splits: int) -> torch.Tensor | None:
+    """fp32 scratch of the split-K partials, [B, K, splits, G] x (D + 2)
+    floats (acc, m, l), or None for one split (the kernel writes out)."""
+    if splits == 1:
+        return None
+    b, h, d = q.shape
+    return torch.empty(b * kv_heads * splits * (h // kv_heads) * (d + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -383,7 +412,9 @@ def paged_flash_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
                              pages: int | None = None) -> torch.Tensor:
     """paged_flash_decode over int8 pools: q [B, H, D], codes [P, PS, K, D]
     int8, scales [P, PS, K] float32, block_tables [B, PPN] int32, kv_lens
-    [B] int32 -> [B, H, D] in q.dtype."""
+    [B] int32 -> [B, H, D] in q.dtype. On the card: the split-K kernel over
+    decode_splits(pages * PS) splits, and the combine kernel when there is
+    more than one; LAUNCHES counts the call once."""
     name = "paged_flash_decode_quant"
     if not _route(name, q):
         return paged_flash_decode_quant_reference(
@@ -410,10 +441,13 @@ def paged_flash_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    splits = decode_splits(sweep * ps)
+    part = _split_scratch(q, kh, splits)
     build.launch(name, "llmlb_paged_flash_decode_quant", q.device,
                  _ptr(q), _ptr(k_pages), _ptr(k_scales), _ptr(v_pages),
                  _ptr(v_scales), _ptr(block_tables), _ptr(kv_lens), _ptr(out),
-                 b, h, kh, d, ps, ppn, sweep, ctypes.c_float(d**-0.5), code)
+                 _ptr(part), b, h, kh, d, ps, ppn, sweep, splits,
+                 ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -460,7 +494,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  window: int | None = None) -> torch.Tensor:
     """Ragged one-token GQA decode over the dense slot cache. q [B, H, D],
     caches [B, S, K, D], kv_lens [B] int32 -> [B, H, D]. `window` (static)
-    bounds the sweep (dense_decode_sweep); the input is not sliced."""
+    bounds the sweep (dense_decode_sweep); the input is not sliced. On the
+    card: the split-K kernel over decode_splits(sweep) splits, and the
+    combine kernel when there is more than one; LAUNCHES counts the call
+    once."""
     if not _route("flash_decode", q):
         return flash_decode_reference(q, k_cache, v_cache, kv_lens,
                                       window=window)
@@ -477,12 +514,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     code = _check("flash_decode", q,
                   {"q": q, "k_cache": k_cache, "v_cache": v_cache},
                   {"kv_lens": kv_lens})
+    if d % 16:
+        raise ValueError(f"flash_decode: head_dim {d} not supported (a "
+                         "multiple of 16: four columns a thread in P V)")
     out = torch.empty_like(q)
     if q.numel() == 0 or s == 0:
         return out
+    sweep = dense_decode_sweep(s, window)
+    splits = decode_splits(sweep)
+    part = _split_scratch(q, kh, splits)
     build.launch("flash_decode", "llmlb_flash_decode", q.device,
                  _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(kv_lens),
-                 _ptr(out), b, h, kh, d, s, dense_decode_sweep(s, window),
+                 _ptr(out), _ptr(part), b, h, kh, d, s, sweep, splits,
                  ctypes.c_float(d**-0.5), code)
     return out
 
