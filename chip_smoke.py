@@ -17,13 +17,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
              scales for V; for the dense kernels the next slot's row; for
              the tensor-core prefill and extend a causal diagonal shifted by
              one key and a GQA head's output taken from its neighbour; for
-             lora_delta the next adapter's rows or the last rank column
-             left out; for the split-K decodes a lost partial, the keys of
-             the second split left out), hold the split-K flash_decode and
-             paged_flash_decode_quant at kv_lens on the split edges and
+             lora_delta the next adapter's rows, the last rank column or
+             one cluster rank's partial left out; for the split-K decodes a
+             lost partial, the keys of the second split left out), hold the
+             three split-K decodes (flash_decode, paged_flash_decode,
+             paged_flash_decode_quant) at kv_lens on the split edges and
              bit for bit across batch (a row alone and in the batch of 8)
-             and sweep (4096 and 256 keys), time the three decode kernels
-             at the serving shape too (8 rows near 160 keys, window 256),
+             and sweep (4096 and 256 keys), hold lora_delta's two modes
+             (the fp32 delta; the delta added into a projection output in
+             place, bit for bit y + delta.to(dtype)), time the three decode
+             kernels at the serving shape too (8 rows near 160 keys, window
+             256), with torch.profiler's device time beside the events,
              hold the tensor-core prefill and extend in bf16 at
              head_dim 64 with GQA groups of 7 and 8 (Qwen2.5-0.5B,
              TinyLlama) and an extend start inside a key tile, and time
@@ -40,7 +44,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the chunked path, a repeat whose text must match, then
              token-level determinism, TTFT and decode rate on the same core.
              Each kernel of the path launches over this phase; the int8
-             kernels do not.
+             kernels do not. Then batch_invariance (C1): on the same
+             weights, the timed prompt's prefill logits alone and as row 0
+             of groups of 2, 4 and 8 other prompts of its bucket, through
+             the entry point the scheduler's group prefill calls, equal bit
+             for bit (on a difference the first op whose row 0 differs is
+             named); this runs after each serve phase below too.
 7. serve int8 — the same with quantize="all": the same seed-0 weights
              quantized on the card, int8 KV pages; flash_prefill and the two
              int8 kernels launch, the bf16 paged kernels do not, and the
@@ -49,10 +58,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (two adapters written by the port's save_adapter): HTTP traffic
              mixing the base model, the `lora` field and `model:adapter`
              names; the adapter-free timed prompt's greedy ids equal the
-             bf16 run's, an adapter's differ, lora_delta and the paged
-             kernels launch, adapter refcounts drain to {}.
+             bf16 run's, an adapter's differ, a mixed batch's rows equal
+             their solo runs for 32 of 32 tokens, lora_delta and the paged
+             kernels launch, adapter refcounts drain to {}; batch
+             invariance with mixed adapters.
 9. serve dense — the bf16 traffic with kv_layout="dense": flash_prefill,
-             flash_decode and flash_extend launch, no paged kernel does.
+             flash_decode and flash_extend launch, no paged kernel does, and
+             the timed prompt's 64 greedy tokens equal the paged bf16 run's
+             (else the first op whose row 0 differs between the two
+             layouts' entry points is named).
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -98,6 +112,10 @@ LORA_REL = 1e-4
 # fp32 logits of the 8B vocab projection: fp32 sums of 4096 exact bf16
 # products in another order than the fp32 product's (logits ~ N(0, 1))
 UNEMBED_ATOL = 1e-3
+# kernel names torch.profiler reports for each split-K decode's launches
+PAGED_DECODE_MARKS = ("paged_decode_kernel", "decode_combine_kernel")
+QUANT_DECODE_MARKS = ("paged_decode_quant_kernel", "decode_combine_kernel")
+DENSE_DECODE_MARKS = ("flash_decode_kernel", "decode_combine_kernel")
 
 
 def log(msg: str) -> None:
@@ -350,13 +368,26 @@ def phase_kernels() -> list[dict]:
     if not torch.equal(_plain(torch, q[:, None], kc, vc, mask)[:, 0], want):
         raise AssertionError("paged_flash_decode: the mutants' mask is not "
                              "the plain version's")
+    sk = ca.DECODE_SPLIT_KEYS
     for what, drop in (("page 5", (5 * PAGE, 6 * PAGE, [0])),
-                       ("last key tile", (4096 - 64, 4096, [0]))):
+                       ("last key tile", (4096 - 64, 4096, [0])),
+                       (f"keys [{sk}, {2 * sk}) (a lost partial)",
+                        (sk, 2 * sk, [0]))):
         _must_fail(f"paged_flash_decode bf16, {what} of the 4096-token row "
                    "dropped",
                    _plain(torch, q[:, None], kc, vc, mask, drop)[:, 0], want,
                    rel=BF16_REL)
     del kc, vc
+    edge_host = _edge_lens(ca)
+    edge = torch.tensor(edge_host, dtype=torch.int32, device="cuda")
+    _check(f"paged_flash_decode bf16 kv_lens {edge_host} (split edges)",
+           ca.paged_flash_decode(q, kp, vp, tables, edge, pages=ppn),
+           ca.paged_flash_decode_reference(q, kp, vp, tables, edge, pages=ppn),
+           rel=BF16_REL)
+    _bitwise(torch, "paged_flash_decode bf16",
+             lambda rows_, sweep: ca.paged_flash_decode(
+                 q[rows_].contiguous(), kp, vp, tables[rows_].contiguous(),
+                 edge[rows_].contiguous(), pages=sweep // PAGE), edge_host)
     kv_cells = sum(lens_host)
     table_reads = sum(-(-n // PAGE) for n in lens_host)
     nbytes = (kv_cells * KV * D * 2 * 2 + 2 * q.numel() * 2
@@ -371,13 +402,20 @@ def phase_kernels() -> list[dict]:
                                                  pages=ppn), 50),
         ms_cold=cuda_ms_cold(lambda: ca.paged_flash_decode(
             q, kp, vp, tables, lens, pages=ppn), 20),
+        dev_ms=profiled_ms(lambda: ca.paged_flash_decode(
+            q, kp, vp, tables, lens, pages=ppn), 20, PAGED_DECODE_MARKS),
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_reference(
             q, kp, vp, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
     serve = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
     serve_pages = SERVE_WINDOW // PAGE
+    _check(f"paged_flash_decode bf16 kv_lens {SERVE_LENS} pages {serve_pages}",
+           ca.paged_flash_decode(q, kp, vp, tables, serve, pages=serve_pages),
+           ca.paged_flash_decode_reference(q, kp, vp, tables, serve,
+                                           pages=serve_pages), rel=BF16_REL)
     _serve_times(torch, "paged_flash_decode", lambda: ca.paged_flash_decode(
-        q, kp, vp, tables, serve, pages=serve_pages), rows[-1])
+        q, kp, vp, tables, serve, pages=serve_pages), rows[-1],
+        PAGED_DECODE_MARKS)
 
     # -- paged_flash_extend: the last 476-token chunk of a 1500-token prompt --
     t, start_host, chunk_host = 512, 1024, 476
@@ -443,6 +481,10 @@ def phase_kernels() -> list[dict]:
            ca.paged_flash_decode(q, kp, vp, tables, lens, pages=ppn),
            ca.paged_flash_decode_reference(q, kp, vp, tables, lens, pages=ppn),
            atol=FP32_ATOL)
+    _check(f"paged_flash_decode fp32 kv_lens {edge_host} (split edges)",
+           ca.paged_flash_decode(q, kp, vp, tables, edge, pages=ppn),
+           ca.paged_flash_decode_reference(q, kp, vp, tables, edge, pages=ppn),
+           atol=FP32_ATOL)
     q = randn((1, t, H, D), f32)
     _check("paged_flash_extend fp32 [1,512,32,128] start 1024",
            ca.paged_flash_extend(q, kp, vp, tab1, start, chunk),
@@ -484,9 +526,10 @@ def phase_kernels() -> list[dict]:
                + (f", {r['library_ms_cold']:.4f} ms L2 cold"
                   if "library_ms_cold" in r else ""))
         cold = (f", {r['ms_cold']:.4f} ms L2 cold" if "ms_cold" in r else "")
+        cold += (f", device {r['dev_ms']:.4f} ms" if "dev_ms" in r else "")
         serve = (f"; serve shape {r['serve_ms']:.4f} ms warm, "
-                 f"{r['serve_ms_cold']:.4f} ms L2 cold" if "serve_ms" in r
-                 else "")
+                 f"{r['serve_ms_cold']:.4f} ms L2 cold, device "
+                 f"{r['serve_dev_ms']:.4f} ms" if "serve_ms" in r else "")
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms warm{cold}, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}){serve}")
@@ -598,14 +641,17 @@ def _bitwise(torch, name, run, lens_host) -> None:
         f"under sweeps {CAPACITY} and {SERVE_WINDOW}, bit for bit")
 
 
-def _serve_times(torch, name, call, row) -> None:
-    """Time `call` (the kernel at the serve phases' decode shape) warm and
-    with the L2 cold, into row["serve_ms"], row["serve_ms_cold"]."""
+def _serve_times(torch, name, call, row, marks) -> None:
+    """Time `call` (the kernel at the serve phases' decode shape) warm, with
+    the L2 cold and in device time (the kernels named by `marks`), into
+    row["serve_ms"], row["serve_ms_cold"], row["serve_dev_ms"]."""
     row["serve_ms"] = cuda_ms(call, 50)
     row["serve_ms_cold"] = cuda_ms_cold(call, 20)
+    row["serve_dev_ms"] = profiled_ms(call, 20, marks)
     log(f"  {name} at the serve shape (kv_lens {SERVE_LENS}, sweep "
         f"{SERVE_WINDOW}): kernel {row['serve_ms']:.4f} ms warm, "
-        f"{row['serve_ms_cold']:.4f} ms L2 cold")
+        f"{row['serve_ms_cold']:.4f} ms L2 cold, device "
+        f"{row['serve_dev_ms']:.4f} ms")
 
 
 def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
@@ -671,6 +717,9 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
                                            window=CAPACITY), 50),
         ms_cold=cuda_ms_cold(lambda: ca.flash_decode(q, kc, vc, lens,
                                                      window=CAPACITY), 20),
+        dev_ms=profiled_ms(lambda: ca.flash_decode(q, kc, vc, lens,
+                                                   window=CAPACITY), 20,
+                           DENSE_DECODE_MARKS),
         plain_ms=cuda_ms(lambda: ca.flash_decode_reference(
             q, kc, vc, lens, window=CAPACITY), 5),
         bound_ms=bms, bound_by=by,
@@ -682,7 +731,7 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
            ca.flash_decode_reference(q, kc, vc, serve, window=SERVE_WINDOW),
            rel=BF16_REL)
     _serve_times(torch, "flash_decode", lambda: ca.flash_decode(
-        q, kc, vc, serve, window=SERVE_WINDOW), out[-1])
+        q, kc, vc, serve, window=SERVE_WINDOW), out[-1], DENSE_DECODE_MARKS)
     qf = randn((SLOTS, H, D), f32)
     kf, vf = kc.float(), vc.float()
     _check("flash_decode fp32 [8,32,128] cache [8,4096,8,128]",
@@ -773,10 +822,14 @@ def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
 
 def _lora_kernel(torch, gen) -> list[dict]:
     """lora_delta at Llama-3-8B's four projection shapes, 9 pool rows (8
-    adapters and the identity) at rank 16, decode (8, 1) and prefill
-    (8, 512) rows, bf16 and fp32 against the plain version, the mutants the
-    limit must reject, an all-identity batch that must give exactly +0.0,
-    fp32 at debug-tiny widths, timings."""
+    adapters and the identity) at rank 16, decode (8, 1) and prefill (8, 128)
+    rows, and (8, 512) timed: mode (a), the fp32 delta, against the plain
+    version; mode (b), the delta added into a projection output y in place,
+    bit for bit against y + mode (a) rounded (and within the bf16 limit of
+    y + the plain delta rounded); the mutants the limit must reject (the
+    next adapter's rows, the last rank column, one cluster rank's partial
+    left out); an all-identity batch (+0.0 in mode a, y + 0.0 in mode b);
+    fp32 at the same and at debug-tiny widths; timings of both modes."""
     from llmlb_tpu_torch.engine.presets import get_preset
     from llmlb_tpu_torch.lora import lora_target_dims
     from llmlb_tpu_torch.ops import lora
@@ -786,6 +839,7 @@ def _lora_kernel(torch, gen) -> list[dict]:
     rank, n_rows = 16, 9
     idx_host = [0, 3, 1, 0, 8, 2, 2, 5]
     idx = torch.tensor(idx_host, dtype=torch.int32, device="cuda")
+    marks = ("bgmv_cluster_kernel",)
 
     def pools(in_dim, out_dim, dtype, rank=rank, n_rows=n_rows):
         a = torch.randn((n_rows, in_dim, rank), generator=gen,
@@ -799,20 +853,46 @@ def _lora_kernel(torch, gen) -> list[dict]:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    def both_modes(tag, x, a, b, ix, y, rel):
+        """Mode (a) against the plain version, mode (b) bit for bit against
+        y + mode (a) rounded; returns (mode a's max error, the delta)."""
+        got = lora.lora_delta(x, a, b, ix)
+        want = lora.lora_delta_reference(x, a, b, ix)
+        fused = lora.lora_delta_add(y.clone(), x, a, b, ix)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{tag}: output is {got.dtype}")
+        err = _check(f"{tag} mode (a)", got, want, rel=rel)
+        if not torch.equal(fused, y + got.to(y.dtype)):
+            raise AssertionError(f"{tag}: mode (b) is not y + delta.to(dtype) "
+                                 "bit for bit")
+        plain = y + want.to(y.dtype)
+        differ = int((fused != plain).sum())
+        _check(f"{tag} mode (b) against y + plain delta ({differ} of "
+               f"{plain.numel()} elements differ from it by a rounding)",
+               fused, plain, rel=BF16_REL if y.dtype == bf16 else rel)
+        log(f"  {tag} mode (b): bit for bit y + mode (a).to({y.dtype})")
+        return err, got
+
     row = None
     dims = lora_target_dims(cfg, ("wq", "wk", "wg", "wd"))
     for tgt, (in_dim, out_dim) in dims.items():
         a, b = pools(in_dim, out_dim, bf16)
-        for t in (1, 512):
+        for t in (1, 128, 512):
             x = randn((SLOTS, t, in_dim), bf16)
-            got = lora.lora_delta(x, a, b, idx)
-            want = lora.lora_delta_reference(x, a, b, idx)
-            torch.cuda.synchronize()
+            y = randn((SLOTS, t, out_dim), bf16)
             tag = f"lora_delta bf16 {tgt} x [8,{t},{in_dim}] -> {out_dim}"
-            err = _check(tag, got, want, rel=LORA_REL)
-            if got.dtype != torch.float32:
-                raise AssertionError(f"{tag}: output is {got.dtype}")
-            if t == 1 and tgt == "wg":
+            err, got = both_modes(tag, x, a, b, idx, y, LORA_REL)
+            want = lora.lora_delta_reference(x, a, b, idx)
+            if tgt == "wg" and t in (1, 128):
+                plan = lora.lora_plan(t, in_dim, out_dim)
+                lo, hi = plan["in"][3]
+                x_cut = x.clone()
+                x_cut[..., lo:hi] = 0
+                _must_fail(f"{tag}, cluster rank 3's partial (IN [{lo}, {hi})"
+                           f" of {plan['cluster']} slices) left out",
+                           lora.lora_delta_reference(x_cut, a, b, idx), want,
+                           rel=LORA_REL)
                 _must_fail(f"{tag}, row i reading adapter idx_i + 1",
                            lora.lora_delta_reference(x, a, b, (idx + 1) % n_rows),
                            want, rel=LORA_REL)
@@ -821,42 +901,59 @@ def _lora_kernel(torch, gen) -> list[dict]:
                 _must_fail(f"{tag}, the last rank column dropped",
                            lora.lora_delta_reference(x, a_cut, b, idx), want,
                            rel=LORA_REL)
-                zero = lora.lora_delta(x, a, b, torch.zeros_like(idx))
+                zeros = torch.zeros_like(idx)
+                zero = lora.lora_delta(x, a, b, zeros)
                 if not (torch.equal(zero, torch.zeros_like(zero))
                         and not torch.signbit(zero).any()):
                     raise AssertionError("lora_delta: the identity row's delta "
                                          "is not exactly +0.0")
-                log(f"  {tag}, idx all 0: delta exactly +0.0")
-                ms = cuda_ms(lambda: lora.lora_delta(x, a, b, idx), 50)
-                # back to back, a call this short is bound by the host's
-                # launch path; the profiler gives the two kernels' own time
-                dev_ms = profiled_ms(lambda: lora.lora_delta(x, a, b, idx),
-                                     50, ("shrink_kernel", "expand_kernel"))
-                log(f"  {tag}: device time of its two kernels "
-                    f"{dev_ms:.4f} ms a call (torch.profiler)")
-                # x once, the 7 distinct rows the batch selects once, the
-                # fp32 output once; two products per (row, position)
+                y0 = y.clone()
+                y0[..., :4] = -0.0
+                if not torch.equal(lora.lora_delta_add(y0.clone(), x, a, b,
+                                                       zeros), y0 + 0.0):
+                    raise AssertionError("lora_delta_add: the identity rows "
+                                         "are not y + 0.0")
+                log(f"  {tag}, idx all 0: delta exactly +0.0, mode (b) y + 0.0")
+            ms_a = cuda_ms(lambda: lora.lora_delta(x, a, b, idx), 50)
+            ms_b = cuda_ms(lambda: lora.lora_delta_add(y, x, a, b, idx), 50)
+            # back to back, a call this short is bound by the host's launch
+            # path; the profiler gives the kernel's own time
+            dev_a = profiled_ms(lambda: lora.lora_delta(x, a, b, idx), 20,
+                                marks)
+            dev_b = profiled_ms(lambda: lora.lora_delta_add(y, x, a, b, idx),
+                                20, marks)
+            log(f"  {tag}: mode (a) {ms_a:.4f} ms warm, device {dev_a:.4f} ms; "
+                f"mode (b) {ms_b:.4f} ms warm, device {dev_b:.4f} ms")
+            if t == 1 and tgt == "wg":
+                # the main path's call: mode (b). Its least work: x once, the
+                # 7 distinct rows the batch selects once, y read and written
+                # once; two products per (row, position)
                 distinct = len(set(idx_host))
                 nbytes = (x.numel() * 2 + distinct * rank * (in_dim + out_dim)
-                          * 2 + SLOTS * t * out_dim * 4 + SLOTS * 4)
+                          * 2 + 2 * y.numel() * 2 + SLOTS * 4)
                 bms, by = bound_ms(nbytes, 2 * SLOTS * t * rank
                                    * (in_dim + out_dim), PEAK_BF16_FLOPS)
+                nbytes_a = nbytes - 2 * y.numel() * 2 + SLOTS * t * out_dim * 4
                 row = dict(
                     name="lora_delta", route="cuda",
                     source="llmlb_tpu_torch/csrc/lora_bgmv.cu",
                     replaces="llmlb_tpu/ops/lora.py:87", max_abs_err=err,
-                    ms=ms, plain_ms=cuda_ms(lambda: lora.lora_delta_reference(
-                        x, a, b, idx), 5),
+                    ms=ms_b, dev_ms=dev_b,
+                    ms_cold=cuda_ms_cold(
+                        lambda: lora.lora_delta_add(y, x, a, b, idx), 20),
+                    mode_a_ms=ms_a, mode_a_dev_ms=dev_a,
+                    mode_a_bound_ms=bound_ms(nbytes_a, 0, PEAK_BF16_FLOPS)[0],
+                    plain_ms=cuda_ms(lambda: y + lora.lora_delta_reference(
+                        x, a, b, idx).to(bf16), 5),
                     bound_ms=bms, bound_by=by, library_ms=None)
-            else:
-                ms = cuda_ms(lambda: lora.lora_delta(x, a, b, idx), 10)
-            log(f"  {tag}: kernel {ms:.4f} ms (CUDA events, back to back)")
-            del x, got, want
+                log(f"  lora_delta at the decode shape (wg, mode b): bound "
+                    f"{bms:.5f} ms ({by}); mode (a) bound "
+                    f"{row['mode_a_bound_ms']:.5f} ms")
+            del x, y, got, want
         af, bf = a.float(), b.float()
         xf = randn((SLOTS, 1, in_dim), f32)
-        _check(f"lora_delta fp32 {tgt} x [8,1,{in_dim}] -> {out_dim}",
-               lora.lora_delta(xf, af, bf, idx),
-               lora.lora_delta_reference(xf, af, bf, idx), rel=LORA_REL)
+        both_modes(f"lora_delta fp32 {tgt} x [8,1,{in_dim}] -> {out_dim}",
+                   xf, af, bf, idx, randn((SLOTS, 1, out_dim), f32), LORA_REL)
         del a, b, af, bf, xf
     # fp32 at debug-tiny's widths (hidden 128, KV 64, ffn 256), rank 8
     tiny = get_preset("debug-tiny")
@@ -865,9 +962,9 @@ def _lora_kernel(torch, gen) -> list[dict]:
         a, b = pools(in_dim, out_dim, f32, rank=8, n_rows=3)
         x = randn((5, 7, in_dim), f32)
         ix = torch.tensor([0, 1, 2, 1, 0], dtype=torch.int32, device="cuda")
-        _check(f"lora_delta fp32 debug-tiny {tgt} x [5,7,{in_dim}] -> "
-               f"{out_dim}", lora.lora_delta(x, a, b, ix),
-               lora.lora_delta_reference(x, a, b, ix), rel=LORA_REL)
+        both_modes(f"lora_delta fp32 debug-tiny {tgt} x [5,7,{in_dim}] -> "
+                   f"{out_dim}", x, a, b, ix, randn((5, 7, out_dim), f32),
+                   LORA_REL)
     return [row]
 
 
@@ -954,6 +1051,9 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 50),
         ms_cold=cuda_ms_cold(lambda: ca.paged_flash_decode_quant(
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 20),
+        dev_ms=profiled_ms(lambda: ca.paged_flash_decode_quant(
+            q, kq, ks, vq, vs, tables, lens, pages=ppn), 20,
+            QUANT_DECODE_MARKS),
         plain_ms=cuda_ms(lambda: ca.paged_flash_decode_quant_reference(
             q, kq, ks, vq, vs, tables, lens, pages=ppn), 5),
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -982,7 +1082,7 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
     _serve_times(torch, "paged_flash_decode_quant",
                  lambda: ca.paged_flash_decode_quant(
                      q, kq, ks, vq, vs, tables, serve, pages=serve_pages),
-                 out[-1])
+                 out[-1], QUANT_DECODE_MARKS)
     qf = randn((SLOTS, H, D), f32)
     _check("paged_flash_decode_quant fp32 [8,32,128] ctx<=4096",
            ca.paged_flash_decode_quant(qf, kq, ks, vq, vs, tables, lens,
@@ -1291,6 +1391,184 @@ ADAPTERS = (("acme", 8, ("wq", "wk", "wv", "wo")),
 ADAPTER_SCALE = 0.03
 
 
+# Ops of the model whose row-0 outputs _first_difference compares, and the
+# label each gets (the projections are labelled by their weight's name).
+TRACED_OPS = {"rms_norm": "norm", "_proj": None, "apply_rope": "rope",
+              "gqa_attention_prefill": "attention",
+              "gqa_attention_decode": "attention",
+              "paged_attention_decode": "attention", "_unembed": "unembed"}
+# the prefill group sizes the batch_invariance phase holds row 0 across
+GROUPS = (1, 2, 4, 8)
+
+
+def _traced(run) -> list[tuple[str, object]]:
+    """Run `run()` with the model's ops in TRACED_OPS wrapped to record
+    (where, a copy of batch row 0 of the op's output), in call order.
+    `where` names the entry-point call (counted by its unembed), the layer
+    (counted by its two norms, ln_attn and ln_mlp) and the op."""
+    from llmlb_tpu_torch.models import llama
+
+    records = []
+    state = {"call": 0, "norms": 0, "unembed": False}
+    saved = {name: getattr(llama, name) for name in TRACED_OPS}
+
+    def wrap(name, fn):
+        def inner(*args, **kwargs):
+            if name == "_unembed":
+                state["unembed"] = True
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                state["unembed"] = False
+            tag = args[1] if name == "_proj" else TRACED_OPS[name]
+            if name == "rms_norm" and not state["unembed"]:
+                state["norms"] += 1
+                tag = ("ln_attn", "ln_mlp")[(state["norms"] - 1) % 2]
+            elif name == "rms_norm":
+                tag = "ln_final"
+            where = (f"entry-point call {state['call']}, layer "
+                     f"{(state['norms'] - 1) // 2}, {tag}")
+            if name in ("_unembed", "rms_norm") and tag in ("unembed",
+                                                             "ln_final"):
+                where = f"entry-point call {state['call']}, {tag}"
+            records.append((where, out[0].detach().clone()))
+            if name == "_unembed":
+                state["call"] += 1
+                state["norms"] = 0
+            return out
+        return inner
+
+    try:
+        for name, fn in saved.items():
+            setattr(llama, name, wrap(name, fn))
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(llama, name, fn)
+    return records
+
+
+def _first_difference(run_a, run_b) -> str:
+    """The first op (in call order) whose row-0 output differs bit for bit
+    between two runs of the model's entry points, as _traced records them."""
+    import torch
+
+    a, b = _traced(run_a), _traced(run_b)
+    for (wa, xa), (wb, xb) in zip(a, b):
+        if wa != wb:
+            return f"the runs call different ops: {wa} / {wb}"
+        if xa.shape != xb.shape:
+            return f"{wa}: shapes {tuple(xa.shape)} / {tuple(xb.shape)}"
+        if not torch.equal(xa, xb):
+            diff = (xa.float() - xb.float()).abs().max().item()
+            return (f"{wa}: row 0 first differs here (max |diff| {diff:.3e}, "
+                    f"{int((xa != xb).sum())} of {xa.numel()} elements)")
+    if len(a) != len(b):
+        return f"the runs call {len(a)} and {len(b)} traced ops"
+    return "no traced op differs in row 0 (the difference is elsewhere)"
+
+
+def phase_batch_invariance(core, prompts: list[list[int]], label: str,
+                           lora_rows: list[int] | None) -> None:
+    """C1: row 0's prefill logits do not depend on the group it is prefilled
+    with. The serve phases' timed prompt (124 tokens, bucket 128) goes
+    (prompts[0]) goes through the entry point `_prefill_group` calls
+    (prefill_into_pages, or prefill_into_slots for the dense layout) alone
+    and as row 0 of groups of 2, 4 and 8 whose other rows are other prompts
+    of the same bucket (prompts[1:]);
+    its last-position logits must be equal bit for bit. The KV lands in the
+    trash page (paged) or the idle slots (dense): the engine is idle. With
+    `lora_rows`, row i takes adapter pool row lora_rows[i]. On a difference
+    the first op whose row 0 differs is reported."""
+    import numpy as np
+    import torch
+
+    from llmlb_tpu_torch.models import llama
+
+    bucket = 128
+    ids_all = np.zeros((max(GROUPS), bucket), np.int64)
+    lens_all = np.zeros((max(GROUPS),), np.int32)
+    for i, p in enumerate(prompts[:max(GROUPS)]):
+        if not 64 < len(p) <= bucket:
+            raise AssertionError(f"prompt {i} has {len(p)} tokens, not in the "
+                                 f"{bucket} bucket")
+        ids_all[i, :len(p)] = p
+        lens_all[i] = len(p)
+
+    def run(g):
+        ids = torch.from_numpy(ids_all[:g]).cuda()
+        lens = torch.from_numpy(lens_all[:g]).cuda()
+        lidx = (None if lora_rows is None else
+                torch.tensor(lora_rows[:g], dtype=torch.int32, device="cuda"))
+        if core.page_pool is not None:
+            tables = torch.zeros((g, core._block_tables.shape[1]),
+                                 dtype=torch.int32, device="cuda")
+            return llama.prefill_into_pages(core.params, core.cfg, ids, lens,
+                                            tables, core.cache_k, core.cache_v,
+                                            lora_idx=lidx)[0]
+        slots = torch.arange(g, device="cuda")
+        return llama.prefill_into_slots(core.params, core.cfg, ids, lens,
+                                        slots, core.cache_k, core.cache_v,
+                                        lora_idx=lidx)[0]
+
+    solo = run(1)
+    for g in GROUPS[1:]:
+        grouped = run(g)
+        torch.cuda.synchronize()
+        if not torch.equal(grouped[0], solo[0]):
+            where = _first_difference(lambda: run(1), lambda: run(g))
+            raise AssertionError(
+                f"batch_invariance {label}: row 0's logits alone and in a "
+                f"group of {g} differ (max |diff| "
+                f"{(grouped[0] - solo[0]).abs().max().item():.3e}); {where}")
+    log(f"batch_invariance {label}: row 0's prefill logits bit-identical "
+        f"alone and in groups of {list(GROUPS[1:])}"
+        + ("" if lora_rows is None else
+           f" (adapter pool rows {lora_rows[:max(GROUPS)]})"))
+
+
+def _dense_paged_report(core, prompt: list[int]) -> str:
+    """Why the dense engine's greedy stream parts from the paged one's: the
+    timed prompt's prefill and first decode step through the dense entry
+    points (the dense engine's idle slot 0) and through the paged ones (a
+    temporary 3-page pool: the trash page and the row's two), with the same
+    weights, traced op by op on row 0."""
+    import torch
+
+    from llmlb_tpu_torch.models import llama
+
+    cfg, params = core.cfg, core.params
+    n = len(prompt)
+    ids = torch.zeros((1, 128), dtype=torch.int64, device="cuda")
+    ids[0, :n] = torch.tensor(prompt, device="cuda")
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+    ck, cv = llama.init_kv_pages(cfg, 3, PAGE, "cuda")
+    tables = torch.zeros((SLOTS, 2), dtype=torch.int32, device="cuda")
+    tables[0] = torch.tensor([1, 2])
+    seq = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
+    seq[0] = n
+
+    def paged():
+        logits = llama.prefill_into_pages(params, cfg, ids, lens, tables[:1],
+                                          ck, cv)[0]
+        toks = torch.zeros(SLOTS, dtype=torch.int64, device="cuda")
+        toks[0] = logits[0].argmax()
+        llama.decode_step_paged(params, cfg, toks, seq, ck, cv, tables,
+                                window=SERVE_WINDOW)
+
+    def dense():
+        logits = llama.prefill_into_slots(
+            params, cfg, ids, lens, torch.zeros(1, dtype=torch.int64,
+                                                device="cuda"),
+            core.cache_k, core.cache_v)[0]
+        toks = torch.zeros(SLOTS, dtype=torch.int64, device="cuda")
+        toks[0] = logits[0].argmax()
+        llama.decode_step(params, cfg, toks, seq, core.cache_k, core.cache_v,
+                          window=SERVE_WINDOW)
+
+    return _first_difference(paged, dense)
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None, **core_kwargs) -> dict:
     """Serve Llama-3-8B at full width and depth, random weights from seed 0,
@@ -1392,23 +1670,32 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 raise AssertionError("an adapter-free request differs from the "
                                      "LoRA-free engine's: the identity row "
                                      "must add exactly 0.0")
+            if core_kwargs.get("kv_layout") == "dense" and ids1 != bf16_ids:
+                raise AssertionError(
+                    f"the dense stream parts from the paged bf16 one after "
+                    f"{agree} of {len(ids1)} greedy tokens; "
+                    f"{_dense_paged_report(core, prompt)}")
         if lora:
             acme, _, _ = _timed_core_request(core, prompt, 64, lora="acme")
             if acme == ids1:
                 raise AssertionError("adapter acme changed no greedy token")
-            # a mixed batch against each row's solo run (logged, not
-            # asserted: cuBLAS may round a 1-row and a 4-row prefill apart)
+            # a mixed batch against each row's solo run: every row's tokens
+            # are its solo run's (a row's prefill and decode do not depend
+            # on the rows it shares a dispatch with)
             mix = [None, "acme", "beta", "acme"]
             solo = [_timed_core_request(core, prompt[:-1] + [i], 32, name)[0]
                     for i, name in enumerate(mix)]
             batch = _concurrent([lambda i=i, name=name: _timed_core_request(
                 core, prompt[:-1] + [i], 32, name)[0]
                 for i, name in enumerate(mix)])
+            shared = [_shared(a, b) for a, b in zip(batch, solo)]
             log(f"serve {label}: acme's greedy ids share the first "
                 f"{_shared(acme, ids1)} of 64 with the base model's; mixed "
-                f"batch {mix} rows share "
-                f"{[_shared(a, b) for a, b in zip(batch, solo)]} of 32 "
-                "tokens with their solo runs")
+                f"batch {mix} rows share {shared} of 32 tokens with their "
+                "solo runs")
+            if shared != [32] * len(mix):
+                raise AssertionError(f"mixed batch {mix}: rows share {shared} "
+                                     "of 32 tokens with their solo runs")
             info = core.lora_info()
             if info["active"] != {}:
                 raise AssertionError(f"adapter refcounts left: {info['active']}")
@@ -1428,6 +1715,16 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         stray = [k for k, n in launches.items() if k not in path and n]
         if stray:
             raise AssertionError(f"kernels of another path launched: {stray}")
+        # C1, on this configuration's weights, with the engine idle
+        prompts = [prompt] + [engine.encode_chat(
+            [{"role": "user", "content": f"Prompt {i}: " + "y" * (70 + 3 * i)}])
+            for i in range(1, max(GROUPS))]
+        lora_rows = None
+        if lora:
+            lora_rows = [core.lora.slot_of(n) for n in
+                         ("beta", "acme", None, "beta", "acme", None, "beta",
+                          "acme")]
+        phase_batch_invariance(core, prompts, label, lora_rows)
     finally:
         server.shutdown()
         server.server_close()

@@ -1,6 +1,8 @@
-// Shared tile machinery of the attention kernels (flash_prefill.cu,
-// paged_decode.cu, paged_extend.cu, and the int8-pool paged_decode_quant.cu
-// and paged_extend_quant.cu).
+// Shared tile machinery of the attention kernels: the CUDA-core block body
+// `attend_block` of paged_extend.cu, paged_extend_quant.cu and the fp32
+// flash_prefill.cu and flash_extend.cu, and the constants and conversions
+// the tensor-core (attention_tc.cuh) and split-K decode
+// (attention_decode.cuh) bodies share.
 //
 // One thread block owns a set of query ROWS that share one KV head: the G
 // query heads of a GQA group, times a tile of query positions (the Pallas
@@ -40,7 +42,6 @@ namespace llmlb {
 constexpr int kThreads = 256;  // threads per block
 constexpr int kTileK = 64;     // key positions staged per tile
 constexpr int kMaxRows = 64;   // query rows per block (positions x group)
-constexpr int kDecodeRows = 8; // query rows of a decode block: one GQA group
 constexpr int kMaxD = 128;     // largest head_dim the kernels take
 constexpr int kSStride = kTileK + 1;  // padded score row (floats)
 constexpr float kNegInf = -1e30f;
@@ -161,10 +162,9 @@ struct StageInt8 {
   }
 };
 
-// The block body shared by all the kernels. kRows bounds the block's rows
-// at compile time and sizes the per-thread register arrays: the prefill and
-// extend blocks fill 64 rows, a decode block holds one GQA group (G <= 8), so
-// its loops run over 4 accumulators and 2 score rows, not 32 and 16.
+// The CUDA-core block body. kRows bounds the block's rows at compile time
+// and sizes the per-thread register arrays: the prefill and extend blocks
+// fill 64 rows.
 // `Rows` supplies:
 //   int rows()                  number of query rows of this block (<= kMaxRows)
 //   bool row_valid(int r)       the row exists (last position tile may be short)

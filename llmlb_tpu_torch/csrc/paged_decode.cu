@@ -14,18 +14,17 @@
 // V) elements of the pool once and does only G multiply-adds per element read
 // (G = 4 for Llama-3-8B), far below the ~295 ops/byte line.
 //
-// Design: one block per (KV head, batch row) holding the G query rows of that
-// head, so every K/V element is read from device memory exactly once. The
-// block reads the block table itself and stages 64 positions of K and V per
-// tile with 16-byte loads. Pages past kv_len, and past the `pages` bound, are
-// never read. The block is built with an 8-row bound (GQA groups up to 8, all
-// the presets have), so a thread's loops cover its few rows and no
-// predicated-off work (the 64-row build of the prefill kernels spent most of
-// its issue slots on rows a decode block does not have). At 8 slots x 8 KV heads this is 64 blocks, half of the 132 SMs,
-// and each block loads and computes in turn with no overlap: splitting the
-// key range across blocks (split-K) and pipelining the loads are the next
-// steps for this kernel.
-#include "attention_common.cuh"
+// Design: the split-K decode body of attention_decode.cuh with the block
+// table as the cell map and the StagePlain policy, as flash_decode.cu runs it
+// over the dense cache: one block per (split of kSplitKeys keys, KV head,
+// row), a split's cells looked up in the block table once when the block
+// starts (one table read per key, cached as unsigned cell indices: the
+// wrapper refuses a pool of 2^32 (position, KV head) cells or more), K and
+// V tiles copied by 16-byte cp.async into a 2-stage ring, and the combine
+// kernel when the sweep holds more than one split. The same body and
+// numerics as flash_decode, so a row gives the same bits through the pages
+// as through the dense slot cache holding the same keys.
+#include "attention_decode.cuh"
 
 namespace llmlb {
 namespace {
@@ -39,68 +38,92 @@ struct DecodeRows {
   int b, kh, kv_stop;
 
   __device__ int rows() const { return groups; }
-  __device__ bool row_valid(int) const { return true; }
   __device__ size_t q_off(int r) const {
     return ((size_t)b * heads + kh * groups + r) * d;
   }
   __device__ int kv_end() const { return kv_stop; }
-  __device__ bool allowed(int, int) const { return true; }
+  // index of the (position c, head kh) vector in [P, PS, K]
   __device__ size_t cell(int c) const {
     const int page = tables[(size_t)b * ppn + c / page_size];
-    return (((size_t)page * page_size + c % page_size) * kv_heads + kh) * d;
+    return ((size_t)page * page_size + c % page_size) * kv_heads + kh;
   }
-  __device__ const T* k_row(int c) const { return k_pages + cell(c); }
-  __device__ const T* v_row(int c) const { return v_pages + cell(c); }
+  __device__ const T* k_src() const { return k_pages; }
+  __device__ const T* v_src() const { return v_pages; }
 };
 
-template <typename T>
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages, const int* __restrict__ tables,
                     const int* __restrict__ kv_lens, T* __restrict__ out,
-                    int heads, int kv_heads, int d, int page_size, int ppn,
-                    int pages, float scale) {
+                    float* __restrict__ part, int heads, int kv_heads, int d,
+                    int page_size, int ppn, int sweep, float scale) {
   const int b = blockIdx.z;
-  const int stop = max(0, min(kv_lens[b], pages * page_size));
+  const int stop = max(0, min(kv_lens[b], sweep));
   DecodeRows<T> rw{k_pages, v_pages, tables, heads, kv_heads, d,
                    heads / kv_heads, page_size, ppn, b, (int)blockIdx.y, stop};
-  attend_block<T, kDecodeRows>(rw, q, out, d, scale);
+  dec::decode_split<T, kRows, dec::StagePlain<T>>(rw, q, out, part, d, scale);
+}
+
+template <typename T, int kRows>
+int run_rows(const void* q, const void* k_pages, const void* v_pages,
+             const void* tables, const void* kv_lens, void* out, void* part,
+             int batch, int heads, int kv_heads, int d, int page_size, int ppn,
+             int sweep, int splits, float scale, cudaStream_t stream) {
+  const int* lens = static_cast<const int*>(kv_lens);
+  T* o = static_cast<T*>(out);
+  float* p = static_cast<float*>(part);
+  return dec::launch_split<T>(
+      paged_decode_kernel<T, kRows>,
+      dec::smem_bytes<kRows, dec::StagePlain<T>>(d), splits, kv_heads, batch,
+      p, lens, o, heads, d, sweep, stream, static_cast<const T*>(q),
+      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      static_cast<const int*>(tables), lens, o, splits == 1 ? nullptr : p,
+      heads, kv_heads, d, page_size, ppn, sweep, scale);
 }
 
 template <typename T>
 int run(const void* q, const void* k_pages, const void* v_pages,
-        const void* tables, const void* kv_lens, void* out, int batch,
-        int heads, int kv_heads, int d, int page_size, int ppn, int pages,
-        float scale, cudaStream_t stream) {
+        const void* tables, const void* kv_lens, void* out, void* part,
+        int batch, int heads, int kv_heads, int d, int page_size, int ppn,
+        int pages, int splits, float scale, cudaStream_t stream) {
   const int groups = heads / kv_heads;
-  if (groups > kDecodeRows) return (int)cudaErrorInvalidValue;
-  const dim3 grid(1, kv_heads, batch);
-  return launch(paged_decode_kernel<T>, grid,
-                smem_bytes<T>(groups, d), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k_pages),
-                static_cast<const T*>(v_pages), static_cast<const int*>(tables),
-                static_cast<const int*>(kv_lens), static_cast<T*>(out), heads,
-                kv_heads, d, page_size, ppn, pages, scale);
+  const int sweep = pages * page_size;  // keys of the swept pages
+  if (d % 16 || splits != dec::n_splits(sweep) ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (groups <= 4)
+    return run_rows<T, 4>(q, k_pages, v_pages, tables, kv_lens, out, part,
+                          batch, heads, kv_heads, d, page_size, ppn, sweep,
+                          splits, scale, stream);
+  if (groups <= 8)
+    return run_rows<T, 8>(q, k_pages, v_pages, tables, kv_lens, out, part,
+                          batch, heads, kv_heads, d, page_size, ppn, sweep,
+                          splits, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace llmlb
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. part: fp32 scratch of B * K * splits *
+// G * (D + 2) floats when splits > 1 (else unused); splits must be
+// ceil(pages * PS / kSplitKeys). Returns a cudaError_t (0 = launched).
 extern "C" int llmlb_paged_flash_decode(const void* q, const void* k_pages,
                                         const void* v_pages, const void* tables,
                                         const void* kv_lens, void* out,
-                                        int batch, int heads, int kv_heads,
-                                        int d, int page_size, int ppn,
-                                        int pages, float scale, int dtype,
-                                        void* stream) {
+                                        void* part, int batch, int heads,
+                                        int kv_heads, int d, int page_size,
+                                        int ppn, int pages, int splits,
+                                        float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return llmlb::run<float>(q, k_pages, v_pages, tables, kv_lens, out, batch,
-                             heads, kv_heads, d, page_size, ppn, pages, scale, s);
+    return llmlb::run<float>(q, k_pages, v_pages, tables, kv_lens, out, part,
+                             batch, heads, kv_heads, d, page_size, ppn, pages,
+                             splits, scale, s);
   if (dtype == 1)
     return llmlb::run<__nv_bfloat16>(q, k_pages, v_pages, tables, kv_lens, out,
-                                     batch, heads, kv_heads, d, page_size, ppn,
-                                     pages, scale, s);
+                                     part, batch, heads, kv_heads, d,
+                                     page_size, ppn, pages, splits, scale, s);
   return (int)cudaErrorInvalidValue;
 }

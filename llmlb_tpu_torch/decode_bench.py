@@ -21,6 +21,18 @@ power limit is one JSON object.
     python -m llmlb_tpu_torch.decode_bench
     python llmlb_tpu_torch/decode_bench.py --tree DIR   # another checkout
 
+`--lora` also times the LoRA kernel at Llama-3-8B's projection shapes (8
+rows, rank 16, 9 pool rows; T 1, 128 and 512): `lora_delta` (the fp32
+delta, held against its plain version) and the delta added into a
+projection output, `lora_delta_add` where the tree has it, else the unfused
+`y + lora_delta(...).to(y.dtype)`; device time is every kernel the call
+launches.
+
+`--lora-variants 16x8x4,8x8x4` rebuilds the LoRA kernel once per
+(kTileT, cluster size, kExpandPositions) triple, as `--split-keys` does for
+the decode kernels, and times it at T 128 and 512 with every cluster of that
+size.
+
 `--tree DIR` imports `llmlb_tpu_torch` from the checkout at DIR (an older
 commit, to compare two trees in one run on one card). `--split-keys
 256,512` times the split-K kernels once per split size: for a size other
@@ -44,6 +56,11 @@ TABLE_LENS = [4096, 3000, 2048, 1500, 1024, 513, 129, 1]
 SERVE_LENS = [156, 157, 158, 159, 160, 161, 162, 163]
 SERVE_WINDOW = 256
 BF16_REL = 2.0**-6
+LORA_REL = 1e-4  # fp32 sums of exact products in another order
+LORA_RANK, LORA_POOL_ROWS = 16, 9
+LORA_IDX = [0, 3, 1, 0, 8, 2, 2, 5]
+LORA_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
+               "wd": (14336, 4096)}
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -99,31 +116,97 @@ def device_ms(torch, fn, reps: int) -> dict[str, float]:
     return {k: v / reps / 1e3 for k, v in by_name.items()}
 
 
-def max_err(got, want) -> tuple[float, bool]:
+def max_err(got, want, rel=BF16_REL) -> tuple[float, bool]:
     g, w = got.float(), want.float()
     rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
     diff = (g - w).abs()
-    return diff.max().item(), bool((diff <= BF16_REL * (w.abs() + rms)).all())
+    return diff.max().item(), bool((diff <= rel * (w.abs() + rms)).all())
+
+
+def lora_bench(torch, base: dict, lengths=(1, 128, 512)) -> None:
+    """The LoRA kernel's two forms at the projection shapes and T in
+    `lengths`, one JSON line each (see the module docstring)."""
+    from llmlb_tpu_torch.ops import lora
+
+    fused = getattr(lora, "lora_delta_add", None)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.tensor(LORA_IDX, dtype=torch.int32, device="cuda")
+    bf16 = torch.bfloat16
+    for tgt, (in_dim, out_dim) in LORA_SHAPES.items():
+        a = (torch.randn((LORA_POOL_ROWS, in_dim, LORA_RANK), generator=gen,
+                         device="cuda") * in_dim**-0.5).to(bf16)
+        b = (torch.randn((LORA_POOL_ROWS, LORA_RANK, out_dim), generator=gen,
+                         device="cuda") * LORA_RANK**-0.5).to(bf16)
+        a[0] = 0
+        b[0] = 0
+        for t in lengths:
+            x = torch.randn((ROWS, t, in_dim), generator=gen,
+                            device="cuda").to(bf16)
+            y = torch.randn((ROWS, t, out_dim), generator=gen,
+                            device="cuda").to(bf16)
+            err, ok = max_err(lora.lora_delta(x, a, b, idx),
+                              lora.lora_delta_reference(x, a, b, idx),
+                              LORA_REL)
+            if not ok:
+                raise AssertionError(f"lora_delta {tgt} T {t}: disagrees with "
+                                     f"its plain version ({err:.3e})")
+            if fused is not None:
+                add, form = (lambda: fused(y, x, a, b, idx)), "b (fused)"
+            else:
+                add = lambda: y + lora.lora_delta(x, a, b, idx).to(bf16)  # noqa: E731
+                form = "b (unfused: delta, cast, add)"
+            for mode, fn in (("a", lambda: lora.lora_delta(x, a, b, idx)),
+                             (form, add)):
+                dev = device_ms(torch, fn, 20)
+                print(json.dumps({**base, "kernel": "lora_delta", "mode": mode,
+                                  "target": tgt, "shape": [ROWS, t, in_dim,
+                                                           out_dim],
+                                  "max_abs_err": err,
+                                  "ms": cuda_ms(torch, fn, 50),
+                                  "device_ms": dev,
+                                  "device_ms_total": sum(dev.values())}),
+                      flush=True)
+            del x, y
+
+
+def source_variant(build, source: str, values: dict[str, int]) -> None:
+    """Point the build at a copy of the sources whose `source` defines the
+    constants `values` (`constexpr int NAME = V;`), or at the sources
+    themselves when they already do."""
+    src = build.PKG_DIR / "csrc"
+    text = (src / source).read_text()
+    new = text
+    for name, value in values.items():
+        new = re.sub(rf"constexpr int {name} = (\d+);",
+                     f"constexpr int {name} = {value};", new)
+    build._lib = None
+    if new == text:
+        build.CSRC_DIR = src
+        return
+    tag = "_".join(f"{k}{v}" for k, v in values.items())
+    dst = build.BUILD_DIR / f"csrc_{tag}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    (dst / source).write_text(new)
+    build.CSRC_DIR = dst
 
 
 def split_variant(build, ca, split_keys: int) -> None:
-    """Point the build at a copy of the sources whose kSplitKeys is
-    `split_keys` (the sources themselves for the header's value)."""
-    src = build.PKG_DIR / "csrc"
-    text = (src / "attention_decode.cuh").read_text()
-    pattern = r"constexpr int kSplitKeys = (\d+);"
-    current = int(re.search(pattern, text).group(1))
-    build._lib = None
-    if split_keys == current:
-        build.CSRC_DIR = src
-    else:
-        dst = build.BUILD_DIR / f"csrc_split{split_keys}"
-        shutil.rmtree(dst, ignore_errors=True)
-        shutil.copytree(src, dst)
-        (dst / "attention_decode.cuh").write_text(
-            re.sub(pattern, f"constexpr int kSplitKeys = {split_keys};", text))
-        build.CSRC_DIR = dst
+    """Build the decode kernels with kSplitKeys = `split_keys`."""
+    source_variant(build, "attention_decode.cuh", {"kSplitKeys": split_keys})
     ca.DECODE_SPLIT_KEYS = split_keys
+
+
+def lora_variant(build, lora, tile: int, cluster: int, expand: int) -> None:
+    """Build the LoRA kernel with kTileT = tile, every long-T cluster of
+    `cluster` blocks (kClusterMin = kClusterMax = cluster: also at T = 128
+    and 1) and kExpandPositions = expand; the wrapper's plan follows."""
+    source_variant(build, "lora_bgmv.cu", {"kTileT": tile,
+                                           "kClusterMin": cluster,
+                                           "kClusterMax": cluster,
+                                           "kExpandPositions": expand})
+    lora._TILE_T = tile
+    lora._CLUSTER_MIN = lora._CLUSTER_MAX = cluster
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -133,6 +216,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--split-keys", default="",
                         help="comma-separated kSplitKeys values to time")
     parser.add_argument("--tag", default="", help="label on every line")
+    parser.add_argument("--lora", action="store_true",
+                        help="also time the LoRA kernel")
+    parser.add_argument("--lora-variants", default="",
+                        help="comma-separated TILExCLUSTERxEXPAND builds of "
+                             "the LoRA kernel (kTileT, one cluster size, "
+                             "kExpandPositions) to time at T 128 and 512")
     args = parser.parse_args(argv)
     tree = Path(args.tree or Path(__file__).resolve().parent.parent).resolve()
     sys.path.insert(0, str(tree))
@@ -194,7 +283,8 @@ def main(argv: list[str] | None = None) -> int:
             split_variant(build, ca, variant)
         build.load()
         for name, report in (build.BUILD_INFO.get("ptxas") or {}).items():
-            if name in ("flash_decode.cu", "paged_decode_quant.cu"):
+            if name in ("flash_decode.cu", "paged_decode.cu",
+                        "paged_decode_quant.cu", "lora_bgmv.cu"):
                 for line in report.splitlines():
                     if "registers" in line or "spill" in line:
                         print(f"ptxas {name} (split {variant}): {line.strip()}",
@@ -228,6 +318,15 @@ def main(argv: list[str] | None = None) -> int:
                       "ms": cuda_ms(torch, sdpa, 50),
                       "ms_cold": cuda_ms_cold(torch, sdpa, 20),
                       "device_ms": device_ms(torch, sdpa, 20)}), flush=True)
+    if args.lora:
+        lora_bench(torch, base)
+    for variant in filter(None, args.lora_variants.split(",")):
+        from llmlb_tpu_torch.ops import lora
+
+        tile, cluster, expand = (int(v) for v in variant.split("x"))
+        lora_variant(build, lora, tile, cluster, expand)
+        build.load()
+        lora_bench(torch, {**base, "lora_variant": variant}, (128, 512))
     return 0
 
 

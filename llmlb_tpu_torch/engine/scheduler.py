@@ -86,6 +86,12 @@ class SamplingParams:
     # LoRA adapter name (the `lora` field or a `model:adapter` suffix);
     # None serves the base model (pool row 0, the identity adapter).
     lora: str | None = None
+    # Carried as the reference's server validates them; the scheduler does
+    # not act on them yet (no priority classes, deadline shedding or
+    # speculative decoding in the port).
+    priority: int = 1  # 0 high, 1 normal, 2 low
+    speculative: dict | None = None  # {enabled, max_draft_tokens}
+    deadline_ms: float | None = None  # X-Request-Deadline-Ms
 
 
 @dataclasses.dataclass

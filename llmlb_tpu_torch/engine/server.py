@@ -12,6 +12,13 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   gateway's endpoint detection keys on to treat this as an in-tree engine —
   and `"backend": "cuda"`.
 
+Request fields are honoured or refused, never ignored: `priority`,
+`speculative` and the `X-Request-Deadline-Ms` header are validated by the
+reference's rules (a malformed value is a 400 with the reference's message)
+and carried on the request's SamplingParams; a `response_format` other
+than text and a forced `tool_choice` are 400s naming the field, since the
+port has no constrained decoding.
+
 Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
 or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
 unknown, unservable or conflicting adapters are 400s naming `lora`.
@@ -48,7 +55,8 @@ MAX_BODY_BYTES = 20 * 1024 * 1024
 _REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9_.:\-]{1,128}$")
 
 
-def _sampling_from(body: dict, default_max: int = 256) -> SamplingParams:
+def _sampling_from(body: dict, default_max: int = 256,
+                   deadline_ms: float | None = None) -> SamplingParams:
     def pick(*names, default):
         for n in names:
             if body.get(n) is not None:
@@ -71,8 +79,95 @@ def _sampling_from(body: dict, default_max: int = 256) -> SamplingParams:
     seed = body.get("seed")
     if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int)):
         raise ValueError("'seed' must be an integer")
+    _refuse_structured(body)
     return SamplingParams(temperature=temperature, top_p=top_p, top_k=top_k,
-                          max_tokens=max_tokens, seed=seed)
+                          max_tokens=max_tokens, seed=seed,
+                          priority=_priority_from(body),
+                          speculative=_speculative_from(body),
+                          deadline_ms=deadline_ms)
+
+
+_PRIORITY_NAMES = {"high": 0, "normal": 1, "low": 2}
+
+
+def _priority_from(body: dict) -> int:
+    """Per-request priority class, "high"/"normal"/"low" or 0/1/2 (lower is
+    more important; default "normal"), as the reference validates it."""
+    p = body.get("priority")
+    if p is None:
+        return 1
+    if isinstance(p, str):
+        if p not in _PRIORITY_NAMES:
+            raise ValueError(
+                "'priority' must be one of high, normal, low (or 0..2)")
+        return _PRIORITY_NAMES[p]
+    if isinstance(p, bool) or not isinstance(p, int) or not 0 <= p <= 2:
+        raise ValueError(
+            "'priority' must be one of high, normal, low (or 0..2)")
+    return p
+
+
+def _deadline_from(headers) -> float | None:
+    """The request's remaining deadline in milliseconds, from the
+    X-Request-Deadline-Ms header (set by the gateway or a direct client),
+    as the reference validates it."""
+    raw = headers.get("X-Request-Deadline-Ms")
+    if not raw:
+        return None
+    try:
+        ms = float(raw)
+    except ValueError:
+        raise ValueError("X-Request-Deadline-Ms must be a number") from None
+    if ms <= 0:
+        raise ValueError("X-Request-Deadline-Ms must be positive")
+    return ms
+
+
+def _speculative_from(body: dict) -> dict | None:
+    """Per-request speculative-decoding knobs, `speculative: {enabled,
+    max_draft_tokens}`, as the reference validates them, so a malformed
+    knob is a 400 instead of being silently ignored."""
+    spec = body.get("speculative")
+    if spec is None:
+        return None
+    if not isinstance(spec, dict):
+        raise ValueError("'speculative' must be an object")
+    out: dict = {}
+    if "enabled" in spec:
+        if not isinstance(spec["enabled"], bool):
+            raise ValueError("'speculative.enabled' must be a boolean")
+        out["enabled"] = spec["enabled"]
+    if spec.get("max_draft_tokens") is not None:
+        k = spec["max_draft_tokens"]
+        if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+            raise ValueError(
+                "'speculative.max_draft_tokens' must be a positive integer")
+        out["max_draft_tokens"] = k
+    return out or None
+
+
+def _refuse_structured(body: dict) -> None:
+    """The port has no constrained decoding: a `response_format` other than
+    text, or a `tool_choice` that forces a call ("required" or a function
+    object), is refused naming the field rather than answered with free
+    text. "auto" and "none" leave the model free, so they pass."""
+    rf = body.get("response_format")
+    if rf is not None:
+        if not isinstance(rf, dict):
+            raise ValueError("response_format must be an object")
+        if rf.get("type") not in (None, "text"):
+            raise ValueError(
+                f"response_format type {rf.get('type')!r} is not supported "
+                "by this engine (no constrained decoding; only 'text')")
+    choice = body.get("tool_choice")
+    if choice is None or choice in ("auto", "none"):
+        return
+    if choice == "required" or isinstance(choice, dict):
+        raise ValueError("tool_choice that forces a tool call is not "
+                         "supported by this engine (no constrained "
+                         "decoding; only 'auto' or 'none')")
+    raise ValueError("tool_choice must be 'auto', 'none', 'required', "
+                     "or a {type: 'function'} object")
 
 
 def _stops_from(body: dict) -> list[str]:
@@ -184,7 +279,8 @@ class _Handler(BaseHTTPRequestHandler):
             if int(body.get("n") or 1) != 1:
                 raise ValueError("only n=1 is supported")
             prompt_ids = engine.encode_chat(messages)
-            sampling = _sampling_from(body)
+            sampling = _sampling_from(
+                body, deadline_ms=_deadline_from(self.headers))
             stops = _stops_from(body)
             model = body.get("model") or engine.model_id
             adapter, base = _parse_lora(engine, body)

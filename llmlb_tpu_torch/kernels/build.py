@@ -45,10 +45,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, prompt_lens, out, B, T, H, K, D, scale, dtype, stream
     "llmlb_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k_pages, v_pages, tables, kv_lens, out, B, H, K, D, PS, PPN, pages,
-    # scale, dtype, stream
-    "llmlb_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _P],
+    # q, k_pages, v_pages, tables, kv_lens, out, part (fp32 split scratch),
+    # B, H, K, D, PS, PPN, pages, splits, scale, dtype, stream
+    "llmlb_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _I, _P],
     # q, k_pages, v_pages, tables, start_pos, chunk_lens, out, B, T, H, K, D,
     # PS, PPN, scale, dtype, stream
     "llmlb_paged_flash_extend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -70,8 +70,8 @@ SIGNATURES = {
     # scale, dtype, stream
     "llmlb_flash_extend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _I, _P],
-    # x, a, b, idx, u (fp32 scratch), out, B, T, IN, R, OUT, splits, dtype,
-    # stream
+    # x, a, b, idx, out (fp32 delta, mode a) or y (the projection's output,
+    # added into in place, mode b), B, T, IN, R, OUT, cluster, dtype, stream
     "llmlb_lora_bgmv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
 }

@@ -16,7 +16,18 @@ reads it, so the kernel sees it.
 Multi-LoRA (`llmlb_tpu_torch/lora`): a projection may carry adapter pools
 `<name>_lora_a` [L, N, in, R] / `<name>_lora_b` [L, N, R, out]; with
 `lora_idx` ([B] int32 pool rows) every entry point adds each row's delta
-(ops/lora.py) to that projection's output, after any int8 dequant.
+(ops/lora.py) to that projection's output, after any int8 dequant: on the
+card one kernel launch adds it in place, beside the product.
+
+Batch invariance on the card: a row's logits do not depend on the rows it
+shares a dispatch with. cuBLAS picks its kernel, and with it the order of a
+product's sums, by the product's shape, so every product that a batch size
+could reshape takes a shape of the row's own: a prefill group (B > 1 rows of
+T > 1 positions) runs each projection once per row (M = T, the bucket), and
+the vocab projection runs over blocks of UNEMBED_ROWS rows. A decode step
+always runs every slot (M fixed) and a chunk one row. The attention and
+LoRA kernels cut their work by shape alone, and the elementwise ops and
+norms are per row.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -42,12 +53,16 @@ from llmlb_tpu_torch.ops.attention import (
     paged_attention_extend,
     pool_shape,
 )
-from llmlb_tpu_torch.ops.lora import lora_delta
+from llmlb_tpu_torch.ops.lora import lora_delta_add
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
 from llmlb_tpu_torch.quant import SCALE_SUFFIX, quantize_kv
 
 Params = dict[str, torch.Tensor]
+
+# rows of one vocab-projection product on the card (the engine's 8 slots:
+# a decode step is one block; a prefill group's last rows are padded to it)
+UNEMBED_ROWS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,18 +228,37 @@ def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
     return {n: params[n][i] for n in names}
 
 
+def _rowwise(x: torch.Tensor, product, n_out: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The product of x [B, T, IN] with a weight -> [B, T, n_out] in
+    `dtype`; `product(x2, out)` multiplies rows x2 [M, IN] into `out` (a new
+    tensor when out is None). On the card a prefill group (B > 1, T > 1)
+    takes one product per batch row, written into that row of the output,
+    so each row's sums run in the order cuBLAS picks for M = T alone,
+    whatever the group's size; a decode step (T = 1, every slot), a chunk
+    (B = 1) and the CPU take one product of all rows."""
+    b, t, e = x.shape
+    if x.device.type == "cuda" and b > 1 and t > 1:
+        y = torch.empty((b, t, n_out), dtype=dtype, device=x.device)
+        for i in range(b):
+            product(x[i], y[i])
+        return y
+    return product(x.reshape(b * t, e), None).reshape(b, t, n_out)
+
+
 def _proj(lp: Params, name: str, x: torch.Tensor,
           lora_idx: torch.Tensor | None = None) -> torch.Tensor:
-    """`x @ W`. An int8 W takes its per-output-channel scale on the fp32
-    output, as the reference does: the operand is W widened to x's dtype
-    (exact: |code| <= 127), the product accumulates and returns fp32, then
-    `* scale` and a round to x's dtype. On the card a bf16 x takes cuBLAS's
-    bf16-in/fp32-out product; elsewhere the operands widen to fp32 (the
-    same values).
+    """`x @ W` (rows as `_rowwise` groups them). An int8 W takes its
+    per-output-channel scale on the fp32 output, as the reference does: the
+    operand is W widened to x's dtype (exact: |code| <= 127), the product
+    accumulates and returns fp32, then `* scale` and a round to x's dtype.
+    On the card a bf16 x takes cuBLAS's bf16-in/fp32-out product; elsewhere
+    the operands widen to fp32 (the same values).
 
     With `lora_idx` and this projection's adapter pools in the layer slice,
     each row's fp32 LoRA delta, rounded to the output's dtype, is added to
-    the output after the dequant; row 0 adds exactly 0.0."""
+    the output after the dequant (`lora_delta_add`: in place, one launch on
+    the card); row 0 adds exactly 0.0."""
     w = lp[name]
     scale = lp.get(name + SCALE_SUFFIX)
     if scale is None:
@@ -232,17 +266,25 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
             raise TypeError(f"param {name!r} is int8 but its {name}"
                             f"{SCALE_SUFFIX} companion is missing from the "
                             "layer slice")
-        y = x @ w
+        y = _rowwise(x, lambda x2, out: torch.mm(x2, w, out=out), w.shape[-1],
+                     x.dtype)
     else:
         if x.device.type == "cuda" and x.dtype != torch.float32:
-            y32 = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
-                           out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+            wx = w.to(x.dtype)
+
+            def product(x2, out):
+                y32 = torch.mm(x2, wx, out_dtype=torch.float32)
+                return y32 if out is None else out.copy_(y32)
         else:
-            y32 = x.float() @ w.float()
+            wf = w.float()
+
+            def product(x2, out):
+                return torch.mm(x2.float(), wf, out=out)
+        y32 = _rowwise(x, product, w.shape[-1], torch.float32)
         y = (y32 * scale).to(x.dtype)
     if lora_idx is not None and name + LORA_A in lp:
-        delta = lora_delta(x, lp[name + LORA_A], lp[name + LORA_B], lora_idx)
-        y = y + delta.to(y.dtype)
+        y = lora_delta_add(y, x, lp[name + LORA_A], lp[name + LORA_B],
+                           lora_idx)
     return y
 
 
@@ -297,12 +339,23 @@ def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     preferred_element_type=float32. On the card a bf16 model takes cuBLAS's
     bf16-in/fp32-out product, so the logits are never rounded to bf16 and no
     fp32 copy of the vocab matrix is made; the CPU has no such product and
-    widens the operands instead (the same values)."""
+    widens the operands instead (the same values). On the card the rows go
+    through the product in blocks of UNEMBED_ROWS (the last one padded with
+    zero rows), so a row's logits do not depend on how many rows came with
+    it."""
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        return torch.mm(x, head, out_dtype=torch.float32)
-    return x.float() @ head.float()
+    if x.device.type != "cuda":
+        return x.float() @ head.float()
+    n = x.shape[0]
+    rows = x if n % UNEMBED_ROWS == 0 else F.pad(x, (0, 0, 0, -n % UNEMBED_ROWS))
+    if x.dtype == torch.float32:
+        head = head.float()
+        blocks = [blk @ head for blk in rows.split(UNEMBED_ROWS)]
+    else:
+        blocks = [torch.mm(blk, head, out_dtype=torch.float32)
+                  for blk in rows.split(UNEMBED_ROWS)]
+    return (blocks[0] if len(blocks) == 1 else torch.cat(blocks))[:n]
 
 
 def _last_rows(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

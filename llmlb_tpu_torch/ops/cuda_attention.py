@@ -19,13 +19,17 @@ Seven kernels, each a CUDA C++ source under `llmlb_tpu_torch/csrc/` built by
   slot cache [B, S, K, D], whose row b is slot b's cells in order
   (`csrc/flash_decode.cu`, `csrc/flash_extend.cu`).
 
-`flash_decode` and `paged_flash_decode_quant` run on the split-K decode body
+The three decodes (`flash_decode`, `paged_flash_decode`,
+`paged_flash_decode_quant`) run on the split-K decode body
 (`csrc/attention_decode.cuh`): each row's keys are cut into splits of
 DECODE_SPLIT_KEYS absolute positions, one block per (split, KV head, row),
 and a combine kernel merges the splits when the sweep holds more than one
 (`decode_splits`). The wrapper allocates the fp32 scratch of the partials.
 The split boundaries depend on no other row and not on the sweep, so a row
-gives the same bits alone or in a batch, under any window that covers it.
+gives the same bits alone or in a batch, under any window that covers it,
+and the same bits through the pages as through the dense cache. The body
+caches a split's cell indices as 32-bit unsigned ints, so the wrappers
+refuse a cache of 2^32 (position, KV head) cells or more.
 
 In bf16, `flash_prefill` and `flash_extend` run on the tensor cores
 (`csrc/attention_tc.cuh`), built for head_dim 64 and 128 only: any other
@@ -63,9 +67,12 @@ from llmlb_tpu_torch.quant import dequantize_kv
 _NEG_INF = -1e30  # finite: keeps fully-masked rows NaN-free
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# query heads per KV head the decode kernels take: kDecodeRows in
-# csrc/attention_common.cuh; the split-K body's largest build (4 and 8 rows)
+# query heads per KV head the decode kernels take: the split-K body's
+# largest build (4 and 8 rows)
 _DECODE_MAX_GROUP = 8
+# (position, KV head) cells a decode may address: the body caches their
+# indices as 32-bit unsigned ints
+_DECODE_MAX_CELLS = 2**32
 DECODE_SPLIT_KEYS = 256  # kSplitKeys in csrc/attention_decode.cuh
 _DENSE_DECODE_BLOCK = 128  # the Pallas flash_decode's default block_k
 # head_dims of the bf16 tensor-core body's instantiations (attention_tc.cuh)
@@ -291,6 +298,21 @@ def decode_splits(sweep: int) -> int:
     return max(1, -(-int(sweep) // DECODE_SPLIT_KEYS))
 
 
+def _check_decode(name: str, h: int, kh: int, d: int, cells: int) -> None:
+    """Raise unless the split-K decode body is built for this GQA group and
+    head_dim, and can address every (position, KV head) cell of the cache
+    (`cells` of them) with a 32-bit index."""
+    if h // kh > _DECODE_MAX_GROUP:
+        raise ValueError(f"{name}: {h // kh} query heads per KV head; the "
+                         f"kernel takes at most {_DECODE_MAX_GROUP}")
+    if d % 16:
+        raise ValueError(f"{name}: head_dim {d} not supported (a multiple "
+                         "of 16: four columns a thread in P V)")
+    if cells >= _DECODE_MAX_CELLS:
+        raise ValueError(f"{name}: a cache of {cells} (position, KV head) "
+                         "cells; the kernel indexes at most 2^32 - 1")
+
+
 def _split_scratch(q: torch.Tensor, kv_heads: int,
                    splits: int) -> torch.Tensor | None:
     """fp32 scratch of the split-K partials, [B, K, splits, G] x (D + 2)
@@ -334,7 +356,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        pages: int | None = None) -> torch.Tensor:
     """Ragged paged one-token GQA decode. q [B, H, D], pools [P, PS, K, D],
     block_tables [B, PPN] int32, kv_lens [B] int32 -> [B, H, D]. `pages`
-    (static) bounds the sweep to the first `pages` logical pages."""
+    (static) bounds the sweep to the first `pages` logical pages. On the
+    card: the split-K kernel over decode_splits(pages * PS) splits, and the
+    combine kernel when there is more than one; LAUNCHES counts the call
+    once."""
     if not _route("paged_flash_decode", q):
         return paged_flash_decode_reference(q, k_pages, v_pages, block_tables,
                                             kv_lens, pages=pages)
@@ -347,9 +372,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
                          f"tables {tuple(block_tables.shape)}, kv_lens "
                          f"{tuple(kv_lens.shape)}")
-    if h // kh > _DECODE_MAX_GROUP:
-        raise ValueError(f"paged_flash_decode: {h // kh} query heads per KV "
-                         f"head; the kernel takes at most {_DECODE_MAX_GROUP}")
+    _check_decode("paged_flash_decode", h, kh, d, k_pages.shape[0] * ps * kh)
     sweep = ppn if pages is None else max(1, min(int(pages), ppn))
     code = _check("paged_flash_decode", q,
                   {"q": q, "k_pages": k_pages, "v_pages": v_pages},
@@ -357,10 +380,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    splits = decode_splits(sweep * ps)
+    part = _split_scratch(q, kh, splits)
     build.launch("paged_flash_decode", "llmlb_paged_flash_decode", q.device,
                  _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-                 _ptr(kv_lens), _ptr(out), b, h, kh, d, ps, ppn, sweep,
-                 ctypes.c_float(d**-0.5), code)
+                 _ptr(kv_lens), _ptr(out), _ptr(part), b, h, kh, d, ps, ppn,
+                 sweep, splits, ctypes.c_float(d**-0.5), code)
     return out
 
 
@@ -430,9 +455,7 @@ def paged_flash_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(k_pages.shape)}, tables "
                          f"{tuple(block_tables.shape)}, kv_lens "
                          f"{tuple(kv_lens.shape)}")
-    if h // kh > _DECODE_MAX_GROUP:
-        raise ValueError(f"{name}: {h // kh} query heads per KV head; the "
-                         f"kernel takes at most {_DECODE_MAX_GROUP}")
+    _check_decode(name, h, kh, d, k_pages.shape[0] * ps * kh)
     sweep = ppn if pages is None else max(1, min(int(pages), ppn))
     code = _check(name, q, {"q": q},
                   {"block_tables": block_tables, "kv_lens": kv_lens},
@@ -508,15 +531,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
                          f"kv_lens {tuple(kv_lens.shape)}")
-    if h // kh > _DECODE_MAX_GROUP:
-        raise ValueError(f"flash_decode: {h // kh} query heads per KV head; "
-                         f"the kernel takes at most {_DECODE_MAX_GROUP}")
+    _check_decode("flash_decode", h, kh, d, b * s * kh)
     code = _check("flash_decode", q,
                   {"q": q, "k_cache": k_cache, "v_cache": v_cache},
                   {"kv_lens": kv_lens})
-    if d % 16:
-        raise ValueError(f"flash_decode: head_dim {d} not supported (a "
-                         "multiple of 16: four columns a thread in P V)")
     out = torch.empty_like(q)
     if q.numel() == 0 or s == 0:
         return out

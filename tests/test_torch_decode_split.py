@@ -1,6 +1,7 @@
 """The split-K decode kernels' contract, on the CPU.
 
-`flash_decode` and `paged_flash_decode_quant` run on the split-K decode body
+`flash_decode`, `paged_flash_decode` and `paged_flash_decode_quant` run on
+the split-K decode body
 (llmlb_tpu_torch/csrc/attention_decode.cuh): each row's keys are cut into
 splits of kSplitKeys absolute positions, and a combine kernel merges them
 when the sweep holds more than one split. The kernels themselves are held
@@ -14,7 +15,12 @@ a lost partial, bitwise invariance across batch and window); here:
   on the split edges (kSplitKeys - 1, kSplitKeys, kSplitKeys + 1, 0), with a
   window (or a `pages` bound) that ends inside a split and a row past the
   sweep, which is left out of the comparison as the kernels' contract
-  leaves it undefined.
+  leaves it undefined;
+- the C entry points' argument lists (`build.SIGNATURES`): both paged
+  decodes take the split scratch and the split count;
+- the wrappers' refusals of what the kernels are not built for: GQA groups
+  past 8, head_dim not a multiple of 16, and caches of 2^32 (position, KV
+  head) cells or more (the body caches cell indices as 32-bit ints).
 
 Tolerances: fp32 within 1e-5 (online against two-pass softmax, as
 tests/test_torch_dense.py); bf16 within 2^-6 (|pallas| + RMS of its (row,
@@ -42,6 +48,9 @@ BF16_REL = 2.0**-6
 FP32_ATOL = 1e-5
 # kv_lens on the split edges, an empty row, and one past the second edge
 EDGE_LENS = [SPLIT - 1, SPLIT, SPLIT + 1, 0, 2 * SPLIT + 3]
+# the paged bf16 decode's: the split edges, an empty row, a few keys into
+# the fourth split, one key, two whole splits
+PAGED_EDGE_LENS = [SPLIT - 1, SPLIT, SPLIT + 1, 0, 3 * SPLIT + 7, 1, 2 * SPLIT]
 
 
 def _header_split_keys() -> int:
@@ -73,12 +82,45 @@ def test_split_keys_constant_equals_the_header():
     assert split % 64 == 0 and split >= 256  # whole key tiles; one split at 256
 
 
-def test_decode_header_is_built_by_both_kernels():
+def test_decode_header_is_built_by_every_decode_kernel():
     assert HEADER in build.HEADERS
-    for source in ("flash_decode.cu", "paged_decode_quant.cu"):
+    for source in ("flash_decode.cu", "paged_decode.cu",
+                   "paged_decode_quant.cu"):
         assert source in build.SOURCES
         text = (build.CSRC_DIR / source).read_text()
         assert f'#include "{HEADER}"' in text, source
+
+
+def test_paged_decode_is_on_the_split_body_alone():
+    """paged_decode.cu runs decode_split, not the first design's
+    attend_block, and reaches attention_common.cuh only through the
+    split-K header."""
+    text = (build.CSRC_DIR / "paged_decode.cu").read_text()
+    assert "dec::decode_split<" in text and "dec::launch_split<" in text
+    assert "attend_block" not in text
+    assert '#include "attention_common.cuh"' not in text
+
+
+_P, _I, _F = build._P, build._I, build._F
+# q, k, v (or codes and scales), tables, kv_lens, out, part; B, H, K, D, PS,
+# PPN, pages, splits; scale; dtype; stream
+PAGED_DECODE_SIGNATURES = {
+    "llmlb_paged_flash_decode": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    "llmlb_paged_flash_decode_quant": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PAGED_DECODE_SIGNATURES))
+def test_paged_decode_entry_points_take_the_split_scratch(entry):
+    assert build.SIGNATURES[entry] == PAGED_DECODE_SIGNATURES[entry]
+    source = {"llmlb_paged_flash_decode": "paged_decode.cu",
+              "llmlb_paged_flash_decode_quant": "paged_decode_quant.cu"}[entry]
+    text = (build.CSRC_DIR / source).read_text()
+    decl = text[text.index(f'extern "C" int {entry}('):]
+    decl = decl[:decl.index(")")]
+    assert "void* part" in decl and "int splits" in decl
+    # one C parameter per ctypes argument, the stream included
+    assert decl.count(",") + 1 == len(PAGED_DECODE_SIGNATURES[entry])
 
 
 @pytest.mark.parametrize("splits", [1, 3])
@@ -172,9 +214,72 @@ def test_paged_flash_decode_quant_reference_matches_pallas_on_split_edges(
     _assert_close(got, want, rows, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages", [None, (SPLIT + SPLIT // 2) // 64])
+def test_paged_flash_decode_reference_matches_pallas_on_split_edges(dtype,
+                                                                    pages):
+    """bf16/fp32 pools of 64-token pages, 13 pages a row (3 * kSplitKeys +
+    64 keys, past the 3 * kSplitKeys + 7 row); the `pages` bound ends half
+    way into the second split, past which two rows lie."""
+    rng = np.random.default_rng(9 if pages is None else 10)
+    b, h, kv, d, ps = len(PAGED_EDGE_LENS), 8, 2, 16, 64
+    ppn = (3 * SPLIT + 64) // ps
+    n_pages = b * ppn + 1
+    kp = _normal(rng, (n_pages, ps, kv, d), dtype)
+    vp = _normal(rng, (n_pages, ps, kv, d), dtype)
+    tables = (rng.permutation(np.arange(1, n_pages))[: b * ppn]
+              .reshape(b, ppn).astype(np.int32))
+    lens = np.array(PAGED_EDGE_LENS, np.int32)
+    q = _normal(rng, (b, h, d), dtype)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = pallas.paged_flash_decode(*(jnp.asarray(x, jd) for x in (q, kp, vp)),
+                                     tables, lens, pages=pages, interpret=True)
+    td = getattr(torch, dtype)
+    got = cuda_attention.paged_flash_decode(
+        *(torch.from_numpy(x).to(td) for x in (q, kp, vp)),
+        torch.from_numpy(tables), torch.from_numpy(lens), pages=pages)
+    assert got.dtype == td
+    sweep = (ppn if pages is None else pages) * ps
+    rows = [i for i, n in enumerate(PAGED_EDGE_LENS) if n <= sweep]
+    assert len(rows) == len(PAGED_EDGE_LENS) - (2 if pages is not None else 0)
+    _assert_close(got, want, rows, dtype)
+
+
+@pytest.mark.parametrize("pages", [None, 5])
+def test_paged_decode_split_scratch_follows_the_sweep(monkeypatch, pages):
+    """The paged bf16 decode allocates [B, K, splits, G] x (D + 2) fp32
+    partials for splits = ceil(pages * PS / kSplitKeys), none for one split,
+    and passes both to the entry point (captured, not launched)."""
+    seen = {}
+
+    def launch(name, entry, device, *args):
+        seen.update(name=name, entry=entry, args=args)
+
+    monkeypatch.setattr(cuda_attention, "_route", lambda name, q: True)
+    monkeypatch.setattr(cuda_attention.build, "launch", launch)
+    b, h, kv, d, ps, ppn = 3, 8, 2, 16, 64, 12
+    q = torch.zeros((b, h, d))
+    pool = torch.zeros((b * ppn + 1, ps, kv, d))
+    tables = torch.arange(1, b * ppn + 1, dtype=torch.int32).reshape(b, ppn)
+    lens = torch.full((b,), 100, dtype=torch.int32)
+    cuda_attention.paged_flash_decode(q, pool, pool, tables, lens, pages=pages)
+    assert (seen["name"], seen["entry"]) == ("paged_flash_decode",
+                                             "llmlb_paged_flash_decode")
+    splits = cuda_attention.decode_splits((ppn if pages is None else pages)
+                                          * ps)
+    assert splits == (3 if pages is None else 2)
+    part, n_splits = seen["args"][6], seen["args"][14]
+    assert n_splits == splits
+    assert part.value is not None  # more than one split: scratch passed
+    want = cuda_attention._split_scratch(q, kv, splits)
+    assert want.numel() == b * kv * splits * (h // kv) * (d + 2)
+
+
 @pytest.mark.parametrize("kernel,h,kv,d,match", [
     ("flash_decode", 8, 2, 8, "head_dim 8 not supported"),
     ("flash_decode", 32, 2, 16, "16 query heads per KV head"),
+    ("paged_flash_decode", 32, 2, 16, "16 query heads per KV head"),
+    ("paged_flash_decode", 8, 2, 8, "head_dim 8 not supported"),
     ("paged_flash_decode_quant", 32, 2, 16, "16 query heads per KV head"),
 ])
 def test_wrappers_refuse_what_the_kernels_are_not_built_for(
@@ -185,14 +290,45 @@ def test_wrappers_refuse_what_the_kernels_are_not_built_for(
     monkeypatch.setattr(cuda_attention, "_route", lambda name, q: True)
     q = torch.zeros((2, h, d))
     lens = torch.ones(2, dtype=torch.int32)
+    tables = torch.tensor([[1], [2]], dtype=torch.int32)
     if kernel == "flash_decode":
         cache = torch.zeros((2, 64, kv, d))
         call = lambda: cuda_attention.flash_decode(q, cache, cache, lens)  # noqa: E731
+    elif kernel == "paged_flash_decode":
+        pool = torch.zeros((3, 16, kv, d))
+        call = lambda: cuda_attention.paged_flash_decode(  # noqa: E731
+            q, pool, pool, tables, lens)
     else:
         codes = torch.zeros((3, 16, kv, d), dtype=torch.int8)
         scales = torch.ones((3, 16, kv))
-        tables = torch.tensor([[1], [2]], dtype=torch.int32)
         call = lambda: cuda_attention.paged_flash_decode_quant(  # noqa: E731
             q, codes, scales, codes, scales, tables, lens)
     with pytest.raises(ValueError, match=match):
         call()
+
+
+@pytest.mark.parametrize("kernel", ["paged_flash_decode",
+                                    "paged_flash_decode_quant"])
+def test_paged_decodes_refuse_a_pool_past_32_bit_cells(monkeypatch, kernel):
+    """P * PS * K >= 2^32 cells cannot be cached as unsigned cell indices.
+    The pool is an expanded view (no memory behind its 2^32 cells), which
+    the shape check reads before anything touches the data."""
+    monkeypatch.setattr(cuda_attention, "_route", lambda name, q: True)
+    kv, d, ps = 8, 16, 128
+    n_pages = 2**32 // (ps * kv)  # exactly 2^32 cells
+    q = torch.zeros((2, 32, d))
+    lens = torch.ones(2, dtype=torch.int32)
+    tables = torch.tensor([[1], [2]], dtype=torch.int32)
+    if kernel == "paged_flash_decode":
+        pool = torch.zeros((1, ps, kv, d)).expand(n_pages, ps, kv, d)
+        call = lambda: cuda_attention.paged_flash_decode(  # noqa: E731
+            q, pool, pool, tables, lens)
+    else:
+        codes = torch.zeros((1, ps, kv, d), dtype=torch.int8).expand(
+            n_pages, ps, kv, d)
+        scales = torch.ones((1, ps, kv)).expand(n_pages, ps, kv)
+        call = lambda: cuda_attention.paged_flash_decode_quant(  # noqa: E731
+            q, codes, scales, codes, scales, tables, lens)
+    with pytest.raises(ValueError, match="2\\^32"):
+        call()
+    cuda_attention._check_decode(kernel, 32, kv, d, 2**32 - 1)  # the last fit
