@@ -5,6 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+`--serve-only` runs the device, build and serve phases alone, and
+`--tree DIR` imports the port from another checkout (an older commit
+unpacked with `git archive`), so that two trees' serving times can be taken
+in one call on one card:
+
+    python3 chip_smoke.py --serve-only --tree chip_tree/parent
+
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — the card's name and power limit (nvidia-smi), TF32 off.
@@ -30,7 +37,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
              256), with torch.profiler's device time beside the events,
              hold the tensor-core prefill and extend in bf16 at
              head_dim 64 with GQA groups of 7 and 8 (Qwen2.5-0.5B,
-             TinyLlama) and an extend start inside a key tile, and time
+             TinyLlama) and an extend start inside a key tile, hold the
+             tensor-core paged extends (bf16 and int8 pools) on their tile
+             and page edges (starts inside a tile, a chunk crossing a page
+             inside a query tile, 3 rows with padding query tiles, pages of
+             16..128 with shuffled tables, head_dim 64 with G = 7 and 8),
+             reject a tile read from the next page-table entry and a page's
+             second 64-key half read from its first, and hold them bit for
+             bit: a row alone and in a batch, the int8 extend against the
+             bf16 extend over the dequantized pools, the paged bf16 extend
+             against flash_extend over the dense row of the same keys; time
              kernel / plain / library call with CUDA events, the attention
              kernels and their SDPA calls also with the L2 cache cold.
 4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
@@ -42,7 +58,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              depth with random bf16 weights from seed 0: concurrent chat
              requests (streaming and not), a ~1500-token prompt that takes
              the chunked path, a repeat whose text must match, then
-             token-level determinism, TTFT and decode rate on the same core.
+             token-level determinism, TTFT (the 124-token prompt and the
+             ~1500-token one, whose chunks run the extend kernel) and decode
+             rate on the same core.
              Each kernel of the path launches over this phase; the int8
              kernels do not. Then batch_invariance (C1): on the same
              weights, the timed prompt's prefill logits alone and as row 0
@@ -66,7 +84,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              flash_decode and flash_extend launch, no paged kernel does, and
              the timed prompt's 64 greedy tokens equal the paged bf16 run's
              (else the first op whose row 0 differs between the two
-             layouts' entry points is named).
+             layouts' entry points is named); how many of the long prompt's
+             16 greedy tokens agree with the paged run's is reported.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -74,6 +93,7 @@ The second-to-last line is one JSON object {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -116,6 +136,9 @@ UNEMBED_ATOL = 1e-3
 PAGED_DECODE_MARKS = ("paged_decode_kernel", "decode_combine_kernel")
 QUANT_DECODE_MARKS = ("paged_decode_quant_kernel", "decode_combine_kernel")
 DENSE_DECODE_MARKS = ("flash_decode_kernel", "decode_combine_kernel")
+# ... and for the tensor-core paged extends (bf16)
+PAGED_EXTEND_MARKS = ("paged_extend_tc_kernel",)
+QUANT_EXTEND_MARKS = ("paged_extend_quant_tc_kernel",)
 
 
 def log(msg: str) -> None:
@@ -437,6 +460,10 @@ def phase_kernels() -> list[dict]:
     _must_fail("paged_flash_extend bf16, page 5 (keys 640..767) dropped",
                _plain(torch, q, kc, vc, mask, (5 * PAGE, 6 * PAGE, [0])), want,
                rel=BF16_REL, rows=[chunk_host])
+    for what, (kt, vt) in _tile_mutants(kc, vc):
+        _must_fail(f"paged_flash_extend bf16, {what}",
+                   _plain(torch, q, kt, vt, mask), want, rel=BF16_REL,
+                   rows=[chunk_host])
     del kc, vc, mask
     # the function's work: the defined rows, and the keys they see
     keys = start_host + chunk_host
@@ -453,10 +480,13 @@ def phase_kernels() -> list[dict]:
                                                  chunk), 20),
         ms_cold=cuda_ms_cold(lambda: ca.paged_flash_extend(
             q, kp, vp, tab1, start, chunk), 20),
+        dev_ms=profiled_ms(lambda: ca.paged_flash_extend(
+            q, kp, vp, tab1, start, chunk), 20, PAGED_EXTEND_MARKS),
         plain_ms=cuda_ms(lambda: ca.paged_flash_extend_reference(
             q, kp, vp, tab1, start, chunk), 3),
         bound_ms=bms, bound_by=by, library_ms=None))
     del q, got, want
+    _paged_extend_cases(torch, gen, kp, vp, tables)
 
     # -- the int8 kernels, on the same pages quantized -----------------------
     rows += _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1,
@@ -652,6 +682,146 @@ def _serve_times(torch, name, call, row, marks) -> None:
         f"{SERVE_WINDOW}): kernel {row['serve_ms']:.4f} ms warm, "
         f"{row['serve_ms_cold']:.4f} ms L2 cold, device "
         f"{row['serve_dev_ms']:.4f} ms")
+
+
+def _tile_mutants(kc, vc):
+    """(name, (K, V)) for faults of a paged extend's per-tile table read, on
+    gathered rows [B, N*PS, K, D] with pages of 128: the first 64-key tile
+    of page entry 5 (keys 640..703) read from entry 6, and the second half
+    of that page (keys 704..767) read from its first half."""
+    t0 = 5 * PAGE
+    for what, dst, src in (
+            ("keys 640..703 read from the next page-table entry",
+             (t0, t0 + 64), (t0 + PAGE, t0 + PAGE + 64)),
+            ("keys 704..767 (the page's second 64-key half) read from its "
+             "first half", (t0 + 64, t0 + PAGE), (t0, t0 + 64))):
+        kt, vt = kc.clone(), vc.clone()
+        kt[:, dst[0]:dst[1]] = kc[:, src[0]:src[1]]
+        vt[:, dst[0]:dst[1]] = vc[:, src[0]:src[1]]
+        yield what, (kt, vt)
+
+
+def _repage(torch, gen, rows_k, rows_v, ps):
+    """K and V pools of `ps`-token pages holding dense rows [B, S, K, D] in
+    shuffled pages (page 0 unused, as the engine's trash page) and their
+    block tables [B, S / ps]: the paged layout of the same keys."""
+    b, s, kv, d = rows_k.shape
+    n = s // ps
+    perm = torch.randperm(b * n, generator=gen, device="cuda") + 1
+    pools = []
+    for rows in (rows_k, rows_v):
+        pool = torch.zeros((b * n + 1, ps, kv, d), dtype=rows.dtype,
+                           device="cuda")
+        pool[perm] = rows.reshape(b * n, ps, kv, d)
+        pools.append(pool)
+    return (*pools, perm.reshape(b, n).to(torch.int32).contiguous())
+
+
+def _extend_pair(torch, name, q, kp, vp, tables, start_host, chunk_host):
+    """One paged extend case in bf16, both kernels: paged_flash_extend over
+    the pools and paged_flash_extend_quant over them quantized, each against
+    its plain version; the int8 kernel equal bit for bit to the bf16 kernel
+    over the pools dequantized with dequantize_kv. Returns the bf16
+    output."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.quant import dequantize_kv, quantize_kv
+
+    start = torch.tensor(start_host, dtype=torch.int32, device="cuda")
+    chunk = torch.tensor(chunk_host, dtype=torch.int32, device="cuda")
+    got = ca.paged_flash_extend(q, kp, vp, tables, start, chunk)
+    _check(f"paged_flash_extend bf16 {name}", got,
+           ca.paged_flash_extend_reference(q, kp, vp, tables, start, chunk),
+           rel=BF16_REL, rows=chunk_host)
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    got8 = ca.paged_flash_extend_quant(q, kq, ks, vq, vs, tables, start, chunk)
+    _check(f"paged_flash_extend_quant bf16 {name}", got8,
+           ca.paged_flash_extend_quant_reference(q, kq, ks, vq, vs, tables,
+                                                 start, chunk),
+           rel=BF16_REL, rows=chunk_host)
+    deq = ca.paged_flash_extend(q, dequantize_kv(kq, ks, torch.bfloat16),
+                                dequantize_kv(vq, vs, torch.bfloat16), tables,
+                                start, chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(got8, deq):
+        raise AssertionError(f"paged_flash_extend_quant {name}: not the bf16 "
+                             "extend's bits over the dequantized pools")
+    return got
+
+
+def _paged_extend_cases(torch, gen, kp, vp, tables) -> None:
+    """The tensor-core paged extends (bf16) on the edges of their 64-key
+    tiles and per-tile table reads, each case for both kernels
+    (_extend_pair): the table shape (476 queries at 1024) and a start
+    inside a key tile (1000), both bit for bit against flash_extend over the
+    dense row that holds the same keys; a chunk that crosses a page
+    boundary inside a query tile; 3 rows with other starts and chunk_lens,
+    whose padding query tiles read nothing, row 0 alone equal to its row in
+    the batch; pages of 16, 32, 64 and 128 with shuffled tables, each equal
+    to flash_extend over the dense row; head_dim 64 with GQA groups of 7
+    and 8."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    bf16 = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    def same_as_dense(name, got, q, kc, vc, start_host, chunk_host):
+        start = torch.tensor(start_host, dtype=torch.int32, device="cuda")
+        chunk = torch.tensor(chunk_host, dtype=torch.int32, device="cuda")
+        dense = ca.flash_extend(q, kc, vc, start, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dense):
+            raise AssertionError(f"paged_flash_extend {name}: not "
+                                 "flash_extend's bits over the dense row")
+        log(f"  paged_flash_extend bf16 {name}: flash_extend's bits over the "
+            "dense row holding the same keys")
+
+    tab1 = tables[:1].contiguous()
+    kc, vc = ca.gather_kv_pages(kp, tab1), ca.gather_kv_pages(vp, tab1)
+    for start_host in (1024, 1000):
+        q = randn((1, 512, H, D))
+        name = f"[1,512,{H},{D}] start {start_host} chunk 476"
+        got = _extend_pair(torch, name, q, kp, vp, tab1, [start_host], [476])
+        same_as_dense(name, got, q, kc, vc, [start_host], [476])
+    q = randn((1, 64, H, D))
+    _extend_pair(torch, f"[1,64,{H},{D}] start 100 chunk 60 (crosses the "
+                 "page edge at 128 inside query tile 1)", q, kp, vp, tab1,
+                 [100], [60])
+    # 3 rows: row 1's query tiles 1..3 and row 2's tile 3 are all padding
+    starts, chunks = [1000, 0, 517], [64, 10, 33]
+    q = randn((3, 64, H, D))
+    tab3 = tables[:3].contiguous()
+    got = _extend_pair(torch, f"[3,64,{H},{D}] starts {starts} chunk_lens "
+                       f"{chunks}", q, kp, vp, tab3, starts, chunks)
+    alone = ca.paged_flash_extend(
+        q[:1].contiguous(), kp, vp, tab1,
+        torch.tensor(starts[:1], dtype=torch.int32, device="cuda"),
+        torch.tensor(chunks[:1], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    if not torch.equal(alone[0], got[0]):
+        raise AssertionError("paged_flash_extend: row 0 alone differs from "
+                             "its row in the batch of 3")
+    log("  paged_flash_extend bf16: row 0 alone == its row in the batch of "
+        "3, bit for bit")
+    # pages of 16..128 holding slot 0's first 1536 keys, shuffled tables
+    rows_k, rows_v = kc[:, :1536].contiguous(), vc[:, :1536].contiguous()
+    q = randn((1, 256, H, D))
+    for ps in (16, 32, 64, 128):
+        pk, pv, tab = _repage(torch, gen, rows_k, rows_v, ps)
+        name = f"[1,256,{H},{D}] pages of {ps} start 1000 chunk 200"
+        got = _extend_pair(torch, name, q, pk, pv, tab, [1000], [200])
+        same_as_dense(name, got, q, rows_k, rows_v, [1000], [200])
+    del kc, vc, rows_k, rows_v
+    # head_dim 64 (Qwen2.5-0.5B G = 7, TinyLlama G = 8)
+    for tag, h, kv, ps in (("G=7", 14, 2, 16), ("G=8", 32, 4, 128)):
+        rows_k, rows_v = randn((2, 1024, kv, 64)), randn((2, 1024, kv, 64))
+        pk, pv, tab = _repage(torch, gen, rows_k, rows_v, ps)
+        q = randn((2, 256, h, 64))
+        name = (f"[2,256,{h},64] kv {kv} ({tag}) pages of {ps} starts "
+                "[777, 37] chunks [200, 50]")
+        got = _extend_pair(torch, name, q, pk, pv, tab, [777, 37], [200, 50])
+        same_as_dense(name, got, q, rows_k, rows_v, [777, 37], [200, 50])
 
 
 def _dense_kernels(torch, gen, lens_host, start_host, chunk_host) -> list[dict]:
@@ -1113,6 +1283,12 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
     for what, mutant in mutants(q, mask, tab1, False):
         _must_fail(f"paged_flash_extend_quant bf16, {what}", mutant, want,
                    rel=BF16_REL, rows=[chunk_host])
+    kc, vc = _dequant(kq, ks, tab1, bf16), _dequant(vq, vs, tab1, bf16)
+    for what, (kt, vt) in _tile_mutants(kc, vc):
+        _must_fail(f"paged_flash_extend_quant bf16, {what}",
+                   _plain(torch, q, kt, vt, mask), want, rel=BF16_REL,
+                   rows=[chunk_host])
+    del kc, vc
     keys = start_host + chunk_host
     visible = sum(start_host + i + 1 for i in range(chunk_host))
     nbytes = (keys * KV * (D + 4) * 2 + 2 * chunk_host * H * D * 2
@@ -1127,6 +1303,8 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
             q, kq, ks, vq, vs, tab1, start, chunk), 20),
         ms_cold=cuda_ms_cold(lambda: ca.paged_flash_extend_quant(
             q, kq, ks, vq, vs, tab1, start, chunk), 20),
+        dev_ms=profiled_ms(lambda: ca.paged_flash_extend_quant(
+            q, kq, ks, vq, vs, tab1, start, chunk), 20, QUANT_EXTEND_MARKS),
         plain_ms=cuda_ms(lambda: ca.paged_flash_extend_quant_reference(
             q, kq, ks, vq, vs, tab1, start, chunk), 3),
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -1389,6 +1567,8 @@ DENSE_PATH = ("flash_prefill", "flash_decode", "flash_extend")
 ADAPTERS = (("acme", 8, ("wq", "wk", "wv", "wo")),
             ("beta", 16, ("wq", "wk", "wv", "wo", "wg", "wu", "wd")))
 ADAPTER_SCALE = 0.03
+# greedy tokens of the long prompt's timed requests
+LONG_TOKENS = 16
 
 
 # Ops of the model whose row-0 outputs _first_difference compares, and the
@@ -1570,12 +1750,13 @@ def _dense_paged_report(core, prompt: list[int]) -> str:
 
 
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
-                bf16_ids: list[int] | None = None, **core_kwargs) -> dict:
+                bf16_ids: list[int] | None = None,
+                bf16_long_ids: list[int] | None = None, **core_kwargs) -> dict:
     """Serve Llama-3-8B at full width and depth, random weights from seed 0,
     through the HTTP server, then time requests on its core. `core_kwargs`
     pick the path (quantize="all", kv_layout="dense", lora_dir=...).
-    Returns the metrics, the greedy ids of the timed prompt and the kernel
-    launches of this run."""
+    Returns the metrics, the greedy ids of the timed prompts (124 and ~1500
+    tokens) and the kernel launches of this run."""
     import gc
 
     import torch
@@ -1656,12 +1837,30 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         _concurrent([lambda i=i: _timed_core_request(
             core, prompt[:-1] + [i], 64) for i in range(SLOTS)])
         agg = SLOTS * 64 / (time.monotonic() - t_batch)
+        # the long prompt's TTFT: its chunks run the extend kernel
+        long_prompt = engine.encode_chat([{"role": "user",
+                                           "content": long_text}])
+        long_runs = [_timed_core_request(core, long_prompt, LONG_TOKENS,
+                                         "beta" if lora else None)
+                     for _ in range(2)]
+        if long_runs[0][0] != long_runs[1][0]:
+            raise AssertionError("the long prompt's greedy ids differ between "
+                                 "identical runs")
         stats = {"ttft_s": min(ttft1, ttft2), "decode_tok_s_1": max(rate1, rate2),
-                 "tok_s_8": agg, "ids": ids1}
+                 "tok_s_8": agg, "ids": ids1,
+                 "ttft_long_s": min(r[1] for r in long_runs),
+                 "long_ids": long_runs[0][0]}
         log(f"serve {label} [{dev['smi']}]: single-request TTFT "
             f"{stats['ttft_s'] * 1e3:.1f} ms ({len(prompt)}-token prompt), "
-            f"decode {stats['decode_tok_s_1']:.1f} tok/s; 8 concurrent x 64 "
+            f"{stats['ttft_long_s'] * 1e3:.1f} ms ({len(long_prompt)}-token "
+            f"prompt{', adapter beta' if lora else ''}), decode "
+            f"{stats['decode_tok_s_1']:.1f} tok/s; 8 concurrent x 64 "
             f"tokens: {agg:.1f} tok/s incl. prefill")
+        if bf16_long_ids is not None:
+            log(f"serve {label}: the first "
+                f"{_shared(stats['long_ids'], bf16_long_ids)} of {LONG_TOKENS} "
+                f"greedy tokens of the {len(long_prompt)}-token prompt agree "
+                "with the bf16 paged run")
         if bf16_ids is not None:
             agree = _shared(ids1, bf16_ids)
             log(f"serve {label}: the first {agree} of {len(ids1)} greedy "
@@ -1757,7 +1956,14 @@ def phase_serve_lora(dev: dict, bf16_ids: list[int]) -> dict:
                            lora_dir=lora_dir)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=None,
+                        help="checkout to import llmlb_tpu_torch from (another "
+                             "commit, to time two trees in one call)")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="run the device, build and serve phases only")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError as e:
@@ -1766,26 +1972,33 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    tree = Path(args.tree).resolve() if args.tree else REPO
+    sys.path.insert(0, str(tree))
     try:
-        import llmlb_tpu_torch  # noqa: F401
+        import llmlb_tpu_torch
     except ImportError as e:
         print(f"chip_smoke: the port package is not here ({e}); run from the "
               "repository root", file=sys.stderr)
         return 2
+    if Path(llmlb_tpu_torch.__file__).resolve().parents[1] != tree:
+        print(f"chip_smoke: imported {llmlb_tpu_torch.__file__}, not from "
+              f"{tree}", file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
     phase = "device"
+    kernels = []
     try:
         dev = phase_device()
         phase = "build"
         phase_build()
-        phase = "kernels"
-        kernels = phase_kernels()
-        phase = "unembed"
-        phase_unembed()
-        phase = "model entry points"
-        phase_model_entry_points()
+        if not args.serve_only:
+            phase = "kernels"
+            kernels = phase_kernels()
+            phase = "unembed"
+            phase_unembed()
+            phase = "model entry points"
+            phase_model_entry_points()
         phase = "serve"
         stats = phase_serve(dev, "bf16", BF16_PATH)
         phase = "serve int8"
@@ -1795,11 +2008,20 @@ def main() -> int:
         stats_lora = phase_serve_lora(dev, stats["ids"])
         phase = "serve dense"
         stats_dense = phase_serve(dev, "dense", DENSE_PATH,
-                                  bf16_ids=stats["ids"], kv_layout="dense")
+                                  bf16_ids=stats["ids"],
+                                  bf16_long_ids=stats["long_ids"],
+                                  kv_layout="dense")
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
         return 1
+    serves = {"bf16": stats, "quantize=all": stats_int8, "lora": stats_lora,
+              "dense": stats_dense}
+    log(json.dumps({"serve": {
+        label: {k: st[k] for k in ("ttft_s", "ttft_long_s", "decode_tok_s_1",
+                                   "tok_s_8")}
+        for label, st in serves.items()}, "tree": str(tree),
+        "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,
                 "flash_extend": stats_dense,
                 **{n: stats_int8 for n in INT8_PATH if n != "flash_prefill"}}

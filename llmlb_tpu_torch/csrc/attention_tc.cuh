@@ -1,13 +1,14 @@
 // Tensor-core block body of the bf16 prefill and extend kernels
-// (flash_prefill.cu, flash_extend.cu).
+// (flash_prefill.cu, flash_extend.cu, paged_extend.cu,
+// paged_extend_quant.cu).
 //
 // It computes what `attend_block` (attention_common.cuh) computes for a
 // `Rows` policy, for bf16 q/k/v and head_dim D in {64, 128}: one block owns
 // kRows = 64 query rows that share one KV head (row r is position
 // q0 + r / G, head kh * G + r % G, as attend_block folds the GQA group), and
 // sweeps keys [0, kv_end) in tiles of kTileK = 64 positions. 64 divides the
-// 128-token page, so a paged staging policy can later load one page as two
-// tiles through one block-table lookup.
+// engine's 128-token page, so StageTcPaged loads one page as two tiles, each
+// through one block-table read.
 //
 // Design, for an H100 (sm_90a):
 //   * Tensor cores through `mma.sync.aligned.m16n8k16` (bf16 in, fp32
@@ -38,6 +39,30 @@
 //   * Shared memory at D = 128: q 16 KB + 2 stages x (K 16 KB + V 16 KB) =
 //     80 KB, so two blocks (eight warps) fit on an SM.
 //
+// How a key tile reaches the swizzled bf16 K and V tiles is the `Stage`
+// template parameter, as in attend_block:
+//   * StageTcPlain (the default: flash_prefill.cu, flash_extend.cu): one
+//     cp.async per 16-byte chunk from rw.k_row(c) / rw.v_row(c).
+//   * StageTcPaged (paged_extend.cu, bf16 pools [P, PS, K, D]): the same
+//     copies through the block table, read once per tile when 64 divides the
+//     page size (the tile then lies in one page, its rows K cells apart), else
+//     once per key row; never once per 16-byte chunk (2 x D / 8 dependent
+//     loads a key).
+//   * StageTcInt8 (paged_extend_quant.cu, int8 codes [P, PS, K, D] and f32
+//     scales [P, PS, K], bf16 q): cp.async copies the raw codes and scales
+//     into a 2-stage ring; once a tile has landed, one pass writes
+//     bf16(float(code) * scale) (round to nearest even: dequantize_kv's and
+//     the Pallas kernel's rounding) into ONE bf16 K/V stage, and the two
+//     products run from it as above. The copy of tile i + 1 still overlaps
+//     tile i's products; the dequant pass does not. Shared memory at
+//     D = 128: q 16 KB + K 16 KB + V 16 KB + 2 x (codes 16 KB + scales
+//     0.5 KB) = 81 KB, so two blocks still fit on an SM (a second bf16 stage
+//     would make it 113 KB and one block).
+//   All three write the same bf16 values for the same keys, so the paged bf16
+//   extend gives flash_extend's bits over a dense row holding the same keys,
+//   and the int8 extend gives the bf16 extend's bits over the pools
+//   dequantized with dequantize_kv.
+//
 // Numerics follow _online_update in llmlb_tpu/ops/pallas_attention.py:
 // fp32 scores scaled by `scale` after the dot; the running max and the sum
 // l taken from the fp32 probabilities; the probabilities rounded to bf16 for
@@ -45,8 +70,14 @@
 // 0 (exp(-inf)); a row that saw no key ends with l == 0 and writes 0.
 //
 // `Rows` supplies what attend_block's policies supply (rows, row_valid,
-// q_off, kv_end, allowed, k_row, v_row) and one more:
+// q_off, kv_end, allowed; for StageTcPlain k_row, v_row) and one more:
 //   int unmasked_end()   keys [0, unmasked_end) are visible to every row
+// The paged stages read, instead of k_row and v_row:
+//   k_pages, v_pages     the pools (bf16 values, or int8 codes)
+//   k_scales, v_scales   (StageTcInt8) the f32 scales [P, PS, K]
+//   page_size, kv_heads  PS and K of the pools
+//   size_t cell(int c)   index of key c's (position, KV head) cell in
+//                        [P, PS, K]: one block-table read
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,11 +94,6 @@ constexpr int kThreads = 128;  // one warpgroup: 4 warps x 16 rows
 constexpr int kRows = 64;      // query rows of a block (positions x group)
 constexpr int kTileK = 64;     // key positions per tile
 constexpr int kStages = 2;     // K/V tiles in flight
-
-template <int D> constexpr size_t smem_bytes() {
-  return (size_t)kRows * D * 2                   // q rows
-         + (size_t)2 * kStages * kTileK * D * 2;  // K and V stages
-}
 
 // Byte offset of 16-byte chunk `c` of row `r` in a tile of D bf16 values a
 // row. The chunk index is XORed with r % 8, so the 8 row addresses of one
@@ -123,16 +149,192 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, typename Rows>
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// The body's shared memory: q rows, Stage::kTiles swizzled bf16 K tiles and
+// as many V tiles, then the Stage's own raw area. Shared-space addresses for
+// cp.async and ldmatrix; `base` is the generic pointer of the same memory.
+struct Tiles {
+  unsigned char* base;
+  uint32_t q, k, v, raw;
+};
+
+template <int D> __host__ __device__ constexpr uint32_t tile_bytes() {
+  return kTileK * D * 2;
+}
+
+// StageTcPlain: one cp.async per 16-byte chunk of rw.k_row(c), rw.v_row(c).
+struct StageTcPlain {
+  static constexpr int kTiles = kStages;  // bf16 K/V tiles: the copy ring
+  template <int D>
+  __host__ __device__ static constexpr size_t raw_bytes() {
+    return 0;
+  }
+
+  // issue the copies of key tile `tile` into ring slot `slot` (no commit)
+  template <int D, typename Rows>
+  __device__ static void load(const Rows& rw, const Tiles& sm, int tile,
+                              int slot, int kv_end, const bf16* zero_src) {
+    constexpr int kChunks = D / 8;
+    const int t0 = tile * kTileK;
+    for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = t0 + r < kv_end;
+      const uint32_t off = slot * tile_bytes<D>() + swz<D>(r, c);
+      cp_async16(sm.k + off, ok ? rw.k_row(t0 + r) + c * 8 : zero_src, ok);
+      cp_async16(sm.v + off, ok ? rw.v_row(t0 + r) + c * 8 : zero_src, ok);
+    }
+  }
+  // the K/V stage holding the tile of ring slot `slot`, once its copies
+  // have landed
+  template <int D>
+  __device__ static int ready(const Tiles&, int slot) { return slot; }
+};
+
+// Cell index of key row t0 + r of a tile in [P, PS, K]. When 64 divides the
+// page size the tile lies in one page, so `cell0` (= rw.cell(t0), read once
+// per tile) plus r rows of K cells is the cell; else the row reads its own
+// page. Only called for keys below kv_end.
+template <typename Rows>
+__device__ __forceinline__ size_t tile_cell(const Rows& rw, bool one_page,
+                                            size_t cell0, int t0, int r) {
+  return one_page ? cell0 + (size_t)r * rw.kv_heads : rw.cell(t0 + r);
+}
+
+// StageTcPaged: StageTcPlain's copies, addressed through the block table.
+struct StageTcPaged {
+  static constexpr int kTiles = kStages;
+  template <int D>
+  __host__ __device__ static constexpr size_t raw_bytes() {
+    return 0;
+  }
+
+  template <int D, typename Rows>
+  __device__ static void load(const Rows& rw, const Tiles& sm, int tile,
+                              int slot, int kv_end, const bf16* zero_src) {
+    constexpr int kChunks = D / 8;
+    const int t0 = tile * kTileK;  // < kv_end: the tile has a key
+    const bool one_page = rw.page_size % kTileK == 0;
+    const size_t cell0 = one_page ? rw.cell(t0) : 0;
+    for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = t0 + r < kv_end;
+      const size_t e =
+          ok ? tile_cell(rw, one_page, cell0, t0, r) * D + c * 8 : 0;
+      const uint32_t off = slot * tile_bytes<D>() + swz<D>(r, c);
+      cp_async16(sm.k + off, ok ? rw.k_pages + e : zero_src, ok);
+      cp_async16(sm.v + off, ok ? rw.v_pages + e : zero_src, ok);
+    }
+  }
+  template <int D>
+  __device__ static int ready(const Tiles&, int slot) { return slot; }
+};
+
+// bf16(float(code) * scale) of 8 int8 codes, packed in memory order
+__device__ __forceinline__ uint4 dequant8(uint2 codes, float s) {
+  union {
+    uint2 u;
+    int8_t b[8];
+  } c;
+  c.u = codes;
+  uint4 o;
+  o.x = pack_bf16((float)c.b[0] * s, (float)c.b[1] * s);
+  o.y = pack_bf16((float)c.b[2] * s, (float)c.b[3] * s);
+  o.z = pack_bf16((float)c.b[4] * s, (float)c.b[5] * s);
+  o.w = pack_bf16((float)c.b[6] * s, (float)c.b[7] * s);
+  return o;
+}
+
+// StageTcInt8: raw codes and scales through a 2-stage cp.async ring, then one
+// dequant pass a tile into a single bf16 K/V stage.
+struct StageTcInt8 {
+  static constexpr int kTiles = 1;
+  // a raw slot: K codes [64][D], V codes [64][D], K scales [64], V scales [64]
+  template <int D>
+  __host__ __device__ static constexpr uint32_t slot_bytes() {
+    return 2 * kTileK * D + 2 * kTileK * 4;
+  }
+  template <int D>
+  __host__ __device__ static constexpr size_t raw_bytes() {
+    return (size_t)kStages * slot_bytes<D>();
+  }
+
+  template <int D, typename Rows>
+  __device__ static void load(const Rows& rw, const Tiles& sm, int tile,
+                              int slot, int kv_end, const bf16* zero_src) {
+    constexpr int kChunks = D / 16;  // 16 codes a copy
+    const int t0 = tile * kTileK;
+    const bool one_page = rw.page_size % kTileK == 0;
+    const size_t cell0 = one_page ? rw.cell(t0) : 0;
+    const uint32_t raw = sm.raw + slot * slot_bytes<D>();
+    for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = t0 + r < kv_end;
+      const size_t e =
+          ok ? tile_cell(rw, one_page, cell0, t0, r) * D + c * 16 : 0;
+      const uint32_t off = r * D + c * 16;
+      cp_async16(raw + off, ok ? rw.k_pages + e : (const void*)zero_src, ok);
+      cp_async16(raw + kTileK * D + off,
+                 ok ? rw.v_pages + e : (const void*)zero_src, ok);
+    }
+    for (int i = threadIdx.x; i < 2 * kTileK; i += kThreads) {
+      const int r = i % kTileK;
+      const bool ok = t0 + r < kv_end;
+      const float* scales = i < kTileK ? rw.k_scales : rw.v_scales;
+      const size_t cell = ok ? tile_cell(rw, one_page, cell0, t0, r) : 0;
+      cp_async4(raw + 2 * kTileK * D + i * 4,
+                ok ? scales + cell : (const void*)zero_src, ok);
+    }
+  }
+
+  template <int D>
+  __device__ static int ready(const Tiles& sm, int slot) {
+    constexpr int kChunks = D / 8;  // 8 codes -> one 16-byte bf16 chunk
+    const unsigned char* raw =
+        sm.base + (sm.raw - sm.q) + slot * slot_bytes<D>();
+    const float* scales = reinterpret_cast<const float*>(raw + 2 * kTileK * D);
+    unsigned char* kt = sm.base + (sm.k - sm.q);
+    unsigned char* vt = sm.base + (sm.v - sm.q);
+    for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const uint2 kc = *reinterpret_cast<const uint2*>(raw + r * D + c * 8);
+      const uint2 vc =
+          *reinterpret_cast<const uint2*>(raw + kTileK * D + r * D + c * 8);
+      *reinterpret_cast<uint4*>(kt + swz<D>(r, c)) = dequant8(kc, scales[r]);
+      *reinterpret_cast<uint4*>(vt + swz<D>(r, c)) =
+          dequant8(vc, scales[kTileK + r]);
+    }
+    __syncthreads();  // the bf16 tiles are whole before any ldmatrix
+    return 0;
+  }
+};
+
+template <int D, typename Stage = StageTcPlain>
+constexpr size_t smem_bytes() {
+  return (size_t)kRows * D * 2                          // q rows
+         + (size_t)2 * Stage::kTiles * tile_bytes<D>()  // K and V tiles
+         + Stage::template raw_bytes<D>();              // the raw ring
+}
+
+template <int D, typename Stage = StageTcPlain, typename Rows>
 __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
                                 bf16* __restrict__ out, float scale) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16, <= 128");
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int kTileBytes = kTileK * D * 2;
+  constexpr int kTileBytes = tile_bytes<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t s_q = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t s_k = s_q + kRows * D * 2;  // kStages K tiles
-  const uint32_t s_v = s_k + kStages * kTileBytes;
+  Tiles sm;
+  sm.base = smem;
+  sm.q = (uint32_t)__cvta_generic_to_shared(smem);
+  sm.k = sm.q + kRows * D * 2;  // Stage::kTiles K tiles
+  sm.v = sm.k + Stage::kTiles * kTileBytes;
+  sm.raw = sm.v + Stage::kTiles * kTileBytes;
+  const uint32_t s_q = sm.q;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // quad and place in it
@@ -150,17 +352,7 @@ __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
     const bool ok = r < n_rows && rw.row_valid(r);
     cp_async16(s_q + swz<D>(r, c), ok ? q + rw.q_off(r) + c * 8 : q, ok);
   }
-  auto load_tile = [&](int tile, int stage) {
-    const int t0 = tile * kTileK;
-    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const bool ok = t0 + r < kv_end;
-      const uint32_t off = stage * kTileBytes + swz<D>(r, c);
-      cp_async16(s_k + off, ok ? rw.k_row(t0 + r) + c * 8 : q, ok);
-      cp_async16(s_v + off, ok ? rw.v_row(t0 + r) + c * 8 : q, ok);
-    }
-  };
-  if (n_tiles > 0) load_tile(0, 0);
+  if (n_tiles > 0) Stage::template load<D>(rw, sm, 0, 0, kv_end, q);
   cp_async_commit();  // group: q and tile 0
 
   float o[D / 8][4];
@@ -173,14 +365,15 @@ __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
   uint32_t qf[D / 16][4];       // A fragments of the warp's 16 q rows
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it % kStages;
-    // the next tile's copy overlaps this tile's two products; the stage it
-    // overwrites was released by the __syncthreads that ended the last
+    // the next tile's copy overlaps this tile's two products; the ring slot
+    // it overwrites was released by the __syncthreads that ended the last
     // iteration
-    if (it + 1 < n_tiles) load_tile(it + 1, (it + 1) % kStages);
+    if (it + 1 < n_tiles)
+      Stage::template load<D>(rw, sm, it + 1, (it + 1) % kStages, kv_end, q);
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile `it` has landed
     __syncthreads();
+    const int stage = Stage::template ready<D>(sm, it % kStages);
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -196,7 +389,7 @@ __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
     for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    const uint32_t kt = s_k + stage * kTileBytes;
+    const uint32_t kt = sm.k + stage * kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
@@ -261,7 +454,7 @@ __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
     }
 
     // -- O += P V --------------------------------------------------------------
-    const uint32_t vt = s_v + stage * kTileBytes;
+    const uint32_t vt = sm.v + stage * kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < kTileK / 16; ++kk) {
 #pragma unroll
@@ -274,7 +467,7 @@ __device__ void attend_block_tc(const Rows& rw, const bf16* __restrict__ q,
         mma_bf16(o[2 * dp + 1], pf[kk], b2, b3);
       }
     }
-    __syncthreads();  // the next iteration's copy reuses this stage
+    __syncthreads();  // the next iteration's copy reuses this slot
   }
   cp_async_wait<0>();  // nothing left in flight (no tile: the q group)
 

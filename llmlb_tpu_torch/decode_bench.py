@@ -1,4 +1,5 @@
-"""Time the one-token decode attention kernels on the card.
+"""Time the attention kernels on the card: the one-token decodes, or with
+`--extend` the prefill and extend kernels.
 
 Three kernels, each at two shapes of Llama-3-8B (32 heads over 8 KV heads,
 head_dim 128, bf16, pages of 128 tokens, the engine's 8 slots of 4096):
@@ -20,6 +21,7 @@ power limit is one JSON object.
 
     python -m llmlb_tpu_torch.decode_bench
     python llmlb_tpu_torch/decode_bench.py --tree DIR   # another checkout
+    python -m llmlb_tpu_torch.decode_bench --extend --compare FILE
 
 `--lora` also times the LoRA kernel at Llama-3-8B's projection shapes (8
 rows, rank 16, 9 pool rows; T 1, 128 and 512): `lora_delta` (the fp32
@@ -32,6 +34,17 @@ launches.
 (kTileT, cluster size, kExpandPositions) triple, as `--split-keys` does for
 the decode kernels, and times it at T 128 and 512 with every cluster of that
 size.
+
+`--extend` times the four chunk kernels instead, at the shapes of
+PERF.md's kernel table: `flash_prefill` (8 prompts of 512..1 tokens in a
+512 bucket), `flash_extend` (476 queries at 1024 over a 4096-cell row),
+`paged_flash_extend` and `paged_flash_extend_quant` (the same chunk over the
+same keys in shuffled 128-token pages, bf16 and int8), each against its
+plain version and timed as above. `--save-out FILE` writes their outputs;
+`--compare FILE` holds this tree's against such a file, and fails unless
+`flash_prefill` and `flash_extend` give the same bits (the paged extends'
+largest difference is reported): run the parent tree with `--save-out`,
+then this one with `--compare`, in one call on one card.
 
 `--tree DIR` imports `llmlb_tpu_torch` from the checkout at DIR (an older
 commit, to compare two trees in one run on one card). `--split-keys
@@ -121,6 +134,83 @@ def max_err(got, want, rel=BF16_REL) -> tuple[float, bool]:
     rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
     diff = (g - w).abs()
     return diff.max().item(), bool((diff <= rel * (w.abs() + rms)).all())
+
+
+def extend_bench(torch, base: dict, save: str | None,
+                 compare: str | None) -> None:
+    """The chunk kernels at the table shapes, one JSON line each (see the
+    module docstring); their outputs saved to `save` or held bit for bit
+    against those in `compare`."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    plens_host = [512, 500, 384, 256, 200, 129, 64, 1]
+    plens = torch.tensor(plens_host, dtype=torch.int32, device="cuda")
+    pq, pk, pv = randn((ROWS, 512, H, D)), randn((ROWS, 512, KV, D)), \
+        randn((ROWS, 512, KV, D))
+    start_host, chunk_host = 1024, 476
+    start = torch.tensor([start_host], dtype=torch.int32, device="cuda")
+    chunk = torch.tensor([chunk_host], dtype=torch.int32, device="cuda")
+    q = randn((1, 512, H, D))
+    kc, vc = randn((1, CAPACITY, KV, D)), randn((1, CAPACITY, KV, D))
+    # the row's keys in shuffled pages of 128 (page 0 unused)
+    ppn = CAPACITY // PAGE
+    perm = torch.randperm(ppn, generator=gen, device="cuda") + 1
+    kp = torch.zeros((ppn + 1, PAGE, KV, D), dtype=torch.bfloat16, device="cuda")
+    vp = torch.zeros_like(kp)
+    kp[perm], vp[perm] = kc.reshape(ppn, PAGE, KV, D), vc.reshape(ppn, PAGE, KV, D)
+    tables = perm[None].to(torch.int32).contiguous()
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    cases = {
+        "flash_prefill": (
+            lambda: ca.flash_prefill(pq, pk, pv, plens),
+            lambda: ca.flash_prefill_reference(pq, pk, pv, plens), plens_host),
+        "flash_extend": (
+            lambda: ca.flash_extend(q, kc, vc, start, chunk),
+            lambda: ca.flash_extend_reference(q, kc, vc, start, chunk),
+            [chunk_host]),
+        "paged_flash_extend": (
+            lambda: ca.paged_flash_extend(q, kp, vp, tables, start, chunk),
+            lambda: ca.paged_flash_extend_reference(q, kp, vp, tables, start,
+                                                    chunk), [chunk_host]),
+        "paged_flash_extend_quant": (
+            lambda: ca.paged_flash_extend_quant(q, kq, ks, vq, vs, tables,
+                                                start, chunk),
+            lambda: ca.paged_flash_extend_quant_reference(
+                q, kq, ks, vq, vs, tables, start, chunk), [chunk_host]),
+    }
+    outs = {}
+    for kernel, (fn, plain, rows) in cases.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        errs = [max_err(got[b, :n], want[b, :n]) for b, n in enumerate(rows)]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        outs[kernel] = got.cpu()
+        print(json.dumps({**base, "shape": "table", "kernel": kernel,
+                          "max_abs_err": err, "within": ok,
+                          "ms": cuda_ms(torch, fn, 20),
+                          "ms_cold": cuda_ms_cold(torch, fn, 20),
+                          "device_ms": device_ms(torch, fn, 20)}), flush=True)
+        if not ok:
+            raise AssertionError(f"{kernel}: disagrees with its plain version "
+                                 f"({err:.3e})")
+    if save:
+        torch.save(outs, save)
+    if compare:
+        theirs = torch.load(compare)
+        for kernel, got in outs.items():
+            same = torch.equal(got, theirs[kernel])
+            diff = (got.float() - theirs[kernel].float()).abs().max().item()
+            print(json.dumps({**base, "kernel": kernel, "compared_with": compare,
+                              "bits_equal": same, "max_abs_diff": diff}),
+                  flush=True)
+            if kernel in ("flash_prefill", "flash_extend") and not same:
+                raise AssertionError(f"{kernel}: other bits than {compare}")
 
 
 def lora_bench(torch, base: dict, lengths=(1, 128, 512)) -> None:
@@ -218,6 +308,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--tag", default="", help="label on every line")
     parser.add_argument("--lora", action="store_true",
                         help="also time the LoRA kernel")
+    parser.add_argument("--extend", action="store_true",
+                        help="time the prefill and extend kernels instead")
+    parser.add_argument("--save-out", default=None,
+                        help="(--extend) file to save the outputs to")
+    parser.add_argument("--compare", default=None,
+                        help="(--extend) outputs to hold these against")
     parser.add_argument("--lora-variants", default="",
                         help="comma-separated TILExCLUSTERxEXPAND builds of "
                              "the LoRA kernel (kTileT, one cluster size, "
@@ -245,6 +341,11 @@ def main(argv: list[str] | None = None) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    if args.extend:
+        build.load()
+        extend_bench(torch, {"tag": args.tag, "tree": str(tree), "card": smi},
+                     args.save_out, args.compare)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape):

@@ -31,10 +31,16 @@ and the same bits through the pages as through the dense cache. The body
 caches a split's cell indices as 32-bit unsigned ints, so the wrappers
 refuse a cache of 2^32 (position, KV head) cells or more.
 
-In bf16, `flash_prefill` and `flash_extend` run on the tensor cores
+In bf16, `flash_prefill`, `flash_extend`, `paged_flash_extend` and
+`paged_flash_extend_quant` (bf16 q over int8 pools) run on the tensor cores
 (`csrc/attention_tc.cuh`), built for head_dim 64 and 128 only: any other
 bf16 head_dim raises (`check_tc_head_dim`) instead of reaching another
-kernel. In float32 they run on the CUDA cores at any head_dim the others take.
+kernel. The paged extends read the block table once per 64-key tile when 64
+divides the page size, else once per key row; the int8 one dequantizes each
+tile into bf16 in shared memory with `dequantize_kv`'s rounding, so it gives
+the bf16 extend's bits over the dequantized pools, and the paged bf16 extend
+gives `flash_extend`'s bits over a dense row holding the same keys. In
+float32 all four run on the CUDA cores at any head_dim the others take.
 
 Each wrapper takes the JAX kernel's signature. On CUDA tensors it checks
 device, dtype, shape, contiguity and alignment, allocates the output with
@@ -411,6 +417,8 @@ def paged_flash_extend(q: torch.Tensor, k_pages: torch.Tensor,
                   {"q": q, "k_pages": k_pages, "v_pages": v_pages},
                   {"block_tables": block_tables, "start_pos": start_pos,
                    "chunk_lens": chunk_lens})
+    if q.dtype == torch.bfloat16:
+        check_tc_head_dim("paged_flash_extend", d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -501,6 +509,8 @@ def paged_flash_extend_quant(q: torch.Tensor, k_pages: torch.Tensor,
                    "chunk_lens": chunk_lens},
                   codes={"k_pages": k_pages, "v_pages": v_pages},
                   scales={"k_scales": k_scales, "v_scales": v_scales})
+    if q.dtype == torch.bfloat16:
+        check_tc_head_dim(name, d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

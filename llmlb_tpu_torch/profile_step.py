@@ -72,7 +72,8 @@ ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
                      "paged_extend_kernel", "paged_decode_quant_kernel",
                      "paged_extend_quant_kernel", "flash_decode_kernel",
                      "flash_extend_kernel", "flash_prefill_tc_kernel",
-                     "flash_extend_tc_kernel", "decode_combine_kernel")
+                     "flash_extend_tc_kernel", "decode_combine_kernel",
+                     "paged_extend_tc_kernel", "paged_extend_quant_tc_kernel")
 LORA_KERNELS = ("bgmv_cluster_kernel",)  # csrc/lora_bgmv.cu
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
 
