@@ -60,15 +60,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the chunked path, a repeat whose text must match, then
              token-level determinism, TTFT (the 124-token prompt and the
              ~1500-token one, whose chunks run the extend kernel) and decode
-             rate on the same core.
-             Each kernel of the path launches over this phase; the int8
+             rate on the same core. The core's decode bursts are CUDA graph
+             replays, one graph per (window bucket, seeded) key after one
+             eager warm-up burst each: every other burst replays, and the
+             capture time, the graphs' pool bytes, nodes and port kernels
+             per replay are logged. Then an engine with
+             decode_graphs=False on the same weights and card: greedy and
+             seeded rows (with adapters, the mixed batch) give the same
+             tokens as the replays, two identical unseeded requests at
+             temperature 1 draw different tokens on the graph core
+             whenever they do on the eager one, and its single-stream
+             decode rate is logged beside the graph core's. A capture or
+             replay failure fails the phase: there is no eager fallback.
+             Each kernel of the path launches over this phase (a replay
+             counts the launches its capture recorded); the int8
              kernels do not. Then batch_invariance (C1): on the same
              weights, the timed prompt's prefill logits alone and as row 0
              of groups of 2, 4 and 8 other prompts of its bucket, through
              the entry point the scheduler's group prefill calls, equal bit
              for bit (on a difference the first op whose row 0 differs is
              named); this runs after each serve phase below too.
-7. serve int8 — the same with quantize="all": the same seed-0 weights
+7. serve int8 — the same, graphs and all, with quantize="all": the same
+             seed-0 weights
              quantized on the card, int8 KV pages; flash_prefill and the two
              int8 kernels launch, the bf16 paged kernels do not, and the
              greedy tokens that agree with the bf16 run are counted.
@@ -1503,13 +1516,14 @@ def _chat(base: str, content: str, max_tokens: int, stream: bool,
 
 
 def _timed_core_request(core, prompt: list[int], max_tokens: int,
-                        lora: str | None = None):
-    """Submit straight to the serving core; returns (ids, ttft_s, decode
-    tokens/s of this request)."""
+                        lora: str | None = None, **sampling):
+    """Submit straight to the serving core (greedy unless `sampling` says
+    otherwise); returns (ids, ttft_s, decode tokens/s of this request)."""
     from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
 
+    sampling.setdefault("temperature", 0.0)
     req = core.submit(Request(prompt_ids=list(prompt), sampling=SamplingParams(
-        temperature=0.0, max_tokens=max_tokens, lora=lora)))
+        max_tokens=max_tokens, lora=lora, **sampling)))
     ids, stamps = [], []
     while True:
         kind, value = req.events.get(timeout=600)
@@ -1749,6 +1763,110 @@ def _dense_paged_report(core, prompt: list[int]) -> str:
     return _first_difference(paged, dense)
 
 
+# The graph = eager workload: (sampling, adapter) of each of its rows, run
+# together; the adapters apply in the LoRA phase (its mixed batch).
+GRAPH_ROWS = ((dict(), None), (dict(), "acme"),
+              (dict(temperature=0.8, top_p=0.95, seed=1234), "beta"),
+              (dict(temperature=1.0, top_k=40, seed=77), "acme"))
+GRAPH_TOKENS = 48
+
+
+def _graph_counters(core, label: str, dev: dict) -> dict:
+    """The decode graphs of the serving core: every burst after a key's
+    first is one replay. Logs what the graphs cost: capture seconds, the
+    pool's bytes, and per key the port's kernels and the graph's nodes per
+    replay."""
+    st = core.stats()
+    info = core.decode_graph_info()
+    if not info["enabled"]:
+        raise AssertionError(f"serve {label}: decode graphs are off on the "
+                             "card")
+    if st.decode_graph_replays < 1 or st.decode_graphs < 1:
+        raise AssertionError(f"serve {label}: no decode burst replayed a "
+                             f"graph ({st})")
+    if st.decode_eager_bursts > st.decode_graphs:
+        raise AssertionError(
+            f"serve {label}: {st.decode_eager_bursts} eager bursts for "
+            f"{st.decode_graphs} captured keys")
+    if st.decode_graph_replays + st.decode_eager_bursts != core.decode_bursts:
+        raise AssertionError(f"serve {label}: bursts do not add up ({st}, "
+                             f"{core.decode_bursts} bursts)")
+    log(f"serve {label} [{dev['smi']}]: decode graphs: "
+        f"{st.decode_graph_replays} replays, {st.decode_eager_bursts} eager "
+        f"bursts (one warm-up a key), {st.decode_graphs} keys captured in "
+        f"{info['capture_s']:.3f} s, pool {info['pool_bytes'] / 2**20:.1f} "
+        f"MiB (reserved memory after minus before each capture); per key "
+        + "; ".join(f"{k}: nodes {v['nodes']}, port kernels {v['launches']}, "
+                    f"capture {v['capture_s']:.3f} s, pool "
+                    f"{v['pool_bytes'] / 2**20:.1f} MiB"
+                    for k, v in info["keys"].items()))
+    return info
+
+
+def _graph_vs_eager(core, prompt: list[int], label: str, lora: bool,
+                    dev: dict, core_kwargs: dict) -> dict:
+    """On the same card and the same weights, an engine with
+    decode_graphs=False: the GRAPH_ROWS workload (greedy and seeded rows;
+    with adapters the mixed batch) gives the same tokens as on the serving
+    core, whose bursts replay graphs; two identical unseeded requests at
+    temperature 1 draw different tokens on the serving core whenever they
+    do on the eager one; and the eager engine's single-stream decode rate."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    eager = EngineCore(core.cfg, core.params, device="cuda", seed=0,
+                       num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                       decode_graphs=False, **core_kwargs)
+    eager.start()
+    try:
+        def workload(c):
+            return _concurrent([
+                lambda i=i, sp=sp, name=name: _timed_core_request(
+                    c, prompt[:-1] + [200 + i], GRAPH_TOKENS,
+                    name if lora else None, **sp)[0]
+                for i, (sp, name) in enumerate(GRAPH_ROWS)])
+
+        def unseeded_twice(c):
+            return [_timed_core_request(c, prompt, 32, temperature=1.0)[0]
+                    for _ in range(2)]
+
+        replays = core.stats().decode_graph_replays
+        graph_ids, eager_ids = workload(core), workload(eager)
+        replayed = core.stats().decode_graph_replays - replays
+        same = [_shared(a, b) for a, b in zip(graph_ids, eager_ids)]
+        log(f"serve {label}: graph = eager: rows (greedy, greedy, seeded, "
+            f"seeded){' with adapters [None, acme, beta, acme]' if lora else ''}"
+            f" share {same} of {GRAPH_TOKENS} tokens; the graph core "
+            f"replayed {replayed} bursts for them, the eager core "
+            f"{eager.stats().decode_graph_replays}")
+        if graph_ids != eager_ids:
+            raise AssertionError(f"serve {label}: graph and eager bursts give "
+                                 f"different tokens (shared {same})")
+        if replayed < 1 or eager.stats().decode_graph_replays:
+            raise AssertionError(f"serve {label}: the comparison did not set "
+                                 "replays against eager bursts")
+        g1, g2 = unseeded_twice(core)
+        e1, e2 = unseeded_twice(eager)
+        log(f"serve {label}: unseeded temperature-1 twice: the graph core's "
+            f"draws share {_shared(g1, g2)} of 32 tokens, the eager core's "
+            f"{_shared(e1, e2)}")
+        if e1 != e2 and g1 == g2:
+            raise AssertionError(f"serve {label}: replays repeat their "
+                                 "unseeded noise")
+        rates = [_timed_core_request(eager, prompt, 64)[2] for _ in range(2)]
+        log(f"serve {label} [{dev['smi']}]: eager bursts (decode_graphs="
+            f"False): decode {max(rates):.1f} tok/s")
+        return {"decode_tok_s_1_eager": max(rates)}
+    finally:
+        eager.stop()
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
                 bf16_long_ids: list[int] | None = None, **core_kwargs) -> dict:
@@ -1914,6 +2032,11 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         stray = [k for k, n in launches.items() if k not in path and n]
         if stray:
             raise AssertionError(f"kernels of another path launched: {stray}")
+        if hasattr(core, "decode_graph_info"):  # not in trees before graphs
+            _graph_counters(core, label, dev)
+            stats.update(_graph_vs_eager(core, prompt, label, lora, dev,
+                                         core_kwargs))
+            stats["graphs"] = _graph_counters(core, label, dev)
         # C1, on this configuration's weights, with the engine idle
         prompts = [prompt] + [engine.encode_chat(
             [{"role": "user", "content": f"Prompt {i}: " + "y" * (70 + 3 * i)}])
@@ -2019,7 +2142,8 @@ def main(argv: list[str] | None = None) -> int:
               "dense": stats_dense}
     log(json.dumps({"serve": {
         label: {k: st[k] for k in ("ttft_s", "ttft_long_s", "decode_tok_s_1",
-                                   "tok_s_8")}
+                                   "tok_s_8", "decode_tok_s_1_eager")
+                if k in st}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,

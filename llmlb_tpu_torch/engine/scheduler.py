@@ -14,7 +14,11 @@ iteration it:
 3. runs a k-step decode burst over every decoding slot (`_decode_active`):
    each step's sampled tokens feed the next on the device, and the host
    syncs once per burst, through one `.cpu()` of the [k+1, slots] token block
-   (row 0 carries first tokens sampled at activation).
+   (row 0 carries first tokens sampled at activation). On the card the burst
+   is one CUDA graph replay per (window bucket, seeded) key
+   (`engine/decode_graph.py`, the JAX engine's one program per burst),
+   captured after the key's first burst, which runs eagerly; on the CPU, or
+   with `decode_graphs=False`, every burst runs eagerly.
 
 KV layout (`kv_layout=` / LLMLB_KV_LAYOUT): "paged" (the default) backs
 every slot with pages of a shared pool through a block table; "dense" keeps
@@ -58,6 +62,13 @@ import numpy as np
 import torch
 
 from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.engine.decode_graph import (
+    BurstGraphs,
+    BurstState,
+    burst_body,
+    count_nan_rows,
+    cuda_capture,
+)
 from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.lora import LoraManager
 from llmlb_tpu_torch.models import llama
@@ -165,6 +176,12 @@ class EngineStats:
     total_requests: int
     total_tokens: int
     uptime_s: float
+    # decode bursts run as graph replays and eagerly (a key's warm-up, or
+    # every burst without graphs), and the (window, seeded) keys captured:
+    # the counterpart of the JAX engine's per-step `dispatches`
+    decode_graph_replays: int = 0
+    decode_eager_bursts: int = 0
+    decode_graphs: int = 0
 
 
 class EngineCore:
@@ -194,8 +211,17 @@ class EngineCore:
         lora_dir: str | None = None,
         lora_max_adapters: int | None = None,
         lora_rank_cap: int | None = None,
+        decode_graphs: bool | None = None,
     ):
         self.device = resolve_device(device)
+        # one CUDA graph per decode burst key: on by default on the card
+        # (the JAX engine's fused_decode); the CPU never captures
+        if decode_graphs is None:
+            decode_graphs = self.device.type == "cuda"
+        if decode_graphs and self.device.type != "cuda":
+            raise ValueError("decode_graphs needs the CUDA card; the engine "
+                             f"runs on {self.device}")
+        self.decode_graphs = bool(decode_graphs)
         self.cfg = cfg
         if kv_layout is None:
             kv_layout = os.environ.get("LLMLB_KV_LAYOUT", "paged")
@@ -281,8 +307,8 @@ class EngineCore:
         # in the paged layout; the dense layout's slot s is cache row s.
         self.page_pool: PagePool | None = None
         self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
-        # host block tables + their device copy, refreshed before the next
-        # dispatch whenever a row changed
+        # host block tables + their device copy [slots, pages_per_slot],
+        # refreshed in place before the next dispatch whenever a row changed
         self._block_tables = np.zeros((num_slots, self.pages_per_slot),
                                       np.int32)
         self._d_block_tables = None
@@ -312,11 +338,19 @@ class EngineCore:
                      kv_cache_bytes(cfg, num_slots, self.slot_capacity) / 2**30,
                      self.device)
 
+        # Decode burst: k decode+sample steps per host sync. 8 on the card;
+        # 1 on the CPU, like the reference off its accelerator.
+        if decode_burst is None:
+            decode_burst = 8 if self.device.type == "cuda" else 1
+        self.decode_burst = max(1, int(decode_burst))
+
         # Host mirrors of the slot state (lengths for stop checks without a
         # device read; seeds to know without a device read whether a burst
         # has seeded rows). Sampling params, seeds and tokens live on the
         # device and are only touched at activation — a decode burst does no
-        # host-to-device copy.
+        # host-to-device copy. Every device buffer a burst touches is
+        # allocated here once and written only in place, so a captured
+        # burst's addresses stay valid.
         self.slots = [_Slot() for _ in range(num_slots)]
         self._seq_lens = np.zeros((num_slots,), np.int64)
         self._seeds = np.full((num_slots,), -1, np.int64)
@@ -337,12 +371,23 @@ class EngineCore:
         # Rows of NaN logits seen by any dispatch, counted on the device and
         # read only on request (nan_logit_rows()).
         self._d_nan_rows = torch.zeros((), dtype=torch.int64, device=self.device)
-
-        # Decode burst: k decode+sample steps per host sync. 8 on the card;
-        # 1 on the CPU, like the reference off its accelerator.
-        if decode_burst is None:
-            decode_burst = 8 if self.device.type == "cuda" else 1
-        self.decode_burst = max(1, int(decode_burst))
+        # a burst's [k+1, slots] token block, fetched once per burst
+        self._d_tokens = torch.zeros((self.decode_burst + 1, num_slots), **z32)
+        self._burst_state = BurstState(
+            params=self.params, cfg=cfg, cache_k=self.cache_k,
+            cache_v=self.cache_v, block_tables=self._d_block_tables,
+            last_tokens=self._d_last_tokens, seq_lens=self._d_seq_lens,
+            tokens=self._d_tokens, temps=self._d_temps,
+            top_ps=self._d_top_ps, top_ks=self._d_top_ks,
+            seeds=self._d_seeds, lora_idx=(self._d_lora_idx if self.lora
+                                           is not None else None),
+            nan_rows=self._d_nan_rows, generator=self._generator)
+        self._bursts = BurstGraphs(
+            self._burst_body,
+            cuda_capture(self.device, self._generator)
+            if self.decode_graphs else None,
+            # adapter uploads from HTTP threads wait for a capture or replay
+            lock=self.lora.device_lock if self.lora is not None else None)
 
         # Context-window buckets (pow2 up to capacity): a decode reads only
         # the smallest bucket covering every active sequence.
@@ -421,7 +466,15 @@ class EngineCore:
             num_slots=self.num_slots, active_slots=active, queued=queued,
             total_requests=self.total_requests, total_tokens=self.total_tokens,
             uptime_s=time.monotonic() - self._started_at,
+            decode_graph_replays=self._bursts.replays,
+            decode_eager_bursts=self._bursts.eager_bursts,
+            decode_graphs=len(self._bursts.graphs),
         )
+
+    def decode_graph_info(self) -> dict:
+        """The decode graphs: keys captured, replays, eager bursts, capture
+        seconds, pool bytes and each key's per-replay kernel launches."""
+        return {"enabled": self.decode_graphs, **self._bursts.info()}
 
     def prepare_lora(self, request: Request) -> None:
         """Resolve and pin a request's adapter (loading it if cold).
@@ -536,7 +589,7 @@ class EngineCore:
             self.page_pool.reset()
             self._slot_pages = [[] for _ in range(self.num_slots)]
             self._block_tables[:] = 0
-            self._d_block_tables = self._to_device(self._block_tables)
+            self._d_block_tables.zero_()
             self._tables_dirty = False
         self._seq_lens[:] = 0
         self._d_seq_lens.zero_()
@@ -619,9 +672,10 @@ class EngineCore:
 
     def _sync_block_tables(self) -> None:
         """Refresh the device block tables before a dispatch that reads them
-        (one small host-to-device copy, only when a row changed)."""
+        (one small host-to-device copy into the same buffer, which captured
+        bursts read, only when a row changed)."""
         if self._tables_dirty and self.page_pool is not None:
-            self._d_block_tables = self._to_device(self._block_tables)
+            self._d_block_tables.copy_(torch.from_numpy(self._block_tables))
             self._tables_dirty = False
 
     def _ensure_decode_pages(self, active: list[int], k: int) -> list[int]:
@@ -801,7 +855,7 @@ class EngineCore:
         """Sample each row's first token on the device and scatter the
         sampling params, lengths and first tokens into the per-slot device
         state. Padding rows repeat the last real row."""
-        self._count_nan(logits)
+        count_nan_rows(self._d_nan_rows, logits)
         padded = len(padded_slot_ids)
         temps = np.ones((padded,), np.float32)
         top_ps = np.ones((padded,), np.float32)
@@ -848,9 +902,6 @@ class EngineCore:
             slot.generated = 0
             slot.first_pending = True
 
-    def _count_nan(self, logits: torch.Tensor) -> None:
-        self._d_nan_rows += torch.isnan(logits).any(dim=-1).sum()
-
     # ----------------------------------------------------------------- decode
 
     def _window_for(self, active: list[int], k: int) -> int:
@@ -873,38 +924,19 @@ class EngineCore:
         if not active:
             return True
         self._sync_block_tables()
-        k = self.decode_burst
-        window = self._window_for(active, k)
+        window = self._window_for(active, self.decode_burst)
+        # seeded rows draw threefry noise, another graph: decided on the host
         seeded = bool((self._seeds[active] >= 0).any())
-        last, lens = self._d_last_tokens, self._d_seq_lens
-        lora_idx = self._d_lora_idx if self.lora is not None else None
-        rows = [last]  # row 0: pending first tokens
-        for step in range(k):
-            if self.page_pool is not None:
-                logits, _, _ = llama.decode_step_paged(
-                    self.params, self.cfg, last, lens, self.cache_k,
-                    self.cache_v, self._d_block_tables, window=window,
-                    lora_idx=lora_idx,
-                )
-            else:
-                logits, _, _ = llama.decode_step(
-                    self.params, self.cfg, last, lens, self.cache_k,
-                    self.cache_v, window=window, lora_idx=lora_idx,
-                )
-            self._count_nan(logits)
-            # seeded rows fold in the pre-increment length, as the reference
-            toks = sample_tokens(
-                logits, self._generator, self._d_temps, self._d_top_ps,
-                self._d_top_ks, seeds=self._d_seeds if seeded else None,
-                steps=lens if seeded else None,
-            )
-            rows.append(toks)
-            last, lens = toks, lens + 1
-        self._d_last_tokens, self._d_seq_lens = last, lens
-        tokens = torch.stack(rows).cpu().numpy()  # the ONE host sync per burst
+        self._bursts.run(window, seeded)
+        tokens = self._d_tokens.cpu().numpy()  # the ONE host sync per burst
         self.decode_bursts += 1
         self._emit_fetched(tokens, active)
         return True
+
+    def _burst_body(self, window: int, seeded: bool) -> None:
+        """The k steps of one burst over the static buffers (eager, or under
+        capture)."""
+        burst_body(self._burst_state, window, seeded)
 
     def _emit_fetched(self, tokens: np.ndarray, active: list[int]) -> None:
         """Deliver one fetched token block [k+1, slots]: row 0 holds first

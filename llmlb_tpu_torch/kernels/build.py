@@ -14,7 +14,10 @@ or a failed build raises — there is no fallback.
 `launch` calls an entry point on the current stream, raises if the launch
 was refused, and adds one to `LAUNCHES[name]`: the count of every kernel of
 the port since the last `reset_launch_counts()`. Only a CUDA launch adds to
-it; the plain versions do not.
+it; the plain versions do not. Under CUDA graph capture `launch` records the
+kernel into the graph instead of running it, and a replay runs no wrapper:
+the decode graphs (`engine/decode_graph.py`) take a capture's counts back
+out with `add_launches(..., times=-1)` and add them again on every replay.
 """
 
 from __future__ import annotations
@@ -167,6 +170,19 @@ def build() -> Path:
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The launches counted since `before` (a copy of LAUNCHES), by kernel,
+    leaving out kernels with none."""
+    return {name: n - before.get(name, 0) for name, n in LAUNCHES.items()
+            if n != before.get(name, 0)}
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add `times` x `counts` to LAUNCHES (a graph replay's kernels)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += times * n
 
 
 def launch(name: str, entry: str, device, *args) -> None:

@@ -21,7 +21,9 @@ reads a row that is being written: a row is written only while free (never
 loaded, or evicted at refcount 0), and `_write_rows` synchronizes the
 device after the copies and only then publishes the name into `_resident`,
 so no request can name the row before its values are all on the card.
-`slot_of`, which the step loop calls, takes no lock.
+`slot_of`, which the step loop calls, takes no lock. The row writes hold
+`device_lock`, which the engine's decode graphs hold around each capture and
+replay, so an upload from an HTTP thread never interleaves with them.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ class LoraManager:
         self.targets = TARGETS
         self.params: dict[str, torch.Tensor] | None = None  # attach()
         self._lock = threading.RLock()
+        # orders row writes against decode graph captures and replays
+        self.device_lock = threading.Lock()
         self.available: dict[str, AdapterInfo] = discover_adapters(
             lora_dir, rank_cap=self.rank_cap, allowed_targets=self.targets
         )
@@ -240,17 +244,18 @@ class LoraManager:
         some = self.params[self.targets[0] + LORA_A]
         host = load_adapter_tensors(info, self.cfg, pool_rank=self.rank_cap,
                                     dtype=some.dtype)
-        for tgt in self.targets:
-            pair = host.get(tgt)
-            for leaf, value in zip((tgt + LORA_A, tgt + LORA_B),
-                                   pair or (None, None)):
-                dst = self.params[leaf][:, row]
-                if value is None:
-                    dst.zero_()
-                else:
-                    dst.copy_(value)
-        if some.device.type == "cuda":
-            torch.cuda.synchronize(some.device)
+        with self.device_lock:
+            for tgt in self.targets:
+                pair = host.get(tgt)
+                for leaf, value in zip((tgt + LORA_A, tgt + LORA_B),
+                                       pair or (None, None)):
+                    dst = self.params[leaf][:, row]
+                    if value is None:
+                        dst.zero_()
+                    else:
+                        dst.copy_(value)
+            if some.device.type == "cuda":
+                torch.cuda.synchronize(some.device)
 
     # ---------------------------------------------------------- introspection
 

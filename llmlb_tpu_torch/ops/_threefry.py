@@ -75,8 +75,12 @@ def uniform_tiny_to_one(bits: torch.Tensor) -> torch.Tensor:
     """JAX's `_uniform(minval=tiny, maxval=1)` in float32 from 32-bit words."""
     mant = ((bits >> _MANTISSA_SHIFT) | _FLOAT_ONE_BITS).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, device=bits.device)
-    span = torch.tensor(1.0, device=bits.device) - tiny  # in float32, as JAX
+    # filled on the device (no host-to-device copy, so a CUDA graph can
+    # capture it)
+    tiny = torch.full((), torch.finfo(torch.float32).tiny,
+                      dtype=torch.float32, device=bits.device)
+    span = torch.full((), 1.0, dtype=torch.float32,
+                      device=bits.device) - tiny  # in float32, as JAX
     return torch.maximum(tiny, floats * span + tiny)
 
 

@@ -4,7 +4,12 @@ Builds a model from a preset with random weights (seed 0) and a full KV
 cache, then times the dispatches the engine issues, at the engine's shapes:
 
 - `decode`: one decode step plus sampling over 8 rows (what the burst loop
-  runs k times per host sync), at a short and a long context;
+  runs k times per host sync), at a short and a long context, each launched
+  eagerly; then the engine's whole burst of k = 8 such steps
+  (`engine/decode_graph.py`) as one CUDA graph replay at the same two
+  contexts (its first call runs the burst eagerly and captures it), with
+  wall and device time also given per step (divided by k). The graph rows'
+  `launches` are the device kernels the profiler saw per replay;
 - `prefill`: one bucketed `prefill_into_pages` dispatch;
 - `extend`: one 512-token `prefill_extend_pages` chunk at position 1024.
 
@@ -54,6 +59,12 @@ import time
 import torch
 
 from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.engine.decode_graph import (
+    BurstGraphs,
+    BurstState,
+    burst_body,
+    cuda_capture,
+)
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
 from llmlb_tpu_torch.lora.store import HF_TARGET_MAP, lora_target_dims
@@ -64,6 +75,7 @@ from llmlb_tpu_torch.ops.sampling import sample_tokens
 from llmlb_tpu_torch.quant import parse_quant_mode, quantize_params
 
 ROWS = 8  # the engine's default slots
+BURST = 8  # the engine's decode burst on the card
 CAPACITY = 4096  # its default slot capacity, in tokens
 PAGE = 128
 REPS = 20
@@ -224,6 +236,34 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
             sample_tokens(logits, gen, temps, top_p, top_k)
         return step
 
+    def burst_graph(ctx):
+        """One burst of BURST steps as the engine runs it on the card: a
+        replay of its captured graph, the lengths reset to ctx before each
+        (a fill outside the graph); eager on the CPU, which captures
+        nothing."""
+        state = BurstState(
+            params=params, cfg=cfg, cache_k=ck, cache_v=cv,
+            block_tables=tables, last_tokens=toks.clone(),
+            seq_lens=torch.full((ROWS,), ctx, dtype=torch.int32,
+                                device=device),
+            tokens=torch.zeros((BURST + 1, ROWS), dtype=torch.int32,
+                               device=device),
+            temps=temps, top_ps=top_p, top_ks=top_k,
+            seeds=torch.full((ROWS,), -1, dtype=torch.int64, device=device),
+            lora_idx=lora_idx,
+            nan_rows=torch.zeros((), dtype=torch.int64, device=device),
+            generator=gen)
+        window = min(capacity,
+                     1 << max(8, (ctx + BURST + 1 - 1).bit_length()))
+        bursts = BurstGraphs(
+            lambda w, s: burst_body(state, w, s),
+            cuda_capture(device, gen) if device.type == "cuda" else None)
+
+        def run():
+            state.seq_lens.fill_(ctx)
+            bursts.run(window, False)
+        return run
+
     def prefill(rows, bucket):
         ids = torch.randint(0, 256, (rows, bucket), generator=gen,
                             device=device)
@@ -254,6 +294,10 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
     return {
         f"decode rows={ROWS} ctx={short_ctx}": decode(short_ctx),
         f"decode rows={ROWS} ctx={long_ctx}": decode(long_ctx),
+        f"decode graph burst={BURST} rows={ROWS} ctx={short_ctx}":
+            burst_graph(short_ctx),
+        f"decode graph burst={BURST} rows={ROWS} ctx={long_ctx}":
+            burst_graph(long_ctx),
         f"prefill rows=1 bucket={min(128, bucket)}": prefill(1, min(128, bucket)),
         f"prefill rows={ROWS} bucket={bucket}": prefill(ROWS, bucket),
         f"extend chunk={bucket} start={long_ctx // 2}": extend(long_ctx // 2,
@@ -332,6 +376,9 @@ def main(argv: list[str] | None = None) -> int:
                # times)
                "port_launches": {k: v / (2 * REPS + 1) for k, v in
                                  cuda_attention.LAUNCHES.items() if v}}
+        if " graph burst=" in name:
+            row["per_step"] = {key: row[key] / BURST for key in
+                               ("wall_ms", "device_ms", "launches")}
         print(json.dumps(row), flush=True)
         if not any(cuda_attention.LAUNCHES.values()):
             raise RuntimeError(f"{name}: no attention kernel launched")

@@ -398,13 +398,16 @@ def test_server_serves_dense():
                                   ["--lora", "3", "--quantize", "weights"]])
 def test_profile_step_rehearses_dense_and_lora_on_cpu(capsys, args):
     """The card profiler's dense and LoRA dispatches run end to end on the
-    CPU at debug-tiny size and report no timing there; int8 KV on the dense
-    layout is refused as the engine downgrades it."""
+    CPU at debug-tiny size and report no timing there (seven: two decode
+    steps, two decode bursts as the engine runs them, eager on the CPU, two
+    prefills and an extend); int8 KV on the dense layout is refused as the
+    engine downgrades it."""
     from llmlb_tpu_torch import profile_step
 
     assert profile_step.main(["--device", "cpu", *args]) == 0
     out = capsys.readouterr().out
-    assert out.count("rehearsal on cpu:") == 5
+    assert out.count("rehearsal on cpu:") == 7
+    assert out.count("rehearsal on cpu: decode graph burst=8") == 2
     assert "wall_ms" not in out
     with pytest.raises(SystemExit):
         profile_step.main(["--device", "cpu", "--kv-layout", "dense",

@@ -125,10 +125,11 @@ def test_init_params_layout_and_scheme():
 
 def test_profile_step_rehearses_on_cpu(capsys):
     """The card profiler's dispatches run end to end on the CPU at
-    debug-tiny size and report no timing there."""
+    debug-tiny size and report no timing there (seven, the two decode
+    bursts among them, which run eagerly on the CPU)."""
     from llmlb_tpu_torch import profile_step
 
     assert profile_step.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert out.count("rehearsal on cpu:") == 5
+    assert out.count("rehearsal on cpu:") == 7
     assert "wall_ms" not in out

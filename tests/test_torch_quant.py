@@ -379,10 +379,11 @@ def test_params_from_numpy_carries_a_quantized_pytree_exactly(qmodels):
 
 def test_profile_step_rehearses_int8_on_cpu(capsys):
     """The card profiler's int8 dispatches run end to end on the CPU at
-    debug-tiny size and report no timing there."""
+    debug-tiny size and report no timing there (seven, the two decode
+    bursts among them, which run eagerly on the CPU)."""
     from llmlb_tpu_torch import profile_step
 
     assert profile_step.main(["--device", "cpu", "--quantize", "all"]) == 0
     out = capsys.readouterr().out
-    assert out.count("rehearsal on cpu:") == 5
+    assert out.count("rehearsal on cpu:") == 7
     assert "wall_ms" not in out
