@@ -55,12 +55,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
              model-dtype, int8, adapter-pool (mixed lora_idx) and int8 +
              adapter params; the dense-slot ones with and without adapters.
 6. serve   — the port's HTTP server in-process, Llama-3-8B at full width and
-             depth with random bf16 weights from seed 0: concurrent chat
+             depth with random bf16 weights from seed 0, its prefix cache on
+             (the default). First the prefix block, on the empty cache: a
+             donor of a 1024-token head (8 pages) and a 100-token tail, then
+             8 requests of the same head and tails of their own together,
+             32 greedy tokens each; the hit, miss, cached-token, insertion
+             and copy counters take the values the traffic implies (paged:
+             8 hits over the donor's pages, no copy; dense: a copy a hit),
+             each hit runs one suffix dispatch (the extend kernel's
+             launches rise by 32 a dispatch), a second identical hit gives
+             the same ids, and every hit's first-token logits are within
+             the bf16 limit of a cold prefill's on an engine with
+             prefix_cache=False over the same weights, which also gives the
+             8 requests' mean TTFT with the cache off. Then concurrent chat
              requests (streaming and not), a ~1500-token prompt that takes
-             the chunked path, a repeat whose text must match, then
-             token-level determinism, TTFT (the 124-token prompt and the
-             ~1500-token one, whose chunks run the extend kernel) and decode
-             rate on the same core. The core's decode bursts are CUDA graph
+             the chunked path, a repeat whose text must match (dense, where
+             a repeated chat hits: a second hit's text must match the
+             first's), then token-level determinism, TTFT (the 124-token
+             prompt; the ~1500-token one, whose chunks run the extend
+             kernel, twice as a miss with a head of its own, then twice as a
+             hit on the first, whose ids must agree and whose logits must be
+             within the bf16 limit of the miss's, while the miss's ids must
+             equal the cache-off engine's) and decode rate on the same
+             core. The core's decode bursts are CUDA graph
              replays, one graph per (window bucket, seeded) key after one
              eager warm-up burst each: every other burst replays, and the
              capture time, the graphs' pool bytes, nodes and port kernels
@@ -1819,13 +1836,13 @@ def _graph_vs_eager(core, prompt: list[int], label: str, lora: bool,
 
     eager = EngineCore(core.cfg, core.params, device="cuda", seed=0,
                        num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
-                       decode_graphs=False, **core_kwargs)
+                       decode_graphs=False, prefix_cache=False, **core_kwargs)
     eager.start()
     try:
         def workload(c):
             return _concurrent([
                 lambda i=i, sp=sp, name=name: _timed_core_request(
-                    c, prompt[:-1] + [200 + i], GRAPH_TOKENS,
+                    c, _fresh_head(prompt, 16 + i), GRAPH_TOKENS,
                     name if lora else None, **sp)[0]
                 for i, (sp, name) in enumerate(GRAPH_ROWS)])
 
@@ -1865,6 +1882,322 @@ def _graph_vs_eager(core, prompt: list[int], label: str, lora: bool,
         del eager
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# The prefix block of each serve phase: a head of PREFIX_HEAD tokens (8
+# pages of 128) shared by a donor and PREFIX_ROWS requests, each with a
+# tail of its own, PREFIX_TOKENS greedy tokens each.
+PREFIX_HEAD, PREFIX_TAIL, PREFIX_ROWS, PREFIX_TOKENS = 1024, 100, 8, 32
+# the rows' adapters in the LoRA phase, and the donors' (one a namespace)
+PREFIX_LORA_ROWS = (None, "acme", "beta", None, "acme", "beta", None, "acme")
+PREFIX_LORA_DONORS = (None, "acme", "beta")
+
+
+def _fresh_head(prompt: list[int], i: int) -> list[int]:
+    """The timed prompt with its first content token (after the 9-token
+    "<|user|>\\n" tag) changed: a prompt of the same length and bucket that
+    shares no cacheable head with it, so it is a prefix-cache miss."""
+    return prompt[:9] + [0x41 + i] + prompt[10:]
+
+
+def _first_word(text: str, j: int) -> str:
+    """`text` with its first word ("w0") replaced by "v<j>": the long
+    prompt at the same length with a head of its own."""
+    return f"v{j}" + text[2:]
+
+
+class _LogitSpy:
+    """Keeps the first-token logits of every request the core activates,
+    by (prompt, adapter), in order: wraps the core's _activate_group as an
+    instance attribute until close()."""
+
+    def __init__(self, core):
+        self.core, self.logits = core, {}
+        activate = core._activate_group
+
+        def spy(group, slot_ids, lens, logits):
+            for row, (_slot, request, _n) in enumerate(group):
+                key = (tuple(request.prompt_ids), request.sampling.lora)
+                self.logits.setdefault(key, []).append(
+                    logits[row].float().clone())
+            activate(group, slot_ids, lens, logits)
+
+        core._activate_group = spy
+
+    def get(self, prompt: list[int], lora: str | None) -> list:
+        return self.logits[(tuple(prompt), lora)]
+
+    def close(self) -> None:
+        del self.core._activate_group
+
+
+def _wait_idle(core, timeout: float = 120.0) -> None:
+    """Until no slot holds a request: a finish donates before it frees the
+    slot, so the prefix counters are final then."""
+    t_end = time.monotonic() + timeout
+    while core.stats().active_slots or core.stats().queued:
+        if time.monotonic() > t_end:
+            raise AssertionError(f"the engine is not idle ({core.stats()})")
+        time.sleep(0.005)
+
+
+def _hit_within(label: str, what: str, hit, cold) -> float:
+    """A hit's first-token logits against the cold prefill's, within the
+    bf16 limit 2^-6 (|cold| + rms(cold)); returns the max |diff|."""
+    err, ok = _within(hit, cold, 0.0, BF16_REL, None)
+    if not ok:
+        raise AssertionError(f"serve {label}: {what}: a hit's logits are "
+                             f"outside the bf16 limit of the cold prefill's "
+                             f"(max |diff| {err:.3e})")
+    return err
+
+
+class _Timeline:
+    """While open, the host wall of each step-loop call of the core that
+    did work: admission (`_try_insert`), a prefill chunk
+    (`_advance_prefill`) and a decode burst (`_decode_active`), wrapped as
+    instance attributes on the engine thread until close()."""
+
+    KINDS = {"_try_insert": "admit", "_advance_prefill": "chunk",
+             "_decode_active": "burst"}
+
+    def __init__(self, core):
+        self.core, self.events = core, []
+        for name, kind in self.KINDS.items():
+            def timed(*a, fn=getattr(core, name), kind=kind):
+                t0 = time.monotonic()
+                did = fn(*a)
+                if did:
+                    self.events.append((kind, t0, time.monotonic()))
+                return did
+            setattr(core, name, timed)
+
+    def close(self) -> None:
+        for name in self.KINDS:
+            delattr(self.core, name)
+
+
+def _timed_miss(core, prompt: list[int], lora: str | None) -> tuple:
+    """One request of LONG_TOKENS alone on an idle core, and where its TTFT
+    went: (ids, ttft_s, split), the split the ms from submit to the first
+    admission, the prefill chunks' walls, the first burst's wall (its fetch
+    emits the first token), and the rest of the TTFT."""
+    line = _Timeline(core)
+    try:
+        t_submit = time.monotonic()
+        ids, ttft, _ = _timed_core_request(core, prompt, LONG_TOKENS, lora)
+    finally:
+        line.close()
+    events = [e for e in line.events if e[1] < t_submit + ttft]
+    admit = next(e for e in events if e[0] == "admit")
+    chunks = [e for e in events if e[0] == "chunk"]
+    burst = next(e for e in events if e[0] == "burst")
+    split = {"wait_ms": (admit[1] - t_submit) * 1e3,
+             "chunk_ms": [(e[2] - e[1]) * 1e3 for e in chunks],
+             "burst_ms": (burst[2] - burst[1]) * 1e3}
+    split["rest_ms"] = (ttft * 1e3 - split["wait_ms"] - sum(split["chunk_ms"])
+                        - split["burst_ms"])
+    return ids, ttft, split
+
+
+def _split_text(split: dict) -> str:
+    return (f"wait {split['wait_ms']:.1f}, chunks "
+            f"[{', '.join(f'{c:.1f}' for c in split['chunk_ms'])}], first "
+            f"burst {split['burst_ms']:.1f}, rest {split['rest_ms']:.1f} ms")
+
+
+def _fresh_batch(core, prompt: list[int]) -> tuple[float, int, int]:
+    """SLOTS x 64 tokens at once, each prompt with a head of its own
+    (misses): (tok/s incl. prefill, prefill dispatches, prefix evictions)."""
+    d0, e0 = core.prefill_dispatches, core.stats().prefix.prefix_evictions_total
+    t0 = time.monotonic()
+    _concurrent([lambda i=i: _timed_core_request(
+        core, _fresh_head(prompt, i), 64) for i in range(SLOTS)])
+    rate = SLOTS * 64 / (time.monotonic() - t0)
+    return (rate, core.prefill_dispatches - d0,
+            core.stats().prefix.prefix_evictions_total - e0)
+
+
+def _shared_head_traffic(core, block: dict) -> tuple:
+    """The prefix block's traffic on a core: the donors one after another,
+    then the rows together. Returns each row's (ids, ttft, rate), and the
+    stats, prefill dispatches and extend launches the rows added."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    for name in block["donors"]:
+        _timed_core_request(core, block["donor"], PREFIX_TOKENS, name)
+    _wait_idle(core)
+    st0, d0 = core.stats(), core.prefill_dispatches
+    l0 = ca.LAUNCHES[block["extend"]]
+    out = _concurrent([lambda i=i: _timed_core_request(
+        core, block["rows"][i], PREFIX_TOKENS, block["names"][i])
+        for i in range(PREFIX_ROWS)])
+    _wait_idle(core)
+    return (out, st0, core.stats(), core.prefill_dispatches - d0,
+            ca.LAUNCHES[block["extend"]] - l0)
+
+
+def _prefix_block(core, label: str, lora: bool) -> dict:
+    """The prefix cache on the card, on the fresh serving core (its cache
+    empty): the donors run one after another (in the LoRA phase one a
+    namespace: base, acme, beta), then the PREFIX_ROWS shared-head rows
+    together, and row 0 once more alone. Checks the counters the traffic
+    implies, no copy when paged and one a hit when dense, one suffix
+    dispatch a hit (the extend kernel's launches rise by the layers of each
+    dispatch) and two identical hits giving the same ids. Returns the
+    block, with the rows' results and first-token logits, for
+    _cache_off_engine to hold against a cold prefill."""
+    import numpy as np
+
+    # ids past the 256 byte tokens: no chat prompt shares a head with them
+    rng = np.random.default_rng(9)
+    head = rng.integers(256, core.cfg.vocab_size, size=PREFIX_HEAD).tolist()
+    tails = rng.integers(256, core.cfg.vocab_size,
+                         size=(PREFIX_ROWS + 1, PREFIX_TAIL))
+    tails[:, 0] = 256 + np.arange(PREFIX_ROWS + 1)  # the tails part at once
+    block = {
+        "donor": head + tails[0].tolist(),
+        "rows": [head + t.tolist() for t in tails[1:]],
+        "names": PREFIX_LORA_ROWS if lora else (None,) * PREFIX_ROWS,
+        "donors": PREFIX_LORA_DONORS if lora else (None,),
+        "extend": ("flash_extend" if core.page_pool is None else
+                   "paged_flash_extend_quant" if core.quant.kv else
+                   "paged_flash_extend")}
+    rows, names, extend = block["rows"], block["names"], block["extend"]
+    layers = core.cfg.num_layers
+    # a miss of PREFIX_HEAD + PREFIX_TAIL tokens: its chunks (each an extend
+    # dispatch) beyond the largest bucket, else one group prefill
+    largest = core.prefill_buckets[-1]
+    n = PREFIX_HEAD + PREFIX_TAIL
+    miss_chunks = -(-n // largest) if n > largest else 1
+    miss_extends = miss_chunks if n > largest else 0
+
+    def delta(a, b, key):
+        return getattr(b.prefix, key) - getattr(a.prefix, key)
+
+    spy = _LogitSpy(core)
+    try:
+        st_begin = core.stats()
+        hits, st0, st1, dispatches, launches = _shared_head_traffic(core,
+                                                                    block)
+        again = _timed_core_request(core, rows[0], PREFIX_TOKENS, names[0])
+    finally:
+        spy.close()
+    n_hit = delta(st0, st1, "prefix_hits_total")
+    n_miss = delta(st0, st1, "prefix_misses_total")
+    counts = {"donor_misses": delta(st_begin, st0, "prefix_misses_total"),
+              "donor_insertions": delta(st_begin, st0,
+                                        "prefix_insertions_total"),
+              "hits": n_hit, "misses": n_miss,
+              "cached_tokens": delta(st0, st1, "prefix_cached_tokens_total"),
+              "insertions": delta(st0, st1, "prefix_insertions_total"),
+              "copies": delta(st0, st1, "kv_copy_dispatches"),
+              "prefill_dispatches": dispatches, f"{extend}_launches": launches}
+    log(f"serve {label}: prefix block: donors {list(block['donors'])}, rows "
+        f"{list(names)}; {counts}; cache {core.prefix_cache_info()}")
+    want = {"donor_misses": len(block["donors"]),
+            "donor_insertions": len(block["donors"]),
+            "hits + misses": PREFIX_ROWS,
+            "cached_tokens": PREFIX_HEAD * n_hit,
+            "prefill_dispatches": n_hit + miss_chunks * n_miss,
+            f"{extend}_launches": layers * (n_hit + miss_extends * n_miss)}
+    got = dict(counts, **{"hits + misses": n_hit + n_miss})
+    if core.page_pool is not None:
+        # zero-copy: every row hits the donor's 8 pages and only touches
+        # the entry when it finishes (its head is covered)
+        want.update(hits=PREFIX_ROWS, misses=0, insertions=0, copies=0)
+    else:
+        # the dense donor pins a slot, so 7 rows find one free; the 8th
+        # waits for a slot that slot pressure frees by evicting a donor
+        want.update(copies=n_hit)
+        if n_hit < PREFIX_ROWS - 1:
+            raise AssertionError(f"serve {label}: {n_hit} of {PREFIX_ROWS} "
+                                 "dense rows hit the cached head")
+    wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if wrong:
+        raise AssertionError(f"serve {label}: prefix counters (got, want): "
+                             f"{wrong}")
+    if again[0] != hits[0][0]:
+        raise AssertionError(f"serve {label}: two identical hits give "
+                             f"different ids (shared {_shared(again[0], hits[0][0])}"
+                             f" of {PREFIX_TOKENS})")
+    return dict(block, hits=hits, logits=spy, counts=counts)
+
+
+def _cache_off_engine(core, label: str, lora: bool, dev: dict,
+                      core_kwargs: dict, block: dict, long_prompt: list[int],
+                      prompt: list[int], stats: dict) -> dict:
+    """An engine with prefix_cache=False over the same weights, built after
+    the serving core's launch counts are read (its launches are not the
+    serving core's): the prefix block's traffic, whose first-token logits
+    each hit's must lie within the bf16 limit of; the long prompt as a
+    miss, whose ids the serving core's cold run must give, with the split
+    of its TTFT; and the SLOTS x 64 requests of heads of their own,
+    timed against the serving core's."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    lname = "beta" if lora else None
+    cold = EngineCore(core.cfg, core.params, device="cuda", seed=0,
+                      num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                      prefix_cache=False, **core_kwargs)
+    cold.start()
+    cspy = _LogitSpy(cold)
+    try:
+        off, *_ = _shared_head_traffic(cold, block)
+        long_off = min((_timed_miss(cold, long_prompt, lname)
+                        for _ in range(2)), key=lambda r: r[1])
+        # once untimed: a fresh engine's first burst of each decode key
+        # runs eagerly and captures its graph
+        _fresh_batch(cold, prompt)
+        tok_s_8_off, d_off, _ = _fresh_batch(cold, prompt)
+    finally:
+        cspy.close()
+        cold.stop()
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the serving core's miss once more (a head of its own), with the
+    # cache-off engine gone: whether a slower miss there is the engine's
+    # or the time's
+    later = _timed_miss(core, _fresh_head(long_prompt, 0), lname)
+    rows, names = block["rows"], block["names"]
+    errs = [_hit_within(label, f"prefix row {i}",
+                        block["logits"].get(rows[i], names[i])[0],
+                        cspy.get(rows[i], names[i])[0])
+            for i in range(PREFIX_ROWS)]
+    shared = [_shared(h[0], c[0]) for h, c in zip(block["hits"], off)]
+    on_s = sum(h[1] for h in block["hits"]) / PREFIX_ROWS
+    off_s = sum(c[1] for c in off) / PREFIX_ROWS
+    log(f"serve {label} [{dev['smi']}]: prefix block: mean TTFT of the "
+        f"{PREFIX_ROWS} shared-head rows ({len(rows[0])} tokens, "
+        f"{PREFIX_HEAD} shared) {on_s * 1e3:.1f} ms with the cache on, "
+        f"{off_s * 1e3:.1f} ms with it off; hit logits within the bf16 "
+        f"limit of the cold prefill's (max |diff| {max(errs):.3e}); hit and "
+        f"cold streams share {shared} of {PREFIX_TOKENS} tokens; a second "
+        f"identical hit gives the same {PREFIX_TOKENS} ids")
+    if long_off[0] != stats["long_ids"]:
+        raise AssertionError(f"serve {label}: the long prompt's greedy ids "
+                             "differ between identical cold runs (the serving "
+                             "core and the cache-off engine)")
+    log(f"serve {label} [{dev['smi']}]: the {len(long_prompt)}-token prompt, "
+        f"a miss: TTFT {stats['ttft_long_s'] * 1e3:.1f} ms with the cache on "
+        f"({_split_text(stats['long_split'])}), "
+        f"{long_off[1] * 1e3:.1f} ms with it off "
+        f"({_split_text(long_off[2])}), the same {LONG_TOKENS} ids; with "
+        f"the cache on once more after: {later[1] * 1e3:.1f} ms "
+        f"({_split_text(later[2])})")
+    log(f"serve {label} [{dev['smi']}]: {SLOTS} concurrent x 64 tokens "
+        f"(heads of their own): {stats['tok_s_8']:.1f} tok/s in "
+        f"{stats['tok_s_8_dispatches']} prefill dispatches with "
+        f"{stats['tok_s_8_evictions']} donor evictions with the cache on, "
+        f"{tok_s_8_off:.1f} tok/s in {d_off} with it off (its graphs "
+        "captured by an untimed run before)")
+    return {"prefix_ttft_on_s": on_s, "prefix_ttft_off_s": off_s,
+            "ttft_long_off_s": long_off[1], "tok_s_8_off": tok_s_8_off}
 
 
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
@@ -1907,9 +2240,22 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                              "layout")
     server, thread = start_server(engine)
     base = "http://%s:%d" % server.server_address[:2]
-    stats = {}
+    stats: dict = {}
     try:
         ca.reset_launch_counts()
+        long_text = " ".join(f"w{i % 97}" for i in range(380))  # ~1500 tokens
+        # the long prompt's timed runs: two with heads of their own (misses),
+        # then two hits on the first
+        long_prompts = [engine.encode_chat([{"role": "user", "content":
+                                             _first_word(long_text, j)}])
+                        for j in (1, 2)]
+        # the prefix cache first, while it is empty
+        block = _prefix_block(core, label, lora)
+        stats["prefix_counts"] = block["counts"]
+
+        def hits() -> int:
+            return core.stats().prefix.prefix_hits_total
+
         # the main path, over HTTP; with adapters, a mix of the base model,
         # the `lora` field and the `model:adapter` suffix
         first = _chat(base, "Tell me about paged attention.", 32, True)
@@ -1924,11 +2270,13 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
             return _chat(base, content, 32, stream=i % 2 == 0)
 
         results = _concurrent([lambda i=i: request(i) for i in range(4)])
-        long_text = " ".join(f"w{i % 97}" for i in range(380))  # ~1500 tokens
         long = _chat(base, long_text, 32, False,
                      lora="beta" if lora else None)
+        before = hits()
+        # dense (alignment 32): a hit on 32 of its tokens, which must give
+        # the cold run's text all the same
         again = _chat(base, "Tell me about paged attention.", 32, True)
-        for r in [first, again, long, *results]:
+        for r in [first, long, again, *results]:
             assert r["usage"]["completion_tokens"] == 32, r["usage"]
             assert r["finish"] == "length", r["finish"]
         assert long["usage"]["prompt_tokens"] > 1024, long["usage"]
@@ -1943,37 +2291,83 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
             + (" (base, lora field, model:adapter suffix)" if lora else "")
             + f" + {long['usage']['prompt_tokens']}-token prompt"
             + (" with adapter beta" if lora else "")
-            + " + repeat over HTTP ok; repeat text identical")
+            + f" + repeat over HTTP ok; repeat text identical "
+            f"({'a prefix-cache hit' if hits() != before else 'a miss'})")
 
         # token-level determinism and timing on the same core
         prompt = engine.encode_chat([{"role": "user",
                                       "content": "x" * 100}])
-        ids1, ttft1, rate1 = _timed_core_request(core, prompt, 64)
-        ids2, ttft2, rate2 = _timed_core_request(core, prompt, 64)
-        assert ids1 == ids2, "greedy token ids differ between identical runs"
-        t_batch = time.monotonic()
-        _concurrent([lambda i=i: _timed_core_request(
-            core, prompt[:-1] + [i], 64) for i in range(SLOTS)])
-        agg = SLOTS * 64 / (time.monotonic() - t_batch)
-        # the long prompt's TTFT: its chunks run the extend kernel
-        long_prompt = engine.encode_chat([{"role": "user",
-                                           "content": long_text}])
-        long_runs = [_timed_core_request(core, long_prompt, LONG_TOKENS,
-                                         "beta" if lora else None)
-                     for _ in range(2)]
-        if long_runs[0][0] != long_runs[1][0]:
-            raise AssertionError("the long prompt's greedy ids differ between "
-                                 "identical runs")
-        stats = {"ttft_s": min(ttft1, ttft2), "decode_tok_s_1": max(rate1, rate2),
-                 "tok_s_8": agg, "ids": ids1,
-                 "ttft_long_s": min(r[1] for r in long_runs),
-                 "long_ids": long_runs[0][0]}
+        before = hits()
+        spy = _LogitSpy(core)
+        try:
+            ids1, ttft1, rate1 = _timed_core_request(core, prompt, 64)
+            if hits() != before:
+                raise AssertionError("the timed prompt's first run was a hit")
+            ids2, ttft2, rate2 = _timed_core_request(core, prompt, 64)
+            ttft = min(ttft1, ttft2)
+            if ids1 != ids2:
+                raise AssertionError(f"greedy token ids differ between "
+                                     f"identical runs (shared "
+                                     f"{_shared(ids1, ids2)} of 64)")
+            if hits() != before:
+                # dense (32-token alignment): the repeat took 96 tokens from
+                # the cache and ran its 28-token suffix through flash_extend
+                # at the cold run's bucket (128), where the cold run ran
+                # flash_prefill; the TTFT is the miss's
+                ttft = ttft1
+                err = _hit_within(label, "the timed prompt",
+                                  *spy.get(prompt, None)[1::-1])
+                log(f"serve {label}: the timed prompt's repeat hit the cache; "
+                    f"its logits within the bf16 limit of the cold "
+                    f"prefill's (max |diff| {err:.3e}); its 64 greedy ids "
+                    "the cold run's")
+        finally:
+            spy.close()
+        # heads of their own: misses, as the 8 were before the cache
+        agg, d8, e8 = _fresh_batch(core, prompt)
+        # the long prompt's TTFT: its chunks run the extend kernel; two
+        # misses (heads of their own), then two hits on the first
+        spy = _LogitSpy(core)
+        long_name = "beta" if lora else None
+        try:
+            before = hits()
+            long_runs = [_timed_miss(core, p, long_name)
+                         for p in long_prompts]
+            if hits() != before:
+                raise AssertionError("a miss timing of the long prompt hit")
+            hit_runs = [_timed_core_request(core, long_prompts[0],
+                                            LONG_TOKENS, long_name)
+                        for _ in range(2)]
+            if hits() != before + 2:
+                raise AssertionError("the long prompt's repeats did not hit")
+        finally:
+            spy.close()
+        long_prompt = long_prompts[0]
+        if hit_runs[0][0] != hit_runs[1][0]:
+            raise AssertionError("two identical hits of the long prompt give "
+                                 "different ids")
+        cold_logits, *hit_logits = spy.get(long_prompt, long_name)[-3:]
+        errs = [_hit_within(label, "long prompt", h, cold_logits)
+                for h in hit_logits]
+        fastest = min(long_runs, key=lambda r: r[1])
+        stats.update({"ttft_s": ttft, "decode_tok_s_1": max(rate1, rate2),
+                      "tok_s_8": agg, "tok_s_8_dispatches": d8,
+                      "tok_s_8_evictions": e8, "ids": ids1,
+                      "ttft_long_s": fastest[1], "long_split": fastest[2],
+                      "long_ids": long_runs[0][0],
+                      "ttft_long_hit_s": min(r[1] for r in hit_runs)})
         log(f"serve {label} [{dev['smi']}]: single-request TTFT "
             f"{stats['ttft_s'] * 1e3:.1f} ms ({len(prompt)}-token prompt), "
             f"{stats['ttft_long_s'] * 1e3:.1f} ms ({len(long_prompt)}-token "
-            f"prompt{', adapter beta' if lora else ''}), decode "
+            f"prompt{', adapter beta' if lora else ''}, a miss), "
+            f"{stats['ttft_long_hit_s'] * 1e3:.1f} ms (the same prompt, a "
+            f"prefix-cache hit), decode "
             f"{stats['decode_tok_s_1']:.1f} tok/s; 8 concurrent x 64 "
             f"tokens: {agg:.1f} tok/s incl. prefill")
+        log(f"serve {label}: long prompt: hit logits within the bf16 limit of the cold run's (max |diff| "
+            f"{max(errs):.3e}); hit and cold streams share "
+            f"{_shared(hit_runs[0][0], long_runs[0][0])} of {LONG_TOKENS} "
+            "tokens, the two hits all")
         if bf16_long_ids is not None:
             log(f"serve {label}: the first "
                 f"{_shared(stats['long_ids'], bf16_long_ids)} of {LONG_TOKENS} "
@@ -2037,6 +2431,8 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
             stats.update(_graph_vs_eager(core, prompt, label, lora, dev,
                                          core_kwargs))
             stats["graphs"] = _graph_counters(core, label, dev)
+        stats.update(_cache_off_engine(core, label, lora, dev, core_kwargs,
+                                       block, long_prompts[0], prompt, stats))
         # C1, on this configuration's weights, with the engine idle
         prompts = [prompt] + [engine.encode_chat(
             [{"role": "user", "content": f"Prompt {i}: " + "y" * (70 + 3 * i)}])
@@ -2083,7 +2479,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=None,
                         help="checkout to import llmlb_tpu_torch from (another "
-                             "commit, to time two trees in one call)")
+                             "commit with the prefix cache, to time two trees "
+                             "in one call)")
     parser.add_argument("--serve-only", action="store_true",
                         help="run the device, build and serve phases only")
     args = parser.parse_args(argv)
@@ -2096,6 +2493,11 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     tree = Path(args.tree).resolve() if args.tree else REPO
+    if not (tree / "llmlb_tpu_torch" / "engine" / "prefix_cache.py").exists():
+        print(f"chip_smoke: {tree} has no prefix cache, which the serve "
+              "phases drive; run that tree's own chip_smoke.py",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(tree))
     try:
         import llmlb_tpu_torch
@@ -2111,29 +2513,30 @@ def main(argv: list[str] | None = None) -> int:
     t_start = time.perf_counter()
     phase = "device"
     kernels = []
+    took: dict[str, float] = {}  # seconds each phase took
+
+    def run(name: str, fn, *args, **kwargs):
+        nonlocal phase
+        phase = name
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     try:
-        dev = phase_device()
-        phase = "build"
-        phase_build()
+        dev = run("device", phase_device)
+        run("build", phase_build)
         if not args.serve_only:
-            phase = "kernels"
-            kernels = phase_kernels()
-            phase = "unembed"
-            phase_unembed()
-            phase = "model entry points"
-            phase_model_entry_points()
-        phase = "serve"
-        stats = phase_serve(dev, "bf16", BF16_PATH)
-        phase = "serve int8"
-        stats_int8 = phase_serve(dev, "quantize=all", INT8_PATH,
-                                 bf16_ids=stats["ids"], quantize="all")
-        phase = "serve lora"
-        stats_lora = phase_serve_lora(dev, stats["ids"])
-        phase = "serve dense"
-        stats_dense = phase_serve(dev, "dense", DENSE_PATH,
-                                  bf16_ids=stats["ids"],
-                                  bf16_long_ids=stats["long_ids"],
-                                  kv_layout="dense")
+            kernels = run("kernels", phase_kernels)
+            run("unembed", phase_unembed)
+            run("model entry points", phase_model_entry_points)
+        stats = run("serve", phase_serve, dev, "bf16", BF16_PATH)
+        stats_int8 = run("serve int8", phase_serve, dev, "quantize=all",
+                         INT8_PATH, bf16_ids=stats["ids"], quantize="all")
+        stats_lora = run("serve lora", phase_serve_lora, dev, stats["ids"])
+        stats_dense = run("serve dense", phase_serve, dev, "dense", DENSE_PATH,
+                          bf16_ids=stats["ids"],
+                          bf16_long_ids=stats["long_ids"], kv_layout="dense")
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
@@ -2141,8 +2544,11 @@ def main(argv: list[str] | None = None) -> int:
     serves = {"bf16": stats, "quantize=all": stats_int8, "lora": stats_lora,
               "dense": stats_dense}
     log(json.dumps({"serve": {
-        label: {k: st[k] for k in ("ttft_s", "ttft_long_s", "decode_tok_s_1",
-                                   "tok_s_8", "decode_tok_s_1_eager")
+        label: {k: st[k] for k in ("ttft_s", "ttft_long_s", "ttft_long_hit_s",
+                                   "ttft_long_off_s", "prefix_ttft_on_s",
+                                   "prefix_ttft_off_s", "decode_tok_s_1",
+                                   "tok_s_8", "tok_s_8_off",
+                                   "decode_tok_s_1_eager")
                 if k in st}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
@@ -2153,7 +2559,7 @@ def main(argv: list[str] | None = None) -> int:
         k["launches"] = own_path.get(k["name"], stats)["launches"][k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase {took}")
     log(json.dumps({"kernels": [{key: k[key] for key in order}
                                 for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,11 +4,13 @@
 The step loop runs on one thread and owns every device tensor. Each
 iteration it:
 
-1. admits queued requests into free slots (`_try_insert`): pages are
-   reserved for the whole prompt up front, same-bucket prompts prefill
-   together in one dispatch (`_prefill_group`, at most MAX_PREFILL_GROUP,
-   padded to a power of two by repeating the last row), and prompts longer
-   than the largest bucket claim a slot for chunked prefill (`_insert_long`);
+1. admits queued requests into free slots (`_try_insert`): a prompt whose
+   head the prefix cache holds claims a slot for its uncached suffix alone
+   (`_insert_cached`); otherwise pages are reserved for the whole prompt up
+   front, same-bucket prompts prefill together in one dispatch
+   (`_prefill_group`, at most MAX_PREFILL_GROUP, padded to a power of two
+   by repeating the last row), and prompts longer than the largest bucket
+   claim a slot for chunked prefill (`_insert_long`);
 2. feeds ONE chunk of one long prompt (`_advance_prefill`), so decode steps
    interleave with a long prefill;
 3. runs a k-step decode burst over every decoding slot (`_decode_active`):
@@ -33,6 +35,18 @@ time, and int8 KV pools with one float32 scale per (token, head) vector
 (paged only: the dense cache stays in the model dtype, with the reference's
 warning).
 
+Prefix KV cache (`prefix_cache=` / LLMLB_PREFIX_CACHE, on by default, as
+in the reference): a request that finishes with "stop" or "length" donates
+its prompt's head, aligned down to `prefix_align`, to a radix tree keyed on
+token ids (engine/prefix_cache.py), one tree per adapter. A later prompt
+sharing that head takes it from the cache: paged, the donor's page ids go
+into the new row's block table with a refcount (no KV byte moves); dense,
+the donor slot stays pinned out of the serving pool and a hit copies its
+rows [0, use_len) on the device. Either way only the uncached suffix
+prefills, through the extend entry points at start = use_len. Donors are
+evicted LRU under page pressure (paged), slot pressure with requests
+queued (dense), or when the budget of `prefix_cache_slots` entries is full.
+
 Multi-LoRA (`lora_dir=` / LLMLB_LORA_DIR, off by default): a LoraManager
 pool rides the params as `<name>_lora_a/_lora_b` leaves (added after any
 weight quantization), a request names its adapter in `SamplingParams.lora`,
@@ -41,10 +55,12 @@ carries per-row pool rows (`lora_idx`); the decode rows live on the device
 in `_d_lora_idx`, set at activation, so a burst copies none.
 
 Left out of this slice (see ROADMAP.md): priority classes and preemption,
-park/resume, speculative decoding, grammar constraints, the prefix cache,
-context-parallel prefill, disaggregation and KV shipping. Without
-preemption a page-starved decoding row finishes with "length", the
-reference's behavior before parking existed.
+park/resume, speculative decoding, grammar constraints, context-parallel
+prefill, disaggregation and KV shipping, and of the prefix cache its
+host-RAM tier, its preference for context-parallel prefill and its
+Prometheus series. Without preemption a page-starved decoding row finishes
+with "length" (after the prefix cache has given up every donor it can),
+the reference's behavior before parking existed.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import math
 import os
 import queue
 import threading
@@ -70,6 +87,7 @@ from llmlb_tpu_torch.engine.decode_graph import (
     cuda_capture,
 )
 from llmlb_tpu_torch.engine.paging import PagePool
+from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
 from llmlb_tpu_torch.lora import LoraManager
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.models.llama import LlamaConfig
@@ -135,6 +153,8 @@ class _Slot:
     # The first token is sampled on the device at activation and emitted
     # with the next decode fetch instead of its own host readback.
     first_pending: bool = False
+    # A prefix-cache hit holds its donor entry until the suffix lands.
+    cache_entry: PrefixEntry | None = None
 
     def clear(self) -> None:
         self.request = None
@@ -142,6 +162,7 @@ class _Slot:
         self.prefilling = False
         self.prefill_pos = 0
         self.first_pending = False
+        self.cache_entry = None
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -168,6 +189,23 @@ def kv_pool_bytes(cfg: LlamaConfig, num_pages: int, page_size: int,
     return num_pages * kv_page_bytes(cfg, page_size, quantized)
 
 
+@dataclasses.dataclass
+class PrefixCounters:
+    """The prefix cache's event counters, under the reference's metric
+    names: hits and misses per admitted prompt long enough to match,
+    prompt tokens served from cached KV, donations and the tokens they
+    cover, and LRU evictions; and the dense hits' device row copies (a
+    paged hit makes none)."""
+
+    prefix_hits_total: int = 0
+    prefix_misses_total: int = 0
+    prefix_cached_tokens_total: int = 0
+    prefix_insertions_total: int = 0
+    prefix_inserted_tokens_total: int = 0
+    prefix_evictions_total: int = 0
+    kv_copy_dispatches: int = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     num_slots: int
@@ -182,6 +220,8 @@ class EngineStats:
     decode_graph_replays: int = 0
     decode_eager_bursts: int = 0
     decode_graphs: int = 0
+    # a copy of the prefix cache's counters
+    prefix: PrefixCounters = dataclasses.field(default_factory=PrefixCounters)
 
 
 class EngineCore:
@@ -212,6 +252,9 @@ class EngineCore:
         lora_max_adapters: int | None = None,
         lora_rank_cap: int | None = None,
         decode_graphs: bool | None = None,
+        prefix_cache: bool | None = None,
+        prefix_cache_slots: int | None = None,
+        min_prefix_len: int | None = None,
     ):
         self.device = resolve_device(device)
         # one CUDA graph per decode burst key: on by default on the card
@@ -258,6 +301,33 @@ class EngineCore:
                 int(kv_pages or num_slots * self.pages_per_slot + 1),
                 self.pages_per_slot + 1,
             )
+
+        # Prefix KV cache, resolved as the reference resolves it. Matched
+        # lengths align DOWN to the smallest prefill bucket, and paged to
+        # whole pages as well (only FULL pages can be shared zero-copy), so
+        # the quantum is lcm(bucket, page size) there.
+        if prefix_cache is None:
+            prefix_cache = os.environ.get(
+                "LLMLB_PREFIX_CACHE", "1").lower() not in ("0", "false", "off",
+                                                           "no")
+        self.prefix_align = self.prefill_buckets[0]
+        if kv_layout == "paged":
+            self.prefix_align = math.lcm(self.prefix_align, self.kv_page_size)
+        self.min_prefix_len = (max(1, int(min_prefix_len))
+                               if min_prefix_len is not None
+                               else self.prefix_align)
+        if prefix_cache_slots is None:
+            prefix_cache_slots = max(1, num_slots // 2)
+        # pinned donors must always leave at least one slot serving traffic
+        budget = max(0, min(int(prefix_cache_slots), num_slots - 1))
+        self.prefix_cache: PrefixCache | None = (
+            PrefixCache(max_entries=budget, min_len=self.min_prefix_len,
+                        align=self.prefix_align)
+            if prefix_cache and budget > 0 else None)
+        self.prefix_counters = PrefixCounters()
+        # page REFERENCES the cache's entries hold (entries sharing head
+        # pages each count theirs)
+        self._prefix_pinned_pages = 0
 
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -469,6 +539,7 @@ class EngineCore:
             decode_graph_replays=self._bursts.replays,
             decode_eager_bursts=self._bursts.eager_bursts,
             decode_graphs=len(self._bursts.graphs),
+            prefix=dataclasses.replace(self.prefix_counters),
         )
 
     def decode_graph_info(self) -> dict:
@@ -539,6 +610,35 @@ class EngineCore:
                                        self.kv_page_size, self.quant.kv),
         }
 
+    def prefix_cache_info(self) -> dict:
+        """The prefix cache block of /api/health and /api/system, with the
+        reference's keys. Reads only ints and a dict size, so an HTTP
+        thread may call it while the step loop runs."""
+        if self.prefix_cache is None:
+            return {"enabled": False}
+        pinned = len(self.prefix_cache)
+        info = {
+            "enabled": True,
+            "entries": pinned,
+            "budget_slots": self.prefix_cache.max_entries,
+            "cached_tokens": self.prefix_cache.cached_tokens(),
+            "min_prefix_len": self.min_prefix_len,
+            "align": self.prefix_align,
+        }
+        if self.page_pool is not None:
+            # zero-copy donors pin pages, never slots
+            info["pinned_slots"] = 0
+            info["pinned_pages"] = self._prefix_pinned_pages
+            info["pinned_hbm_bytes"] = (
+                self._prefix_pinned_pages
+                * kv_page_bytes(self.cfg, self.kv_page_size, self.quant.kv))
+        else:
+            # a pinned donor holds its whole slot row out of the serving pool
+            info["pinned_slots"] = pinned
+            info["pinned_hbm_bytes"] = (
+                pinned * kv_cache_bytes(self.cfg, 1, self.slot_capacity))
+        return info
+
     def quant_info(self) -> dict:
         """The resolved int8 knobs and the byte footprints they produce."""
         itemsize = self.cfg.dtype.itemsize
@@ -582,6 +682,8 @@ class EngineCore:
                 time.sleep(0.001)
 
     def _reset_caches(self) -> None:
+        # the zeroed cache holds no prefix any more
+        self._drop_prefix_cache()
         for pool in (self.cache_k, self.cache_v):
             for t in (pool.values() if isinstance(pool, dict) else (pool,)):
                 t.zero_()
@@ -602,15 +704,23 @@ class EngineCore:
         raise ValueError(f"no prefill bucket for prompt of {n} tokens")
 
     def _free_slots(self) -> list[int]:
-        return [i for i, s in enumerate(self.slots) if s.request is None]
+        """Unoccupied slots, less the dense layout's pinned prefix donors
+        (paged donors pin pages, not slots)."""
+        pinned = (self.prefix_cache.pinned_slots()
+                  if self.prefix_cache is not None else ())
+        return [i for i, s in enumerate(self.slots)
+                if s.request is None and i not in pinned]
 
-    def _pop_request(self) -> Request | None:
-        """Next request to admit: the page-starved held one first, then FIFO."""
+    def _drain_pending(self) -> None:
         while True:
             try:
                 self._queue.append(self.pending.get_nowait())
             except queue.Empty:
                 break
+
+    def _pop_request(self) -> Request | None:
+        """Next request to admit: the page-starved held one first, then FIFO."""
+        self._drain_pending()
         if self._held_request is not None:
             request, self._held_request = self._held_request, None
             return request
@@ -623,11 +733,19 @@ class EngineCore:
         self._release_lora(request)
         request.events.put((kind, value))
 
-    def _finish_slot(self, slot_id: int, reason: str) -> None:
-        """Terminal teardown of an occupied slot: terminal event, KV pages
-        back to the pool, every slot field reset."""
+    def _finish_slot(self, slot_id: int, reason: str,
+                     donate: bool = False) -> None:
+        """Terminal teardown of an occupied slot: terminal event, the
+        prompt's head donated to the prefix cache (`donate`: a decoding
+        row's stop or length finish, as in the reference), the donor entry
+        of a hit released, KV pages back to the pool (shared pages drop
+        this row's reference only), every slot field reset."""
         slot = self.slots[slot_id]
-        self._finish(slot.request, "done", reason)
+        request = slot.request
+        self._finish(request, "done", reason)
+        if donate and self.prefix_cache is not None:
+            self._maybe_cache_prefix(slot_id, request)
+        self._release_cache_entry(slot)
         self._free_slot_kv(slot_id)
         slot.clear()
 
@@ -637,18 +755,30 @@ class EngineCore:
         return -(-n // self.kv_page_size)
 
     def _try_reserve_pages(self, count: int) -> list[int] | None:
-        """Alloc `count` fresh pages; None when the pool cannot cover it.
-        The dense layout needs none."""
+        """Alloc `count` fresh pages, evicting prefix-cache donors LRU under
+        pool pressure; None (no side effects beyond the evictions) when the
+        pool still cannot cover it. The dense layout needs none."""
         if count <= 0 or self.page_pool is None:
             return []
-        return self.page_pool.alloc(count)
+        while True:
+            pages = self.page_pool.alloc(count)
+            if pages is not None:
+                return pages
+            if self.prefix_cache is None or not self._evict_one_prefix():
+                return None
 
-    def _assign_slot_pages(self, slot_id: int, fresh: list[int]) -> None:
+    def _assign_slot_pages(self, slot_id: int, shared, fresh) -> None:
+        """Install a slot's block-table row: `shared` donor pages first
+        (zero-copy prefix reuse: the row takes a reference on each, no KV
+        byte moves), then `fresh` pages (refcount 1 from alloc, owned)."""
         if self.page_pool is None:
             return
-        self._slot_pages[slot_id] = list(fresh)
+        for p in shared:
+            self.page_pool.ref(p)
+        row = list(shared) + list(fresh)
+        self._slot_pages[slot_id] = row
         self._block_tables[slot_id, :] = 0
-        self._block_tables[slot_id, :len(fresh)] = fresh
+        self._block_tables[slot_id, :len(row)] = row
         self._tables_dirty = True
 
     def _extend_slot_pages(self, slot_id: int, fresh: list[int]) -> None:
@@ -659,9 +789,11 @@ class EngineCore:
         self._tables_dirty = True
 
     def _free_slot_kv(self, slot_id: int) -> None:
-        """Return a slot's pages to the pool and point its table row at the
-        trash page, so the batched decode step's ongoing garbage writes for
-        the freed row never land in a page a new owner holds."""
+        """Return a slot's pages to the pool (a shared prefix page just
+        drops this row's reference; the cache or another row keeps it) and
+        point its table row at the trash page, so the batched decode step's
+        ongoing garbage writes for the freed row never land in a page a new
+        owner holds."""
         pages = self._slot_pages[slot_id]
         if pages:
             for p in pages:
@@ -681,7 +813,8 @@ class EngineCore:
     def _ensure_decode_pages(self, active: list[int], k: int) -> list[int]:
         """Alloc-on-extend before a decode burst: grow each active row's
         pages to cover the k tokens the burst writes. A row the pool cannot
-        cover finishes with "length" (no preemption in this slice). Returns
+        cover, once the prefix cache has given up every donor it can,
+        finishes with "length" (no preemption in this slice). Returns
         the rows that remain active. The dense layout's rows hold their
         whole capacity already."""
         if self.page_pool is None:
@@ -707,6 +840,15 @@ class EngineCore:
 
     def _try_insert(self) -> bool:
         free = self._free_slots()
+        if (not free and self.page_pool is None
+                and self.prefix_cache is not None and len(self.prefix_cache)):
+            # Slot pressure (dense only): live traffic beats cached prefixes,
+            # so the LRU donor makes room for a queued request. Paged donors
+            # pin no slot; page pressure evicts in _try_reserve_pages.
+            self._drain_pending()
+            queued = len(self._queue) + (self._held_request is not None)
+            if queued and self._evict_one_prefix():
+                free = self._free_slots()
         if not free:
             return False
         max_oneshot = self.prefill_buckets[-1]
@@ -726,12 +868,45 @@ class EngineCore:
                 self._finish(request, "error", "prompt does not fit slot capacity")
                 handled = True
                 continue
+            # A prompt too short to match (at least one suffix token must
+            # prefill, for the first sampled logits) bypasses the cache and
+            # counts as no miss.
+            if (self.prefix_cache is not None
+                    and n - 1 >= self.min_prefix_len):
+                # namespaced by adapter: under LoRA the prompt's KV depends
+                # on the adapter's wq/wk/wv deltas
+                hit = self.prefix_cache.match(request.prompt_ids,
+                                              max_len=n - 1,
+                                              ns=request.sampling.lora)
+                if hit is not None:
+                    entry, use_len = hit
+                    # Paged: the shared head rides the donor's pages, only
+                    # the suffix needs fresh ones. The donor stays pinned
+                    # ACROSS the reservation: its LRU eviction inside
+                    # _try_reserve_pages would free the very pages about to
+                    # be shared (and could hand them back as fresh ones).
+                    # No pool operation runs between the release and
+                    # _insert_cached's acquire, so the donor stays.
+                    self.prefix_cache.acquire(entry)
+                    fresh = self._try_reserve_pages(
+                        self._pages_for_tokens(n)
+                        - use_len // self.kv_page_size)
+                    self.prefix_cache.release(entry)
+                    if fresh is None:
+                        self._held_request = request
+                        break
+                    self._insert_cached(free.pop(0), request, entry, use_len,
+                                        fresh)
+                    handled = True
+                    inserted += 1
+                    continue
+                self.prefix_counters.prefix_misses_total += 1
             pages = self._try_reserve_pages(self._pages_for_tokens(n))
             if pages is None:
                 self._held_request = request
                 break
             slot_id = free.pop(0)
-            self._assign_slot_pages(slot_id, pages)
+            self._assign_slot_pages(slot_id, (), pages)
             if n > max_oneshot:
                 self._insert_long(slot_id, request)
                 handled = True
@@ -751,17 +926,44 @@ class EngineCore:
             self._prefill_group(bucket, group)
         return True
 
-    def _insert_long(self, slot_id: int, request: Request) -> None:
-        """Claim a slot for a prompt beyond the largest one-shot bucket:
-        park its device seq_len at capacity-1 and let _advance_prefill feed
-        chunks between decode steps."""
+    def _insert_long(self, slot_id: int, request: Request,
+                     start: int = 0) -> None:
+        """Claim a slot for a prompt beyond the largest one-shot bucket, or
+        for the suffix of a prefix-cache hit (from `start`): park its
+        device seq_len at capacity-1 and let _advance_prefill feed chunks
+        between decode steps."""
         slot = self.slots[slot_id]
         slot.request = request
         slot.generated = 0
         slot.prefilling = True
-        slot.prefill_pos = 0
+        slot.prefill_pos = start
         self._seq_lens[slot_id] = 0
         self._d_seq_lens[slot_id] = self.slot_capacity - 1
+
+    def _insert_cached(self, slot_id: int, request: Request,
+                       entry: PrefixEntry, use_len: int,
+                       fresh: list[int]) -> None:
+        """Prefix-cache hit: the slot is claimed (before any dispatch, so a
+        failure reaches the request through _fail_all) and prefilling from
+        `use_len`; _advance_prefill then prefills only the uncached suffix.
+        Paged, the donor's page ids for the head go into the row's table
+        with a reference each, then the `fresh` suffix pages: no dispatch.
+        Dense, the donor slot's rows [0, use_len) are copied on the device.
+        The entry stays acquired until the suffix lands (or the request
+        ends), so the donor cannot be evicted mid-flight."""
+        self._insert_long(slot_id, request, start=use_len)
+        self.slots[slot_id].cache_entry = entry
+        self.prefix_cache.acquire(entry)
+        if self.page_pool is not None:
+            shared = entry.pages[:use_len // self.kv_page_size]
+            self._assign_slot_pages(slot_id, shared, fresh)
+        else:
+            for cache in (self.cache_k, self.cache_v):
+                cache[:, slot_id, :use_len].copy_(
+                    cache[:, entry.slot, :use_len])
+            self.prefix_counters.kv_copy_dispatches += 1
+        self.prefix_counters.prefix_hits_total += 1
+        self.prefix_counters.prefix_cached_tokens_total += use_len
 
     def _prefill_group(self, bucket: int,
                        group: list[tuple[int, Request, int]]) -> None:
@@ -823,8 +1025,20 @@ class EngineCore:
         prompt = request.prompt_ids
         n = len(prompt)
         start = slot.prefill_pos
-        chunk_len = min(self.prefill_buckets[-1], n - start)
-        bucket = self._bucket_for(chunk_len)
+        # A cold prompt's chunks start at multiples of the largest bucket (a
+        # prompt within one bucket prefills in one dispatch from 0). A
+        # prefix-cache hit's suffix starts inside such a chunk: it runs that
+        # chunk's rest padded to the chunk's own bucket, and the next chunks
+        # as a cold run does. Each row then meets the product shapes a cold
+        # run gives it, and on the card, where cuBLAS picks its sums by
+        # shape, its logits equal the cold run's bit for bit (a 95-token
+        # suffix at bucket 128 moved Llama-3-8B's logits by 3.5x the bf16
+        # limit from the 479-token chunk's at bucket 512).
+        largest = self.prefill_buckets[-1]
+        chunk_start = start - start % largest
+        chunk_end = min(chunk_start + largest, n)
+        chunk_len = chunk_end - start
+        bucket = self._bucket_for(chunk_end - chunk_start)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :chunk_len] = prompt[start:start + chunk_len]
         lora_idx = (self._to_device(self._lora_rows([request]))
@@ -844,6 +1058,7 @@ class EngineCore:
         slot.prefill_pos = start + chunk_len
         if slot.prefill_pos >= n:
             slot.prefilling = False
+            self._release_cache_entry(slot)  # suffix landed: donor evictable
             self._activate_group([(slot_id, request, n)],
                                  np.asarray([slot_id], np.int64),
                                  np.asarray([n], np.int32), logits)
@@ -979,14 +1194,83 @@ class EngineCore:
             elif self._seq_lens[slot_id] + 1 >= self.slot_capacity:
                 finish = "length"
         if finish is not None:
-            self._finish_slot(slot_id, finish)
+            self._finish_slot(slot_id, finish, donate=True)
+
+    # ----------------------------------------------------------- prefix cache
+
+    def _release_cache_entry(self, slot: _Slot) -> None:
+        if slot.cache_entry is not None:
+            if self.prefix_cache is not None:
+                self.prefix_cache.release(slot.cache_entry)
+            slot.cache_entry = None
+
+    def _release_entry_pages(self, entry: PrefixEntry) -> None:
+        """Drop the cache's page references of a removed entry."""
+        if self.page_pool is not None and entry.pages:
+            for p in entry.pages:
+                self.page_pool.unref(p)
+            self._prefix_pinned_pages -= len(entry.pages)
+
+    def _evict_one_prefix(self) -> bool:
+        entry = self.prefix_cache.evict_lru_entry()
+        if entry is None:
+            return False  # every donor has an in-flight reader
+        self._release_entry_pages(entry)
+        self.prefix_counters.prefix_evictions_total += 1
+        return True
+
+    def _maybe_cache_prefix(self, slot_id: int, request: Request) -> None:
+        """On a stop or length finish: donate the prompt's KV head, aligned
+        down to prefix_align, when it is long enough and not covered yet.
+        Dense pins the whole slot (out of the serving pool until evicted);
+        paged pins only the head's pages, and the slot frees at once."""
+        cache = self.prefix_cache
+        n = len(request.prompt_ids)
+        length = (n // cache.align) * cache.align
+        if length < cache.min_len:
+            return
+        tokens = tuple(request.prompt_ids[:length])
+        ns = request.sampling.lora
+        if cache.covers(tokens, ns):
+            cache.touch(tokens, ns)  # a re-served prefix is a use
+            return
+        # A longer prefix subsumes its ancestors (any match they could
+        # serve routes through this entry's subtree): reclaim them first,
+        # not counted as evictions (coverage is kept).
+        for stale in cache.evict_subsumed_entries(tokens, ns):
+            self._release_entry_pages(stale)
+        if len(cache) >= cache.max_entries and not self._evict_one_prefix():
+            return
+        if self.page_pool is not None:
+            pages = tuple(self._slot_pages[slot_id][:length // self.kv_page_size])
+            if not pages or cache.insert(tokens, -1, pages=pages,
+                                         ns=ns) is None:
+                return
+            for p in pages:  # the cache is now a co-owner of the head
+                self.page_pool.ref(p)
+            self._prefix_pinned_pages += len(pages)
+        elif cache.insert(tokens, slot_id, ns=ns) is None:
+            return
+        self.prefix_counters.prefix_insertions_total += 1
+        self.prefix_counters.prefix_inserted_tokens_total += length
+
+    def _drop_prefix_cache(self) -> None:
+        """Forget every entry and drop its page references (reset and
+        failure paths: no in-flight reader is left)."""
+        if self.prefix_cache is None:
+            return
+        for entry in self.prefix_cache.entries():
+            self._release_entry_pages(entry)
+        self.prefix_cache.clear()
 
     def _fail_all(self, message: str) -> None:
         for slot_id, slot in enumerate(self.slots):
             if slot.request is not None:
                 self._finish(slot.request, "error", message)
+            self._release_cache_entry(slot)
             self._free_slot_kv(slot_id)
             slot.clear()
+        self._drop_prefix_cache()
         if self._held_request is not None:
             self._finish(self._held_request, "error", message)
             self._held_request = None

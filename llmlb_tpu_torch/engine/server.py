@@ -245,6 +245,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "device": str(engine.core.device),
                 "model": engine.model_id,
                 "kv_cache": engine.core.kv_cache_info(),
+                "prefix_cache": engine.core.prefix_cache_info(),
                 "quant": engine.core.quant_info(),
                 "lora": engine.core.lora_info(),
             })
@@ -461,6 +462,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lora-rank-cap", type=int, default=None,
                         help="largest adapter rank served, the pool's rank "
                              "(default 16; LLMLB_LORA_RANK_CAP)")
+    parser.add_argument(
+        "--prefix-cache", choices=("on", "off"), default=None,
+        help="radix-tree prefix KV reuse across requests (default on; also "
+             "via LLMLB_PREFIX_CACHE=0)")
+    parser.add_argument(
+        "--prefix-cache-slots", type=int, default=None,
+        help="most prefix donors held at once (default num_slots // 2, "
+             "always leaving one serving slot)")
     return parser
 
 
@@ -476,6 +485,10 @@ def main(argv: list[str] | None = None) -> None:
                        lora_dir=args.lora_dir,
                        lora_max_adapters=args.lora_max_adapters,
                        lora_rank_cap=args.lora_rank_cap)
+    if args.prefix_cache is not None:
+        core_kwargs["prefix_cache"] = args.prefix_cache == "on"
+    if args.prefix_cache_slots is not None:
+        core_kwargs["prefix_cache_slots"] = max(0, args.prefix_cache_slots)
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))

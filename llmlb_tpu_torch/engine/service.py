@@ -191,9 +191,13 @@ class Engine:
                 "total_tokens": stats.total_tokens,
                 "uptime_s": round(stats.uptime_s, 3),
                 "decode_burst": self.core.decode_burst,
+                # the prefix cache's counters (the reference's metric names)
+                # and the dense hits' row copies
+                **dataclasses.asdict(stats.prefix),
             },
             "device": device,
             "kv_cache": self.core.kv_cache_info(),
+            "prefix_cache": self.core.prefix_cache_info(),
             # int8 knobs and the byte footprints they produce
             "quant": self.core.quant_info(),
             # adapter pool: resident names (the gateway's lora_loaded)

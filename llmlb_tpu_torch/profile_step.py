@@ -41,7 +41,15 @@ identity), and gives the dispatches mixed rows: row i uses pool row
 i % (N + 1), so the base model shares the batch with the adapters.
 
 `--only prefill,extend` (any of decode, prefill, extend) runs those
-dispatches alone.
+dispatches alone. `--only buckets` asks whether a row's prefill logits
+depend on the bucket its chunk is padded to: a 1503-token prompt prefills
+in 512-token chunks, as a cold run does, and the rows a prefix-cache hit
+would prefill (from 1408, the head aligned down to 128) run again over the
+same KV at bucket 128 and at the cold chunk's bucket 512. It prints their
+first-token logits against the cold run's (the largest difference, its
+worst ratio to the bf16 limit 2^-6 (|cold| + rms(cold)), bit for bit or
+not) and the wall of the suffix dispatch at each bucket. The engine runs a
+hit's suffix at the cold chunk's bucket (`EngineCore._advance_prefill`).
 
 `--device cpu` rehearses the same dispatches at a small preset on the CPU
 and prints no timing (there is no device to time).
@@ -305,6 +313,56 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
     }
 
 
+def _buckets(cfg, params, ck, cv, tables, device, largest, on_card) -> dict:
+    """The `--only buckets` row: a cold run's chunks, then a hit's suffix at
+    two buckets over the same KV (row 0 of the pool or slot cache)."""
+    capacity = (ck.shape[2] if tables is None
+                else tables.shape[1] * pool_shape(ck)[2])
+    n = min(3 * largest - 33, capacity - 2)  # 1503 at 512
+    align = PAGE if tables is not None else 32
+    hit = (n - 1) // align * align
+    gen = torch.Generator(device=device).manual_seed(3)
+    prompt = torch.randint(0, 256, (n,), generator=gen, device=device)
+
+    def chunk(start, length, bucket):
+        ids = torch.zeros((1, bucket), dtype=torch.int64, device=device)
+        ids[0, :length] = prompt[start:start + length]
+        lens = torch.tensor([length], dtype=torch.int32, device=device)
+        at = torch.tensor([start], dtype=torch.int32, device=device)
+        if tables is None:
+            out = llama.prefill_extend_slots(
+                params, cfg, ids, lens, at,
+                torch.zeros(1, dtype=torch.int64, device=device), ck, cv)
+        else:
+            out = llama.prefill_extend_pages(params, cfg, ids, lens, at,
+                                             tables[:1], ck, cv)
+        return out[0][0].float()
+
+    starts = list(range(0, n, largest))
+    for s in starts[:-1]:
+        chunk(s, largest, largest)
+    cold = chunk(starts[-1], n - starts[-1], largest)
+    rms = cold.pow(2).mean().sqrt()
+    row = {"dispatch": f"buckets prompt={n} hit_start={hit}"}
+    small = max(32, 1 << (n - hit - 1).bit_length())
+    for bucket in (small, largest):
+        got = chunk(hit, n - hit, bucket)
+        diff = (got - cold).abs()
+        out = {"max_abs_diff": diff.max().item(),
+               "worst_ratio_to_bf16_limit":
+                   (diff / (2.0**-6 * (cold.abs() + rms))).max().item(),
+               "bitwise": bool(torch.equal(got, cold))}
+        if on_card:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                chunk(hit, n - hit, bucket)
+            torch.cuda.synchronize()
+            out["suffix_wall_ms"] = (time.perf_counter() - t0) / REPS * 1e3
+        row[f"hit_at_bucket_{bucket}"] = out
+    return row
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--preset", default=None,
@@ -321,7 +379,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="comma-separated dispatch kinds to run")
     args = parser.parse_args(argv)
     kinds = set(args.only.split(","))
-    if not kinds <= {"decode", "prefill", "extend"}:
+    if not kinds <= {"decode", "prefill", "extend", "buckets"}:
         parser.error(f"--only: unknown kinds {sorted(kinds)}")
     quant = parse_quant_mode(args.quantize)
     if quant.kv and args.kv_layout == "dense":
@@ -361,6 +419,13 @@ def main(argv: list[str] | None = None) -> int:
     dispatches = _dispatches(cfg, params, ck, cv, tables, device,
                              short_ctx=min(160, capacity // 4),
                              long_ctx=capacity // 2, lora_idx=lora_idx)
+    if "buckets" in kinds:
+        row = _buckets(cfg, params, ck, cv, tables, device,
+                       min(512, capacity // 2), on_card)
+        print(json.dumps({**row, "preset": args.preset or "llama-3-8b",
+                          "quantize": quant.mode,
+                          "kv_layout": args.kv_layout, "lora": args.lora,
+                          **({"card": smi} if on_card else {})}), flush=True)
     for name, fn in dispatches.items():
         if name.split()[0] not in kinds:
             continue

@@ -311,7 +311,8 @@ def test_dense_mixed_adapter_streams_identical_to_jax_engine(
     cfg = get_preset("debug-tiny")
     core = EngineCore(cfg, params_from_numpy(weights[1], cfg, "cpu"),
                       device="cpu", decode_burst=burst, kv_layout="dense",
-                      lora_dir=lora_dir, lora_rank_cap=8, **CORE_KW)
+                      lora_dir=lora_dir, lora_rank_cap=8, prefix_cache=False,
+                      **CORE_KW)
     assert core.page_pool is None and core.kv_cache_info() == jax_kv
     reqs = [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
         max_tokens=MAX_TOKENS, lora=name, **{"temperature": 0.0, **s})))

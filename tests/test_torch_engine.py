@@ -46,6 +46,13 @@ MAX_TOKENS = 10
 # the gateway test's chat: 31 tokens once templated, one 32-token bucket in
 # both engines
 GATEWAY_CHAT = [{"role": "user", "content": "hi port"}]
+# two chats whose first 73 tokens (the system message and the user tag)
+# are one head: the second takes 64 of them (aligned to the 16-token
+# pages) from the port's prefix cache
+SYSTEM = {"role": "system",
+          "content": "You answer questions about paged KV caches tersely."}
+SHARED_CHATS = [[SYSTEM, {"role": "user", "content": q}]
+                for q in ("What is a page?", "Why share pages?")]
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +101,8 @@ def _run_jax(jparams, prompts, later=()):
 def _run_port(np_params, prompts, burst):
     cfg = get_preset("debug-tiny")
     core = EngineCore(cfg, params_from_numpy(np_params, cfg, "cpu"),
-                      device="cpu", decode_burst=burst, **CORE_KW)
+                      device="cpu", decode_burst=burst, prefix_cache=False,
+                      **CORE_KW)
     reqs = [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
         temperature=0.0, max_tokens=MAX_TOKENS))) for p in prompts]
     core.start()
@@ -114,7 +122,8 @@ def _chat_ids(messages) -> list[int]:
 
 @pytest.fixture(scope="module")
 def jax_run(weights, prompts):
-    return _run_jax(weights[0], prompts, later=[_chat_ids(GATEWAY_CHAT)])
+    return _run_jax(weights[0], prompts, later=[
+        _chat_ids(c) for c in [GATEWAY_CHAT, *SHARED_CHATS]])
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +132,13 @@ def jax_streams(jax_run, prompts):
 
 
 @pytest.fixture(scope="module")
-def jax_chat_stream(jax_run):
-    return jax_run[-1]
+def jax_chat_stream(jax_run, prompts):
+    return jax_run[len(prompts)]
+
+
+@pytest.fixture(scope="module")
+def jax_shared_streams(jax_run, prompts):
+    return jax_run[len(prompts) + 1:]
 
 
 @pytest.mark.parametrize("burst", [1, 4])
@@ -249,11 +263,15 @@ def _chunks(raw: bytes) -> list[dict]:
 
 
 async def test_gateway_proxies_chat_to_the_port(server, jax_chat_stream,
+                                                jax_shared_streams,
                                                 monkeypatch):
     """The unchanged gateway registers the port's server, proxies a
     streamed and a non-streamed chat to it, and both carry the JAX engine's
     greedy tokens for the same prompt; the stream the gateway arms with
-    `llmlb_replay` ends as the plain stream to the port does."""
+    `llmlb_replay` ends as the plain stream to the port does. Two chats
+    with a shared head follow through the gateway: the second is a prefix
+    cache hit on the port, and both carry the tokens of the JAX engine's
+    cold runs."""
     base, engine = server
     want_ids, want_reason = jax_chat_stream
     assert want_reason == "length" and len(want_ids) == MAX_TOKENS
@@ -303,6 +321,19 @@ async def test_gateway_proxies_chat_to_the_port(server, jax_chat_stream,
                                  headers=headers)
         assert r.status == 200, await r.text()
         whole = await r.json()
+
+        hits = []  # (hits, cached tokens) each shared-head chat added
+        for messages in SHARED_CHATS:
+            before = engine.core.stats()
+            r = await gw.client.post("/v1/chat/completions",
+                                     json={**body, "messages": messages},
+                                     headers=headers)
+            assert r.status == 200, await r.text()
+            assert (await r.json())["usage"]["completion_tokens"] == MAX_TOKENS
+            after = engine.core.stats()
+            hits.append((after.prefix.prefix_hits_total - before.prefix.prefix_hits_total,
+                         after.prefix.prefix_cached_tokens_total
+                         - before.prefix.prefix_cached_tokens_total))
     finally:
         await gw.close()
 
@@ -314,11 +345,16 @@ async def test_gateway_proxies_chat_to_the_port(server, jax_chat_stream,
     assert_sse_protocol(raw_plain)
     plain = _chunks(raw_plain)
 
-    assert [b.get("llmlb_replay") for b in bodies] == [True, None, None]
-    # three greedy runs of the prompt, each the JAX engine's tokens
-    assert len(emitted) == 3
-    assert all(t == want_ids for t in emitted.values()), (dict(emitted),
-                                                          want_ids)
+    assert [b.get("llmlb_replay") for b in bodies] == [True] + [None] * 4
+    # three greedy runs of the prompt, each the JAX engine's tokens, and
+    # the two shared-head chats, the second served from the cached head
+    runs = list(emitted.values())
+    assert len(runs) == 5
+    assert [runs[i] for i in (0, 1, 4)] == [want_ids] * 3, (runs, want_ids)
+    assert runs[2:4] == [t for t, _r in jax_shared_streams]
+    assert hits == [(0, 0), (1, 64)], hits
+    # room for every token before the slot capacity (128)
+    assert len(_chat_ids(SHARED_CHATS[1])) + MAX_TOKENS < 128
     text = ByteTokenizer(512).decode(want_ids)
     assert _content(armed) == _content(plain) == text
     assert whole["choices"][0]["message"]["content"] == text

@@ -409,7 +409,7 @@ def _run_port(np_params, requests, burst, lora_dir, adapters=True):
     cfg = get_preset("debug-tiny")
     core = EngineCore(cfg, params_from_numpy(np_params, cfg, "cpu"),
                       device="cpu", decode_burst=burst, lora_dir=lora_dir,
-                      lora_rank_cap=8, **CORE_KW)
+                      lora_rank_cap=8, prefix_cache=False, **CORE_KW)
     reqs = [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
         max_tokens=MAX_TOKENS, lora=name if adapters else None,
         **{"temperature": 0.0, **s}))) for p, s, name in requests]
@@ -442,6 +442,49 @@ def test_lora_enabled_but_unused_is_the_lora_free_engine(weights, lora_dir,
     on = _run_port(weights[1], requests, 4, lora_dir, adapters=False)
     off = _run_port(weights[1], requests, 4, None, adapters=False)
     assert on == off
+
+
+def test_prefix_cache_never_shared_across_adapters(weights, lora_dir):
+    """Twin of the reference's test of the same name: the base model and
+    two adapters sharing one prompt never share cached KV. Each first use
+    of the prompt under a new adapter is a miss, a second use under the
+    same adapter a hit with the first use's tokens, and the adapters'
+    continuations differ."""
+    cfg = get_preset("debug-tiny")
+    core = EngineCore(cfg, params_from_numpy(weights[1], cfg, "cpu"),
+                      device="cpu", lora_dir=lora_dir, lora_rank_cap=8,
+                      min_prefix_len=8, **CORE_KW)
+    prompt = list(range(2, 50))  # long enough to cache (align 16)
+
+    def run(name):
+        r = core.submit(Request(prompt_ids=prompt, sampling=SamplingParams(
+            temperature=0.0, max_tokens=MAX_TOKENS, lora=name)))
+        return _drain(r.events)
+
+    core.start()
+    try:
+        base_1 = run(None)
+        assert core.stats().prefix.prefix_hits_total == 0
+        assert run(None) == base_1
+        assert core.stats().prefix.prefix_hits_total == 1  # warm: base hit
+        a_1 = run("acme")
+        assert core.stats().prefix.prefix_hits_total == 1, (
+            "an adapter request hit the base model's cached prompt KV")
+        assert run("acme") == a_1  # same-adapter reuse
+        assert core.stats().prefix.prefix_hits_total == 2
+        b_1 = run("beta")
+        assert core.stats().prefix.prefix_hits_total == 2, (
+            "adapter beta hit acme's (or the base model's) cached KV")
+        assert b_1 != a_1 and a_1 != base_1
+        st = core.stats()
+        assert (st.prefix.prefix_misses_total, st.prefix.prefix_insertions_total) == (3, 3)
+        # a budget of 2 donors: beta's donation evicted the base model's
+        assert st.prefix.prefix_evictions_total == 1
+        assert sorted(e.ns for e in core.prefix_cache.entries()) == [
+            "acme", "beta"]
+        assert core.lora_info()["active"] == {}
+    finally:
+        core.stop()
 
 
 def test_engine_lora_info_and_accounting(weights, lora_dir, monkeypatch):

@@ -92,11 +92,11 @@ def jax_run(request, weights, requests):
         core.stop()
 
 
-def _port_core(np_params, burst, quantize):
+def _port_core(np_params, burst, quantize, prefix_cache=False):
     cfg = get_preset("debug-tiny")
     return EngineCore(cfg, params_from_numpy(np_params, cfg, "cpu"),
                       device="cpu", decode_burst=burst, quantize=quantize,
-                      **CORE_KW)
+                      prefix_cache=prefix_cache, **CORE_KW)
 
 
 def _run_port(core, requests):
@@ -129,6 +129,39 @@ def test_streams_and_accounting_match_jax(weights, requests, jax_run, burst):
     assert len({tuple(t) for t, _r in jax_streams[n:]}) == n
     assert port[:n] == jax_streams[:n]  # greedy
     assert port[n:] == jax_streams[n:]  # seeded stochastic
+
+
+@pytest.mark.parametrize("mode", ["kv", "all"])
+def test_int8_prefix_hit_equals_its_cold_run(weights, mode):
+    """Over int8 pages a hit shares the donor's codes and scales: its
+    greedy stream is the cold engine's, and it prefills only the suffix
+    (48 tokens over 16-token pages: 32 from the cache, one 16-token
+    dispatch). The cache pins the donor's 3 pages."""
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(1, 256, size=(48,)).tolist()
+    cold = _run_port(_port_core(weights[1], 1, mode), [(prompt, GREEDY)])
+    core = _port_core(weights[1], 1, mode, prefix_cache=True)
+
+    def run():
+        return _drain(core.submit(Request(prompt_ids=list(prompt),
+                                          sampling=SamplingParams(
+                                              max_tokens=MAX_TOKENS,
+                                              **GREEDY))).events)
+
+    core.start()
+    try:
+        reqs = [run()]
+        dispatches = core.prefill_dispatches
+        reqs.append(run())
+        st = core.stats()
+        assert (st.prefix.prefix_hits_total, st.prefix.prefix_cached_tokens_total) == (1, 32)
+        assert core.prefill_dispatches - dispatches == 1
+        assert core.stats().prefix.kv_copy_dispatches == 0
+        assert core.prefix_cache_info()["pinned_hbm_bytes"] == (
+            3 * core.kv_cache_info()["bytes_per_page"])
+    finally:
+        core.stop()
+    assert reqs == cold * 2
 
 
 def test_int8_pages_are_smaller(weights):
