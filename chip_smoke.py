@@ -77,7 +77,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
              hit on the first, whose ids must agree and whose logits must be
              within the bf16 limit of the miss's, while the miss's ids must
              equal the cache-off engine's) and decode rate on the same
-             core. The core's decode bursts are CUDA graph
+             core. Then the overload block, on the same core and counted
+             with the main path: a priority park (SLOTS rows of 48 tokens,
+             one of priority 2, seeded, the others greedy of priority 1;
+             a priority-0 request arrives after its 16th token and parks
+             it): its tokens must be its solo run's, its first resumed
+             logits the solo run's bit for bit (one decode step over each
+             run's KV rows, which must be equal; on a difference the first
+             layer and position named), the counters +1 park and +1
+             resume; the reference design's gap (prompt + committed as one
+             prefill) and the resume latency are logged, and in bf16 the
+             latency of adoptions of 16 and 128 committed tokens.
+             Paged: page exhaustion on an engine of 2 slots and 4 pages,
+             two rows of 60 tokens: both their solo tokens and finish
+             reasons after a park. /v1/resume over HTTP with the ids of an
+             armed stream cut after 16: the uninterrupted 32 ids, each in a
+             replay frame. bf16 only: /v1/completions and /v1/responses
+             carry the chat's greedy ids; /v1/embeddings gives finite unit
+             vectors, each the same bits alone as in a batch of 8. Last in
+             each phase, on a server of its own: POST /api/drain (grace 0)
+             with an armed stream decoding: its row parks and its socket
+             closes without [DONE], a new chat gets 503 with Retry-After,
+             /api/health says draining. The core's decode bursts are CUDA graph
              replays, one graph per (window bucket, seeded) key after one
              eager warm-up burst each: every other burst replays, and the
              capture time, the graphs' pool bytes, nodes and port kernels
@@ -2200,6 +2221,699 @@ def _cache_off_engine(core, label: str, lora: bool, dev: dict,
             "ttft_long_off_s": long_off[1], "tok_s_8_off": tok_s_8_off}
 
 
+# The overload block of each serve phase: a priority park, page exhaustion
+# (paged phases), /v1/resume over HTTP; the endpoints block (bf16); and the
+# drain block, last, on a server of its own.
+PARK_TOKENS = 48  # tokens of each row of the priority block
+PARK_AFTER = 16  # the victim's tokens before the priority-0 request
+PARK_HEAD = 40  # _fresh_head offsets of the priority block's prompts
+VICTIM_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=4242)
+# the sweep of committed lengths (bf16): adoptions on the idle core
+SWEEP = (16, 128)
+# page exhaustion: on 256-position slots, two rows of EXHAUST_TOKENS tokens
+# after a 100-token prompt want 2 pages each; the pool has 3 (and the
+# trash page)
+EXHAUST_TOKENS, EXHAUST_PAGES = 60, 4
+EMBED_INPUTS = [f"Embedding input {i}: " + "z" * (20 + 3 * i)
+                for i in range(SLOTS)]  # 39..60 bytes: one 64-token bucket
+
+
+def _submit(core, prompt: list[int], max_tokens: int, priority: int = 1,
+            lora: str | None = None, parked=None, **sampling):
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    sampling.setdefault("temperature", 0.0)
+    return core.submit(Request(prompt_ids=list(prompt), parked=parked,
+                               sampling=SamplingParams(
+                                   max_tokens=max_tokens, priority=priority,
+                                   lora=lora, **sampling)))
+
+
+def _collect(request, first: list | None = None) -> tuple[list[int], str]:
+    """A request's tokens and finish reason; `first` gets the host time of
+    its first token event."""
+    ids = []
+    while True:
+        kind, value = request.events.get(timeout=600)
+        if kind == "token":
+            if first is not None and not ids:
+                first.append(time.perf_counter())
+            ids.append(int(value))
+        elif kind == "done":
+            return ids, value
+        else:
+            raise RuntimeError(f"engine error: {value}")
+
+
+def _collect_n(request, n: int) -> list[int]:
+    """A request's first n tokens; then it is cancelled (a cancelled finish
+    donates no prefix) and its end awaited."""
+    ids = []
+    while len(ids) < n:
+        kind, value = request.events.get(timeout=600)
+        if kind != "token":
+            raise RuntimeError(f"request ended after {len(ids)} tokens: "
+                               f"{kind} {value}")
+        ids.append(int(value))
+    request.cancel()
+    while request.events.get(timeout=600)[0] == "token":
+        pass
+    return ids
+
+
+def _row_kv(core, slot_id: int, rows: int):
+    """Copies of K and V of a slot's positions [0, rows), every layer
+    (int8 pools as {"q", "s"} pairs)."""
+    import torch
+
+    if core.page_pool is None:
+        return tuple(pool[:, slot_id, :rows].clone()
+                     for pool in (core.cache_k, core.cache_v))
+    pos = torch.arange(rows, device=core.device)
+    table = torch.as_tensor(core._block_tables[slot_id],
+                            device=core.device).long()
+    pages, off = table[pos // core.kv_page_size], pos % core.kv_page_size
+
+    def take(pool):
+        if isinstance(pool, dict):
+            return {k: v[:, pages, off].clone() for k, v in pool.items()}
+        return pool[:, pages, off].clone()
+    return take(core.cache_k), take(core.cache_v)
+
+
+def _kv_head(kv, rows: int):
+    """The first `rows` positions of a _row_kv copy."""
+    def cut(x):
+        return ({k: v[:, :rows] for k, v in x.items()}
+                if isinstance(x, dict) else x[:, :rows])
+    return cut(kv[0]), cut(kv[1])
+
+
+def _kv_first_difference(a, b) -> str | None:
+    """Where two _row_kv copies first differ (K or V, layer, position)."""
+    import torch
+
+    for name, x, y in (("K", a[0], b[0]), ("V", a[1], b[1])):
+        pairs = ([(f"{name} {k}", x[k], y[k]) for k in x]
+                 if isinstance(x, dict) else [(name, x, y)])
+        for what, u, v in pairs:
+            if torch.equal(u, v):
+                continue
+            diff = (u != v).reshape(u.shape[0], u.shape[1], -1).any(-1)
+            layer, pos = (int(i) for i in diff.nonzero()[0])
+            return f"{what} of layer {layer}, position {pos}"
+    return None
+
+
+class _Uncounted:
+    """Takes the port's kernel launches made inside the block back out of
+    the counts: the recomputations that compare two runs are not the main
+    path."""
+
+    def __enter__(self):
+        from llmlb_tpu_torch.kernels import build
+
+        self.before = dict(build.LAUNCHES)
+
+    def __exit__(self, *exc):
+        from llmlb_tpu_torch.kernels import build
+
+        build.add_launches(build.launches_since(self.before), times=-1)
+
+
+def _window(n: int) -> int:
+    w = 256
+    while w < n:
+        w *= 2
+    return w
+
+
+def _decode_logits(core, kv, n_kv: int, token: int, lora_row: int):
+    """The logits one decode step gives a row holding `kv` (its positions
+    [0, n_kv)) that is fed `token` at position n_kv - 1: the step the
+    engine runs to sample the row's next token, over SLOTS rows (row 0 the
+    row, the others idle) through scratch pages (paged) or a scratch slot
+    cache (dense) of the engine's own layout and KV dtype."""
+    import torch
+
+    from llmlb_tpu_torch.models import llama
+
+    cfg, dev = core.cfg, core.device
+    window = _window(n_kv + 1)
+    toks = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    seq = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    toks[0], seq[0] = token, n_kv - 1
+    lidx = None
+    if core.lora is not None:
+        lidx = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+        lidx[0] = lora_row
+    k, v = kv
+    if core.page_pool is None:
+        ck, cv = llama.init_kv_cache(cfg, SLOTS, window, dev)
+        ck[:, 0, :n_kv], cv[:, 0, :n_kv] = k, v
+        return llama.decode_step(core.params, cfg, toks, seq, ck, cv,
+                                 window=window, lora_idx=lidx)[0][0]
+    ps = core.kv_page_size
+    npages = -(-n_kv // ps)
+    ck, cv = llama.init_kv_pages(cfg, npages + 1, ps, dev,
+                                 quantized=core.quant.kv)
+
+    def put(pool, rows):
+        if isinstance(pool, dict):
+            for key in pool:
+                put(pool[key], rows[key])
+            return
+        flat = pool[:, 1:].reshape(pool.shape[0], npages * ps,
+                                   *pool.shape[3:])
+        flat[:, :n_kv] = rows
+    put(ck, k)
+    put(cv, v)
+    tables = torch.zeros((SLOTS, npages), dtype=torch.int32, device=dev)
+    tables[0] = torch.arange(1, npages + 1, device=dev)
+    return llama.decode_step_paged(core.params, cfg, toks, seq, ck, cv,
+                                   tables, window=window,
+                                   lora_idx=lidx)[0][0]
+
+
+def _reference_design_logits(core, ids: list[int], lora_row: int):
+    """The reference's resume (`_effective_prompt`): prompt + committed
+    prefilled in one pass at its bucket, through fresh scratch pages (or a
+    scratch slot); the last position's logits and the pass's wall ms."""
+    import torch
+
+    from llmlb_tpu_torch.models import llama
+
+    cfg, dev = core.cfg, core.device
+    n = len(ids)
+    bucket = core._bucket_for(n)
+    x = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    x[0, :n] = torch.tensor(ids, device=dev)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    lidx = (torch.tensor([lora_row], dtype=torch.int32, device=dev)
+            if core.lora is not None else None)
+    if core.page_pool is None:
+        ck, cv = llama.init_kv_cache(cfg, 1, bucket, dev)
+        slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        run = lambda: llama.prefill_into_slots(  # noqa: E731
+            core.params, cfg, x, lens, slot, ck, cv, lora_idx=lidx)[0][0]
+    else:
+        ps = core.kv_page_size
+        npages = -(-bucket // ps)
+        ck, cv = llama.init_kv_pages(cfg, npages + 1, ps, dev,
+                                     quantized=core.quant.kv)
+        tables = torch.arange(1, npages + 1, dtype=torch.int32,
+                              device=dev)[None]
+        run = lambda: llama.prefill_into_pages(  # noqa: E731
+            core.params, cfg, x, lens, tables, ck, cv, lora_idx=lidx)[0][0]
+    run()  # warm
+    _sync(core)
+    t0 = time.perf_counter()
+    logits = run()
+    _sync(core)
+    return logits, (time.perf_counter() - t0) * 1e3
+
+
+def _sync(core) -> None:
+    import torch
+
+    if core.device.type == "cuda":
+        torch.cuda.synchronize(core.device)
+
+
+class _ResumeWatch:
+    """On the engine thread: for the watched requests, copies of their KV
+    rows once enough tokens are committed (between bursts), and for a
+    resumed one the re-admission time (its prefill group starts), its
+    committed length then, and the time its first new token is fetched.
+    Wraps the core's _prefill_group and _emit_fetched as instance
+    attributes until close()."""
+
+    def __init__(self, core):
+        self.core = core
+        self.watches: dict[int, dict] = {}  # id(request) -> watch
+        prefill, emit = core._prefill_group, core._emit_fetched
+
+        def prefill_group(bucket, group):
+            for _slot, request, n in group:
+                w = self.watches.get(id(request))
+                if w is not None and request.parked is not None:
+                    m = len(request.parked.tokens)
+                    w.update(readmit=time.perf_counter(), m=m,
+                             min_tokens=m + 1, rows=n + m)
+            prefill(bucket, group)
+
+        def emit_fetched(tokens, active):
+            emit(tokens, active)
+            for slot_id, slot in enumerate(core.slots):
+                w = self.watches.get(id(slot.request))
+                if (w is None or "kv" in w or w.get("min_tokens") is None
+                        or len(slot.out_tokens) < w["min_tokens"]):
+                    continue
+                w["kv"] = _row_kv(core, slot_id, w["rows"])
+                w["first_new"] = time.perf_counter()
+
+        core._prefill_group, core._emit_fetched = prefill_group, emit_fetched
+
+    def watch(self, request, min_tokens: int | None = None,
+              rows: int | None = None) -> dict:
+        """Copy the KV rows [0, rows) once `min_tokens` are committed; with
+        None, once the request resumes, its positions up to and including
+        its committed tokens, when its first new token is fetched."""
+        w = self.watches[id(request)] = {"min_tokens": min_tokens,
+                                         "rows": rows}
+        return w
+
+    def close(self) -> None:
+        del self.core._prefill_group, self.core._emit_fetched
+
+
+def _priority_park(core, prompt: list[int], label: str, lora: bool,
+                   dev: dict, sweep: bool) -> dict:
+    """SLOTS rows fill the engine: the victim (priority 2, seeded, with
+    adapter acme in the LoRA phase) and SLOTS - 1 greedy rows of priority
+    1, PARK_TOKENS tokens each; once the victim has PARK_AFTER tokens a
+    priority-0 request arrives and parks it (the only priority-2 row). The
+    victim's tokens must be its solo uninterrupted run's, its KV rows at the
+    resume point (prompt and committed tokens) the uninterrupted run's bit
+    for bit, and the counters must move by one park and one resume. The
+    next step's logits are recomputed from each run's rows by one scratch
+    decode step (equal, as the rows are; the engine's own batched step is
+    not read), and serve as the base of the reference design's gap. Also the reference design's logit gap
+    at the same point. With `sweep`, adoptions of the solo run's first
+    SWEEP[i] tokens on the idle core: their latency and continuation."""
+    victim_prompt = _fresh_head(prompt, PARK_HEAD)
+    name = "acme" if lora else None
+    n = len(victim_prompt)
+    if core.page_pool is None:
+        # dense donors pin slots, and slot pressure evicts a donor before it
+        # parks a row (the reference's order): forget them first, on the
+        # loop's thread, so that the arrival finds every slot decoding
+        core.call_in_loop(core._drop_prefix_cache)
+    solo_tokens = max(PARK_TOKENS, max(SWEEP) + 8 if sweep else 0)
+    watch = _ResumeWatch(core)
+    try:
+        # the uninterrupted run first (its prompt is new to the cache; it is
+        # cancelled, not finished, so it donates none), its KV rows copied
+        # once PARK_TOKENS are committed: they cover any park point
+        solo = _submit(core, victim_prompt, solo_tokens + 16, 2, name,
+                       **VICTIM_SAMPLING)
+        w_solo = watch.watch(solo, PARK_TOKENS, n + PARK_TOKENS - 1)
+        solo_ids = _collect_n(solo, solo_tokens)
+        _wait_idle(core)
+        st0 = core.stats()
+        victim = _submit(core, victim_prompt, PARK_TOKENS, 2, name,
+                         **VICTIM_SAMPLING)
+        w = watch.watch(victim)
+        others = [_submit(core, _fresh_head(prompt, PARK_HEAD + 1 + i),
+                          PARK_TOKENS, 1) for i in range(SLOTS - 1)]
+        got: list[int] = []
+        while len(got) < PARK_AFTER:
+            kind, value = victim.events.get(timeout=600)
+            if kind != "token":
+                raise AssertionError(f"victim ended early: {kind} {value}")
+            got.append(int(value))
+        hi = _submit(core, _fresh_head(prompt, PARK_HEAD + SLOTS), 16, 0)
+        rest, reason = _collect(victim)
+        for r in [hi, *others]:
+            _collect(r)
+        _wait_idle(core)
+        st1 = core.stats()
+    finally:
+        watch.close()
+    ids = got + rest
+    moved = (st1.preemptions_total - st0.preemptions_total,
+             st1.preempt_resumes_total - st0.preempt_resumes_total)
+    if moved != (1, 1):
+        raise AssertionError(f"serve {label}: the priority block moved "
+                             f"(preemptions, resumes) by {moved}, not (1, 1)")
+    if ids != solo_ids[:PARK_TOKENS] or reason != "length":
+        raise AssertionError(
+            f"serve {label}: the parked row's tokens part from its solo run "
+            f"after {_shared(ids, solo_ids)} of {PARK_TOKENS}")
+    m = w["m"]
+    if not PARK_AFTER <= m <= PARK_TOKENS - 4 or "kv" not in w:
+        raise AssertionError(f"serve {label}: parked at {m} committed tokens")
+    resumed_kv, uninterrupted_kv = w["kv"], _kv_head(w_solo["kv"], n + m)
+    lora_row = core.lora.slot_of(name) if lora else 0
+    with _Uncounted():
+        args = (n + m, ids[m - 1], lora_row)
+        resumed = _decode_logits(core, resumed_kv, *args)
+        uninterrupted = _decode_logits(core, uninterrupted_kv, *args)
+        ref, ref_ms = _reference_design_logits(core, victim_prompt + ids[:m],
+                                               lora_row)
+    import torch
+
+    gap = (ref.float() - uninterrupted.float()).abs().max().item()
+    where = _kv_first_difference(resumed_kv, uninterrupted_kv)
+    if where is not None or not torch.equal(resumed, uninterrupted):
+        raise AssertionError(
+            f"serve {label}: the resumed row's KV rows first differ from the "
+            f"uninterrupted run's at {where}; the next step's logits "
+            f"recomputed from each differ by max |diff| "
+            f"{(resumed - uninterrupted).abs().max().item():.3e}")
+    out = {"park_m": m, "resume_ms": (w["first_new"] - w["readmit"]) * 1e3,
+           "ref_gap": gap, "ref_prefill_ms": ref_ms, "moved": moved}
+    log(f"serve {label} [{dev['smi']}]: priority park: the priority-2 row "
+        f"({n}-token prompt{', adapter acme' if lora else ''}) parked at {m} "
+        f"committed tokens; re-admission to its first new token "
+        f"{out['resume_ms']:.1f} ms (its prompt's prefill, then {m - 1} "
+        f"committed tokens fed through decode steps); its {PARK_TOKENS} "
+        f"tokens its solo run's; its KV rows [0, {n + m}) at the resume "
+        f"point bit-identical to the uninterrupted run's (so are the next "
+        f"step's logits recomputed from each); the reference design (prompt "
+        f"+ committed in one prefill, {ref_ms:.1f} ms) moves those logits by "
+        f"max |diff| {gap:.3e}; (preemptions, resumes) moved by {moved}")
+    if sweep:
+        out["sweep"] = []
+        for c in SWEEP:
+            from llmlb_tpu_torch.engine.scheduler import ParkedState
+
+            first: list = []
+            t0 = time.perf_counter()
+            r = _submit(core, victim_prompt, c + 8, 2, name,
+                        parked=ParkedState(c, solo_ids[:c]), **VICTIM_SAMPLING)
+            new, _ = _collect(r, first)
+            if new != solo_ids[c:c + 8]:
+                raise AssertionError(f"serve {label}: an adoption of {c} "
+                                     "committed tokens parts from the solo "
+                                     "run")
+            with _Uncounted():
+                _, ms = _reference_design_logits(
+                    core, victim_prompt + solo_ids[:c], lora_row)
+            out["sweep"].append((c, (first[0] - t0) * 1e3, ms))
+            log(f"serve {label} [{dev['smi']}]: adoption of {c} committed "
+                f"tokens on the idle core: first new token "
+                f"{out['sweep'][-1][1]:.1f} ms after submit (the reference "
+                f"design's prefill of {n + c} tokens: {ms:.1f} ms); its 8 "
+                "new tokens the solo run's")
+    return out
+
+
+def _page_exhaustion(small, prompt: list[int], label: str, dev: dict) -> dict:
+    """On the small engine (2 slots of 256 positions, EXHAUST_PAGES pages:
+    the trash page and 3): two rows that want 2 pages each run together;
+    both must finish with their solo runs' tokens and finish reasons, none
+    early with "length", after at least one park."""
+    prompts = [_fresh_head(prompt, PARK_HEAD + 20 + i)[:100] for i in range(2)]
+    solo = [_collect(_submit(small, p, EXHAUST_TOKENS)) for p in prompts]
+    t0 = time.perf_counter()
+    both = [_submit(small, p, EXHAUST_TOKENS) for p in prompts]
+    got = [_collect(r) for r in both]
+    wall = time.perf_counter() - t0
+    st = small.stats()
+    if got != solo:
+        raise AssertionError(
+            f"serve {label}: page exhaustion: the rows' (shared tokens, "
+            f"reasons) {[(_shared(a[0], b[0]), a[1]) for a, b in zip(got, solo)]}"
+            f" against their solo runs")
+    if st.preemptions_total < 1 or small.page_pool.total != EXHAUST_PAGES - 1:
+        raise AssertionError(f"serve {label}: page exhaustion parked "
+                             f"{st.preemptions_total} rows in a pool of "
+                             f"{small.page_pool.total} pages")
+    log(f"serve {label} [{dev['smi']}]: page exhaustion (2 slots, "
+        f"{small.page_pool.total} pages of 128, 2 rows of {EXHAUST_TOKENS} "
+        f"tokens): {st.preemptions_total} park(s), "
+        f"{st.preempt_resumes_total} resume(s); both rows their solo runs' "
+        f"tokens and finish reasons, together in {wall:.2f} s")
+    return {"parks": st.preemptions_total,
+            "resumes": st.preempt_resumes_total, "wall_s": wall}
+
+
+def _timed(times: dict, name: str, fn, *args):
+    """fn(*args), its wall seconds under `name` in `times`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    times[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def _sse_lines(resp):
+    """The data payloads of an SSE response, as they arrive."""
+    for line in resp:
+        line = line.strip()
+        if line.startswith(b"data: "):
+            yield line[len(b"data: "):]
+
+
+def _armed(content: str, max_tokens: int, lora: str | None) -> dict:
+    body = {"model": "llama-3-8b", "temperature": 0, "max_tokens": max_tokens,
+            "stream": True, "llmlb_replay": True,
+            "messages": [{"role": "user", "content": content}]}
+    if lora is not None:
+        body["lora"] = lora
+    return body
+
+
+def _stream_ids(base: str, path: str, body: dict) -> tuple[list[int], str]:
+    """(replay ids, finish reason) of an armed stream read to its end."""
+    ids, finish, done = [], None, False
+    with _post(base + path, body) as resp:
+        for data in _sse_lines(resp):
+            if data == b"[DONE]":
+                done = True
+                continue
+            obj = json.loads(data)
+            if obj.get("object") == "llmlb.replay":
+                ids.extend(obj["tokens"])
+            for c in obj.get("choices") or []:
+                finish = c.get("finish_reason") or finish
+    if not done:
+        raise AssertionError(f"{path}: the stream ended without [DONE]")
+    return ids, finish
+
+
+def _resume_http(base: str, label: str, lora: bool, dev: dict) -> dict:
+    """An armed stream of 32 tokens read to its end (the uninterrupted
+    ids), the same request cut by the client after 16 replay ids, then
+    POST /v1/resume with those ids: its replay frames must carry every
+    committed id, in order, and its completion must be the uninterrupted
+    one."""
+    import http.client
+
+    body = _armed(f"Resume check for {label}: count to ten.", 32,
+                  "acme" if lora else None)
+    full, finish = _stream_ids(base, "/v1/chat/completions", body)
+    host, port = base[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    cut: list[int] = []
+    for data in _sse_lines(conn.getresponse()):
+        obj = json.loads(data)
+        if obj.get("object") == "llmlb.replay":
+            cut.extend(obj["tokens"])
+            if len(cut) >= 16:
+                break
+    conn.close()  # the client goes: the engine cancels the stream
+    t0 = time.perf_counter()
+    again, finish2 = _stream_ids(base, "/v1/resume",
+                                 {**body, "committed_ids": cut})
+    wall = time.perf_counter() - t0
+    if len(full) != 32 or finish != "length":
+        raise AssertionError(f"serve {label}: the armed stream gave "
+                             f"{len(full)} ids ({finish})")
+    if cut != full[:len(cut)] or (again, finish2) != (full, finish):
+        raise AssertionError(
+            f"serve {label}: /v1/resume after {len(cut)} committed ids gives "
+            f"{_shared(again, full)} of the uninterrupted {len(full)} ids")
+    log(f"serve {label} [{dev['smi']}]: /v1/resume after {len(cut)} "
+        f"committed ids of a cut armed stream: the uninterrupted {len(full)} "
+        f"ids, every one in its replay frames, in {wall:.2f} s")
+    return {"committed": len(cut), "wall_s": wall}
+
+
+class _EmitSpy:
+    """The tokens the core emits, by request id, in order of first token:
+    wraps the core's _emit as an instance attribute until close()."""
+
+    def __init__(self, core):
+        self.core, self.ids = core, {}
+        emit = core._emit
+
+        def spy(slot_id, token):
+            rid = core.slots[slot_id].request.request_id
+            self.ids.setdefault(rid, []).append(token)
+            emit(slot_id, token)
+
+        core._emit = spy
+
+    def last(self) -> list[int]:
+        return list(self.ids.values())[-1]
+
+    def close(self) -> None:
+        del self.core._emit
+
+
+def _endpoints(base: str, core, dev: dict) -> dict:
+    """/v1/completions (streamed) on the chat's templated text and
+    /v1/responses (streamed) on its content carry the chat's greedy ids;
+    /v1/embeddings of SLOTS inputs returns finite unit vectors, each the
+    same bits alone as in the batch."""
+    import math
+
+    from llmlb_tpu_torch.engine.tokenizer import default_chat_template
+
+    content = "Endpoints: name three colours."
+    messages = [{"role": "user", "content": content}]
+    spy = _EmitSpy(core)
+    try:
+        _chat(base, content, 16, False)
+        chat_ids = spy.last()
+        with _post(base + "/v1/completions", {
+                "model": "llama-3-8b", "temperature": 0, "max_tokens": 16,
+                "stream": True,
+                "prompt": default_chat_template(messages)}) as resp:
+            frames = list(_sse_lines(resp))
+        if frames[-1] != b"[DONE]":
+            raise AssertionError("/v1/completions: no [DONE]")
+        completion_ids = spy.last()
+        with _post(base + "/v1/responses", {
+                "model": "llama-3-8b", "temperature": 0, "max_tokens": 16,
+                "stream": True, "input": content}) as resp:
+            raw = resp.read()
+        if b"event: response.completed" not in raw:
+            raise AssertionError("/v1/responses: no response.completed")
+        response_ids = spy.last()
+    finally:
+        spy.close()
+    if not chat_ids == completion_ids == response_ids or len(chat_ids) != 16:
+        raise AssertionError(
+            f"completions / responses share {_shared(chat_ids, completion_ids)}"
+            f" / {_shared(chat_ids, response_ids)} of the chat's 16 ids")
+
+    def embed(inputs):
+        t0 = time.perf_counter()
+        with _post(base + "/v1/embeddings", {"model": "llama-3-8b",
+                                              "input": inputs}) as resp:
+            out = json.loads(resp.read())
+        return ([d["embedding"] for d in out["data"]],
+                (time.perf_counter() - t0) * 1e3)
+
+    embed(EMBED_INPUTS)  # warm
+    batch, batch_ms = embed(EMBED_INPUTS)
+    alone = [embed([x]) for x in EMBED_INPUTS]
+    for i, vec in enumerate(batch):
+        if len(vec) != core.cfg.hidden_size or not all(map(math.isfinite,
+                                                          vec)):
+            raise AssertionError(f"embedding {i}: not {core.cfg.hidden_size} "
+                                 "finite values")
+        norm = math.sqrt(sum(x * x for x in vec))
+        if abs(norm - 1.0) > 1e-4:
+            raise AssertionError(f"embedding {i}: norm {norm}")
+        if alone[i][0][0] != vec:
+            raise AssertionError(f"embedding {i} differs alone and in the "
+                                 f"batch of {SLOTS}")
+    one_ms = min(ms for _, ms in alone)
+    log(f"serve bf16 [{dev['smi']}]: /v1/completions and /v1/responses carry "
+        f"the chat's 16 greedy ids; /v1/embeddings: {SLOTS} inputs in "
+        f"{batch_ms:.1f} ms, one in {one_ms:.1f} ms (HTTP included); unit "
+        f"vectors, each the same bits alone as in the batch")
+    return {"embed_batch_ms": batch_ms, "embed_one_ms": one_ms}
+
+
+def _drain_block(server, label: str) -> dict:
+    """On a server of the small engine (drain is one-way, so last): an
+    armed stream decoding, POST /api/drain with grace 0; the stream's
+    socket must close without [DONE] and its row park; a new chat gets 503
+    with Retry-After; /api/health says draining."""
+    import http.client
+    import urllib.error
+
+    base = "http://%s:%d" % server.server_address[:2]
+    # 128 tokens fit the 256-position slot; the drain comes after 8
+    resp = _post(base + "/v1/chat/completions",
+                 _armed(f"Drain check for {label}.", 128, None))
+    ids, done, cut = [], False, False
+    lines = _sse_lines(resp)
+    for data in lines:
+        obj = json.loads(data)
+        if obj.get("object") == "llmlb.replay":
+            ids.extend(obj["tokens"])
+            if len(ids) >= 8:
+                break
+    t0 = time.perf_counter()
+    with _post(base + "/api/drain", {"grace_s": 0}) as r:
+        if not json.loads(r.read())["draining"]:
+            raise AssertionError("/api/drain did not start a drain")
+    try:
+        for data in lines:
+            done |= data == b"[DONE]"
+    except (OSError, http.client.HTTPException) as e:
+        cut = type(e).__name__
+    resp.close()
+    server.drain.wait(60)
+    cut_s = time.perf_counter() - t0
+    info = server.drain.info()
+    try:
+        _post(base + "/v1/chat/completions",
+              _armed("after the drain", 4, None))
+        raise AssertionError("a chat was admitted while draining")
+    except urllib.error.HTTPError as e:
+        refused = (e.code, e.headers.get("Retry-After"),
+                   json.loads(e.read())["error"]["code"])
+    with urllib.request.urlopen(base + "/api/health", timeout=60) as r:
+        health = json.loads(r.read())
+    if done or info["parked"] != 1 or info["aborted_connections"] != 1:
+        raise AssertionError(f"serve {label}: drain: [DONE] {done}, "
+                             f"{info}")
+    if refused[0] != 503 or not refused[1] or refused[2] != "draining":
+        raise AssertionError(f"serve {label}: drain refused a chat with "
+                             f"{refused}")
+    if health["status"] != "draining" or not health["draining"][
+            "draining"]:
+        raise AssertionError(f"serve {label}: /api/health says "
+                             f"{health['status']}")
+    return {"drain_cut_s": cut_s, "committed": len(ids),
+            "stream_end": cut or "closed", "retry_after": refused[1],
+            "parked": info["parked"]}
+
+
+def _small_engine_blocks(core, prompt: list[int], label: str, dev: dict,
+                         core_kwargs: dict) -> dict:
+    """One small engine over the same weights (2 slots of 256 positions;
+    paged, EXHAUST_PAGES pages), built after the serving core's launch
+    counts are read, so that none of its launches is counted: page
+    exhaustion on it (paged), then the drain on a server over it. Each
+    block's seconds under "block_s"."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    times: dict[str, float] = {}
+    t0 = time.perf_counter()
+    paged = core.page_pool is not None
+    small = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=2, slot_capacity=256, eos_id=-1,
+                       prefix_cache=False, **core_kwargs,
+                       **({"kv_pages": EXHAUST_PAGES} if paged else {}))
+    engine = Engine("llama-3-8b", small, ByteTokenizer(core.cfg.vocab_size))
+    small.start()
+    times["small_engine"] = round(time.perf_counter() - t0, 1)
+    server = thread = None
+    out: dict = {"block_s": times}
+    try:
+        if paged:
+            out["exhaustion"] = _timed(times, "exhaustion", _page_exhaustion,
+                                       small, prompt, label, dev)
+        server, thread = start_server(engine)
+        out["drain"] = _timed(times, "drain", _drain_block, server, label)
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        engine.shutdown()
+        del engine, small
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
                 bf16_long_ids: list[int] | None = None, **core_kwargs) -> dict:
@@ -2412,6 +3126,18 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 raise AssertionError(f"adapter refcounts left: {info['active']}")
             log(f"serve {label}: resident {info['resident']}, loads "
                 f"{info['loads_total']}, refcounts drained to {{}}")
+        # this slice's traffic, counted with the main path: a priority park,
+        # /v1/resume, and in bf16 the endpoints (page exhaustion and the
+        # drain run on an engine of their own after the counts)
+        block_s: dict[str, float] = {}
+        over = _timed(block_s, "priority_park", _priority_park, core, prompt,
+                      label, lora, dev, label == "bf16")
+        over["resume_http"] = _timed(block_s, "resume_http", _resume_http,
+                                     base, label, lora, dev)
+        if label == "bf16":
+            over.update(_timed(block_s, "endpoints", _endpoints, base, core,
+                               dev))
+        stats["overload"] = over
         nan_rows = core.nan_logit_rows()
         launches = dict(ca.LAUNCHES)
         stats["launches"] = launches
@@ -2443,6 +3169,21 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                          ("beta", "acme", None, "beta", "acme", None, "beta",
                           "acme")]
         phase_batch_invariance(core, prompts, label, lora_rows)
+        # page exhaustion and the drain (one-way, so last) on a small
+        # engine of their own, uncounted
+        small = _small_engine_blocks(core, prompt, label, dev, core_kwargs)
+        over.update(small)
+        drain = small["drain"]
+        block_s.update(small["block_s"])
+        over["block_s"] = block_s
+        log(f"serve {label} [{dev['smi']}]: drain: POST /api/drain (grace 0) "
+            f"with an armed stream at {drain['committed']} ids: its row "
+            f"parked ({drain['parked']}), its socket {drain['stream_end']} "
+            f"without [DONE] {drain['drain_cut_s'] * 1e3:.1f} ms after the "
+            f"POST; a new chat 503 with Retry-After {drain['retry_after']}; "
+            "/api/health says draining")
+        log(f"serve {label}: this slice's blocks took {block_s} s "
+            f"({sum(block_s.values()):.1f} s)")
     finally:
         server.shutdown()
         server.server_close()
@@ -2544,12 +3285,14 @@ def main(argv: list[str] | None = None) -> int:
     serves = {"bf16": stats, "quantize=all": stats_int8, "lora": stats_lora,
               "dense": stats_dense}
     log(json.dumps({"serve": {
-        label: {k: st[k] for k in ("ttft_s", "ttft_long_s", "ttft_long_hit_s",
-                                   "ttft_long_off_s", "prefix_ttft_on_s",
-                                   "prefix_ttft_off_s", "decode_tok_s_1",
-                                   "tok_s_8", "tok_s_8_off",
-                                   "decode_tok_s_1_eager")
-                if k in st}
+        label: {**{k: st[k] for k in (
+            "ttft_s", "ttft_long_s", "ttft_long_hit_s", "ttft_long_off_s",
+            "prefix_ttft_on_s", "prefix_ttft_off_s", "decode_tok_s_1",
+            "tok_s_8", "tok_s_8_off", "decode_tok_s_1_eager") if k in st},
+                **{k: st["overload"][k] for k in (
+                    "park_m", "resume_ms", "ref_gap", "ref_prefill_ms",
+                    "sweep", "embed_batch_ms", "embed_one_ms")
+                   if k in st.get("overload", {})}}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,

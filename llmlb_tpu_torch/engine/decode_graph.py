@@ -7,7 +7,11 @@ per burst.
 `BurstState` names every device tensor a burst reads or writes: the params
 (adapter pools included), the KV caches, the block tables, the per-slot
 last tokens, sequence lengths, sampling parameters and adapter rows, the
-NaN counter and the [k + 1, slots] token block the host fetches. Each is
+NaN counter, the [k + 1, slots] token block the host fetches, and the
+forced tokens: a [k, slots] token buffer and mask that the host writes in
+place before a burst, whose set cells replace that step's sample (a
+resumed row's committed tail is fed through decode steps this way, as the
+uninterrupted run wrote it, while the other rows decode on). Each is
 allocated once and only ever written in place (`copy_`, index assignment),
 so a graph captured over their addresses stays valid for the engine's
 life.
@@ -69,6 +73,10 @@ class BurstState:
     lora_idx: torch.Tensor | None  # [slots] int32 adapter pool rows
     nan_rows: torch.Tensor  # () int64
     generator: torch.Generator
+    # [k, slots] int32 tokens and bool mask: step i + 1 of the burst takes
+    # force_tokens[i, b] in place of row b's sample where force_mask[i, b]
+    force_tokens: torch.Tensor | None = None
+    force_mask: torch.Tensor | None = None
 
 
 def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
@@ -78,8 +86,9 @@ def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
 
 def burst_body(s: BurstState, window: int, seeded: bool) -> None:
     """k = tokens.shape[0] - 1 decode steps over every slot. Row 0 of the
-    token block takes the last tokens going in, row i the tokens of step i;
-    last_tokens and seq_lens end advanced by k."""
+    token block takes the last tokens going in, row i the tokens of step i
+    (a forced cell's token where the mask is set); last_tokens and seq_lens
+    end advanced by k."""
     last, lens = s.last_tokens, s.seq_lens
     s.tokens[0].copy_(last)
     for step in range(1, s.tokens.shape[0]):
@@ -96,6 +105,9 @@ def burst_body(s: BurstState, window: int, seeded: bool) -> None:
         toks = sample_tokens(logits, s.generator, s.temps, s.top_ps, s.top_ks,
                              seeds=s.seeds if seeded else None,
                              steps=lens if seeded else None)
+        if s.force_mask is not None:
+            toks = torch.where(s.force_mask[step - 1],
+                               s.force_tokens[step - 1], toks)
         s.tokens[step].copy_(toks)
         last, lens = s.tokens[step], lens + 1
     s.last_tokens.copy_(last)

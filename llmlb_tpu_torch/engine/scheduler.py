@@ -54,13 +54,39 @@ pinned at submit and released at its terminal event, and every dispatch
 carries per-row pool rows (`lora_idx`); the decode rows live on the device
 in `_d_lora_idx`, set at activation, so a burst copies none.
 
-Left out of this slice (see ROADMAP.md): priority classes and preemption,
-park/resume, speculative decoding, grammar constraints, context-parallel
-prefill, disaggregation and KV shipping, and of the prefix cache its
+Overload protection, as in the reference: requests queue by priority class
+(0 high, 1 normal, 2 low; strict between classes, FIFO within one), a
+request still queued past its deadline is shed before it costs a prefill
+(`_shed_expired`), and a decoding row of a less important class is parked
+(`_park_slot`: pages back to the pool, requeued at the front of its class)
+when a more important request finds no free slot, when a more important
+row needs pages, or, as a last resort before "length", when the pool
+cannot cover a row while others decode. Parks happen only between bursts
+(a burst is one graph replay; no buffer is reallocated). A drain
+(`begin_drain`) admits nothing more; the server then asks the loop to park
+every decoding row (`request_drain_park`) and to end everything queued
+(`request_drain_flush`).
+
+Exact resume. The reference resumes by chunk-prefilling prompt + committed
+tokens in one pass; on the card that writes the committed tokens' KV
+through another product shape than the decode steps that wrote it first,
+and its logits move (ROADMAP C4). Here a resumed row prefills its PROMPT
+alone, in the cold run's own chunks and buckets; its last token going in
+is committed[0] (the activation sample is not used, and nothing is
+emitted); then decode steps are fed committed[1:] in place of their samples
+through the burst's forced-token buffer (`engine/decode_graph.py`), so
+every committed token's KV is written by a decode step, as in the
+uninterrupted run, while the other rows decode on. The first new token's
+logits are then the uninterrupted run's, bit for bit on the card. The
+same path serves the service's `adopt_stream` (/v1/resume).
+
+Left out of this slice (see ROADMAP.md): speculative decoding, grammar
+constraints (and with them the grammar cursor and drafter of ParkedState),
+context-parallel prefill, disaggregation and split-mode preemption, KV
+shipping (`_spill_parked_slot`, the `kv_pages` adoption, the per-stream
+migration park), the prefill chunk budget, and of the prefix cache its
 host-RAM tier, its preference for context-parallel prefill and its
-Prometheus series. Without preemption a page-starved decoding row finishes
-with "length" (after the prefix cache has given up every donor it can),
-the reference's behavior before parking existed.
+Prometheus series.
 """
 
 from __future__ import annotations
@@ -101,6 +127,12 @@ from llmlb_tpu_torch.quant import (
 
 log = logging.getLogger("llmlb_tpu_torch.engine.scheduler")
 
+# Priority classes, as the reference's: lower is more important.
+PRIORITY_HIGH, PRIORITY_NORMAL, PRIORITY_LOW = 0, 1, 2
+PRIORITY_CLASSES = (PRIORITY_HIGH, PRIORITY_NORMAL, PRIORITY_LOW)
+PRIORITY_NAMES = {PRIORITY_HIGH: "high", PRIORITY_NORMAL: "normal",
+                  PRIORITY_LOW: "low"}
+
 
 @dataclasses.dataclass
 class SamplingParams:
@@ -115,12 +147,28 @@ class SamplingParams:
     # LoRA adapter name (the `lora` field or a `model:adapter` suffix);
     # None serves the base model (pool row 0, the identity adapter).
     lora: str | None = None
-    # Carried as the reference's server validates them; the scheduler does
-    # not act on them yet (no priority classes, deadline shedding or
-    # speculative decoding in the port).
-    priority: int = 1  # 0 high, 1 normal, 2 low
+    # Priority class: 0 high, 1 normal, 2 low. Admission is strict by
+    # class, and a less important decoding row may be parked for a more
+    # important request, to resume token-identical.
+    priority: int = 1
+    # Carried as the reference's server validates it; the port has no
+    # speculative decoding (ROADMAP A9).
     speculative: dict | None = None  # {enabled, max_draft_tokens}
-    deadline_ms: float | None = None  # X-Request-Deadline-Ms
+    # Relative deadline from submission (X-Request-Deadline-Ms): a request
+    # still queued past it is shed before its prefill.
+    deadline_ms: float | None = None
+
+
+@dataclasses.dataclass
+class ParkedState:
+    """What a parked request needs to resume token-identical: the tokens it
+    already committed (every one emitted), and its generation count. The
+    reference's grammar cursor and drafter fields come with A8 and A9.
+    Seeded rows fold their seed by absolute position, so sampling needs no
+    state here."""
+
+    generated: int
+    tokens: list[int]
 
 
 @dataclasses.dataclass
@@ -136,9 +184,18 @@ class Request:
     # Set by the consumer (stop hit / client gone); the step loop frees the
     # slot at its next emit for this request. A plain bool write.
     cancelled: bool = False
+    # Set when the request is parked (or adopted with committed tokens) and
+    # consumed at its re-activation: the prompt prefills, then the
+    # committed tokens are fed through decode steps.
+    parked: ParkedState | None = None
 
     def cancel(self) -> None:
         self.cancelled = True
+
+    def deadline_expired(self) -> bool:
+        dl = self.sampling.deadline_ms
+        return (dl is not None
+                and time.monotonic() > self.submitted_at + float(dl) / 1000.0)
 
 
 @dataclasses.dataclass
@@ -155,6 +212,11 @@ class _Slot:
     first_pending: bool = False
     # A prefix-cache hit holds its donor entry until the suffix lands.
     cache_entry: PrefixEntry | None = None
+    # Every token emitted so far (EOS excluded): a park keeps them.
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    # A resumed row's committed tokens still to be fed through decode steps
+    # in place of their samples (emitted before the park: not again).
+    forced: list[int] = dataclasses.field(default_factory=list)
 
     def clear(self) -> None:
         self.request = None
@@ -163,6 +225,8 @@ class _Slot:
         self.prefill_pos = 0
         self.first_pending = False
         self.cache_entry = None
+        self.out_tokens = []
+        self.forced = []
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -222,6 +286,13 @@ class EngineStats:
     decode_graphs: int = 0
     # a copy of the prefix cache's counters
     prefix: PrefixCounters = dataclasses.field(default_factory=PrefixCounters)
+    # overload protection, under the reference's names: parks (priority,
+    # pages or drain), re-activations of parked or adopted requests,
+    # requests shed at admission past their deadline, and the drain's parks
+    preemptions_total: int = 0
+    preempt_resumes_total: int = 0
+    deadline_shed_total: int = 0
+    drain_parked_total: int = 0
 
 
 class EngineCore:
@@ -443,6 +514,14 @@ class EngineCore:
         self._d_nan_rows = torch.zeros((), dtype=torch.int64, device=self.device)
         # a burst's [k+1, slots] token block, fetched once per burst
         self._d_tokens = torch.zeros((self.decode_burst + 1, num_slots), **z32)
+        # the forced tokens of resumed rows: written on the host, copied in
+        # place before a burst that feeds some (or must clear the last's)
+        self._force_tokens = np.zeros((self.decode_burst, num_slots), np.int32)
+        self._force_mask = np.zeros((self.decode_burst, num_slots), bool)
+        self._d_force_tokens = torch.zeros_like(self._d_tokens[1:])
+        self._d_force_mask = torch.zeros((self.decode_burst, num_slots),
+                                         dtype=torch.bool, device=self.device)
+        self._force_dirty = False
         self._burst_state = BurstState(
             params=self.params, cfg=cfg, cache_k=self.cache_k,
             cache_v=self.cache_v, block_tables=self._d_block_tables,
@@ -451,7 +530,8 @@ class EngineCore:
             top_ps=self._d_top_ps, top_ks=self._d_top_ks,
             seeds=self._d_seeds, lora_idx=(self._d_lora_idx if self.lora
                                            is not None else None),
-            nan_rows=self._d_nan_rows, generator=self._generator)
+            nan_rows=self._d_nan_rows, generator=self._generator,
+            force_tokens=self._d_force_tokens, force_mask=self._d_force_mask)
         self._bursts = BurstGraphs(
             self._burst_body,
             cuda_capture(self.device, self._generator)
@@ -470,7 +550,20 @@ class EngineCore:
         self._window_buckets = tuple(buckets)
 
         self.pending: queue.Queue[Request] = queue.Queue()
-        self._queue: collections.deque[Request] = collections.deque()
+        # admission queues, one per priority class
+        self._class_queues: dict[int, collections.deque[Request]] = {
+            p: collections.deque() for p in PRIORITY_CLASSES}
+        # drain: admission stops (one-way); the flags are plain bool writes
+        # from the server's thread, consumed by the step loop
+        self.draining = False
+        self._drain_park_requested = False
+        self._drain_flush_requested = False
+        self.preemptions_total = 0
+        self.preempt_resumes_total = 0
+        self.deadline_shed_total = 0
+        self.drain_parked_total = 0
+        # work another thread hands the loop (call_in_loop)
+        self._calls: queue.SimpleQueue = queue.SimpleQueue()
         self._running = False
         self._thread: threading.Thread | None = None
         self._started_at = time.monotonic()
@@ -495,6 +588,44 @@ class EngineCore:
             self._thread.join(timeout=30)
         # terminal events for everything still in flight so waiters unblock
         self._fail_all("engine shutting down")
+        self._run_calls(RuntimeError("engine shutting down"))
+
+    def call_in_loop(self, fn):
+        """Run `fn()` on the step loop's thread, between two iterations, and
+        return its result (or raise its exception): the loop owns every
+        device tensor, so other threads' forwards (embeddings) go through
+        here. Runs inline when the loop is not running."""
+        thread = self._thread
+        if (not self._running or thread is None or not thread.is_alive()
+                or threading.current_thread() is thread):
+            return fn()
+        done = threading.Event()
+        box: dict = {}
+        self._calls.put((fn, done, box))
+        while not done.wait(0.5):
+            if not thread.is_alive():  # stopped after the put
+                self._run_calls(RuntimeError("engine shutting down"))
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def _run_calls(self, refuse: BaseException | None = None) -> bool:
+        """Run (or, with `refuse`, fail) the calls queued by call_in_loop."""
+        ran = False
+        while True:
+            try:
+                fn, done, box = self._calls.get_nowait()
+            except queue.Empty:
+                return ran
+            ran = True
+            try:
+                if refuse is not None:
+                    raise refuse
+                box["value"] = fn()
+            except Exception as e:  # boundary: the caller re-raises it
+                box["error"] = e
+            finally:
+                done.set()
 
     def submit(self, request: Request) -> Request:
         n = len(request.prompt_ids)
@@ -529,7 +660,8 @@ class EngineCore:
 
     def stats(self) -> EngineStats:
         active = sum(1 for s in self.slots if s.request is not None)
-        queued = self.pending.qsize() + len(self._queue)
+        queued = self.pending.qsize() + sum(
+            len(q) for q in self._class_queues.values())
         if self._held_request is not None:
             queued += 1
         return EngineStats(
@@ -540,7 +672,49 @@ class EngineCore:
             decode_eager_bursts=self._bursts.eager_bursts,
             decode_graphs=len(self._bursts.graphs),
             prefix=dataclasses.replace(self.prefix_counters),
+            preemptions_total=self.preemptions_total,
+            preempt_resumes_total=self.preempt_resumes_total,
+            deadline_shed_total=self.deadline_shed_total,
+            drain_parked_total=self.drain_parked_total,
         )
+
+    def queue_class_depths(self) -> dict[str, int]:
+        """Queued requests per priority class (the held one included)."""
+        depths = {PRIORITY_NAMES[p]: len(self._class_queues[p])
+                  for p in PRIORITY_CLASSES}
+        held = self._held_request
+        if held is not None:
+            depths[PRIORITY_NAMES[self._priority_of(held)]] += 1
+        return depths
+
+    def sched_info(self) -> dict:
+        """The `sched` block of /api/health and /api/system: queue depths
+        by class and the overload-protection counters. (The reference's
+        `prefill_chunk_budget` key goes with the budget, not ported.)"""
+        return {
+            "queued_by_class": self.queue_class_depths(),
+            "preemptions_total": self.preemptions_total,
+            "preempt_resumes_total": self.preempt_resumes_total,
+            "deadline_shed_total": self.deadline_shed_total,
+        }
+
+    # ------------------------------------------------------------- drain
+
+    def begin_drain(self) -> None:
+        """Stop admitting (and re-activating) work; decoding rows go on.
+        One-way: a draining process exits or is restarted."""
+        self.draining = True
+
+    def request_drain_park(self) -> None:
+        """Ask the step loop to park every decoding row at its next
+        iteration (the drain's grace is spent)."""
+        self._drain_park_requested = True
+
+    def request_drain_flush(self) -> None:
+        """Ask the step loop to end everything still queued (parked work
+        included) with an error, after the server closed their sockets, so
+        the handlers waiting on their events return."""
+        self._drain_flush_requested = True
 
     def decode_graph_info(self) -> dict:
         """The decode graphs: keys captured, replays, eager bursts, capture
@@ -668,6 +842,13 @@ class EngineCore:
         while self._running:
             did_work = False
             try:
+                if self._drain_park_requested:
+                    self._drain_park_requested = False
+                    self._drain_park_all()
+                if self._drain_flush_requested:
+                    self._drain_flush_requested = False
+                    self._drain_flush_all()
+                did_work |= self._run_calls()
                 did_work |= self._try_insert()
                 # At most ONE prefill chunk per iteration: decode steps run
                 # between chunks, so active slots keep emitting tokens during
@@ -711,20 +892,148 @@ class EngineCore:
         return [i for i, s in enumerate(self.slots)
                 if s.request is None and i not in pinned]
 
+    # ------------------------------------------ priority classes / preemption
+
+    @staticmethod
+    def _priority_of(request: Request) -> int:
+        try:
+            p = int(request.sampling.priority)
+        except (TypeError, ValueError):
+            p = PRIORITY_NORMAL
+        return min(PRIORITY_LOW, max(PRIORITY_HIGH, p))
+
     def _drain_pending(self) -> None:
         while True:
             try:
-                self._queue.append(self.pending.get_nowait())
+                r = self.pending.get_nowait()
             except queue.Empty:
-                break
+                return
+            self._class_queues[self._priority_of(r)].append(r)
 
     def _pop_request(self) -> Request | None:
-        """Next request to admit: the page-starved held one first, then FIFO."""
+        """Next request to admit: strictly by class. The held (page-starved)
+        request keeps the front of its own class only: a more important
+        class pops first, else a less important request wedged on the pool
+        would block the arrival whose page-pressure preemption could free
+        it."""
         self._drain_pending()
+        held = self._held_request
+        held_prio = self._priority_of(held) if held is not None else None
+        for p in PRIORITY_CLASSES:
+            if held_prio is not None and p >= held_prio:
+                break
+            if self._class_queues[p]:
+                return self._class_queues[p].popleft()
+        if held is not None:
+            self._held_request = None
+            return held
+        for p in PRIORITY_CLASSES:
+            if self._class_queues[p]:
+                return self._class_queues[p].popleft()
+        return None
+
+    def _head_priority(self) -> int | None:
+        """Class of the request _pop_request would return next."""
+        best: int | None = None
         if self._held_request is not None:
-            request, self._held_request = self._held_request, None
-            return request
-        return self._queue.popleft() if self._queue else None
+            best = self._priority_of(self._held_request)
+        for p in PRIORITY_CLASSES:
+            if self._class_queues[p]:
+                return p if best is None else min(best, p)
+        return best
+
+    def _hold_on_pool(self, request: Request) -> None:
+        """Keep a page-starved request for the next iteration's retry. There
+        is one hold: a request popped past a held one (a more important
+        class) goes back to the front of its class instead of overwriting
+        it, whose events would then never answer."""
+        if self._held_request is None:
+            self._held_request = request
+        else:
+            self._class_queues[self._priority_of(request)].appendleft(request)
+
+    def _parkable(self, slot: _Slot) -> bool:
+        """A decoding row whose committed tokens are all on the host: not
+        prefilling (its KV is incomplete) and not first_pending (its first
+        token lives only on the device)."""
+        return (slot.request is not None and not slot.prefilling
+                and not slot.first_pending)
+
+    def _preempt_candidates(self, prio: int) -> list[int]:
+        """Rows a class-`prio` request may park: parkable rows of a less
+        important class, least important first, then fewest tokens (the
+        cheapest resume), then slot id."""
+        out = [i for i, s in enumerate(self.slots)
+               if self._parkable(s) and self._priority_of(s.request) > prio]
+        out.sort(key=lambda i: (-self._priority_of(self.slots[i].request),
+                                int(self._seq_lens[i]), i))
+        return out
+
+    def _park_slot(self, slot_id: int, reason: str = "preempt") -> None:
+        """Park one decoding row between bursts: its committed tokens go on
+        the request, its pages back to the pool (shared prefix pages drop
+        this row's reference), the donor entry of a hit is released, and the
+        request goes back to the front of its class. Not a finish: its
+        adapter stays pinned and no terminal event is sent. `reason`:
+        preempt (priority), pages (pool exhaustion) or drain."""
+        slot = self.slots[slot_id]
+        request = slot.request
+        if not self._parkable(slot):
+            raise RuntimeError(f"slot {slot_id} cannot park (prefilling or "
+                               "first token pending)")
+        request.parked = ParkedState(generated=slot.generated,
+                                     tokens=list(slot.out_tokens))
+        self._release_cache_entry(slot)
+        self._free_slot_kv(slot_id)
+        slot.clear()
+        self.preemptions_total += 1
+        log.info("parked request %s at %d committed tokens (priority %s, %s)",
+                 request.request_id, len(request.parked.tokens),
+                 PRIORITY_NAMES[self._priority_of(request)], reason)
+        self._class_queues[self._priority_of(request)].appendleft(request)
+
+    def _preempt_for_pages(self, prio: int) -> bool:
+        """Page pressure: park one less important row that holds pages;
+        False when there is none."""
+        for i in self._preempt_candidates(prio):
+            if self._slot_pages[i]:
+                self._park_slot(i, reason="pages")
+                return True
+        return False
+
+    def _shed_expired(self, request: Request) -> bool:
+        """Deadline shedding at admission: a request past its deadline ends
+        with an error before it costs a prefill. A resumed request is never
+        shed: its client already holds part of the stream."""
+        if request.parked is not None or not request.deadline_expired():
+            return False
+        self.deadline_shed_total += 1
+        self._finish(request, "error", "deadline exceeded before prefill")
+        return True
+
+    def _drain_flush_all(self) -> None:
+        """End every queued request (parked ones included) with an error."""
+        self._drain_pending()
+        flushed = []
+        for p in PRIORITY_CLASSES:
+            flushed.extend(self._class_queues[p])
+            self._class_queues[p].clear()
+        if self._held_request is not None:
+            flushed.append(self._held_request)
+            self._held_request = None
+        for request in flushed:
+            self._finish(request, "error", "engine draining")
+        if flushed:
+            log.info("drain flushed %d queued request(s)", len(flushed))
+
+    def _drain_park_all(self) -> None:
+        """Park every parkable row (the drain's grace is spent). Prefilling
+        and first_pending rows cannot park: the server closes their
+        connections, and the gateway resumes them from its own ledger."""
+        for i, slot in enumerate(self.slots):
+            if self._parkable(slot):
+                self._park_slot(i, reason="drain")
+                self.drain_parked_total += 1
 
     def _finish(self, request: Request, kind: str, value: str) -> None:
         """Every terminal event of a request goes through here, and so does
@@ -812,43 +1121,73 @@ class EngineCore:
 
     def _ensure_decode_pages(self, active: list[int], k: int) -> list[int]:
         """Alloc-on-extend before a decode burst: grow each active row's
-        pages to cover the k tokens the burst writes. A row the pool cannot
-        cover, once the prefix cache has given up every donor it can,
-        finishes with "length" (no preemption in this slice). Returns
-        the rows that remain active. The dense layout's rows hold their
-        whole capacity already."""
+        pages to cover the k tokens the burst writes. When the pool cannot
+        cover a row once the prefix cache has given up every donor it can,
+        the row parks less important rows for their pages; failing that it
+        parks itself while another row decodes (to resume token-identical
+        when pages free up); only a row decoding alone, or one whose first
+        token is still on the device, finishes with "length". Returns the
+        rows that remain active. The dense layout's rows hold their whole
+        capacity already."""
         if self.page_pool is None:
             return active
         kept = []
         for i in active:
+            slot = self.slots[i]
+            if slot.request is None:
+                continue  # parked for pages earlier in this walk
             target = min(int(self._seq_lens[i]) + k + 1, self.slot_capacity)
             need = self._pages_for_tokens(target) - len(self._slot_pages[i])
             if need > 0:
                 fresh = self._try_reserve_pages(need)
+                while fresh is None and self._preempt_for_pages(
+                        self._priority_of(slot.request)):
+                    fresh = self._try_reserve_pages(need)
                 if fresh is None:
+                    request = slot.request
+                    if not slot.first_pending and len(active) > 1:
+                        log.warning("page pool exhausted mid-decode; parking "
+                                    "request %s at %d tokens",
+                                    request.request_id, int(self._seq_lens[i]))
+                        self._park_slot(i, reason="pages")
+                        continue
                     log.warning("page pool exhausted mid-decode; finishing "
-                                "request %s at %d tokens",
-                                self.slots[i].request.request_id,
+                                "request %s at %d tokens", request.request_id,
                                 int(self._seq_lens[i]))
                     self._finish_slot(i, "length")
                     continue
                 self._extend_slot_pages(i, fresh)
             kept.append(i)
-        return kept
+        # a row kept earlier in the walk may have been parked for pages since
+        return [i for i in kept if self.slots[i].request is not None]
 
     # -------------------------------------------------------------- admission
 
     def _try_insert(self) -> bool:
+        if self.draining:
+            # nothing new is admitted or re-activated: parked work stays
+            # queued until the drain's flush
+            return False
+        self._drain_pending()
+        queued = (sum(len(q) for q in self._class_queues.values())
+                  + (self._held_request is not None))
         free = self._free_slots()
         if (not free and self.page_pool is None
                 and self.prefix_cache is not None and len(self.prefix_cache)):
             # Slot pressure (dense only): live traffic beats cached prefixes,
             # so the LRU donor makes room for a queued request. Paged donors
             # pin no slot; page pressure evicts in _try_reserve_pages.
-            self._drain_pending()
-            queued = len(self._queue) + (self._held_request is not None)
             if queued and self._evict_one_prefix():
                 free = self._free_slots()
+        if not free and queued:
+            # Slot pressure: a queued request of a more important class
+            # than some decoding row parks the least important one.
+            head = self._head_priority()
+            if head is not None:
+                victims = self._preempt_candidates(head)
+                if victims:
+                    self._park_slot(victims[0])
+                    free = self._free_slots()
         if not free:
             return False
         max_oneshot = self.prefill_buckets[-1]
@@ -863,15 +1202,27 @@ class EngineCore:
                 self._finish(request, "done", "cancelled")
                 handled = True
                 continue
+            if self._shed_expired(request):
+                handled = True
+                continue
             n = len(request.prompt_ids)
-            if self.slot_capacity - n - 1 <= 0:
-                self._finish(request, "error", "prompt does not fit slot capacity")
+            committed = (len(request.parked.tokens)
+                         if request.parked is not None else 0)
+            if self.slot_capacity - (n + committed) - 1 <= 0:
+                if request.parked is not None:
+                    # parked at the capacity edge: no room left to decode, a
+                    # clean finish of a stream the client is consuming
+                    self._finish(request, "done", "length")
+                else:
+                    self._finish(request, "error",
+                                 "prompt does not fit slot capacity")
                 handled = True
                 continue
             # A prompt too short to match (at least one suffix token must
             # prefill, for the first sampled logits) bypasses the cache and
-            # counts as no miss.
-            if (self.prefix_cache is not None
+            # counts as no miss. So does a resumed request: its prompt
+            # prefills cold, in the uninterrupted run's chunks.
+            if (self.prefix_cache is not None and request.parked is None
                     and n - 1 >= self.min_prefix_len):
                 # namespaced by adapter: under LoRA the prompt's KV depends
                 # on the adapter's wq/wk/wv deltas
@@ -893,7 +1244,7 @@ class EngineCore:
                         - use_len // self.kv_page_size)
                     self.prefix_cache.release(entry)
                     if fresh is None:
-                        self._held_request = request
+                        self._hold_on_pool(request)
                         break
                     self._insert_cached(free.pop(0), request, entry, use_len,
                                         fresh)
@@ -901,9 +1252,18 @@ class EngineCore:
                     inserted += 1
                     continue
                 self.prefix_counters.prefix_misses_total += 1
-            pages = self._try_reserve_pages(self._pages_for_tokens(n))
+            # a resumed request reserves the pages its committed tokens and
+            # the burst after them will fill: re-admitted into a pool that
+            # cannot hold them, it would only park again
+            need = self._pages_for_tokens(min(
+                n + committed + (self.decode_burst if committed else 0),
+                self.slot_capacity))
+            pages = self._try_reserve_pages(need)
+            while pages is None and self._preempt_for_pages(
+                    self._priority_of(request)):
+                pages = self._try_reserve_pages(need)
             if pages is None:
-                self._held_request = request
+                self._hold_on_pool(request)
                 break
             slot_id = free.pop(0)
             self._assign_slot_pages(slot_id, (), pages)
@@ -1095,6 +1455,17 @@ class EngineCore:
         firsts = sample_tokens(logits, self._generator, d_temps, d_top_ps,
                                d_top_ks, seeds=d_seeds if seeded else None,
                                steps=self._to_device(padded_lens - 1))
+        # a resumed row's last token going in is its first committed token,
+        # not the activation sample (an unseeded row's would be another
+        # draw); nothing is emitted for it again. Padding rows repeat the
+        # last real row, and scatter into its slot too.
+        parked = [group[min(row, len(group) - 1)][1].parked
+                  for row in range(padded)]
+        resumed = [row for row, p in enumerate(parked) if p and p.tokens]
+        if resumed:
+            firsts[self._to_device(np.asarray(resumed, np.int64))] = (
+                self._to_device(np.asarray([parked[r].tokens[0]
+                                            for r in resumed], np.int32)))
         idx = self._to_device(padded_slot_ids)
         self._d_temps[idx] = d_temps
         self._d_top_ps[idx] = d_top_ps
@@ -1114,8 +1485,21 @@ class EngineCore:
             self._seeds[slot_id] = seeds[row]
             slot = self.slots[slot_id]
             slot.request = request
-            slot.generated = 0
-            slot.first_pending = True
+            parked = request.parked
+            if parked is None:
+                slot.generated = 0
+                slot.out_tokens = []
+                slot.first_pending = True
+                continue
+            # resume: the committed tokens after the first are fed through
+            # decode steps; with none committed (an adoption of a stream
+            # with no tokens yet) the activation sample is emitted as usual
+            request.parked = None
+            slot.generated = parked.generated
+            slot.out_tokens = list(parked.tokens)
+            slot.forced = list(parked.tokens[1:])
+            slot.first_pending = not parked.tokens
+            self.preempt_resumes_total += 1
 
     # ----------------------------------------------------------------- decode
 
@@ -1139,6 +1523,7 @@ class EngineCore:
         if not active:
             return True
         self._sync_block_tables()
+        self._sync_forced(active)
         window = self._window_for(active, self.decode_burst)
         # seeded rows draw threefry noise, another graph: decided on the host
         seeded = bool((self._seeds[active] >= 0).any())
@@ -1147,6 +1532,22 @@ class EngineCore:
         self.decode_bursts += 1
         self._emit_fetched(tokens, active)
         return True
+
+    def _sync_forced(self, active: list[int]) -> None:
+        """Write the burst's forced tokens: each resumed row's next
+        committed tokens, one a step, into the device buffer and mask the
+        burst reads (in place; copied only when this burst or the last one
+        forces anything)."""
+        self._force_mask[:] = False
+        for i in active:
+            feed = self.slots[i].forced[:self.decode_burst]
+            self._force_tokens[:len(feed), i] = feed
+            self._force_mask[:len(feed), i] = True
+        forcing = bool(self._force_mask.any())
+        if forcing or self._force_dirty:
+            self._d_force_tokens.copy_(torch.from_numpy(self._force_tokens))
+            self._d_force_mask.copy_(torch.from_numpy(self._force_mask))
+        self._force_dirty = forcing
 
     def _burst_body(self, window: int, seeded: bool) -> None:
         """The k steps of one burst over the static buffers (eager, or under
@@ -1169,6 +1570,13 @@ class EngineCore:
                 if slot.request is None or slot.prefilling:
                     continue
                 self._seq_lens[i] += 1
+                if slot.forced:
+                    # a committed token fed back: its KV is written, it was
+                    # emitted before the park
+                    slot.forced.pop(0)
+                    if slot.request.cancelled:
+                        self._finish_slot(i, "cancelled")
+                    continue
                 self._emit(i, int(tokens[t, i]))
 
     def _emit(self, slot_id: int, token: int) -> None:
@@ -1188,6 +1596,7 @@ class EngineCore:
         if token == self.eos_id:
             finish = "stop"  # EOS itself is not emitted as content
         else:
+            slot.out_tokens.append(token)
             request.events.put(("token", token))
             if slot.generated >= request.sampling.max_tokens:
                 finish = "length"
@@ -1271,9 +1680,6 @@ class EngineCore:
             self._free_slot_kv(slot_id)
             slot.clear()
         self._drop_prefix_cache()
-        if self._held_request is not None:
-            self._finish(self._held_request, "error", message)
-            self._held_request = None
         while True:
             request = self._pop_request()
             if request is None:

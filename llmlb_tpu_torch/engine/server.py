@@ -3,21 +3,38 @@ library (`http.server.ThreadingHTTPServer`, one thread per connection).
 
 Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
 
-- `GET /v1/models`
+- `GET /v1/models`, with the reference's capabilities (`embeddings` where
+  the model family has an `encode` forward, `lora` with adapters on);
 - `POST /v1/chat/completions`, streaming (SSE, written and flushed chunk by
   chunk, ending with a usage chunk and `data: [DONE]`) and non-streaming,
   with the reference's chunk and usage shapes;
-- `GET /api/health`;
-- `GET /api/system`, carrying `"tpu_engine": true` — the field the
-  gateway's endpoint detection keys on to treat this as an in-tree engine —
-  and `"backend": "cuda"`.
+- `POST /v1/completions`, `POST /v1/responses` and `POST /v1/embeddings`,
+  with the reference's shapes and validation messages;
+- durable streams: a chat body with `"llmlb_replay": true` (the gateway
+  arms its streams so) gets `{"object": "llmlb.replay", "tokens": [...]}`
+  frames before the text those tokens produced, and `POST /v1/resume`
+  takes the original chat body plus `committed_ids` and streams the full
+  completion, continued token-identical from the committed tokens;
+- graceful drain: `POST /api/drain` (and SIGTERM in `main`) stops
+  admission: new `/v1/*` work gets 503 with `Retry-After` and code
+  `draining`, `/api/health` says `"status": "draining"` with a `draining`
+  block (what the gateway's health probe reads), in-flight streams get the
+  grace (`LLMLB_DRAIN_GRACE_S`, 30 s by default, or the body's `grace_s`),
+  then the rows still decoding are parked and the stragglers' sockets shut
+  down, so the gateway resumes them elsewhere;
+- `GET /api/health` (with the `sched` block: queue depths by priority
+  class, preemption and deadline-shed counters) and `GET /api/system`,
+  carrying `"tpu_engine": true` — the field the gateway's endpoint
+  detection keys on to treat this as an in-tree engine — and
+  `"backend": "cuda"`.
 
-Request fields are honoured or refused, never ignored: `priority`,
-`speculative` and the `X-Request-Deadline-Ms` header are validated by the
-reference's rules (a malformed value is a 400 with the reference's message)
-and carried on the request's SamplingParams; a `response_format` other
-than text and a forced `tool_choice` are 400s naming the field, since the
-port has no constrained decoding.
+Request fields are honoured or refused, never ignored: `priority` (the
+admission class; a more important request may park a less important one)
+and the `X-Request-Deadline-Ms` header (a request still queued past it is
+shed) are validated by the reference's rules, `speculative` is validated
+and carried; a `response_format` other than text and a forced
+`tool_choice` are 400s naming the field, since the port has no constrained
+decoding.
 
 Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
 or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
@@ -37,7 +54,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import re
+import signal
+import socket
 import threading
 import time
 import uuid
@@ -185,11 +205,133 @@ def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
     }
 
 
+def _drain_grace_from_env() -> float:
+    """The drain's grace in seconds: LLMLB_DRAIN_GRACE_S, 30 by default."""
+    raw = os.environ.get("LLMLB_DRAIN_GRACE_S")
+    if raw:
+        try:
+            return max(0.0, float(raw))
+        except ValueError:
+            log.warning("LLMLB_DRAIN_GRACE_S=%r is not a number; using 30",
+                        raw)
+    return 30.0
+
+
+class DrainController:
+    """Graceful drain, the reference's: `start` flips the server to
+    draining (new /v1 work 503s with an honest Retry-After, /api/health
+    advertises it, the core admits nothing more) while in-flight work gets
+    the grace to finish. Past the grace, the core parks every row still
+    decoding (its committed tokens stay on the request), the sockets of the
+    accepted /v1 requests still open are shut down (the gateway sees a
+    mid-stream cut and resumes the stream on another engine from its own
+    ledger), and everything still queued ends with an error, so the
+    handler threads waiting on it return. One-way."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.grace_s = _drain_grace_from_env()
+        self.draining = False
+        self.started_at = 0.0
+        self.parked = 0
+        self.aborted_connections = 0
+        self._lock = threading.Lock()
+        # sockets of the accepted /v1 POSTs still being answered
+        self._streams: set[socket.socket] = set()
+        self._thread: threading.Thread | None = None
+
+    def track(self, sock: socket.socket) -> None:
+        with self._lock:
+            self._streams.add(sock)
+
+    def untrack(self, sock: socket.socket) -> None:
+        with self._lock:
+            self._streams.discard(sock)
+
+    def remaining_s(self) -> float:
+        if not self.draining:
+            return self.grace_s
+        return max(0.0, self.started_at + self.grace_s - time.monotonic())
+
+    def retry_after_s(self) -> int:
+        """Retry-After of a refused admission: the grace still left (after
+        it this process is gone)."""
+        return max(1, int(self.remaining_s() + 0.999))
+
+    def info(self) -> dict:
+        return {
+            "draining": self.draining,
+            "grace_s": self.grace_s,
+            "remaining_s": round(self.remaining_s(), 3),
+            "active_streams": len(self._streams),
+            "parked": self.parked,
+            "aborted_connections": self.aborted_connections,
+        }
+
+    def start(self, grace_s: float | None = None) -> dict:
+        """Begin draining (idempotent); returns the drain info."""
+        with self._lock:
+            if not self.draining:
+                if grace_s is not None:
+                    self.grace_s = max(0.0, float(grace_s))
+                self.draining = True
+                self.started_at = time.monotonic()
+                self.engine.core.begin_drain()
+                log.info("drain started: %d in-flight stream(s), grace %.1fs",
+                         len(self._streams), self.grace_s)
+                self._thread = threading.Thread(target=self._run,
+                                                name="engine-drain",
+                                                daemon=True)
+                self._thread.start()
+        return self.info()
+
+    def wait(self, timeout: float | None = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def _run(self) -> None:
+        core = self.engine.core
+        deadline = self.started_at + self.grace_s
+        while time.monotonic() < deadline:
+            if not self._streams and core.stats().active_slots == 0:
+                log.info("drain complete: all in-flight work finished "
+                         "within the grace")
+                return
+            time.sleep(0.05)
+        # Grace spent: the step loop parks what still decodes (slot state
+        # is the loop's); wait until it took the request (bounded: a wedged
+        # loop must not hold the sockets open forever), then for the parks.
+        before = core.stats().drain_parked_total
+        core.request_drain_park()
+        t_end = time.monotonic() + 30.0
+        while core._drain_park_requested and time.monotonic() < t_end:
+            time.sleep(0.02)
+        t_end = time.monotonic() + 2.0
+        while core.stats().active_slots > 0 and time.monotonic() < t_end:
+            time.sleep(0.02)
+        self.parked = core.stats().drain_parked_total - before
+        with self._lock:
+            stragglers = list(self._streams)
+        for sock in stragglers:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # closed by its handler meanwhile: nothing to cut
+        self.aborted_connections = len(stragglers)
+        # after the cuts: end everything queued (parked work included)
+        core.request_drain_flush()
+        if stragglers or self.parked:
+            log.warning("drain grace expired: parked %d row(s), shut down %d "
+                        "connection(s) for the gateway to resume",
+                        self.parked, len(stragglers))
+
+
 class EngineHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, address: tuple[str, int], engine: Engine):
         self.engine = engine
+        self.drain = DrainController(engine)
         super().__init__(address, _Handler)
 
 
@@ -223,9 +365,37 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(f"data: {data}\n\n".encode())
         self.wfile.flush()
 
+    def _event(self, name: str, payload: dict) -> None:
+        """One named SSE event (the Responses API's stream)."""
+        data = json.dumps(payload, separators=(",", ":"))
+        self.wfile.write(f"event: {name}\ndata: {data}\n\n".encode())
+        self.wfile.flush()
+
+    def _start_sse(self) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+
     def _request_id(self) -> str | None:
         rid = self.headers.get("X-Request-Id")
         return rid if rid and _REQUEST_ID_RE.match(rid) else None
+
+    def _body(self) -> dict | None:
+        """The JSON object body, or None after answering 4xx."""
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            self._error(413, "request body too large")
+            return None
+        try:
+            body = json.loads(self.rfile.read(length) or b"null")
+        except ValueError:
+            self._error(400, "invalid JSON body")
+            return None
+        if not isinstance(body, dict):
+            self._error(400, "body must be a JSON object")
+            return None
+        return body
 
     # ----------------------------------------------------------------- routes
 
@@ -235,7 +405,14 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/v1/models":
             self._json(200, {"object": "list", "data": _models(engine)})
         elif path == "/api/health":
-            self._json(200, engine.health())
+            body = engine.health()
+            drain = self.server.drain
+            if drain.draining:
+                # the gateway's probe reads this every interval and drops
+                # the endpoint from selection
+                body["status"] = "draining"
+            body["draining"] = drain.info()
+            self._json(200, body)
         elif path == "/api/system":
             self._json(200, {
                 "name": "llmlb_tpu_torch-engine",
@@ -248,67 +425,127 @@ class _Handler(BaseHTTPRequestHandler):
                 "prefix_cache": engine.core.prefix_cache_info(),
                 "quant": engine.core.quant_info(),
                 "lora": engine.core.lora_info(),
+                "sched": engine.core.sched_info(),
+                "draining": self.server.drain.info(),
             })
         else:
             self._error(404, f"no route for GET {path}")
 
+    _POST_ROUTES = {
+        "/v1/chat/completions": "_chat",
+        "/v1/resume": "_resume",
+        "/v1/completions": "_completions",
+        "/v1/responses": "_responses",
+        "/v1/embeddings": "_embeddings",
+        "/api/drain": "_drain_control",
+    }
+
     def do_POST(self):
         path = self.path.split("?", 1)[0]
-        if path != "/v1/chat/completions":
+        route = self._POST_ROUTES.get(path)
+        if route is None:
             self._error(404, f"no route for POST {path}")
             return
-        length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_BODY_BYTES:
-            self._error(413, "request body too large")
+        drain = self.server.drain
+        if path.startswith("/v1/") and drain.draining:
+            self._json(503, {"error": {
+                "message": "engine is draining; retry on another endpoint",
+                "type": "overloaded_error", "code": "draining"}},
+                headers={"Retry-After": str(drain.retry_after_s())})
             return
+        body = self._body()
+        if body is None:
+            return
+        if not path.startswith("/v1/"):
+            getattr(self, route)(body)
+            return
+        # an accepted /v1 request: the drain shuts its socket down if it is
+        # still open when the grace is spent
+        drain.track(self.connection)
         try:
-            body = json.loads(self.rfile.read(length) or b"null")
-        except ValueError:
-            self._error(400, "invalid JSON body")
-            return
-        if not isinstance(body, dict):
-            self._error(400, "body must be a JSON object")
-            return
-        self._chat(body)
+            getattr(self, route)(body)
+        finally:
+            drain.untrack(self.connection)
 
-    def _chat(self, body: dict) -> None:
+    def _drain_control(self, body: dict) -> None:
+        """POST /api/drain {"grace_s": N}: begin the drain (idempotent);
+        poll /api/health for its progress."""
+        grace = body.get("grace_s")
+        if grace is not None and (isinstance(grace, bool)
+                                  or not isinstance(grace, (int, float))
+                                  or grace < 0):
+            self._error(400, "'grace_s' must be a non-negative number")
+            return
+        self._json(200, self.server.drain.start(grace))
+
+    # ------------------------------------------------------ chat completions
+
+    def _parse_chat(self, body: dict):
+        """(prompt_ids, sampling, stops, model) of a chat body; ValueError
+        naming the field when it is malformed."""
         engine = self.server.engine
         messages = body.get("messages")
+        if not isinstance(messages, list) or not messages:
+            raise ValueError("'messages' must be a non-empty array")
+        if int(body.get("n") or 1) != 1:
+            raise ValueError("only n=1 is supported")
+        prompt_ids = engine.encode_chat(messages)
+        sampling = _sampling_from(body,
+                                  deadline_ms=_deadline_from(self.headers))
+        model = body.get("model") or engine.model_id
+        adapter, base = _parse_lora(engine, body)
+        if adapter is not None:
+            sampling.lora = adapter
+            model = base or model
+        return prompt_ids, sampling, _stops_from(body), model
+
+    def _chat(self, body: dict) -> None:
         try:
-            if not isinstance(messages, list) or not messages:
-                raise ValueError("'messages' must be a non-empty array")
-            if int(body.get("n") or 1) != 1:
-                raise ValueError("only n=1 is supported")
-            prompt_ids = engine.encode_chat(messages)
-            sampling = _sampling_from(
-                body, deadline_ms=_deadline_from(self.headers))
-            stops = _stops_from(body)
-            model = body.get("model") or engine.model_id
-            adapter, base = _parse_lora(engine, body)
-            if adapter is not None:
-                sampling.lora = adapter
-                model = base or model
-            deltas = engine.stream(prompt_ids, sampling, stops,
-                                   request_id=self._request_id())
+            prompt_ids, sampling, stops, model = self._parse_chat(body)
+            deltas = self.server.engine.stream(
+                prompt_ids, sampling, stops, request_id=self._request_id())
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
+        self._answer_chat(body, deltas, model, len(prompt_ids))
+
+    def _resume(self, body: dict) -> None:
+        """POST /v1/resume: the original chat body plus `committed_ids`, the
+        tokens the client already holds. The stream continues from them
+        token-identical to an uninterrupted run, and the full completion
+        (committed text included) is answered in the chat shape; the
+        gateway cuts what its client has."""
+        committed = body.get("committed_ids")
+        if committed is None:
+            committed = []
+        if not isinstance(committed, list) or any(
+                isinstance(t, bool) or not isinstance(t, int)
+                for t in committed):
+            self._error(400, "'committed_ids' must be a list of token ids")
+            return
+        try:
+            prompt_ids, sampling, stops, model = self._parse_chat(body)
+            deltas = self.server.engine.adopt_stream(
+                prompt_ids, committed, sampling, stops,
+                request_id=self._request_id())
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        self._answer_chat(body, deltas, model, len(prompt_ids))
+
+    def _answer_chat(self, body: dict, deltas, model: str,
+                     prompt_tokens: int) -> None:
         completion_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         if body.get("stream"):
             include_usage = bool(
                 (body.get("stream_options") or {}).get("include_usage", True))
             self._stream_chat(deltas, completion_id, created, model,
-                              len(prompt_ids), include_usage)
+                              prompt_tokens, include_usage,
+                              replay=bool(body.get("llmlb_replay")))
             return
-        text, final = [], None
-        try:
-            for delta in deltas:
-                text.append(delta.text)
-                if delta.finish_reason is not None:
-                    final = delta
-        except EngineError as e:
-            self._error(500, str(e), "server_error")
+        final = self._collect(deltas)
+        if final is None:
             return
         self._json(200, {
             "id": completion_id,
@@ -318,18 +555,30 @@ class _Handler(BaseHTTPRequestHandler):
             "system_fingerprint": SYSTEM_FINGERPRINT,
             "choices": [{"index": 0,
                          "message": {"role": "assistant",
-                                     "content": "".join(text)},
+                                     "content": final.text},
                          "finish_reason": final.finish_reason}],
             "usage": _usage(final.prompt_tokens, final.completion_tokens),
         })
 
+    def _collect(self, deltas):
+        """The whole completion of a delta stream (the final delta with the
+        full text), or None after answering 500 for an engine error."""
+        text, final = [], None
+        try:
+            for delta in deltas:
+                text.append(delta.text)
+                if delta.finish_reason is not None:
+                    final = delta
+        except EngineError as e:
+            self._error(500, str(e), "server_error")
+            return None
+        final.text = "".join(text)
+        return final
+
     def _stream_chat(self, deltas, completion_id: str, created: int,
                      model: str, prompt_tokens: int,
-                     include_usage: bool) -> None:
-        self.send_response(200)
-        self.send_header("Content-Type", "text/event-stream")
-        self.send_header("Cache-Control", "no-cache")
-        self.end_headers()
+                     include_usage: bool, replay: bool = False) -> None:
+        self._start_sse()
 
         def chunk(delta: dict, finish: str | None = None) -> dict:
             return {
@@ -346,13 +595,24 @@ class _Handler(BaseHTTPRequestHandler):
         finish = "stop"
         try:
             self._sse(chunk({"role": "assistant", "content": ""}))
-            for delta in deltas:
-                if delta.text:
-                    self._sse(chunk({"content": delta.text}))
-                if delta.finish_reason is not None:
-                    finish = delta.finish_reason
-                    usage = _usage(delta.prompt_tokens,
-                                   delta.completion_tokens)
+            try:
+                for delta in deltas:
+                    if replay and delta.token_ids:
+                        # the committed ids before the text they produced:
+                        # the gateway's ledger for a mid-stream resume
+                        self._sse({"object": "llmlb.replay",
+                                   "tokens": [int(t)
+                                              for t in delta.token_ids]})
+                    if delta.text:
+                        self._sse(chunk({"content": delta.text}))
+                    if delta.finish_reason is not None:
+                        finish = delta.finish_reason
+                        usage = _usage(delta.prompt_tokens,
+                                       delta.completion_tokens)
+            except EngineError as e:
+                self._sse({"error": {"message": str(e)}})
+                self._sse("[DONE]")
+                return
             self._sse(chunk({}, finish))
             if include_usage:
                 final = chunk({}, None)
@@ -360,31 +620,241 @@ class _Handler(BaseHTTPRequestHandler):
                 final["usage"] = usage
                 self._sse(final)
             self._sse("[DONE]")
-        except EngineError as e:
-            self._sse({"error": {"message": str(e)}})
+        except OSError:
+            # client gone, or the drain shut the socket down: cancel the
+            # request (a parked one is ended by the drain's flush)
+            deltas.close()
+
+    # ----------------------------------------------------------- completions
+
+    def _completions(self, body: dict) -> None:
+        engine = self.server.engine
+        prompt = body.get("prompt")
+        if isinstance(prompt, list):
+            if len(prompt) != 1 or not isinstance(prompt[0], str):
+                self._error(400, "only a single string prompt is supported")
+                return
+            prompt = prompt[0]
+        if not isinstance(prompt, str) or not prompt:
+            self._error(400, "'prompt' must be a non-empty string")
+            return
+        model = body.get("model") or engine.model_id
+        prompt_ids = engine.tokenizer.encode(prompt)
+        try:
+            sampling = _sampling_from(
+                body, default_max=16, deadline_ms=_deadline_from(self.headers))
+            adapter, base = _parse_lora(engine, body)
+            if adapter is not None:
+                sampling.lora = adapter
+                model = base or model
+            deltas = engine.stream(prompt_ids, sampling, _stops_from(body),
+                                   request_id=self._request_id())
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        completion_id = f"cmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+
+        def chunk(text: str, finish: str | None) -> dict:
+            return {"id": completion_id, "object": "text_completion",
+                    "created": created, "model": model,
+                    "choices": [{"index": 0, "text": text,
+                                 "finish_reason": finish}]}
+
+        if not body.get("stream"):
+            final = self._collect(deltas)
+            if final is not None:
+                out = chunk(final.text, final.finish_reason)
+                out["usage"] = _usage(final.prompt_tokens,
+                                      final.completion_tokens)
+                self._json(200, out)
+            return
+        self._start_sse()
+        usage = _usage(len(prompt_ids), 0)
+        finish = "stop"
+        try:
+            try:
+                for delta in deltas:
+                    if delta.finish_reason is not None:
+                        finish = delta.finish_reason
+                        usage = _usage(delta.prompt_tokens,
+                                       delta.completion_tokens)
+                    if delta.text:
+                        self._sse(chunk(delta.text, None))
+            except EngineError as e:
+                self._sse({"error": {"message": str(e)}})
+                self._sse("[DONE]")
+                return
+            last = chunk("", finish)
+            last["usage"] = usage
+            self._sse(last)
             self._sse("[DONE]")
         except OSError:
-            deltas.close()  # client gone: cancel the request, free the slot
+            deltas.close()  # client gone: cancel the request
+
+    # ------------------------------------------------------------- responses
+
+    def _responses(self, body: dict) -> None:
+        """The OpenAI Responses API over the chat path."""
+        engine = self.server.engine
+        model = body.get("model") or engine.model_id
+        input_ = body.get("input")
+        if isinstance(input_, str):
+            messages = [{"role": "user", "content": input_}]
+        elif isinstance(input_, list):
+            messages = [{"role": m.get("role", "user"),
+                         "content": m.get("content", "")}
+                        for m in input_ if isinstance(m, dict)]
+        else:
+            self._error(400, "'input' must be a string or message array")
+            return
+        if body.get("instructions"):
+            messages = ([{"role": "system", "content": body["instructions"]}]
+                        + messages)
+        try:
+            prompt_ids = engine.encode_chat(messages)
+            sampling = _sampling_from(
+                body, deadline_ms=_deadline_from(self.headers))
+            deltas = engine.stream(prompt_ids, sampling, _stops_from(body),
+                                   request_id=self._request_id())
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        response_id = f"resp_{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+
+        def envelope(status: str, text: str, usage: dict | None) -> dict:
+            return {
+                "id": response_id,
+                "object": "response",
+                "created_at": created,
+                "status": status,
+                "model": model,
+                "output": [{
+                    "type": "message",
+                    "id": f"msg_{response_id}",
+                    "role": "assistant",
+                    "status": status,
+                    "content": [{"type": "output_text", "text": text,
+                                 "annotations": []}],
+                }],
+                "usage": usage or {"input_tokens": 0, "output_tokens": 0,
+                                   "total_tokens": 0},
+            }
+
+        def usage_of(delta) -> dict:
+            return {"input_tokens": delta.prompt_tokens,
+                    "output_tokens": delta.completion_tokens,
+                    "total_tokens": (delta.prompt_tokens
+                                     + delta.completion_tokens)}
+
+        if not body.get("stream"):
+            final = self._collect(deltas)
+            if final is not None:
+                self._json(200, envelope("completed", final.text,
+                                         usage_of(final)))
+            return
+        self._start_sse()
+        try:
+            self._event("response.created", {
+                "type": "response.created",
+                "response": envelope("in_progress", "", None)})
+            parts: list[str] = []
+            usage = None
+            try:
+                for delta in deltas:
+                    if delta.text:
+                        parts.append(delta.text)
+                        self._event("response.output_text.delta", {
+                            "type": "response.output_text.delta",
+                            "item_id": f"msg_{response_id}",
+                            "output_index": 0, "content_index": 0,
+                            "delta": delta.text})
+                    if delta.finish_reason is not None:
+                        usage = usage_of(delta)
+            except EngineError as e:
+                self._event("response.failed", {
+                    "type": "response.failed",
+                    "response": {"id": response_id, "object": "response",
+                                 "status": "failed",
+                                 "error": {"message": str(e)}}})
+                return
+            self._event("response.completed", {
+                "type": "response.completed",
+                "response": envelope("completed", "".join(parts), usage)})
+        except OSError:
+            deltas.close()  # client gone: cancel the request
+
+    # ------------------------------------------------------------ embeddings
+
+    def _embeddings(self, body: dict) -> None:
+        """OpenAI /v1/embeddings: `input` is a string, a list of strings, or
+        token id lists."""
+        engine = self.server.engine
+        raw = body.get("input")
+        if raw is None:
+            self._error(400, "'input' is required")
+            return
+        if isinstance(raw, str):
+            inputs = [raw]
+        elif isinstance(raw, list) and raw and all(
+                isinstance(x, int) for x in raw):
+            inputs = [raw]  # one pre-tokenized input
+        elif isinstance(raw, list) and raw:
+            inputs = raw
+        else:
+            self._error(400, "'input' must be a non-empty string or array")
+            return
+        batch_ids: list[list[int]] = []
+        for item in inputs:
+            if isinstance(item, str):
+                batch_ids.append(engine.tokenizer.encode(item))
+            elif isinstance(item, list) and all(isinstance(x, int)
+                                                for x in item):
+                batch_ids.append([int(x) for x in item])
+            else:
+                self._error(400, "each input must be a string or token array")
+                return
+        try:
+            vectors = engine.embed(batch_ids)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        prompt_tokens = sum(len(x) for x in batch_ids)
+        self._json(200, {
+            "object": "list",
+            "model": body.get("model", engine.model_id),
+            "data": [{"object": "embedding", "index": i, "embedding": vec}
+                     for i, vec in enumerate(vectors)],
+            "usage": {"prompt_tokens": prompt_tokens,
+                      "total_tokens": prompt_tokens},
+        })
 
 
 def _models(engine: Engine) -> list[dict]:
-    """The /v1/models entries: the base model, with the `lora` capability
-    when adapters are on ("this endpoint can load any adapter of its
-    store"), then one `base:adapter` entry per RESIDENT adapter, so the
-    gateway routes adapter traffic where it is already loaded."""
-    caps = ["chat_completion"]
+    """The /v1/models entries, with the reference's capabilities: the base
+    model, with `embeddings` (the one family, Llama, has an `encode`
+    forward) and `lora` when adapters are on ("this endpoint can load any
+    adapter of its store"), then one `base:adapter` entry per RESIDENT adapter (without
+    `embeddings`: the encode forward applies no adapter), so the gateway
+    routes adapter traffic where it is already loaded. Not advertised:
+    `structured_outputs` (no constrained decoding, ROADMAP A8) and the
+    disaggregation roles' `prefill` / `decode` (ROADMAP A14)."""
+    caps = ["chat_completion", "embeddings"]
     lora = engine.core.lora
     if lora is not None:
         caps.append("lora")
 
-    def entry(model_id: str) -> dict:
+    def entry(model_id: str, caps: list[str]) -> dict:
         return {"id": model_id, "object": "model", "created": 0,
-                "owned_by": "llmlb_tpu_torch", "capabilities": list(caps)}
+                "owned_by": "llmlb_tpu_torch", "capabilities": caps}
 
-    data = [entry(engine.model_id)]
+    data = [entry(engine.model_id, list(caps))]
     if lora is not None:
         for name in lora.resident_names():
-            data.append({**entry(f"{engine.model_id}:{name}"), "lora": name})
+            data.append({**entry(f"{engine.model_id}:{name}",
+                                 [c for c in caps if c != "embeddings"]),
+                         "lora": name})
     return data
 
 
@@ -408,7 +878,8 @@ def _parse_lora(engine: Engine, body: dict) -> tuple[str | None, str | None]:
 def start_server(engine: Engine, host: str = "127.0.0.1",
                  port: int = 0) -> tuple[EngineHTTPServer, threading.Thread]:
     """Serve `engine` from a background thread; port 0 picks a free port
-    (read it from `server.server_address`). Stop with server.shutdown()."""
+    (read it from `server.server_address`). Stop with server.shutdown();
+    `server.drain.start(grace_s)` drains first."""
     server = EngineHTTPServer((host, port), engine)
     thread = threading.Thread(target=server.serve_forever,
                               name="engine-http", daemon=True)
@@ -495,6 +966,16 @@ def main(argv: list[str] | None = None) -> None:
     engine = Engine.from_preset(args.preset, model_id=args.model_id,
                                 device=args.device, **core_kwargs)
     server = EngineHTTPServer((args.host, args.port), engine)
+
+    def drain_then_stop() -> None:
+        server.drain.start()
+        server.drain.wait()
+        server.shutdown()
+
+    # SIGTERM drains (the grace for in-flight work, then parks and socket
+    # cuts for the gateway to resume) before the server and engine stop
+    signal.signal(signal.SIGTERM, lambda signum, frame: threading.Thread(
+        target=drain_then_stop, name="engine-sigterm", daemon=True).start())
     log.info("serving %s on http://%s:%d (%s)", engine.model_id,
              *server.server_address[:2], engine.core.device)
     try:

@@ -2,8 +2,11 @@
 
 Counterpart of `Engine` in `llmlb_tpu/engine/service.py`: chat templating,
 token encode/decode, stop-sequence handling and usage accounting over the
-core's thread-side event queues. The port's HTTP server runs one thread per
-connection, so `stream` is a plain generator (the reference's is async).
+core's thread-side event queues, the adoption of a stream another engine
+started (`adopt_stream`, behind /v1/resume) and the embedding forward
+(`embed`, behind /v1/embeddings). The port's HTTP server runs one thread per
+connection, so `stream` and `adopt_stream` are plain generators (the
+reference's are async).
 """
 
 from __future__ import annotations
@@ -12,10 +15,17 @@ import dataclasses
 import uuid
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from llmlb_tpu_torch.engine.presets import get_preset
-from llmlb_tpu_torch.engine.scheduler import EngineCore, Request, SamplingParams
+from llmlb_tpu_torch.engine.scheduler import (
+    EngineCore,
+    ParkedState,
+    Request,
+    SamplingParams,
+)
+from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
     IncrementalDetokenizer,
@@ -34,6 +44,11 @@ class StreamDelta:
     prompt_tokens: int = 0
     completion_tokens: int = 0
     ttft_s: float | None = None
+    # Token ids committed since the previous delta: the server sends them
+    # as `llmlb.replay` frames, before the text they produced, to a stream
+    # armed with `llmlb_replay`, so the gateway's ledger covers every
+    # character its client has seen.
+    token_ids: list[int] = dataclasses.field(default_factory=list)
 
 
 class Engine:
@@ -93,27 +108,74 @@ class Engine:
         resolves; a stop hit truncates before anything past it is emitted.
         Closing the generator early cancels the request so its slot frees.
         """
-        rid = uuid.uuid4().hex
+        request = Request(prompt_ids=list(prompt_ids), sampling=sampling,
+                          request_id=_request_id(request_id))
+        self._submit(request)
+        return self._deltas(request, stop)
+
+    def adopt_stream(
+        self,
+        prompt_ids: list[int],
+        committed_ids: list[int],
+        sampling: SamplingParams,
+        stop: list[str] | None = None,
+        request_id: str | None = None,
+    ) -> Iterator[StreamDelta]:
+        """Continue a stream another engine started (or this one, before a
+        failover): `committed_ids` are the tokens its client already holds.
+        The request resumes as a parked one does: the prompt prefills in
+        its cold chunks, the committed tokens are fed through decode steps,
+        and decoding goes on from there, token-identical to an
+        uninterrupted run. The deltas carry the FULL completion, committed
+        text included (the gateway cuts what its client has): the first,
+        yielded as soon as the request is submitted, carries the committed
+        text and ids, so a second failover from this engine replays the
+        full sequence. A stream already
+        terminal in its committed tokens (a stop string, or max_tokens
+        reached) ends here without a submit. (The reference's `kv_pages`
+        payload goes with KV shipping, ROADMAP A13.)"""
+        committed = [int(t) for t in committed_ids]
+        bad = [t for t in committed if not 0 <= t < self.core.cfg.vocab_size]
+        if bad:
+            raise ValueError(f"committed token id {bad[0]} out of range for "
+                             f"vocab size {self.core.cfg.vocab_size}")
+        detok = IncrementalDetokenizer(self.tokenizer)
+        text = "".join(detok.push(t) for t in committed)
+        hit = _find_stop(text, [s for s in (stop or []) if s])
+        if hit is not None or len(committed) >= sampling.max_tokens:
+            return iter([StreamDelta(
+                text=text[:hit] if hit is not None else text + detok.flush(),
+                finish_reason="stop" if hit is not None else "length",
+                prompt_tokens=len(prompt_ids),
+                completion_tokens=len(committed), token_ids=committed)])
         request = Request(
             prompt_ids=list(prompt_ids), sampling=sampling,
-            request_id=f"{request_id}.{rid[:8]}" if request_id else rid,
-        )
+            request_id=_request_id(request_id),
+            parked=ParkedState(generated=len(committed), tokens=committed))
+        self._submit(request)
+        return self._deltas(request, stop, committed)
+
+    def _submit(self, request: Request) -> None:
+        """Pin the request's adapter on the caller's thread, then submit; a
+        submit that fails releases the pin again."""
         self.core.prepare_lora(request)
         try:
             self.core.submit(request)
         except BaseException:
             self.core._release_lora(request)  # idempotent
             raise
-        return self._deltas(request, stop)
 
-    def _deltas(self, request: Request,
-                stop: list[str] | None) -> Iterator[StreamDelta]:
+    def _deltas(self, request: Request, stop: list[str] | None,
+                committed: list[int] = ()) -> Iterator[StreamDelta]:
         detok = IncrementalDetokenizer(self.tokenizer)
         stop = [s for s in (stop or []) if s]
         holdback = max((len(s) for s in stop), default=1) - 1
-        acc = ""  # decoded text; acc[:emitted] has been yielded
+        # decoded text; acc[:emitted] has been yielded
+        acc = "".join(detok.push(t) for t in committed)
         emitted = 0
-        completion_tokens = 0
+        completion_tokens = len(committed)
+        # ids committed since the last yielded delta: they ride the next
+        pending_ids: list[int] = []
         ttft: float | None = None
         finished = False
 
@@ -121,17 +183,28 @@ class Engine:
             return StreamDelta(text=text, finish_reason=reason,
                                prompt_tokens=len(request.prompt_ids),
                                completion_tokens=completion_tokens,
-                               ttft_s=ttft)
+                               ttft_s=ttft, token_ids=pending_ids)
 
         try:
+            if committed:
+                # an adoption's committed text and ids go out at once: its
+                # exact resume feeds them through decode steps first (~one
+                # step a token), and the client should not wait on that
+                boundary = max(0, len(acc) - holdback)
+                emitted = boundary
+                pending_ids = []
+                yield StreamDelta(text=acc[:boundary],
+                                  token_ids=list(committed))
             while True:
                 kind, value = request.events.get()
                 if kind == "error":
                     raise EngineError(str(value))
                 if kind == "token":
                     completion_tokens += 1
-                    if completion_tokens == 1 and request.first_token_at:
+                    if (completion_tokens == len(committed) + 1
+                            and request.first_token_at):
                         ttft = request.first_token_at - request.submitted_at
+                    pending_ids.append(int(value))
                     acc += detok.push(int(value))
                 else:  # done
                     acc += detok.flush()
@@ -145,9 +218,15 @@ class Engine:
                     finished = True
                     yield final(acc[emitted:], str(value))
                     return
+                # a delta for every committed token, with whatever text is
+                # ready (none, for a token that decodes to nothing yet): the
+                # replay ledger then never lags the stream by more than one
+                # token
                 boundary = max(emitted, len(acc) - holdback)
-                if boundary > emitted:
-                    delta = StreamDelta(text=acc[emitted:boundary], ttft_s=ttft)
+                if boundary > emitted or pending_ids:
+                    delta = StreamDelta(text=acc[emitted:boundary],
+                                        ttft_s=ttft, token_ids=pending_ids)
+                    pending_ids = []
                     ttft = None  # report once
                     emitted = boundary
                     yield delta
@@ -173,6 +252,64 @@ class Engine:
         if final is None:
             raise EngineError("stream ended without a finish reason")
         return dataclasses.replace(final, text="".join(text))
+
+    # One encode forward takes at most this many rows, and a request at
+    # most MAX_EMBED_INPUTS inputs (OpenAI's limit), as in the reference.
+    _EMBED_CHUNK = 64
+    MAX_EMBED_INPUTS = 2048
+
+    def embed(self, batch_ids: list[list[int]]) -> list[list[float]]:
+        """Token id lists -> L2-normalised embedding vectors, as lists of
+        floats. Raises ValueError (a client error) for empty, oversized or
+        out-of-vocab inputs, with the reference's messages."""
+        if not batch_ids or any(len(x) == 0 for x in batch_ids):
+            raise ValueError("each input must contain at least one token")
+        if len(batch_ids) > self.MAX_EMBED_INPUTS:
+            raise ValueError(f"at most {self.MAX_EMBED_INPUTS} inputs per "
+                             f"request (got {len(batch_ids)})")
+        longest = max(len(x) for x in batch_ids)
+        limit = self.core.cfg.max_position_embeddings
+        if longest > limit:
+            raise ValueError(f"input of {longest} tokens exceeds the model "
+                             f"context ({limit})")
+        vocab = self.core.cfg.vocab_size
+        flat = np.fromiter((t for toks in batch_ids for t in toks), np.int64)
+        if flat.size and (flat.min() < 0 or flat.max() >= vocab):
+            bad = int(flat[(flat < 0) | (flat >= vocab)][0])
+            raise ValueError(f"token id {bad} out of range for vocab size "
+                             f"{vocab}")
+        return self._embed_sync(batch_ids)
+
+    def _embed_sync(self, batch_ids: list[list[int]]) -> list[list[float]]:
+        """Encode forwards of at most _EMBED_CHUNK rows, each row padded to
+        its OWN power-of-two bucket (16 and up), one forward per bucket: a
+        row's vector then depends on no other input of the request (on the
+        card, cuBLAS picks a product's sums by its shape). The forwards run
+        on the step loop's thread, between its iterations."""
+        out: list[list[float] | None] = [None] * len(batch_ids)
+        by_bucket: dict[int, list[int]] = {}
+        for i, toks in enumerate(batch_ids):
+            bucket = 16
+            while bucket < len(toks):
+                bucket *= 2
+            by_bucket.setdefault(bucket, []).append(i)
+        dev = self.core.device
+        for bucket, rows in sorted(by_bucket.items()):
+            for start in range(0, len(rows), self._EMBED_CHUNK):
+                chunk = rows[start:start + self._EMBED_CHUNK]
+                ids = np.zeros((len(chunk), bucket), np.int64)
+                lens = np.zeros((len(chunk),), np.int32)
+                for r, i in enumerate(chunk):
+                    ids[r, :len(batch_ids[i])] = batch_ids[i]
+                    lens[r] = len(batch_ids[i])
+                vecs = self.core.call_in_loop(
+                    lambda ids=ids, lens=lens: llama.encode(
+                        self.core.params, self.core.cfg,
+                        torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(lens).to(dev)).cpu())
+                for r, vec in zip(chunk, vecs.tolist()):
+                    out[r] = vec
+        return out
 
     def health(self) -> dict:
         stats = self.core.stats()
@@ -202,7 +339,16 @@ class Engine:
             "quant": self.core.quant_info(),
             # adapter pool: resident names (the gateway's lora_loaded)
             "lora": self.core.lora_info(),
+            # overload protection: queue depths by class, preemption and
+            # deadline-shed counters
+            "sched": self.core.sched_info(),
         }
+
+
+def _request_id(request_id: str | None) -> str:
+    """A fresh engine request id, after the caller's (gateway) id if any."""
+    rid = uuid.uuid4().hex
+    return f"{request_id}.{rid[:8]}" if request_id else rid
 
 
 def _find_stop(text: str, stops: list[str]) -> int | None:

@@ -508,6 +508,42 @@ def decode_step_paged(
     return logits, cache_k, cache_v
 
 
+def encode(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, T] int, right-padded
+    prompt_lens: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """Text-embedding forward (/v1/embeddings), the reference's `encode`: a
+    full pass that writes no KV (attention through gqa_attention_prefill,
+    flash_prefill on the card), the final norm in fp32, a mean over each
+    row's valid positions, then an L2 normalisation. Returns [B, E] fp32.
+    Each row's mean and norm are reduced over that row alone (a reduction
+    over [B, E] rounds by B on the card), so, with the products per row
+    (`_rowwise`), a row's vector does not depend on the other rows of the
+    batch."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    inv_freq = _rope_freqs(cfg, dev)
+    positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+    prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+
+    def attn_fn(q, k, v):
+        return gqa_attention_prefill(q, k, v, prompt_lens)
+
+    x = params["embed"][input_ids.long()]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
+                        attn_fn, None)
+    x = rms_norm(x, params["ln_final"], cfg.rms_eps).float()
+    out = []
+    for r, n in enumerate(prompt_lens.tolist()):
+        pooled = x[r, :n].sum(0) / max(n, 1)
+        out.append(pooled / torch.clamp(torch.linalg.vector_norm(pooled),
+                                        min=1e-9))
+    return torch.stack(out)
+
+
 # ---------------------------------------------------------------------------
 # Dense slot layout: row s of the cache [L, slots, cap, K, D] is slot s
 # ---------------------------------------------------------------------------
