@@ -54,9 +54,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
              against the CPU (plain path) at debug size: the paged ones with
              model-dtype, int8, adapter-pool (mixed lora_idx) and int8 +
              adapter params; the dense-slot ones with and without adapters.
+   checkpoint — the seed-0 random Llama-3-8B weights generated on the card
+             and written as a 4-shard bf16 HF checkpoint (index and a
+             config.json rendered from the preset) under the build
+             directory, after a check that the disk holds 16.06 GB; the
+             bf16 and int8 serve phases serve from it, and it is deleted
+             after them. The server's own `--checkpoint` path cannot run
+             here: its HFTokenizer needs `transformers`, which this machine
+             lacks; the engines come from Engine.from_checkpoint with a
+             ByteTokenizer, and the CPU tests cover `--checkpoint`.
 6. serve   — the port's HTTP server in-process, Llama-3-8B at full width and
-             depth with random bf16 weights from seed 0, its prefix cache on
-             (the default). First the prefix block, on the empty cache: a
+             depth with random bf16 weights from seed 0, loaded from the
+             checkpoint (Engine.from_checkpoint: the config read back must
+             be the preset, every leaf the generated tensor bit for bit;
+             the load's seconds, GB/s and peak host RSS growth are logged),
+             its prefix cache on (the default). First the prefix block, on the empty cache: a
              donor of a 1024-token head (8 pages) and a 100-token tail, then
              8 requests of the same head and tails of their own together,
              32 greedy tokens each; the hit, miss, cached-token, insertion
@@ -88,6 +100,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
              resume; the reference design's gap (prompt + committed as one
              prefill) and the resume latency are logged, and in bf16 the
              latency of adoptions of 16 and 128 committed tokens.
+             Then KV shipping (bf16 and int8), the serving core's side
+             counted with the main path: a second EngineCore over the same
+             params tensors (its own KV pool) behind a server of its own;
+             an armed stream on the serving core is parked after 16
+             committed ids by POST /v1/kv/export {"park": true}, and
+             /v1/resume with its kv_pages on the second server must give
+             the uninterrupted run's ids with no prefill dispatch and no
+             prefill or extend launch there, the adopted row's KV rows at
+             the resume point the uninterrupted run's bit for bit (bf16:
+             also after 128); the export, gather, land, bytes and the
+             first new token's latency beside the replay's (the same resume
+             without pages) are logged. The second engine's launches are
+             taken out of the counts and logged on a line of their own.
+             After the counts, the offload tier on a small engine (6
+             pages, 2 GiB of host budget): a prefix evicted under page
+             pressure and asked for again restores from host RAM, its
+             hit's first-token logits equal to the live hit's bit for bit,
+             and the counters the traffic's.
              Paged: page exhaustion on an engine of 2 slots and 4 pages,
              two rows of 60 tokens: both their solo tokens and finish
              reasons after a park. /v1/resume over HTTP with the ids of an
@@ -119,8 +149,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              for bit (on a difference the first op whose row 0 differs is
              named); this runs after each serve phase below too.
 7. serve int8 — the same, graphs and all, with quantize="all": the same
-             seed-0 weights
-             quantized on the card, int8 KV pages; flash_prefill and the two
+             seed-0 weights, streamed from the checkpoint and quantized
+             layer by layer on the card (every int8 leaf and scale must
+             equal quantize_params of a bf16 load of the checkpoint), int8
+             KV pages, the 16-id migration and the offload block too; flash_prefill and the two
              int8 kernels launch, the bf16 paged kernels do not, and the
              greedy tokens that agree with the bf16 run are counted.
 8. serve lora — the paged bf16 engine with a temporary adapter directory
@@ -1518,9 +1550,11 @@ def phase_model_entry_points() -> None:
                                      f"plain path (max_abs_err {err:.3e})")
 
 
-def _post(url: str, body: dict, timeout: float = 600):
+def _post(url: str, body: dict, timeout: float = 600,
+          headers: dict | None = None):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     return urllib.request.urlopen(req, timeout=timeout)
 
 
@@ -1611,6 +1645,9 @@ BF16_PATH = ("flash_prefill", "paged_flash_decode", "paged_flash_extend")
 INT8_PATH = ("flash_prefill", "paged_flash_decode_quant",
              "paged_flash_extend_quant")
 LORA_PATH = BF16_PATH + ("lora_delta",)
+# the kernels a decode step launches (a landed resume launches only these)
+DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_quant",
+                  "flash_decode")
 DENSE_PATH = ("flash_prefill", "flash_decode", "flash_extend")
 # Adapters of the LoRA phase: (name, rank, targets). Their factors are
 # drawn at scale 0.03: the delta of a projection is then ~0.1-0.3 of the
@@ -2327,18 +2364,21 @@ def _kv_first_difference(a, b) -> str | None:
 
 class _Uncounted:
     """Takes the port's kernel launches made inside the block back out of
-    the counts: the recomputations that compare two runs are not the main
+    the counts, keeping them in `launches`: the recomputations that compare
+    two runs, and the engines beside the serving core, are not the main
     path."""
 
     def __enter__(self):
         from llmlb_tpu_torch.kernels import build
 
         self.before = dict(build.LAUNCHES)
+        return self
 
     def __exit__(self, *exc):
         from llmlb_tpu_torch.kernels import build
 
-        build.add_launches(build.launches_since(self.before), times=-1)
+        self.launches = build.launches_since(self.before)
+        build.add_launches(self.launches, times=-1)
 
 
 def _window(n: int) -> int:
@@ -2914,10 +2954,524 @@ def _small_engine_blocks(core, prompt: list[int], label: str, dev: dict,
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- checkpoints
+
+CKPT_SHARDS = 4
+
+
+def phase_checkpoint(dev: dict) -> dict:
+    """The seed-0 random Llama-3-8B weights, generated on the card as the
+    serve phases' engines generate them, written as a 4-shard bf16 HF
+    checkpoint (model.safetensors.index.json, and a config.json rendered
+    from the llama-3-8b preset) into a temporary directory of the
+    checkout's build directory, after checking that its disk holds them.
+    The bf16 and int8 serve phases serve from it; the directory goes after
+    the int8 phase. Returns the directory, the generated tensors (the bf16
+    phase holds its load against them, then drops them) and the bytes."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.safetensors_io import save_sharded
+    from llmlb_tpu_torch.engine.weights import hf_config, hf_tensors
+    from llmlb_tpu_torch.kernels import build
+    from llmlb_tpu_torch.models import llama
+
+    cfg = get_preset("llama-3-8b")
+    nbytes = sum(math.prod(shape) * cfg.dtype.itemsize
+                 for shape, _ in llama.param_shapes(cfg).values())
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    free = shutil.disk_usage(build.BUILD_DIR).free
+    if free < nbytes + 2**27:
+        raise AssertionError(
+            f"checkpoint: {free / 1e9:.2f} GB free under {build.BUILD_DIR}; "
+            f"the bf16 checkpoint needs {nbytes / 1e9:.2f} GB")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    t0 = time.perf_counter()
+    files = save_sharded(hf_tensors(params, cfg), tmp.name, CKPT_SHARDS)
+    with open(os.path.join(tmp.name, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f)
+    os.sync()
+    write_s = time.perf_counter() - t0
+    log(f"checkpoint [{dev['smi']}]: seed-0 llama-3-8b weights generated on "
+        f"the card in {gen_s:.1f} s, written as {len(files)} bf16 shards "
+        f"({nbytes / 1e9:.2f} GB, {free / 1e9:.1f} GB free before) in "
+        f"{write_s:.1f} s ({nbytes / write_s / 1e9:.2f} GB/s, device to "
+        "disk, synced)")
+    return {"tmp": tmp, "dir": tmp.name, "params": params, "bytes": nbytes,
+            "write_s": write_s}
+
+
+class _RssPeak:
+    """While open, the peak of this process's resident set over its value at
+    the start, sampled from /proc/self/statm every 5 ms on a thread (the
+    page cache a load reads through is not counted: it is not resident in
+    the process)."""
+
+    def __enter__(self):
+        import os
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def growth_gib(self) -> float:
+        return (self.peak - self.start) / 2**30
+
+
+def _checkpoint_engine(label: str, ckpt: dict, core_kwargs: dict, dev: dict):
+    """The serving engine through Engine.from_checkpoint over the written
+    checkpoint, with a ByteTokenizer (this machine has no `transformers`,
+    which HFTokenizer and so the server's own --checkpoint path need; the
+    CPU tests cover that path). Holds the config read back against the
+    preset and the loaded leaves against the generated tensors (bf16) or
+    against quantize_params of a bf16 load of the same checkpoint (int8:
+    the streamed quantization is the core's own pass), bit for bit, and
+    logs the load's seconds, GB/s and peak host RSS growth. Returns the
+    engine and the load's numbers."""
+    import torch
+
+    from llmlb_tpu_torch.engine import service
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmlb_tpu_torch.engine.weights import load_checkpoint, load_config
+    from llmlb_tpu_torch.quant import quantize_params
+
+    cfg = get_preset("llama-3-8b")
+    if load_config(ckpt["dir"]) != cfg:
+        raise AssertionError(f"checkpoint: config.json reads back as "
+                             f"{load_config(ckpt['dir'])}, not the preset")
+    int8 = bool(core_kwargs.get("quantize"))
+    out: dict = {}
+    if int8:
+        # the reference for the streamed int8 leaves: the core's pass over
+        # a bf16 load of the same checkpoint
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = load_checkpoint(ckpt["dir"], cfg, device="cuda")
+        torch.cuda.synchronize()
+        out["bf16_again_s"] = time.perf_counter() - t0
+        want = quantize_params(ref)
+        del ref
+    else:
+        want = ckpt.pop("params")
+    real = service.load_checkpoint
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            params = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+        out["rss_growth_gib"] = rss.growth_gib
+        return params
+
+    service.load_checkpoint = timed
+    try:
+        engine = service.Engine.from_checkpoint(
+            ckpt["dir"], model_id="llama-3-8b", device="cuda",
+            tokenizer=ByteTokenizer(cfg.vocab_size), seed=0,
+            num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+            **core_kwargs)
+    finally:
+        service.load_checkpoint = real
+    params = engine.core.params
+    if sorted(params) != sorted(want):
+        raise AssertionError(f"serve {label}: loaded leaves {sorted(params)}"
+                             f", expected {sorted(want)}")
+    differ = [k for k in want if not torch.equal(params[k], want[k])]
+    del want
+    if differ:
+        raise AssertionError(f"serve {label}: loaded leaves {differ} differ "
+                             "from " + ("quantize_params of the bf16 load"
+                                        if int8 else "the generated tensors"))
+    out["gb_s"] = ckpt["bytes"] / out["load_s"] / 1e9
+    out["device_gib"] = engine.core.param_bytes / 2**30
+    log(f"serve {label} [{dev['smi']}]: Engine.from_checkpoint: the config "
+        f"read back is the preset; load_checkpoint"
+        f"{' (quantize_weights: int8 per layer on the card)' if int8 else ''}"
+        f" read {ckpt['bytes'] / 1e9:.2f} GB in {out['load_s']:.2f} s "
+        f"({out['gb_s']:.2f} GB/s, {out['device_gib']:.2f} GiB on the card), "
+        f"peak host RSS growth {out['rss_growth_gib']:.2f} GiB; every leaf "
+        + ("equals quantize_params of a bf16 load of the checkpoint (that "
+           f"load: {out['bf16_again_s']:.2f} s)" if int8 else
+           "equals the generated tensor") + " bit for bit")
+    return engine, out
+
+
+# ------------------------------------------------------------ kv shipping
+
+SHIP_AFTER = (16, 128)  # committed tokens of the migrations (128: bf16)
+SHIP_NEW = 16  # new tokens after the resume
+OFFLOAD_PROMPT, OFFLOAD_PAGES = 400, 6
+
+
+class _RidRows:
+    """On the engine thread: a copy of the KV rows [0, rows) of the row
+    serving gateway id `rid` once it holds `min_tokens` committed tokens
+    (between bursts). Wraps the core's _emit_fetched until close()."""
+
+    def __init__(self, core, rid: str, min_tokens: int, rows: int):
+        from llmlb_tpu_torch.engine.scheduler import gateway_rid
+
+        self.core, self.kv = core, None
+        emit = core._emit_fetched
+
+        def spy(tokens, active):
+            emit(tokens, active)
+            for slot_id, slot in enumerate(core.slots):
+                r = slot.request
+                if (self.kv is None and r is not None
+                        and gateway_rid(r.request_id) == rid
+                        and len(slot.out_tokens) >= min_tokens):
+                    self.kv = _row_kv(core, slot_id, rows)
+
+        core._emit_fetched = spy
+
+    def close(self) -> None:
+        del self.core._emit_fetched
+
+
+def _resume_stream(url: str, body: dict, rid: str, committed: int):
+    """POST /v1/resume, read to the end: (replay ids, ms from the POST to
+    the first replay frame past the committed ids)."""
+    ids, first = [], None
+    t0 = time.perf_counter()
+    with _post(url + "/v1/resume", body, headers={"X-Request-Id": rid}
+               ) as resp:
+        for data in _sse_lines(resp):
+            if data == b"[DONE]":
+                continue
+            obj = json.loads(data)
+            if obj.get("object") == "llmlb.replay":
+                ids.extend(obj["tokens"])
+                if first is None and len(ids) > committed:
+                    first = (time.perf_counter() - t0) * 1e3
+    return ids, first
+
+
+def _migration(core, adopter, base, adopter_base, encode, label: str,
+               c: int, dev: dict) -> dict:
+    """An armed stream decoding on the serving core, parked after `c`
+    committed ids by POST /v1/kv/export {"park": true}, then /v1/resume
+    with its kv_pages on the adopter: its ids must be the uninterrupted
+    run's, the adopter must launch no prefill or extend kernel, and the
+    adopted row's KV rows at the resume point must be the uninterrupted
+    run's bit for bit. Then the same resume without pages (the replay),
+    for its latency. The adopter's launches are taken out of the counts
+    and returned under "adopter_launches"."""
+    import http.client
+
+    import torch
+
+    from llmlb_tpu_torch.engine import scheduler, service
+    from llmlb_tpu_torch.engine.kv_transfer import parse_kv_payload
+
+    content = f"Ship check {label} {c}: list the planets."
+    body = _armed(content, c + SHIP_NEW, None)
+    n = len(encode([{"role": "user", "content": content}]))
+    margin = 24  # the ledger may run past c by a burst or two
+    # the uninterrupted run, its rows copied past any resume point
+    full_rid = f"kvfull-{c}"
+    watch = _RidRows(core, full_rid, c + margin, n + c + margin)
+    try:
+        ids = []
+        with _post(base + "/v1/chat/completions",
+                   _armed(content, c + margin + 16, None),
+                   headers={"X-Request-Id": full_rid}) as resp:
+            for data in _sse_lines(resp):
+                if data != b"[DONE]":
+                    obj = json.loads(data)
+                    if obj.get("object") == "llmlb.replay":
+                        ids.extend(obj["tokens"])
+    finally:
+        watch.close()
+    full, full_kv = ids[:c + SHIP_NEW], watch.kv
+    if full_kv is None:
+        raise AssertionError(f"serve {label}: no KV copy of the "
+                             "uninterrupted run")
+    # the stream to move, parked after c committed ids
+    rid = f"kvmig-{c}"
+    host, port = base[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json", "X-Request-Id": rid})
+    committed: list[int] = []
+    for data in _sse_lines(conn.getresponse()):
+        obj = json.loads(data)
+        if obj.get("object") == "llmlb.replay":
+            committed.extend(obj["tokens"])
+            if len(committed) >= c:
+                break
+    gathers, serializes, parses = [], [], []
+    capture = core._capture_kv
+
+    def timed_capture(pages, tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kvp = capture(pages, tokens)
+        gathers.append((time.perf_counter() - t0) * 1e3)
+        return kvp
+
+    def timer(fn, into):
+        def timed(*args):
+            t0 = time.perf_counter()
+            result = fn(*args)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return result
+        return timed
+
+    serialize, parse = scheduler.serialize_kv_pages, service.parse_kv_payload
+    core._capture_kv = timed_capture
+    scheduler.serialize_kv_pages = timer(serialize, serializes)
+    try:
+        t0 = time.perf_counter()
+        with _post(base + "/v1/kv/export", {"request_id": rid,
+                                            "park": True}) as r:
+            out = json.loads(r.read())
+        export_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del core._capture_kv
+        scheduler.serialize_kv_pages = serialize
+    conn.close()  # the client leaves the origin: its copy is cancelled
+    # the origin re-admits the parked request until the cancel reaches it;
+    # wait for that, so that the adopter's launches below are its own
+    _wait_idle(core)
+    pages = out["kv_pages"]
+    kvp = parse_kv_payload(pages)
+    m = len(committed)
+    if committed != full[:m] or not c <= m <= c + margin:
+        raise AssertionError(f"serve {label}: the moved stream's {m} "
+                             "committed ids are not the uninterrupted run's")
+    lands = []
+    land = adopter._land_kv_pages
+
+    def timed_land(k, fresh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        land(k, fresh)
+        torch.cuda.synchronize()
+        lands.append((time.perf_counter() - t0) * 1e3)
+
+    adopter._land_kv_pages = timed_land
+    service.parse_kv_payload = timer(parse, parses)
+    before = adopter.prefill_dispatches
+    rows = _RidRows(adopter, rid, m + 1, n + m)
+    try:
+        with _Uncounted() as landed:
+            got, landed_ms = _resume_stream(
+                adopter_base, {**body, "committed_ids": committed,
+                               "kv_pages": pages}, rid, m)
+    finally:
+        rows.close()
+        del adopter._land_kv_pages
+        service.parse_kv_payload = parse
+    prefills = adopter.prefill_dispatches - before
+    prefill_launches = {k: n for k, n in landed.launches.items()
+                        if k not in DECODE_KERNELS}
+    if got != full or prefills != 0 or prefill_launches or len(lands) != 1:
+        raise AssertionError(
+            f"serve {label}: the adopted stream shares {_shared(got, full)} "
+            f"of {len(full)} ids with the uninterrupted run; {prefills} "
+            f"prefill dispatches, launches {landed.launches} and "
+            f"{len(lands)} lands on the adopter")
+    where = _kv_first_difference(rows.kv, _kv_head(full_kv, n + m))
+    if where is not None:
+        raise AssertionError(f"serve {label}: the adopted row's KV rows first "
+                             f"differ from the uninterrupted run's at {where}")
+    # the replay of the same committed ids, for its latency
+    before = adopter.prefill_dispatches
+    with _Uncounted() as replayed:
+        again, replay_ms = _resume_stream(
+            adopter_base, {**body, "committed_ids": committed},
+            f"kvrep-{c}", m)
+    if again != full or adopter.prefill_dispatches == before:
+        raise AssertionError(f"serve {label}: the replayed resume shares "
+                             f"{_shared(again, full)} of {len(full)} ids")
+    wire = len(pages["data"])
+    res = {"committed": m, "tokens": kvp.header.tokens,
+           "pages": kvp.header.num_pages, "bytes": kvp.nbytes,
+           "wire_bytes": wire, "export_ms": export_ms,
+           "gather_ms": gathers[0], "serialize_ms": serializes[0],
+           "parse_ms": parses[0], "land_ms": lands[0],
+           "first_new_ms": landed_ms, "replay_first_new_ms": replay_ms,
+           "adopter_launches": {"landed": landed.launches,
+                                "replay": replayed.launches}}
+    log(f"serve {label} [{dev['smi']}]: KV migration after {m} committed ids "
+        f"({n}-token prompt): POST /v1/kv/export (park) answered in "
+        f"{export_ms:.1f} ms (gather {gathers[0]:.2f} ms, serialize "
+        f"{serializes[0]:.1f} ms; {kvp.header.num_pages} pages, "
+        f"{kvp.nbytes / 2**20:.1f} MiB, {wire / 2**20:.1f} MiB of base64); "
+        f"/v1/resume with the pages on a second core: parse "
+        f"{parses[0]:.1f} ms, land {lands[0]:.2f} ms, first new token "
+        f"{landed_ms:.1f} ms after the POST (the replay of the same ids: "
+        f"{replay_ms:.1f} ms); its {len(full)} ids the uninterrupted run's, "
+        f"0 prefill dispatches (the landed resume's launches "
+        f"{landed.launches}, the replay's {replayed.launches}), its KV rows "
+        f"[0, {n + m}) the uninterrupted run's bit for bit")
+    return res
+
+
+def _offload_block(core, label: str, dev: dict, core_kwargs: dict) -> dict:
+    """The host-RAM tier on a small engine over the same weights (2 slots of
+    512 positions, OFFLOAD_PAGES pages, 2 GiB of host budget): prompt A
+    cold (its 384-token head donated), A again (a live hit), B (its pages
+    evict A's entry, which spills to the host), A again: the tier lands
+    A's head back, and that hit's first-token logits must equal the live
+    hit's bit for bit, its tokens the cold run's; the counters must be the
+    traffic's. (A's cold run captures the bursts' graph key, so the restored
+    run's first token waits for no capture.)"""
+    import numpy as np
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    rng = np.random.default_rng(7)
+    a, b = (rng.integers(300, core.cfg.vocab_size, OFFLOAD_PROMPT).tolist()
+            for _ in range(2))
+    small = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=2, slot_capacity=512, eos_id=-1,
+                       kv_pages=OFFLOAD_PAGES, kv_offload_bytes=2 << 30,
+                       **core_kwargs)
+    small.start()
+    spy = _LogitSpy(small)
+    try:
+        t0 = time.perf_counter()
+        runs = [_collect(_submit(small, p, 8))[0] for p in (a, a, b)]
+        first: list = []
+        t1 = time.perf_counter()
+        restored = _collect(_submit(small, a, 8), first)[0]
+        restore_ms = (first[0] - t1) * 1e3
+        wall = time.perf_counter() - t0
+        _wait_idle(small)
+        live, again = spy.get(a, None)[1:3]
+        info, st = small.kv_transfer_info(), small.stats()
+    finally:
+        spy.close()
+        small.stop()
+    import torch
+
+    p = st.prefix
+    counts = {"ship": info["ship_total"], "restored": info["restored_total"],
+              "spills": info["offload"]["spills"],
+              "tier_hits": info["offload"]["hits"],
+              "hits": p.prefix_hits_total, "misses": p.prefix_misses_total,
+              "evictions": p.prefix_evictions_total,
+              "insertions": p.prefix_insertions_total}
+    # A's donation and B's (each evicted for the other's pages: two
+    # spills), and A's restored 384-token head, which its finish then
+    # covers; two misses (A cold, B), two hits (live, restored)
+    want = {"ship": 2, "restored": 1, "spills": 2, "tier_hits": 1,
+            "hits": 2, "misses": 2, "evictions": 2, "insertions": 3}
+    if counts != want:
+        raise AssertionError(f"serve {label}: offload counters {counts}, the "
+                             f"traffic implies {want}")
+    if not torch.equal(live, again) or not restored == runs[0] == runs[1]:
+        raise AssertionError(
+            f"serve {label}: the restored hit's logits differ from the live "
+            f"hit's by max |diff| {(live - again).abs().max().item():.3e}, "
+            f"or its tokens from the cold run's")
+    log(f"serve {label} [{dev['smi']}]: offload tier ({OFFLOAD_PAGES} pages, "
+        f"{OFFLOAD_PROMPT}-token prompts): a prefix evicted under page "
+        f"pressure spilled to host RAM and restored; the restored hit's "
+        f"first-token logits equal the live hit's bit for bit, its 8 tokens "
+        f"the cold run's; first token {restore_ms:.1f} ms after submit; "
+        f"counters {counts}; {wall:.1f} s")
+    return {"counts": counts, "restore_first_ms": restore_ms}
+
+
+def _kv_ship(core, engine, base: str, label: str, dev: dict,
+             core_kwargs: dict, sweep: bool) -> dict:
+    """KV shipping on the serving core: a second EngineCore over the same
+    params tensors (no weight copy; its own KV pool) behind a server of
+    its own takes the migrations of SHIP_AFTER committed ids (16; and 128
+    with `sweep`). The serving core's launches (the streams it serves and
+    parks, the export's gather) stay counted; the adopter's are taken out
+    and logged on a line of their own."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    adopter = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                         num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                         **core_kwargs)
+    adopt_engine = Engine("llama-3-8b", adopter,
+                          ByteTokenizer(core.cfg.vocab_size))
+    adopter.start()
+    server, thread = start_server(adopt_engine)
+    adopter_base = "http://%s:%d" % server.server_address[:2]
+    out: dict = {}
+    try:
+        _wait_idle(core)  # the adopter's launches below are its own
+        # capture the adopter's decode graph key (window 256, unseeded)
+        # first: a key's first burst waits for its capture, which would
+        # otherwise land in the first migration's latency
+        with _Uncounted() as warm:
+            _collect(_submit(adopter, engine.encode_chat(
+                [{"role": "user", "content": "warm"}]), 16))
+        out["migrations"] = [
+            _migration(core, adopter, base, adopter_base, engine.encode_chat,
+                       label, c, dev)
+            for c in (SHIP_AFTER if sweep else SHIP_AFTER[:1])]
+        total = dict(warm.launches)
+        for mig in out["migrations"]:
+            for part in mig["adopter_launches"].values():
+                for k, n in part.items():
+                    total[k] = total.get(k, 0) + n
+        out["adopter_launches"] = total
+        log(f"serve {label}: the adopter's launches (its warm-up, landed "
+            f"and replayed resumes; not in the main path's counts) {total}; "
+            f"its decode graph keys after its landed and replayed rows: "
+            f"{sorted(adopter.decode_graph_info()['keys'])}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        adopt_engine.shutdown()
+        del adopt_engine, adopter
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
-                bf16_long_ids: list[int] | None = None, **core_kwargs) -> dict:
-    """Serve Llama-3-8B at full width and depth, random weights from seed 0,
+                bf16_long_ids: list[int] | None = None,
+                ckpt: dict | None = None, **core_kwargs) -> dict:
+    """Serve Llama-3-8B at full width and depth, random weights from seed 0
+    (with `ckpt`, the same weights loaded from the written checkpoint),
     through the HTTP server, then time requests on its core. `core_kwargs`
     pick the path (quantize="all", kv_layout="dense", lora_dir=...).
     Returns the metrics, the greedy ids of the timed prompts (124 and ~1500
@@ -2934,13 +3488,18 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
-                                num_slots=SLOTS, slot_capacity=CAPACITY,
-                                eos_id=-1, **core_kwargs)
+    load = None
+    if ckpt is not None:
+        engine, load = _checkpoint_engine(label, ckpt, core_kwargs, dev)
+    else:
+        engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
+                                    num_slots=SLOTS, slot_capacity=CAPACITY,
+                                    eos_id=-1, **core_kwargs)
     core = engine.core
     torch.cuda.synchronize()
     kv_info = core.kv_cache_info()
-    log(f"serve {label}: llama-3-8b random weights (seed 0) on the card in "
+    log(f"serve {label}: llama-3-8b random weights (seed 0"
+        f"{', from the checkpoint' if ckpt is not None else ''}) on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"(params {core.param_bytes / 2**30:.2f} GiB, KV "
@@ -2954,7 +3513,7 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                              "layout")
     server, thread = start_server(engine)
     base = "http://%s:%d" % server.server_address[:2]
-    stats: dict = {}
+    stats: dict = {"checkpoint": load} if load is not None else {}
     try:
         ca.reset_launch_counts()
         long_text = " ".join(f"w{i % 97}" for i in range(380))  # ~1500 tokens
@@ -3126,9 +3685,10 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 raise AssertionError(f"adapter refcounts left: {info['active']}")
             log(f"serve {label}: resident {info['resident']}, loads "
                 f"{info['loads_total']}, refcounts drained to {{}}")
-        # this slice's traffic, counted with the main path: a priority park,
-        # /v1/resume, and in bf16 the endpoints (page exhaustion and the
-        # drain run on an engine of their own after the counts)
+        # the later slices' traffic, counted with the main path: a priority
+        # park, /v1/resume, and in bf16 the endpoints (the offload tier,
+        # page exhaustion and the drain run on engines of their own after
+        # the counts)
         block_s: dict[str, float] = {}
         over = _timed(block_s, "priority_park", _priority_park, core, prompt,
                       label, lora, dev, label == "bf16")
@@ -3137,6 +3697,14 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         if label == "bf16":
             over.update(_timed(block_s, "endpoints", _endpoints, base, core,
                                dev))
+        # KV shipping on the paged layout (the dense one ships no pages, as
+        # in the reference), the serving core's side counted with the main
+        # path; the LoRA phase's traffic is the earlier slices'
+        ship = core.page_pool is not None and not lora
+        if ship:
+            over["kv_ship"] = _timed(block_s, "kv_ship", _kv_ship, core,
+                                     engine, base, label, dev, core_kwargs,
+                                     label == "bf16")
         stats["overload"] = over
         nan_rows = core.nan_logit_rows()
         launches = dict(ca.LAUNCHES)
@@ -3169,8 +3737,12 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                          ("beta", "acme", None, "beta", "acme", None, "beta",
                           "acme")]
         phase_batch_invariance(core, prompts, label, lora_rows)
-        # page exhaustion and the drain (one-way, so last) on a small
-        # engine of their own, uncounted
+        # the offload tier, page exhaustion and the drain (one-way, so
+        # last) on small engines of their own, after the counts
+        if ship:
+            over["kv_ship"]["offload"] = _timed(
+                block_s, "offload", _offload_block, core, label, dev,
+                core_kwargs)
         small = _small_engine_blocks(core, prompt, label, dev, core_kwargs)
         over.update(small)
         drain = small["drain"]
@@ -3220,8 +3792,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=None,
                         help="checkout to import llmlb_tpu_torch from (another "
-                             "commit with the prefix cache, to time two trees "
-                             "in one call)")
+                             "commit with the checkpoint loader and KV "
+                             "shipping, to time two trees in one call)")
     parser.add_argument("--serve-only", action="store_true",
                         help="run the device, build and serve phases only")
     args = parser.parse_args(argv)
@@ -3234,10 +3806,10 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     tree = Path(args.tree).resolve() if args.tree else REPO
-    if not (tree / "llmlb_tpu_torch" / "engine" / "prefix_cache.py").exists():
-        print(f"chip_smoke: {tree} has no prefix cache, which the serve "
-              "phases drive; run that tree's own chip_smoke.py",
-              file=sys.stderr)
+    if not (tree / "llmlb_tpu_torch" / "engine" / "kv_transfer.py").exists():
+        print(f"chip_smoke: {tree} has no checkpoint loader or KV shipping, "
+              "which the serve phases drive; run that tree's own "
+              "chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, str(tree))
     try:
@@ -3271,9 +3843,12 @@ def main(argv: list[str] | None = None) -> int:
             kernels = run("kernels", phase_kernels)
             run("unembed", phase_unembed)
             run("model entry points", phase_model_entry_points)
-        stats = run("serve", phase_serve, dev, "bf16", BF16_PATH)
+        ckpt = run("checkpoint", phase_checkpoint, dev)
+        stats = run("serve", phase_serve, dev, "bf16", BF16_PATH, ckpt=ckpt)
         stats_int8 = run("serve int8", phase_serve, dev, "quantize=all",
-                         INT8_PATH, bf16_ids=stats["ids"], quantize="all")
+                         INT8_PATH, bf16_ids=stats["ids"], ckpt=ckpt,
+                         quantize="all")
+        ckpt["tmp"].cleanup()
         stats_lora = run("serve lora", phase_serve_lora, dev, stats["ids"])
         stats_dense = run("serve dense", phase_serve, dev, "dense", DENSE_PATH,
                           bf16_ids=stats["ids"],
@@ -3292,7 +3867,11 @@ def main(argv: list[str] | None = None) -> int:
                 **{k: st["overload"][k] for k in (
                     "park_m", "resume_ms", "ref_gap", "ref_prefill_ms",
                     "sweep", "embed_batch_ms", "embed_one_ms")
-                   if k in st.get("overload", {})}}
+                   if k in st.get("overload", {})},
+                **({"checkpoint": st["checkpoint"]} if "checkpoint" in st
+                   else {}),
+                **({"kv_ship": st["overload"]["kv_ship"]}
+                   if "kv_ship" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,

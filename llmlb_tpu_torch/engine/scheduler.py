@@ -80,12 +80,34 @@ uninterrupted run, while the other rows decode on. The first new token's
 logits are then the uninterrupted run's, bit for bit on the card. The
 same path serves the service's `adopt_stream` (/v1/resume).
 
+KV page shipping (`kv_ship=` / LLMLB_KV_SHIP, on by default as in the
+reference, paged layout only): a row parked while the engine drains, or
+parked on request for a migration (`request_park`, behind POST
+/v1/kv/export {"park": true}), leaves its pages' bytes behind as a KVSH
+payload (engine/kv_transfer.py: one `index_select` over the pools and one
+device-to-host copy per section), taken once by `take_kv_export`. A request
+that arrives with such a payload on `Request.kv_restore` (an adoption,
+`Engine.adopt_stream`) lands it into fresh pages with one `index_copy_`
+per section and enters decode at seq_len = n - 1 with its last committed
+token pending (`_insert_restored`): no prefill and no forced tokens; the
+next decode step writes position n - 1 as the uninterrupted run did, so
+the exact-resume contract holds by construction, the landed rows being the
+origin's own. The land is not captured in a graph (it runs between bursts),
+so unlike the reference it pads nothing, and a landed row adds no decode
+graph key. Any refusal counts its labelled reason and takes the replay
+path.
+
+Host-RAM offload tier (`kv_offload_bytes=` / LLMLB_KV_OFFLOAD_BYTES, 0 =
+off by default, paged only; engine/kv_offload.py): a prefix entry evicted
+under page pressure and a parked row's pages spill to host memory; a later
+prompt with that head lands it back before the live-cache match, and the
+parked row re-activates from it instead of replaying.
+
 Left out of this slice (see ROADMAP.md): speculative decoding, grammar
 constraints (and with them the grammar cursor and drafter of ParkedState),
-context-parallel prefill, disaggregation and split-mode preemption, KV
-shipping (`_spill_parked_slot`, the `kv_pages` adoption, the per-stream
-migration park), the prefill chunk budget, and of the prefix cache its
-host-RAM tier, its preference for context-parallel prefill and its
+context-parallel prefill, disaggregation and split-mode preemption (and
+with them the handoff's page export), the prefill chunk budget, and of the
+prefix cache its preference for context-parallel prefill and its
 Prometheus series.
 """
 
@@ -97,6 +119,7 @@ import logging
 import math
 import os
 import queue
+import re
 import threading
 import time
 import uuid
@@ -111,6 +134,14 @@ from llmlb_tpu_torch.engine.decode_graph import (
     burst_body,
     count_nan_rows,
     cuda_capture,
+)
+from llmlb_tpu_torch.engine.kv_offload import KVOffloadTier
+from llmlb_tpu_torch.engine.kv_transfer import (
+    KV_WIRE_VERSION,
+    KVPages,
+    KVWireHeader,
+    kv_compat_reason,
+    serialize_kv_pages,
 )
 from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
@@ -132,6 +163,20 @@ PRIORITY_HIGH, PRIORITY_NORMAL, PRIORITY_LOW = 0, 1, 2
 PRIORITY_CLASSES = (PRIORITY_HIGH, PRIORITY_NORMAL, PRIORITY_LOW)
 PRIORITY_NAMES = {PRIORITY_HIGH: "high", PRIORITY_NORMAL: "normal",
                   PRIORITY_LOW: "low"}
+
+# The reasons a KV page move falls back to the replay path, the reference's
+# closed label set.
+KV_FALLBACK_REASONS = ("disabled", "absent", "version", "dtype",
+                       "page_size", "geometry", "capacity", "error")
+
+_RID_SUFFIX = re.compile(r"\.[0-9a-f]{8}$")
+
+
+def gateway_rid(request_id: str) -> str:
+    """The gateway's request id of an engine request id: the service
+    appends `.{8 hex}` to it (Engine._request_id); ids without the suffix
+    pass through."""
+    return _RID_SUFFIX.sub("", request_id)
 
 
 @dataclasses.dataclass
@@ -188,6 +233,10 @@ class Request:
     # consumed at its re-activation: the prompt prefills, then the
     # committed tokens are fed through decode steps.
     parked: ParkedState | None = None
+    # A parked request's KV pages as a parsed payload (an adoption's wire
+    # payload, or the offload tier's spill): landed at re-activation in
+    # place of the replay. One-shot: cleared at first use, landed or not.
+    kv_restore: KVPages | None = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -270,6 +319,22 @@ class PrefixCounters:
     kv_copy_dispatches: int = 0
 
 
+@dataclasses.dataclass
+class KVShipCounters:
+    """KV page movement, under the reference's metric names: payloads
+    gathered to the host (exports and offload spills) with their bytes and
+    seconds, payloads landed in the pool (wire or offload), and the moves
+    that fell back to the replay path, by reason."""
+
+    kv_ship_total: int = 0
+    kv_ship_bytes_total: int = 0
+    kv_ship_seconds_total: float = 0.0
+    kv_restored_total: int = 0
+    kv_restored_bytes_total: int = 0
+    kv_ship_fallback_total: dict = dataclasses.field(
+        default_factory=lambda: {r: 0 for r in KV_FALLBACK_REASONS})
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     num_slots: int
@@ -293,6 +358,8 @@ class EngineStats:
     preempt_resumes_total: int = 0
     deadline_shed_total: int = 0
     drain_parked_total: int = 0
+    # a copy of the KV page movement counters
+    kv: KVShipCounters = dataclasses.field(default_factory=KVShipCounters)
 
 
 class EngineCore:
@@ -326,6 +393,8 @@ class EngineCore:
         prefix_cache: bool | None = None,
         prefix_cache_slots: int | None = None,
         min_prefix_len: int | None = None,
+        kv_ship: bool | None = None,
+        kv_offload_bytes: int | None = None,
     ):
         self.device = resolve_device(device)
         # one CUDA graph per decode burst key: on by default on the card
@@ -562,6 +631,33 @@ class EngineCore:
         self.preempt_resumes_total = 0
         self.deadline_shed_total = 0
         self.drain_parked_total = 0
+        # the gateway ids of streams to park for a migration: added by HTTP
+        # threads, swapped out by the step loop
+        self._park_rids: set[str] = set()
+        # KV page shipping and the host-RAM tier, paged only (dense rows
+        # have no pages to name), resolved as the reference resolves them
+        if kv_ship is None:
+            kv_ship = os.environ.get("LLMLB_KV_SHIP", "1").lower() not in (
+                "0", "false", "off", "no")
+        self.kv_ship = bool(kv_ship) and self.page_pool is not None
+        # exports of parked streams by gateway id, taken once
+        self._kv_exports: dict[str, dict] = {}
+        if kv_offload_bytes is None:
+            try:
+                kv_offload_bytes = int(
+                    os.environ.get("LLMLB_KV_OFFLOAD_BYTES", "0") or 0)
+            except ValueError:
+                log.warning("LLMLB_KV_OFFLOAD_BYTES is not an integer; "
+                            "offload disabled")
+                kv_offload_bytes = 0
+        self.kv_offload: KVOffloadTier | None = (
+            KVOffloadTier(kv_offload_bytes)
+            if kv_offload_bytes > 0 and self.page_pool is not None
+            else None)
+        if self.kv_offload is not None:
+            log.info("KV offload tier: %.1f MiB host-RAM budget",
+                     self.kv_offload.budget_bytes / 2**20)
+        self.kv_counters = KVShipCounters()
         # work another thread hands the loop (call_in_loop)
         self._calls: queue.SimpleQueue = queue.SimpleQueue()
         self._running = False
@@ -589,6 +685,8 @@ class EngineCore:
         # terminal events for everything still in flight so waiters unblock
         self._fail_all("engine shutting down")
         self._run_calls(RuntimeError("engine shutting down"))
+        with self._lock:
+            self._kv_exports.clear()
 
     def call_in_loop(self, fn):
         """Run `fn()` on the step loop's thread, between two iterations, and
@@ -676,6 +774,7 @@ class EngineCore:
             preempt_resumes_total=self.preempt_resumes_total,
             deadline_shed_total=self.deadline_shed_total,
             drain_parked_total=self.drain_parked_total,
+            kv=self._kv_counters_copy(),
         )
 
     def queue_class_depths(self) -> dict[str, int]:
@@ -715,6 +814,13 @@ class EngineCore:
         included) with an error, after the server closed their sockets, so
         the handlers waiting on their events return."""
         self._drain_flush_requested = True
+
+    def request_park(self, gateway_id: str) -> None:
+        """Ask the step loop to park ONE stream (by gateway request id) at
+        its next iteration and leave its KV for export: a migration pulls
+        the stream to another engine while this one serves everyone else.
+        The set is swapped out only by the loop thread."""
+        self._park_rids.add(gateway_id)
 
     def decode_graph_info(self) -> dict:
         """The decode graphs: keys captured, replays, eager bursts, capture
@@ -845,6 +951,9 @@ class EngineCore:
                 if self._drain_park_requested:
                     self._drain_park_requested = False
                     self._drain_park_all()
+                if self._park_rids:
+                    rids, self._park_rids = self._park_rids, set()
+                    self._park_requested(rids)
                 if self._drain_flush_requested:
                     self._drain_flush_requested = False
                     self._drain_flush_all()
@@ -975,7 +1084,7 @@ class EngineCore:
         this row's reference), the donor entry of a hit is released, and the
         request goes back to the front of its class. Not a finish: its
         adapter stays pinned and no terminal event is sent. `reason`:
-        preempt (priority), pages (pool exhaustion) or drain."""
+        preempt (priority), pages (pool exhaustion), drain or migrate."""
         slot = self.slots[slot_id]
         request = slot.request
         if not self._parkable(slot):
@@ -983,6 +1092,9 @@ class EngineCore:
                                "first token pending)")
         request.parked = ParkedState(generated=slot.generated,
                                      tokens=list(slot.out_tokens))
+        # the KV leaves before the pool reclaims its pages: an export for
+        # the gateway, and the offload tier's copy for a local restore
+        self._spill_parked_slot(slot_id, request, reason)
         self._release_cache_entry(slot)
         self._free_slot_kv(slot_id)
         slot.clear()
@@ -1026,6 +1138,16 @@ class EngineCore:
         if flushed:
             log.info("drain flushed %d queued request(s)", len(flushed))
 
+    def _park_requested(self, rids: set[str]) -> None:
+        """Park the rows serving these gateway ids for a migration. A row
+        that cannot park (prefilling, first token pending) or an id not
+        decoding here is dropped: the export poll then times out and the
+        migration aborts with the stream untouched."""
+        for i, slot in enumerate(self.slots):
+            if (self._parkable(slot)
+                    and gateway_rid(slot.request.request_id) in rids):
+                self._park_slot(i, reason="migrate")
+
     def _drain_park_all(self) -> None:
         """Park every parkable row (the drain's grace is spent). Prefilling
         and first_pending rows cannot park: the server closes their
@@ -1040,6 +1162,9 @@ class EngineCore:
         the release of its adapter."""
         request.finished_at = time.monotonic()
         self._release_lora(request)
+        if self.kv_offload is not None:
+            # a parked spill of a request that ended is dead bytes
+            self.kv_offload.drop_parked(request.request_id)
         request.events.put((kind, value))
 
     def _finish_slot(self, slot_id: int, reason: str,
@@ -1218,12 +1343,31 @@ class EngineCore:
                                  "prompt does not fit slot capacity")
                 handled = True
                 continue
+            # A parked request whose KV travelled as bytes (an adoption's
+            # wire payload, or a spill to the offload tier) lands its pages
+            # and re-enters decode: no prefill. A refusal falls through to
+            # the replay below.
+            if request.parked is not None:
+                if (request.kv_restore is None
+                        and self.kv_offload is not None):
+                    request.kv_restore = self.kv_offload.pop_parked(
+                        request.request_id)
+                if request.kv_restore is not None:
+                    slot_id = free.pop(0)
+                    if self._insert_restored(slot_id, request, n + committed):
+                        handled = True
+                        inserted += 1
+                        continue
+                    free.insert(0, slot_id)
             # A prompt too short to match (at least one suffix token must
             # prefill, for the first sampled logits) bypasses the cache and
             # counts as no miss. So does a resumed request: its prompt
             # prefills cold, in the uninterrupted run's chunks.
             if (self.prefix_cache is not None and request.parked is None
                     and n - 1 >= self.min_prefix_len):
+                # the offload tier first: a spilled head lands back into
+                # fresh pages and re-enters the cache, which serves it below
+                self._maybe_restore_prefix(request, n)
                 # namespaced by adapter: under LoRA the prompt's KV depends
                 # on the adapter's wq/wk/wv deltas
                 hit = self.prefix_cache.match(request.prompt_ids,
@@ -1605,6 +1749,262 @@ class EngineCore:
         if finish is not None:
             self._finish_slot(slot_id, finish, donate=True)
 
+    # ------------------------------------------------------------ kv transfer
+
+    def _kv_counters_copy(self) -> KVShipCounters:
+        with self._lock:
+            c = self.kv_counters
+            return dataclasses.replace(
+                c, kv_ship_fallback_total=dict(c.kv_ship_fallback_total))
+
+    def _record_kv_ship(self, nbytes: int, seconds: float) -> None:
+        with self._lock:
+            self.kv_counters.kv_ship_total += 1
+            self.kv_counters.kv_ship_bytes_total += int(nbytes)
+            self.kv_counters.kv_ship_seconds_total += float(seconds)
+
+    def _record_kv_restore(self, nbytes: int) -> None:
+        with self._lock:
+            self.kv_counters.kv_restored_total += 1
+            self.kv_counters.kv_restored_bytes_total += int(nbytes)
+
+    def record_kv_ship_fallback(self, reason: str) -> None:
+        """A page move that took the replay path instead (any thread); an
+        unknown reason counts as "error", so the label set stays closed."""
+        with self._lock:
+            fallbacks = self.kv_counters.kv_ship_fallback_total
+            if reason not in fallbacks:
+                reason = "error"
+            fallbacks[reason] += 1
+
+    def _kv_header(self, tokens: int, num_pages: int) -> KVWireHeader:
+        return KVWireHeader(
+            version=KV_WIRE_VERSION, layers=self.cfg.num_layers,
+            page_size=self.kv_page_size, num_kv_heads=self.cfg.num_kv_heads,
+            head_dim=self.cfg.head_dim_, kv_dtype=self._kv_dtype(),
+            tokens=tokens, num_pages=num_pages)
+
+    def kv_restore_reason(self, header: KVWireHeader) -> str | None:
+        """None when a payload can land in THIS pool verbatim, else the
+        fallback reason (dtype | page_size | geometry)."""
+        return kv_compat_reason(
+            header, layers=self.cfg.num_layers, page_size=self.kv_page_size,
+            num_kv_heads=self.cfg.num_kv_heads, head_dim=self.cfg.head_dim_,
+            kv_dtype=self._kv_dtype())
+
+    def _pool_sections(self) -> dict[str, torch.Tensor]:
+        """The pools by wire section name: {k, v}, or {k_q, k_s, v_q, v_s}
+        for int8 pools ([L, P, PS, K, D] codes, [L, P, PS, K] scales)."""
+        if self.quant.kv:
+            return {"k_q": self.cache_k["q"], "k_s": self.cache_k["s"],
+                    "v_q": self.cache_v["q"], "v_s": self.cache_v["s"]}
+        return {"k": self.cache_k, "v": self.cache_v}
+
+    def _gather_kv_sections(self, pages: list[int]) -> dict[str, np.ndarray]:
+        """The named pool pages as host wire sections [L, P', PS, K, D]
+        (int8 pools: codes and scales): one index_select over each pool and
+        one device-to-host copy per section. A plain read: the pool is
+        untouched, so gathering before a free is safe."""
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        out = {}
+        for name, pool in self._pool_sections().items():
+            t = pool.index_select(1, idx).cpu()
+            out[name] = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                         else t).numpy()
+        return out
+
+    def _capture_kv(self, pages: list[int], tokens: int) -> KVPages:
+        return KVPages(header=self._kv_header(tokens, len(pages)),
+                       sections=self._gather_kv_sections(pages))
+
+    def take_kv_export(self, gateway_id: str) -> dict | None:
+        """Take a parked stream's export (POST /v1/kv/export): handed over
+        exactly once."""
+        with self._lock:
+            return self._kv_exports.pop(gateway_id, None)
+
+    def _land_kv_pages(self, kvp: KVPages, fresh: list[int]) -> None:
+        """Land the first len(fresh) shipped pages into pool pages `fresh`:
+        one host-to-device copy and one index_copy_ per section. (The
+        reference pads the page list to a power of two for XLA's program
+        cache; the land is not captured here, so it pads nothing.)"""
+        n = len(fresh)
+        idx = torch.as_tensor(fresh, dtype=torch.int64, device=self.device)
+        for name, pool in self._pool_sections().items():
+            # writable and contiguous (a wire section is a read-only view)
+            rows = np.require(kvp.sections[name][:, :n],
+                              requirements=["C", "W"])
+            src = torch.from_numpy(rows)
+            if pool.dtype == torch.bfloat16:
+                src = src.view(torch.bfloat16)
+            pool.index_copy_(1, idx, src.to(self.device))
+
+    def _insert_restored(self, slot_id: int, request: Request,
+                         n: int) -> bool:
+        """Re-activate a parked request from its shipped pages: land them
+        into fresh pool pages and enter decode at seq_len = n - 1 (n =
+        prompt + committed tokens) with the last committed token pending,
+        so the next decode step writes position n - 1 and samples the first
+        new token, as the uninterrupted run's step did: no prefill, no
+        forced tokens, no new graph key. A refusal drops the payload,
+        counts the "capacity" fallback and returns False: the caller
+        replays."""
+        kvp, request.kv_restore = request.kv_restore, None
+        st = request.parked
+        need_tokens = n - 1
+        if (st is None or not st.tokens or need_tokens < 1
+                or kvp.header.tokens < need_tokens
+                or self._pages_for_tokens(need_tokens) > kvp.header.num_pages):
+            self.record_kv_ship_fallback("capacity")
+            return False
+        need_pages = self._pages_for_tokens(need_tokens)
+        fresh = self._try_reserve_pages(need_pages)
+        while fresh is None and self._preempt_for_pages(
+                self._priority_of(request)):
+            fresh = self._try_reserve_pages(need_pages)
+        if fresh is None:
+            self.record_kv_ship_fallback("capacity")
+            return False
+        self._land_kv_pages(kvp, fresh)
+        self._assign_slot_pages(slot_id, (), fresh)
+        s = request.sampling
+        seed = -1 if s.seed is None else s.seed & 0x7FFFFFFF
+        self._d_temps[slot_id] = float(s.temperature)
+        self._d_top_ps[slot_id] = float(s.top_p)
+        self._d_top_ks[slot_id] = int(s.top_k)
+        self._d_seeds[slot_id] = seed
+        if self.lora is not None:
+            self._d_lora_idx[slot_id] = int(self._lora_rows([request])[0])
+        self._d_seq_lens[slot_id] = need_tokens
+        self._d_last_tokens[slot_id] = int(st.tokens[-1])
+        self._seq_lens[slot_id] = need_tokens
+        self._seeds[slot_id] = seed
+        slot = self.slots[slot_id]
+        slot.request = request
+        slot.generated = st.generated
+        slot.out_tokens = list(st.tokens)
+        slot.forced = []
+        slot.first_pending = False
+        request.parked = None
+        self.preempt_resumes_total += 1
+        self._record_kv_restore(kvp.nbytes)
+        log.info("kv restore: request %s re-entered decode at %d tokens from "
+                 "%s (%d pages, %.1f KiB, no prefill)", request.request_id,
+                 need_tokens, kvp.source, need_pages, kvp.nbytes / 1024)
+        return True
+
+    def _spill_parked_slot(self, slot_id: int, request: Request,
+                           reason: str) -> None:
+        """At a park, before the pages free: the row's pages as an export
+        (a draining engine exports every park, a serving one only the
+        parks a migration asked for) and as the offload tier's copy. A row
+        with no committed token is skipped: its faithful resume is the
+        replay."""
+        slot = self.slots[slot_id]
+        if (self.page_pool is None or not self._slot_pages[slot_id]
+                or not slot.out_tokens):
+            return
+        tokens = int(self._seq_lens[slot_id])
+        if tokens <= 0:
+            return
+        pages = self._slot_pages[slot_id][:self._pages_for_tokens(tokens)]
+        nbytes = len(pages) * kv_page_bytes(self.cfg, self.kv_page_size,
+                                            self.quant.kv)
+        want_export = self.kv_ship and (self.draining or reason == "migrate")
+        tier = self.kv_offload
+        want_tier = tier is not None and tier.would_admit(nbytes)
+        if not (want_export or want_tier):
+            return
+        t0 = time.monotonic()
+        kvp = self._capture_kv(pages, tokens)
+        kvp.source = "offload"
+        self._record_kv_ship(kvp.nbytes, time.monotonic() - t0)
+        if want_export:
+            payload = serialize_kv_pages(kvp.header, kvp.sections)
+            with self._lock:
+                self._kv_exports[gateway_rid(request.request_id)] = payload
+        if want_tier:
+            tier.put_parked(request.request_id, kvp)
+
+    def _spill_prefix_entry(self, entry: PrefixEntry) -> None:
+        """A prefix entry evicted under page pressure: its pages to the
+        offload tier before their references drop."""
+        tier = self.kv_offload
+        if tier is None or not entry.pages:
+            return
+        nbytes = len(entry.pages) * kv_page_bytes(
+            self.cfg, self.kv_page_size, self.quant.kv)
+        if not tier.would_admit(nbytes):
+            return
+        t0 = time.monotonic()
+        kvp = self._capture_kv(list(entry.pages), len(entry.tokens))
+        kvp.source = "offload"
+        self._record_kv_ship(kvp.nbytes, time.monotonic() - t0)
+        tier.put_prefix(entry.ns, entry.tokens, kvp)
+
+    def _maybe_restore_prefix(self, request: Request, n: int) -> None:
+        """At admission: when the offload tier holds a usable head of this
+        prompt that the live cache lacks, land it into fresh pages and
+        insert it as a live entry (the cache its only owner), so the
+        ordinary zero-copy match serves it and only the suffix prefills.
+        Never fatal: on any refusal the cold path proceeds."""
+        tier, cache = self.kv_offload, self.prefix_cache
+        if tier is None or cache is None:
+            return
+        ns = request.sampling.lora
+        hit = tier.match_prefix(ns, request.prompt_ids, n - 1)
+        if hit is None:
+            return
+        stored, kvp = hit
+        # capped at n - 1 (a suffix token must prefill) and aligned down to
+        # the cache's grain, as every donation is
+        usable = min(len(stored), n - 1) // self.prefix_align \
+            * self.prefix_align
+        if usable < cache.min_len:
+            return
+        tokens = tuple(stored[:usable])
+        if cache.covers(tokens, ns) or self.kv_restore_reason(
+                kvp.header) is not None:
+            return
+        pages_needed = usable // self.kv_page_size
+        if pages_needed > kvp.header.num_pages:
+            return
+        fresh = self._try_reserve_pages(pages_needed)
+        if fresh is None:
+            return  # page pressure: the cold prefill is the fallback
+        self._land_kv_pages(kvp, fresh)
+        for stale in cache.evict_subsumed_entries(tokens, ns):
+            self._release_entry_pages(stale)
+        if ((len(cache) >= cache.max_entries and not self._evict_one_prefix())
+                or cache.insert(tokens, -1, pages=tuple(fresh),
+                                ns=ns) is None):
+            for p in fresh:
+                self.page_pool.unref(p)
+            return
+        # the cache owns the fresh pages alone (refcount 1 from alloc)
+        self._prefix_pinned_pages += pages_needed
+        self._record_kv_restore(kvp.nbytes)
+        self.prefix_counters.prefix_insertions_total += 1
+        self.prefix_counters.prefix_inserted_tokens_total += len(tokens)
+
+    def kv_transfer_info(self) -> dict:
+        """The `kv_transfer` block of /api/health and /api/system: the
+        shipping knob, the move and fallback counters, and the offload
+        tier's occupancy."""
+        c = self._kv_counters_copy()
+        return {
+            "ship_enabled": self.kv_ship,
+            "ship_total": c.kv_ship_total,
+            "ship_bytes_total": c.kv_ship_bytes_total,
+            "restored_total": c.kv_restored_total,
+            "restored_bytes_total": c.kv_restored_bytes_total,
+            "ship_fallback_total": c.kv_ship_fallback_total,
+            "pending_exports": len(self._kv_exports),
+            "offload": (self.kv_offload.info()
+                        if self.kv_offload is not None
+                        else {"enabled": False}),
+        }
+
     # ----------------------------------------------------------- prefix cache
 
     def _release_cache_entry(self, slot: _Slot) -> None:
@@ -1624,6 +2024,9 @@ class EngineCore:
         entry = self.prefix_cache.evict_lru_entry()
         if entry is None:
             return False  # every donor has an in-flight reader
+        # a demotion, not a loss, with the offload tier on: the cold prefix
+        # moves to host memory before its pages free
+        self._spill_prefix_entry(entry)
         self._release_entry_pages(entry)
         self.prefix_counters.prefix_evictions_total += 1
         return True

@@ -13,8 +13,15 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
 - durable streams: a chat body with `"llmlb_replay": true` (the gateway
   arms its streams so) gets `{"object": "llmlb.replay", "tokens": [...]}`
   frames before the text those tokens produced, and `POST /v1/resume`
-  takes the original chat body plus `committed_ids` and streams the full
-  completion, continued token-identical from the committed tokens;
+  takes the original chat body plus `committed_ids` (and optionally the
+  origin's `kv_pages`) and streams the full completion, continued
+  token-identical from the committed tokens;
+- KV page shipping: `POST /v1/kv/export {"request_id", "park"}` hands over
+  a parked stream's serialized KV pages once (with `"park": true` it first
+  asks the step loop to park that stream, polling up to 2 s for the
+  payload; 404 when there is none), which the gateway attaches to
+  `/v1/resume` on another engine; it answers while draining, which is
+  what it is for;
 - graceful drain: `POST /api/drain` (and SIGTERM in `main`) stops
   admission: new `/v1/*` work gets 503 with `Retry-After` and code
   `draining`, `/api/health` says `"status": "draining"` with a `draining`
@@ -23,7 +30,9 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   then the rows still decoding are parked and the stragglers' sockets shut
   down, so the gateway resumes them elsewhere;
 - `GET /api/health` (with the `sched` block: queue depths by priority
-  class, preemption and deadline-shed counters) and `GET /api/system`,
+  class, preemption and deadline-shed counters; and the `kv_transfer`
+  block: page moves, fallbacks by reason, the offload tier) and `GET
+  /api/system`,
   carrying `"tpu_engine": true` — the field the gateway's endpoint
   detection keys on to treat this as an in-tree engine — and
   `"backend": "cuda"`.
@@ -32,9 +41,9 @@ Request fields are honoured or refused, never ignored: `priority` (the
 admission class; a more important request may park a less important one)
 and the `X-Request-Deadline-Ms` header (a request still queued past it is
 shed) are validated by the reference's rules, `speculative` is validated
-and carried; a `response_format` other than text and a forced
-`tool_choice` are 400s naming the field, since the port has no constrained
-decoding.
+and carried; a `response_format` other than text and a `tool_choice` the
+reference would constrain are 400s naming the field, since the port has no
+constrained decoding.
 
 Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
 or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
@@ -44,7 +53,9 @@ unknown, unservable or conflicting adapters are 400s naming `lora`.
 carry a `lora` block.
 
 Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
-card; `--device cpu` for the plain PyTorch path; `--quantize all` for int8
+card, random weights), or `--checkpoint DIR` to serve a HF checkpoint with
+its own tokenizer (`transformers` needed); `--device cpu` for the plain
+PyTorch path; `--quantize all` for int8
 weights and KV pages; `--kv-layout dense` for the slot cache; `--lora-dir
 DIR` for adapters).
 """
@@ -72,6 +83,9 @@ log = logging.getLogger("llmlb_tpu_torch.engine.server")
 
 SYSTEM_FINGERPRINT = f"fp_llmlb_tpu_torch_{__version__}"
 MAX_BODY_BYTES = 20 * 1024 * 1024
+# a resume body may carry a KV page payload (base64, tens of MiB for long
+# contexts at full width), as in the reference
+KV_BODY_BYTES = 256 * 1024 * 1024
 _REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9_.:\-]{1,128}$")
 
 
@@ -87,7 +101,7 @@ def _sampling_from(body: dict, default_max: int = 256,
     top_p = float(pick("top_p", default=1.0))
     top_k = int(pick("top_k", default=0))
     max_tokens = int(pick("max_tokens", "max_completion_tokens",
-                          default=default_max))
+                          "max_output_tokens", default=default_max))
     if temperature < 0:
         raise ValueError("'temperature' must be >= 0")
     if not 0 < top_p <= 1:
@@ -168,9 +182,12 @@ def _speculative_from(body: dict) -> dict | None:
 
 def _refuse_structured(body: dict) -> None:
     """The port has no constrained decoding: a `response_format` other than
-    text, or a `tool_choice` that forces a call ("required" or a function
-    object), is refused naming the field rather than answered with free
-    text. "auto" and "none" leave the model free, so they pass."""
+    text, or a `tool_choice` the reference would constrain (a function
+    object, or "required" with exactly one tool), is refused naming the
+    field rather than answered with free text. "auto" and "none" leave the
+    model free, and so does "required" with several tools, which the
+    reference passes through unconstrained. Malformed shapes get the
+    reference's 400s (`_forced_tool` in llmlb_tpu/structured/openai_api.py)."""
     rf = body.get("response_format")
     if rf is not None:
         if not isinstance(rf, dict):
@@ -182,16 +199,37 @@ def _refuse_structured(body: dict) -> None:
     choice = body.get("tool_choice")
     if choice is None or choice in ("auto", "none"):
         return
-    if choice == "required" or isinstance(choice, dict):
-        raise ValueError("tool_choice that forces a tool call is not "
-                         "supported by this engine (no constrained "
-                         "decoding; only 'auto' or 'none')")
-    raise ValueError("tool_choice must be 'auto', 'none', 'required', "
-                     "or a {type: 'function'} object")
+    tools = body.get("tools")
+    if choice == "required":
+        if not isinstance(tools, list) or not tools:
+            raise ValueError("tool_choice 'required' needs a 'tools' array")
+        if len(tools) != 1:
+            return  # one of several tools: unconstrained, as the reference
+        fn = (tools[0] or {}).get("function")
+        if not isinstance(fn, dict) or not fn.get("name"):
+            raise ValueError("tools[0].function.name is required")
+    elif isinstance(choice, dict):
+        if choice.get("type") != "function":
+            raise ValueError(
+                f"unsupported tool_choice type {choice.get('type')!r}")
+        name = (choice.get("function") or {}).get("name")
+        if not isinstance(name, str) or not name:
+            raise ValueError("tool_choice.function.name is required")
+        if not any(isinstance(t, dict) and isinstance(t.get("function"), dict)
+                   and t["function"].get("name") == name
+                   for t in tools or []):
+            raise ValueError(f"tool_choice names unknown function {name!r}")
+    else:
+        raise ValueError("tool_choice must be 'auto', 'none', 'required', "
+                         "or a {type: 'function'} object")
+    raise ValueError("tool_choice that forces a tool call is not "
+                     "supported by this engine (no constrained "
+                     "decoding; only 'auto', 'none', or 'required' with "
+                     "several tools)")
 
 
 def _stops_from(body: dict) -> list[str]:
-    stop = body.get("stop") or []
+    stop = body.get("stop") or body.get("stop_sequences") or []
     if isinstance(stop, str):
         return [stop]
     return [s for s in stop if isinstance(s, str)]
@@ -381,10 +419,10 @@ class _Handler(BaseHTTPRequestHandler):
         rid = self.headers.get("X-Request-Id")
         return rid if rid and _REQUEST_ID_RE.match(rid) else None
 
-    def _body(self) -> dict | None:
+    def _body(self, limit: int = MAX_BODY_BYTES) -> dict | None:
         """The JSON object body, or None after answering 4xx."""
         length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_BODY_BYTES:
+        if length > limit:
             self._error(413, "request body too large")
             return None
         try:
@@ -426,6 +464,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "quant": engine.core.quant_info(),
                 "lora": engine.core.lora_info(),
                 "sched": engine.core.sched_info(),
+                "kv_transfer": engine.core.kv_transfer_info(),
                 "draining": self.server.drain.info(),
             })
         else:
@@ -434,6 +473,7 @@ class _Handler(BaseHTTPRequestHandler):
     _POST_ROUTES = {
         "/v1/chat/completions": "_chat",
         "/v1/resume": "_resume",
+        "/v1/kv/export": "_kv_export",
         "/v1/completions": "_completions",
         "/v1/responses": "_responses",
         "/v1/embeddings": "_embeddings",
@@ -447,16 +487,19 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(404, f"no route for POST {path}")
             return
         drain = self.server.drain
-        if path.startswith("/v1/") and drain.draining:
+        # the export is exempt from the drain: it exists for that window
+        admitted = path.startswith("/v1/") and path != "/v1/kv/export"
+        if admitted and drain.draining:
             self._json(503, {"error": {
                 "message": "engine is draining; retry on another endpoint",
                 "type": "overloaded_error", "code": "draining"}},
                 headers={"Retry-After": str(drain.retry_after_s())})
             return
-        body = self._body()
+        body = self._body(KV_BODY_BYTES if path == "/v1/resume"
+                          else MAX_BODY_BYTES)
         if body is None:
             return
-        if not path.startswith("/v1/"):
+        if not admitted:
             getattr(self, route)(body)
             return
         # an accepted /v1 request: the drain shuts its socket down if it is
@@ -466,6 +509,33 @@ class _Handler(BaseHTTPRequestHandler):
             getattr(self, route)(body)
         finally:
             drain.untrack(self.connection)
+
+    def _kv_export(self, body: dict) -> None:
+        """POST /v1/kv/export {"request_id": <gateway id>, "park": bool}:
+        hand over a parked stream's serialized KV pages, once. With "park"
+        (a migration of a live stream) the step loop is first asked to park
+        that one stream, and the payload is polled for up to 2 s; a 404
+        then means the stream could not park (prefilling, finished), and
+        the migration aborts with the stream untouched."""
+        rid = body.get("request_id")
+        if not isinstance(rid, str) or not rid:
+            self._error(400, "'request_id' must be a non-empty string")
+            return
+        core = self.server.engine.core
+        if body.get("park"):
+            core.request_park(rid)
+            deadline = time.monotonic() + 2.0
+            payload = core.take_kv_export(rid)
+            while payload is None and time.monotonic() < deadline:
+                time.sleep(0.02)
+                payload = core.take_kv_export(rid)
+        else:
+            payload = core.take_kv_export(rid)
+        if payload is None:
+            self._error(404, f"no KV export held for request {rid!r}")
+            return
+        self._json(200, {"object": "llmlb.kv_export", "request_id": rid,
+                         "kv_pages": payload})
 
     def _drain_control(self, body: dict) -> None:
         """POST /api/drain {"grace_s": N}: begin the drain (idempotent);
@@ -511,10 +581,12 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _resume(self, body: dict) -> None:
         """POST /v1/resume: the original chat body plus `committed_ids`, the
-        tokens the client already holds. The stream continues from them
-        token-identical to an uninterrupted run, and the full completion
-        (committed text included) is answered in the chat shape; the
-        gateway cuts what its client has."""
+        tokens the client already holds, and optionally `kv_pages`, the
+        origin's export, landed instead of replaying when this pool can take
+        it. The stream continues from them token-identical to an
+        uninterrupted run, and the full completion (committed text
+        included) is answered in the chat shape; the gateway cuts what its
+        client has."""
         committed = body.get("committed_ids")
         if committed is None:
             committed = []
@@ -525,9 +597,11 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             prompt_ids, sampling, stops, model = self._parse_chat(body)
+            kv_pages = body.get("kv_pages")
             deltas = self.server.engine.adopt_stream(
                 prompt_ids, committed, sampling, stops,
-                request_id=self._request_id())
+                request_id=self._request_id(),
+                kv_pages=kv_pages if isinstance(kv_pages, dict) else None)
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
@@ -891,6 +965,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="llmlb_tpu_torch inference engine (PyTorch/CUDA)")
     parser.add_argument("--preset", default="debug-tiny")
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="HF checkpoint directory (config.json, safetensors shards and "
+             "the tokenizer's files; the tokenizer needs `transformers`) "
+             "served in place of the preset's random weights")
     parser.add_argument("--model-id", default=None)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8100)
@@ -963,8 +1042,13 @@ def main(argv: list[str] | None = None) -> None:
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
-    engine = Engine.from_preset(args.preset, model_id=args.model_id,
-                                device=args.device, **core_kwargs)
+    if args.checkpoint:
+        engine = Engine.from_checkpoint(args.checkpoint,
+                                        model_id=args.model_id,
+                                        device=args.device, **core_kwargs)
+    else:
+        engine = Engine.from_preset(args.preset, model_id=args.model_id,
+                                    device=args.device, **core_kwargs)
     server = EngineHTTPServer((args.host, args.port), engine)
 
     def drain_then_stop() -> None:

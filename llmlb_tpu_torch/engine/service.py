@@ -3,7 +3,8 @@
 Counterpart of `Engine` in `llmlb_tpu/engine/service.py`: chat templating,
 token encode/decode, stop-sequence handling and usage accounting over the
 core's thread-side event queues, the adoption of a stream another engine
-started (`adopt_stream`, behind /v1/resume) and the embedding forward
+started (`adopt_stream`, behind /v1/resume, landing its KV pages when the
+origin shipped them) and the embedding forward
 (`embed`, behind /v1/embeddings). The port's HTTP server runs one thread per
 connection, so `stream` and `adopt_stream` are plain generators (the
 reference's are async).
@@ -12,12 +13,17 @@ reference's are async).
 from __future__ import annotations
 
 import dataclasses
+import os
 import uuid
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from llmlb_tpu_torch.engine.kv_transfer import (
+    KVTransferError,
+    parse_kv_payload,
+)
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.engine.scheduler import (
     EngineCore,
@@ -28,9 +34,12 @@ from llmlb_tpu_torch.engine.scheduler import (
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
+    HFTokenizer,
     IncrementalDetokenizer,
     Tokenizer,
 )
+from llmlb_tpu_torch.engine.weights import load_checkpoint, load_config
+from llmlb_tpu_torch.quant import parse_quant_mode
 
 
 class EngineError(RuntimeError):
@@ -82,6 +91,39 @@ class Engine:
         core.start()
         return cls(model_id or preset, core, tokenizer)
 
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir: str,
+        *,
+        model_id: str | None = None,
+        device: str | torch.device | None = None,
+        tokenizer: Tokenizer | None = None,
+        **core_kwargs,
+    ) -> "Engine":
+        """Build from a HF checkpoint directory (`config.json`, safetensors
+        shards, tokenizer files) and start the step loop. Runs on the card
+        unless `device="cpu"`. The weights stream onto the device one HF
+        tensor at a time; when `quantize` asks for int8 weights they
+        quantize layer by layer while streaming (the core's own pass then
+        passes them through). The model id defaults to the directory's
+        basename. `tokenizer` defaults to `HFTokenizer(checkpoint_dir)`,
+        which needs `transformers`; pass another (a ByteTokenizer) where
+        that package is missing, as on the card's machine. The server never
+        passes one. Other keywords go to EngineCore, as in from_preset."""
+        cfg = load_config(checkpoint_dir)
+        if tokenizer is None:
+            tokenizer = HFTokenizer(checkpoint_dir)
+        params = load_checkpoint(
+            checkpoint_dir, cfg, device=device,
+            quantize_weights=parse_quant_mode(
+                core_kwargs.get("quantize")).weights)
+        core_kwargs.setdefault("eos_id", tokenizer.eos_id)
+        core = EngineCore(cfg, params, device=device, **core_kwargs)
+        core.start()
+        return cls(model_id or os.path.basename(checkpoint_dir.rstrip("/")),
+                   core, tokenizer)
+
     def shutdown(self) -> None:
         self.core.stop()
 
@@ -120,20 +162,25 @@ class Engine:
         sampling: SamplingParams,
         stop: list[str] | None = None,
         request_id: str | None = None,
+        kv_pages: dict | None = None,
     ) -> Iterator[StreamDelta]:
         """Continue a stream another engine started (or this one, before a
         failover): `committed_ids` are the tokens its client already holds.
-        The request resumes as a parked one does: the prompt prefills in
-        its cold chunks, the committed tokens are fed through decode steps,
-        and decoding goes on from there, token-identical to an
-        uninterrupted run. The deltas carry the FULL completion, committed
+        With `kv_pages`, the origin's serialized pages (POST /v1/kv/export
+        there), parsed here on the caller's thread and checked against this
+        pool (`kv_restore_reason`), the pages land and the stream enters
+        decode with no prefill. Without them, or on any refusal (counted
+        under its labelled reason: disabled, absent, version, dtype,
+        page_size, geometry, capacity or error), the request resumes as a
+        parked one does: the prompt prefills in its cold chunks, the
+        committed tokens are fed through decode steps, and decoding goes on
+        from there, token-identical to an uninterrupted run. The deltas carry the FULL completion, committed
         text included (the gateway cuts what its client has): the first,
         yielded as soon as the request is submitted, carries the committed
         text and ids, so a second failover from this engine replays the
         full sequence. A stream already
         terminal in its committed tokens (a stop string, or max_tokens
-        reached) ends here without a submit. (The reference's `kv_pages`
-        payload goes with KV shipping, ROADMAP A13.)"""
+        reached) ends here without a submit."""
         committed = [int(t) for t in committed_ids]
         bad = [t for t in committed if not 0 <= t < self.core.cfg.vocab_size]
         if bad:
@@ -151,9 +198,41 @@ class Engine:
         request = Request(
             prompt_ids=list(prompt_ids), sampling=sampling,
             request_id=_request_id(request_id),
-            parked=ParkedState(generated=len(committed), tokens=committed))
+            parked=ParkedState(generated=len(committed), tokens=committed),
+            kv_restore=self._kv_restore_of(kv_pages, committed))
         self._submit(request)
         return self._deltas(request, stop, committed)
+
+    def _kv_restore_of(self, kv_pages: dict | None, committed: list[int]):
+        """The parsed pages an adoption lands, or None after counting the
+        reason the replay path takes instead, as the reference counts it."""
+        core = self.core
+        if kv_pages is None:
+            if core.kv_ship:
+                # shipping is on but the origin sent nothing: a replay that
+                # could have been a page move
+                core.record_kv_ship_fallback("absent")
+            return None
+        if not core.kv_ship:
+            core.record_kv_ship_fallback("disabled")
+            return None
+        if not committed:
+            # nothing committed: the replay is already the exact path
+            core.record_kv_ship_fallback("capacity")
+            return None
+        try:
+            parsed = parse_kv_payload(kv_pages)
+        except KVTransferError as e:
+            core.record_kv_ship_fallback(e.reason)
+            return None
+        except Exception:  # boundary: a bad payload is never a client error
+            core.record_kv_ship_fallback("error")
+            return None
+        reason = core.kv_restore_reason(parsed.header)
+        if reason is not None:
+            core.record_kv_ship_fallback(reason)
+            return None
+        return parsed
 
     def _submit(self, request: Request) -> None:
         """Pin the request's adapter on the caller's thread, then submit; a
@@ -342,6 +421,8 @@ class Engine:
             # overload protection: queue depths by class, preemption and
             # deadline-shed counters
             "sched": self.core.sched_info(),
+            # KV page shipping and the host-RAM offload tier
+            "kv_transfer": self.core.kv_transfer_info(),
         }
 
 

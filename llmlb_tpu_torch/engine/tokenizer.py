@@ -1,10 +1,11 @@
-"""Tokenizers for the port's engine: its own copy of the parts of
-`llmlb_tpu/engine/tokenizer.py` that random-weight serving uses.
+"""Tokenizers for the port's engine: its own copy of
+`llmlb_tpu/engine/tokenizer.py`.
 
-Random-weight mode (benches, tests, the card smoke run — no checkpoint)
-uses a byte-level tokenizer so the full serving path (template -> encode ->
-decode -> stream) runs without model artifacts. The HF tokenizer wrapper
-arrives with the checkpoint loader.
+A checkpoint is served with the HF tokenizer saved beside its weights
+(`HFTokenizer`, which imports `transformers` only when built). Random-weight
+mode (benches, tests, the card smoke run) uses a byte-level tokenizer so the
+full serving path (template -> encode -> decode -> stream) runs without
+model artifacts.
 """
 
 from __future__ import annotations
@@ -51,6 +52,31 @@ class ByteTokenizer:
         return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
 
     def apply_chat_template(self, messages: list[dict]) -> str:
+        return default_chat_template(messages)
+
+
+class HFTokenizer:
+    """Wraps a transformers tokenizer loaded from a checkpoint directory:
+    encode adds the special tokens (BOS), decode skips them, and chat
+    messages render through the tokenizer's chat template, or through
+    `default_chat_template` when it has none."""
+
+    def __init__(self, model_dir: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(model_dir)
+        self.eos_id = self._tok.eos_token_id
+
+    def encode(self, text: str) -> list[int]:
+        return self._tok.encode(text, add_special_tokens=True)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages: list[dict]) -> str:
+        if getattr(self._tok, "chat_template", None):
+            return self._tok.apply_chat_template(
+                messages, tokenize=False, add_generation_prompt=True)
         return default_chat_template(messages)
 
 

@@ -1,4 +1,22 @@
-"""Weights for the port's engine.
+"""Weights for the port's engine: HF checkpoints, and a JAX params pytree.
+
+`load_checkpoint` reads a HF checkpoint directory (`config.json` through
+`load_config`, one or more `*.safetensors` shards, with or without
+`model.safetensors.index.json`) into the port's params on the card: the
+counterpart of `llmlb_tpu/engine/weights.py`. HF names map onto the stacked
+leaves as the reference maps them (`_param_builders`), each [out, in]
+matrix transposed to the [in, out] layout. Loading streams PER LAYER into a
+preallocated device tensor: one HF tensor is read on the host in its stored
+dtype (a BF16 checkpoint is never widened to fp32 there), copied to the
+device, transposed and cast to cfg.dtype into `out[i]`; peak host memory is
+one HF tensor, not a stacked leaf. With `quantize_weights=True` each layer
+of a projection quantizes on the device right after that cast, with the
+same per-layer pass EngineCore's own quantization runs on cfg.dtype weights
+(`quant.quantize_params`), so the int8 codes and scales are the ones the
+core would make from the same checkpoint, bit for bit. (The reference
+quantizes the stored dtype instead; the two differ only for a float32
+checkpoint served in bf16.) Mixtral checkpoints are refused: MoE waits for
+its own slice.
 
 `params_from_numpy` carries a params pytree made by the JAX package (as
 numpy arrays, leaf for leaf: `{name: np.asarray(leaf)}`) into the port's
@@ -7,18 +25,192 @@ matrices, [L, E] norms — so each leaf converts as it is. A pytree quantized
 by the JAX package (`quantize_params`) carries int8 weights with float32
 `<name>_scale` leaves; those cross bit for bit. LoRA adapter pool leaves
 (`<name>_lora_a` [L, N, in, R], `<name>_lora_b` [L, N, R, out]) pass through
-in cfg.dtype. Loading HF checkpoints arrives in a later slice.
+in cfg.dtype.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from typing import Callable
+
 import numpy as np
 import torch
 
+from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.engine.safetensors_io import INDEX_NAME, SafetensorsFile
 from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
 from llmlb_tpu_torch.lora.store import HF_TARGET_MAP, lora_target_dims
 from llmlb_tpu_torch.models.llama import LlamaConfig, param_shapes
-from llmlb_tpu_torch.quant import SCALE_SUFFIX, WEIGHT_QUANT_NAMES
+from llmlb_tpu_torch.quant import (
+    SCALE_SUFFIX,
+    WEIGHT_QUANT_NAMES,
+    quantize_channelwise,
+)
+
+TensorGetter = Callable[[str], torch.Tensor]
+
+_MOE_REFUSED = ("Mixtral (MoE) checkpoints are not served by the port yet "
+                "(ROADMAP A17)")
+
+
+def _param_builders(cfg: LlamaConfig) -> dict[str, tuple[str, bool, bool]]:
+    """Leaf name -> (HF tensor name, with `{i}` for a per-layer tensor;
+    stacked over layers; transposed) in the reference's pytree order: the
+    HF name map of `llmlb_tpu/engine/weights.py`."""
+    if getattr(cfg, "num_experts", 0) > 1:
+        raise NotImplementedError(_MOE_REFUSED)
+    layer = "model.layers.{i}."
+    names = {
+        "embed": ("model.embed_tokens.weight", False, False),
+        "wq": (layer + "self_attn.q_proj.weight", True, True),
+        "wk": (layer + "self_attn.k_proj.weight", True, True),
+        "wv": (layer + "self_attn.v_proj.weight", True, True),
+        "wo": (layer + "self_attn.o_proj.weight", True, True),
+        "wg": (layer + "mlp.gate_proj.weight", True, True),
+        "wu": (layer + "mlp.up_proj.weight", True, True),
+        "wd": (layer + "mlp.down_proj.weight", True, True),
+        "ln_attn": (layer + "input_layernorm.weight", True, False),
+        "ln_mlp": (layer + "post_attention_layernorm.weight", True, False),
+        "ln_final": ("model.norm.weight", False, False),
+    }
+    if cfg.attention_bias:
+        for leaf, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
+            names[leaf] = (layer + f"self_attn.{proj}_proj.bias", True, False)
+    if not cfg.tie_word_embeddings:
+        names["lm_head"] = ("lm_head.weight", False, True)
+    return names
+
+
+def hf_tensors(params: dict, cfg: LlamaConfig) -> dict:
+    """The inverse map: `{HF name: tensor}` of a params dict (torch tensors
+    or numpy arrays), each a view of its leaf ([out, in] matrices as
+    transposed views). Writing them with safetensors_io makes a checkpoint
+    load_checkpoint reads back bit for bit."""
+    out = {}
+    for name, (fmt, stacked, transpose) in _param_builders(cfg).items():
+        leaf = params[name]
+        for i in range(cfg.num_layers if stacked else 1):
+            w = leaf[i] if stacked else leaf
+            out[fmt.format(i=i)] = w.T if transpose else w
+    return out
+
+
+def hf_config(cfg: LlamaConfig, model_type: str = "llama") -> dict:
+    """A HF `config.json` dict that load_config reads back as `cfg` (in
+    its dtype): how a checkpoint is written from a preset."""
+    out = {
+        "architectures": ["Qwen2ForCausalLM" if model_type == "qwen2"
+                          else "LlamaForCausalLM"],
+        "model_type": model_type,
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_eps,
+        "attention_bias": cfg.attention_bias,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "torch_dtype": str(cfg.dtype).replace("torch.", ""),
+    }
+    if cfg.head_dim is not None:
+        out["head_dim"] = cfg.head_dim
+    rs = cfg.rope_scaling
+    if rs is not None:
+        out["rope_scaling"] = {
+            "rope_type": "llama3", "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position}
+    return out
+
+
+def _safetensors_getter(model_dir: str) -> TensorGetter:
+    """A name -> host tensor getter over every shard of a checkpoint: the
+    index's weight_map when there is one, else every *.safetensors file."""
+    index_path = os.path.join(model_dir, INDEX_NAME)
+    name_to_file: dict[str, str] = {}
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            name_to_file = json.load(f)["weight_map"]
+    else:
+        for fname in sorted(os.listdir(model_dir)):
+            if fname.endswith(".safetensors"):
+                for key in SafetensorsFile(os.path.join(model_dir,
+                                                        fname)).keys():
+                    name_to_file[key] = fname
+    if not name_to_file:
+        raise FileNotFoundError(f"{model_dir}: no safetensors checkpoint")
+    handles: dict[str, SafetensorsFile] = {}
+
+    def get(name: str) -> torch.Tensor:
+        fname = name_to_file.get(name)
+        if fname is None:
+            raise KeyError(f"{model_dir}: the checkpoint has no tensor "
+                           f"{name!r}")
+        if fname not in handles:
+            handles[fname] = SafetensorsFile(os.path.join(model_dir, fname))
+        return handles[fname].get_torch(name)
+
+    return get
+
+
+def load_config(model_dir: str, dtype=None) -> LlamaConfig:
+    """The LlamaConfig of a checkpoint's `config.json` (bf16 unless `dtype`
+    says otherwise); a Mixtral config is refused (ROADMAP A17)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf = json.load(f)
+    if hf.get("model_type") == "mixtral" or hf.get("num_local_experts",
+                                                   0) > 1:
+        raise NotImplementedError(_MOE_REFUSED)
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    return LlamaConfig.from_hf_config(hf, **kwargs)
+
+
+def load_checkpoint(model_dir: str, cfg: LlamaConfig,
+                    device: torch.device | str | None = None,
+                    quantize_weights: bool = False) -> dict[str, torch.Tensor]:
+    """Load a HF checkpoint directory into params on `device` (the card
+    unless "cpu"), streaming one HF tensor at a time into preallocated
+    leaves; with `quantize_weights`, the projection matrices as int8 codes
+    with float32 `<name>_scale` companions, quantized layer by layer on the
+    device after the cast to cfg.dtype. A missing tensor or a shape that
+    is not the config's raises."""
+    dev = resolve_device(device)
+    get = _safetensors_getter(model_dir)
+    builders = _param_builders(cfg)
+    quantized = tuple(n for n in WEIGHT_QUANT_NAMES
+                      if quantize_weights and n in builders)
+    shapes = param_shapes(cfg, quantized)
+    params: dict[str, torch.Tensor] = {}
+    for name, (fmt, stacked, transpose) in builders.items():
+        shape = shapes[name][0]
+        if name in quantized:
+            out = torch.empty(shape, dtype=torch.int8, device=dev)
+            scale = torch.empty(shapes[name + SCALE_SUFFIX][0],
+                                dtype=torch.float32, device=dev)
+        else:
+            out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        for i in range(cfg.num_layers if stacked else 1):
+            w = get(fmt.format(i=i)).to(dev)
+            w = w.T if transpose else w
+            dst = out[i] if stacked else out
+            if tuple(w.shape) != tuple(dst.shape):
+                raise ValueError(f"{fmt.format(i=i)}: shape "
+                                 f"{tuple(w.shape)} for leaf {name!r}, the "
+                                 f"config implies {tuple(dst.shape)}")
+            if name in quantized:
+                out[i], scale[i] = quantize_channelwise(w.to(cfg.dtype))
+            else:
+                dst.copy_(w)
+            del w
+        params[name] = out
+        if name in quantized:
+            params[name + SCALE_SUFFIX] = scale
+    return params
 
 
 def _quantized_names(np_params: dict[str, np.ndarray]) -> tuple[str, ...]:

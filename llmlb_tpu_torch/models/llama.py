@@ -86,6 +86,48 @@ class LlamaConfig:
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @classmethod
+    def from_hf_config(cls, hf: dict, dtype=torch.bfloat16) -> "LlamaConfig":
+        """Build from a HF `config.json` dict (llama / qwen2 / mistral
+        archs), as the reference reads it: `llama3` rope scaling is taken,
+        any other scaling type is refused (its logits past the original
+        context would be silently wrong), and `attention_bias` defaults to
+        true for qwen2."""
+        scaling = None
+        rs = hf.get("rope_scaling")
+        rope_type = rs.get("rope_type", rs.get("type")) if rs else None
+        if rope_type not in (None, "default", "llama3"):
+            raise NotImplementedError(
+                f"rope_scaling type {rope_type!r} is not supported yet; "
+                "refusing to load a checkpoint that would generate silently "
+                "wrong logits beyond its original context window")
+        if rope_type == "llama3":
+            scaling = RopeScaling(
+                factor=rs.get("factor", 8.0),
+                low_freq_factor=rs.get("low_freq_factor", 1.0),
+                high_freq_factor=rs.get("high_freq_factor", 4.0),
+                original_max_position=rs.get(
+                    "original_max_position_embeddings", 8192))
+        model_type = hf.get("model_type", "llama")
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            num_kv_heads=hf.get("num_key_value_heads",
+                                hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim"),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_scaling=scaling,
+            rms_eps=hf.get("rms_norm_eps", 1e-5),
+            attention_bias=hf.get("attention_bias",
+                                  model_type in ("qwen2", "qwen2_moe")),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            max_position_embeddings=hf.get("max_position_embeddings", 8192),
+            dtype=dtype,
+        )
+
 
 # ---------------------------------------------------------------------------
 # Params

@@ -12,6 +12,11 @@
 - `/v1/completions` and `/v1/responses`, streamed and not, carrying the JAX
   engine's greedy tokens for the same prompt ids, with the reference's
   shapes and validation messages;
+- the request fields the reference reads under more than one name:
+  `stop_sequences` stops a chat where `stop` does, `/v1/responses`
+  takes `max_output_tokens`, and a chat with `tool_choice: "required"` over
+  two tools is served unconstrained, as the reference serves it, with the
+  JAX engine's greedy ids in its replay frames;
 - `/v1/models` advertising `embeddings`;
 - each endpoint once through the unchanged gateway, which registers the
   port's server through its own health probe.
@@ -52,6 +57,9 @@ MAX_TOKENS = 12
 PROMPT = "Once upon a time"
 INPUT = "Say something"
 INSTRUCTIONS = "Be brief."
+CHAT_MESSAGES = [{"role": "user", "content": "Which tool fits?"}]
+TWO_TOOLS = [{"type": "function", "function": {"name": name, "parameters": {
+    "type": "object"}}} for name in ("get_weather", "get_time")]
 EMBED_INPUTS = ["hello world", "a much longer input sentence to embed here",
                 "x"]
 TOK = ByteTokenizer(512)
@@ -99,7 +107,9 @@ def jax_engine(weights):
             prompt_ids=ids, sampling=JaxSampling(
                 temperature=0.0, max_tokens=MAX_TOKENS))).events)
             for name, ids in (("completion", _completion_ids()),
-                              ("response", _response_ids()))}
+                              ("response", _response_ids()),
+                              ("chat", TOK.encode(default_chat_template(
+                                  CHAT_MESSAGES))))}
         yield JaxEngine("debug-tiny", core, JaxByteTokenizer(512)), streams
     finally:
         core.stop()
@@ -232,6 +242,27 @@ def test_completions_carry_jax_tokens(server, jax_engine, stream):
     assert chunks[-1]["usage"]["completion_tokens"] == MAX_TOKENS
 
 
+@pytest.mark.parametrize("field", ["stop", "stop_sequences"])
+def test_stop_sequences_stop_where_stop_does(server, jax_engine, field):
+    base, _engine = server
+    want = TOK.decode(jax_engine[1]["chat"])
+    stop = next((c for c in want[1:] if c != "\ufffd"), None)
+    assert stop is not None, f"the greedy ids decode to {want!r}"
+    for stream in (False, True):
+        raw = _post(base + "/v1/chat/completions", {
+            "model": "debug-tiny", "messages": CHAT_MESSAGES,
+            "temperature": 0, "max_tokens": MAX_TOKENS, "stream": stream,
+            field: [stop]})
+        if stream:
+            chunks = [c["choices"][0] for c in _data(raw) if c["choices"]]
+            text = "".join(c["delta"].get("content") or "" for c in chunks)
+        else:
+            chunks = json.loads(raw)["choices"]
+            text = chunks[0]["message"]["content"]
+        assert text == want[:want.find(stop)]
+        assert chunks[-1]["finish_reason"] == "stop"
+
+
 def test_completions_validation(server):
     base, _engine = server
     url = base + "/v1/completions"
@@ -269,6 +300,31 @@ def test_responses_carry_jax_tokens(server, jax_engine, stream):
     assert out["output"][0]["content"][0]["text"] == want
     assert out["usage"]["output_tokens"] == MAX_TOKENS
     assert out["usage"]["input_tokens"] == len(_response_ids())
+
+
+def test_responses_take_max_output_tokens(server, jax_engine):
+    base, _engine = server
+    out = json.loads(_post(base + "/v1/responses", {
+        "model": "debug-tiny", "input": INPUT, "instructions": INSTRUCTIONS,
+        "temperature": 0, "max_output_tokens": 5}))
+    assert out["usage"]["output_tokens"] == 5
+    assert out["output"][0]["content"][0]["text"] == TOK.decode(
+        jax_engine[1]["response"][:5])
+
+
+def test_required_with_two_tools_serves_the_jax_tokens(server, jax_engine):
+    base, _engine = server
+    raw = _post(base + "/v1/chat/completions", {
+        "model": "debug-tiny", "messages": CHAT_MESSAGES, "tools": TWO_TOOLS,
+        "tool_choice": "required", "temperature": 0,
+        "max_tokens": MAX_TOKENS, "stream": True, "llmlb_replay": True})
+    frames = _data(raw)
+    ids = [t for f in frames if f.get("object") == "llmlb.replay"
+           for t in f["tokens"]]
+    assert ids == jax_engine[1]["chat"]
+    text = "".join(c["choices"][0]["delta"].get("content") or ""
+                   for c in frames if c.get("choices"))
+    assert text == TOK.decode(ids)
 
 
 def test_responses_validation(server):

@@ -6,8 +6,13 @@ message is the reference server's own (its `_priority_from`,
 `_speculative_from` and `_deadline_from` run on the same input here), and
 a well-formed one is carried on the request's SamplingParams. The port has
 no constrained decoding, so a `response_format` other than text and a
-forced `tool_choice` are 400s naming the field. One debug-tiny server on
-the CPU serves every case.
+`tool_choice` the reference would constrain (a function object, or
+"required" with one tool) are 400s naming the field; "required" with
+several tools is served unconstrained, as the reference serves it, and
+the malformed tool shapes get the reference `_forced_tool`'s messages.
+The length and stop fields are read under every name the reference reads
+(`max_output_tokens`, `stop_sequences`). One debug-tiny server on the CPU
+serves every case.
 """
 
 import json
@@ -17,6 +22,7 @@ import urllib.request
 import pytest
 
 from llmlb_tpu.engine import server as jax_server
+from llmlb_tpu.structured.openai_api import _forced_tool
 from llmlb_tpu_torch.engine import server as port_server
 from llmlb_tpu_torch.engine.server import start_server
 from llmlb_tpu_torch.engine.service import Engine
@@ -114,9 +120,52 @@ def test_unhonourable_structured_fields_are_400_naming_them(server, field,
     assert field in message
 
 
+@pytest.mark.parametrize("extra", [
+    {"tool_choice": "required"},
+    {"tool_choice": "required", "tools": []},
+    {"tool_choice": "required", "tools": [{"type": "function"}]},
+    {"tool_choice": "required", "tools": [{"function": {"name": ""}}]},
+    {"tool_choice": {"type": "grammar"}, "tools": TOOLS},
+    {"tool_choice": {"type": "function", "function": {}}, "tools": TOOLS},
+    {"tool_choice": {"type": "function", "function": {"name": "nope"}},
+     "tools": TOOLS},
+    {"tool_choice": "always", "tools": TOOLS},
+])
+def test_malformed_tool_shapes_keep_the_reference_message(server, extra):
+    body = {**CHAT, **extra}
+    message = _error_of(server, body)
+    assert message == _reference_message(_forced_tool, body)
+
+
+def test_required_with_one_tool_is_refused_naming_the_field(server):
+    body = {**CHAT, "tools": TOOLS, "tool_choice": "required"}
+    assert _forced_tool(body) is not None  # the reference would constrain
+    assert "tool_choice" in _error_of(server, body)
+
+
+@pytest.mark.parametrize("field", ["max_tokens", "max_completion_tokens",
+                                   "max_output_tokens"])
+def test_length_fields_are_the_references(field):
+    body = {"input": "hi", field: 5}
+    assert port_server._sampling_from(body).max_tokens == 5
+    assert jax_server._sampling_from(body).max_tokens == 5
+
+
+@pytest.mark.parametrize("body", [
+    {"stop_sequences": ["\n\nHuman:"]},
+    {"stop_sequences": "END"},
+    {"stop": ["a"], "stop_sequences": ["b"]},
+    {"stop": [], "stop_sequences": ["b", 3]},
+])
+def test_stop_fields_are_the_references(body):
+    assert port_server._stops_from(body) == jax_server._stops_from(body)
+    assert port_server._stops_from(body)
+
+
 @pytest.mark.parametrize("extra,headers", [
     ({"priority": "high"}, None),
     ({"tool_choice": "auto", "tools": TOOLS}, None),
+    ({"tool_choice": "required", "tools": TOOLS * 2}, None),
     ({"response_format": {"type": "text"}}, None),
     ({"speculative": {"enabled": False, "max_draft_tokens": 3}},
      {"X-Request-Deadline-Ms": "2500"}),
