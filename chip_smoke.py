@@ -118,6 +118,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
              pressure and asked for again restores from host RAM, its
              hit's first-token logits equal to the live hit's bit for bit,
              and the counters the traffic's.
+             bf16, after the counts: structured outputs, on an EngineCore
+             of its own over the serving core's params (8 paged slots, the
+             ByteTokenizer's EOS, the port's Engine and server; its
+             launches and those of an eager core beside it logged apart):
+             8 greedy rows together (4 of a bounded 85-state json_schema, 2
+             of a 38-state one: 124 of the 64 MiB table's 130 rows at
+             vocab 128256; 2 free rows): every constrained text parses and
+             is accepted by the port's DFA with finish "stop" and no
+             violation, every burst with a constrained row runs the
+             grammar graph key (one eager burst, then replays), no
+             fallback, the free rows give their solo tokens; 2 seeded
+             constrained rows give an eager core's tokens; json_object
+             (1734 states) is refused a table row, its bursts take the
+             host-mask key (k = 1), the fallback counter rises, its text is
+             a live prefix of its grammar, and the first 6 rows beside it
+             give their fused tokens; a constrained row parked by a
+             priority-0 arrival and one parked for a migration (its pages
+             landed on the eager core through adopt_stream) give their
+             fused tokens; over HTTP a streamed json_schema chat parses, a
+             forced tool call streams the tool_calls deltas with
+             finish_reason "tool_calls", /v1/models lists
+             structured_outputs. Logged: compile and registration ms,
+             table rows and bytes, the grammar key's capture s and nodes,
+             the warm TTFT and decode rate alone (constrained, free,
+             fallback).
              Paged: page exhaustion on an engine of 2 slots and 4 pages,
              two rows of 60 tokens: both their solo tokens and finish
              reasons after a park. /v1/resume over HTTP with the ids of an
@@ -168,7 +193,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the timed prompt's 64 greedy tokens equal the paged bf16 run's
              (else the first op whose row 0 differs between the two
              layouts' entry points is named); how many of the long prompt's
-             16 greedy tokens agree with the paged run's is reported.
+             16 greedy tokens agree with the paged run's is reported. After
+             the counts, the dense layout's constrained path (fused decode
+             off, the reference's dense default: every constrained burst
+             on the host-mask key) on a 2-slot dense core of its own: the
+             structured block's first two constrained prompts give its
+             fused ids.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,7 +207,9 @@ The second-to-last line is one JSON object {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import queue
 import subprocess
 import sys
 import threading
@@ -3466,10 +3498,650 @@ def _kv_ship(core, engine, base: str, label: str, dev: dict,
     return out
 
 
+# ------------------------------------------------------- structured outputs
+
+# The structured phase's schemas: tests/engine/test_preemption.py's bounded
+# SCHEMA (85 DFA states) and tests/gateway/test_structured_gateway.py's (38):
+# with the free row, 124 rows of the 130 the 64 MiB table holds at Llama-3's
+# vocabulary (0.49 MiB a row); json_object (1734 states, 848 MiB) never fits.
+STRUCT_PREEMPT = {"type": "object",
+                  "properties": {"name": {"type": "string", "maxLength": 8},
+                                 "n": {"enum": [0, 1, 2, 3]}},
+                  "required": ["name", "n"]}
+STRUCT_GATEWAY = {"type": "object",
+                  "properties": {"city": {"enum": ["sf", "nyc"]},
+                                 "celsius": {"type": "boolean"}},
+                  "required": ["city", "celsius"]}
+# the fused block's rows: (content, schema name or None for a free row)
+STRUCT_ROWS = ([(f"Structured {i}: describe the user.", "preempt")
+                for i in range(4)]
+               + [(f"Structured {i}: the weather in a city.", "gateway")
+                  for i in range(2)]
+               + [(f"Structured free {i}: say anything.", None)
+                  for i in range(2)])
+STRUCT_CAPACITY, STRUCT_TOKENS, STRUCT_FREE_TOKENS = 1024, 128, 64
+STRUCT_OBJECT_TOKENS = 32  # the json_object request's max_tokens
+STRUCT_PARK_AT = 4  # the victim's and the migrated row's tokens before
+
+
+def _st_spec(schema) -> dict:
+    return {"type": "json_schema", "schema": schema}
+
+
+def _st_request(engine, content: str, spec: dict | None, max_tokens: int,
+                rid: str | None = None, **sampling):
+    """A request straight to the structured core, its constraint compiled
+    by the engine's compiler (an LRU hit after the first)."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    sampling.setdefault("temperature", 0.0)
+    sp = SamplingParams(max_tokens=max_tokens, constraint=spec, **sampling)
+    req = Request(prompt_ids=engine.encode_chat(
+        [{"role": "user", "content": content}]), sampling=sp,
+        compiled_constraint=(engine.constraint_compiler.compile_spec(spec)
+                             if spec is not None else None))
+    if rid is not None:
+        req.request_id = rid
+    req.events = _StampedEvents()
+    return req
+
+
+class _StampedEvents(queue.SimpleQueue):
+    """A request's event queue that stamps each token as the engine puts
+    it, on the engine thread at its fetch, not when a reader wakes."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps: list[float] = []
+
+    def put(self, item, block=True, timeout=None):
+        if item[0] == "token":
+            self.stamps.append(time.monotonic())
+        super().put(item, block, timeout)
+
+
+def _st_collect(request) -> tuple[list[int], str, float, list[float]]:
+    """(ids, finish reason, TTFT s, the engine's stamps of the ids) of a
+    request made by _st_request."""
+    ids = []
+    while True:
+        kind, value = request.events.get(timeout=600)
+        if kind == "token":
+            ids.append(int(value))
+        elif kind == "done":
+            break
+        else:
+            raise RuntimeError(f"engine error: {value}")
+    stamps = request.events.stamps
+    return ids, value, stamps[0] - request.submitted_at, stamps
+
+
+# the ids of one fetch are put within the emit loop; fetches are at least
+# a decode step (~10 ms) apart
+FETCH_GAP_S = 0.002
+
+
+def _st_fetches(stamps: list[float]) -> list[list]:
+    """A stream's stamps grouped by fetch: [ids, stamp of the last]."""
+    fetches: list[list] = []
+    for t in stamps:
+        if fetches and t - fetches[-1][1] < FETCH_GAP_S:
+            fetches[-1] = [fetches[-1][0] + 1, t]
+        else:
+            fetches.append([1, t])
+    return fetches
+
+
+def _st_rate(stamps: list[float], n: int) -> float:
+    """Steady decode tokens/s of a stream over the whole fetches among its
+    first n ids: the ids after the first fetch over the time from it to
+    the last. The first fetch is left out, since it delivers the first
+    token together with a whole burst's ids."""
+    fetches, total = [], 0
+    for c, t in _st_fetches(stamps):
+        if total + c > n:
+            break
+        fetches.append((c, t))
+        total += c
+    if len(fetches) < 2:
+        return 0.0
+    return (sum(c for c, _ in fetches[1:])
+            / (fetches[-1][1] - fetches[0][1]))
+
+
+def _st_run(core, requests: list) -> list:
+    for r in requests:
+        core.submit(r)
+    return _concurrent([lambda r=r: _st_collect(r) for r in requests])
+
+
+def _st_accepted(engine, spec: dict, ids: list[int], what: str,
+                 complete: bool = True) -> str:
+    """The text of a constrained stream, after walking the port's DFA over
+    its ids: every id advances the cursor and, when `complete`, the cursor
+    ends accepting and the text is JSON. Returns the text."""
+    from llmlb_tpu_torch.structured import ConstraintState
+
+    state = ConstraintState(engine.constraint_compiler.compile_spec(spec))
+    for i, t in enumerate(ids):
+        if not state.advance(t):
+            raise AssertionError(f"structured: {what}: id {i} ({t}) leaves "
+                                 "the grammar")
+    text = engine.tokenizer.decode(ids)
+    if complete:
+        if not state.is_accepting:
+            raise AssertionError(f"structured: {what}: the grammar did not "
+                                 f"accept {text!r}")
+        json.loads(text)
+    return text
+
+
+class _BurstModes:
+    """Records each decode burst's mode and whether a constrained row was
+    decoding in it, and on the card each replay's time on the stream
+    (CUDA events around it; a burst computes every slot, so its time does
+    not depend on the rows decoding). Wraps the core's burst runner until
+    close()."""
+
+    def __init__(self, core):
+        import torch
+
+        from llmlb_tpu_torch.engine.decode_graph import key_name
+
+        self.core, self.modes = core, []
+        self.replay_ms: dict[str, list[float]] = {}
+        run = core._bursts.run
+        timed = core.device.type == "cuda"
+
+        def spy(window, seeded, mode):
+            constrained = any(s.request is not None and not s.prefilling
+                              and s.constraint is not None
+                              for s in core.slots)
+            self.modes.append((mode, constrained))
+            key = (window, seeded, mode)
+            replay = timed and key in core._bursts.graphs
+            if replay:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            out = run(window, seeded, mode)
+            if replay:
+                e1.record()
+                e1.synchronize()
+                self.replay_ms.setdefault(key_name(key), []).append(
+                    e0.elapsed_time(e1))
+            return out
+
+        core._bursts.run = spy
+
+    def median_ms(self) -> dict[str, float]:
+        return {m: sorted(v)[len(v) // 2] for m, v in self.replay_ms.items()}
+
+    def close(self) -> None:
+        del self.core._bursts.run
+
+
+class _OnRowTokens:
+    """On the engine thread, once the row serving `rid` holds `n` committed
+    tokens (between bursts): call `fn()` once. Wraps _emit_fetched."""
+
+    def __init__(self, core, rid: str, n: int, fn):
+        self.core, self.fired = core, False
+        emit = core._emit_fetched
+
+        def spy(tokens, active):
+            emit(tokens, active)
+            if self.fired:
+                return
+            for slot in core.slots:
+                r = slot.request
+                if (r is not None and r.request_id == rid
+                        and len(slot.out_tokens) >= n):
+                    self.fired = True
+                    fn()
+                    return
+
+        core._emit_fetched = spy
+
+    def close(self) -> None:
+        del self.core._emit_fetched
+
+
+def _structured_block(core, dev: dict) -> dict:
+    """Structured outputs on the card (after the bf16 phase's launch
+    counts; its launches are logged apart): one EngineCore over the serving
+    core's params (no second copy of the weights), 8 paged slots with the
+    ByteTokenizer's EOS (256), behind the port's Engine and server.
+
+    1. fused: 8 greedy rows together (4 of the 85-state schema, 2 of the
+       38-state one, 2 free): every constrained text parses, the port's DFA
+       accepts it, finish "stop", no violation; every burst with a
+       constrained row runs the grammar key (one eager burst, then
+       replays), no fallback; the free rows give their solo tokens.
+    2. seeded: 2 constrained rows at temperature 0.8: the graph core's
+       tokens are an eager core's (decode_graphs=False, same params).
+    3. fallback: json_object (1734 states) is refused a table row, its
+       bursts take the host-mask key (k = 1) and the fallback counter
+       rises; its text is a live prefix of the grammar; check 1's
+       constrained prompts beside it give check 1's tokens.
+    4. a constrained row parked by a priority-0 arrival resumes with its
+       cursor, and one parked for a migration lands its exported pages on
+       the eager core through adopt_stream: both give check 1's tokens.
+    5. HTTP: a streamed json_schema chat, a forced tool call's tool_calls
+       deltas and finish_reason "tool_calls", /v1/models and /api/health.
+    """
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(core.cfg.vocab_size)
+    eos = tok.eos_id
+    out: dict = {}
+    st = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                    num_slots=SLOTS, slot_capacity=STRUCT_CAPACITY,
+                    eos_id=eos)
+    engine = Engine("llama-3-8b", st, tok)
+    eager = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=2, slot_capacity=STRUCT_CAPACITY, eos_id=eos,
+                       decode_graphs=False, prefix_cache=False)
+    adopter = Engine("llama-3-8b", eager, ByteTokenizer(core.cfg.vocab_size))
+    st.start()
+    eager.start()
+    server, thread = start_server(engine)
+    base = "http://%s:%d" % server.server_address[:2]
+    tables = st._grammar_tables
+    registrations = []
+    register = tables.register
+
+    def timed_register(tc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = register(tc)
+        torch.cuda.synchronize()
+        if all(r[0] is not tc for r in registrations):  # first of a schema
+            registrations.append((tc, off, (time.perf_counter() - t0) * 1e3))
+        return off
+
+    tables.register = timed_register
+    try:
+        with _Uncounted() as uncounted:
+            out.update(_structured_checks(st, engine, eager, adopter, base,
+                                          registrations, dev))
+        out["launches"] = uncounted.launches
+        log(f"structured [{dev['smi']}]: the structured core's and the eager "
+            f"core's launches (not counted with the main path): "
+            f"{uncounted.launches}")
+        return out
+    finally:
+        del tables.register
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        engine.shutdown()
+        adopter.shutdown()
+        del engine, adopter, st, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _structured_checks(st, engine, eager, adopter, base: str,
+                       registrations: list, dev: dict) -> dict:
+    from llmlb_tpu_torch.engine.scheduler import SamplingParams
+
+    res: dict = {}
+    compiler = engine.constraint_compiler
+    specs = {"preempt": _st_spec(STRUCT_PREEMPT),
+             "gateway": _st_spec(STRUCT_GATEWAY),
+             "object": {"type": "json_object"}}
+    compile_ms = {}
+    for name in ("preempt", "gateway"):
+        t0 = time.perf_counter()
+        tc = compiler.compile_spec(specs[name])
+        compile_ms[name] = ((time.perf_counter() - t0) * 1e3, tc.num_states)
+    # 1. fused: 8 rows together
+    rows = STRUCT_ROWS
+
+    def batch(which):
+        return [_st_request(engine, c, specs[s] if s else None,
+                            STRUCT_TOKENS if s else STRUCT_FREE_TOKENS)
+                for c, s in which]
+
+    before = st.stats().structured
+    modes = _BurstModes(st)  # over checks 1 to 3
+    t0 = time.perf_counter()
+    fused = _st_run(st, batch(rows))
+    wall = time.perf_counter() - t0
+    check1 = list(modes.modes)
+    after = st.stats().structured
+    for (content, s), (ids, reason, _t, _r) in zip(rows, fused):
+        if s is None:
+            continue
+        if reason != "stop":
+            raise AssertionError(f"structured: {content!r} ended {reason!r} "
+                                 f"after {len(ids)} tokens, not at acceptance")
+        _st_accepted(engine, specs[s], ids, content)
+    if after.constraint_violations_total != before.constraint_violations_total:
+        raise AssertionError(f"structured: violations {after}")
+    if after.constrained_burst_fallback_total:
+        raise AssertionError(f"structured: a fused block fell back ({after})")
+    wrong = [m for m, c in check1 if c and m != "grammar"]
+    grammar_runs = sum(1 for m, c in check1 if m == "grammar")
+    info = st.decode_graph_info()
+    gkeys = {k: v for k, v in info["keys"].items() if k.endswith("/grammar")}
+    if wrong or grammar_runs < 2 or not gkeys:
+        raise AssertionError(f"structured: constrained bursts ran {wrong}, "
+                             f"{grammar_runs} under the grammar key; keys "
+                             f"{list(info['keys'])}")
+    if st.stats().decode_eager_bursts != len(info["keys"]):
+        raise AssertionError("structured: more than one eager burst a key")
+    free_solo = [_st_run(st, batch([row]))[0] for row in rows[6:]]
+    if [f[0] for f in free_solo] != [f[0] for f in fused[6:]]:
+        raise AssertionError("structured: a free row's tokens depend on the "
+                             "constrained rows beside it")
+    table = st.structured_info()["grammar_table"]
+    texts = [engine.tokenizer.decode(ids) for ids, *_ in fused[:6]]
+    log(f"structured [{dev['smi']}]: compile ms (states) "
+        + ", ".join(f"{k} {v[0]:.1f} ({v[1]})" for k, v in compile_ms.items())
+        + "; registrations (states, row, ms, MiB) "
+        + str([(tc.num_states, off, round(ms, 2),
+                round(tc.num_states * st.cfg.vocab_size * 4 / 2**20, 1))
+               for tc, off, ms in registrations])
+        + f"; table {table['rows']} rows, {table['bytes'] / 2**20:.1f} MiB of "
+        f"{table['budget_bytes'] / 2**20:.0f} MiB (buffer "
+        f"{table['allocated_bytes'] / 2**20:.1f} MiB)")
+    log(f"structured: fused block of 8 rows in {wall:.2f} s: "
+        f"{grammar_runs} grammar bursts, keys "
+        + "; ".join(f"{k}: nodes {v['nodes']}, capture {v['capture_s']:.3f} s"
+                    for k, v in gkeys.items())
+        + f"; constrained texts {texts}; free rows = their solo runs")
+    res["compile_ms"] = {k: v[0] for k, v in compile_ms.items()}
+    res["fused_ids"] = [ids for ids, *_ in fused]
+    res["registrations"] = [(tc.num_states, off, ms)
+                            for tc, off, ms in registrations]
+    res["grammar_keys"] = {k: {"nodes": v["nodes"],
+                               "capture_s": v["capture_s"]}
+                           for k, v in gkeys.items()}
+    # TTFT and decode rates alone, warm (the best of two): a constrained
+    # row (fused) and a free row, the free rate also over the constrained
+    # stream's length (its bursts then the same)
+    alone_c = [_st_run(st, batch(rows[:1]))[0] for _ in range(2)]
+    alone_f = [_st_run(st, batch(rows[6:7]))[0] for _ in range(2)]
+    n_c = len(alone_c[0][0])
+    ttft_c = min(r[2] for r in alone_c)
+    ttft_f = min(r[2] for r in alone_f)
+    rate_c = max(_st_rate(r[3], n_c) for r in alone_c)
+    rate_f_n = max(_st_rate(r[3], n_c) for r in alone_f)
+    rate_f = max(_st_rate(r[3], STRUCT_FREE_TOKENS) for r in alone_f)
+    # 2. seeded: graph = eager
+    seeded = [dict(temperature=0.8, top_p=0.95, seed=11 + i) for i in range(2)]
+
+    def seeded_batch():
+        return [_st_request(engine, rows[i][0], specs["preempt"],
+                            STRUCT_TOKENS, **seeded[i]) for i in range(2)]
+
+    graph_ids = [r[0] for r in _st_run(st, seeded_batch())]
+    eager_ids = [r[0] for r in _st_run(eager, seeded_batch())]
+    if graph_ids != eager_ids:
+        raise AssertionError("structured: seeded constrained rows: graph "
+                             f"{graph_ids} != eager {eager_ids}")
+    for i, ids in enumerate(graph_ids):
+        _st_accepted(engine, specs["preempt"], ids, f"seeded row {i}")
+    if "256/seeded/grammar" not in st.decode_graph_info()["keys"]:
+        raise AssertionError("structured: the seeded rows did not replay the "
+                             "seeded grammar key")
+    log(f"structured: seeded rows (temperature 0.8): graph = eager, "
+        f"{[len(i) for i in graph_ids]} tokens, texts "
+        f"{[engine.tokenizer.decode(i) for i in graph_ids]}")
+    # 3. the host-mask fallback: json_object misses the table
+    t0 = time.perf_counter()
+    obj_tc = compiler.compile_spec(specs["object"])
+    obj_ms = (time.perf_counter() - t0) * 1e3
+    fb0 = st.stats().structured.constrained_burst_fallback_total
+    obj = _st_run(st, [_st_request(engine, "Any JSON object, please.",
+                                   specs["object"], STRUCT_OBJECT_TOKENS)])[0]
+    info = st.structured_info()
+    fb1 = st.stats().structured.constrained_burst_fallback_total
+    if not info["grammar_fallback"] or info["grammar_table"]["rejected"] < 1:
+        raise AssertionError(f"structured: json_object was not refused a "
+                             f"table row ({info})")
+    if fb1 <= fb0:
+        raise AssertionError("structured: the fallback counter did not rise")
+    obj_text = _st_accepted(engine, specs["object"], obj[0], "json_object",
+                            complete=obj[1] == "stop")
+    mixed = _st_run(st, batch(rows[:6]) + [_st_request(
+        engine, "Any JSON object, please.", specs["object"],
+        STRUCT_OBJECT_TOKENS)])
+    fb2 = st.stats().structured.constrained_burst_fallback_total
+    if [m[0] for m in mixed[:6]] != [f[0] for f in fused[:6]]:
+        raise AssertionError("structured: check 1's rows beside the "
+                             "json_object row (host-mask bursts) differ from "
+                             "their fused run")
+    if mixed[6][0] != obj[0] or fb2 <= fb1:
+        raise AssertionError("structured: the json_object row changed in a "
+                             "batch, or its bursts did not fall back")
+    modes.close()
+    burst_ms = modes.median_ms()
+    mask_keys = [k for k in st.decode_graph_info()["keys"]
+                 if k.endswith("/mask")]
+    log(f"structured [{dev['smi']}]: json_object ({obj_tc.num_states} "
+        f"states, {obj_tc.num_states * st.cfg.vocab_size * 4 / 2**20:.0f} "
+        f"MiB of table) compiled in {obj_ms:.1f} ms and refused a table row "
+        f"(budget {info['grammar_table']['budget_bytes'] >> 20} MiB); "
+        f"fallback bursts {fb1 - fb0} alone, {fb2 - fb1} beside check 1's "
+        f"rows, whose tokens equal their fused run's; keys {mask_keys}; its "
+        f"{len(obj[0])} ids {obj[1]!r}, a live prefix: {obj_text!r}")
+    # a row's rate on the card alone: a key's steps over its replay
+    replay_rate = {k: (1 if k.endswith("/mask") else st.decode_burst) * 1e3
+                   / ms for k, ms in burst_ms.items()}
+    log(f"structured [{dev['smi']}]: replayed bursts, median ms on the "
+        f"stream (8 slots): {burst_ms} (free and grammar keys: "
+        f"{st.decode_burst} steps; mask: 1 step); a row's tok/s on the "
+        f"card alone (steps / replay ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in replay_rate.items()))
+    res["burst_replay_ms"] = burst_ms
+    res["decode_tok_s_replay"] = replay_rate
+    # 4a. a priority park of a constrained row, resumed with its cursor
+    preempt0 = st.stats().preemptions_total
+    fillers = [_st_request(engine, f"Filler {i}: keep talking.", None, 160)
+               for i in range(SLOTS - 1)]
+    victim = _st_request(engine, rows[0][0], specs["preempt"], STRUCT_TOKENS,
+                         rid="struct-victim", priority=2)
+    hi = _st_request(engine, "Urgent: one line.", None, 8, priority=0)
+    trigger = _OnRowTokens(st, "struct-victim", STRUCT_PARK_AT,
+                           lambda: st.submit(hi))
+    try:
+        for r in fillers:
+            st.submit(r)
+        st.submit(victim)
+        vic = _st_collect(victim)
+        _st_collect(hi)
+    finally:
+        trigger.close()
+        for r in fillers:
+            r.cancel()
+    _wait_idle(st)
+    parks = st.stats().preemptions_total - preempt0
+    if vic[0] != fused[0][0] or vic[1] != "stop" or parks < 1:
+        raise AssertionError(f"structured: the parked constrained row shares "
+                             f"{_shared(vic[0], fused[0][0])} of "
+                             f"{len(fused[0][0])} ids ({parks} parks)")
+    # 4b. a migration: parked with an export, landed on the eager core
+    rid = "structmig.0123abcd"
+    mig = _st_request(engine, rows[1][0], specs["preempt"], STRUCT_TOKENS,
+                      rid=rid)
+    # the park, then the cancel: the loop parks it (with its export) before
+    # it admits anything, and ends it instead of re-admitting it
+    trigger = _OnRowTokens(st, rid, STRUCT_PARK_AT,
+                           lambda: (st.request_park("structmig"),
+                                    mig.cancel()))
+    try:
+        st.submit(mig)
+        payload, t_end = None, time.monotonic() + 60
+        while payload is None and time.monotonic() < t_end:
+            payload = st.take_kv_export("structmig")
+            time.sleep(0.005)
+    finally:
+        trigger.close()
+    if payload is None:
+        raise AssertionError("structured: no export of the migrated row")
+    committed = list(mig.parked.tokens) if mig.parked else None
+    mig.cancel()
+    _wait_idle(st)
+    restored0 = eager.kv_transfer_info()["restored_total"]
+    deltas = list(adopter.adopt_stream(
+        mig.prompt_ids, committed, SamplingParams(
+            temperature=0.0, max_tokens=STRUCT_TOKENS,
+            constraint=specs["preempt"]), kv_pages=payload))
+    moved = [t for d in deltas for t in d.token_ids]
+    landed = eager.kv_transfer_info()["restored_total"] - restored0
+    if (moved != fused[1][0] or deltas[-1].finish_reason != "stop"
+            or landed != 1):
+        raise AssertionError(f"structured: the migrated row shares "
+                             f"{_shared(moved, fused[1][0])} of "
+                             f"{len(fused[1][0])} ids ({landed} lands)")
+    # the json_object rows cut at max_tokens before acceptance are the only
+    # violations (the reference's length rule)
+    cut = sum(1 for r in (obj, mixed[6]) if r[1] == "length")
+    for c, want in ((st, cut), (eager, 0)):
+        if c.stats().structured.constraint_violations_total != want:
+            raise AssertionError(f"structured: violations "
+                                 f"{c.stats().structured}, {want} expected")
+    log(f"structured: a constrained row parked by a priority-0 arrival "
+        f"({parks} park) and one migrated after {len(committed)} committed "
+        f"ids (its pages landed on the eager core, cursor rebuilt) give "
+        f"check 1's {len(vic[0])} and {len(moved)} ids; no violation")
+    # 5. HTTP
+    chat = {"model": "llama-3-8b", "temperature": 0, "max_tokens": 128,
+            "stream": True,
+            "messages": [{"role": "user", "content": "Weather as JSON."}]}
+    schema_chat = {**chat, "response_format": {"type": "json_schema",
+                                               "json_schema": {
+                                                   "name": "w",
+                                                   "schema": STRUCT_GATEWAY}}}
+    tool_chat = {**chat, "tools": [{"type": "function", "function": {
+        "name": "get_weather", "parameters": STRUCT_GATEWAY}}],
+        "tool_choice": {"type": "function",
+                        "function": {"name": "get_weather"}}}
+
+    def sse(body):
+        with _post(base + "/v1/chat/completions", body) as resp:
+            lines = [bytes(d) for d in _sse_lines(resp)]
+        if lines[-1] != b"[DONE]":
+            raise AssertionError("structured: a stream without [DONE]")
+        chunks = [json.loads(d) for d in lines[:-1]]
+        return [c["choices"][0] for c in chunks if c.get("choices")]
+
+    choices = sse(schema_chat)
+    text = "".join(c["delta"].get("content") or "" for c in choices)
+    if choices[-1]["finish_reason"] != "stop" or set(json.loads(text)) != {
+            "city", "celsius"}:
+        raise AssertionError(f"structured: json_schema chat {text!r}, "
+                             f"{choices[-1]['finish_reason']}")
+    choices = sse(tool_chat)
+    opener = choices[1]["delta"]["tool_calls"][0]
+    args = "".join(c["delta"]["tool_calls"][0]["function"]["arguments"]
+                   for c in choices[2:] if "tool_calls" in c["delta"])
+    if (opener["function"] != {"name": "get_weather", "arguments": ""}
+            or not opener["id"].startswith("call_")
+            or opener["type"] != "function"
+            or any(c["delta"].get("content") for c in choices[1:])
+            or choices[-1]["finish_reason"] != "tool_calls"
+            or set(json.loads(args)) != {"city", "celsius"}):
+        raise AssertionError(f"structured: tool call stream {choices}")
+    with urllib.request.urlopen(base + "/v1/models", timeout=60) as resp:
+        caps = json.loads(resp.read())["data"][0]["capabilities"]
+    with urllib.request.urlopen(base + "/api/health", timeout=60) as resp:
+        health = json.loads(resp.read())["structured"]
+    if "structured_outputs" not in caps or not health["enabled"]:
+        raise AssertionError(f"structured: /v1/models {caps}, /api/health "
+                             f"{health}")
+    rate_fb = _st_rate(obj[3], n_c)
+    sizes = {name: [c for c, _ in _st_fetches(r[3])] for name, r in (
+        ("fused", alone_c[0]), ("free", alone_f[0]), ("fallback", obj))}
+    counters = dataclasses.asdict(st.stats().structured)
+    keys = st.decode_graph_info()["keys"]
+    log(f"structured [{dev['smi']}]: HTTP json_schema chat {text!r} (stop), "
+        f"forced tool call arguments {args!r} (tool_calls); /v1/models "
+        f"{caps}; alone, warm: TTFT constrained {ttft_c * 1e3:.1f} ms (with "
+        f"the activation's fetch), free {ttft_f * 1e3:.1f} ms; steady "
+        f"decode tok/s (after the first fetch) over the first {n_c} ids: "
+        f"fused {rate_c:.1f}, free {rate_f_n:.1f}, fallback (json_object, "
+        f"k = 1) {rate_fb:.1f}; free over {STRUCT_FREE_TOKENS}: "
+        f"{rate_f:.1f}; ids a fetch {sizes}; the structured core's keys "
+        + "; ".join(f"{k}: nodes {v['nodes']}, capture {v['capture_s']:.3f} s"
+                    for k, v in keys.items())
+        + f"; counters {counters}")
+    res.update({"ttft_constrained_s": ttft_c, "ttft_free_s": ttft_f,
+                "decode_tok_s_fused": rate_c, "decode_tok_s_free": rate_f_n,
+                "decode_tok_s_free_64": rate_f,
+                "decode_tok_s_fallback": rate_fb,
+                "json_object_compile_ms": obj_ms, "counters": counters})
+    return res
+
+
+def _structured_dense(core, dev: dict, want: list[list[int]]) -> dict:
+    """The dense layout's constrained path (the reference's default there:
+    fused decode off, every constrained burst on the host-mask key, k = 1),
+    after the dense phase's counts, on an EngineCore of its own over the
+    phase's params (2 slots, the ByteTokenizer's EOS): the bf16 block's
+    first two constrained prompts give its fused ids (dense = paged,
+    fallback = fused)."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(core.cfg.vocab_size)
+    st = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                    num_slots=2, slot_capacity=STRUCT_CAPACITY,
+                    eos_id=tok.eos_id, kv_layout="dense", prefix_cache=False)
+    engine = Engine("llama-3-8b", st, tok)
+    st.start()
+    try:
+        with _Uncounted() as uncounted:
+            spec = _st_spec(STRUCT_PREEMPT)
+            t0 = time.perf_counter()
+            got = _st_run(st, [_st_request(engine, c, spec, STRUCT_TOKENS)
+                               for c, _s in STRUCT_ROWS[:2]])
+            wall = time.perf_counter() - t0
+        counters = st.stats().structured
+        keys = list(st.decode_graph_info()["keys"])
+        if st.fused_decode or [g[0] for g in got] != want[:2] or any(
+                g[1] != "stop" for g in got):
+            raise AssertionError(
+                f"structured dense: fused_decode {st.fused_decode}; the rows "
+                f"share {[_shared(g[0], w) for g, w in zip(got, want)]} of "
+                f"{[len(w) for w in want[:2]]} ids with the paged fused run's")
+        if (counters.constraint_violations_total
+                or counters.constrained_burst_fallback_total < 1
+                or not any(k.endswith("/mask") for k in keys)):
+            raise AssertionError(f"structured dense: {counters}, keys {keys}")
+        log(f"structured dense [{dev['smi']}]: 2 constrained rows on the "
+            f"host-mask key in {wall:.2f} s ({counters.masked_decode_steps_total}"
+            f" one-step bursts, keys {keys}) give the paged fused run's ids; "
+            f"launches (not counted) {uncounted.launches}")
+        return {"wall_s": wall, "launches": uncounted.launches}
+    finally:
+        engine.shutdown()
+        del engine, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
                 bf16_long_ids: list[int] | None = None,
-                ckpt: dict | None = None, **core_kwargs) -> dict:
+                ckpt: dict | None = None,
+                structured_ids: list[list[int]] | None = None,
+                **core_kwargs) -> dict:
     """Serve Llama-3-8B at full width and depth, random weights from seed 0
     (with `ckpt`, the same weights loaded from the written checkpoint),
     through the HTTP server, then time requests on its core. `core_kwargs`
@@ -3743,6 +4415,14 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
             over["kv_ship"]["offload"] = _timed(
                 block_s, "offload", _offload_block, core, label, dev,
                 core_kwargs)
+        if label == "bf16":
+            # structured outputs on an engine of their own over these params
+            over["structured"] = _timed(block_s, "structured",
+                                        _structured_block, core, dev)
+        if structured_ids is not None:
+            over["structured"] = _timed(block_s, "structured",
+                                        _structured_dense, core, dev,
+                                        structured_ids)
         small = _small_engine_blocks(core, prompt, label, dev, core_kwargs)
         over.update(small)
         drain = small["drain"]
@@ -3806,10 +4486,11 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     tree = Path(args.tree).resolve() if args.tree else REPO
-    if not (tree / "llmlb_tpu_torch" / "engine" / "kv_transfer.py").exists():
-        print(f"chip_smoke: {tree} has no checkpoint loader or KV shipping, "
-              "which the serve phases drive; run that tree's own "
-              "chip_smoke.py", file=sys.stderr)
+    if not all((tree / "llmlb_tpu_torch" / f).exists() for f in (
+            "engine/kv_transfer.py", "ops/grammar.py")):
+        print(f"chip_smoke: {tree} has no checkpoint loader, KV shipping or "
+              "structured outputs, which the serve phases drive; run that "
+              "tree's own chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, str(tree))
     try:
@@ -3850,9 +4531,11 @@ def main(argv: list[str] | None = None) -> int:
                          quantize="all")
         ckpt["tmp"].cleanup()
         stats_lora = run("serve lora", phase_serve_lora, dev, stats["ids"])
-        stats_dense = run("serve dense", phase_serve, dev, "dense", DENSE_PATH,
-                          bf16_ids=stats["ids"],
-                          bf16_long_ids=stats["long_ids"], kv_layout="dense")
+        stats_dense = run(
+            "serve dense", phase_serve, dev, "dense", DENSE_PATH,
+            bf16_ids=stats["ids"], bf16_long_ids=stats["long_ids"],
+            structured_ids=stats["overload"]["structured"]["fused_ids"],
+            kv_layout="dense")
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
@@ -3871,7 +4554,11 @@ def main(argv: list[str] | None = None) -> int:
                 **({"checkpoint": st["checkpoint"]} if "checkpoint" in st
                    else {}),
                 **({"kv_ship": st["overload"]["kv_ship"]}
-                   if "kv_ship" in st.get("overload", {}) else {})}
+                   if "kv_ship" in st.get("overload", {}) else {}),
+                **({"structured": {k: v for k, v in st["overload"][
+                    "structured"].items()
+                    if k not in ("launches", "fused_ids")}}
+                   if "structured" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,

@@ -1,8 +1,19 @@
-"""The decode burst as one CUDA graph per (window bucket, seeded) key:
-counterpart of the JAX engine's `_build_decode_many` and `_decode_many_for`
-(`llmlb_tpu/engine/scheduler.py`), which compile a k-step decode scan, with
-sampling inside, into one program per (burst, window) and dispatch it once
-per burst.
+"""The decode burst as one CUDA graph per (window bucket, seeded, mode)
+key: counterpart of the JAX engine's `_build_decode_many` and
+`_decode_many_for` (`llmlb_tpu/engine/scheduler.py`), which compile a
+k-step decode scan, with sampling inside, into one program per (burst,
+window) and dispatch it once per burst, and of its grammar-masked variant
+`_build_decode_many_gram`.
+
+The mode says what masks the samples. "free": nothing. "grammar": each
+step's bias is gathered from the device grammar table at the rows'
+cursors (`ops/grammar.py`) and the cursors advance on the step's tokens,
+so constrained rows ride the burst; a forced cell keeps its row's
+cursor, since the host wrote the cursor after every committed token.
+"mask": the host-mask fallback of a schema the table could not hold, one
+step (k = 1) biased by the static [slots, V] mask the host writes before
+it, the reference's legacy single step, here a graph key of its own like
+the others.
 
 `BurstState` names every device tensor a burst reads or writes: the params
 (adapter pools included), the KV caches, the block tables, the per-slot
@@ -51,6 +62,7 @@ import torch
 
 from llmlb_tpu_torch.kernels import build
 from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.ops.grammar import grammar_advance, grammar_bias
 from llmlb_tpu_torch.ops.sampling import sample_tokens
 
 
@@ -77,6 +89,12 @@ class BurstState:
     # force_tokens[i, b] in place of row b's sample where force_mask[i, b]
     force_tokens: torch.Tensor | None = None
     force_mask: torch.Tensor | None = None
+    # the grammar key's device table [rows, V] int32 and the rows' cursors
+    # [slots] int32 (0: the free row), written by the host before a burst
+    gram_table: torch.Tensor | None = None
+    gram_state: torch.Tensor | None = None
+    # the mask key's additive [slots, V] float32 bias, written by the host
+    mask_bias: torch.Tensor | None = None
 
 
 def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
@@ -84,12 +102,15 @@ def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
     nan_rows.add_(torch.isnan(logits).any(dim=-1).sum())
 
 
-def burst_body(s: BurstState, window: int, seeded: bool) -> None:
+def burst_body(s: BurstState, window: int, seeded: bool,
+               mode: str) -> None:
     """k = tokens.shape[0] - 1 decode steps over every slot. Row 0 of the
     token block takes the last tokens going in, row i the tokens of step i
     (a forced cell's token where the mask is set); last_tokens and seq_lens
-    end advanced by k."""
+    end advanced by k. `mode` picks the samples' bias: none ("free"), the
+    grammar table at the cursors ("grammar"), or the host's mask ("mask")."""
     last, lens = s.last_tokens, s.seq_lens
+    gs = s.gram_state if mode == "grammar" else None
     s.tokens[0].copy_(last)
     for step in range(1, s.tokens.shape[0]):
         if s.block_tables is not None:
@@ -101,13 +122,20 @@ def burst_body(s: BurstState, window: int, seeded: bool) -> None:
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
                 window=window, lora_idx=s.lora_idx)
         count_nan_rows(s.nan_rows, logits)
+        bias = (grammar_bias(s.gram_table, gs) if gs is not None
+                else s.mask_bias if mode == "mask" else None)
         # seeded rows fold in the pre-increment length, as the reference
         toks = sample_tokens(logits, s.generator, s.temps, s.top_ps, s.top_ks,
+                             mask_bias=bias,
                              seeds=s.seeds if seeded else None,
                              steps=lens if seeded else None)
+        forced = None
         if s.force_mask is not None:
-            toks = torch.where(s.force_mask[step - 1],
-                               s.force_tokens[step - 1], toks)
+            forced = s.force_mask[step - 1]
+            toks = torch.where(forced, s.force_tokens[step - 1], toks)
+        if gs is not None:
+            nxt = grammar_advance(s.gram_table, gs, toks)
+            gs = nxt if forced is None else torch.where(forced, gs, nxt)
         s.tokens[step].copy_(toks)
         last, lens = s.tokens[step], lens + 1
     s.last_tokens.copy_(last)
@@ -126,23 +154,25 @@ class CapturedBurst:
 class BurstGraphs:
     """Runs decode bursts: eagerly, or as replays of one graph per key."""
 
-    def __init__(self, body: Callable[[int, bool], None],
+    def __init__(self, body: Callable[..., None],
                  capture: Callable[[Callable[[], None]], tuple] | None = None,
                  lock: Any = None):
         self._body = body
         self._capture = capture
         self._lock = lock if lock is not None else contextlib.nullcontext()
-        self.graphs: dict[tuple[int, bool], CapturedBurst] = {}
+        # (window, seeded, mode)
+        self.graphs: dict[tuple, CapturedBurst] = {}
         self.replays = 0
         self.eager_bursts = 0
 
-    def run(self, window: int, seeded: bool) -> None:
-        """One burst of key (window, seeded): a replay of its graph, or
-        the eager body (then captured, when there is a capture function)."""
-        key = (window, seeded)
+    def run(self, window: int, seeded: bool, mode: str) -> None:
+        """One burst of key (window, seeded, mode): a replay of its graph,
+        or the eager body (then captured, when there is a capture
+        function)."""
+        key = (window, seeded, mode)
         captured = self.graphs.get(key)
         if captured is None:
-            self._body(window, seeded)
+            self._body(*key)
             self.eager_bursts += 1
             if self._capture is not None:
                 self.graphs[key] = self._capture_key(key)
@@ -152,7 +182,7 @@ class BurstGraphs:
         build.add_launches(captured.launches)
         self.replays += 1
 
-    def _capture_key(self, key: tuple[int, bool]) -> CapturedBurst:
+    def _capture_key(self, key: tuple) -> CapturedBurst:
         before = dict(build.LAUNCHES)
         t0 = time.perf_counter()
         with self._lock:
@@ -170,11 +200,19 @@ class BurstGraphs:
             "eager_bursts": self.eager_bursts,
             "capture_s": sum(c.capture_s for c in self.graphs.values()),
             "pool_bytes": sum(c.pool_bytes for c in self.graphs.values()),
-            "keys": {f"{w}/{'seeded' if s else 'unseeded'}": {
+            "keys": {key_name(key): {
                 "launches": dict(c.launches), "nodes": c.nodes,
                 "capture_s": c.capture_s, "pool_bytes": c.pool_bytes}
-                for (w, s), c in self.graphs.items()},
+                for key, c in self.graphs.items()},
         }
+
+
+def key_name(key: tuple) -> str:
+    """"256/unseeded", "256/seeded/grammar": a graph key as info() names
+    it (a free key's name carries no mode)."""
+    window, seeded, mode = key
+    return "/".join([str(window), "seeded" if seeded else "unseeded"]
+                    + ([] if mode == "free" else [mode]))
 
 
 def cuda_capture(device: torch.device, generator: torch.Generator):

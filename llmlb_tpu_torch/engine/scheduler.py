@@ -103,12 +103,30 @@ under page pressure and a parked row's pages spill to host memory; a later
 prompt with that head lands it back before the live-cache match, and the
 parked row re-activates from it instead of replaying.
 
-Left out of this slice (see ROADMAP.md): speculative decoding, grammar
-constraints (and with them the grammar cursor and drafter of ParkedState),
+Structured outputs (`SamplingParams.constraint`, compiled by the
+service's `ConstraintCompiler` onto `Request.compiled_constraint`), as in
+the reference: each constrained row carries a host FSM cursor
+(`ConstraintState`, advanced in `_emit` on every emitted token, the source
+of truth). Its first token is sampled under its start state's mask, and a
+constrained activation makes one synchronous fetch to advance the cursor.
+With `fused_decode` (kwarg, then LLMLB_FUSED_DECODE, then on for paged and
+off for dense) the schema is registered in the device grammar table
+(`ops/grammar.py`) and its rows decode inside the burst's graph under the
+grammar key, the host writing each row's cursor before a burst. A schema
+the table's budget cannot hold (or `fused_decode` off) takes the host-mask
+fallback: one step (k = 1) biased by a static [slots, V] buffer whose rows
+the host refreshes, counted as a constrained-burst fallback where the burst
+is longer. Once a schema is refused, every constrained row keeps a host row
+too (the reference's one-way `_grammar_fallback`); a step whose constrained
+rows are all resident still runs the grammar key. A park keeps the cursor,
+which already stands after every committed token, so the forced cells of a
+resume leave it where it is; a landed row takes it as it was parked.
+
+Left out of this slice (see ROADMAP.md): speculative decoding (and with it
+the drafter of ParkedState and the grammar-masked fused verify),
 context-parallel prefill, disaggregation and split-mode preemption (and
 with them the handoff's page export), the prefill chunk budget, and of the
-prefix cache its preference for context-parallel prefill and its
-Prometheus series.
+prefix cache and structured outputs their Prometheus series.
 """
 
 from __future__ import annotations
@@ -148,12 +166,17 @@ from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
 from llmlb_tpu_torch.lora import LoraManager
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.models.llama import LlamaConfig
+from llmlb_tpu_torch.ops.grammar import GrammarTables
 from llmlb_tpu_torch.ops.sampling import sample_tokens
 from llmlb_tpu_torch.quant import (
     SCALE_SUFFIX,
     kv_cell_bytes,
     parse_quant_mode,
     quantize_params,
+)
+from llmlb_tpu_torch.structured.constraint import (
+    ConstraintState,
+    TokenConstraint,
 )
 
 log = logging.getLogger("llmlb_tpu_torch.engine.scheduler")
@@ -202,18 +225,24 @@ class SamplingParams:
     # Relative deadline from submission (X-Request-Deadline-Ms): a request
     # still queued past it is shed before its prefill.
     deadline_ms: float | None = None
+    # Grammar constraint spec (the `spec_regex` forms of
+    # structured/constraint.py); the compiled token DFA rides
+    # Request.compiled_constraint.
+    constraint: dict | None = None
 
 
 @dataclasses.dataclass
 class ParkedState:
     """What a parked request needs to resume token-identical: the tokens it
-    already committed (every one emitted), and its generation count. The
-    reference's grammar cursor and drafter fields come with A8 and A9.
-    Seeded rows fold their seed by absolute position, so sampling needs no
-    state here."""
+    already committed (every one emitted), its generation count, and its
+    grammar cursor, which already stands after every committed token (a
+    resume must never re-walk it from the start state). The reference's
+    drafter fields come with A9. Seeded rows fold their seed by absolute
+    position, so sampling needs no state here."""
 
     generated: int
     tokens: list[int]
+    constraint: ConstraintState | None = None
 
 
 @dataclasses.dataclass
@@ -237,6 +266,9 @@ class Request:
     # payload, or the offload tier's spill): landed at re-activation in
     # place of the replay. One-shot: cleared at first use, landed or not.
     kv_restore: KVPages | None = None
+    # The token DFA of sampling.constraint, compiled by the service before
+    # the submit (or by the core at admission, `_prepare_constraint`).
+    compiled_constraint: TokenConstraint | None = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -266,6 +298,13 @@ class _Slot:
     # A resumed row's committed tokens still to be fed through decode steps
     # in place of their samples (emitted before the park: not again).
     forced: list[int] = dataclasses.field(default_factory=list)
+    # The grammar cursor of a constrained row, and its schema's row offset
+    # in the device grammar table (-1: not resident, the host-mask path).
+    constraint: ConstraintState | None = None
+    gram_offset: int = -1
+    # the cursor already stands after the pending first token (activation
+    # advanced it): its emission must not advance it again
+    first_advanced: bool = False
 
     def clear(self) -> None:
         self.request = None
@@ -276,6 +315,9 @@ class _Slot:
         self.cache_entry = None
         self.out_tokens = []
         self.forced = []
+        self.constraint = None
+        self.gram_offset = -1
+        self.first_advanced = False
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -335,6 +377,50 @@ class KVShipCounters:
         default_factory=lambda: {r: 0 for r in KV_FALLBACK_REASONS})
 
 
+@dataclasses.dataclass
+class StructuredCounters:
+    """Structured outputs, under the reference's metric names: constrained
+    requests attached (resumes not counted again), masked decode bursts,
+    constraint violations (a grammar cut short, or a sample it refused),
+    bursts cut to one step by a schema off the device table, the
+    compiler's mask-cache hits, misses and evictions, and its compile
+    seconds."""
+
+    structured_requests_total: int = 0
+    masked_decode_steps_total: int = 0
+    constraint_violations_total: int = 0
+    constrained_burst_fallback_total: int = 0
+    mask_cache_hits_total: int = 0
+    mask_cache_misses_total: int = 0
+    mask_cache_evictions_total: int = 0
+    schema_compile_seconds_total: float = 0.0
+
+
+class _StructuredMetrics:
+    """The ConstraintCompiler's metric hooks (the reference hands it its
+    EngineMetrics), counting into the core's StructuredCounters under the
+    core's lock: the compiler runs on HTTP threads."""
+
+    def __init__(self, counters: StructuredCounters, lock):
+        self._c, self._lock = counters, lock
+
+    def record_mask_cache_hit(self) -> None:
+        with self._lock:
+            self._c.mask_cache_hits_total += 1
+
+    def record_mask_cache_miss(self) -> None:
+        with self._lock:
+            self._c.mask_cache_misses_total += 1
+
+    def record_mask_cache_eviction(self) -> None:
+        with self._lock:
+            self._c.mask_cache_evictions_total += 1
+
+    def record_schema_compile(self, seconds: float) -> None:
+        with self._lock:
+            self._c.schema_compile_seconds_total += float(seconds)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     num_slots: int
@@ -344,8 +430,8 @@ class EngineStats:
     total_tokens: int
     uptime_s: float
     # decode bursts run as graph replays and eagerly (a key's warm-up, or
-    # every burst without graphs), and the (window, seeded) keys captured:
-    # the counterpart of the JAX engine's per-step `dispatches`
+    # every burst without graphs), and the (window, seeded, mode) keys
+    # captured: the counterpart of the JAX engine's per-step `dispatches`
     decode_graph_replays: int = 0
     decode_eager_bursts: int = 0
     decode_graphs: int = 0
@@ -360,6 +446,9 @@ class EngineStats:
     drain_parked_total: int = 0
     # a copy of the KV page movement counters
     kv: KVShipCounters = dataclasses.field(default_factory=KVShipCounters)
+    # a copy of the structured-output counters
+    structured: StructuredCounters = dataclasses.field(
+        default_factory=StructuredCounters)
 
 
 class EngineCore:
@@ -395,6 +484,7 @@ class EngineCore:
         min_prefix_len: int | None = None,
         kv_ship: bool | None = None,
         kv_offload_bytes: int | None = None,
+        fused_decode: bool | None = None,
     ):
         self.device = resolve_device(device)
         # one CUDA graph per decode burst key: on by default on the card
@@ -591,6 +681,8 @@ class EngineCore:
         self._d_force_mask = torch.zeros((self.decode_burst, num_slots),
                                          dtype=torch.bool, device=self.device)
         self._force_dirty = False
+        # the grammar key's cursors (0: the free row), written before a burst
+        self._d_gram_state = torch.zeros(num_slots, **z32)
         self._burst_state = BurstState(
             params=self.params, cfg=cfg, cache_k=self.cache_k,
             cache_v=self.cache_v, block_tables=self._d_block_tables,
@@ -600,7 +692,8 @@ class EngineCore:
             seeds=self._d_seeds, lora_idx=(self._d_lora_idx if self.lora
                                            is not None else None),
             nan_rows=self._d_nan_rows, generator=self._generator,
-            force_tokens=self._d_force_tokens, force_mask=self._d_force_mask)
+            force_tokens=self._d_force_tokens, force_mask=self._d_force_mask,
+            gram_state=self._d_gram_state)
         self._bursts = BurstGraphs(
             self._burst_body,
             cuda_capture(self.device, self._generator)
@@ -669,6 +762,43 @@ class EngineCore:
         self.prefill_dispatches = 0
         self.decode_bursts = 0
         self._prefill_rr = 0  # rotation among concurrently-prefilling slots
+
+        # Structured outputs. The compiler needs the tokenizer: the service
+        # installs its own (core-level submitters may pre-compile
+        # Request.compiled_constraint themselves).
+        self.constraint_compiler = None
+        self.structured_counters = StructuredCounters()
+        self.structured_metrics = _StructuredMetrics(self.structured_counters,
+                                                     self._lock)
+        # Fused decode, resolved as the reference resolves it: kwarg, then
+        # LLMLB_FUSED_DECODE, then on for paged and off for dense. On, a
+        # constrained row's schema goes into the device grammar table and
+        # the row rides the burst under the grammar key; off, every
+        # constrained burst takes the host-mask path.
+        if fused_decode is None:
+            env = os.environ.get("LLMLB_FUSED_DECODE", "").strip().lower()
+            if env in ("1", "true", "on", "yes"):
+                fused_decode = True
+            elif env in ("0", "false", "off", "no"):
+                fused_decode = False
+            elif env:
+                log.warning("LLMLB_FUSED_DECODE=%r is not a boolean; using "
+                            "the auto default", env)
+        if fused_decode is None:
+            fused_decode = self.kv_layout == "paged"
+        self.fused_decode = bool(fused_decode)
+        self._grammar_tables: GrammarTables | None = (
+            GrammarTables(cfg.vocab_size, device=self.device)
+            if self.fused_decode else None)
+        self._grammar_warned = False
+        # one-way: a schema missed the table, so every constrained row keeps
+        # a host mask row too (a mixed batch's fallback masks all of them)
+        self._grammar_fallback = False
+        # the host-mask path: [slots, V] float32 rows on the host, and their
+        # device copy (allocated once, refreshed per dirty row in place)
+        self._mask_bias: np.ndarray | None = None
+        self._d_mask: torch.Tensor | None = None
+        self._mask_dirty_rows: set[int] = set()
 
     # ------------------------------------------------------------------ public
 
@@ -775,7 +905,34 @@ class EngineCore:
             deadline_shed_total=self.deadline_shed_total,
             drain_parked_total=self.drain_parked_total,
             kv=self._kv_counters_copy(),
+            structured=self._structured_counters_copy(),
         )
+
+    def _structured_counters_copy(self) -> StructuredCounters:
+        with self._lock:
+            return dataclasses.replace(self.structured_counters)
+
+    def _count(self, name: str, n: int = 1) -> None:
+        """Add to one structured-output counter (the step loop's side)."""
+        with self._lock:
+            setattr(self.structured_counters, name,
+                    getattr(self.structured_counters, name) + n)
+
+    def structured_info(self) -> dict:
+        """The `structured` block of /api/health and /api/system: the
+        constraint compiler's mask-cache figures plus live load, as the
+        reference's, and the device grammar table's occupancy."""
+        if self.constraint_compiler is None:
+            return {"enabled": False}
+        info = self.constraint_compiler.info()
+        info["active_constrained_slots"] = sum(
+            1 for s in self.slots if s.constraint is not None)
+        info["fused_decode"] = self.fused_decode
+        info["grammar_fallback"] = self._grammar_fallback
+        info["grammar_table"] = (self._grammar_tables.info()
+                                 if self._grammar_tables is not None
+                                 else {"enabled": False})
+        return info
 
     def queue_class_depths(self) -> dict[str, int]:
         """Queued requests per priority class (the held one included)."""
@@ -1090,13 +1247,16 @@ class EngineCore:
         if not self._parkable(slot):
             raise RuntimeError(f"slot {slot_id} cannot park (prefilling or "
                                "first token pending)")
+        # the grammar cursor parks with the request
         request.parked = ParkedState(generated=slot.generated,
-                                     tokens=list(slot.out_tokens))
+                                     tokens=list(slot.out_tokens),
+                                     constraint=slot.constraint)
         # the KV leaves before the pool reclaims its pages: an export for
         # the gateway, and the offload tier's copy for a local restore
         self._spill_parked_slot(slot_id, request, reason)
         self._release_cache_entry(slot)
         self._free_slot_kv(slot_id)
+        self._clear_constraint(slot_id)  # the live mask row only
         slot.clear()
         self.preemptions_total += 1
         log.info("parked request %s at %d committed tokens (priority %s, %s)",
@@ -1181,6 +1341,7 @@ class EngineCore:
             self._maybe_cache_prefix(slot_id, request)
         self._release_cache_entry(slot)
         self._free_slot_kv(slot_id)
+        self._clear_constraint(slot_id)
         slot.clear()
 
     # ------------------------------------------------------------- paged KV
@@ -1279,6 +1440,10 @@ class EngineCore:
                     log.warning("page pool exhausted mid-decode; finishing "
                                 "request %s at %d tokens", request.request_id,
                                 int(self._seq_lens[i]))
+                    if (slot.constraint is not None
+                            and not slot.constraint.is_accepting):
+                        # a grammar cut short: _emit's length rule
+                        self._count("constraint_violations_total")
                     self._finish_slot(i, "length")
                     continue
                 self._extend_slot_pages(i, fresh)
@@ -1328,6 +1493,12 @@ class EngineCore:
                 handled = True
                 continue
             if self._shed_expired(request):
+                handled = True
+                continue
+            try:
+                self._prepare_constraint(request)
+            except Exception as e:  # boundary: the request's own error
+                self._finish(request, "error", f"constraint rejected: {e}")
                 handled = True
                 continue
             n = len(request.prompt_ids)
@@ -1575,6 +1746,10 @@ class EngineCore:
         sampling params, lengths and first tokens into the per-slot device
         state. Padding rows repeat the last real row."""
         count_nan_rows(self._d_nan_rows, logits)
+        # every insert path funnels through here (or _insert_restored): the
+        # cursor and mask row go in before the first token is sampled
+        for slot_id, request, _n in group:
+            self._attach_constraint(slot_id, request)
         padded = len(padded_slot_ids)
         temps = np.ones((padded,), np.float32)
         top_ps = np.ones((padded,), np.float32)
@@ -1596,8 +1771,20 @@ class EngineCore:
         # the activation sample must use a different step for seeded rows
         d_seeds = self._to_device(seeds)
         seeded = bool((seeds >= 0).any())
+        # constrained rows sample their first token under their cursor's
+        # mask row (padding rows repeat the last real row)
+        constrained = [row for row, (slot_id, _r, _n) in enumerate(group)
+                       if self.slots[slot_id].constraint is not None]
+        mask = None
+        if constrained:
+            bias = np.zeros((padded, logits.shape[-1]), np.float32)
+            for row in constrained:
+                bias[row] = self.slots[group[row][0]].constraint.bias_row()
+            bias[len(group):] = bias[len(group) - 1]
+            mask = self._to_device(bias)
         firsts = sample_tokens(logits, self._generator, d_temps, d_top_ps,
-                               d_top_ks, seeds=d_seeds if seeded else None,
+                               d_top_ks, mask_bias=mask,
+                               seeds=d_seeds if seeded else None,
                                steps=self._to_device(padded_lens - 1))
         # a resumed row's last token going in is its first committed token,
         # not the activation sample (an unseeded row's would be another
@@ -1624,6 +1811,23 @@ class EngineCore:
             self._d_lora_idx[idx] = self._to_device(lidx)
         self._d_seq_lens[idx] = self._to_device(padded_lens)
         self._d_last_tokens[idx] = firsts
+        # The next burst needs each constrained row's cursor past its first
+        # token, which exists only on the device: one synchronous fetch per
+        # constrained activation (the reference's constrained-TTFT cost). A
+        # resumed row's first token is its first committed one, which its
+        # parked cursor already stands after: no advance.
+        fresh = [row for row in constrained
+                 if not (parked[row] and parked[row].tokens)]
+        if fresh:
+            first_host = firsts.cpu().numpy()
+            for row in fresh:
+                slot_id = group[row][0]
+                state = self.slots[slot_id].constraint
+                if state.advance(int(first_host[row])):
+                    self._set_mask_row(slot_id, state)
+                else:
+                    self._count("constraint_violations_total")
+                self.slots[slot_id].first_advanced = True
         for row, (slot_id, request, n) in enumerate(group):
             self._seq_lens[slot_id] = n
             self._seeds[slot_id] = seeds[row]
@@ -1667,24 +1871,39 @@ class EngineCore:
         if not active:
             return True
         self._sync_block_tables()
-        self._sync_forced(active)
-        window = self._window_for(active, self.decode_burst)
+        k, mode = self.decode_burst, "free"
+        if any(self.slots[i].constraint is not None for i in active):
+            if self._fused_step_ok(active):
+                # every constrained row's schema is in the device table
+                mode = "grammar"
+                self._sync_gram_state(active)
+            else:
+                # the host-mask fallback: one step under the host's rows
+                mode = "mask"
+                if k > 1:
+                    self._count("constrained_burst_fallback_total")
+                k = 1
+                self._sync_mask()
+            self._count("masked_decode_steps_total")
+        self._sync_forced(active, k)
+        window = self._window_for(active, k)
         # seeded rows draw threefry noise, another graph: decided on the host
         seeded = bool((self._seeds[active] >= 0).any())
-        self._bursts.run(window, seeded)
-        tokens = self._d_tokens.cpu().numpy()  # the ONE host sync per burst
+        self._bursts.run(window, seeded, mode)
+        # the ONE host sync per burst
+        tokens = self._d_tokens[:k + 1].cpu().numpy()
         self.decode_bursts += 1
         self._emit_fetched(tokens, active)
         return True
 
-    def _sync_forced(self, active: list[int]) -> None:
+    def _sync_forced(self, active: list[int], k: int) -> None:
         """Write the burst's forced tokens: each resumed row's next
-        committed tokens, one a step, into the device buffer and mask the
-        burst reads (in place; copied only when this burst or the last one
-        forces anything)."""
+        committed tokens, one a step of the burst's k, into the device
+        buffer and mask the burst reads (in place; copied only when this
+        burst or the last one forces anything)."""
         self._force_mask[:] = False
         for i in active:
-            feed = self.slots[i].forced[:self.decode_burst]
+            feed = self.slots[i].forced[:k]
             self._force_tokens[:len(feed), i] = feed
             self._force_mask[:len(feed), i] = True
         forcing = bool(self._force_mask.any())
@@ -1693,10 +1912,18 @@ class EngineCore:
             self._d_force_mask.copy_(torch.from_numpy(self._force_mask))
         self._force_dirty = forcing
 
-    def _burst_body(self, window: int, seeded: bool) -> None:
+    def _burst_body(self, window: int, seeded: bool, mode: str) -> None:
         """The k steps of one burst over the static buffers (eager, or under
-        capture)."""
-        burst_body(self._burst_state, window, seeded)
+        capture). The mask key runs one step: the first two rows of the
+        token block and the first row of the forced buffers, views of the
+        same static storage."""
+        state = self._burst_state
+        if mode == "mask":
+            state = dataclasses.replace(
+                state, tokens=state.tokens[:2],
+                force_tokens=state.force_tokens[:1],
+                force_mask=state.force_mask[:1])
+        burst_body(state, window, seeded, mode)
 
     def _emit_fetched(self, tokens: np.ndarray, active: list[int]) -> None:
         """Deliver one fetched token block [k+1, slots]: row 0 holds first
@@ -1725,7 +1952,9 @@ class EngineCore:
 
     def _emit(self, slot_id: int, token: int) -> None:
         """Deliver one generated token and apply the finish rules: EOS,
-        max_tokens, and the slot-capacity edge."""
+        max_tokens, and the slot-capacity edge. A constrained row's cursor
+        advances on the token (not on a first token whose cursor activation
+        advanced), and the new state's mask row governs the next burst."""
         slot = self.slots[slot_id]
         request = slot.request
         if request.cancelled:
@@ -1736,6 +1965,15 @@ class EngineCore:
             request.first_token_at = time.monotonic()
         with self._lock:
             self.total_tokens += 1
+        # The mask makes a refused sample impossible, so a failed advance
+        # means a vocabulary gap forced the EOS fallback: counted.
+        state = slot.constraint
+        first_advanced, slot.first_advanced = slot.first_advanced, False
+        if state is not None and not first_advanced:
+            if not state.advance(token):
+                self._count("constraint_violations_total")
+            elif token != self.eos_id:
+                self._set_mask_row(slot_id, state)
         finish: str | None = None
         if token == self.eos_id:
             finish = "stop"  # EOS itself is not emitted as content
@@ -1746,8 +1984,128 @@ class EngineCore:
                 finish = "length"
             elif self._seq_lens[slot_id] + 1 >= self.slot_capacity:
                 finish = "length"
+        if (finish == "length" and state is not None
+                and not state.is_accepting):
+            # cut short before the grammar accepted
+            self._count("constraint_violations_total")
         if finish is not None:
             self._finish_slot(slot_id, finish, donate=True)
+
+    # ------------------------------------------------------------ constraints
+
+    def _prepare_constraint(self, request: Request) -> None:
+        """A constrained request carries its compiled token DFA before it
+        claims a slot: the service compiles it off the step loop; this is
+        the fallback for core-level submitters. Raises for uncompilable
+        specs (the caller ends the request with the error)."""
+        if (request.compiled_constraint is None
+                and request.sampling.constraint is not None):
+            if self.constraint_compiler is None:
+                raise ValueError("request carries a constraint but the engine "
+                                 "has no constraint compiler")
+            request.compiled_constraint = self.constraint_compiler.compile_spec(
+                request.sampling.constraint)
+
+    def _attach_constraint(self, slot_id: int, request: Request) -> None:
+        """Install the row's cursor (a parked one as it was, else a fresh
+        one at the start state) and its mask row. With fused decode the
+        schema registers in the device table (once per schema); a schema
+        the budget refuses keeps the host-mask path, and from then on every
+        constrained row keeps a host row as well."""
+        if request.compiled_constraint is None:
+            return
+        parked = request.parked
+        if parked is not None and parked.constraint is not None:
+            state = parked.constraint
+        else:
+            state = ConstraintState(request.compiled_constraint)
+            self._count("structured_requests_total")
+        slot = self.slots[slot_id]
+        slot.constraint = state
+        slot.gram_offset = -1
+        tables = self._grammar_tables
+        if tables is not None:
+            off = tables.register(request.compiled_constraint)
+            if off is not None:
+                slot.gram_offset = off
+                if self._burst_state.gram_table is None:
+                    # allocated once: captured grammar graphs hold it
+                    self._burst_state = dataclasses.replace(
+                        self._burst_state, gram_table=tables.table())
+            elif not self._grammar_fallback:
+                self._grammar_fallback = True
+                if not self._grammar_warned:
+                    self._grammar_warned = True
+                    log.warning("grammar table budget exceeded "
+                                "(LLMLB_GRAMMAR_TABLE_MB=%d MiB); constrained "
+                                "decoding falls back to the host-mask path",
+                                tables.budget_bytes >> 20)
+                for j, other in enumerate(self.slots):
+                    if other.constraint is not None and j != slot_id:
+                        self._set_mask_row(j, other.constraint, force=True)
+        self._set_mask_row(slot_id, state)
+
+    def _set_mask_row(self, slot_id: int, state: ConstraintState, *,
+                      force: bool = False) -> None:
+        """The row's host mask row from its cursor, unless the grammar key
+        derives it on the device (a resident schema, no fallback yet)."""
+        if (not force and self.fused_decode and not self._grammar_fallback
+                and self.slots[slot_id].gram_offset >= 0):
+            return
+        if self._mask_bias is None:
+            self._mask_bias = np.zeros((self.num_slots, self.cfg.vocab_size),
+                                       np.float32)
+        self._mask_bias[slot_id] = state.bias_row()
+        self._mask_dirty_rows.add(slot_id)
+
+    def _clear_constraint(self, slot_id: int) -> None:
+        """Drop a row's cursor and zero its host mask row (a park took the
+        cursor onto the request first)."""
+        slot = self.slots[slot_id]
+        slot.gram_offset = -1
+        if slot.constraint is None:
+            return
+        slot.constraint = None
+        if self._mask_bias is not None:
+            self._mask_bias[slot_id] = 0.0
+            self._mask_dirty_rows.add(slot_id)
+
+    def _sync_mask(self) -> None:
+        """The device copy of the host mask, refreshed per dirty row in
+        place (one row per cursor advance), as the reference's. Allocated
+        at the first fallback burst and never again: the mask key's graph
+        reads its address."""
+        if self._d_mask is None:
+            # a copy: on the CPU a tensor from numpy would share the rows
+            self._d_mask = self._to_device(self._mask_bias.copy())
+            self._burst_state = dataclasses.replace(self._burst_state,
+                                                    mask_bias=self._d_mask)
+        elif self._mask_dirty_rows:
+            rows = sorted(self._mask_dirty_rows)
+            self._d_mask.index_copy_(
+                0, torch.as_tensor(rows, dtype=torch.int64, device=self.device),
+                self._to_device(self._mask_bias[rows]))
+        self._mask_dirty_rows.clear()
+
+    def _sync_gram_state(self, active: list[int]) -> None:
+        """The grammar key's cursors from the host FSMs (the source of
+        truth, advanced in _emit): offset + state per constrained row, 0
+        (the free row) for every other slot; one [slots] copy in place."""
+        gs = np.zeros((self.num_slots,), np.int32)
+        for i in active:
+            slot = self.slots[i]
+            if slot.constraint is not None and slot.gram_offset >= 0:
+                gs[i] = slot.gram_offset + slot.constraint.state
+        self._d_gram_state.copy_(torch.from_numpy(gs))
+
+    def _fused_step_ok(self, active: list[int]) -> bool:
+        """The burst can run under the grammar key: fused decode on and
+        every active constrained row's schema in the device table (one row
+        off it takes the whole burst to the host-mask path)."""
+        if not self.fused_decode:
+            return False
+        return all(self.slots[i].constraint is None
+                   or self.slots[i].gram_offset >= 0 for i in active)
 
     # ------------------------------------------------------------ kv transfer
 
@@ -1885,6 +2243,8 @@ class EngineCore:
         slot.out_tokens = list(st.tokens)
         slot.forced = []
         slot.first_pending = False
+        # the parked cursor as it was: it stands after every committed token
+        self._attach_constraint(slot_id, request)
         request.parked = None
         self.preempt_resumes_total += 1
         self._record_kv_restore(kvp.nbytes)
@@ -2081,6 +2441,7 @@ class EngineCore:
                 self._finish(slot.request, "error", message)
             self._release_cache_entry(slot)
             self._free_slot_kv(slot_id)
+            self._clear_constraint(slot_id)
             slot.clear()
         self._drop_prefix_cache()
         while True:

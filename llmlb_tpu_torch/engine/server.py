@@ -3,8 +3,9 @@ library (`http.server.ThreadingHTTPServer`, one thread per connection).
 
 Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
 
-- `GET /v1/models`, with the reference's capabilities (`embeddings` where
-  the model family has an `encode` forward, `lora` with adapters on);
+- `GET /v1/models`, with the reference's capabilities (`structured_outputs`,
+  `embeddings` where the model family has an `encode` forward, `lora` with
+  adapters on);
 - `POST /v1/chat/completions`, streaming (SSE, written and flushed chunk by
   chunk, ending with a usage chunk and `data: [DONE]`) and non-streaming,
   with the reference's chunk and usage shapes;
@@ -37,13 +38,18 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   detection keys on to treat this as an in-tree engine — and
   `"backend": "cuda"`.
 
-Request fields are honoured or refused, never ignored: `priority` (the
+Request fields are validated by the reference's rules: `priority` (the
 admission class; a more important request may park a less important one)
 and the `X-Request-Deadline-Ms` header (a request still queued past it is
-shed) are validated by the reference's rules, `speculative` is validated
-and carried; a `response_format` other than text and a `tool_choice` the
-reference would constrain are 400s naming the field, since the port has no
-constrained decoding.
+shed), `speculative` (validated and carried). Structured outputs, as the
+reference serves them: a chat's `response_format` (`json_object`,
+`json_schema`) or forced `tool_choice` goes through the port's
+`inspect_request` (malformed or uncompilable requests are 400s naming the
+feature) and becomes the request's grammar constraint; a forced tool call
+is answered in the `tool_calls` shape (streamed: a first delta with the
+call's id and name, then the arguments as fragments) with finish_reason
+`"tool_calls"` where the grammar ended the call. `/api/health` and
+`/api/system` carry the `structured` block.
 
 Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
 or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
@@ -78,6 +84,7 @@ from llmlb_tpu_torch import __version__
 from llmlb_tpu_torch.engine.scheduler import SamplingParams
 from llmlb_tpu_torch.engine.service import Engine, EngineError
 from llmlb_tpu_torch.lora import adapter_from_body
+from llmlb_tpu_torch.structured import inspect_request
 
 log = logging.getLogger("llmlb_tpu_torch.engine.server")
 
@@ -113,7 +120,6 @@ def _sampling_from(body: dict, default_max: int = 256,
     seed = body.get("seed")
     if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int)):
         raise ValueError("'seed' must be an integer")
-    _refuse_structured(body)
     return SamplingParams(temperature=temperature, top_p=top_p, top_k=top_k,
                           max_tokens=max_tokens, seed=seed,
                           priority=_priority_from(body),
@@ -178,54 +184,6 @@ def _speculative_from(body: dict) -> dict | None:
                 "'speculative.max_draft_tokens' must be a positive integer")
         out["max_draft_tokens"] = k
     return out or None
-
-
-def _refuse_structured(body: dict) -> None:
-    """The port has no constrained decoding: a `response_format` other than
-    text, or a `tool_choice` the reference would constrain (a function
-    object, or "required" with exactly one tool), is refused naming the
-    field rather than answered with free text. "auto" and "none" leave the
-    model free, and so does "required" with several tools, which the
-    reference passes through unconstrained. Malformed shapes get the
-    reference's 400s (`_forced_tool` in llmlb_tpu/structured/openai_api.py)."""
-    rf = body.get("response_format")
-    if rf is not None:
-        if not isinstance(rf, dict):
-            raise ValueError("response_format must be an object")
-        if rf.get("type") not in (None, "text"):
-            raise ValueError(
-                f"response_format type {rf.get('type')!r} is not supported "
-                "by this engine (no constrained decoding; only 'text')")
-    choice = body.get("tool_choice")
-    if choice is None or choice in ("auto", "none"):
-        return
-    tools = body.get("tools")
-    if choice == "required":
-        if not isinstance(tools, list) or not tools:
-            raise ValueError("tool_choice 'required' needs a 'tools' array")
-        if len(tools) != 1:
-            return  # one of several tools: unconstrained, as the reference
-        fn = (tools[0] or {}).get("function")
-        if not isinstance(fn, dict) or not fn.get("name"):
-            raise ValueError("tools[0].function.name is required")
-    elif isinstance(choice, dict):
-        if choice.get("type") != "function":
-            raise ValueError(
-                f"unsupported tool_choice type {choice.get('type')!r}")
-        name = (choice.get("function") or {}).get("name")
-        if not isinstance(name, str) or not name:
-            raise ValueError("tool_choice.function.name is required")
-        if not any(isinstance(t, dict) and isinstance(t.get("function"), dict)
-                   and t["function"].get("name") == name
-                   for t in tools or []):
-            raise ValueError(f"tool_choice names unknown function {name!r}")
-    else:
-        raise ValueError("tool_choice must be 'auto', 'none', 'required', "
-                         "or a {type: 'function'} object")
-    raise ValueError("tool_choice that forces a tool call is not "
-                     "supported by this engine (no constrained "
-                     "decoding; only 'auto', 'none', or 'required' with "
-                     "several tools)")
 
 
 def _stops_from(body: dict) -> list[str]:
@@ -465,6 +423,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "lora": engine.core.lora_info(),
                 "sched": engine.core.sched_info(),
                 "kv_transfer": engine.core.kv_transfer_info(),
+                "structured": engine.core.structured_info(),
                 "draining": self.server.drain.info(),
             })
         else:
@@ -551,8 +510,11 @@ class _Handler(BaseHTTPRequestHandler):
     # ------------------------------------------------------ chat completions
 
     def _parse_chat(self, body: dict):
-        """(prompt_ids, sampling, stops, model) of a chat body; ValueError
-        naming the field when it is malformed."""
+        """(prompt_ids, sampling, stops, tool_name, model) of a chat body;
+        ValueError naming the field (or the unsupported schema feature)
+        when it is malformed. A `response_format` or forced `tool_choice`
+        becomes the sampling's grammar constraint; `tool_name` is the
+        forced tool's, for the answer's shape."""
         engine = self.server.engine
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
@@ -560,24 +522,30 @@ class _Handler(BaseHTTPRequestHandler):
         if int(body.get("n") or 1) != 1:
             raise ValueError("only n=1 is supported")
         prompt_ids = engine.encode_chat(messages)
+        structured = inspect_request(body)
         sampling = _sampling_from(body,
                                   deadline_ms=_deadline_from(self.headers))
+        tool_name = None
+        if structured is not None:
+            sampling.constraint = structured.spec
+            tool_name = structured.tool_name
         model = body.get("model") or engine.model_id
         adapter, base = _parse_lora(engine, body)
         if adapter is not None:
             sampling.lora = adapter
             model = base or model
-        return prompt_ids, sampling, _stops_from(body), model
+        return prompt_ids, sampling, _stops_from(body), tool_name, model
 
     def _chat(self, body: dict) -> None:
         try:
-            prompt_ids, sampling, stops, model = self._parse_chat(body)
+            prompt_ids, sampling, stops, tool_name, model = self._parse_chat(
+                body)
             deltas = self.server.engine.stream(
                 prompt_ids, sampling, stops, request_id=self._request_id())
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
-        self._answer_chat(body, deltas, model, len(prompt_ids))
+        self._answer_chat(body, deltas, model, len(prompt_ids), tool_name)
 
     def _resume(self, body: dict) -> None:
         """POST /v1/resume: the original chat body plus `committed_ids`, the
@@ -596,7 +564,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, "'committed_ids' must be a list of token ids")
             return
         try:
-            prompt_ids, sampling, stops, model = self._parse_chat(body)
+            prompt_ids, sampling, stops, tool_name, model = self._parse_chat(
+                body)
             kv_pages = body.get("kv_pages")
             deltas = self.server.engine.adopt_stream(
                 prompt_ids, committed, sampling, stops,
@@ -605,10 +574,10 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
-        self._answer_chat(body, deltas, model, len(prompt_ids))
+        self._answer_chat(body, deltas, model, len(prompt_ids), tool_name)
 
     def _answer_chat(self, body: dict, deltas, model: str,
-                     prompt_tokens: int) -> None:
+                     prompt_tokens: int, tool_name: str | None = None) -> None:
         completion_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         if body.get("stream"):
@@ -616,21 +585,29 @@ class _Handler(BaseHTTPRequestHandler):
                 (body.get("stream_options") or {}).get("include_usage", True))
             self._stream_chat(deltas, completion_id, created, model,
                               prompt_tokens, include_usage,
-                              replay=bool(body.get("llmlb_replay")))
+                              replay=bool(body.get("llmlb_replay")),
+                              tool_name=tool_name)
             return
         final = self._collect(deltas)
         if final is None:
             return
+        finish = final.finish_reason
+        if tool_name is not None:
+            # a forced tool call: the constrained text is its arguments
+            message = {"role": "assistant", "content": None, "tool_calls": [{
+                "id": f"call_{uuid.uuid4().hex[:24]}", "type": "function",
+                "function": {"name": tool_name, "arguments": final.text}}]}
+            finish = "tool_calls" if finish == "stop" else finish
+        else:
+            message = {"role": "assistant", "content": final.text}
         self._json(200, {
             "id": completion_id,
             "object": "chat.completion",
             "created": created,
             "model": model,
             "system_fingerprint": SYSTEM_FINGERPRINT,
-            "choices": [{"index": 0,
-                         "message": {"role": "assistant",
-                                     "content": final.text},
-                         "finish_reason": final.finish_reason}],
+            "choices": [{"index": 0, "message": message,
+                         "finish_reason": finish}],
             "usage": _usage(final.prompt_tokens, final.completion_tokens),
         })
 
@@ -651,7 +628,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _stream_chat(self, deltas, completion_id: str, created: int,
                      model: str, prompt_tokens: int,
-                     include_usage: bool, replay: bool = False) -> None:
+                     include_usage: bool, replay: bool = False,
+                     tool_name: str | None = None) -> None:
         self._start_sse()
 
         def chunk(delta: dict, finish: str | None = None) -> dict:
@@ -669,6 +647,14 @@ class _Handler(BaseHTTPRequestHandler):
         finish = "stop"
         try:
             self._sse(chunk({"role": "assistant", "content": ""}))
+            if tool_name is not None:
+                # a forced tool call: the first tool delta opens the call
+                # (id and name), the constrained arguments follow as
+                # fragments
+                self._sse(chunk({"tool_calls": [{
+                    "index": 0, "id": f"call_{uuid.uuid4().hex[:24]}",
+                    "type": "function",
+                    "function": {"name": tool_name, "arguments": ""}}]}))
             try:
                 for delta in deltas:
                     if replay and delta.token_ids:
@@ -677,7 +663,11 @@ class _Handler(BaseHTTPRequestHandler):
                         self._sse({"object": "llmlb.replay",
                                    "tokens": [int(t)
                                               for t in delta.token_ids]})
-                    if delta.text:
+                    if delta.text and tool_name is not None:
+                        self._sse(chunk({"tool_calls": [{
+                            "index": 0,
+                            "function": {"arguments": delta.text}}]}))
+                    elif delta.text:
                         self._sse(chunk({"content": delta.text}))
                     if delta.finish_reason is not None:
                         finish = delta.finish_reason
@@ -687,6 +677,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._sse({"error": {"message": str(e)}})
                 self._sse("[DONE]")
                 return
+            if tool_name is not None and finish == "stop":
+                finish = "tool_calls"
             self._sse(chunk({}, finish))
             if include_usage:
                 final = chunk({}, None)
@@ -907,14 +899,15 @@ class _Handler(BaseHTTPRequestHandler):
 
 def _models(engine: Engine) -> list[dict]:
     """The /v1/models entries, with the reference's capabilities: the base
-    model, with `embeddings` (the one family, Llama, has an `encode`
-    forward) and `lora` when adapters are on ("this endpoint can load any
-    adapter of its store"), then one `base:adapter` entry per RESIDENT adapter (without
-    `embeddings`: the encode forward applies no adapter), so the gateway
-    routes adapter traffic where it is already loaded. Not advertised:
-    `structured_outputs` (no constrained decoding, ROADMAP A8) and the
-    disaggregation roles' `prefill` / `decode` (ROADMAP A14)."""
-    caps = ["chat_completion", "embeddings"]
+    model, with `structured_outputs` (grammar-constrained decoding; the
+    gateway steers constrained requests by it), `embeddings` (the one
+    family, Llama, has an `encode` forward) and `lora` when adapters are on
+    ("this endpoint can load any adapter of its store"), then one
+    `base:adapter` entry per RESIDENT adapter (without `embeddings`: the
+    encode forward applies no adapter), so the gateway routes adapter
+    traffic where it is already loaded. Not advertised: the disaggregation
+    roles' `prefill` / `decode` (ROADMAP A14)."""
+    caps = ["chat_completion", "structured_outputs", "embeddings"]
     lora = engine.core.lora
     if lora is not None:
         caps.append("lora")

@@ -7,7 +7,9 @@ started (`adopt_stream`, behind /v1/resume, landing its KV pages when the
 origin shipped them) and the embedding forward
 (`embed`, behind /v1/embeddings). The port's HTTP server runs one thread per
 connection, so `stream` and `adopt_stream` are plain generators (the
-reference's are async).
+reference's are async), and a request's grammar constraint compiles on the
+caller's thread before the submit (the reference's executor): never on the
+step loop.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from llmlb_tpu_torch.engine.tokenizer import (
 )
 from llmlb_tpu_torch.engine.weights import load_checkpoint, load_config
 from llmlb_tpu_torch.quant import parse_quant_mode
+from llmlb_tpu_torch.structured import ConstraintCompiler, ConstraintState
 
 
 class EngineError(RuntimeError):
@@ -67,6 +70,12 @@ class Engine:
         self.model_id = model_id
         self.core = core
         self.tokenizer = tokenizer
+        # The grammar compiler needs the tokenizer, so the service owns it
+        # and installs it on the core (whose _prepare_constraint compiles
+        # for core-level submitters), as in the reference.
+        self.constraint_compiler = ConstraintCompiler(
+            tokenizer, core.cfg.vocab_size, metrics=core.structured_metrics)
+        core.constraint_compiler = self.constraint_compiler
 
     @classmethod
     def from_preset(
@@ -151,9 +160,17 @@ class Engine:
         Closing the generator early cancels the request so its slot frees.
         """
         request = Request(prompt_ids=list(prompt_ids), sampling=sampling,
-                          request_id=_request_id(request_id))
+                          request_id=_request_id(request_id),
+                          compiled_constraint=self._compile(sampling))
         self._submit(request)
         return self._deltas(request, stop)
+
+    def _compile(self, sampling: SamplingParams):
+        """The request's token DFA (an LRU hit for a repeated schema), or
+        None; a spec that cannot compile raises ValueError (a 400)."""
+        if sampling.constraint is None:
+            return None
+        return self.constraint_compiler.compile_spec(sampling.constraint)
 
     def adopt_stream(
         self,
@@ -180,7 +197,8 @@ class Engine:
         text and ids, so a second failover from this engine replays the
         full sequence. A stream already
         terminal in its committed tokens (a stop string, or max_tokens
-        reached) ends here without a submit."""
+        reached) ends here without a submit. A constrained stream's grammar
+        cursor is rebuilt by walking the committed tokens."""
         committed = [int(t) for t in committed_ids]
         bad = [t for t in committed if not 0 <= t < self.core.cfg.vocab_size]
         if bad:
@@ -195,11 +213,21 @@ class Engine:
                 finish_reason="stop" if hit is not None else "length",
                 prompt_tokens=len(prompt_ids),
                 completion_tokens=len(committed), token_ids=committed)])
+        compiled = self._compile(sampling)
+        cursor = None
+        if compiled is not None:
+            # at its handoff position: a start-state cursor would mask the
+            # continuation as if at the beginning of the string
+            cursor = ConstraintState(compiled)
+            for t in committed:
+                cursor.advance(t)
         request = Request(
             prompt_ids=list(prompt_ids), sampling=sampling,
             request_id=_request_id(request_id),
-            parked=ParkedState(generated=len(committed), tokens=committed),
-            kv_restore=self._kv_restore_of(kv_pages, committed))
+            parked=ParkedState(generated=len(committed), tokens=committed,
+                               constraint=cursor),
+            kv_restore=self._kv_restore_of(kv_pages, committed),
+            compiled_constraint=compiled)
         self._submit(request)
         return self._deltas(request, stop, committed)
 
@@ -423,6 +451,9 @@ class Engine:
             "sched": self.core.sched_info(),
             # KV page shipping and the host-RAM offload tier
             "kv_transfer": self.core.kv_transfer_info(),
+            # structured outputs: the compiler's mask cache, live
+            # constrained rows and the device grammar table
+            "structured": self.core.structured_info(),
         }
 
 

@@ -264,12 +264,12 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
         window = min(capacity,
                      1 << max(8, (ctx + BURST + 1 - 1).bit_length()))
         bursts = BurstGraphs(
-            lambda w, s: burst_body(state, w, s),
+            lambda w, s, m: burst_body(state, w, s, m),
             cuda_capture(device, gen) if device.type == "cuda" else None)
 
         def run():
             state.seq_lens.fill_(ctx)
-            bursts.run(window, False)
+            bursts.run(window, False, "free")
         return run
 
     def prefill(rows, bucket):

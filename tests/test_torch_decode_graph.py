@@ -133,7 +133,8 @@ def test_decode_key_is_window_bucket_and_seeded():
     assert core._window_buckets == (256, 512)
     keys = []
     run = core._bursts.run
-    core._bursts.run = lambda w, s: (keys.append((w, s)), run(w, s))
+    core._bursts.run = lambda w, s, *mode: (keys.append((w, s)),
+                                            run(w, s, *mode))
     _serve(core, _prompts((20,)), [dict(GREEDY, max_tokens=9)])
     assert set(keys) == {(256, False)}
     keys.clear()
@@ -167,9 +168,9 @@ def test_launch_accounting_around_capture_and_replay():
     per_burst = {"paged_flash_decode": 256, "lora_delta": 1792}
     bodies = []
 
-    def body(window, seeded):
+    def body(window, seeded, mode):
         # what the wrappers count while the body runs, eagerly or captured
-        bodies.append((window, seeded))
+        bodies.append((window, seeded, mode))
         build.add_launches(per_burst)
 
     graphs = []
@@ -180,16 +181,16 @@ def test_launch_accounting_around_capture_and_replay():
         return graphs[-1], 0, None
 
     bursts = BurstGraphs(body, capture)
-    bursts.run(256, False)  # eager warm-up, then capture
-    assert bodies == [(256, False)] * 2
+    bursts.run(256, False, "free")  # eager warm-up, then capture
+    assert bodies == [(256, False, "free")] * 2
     assert build.launches_since({}) == per_burst  # the capture's taken out
     for _ in range(3):
-        bursts.run(256, False)
+        bursts.run(256, False, "free")
     assert graphs[0].replays == 3 and len(bodies) == 2
     assert build.LAUNCHES["paged_flash_decode"] == 4 * 256
     assert build.LAUNCHES["lora_delta"] == 4 * 1792
-    bursts.run(512, True)
-    bursts.run(512, True)
+    bursts.run(512, True, "free")
+    bursts.run(512, True, "free")
     info = bursts.info()
     assert (info["graphs"], info["replays"], info["eager_bursts"]) == (2, 4, 2)
     assert info["keys"]["512/seeded"]["launches"] == per_burst

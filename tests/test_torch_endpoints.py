@@ -214,7 +214,8 @@ def test_models_advertise_embeddings(server):
     base, _engine = server
     with urllib.request.urlopen(base + "/v1/models", timeout=30) as resp:
         models = json.loads(resp.read())["data"]
-    assert models[0]["capabilities"] == ["chat_completion", "embeddings"]
+    assert models[0]["capabilities"] == ["chat_completion", "structured_outputs",
+                                         "embeddings"]
 
 
 # ----------------------------------------------------------- completions

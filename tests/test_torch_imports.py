@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "llmlb_tpu_torch.quant.core" in modules
     assert "llmlb_tpu_torch.ops._threefry" in modules
     for name in ("lora", "lora.api", "lora.store", "lora.manager", "ops.lora",
-                 "engine.safetensors_io", "kernels.build"):
+                 "engine.safetensors_io", "kernels.build", "ops.grammar",
+                 "structured.constraint", "structured.regex_dfa",
+                 "structured.json_schema", "structured.openai_api"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

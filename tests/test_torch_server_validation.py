@@ -4,12 +4,14 @@
 validated by the reference's rules: a malformed value is a 400 whose
 message is the reference server's own (its `_priority_from`,
 `_speculative_from` and `_deadline_from` run on the same input here), and
-a well-formed one is carried on the request's SamplingParams. The port has
-no constrained decoding, so a `response_format` other than text and a
-`tool_choice` the reference would constrain (a function object, or
-"required" with one tool) are 400s naming the field; "required" with
-several tools is served unconstrained, as the reference serves it, and
-the malformed tool shapes get the reference `_forced_tool`'s messages.
+a well-formed one is carried on the request's SamplingParams. Structured
+outputs are served as the reference serves them: a `response_format` of
+json_object or json_schema and a `tool_choice` the reference constrains
+(a function object, or "required" with one tool) become the request's
+grammar constraint, the reference `inspect_request`'s spec, and a forced
+tool call is answered in the `tool_calls` shape; "required" with several
+tools is served unconstrained, and the malformed tool shapes get the
+reference `_forced_tool`'s messages.
 The length and stop fields are read under every name the reference reads
 (`max_output_tokens`, `stop_sequences`). One debug-tiny server on the CPU
 serves every case.
@@ -22,7 +24,7 @@ import urllib.request
 import pytest
 
 from llmlb_tpu.engine import server as jax_server
-from llmlb_tpu.structured.openai_api import _forced_tool
+from llmlb_tpu.structured.openai_api import _forced_tool, inspect_request
 from llmlb_tpu_torch.engine import server as port_server
 from llmlb_tpu_torch.engine.server import start_server
 from llmlb_tpu_torch.engine.service import Engine
@@ -32,6 +34,12 @@ CHAT = {"model": "debug-tiny", "temperature": 0, "max_tokens": 2,
 TOOLS = [{"type": "function",
           "function": {"name": "get_weather",
                        "parameters": {"type": "object"}}}]
+# a schema the grammar compiler takes (a bare {"type": "object"} compiles
+# past its 65536-character cap: the reference refuses it too)
+SCHEMA = {"type": "object", "properties": {"city": {"enum": ["sf", "nyc"]}},
+          "required": ["city"]}
+SCHEMA_TOOLS = [{"type": "function",
+                 "function": {"name": "get_weather", "parameters": SCHEMA}}]
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +69,23 @@ def _error_of(base: str, body: dict, headers: dict | None = None) -> str:
         _post(base, body, headers)
     assert err.value.code == 400
     return json.loads(err.value.read())["error"]["message"]
+
+
+def _served_spec(base: str, body: dict, monkeypatch) -> tuple[dict, dict]:
+    """(the answer, the grammar spec the request was served with)."""
+    specs = []
+    stream = Engine.stream
+
+    def spy(engine, prompt_ids, sampling, *args, **kwargs):
+        specs.append(sampling.constraint)
+        return stream(engine, prompt_ids, sampling, *args, **kwargs)
+
+    monkeypatch.setattr(Engine, "stream", spy)
+    with _post(base, body) as resp:
+        assert resp.status == 200
+        out = json.loads(resp.read())
+    [spec] = specs
+    return out, spec
 
 
 def _reference_message(fn, arg) -> str:
@@ -108,16 +133,28 @@ def test_malformed_deadline_header_is_400_with_the_reference_message(server,
 @pytest.mark.parametrize("field,value", [
     ("response_format", {"type": "json_object"}),
     ("response_format", {"type": "json_schema",
-                         "json_schema": {"name": "x",
-                                         "schema": {"type": "object"}}}),
+                         "json_schema": {"name": "x", "schema": SCHEMA}}),
     ("tool_choice", "required"),
     ("tool_choice", {"type": "function",
                      "function": {"name": "get_weather"}}),
 ])
 def test_unhonourable_structured_fields_are_400_naming_them(server, field,
-                                                            value):
-    message = _error_of(server, {**CHAT, "tools": TOOLS, field: value})
-    assert field in message
+                                                            value,
+                                                            monkeypatch):
+    """(Named for when the port refused these.) Each is now served, with
+    the grammar spec the reference's inspect_request builds, and a forced
+    tool call answers in the tool_calls shape."""
+    body = {**CHAT, "tools": SCHEMA_TOOLS, field: value}
+    out, spec = _served_spec(server, body, monkeypatch)
+    want = inspect_request(body)
+    assert spec == want.spec
+    assert out["usage"]["completion_tokens"] == 2
+    message = out["choices"][0]["message"]
+    if want.tool_name is not None:
+        assert message["content"] is None
+        assert message["tool_calls"][0]["function"]["name"] == "get_weather"
+    else:
+        assert "tool_calls" not in message
 
 
 @pytest.mark.parametrize("extra", [
@@ -137,10 +174,36 @@ def test_malformed_tool_shapes_keep_the_reference_message(server, extra):
     assert message == _reference_message(_forced_tool, body)
 
 
-def test_required_with_one_tool_is_refused_naming_the_field(server):
-    body = {**CHAT, "tools": TOOLS, "tool_choice": "required"}
+def test_required_with_one_tool_is_refused_naming_the_field(server,
+                                                           monkeypatch):
+    """(Named for when the port refused it.) The one tool is forced, as
+    the reference forces it: its arguments' grammar, the tool_calls
+    shape."""
+    body = {**CHAT, "tools": SCHEMA_TOOLS, "tool_choice": "required"}
     assert _forced_tool(body) is not None  # the reference would constrain
-    assert "tool_choice" in _error_of(server, body)
+    out, spec = _served_spec(server, body, monkeypatch)
+    assert spec == {"type": "tool_call", "name": "get_weather",
+                    "schema": SCHEMA} == inspect_request(body).spec
+    [call] = out["choices"][0]["message"]["tool_calls"]
+    assert call["function"]["name"] == "get_weather"
+
+
+@pytest.mark.parametrize("extra", [
+    {"tools": TOOLS, "tool_choice": "required"},
+    {"tools": TOOLS, "tool_choice": {"type": "function",
+                                     "function": {"name": "get_weather"}}},
+    {"response_format": {"type": "json_schema", "json_schema": {
+        "name": "x", "schema": {"type": "object"}}}},
+    {"response_format": {"type": "json_schema", "json_schema": {
+        "name": "x", "schema": {"type": "object",
+                                "patternProperties": {}}}}},
+])
+def test_uncompilable_schemas_keep_the_reference_message(server, extra):
+    """A schema the compiler cannot take (too large, or a feature it does
+    not support) is the reference's 400, naming the feature."""
+    body = {**CHAT, **extra}
+    assert _error_of(server, body) == _reference_message(inspect_request,
+                                                         body)
 
 
 @pytest.mark.parametrize("field", ["max_tokens", "max_completion_tokens",
