@@ -49,6 +49,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
              against flash_extend over the dense row of the same keys; time
              kernel / plain / library call with CUDA events, the attention
              kernels and their SDPA calls also with the L2 cache cold.
+             The speculative verify's shape: paged_flash_extend,
+             paged_flash_extend_quant and flash_extend over 8 rows of
+             K+1 = 5 queries from ragged starts (chunks of 1..5, three
+             across a page edge; row 1's keys past its edge left out, and
+             its page after the edge read from the next table entry, are
+             rejected; the dense extend gives the paged one's bits), and
+             lora_delta over the 40 rows with mixed adapters; each timed
+             at 8 full chunks near ctx 160 and 2048 beside its bound.
 4. unembed — the 8B vocab projection: bf16 operands, fp32 logits.
 5. model   — the model's serving entry points on the card (kernels)
              against the CPU (plain path) at debug size: the paged ones with
@@ -100,6 +108,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
              resume; the reference design's gap (prompt + committed as one
              prefill) and the resume latency are logged, and in bf16 the
              latency of adoptions of 16 and 128 committed tokens.
+             Then speculative decoding, per request, on the same core and
+             counted with the main path: 1 row, then 8, of 64 greedy ids
+             with speculation off, on (the prompt-lookup drafter), under a
+             stub drafter proposing the spec-off stream's next ids
+             ("accept") and one proposing other ids ("reject"): the
+             counters each run added (accept: every draft accepted where
+             the streams agree; reject: none), the pool's free pages back
+             at their baseline, and the parting rule: over scratch KV the
+             spec-off streams' decode-path logits and full verify chunks'
+             logits are recomputed, and every spec-on stream that parts
+             from spec off must part at a position whose spec-off top-2
+             margin is below the largest |verify − decode| logit
+             difference; a speculating row parked after 16 ids resumes
+             with its drafter (the same stub) under the same rule; steady
+             tok/s of each run and each verify key's replay ms. The int8,
+             LoRA and dense phases run one such request (32 ids, the
+             accept stub; LoRA with adapter acme) on their verify key
+             under the same rule, dense also a constrained pair on its
+             "mask" key (fused decode is off there).
              Then KV shipping (bf16 and int8), the serving core's side
              counted with the main path: a second EngineCore over the same
              params tensors (its own KV pool) behind a server of its own;
@@ -143,6 +170,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
              table rows and bytes, the grammar key's capture s and nodes,
              the warm TTFT and decode rate alone (constrained, free,
              fallback).
+             bf16, after the counts: each verify key's replay against its
+             eager step (two cores over the same weights, 8 slots, EOS
+             256, one capturing and one eager; the accept stub over the
+             eager core's spec-off streams: 4 greedy free rows, 4 seeded,
+             2 of a resident schema on the grammar key, the same 2 with
+             fused decode off on the mask key): the replays give the
+             eager steps' tokens, the constrained ids walk the DFA; and
+             the prefill chunk budget (two cores of 9 slots, capacity
+             2048, budget 128 and 0, warmed by a prompt of the same
+             length): the 1503-token prompt beside 8 decoding rows of
+             560-token prompts, the largest gap between a decoder's fetches while it
+             prefills, its TTFT, and with the budget its prefix hit on the
+             idle core, whose first-token logits must equal the cold
+             run's bit for bit (C3).
              Paged: page exhaustion on an engine of 2 slots and 4 pages,
              two rows of 60 tokens: both their solo tokens and finish
              reasons after a park. /v1/resume over HTTP with the ids of an
@@ -611,6 +652,8 @@ def phase_kernels() -> list[dict]:
     # -- the dense slot cache kernels and the LoRA bgmv ----------------------
     rows += _dense_kernels(torch, gen, lens_host, start_host, chunk_host)
     rows += _lora_kernel(torch, gen)
+    # -- the speculative verify step's four kernels at its shape -----------
+    _verify_kernels(torch, gen, rows)
 
     # -- fp32 at the serving shapes (D 128, pages of 128) --------------------
     q, k, v = randn((2, 128, H, D), f32), randn((2, 128, KV, D), f32), \
@@ -1430,6 +1473,216 @@ def _quant_kernels(torch, gen, kp, vp, tables, lens_host, tab1, start_host,
                                                  start, chunk),
            atol=FP32_ATOL, rows=[chunk_host])
     return out
+
+
+VERIFY_K1 = 5  # the verify chunk: the engine's default 4 drafts + 1
+# the kernel checks' verify rows: ragged starts and chunks of 1..5, three
+# chunks across a page edge (126..130 over 128, 1020..1024 over 1024,
+# 2046..2048 over 2048)
+VERIFY_STARTS = [156, 126, 1020, 2046, 160, 511, 3000, 0]
+VERIFY_CHUNKS = [5, 5, 5, 3, 1, 4, 2, 5]
+VERIFY_CTXS = (160, 2048)  # the serve-shape timings: 8 full chunks near these
+
+
+def _verify_times(torch, name, kernel, plain, marks, kv_bytes, lib=None):
+    """The verify-shape times of one attention kernel at each context of
+    VERIFY_CTXS: 8 rows, starts ctx-4..ctx+3, full chunks of K+1. `kernel`
+    and `plain` take (start, chunk) tensors; `kv_bytes` is one cached
+    (token, head) K or V vector's bytes; `lib(start, chunk)` the library
+    call's ms, when there is one."""
+    out = {}
+    for ctx in VERIFY_CTXS:
+        starts = [ctx - 4 + i for i in range(SLOTS)]
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        ch = torch.full((SLOTS,), VERIFY_K1, dtype=torch.int32, device="cuda")
+        keys = sum(s + VERIFY_K1 for s in starts)
+        visible = sum(s + i + 1 for s in starts for i in range(VERIFY_K1))
+        nbytes = (keys * KV * kv_bytes * 2 + 2 * SLOTS * VERIFY_K1 * H * D * 2
+                  + sum(-(-(s + VERIFY_K1) // PAGE) for s in starts) * 4
+                  + SLOTS * 8)
+        bms, by = bound_ms(nbytes, 4 * H * D * visible, PEAK_BF16_FLOPS)
+        out[ctx] = dict(
+            ms=cuda_ms(lambda: kernel(st, ch), 50),
+            dev_ms=profiled_ms(lambda: kernel(st, ch), 20, marks),
+            plain_ms=cuda_ms(lambda: plain(st, ch), 5),
+            bound_ms=bms, bound_by=by,
+            library_ms=None if lib is None else lib(st, ch))
+        t = out[ctx]
+        lib_txt = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms")
+        log(f"  {name} at the verify shape [8,{VERIFY_K1}], ctx {ctx}: "
+            f"kernel {t['ms']:.4f} ms warm, device {t['dev_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, library {lib_txt}, bound "
+            f"{bms:.5f} ms ({by})")
+    return out
+
+
+def _verify_kernels(torch, gen, rows: list[dict]) -> None:
+    """The speculative verify step's four kernels at its shape, held against
+    their plain versions: paged_flash_extend, paged_flash_extend_quant and
+    flash_extend over 8 rows of K+1 = 5 queries from ragged starts, chunks
+    of 1..5, three crossing a page edge (mutants: row 1's keys past the
+    edge at 128 left out, and its page after the edge read from the next
+    table entry, must be rejected; the dense extend over the gathered rows
+    gives the paged extend's bits), and lora_delta over the B * (K+1) rows
+    with mixed adapter rows in both modes. Their times at the serve shape
+    (8 full chunks near ctx 160 and 2048) are kept on the rows under
+    "verify"."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.lora import lora_target_dims
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.ops import lora
+    from llmlb_tpu_torch.quant import quantize_kv
+
+    bf16 = torch.bfloat16
+    by_name = {r["name"]: r for r in rows}
+    ppn = CAPACITY // PAGE
+    pages_total = SLOTS * ppn + 1
+    kp, vp = _pool(torch, gen, pages_total, bf16)
+    perm = torch.randperm(pages_total - 1, generator=gen, device="cuda") + 1
+    tables = perm.reshape(SLOTS, ppn).to(torch.int32).contiguous()
+    q = torch.randn((SLOTS, VERIFY_K1, H, D), generator=gen,
+                    device="cuda").to(bf16)
+    start = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device="cuda")
+    chunk = torch.tensor(VERIFY_CHUNKS, dtype=torch.int32, device="cuda")
+    shape = (f"[8,{VERIFY_K1},32,128] starts {VERIFY_STARTS} chunks "
+             f"{VERIFY_CHUNKS}")
+    kc, vc = ca.gather_kv_pages(kp, tables), ca.gather_kv_pages(vp, tables)
+    cols = torch.arange(ppn * PAGE, device="cuda")
+    q_pos = start[:, None] + torch.arange(VERIFY_K1, device="cuda")[None, :]
+    mask = cols[None, None, :] <= q_pos[:, :, None]
+    edge = (PAGE, 2 * PAGE, [1])  # row 1's keys past the page edge at 128
+    shifted = tables.clone()
+    shifted[1, 1] = tables[1, 2]
+    rel, defined = BF16_REL, VERIFY_CHUNKS
+
+    got = ca.paged_flash_extend(q, kp, vp, tables, start, chunk)
+    want = ca.paged_flash_extend_reference(q, kp, vp, tables, start, chunk)
+    torch.cuda.synchronize()
+    err = _check(f"paged_flash_extend bf16 verify {shape}", got, want,
+                 rel=rel, rows=defined)
+    if not torch.equal(_plain(torch, q, kc, vc, mask), want):
+        raise AssertionError("paged_flash_extend verify: the mutants' mask is "
+                             "not the plain version's")
+    _must_fail("paged_flash_extend bf16 verify, row 1's keys past the page "
+               "edge at 128 dropped", _plain(torch, q, kc, vc, mask, edge),
+               want, rel=rel, rows=defined)
+    _must_fail("paged_flash_extend bf16 verify, row 1's page after the edge "
+               "read from the next table entry",
+               ca.paged_flash_extend_reference(q, kp, vp, shifted, start,
+                                               chunk), want, rel=rel,
+               rows=defined)
+    by_name["paged_flash_extend"]["verify"] = dict(max_abs_err=err, **{
+        f"ctx{c}": t for c, t in _verify_times(
+            torch, "paged_flash_extend",
+            lambda s, c: ca.paged_flash_extend(q, kp, vp, tables, s, c),
+            lambda s, c: ca.paged_flash_extend_reference(q, kp, vp, tables,
+                                                         s, c),
+            PAGED_EXTEND_MARKS, D * 2).items()})
+
+    dgot = ca.flash_extend(q, kc, vc, start, chunk)
+    dwant = ca.flash_extend_reference(q, kc, vc, start, chunk)
+    torch.cuda.synchronize()
+    err = _check(f"flash_extend bf16 verify {shape}", dgot, dwant, rel=rel,
+                 rows=defined)
+    _must_fail("flash_extend bf16 verify, row 1's keys past 128 dropped",
+               _plain(torch, q, kc, vc, mask, edge), dwant, rel=rel,
+               rows=defined)
+    if not all(torch.equal(dgot[b, :n], got[b, :n])
+               for b, n in enumerate(defined)):
+        raise AssertionError("flash_extend over the gathered rows does not "
+                             "give paged_flash_extend's bits at the verify "
+                             "shape")
+    log("  flash_extend over the gathered rows: paged_flash_extend's bits at "
+        "the verify shape")
+
+    def dense_lib(s, c):
+        pos = s[:, None] + torch.arange(VERIFY_K1, device="cuda")[None, :]
+        m = cols[None, None, :] <= pos[:, :, None]
+        return _sdpa_ms(torch, q, kc, vc, m)[0]
+
+    by_name["flash_extend"]["verify"] = dict(max_abs_err=err, **{
+        f"ctx{c}": t for c, t in _verify_times(
+            torch, "flash_extend",
+            lambda s, c: ca.flash_extend(q, kc, vc, s, c),
+            lambda s, c: ca.flash_extend_reference(q, kc, vc, s, c),
+            ("flash_extend_tc_kernel",), D * 2, dense_lib).items()})
+    del kc, vc, dgot, dwant
+
+    qk, qv = quantize_kv(kp), quantize_kv(vp)
+    del kp, vp
+    qgot = ca.paged_flash_extend_quant(q, *qk, *qv, tables, start, chunk)
+    qwant = ca.paged_flash_extend_quant_reference(q, *qk, *qv, tables, start,
+                                                  chunk)
+    torch.cuda.synchronize()
+    err = _check(f"paged_flash_extend_quant bf16 verify {shape}", qgot, qwant,
+                 rel=rel, rows=defined)
+    dk, dv = _dequant(*qk, tables, bf16), _dequant(*qv, tables, bf16)
+    _must_fail("paged_flash_extend_quant bf16 verify, row 1's keys past the "
+               "page edge at 128 dropped",
+               _plain(torch, q, dk, dv, mask, edge), qwant, rel=rel,
+               rows=defined)
+    del dk, dv
+    _must_fail("paged_flash_extend_quant bf16 verify, row 1's page after the "
+               "edge read from the next table entry",
+               ca.paged_flash_extend_quant_reference(q, *qk, *qv, shifted,
+                                                     start, chunk), qwant,
+               rel=rel, rows=defined)
+    by_name["paged_flash_extend_quant"]["verify"] = dict(max_abs_err=err, **{
+        f"ctx{c}": t for c, t in _verify_times(
+            torch, "paged_flash_extend_quant",
+            lambda s, c: ca.paged_flash_extend_quant(q, *qk, *qv, tables, s,
+                                                     c),
+            lambda s, c: ca.paged_flash_extend_quant_reference(
+                q, *qk, *qv, tables, s, c),
+            QUANT_EXTEND_MARKS, D + 4).items()})
+    del qk, qv, q
+
+    # lora_delta over the verify's B * (K+1) rows, wg's shape, rank 16
+    cfg = get_preset("llama-3-8b")
+    in_dim, out_dim = lora_target_dims(cfg, ("wg",))["wg"]
+    rank, n_rows = 16, 9
+    idx_host = [0, 3, 1, 0, 8, 2, 2, 5]
+    idx = torch.tensor(idx_host, dtype=torch.int32, device="cuda")
+    a = torch.randn((n_rows, in_dim, rank), generator=gen,
+                    device="cuda") * in_dim**-0.5
+    b = torch.randn((n_rows, rank, out_dim), generator=gen,
+                    device="cuda") * rank**-0.5
+    a[0] = 0.0
+    b[0] = 0.0
+    a, b = a.to(bf16).contiguous(), b.to(bf16).contiguous()
+    x = torch.randn((SLOTS, VERIFY_K1, in_dim), generator=gen,
+                    device="cuda").to(bf16)
+    y = torch.randn((SLOTS, VERIFY_K1, out_dim), generator=gen,
+                    device="cuda").to(bf16)
+    tag = (f"lora_delta bf16 wg x [8,{VERIFY_K1},{in_dim}] -> {out_dim} "
+           f"(the verify's rows, adapters {idx_host})")
+    lgot = lora.lora_delta(x, a, b, idx)
+    lwant = lora.lora_delta_reference(x, a, b, idx)
+    fused = lora.lora_delta_add(y.clone(), x, a, b, idx)
+    torch.cuda.synchronize()
+    err = _check(f"{tag} mode (a)", lgot, lwant, rel=LORA_REL)
+    if not torch.equal(fused, y + lgot.to(bf16)):
+        raise AssertionError(f"{tag}: mode (b) is not y + delta.to(dtype)")
+    _must_fail(f"{tag}, row i reading adapter idx_i + 1",
+               lora.lora_delta_reference(x, a, b, (idx + 1) % n_rows), lwant,
+               rel=LORA_REL)
+    distinct = len(set(idx_host))
+    nbytes = (x.numel() * 2 + distinct * rank * (in_dim + out_dim) * 2
+              + 2 * y.numel() * 2 + SLOTS * 4)
+    bms, bby = bound_ms(nbytes, 2 * SLOTS * VERIFY_K1 * rank
+                        * (in_dim + out_dim), PEAK_BF16_FLOPS)
+    t = dict(max_abs_err=err,
+             ms=cuda_ms(lambda: lora.lora_delta_add(y, x, a, b, idx), 50),
+             dev_ms=profiled_ms(lambda: lora.lora_delta_add(y, x, a, b, idx),
+                                20, ("bgmv_cluster_kernel",)),
+             plain_ms=cuda_ms(lambda: y + lora.lora_delta_reference(
+                 x, a, b, idx).to(bf16), 5),
+             bound_ms=bms, bound_by=bby, library_ms=None)
+    by_name["lora_delta"]["verify"] = t
+    log(f"  {tag} mode (b): kernel {t['ms']:.4f} ms warm, device "
+        f"{t['dev_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{bms:.5f} ms ({bby})")
 
 
 def phase_unembed() -> None:
@@ -4136,6 +4389,696 @@ def _structured_dense(core, dev: dict, want: list[list[int]]) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- speculative decoding (A9) and the prefill chunk budget (A10b) ----------
+
+SPEC_TOKENS = 64  # each spec request's greedy tokens
+SPEC_SHORT = 32  # the int8, LoRA and dense phases' spec request
+SPEC_TEXT = "Spec row {}: count 1 2 3 4 5 6 7 8 9 and again 1 2 3 4 5 6"
+SPEC_ON = {"enabled": True}
+SPEC_COUNTERS = ("verify_steps_total", "draft_tokens_total",
+                 "accepted_tokens_total", "emitted_tokens_total")
+SPEC_PARK_AT = 16  # the parked speculating row's committed tokens
+BUDGET = 128  # the budget block's prefill_chunk_budget
+BUDGET_CAPACITY = 2048
+# the budget block's decoders' prompts: long enough that their bursts run
+# at the 1024-token window throughout the measurement (no capture in it)
+BUDGET_DECODER_TOKENS = 560
+
+
+def _spec_prompts(engine, n: int) -> list[list[int]]:
+    """n chat prompts of one length (one prefill bucket), each under 128
+    tokens, so that no finish donates a prefix and the pool's free count
+    comes back whole."""
+    prompts = [engine.encode_chat([{"role": "user",
+                                    "content": SPEC_TEXT.format(i)}])
+               for i in range(n)]
+    if len({len(p) for p in prompts}) != 1 or len(prompts[0]) >= PAGE:
+        raise AssertionError("the spec prompts must share one length < 128")
+    return prompts
+
+
+class _StubDrafter:
+    """A drafter installed by _StubDrafters in place of the prompt-lookup
+    one; it lives in this script, not the package. "accept" proposes the
+    next ids of a known stream while the row follows it (every draft
+    accepted until the row parts from the stream; none after), "reject"
+    ids that differ from them (none accepted), "grammar" the lowest ids a
+    constraint allows along its own walk from the row's cursor (drafts the
+    host never cuts, for a mask key's run; `tc` the row's token DFA)."""
+
+    def __init__(self, mode: str, stream: list[int] | None, vocab: int,
+                 tc=None):
+        from llmlb_tpu_torch.structured import ConstraintState
+
+        self.mode, self.stream, self.vocab, self.tc = mode, stream, vocab, tc
+        self.n, self.parted = 0, False
+        self.cursor = ConstraintState(tc) if tc is not None else None
+
+    def append(self, token: int) -> None:
+        if self.stream is not None and (self.n >= len(self.stream)
+                                        or token != self.stream[self.n]):
+            self.parted = True
+        if self.cursor is not None:
+            self.cursor.advance(token)
+        self.n += 1
+
+    def propose(self, k: int) -> list[int]:
+        import numpy as np
+
+        if self.mode == "grammar":
+            tc, s, out = self.tc, self.cursor.state, []
+            for _ in range(k):
+                ids = np.flatnonzero(tc.allowed[s])
+                ids = ids[ids != tc.eos_id]
+                nxt = tc.advance(s, int(ids[0])) if len(ids) else None
+                if nxt is None:
+                    break
+                out.append(int(ids[0]))
+                s = nxt
+            return out
+        d = self.stream[self.n:self.n + k]
+        if self.mode == "reject":
+            return [(t + 1) % self.vocab for t in d]
+        return [] if self.parted else list(d)
+
+
+class _StubDrafters:
+    """Wraps a core's _attach_spec until close(): a request whose id is in
+    `stubs` speculates with its stub (a parked row keeps the same one)."""
+
+    def __init__(self, core):
+        self.core, self.stubs = core, {}
+        attach = core._attach_spec
+
+        def spy(slot_id, request):
+            attach(slot_id, request)
+            stub = self.stubs.get(request.request_id)
+            if stub is not None and core.slots[slot_id].drafter is not None:
+                core.slots[slot_id].drafter = stub
+
+        core._attach_spec = spy
+
+    def close(self) -> None:
+        del self.core._attach_spec
+
+
+class _ReplayTimes:
+    """Each replay's time on the stream (CUDA events around it) of a
+    BurstGraphs' keys, by key name, until close()."""
+
+    def __init__(self, graphs):
+        import torch
+
+        from llmlb_tpu_torch.engine.decode_graph import key_name
+
+        self.graphs, self.ms = graphs, {}
+        run = graphs.run
+        timed = torch.cuda.is_available()
+
+        def spy(window, seeded, mode):
+            key = (window, seeded, mode)
+            replay = timed and key in graphs.graphs
+            if replay:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            out = run(window, seeded, mode)
+            if replay:
+                e1.record()
+                e1.synchronize()
+                self.ms.setdefault(graphs.kind + key_name(key), []).append(
+                    e0.elapsed_time(e1))
+            return out
+
+        graphs.run = spy
+
+    def median_ms(self) -> dict[str, float]:
+        return {k: sorted(v)[len(v) // 2] for k, v in self.ms.items()}
+
+    def close(self) -> None:
+        del self.graphs.run
+
+
+def _spec_counts(core) -> dict:
+    c = core.stats().spec
+    return {k: getattr(c, k) for k in SPEC_COUNTERS}
+
+
+def _spec_run(core, prompts, max_tokens: int, knob, stubs=None, mode=None,
+              streams=None, lora=None, spec=None, engine=None, **sampling):
+    """The prompts together on a running core (greedy unless `sampling`
+    says otherwise), each speculating per `knob`, with a stub drafter of
+    `mode` over `streams` when given, under the constraint `spec` (compiled
+    by `engine`'s compiler) when given. Returns (ids each, finish reasons,
+    steady tok/s summed over the rows, the spec counters they added)."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    sampling.setdefault("temperature", 0.0)
+    reqs = []
+    for i, p in enumerate(prompts):
+        r = Request(prompt_ids=list(p), sampling=SamplingParams(
+            max_tokens=max_tokens, lora=lora, speculative=knob,
+            constraint=spec, **sampling),
+            compiled_constraint=(engine.constraint_compiler.compile_spec(spec)
+                                 if spec is not None else None))
+        r.events = _StampedEvents()
+        if mode is not None:
+            stubs.stubs[r.request_id] = _StubDrafter(
+                mode, None if streams is None else streams[i],
+                core.cfg.vocab_size, r.compiled_constraint)
+        reqs.append(r)
+    c0 = _spec_counts(core)
+    res = _st_run(core, reqs)
+    _wait_idle(core)
+    c1 = _spec_counts(core)
+    rate = sum(_st_rate(r[3], max_tokens) for r in res)
+    return ([r[0] for r in res], [r[1] for r in res], rate,
+            {k: c1[k] - c0[k] for k in SPEC_COUNTERS})
+
+
+def _spec_margins(core, prompts, streams, lora_row: int = 0):
+    """Recompute, over scratch KV, the two paths a row's logits take:
+    decode steps (M = slots, the split-K decode kernel), as the spec-off
+    stream's were computed, and full verify chunks (M = slots * (K+1), the
+    extend kernel) feeding the same tokens. Rows are the engine's slots
+    (prompts and streams repeated to fill them). Returns (the spec-off
+    top-2 margin [rows, T] at each position, the largest |verify - decode|
+    logit difference over every row and position, positions where the
+    decode path's argmax is not the stream's token, and the share of
+    positions where the two paths' logits give another token: greedy,
+    and seeded at temperature 0.8, top-p 0.95)."""
+    import torch
+
+    from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.ops.sampling import sample_tokens
+
+    n = core.num_slots
+    prompts = [prompts[i % len(prompts)] for i in range(n)]
+    streams = [streams[i % len(streams)] for i in range(n)]
+    t = min(len(s) for s in streams)
+    cfg, params, dev = core.cfg, core.params, core.device
+    plen = len(prompts[0])
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens = torch.full((n,), plen, **i32)
+    toks = torch.tensor([s[:t] for s in streams], **i32)
+    bucket = core._bucket_for(plen)
+    ids = torch.zeros((n, bucket), dtype=torch.int64, device=dev)
+    ids[:, :plen] = torch.tensor(prompts, device=dev)
+    lidx = (torch.full((n,), lora_row, **i32) if core.lora is not None
+            else None)
+    dense = core.page_pool is None
+    rows = plen + t + VERIFY_K1 + 1
+    with _Uncounted():
+        if dense:
+            caps = [llama.init_kv_cache(cfg, n, core.slot_capacity, dev)
+                    for _ in range(2)]
+            slots = torch.arange(n, device=dev)
+            logits0, _, _ = llama.prefill_into_slots(
+                params, cfg, ids, lens, slots, *caps[0], lora_idx=lidx)
+            llama.prefill_into_slots(params, cfg, ids, lens, slots, *caps[1],
+                                     lora_idx=lidx)
+        else:
+            ppr = -(-rows // PAGE)
+            caps = [llama.init_kv_pages(cfg, n * ppr + 1, core.kv_page_size,
+                                        dev, quantized=core.quant.kv)
+                    for _ in range(2)]
+            tables = (torch.arange(n * ppr, **i32) + 1).reshape(n, ppr)
+            tables = torch.nn.functional.pad(
+                tables, (0, core.pages_per_slot - ppr))
+            for pools in caps:
+                logits0, _, _ = llama.prefill_into_pages(
+                    params, cfg, ids, lens, tables, *pools, lora_idx=lidx)
+        dec = torch.empty((n, t, cfg.vocab_size), dtype=torch.float32,
+                          device=dev)
+        dec[:, 0] = logits0
+        window = _window(plen + t + 1)
+        for j in range(t - 1):
+            seq = lens + j
+            if dense:
+                logits, _, _ = llama.decode_step(
+                    params, cfg, toks[:, j], seq, *caps[0], window=window,
+                    lora_idx=lidx)
+            else:
+                logits, _, _ = llama.decode_step_paged(
+                    params, cfg, toks[:, j], seq, *caps[0], tables,
+                    window=window, lora_idx=lidx)
+            dec[:, j + 1] = logits
+        diff = 0.0
+        ver = torch.empty_like(dec)
+        ver[:, 0] = dec[:, 0]
+        for j0 in range(0, t - 1, VERIFY_K1):
+            c = min(VERIFY_K1, t - 1 - j0)
+            chunk = torch.zeros((n, VERIFY_K1), **i32)
+            chunk[:, :c] = toks[:, j0:j0 + c]
+            clen = torch.full((n,), c, **i32)
+            if dense:
+                logits, _, _ = llama.verify_step(
+                    params, cfg, chunk, clen, lens + j0, None, *caps[1],
+                    lora_idx=lidx)
+            else:
+                logits, _, _ = llama.verify_step_paged(
+                    params, cfg, chunk, clen, lens + j0, tables, *caps[1],
+                    lora_idx=lidx)
+            diff = max(diff, (logits[:, :c] - dec[:, j0 + 1:j0 + 1 + c])
+                       .abs().max().item())
+            ver[:, j0 + 1:j0 + 1 + c] = logits[:, :c]
+        top2 = dec.topk(2, dim=-1).values
+        margins = (top2[..., 0] - top2[..., 1]).cpu()
+        off_path = int((dec.argmax(dim=-1) != toks[:, :t].long()).sum())
+        greedy = (dec.argmax(-1) != ver.argmax(-1))[:, 1:].float().mean()
+        rows = n * t
+        temps = torch.full((rows,), 0.8, device=dev)
+        top_ps = torch.full((rows,), 0.95, device=dev)
+        top_ks = torch.zeros(rows, **i32)
+        seeds = torch.full((rows,), 4321, dtype=torch.int64, device=dev)
+        steps = (lens[:, None] - 1 + torch.arange(t, device=dev)).reshape(-1)
+        picks = [sample_tokens(x.reshape(rows, -1), None, temps, top_ps,
+                               top_ks, seeds=seeds, steps=steps).reshape(n, t)
+                 for x in (dec, ver)]
+        seeded = (picks[0] != picks[1])[:, 1:].float().mean()
+        flips = {"greedy": greedy.item(), "seeded": seeded.item()}
+        del dec, ver, caps
+    torch.cuda.empty_cache()
+    return margins, diff, off_path, flips
+
+
+def _partings(what: str, streams, ref, margins, diff: float) -> list:
+    """Each stream against its spec-off stream: the tokens they share and,
+    where they part, the spec-off top-2 margin there; fails unless every
+    parting falls at a margin below `diff`. Returns the partings."""
+    shared = [_shared(x, s) for x, s in zip(streams, ref)]
+    parts = [(i, p, float(margins[i, p])) for i, p in enumerate(shared)
+             if p < min(len(streams[i]), len(ref[i]))]
+    log(f"  {what}: tokens shared with spec off {shared} of "
+        f"{[len(s) for s in ref]}; partings (row, position, spec-off top-2 "
+        f"margin) {[(i, p, f'{m:.4f}') for i, p, m in parts]}; largest "
+        f"|verify - decode| logit difference {diff:.4f}")
+    bad = [x for x in parts if x[2] >= diff]
+    if bad:
+        raise AssertionError(f"{what}: a parting at a margin not below the "
+                             f"verify/decode logit difference {diff:.4f}: "
+                             f"{bad}")
+    return parts
+
+
+def _spec_park(core, prompt, stream, stubs) -> dict:
+    """A speculating row (the "accept" stub over the spec-off stream) parked
+    between steps after SPEC_PARK_AT committed tokens, resumed by the
+    engine: its drafter is carried (the same object, its count of tokens
+    seen intact). Returns its ids and what was seen."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    r = Request(prompt_ids=list(prompt), sampling=SamplingParams(
+        max_tokens=SPEC_TOKENS, temperature=0.0, speculative=SPEC_ON))
+    r.events = _StampedEvents()
+    stub = _StubDrafter("accept", stream, core.cfg.vocab_size)
+    stubs.stubs[r.request_id] = stub
+    seen: dict = {}
+    decode = core._decode_active
+
+    def spy():
+        did = decode()
+        for i, slot in enumerate(core.slots):
+            if slot.request is not r or slot.prefilling:
+                continue
+            if "parked" not in seen and core._parkable(slot) and len(
+                    slot.out_tokens) >= SPEC_PARK_AT:
+                seen.update(parked=len(slot.out_tokens), n=stub.n,
+                            drafter=slot.drafter is stub)
+                core._park_slot(i)
+            elif "parked" in seen and "resumed" not in seen:
+                seen.update(resumed=slot.drafter is stub, n_resumed=stub.n)
+        return did
+
+    p0 = core.stats().preemptions_total
+    core._decode_active = spy
+    try:
+        ids, reason, _, _ = _st_run(core, [r])[0]
+    finally:
+        del core._decode_active
+    seen.update(ids=ids, parks=core.stats().preemptions_total - p0)
+    if not (seen.get("drafter") and seen.get("resumed")
+            and seen["parks"] == 1 and seen["n_resumed"] == seen["n"]):
+        what = {k: v for k, v in seen.items() if k != "ids"}
+        raise AssertionError(f"spec park: the drafter was not carried: "
+                             f"{what}")
+    return seen
+
+
+def _spec_block(core, engine, label: str, dev: dict) -> dict:
+    """Speculative decoding on the phase's core, counted with the main
+    path (speculation on per request): 1 row, then 8 rows, of SPEC_TOKENS
+    greedy tokens with speculation off, on (the prompt-lookup drafter), on
+    under the "accept" stub (every draft the spec-off stream's next token)
+    and under the "reject" stub; the counters each run added (accept: as
+    many accepted as drafted where the streams agree; reject: none); the
+    page pool's free count back to its baseline; the parting rule of every
+    spec-on stream against spec off (_spec_margins); a parked speculating
+    row; steady tok/s and each verify key's replay ms."""
+    out: dict = {}
+    prompts = _spec_prompts(engine, SLOTS)
+    _wait_idle(core)
+    free0 = core.page_pool.available() if core.page_pool is not None else None
+    stubs = _StubDrafters(core)
+    times = _ReplayTimes(core._verifies)
+    try:
+        runs = {}
+        for rows in (1, SLOTS):
+            ps = prompts[:rows]
+            off = _spec_run(core, ps, SPEC_TOKENS, None)
+            runs[f"off/{rows}"] = off
+            for name, knob, mode in (("on", SPEC_ON, None),
+                                     ("accept", SPEC_ON, "accept"),
+                                     ("reject", SPEC_ON, "reject")):
+                runs[f"{name}/{rows}"] = _spec_run(
+                    core, ps, SPEC_TOKENS, knob, stubs, mode, off[0])
+        off8 = runs[f"off/{SLOTS}"][0]
+        if runs["off/1"][0][0] != off8[0]:
+            raise AssertionError("spec off: row 0 alone and in the batch of "
+                                 "8 give different greedy ids")
+        margins, diff, off_path, flips = _spec_margins(core, prompts, off8)
+        log(f"serve {label}: spec: the scratch decode path's argmax leaves "
+            f"the spec-off streams at {off_path} of {SLOTS * SPEC_TOKENS} "
+            f"positions; over the same tokens the verify path's logits give "
+            f"another greedy token at {flips['greedy']:.4f} of the "
+            f"positions and another seeded one (temperature 0.8, top-p "
+            f"0.95) at {flips['seeded']:.4f}")
+        parts = {}
+        for key, (ids, reasons, rate, counts) in runs.items():
+            name, rows = key.split("/")
+            ref = off8[:int(rows)]
+            if name != "off":
+                parts[key] = _partings(f"serve {label}: spec {key}", ids, ref,
+                                       margins, diff)
+            steps = counts["verify_steps_total"]
+            emitted = counts["emitted_tokens_total"]
+            log(f"serve {label} [{dev['smi']}]: spec {key}: {rate:.1f} tok/s "
+                f"steady; counters {counts}; "
+                + (f"{emitted / steps:.2f} tokens a verify step, "
+                   f"{emitted / steps / int(rows):.2f} a row"
+                   if steps else "no verify step"))
+        for rows in (1, SLOTS):
+            acc = runs[f"accept/{rows}"][3]
+            rej = runs[f"reject/{rows}"][3]
+            # every draft is accepted but those of the step where a row
+            # parts from the stream (at most K each)
+            parted = len(parts[f"accept/{rows}"])
+            k = VERIFY_K1 - 1
+            if acc["verify_steps_total"] <= 0 or not (
+                    acc["draft_tokens_total"] - k * parted
+                    <= acc["accepted_tokens_total"]
+                    <= acc["draft_tokens_total"]):
+                raise AssertionError(f"spec accept/{rows}: counters {acc} "
+                                     f"with {parted} partings")
+            if (rej["accepted_tokens_total"] != 0
+                    or rej["verify_steps_total"] <= 0):
+                raise AssertionError(f"spec reject/{rows}: counters {rej}")
+        if free0 is not None and core.page_pool.available() != free0:
+            raise AssertionError(f"spec: the pool's free pages "
+                                 f"{core.page_pool.available()} != {free0} "
+                                 "after the traffic")
+        park = _spec_park(core, prompts[0], off8[0], stubs)
+        parts["park"] = _partings(f"serve {label}: spec park", [park["ids"]],
+                                  off8[:1], margins, diff)
+        log(f"serve {label}: spec park: parked at {park['parked']} committed "
+            f"ids, resumed with its drafter (the same stub, {park['n']} ids "
+            f"seen at both ends)")
+        if free0 is not None and core.page_pool.available() != free0:
+            raise AssertionError("spec: pages leaked by the park")
+        out.update(
+            rates={k: v[2] for k, v in runs.items()},
+            counts={k: v[3] for k, v in runs.items()},
+            shared={k: [_shared(x, s) for x, s in zip(v[0], off8)]
+                    for k, v in runs.items()},
+            partings={k: len(v) for k, v in parts.items()},
+            logit_diff=diff, flips=flips, replay_ms=times.median_ms(),
+            pool_free=free0)
+        keys = core.decode_graph_info()["verify"]["keys"]
+        out["keys"] = {k: {"capture_s": v["capture_s"],
+                           "pool_bytes": v["pool_bytes"], "nodes": v["nodes"],
+                           "launches": v["launches"]}
+                       for k, v in keys.items()}
+        log(f"serve {label} [{dev['smi']}]: spec: verify replay ms "
+            f"{out['replay_ms']}; keys {out['keys']}")
+        return out
+    finally:
+        times.close()
+        stubs.close()
+
+
+def _spec_short(core, engine, label: str, dev: dict, lora: bool) -> dict:
+    """The int8, LoRA and dense phases' spec request: SPEC_SHORT greedy
+    tokens off, then on under the "accept" stub over them (an adapter row
+    with LoRA), the parting rule, and the launches of the path's verify
+    kernel; the dense phase also runs a constrained (json_object) pair on
+    its verify key "mask" (fused decode is off on the dense layout): the
+    38-state schema, spec off, then under the "grammar" stub."""
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    out: dict = {}
+    name = "acme" if lora else None
+    prompt = _spec_prompts(engine, 1)
+    stubs = _StubDrafters(core)
+    try:
+        off = _spec_run(core, prompt, SPEC_SHORT, None, lora=name)
+        l0 = dict(ca.LAUNCHES)
+        on = _spec_run(core, prompt, SPEC_SHORT, SPEC_ON, stubs, "accept",
+                       off[0], lora=name)
+        launches = {k: v - l0.get(k, 0) for k, v in ca.LAUNCHES.items()
+                    if v - l0.get(k, 0)}
+        lrow = core.lora.slot_of(name) if lora else 0
+        margins, diff, off_path, flips = _spec_margins(core, prompt, off[0],
+                                                       lrow)
+        out["partings"] = len(_partings(f"serve {label}: spec", on[0], off[0],
+                                        margins, diff))
+        out.update(counts=on[3], launches=launches, logit_diff=diff,
+                   flips=flips, rate_on=on[2], rate_off=off[2])
+        if on[3]["verify_steps_total"] <= 0:
+            raise AssertionError(f"serve {label}: spec: no verify step")
+        if core.page_pool is None:
+            spec = _st_spec(STRUCT_GATEWAY)
+            coff = _spec_run(core, prompt, SPEC_SHORT, None, spec=spec,
+                             engine=engine)
+            con = _spec_run(core, prompt, SPEC_SHORT, SPEC_ON, stubs,
+                            "grammar", coff[0], spec=spec, engine=engine)
+            _st_accepted(engine, spec, con[0][0], "dense spec", False)
+            out["constrained"] = dict(
+                counts=con[3], shared=_shared(con[0][0], coff[0][0]))
+        keys = sorted(core.decode_graph_info()["verify"]["keys"])
+        out["keys"] = keys
+        if core.page_pool is None and not any(k.endswith("/mask")
+                                              for k in keys):
+            raise AssertionError(f"serve {label}: no verify mask key: {keys}")
+        log(f"serve {label} [{dev['smi']}]: spec: {SPEC_SHORT} ids, "
+            f"{off[2]:.1f} tok/s off, {on[2]:.1f} tok/s on (accept stub); "
+            f"counters {on[3]}; the request's launches {launches}; verify "
+            f"keys {keys}; scratch argmax off the stream at {off_path}"
+            + (f"; constrained pair {out['constrained']}"
+               if "constrained" in out else ""))
+        return out
+    finally:
+        stubs.close()
+
+
+def _spec_graphs(core, dev: dict) -> dict:
+    """Each verify key's replay against its eager step: two EngineCores over
+    the phase's params (8 paged slots, the ByteTokenizer's EOS, each behind
+    the port's Engine for its compiler), one capturing its keys, one eager
+    (decode_graphs=False). The same requests go to both, speculating under
+    the "accept" stub over the eager core's spec-off streams: 4 greedy free
+    rows (key free), 4 seeded rows (seeded), 2 rows of a resident schema
+    (grammar), and the same 2 with fused decode off (mask, the dense
+    layout's default), under the "grammar" stub. Every
+    key's replays give the eager steps' tokens; the constrained texts walk
+    the port's DFA. Their launches are not the main path's."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(core.cfg.vocab_size)
+    cores = [EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                        num_slots=SLOTS, slot_capacity=STRUCT_CAPACITY,
+                        eos_id=tok.eos_id, prefix_cache=False,
+                        decode_graphs=graphs) for graphs in (True, False)]
+    engines = [Engine("llama-3-8b", c, ByteTokenizer(core.cfg.vocab_size))
+               for c in cores]
+    stubs = [_StubDrafters(c) for c in cores]
+    prompts = _spec_prompts(engines[0], SLOTS)
+    batches = (("free", prompts[:4], None, {}),
+               ("seeded", prompts[:4], None,
+                dict(temperature=0.8, top_p=0.95, seed=4321)),
+               ("grammar", prompts[:2], _st_spec(STRUCT_GATEWAY), {}),
+               ("mask", prompts[:2], _st_spec(STRUCT_GATEWAY), {}))
+    out: dict = {}
+    for c in cores:
+        c.start()
+    times = _ReplayTimes(cores[0]._verifies)
+    try:
+        with _Uncounted() as uncounted:
+            for key, ps, spec, sampling in batches:
+                # the mask key: the host-mask path, with fused decode off
+                # (the dense layout's default) for the resident schema
+                for c in cores:
+                    c.fused_decode = key != "mask"
+                off = _spec_run(cores[1], ps, SPEC_SHORT, None, spec=spec,
+                                engine=engines[1], **sampling)
+                mode = "grammar" if key == "mask" else "accept"
+                runs = [_spec_run(c, ps, SPEC_SHORT, SPEC_ON, s, mode,
+                                  off[0], spec=spec, engine=e, **sampling)
+                        for c, s, e in zip(cores, stubs, engines)]
+                if runs[0][0] != runs[1][0]:
+                    shared = [_shared(a, b) for a, b in zip(runs[0][0],
+                                                            runs[1][0])]
+                    raise AssertionError(
+                        f"spec graphs: key {key}: the replays' tokens differ "
+                        f"from the eager steps' (shared {shared})")
+                if spec is not None:
+                    for ids, reason in zip(runs[0][0], runs[0][1]):
+                        _st_accepted(engines[0], spec, ids, f"spec {key}",
+                                     reason == "stop")
+                out[key] = dict(
+                    counts=runs[0][3],
+                    verify_steps_eager=runs[1][3]["verify_steps_total"],
+                    shared_off=[_shared(a, b)
+                                for a, b in zip(runs[0][0], off[0])])
+                log(f"spec graphs: key {key}: {len(ps)} rows x {SPEC_SHORT} "
+                    f"ids, replays = eager steps, token for token; counters "
+                    f"{runs[0][3]}; ids shared with spec off "
+                    f"{out[key]['shared_off']}")
+        info = cores[0].decode_graph_info()["verify"]
+        modes = {k.rsplit("/", 1)[-1] for k in info["keys"]}
+        seeded = any("/seeded" in k for k in info["keys"])
+        if not ({"grammar", "mask"} <= modes and seeded
+                and info["replays"] > 0):
+            raise AssertionError(f"spec graphs: keys {sorted(info['keys'])}")
+        # a constrained row cut short at SPEC_SHORT ids counts as a
+        # violation (the grammar did not accept yet); every id above walked
+        # the port's DFA
+        violations = cores[0].stats().structured.constraint_violations_total
+        out.update(violations=violations,keys={k: {"capture_s": v["capture_s"],
+                             "pool_bytes": v["pool_bytes"],
+                             "nodes": v["nodes"]}
+                         for k, v in info["keys"].items()},
+                   replay_ms=times.median_ms(), replays=info["replays"],
+                   launches=uncounted.launches)
+        log(f"spec graphs [{dev['smi']}]: verify keys {out['keys']}; replay "
+            f"ms {out['replay_ms']}; {info['replays']} replays; rows cut short "
+            f"before their grammar accepted {violations}; launches (not "
+            f"counted with the main path) {uncounted.launches}")
+        return out
+    finally:
+        times.close()
+        for s in stubs:
+            s.close()
+        for e in engines:
+            e.shutdown()
+        del cores, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _budget_block(core, prompts, long_prompt, dev: dict) -> dict:
+    """A10b on two EngineCores over the phase's params (SLOTS + 1 slots,
+    capacity 2048, prefix cache on): prefill_chunk_budget BUDGET, and 0. On
+    each, SLOTS rows of BUDGET_DECODER_TOKENS-token prompts decode (at the
+    1024 window throughout); a prompt of the long one's length with a head
+    of its own runs first beside them (its graph keys captured: the 2048
+    window's first burst is eager and captures), then the long prompt
+    arrives: the largest gap between one decoder's consecutive fetches
+    while it prefills, its TTFT and its prefill dispatches. With the
+    budget, C3: the long prompt again on the idle core, a prefix hit, whose
+    first-token logits must equal the cold run's (prefilled beside the
+    decoders) bit for bit. Their launches are not the main path's."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore, Request, \
+        SamplingParams
+
+    def req(p, n):
+        r = Request(prompt_ids=list(p), sampling=SamplingParams(
+            max_tokens=n, temperature=0.0))
+        r.events = _StampedEvents()
+        return r
+
+    out: dict = {}
+    for budget in (0, BUDGET):
+        b = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=SLOTS + 1, slot_capacity=BUDGET_CAPACITY,
+                       eos_id=-1, prefill_chunk_budget=budget)
+        b.start()
+        spy = _LogitSpy(b)
+        try:
+            with _Uncounted():
+                decs = [req(p, BUDGET_CAPACITY - PAGE) for p in prompts]
+                for r in decs:
+                    b.submit(r)
+                t_end = time.monotonic() + 120
+                while min(len(r.events.stamps) for r in decs) < 2 * 9:
+                    if time.monotonic() > t_end:
+                        raise AssertionError("budget: the decoders stall")
+                    time.sleep(0.005)
+                warm = req(_fresh_head(long_prompt, 0), 4)
+                b.submit(warm)
+                _st_collect(warm)
+                d0 = b.prefill_dispatches
+                g0 = len(b._bursts.graphs)
+                t0 = time.monotonic()
+                long = req(long_prompt, 4)
+                b.submit(long)
+                _, _, ttft, stamps = _st_collect(long)
+                dispatches = b.prefill_dispatches - d0
+                captures = len(b._bursts.graphs) - g0
+                gaps = []
+                for r in decs:
+                    ts = [t for _, t in _st_fetches(list(r.events.stamps))]
+                    before = [t for t in ts if t < t0][-1:]
+                    after = [t for t in ts if t > stamps[0]][:1]
+                    seq = before + [t for t in ts
+                                    if t0 <= t <= stamps[0]] + after
+                    gaps += [y - x for x, y in zip(seq, seq[1:])]
+                for r in decs:
+                    r.cancel()
+                _wait_idle(b)
+                res = dict(max_gap_ms=max(gaps) * 1e3, ttft_ms=ttft * 1e3,
+                           prefill_dispatches=dispatches, captures=captures)
+                if budget:
+                    h0 = b.stats().prefix.prefix_hits_total
+                    hit = req(long_prompt, 4)
+                    b.submit(hit)
+                    _, _, hit_ttft, _ = _st_collect(hit)
+                    if b.stats().prefix.prefix_hits_total != h0 + 1:
+                        raise AssertionError("budget: the repeat did not hit")
+                    cold, warm = spy.get(long_prompt, None)[-2:]
+                    if not torch.equal(cold, warm):
+                        raise AssertionError(
+                            "budget: C3: the hit's first-token logits are not "
+                            "the cold run's (max |diff| "
+                            f"{(cold - warm).abs().max().item():.3e})")
+                    res.update(hit_ttft_ms=hit_ttft * 1e3, c3="bit for bit")
+            out[budget] = res
+            log(f"budget [{dev['smi']}]: prefill_chunk_budget {budget}: "
+                f"{len(long_prompt)}-token prompt beside {SLOTS} decoders: "
+                f"largest decoder fetch gap {res['max_gap_ms']:.1f} ms, TTFT "
+                f"{res['ttft_ms']:.1f} ms, {dispatches} prefill dispatches, "
+                f"{captures} graph captures inside the window"
+                + (f"; its prefix hit on the idle core {hit_ttft * 1e3:.1f} "
+                   "ms TTFT, first-token logits the cold run's bit for bit"
+                   if budget else ""))
+        finally:
+            spy.close()
+            b.stop()
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
                 bf16_long_ids: list[int] | None = None,
@@ -4369,6 +5312,14 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         if label == "bf16":
             over.update(_timed(block_s, "endpoints", _endpoints, base, core,
                                dev))
+        # speculative decoding on this core, per request, counted with the
+        # main path: the whole block in bf16, one stub request elsewhere
+        if label == "bf16":
+            over["spec"] = _timed(block_s, "spec", _spec_block, core, engine,
+                                  label, dev)
+        else:
+            over["spec"] = _timed(block_s, "spec", _spec_short, core, engine,
+                                  label, dev, lora)
         # KV shipping on the paged layout (the dense one ships no pages, as
         # in the reference), the serving core's side counted with the main
         # path; the LoRA phase's traffic is the earlier slices'
@@ -4419,6 +5370,14 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
             # structured outputs on an engine of their own over these params
             over["structured"] = _timed(block_s, "structured",
                                         _structured_block, core, dev)
+            # each verify key's replay against its eager step, and the
+            # prefill chunk budget, on engines of their own
+            over["spec_graphs"] = _timed(block_s, "spec_graphs", _spec_graphs,
+                                         core, dev)
+            over["budget"] = _timed(
+                block_s, "budget", _budget_block, core,
+                [_fresh_head(long_prompts[0][:BUDGET_DECODER_TOKENS], i + 1)
+                 for i in range(SLOTS)], long_prompts[0], dev)
         if structured_ids is not None:
             over["structured"] = _timed(block_s, "structured",
                                         _structured_dense, core, dev,
@@ -4558,7 +5517,15 @@ def main(argv: list[str] | None = None) -> int:
                 **({"structured": {k: v for k, v in st["overload"][
                     "structured"].items()
                     if k not in ("launches", "fused_ids")}}
-                   if "structured" in st.get("overload", {}) else {})}
+                   if "structured" in st.get("overload", {}) else {}),
+                **({"spec": {k: v for k, v in st["overload"]["spec"].items()
+                             if k in ("rates", "counts", "logit_diff",
+                                      "replay_ms", "partings", "rate_on",
+                                      "rate_off")}}
+                   if "spec" in st.get("overload", {}) else {}),
+                **({"spec_graphs": st["overload"]["spec_graphs"]["replay_ms"],
+                    "budget": st["overload"]["budget"]}
+                   if "budget" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "tree": str(tree),
         "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,

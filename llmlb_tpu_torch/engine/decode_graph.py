@@ -44,6 +44,22 @@ CPU, or `decode_graphs=False`) every burst runs eagerly. All graphs share
 one memory pool: they never replay concurrently, and what they produce
 lives in the static buffers, outside the pool.
 
+The speculative verify step is a graph key of its own kind, counterpart of
+the reference's fused verify (`_build_verify_fused`): `verify_body` runs
+one K+1-token step over the static verify buffers of `BurstState` (the
+drafts `verify_ids` [slots, K+1], `verify_lens`, `verify_start`,
+`verify_active`, the output `verify_out` [slots, K+3]): the last-token
+splice into column 0, the extend (`verify_step_paged` or `verify_step`),
+per-position samples, the accepted count (a cumprod of matches, the
+reference's `finish`), and each active row's advance by accepted + 1, the
+other rows (empty chunks) keeping their lengths and last tokens. Its
+modes: "free"; "grammar", where column j's bias walks the device grammar
+table through drafts 1..j, a disallowed draft clamping (its sample then
+never matches); "mask", a static [slots, K+1, V] bias the host writes for
+the rows masked now or last step. The engine runs the verify keys through
+a `BurstGraphs` of their own, on the same capture function and memory
+pool.
+
 Kernel launches are counted in the Python wrappers (`kernels/build.py
 LAUNCHES`), which a replay does not run. So the launches the wrappers count
 during a capture are taken back out of the totals (capture launches
@@ -63,7 +79,7 @@ import torch
 from llmlb_tpu_torch.kernels import build
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.ops.grammar import grammar_advance, grammar_bias
-from llmlb_tpu_torch.ops.sampling import sample_tokens
+from llmlb_tpu_torch.ops.sampling import sample_chunk, sample_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +111,17 @@ class BurstState:
     gram_state: torch.Tensor | None = None
     # the mask key's additive [slots, V] float32 bias, written by the host
     mask_bias: torch.Tensor | None = None
+    # the verify step's buffers: ids [slots, K+1] int32 (column 0 is spliced
+    # from last_tokens), chunk lengths, start positions and the active-row
+    # flag [slots] int32 (views of one buffer the host writes with one
+    # copy), the output [slots, K+3] int32 (echoed last token, K+1 samples,
+    # accepted count), and the mask key's [slots, K+1, V] float32 bias
+    verify_ids: torch.Tensor | None = None
+    verify_lens: torch.Tensor | None = None
+    verify_start: torch.Tensor | None = None
+    verify_active: torch.Tensor | None = None
+    verify_out: torch.Tensor | None = None
+    verify_mask: torch.Tensor | None = None
 
 
 def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
@@ -142,6 +169,51 @@ def burst_body(s: BurstState, window: int, seeded: bool,
     s.seq_lens.copy_(lens)
 
 
+def verify_body(s: BurstState, window: int, seeded: bool,
+                mode: str) -> None:
+    """One speculative verify step over every slot (see the module's
+    docstring): verify_out takes [last token, K+1 samples, accepted], and
+    each active row's seq_len and last token advance past its accepted
+    drafts and the correction (or bonus) sample."""
+    ids, lens, start = s.verify_ids, s.verify_lens, s.verify_start
+    ids[:, 0].copy_(s.last_tokens)
+    if s.block_tables is not None:
+        logits, _, _ = llama.verify_step_paged(
+            s.params, s.cfg, ids, lens, start, s.block_tables, s.cache_k,
+            s.cache_v, window=window, lora_idx=s.lora_idx)
+    else:
+        logits, _, _ = llama.verify_step(
+            s.params, s.cfg, ids, lens, start, None, s.cache_k, s.cache_v,
+            window=window, lora_idx=s.lora_idx)
+    count_nan_rows(s.nan_rows, logits)
+    b, k1 = ids.shape
+    bias = None
+    if mode == "grammar":
+        # column j: the cursor after drafts 1..j (a disallowed draft keeps
+        # the state, so its column's sample can never equal it)
+        gs = s.gram_state
+        cols = [grammar_bias(s.gram_table, gs)]
+        for j in range(1, k1):
+            gs = grammar_advance(s.gram_table, gs, ids[:, j])
+            cols.append(grammar_bias(s.gram_table, gs))
+        bias = torch.stack(cols, dim=1).reshape(b * k1, -1)
+    elif mode == "mask":
+        bias = s.verify_mask.reshape(b * k1, -1)
+    toks = sample_chunk(logits, s.generator, s.temps, s.top_ps, s.top_ks,
+                        bias, s.seeds if seeded else None, start)
+    # accepted: the longest prefix of drafts equal to the model's samples
+    drafts = torch.arange(1, k1, device=ids.device)[None, :] < lens[:, None]
+    matches = (toks[:, :-1] == ids[:, 1:]) & drafts
+    accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
+    active = s.verify_active > 0
+    s.verify_out[:, 0].copy_(ids[:, 0])
+    s.verify_out[:, 1:k1 + 1].copy_(toks)
+    s.verify_out[:, k1 + 1].copy_(accepted)
+    nxt = torch.gather(toks, 1, accepted[:, None].long())[:, 0]
+    s.seq_lens.copy_(torch.where(active, start + accepted + 1, s.seq_lens))
+    s.last_tokens.copy_(torch.where(active, nxt, s.last_tokens))
+
+
 @dataclasses.dataclass
 class CapturedBurst:
     graph: Any  # torch.cuda.CUDAGraph, or anything with replay()
@@ -156,8 +228,10 @@ class BurstGraphs:
 
     def __init__(self, body: Callable[..., None],
                  capture: Callable[[Callable[[], None]], tuple] | None = None,
-                 lock: Any = None):
+                 lock: Any = None, kind: str = ""):
         self._body = body
+        # "verify/" for the verify keys' names
+        self.kind = kind
         self._capture = capture
         self._lock = lock if lock is not None else contextlib.nullcontext()
         # (window, seeded, mode)
@@ -200,7 +274,7 @@ class BurstGraphs:
             "eager_bursts": self.eager_bursts,
             "capture_s": sum(c.capture_s for c in self.graphs.values()),
             "pool_bytes": sum(c.pool_bytes for c in self.graphs.values()),
-            "keys": {key_name(key): {
+            "keys": {self.kind + key_name(key): {
                 "launches": dict(c.launches), "nodes": c.nodes,
                 "capture_s": c.capture_s, "pool_bytes": c.pool_bytes}
                 for key, c in self.graphs.items()},

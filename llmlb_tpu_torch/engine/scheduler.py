@@ -122,11 +122,45 @@ rows are all resident still runs the grammar key. A park keeps the cursor,
 which already stands after every committed token, so the forced cells of a
 resume leave it where it is; a landed row takes it as it was parked.
 
-Left out of this slice (see ROADMAP.md): speculative decoding (and with it
-the drafter of ParkedState and the grammar-masked fused verify),
-context-parallel prefill, disaggregation and split-mode preemption (and
-with them the handoff's page export), the prefill chunk budget, and of the
-prefix cache and structured outputs their Prometheus series.
+Speculative decoding (`spec_decode=` / LLMLB_SPEC_DECODE, off by default,
+as in the reference; a request opts in or out with `speculative:
+{"enabled", "max_draft_tokens"}`): a speculating row carries a
+prompt-lookup drafter (llmlb_tpu_torch/spec), attached at activation
+(`_activate_group`, `_insert_restored`) and indexed over the prompt and
+every emitted token. When any active row proposes drafts, ONE verify step
+replaces the burst (`_verify_active`): every active row's last token plus
+its drafts (a 1-token chunk for a row with none; an empty chunk for a slot
+outside the step) run as a K+1-token extend, every
+position is sampled (seeded rows fold their seed by global position, as
+plain decode does), the accepted count and each row's advance are computed
+on the device, and the host emits 1..K+1 tokens a row and releases the
+pages of rejected drafts (`_trim_slot_pages`). On the card the step is one
+graph replay per verify key (window bucket, seeded, mode), the burst's
+graphs' own kind (engine/decode_graph.py `verify_body`), with one host
+fetch; a constrained row rides it under the grammar key (its columns'
+masks walked from the device table) or, off the table or with fused decode
+off, under the mask key (a [slots, K+1, V] buffer the host writes from its
+FSM lookahead along drafts cut at the grammar). A verify step takes no
+row with forced tokens pending (a C4 resume): while one is fed, the step
+is a burst, in which the drafting rows decode plainly. A parked row keeps its drafter. No n-gram
+match: the burst, with no trace.
+
+Prefill chunk budget (`prefill_chunk_budget=` / LLMLB_PREFILL_CHUNK_BUDGET,
+0 = off): while some row decodes, an iteration prefills at most `budget`
+prompt tokens (at least one chunk), so the decoders' fetches are never
+further apart than about one budget-sized chunk. C3 (a prefix hit equals
+its cold run bit for bit) needs a row's chunking not to depend on whether
+others decode, so with a budget set EVERY prompt longer than the budget's
+bucket (the largest prefill bucket within it) runs in chunks of that
+bucket, whether or not rows decode, and a hit's suffix follows those
+chunks; the budget itself only decides whether a chunk or a one-shot group
+waits for the next iteration. (The reference caps chunks only while rows
+decode, so a prompt's chunks there depend on the traffic.)
+
+Left out of this slice (see ROADMAP.md): context-parallel prefill,
+disaggregation and split-mode preemption (and with them the handoff's page
+export and drafter), and of the prefix cache, structured outputs and
+speculative decoding their Prometheus series and step records.
 """
 
 from __future__ import annotations
@@ -152,6 +186,7 @@ from llmlb_tpu_torch.engine.decode_graph import (
     burst_body,
     count_nan_rows,
     cuda_capture,
+    verify_body,
 )
 from llmlb_tpu_torch.engine.kv_offload import KVOffloadTier
 from llmlb_tpu_torch.engine.kv_transfer import (
@@ -174,6 +209,7 @@ from llmlb_tpu_torch.quant import (
     parse_quant_mode,
     quantize_params,
 )
+from llmlb_tpu_torch.spec import PromptLookupDrafter, SpecConfig
 from llmlb_tpu_torch.structured.constraint import (
     ConstraintState,
     TokenConstraint,
@@ -219,9 +255,10 @@ class SamplingParams:
     # class, and a less important decoding row may be parked for a more
     # important request, to resume token-identical.
     priority: int = 1
-    # Carried as the reference's server validates it; the port has no
-    # speculative decoding (ROADMAP A9).
-    speculative: dict | None = None  # {enabled, max_draft_tokens}
+    # Speculative decoding knobs, {"enabled": bool, "max_draft_tokens": int}:
+    # absent keys take the engine's defaults, and max_draft_tokens clamps
+    # into the engine's verify width.
+    speculative: dict | None = None
     # Relative deadline from submission (X-Request-Deadline-Ms): a request
     # still queued past it is shed before its prefill.
     deadline_ms: float | None = None
@@ -234,15 +271,18 @@ class SamplingParams:
 @dataclasses.dataclass
 class ParkedState:
     """What a parked request needs to resume token-identical: the tokens it
-    already committed (every one emitted), its generation count, and its
+    already committed (every one emitted), its generation count, its
     grammar cursor, which already stands after every committed token (a
-    resume must never re-walk it from the start state). The reference's
-    drafter fields come with A9. Seeded rows fold their seed by absolute
-    position, so sampling needs no state here."""
+    resume must never re-walk it from the start state), and its drafter,
+    whose index already holds prompt and committed tokens, with its draft
+    budget. Seeded rows fold their seed by absolute position, so sampling
+    needs no state here."""
 
     generated: int
     tokens: list[int]
     constraint: ConstraintState | None = None
+    drafter: PromptLookupDrafter | None = None
+    spec_k: int = 0
 
 
 @dataclasses.dataclass
@@ -305,6 +345,9 @@ class _Slot:
     # the cursor already stands after the pending first token (activation
     # advanced it): its emission must not advance it again
     first_advanced: bool = False
+    # a speculating row's prompt-lookup drafter and draft budget a step
+    drafter: PromptLookupDrafter | None = None
+    spec_k: int = 0
 
     def clear(self) -> None:
         self.request = None
@@ -318,6 +361,8 @@ class _Slot:
         self.constraint = None
         self.gram_offset = -1
         self.first_advanced = False
+        self.drafter = None
+        self.spec_k = 0
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -396,6 +441,24 @@ class StructuredCounters:
     schema_compile_seconds_total: float = 0.0
 
 
+@dataclasses.dataclass
+class SpecCounters:
+    """Speculative decoding, under the reference's `spec_info` names: verify
+    steps run, draft tokens proposed, drafts accepted, and the tokens the
+    speculating rows emitted (accepted + 1 a row a step)."""
+
+    verify_steps_total: int = 0
+    draft_tokens_total: int = 0
+    accepted_tokens_total: int = 0
+    emitted_tokens_total: int = 0
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        drafted = self.draft_tokens_total
+        return (round(self.accepted_tokens_total / drafted, 4) if drafted
+                else None)
+
+
 class _StructuredMetrics:
     """The ConstraintCompiler's metric hooks (the reference hands it its
     EngineMetrics), counting into the core's StructuredCounters under the
@@ -449,6 +512,12 @@ class EngineStats:
     # a copy of the structured-output counters
     structured: StructuredCounters = dataclasses.field(
         default_factory=StructuredCounters)
+    # verify steps run as graph replays and eagerly, and the verify keys
+    # captured; and a copy of the speculative decoding counters
+    verify_graph_replays: int = 0
+    verify_eager_steps: int = 0
+    verify_graphs: int = 0
+    spec: SpecCounters = dataclasses.field(default_factory=SpecCounters)
 
 
 class EngineCore:
@@ -485,6 +554,10 @@ class EngineCore:
         kv_ship: bool | None = None,
         kv_offload_bytes: int | None = None,
         fused_decode: bool | None = None,
+        spec_decode: bool | None = None,
+        spec_max_draft: int | None = None,
+        spec_ngram: int | None = None,
+        prefill_chunk_budget: int | None = None,
     ):
         self.device = resolve_device(device)
         # one CUDA graph per decode burst key: on by default on the card
@@ -520,6 +593,50 @@ class EngineCore:
             raise ValueError("no prefill bucket fits the slot capacity "
                              f"({self.slot_capacity})")
         self.eos_id = eos_id
+        # The prefill chunk budget, resolved as the reference resolves it:
+        # the prompt tokens an iteration may prefill while some row decodes
+        # (0 = no cap). See the module's docstring for its chunking.
+        if prefill_chunk_budget is None:
+            try:
+                prefill_chunk_budget = int(os.environ.get(
+                    "LLMLB_PREFILL_CHUNK_BUDGET", "0") or 0)
+            except ValueError:
+                log.warning("LLMLB_PREFILL_CHUNK_BUDGET is not an integer; "
+                            "budget disabled")
+                prefill_chunk_budget = 0
+        self.prefill_chunk_budget = max(0, int(prefill_chunk_budget))
+        if (self.prefill_chunk_budget
+                and self.prefill_chunk_budget < self.prefill_buckets[0]):
+            # chunks run at prefill buckets, so a budget below the smallest
+            # cannot be honored exactly
+            log.warning(
+                "prefill chunk budget %d is below the smallest prefill "
+                "bucket; effective per-chunk floor is %d tokens",
+                self.prefill_chunk_budget, self.prefill_buckets[0])
+        # the bucket a chunked prompt's chunks run at: the budget's, or the
+        # largest; prompts longer than it are chunked
+        self._chunk_bucket = (
+            self._budget_chunk_len(self.prefill_chunk_budget)
+            if self.prefill_chunk_budget else self.prefill_buckets[-1])
+        # prompt tokens the current iteration's one-shot group prefilled
+        self._prefill_spent_iter = 0
+
+        # Speculative decoding, resolved as the reference resolves it:
+        # `spec_decode` is the default of requests without their own knob;
+        # max_draft_tokens (at most 16) fixes the verify chunk's width K+1,
+        # so the verify keys never vary per request.
+        if spec_decode is None:
+            spec_decode = os.environ.get("LLMLB_SPEC_DECODE", "0").lower() in (
+                "1", "true", "on", "yes")
+        if spec_max_draft is None:
+            spec_max_draft = int(os.environ.get("LLMLB_SPEC_MAX_DRAFT", "4"))
+        if spec_ngram is None:
+            spec_ngram = int(os.environ.get("LLMLB_SPEC_NGRAM", "3"))
+        self.spec = SpecConfig(
+            enabled=bool(spec_decode),
+            max_draft_tokens=max(1, min(int(spec_max_draft), 16)),
+            max_ngram=max(1, int(spec_ngram)), min_ngram=1)
+        self.spec_counters = SpecCounters()
 
         # Page size: 128 tokens by default, clamped into the slot capacity.
         self.kv_page_size = max(1, min(kv_page_size or 128, self.slot_capacity))
@@ -683,6 +800,19 @@ class EngineCore:
         self._force_dirty = False
         # the grammar key's cursors (0: the free row), written before a burst
         self._d_gram_state = torch.zeros(num_slots, **z32)
+        # The verify step's inputs, one int32 buffer written with one copy
+        # a step: ids [slots, K+1], chunk lengths, start positions and the
+        # active-row flag; its output [slots, K+3]. A few KiB: allocated
+        # whether or not any row speculates (the [slots, K+1, V] mask is
+        # allocated at its first use).
+        k1 = self.spec.max_draft_tokens + 1
+        self._verify_host = np.zeros((num_slots * (k1 + 3),), np.int32)
+        self._d_verify_in = torch.zeros(num_slots * (k1 + 3), **z32)
+        vin = self._d_verify_in
+        nk = num_slots * k1
+        self._d_verify_out = torch.zeros((num_slots, k1 + 2), **z32)
+        self._d_verify_mask: torch.Tensor | None = None
+        self._spec_masked_prev: set[int] = set()
         self._burst_state = BurstState(
             params=self.params, cfg=cfg, cache_k=self.cache_k,
             cache_v=self.cache_v, block_tables=self._d_block_tables,
@@ -693,13 +823,21 @@ class EngineCore:
                                            is not None else None),
             nan_rows=self._d_nan_rows, generator=self._generator,
             force_tokens=self._d_force_tokens, force_mask=self._d_force_mask,
-            gram_state=self._d_gram_state)
-        self._bursts = BurstGraphs(
-            self._burst_body,
-            cuda_capture(self.device, self._generator)
-            if self.decode_graphs else None,
-            # adapter uploads from HTTP threads wait for a capture or replay
-            lock=self.lora.device_lock if self.lora is not None else None)
+            gram_state=self._d_gram_state,
+            verify_ids=vin[:nk].view(num_slots, k1),
+            verify_lens=vin[nk:nk + num_slots],
+            verify_start=vin[nk + num_slots:nk + 2 * num_slots],
+            verify_active=vin[nk + 2 * num_slots:],
+            verify_out=self._d_verify_out)
+        # the bursts' and the verify steps' graphs share one capture
+        # function (one memory pool)
+        capture = (cuda_capture(self.device, self._generator)
+                   if self.decode_graphs else None)
+        # adapter uploads from HTTP threads wait for a capture or replay
+        lock = self.lora.device_lock if self.lora is not None else None
+        self._bursts = BurstGraphs(self._burst_body, capture, lock=lock)
+        self._verifies = BurstGraphs(self._verify_body, capture, lock=lock,
+                                     kind="verify/")
 
         # Context-window buckets (pow2 up to capacity): a decode reads only
         # the smallest bucket covering every active sequence.
@@ -906,7 +1044,31 @@ class EngineCore:
             drain_parked_total=self.drain_parked_total,
             kv=self._kv_counters_copy(),
             structured=self._structured_counters_copy(),
+            verify_graph_replays=self._verifies.replays,
+            verify_eager_steps=self._verifies.eager_bursts,
+            verify_graphs=len(self._verifies.graphs),
+            spec=self._spec_counters_copy(),
         )
+
+    def _spec_counters_copy(self) -> SpecCounters:
+        with self._lock:
+            return dataclasses.replace(self.spec_counters)
+
+    def spec_info(self) -> dict:
+        """The `spec` block of /api/health and /api/system, the reference's
+        keys: the configuration and the live acceptance figures."""
+        c = self._spec_counters_copy()
+        return {
+            "enabled": self.spec.enabled,
+            "available": True,
+            "max_draft_tokens": self.spec.max_draft_tokens,
+            "ngram": [self.spec.min_ngram, self.spec.max_ngram],
+            "verify_steps_total": c.verify_steps_total,
+            "draft_tokens_total": c.draft_tokens_total,
+            "accepted_tokens_total": c.accepted_tokens_total,
+            "emitted_tokens_total": c.emitted_tokens_total,
+            "acceptance_rate": c.acceptance_rate,
+        }
 
     def _structured_counters_copy(self) -> StructuredCounters:
         with self._lock:
@@ -944,10 +1106,11 @@ class EngineCore:
         return depths
 
     def sched_info(self) -> dict:
-        """The `sched` block of /api/health and /api/system: queue depths
-        by class and the overload-protection counters. (The reference's
-        `prefill_chunk_budget` key goes with the budget, not ported.)"""
+        """The `sched` block of /api/health and /api/system: the prefill
+        chunk budget, queue depths by class and the overload-protection
+        counters."""
         return {
+            "prefill_chunk_budget": self.prefill_chunk_budget,
             "queued_by_class": self.queue_class_depths(),
             "preemptions_total": self.preemptions_total,
             "preempt_resumes_total": self.preempt_resumes_total,
@@ -981,8 +1144,11 @@ class EngineCore:
 
     def decode_graph_info(self) -> dict:
         """The decode graphs: keys captured, replays, eager bursts, capture
-        seconds, pool bytes and each key's per-replay kernel launches."""
-        return {"enabled": self.decode_graphs, **self._bursts.info()}
+        seconds, pool bytes and each key's per-replay kernel launches; the
+        same for the verify keys under "verify" (eager steps as
+        "eager_bursts")."""
+        return {"enabled": self.decode_graphs, **self._bursts.info(),
+                "verify": self._verifies.info()}
 
     def prepare_lora(self, request: Request) -> None:
         """Resolve and pin a request's adapter (loading it if cold).
@@ -1247,10 +1413,12 @@ class EngineCore:
         if not self._parkable(slot):
             raise RuntimeError(f"slot {slot_id} cannot park (prefilling or "
                                "first token pending)")
-        # the grammar cursor parks with the request
+        # the grammar cursor and the drafter park with the request
         request.parked = ParkedState(generated=slot.generated,
                                      tokens=list(slot.out_tokens),
-                                     constraint=slot.constraint)
+                                     constraint=slot.constraint,
+                                     drafter=slot.drafter,
+                                     spec_k=slot.spec_k)
         # the KV leaves before the pool reclaims its pages: an export for
         # the gateway, and the offload tier's copy for a local restore
         self._spill_parked_slot(slot_id, request, reason)
@@ -1405,9 +1573,12 @@ class EngineCore:
             self._d_block_tables.copy_(torch.from_numpy(self._block_tables))
             self._tables_dirty = False
 
-    def _ensure_decode_pages(self, active: list[int], k: int) -> list[int]:
+    def _ensure_decode_pages(self, active: list[int], k: int,
+                             per_row: dict[int, int] | None = None
+                             ) -> list[int]:
         """Alloc-on-extend before a decode burst: grow each active row's
-        pages to cover the k tokens the burst writes. When the pool cannot
+        pages to cover the k tokens the burst writes (a verify step: each
+        row's own chunk, `per_row`). When the pool cannot
         cover a row once the prefix cache has given up every donor it can,
         the row parks less important rows for their pages; failing that it
         parks itself while another row decodes (to resume token-identical
@@ -1422,7 +1593,9 @@ class EngineCore:
             slot = self.slots[i]
             if slot.request is None:
                 continue  # parked for pages earlier in this walk
-            target = min(int(self._seq_lens[i]) + k + 1, self.slot_capacity)
+            n_write = k if per_row is None else per_row.get(i, k)
+            target = min(int(self._seq_lens[i]) + n_write + 1,
+                         self.slot_capacity)
             need = self._pages_for_tokens(target) - len(self._slot_pages[i])
             if need > 0:
                 fresh = self._try_reserve_pages(need)
@@ -1454,6 +1627,7 @@ class EngineCore:
     # -------------------------------------------------------------- admission
 
     def _try_insert(self) -> bool:
+        self._prefill_spent_iter = 0  # the first call of every iteration
         if self.draining:
             # nothing new is admitted or re-activated: parked work stays
             # queued until the drain's flush
@@ -1480,10 +1654,15 @@ class EngineCore:
                     free = self._free_slots()
         if not free:
             return False
-        max_oneshot = self.prefill_buckets[-1]
+        # prompts longer than the chunk bucket take the chunked path (with a
+        # budget set, whether or not rows decode: C3)
+        max_oneshot = self._chunk_bucket
+        # while rows decode, a one-shot group stops growing at the budget
+        budget = self._prefill_budget_now()
         handled = False
         inserted = 0  # long inserts count toward the group cap too
         batch: list[tuple[int, Request, int]] = []  # (slot_id, request, n)
+        batch_tokens = 0
         while free and len(batch) + inserted < self.MAX_PREFILL_GROUP:
             request = self._pop_request()
             if request is None:
@@ -1530,6 +1709,13 @@ class EngineCore:
                         inserted += 1
                         continue
                     free.insert(0, slot_id)
+            if (budget and batch_tokens + min(n, max_oneshot) > budget
+                    and (batch or inserted)):
+                # this iteration's budget is spent: the request keeps the
+                # front of its class for the next one
+                self._class_queues[self._priority_of(request)].appendleft(
+                    request)
+                break
             # A prompt too short to match (at least one suffix token must
             # prefill, for the first sampled logits) bypasses the cache and
             # counts as no miss. So does a resumed request: its prompt
@@ -1592,8 +1778,10 @@ class EngineCore:
             self.slots[slot_id].request = request
             self.slots[slot_id].generated = 0
             batch.append((slot_id, request, n))
+            batch_tokens += n
         if not batch:
             return handled
+        self._prefill_spent_iter = batch_tokens
         by_bucket: dict[int, list[tuple[int, Request, int]]] = {}
         for entry in batch:
             by_bucket.setdefault(self._bucket_for(entry[2]), []).append(entry)
@@ -1700,19 +1888,27 @@ class EngineCore:
         prompt = request.prompt_ids
         n = len(prompt)
         start = slot.prefill_pos
-        # A cold prompt's chunks start at multiples of the largest bucket (a
-        # prompt within one bucket prefills in one dispatch from 0). A
-        # prefix-cache hit's suffix starts inside such a chunk: it runs that
-        # chunk's rest padded to the chunk's own bucket, and the next chunks
-        # as a cold run does. Each row then meets the product shapes a cold
-        # run gives it, and on the card, where cuBLAS picks its sums by
-        # shape, its logits equal the cold run's bit for bit (a 95-token
-        # suffix at bucket 128 moved Llama-3-8B's logits by 3.5x the bf16
-        # limit from the 479-token chunk's at bucket 512).
-        largest = self.prefill_buckets[-1]
+        # A cold prompt's chunks start at multiples of the chunk bucket (the
+        # largest bucket, or the budget's; a prompt within one bucket
+        # prefills in one dispatch from 0). A prefix-cache hit's suffix
+        # starts inside such a chunk: it runs that chunk's rest padded to the
+        # chunk's own bucket, and the next chunks as a cold run does. Each
+        # row then meets the product shapes a cold run gives it, and on the
+        # card, where cuBLAS picks its sums by shape, its logits equal the
+        # cold run's bit for bit (a 95-token suffix at bucket 128 moved
+        # Llama-3-8B's logits by 3.5x the bf16 limit from the 479-token
+        # chunk's at bucket 512).
+        largest = self._chunk_bucket
         chunk_start = start - start % largest
         chunk_end = min(chunk_start + largest, n)
         chunk_len = chunk_end - start
+        budget = self._prefill_budget_now()
+        if (budget and self._prefill_spent_iter
+                and chunk_len > budget - self._prefill_spent_iter):
+            # the iteration's one-shot group left too little of the budget
+            # for this chunk, which is never cut (its bucket is the cold
+            # run's): it runs in the next iteration
+            return False
         bucket = self._bucket_for(chunk_end - chunk_start)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :chunk_len] = prompt[start:start + chunk_len]
@@ -1739,6 +1935,27 @@ class EngineCore:
                                  np.asarray([n], np.int32), logits)
         return True
 
+    def _prefill_budget_now(self) -> int:
+        """Prompt tokens this iteration may prefill (0 = no cap): the budget
+        applies only while some row decodes; an idle engine's iterations
+        prefill without a cap (in the same chunks)."""
+        b = self.prefill_chunk_budget
+        if b <= 0:
+            return 0
+        if not any(s.request is not None and not s.prefilling
+                   for s in self.slots):
+            return 0
+        return b
+
+    def _budget_chunk_len(self, budget: int) -> int:
+        """The largest prefill bucket within the budget (floor: the
+        smallest bucket, since chunks run at buckets)."""
+        best = self.prefill_buckets[0]
+        for bkt in self.prefill_buckets:
+            if bkt <= budget:
+                best = bkt
+        return best
+
     def _activate_group(self, group: list[tuple[int, Request, int]],
                         padded_slot_ids: np.ndarray, padded_lens: np.ndarray,
                         logits: torch.Tensor) -> None:
@@ -1747,9 +1964,11 @@ class EngineCore:
         state. Padding rows repeat the last real row."""
         count_nan_rows(self._d_nan_rows, logits)
         # every insert path funnels through here (or _insert_restored): the
-        # cursor and mask row go in before the first token is sampled
+        # cursor and mask row go in before the first token is sampled, and
+        # the drafter (a parked one as it was)
         for slot_id, request, _n in group:
             self._attach_constraint(slot_id, request)
+            self._attach_spec(slot_id, request)
         padded = len(padded_slot_ids)
         temps = np.ones((padded,), np.float32)
         top_ps = np.ones((padded,), np.float32)
@@ -1865,6 +2084,16 @@ class EngineCore:
                   if s.request is not None and not s.prefilling]
         if not active:
             return False
+        # Speculative decoding: when any active row proposes drafts, ONE
+        # verify step replaces this burst. A row being fed forced tokens (a
+        # resume) keeps the step a burst until it is fed, so its committed
+        # tokens' KV is written by decode steps (C4). No draft: the burst.
+        if (any(self.slots[i].drafter is not None for i in active)
+                and not any(self.slots[i].forced for i in active)):
+            fused = self._fused_step_ok(active)
+            drafts, lookahead = self._collect_drafts(active, fused)
+            if any(drafts.values()):
+                return self._verify_active(active, drafts, lookahead, fused)
         # alloc-on-extend: every page the burst writes exists before the
         # tables ship to the device
         active = self._ensure_decode_pages(active, self.decode_burst)
@@ -1925,6 +2154,239 @@ class EngineCore:
                 force_mask=state.force_mask[:1])
         burst_body(state, window, seeded, mode)
 
+    def _verify_body(self, window: int, seeded: bool, mode: str) -> None:
+        """One verify step over the static buffers (eager, or under
+        capture)."""
+        verify_body(self._burst_state, window, seeded, mode)
+
+    # ---------------------------------------------------- speculative decode
+
+    def _attach_spec(self, slot_id: int, request: Request) -> None:
+        """Install the row's drafter at activation: a parked one as it was
+        (its index holds prompt and committed tokens: a park and
+        `Engine.adopt_stream` both carry one whenever the knob enables
+        speculation); else, when the request's knob (or the engine's
+        default) enables it, a new one over the prompt. The draft budget
+        clamps into the engine's verify width."""
+        slot = self.slots[slot_id]
+        parked = request.parked
+        if parked is not None and parked.drafter is not None:
+            slot.drafter, slot.spec_k = parked.drafter, parked.spec_k
+            return
+        slot.spec_k = self.spec_budget(request.sampling)
+        slot.drafter = (PromptLookupDrafter(request.prompt_ids,
+                                            max_ngram=self.spec.max_ngram,
+                                            min_ngram=self.spec.min_ngram)
+                        if slot.spec_k else None)
+
+    def spec_budget(self, sampling: SamplingParams) -> int:
+        """A request's draft budget a verify step, 0 when it does not
+        speculate: its `speculative` knob, or the engine's defaults for the
+        keys it leaves out, clamped into the verify width."""
+        knobs = sampling.speculative
+        knobs = knobs if isinstance(knobs, dict) else {}
+        if not bool(knobs.get("enabled", self.spec.enabled)):
+            return 0
+        try:
+            k = int(knobs.get("max_draft_tokens")
+                    or self.spec.max_draft_tokens)
+        except (TypeError, ValueError):
+            k = self.spec.max_draft_tokens
+        return max(1, min(k, self.spec.max_draft_tokens))
+
+    def _collect_drafts(self, active: list[int], fused: bool
+                        ) -> tuple[dict[int, list[int]], dict[int, list[int]]]:
+        """Each active row's drafts this step (none for a row that does not
+        speculate, has no n-gram match or no room), and each constrained
+        row's FSM states along its kept drafts (the mask key's lookahead).
+        Under the grammar key (`fused`) drafts are not cut on the host: the
+        device walks the table, and a disallowed draft fails its masked
+        comparison where the cut would have been."""
+        drafts: dict[int, list[int]] = {}
+        lookahead: dict[int, list[int]] = {}
+        for i in active:
+            slot = self.slots[i]
+            d: list[int] = []
+            # a first_pending row's last token is on the device only, which
+            # its drafter has not seen: a 1-token chunk this step
+            if slot.drafter is not None and not slot.first_pending:
+                room = self.slot_capacity - 2 - int(self._seq_lens[i])
+                budget = slot.request.sampling.max_tokens - slot.generated - 1
+                k = min(slot.spec_k, room, budget)
+                if k > 0:
+                    d = slot.drafter.propose(k)
+                if d and slot.constraint is not None and not fused:
+                    d, lookahead[i] = self._constrained_draft_prefix(
+                        slot.constraint, d)
+            drafts[i] = d
+        return drafts, lookahead
+
+    @staticmethod
+    def _constrained_draft_prefix(state: ConstraintState, drafts: list[int]
+                                  ) -> tuple[list[int], list[int]]:
+        """Cut a proposal at the first token the grammar refuses, walking a
+        copy of the cursor (the live one advances on emitted tokens only).
+        Returns (kept drafts, FSM states after each, the current first). EOS
+        never drafts: accepting a stop is the model's call."""
+        tc = state.tc
+        s = state.state
+        kept: list[int] = []
+        states = [s]
+        if state.violated:
+            return kept, states
+        for t in drafts:
+            if (t == tc.eos_id or not 0 <= t < tc.allowed.shape[1]
+                    or not tc.allowed[s, t]):
+                break
+            nxt = tc.advance(s, t)
+            if nxt is None:
+                break
+            kept.append(t)
+            s = nxt
+            states.append(s)
+        return kept, states
+
+    def _trim_slot_pages(self, slot_id: int, keep_tokens: int) -> None:
+        """Rejected-draft rollback: release the trailing pages a verify step
+        allocated beyond what `keep_tokens` needs. Trailing pages are the
+        row's own fresh ones (shared prefix pages sit at the front, and the
+        committed length never rolls back below the prompt), so one unref
+        each is exact and the pool's double-free guard stays armed."""
+        if self.page_pool is None:
+            return
+        keep = self._pages_for_tokens(keep_tokens)
+        row = self._slot_pages[slot_id]
+        if len(row) <= keep:
+            return
+        for p in row[keep:]:
+            self.page_pool.unref(p)
+        del row[keep:]
+        self._block_tables[slot_id, keep:] = 0
+        self._tables_dirty = True
+
+    def _sync_verify_mask(self, masked: list[int],
+                          lookahead: dict[int, list[int]]) -> None:
+        """The mask key's [slots, K+1, V] bias from the host FSMs: column 0
+        the live cursor's row, column j the state after the kept drafts
+        1..j, the last live state repeated past them. Only rows masked now
+        or last step are written (a row that left the masked set is zeroed),
+        in place: the buffer is allocated once, at its first use, since the
+        mask key's graph reads its address."""
+        rows = sorted(set(masked) | self._spec_masked_prev)
+        k1 = self.spec.max_draft_tokens + 1
+        v = self.cfg.vocab_size
+        if self._d_verify_mask is None:
+            self._d_verify_mask = torch.zeros((self.num_slots, k1, v),
+                                              dtype=torch.float32,
+                                              device=self.device)
+            self._burst_state = dataclasses.replace(
+                self._burst_state, verify_mask=self._d_verify_mask)
+        stripes = np.zeros((len(rows), k1, v), np.float32)
+        for n, i in enumerate(rows):
+            state = self.slots[i].constraint
+            if state is None or i not in masked:
+                continue  # left the masked set: the zero stripe clears it
+            stripes[n, 0] = state.bias_row()
+            states = lookahead.get(i, [state.state])
+            for j, st in enumerate(states[1:], start=1):
+                stripes[n, j] = state.tc.bias_row(st)
+            stripes[n, len(states):] = stripes[n, len(states) - 1]
+        if rows:
+            self._d_verify_mask.index_copy_(
+                0, torch.as_tensor(rows, dtype=torch.int64, device=self.device),
+                self._to_device(stripes))
+        self._spec_masked_prev = set(masked)
+
+    def _verify_active(self, active: list[int], drafts: dict[int, list[int]],
+                       lookahead: dict[int, list[int]], fused: bool) -> bool:
+        """One speculative verify step (the reference's fused verify): each
+        active row's last token and drafts as a K+1-token chunk through the
+        extend path, every position sampled, the longest prefix of drafts
+        matching the samples accepted, accepted + 1 tokens emitted a row,
+        and the pages of rejected drafts released. Every other row is an
+        empty chunk (length 0) at the capacity's last cell: its K/V writes
+        land there, the garbage contract of decode, and the extend kernels
+        skip its queries, so it reads no keys (as a 1-token chunk, the
+        reference's, a row parked at the last cell would sweep the whole
+        capacity). One graph replay (or eager step) and one host fetch."""
+        k1 = self.spec.max_draft_tokens + 1
+        per_row = {i: len(drafts.get(i, ())) + 1 for i in active}
+        active = self._ensure_decode_pages(active, 1, per_row)
+        if not active:
+            return True
+        self._sync_block_tables()
+        b = self.num_slots
+        host = self._verify_host
+        nk = b * k1
+        ids = host[:nk].reshape(b, k1)
+        lens = host[nk:nk + b]
+        start = host[nk + b:nk + 2 * b]
+        act = host[nk + 2 * b:]
+        ids[:] = 0
+        lens[:] = 0
+        start[:] = self.slot_capacity - 1
+        act[:] = 0
+        for i in active:
+            d = drafts.get(i, ())
+            ids[i, 1:1 + len(d)] = d
+            lens[i] = 1 + len(d)
+            start[i] = self._seq_lens[i]
+            act[i] = 1
+        self._d_verify_in.copy_(torch.from_numpy(host))
+        masked = [i for i in active if self.slots[i].constraint is not None]
+        mode = "free"
+        if fused:
+            if masked:
+                mode = "grammar"
+                self._sync_gram_state(active)
+        elif masked or self._spec_masked_prev:
+            self._sync_verify_mask(masked, lookahead)
+            mode = "mask" if masked else "free"
+        if masked:
+            self._count("masked_decode_steps_total")
+        window = self._window_for(active, k1)
+        seeded = bool((self._seeds[active] >= 0).any())
+        self._verifies.run(window, seeded, mode)
+        # the ONE host sync of the step: [slots, K+3]
+        out = self._d_verify_out.cpu().numpy()
+
+        drafted = sum(len(drafts.get(i, ())) for i in active)
+        accepted_total = 0
+        spec_emitted = 0
+        for i in active:
+            slot = self.slots[i]
+            if slot.first_pending and slot.request is not None:
+                slot.first_pending = False
+                self._emit(i, int(out[i, 0]))
+            if slot.request is None or slot.prefilling:
+                continue
+            d = drafts.get(i, [])
+            j = 0
+            emitted = 0
+            while True:
+                tok = int(out[i, 1 + j])
+                self._seq_lens[i] += 1
+                emitted += 1
+                matched = j < len(d) and tok == d[j]
+                self._emit(i, tok)
+                if matched:
+                    j += 1
+                if slot.request is None or not matched:
+                    break
+            accepted_total += j
+            if d:
+                spec_emitted += emitted
+            if slot.request is not None:
+                # keep the pages of the committed length and the next write
+                self._trim_slot_pages(i, int(self._seq_lens[i]) + 1)
+        with self._lock:
+            c = self.spec_counters
+            c.verify_steps_total += 1
+            c.draft_tokens_total += drafted
+            c.accepted_tokens_total += accepted_total
+            c.emitted_tokens_total += spec_emitted
+        return True
+
     def _emit_fetched(self, tokens: np.ndarray, active: list[int]) -> None:
         """Deliver one fetched token block [k+1, slots]: row 0 holds first
         tokens of slots activated since the previous fetch (no seq_len
@@ -1979,6 +2441,9 @@ class EngineCore:
             finish = "stop"  # EOS itself is not emitted as content
         else:
             slot.out_tokens.append(token)
+            if slot.drafter is not None:
+                # every emitted token extends the prompt-lookup index
+                slot.drafter.append(token)
             request.events.put(("token", token))
             if slot.generated >= request.sampling.max_tokens:
                 finish = "length"
@@ -2243,8 +2708,10 @@ class EngineCore:
         slot.out_tokens = list(st.tokens)
         slot.forced = []
         slot.first_pending = False
-        # the parked cursor as it was: it stands after every committed token
+        # the parked cursor and drafter as they were: both stand after every
+        # committed token
         self._attach_constraint(slot_id, request)
+        self._attach_spec(slot_id, request)
         request.parked = None
         self.preempt_resumes_total += 1
         self._record_kv_restore(kvp.nbytes)

@@ -30,10 +30,11 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   grace (`LLMLB_DRAIN_GRACE_S`, 30 s by default, or the body's `grace_s`),
   then the rows still decoding are parked and the stragglers' sockets shut
   down, so the gateway resumes them elsewhere;
-- `GET /api/health` (with the `sched` block: queue depths by priority
-  class, preemption and deadline-shed counters; and the `kv_transfer`
-  block: page moves, fallbacks by reason, the offload tier) and `GET
-  /api/system`,
+- `GET /api/health` (with the `sched` block: the prefill chunk budget,
+  queue depths by priority class, preemption and deadline-shed counters;
+  the `kv_transfer` block: page moves, fallbacks by reason, the offload
+  tier; and the `spec` block: the speculative decoding knobs and acceptance
+  figures) and `GET /api/system`,
   carrying `"tpu_engine": true` — the field the gateway's endpoint
   detection keys on to treat this as an in-tree engine — and
   `"backend": "cuda"`.
@@ -41,7 +42,9 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
 Request fields are validated by the reference's rules: `priority` (the
 admission class; a more important request may park a less important one)
 and the `X-Request-Deadline-Ms` header (a request still queued past it is
-shed), `speculative` (validated and carried). Structured outputs, as the
+shed), `speculative` (`{"enabled", "max_draft_tokens"}`: the request
+speculates, or not, whatever the engine's `--spec-decode` default; the
+draft budget clamps into `--spec-max-draft`). Structured outputs, as the
 reference serves them: a chat's `response_format` (`json_object`,
 `json_schema`) or forced `tool_choice` goes through the port's
 `inspect_request` (malformed or uncompilable requests are 400s naming the
@@ -424,6 +427,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "sched": engine.core.sched_info(),
                 "kv_transfer": engine.core.kv_transfer_info(),
                 "structured": engine.core.structured_info(),
+                "spec": engine.core.spec_info(),
                 "draining": self.server.drain.info(),
             })
         else:
@@ -972,6 +976,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--prefill-buckets", default=None,
         help="comma-separated one-shot prefill lengths (default 32..512); "
              "prompts beyond the largest run through chunked prefill")
+    parser.add_argument(
+        "--prefill-chunk-budget", type=int, default=None,
+        help="max prompt tokens prefilled per step-loop iteration while "
+             "other slots decode (default 0 = uncapped; also via "
+             "LLMLB_PREFILL_CHUNK_BUDGET); with a budget, prompts longer "
+             "than its bucket always run in chunks of that bucket")
     parser.add_argument("--kv-page-size", type=int, default=None,
                         help="tokens per KV page (default 128)")
     parser.add_argument("--kv-pages", type=int, default=None,
@@ -1013,6 +1023,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--prefix-cache-slots", type=int, default=None,
         help="most prefix donors held at once (default num_slots // 2, "
              "always leaving one serving slot)")
+    parser.add_argument(
+        "--spec-decode", choices=("on", "off"), default=None,
+        help="speculative decoding default for requests without their own "
+             "'speculative' knob (default off; also via LLMLB_SPEC_DECODE): "
+             "prompt-lookup drafting and one K+1-token verify step")
+    parser.add_argument(
+        "--spec-max-draft", type=int, default=None,
+        help="max draft tokens per verify step (default 4, cap 16; also via "
+             "LLMLB_SPEC_MAX_DRAFT): the verify chunk's width")
+    parser.add_argument(
+        "--spec-ngram", type=int, default=None,
+        help="longest n-gram the prompt-lookup drafter matches on (default "
+             "3; also via LLMLB_SPEC_NGRAM)")
     return parser
 
 
@@ -1035,6 +1058,14 @@ def main(argv: list[str] | None = None) -> None:
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
+    if args.prefill_chunk_budget is not None:
+        core_kwargs["prefill_chunk_budget"] = max(0, args.prefill_chunk_budget)
+    if args.spec_decode is not None:
+        core_kwargs["spec_decode"] = args.spec_decode == "on"
+    if args.spec_max_draft is not None:
+        core_kwargs["spec_max_draft"] = max(1, args.spec_max_draft)
+    if args.spec_ngram is not None:
+        core_kwargs["spec_ngram"] = max(1, args.spec_ngram)
     if args.checkpoint:
         engine = Engine.from_checkpoint(args.checkpoint,
                                         model_id=args.model_id,

@@ -42,6 +42,7 @@ from llmlb_tpu_torch.engine.tokenizer import (
 )
 from llmlb_tpu_torch.engine.weights import load_checkpoint, load_config
 from llmlb_tpu_torch.quant import parse_quant_mode
+from llmlb_tpu_torch.spec import PromptLookupDrafter
 from llmlb_tpu_torch.structured import ConstraintCompiler, ConstraintState
 
 
@@ -198,7 +199,9 @@ class Engine:
         full sequence. A stream already
         terminal in its committed tokens (a stop string, or max_tokens
         reached) ends here without a submit. A constrained stream's grammar
-        cursor is rebuilt by walking the committed tokens."""
+        cursor is rebuilt by walking the committed tokens, and a speculating
+        one's drafter is indexed over the prompt and the committed tokens
+        (the origin's drafter at the handoff point)."""
         committed = [int(t) for t in committed_ids]
         bad = [t for t in committed if not 0 <= t < self.core.cfg.vocab_size]
         if bad:
@@ -221,15 +224,32 @@ class Engine:
             cursor = ConstraintState(compiled)
             for t in committed:
                 cursor.advance(t)
+        drafter, spec_k = self._drafter_of(prompt_ids, committed, sampling)
         request = Request(
             prompt_ids=list(prompt_ids), sampling=sampling,
             request_id=_request_id(request_id),
             parked=ParkedState(generated=len(committed), tokens=committed,
-                               constraint=cursor),
+                               constraint=cursor, drafter=drafter,
+                               spec_k=spec_k),
             kv_restore=self._kv_restore_of(kv_pages, committed),
             compiled_constraint=compiled)
         self._submit(request)
         return self._deltas(request, stop, committed)
+
+    def _drafter_of(self, prompt_ids, committed: list[int],
+                    sampling: SamplingParams):
+        """(drafter, draft budget) of an adopted stream, as the reference's
+        adopt_stream builds them: (None, 0) unless the request speculates;
+        the drafter indexes prompt and committed tokens."""
+        spec_k = self.core.spec_budget(sampling)
+        if not spec_k:
+            return None, 0
+        spec = self.core.spec
+        drafter = PromptLookupDrafter(prompt_ids, max_ngram=spec.max_ngram,
+                                      min_ngram=spec.min_ngram)
+        for t in committed:
+            drafter.append(int(t))
+        return drafter, spec_k
 
     def _kv_restore_of(self, kv_pages: dict | None, committed: list[int]):
         """The parsed pages an adoption lands, or None after counting the
@@ -454,6 +474,8 @@ class Engine:
             # structured outputs: the compiler's mask cache, live
             # constrained rows and the device grammar table
             "structured": self.core.structured_info(),
+            # speculative decoding: the knobs and acceptance figures
+            "spec": self.core.spec_info(),
         }
 
 

@@ -23,11 +23,14 @@ Batch invariance on the card: a row's logits do not depend on the rows it
 shares a dispatch with. cuBLAS picks its kernel, and with it the order of a
 product's sums, by the product's shape, so every product that a batch size
 could reshape takes a shape of the row's own: a prefill group (B > 1 rows of
-T > 1 positions) runs each projection once per row (M = T, the bucket), and
-the vocab projection runs over blocks of UNEMBED_ROWS rows. A decode step
-always runs every slot (M fixed) and a chunk one row. The attention and
-LoRA kernels cut their work by shape alone, and the elementwise ops and
-norms are per row.
+T positions) runs each projection once per row (M = T, the bucket), and the
+vocab projection runs over blocks of UNEMBED_ROWS rows. Which entry points
+split is said by each one (`per_row`), not read from the input's shape: the
+prefill entry points split, while a decode step (every slot, M fixed) and a
+speculative verify step (every slot's K+1 positions, M = slots * (K+1)
+fixed) take one product of all their rows, so a verify reads each weight
+matrix once, as a decode step does. The attention and LoRA kernels cut their
+work by shape alone, and the elementwise ops and norms are per row.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -270,17 +273,18 @@ def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
     return {n: params[n][i] for n in names}
 
 
-def _rowwise(x: torch.Tensor, product, n_out: int,
-             dtype: torch.dtype) -> torch.Tensor:
+def _rowwise(x: torch.Tensor, product, n_out: int, dtype: torch.dtype,
+             per_row: bool) -> torch.Tensor:
     """The product of x [B, T, IN] with a weight -> [B, T, n_out] in
     `dtype`; `product(x2, out)` multiplies rows x2 [M, IN] into `out` (a new
-    tensor when out is None). On the card a prefill group (B > 1, T > 1)
-    takes one product per batch row, written into that row of the output,
-    so each row's sums run in the order cuBLAS picks for M = T alone,
-    whatever the group's size; a decode step (T = 1, every slot), a chunk
-    (B = 1) and the CPU take one product of all rows."""
+    tensor when out is None). With `per_row` (the prefill entry points) and
+    B > 1 on the card, each batch row takes a product of its own, written
+    into that row of the output, so its sums run in the order cuBLAS picks
+    for M = T alone, whatever the group's size. Without it (a decode or a
+    verify step: every slot, so M is fixed), for one row, and on the CPU,
+    one product takes all rows."""
     b, t, e = x.shape
-    if x.device.type == "cuda" and b > 1 and t > 1:
+    if per_row and x.device.type == "cuda" and b > 1:
         y = torch.empty((b, t, n_out), dtype=dtype, device=x.device)
         for i in range(b):
             product(x[i], y[i])
@@ -289,9 +293,11 @@ def _rowwise(x: torch.Tensor, product, n_out: int,
 
 
 def _proj(lp: Params, name: str, x: torch.Tensor,
-          lora_idx: torch.Tensor | None = None) -> torch.Tensor:
-    """`x @ W` (rows as `_rowwise` groups them). An int8 W takes its
-    per-output-channel scale on the fp32 output, as the reference does: the
+          lora_idx: torch.Tensor | None = None, *,
+          per_row: bool = False) -> torch.Tensor:
+    """`x @ W` (rows as `_rowwise` groups them, by `per_row`). An int8 W
+    takes its per-output-channel scale on the fp32 output, as the reference
+    does: the
     operand is W widened to x's dtype (exact: |code| <= 127), the product
     accumulates and returns fp32, then `* scale` and a round to x's dtype.
     On the card a bf16 x takes cuBLAS's bf16-in/fp32-out product; elsewhere
@@ -309,7 +315,7 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
                             f"{SCALE_SUFFIX} companion is missing from the "
                             "layer slice")
         y = _rowwise(x, lambda x2, out: torch.mm(x2, w, out=out), w.shape[-1],
-                     x.dtype)
+                     x.dtype, per_row)
     else:
         if x.device.type == "cuda" and x.dtype != torch.float32:
             wx = w.to(x.dtype)
@@ -322,7 +328,7 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
 
             def product(x2, out):
                 return torch.mm(x2.float(), wf, out=out)
-        y32 = _rowwise(x, product, w.shape[-1], torch.float32)
+        y32 = _rowwise(x, product, w.shape[-1], torch.float32, per_row)
         y = (y32 * scale).to(x.dtype)
     if lora_idx is not None and name + LORA_A in lp:
         y = lora_delta_add(y, x, lp[name + LORA_A], lp[name + LORA_B],
@@ -330,12 +336,13 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
     return y
 
 
-def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx=None):
+def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx,
+         per_row: bool):
     b, t, _ = x.shape
     d = cfg.head_dim_
-    q = _proj(lp, "wq", x, lora_idx)
-    k = _proj(lp, "wk", x, lora_idx)
-    v = _proj(lp, "wv", x, lora_idx)
+    q = _proj(lp, "wq", x, lora_idx, per_row=per_row)
+    k = _proj(lp, "wk", x, lora_idx, per_row=per_row)
+    v = _proj(lp, "wv", x, lora_idx, per_row=per_row)
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -345,29 +352,35 @@ def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx=None):
             v.reshape(b, t, cfg.num_kv_heads, d))
 
 
-def _mlp(lp: Params, x: torch.Tensor, lora_idx=None) -> torch.Tensor:
-    return _proj(lp, "wd", F.silu(_proj(lp, "wg", x, lora_idx))
-                 * _proj(lp, "wu", x, lora_idx), lora_idx)
+def _mlp(lp: Params, x: torch.Tensor, lora_idx, per_row: bool) -> torch.Tensor:
+    gate = _proj(lp, "wg", x, lora_idx, per_row=per_row)
+    up = _proj(lp, "wu", x, lora_idx, per_row=per_row)
+    return _proj(lp, "wd", F.silu(gate) * up, lora_idx, per_row=per_row)
 
 
 def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
-                inv_freq, attn_fn, lora_idx=None):
+                inv_freq, attn_fn, lora_idx, per_row: bool):
     """Pre-norm attention sub-block: norm -> qkv -> rope -> attn_fn -> wo
     residual. `attn_fn(q, k, v)` writes the KV and attends."""
     b, t, _ = x.shape
     h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    q, k, v = _qkv(cfg, lp, h, lora_idx)
+    q, k, v = _qkv(cfg, lp, h, lora_idx, per_row)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = attn_fn(q, k, v)
-    return x + _proj(lp, "wo", attn.reshape(b, t, -1), lora_idx)
+    return x + _proj(lp, "wo", attn.reshape(b, t, -1), lora_idx,
+                     per_row=per_row)
 
 
 def _layer_step(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
-                inv_freq, attn_fn, lora_idx) -> torch.Tensor:
-    """One decoder layer: the attention sub-block, then the MLP residual."""
-    x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn, lora_idx)
-    return x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps), lora_idx)
+                inv_freq, attn_fn, lora_idx, per_row: bool) -> torch.Tensor:
+    """One decoder layer: the attention sub-block, then the MLP residual.
+    `per_row`: each batch row's projections run alone on the card (the
+    prefill entry points), or all rows in one product (decode, verify)."""
+    x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn, lora_idx,
+                    per_row)
+    return x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps), lora_idx,
+                    per_row)
 
 
 def _lora_rows(lora_idx, dev) -> torch.Tensor | None:
@@ -404,6 +417,17 @@ def _last_rows(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """x [B, T, E] -> row lens[b]-1 of each batch entry, [B, E]."""
     last = torch.clamp(lens.long() - 1, min=0)
     return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+def _chunk_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor,
+                  chunk_lens: torch.Tensor, all_logits: bool) -> torch.Tensor:
+    """An extend's logits: at every chunk position [B, T, V] (a verify:
+    B * T rows through the unembed's blocks), or at each chunk's last valid
+    position [B, V]."""
+    if all_logits:
+        b, t, e = x.shape
+        return _unembed(cfg, params, x.reshape(b * t, e)).reshape(b, t, -1)
+    return _unembed(cfg, params, _last_rows(x, chunk_lens))
 
 
 def _rope_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
@@ -455,7 +479,7 @@ def prefill_into_pages(
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, True)
 
     logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
     return logits, cache_k, cache_v
@@ -477,6 +501,45 @@ def prefill_extend_pages(
     through the block tables. Padding tokens write garbage past the chunk —
     into the row's own later pages or the trash page, never another row's
     cells. Returns (chunk-last logits [B, V] fp32, cache_k, cache_v)."""
+    return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
+                         block_tables, cache_k, cache_v, lora_idx,
+                         all_logits=False, per_row=True)
+
+
+def verify_step_paged(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, K+1] int — last committed token + drafts
+    chunk_lens: torch.Tensor,  # [B] int32 — 1 + draft count per row
+    start_pos: torch.Tensor,  # [B] int32 — committed tokens in its pages
+    block_tables: torch.Tensor,  # [B, PPN] int32
+    cache_k,  # [L, P, PS, K, D], or an int8 {"q", "s"} pair
+    cache_v,
+    window: int | None = None,  # context-window bucket (>= max start + K + 1)
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+):
+    """Paged speculative verification: one extend over every row scores the
+    last committed token plus up to K drafts and returns the logits at EVERY
+    chunk position, [B, K+1, V] fp32, so the scheduler can sample each
+    position and accept the longest matching draft prefix. The KV of every
+    chunk position is written; a rejected suffix's cells become garbage past
+    the rolled-back length. The attention is paged_flash_extend (int8 pools:
+    paged_flash_extend_quant) at T = K+1, and the projections take one
+    product of all B * (K+1) rows, as a decode step does. `window` is the
+    reference's static bucket: the extend kernel sweeps each row only to its
+    chunk's last position, so on the card it bounds nothing more."""
+    del window
+    return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
+                         block_tables, cache_k, cache_v, lora_idx,
+                         all_logits=True, per_row=False)
+
+
+def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
+                  cache_k, cache_v, lora_idx, *, all_logits: bool,
+                  per_row: bool):
+    """The body of prefill_extend_pages and verify_step_paged:
+    `all_logits` returns [B, T, V] (every chunk position) in place of the
+    chunk-last [B, V]; `per_row` groups the projections (`_rowwise`)."""
     b, t = input_ids.shape
     dev = input_ids.device
     ps = pool_shape(cache_k)[2]
@@ -500,9 +563,9 @@ def prefill_extend_pages(
                                           chunk_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, per_row)
 
-    logits = _unembed(cfg, params, _last_rows(x, chunk_lens))
+    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
     return logits, cache_k, cache_v
 
 
@@ -544,7 +607,7 @@ def decode_step_paged(
                                           window=window)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, False)
 
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache_k, cache_v
@@ -576,7 +639,7 @@ def encode(
     x = params["embed"][input_ids.long()]  # [B, T, E]
     for i in range(cfg.num_layers):
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, None)
+                        attn_fn, None, True)
     x = rms_norm(x, params["ln_final"], cfg.rms_eps).float()
     out = []
     for r, n in enumerate(prompt_lens.tolist()):
@@ -628,7 +691,7 @@ def prefill_into_slots(
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, True)
 
     logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
     return logits, cache_k, cache_v
@@ -652,6 +715,40 @@ def prefill_extend_slots(
     tokens write garbage past the chunk, in cells later attention masks and
     the sequence overwrites as it grows. Returns (chunk-last logits [B, V]
     fp32, cache_k, cache_v)."""
+    return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
+                         slot_ids, cache_k, cache_v, lora_idx,
+                         all_logits=False, per_row=True)
+
+
+def verify_step(
+    params: Params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, K+1] int — last committed token + drafts
+    chunk_lens: torch.Tensor,  # [B] int32 — 1 + draft count per row
+    start_pos: torch.Tensor,  # [B] int32 — committed tokens in its row
+    slot_ids: torch.Tensor | None,  # [B] int — rows; None: row b is slot b
+    cache_k: torch.Tensor,  # [L, NUM_SLOTS, CAP, K, D]
+    cache_v: torch.Tensor,
+    window: int | None = None,  # context-window bucket (>= max start + K + 1)
+    lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+):
+    """Speculative verification over the dense slot cache: verify_step_paged's
+    contract with flash_extend at T = K+1 over the slot rows. The engine
+    passes every slot in order (`slot_ids=None`, the reference's arange), so
+    the kernel reads the cache's own rows and no row is gathered. `window`
+    bounds nothing more on the card (flash_extend sweeps each row to its
+    chunk's last position)."""
+    del window
+    return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
+                         slot_ids, cache_k, cache_v, lora_idx,
+                         all_logits=True, per_row=False)
+
+
+def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
+                  cache_k, cache_v, lora_idx, *, all_logits: bool,
+                  per_row: bool):
+    """The body of prefill_extend_slots and verify_step (see
+    `_extend_pages`); `slot_ids=None` takes the cache rows in order."""
     b, t = input_ids.shape
     dev = input_ids.device
     capacity = cache_k.shape[2]
@@ -661,23 +758,27 @@ def prefill_extend_slots(
     positions = start_pos[:, None] + torch.arange(t, device=dev,
                                                   dtype=torch.int32)[None, :]
     write_pos = torch.clamp(positions, max=capacity - 1)
-    slots = slot_ids.to(dev).long()
+    slots = (torch.arange(b, device=dev) if slot_ids is None
+             else slot_ids.to(dev).long())
     rows = slots[:, None].expand(b, t)
     lora_idx = _lora_rows(lora_idx, dev)
+
+    def cache_rows(cache):
+        return cache if slot_ids is None else cache[slots]
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             _write_slots(cache_k[i], rows, write_pos, k)
             _write_slots(cache_v[i], rows, write_pos, v)
-            return gqa_attention_extend(q, cache_k[i][slots],
-                                        cache_v[i][slots], positions,
+            return gqa_attention_extend(q, cache_rows(cache_k[i]),
+                                        cache_rows(cache_v[i]), positions,
                                         chunk_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, per_row)
 
-    logits = _unembed(cfg, params, _last_rows(x, chunk_lens))
+    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
     return logits, cache_k, cache_v
 
 
@@ -716,7 +817,7 @@ def decode_step(
                                         window=window)
 
         x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx)
+                        attn_fn, lora_idx, False)
 
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache_k, cache_v

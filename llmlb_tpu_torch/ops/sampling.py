@@ -84,3 +84,34 @@ def sample_tokens(
     sampled_ids = torch.gather(top_ids, 1, sampled_idx[:, None])[:, 0]
     return torch.where(temperature <= 0.0, greedy_ids,
                        sampled_ids.to(torch.int32))
+
+
+def sample_chunk(
+    logits: torch.Tensor,  # [B, T, V] float32
+    generator: torch.Generator | None,
+    temperature: torch.Tensor,  # [B] float32
+    top_p: torch.Tensor,  # [B] float32
+    top_k: torch.Tensor,  # [B] int
+    mask_bias: torch.Tensor | None,  # [B * T, V] float32 additive, or None
+    seeds: torch.Tensor | None,  # [B]; < 0 => generator; None: no seeded row
+    start_pos: torch.Tensor,  # [B] global position of each row's column 0
+) -> torch.Tensor:
+    """Per-position sampling of a verify chunk (the reference's
+    `_sample_chunk`): the B * T rows are sampled as independent rows, each
+    with its slot's parameters, and the seed fold steps by GLOBAL position
+    (start_pos[b] + j), so a seeded row draws the same key at position p in
+    a verify chunk as in plain decode. Returns [B, T] int32. No host sync:
+    safe in a graph."""
+    b, t, v = logits.shape
+    dev = logits.device
+    steps = (start_pos.to(device=dev, dtype=torch.int64)[:, None]
+             + torch.arange(t, device=dev)[None, :]).reshape(-1)
+
+    def rep(x):
+        return x.repeat_interleave(t)
+
+    toks = sample_tokens(logits.reshape(b * t, v), generator, rep(temperature),
+                         rep(top_p), rep(top_k), mask_bias=mask_bias,
+                         seeds=None if seeds is None else rep(seeds),
+                         steps=steps)
+    return toks.reshape(b, t)

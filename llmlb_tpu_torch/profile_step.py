@@ -51,6 +51,12 @@ worst ratio to the bf16 limit 2^-6 (|cold| + rms(cold)), bit for bit or
 not) and the wall of the suffix dispatch at each bucket. The engine runs a
 hit's suffix at the cold chunk's bucket (`EngineCore._advance_prefill`).
 
+`--verify` runs the speculative verify step instead (`--only verify`): one
+step of K+1 = 5 positions over the 8 rows, every row a full chunk (4 drafts),
+at the short and the long context: the eager `verify_body`, then the
+engine's verify graph key (its first call runs the step eagerly and
+captures it) as one replay, the lengths reset to the context before each.
+
 `--device cpu` rehearses the same dispatches at a small preset on the CPU
 and prints no timing (there is no device to time).
 """
@@ -72,6 +78,7 @@ from llmlb_tpu_torch.engine.decode_graph import (
     BurstState,
     burst_body,
     cuda_capture,
+    verify_body,
 )
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
@@ -88,6 +95,7 @@ CAPACITY = 4096  # its default slot capacity, in tokens
 PAGE = 128
 REPS = 20
 LORA_RANK = 16  # the engine's default rank cap
+VERIFY_K1 = 5  # the verify chunk at the engine's default 4 drafts
 ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
                      "paged_extend_kernel", "paged_decode_quant_kernel",
                      "paged_extend_quant_kernel", "flash_decode_kernel",
@@ -298,8 +306,58 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
                                                   tables[:1], ck, cv,
                                                   lora_idx=lidx)
 
+    def verify(ctx, graph):
+        """One verify step over every row (a K+1-token chunk each, the
+        engine's verify_body): eager, or as a replay of its captured graph
+        (eager on the CPU); the lengths and starts reset to ctx before
+        each (fills outside the graph)."""
+        k1 = VERIFY_K1
+        i32 = dict(dtype=torch.int32, device=device)
+        vin = torch.zeros(ROWS * (k1 + 3), **i32)
+        nk = ROWS * k1
+        state = BurstState(
+            params=params, cfg=cfg, cache_k=ck, cache_v=cv,
+            block_tables=tables, last_tokens=toks.clone(),
+            seq_lens=torch.full((ROWS,), ctx, **i32),
+            tokens=torch.zeros((2, ROWS), **i32),
+            temps=temps, top_ps=top_p, top_ks=top_k,
+            seeds=torch.full((ROWS,), -1, dtype=torch.int64, device=device),
+            lora_idx=lora_idx,
+            nan_rows=torch.zeros((), dtype=torch.int64, device=device),
+            generator=gen, verify_ids=vin[:nk].view(ROWS, k1),
+            verify_lens=vin[nk:nk + ROWS],
+            verify_start=vin[nk + ROWS:nk + 2 * ROWS],
+            verify_active=vin[nk + 2 * ROWS:],
+            verify_out=torch.zeros((ROWS, k1 + 2), **i32))
+        state.verify_ids.copy_(torch.randint(0, 256, (ROWS, k1),
+                                             generator=gen, **i32))
+        state.verify_lens.fill_(k1)
+        state.verify_active.fill_(1)
+        window = min(capacity, 1 << max(8, (ctx + k1 + 1 - 1).bit_length()))
+        steps = BurstGraphs(
+            lambda w, s, m: verify_body(state, w, s, m),
+            cuda_capture(device, gen) if graph and device.type == "cuda"
+            else None)
+
+        def run():
+            state.seq_lens.fill_(ctx)
+            state.verify_start.fill_(ctx)
+            if graph:
+                steps.run(window, False, "free")
+            else:
+                verify_body(state, window, False, "free")
+        return run
+
     bucket = min(512, capacity // 2)
     return {
+        f"verify rows={ROWS} k1={VERIFY_K1} ctx={short_ctx}":
+            verify(short_ctx, False),
+        f"verify rows={ROWS} k1={VERIFY_K1} ctx={long_ctx}":
+            verify(long_ctx, False),
+        f"verify graph rows={ROWS} k1={VERIFY_K1} ctx={short_ctx}":
+            verify(short_ctx, True),
+        f"verify graph rows={ROWS} k1={VERIFY_K1} ctx={long_ctx}":
+            verify(long_ctx, True),
         f"decode rows={ROWS} ctx={short_ctx}": decode(short_ctx),
         f"decode rows={ROWS} ctx={long_ctx}": decode(long_ctx),
         f"decode graph burst={BURST} rows={ROWS} ctx={short_ctx}":
@@ -377,9 +435,12 @@ def main(argv: list[str] | None = None) -> int:
                         help="N resident random adapters, mixed rows")
     parser.add_argument("--only", default="decode,prefill,extend",
                         help="comma-separated dispatch kinds to run")
+    parser.add_argument("--verify", action="store_true",
+                        help="the speculative verify step alone (eager and "
+                             "as a graph replay), as --only verify")
     args = parser.parse_args(argv)
-    kinds = set(args.only.split(","))
-    if not kinds <= {"decode", "prefill", "extend", "buckets"}:
+    kinds = {"verify"} if args.verify else set(args.only.split(","))
+    if not kinds <= {"decode", "prefill", "extend", "buckets", "verify"}:
         parser.error(f"--only: unknown kinds {sorted(kinds)}")
     quant = parse_quant_mode(args.quantize)
     if quant.kv and args.kv_layout == "dense":

@@ -244,6 +244,7 @@ def test_sched_info(cold_core):
     cold_core.pending.put(_req((1, 2, 3), 0))
     cold_core._drain_pending()
     assert cold_core.sched_info() == {
+        "prefill_chunk_budget": 0,
         "queued_by_class": {"high": 1, "normal": 0, "low": 0},
         "preemptions_total": 0, "preempt_resumes_total": 0,
         "deadline_shed_total": 0}
