@@ -145,6 +145,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
              pressure and asked for again restores from host RAM, its
              hit's first-token logits equal to the live hit's bit for bit,
              and the counters the traffic's.
+             bf16, after the counts: observability on the serving core
+             over its server: 8 rows decode 1100 greedy ids while
+             /api/health is polled; their /api/steps decode records'
+             phases sum to total_s, replays count one dispatch, each
+             replayed record's device ms a step is within 10% of
+             profile_step's graph row at the same shape (run here), and
+             the perf block read with a window of these bursts only has
+             mfu and hbm_bw_utilization in (0, 1]; the gpu block equals
+             torch's total_memory and memory_allocated; a request's
+             timeline runs admitted -> queued -> prefill_chunk -> ... ->
+             finished in seq order; /metrics parses as Prometheus text,
+             every family documented with the reference's; a speculating
+             request writes verify records with a draft phase; 32 greedy
+             ids are equal with the flight recorder on and off; POST
+             /api/profile captures 0.5 s of 8-row decode, its zip's Chrome
+             trace is searched for the paged decode's split and combine
+             kernels inside the graph replays (their absence is printed
+             as a finding); the dispatch check
+             (engine/dispatch_check.py) passes on the card.
              bf16, after the counts: structured outputs, on an EngineCore
              of its own over the serving core's params (8 paged slots, the
              ByteTokenizer's EOS, the port's Engine and server; its
@@ -251,6 +270,7 @@ import argparse
 import dataclasses
 import json
 import queue
+import re
 import subprocess
 import sys
 import threading
@@ -5079,6 +5099,357 @@ def _budget_block(core, prompts, long_prompt, dev: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ observability
+
+OBS_TOKENS = 1100  # each 8-row decode's greedy ids: 137 bursts, more than
+# the 128 records of the throughput window perf_info reads
+OBS_DEVICE_TOL = 0.10  # a record's device ms a step against profile_step's
+OBS_PROFILE_S = 0.5  # the profile capture's seconds of decode
+OBS_FLIGHT_TOKENS = 32  # the recorder on/off stream's greedy ids
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _obs_prompts(engine, tag: str, n: int = SLOTS,
+                 chars: int = 130) -> list[list[int]]:
+    """n chat prompts of one length (~40 tokens more than `chars`, one
+    prefill group), each with a head of its own (no prefix-cache hit)."""
+    prompts = [engine.encode_chat([{"role": "user", "content":
+                                    f"{tag} {i:02d}: " + "q" * chars}])
+               for i in range(n)]
+    if len({len(p) for p in prompts}) != 1:
+        raise AssertionError("the observability prompts differ in length")
+    return prompts
+
+
+def _submit_together(core, prompts, max_tokens: int, tag: str) -> list:
+    """Submit one greedy request a prompt between two loop iterations, so
+    they prefill as one group and decode together; gateway ids
+    `{tag}-{i}`."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    reqs = [Request(prompt_ids=list(p), request_id=f"{tag}-{i}.0000abcd",
+                    sampling=SamplingParams(temperature=0.0,
+                                            max_tokens=max_tokens))
+            for i, p in enumerate(prompts)]
+    core.call_in_loop(lambda: [core.submit(r) for r in reqs])
+    return reqs
+
+
+def _prom_families(text: str) -> set[str]:
+    """Parse Prometheus text: every sample a `name{labels} value` line of a
+    family its `# TYPE` declared (histograms with their _bucket, _sum and
+    _count); returns the families."""
+    families: dict[str, str] = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            if kind not in ("counter", "gauge", "histogram"):
+                raise AssertionError(f"/metrics: bad type line {line!r}")
+            families[name] = kind
+            continue
+        m = re.match(r"^([a-z_]+)(\{[^}]*\})? (\S+)$", line)
+        if m is None:
+            raise AssertionError(f"/metrics: bad sample line {line!r}")
+        float(m.group(3))
+        name = m.group(1)
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in families and families.get(base) != "histogram":
+            raise AssertionError(f"/metrics: {name} has no # TYPE line")
+    return set(families)
+
+
+def _graph_row(core, ctx: int) -> dict:
+    """profile_step's graph row for the serving shape: one burst of 8 steps
+    over 8 rows at `ctx` as one graph replay, over pages reserved from the
+    core's pool (freed after), on the loop's thread."""
+    import torch
+
+    from llmlb_tpu_torch import profile_step as ps
+
+    def run():
+        need = core._pages_for_tokens(ctx + ps.BURST + 1)
+        pages = core._try_reserve_pages(SLOTS * need)
+        if pages is None:
+            raise AssertionError("no pages for profile_step's graph row")
+        try:
+            tables = torch.zeros((SLOTS, core.pages_per_slot),
+                                 dtype=torch.int32, device=core.device)
+            tables[:, :need] = torch.tensor(pages, dtype=torch.int32,
+                                            device=core.device).view(SLOTS,
+                                                                     need)
+            fns = ps._dispatches(core.cfg, core.params, core.cache_k,
+                                 core.cache_v, tables, core.device, ctx, ctx)
+            return ps._profile(
+                fns[f"decode graph burst={ps.BURST} rows={SLOTS} ctx={ctx}"],
+                5)
+        finally:
+            torch.cuda.synchronize()
+            for p in pages:
+                core.page_pool.unref(p)
+    return core.call_in_loop(run)
+
+
+def _decode_records(base: str, after: int, rows: int) -> list[dict]:
+    """The decode records of `rows` rows since record `after`, oldest
+    first, from /api/steps."""
+    steps = _get_json(base + "/api/steps?limit=512")
+    return [r for r in reversed(steps["records"])
+            if r["seq"] > after and r["kind"] == "decode"
+            and r["active_slots"] == rows]
+
+
+def _obs_records(core, engine, base: str, dev: dict) -> dict:
+    """8 rows decode OBS_TOKENS ids each while /api/health is polled: the
+    records' phases sum to their totals, replays count one dispatch, each
+    replayed record's device ms a step agrees with profile_step's graph
+    row within OBS_DEVICE_TOL, and the perf block read while the window
+    holds only these bursts is available, mfu and bandwidth in (0, 1]."""
+    import torch
+
+    # every window key the rows will cross (512 to 2048) captured first,
+    # so the measured bursts are replays and the window holds no capture
+    for chars in (260, 560, 1060):
+        warm = _obs_prompts(engine, "Window warm", 1, chars)[0]
+        if len(warm) + 32 < core.slot_capacity:
+            _collect(_submit(core, warm, 16))
+    seq0 = core.step_stats.seq
+    prompts = _obs_prompts(engine, "Observability row")
+    samples: list[dict] = []
+    done = threading.Event()
+
+    def poll():
+        while not done.wait(0.2):
+            h = _get_json(base + "/api/health")
+            samples.append({"perf": h["perf"],
+                            "active": h["engine"]["active_slots"]})
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        reqs = _submit_together(core, prompts, OBS_TOKENS, "obs")
+        outs = [_collect(r) for r in reqs]
+    finally:
+        done.set()
+        poller.join(timeout=30)
+    wall = time.perf_counter() - t0
+    if any(len(ids) != OBS_TOKENS for ids, _ in outs):
+        raise AssertionError("an observability row ended early")
+    recs = _decode_records(base, seq0, SLOTS)
+    if len(recs) < OBS_TOKENS // core.decode_burst - 2:
+        raise AssertionError(f"only {len(recs)} 8-row decode records")
+    for r in recs:
+        if abs(r["total_s"] - sum(r["phases_s"].values())) > 1e-5:
+            raise AssertionError(f"record {r['seq']}: phases do not sum to "
+                                 f"total_s {r['total_s']}")
+    replayed = [r for r in recs if r["dispatches"] == 1]
+    eager = [r for r in recs if r["dispatches"] != 1]
+    if not replayed or any(r["dispatches"] != core.decode_burst
+                           for r in eager):
+        raise AssertionError(f"decode records' dispatches "
+                             f"{sorted({r['dispatches'] for r in recs})}")
+    if any(r["device_ms"] is None for r in recs):
+        raise AssertionError("a decode record has no device time")
+    # the records at the 256 window: context n + 8 (i + 1) after burst i
+    n = len(prompts[0])
+    first = [(r, n + core.decode_burst * (i + 1)) for i, r in enumerate(recs)
+             if n + core.decode_burst * (i + 1) + 1 <= 256
+             and r["dispatches"] == 1]
+    ctx = round(sum(c for _, c in first) / len(first))
+    row = _graph_row(core, ctx)
+    want = row["device_ms"] / core.decode_burst
+    per_step = [r["device_ms"] / core.decode_burst for r, _ in first]
+    worst = max(abs(x - want) / want for x in per_step)
+    log(f"serve bf16 [{dev['smi']}]: observability: {len(recs)} 8-row decode "
+        f"records ({len(replayed)} replays, {len(eager)} eager with "
+        f"{core.decode_burst} dispatches) in {wall:.1f} s; phases sum to "
+        f"total_s; a replay's device ms a step at the 256 window "
+        f"{min(per_step):.3f}..{max(per_step):.3f} against profile_step's "
+        f"graph row at ctx {ctx} {want:.3f} (wall "
+        f"{row['wall_ms'] / core.decode_burst:.3f}, launches "
+        f"{row['launches']:.0f} a replay): worst {worst * 100:.2f}% "
+        f"(limit {OBS_DEVICE_TOL * 100:.0f}%)")
+    if worst > OBS_DEVICE_TOL:
+        raise AssertionError(f"a record's device ms is {worst * 100:.1f}% "
+                             "off profile_step's graph row")
+    ph = {p: sum(r["phases_s"][p] for r in replayed) / len(replayed)
+          for p in replayed[0]["phases_s"]}
+    total = sum(r["total_s"] for r in replayed) / len(replayed)
+    dev_ms = sum(r["device_ms"] for r in replayed) / len(replayed)
+    log(f"serve bf16: observability: a replayed 8-row burst's mean total "
+        f"{total * 1e3:.2f} ms: " + ", ".join(
+            f"{p} {v * 1e3:.3f}" for p, v in ph.items())
+        + f" ms; device {dev_ms:.2f} ms")
+    # the perf block, read while the 8 rows decode with a window of their
+    # bursts only (128 records of 64 ids)
+    full = [s for s in samples if s["active"] == SLOTS
+            and s["perf"].get("window_tokens") == 128 * SLOTS
+            * core.decode_burst]
+    if not full:
+        raise AssertionError(f"no /api/health sample with a full window of "
+                             f"8-row bursts among {len(samples)}")
+    perf = full[-1]["perf"]
+    log(f"serve bf16 [{dev['smi']}]: observability: /api/health perf while "
+        f"8 rows decode: {json.dumps(perf)}")
+    if not (perf["available"] and 0 < perf["mfu"] <= 1
+            and 0 < perf["hbm_bw_utilization"] <= 1):
+        raise AssertionError(f"perf block out of (0, 1]: {perf}")
+    # the gpu block against torch's own figures, read at the same point
+    # (the engine idle between the two reads)
+    props = torch.cuda.get_device_properties(core.device)
+    for _ in range(5):
+        before = torch.cuda.memory_allocated(core.device)
+        gpu = _get_json(base + "/api/health")["gpu"]
+        after = torch.cuda.memory_allocated(core.device)
+        if before == after:
+            break
+    if gpu["hbm_total_bytes"] != props.total_memory or not (
+            gpu["hbm_used_bytes"] == before == after):
+        raise AssertionError(f"gpu block {gpu} against total "
+                             f"{props.total_memory}, allocated {before} / "
+                             f"{after}")
+    log(f"serve bf16: observability: gpu block {json.dumps(gpu)} = torch's "
+        "total_memory and memory_allocated")
+    return {"records": len(recs), "replays": len(replayed),
+            "device_ms_step": per_step, "graph_row_ms_step": want,
+            "graph_row_ctx": ctx, "device_tol_worst": worst,
+            "burst_total_ms": total * 1e3, "burst_device_ms": dev_ms,
+            "phases_ms": {p: v * 1e3 for p, v in ph.items()}, "perf": perf,
+            "gpu": gpu}
+
+
+def _obs_profile(core, engine, base: str) -> dict:
+    """POST /api/profile for OBS_PROFILE_S of 8-row decode at contexts
+    ~300..460 (the 512 window: two key splits a row, so the combine kernel
+    runs): the capture zips to an artifact whose Chrome trace is searched
+    for the paged decode's split and combine kernels, which run inside
+    graph replays."""
+    import io
+    import zipfile
+
+    reqs = _submit_together(core, _obs_prompts(engine, "Profiled row",
+                                               chars=260), 160, "prof")
+    first = reqs[0].events.get(timeout=600)  # decoding has begun
+    with _post(base + "/api/profile", {"action": "start",
+                                       "seconds": OBS_PROFILE_S}) as resp:
+        started = json.loads(resp.read())
+    t0 = time.perf_counter()
+    while True:  # stopped, and its trace written
+        status = _get_json(base + "/api/profile")
+        if (not status["recording"] and status["captures"]
+                and status["captures"][0]["capture_id"]
+                == started["capture_id"]):
+            break
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError("the profile capture never completed")
+        time.sleep(0.1)
+    capture = status["captures"][0]
+    if "error" in capture:
+        raise AssertionError(f"profile capture failed: {capture}")
+    with urllib.request.urlopen(base + capture["download"],
+                                timeout=600) as resp:
+        blob = resp.read()
+    outs = [_collect(r) for r in reqs]
+    if first[0] != "token" or any(f != "length" for _, f in outs):
+        raise AssertionError("a profiled row did not finish")
+    trace = json.loads(zipfile.ZipFile(io.BytesIO(blob)).read("trace.json"))
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    graph_launches = sum(1 for e in trace["traceEvents"]
+                         if e.get("name") == "cudaGraphLaunch")
+    seen = {m: sum(1 for k in kernels if m in k) for m in PAGED_DECODE_MARKS}
+    log(f"serve bf16: observability: /api/profile capture {OBS_PROFILE_S} s "
+        f"of 8-row decode ({capture['duration_s']} s held): trace "
+        f"{capture['bytes']} bytes, zip {len(blob)} bytes; "
+        f"{len(trace['traceEvents'])} events, {len(kernels)} kernels, "
+        f"{graph_launches} cudaGraphLaunch calls; the paged decode's "
+        f"kernels inside the replays: {seen}")
+    if not all(seen.values()):
+        log("serve bf16: observability: FINDING: the capture shows "
+            f"{graph_launches} graph replays without the paged decode's "
+            f"kernels {[m for m, n in seen.items() if not n]} inside them")
+    return {"trace_bytes": capture["bytes"], "zip_bytes": len(blob),
+            "kernels": len(kernels), "graph_launches": graph_launches,
+            "decode_kernels": seen, "held_s": capture["duration_s"]}
+
+
+def _observability_block(core, engine, base: str, dev: dict) -> dict:
+    """The step records, the perf and gpu blocks, /metrics, a flight
+    record, the recorder's off switch, a verify record, a profile capture
+    and the dispatch check, on the bf16 core over its server (after the
+    launch counts)."""
+    from llmlb_tpu_torch.engine import dispatch_check
+    from llmlb_tpu_torch.engine.flightrec import FlightRecorder
+
+    out = _obs_records(core, engine, base, dev)
+    # one request's flight record, in seq order
+    tl = _get_json(base + "/api/requests/obs-0/timeline")
+    names = [e["event"] for e in tl["events"]]
+    seqs = [e["seq"] for e in tl["events"]]
+    if (names[:2] != ["admitted", "queued"] or "prefill_chunk" not in names
+            or names[-1] != "finished" or seqs != sorted(seqs)):
+        raise AssertionError(f"timeline of obs-0: {names}")
+    log(f"serve bf16: observability: the timeline of obs-0: {names}")
+    # /metrics: Prometheus text, every family the reference's (each is
+    # in docs/monitoring/README.md, which documents every series the
+    # reference renders; the CPU tests hold the families to its render)
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    families = _prom_families(text)
+    docs = (REPO / "docs" / "monitoring" / "README.md").read_text()
+    unknown = sorted(f for f in families if f not in docs)
+    if unknown or "llmlb_engine_mfu_ratio" not in families:
+        raise AssertionError(f"/metrics families not the reference's: "
+                             f"{unknown}")
+    log(f"serve bf16: observability: /metrics parses: {len(families)} "
+        f"families, {len(text.splitlines())} lines, each one the "
+        "reference renders")
+    # a verify record with its draft phase
+    seq0 = core.step_stats.seq
+    prompt = _spec_prompts(engine, 1)[0]
+    _collect(_submit(core, prompt, SPEC_SHORT, speculative=SPEC_ON))
+    steps = _get_json(base + "/api/steps?limit=64")["records"]
+    verify = [r for r in steps if r["seq"] > seq0 and r["kind"] == "verify"]
+    if not verify or not all(r["phases_s"]["draft"] > 0 for r in verify):
+        raise AssertionError(f"no verify record with a draft phase: "
+                             f"{[r['kind'] for r in steps[:8]]}")
+    v = verify[0]
+    log(f"serve bf16: observability: {len(verify)} verify records, e.g. "
+        f"draft {v['phases_s']['draft'] * 1e3:.3f} ms, total "
+        f"{v['total_s'] * 1e3:.2f} ms, dispatches {v['dispatches']}, device "
+        f"{v['device_ms']:.2f} ms")
+    # the recorder off: the same greedy ids (a prompt under 128 tokens: no
+    # prefix-cache hit)
+    short = engine.encode_chat([{"role": "user", "content":
+                                 "Recorder check: say something."}])
+    on = _timed_core_request(core, short, OBS_FLIGHT_TOKENS)[0]
+    real = core.flightrec
+    core.flightrec = FlightRecorder(enabled=False)
+    try:
+        off = _timed_core_request(core, short, OBS_FLIGHT_TOKENS)[0]
+    finally:
+        core.flightrec = real
+    if on != off:
+        raise AssertionError(f"the recorder off changes the stream after "
+                             f"{_shared(on, off)} ids")
+    log(f"serve bf16: observability: {OBS_FLIGHT_TOKENS} greedy ids equal "
+        "with the flight recorder on and off")
+    out["profile"] = _obs_profile(core, engine, base)
+    t0 = time.perf_counter()
+    findings = dispatch_check.run_check("cuda")
+    if findings:
+        raise AssertionError(f"dispatch check: {findings}")
+    log(f"serve bf16: observability: dispatch check passed on the card in "
+        f"{time.perf_counter() - t0:.1f} s (int8 KV, an adapter, "
+        "speculation and a JSON-schema row; one model step a decode or "
+        "verify record after its key's warm-up)")
+    out["verify"] = {k: v[k] for k in ("total_s", "dispatches", "device_ms")}
+    return out
+
+
 def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 bf16_ids: list[int] | None = None,
                 bf16_long_ids: list[int] | None = None,
@@ -5343,6 +5714,12 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         stray = [k for k, n in launches.items() if k not in path and n]
         if stray:
             raise AssertionError(f"kernels of another path launched: {stray}")
+        if label == "bf16":
+            # step records, perf, gpu, /metrics, a flight record, a
+            # profile capture and the dispatch check, after the counts
+            over["observability"] = _timed(block_s, "observability",
+                                           _observability_block, core, engine,
+                                           base, dev)
         if hasattr(core, "decode_graph_info"):  # not in trees before graphs
             _graph_counters(core, label, dev)
             stats.update(_graph_vs_eager(core, prompt, label, lora, dev,

@@ -157,10 +157,22 @@ chunks; the budget itself only decides whether a chunk or a one-shot group
 waits for the next iteration. (The reference caps chunks only while rows
 decode, so a prompt's chunks there depend on the traffic.)
 
+Observability, as in the reference: every dispatch (a prefill group or
+chunk, a decode burst, a verify step) writes one step record
+(engine/stepstats.py, `_record_step`) with its phases on the host clock
+and, on the card, `device_ms`: the time between two CUDA events recorded
+around the dispatch, outside any capture. A burst's or verify step's
+`compute` phase is the host's wait on the second event, the wait its one
+fetch paid before (no second sync); a prefill is never waited for, so its
+events are read at a later record, once they completed. Each lifecycle edge
+of a request writes a flight-recorder event (engine/flightrec.py,
+`_fr_emit`; every terminal event goes through `_finish`, which emits it),
+and `metrics` (engine/metrics.py) keeps the latency and step histograms;
+`perf_info()` is the live roofline from the records' decode window.
+
 Left out of this slice (see ROADMAP.md): context-parallel prefill,
 disaggregation and split-mode preemption (and with them the handoff's page
-export and drafter), and of the prefix cache, structured outputs and
-speculative decoding their Prometheus series and step records.
+export, drafter and series).
 """
 
 from __future__ import annotations
@@ -171,7 +183,6 @@ import logging
 import math
 import os
 import queue
-import re
 import threading
 import time
 import uuid
@@ -188,6 +199,7 @@ from llmlb_tpu_torch.engine.decode_graph import (
     cuda_capture,
     verify_body,
 )
+from llmlb_tpu_torch.engine.flightrec import FlightRecorder, gateway_rid
 from llmlb_tpu_torch.engine.kv_offload import KVOffloadTier
 from llmlb_tpu_torch.engine.kv_transfer import (
     KV_WIRE_VERSION,
@@ -196,8 +208,16 @@ from llmlb_tpu_torch.engine.kv_transfer import (
     kv_compat_reason,
     serialize_kv_pages,
 )
+from llmlb_tpu_torch.engine.metrics import EngineMetrics
 from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
+from llmlb_tpu_torch.engine.stepstats import StepRecorder
+from llmlb_tpu_torch.engine.telemetry import (
+    chip_spec_for,
+    device_kind,
+    model_bytes_per_token,
+    model_flops_per_token,
+)
 from llmlb_tpu_torch.lora import LoraManager
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.models.llama import LlamaConfig
@@ -227,16 +247,6 @@ PRIORITY_NAMES = {PRIORITY_HIGH: "high", PRIORITY_NORMAL: "normal",
 # closed label set.
 KV_FALLBACK_REASONS = ("disabled", "absent", "version", "dtype",
                        "page_size", "geometry", "capacity", "error")
-
-_RID_SUFFIX = re.compile(r"\.[0-9a-f]{8}$")
-
-
-def gateway_rid(request_id: str) -> str:
-    """The gateway's request id of an engine request id: the service
-    appends `.{8 hex}` to it (Engine._request_id); ids without the suffix
-    pass through."""
-    return _RID_SUFFIX.sub("", request_id)
-
 
 @dataclasses.dataclass
 class SamplingParams:
@@ -348,6 +358,8 @@ class _Slot:
     # a speculating row's prompt-lookup drafter and draft budget a step
     drafter: PromptLookupDrafter | None = None
     spec_k: int = 0
+    # monotonic time of the row's last emitted token (0: none yet)
+    last_emit_at: float = 0.0
 
     def clear(self) -> None:
         self.request = None
@@ -363,6 +375,7 @@ class _Slot:
         self.first_advanced = False
         self.drafter = None
         self.spec_k = 0
+        self.last_emit_at = 0.0
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -427,9 +440,9 @@ class StructuredCounters:
     """Structured outputs, under the reference's metric names: constrained
     requests attached (resumes not counted again), masked decode bursts,
     constraint violations (a grammar cut short, or a sample it refused),
-    bursts cut to one step by a schema off the device table, the
-    compiler's mask-cache hits, misses and evictions, and its compile
-    seconds."""
+    bursts cut to one step by a schema off the device table, and the
+    compiler's mask-cache hits, misses and evictions (its compile seconds
+    are EngineMetrics' histogram)."""
 
     structured_requests_total: int = 0
     masked_decode_steps_total: int = 0
@@ -438,7 +451,6 @@ class StructuredCounters:
     mask_cache_hits_total: int = 0
     mask_cache_misses_total: int = 0
     mask_cache_evictions_total: int = 0
-    schema_compile_seconds_total: float = 0.0
 
 
 @dataclasses.dataclass
@@ -462,10 +474,12 @@ class SpecCounters:
 class _StructuredMetrics:
     """The ConstraintCompiler's metric hooks (the reference hands it its
     EngineMetrics), counting into the core's StructuredCounters under the
-    core's lock: the compiler runs on HTTP threads."""
+    core's lock (the compiler runs on HTTP threads), and its compile
+    seconds into the core's EngineMetrics."""
 
-    def __init__(self, counters: StructuredCounters, lock):
-        self._c, self._lock = counters, lock
+    def __init__(self, counters: StructuredCounters, lock,
+                 metrics: EngineMetrics):
+        self._c, self._lock, self._metrics = counters, lock, metrics
 
     def record_mask_cache_hit(self) -> None:
         with self._lock:
@@ -480,8 +494,7 @@ class _StructuredMetrics:
             self._c.mask_cache_evictions_total += 1
 
     def record_schema_compile(self, seconds: float) -> None:
-        with self._lock:
-            self._c.schema_compile_seconds_total += float(seconds)
+        self._metrics.record_schema_compile(float(seconds))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -518,6 +531,9 @@ class EngineStats:
     verify_eager_steps: int = 0
     verify_graphs: int = 0
     spec: SpecCounters = dataclasses.field(default_factory=SpecCounters)
+    # steps the slow-step detector flagged, and whether the engine drains
+    slow_steps_total: int = 0
+    draining: bool = False
 
 
 class EngineCore:
@@ -569,6 +585,20 @@ class EngineCore:
                              f"runs on {self.device}")
         self.decode_graphs = bool(decode_graphs)
         self.cfg = cfg
+        # Observability: latency and step histograms, the step records
+        # (always on, a few clock reads a step) and the flight recorder
+        # (LLMLB_FLIGHTREC=0 turns it off before its first clock read).
+        self.metrics = EngineMetrics()
+        self.step_stats = StepRecorder()
+        self.flightrec = FlightRecorder()
+        # admission time with no dispatch of its own, absorbed as the next
+        # record's plan phase; and the (record seq, start, end) event pairs
+        # of prefill records not read yet
+        self._pending_plan_s = 0.0
+        self._pending_device: list[tuple[int, object, object]] = []
+        # the inter-token latency _emit records: the current dispatch's
+        # per-token pacing
+        self._emit_itl: float | None = None
         if kv_layout is None:
             kv_layout = os.environ.get("LLMLB_KV_LAYOUT", "paged")
         if kv_layout not in ("paged", "dense"):
@@ -707,6 +737,7 @@ class EngineCore:
             params = {**params,
                       **self.lora.init_pool_leaves(cfg.dtype, self.device)}
             self.lora.attach(params)
+            self.lora.metrics = self.metrics
             log.info("lora: pool of %d adapter slots at rank cap %d over %s "
                      "(%d adapter(s) discovered in %s)",
                      self.lora.max_adapters, self.lora.rank_cap,
@@ -896,7 +927,6 @@ class EngineCore:
         self._started_at = time.monotonic()
         self._lock = threading.Lock()
         self.total_requests = 0
-        self.total_tokens = 0
         self.prefill_dispatches = 0
         self.decode_bursts = 0
         self._prefill_rr = 0  # rotation among concurrently-prefilling slots
@@ -907,7 +937,7 @@ class EngineCore:
         self.constraint_compiler = None
         self.structured_counters = StructuredCounters()
         self.structured_metrics = _StructuredMetrics(self.structured_counters,
-                                                     self._lock)
+                                                     self._lock, self.metrics)
         # Fused decode, resolved as the reference resolves it: kwarg, then
         # LLMLB_FUSED_DECODE, then on for paged and off for dense. On, a
         # constrained row's schema goes into the device grammar table and
@@ -1021,8 +1051,15 @@ class EngineCore:
         self.prepare_lora(request)
         with self._lock:
             self.total_requests += 1
+        self._fr_emit(request, "admitted", prompt_tokens=n,
+                      queue_depth=self.pending.qsize())
         self.pending.put(request)
         return request
+
+    @property
+    def total_tokens(self) -> int:
+        """Tokens emitted so far (EngineMetrics' tally)."""
+        return self.metrics.tokens_total
 
     def stats(self) -> EngineStats:
         active = sum(1 for s in self.slots if s.request is not None)
@@ -1048,6 +1085,8 @@ class EngineCore:
             verify_eager_steps=self._verifies.eager_bursts,
             verify_graphs=len(self._verifies.graphs),
             spec=self._spec_counters_copy(),
+            slow_steps_total=self.step_stats.slow_steps_total,
+            draining=self.draining,
         )
 
     def _spec_counters_copy(self) -> SpecCounters:
@@ -1161,7 +1200,19 @@ class EngineCore:
         if self.lora is None:
             raise ValueError("'lora' adapters are not enabled on this engine "
                              "(start it with --lora-dir)")
+        t0 = time.perf_counter()
         self.lora.acquire(name, request.request_id)
+        # once per call: the submit's re-acquire of an adapter the service
+        # pinned shows as a second event with ~0 wait, as in the reference
+        self._fr_emit(request, "lora_acquire", adapter=name,
+                      wait_s=round(time.perf_counter() - t0, 6))
+
+    def _fr_emit(self, request: Request, event: str, **attrs) -> None:
+        """One flight-recorder event for a request (a no-op with the
+        recorder off). Every terminal event goes through `_finish`, which
+        emits it next to its put."""
+        if self.flightrec.enabled:
+            self.flightrec.emit(request.request_id, event, **attrs)
 
     def _release_lora(self, request: Request) -> None:
         """Unpin a request's adapter (idempotent: a request may reach more
@@ -1198,6 +1249,16 @@ class EngineCore:
                 "hbm_bytes": kv_cache_bytes(self.cfg, self.num_slots,
                                             self.slot_capacity),
             }
+        pool = self.page_pool
+        active = active_pages = waste = 0
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                continue
+            active += 1
+            held = len(self._slot_pages[i])
+            active_pages += held
+            used = s.prefill_pos if s.prefilling else int(self._seq_lens[i])
+            waste += max(0, held * self.kv_page_size - used)
         return {
             "layout": "paged",
             # the pool's ACTUAL dtype: capacity math from an implied model
@@ -1205,8 +1266,17 @@ class EngineCore:
             "kv_dtype": self._kv_dtype(),
             "effective_kv_dtype": self._kv_dtype(),
             "page_size": self.kv_page_size,
-            "pages_total": self.page_pool.total,
-            "pages_free": self.page_pool.available(),
+            "num_slots": self.num_slots,
+            "slot_capacity": self.slot_capacity,
+            "pages_total": pool.total,
+            "pages_free": pool.available(),
+            "pages_active": active_pages,
+            "pages_pinned": self._prefix_pinned_pages,
+            "utilization": round(pool.used() / max(1, pool.total), 4),
+            # allocated but unfilled cells of occupied rows
+            "fragmentation": round(
+                waste / max(1, active_pages * self.kv_page_size), 4),
+            "waste_tokens_mean": round(waste / active, 1) if active else 0.0,
             "bytes_per_page": kv_page_bytes(self.cfg, self.kv_page_size,
                                             self.quant.kv),
             "hbm_bytes": kv_pool_bytes(self.cfg, self.kv_num_pages,
@@ -1256,6 +1326,59 @@ class EngineCore:
                                            itemsize),
         }
 
+    def perf_info(self) -> dict:
+        """The live roofline block of /api/health, /api/system, /api/steps
+        and /metrics, as the reference's: model FLOPs and bytes per token
+        over the step records' decode window (busy seconds, tokens) against
+        the device's spec-sheet peaks (engine/telemetry.py). `available` is
+        False on a device outside the table (the CPU included) or before
+        any decode traffic: the gauges are then absent, never wrong."""
+        kind = device_kind(self.device)
+        spec = chip_spec_for(kind)
+        busy_s, toks = self.step_stats.window_throughput()
+        tok_per_s = toks / busy_s if busy_s > 0 else 0.0
+        # the live rows' mean context and batch, a point-in-time read
+        contexts = [int(self._seq_lens[i]) for i, s in enumerate(self.slots)
+                    if s.request is not None and not s.prefilling]
+        mean_ctx = sum(contexts) / len(contexts) if contexts else 0.0
+        batch = max(1, len(contexts))
+        flops_tok = model_flops_per_token(self.cfg, self.n_params)
+        # the measured parameter bytes (int8 codes and scales when weights
+        # are quantized) and the pool's actual cell size
+        bytes_tok = model_bytes_per_token(
+            self.cfg, self.n_params, mean_ctx, batch=batch,
+            weight_bytes=self.param_bytes,
+            kv_cell_bytes=kv_cell_bytes(self.cfg.head_dim_, self.quant.kv,
+                                        self.cfg.dtype.itemsize))
+        info = {
+            "device_kind": kind,
+            "n_chips": 1,
+            "n_params": self.n_params,
+            "quantize": self.quant.mode,
+            "flops_per_token": flops_tok,
+            "bytes_per_token": round(bytes_tok, 1),
+            "mean_context_tokens": round(mean_ctx, 1),
+            "window_tokens": toks,
+            "window_busy_s": round(busy_s, 4),
+            "tokens_per_sec_busy": round(tok_per_s, 2),
+            "available": spec is not None and tok_per_s > 0,
+        }
+        if spec is not None:
+            info["chip"] = {
+                "generation": spec.generation,
+                "peak_flops": spec.peak_flops,
+                "peak_flops_int8": spec.int8_flops,
+                "peak_hbm_bw": spec.peak_hbm_bw,
+            }
+        if info["available"]:
+            # int8-weight engines against the int8 column, the reference's
+            # rule (the port widens int8 weights to bf16 today)
+            peak = spec.int8_flops if self.quant.weights else spec.peak_flops
+            info["mfu"] = round(flops_tok * tok_per_s / peak, 6)
+            info["hbm_bw_utilization"] = round(
+                bytes_tok * tok_per_s / spec.peak_hbm_bw, 6)
+        return info
+
     def nan_logit_rows(self) -> int:
         """Logit rows with a NaN in any dispatch so far (syncs the device)."""
         return int(self._d_nan_rows.item())
@@ -1264,6 +1387,65 @@ class EngineCore:
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # ---------------------------------------------------------- step records
+
+    def _timing_events(self) -> tuple | None:
+        """A (start, end) pair of CUDA timing events with start recorded
+        now, on the loop's stream; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, end
+
+    def _record_step(self, kind: str, phases: dict[str, float], *,
+                     active_slots: int = 0, tokens: int = 0,
+                     slots: list[int] | None = None, dispatches: int = 0,
+                     fused: bool = False, events: tuple | None = None,
+                     waited: bool = False) -> None:
+        """Finish one step record, as the reference's: absorb the plan
+        time accrued since the last dispatch, name the slots' gateway ids,
+        feed the ring and slow-step detector, the phase histograms and (for
+        decode and verify) the dispatch tallies; a flagged step writes a
+        slow_step event for each of its requests. `events` is the
+        dispatch's timing pair: read now when the host `waited` on its end
+        (a burst's or verify step's fetch), else at a later record once it
+        completed (a prefill, never waited for)."""
+        if self._pending_plan_s > 0.0:
+            phases["plan"] = phases.get("plan", 0.0) + self._pending_plan_s
+            self._pending_plan_s = 0.0
+        request_ids: dict[str, str] | None = None
+        if slots:
+            request_ids = {str(i): gateway_rid(self.slots[i].request.request_id)
+                           for i in slots if self.slots[i].request is not None}
+        if kind in ("decode", "verify") and dispatches > 0:
+            self.metrics.record_decode_dispatches(dispatches, fused=fused)
+        device_ms = (events[0].elapsed_time(events[1])
+                     if events is not None and waited else None)
+        slow = self.step_stats.observe(
+            kind, phases, active_slots=active_slots, tokens=tokens,
+            request_ids=request_ids, dispatches=dispatches,
+            device_ms=device_ms)
+        self.metrics.record_step_phases(phases)
+        if slow and request_ids and self.flightrec.enabled:
+            total = round(sum(phases.values()), 6)
+            seq = self.step_stats.seq
+            for rid in request_ids.values():
+                self.flightrec.emit(rid, "slow_step", kind=kind,
+                                    total_s=total, step_seq=seq)
+        if self._pending_device:
+            # earlier prefills' pairs: read those that completed
+            kept = []
+            for seq, start, end in self._pending_device:
+                if end.query():
+                    self.step_stats.set_device_ms(seq, start.elapsed_time(end))
+                else:
+                    kept.append((seq, start, end))
+            self._pending_device = kept[-self.step_stats.capacity:]
+        if events is not None and not waited:
+            self._pending_device.append((self.step_stats.seq, *events))
 
     def _loop(self) -> None:
         if self.device.type == "cuda":
@@ -1340,7 +1522,10 @@ class EngineCore:
                 r = self.pending.get_nowait()
             except queue.Empty:
                 return
-            self._class_queues[self._priority_of(r)].append(r)
+            cls = self._priority_of(r)
+            self._class_queues[cls].append(r)
+            self._fr_emit(r, "queued", cls=PRIORITY_NAMES[cls],
+                          position=len(self._class_queues[cls]) - 1)
 
     def _pop_request(self) -> Request | None:
         """Next request to admit: strictly by class. The held (page-starved)
@@ -1427,6 +1612,8 @@ class EngineCore:
         self._clear_constraint(slot_id)  # the live mask row only
         slot.clear()
         self.preemptions_total += 1
+        self._fr_emit(request, "parked", reason=reason,
+                      generated=len(request.parked.tokens))
         log.info("parked request %s at %d committed tokens (priority %s, %s)",
                  request.request_id, len(request.parked.tokens),
                  PRIORITY_NAMES[self._priority_of(request)], reason)
@@ -1448,7 +1635,8 @@ class EngineCore:
         if request.parked is not None or not request.deadline_expired():
             return False
         self.deadline_shed_total += 1
-        self._finish(request, "error", "deadline exceeded before prefill")
+        self._finish(request, "error", "deadline exceeded before prefill",
+                     event="shed", reason="deadline")
         return True
 
     def _drain_flush_all(self) -> None:
@@ -1485,15 +1673,29 @@ class EngineCore:
                 self._park_slot(i, reason="drain")
                 self.drain_parked_total += 1
 
-    def _finish(self, request: Request, kind: str, value: str) -> None:
-        """Every terminal event of a request goes through here, and so does
-        the release of its adapter."""
+    def _finish(self, request: Request, kind: str, value: str, *,
+                event: str | None = None, **attrs) -> None:
+        """Every terminal event of a request goes through here, with its
+        flight-recorder event ("finished" with the reason, "errored" with
+        the message; or `event` with `attrs` alone: "shed" for a
+        deadline), its count, and the release of its adapter."""
         request.finished_at = time.monotonic()
         self._release_lora(request)
         if self.kv_offload is not None:
             # a parked spill of a request that ended is dead bytes
             self.kv_offload.drop_parked(request.request_id)
-        request.events.put((kind, value))
+        if kind == "done":
+            self.metrics.record_request_done(value)
+            if event is None:
+                event, attrs = "finished", {"reason": value, **attrs}
+            self._fr_emit(request, event, **attrs)
+            request.events.put(("done", value))
+        else:
+            self.metrics.record_request_done("error")
+            if event is None:
+                event, attrs = "errored", {"message": value, **attrs}
+            self._fr_emit(request, event, **attrs)
+            request.events.put(("error", value))
 
     def _finish_slot(self, slot_id: int, reason: str,
                      donate: bool = False) -> None:
@@ -1504,7 +1706,7 @@ class EngineCore:
         this row's reference only), every slot field reset."""
         slot = self.slots[slot_id]
         request = slot.request
-        self._finish(request, "done", reason)
+        self._finish(request, "done", reason, generated=slot.generated)
         if donate and self.prefix_cache is not None:
             self._maybe_cache_prefix(slot_id, request)
         self._release_cache_entry(slot)
@@ -1628,6 +1830,7 @@ class EngineCore:
 
     def _try_insert(self) -> bool:
         self._prefill_spent_iter = 0  # the first call of every iteration
+        plan_start = time.perf_counter()
         if self.draining:
             # nothing new is admitted or re-activated: parked work stays
             # queued until the drain's flush
@@ -1780,7 +1983,13 @@ class EngineCore:
             batch.append((slot_id, request, n))
             batch_tokens += n
         if not batch:
+            if handled:
+                # admission work with no prefill of its own (hits, long
+                # claims, restores): the next record's plan phase
+                self._pending_plan_s += time.perf_counter() - plan_start
             return handled
+        # plan ends where the dispatches begin
+        self._pending_plan_s += time.perf_counter() - plan_start
         self._prefill_spent_iter = batch_tokens
         by_bucket: dict[int, list[tuple[int, Request, int]]] = {}
         for entry in batch:
@@ -1827,6 +2036,8 @@ class EngineCore:
             self.prefix_counters.kv_copy_dispatches += 1
         self.prefix_counters.prefix_hits_total += 1
         self.prefix_counters.prefix_cached_tokens_total += use_len
+        self._fr_emit(request, "prefill_chunk", tokens=0,
+                      cached_tokens=use_len)
 
     def _prefill_group(self, bucket: int,
                        group: list[tuple[int, Request, int]]) -> None:
@@ -1855,6 +2066,9 @@ class EngineCore:
             lidx[:g] = self._lora_rows([r for _, r, _ in group])
             lidx[g:] = lidx[g - 1]
             lora_idx = self._to_device(lidx)
+        prefill_start = time.monotonic()
+        t_dispatch = time.perf_counter()
+        events = self._timing_events()
         if self.page_pool is not None:
             self._sync_block_tables()
             logits, _, _ = llama.prefill_into_pages(
@@ -1869,8 +2083,22 @@ class EngineCore:
                 self._to_device(lens), self._to_device(slot_ids),
                 self.cache_k, self.cache_v, lora_idx=lora_idx,
             )
+        if events is not None:
+            events[1].record()
+        t_done = time.perf_counter()
         self.prefill_dispatches += 1
+        # the host wall of the launches: the host never waits for a prefill
+        self.metrics.record_prefill_step(time.monotonic() - prefill_start)
+        if self.flightrec.enabled:
+            for _slot_id, request, n in group:
+                self.flightrec.emit(request.request_id, "prefill_chunk",
+                                    tokens=n, cached_tokens=0)
         self._activate_group(group, slot_ids, lens, logits)
+        self._record_step(
+            "prefill", {"dispatch": t_done - t_dispatch,
+                        "emit": time.perf_counter() - t_done},
+            active_slots=len(group), tokens=sum(n for _, _, n in group),
+            slots=[s for s, _, _ in group], events=events)
 
     def _advance_prefill(self) -> bool:
         """Feed ONE chunk of ONE prefilling slot's prompt into the pool,
@@ -1914,6 +2142,9 @@ class EngineCore:
         ids[0, :chunk_len] = prompt[start:start + chunk_len]
         lora_idx = (self._to_device(self._lora_rows([request]))
                     if self.lora is not None else None)
+        prefill_start = time.monotonic()
+        t_dispatch = time.perf_counter()
+        events = self._timing_events()
         args = (self.params, self.cfg, self._to_device(ids),
                 self._to_device(np.asarray([chunk_len], np.int32)),
                 self._to_device(np.asarray([start], np.int32)))
@@ -1925,14 +2156,24 @@ class EngineCore:
             logits, _, _ = llama.prefill_extend_slots(
                 *args, self._to_device(np.asarray([slot_id], np.int64)),
                 self.cache_k, self.cache_v, lora_idx=lora_idx)
+        if events is not None:
+            events[1].record()
+        t_done = time.perf_counter()
         self.prefill_dispatches += 1
+        self.metrics.record_prefill_step(time.monotonic() - prefill_start)
         slot.prefill_pos = start + chunk_len
+        self._fr_emit(request, "prefill_chunk", tokens=chunk_len,
+                      cached_tokens=0, pos=start)
         if slot.prefill_pos >= n:
             slot.prefilling = False
             self._release_cache_entry(slot)  # suffix landed: donor evictable
             self._activate_group([(slot_id, request, n)],
                                  np.asarray([slot_id], np.int64),
                                  np.asarray([n], np.int32), logits)
+        self._record_step(
+            "prefill", {"dispatch": t_done - t_dispatch,
+                        "emit": time.perf_counter() - t_done},
+            active_slots=1, tokens=chunk_len, slots=[slot_id], events=events)
         return True
 
     def _prefill_budget_now(self) -> int:
@@ -2067,6 +2308,7 @@ class EngineCore:
             slot.forced = list(parked.tokens[1:])
             slot.first_pending = not parked.tokens
             self.preempt_resumes_total += 1
+            self._fr_emit(request, "resumed", generated=parked.generated)
 
     # ----------------------------------------------------------------- decode
 
@@ -2083,21 +2325,31 @@ class EngineCore:
         active = [i for i, s in enumerate(self.slots)
                   if s.request is not None and not s.prefilling]
         if not active:
+            # the occupancy gauge would otherwise freeze at the last batch
+            self.metrics.set_batch_occupancy(0)
             return False
         # Speculative decoding: when any active row proposes drafts, ONE
         # verify step replaces this burst. A row being fed forced tokens (a
         # resume) keeps the step a burst until it is fed, so its committed
-        # tokens' KV is written by decode steps (C4). No draft: the burst.
+        # tokens' KV is written by decode steps (C4). No draft: the burst,
+        # whose record carries the drafting time.
+        draft_s = 0.0
         if (any(self.slots[i].drafter is not None for i in active)
                 and not any(self.slots[i].forced for i in active)):
+            t_draft = time.perf_counter()
             fused = self._fused_step_ok(active)
             drafts, lookahead = self._collect_drafts(active, fused)
+            draft_s = time.perf_counter() - t_draft
             if any(drafts.values()):
-                return self._verify_active(active, drafts, lookahead, fused)
+                return self._verify_active(active, drafts, lookahead, fused,
+                                           draft_s)
+        burst_start = time.monotonic()
+        t_sync = time.perf_counter()
         # alloc-on-extend: every page the burst writes exists before the
         # tables ship to the device
         active = self._ensure_decode_pages(active, self.decode_burst)
         if not active:
+            self.metrics.set_batch_occupancy(0)
             return True
         self._sync_block_tables()
         k, mode = self.decode_burst, "free"
@@ -2118,11 +2370,37 @@ class EngineCore:
         window = self._window_for(active, k)
         # seeded rows draw threefry noise, another graph: decided on the host
         seeded = bool((self._seeds[active] >= 0).any())
+        t_dispatch = time.perf_counter()
+        sync_s = t_dispatch - t_sync
+        events = self._timing_events()
+        replays = self._bursts.replays
         self._bursts.run(window, seeded, mode)
-        # the ONE host sync per burst
+        replayed = self._bursts.replays > replays
+        t_compute = time.perf_counter()
+        if events is not None:
+            # the ONE host wait per burst; the fetch below then copies
+            events[1].record()
+            events[1].synchronize()
+        t_fetch = time.perf_counter()
         tokens = self._d_tokens[:k + 1].cpu().numpy()
+        t_emit = time.perf_counter()
         self.decode_bursts += 1
+        # the burst's tokens reach the host together: its per-token pacing
+        # is the inter-token latency
+        step_s = (time.monotonic() - burst_start) / k
+        self.metrics.record_decode_step(step_s, len(active))
+        self._emit_itl = step_s
         self._emit_fetched(tokens, active)
+        self._record_step(
+            "decode",
+            {"draft": draft_s, "host_sync": sync_s,
+             "dispatch": t_compute - t_dispatch,
+             "compute": t_fetch - t_compute,
+             "fetch": t_emit - t_fetch,
+             "emit": time.perf_counter() - t_emit},
+            active_slots=len(active), tokens=k * len(active), slots=active,
+            dispatches=1 if replayed else k, fused=replayed, events=events,
+            waited=True)
         return True
 
     def _sync_forced(self, active: list[int], k: int) -> None:
@@ -2298,7 +2576,8 @@ class EngineCore:
         self._spec_masked_prev = set(masked)
 
     def _verify_active(self, active: list[int], drafts: dict[int, list[int]],
-                       lookahead: dict[int, list[int]], fused: bool) -> bool:
+                       lookahead: dict[int, list[int]], fused: bool,
+                       draft_s: float = 0.0) -> bool:
         """One speculative verify step (the reference's fused verify): each
         active row's last token and drafts as a K+1-token chunk through the
         extend path, every position sampled, the longest prefix of drafts
@@ -2308,11 +2587,15 @@ class EngineCore:
         land there, the garbage contract of decode, and the extend kernels
         skip its queries, so it reads no keys (as a 1-token chunk, the
         reference's, a row parked at the last cell would sweep the whole
-        capacity). One graph replay (or eager step) and one host fetch."""
+        capacity). One graph replay (or eager step) and one host fetch. Its
+        record carries `draft_s`, the drafting time, as its draft phase."""
         k1 = self.spec.max_draft_tokens + 1
+        step_start = time.monotonic()
+        t_sync = time.perf_counter()
         per_row = {i: len(drafts.get(i, ())) + 1 for i in active}
         active = self._ensure_decode_pages(active, 1, per_row)
         if not active:
+            self.metrics.set_batch_occupancy(0)
             return True
         self._sync_block_tables()
         b = self.num_slots
@@ -2346,21 +2629,47 @@ class EngineCore:
             self._count("masked_decode_steps_total")
         window = self._window_for(active, k1)
         seeded = bool((self._seeds[active] >= 0).any())
+        t_dispatch = time.perf_counter()
+        sync_s = t_dispatch - t_sync
+        events = self._timing_events()
+        replays = self._verifies.replays
         self._verifies.run(window, seeded, mode)
-        # the ONE host sync of the step: [slots, K+3]
-        out = self._d_verify_out.cpu().numpy()
+        replayed = self._verifies.replays > replays
+        t_compute = time.perf_counter()
+        if events is not None:
+            # the ONE host wait of the step; the fetch below then copies
+            events[1].record()
+            events[1].synchronize()
+        t_fetch = time.perf_counter()
+        out = self._d_verify_out.cpu().numpy()  # [slots, K+3]
+        t_emit = time.perf_counter()
+        step_s = time.monotonic() - step_start
 
         drafted = sum(len(drafts.get(i, ())) for i in active)
         accepted_total = 0
-        spec_emitted = 0
+        emitted_total = 0  # every row's tokens (the throughput window's)
+        spec_emitted = 0  # the speculating rows' (accepted + 1 each)
+        # (request id, drafted, accepted) a speculating row, taken before
+        # its emits can finish it
+        spec_accepts: list[tuple[str, int, int]] = []
         for i in active:
             slot = self.slots[i]
+            self._emit_itl = step_s
             if slot.first_pending and slot.request is not None:
                 slot.first_pending = False
                 self._emit(i, int(out[i, 0]))
             if slot.request is None or slot.prefilling:
                 continue
+            rid = slot.request.request_id
             d = drafts.get(i, [])
+            # the row's expected span (matches up to the first miss, + 1):
+            # its tokens' pacing, before a finish can cut it
+            span = 1
+            for j, dj in enumerate(d):
+                if int(out[i, 1 + j]) != dj or dj == self.eos_id:
+                    break
+                span += 1
+            self._emit_itl = step_s / span
             j = 0
             emitted = 0
             while True:
@@ -2374,8 +2683,10 @@ class EngineCore:
                 if slot.request is None or not matched:
                     break
             accepted_total += j
+            emitted_total += emitted
             if d:
                 spec_emitted += emitted
+                spec_accepts.append((rid, len(d), j))
             if slot.request is not None:
                 # keep the pages of the committed length and the next write
                 self._trim_slot_pages(i, int(self._seq_lens[i]) + 1)
@@ -2385,6 +2696,22 @@ class EngineCore:
             c.draft_tokens_total += drafted
             c.accepted_tokens_total += accepted_total
             c.emitted_tokens_total += spec_emitted
+        self.metrics.record_decode_step(
+            step_s / max(1.0, emitted_total / max(1, len(active))),
+            len(active))
+        if self.flightrec.enabled:
+            for rid, n_drafted, n_accepted in spec_accepts:
+                self.flightrec.emit(rid, "spec_accept", drafted=n_drafted,
+                                    accepted=n_accepted)
+        self._record_step(
+            "verify",
+            {"draft": draft_s, "host_sync": sync_s,
+             "dispatch": t_compute - t_dispatch,
+             "compute": t_fetch - t_compute,
+             "fetch": t_emit - t_fetch,
+             "emit": time.perf_counter() - t_emit},
+            active_slots=len(active), tokens=emitted_total, slots=active,
+            dispatches=1, fused=replayed, events=events, waited=True)
         return True
 
     def _emit_fetched(self, tokens: np.ndarray, active: list[int]) -> None:
@@ -2416,17 +2743,25 @@ class EngineCore:
         """Deliver one generated token and apply the finish rules: EOS,
         max_tokens, and the slot-capacity edge. A constrained row's cursor
         advances on the token (not on a first token whose cursor activation
-        advanced), and the new state's mask row governs the next burst."""
+        advanced), and the new state's mask row governs the next burst.
+        `_emit_itl`, the dispatch's per-token pacing (its tokens reach the
+        host together, so their wall gaps are ~0), is recorded as the
+        inter-token latency of every token but a row's first."""
         slot = self.slots[slot_id]
         request = slot.request
         if request.cancelled:
             self._finish_slot(slot_id, "cancelled")
             return
         slot.generated += 1
+        now = time.monotonic()
         if request.first_token_at is None:
-            request.first_token_at = time.monotonic()
-        with self._lock:
-            self.total_tokens += 1
+            request.first_token_at = now
+            self.metrics.record_ttft(now - request.submitted_at)
+        itl = self._emit_itl
+        self.metrics.record_emit(
+            None if not slot.last_emit_at
+            else itl if itl is not None else now - slot.last_emit_at)
+        slot.last_emit_at = now
         # The mask makes a refused sample impossible, so a failed advance
         # means a vocabulary gap forced the EOS fallback: counted.
         state = slot.constraint
@@ -2674,6 +3009,7 @@ class EngineCore:
         replays."""
         kvp, request.kv_restore = request.kv_restore, None
         st = request.parked
+        t0 = time.monotonic()
         need_tokens = n - 1
         if (st is None or not st.tokens or need_tokens < 1
                 or kvp.header.tokens < need_tokens
@@ -2715,6 +3051,12 @@ class EngineCore:
         request.parked = None
         self.preempt_resumes_total += 1
         self._record_kv_restore(kvp.nbytes)
+        self._fr_emit(request, "kv_restored", source=kvp.source,
+                      kind="stream", tokens=need_tokens, pages=need_pages,
+                      bytes=kvp.nbytes,
+                      seconds=round(time.monotonic() - t0, 6))
+        self._fr_emit(request, "resumed", generated=st.generated,
+                      via="kv_restore")
         log.info("kv restore: request %s re-entered decode at %d tokens from "
                  "%s (%d pages, %.1f KiB, no prefill)", request.request_id,
                  need_tokens, kvp.source, need_pages, kvp.nbytes / 1024)
@@ -2746,12 +3088,17 @@ class EngineCore:
         kvp = self._capture_kv(pages, tokens)
         kvp.source = "offload"
         self._record_kv_ship(kvp.nbytes, time.monotonic() - t0)
+        dest = []
         if want_export:
             payload = serialize_kv_pages(kvp.header, kvp.sections)
             with self._lock:
                 self._kv_exports[gateway_rid(request.request_id)] = payload
-        if want_tier:
-            tier.put_parked(request.request_id, kvp)
+            dest.append("export")
+        if want_tier and tier.put_parked(request.request_id, kvp):
+            dest.append("offload")
+        if dest:
+            self._fr_emit(request, "kv_spilled", reason=reason, tokens=tokens,
+                          bytes=kvp.nbytes, dest=",".join(dest))
 
     def _spill_prefix_entry(self, entry: PrefixEntry) -> None:
         """A prefix entry evicted under page pressure: its pages to the
@@ -2783,6 +3130,7 @@ class EngineCore:
         if hit is None:
             return
         stored, kvp = hit
+        t0 = time.monotonic()
         # capped at n - 1 (a suffix token must prefill) and aligned down to
         # the cache's grain, as every donation is
         usable = min(len(stored), n - 1) // self.prefix_align \
@@ -2813,6 +3161,10 @@ class EngineCore:
         self._record_kv_restore(kvp.nbytes)
         self.prefix_counters.prefix_insertions_total += 1
         self.prefix_counters.prefix_inserted_tokens_total += len(tokens)
+        self._fr_emit(request, "kv_restored", source="offload", kind="prefix",
+                      tokens=len(tokens), pages=pages_needed,
+                      bytes=kvp.nbytes,
+                      seconds=round(time.monotonic() - t0, 6))
 
     def kv_transfer_info(self) -> dict:
         """The `kv_transfer` block of /api/health and /api/system: the

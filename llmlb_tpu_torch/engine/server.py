@@ -37,7 +37,23 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   figures) and `GET /api/system`,
   carrying `"tpu_engine": true` — the field the gateway's endpoint
   detection keys on to treat this as an in-tree engine — and
-  `"backend": "cuda"`.
+  `"backend": "cuda"`; `/api/health` also carries the `gpu` block (the
+  device's memory, which the gateway's probe reads for placement), `perf`
+  (live MFU and memory-bandwidth utilization) and `metrics` (latency
+  percentiles and counters), `/api/system` the `perf` block;
+- observability, with the reference's routes, shapes and status codes:
+  `GET /metrics` (Prometheus text), `GET /api/steps?limit=&slow=` (the
+  step records, with `perf` and the flight recorder's counters), `GET
+  /api/requests/{id}/timeline` (one request's flight record, by the
+  gateway's X-Request-Id; 404 when the recorder is off or knows nothing
+  of it), `POST /api/profile` (`{"action": "start", "seconds": N}` or
+  `{"action": "stop"}`: a torch.profiler capture of the serving loop),
+  `GET /api/profile` (its state and completed captures), `GET
+  /api/profile/{capture_id}` (the capture as a zip) and `POST
+  /debug/profile` (`{"seconds": N}`: start, wait out, answer with the
+  trace directory). Traces land under LLMLB_TRACE_DIR; with
+  LLMLB_PROFILE_TOKEN set, every profile route needs `Authorization:
+  Bearer <token>` (401 otherwise).
 
 Request fields are validated by the reference's rules: `priority` (the
 admission class; a more important request may park a less important one)
@@ -80,10 +96,13 @@ import signal
 import socket
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llmlb_tpu_torch import __version__
+from llmlb_tpu_torch.engine.cuda_probe import guard_backend_init
+from llmlb_tpu_torch.engine.profiling import ProfileError, ProfileManager
 from llmlb_tpu_torch.engine.scheduler import SamplingParams
 from llmlb_tpu_torch.engine.service import Engine, EngineError
 from llmlb_tpu_torch.lora import adapter_from_body
@@ -97,6 +116,7 @@ MAX_BODY_BYTES = 20 * 1024 * 1024
 # contexts at full width), as in the reference
 KV_BODY_BYTES = 256 * 1024 * 1024
 _REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9_.:\-]{1,128}$")
+_TIMELINE_RE = re.compile(r"^/api/requests/([^/]+)/timeline$")
 
 
 def _sampling_from(body: dict, default_max: int = 256,
@@ -331,6 +351,10 @@ class EngineHTTPServer(ThreadingHTTPServer):
     def __init__(self, address: tuple[str, int], engine: Engine):
         self.engine = engine
         self.drain = DrainController(engine)
+        # one profiler per engine; it starts and stops on the step loop
+        core = engine.core
+        self.profiles = ProfileManager(cuda=core.device.type == "cuda",
+                                       run_in_loop=core.call_in_loop)
         super().__init__(address, _Handler)
 
 
@@ -400,8 +424,24 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         engine = self.server.engine
-        path = self.path.split("?", 1)[0]
-        if path == "/v1/models":
+        path, _, query = self.path.partition("?")
+        timeline = _TIMELINE_RE.match(path)
+        if path == "/metrics":
+            self._metrics()
+        elif path == "/api/steps":
+            self._steps(urllib.parse.parse_qs(query))
+        elif timeline is not None:
+            self._timeline(urllib.parse.unquote(timeline.group(1)))
+        elif path == "/api/profile" or path.startswith("/api/profile/"):
+            if not self._profile_authorized():
+                what = ("status" if path == "/api/profile" else "download")
+                self._error(401, f"profile {what} requires the profile token",
+                            "authentication_error")
+            elif path == "/api/profile":
+                self._json(200, self.server.profiles.status())
+            else:
+                self._profile_artifact(path[len("/api/profile/"):])
+        elif path == "/v1/models":
             self._json(200, {"object": "list", "data": _models(engine)})
         elif path == "/api/health":
             body = engine.health()
@@ -429,9 +469,156 @@ class _Handler(BaseHTTPRequestHandler):
                 "structured": engine.core.structured_info(),
                 "spec": engine.core.spec_info(),
                 "draining": self.server.drain.info(),
+                "perf": engine.core.perf_info(),
             })
         else:
             self._error(404, f"no route for GET {path}")
+
+    # ---------------------------------------------------------- observability
+
+    def _metrics(self) -> None:
+        """GET /metrics: the Prometheus exposition of the serving loop."""
+        core = self.server.engine.core
+        text = core.metrics.render(
+            core.stats(), prefix_cache=core.prefix_cache_info(),
+            kv_cache=core.kv_cache_info(), structured=core.structured_info(),
+            perf=core.perf_info(), quant=core.quant_info(),
+            sched=core.sched_info(), lora=core.lora_info(),
+            flightrec=core.flightrec.counters(),
+            kv_offload=core.kv_transfer_info()["offload"])
+        data = text.encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _steps(self, query: dict) -> None:
+        """GET /api/steps: the newest step records (`limit`, default 64,
+        at most the ring's size; `slow=1`: flagged ones only), the per-kind
+        baselines, the `perf` block and the flight recorder's counters."""
+        core = self.server.engine.core
+        try:
+            limit = int(query.get("limit", ["64"])[-1])
+        except ValueError:
+            self._error(400, "'limit' must be an integer")
+            return
+        slow_only = query.get("slow", [""])[-1] in ("1", "true", "yes")
+        body = core.step_stats.snapshot(limit=limit, slow_only=slow_only)
+        body["perf"] = core.perf_info()
+        body["flightrec"] = core.flightrec.counters()
+        self._json(200, body)
+
+    def _timeline(self, rid: str) -> None:
+        """GET /api/requests/{id}/timeline: one request's flight record by
+        the gateway's request id, the events sorted causally."""
+        recorder = self.server.engine.core.flightrec
+        if not recorder.enabled:
+            self._error(404, "flight recorder disabled (LLMLB_FLIGHTREC=0)")
+            return
+        body = recorder.timeline(rid)
+        if body is None:
+            self._error(404, f"no flight record for request '{rid}'")
+            return
+        self._json(200, body)
+
+    def _profile_authorized(self) -> bool:
+        """With LLMLB_PROFILE_TOKEN set, profile control and downloads
+        need `Authorization: Bearer <token>`."""
+        token = os.environ.get("LLMLB_PROFILE_TOKEN")
+        if not token:
+            return True
+        return self.headers.get("Authorization", "") == f"Bearer {token}"
+
+    def _profile_body(self) -> dict | None:
+        """A profile route's body, as the reference reads it: absent or
+        unparsable is {}; anything but an object is a 400."""
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            self._error(413, "request body too large")
+            return None
+        try:
+            body = json.loads(self.rfile.read(length)) if length else {}
+        except ValueError:
+            body = {}
+        if not isinstance(body, dict):
+            self._error(400, "body must be a JSON object")
+            return None
+        return body
+
+    def _profile_post(self, path: str) -> None:
+        """POST /api/profile and POST /debug/profile."""
+        if not self._profile_authorized():
+            self._error(401, "profile capture requires the profile token",
+                        "authentication_error")
+            return
+        body = self._profile_body()
+        if body is None:
+            return
+        profiles = self.server.profiles
+        if path == "/debug/profile":
+            self._debug_profile(body)
+            return
+        action = body.get("action", "start")
+        try:
+            if action == "start":
+                try:
+                    seconds = float(body.get("seconds", 3.0))
+                except (TypeError, ValueError):
+                    self._error(400, "'seconds' must be a number")
+                    return
+                self._json(200, {"started": True, **profiles.start(seconds)})
+                return
+            if action == "stop":
+                self._json(200, {"stopped": True, **profiles.stop()})
+                return
+        except ProfileError as e:
+            self._error(e.status, str(e), "server_error" if e.status >= 500
+                        else "invalid_request_error")
+            return
+        self._error(400, "'action' must be 'start' or 'stop'")
+
+    def _debug_profile(self, body: dict) -> None:
+        """POST /debug/profile {"seconds": N}: the one-shot form. Start a
+        capture, wait out its bounded duration (this connection's thread
+        only), answer with the trace directory."""
+        try:
+            seconds = min(30.0, max(0.1, float(body.get("seconds", 3.0))))
+        except (TypeError, ValueError):
+            self._error(400, "'seconds' must be a number")
+            return
+        profiles = self.server.profiles
+        try:
+            started = profiles.start(seconds)
+        except ProfileError as e:
+            self._error(e.status, str(e))
+            return
+        profiles.wait_idle(seconds + 30.0)
+        self._json(200, {
+            "trace_dir": started["trace_dir"],
+            "seconds": started["seconds"],
+            "capture_id": started["capture_id"],
+            "hint": "open trace.json in chrome://tracing or Perfetto",
+        })
+
+    def _profile_artifact(self, capture_id: str) -> None:
+        """GET /api/profile/{capture_id}: the capture's directory as a
+        zip, built on this connection's thread and sent from the file."""
+        try:
+            path, filename = self.server.profiles.artifact(capture_id)
+        except ProfileError as e:
+            self._error(e.status, str(e))
+            return
+        size = os.path.getsize(path)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/zip")
+        self.send_header("Content-Disposition",
+                         f'attachment; filename="{filename}"')
+        self.send_header("Content-Length", str(size))
+        self.end_headers()
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 20):
+                self.wfile.write(chunk)
 
     _POST_ROUTES = {
         "/v1/chat/completions": "_chat",
@@ -445,6 +632,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         path = self.path.split("?", 1)[0]
+        if path in ("/api/profile", "/debug/profile"):
+            self._profile_post(path)
+            return
         route = self._POST_ROUTES.get(path)
         if route is None:
             self._error(404, f"no route for POST {path}")
@@ -995,6 +1185,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument(
+        "--init-timeout", type=float, default=None,
+        help="seconds the CUDA init probe may take before the server exits "
+             "with its evidence (default LLMLB_INIT_TIMEOUT or 600; 0 skips "
+             "the probe)")
+    parser.add_argument(
         "--quantize", choices=("off", "weights", "kv", "all"), default=None,
         help="int8 quantization (default off; also via LLMLB_QUANTIZE): "
              "'weights' = per-output-channel int8 projection weights, 'kv' "
@@ -1066,6 +1261,10 @@ def main(argv: list[str] | None = None) -> None:
         core_kwargs["spec_max_draft"] = max(1, args.spec_max_draft)
     if args.spec_ngram is not None:
         core_kwargs["spec_ngram"] = max(1, args.spec_ngram)
+    if not args.device.startswith("cpu"):
+        # before the first in-process CUDA call: a card that does not come
+        # up exits here with the probe's evidence, never on the CPU
+        guard_backend_init(args.init_timeout)
     if args.checkpoint:
         engine = Engine.from_checkpoint(args.checkpoint,
                                         model_id=args.model_id,

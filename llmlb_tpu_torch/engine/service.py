@@ -33,6 +33,7 @@ from llmlb_tpu_torch.engine.scheduler import (
     Request,
     SamplingParams,
 )
+from llmlb_tpu_torch.engine.telemetry import device_telemetry
 from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
@@ -233,6 +234,9 @@ class Engine:
                                spec_k=spec_k),
             kv_restore=self._kv_restore_of(kv_pages, committed),
             compiled_constraint=compiled)
+        if request_id and self.core.flightrec.enabled:
+            self.core.flightrec.emit(request_id, "adopted",
+                                     committed=len(committed))
         self._submit(request)
         return self._deltas(request, stop, committed)
 
@@ -440,6 +444,7 @@ class Engine:
 
     def health(self) -> dict:
         stats = self.core.stats()
+        lora = self.core.lora_info()
         dev = self.core.device
         device = {"type": dev.type}
         if dev.type == "cuda":
@@ -460,12 +465,15 @@ class Engine:
                 **dataclasses.asdict(stats.prefix),
             },
             "device": device,
+            # the reference's device telemetry block (its "tpu"), under the
+            # key the gateway's health probe also reads
+            "gpu": device_telemetry(dev),
             "kv_cache": self.core.kv_cache_info(),
             "prefix_cache": self.core.prefix_cache_info(),
             # int8 knobs and the byte footprints they produce
             "quant": self.core.quant_info(),
             # adapter pool: resident names (the gateway's lora_loaded)
-            "lora": self.core.lora_info(),
+            "lora": lora,
             # overload protection: queue depths by class, preemption and
             # deadline-shed counters
             "sched": self.core.sched_info(),
@@ -476,6 +484,12 @@ class Engine:
             "structured": self.core.structured_info(),
             # speculative decoding: the knobs and acceptance figures
             "spec": self.core.spec_info(),
+            # live roofline: MFU and memory-bandwidth utilization against
+            # the device's spec-sheet peaks
+            "perf": self.core.perf_info(),
+            # latency percentiles and counters, read from the same tallies
+            # as /metrics and core.stats()
+            "metrics": self.core.metrics.summary(stats, lora),
         }
 
 

@@ -81,6 +81,9 @@ class LoraManager:
         self._last_used: dict[str, float] = {}
         self.loads_total = 0
         self.evictions_total = 0
+        # the engine's EngineMetrics (its load histogram and per-adapter
+        # request counter), set by the core
+        self.metrics = None
 
     # -------------------------------------------------------------- pool init
 
@@ -157,6 +160,8 @@ class LoraManager:
             self._acquired[token] = name
             self._refcounts[name] = self._refcounts.get(name, 0) + 1
             self._last_used[name] = time.monotonic()
+            if self.metrics is not None:
+                self.metrics.record_lora_request(name)
             return row
 
     def release(self, token: str) -> None:
@@ -211,9 +216,12 @@ class LoraManager:
             raise
         self._resident[info.name] = row
         self.loads_total += 1
+        took = time.monotonic() - t0
+        if self.metrics is not None:
+            self.metrics.record_lora_load(took)
         log.info("lora: loaded adapter %r (rank %d, targets %s) into row %d "
                  "in %.3fs", info.name, info.rank, "/".join(info.targets), row,
-                 time.monotonic() - t0)
+                 took)
         return row
 
     def _evict_lru_locked(self) -> str | None:

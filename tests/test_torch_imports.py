@@ -51,7 +51,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("lora", "lora.api", "lora.store", "lora.manager", "ops.lora",
                  "engine.safetensors_io", "kernels.build", "ops.grammar",
                  "structured.constraint", "structured.regex_dfa",
-                 "structured.json_schema", "structured.openai_api"):
+                 "structured.json_schema", "structured.openai_api",
+                 "engine.stepstats", "engine.flightrec", "engine.metrics",
+                 "engine.telemetry", "engine.profiling", "engine.cuda_probe",
+                 "engine.dispatch_check"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
