@@ -61,7 +61,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. model   — the model's serving entry points on the card (kernels)
              against the CPU (plain path) at debug size: the paged ones with
              model-dtype, int8, adapter-pool (mixed lora_idx) and int8 +
-             adapter params; the dense-slot ones with and without adapters.
+             adapter params; the dense-slot ones with and without adapters;
+             then the eight Mixtral entry points at debug-moe-tiny in both
+             MoE regimes (2 x 16 tokens: capacity dispatch; 1 x 16: exact;
+             verify and decode exact) with fp32, int8 weights and pools,
+             and attention adapters.
    checkpoint — the seed-0 random Llama-3-8B weights generated on the card
              and written as a 4-shard bf16 HF checkpoint (index and a
              config.json rendered from the preset) under the build
@@ -259,6 +263,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
              on the host-mask key) on a 2-slot dense core of its own: the
              structured block's first two constrained prompts give its
              fused ids.
+10. serve mixtral — Mixtral-8x7B at full width and depth (32 layers, 8
+             experts, top-2, vocab 32000) with int8 experts and
+             projections (quantize="weights"; bf16 would be 93 GB), random
+             from seed 0 and filled as int8 a matrix at a time, bf16 KV
+             pages, engine defaults, two attention adapters, over HTTP: 4
+             chats (base, `lora`, `model:adapter`), /v1/models without
+             `embeddings`, /v1/embeddings answering 400; the 124-token
+             prompt's TTFT and steady one-stream decode (ids after the
+             first fetch) twice with equal ids, an adapter request whose
+             ids differ; the 1503-token prompt's TTFT as a miss, then a
+             cold run and its prefix hit with the dropped (token, choice)
+             pairs counted by the plain routing on each dispatch's router
+             logits (without drops the hit's logits must be within the
+             bf16 limit of the cold run's); 8 x 64 tok/s; one 32-id
+             speculative request under the accept stub against spec off
+             (the parting rule); decode batch invariance (exact MoE: row
+             0's decode logits equal bit for bit in the batch, with the
+             others idle and with their tokens and adapters rotated);
+             flash_prefill, paged_flash_decode, paged_flash_extend and
+             lora_delta launch, no other kernel; the graphs' pools; graph
+             = eager for 4 rows submitted together on the serving core and
+             on a decode_graphs=False core. Logged: weights, KV and peak
+             GiB, the init's seconds, each block's seconds.
+11. mixtral bf16 — 8 layers of Mixtral-8x7B at full width in bf16 with
+             int8 KV pools: a prefill group of 4 x 512 and an extend of 4 x
+             128 (capacity dispatch, drops counted), then a decode step;
+             every capacity dispatch bit for bit the one-hot plain
+             version's on the same inputs (the card runs index copies and
+             gathers), every flash_prefill, paged_flash_extend_quant and
+             paged_flash_decode_quant call within the bf16 limit of its
+             plain version on the same inputs.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1853,6 +1888,131 @@ def phase_model_entry_points() -> None:
             if not (err <= FP32_ATOL * 10 and torch.isfinite(g).all()):
                 raise AssertionError(f"{name}: card logits disagree with the "
                                      f"plain path (max_abs_err {err:.3e})")
+    _moe_entry_points()
+
+
+def _moe_entry_points() -> None:
+    """The eight Mixtral entry points at debug-moe-tiny (4 experts, top-2),
+    card against CPU, fp32 logits within FP32_ATOL * 10: both regimes (a
+    prefill and an extend of 2 x 16 tokens, capacity dispatch; of 1 x 16,
+    exact), a verify of 3 positions and two decode steps (exact); paged
+    with model-dtype params, int8 weights and int8 pools, and an attention
+    adapter pool with mixed `lora_idx`; the dense-slot ones with and
+    without adapters."""
+    import tempfile
+
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.lora import LoraManager, save_adapter
+    from llmlb_tpu_torch.models import mixtral
+    from llmlb_tpu_torch.quant import quantize_params
+
+    cfg = get_preset("debug-moe-tiny")
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with tempfile.TemporaryDirectory() as lora_dir:
+        save_adapter(lora_dir, "acme", cfg, rank=4)
+        save_adapter(lora_dir, "beta", cfg, rank=8)
+        mgr = LoraManager(cfg, lora_dir=lora_dir, max_adapters=2, rank_cap=8)
+        pool = mgr.init_pool_leaves(cfg.dtype, "cpu")
+        mgr.attach(pool)
+        for i, name in enumerate(("acme", "beta")):
+            mgr.acquire(name, f"r{i}")
+    if mgr.targets != ("wq", "wk", "wv", "wo"):
+        raise AssertionError(f"MoE adapter pools over {mgr.targets}")
+    rng = torch.Generator().manual_seed(2)
+    tables = torch.tensor([[3, 7, 1, 10], [5, 2, 9, 11]], dtype=torch.int32)
+    lens = torch.tensor([5, 13], dtype=torch.int32)
+    chunk_lens = torch.tensor([10, 3], dtype=torch.int32)
+    slots = torch.tensor([2, 0], dtype=torch.int64)
+
+    def run(dev, p, quantized, lidx, rows, layout):
+        ids = torch.randint(0, 512, (rows, 16), generator=rng)
+        chunk = torch.randint(0, 512, (rows, 16), generator=rng)
+        ver = torch.randint(0, 512, (rows, 3), generator=rng)
+        toks = torch.randint(0, 512, (rows,), generator=rng)
+        li = None if lidx is None else lidx[:rows].to(dev)
+        ln, cl = lens[:rows].to(dev), chunk_lens[:rows].to(dev)
+        vl = torch.full((rows,), 3, dtype=torch.int32, device=dev)
+        out = []
+        if layout == "paged":
+            tb = tables[:rows].to(dev)
+            ck, cv = mixtral.init_kv_pages(cfg, 12, 8, dev,
+                                           quantized=quantized)
+            out.append(mixtral.prefill_into_pages(
+                p, cfg, ids.to(dev), ln, tb, ck, cv, lora_idx=li)[0])
+            out.append(mixtral.prefill_extend_pages(
+                p, cfg, chunk.to(dev), cl, ln, tb, ck, cv, lora_idx=li)[0])
+            seq = ln + cl
+            out.append(mixtral.verify_step_paged(
+                p, cfg, ver.to(dev), vl, seq, tb, ck, cv, window=32,
+                lora_idx=li)[0])
+            seq = seq + 3
+            for _ in range(2):
+                out.append(mixtral.decode_step_paged(
+                    p, cfg, toks.to(dev), seq, ck, cv, tb, window=32,
+                    lora_idx=li)[0])
+                seq = seq + 1
+            return [o.cpu() for o in out]
+        # dense: 3 slots of 48 cells; verify and decode run every slot
+        sl = slots[:rows].to(dev)
+        ck, cv = mixtral.init_kv_cache(cfg, 3, 48, dev)
+        out.append(mixtral.prefill_into_slots(
+            p, cfg, ids.to(dev), ln, sl, ck, cv, lora_idx=li)[0])
+        out.append(mixtral.prefill_extend_slots(
+            p, cfg, chunk.to(dev), cl, ln, sl, ck, cv, lora_idx=li)[0])
+        seq = torch.zeros(3, dtype=torch.int32)
+        seq[slots[:rows]] = lens[:rows] + chunk_lens[:rows]
+        rows_li = None
+        if lidx is not None:
+            rows_li = torch.zeros(3, dtype=torch.int32)
+            rows_li[slots[:rows]] = lidx[:rows]
+            rows_li = rows_li.to(dev)
+        all_ver = torch.zeros((3, 3), dtype=torch.int64)
+        all_ver[slots[:rows]] = ver
+        out.append(mixtral.verify_step(
+            p, cfg, all_ver.to(dev), torch.full((3,), 3, dtype=torch.int32,
+                                                device=dev),
+            seq.to(dev), None, ck, cv, window=48,
+            lora_idx=rows_li)[0][sl])
+        last = torch.zeros(3, dtype=torch.int64)
+        last[slots[:rows]] = toks
+        out.append(mixtral.decode_step(
+            p, cfg, last.to(dev), (seq + 3).to(dev), ck, cv, window=48,
+            lora_idx=rows_li)[0][sl])
+        return [o.cpu() for o in out]
+
+    lora_idx = torch.tensor([2, 1], dtype=torch.int32)
+    cases = (("paged", False, None, "fp32"),
+             ("paged", True, None, "int8 weights and pools"),
+             ("paged", False, lora_idx, "attention adapters [2, 1]"),
+             ("dense", False, None, "fp32"),
+             ("dense", False, lora_idx, "attention adapters [2, 1]"))
+    names = {"paged": ("prefill_into_pages", "prefill_extend_pages",
+                       "verify_step_paged", "decode_step_paged#1",
+                       "decode_step_paged#2"),
+             "dense": ("prefill_into_slots", "prefill_extend_slots",
+                       "verify_step", "decode_step")}
+    for layout, quantized, lidx, tag in cases:
+        p = quantize_params(params) if quantized else params
+        if lidx is not None:
+            p = {**p, **pool}
+        gp = {k: v.cuda() for k, v in p.items()}
+        for rows in (2, 1):
+            regime = "capacity" if rows * 16 > 4 * cfg.num_experts else "exact"
+            state = rng.get_state()
+            got = run("cuda", gp, quantized, lidx, rows, layout)
+            rng.set_state(state)
+            want = run("cpu", p, quantized, lidx, rows, layout)
+            for name, g, c in zip(names[layout], got, want):
+                err = (g - c).abs().max().item()
+                log(f"  model mixtral.{name} debug-moe-tiny ({tag}; {rows} "
+                    f"row(s) x 16: prefill and extend {regime}) fp32 logits "
+                    f"card vs cpu: max_abs_err {err:.3e}")
+                if not (err <= FP32_ATOL * 10 and torch.isfinite(g).all()):
+                    raise AssertionError(
+                        f"mixtral.{name}: card logits disagree with the "
+                        f"plain path (max_abs_err {err:.3e})")
 
 
 def _post(url: str, body: dict, timeout: float = 600,
@@ -4586,10 +4746,12 @@ def _spec_margins(core, prompts, streams, lora_row: int = 0):
     logit difference over every row and position, positions where the
     decode path's argmax is not the stream's token, and the share of
     positions where the two paths' logits give another token: greedy,
-    and seeded at temperature 0.8, top-p 0.95)."""
+    and seeded at temperature 0.8, top-p 0.95). An MoE family's rows
+    prefill one at a time, as each request's did: its capacity dispatch
+    couples the rows of a group."""
     import torch
 
-    from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.models import family_for
     from llmlb_tpu_torch.ops.sampling import sample_tokens
 
     n = core.num_slots
@@ -4597,6 +4759,8 @@ def _spec_margins(core, prompts, streams, lora_row: int = 0):
     streams = [streams[i % len(streams)] for i in range(n)]
     t = min(len(s) for s in streams)
     cfg, params, dev = core.cfg, core.params, core.device
+    fam = family_for(cfg)  # the family's entry points
+    alone = fam.PREFILL_COUPLES_ROWS
     plen = len(prompts[0])
     i32 = dict(dtype=torch.int32, device=dev)
     lens = torch.full((n,), plen, **i32)
@@ -4610,23 +4774,30 @@ def _spec_margins(core, prompts, streams, lora_row: int = 0):
     rows = plen + t + VERIFY_K1 + 1
     with _Uncounted():
         if dense:
-            caps = [llama.init_kv_cache(cfg, n, core.slot_capacity, dev)
+            caps = [fam.init_kv_cache(cfg, n, core.slot_capacity, dev)
                     for _ in range(2)]
             slots = torch.arange(n, device=dev)
-            logits0, _, _ = llama.prefill_into_slots(
+            logits0, _, _ = fam.prefill_into_slots(
                 params, cfg, ids, lens, slots, *caps[0], lora_idx=lidx)
-            llama.prefill_into_slots(params, cfg, ids, lens, slots, *caps[1],
-                                     lora_idx=lidx)
+            fam.prefill_into_slots(params, cfg, ids, lens, slots, *caps[1],
+                                   lora_idx=lidx)
         else:
             ppr = -(-rows // PAGE)
-            caps = [llama.init_kv_pages(cfg, n * ppr + 1, core.kv_page_size,
-                                        dev, quantized=core.quant.kv)
+            caps = [fam.init_kv_pages(cfg, n * ppr + 1, core.kv_page_size,
+                                      dev, quantized=core.quant.kv)
                     for _ in range(2)]
             tables = (torch.arange(n * ppr, **i32) + 1).reshape(n, ppr)
             tables = torch.nn.functional.pad(
                 tables, (0, core.pages_per_slot - ppr))
             for pools in caps:
-                logits0, _, _ = llama.prefill_into_pages(
+                if alone:
+                    logits0 = torch.cat([fam.prefill_into_pages(
+                        params, cfg, ids[r:r + 1], lens[r:r + 1],
+                        tables[r:r + 1], *pools,
+                        lora_idx=None if lidx is None else lidx[r:r + 1])[0]
+                        for r in range(n)])
+                    continue
+                logits0, _, _ = fam.prefill_into_pages(
                     params, cfg, ids, lens, tables, *pools, lora_idx=lidx)
         dec = torch.empty((n, t, cfg.vocab_size), dtype=torch.float32,
                           device=dev)
@@ -4635,11 +4806,11 @@ def _spec_margins(core, prompts, streams, lora_row: int = 0):
         for j in range(t - 1):
             seq = lens + j
             if dense:
-                logits, _, _ = llama.decode_step(
+                logits, _, _ = fam.decode_step(
                     params, cfg, toks[:, j], seq, *caps[0], window=window,
                     lora_idx=lidx)
             else:
-                logits, _, _ = llama.decode_step_paged(
+                logits, _, _ = fam.decode_step_paged(
                     params, cfg, toks[:, j], seq, *caps[0], tables,
                     window=window, lora_idx=lidx)
             dec[:, j + 1] = logits
@@ -4652,11 +4823,11 @@ def _spec_margins(core, prompts, streams, lora_row: int = 0):
             chunk[:, :c] = toks[:, j0:j0 + c]
             clen = torch.full((n,), c, **i32)
             if dense:
-                logits, _, _ = llama.verify_step(
+                logits, _, _ = fam.verify_step(
                     params, cfg, chunk, clen, lens + j0, None, *caps[1],
                     lora_idx=lidx)
             else:
-                logits, _, _ = llama.verify_step_paged(
+                logits, _, _ = fam.verify_step_paged(
                     params, cfg, chunk, clen, lens + j0, tables, *caps[1],
                     lora_idx=lidx)
             diff = max(diff, (logits[:, :c] - dec[:, j0 + 1:j0 + 1 + c])
@@ -5804,6 +5975,555 @@ def phase_serve_lora(dev: dict, bf16_ids: list[int]) -> dict:
                            lora_dir=lora_dir)
 
 
+# The Mixtral phase: Mixtral-8x7B at full width and depth, int8 weights.
+MIXTRAL_PATH = BF16_PATH + ("lora_delta",)
+# its adapters, attention-only (an MoE engine pools no expert targets)
+MIXTRAL_ADAPTERS = (("acme", 8), ("beta", 16))
+MIX_TOKENS = 32  # greedy ids of its timed and HTTP requests
+MIX_BF16_LAYERS = 8  # depth of the bf16 check at full width
+# tokens of the prefix pair's prompt past its two full chunks: a chunk of at
+# most the smallest bucket (32), which runs in the exact regime (B * T <= 4 E)
+PAIR_TAIL = 20
+
+
+class _Drops:
+    """While open, counts the (token, choice) pairs the capacity dispatch
+    drops, per layer call, by calling the plain routing (ops/moe.py
+    capacity_drops, a host read) on the router logits each call of
+    models/mixtral.py's moe_dispatch_combine gets; with `check`, each call
+    is also held bit for bit against the one-hot plain version on the same
+    inputs (the card's index copies and gathers give its bits)."""
+
+    def __init__(self, check: bool = False):
+        from llmlb_tpu_torch.models import mixtral
+        from llmlb_tpu_torch.ops.moe import capacity_drops
+
+        self.calls: list[int] = []
+        self.checked = 0
+        orig = self.orig = mixtral.moe_dispatch_combine
+
+        def spy(x, logits, *w, num_selected, capacity, token_valid=None,
+                **kw):
+            import torch
+
+            self.calls.append(capacity_drops(logits, num_selected, capacity,
+                                             token_valid))
+            out = orig(x, logits, *w, num_selected=num_selected,
+                       capacity=capacity, token_valid=token_valid, **kw)
+            if check:
+                plain = orig(x, logits, *w, num_selected=num_selected,
+                             capacity=capacity, token_valid=token_valid,
+                             indexed=False, **kw)
+                if not torch.equal(out, plain):
+                    raise AssertionError(
+                        "moe_dispatch_combine: the card's index form differs "
+                        "from the one-hot plain version (max |diff| "
+                        f"{(out.float() - plain.float()).abs().max().item():.3e})")
+                self.checked += 1
+            return out
+
+        mixtral.moe_dispatch_combine = spy
+
+    def take(self) -> list[int]:
+        """The drops of each layer call since the last take."""
+        out, self.calls = self.calls, []
+        return out
+
+    def close(self) -> None:
+        from llmlb_tpu_torch.models import mixtral
+
+        mixtral.moe_dispatch_combine = self.orig
+
+
+def _mix_request(core, prompt: list[int], n: int, lora: str | None = None):
+    """One greedy request on the core: (ids, TTFT s, steady decode tok/s
+    over the ids after the first fetch, as _st_rate rates them)."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    req = Request(prompt_ids=list(prompt), sampling=SamplingParams(
+        max_tokens=n, temperature=0.0, lora=lora))
+    req.events = _StampedEvents()
+    core.submit(req)
+    ids, _, ttft, stamps = _st_collect(req)
+    return ids, ttft, _st_rate(stamps, n)
+
+
+def _mix_together(core, rows, n: int) -> list[list[int]]:
+    """Requests (prompt, adapter, sampling) submitted between two loop
+    iterations, so they prefill as one group on any core (an MoE prefill
+    group's rows share the capacity dispatch); their ids."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    reqs = [Request(prompt_ids=list(p), sampling=SamplingParams(
+        max_tokens=n, lora=name, **{"temperature": 0.0, **sp}))
+        for p, name, sp in rows]
+    core.call_in_loop(lambda: [core.submit(r) for r in reqs])
+    return [_collect(r)[0] for r in reqs]
+
+
+def _moe_decode_invariance(core, prompts: list[list[int]],
+                           lora_rows: list[int]) -> None:
+    """Decode is exact MoE, so a row's decode logits do not depend on the
+    rows beside it. Over scratch pages, SLOTS rows each prefilled alone (as
+    the engine prefills a lone request), then one decode step of every row,
+    the same step with rows 1.. idle (token 0 at length 0, no adapter), and
+    with their tokens and adapters rotated: row 0's logits equal bit for
+    bit. Its launches are not the main path's."""
+    import torch
+
+    from llmlb_tpu_torch.models import family_for
+
+    fam, cfg = family_for(core.cfg), core.cfg
+    i32 = dict(dtype=torch.int32, device="cuda")
+    with _Uncounted():
+        ck, cv = fam.init_kv_pages(cfg, 1 + 2 * SLOTS, PAGE, "cuda")
+        tables = (torch.arange(2 * SLOTS, **i32) + 1).reshape(SLOTS, 2)
+        lidx = torch.tensor(lora_rows, **i32)
+        lens = torch.tensor([len(p) for p in prompts], **i32)
+        toks = []
+        for r, p in enumerate(prompts):
+            ids = torch.zeros((1, 128), dtype=torch.int64, device="cuda")
+            ids[0, :len(p)] = torch.tensor(p, device="cuda")
+            logits = fam.prefill_into_pages(core.params, cfg, ids,
+                                            lens[r:r + 1], tables[r:r + 1],
+                                            ck, cv, lora_idx=lidx[r:r + 1])[0]
+            toks.append(int(logits[0].argmax()))
+        toks = torch.tensor(toks, **i32)
+
+        def step(t, n, li):
+            return fam.decode_step_paged(core.params, cfg, t, n, ck, cv,
+                                         tables, window=256,
+                                         lora_idx=li)[0][0].clone()
+
+        full = step(toks, lens, lidx)
+        idle = [x.clone() for x in (toks, lens, lidx)]
+        for x in idle:
+            x[1:] = 0
+        alone = step(*idle)
+        rot = [x.clone() for x in (toks, lidx)]
+        for x, src in zip(rot, (toks, lidx)):
+            x[1:] = src[1:].roll(1)
+        rotated = step(rot[0], lens, rot[1])
+        torch.cuda.synchronize()
+    for what, other in (("with the others idle", alone),
+                        ("with the others' tokens and adapters rotated",
+                         rotated)):
+        if not torch.equal(other, full):
+            raise AssertionError(
+                f"batch_invariance mixtral: row 0's decode logits in the "
+                f"batch of {SLOTS} and {what} differ (max |diff| "
+                f"{(other - full).abs().max().item():.3e})")
+    log(f"batch_invariance mixtral: row 0's decode logits (exact MoE) "
+        f"bit-identical in the batch of {SLOTS}, with the others idle and "
+        f"with their tokens and adapters rotated (adapter rows {lora_rows})")
+
+
+def _mix_graph_vs_eager(core, prompt: list[int], dev: dict,
+                        core_kwargs: dict) -> dict:
+    """On the same weights, an engine with decode_graphs=False: the
+    GRAPH_ROWS workload (greedy and seeded rows with the adapters), submitted
+    together on each core so that both prefill the same group, gives the
+    same ids on the serving core, whose bursts replay one window key's
+    graph, as on the eager one."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    eager = EngineCore(core.cfg, core.params, device="cuda", seed=0,
+                       num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                       decode_graphs=False, prefix_cache=False, **core_kwargs)
+    eager.start()
+    try:
+        rows = [(_fresh_head(prompt, 16 + i), name, sp)
+                for i, (sp, name) in enumerate(GRAPH_ROWS)]
+        replays = core.stats().decode_graph_replays
+        keys0 = set(core.decode_graph_info()["keys"])
+        graph_ids = _mix_together(core, rows, MIX_TOKENS)
+        replayed = core.stats().decode_graph_replays - replays
+        eager_ids = _mix_together(eager, rows, MIX_TOKENS)
+        keys = sorted(core.decode_graph_info()["keys"])
+        same = [_shared(a, b) for a, b in zip(graph_ids, eager_ids)]
+        log(f"serve mixtral: graph = eager: rows (greedy, greedy acme, "
+            f"seeded beta, seeded acme) share {same} of {MIX_TOKENS} ids; "
+            f"the graph core replayed {replayed} bursts for them (keys "
+            f"{keys}, new {sorted(set(keys) - keys0)}), the eager core "
+            f"{eager.stats().decode_graph_replays}")
+        if graph_ids != eager_ids:
+            raise AssertionError(f"serve mixtral: graph and eager bursts give "
+                                 f"different ids (shared {same})")
+        if replayed < 1 or eager.stats().decode_graph_replays:
+            raise AssertionError("serve mixtral: the comparison did not set "
+                                 "replays against eager bursts")
+        return {"graph_eager_shared": same}
+    finally:
+        eager.stop()
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_serve_mixtral(dev: dict) -> dict:
+    """Serve Mixtral-8x7B at full width and depth (32 layers, 8 experts,
+    top-2) with int8 weights, random from seed 0 and filled as int8 a matrix
+    at a time, over HTTP with two attention adapters; see the module
+    docstring. Returns the metrics and the launches of this run."""
+    import gc
+    import tempfile
+    import urllib.error
+
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.kernels import build
+    from llmlb_tpu_torch.lora import save_adapter
+    from llmlb_tpu_torch.models import mixtral
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    cfg = get_preset("mixtral-8x7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    block_s: dict[str, float] = {}
+    stats: dict = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as lora_dir:
+        for name, rank in MIXTRAL_ADAPTERS:
+            save_adapter(lora_dir, name, cfg, rank=rank, scale=ADAPTER_SCALE)
+        core_kwargs = dict(quantize="weights", lora_dir=lora_dir)
+        t0 = time.perf_counter()
+        engine = Engine.from_preset("mixtral-8x7b", device="cuda", seed=0,
+                                    num_slots=SLOTS, slot_capacity=CAPACITY,
+                                    eos_id=-1, **core_kwargs)
+        core = engine.core
+        torch.cuda.synchronize()
+        kv = core.kv_cache_info()
+        quant = core.quant_info()
+        stats.update(
+            weights_gib=core.param_bytes / 2**30,
+            weights_bf16_gib=quant["param_bytes_bf16"] / 2**30,
+            kv_gib=kv["hbm_bytes"] / 2**30, init_s=core.init_seconds,
+            engine_s=time.perf_counter() - t0,
+            peak_gib_init=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"serve mixtral [{dev['smi']}]: mixtral-8x7b random weights (seed "
+            f"0), int8 experts and projections filled a matrix at a time in "
+            f"{stats['init_s']:.1f} s (engine {stats['engine_s']:.1f} s); "
+            f"weights {stats['weights_gib']:.2f} GiB (bf16 would be "
+            f"{stats['weights_bf16_gib']:.2f} GiB), KV "
+            f"{stats['kv_gib']:.2f} GiB {kv['layout']} {kv['kv_dtype']}, peak "
+            f"{stats['peak_gib_init']:.2f} GiB allocated; decode burst "
+            f"{core.decode_burst}")
+        if core.family is not mixtral or not quant["weights_int8"] or (
+                kv["kv_dtype"] != "bfloat16" or kv["layout"] != "paged"):
+            raise AssertionError(f"serve mixtral: family {core.family}, "
+                                 f"quant {quant}, KV {kv}")
+        if core.lora.targets != ("wq", "wk", "wv", "wo"):
+            raise AssertionError(f"adapter pools over {core.lora.targets}")
+        server, thread = start_server(engine)
+        base = "http://%s:%d" % server.server_address[:2]
+        try:
+            ca.reset_launch_counts()
+            t_main = time.perf_counter()
+            model = "mixtral-8x7b"
+            first = _chat(base, "Tell me about mixture-of-experts routing.",
+                          MIX_TOKENS, True, model=model)
+            chats = _concurrent([
+                lambda: _chat(base, "Request 1: a haiku about experts.",
+                              MIX_TOKENS, False, model=model),
+                lambda: _chat(base, "Request 2: a haiku about routers.",
+                              MIX_TOKENS, True, model=model, lora="acme"),
+                lambda: _chat(base, "Request 3: a haiku about capacity.",
+                              MIX_TOKENS, False, model=f"{model}:beta")])
+            for r in [first, *chats]:
+                assert r["usage"]["completion_tokens"] == MIX_TOKENS, r
+                assert r["finish"] == "length", r["finish"]
+            with urllib.request.urlopen(base + "/v1/models",
+                                        timeout=60) as resp:
+                entries = json.loads(resp.read())["data"]
+            caps = entries[0]["capabilities"]
+            if "embeddings" in caps or "lora" not in caps:
+                raise AssertionError(f"/v1/models capabilities {caps}")
+            try:
+                _post(base + "/v1/embeddings", {"input": "hello"}).close()
+                raise AssertionError("/v1/embeddings answered 200 on MoE")
+            except urllib.error.HTTPError as e:
+                refusal = (e.code, json.loads(e.read())["error"]["message"])
+            if refusal[0] != 400 or "not supported" not in refusal[1]:
+                raise AssertionError(f"/v1/embeddings: {refusal}")
+            log(f"serve mixtral: 4 chats over HTTP (base, lora field, "
+                f"model:adapter) ok; /v1/models capabilities {caps}; "
+                f"/v1/embeddings {refusal[0]} {refusal[1]!r}")
+            block_s["http"] = time.perf_counter() - t_main
+
+            # the timed prompt (124 tokens), twice: the ids must agree
+            t1 = time.perf_counter()
+            prompt = engine.encode_chat([{"role": "user",
+                                          "content": "x" * 100}])
+            runs = [_mix_request(core, prompt, MIX_TOKENS) for _ in range(2)]
+            ids = runs[0][0]
+            if runs[1][0] != ids:
+                raise AssertionError("serve mixtral: greedy ids differ between "
+                                     "identical runs (shared "
+                                     f"{_shared(ids, runs[1][0])})")
+            acme = _mix_request(core, prompt, MIX_TOKENS, lora="acme")
+            if acme[0] == ids:
+                raise AssertionError("serve mixtral: adapter acme changed no "
+                                     "greedy id")
+            stats.update(ttft_s=min(r[1] for r in runs),
+                         decode_tok_s_1=max(r[2] for r in runs),
+                         acme_shared=_shared(acme[0], ids))
+            block_s["timed"] = time.perf_counter() - t1
+
+            # a prefix hit against its cold run, their drops counted (this
+            # warms the 2048 window key), then the long prompt with a head of
+            # its own, a miss, timed. The pair's prompt is the long one cut
+            # to two full chunks and PAIR_TAIL tokens: the cold run's last
+            # chunk and the hit's suffix then run in the exact regime, so
+            # the tokens the hit recomputes were dropped in neither run and
+            # the hit is held to the cold run's logits (the full chunks
+            # before them drop pairs, and the hit reads their KV pages).
+            t1 = time.perf_counter()
+            long_text = " ".join(f"w{i % 97}" for i in range(380))
+            long_prompts = [engine.encode_chat([{"role": "user", "content":
+                                                 _first_word(long_text, j)}])
+                            for j in (1, 2)]
+            chunk = core.prefill_buckets[-1]
+            pair = long_prompts[1][:2 * chunk + PAIR_TAIL]
+            hits0 = core.stats().prefix.prefix_hits_total
+            spy, drops = _LogitSpy(core), _Drops()
+            try:
+                cold_ids, cold_ttft, _ = _timed_core_request(
+                    core, pair, LONG_TOKENS)
+                cold_drops = drops.take()
+                hit_ids, hit_ttft, _ = _timed_core_request(
+                    core, pair, LONG_TOKENS)
+                hit_drops = drops.take()
+            finally:
+                drops.close()
+                spy.close()
+            if core.stats().prefix.prefix_hits_total != hits0 + 1:
+                raise AssertionError("serve mixtral: the pair's repeat did "
+                                     "not hit")
+            cold_logits, hit_logits = spy.get(pair, None)[-2:]
+            layers = cfg.num_layers
+            per_dispatch = [sum(cold_drops[i:i + layers])
+                            for i in range(0, len(cold_drops), layers)]
+            # one capacity call per layer for each full chunk and none for
+            # the tail or the hit: the regimes the comparison relies on
+            if len(cold_drops) != 2 * layers or hit_drops:
+                raise AssertionError(
+                    f"serve mixtral: {len(cold_drops)} capacity calls in the "
+                    f"cold run (want {2 * layers}), {len(hit_drops)} in the "
+                    "hit (want 0)")
+            err = _hit_within("mixtral", "the pair's hit", hit_logits,
+                              cold_logits)
+            stats["prefix"] = dict(
+                cold_drops=per_dispatch, max_abs_diff=err,
+                bitwise=bool(torch.equal(hit_logits, cold_logits)),
+                shared=_shared(hit_ids, cold_ids))
+            log(f"serve mixtral: prefix hit against its cold run "
+                f"({len(pair)} tokens: chunks of {chunk}, {chunk} and "
+                f"{PAIR_TAIL}; the hit's suffix one extend): dropped (token, "
+                f"choice) pairs over {layers} layers: the full chunks "
+                f"{per_dispatch}, the tail and the hit's suffix none (exact "
+                f"regime); first-token logits max |diff| {err:.3e} (within "
+                f"the bf16 limit, held; bit for bit: "
+                f"{stats['prefix']['bitwise']}); ids share "
+                f"{stats['prefix']['shared']} of {LONG_TOKENS}; TTFT cold "
+                f"{cold_ttft * 1e3:.1f} ms, hit {hit_ttft * 1e3:.1f} ms "
+                "(both with the drop count's host reads)")
+            miss = _timed_miss(core, long_prompts[0], None)
+            stats.update(ttft_long_s=miss[1], long_split=miss[2])
+            block_s["long"] = time.perf_counter() - t1
+
+            # 8 x 64, heads of their own
+            t1 = time.perf_counter()
+            agg, d8, _ = _fresh_batch(core, prompt)
+            stats.update(tok_s_8=agg, tok_s_8_dispatches=d8)
+            block_s["batch8"] = time.perf_counter() - t1
+            log(f"serve mixtral [{dev['smi']}]: TTFT {stats['ttft_s'] * 1e3:.1f}"
+                f" ms ({len(prompt)}-token prompt), "
+                f"{stats['ttft_long_s'] * 1e3:.1f} ms "
+                f"({len(long_prompts[0])}-token prompt, a miss: "
+                f"{_split_text(miss[2])}); one-stream decode "
+                f"{stats['decode_tok_s_1']:.2f} tok/s (ids after the first "
+                f"fetch); 8 concurrent x 64: {agg:.1f} tok/s incl. prefill "
+                f"({d8} prefill dispatches); acme shares "
+                f"{stats['acme_shared']} of {MIX_TOKENS} ids with the base")
+
+            # one speculative request (the accept stub) against spec off
+            t1 = time.perf_counter()
+            spec = _spec_short(core, engine, "mixtral", dev, True)
+            stats["spec"] = {k: spec[k] for k in ("counts", "partings",
+                                                  "logit_diff", "rate_on",
+                                                  "rate_off")}
+            block_s["spec"] = time.perf_counter() - t1
+
+            # C1 on decode (exact MoE), on this core's weights
+            t1 = time.perf_counter()
+            rows = [core.lora.slot_of(n) for n in
+                    ("acme", "beta", None, "acme", "beta", None, "acme",
+                     "beta")]
+            _moe_decode_invariance(
+                core, [prompt] + [_fresh_head(prompt, 40 + i)
+                                  for i in range(SLOTS - 1)], rows)
+            block_s["invariance"] = time.perf_counter() - t1
+
+            nan_rows = core.nan_logit_rows()
+            launches = dict(ca.LAUNCHES)
+            stats["launches"] = launches
+            log(f"serve mixtral: launches over the main path {launches}; NaN "
+                f"logit rows {nan_rows}")
+            if nan_rows:
+                raise AssertionError(f"{nan_rows} logit rows had NaN")
+            missing = [k for k in MIXTRAL_PATH if launches[k] <= 0]
+            if missing:
+                raise AssertionError("kernels never launched on the mixtral "
+                                     f"path: {missing}")
+            stray = [k for k, n in launches.items()
+                     if k not in MIXTRAL_PATH and n]
+            if stray:
+                raise AssertionError(f"kernels of another path launched: "
+                                     f"{stray}")
+            graphs = _graph_counters(core, "mixtral", dev)
+            stats["graph_pool_mib"] = {k: v["pool_bytes"] / 2**20
+                                       for k, v in graphs["keys"].items()}
+            t1 = time.perf_counter()
+            stats.update(_mix_graph_vs_eager(core, prompt, dev, core_kwargs))
+            block_s["graph_eager"] = time.perf_counter() - t1
+            stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            stats["block_s"] = {k: round(v, 1) for k, v in block_s.items()}
+            log(f"serve mixtral: peak {stats['peak_gib']:.2f} GiB allocated; "
+                f"blocks took {stats['block_s']} s")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            engine.shutdown()
+            del engine, core
+            gc.collect()
+            torch.cuda.empty_cache()
+    return stats
+
+
+class _PlainCheck:
+    """While open, every call of the attention kernels a bf16 MoE model with
+    int8 KV pools runs (flash_prefill, paged_flash_extend_quant,
+    paged_flash_decode_quant) is also run through its plain version on the
+    same inputs and held within the bf16 limit; the largest error of each
+    is kept."""
+
+    NAMES = ("flash_prefill", "paged_flash_extend_quant",
+             "paged_flash_decode_quant")
+
+    def __init__(self):
+        from llmlb_tpu_torch.ops import cuda_attention as ca
+
+        self.errs: dict[str, float] = {}
+        self.saved = {n: getattr(ca, n) for n in self.NAMES}
+        for name in self.NAMES:
+            kernel = self.saved[name]
+            plain = getattr(ca, name + "_reference")
+
+            def spy(*args, kernel=kernel, plain=plain, name=name, **kw):
+                got = kernel(*args, **kw)
+                want = plain(*args, **kw)
+                # queries past a row's prompt or chunk are undefined
+                rows = (None if name == "paged_flash_decode_quant"
+                        else args[-1].tolist())
+                err, ok = _within(got, want, 0.0, BF16_REL, rows)
+                if not ok:
+                    raise AssertionError(
+                        f"mixtral bf16: {name} disagrees with its plain "
+                        f"version (max_abs_err {err:.3e})")
+                self.errs[name] = max(self.errs.get(name, 0.0), err)
+                return got
+
+            setattr(ca, name, spy)
+
+    def close(self) -> None:
+        from llmlb_tpu_torch.ops import cuda_attention as ca
+
+        for name, fn in self.saved.items():
+            setattr(ca, name, fn)
+
+
+def phase_mixtral_bf16(dev: dict) -> dict:
+    """Mixtral-8x7B at full width and MIX_BF16_LAYERS layers in bf16, with
+    int8 KV pools (quantize="kv"): a prefill group of 4 rows x 512 in the
+    capacity regime, an extend of 4 rows x 128 (capacity) and a decode
+    step (exact). Every capacity dispatch is held bit for bit against the
+    one-hot plain version on the same inputs, with its drops counted; every
+    attention call (flash_prefill, paged_flash_extend_quant,
+    paged_flash_decode_quant) within the bf16 limit of its plain version on
+    the same inputs."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.models import mixtral
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_preset("mixtral-8x7b"),
+                              num_layers=MIX_BF16_LAYERS)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    gib = sum(p.numel() * p.element_size() for p in params.values()) / 2**30
+    init_s = time.perf_counter() - t0
+    rows, bucket, chunk, ppn = 4, 512, 128, 6
+    i32 = dict(dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (rows, bucket), generator=gen,
+                        device="cuda")
+    lens = torch.tensor([512, 300, 457, 129], **i32)
+    tables = (torch.arange(rows * ppn, **i32) + 1).reshape(rows, ppn)
+    ck, cv = mixtral.init_kv_pages(cfg, rows * ppn + 1, PAGE, "cuda",
+                                   quantized=True)
+    ext = torch.randint(0, cfg.vocab_size, (rows, chunk), generator=gen,
+                        device="cuda")
+    ext_lens = torch.tensor([128, 77, 5, 100], **i32)
+    drops, plain = _Drops(check=True), _PlainCheck()
+    try:
+        logits = [mixtral.prefill_into_pages(params, cfg, ids, lens, tables,
+                                             ck, cv)[0]]
+        d_prefill = sum(drops.take())
+        logits.append(mixtral.prefill_extend_pages(
+            params, cfg, ext, ext_lens, lens, tables, ck, cv)[0])
+        d_extend = sum(drops.take())
+        seq = lens + ext_lens
+        logits.append(mixtral.decode_step_paged(
+            params, cfg, logits[-1].argmax(-1).to(torch.int32), seq, ck, cv,
+            tables, window=_window(int(seq.max()) + 1))[0])
+        torch.cuda.synchronize()
+    finally:
+        drops.close()
+        plain.close()
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    if not finite or drops.checked != 2 * MIX_BF16_LAYERS:
+        raise AssertionError(f"mixtral bf16: finite {finite}, capacity "
+                             f"dispatches checked {drops.checked}")
+    log(f"mixtral bf16 [{dev['smi']}]: {MIX_BF16_LAYERS} layers at full width "
+        f"({gib:.2f} GiB bf16, init {init_s:.1f} s), int8 KV pools: prefill "
+        f"{rows} x {bucket} (lens {lens.tolist()}) and extend {rows} x "
+        f"{chunk} (lens {ext_lens.tolist()}) in the capacity regime, "
+        f"{drops.checked} dispatches bit for bit the one-hot plain version's, "
+        f"dropped (token, choice) pairs: prefill {d_prefill}, extend "
+        f"{d_extend}; a decode step (exact); attention max_abs_err against "
+        f"plain {plain.errs}")
+    del params, ck, cv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"drops": [d_prefill, d_extend], "attention_err": plain.errs,
+            "init_s": init_s, "gib": gib}
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=None,
@@ -5872,6 +6592,8 @@ def main(argv: list[str] | None = None) -> int:
             bf16_ids=stats["ids"], bf16_long_ids=stats["long_ids"],
             structured_ids=stats["overload"]["structured"]["fused_ids"],
             kv_layout="dense")
+        stats_mix = run("serve mixtral", phase_serve_mixtral, dev)
+        stats_mix["bf16"] = run("mixtral bf16", phase_mixtral_bf16, dev)
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
@@ -5903,8 +6625,9 @@ def main(argv: list[str] | None = None) -> int:
                 **({"spec_graphs": st["overload"]["spec_graphs"]["replay_ms"],
                     "budget": st["overload"]["budget"]}
                    if "budget" in st.get("overload", {}) else {})}
-        for label, st in serves.items()}, "tree": str(tree),
-        "card": dev["smi"]}))
+        for label, st in serves.items()}, "mixtral": {
+            k: v for k, v in stats_mix.items() if k != "launches"},
+        "tree": str(tree), "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,
                 "flash_extend": stats_dense,
                 **{n: stats_int8 for n in INT8_PATH if n != "flash_prefill"}}

@@ -77,7 +77,7 @@ from typing import Any, Callable
 import torch
 
 from llmlb_tpu_torch.kernels import build
-from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.models import family_for, llama
 from llmlb_tpu_torch.ops.grammar import grammar_advance, grammar_bias
 from llmlb_tpu_torch.ops.sampling import sample_chunk, sample_tokens
 
@@ -138,14 +138,15 @@ def burst_body(s: BurstState, window: int, seeded: bool,
     grammar table at the cursors ("grammar"), or the host's mask ("mask")."""
     last, lens = s.last_tokens, s.seq_lens
     gs = s.gram_state if mode == "grammar" else None
+    family = family_for(s.cfg)
     s.tokens[0].copy_(last)
     for step in range(1, s.tokens.shape[0]):
         if s.block_tables is not None:
-            logits, _, _ = llama.decode_step_paged(
+            logits, _, _ = family.decode_step_paged(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
                 s.block_tables, window=window, lora_idx=s.lora_idx)
         else:
-            logits, _, _ = llama.decode_step(
+            logits, _, _ = family.decode_step(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
                 window=window, lora_idx=s.lora_idx)
         count_nan_rows(s.nan_rows, logits)
@@ -177,12 +178,13 @@ def verify_body(s: BurstState, window: int, seeded: bool,
     drafts and the correction (or bonus) sample."""
     ids, lens, start = s.verify_ids, s.verify_lens, s.verify_start
     ids[:, 0].copy_(s.last_tokens)
+    family = family_for(s.cfg)
     if s.block_tables is not None:
-        logits, _, _ = llama.verify_step_paged(
+        logits, _, _ = family.verify_step_paged(
             s.params, s.cfg, ids, lens, start, s.block_tables, s.cache_k,
             s.cache_v, window=window, lora_idx=s.lora_idx)
     else:
-        logits, _, _ = llama.verify_step(
+        logits, _, _ = family.verify_step(
             s.params, s.cfg, ids, lens, start, None, s.cache_k, s.cache_v,
             window=window, lora_idx=s.lora_idx)
     count_nan_rows(s.nan_rows, logits)

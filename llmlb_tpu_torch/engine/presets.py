@@ -1,7 +1,7 @@
 """Named model presets for the port's engine, with torch dtypes.
 
-The port's own copy of the dense Llama-class entries of
-`llmlb_tpu/engine/presets.py` (that module imports jax.numpy). Shapes follow
+The port's own copy of `llmlb_tpu/engine/presets.py` (that module imports
+jax.numpy): the dense Llama class and the sparse-MoE Mixtral class. Shapes follow
 the public model cards; presets let the engine start without a checkpoint
 (random weights from a seed).
 """
@@ -11,9 +11,24 @@ from __future__ import annotations
 import torch
 
 from llmlb_tpu_torch.models.llama import LlamaConfig
+from llmlb_tpu_torch.models.mixtral import MixtralConfig
 from llmlb_tpu_torch.ops.rope import RopeScaling
 
 PRESETS: dict[str, LlamaConfig] = {
+    # sparse-MoE flagship (BASELINE.json config #5); on one 80 GB card it
+    # serves with int8 experts (quantize="weights"): bf16 is 93 GB
+    "mixtral-8x7b": MixtralConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1000000.0,
+        rms_eps=1e-5, max_position_embeddings=32768,
+        num_experts=8, experts_per_token=2,
+    ),
+    # CI-sized MoE config for unit tests
+    "debug-moe-tiny": MixtralConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, dtype=torch.float32,
+        max_position_embeddings=128, num_experts=4, experts_per_token=2,
+    ),
     # flagship serving target (BASELINE.json config #2)
     "llama-3-8b": LlamaConfig(
         vocab_size=128256, hidden_size=4096, intermediate_size=14336,

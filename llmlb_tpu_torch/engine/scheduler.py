@@ -219,7 +219,7 @@ from llmlb_tpu_torch.engine.telemetry import (
     model_flops_per_token,
 )
 from llmlb_tpu_torch.lora import LoraManager
-from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.models import family_for
 from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.ops.grammar import GrammarTables
 from llmlb_tpu_torch.ops.sampling import sample_tokens
@@ -585,6 +585,9 @@ class EngineCore:
                              f"runs on {self.device}")
         self.decode_graphs = bool(decode_graphs)
         self.cfg = cfg
+        # the model family's module (models/llama.py or models/mixtral.py):
+        # every init and dispatch below goes through it
+        self.family = family_for(cfg)
         # Observability: latency and step histograms, the step records
         # (always on, a few clock reads a step) and the flight recorder
         # (LLMLB_FLIGHTREC=0 turns it off before its first clock read).
@@ -706,10 +709,21 @@ class EngineCore:
         # pages each count theirs)
         self._prefix_pinned_pages = 0
 
+        self.init_seconds: float | None = None  # the random init's, if any
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = llama.init_params(cfg, gen, self.device)
+            t_init = time.perf_counter()
+            # int8 weights are filled and quantized a matrix at a time:
+            # Mixtral-8x7B's bf16 leaves (93 GB) would not fit the card
+            params = self.family.init_params(
+                cfg, gen, self.device, quantize_weights=self.quant.weights)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.init_seconds = time.perf_counter() - t_init
+            log.info("weights: random init from seed %d in %.1f s%s", seed,
+                     self.init_seconds,
+                     " (int8 as filled)" if self.quant.weights else "")
         for name, p in params.items():
             if p.device != self.device:
                 raise ValueError(f"param {name!r} is on {p.device}, the engine "
@@ -731,6 +745,8 @@ class EngineCore:
                     "LLMLB_LORA_MAX_ADAPTERS", "8"))
             if lora_rank_cap is None:
                 lora_rank_cap = int(os.environ.get("LLMLB_LORA_RANK_CAP", "16"))
+            # its targets follow the family (an MoE engine pools the
+            # attention projections only, as the reference)
             self.lora = LoraManager(cfg, lora_dir=lora_dir,
                                     max_adapters=lora_max_adapters,
                                     rank_cap=lora_rank_cap)
@@ -765,7 +781,7 @@ class EngineCore:
         self._held_request: Request | None = None
         if kv_layout == "paged":
             self.page_pool = PagePool(self.kv_num_pages)
-            self.cache_k, self.cache_v = llama.init_kv_pages(
+            self.cache_k, self.cache_v = self.family.init_kv_pages(
                 cfg, self.kv_num_pages, self.kv_page_size, self.device,
                 quantized=self.quant.kv)
             self._d_block_tables = self._to_device(self._block_tables)
@@ -779,7 +795,7 @@ class EngineCore:
                 self.device,
             )
         else:
-            self.cache_k, self.cache_v = llama.init_kv_cache(
+            self.cache_k, self.cache_v = self.family.init_kv_cache(
                 cfg, num_slots, self.slot_capacity, self.device)
             log.info("KV cache: dense, %d slots x %d capacity = %.2f GiB on %s",
                      num_slots, self.slot_capacity,
@@ -2071,14 +2087,14 @@ class EngineCore:
         events = self._timing_events()
         if self.page_pool is not None:
             self._sync_block_tables()
-            logits, _, _ = llama.prefill_into_pages(
+            logits, _, _ = self.family.prefill_into_pages(
                 self.params, self.cfg, self._to_device(ids),
                 self._to_device(lens),
                 self._to_device(self._block_tables[slot_ids]),
                 self.cache_k, self.cache_v, lora_idx=lora_idx,
             )
         else:
-            logits, _, _ = llama.prefill_into_slots(
+            logits, _, _ = self.family.prefill_into_slots(
                 self.params, self.cfg, self._to_device(ids),
                 self._to_device(lens), self._to_device(slot_ids),
                 self.cache_k, self.cache_v, lora_idx=lora_idx,
@@ -2149,11 +2165,11 @@ class EngineCore:
                 self._to_device(np.asarray([chunk_len], np.int32)),
                 self._to_device(np.asarray([start], np.int32)))
         if self.page_pool is not None:
-            logits, _, _ = llama.prefill_extend_pages(
+            logits, _, _ = self.family.prefill_extend_pages(
                 *args, self._to_device(self._block_tables[slot_id:slot_id + 1]),
                 self.cache_k, self.cache_v, lora_idx=lora_idx)
         else:
-            logits, _, _ = llama.prefill_extend_slots(
+            logits, _, _ = self.family.prefill_extend_slots(
                 *args, self._to_device(np.asarray([slot_id], np.int64)),
                 self.cache_k, self.cache_v, lora_idx=lora_idx)
         if events is not None:

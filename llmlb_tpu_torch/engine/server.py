@@ -1094,14 +1094,17 @@ class _Handler(BaseHTTPRequestHandler):
 def _models(engine: Engine) -> list[dict]:
     """The /v1/models entries, with the reference's capabilities: the base
     model, with `structured_outputs` (grammar-constrained decoding; the
-    gateway steers constrained requests by it), `embeddings` (the one
-    family, Llama, has an `encode` forward) and `lora` when adapters are on
+    gateway steers constrained requests by it), `embeddings` when the
+    model family has an `encode` forward (Llama does, Mixtral does not:
+    /v1/embeddings then answers 400) and `lora` when adapters are on
     ("this endpoint can load any adapter of its store"), then one
     `base:adapter` entry per RESIDENT adapter (without `embeddings`: the
     encode forward applies no adapter), so the gateway routes adapter
     traffic where it is already loaded. Not advertised: the disaggregation
     roles' `prefill` / `decode` (ROADMAP A14)."""
-    caps = ["chat_completion", "structured_outputs", "embeddings"]
+    caps = ["chat_completion", "structured_outputs"]
+    if engine.supports_embeddings():
+        caps.append("embeddings")
     lora = engine.core.lora
     if lora is not None:
         caps.append("lora")

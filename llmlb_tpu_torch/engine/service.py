@@ -34,7 +34,6 @@ from llmlb_tpu_torch.engine.scheduler import (
     SamplingParams,
 )
 from llmlb_tpu_torch.engine.telemetry import device_telemetry
-from llmlb_tpu_torch.models import llama
 from llmlb_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
     HFTokenizer,
@@ -389,10 +388,21 @@ class Engine:
     _EMBED_CHUNK = 64
     MAX_EMBED_INPUTS = 2048
 
+    def supports_embeddings(self) -> bool:
+        """Whether the model family has an `encode` forward (the dense
+        Llama class does, the MoE class does not), as the reference
+        decides it."""
+        return hasattr(self.core.family, "encode")
+
     def embed(self, batch_ids: list[list[int]]) -> list[list[float]]:
         """Token id lists -> L2-normalised embedding vectors, as lists of
-        floats. Raises ValueError (a client error) for empty, oversized or
-        out-of-vocab inputs, with the reference's messages."""
+        floats. Raises ValueError (a client error) for a family without an
+        embedding forward and for empty, oversized or out-of-vocab inputs,
+        with the reference's messages."""
+        if not self.supports_embeddings():
+            raise ValueError(
+                "embeddings are not supported for the "
+                f"{self.core.family.__name__.rsplit('.', 1)[-1]} model family")
         if not batch_ids or any(len(x) == 0 for x in batch_ids):
             raise ValueError("each input must contain at least one token")
         if len(batch_ids) > self.MAX_EMBED_INPUTS:
@@ -434,7 +444,7 @@ class Engine:
                     ids[r, :len(batch_ids[i])] = batch_ids[i]
                     lens[r] = len(batch_ids[i])
                 vecs = self.core.call_in_loop(
-                    lambda ids=ids, lens=lens: llama.encode(
+                    lambda ids=ids, lens=lens: self.core.family.encode(
                         self.core.params, self.core.cfg,
                         torch.from_numpy(ids).to(dev),
                         torch.from_numpy(lens).to(dev)).cpu())

@@ -15,8 +15,11 @@ same per-layer pass EngineCore's own quantization runs on cfg.dtype weights
 (`quant.quantize_params`), so the int8 codes and scales are the ones the
 core would make from the same checkpoint, bit for bit. (The reference
 quantizes the stored dtype instead; the two differ only for a float32
-checkpoint served in bf16.) Mixtral checkpoints are refused: MoE waits for
-its own slice.
+checkpoint served in bf16.) A Mixtral checkpoint (`model_type` "mixtral")
+loads as a MixtralConfig: `block_sparse_moe.gate` is the router and
+`experts.{e}.w1` / `w3` / `w2` the gate / up / down experts, each expert
+read, transposed and (with `quantize_weights`) quantized on its own, so the
+largest temporary is one expert matrix.
 
 `params_from_numpy` carries a params pytree made by the JAX package (as
 numpy arrays, leaf for leaf: `{name: np.asarray(leaf)}`) into the port's
@@ -41,7 +44,8 @@ from llmlb_tpu_torch.device import resolve_device
 from llmlb_tpu_torch.engine.safetensors_io import INDEX_NAME, SafetensorsFile
 from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
 from llmlb_tpu_torch.lora.store import HF_TARGET_MAP, lora_target_dims
-from llmlb_tpu_torch.models.llama import LlamaConfig, param_shapes
+from llmlb_tpu_torch.models import config_from_hf, family_for
+from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.quant import (
     SCALE_SUFFIX,
     WEIGHT_QUANT_NAMES,
@@ -50,16 +54,12 @@ from llmlb_tpu_torch.quant import (
 
 TensorGetter = Callable[[str], torch.Tensor]
 
-_MOE_REFUSED = ("Mixtral (MoE) checkpoints are not served by the port yet "
-                "(ROADMAP A17)")
-
-
 def _param_builders(cfg: LlamaConfig) -> dict[str, tuple[str, bool, bool]]:
-    """Leaf name -> (HF tensor name, with `{i}` for a per-layer tensor;
-    stacked over layers; transposed) in the reference's pytree order: the
-    HF name map of `llmlb_tpu/engine/weights.py`."""
-    if getattr(cfg, "num_experts", 0) > 1:
-        raise NotImplementedError(_MOE_REFUSED)
+    """Leaf name -> (HF tensor name, with `{i}` for a per-layer tensor and
+    `{e}` for a per-expert one; stacked over layers; transposed) in the
+    reference's pytree order: the HF name map of
+    `llmlb_tpu/engine/weights.py`, the feed-forward's from the family
+    (Llama's mlp, Mixtral's `_moe_param_builders`)."""
     layer = "model.layers.{i}."
     names = {
         "embed": ("model.embed_tokens.weight", False, False),
@@ -67,19 +67,30 @@ def _param_builders(cfg: LlamaConfig) -> dict[str, tuple[str, bool, bool]]:
         "wk": (layer + "self_attn.k_proj.weight", True, True),
         "wv": (layer + "self_attn.v_proj.weight", True, True),
         "wo": (layer + "self_attn.o_proj.weight", True, True),
-        "wg": (layer + "mlp.gate_proj.weight", True, True),
-        "wu": (layer + "mlp.up_proj.weight", True, True),
-        "wd": (layer + "mlp.down_proj.weight", True, True),
+    }
+    names.update({leaf: (layer + hf, True, True)
+                  for leaf, hf in family_for(cfg).HF_FFN_NAMES.items()})
+    names.update({
         "ln_attn": (layer + "input_layernorm.weight", True, False),
         "ln_mlp": (layer + "post_attention_layernorm.weight", True, False),
         "ln_final": ("model.norm.weight", False, False),
-    }
+    })
     if cfg.attention_bias:
         for leaf, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
             names[leaf] = (layer + f"self_attn.{proj}_proj.bias", True, False)
     if not cfg.tie_word_embeddings:
         names["lm_head"] = ("lm_head.weight", False, True)
     return names
+
+
+def _cells(cfg: LlamaConfig, fmt: str, stacked: bool):
+    """(HF name, leaf index) of each tensor of one leaf: per layer when
+    stacked, per (layer, expert) when the name has an `{e}`."""
+    if not stacked:
+        return [(fmt, ())]
+    experts = range(cfg.num_experts) if "{e}" in fmt else (None,)
+    return [(fmt.format(i=i, e=e), (i,) if e is None else (i, e))
+            for i in range(cfg.num_layers) for e in experts]
 
 
 def hf_tensors(params: dict, cfg: LlamaConfig) -> dict:
@@ -90,9 +101,9 @@ def hf_tensors(params: dict, cfg: LlamaConfig) -> dict:
     out = {}
     for name, (fmt, stacked, transpose) in _param_builders(cfg).items():
         leaf = params[name]
-        for i in range(cfg.num_layers if stacked else 1):
-            w = leaf[i] if stacked else leaf
-            out[fmt.format(i=i)] = w.T if transpose else w
+        for hf_name, at in _cells(cfg, fmt, stacked):
+            w = leaf[at]
+            out[hf_name] = w.T if transpose else w
     return out
 
 
@@ -116,6 +127,7 @@ def hf_config(cfg: LlamaConfig, model_type: str = "llama") -> dict:
         "max_position_embeddings": cfg.max_position_embeddings,
         "torch_dtype": str(cfg.dtype).replace("torch.", ""),
     }
+    out.update(family_for(cfg).hf_config_fields(cfg))
     if cfg.head_dim is not None:
         out["head_dim"] = cfg.head_dim
     rs = cfg.rope_scaling
@@ -159,15 +171,12 @@ def _safetensors_getter(model_dir: str) -> TensorGetter:
 
 
 def load_config(model_dir: str, dtype=None) -> LlamaConfig:
-    """The LlamaConfig of a checkpoint's `config.json` (bf16 unless `dtype`
-    says otherwise); a Mixtral config is refused (ROADMAP A17)."""
+    """The config of a checkpoint's `config.json` (bf16 unless `dtype` says
+    otherwise): a MixtralConfig for a Mixtral checkpoint, as the reference
+    reads it, else a LlamaConfig."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
-    if hf.get("model_type") == "mixtral" or hf.get("num_local_experts",
-                                                   0) > 1:
-        raise NotImplementedError(_MOE_REFUSED)
-    kwargs = {} if dtype is None else {"dtype": dtype}
-    return LlamaConfig.from_hf_config(hf, **kwargs)
+    return config_from_hf(hf, **({} if dtype is None else {"dtype": dtype}))
 
 
 def load_checkpoint(model_dir: str, cfg: LlamaConfig,
@@ -184,7 +193,7 @@ def load_checkpoint(model_dir: str, cfg: LlamaConfig,
     builders = _param_builders(cfg)
     quantized = tuple(n for n in WEIGHT_QUANT_NAMES
                       if quantize_weights and n in builders)
-    shapes = param_shapes(cfg, quantized)
+    shapes = family_for(cfg).param_shapes(cfg, quantized)
     params: dict[str, torch.Tensor] = {}
     for name, (fmt, stacked, transpose) in builders.items():
         shape = shapes[name][0]
@@ -194,16 +203,16 @@ def load_checkpoint(model_dir: str, cfg: LlamaConfig,
                                 dtype=torch.float32, device=dev)
         else:
             out = torch.empty(shape, dtype=cfg.dtype, device=dev)
-        for i in range(cfg.num_layers if stacked else 1):
-            w = get(fmt.format(i=i)).to(dev)
+        for hf_name, at in _cells(cfg, fmt, stacked):
+            w = get(hf_name).to(dev)
             w = w.T if transpose else w
-            dst = out[i] if stacked else out
+            dst = out[at]
             if tuple(w.shape) != tuple(dst.shape):
-                raise ValueError(f"{fmt.format(i=i)}: shape "
+                raise ValueError(f"{hf_name}: shape "
                                  f"{tuple(w.shape)} for leaf {name!r}, the "
                                  f"config implies {tuple(dst.shape)}")
             if name in quantized:
-                out[i], scale[i] = quantize_channelwise(w.to(cfg.dtype))
+                out[at], scale[at] = quantize_channelwise(w.to(cfg.dtype))
             else:
                 dst.copy_(w)
             del w
@@ -239,7 +248,7 @@ def params_from_numpy(np_params: dict[str, np.ndarray], cfg: LlamaConfig,
     int8, their scales float32, every other leaf (adapter pools included)
     becomes cfg.dtype. Raises on a missing, unexpected or misshaped leaf."""
     quantized = _quantized_names(np_params)
-    expected = param_shapes(cfg, quantized)
+    expected = family_for(cfg).param_shapes(cfg, quantized)
     for name, (in_dim, out_dim) in lora_target_dims(
             cfg, tuple(HF_TARGET_MAP.values())).items():
         a = np_params.get(name + LORA_A)

@@ -40,15 +40,12 @@ from llmlb_tpu_torch.lora.store import (
     load_adapter_tensors,
     lora_target_dims,
 )
+from llmlb_tpu_torch.models import family_for
 
 log = logging.getLogger("llmlb_tpu_torch.lora")
 
 LORA_A = "_lora_a"
 LORA_B = "_lora_b"
-# Every projection of the Llama family takes adapters (the reference narrows
-# this only for MoE experts, which the port does not serve).
-TARGETS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
-
 
 class LoraManager:
     """Adapter pool bookkeeping and the single writer of the pool leaves."""
@@ -65,7 +62,9 @@ class LoraManager:
         self.lora_dir = lora_dir
         self.max_adapters = max(1, int(max_adapters))
         self.rank_cap = max(1, int(rank_cap))
-        self.targets = TARGETS
+        # the family's projections: every one for Llama, the attention's
+        # for MoE (no pools over the routed experts, as the reference)
+        self.targets = family_for(cfg).LORA_TARGETS
         self.params: dict[str, torch.Tensor] | None = None  # attach()
         self._lock = threading.RLock()
         # orders row writes against decode graph captures and replays

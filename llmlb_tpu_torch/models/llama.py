@@ -32,6 +32,13 @@ fixed) take one product of all their rows, so a verify reads each weight
 matrix once, as a decode step does. The attention and LoRA kernels cut their
 work by shape alone, and the elementwise ops and norms are per row.
 
+Every entry point takes the family's feed-forward as `ffn` (a
+`FeedForward`: the layer's leaves and `mlp_fn(lp, h, token_valid, lora_idx,
+per_row)`, the reference's mlp_fn seam): the dense SwiGLU by default,
+routed experts for `models/mixtral.py`. `token_valid` marks the prompt or
+chunk tokens of a prefill or extend (None in decode), so routing can keep
+padding out.
+
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
 quantized on write and dequantized by the attention on read; a projection
@@ -42,7 +49,7 @@ to the product's fp32 output.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -59,13 +66,30 @@ from llmlb_tpu_torch.ops.attention import (
 from llmlb_tpu_torch.ops.lora import lora_delta_add
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
-from llmlb_tpu_torch.quant import SCALE_SUFFIX, quantize_kv
+from llmlb_tpu_torch.quant import SCALE_SUFFIX, WEIGHT_QUANT_NAMES, quantize_kv
+from llmlb_tpu_torch.quant.core import absmax_int8
 
 Params = dict[str, torch.Tensor]
 
 # rows of one vocab-projection product on the card (the engine's 8 slots:
 # a decode step is one block; a prefill group's last rows are padded to it)
 UNEMBED_ROWS = 8
+
+# The family's facts that the engine, the loader and the adapter pools read
+# through models.family_for: the projections an engine pools adapters for
+# (every one), the feed-forward's HF tensors under a layer's prefix, and
+# whether the rows of one prefill group shape each other's output (no: a
+# row's tokens are its own).
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+HF_FFN_NAMES = {"wg": "mlp.gate_proj.weight", "wu": "mlp.up_proj.weight",
+                "wd": "mlp.down_proj.weight"}
+PREFILL_COUPLES_ROWS = False
+
+
+def hf_config_fields(cfg: "LlamaConfig") -> dict:
+    """The keys of a HF `config.json` this family adds to the dense ones
+    (`engine.weights.hf_config`): none."""
+    return {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,27 +195,60 @@ def param_shapes(cfg: LlamaConfig, quantized: tuple[str, ...] = ()
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str) -> Params:
+                device: torch.device | str,
+                quantize_weights: bool = False) -> Params:
     """Random init with the reference's scheme: normal * fan_in**-0.5 for
     the matrices, ones for the norms, zeros for the biases. Stacked leaves
     are filled one layer (or, for the vocab matrices, one row block) at a
     time on `device`, so the fp32 temporaries stay small at 8B. The numbers
     differ from JAX's (another generator): tests carry the reference's
-    weights across with engine.weights.params_from_numpy instead."""
+    weights across with engine.weights.params_from_numpy instead.
+    `quantize_weights` gives the projections as int8 with their scales,
+    each block quantized right after its round to cfg.dtype: the codes of
+    quantize_params over the cfg.dtype init, without the cfg.dtype leaf."""
+    return fill_params(param_shapes, cfg, generator, device, quantize_weights)
+
+
+def fill_params(shapes_fn, cfg: LlamaConfig, generator: torch.Generator,
+                device: torch.device | str,
+                quantize_weights: bool = False) -> Params:
+    """init_params of a family whose `shapes_fn(cfg, quantized)` gives its
+    leaves (param_shapes' contract): a stacked matrix leaf [..., in, out]
+    is filled one [in, out] block at a time (a layer, or a layer's expert),
+    which with `quantize_weights` quantizes per output channel at once."""
+    quantized = tuple(n for n in WEIGHT_QUANT_NAMES if quantize_weights
+                      and n in shapes_fn(cfg))
     params: Params = {}
-    for name, (shape, fan_in) in param_shapes(cfg).items():
+    for name, (shape, fan_in) in shapes_fn(cfg, quantized).items():
+        if name.endswith(SCALE_SUFFIX) and name[:-len(SCALE_SUFFIX)] in quantized:
+            continue  # made beside its weight
         if fan_in == 0:
             fill = torch.zeros if name.startswith("b") else torch.ones
             params[name] = fill(shape, dtype=cfg.dtype, device=device)
             continue
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        rows = out.view(-1, shape[-1]) if len(shape) == 2 else out
-        step = 8192 if len(shape) == 2 else 1
+        q = name in quantized
+        out = torch.empty(shape, dtype=torch.int8 if q else cfg.dtype,
+                          device=device)
+        if len(shape) == 2:
+            rows, step = out.view(-1, shape[-1]), 8192
+        else:
+            rows, step = out.view(-1, *shape[-2:]), 1
+        if q:
+            scale = torch.empty(shape[:-2] + shape[-1:], dtype=torch.float32,
+                                device=device)
+            params[name + SCALE_SUFFIX] = scale
+            scale_rows = scale.view(-1, shape[-1])
         for i in range(0, rows.shape[0], step):
             block = rows[i:i + step]
             noise = torch.randn(block.shape, generator=generator,
                                 dtype=torch.float32, device=device)
-            block.copy_(noise * fan_in**-0.5)
+            if q:
+                codes, s = absmax_int8((noise * fan_in**-0.5).to(cfg.dtype),
+                                       -2)
+                block.copy_(codes)
+                scale_rows[i:i + step].copy_(s)
+            else:
+                block.copy_(noise * fan_in**-0.5)
         params[name] = out
     return params
 
@@ -260,11 +317,13 @@ def _write_pool(pool_layer, page: torch.Tensor, off: torch.Tensor,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer(params: Params, cfg: LlamaConfig, i: int) -> Params:
-    """Layer i of every stacked leaf, with the companions the params carry:
-    `<name>_scale` of int8 weights and `<name>_lora_a` / `<name>_lora_b`
-    adapter pools (the reference's _with_scales)."""
-    names = ["wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp"]
+def _layer(params: Params, cfg: LlamaConfig, i: int,
+           ffn_names: tuple[str, ...] = ("wg", "wu", "wd")) -> Params:
+    """Layer i of every stacked leaf (the attention's, the norms and the
+    family's feed-forward leaves `ffn_names`), with the companions the
+    params carry: `<name>_scale` of int8 weights and `<name>_lora_a` /
+    `<name>_lora_b` adapter pools (the reference's _with_scales)."""
+    names = ["wq", "wk", "wv", "wo", *ffn_names, "ln_attn", "ln_mlp"]
     if cfg.attention_bias:
         names += ["bq", "bk", "bv"]
     names += [n + suffix for n in names
@@ -352,10 +411,26 @@ def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx,
             v.reshape(b, t, cfg.num_kv_heads, d))
 
 
-def _mlp(lp: Params, x: torch.Tensor, lora_idx, per_row: bool) -> torch.Tensor:
+def _mlp(lp: Params, x: torch.Tensor, token_valid, lora_idx,
+         per_row: bool) -> torch.Tensor:
+    """The dense SwiGLU feed-forward (`token_valid` is not needed: every
+    token's product is its own)."""
     gate = _proj(lp, "wg", x, lora_idx, per_row=per_row)
     up = _proj(lp, "wu", x, lora_idx, per_row=per_row)
     return _proj(lp, "wd", F.silu(gate) * up, lora_idx, per_row=per_row)
+
+
+class FeedForward(NamedTuple):
+    """A family's feed-forward: the stacked leaves it adds to a layer, and
+    `mlp_fn(lp, h, token_valid, lora_idx, per_row)` -> [B, T, E] (the
+    reference's mlp_fn; `token_valid` [B, T] bool marks the non-padding
+    tokens of a prefill or extend and is None in decode)."""
+
+    names: tuple[str, ...]
+    mlp_fn: Callable
+
+
+DENSE_FFN = FeedForward(("wg", "wu", "wd"), _mlp)
 
 
 def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
@@ -373,14 +448,17 @@ def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
 
 
 def _layer_step(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
-                inv_freq, attn_fn, lora_idx, per_row: bool) -> torch.Tensor:
-    """One decoder layer: the attention sub-block, then the MLP residual.
-    `per_row`: each batch row's projections run alone on the card (the
-    prefill entry points), or all rows in one product (decode, verify)."""
+                inv_freq, attn_fn, lora_idx, per_row: bool, ffn: FeedForward,
+                token_valid=None) -> torch.Tensor:
+    """One decoder layer: the attention sub-block, then the feed-forward
+    residual (`ffn.mlp_fn`). `per_row`: each batch row's projections run
+    alone on the card (the prefill entry points), or all rows in one
+    product (decode, verify)."""
     x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn, lora_idx,
                     per_row)
-    return x + _mlp(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps), lora_idx,
-                    per_row)
+    return x + ffn.mlp_fn(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps),
+                          token_valid, lora_idx, per_row)
+
 
 
 def _lora_rows(lora_idx, dev) -> torch.Tensor | None:
@@ -452,6 +530,8 @@ def prefill_into_pages(
     cache_k,  # [L, P, PS, K, D] — the engine's live page pool, or int8 pair
     cache_v,
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Prefill B prompts and scatter their KV through the block tables into
     the global page pool. Returns (last_logits [B, V] fp32, cache_k,
@@ -469,6 +549,7 @@ def prefill_into_pages(
     page, off = _page_cells(block_tables, positions,
                             pool_shape(cache_k)[2])
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+    token_valid = positions < prompt_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
@@ -478,8 +559,8 @@ def prefill_into_pages(
             _write_pool(_pool_layer(cache_v, i), page, off, v)
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, True)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid)
 
     logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
     return logits, cache_k, cache_v
@@ -495,6 +576,8 @@ def prefill_extend_pages(
     cache_k,  # [L, P, PS, K, D], or an int8 {"q", "s"} pair
     cache_v,
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Paged chunked prefill: append a chunk of prompt tokens to rows that
     already hold `start_pos` tokens, attending over everything so far
@@ -503,7 +586,7 @@ def prefill_extend_pages(
     cells. Returns (chunk-last logits [B, V] fp32, cache_k, cache_v)."""
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
-                         all_logits=False, per_row=True)
+                         all_logits=False, per_row=True, ffn=ffn)
 
 
 def verify_step_paged(
@@ -517,6 +600,8 @@ def verify_step_paged(
     cache_v,
     window: int | None = None,  # context-window bucket (>= max start + K + 1)
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Paged speculative verification: one extend over every row scores the
     last committed token plus up to K drafts and returns the logits at EVERY
@@ -531,12 +616,12 @@ def verify_step_paged(
     del window
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
-                         all_logits=True, per_row=False)
+                         all_logits=True, per_row=False, ffn=ffn)
 
 
 def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool):
+                  per_row: bool, ffn: FeedForward):
     """The body of prefill_extend_pages and verify_step_paged:
     `all_logits` returns [B, T, V] (every chunk position) in place of the
     chunk-last [B, V]; `per_row` groups the projections (`_rowwise`)."""
@@ -547,8 +632,9 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
     inv_freq = _rope_freqs(cfg, dev)
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
     chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
-    positions = start_pos[:, None] + torch.arange(t, device=dev,
-                                                  dtype=torch.int32)[None, :]
+    offs = torch.arange(t, device=dev, dtype=torch.int32)[None, :]
+    positions = start_pos[:, None] + offs
+    token_valid = offs < chunk_lens[:, None]
     page, off = _page_cells(block_tables,
                             torch.clamp(positions, max=capacity - 1), ps)
     lora_idx = _lora_rows(lora_idx, dev)
@@ -562,8 +648,8 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
             return paged_attention_extend(q, ck, cv, block_tables, positions,
                                           chunk_lens)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, per_row)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid)
 
     logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
     return logits, cache_k, cache_v
@@ -579,6 +665,8 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [B, PPN] int32
     window: int | None = None,  # context-window bucket (>= max seq + 1)
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """One paged decode step across all rows. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer's one-token KV lands at page
@@ -606,8 +694,8 @@ def decode_step_paged(
             return paged_attention_decode(q, ck, cv, block_tables, kv_lens,
                                           window=window)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, False)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, False, ffn)
 
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache_k, cache_v
@@ -638,8 +726,8 @@ def encode(
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
     for i in range(cfg.num_layers):
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, None, True)
+        x = _layer_step(cfg, _layer(params, cfg, i, DENSE_FFN.names), x,
+                        positions, inv_freq, attn_fn, None, True, DENSE_FFN)
     x = rms_norm(x, params["ln_final"], cfg.rms_eps).float()
     out = []
     for r, n in enumerate(prompt_lens.tolist()):
@@ -670,6 +758,8 @@ def prefill_into_slots(
     cache_k: torch.Tensor,  # [L, NUM_SLOTS, CAP, K, D] — the live cache
     cache_v: torch.Tensor,
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Prefill B prompts (flash_prefill over their fresh K/V) and scatter
     their KV into rows `slot_ids` of the live slot cache, positions 0..T-1.
@@ -681,6 +771,7 @@ def prefill_into_slots(
     positions = torch.arange(t, device=dev)[None, :].expand(b, t)
     rows = slot_ids.to(dev)[:, None].expand(b, t)
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
+    token_valid = positions < prompt_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
 
     x = params["embed"][input_ids.long()]  # [B, T, E]
@@ -690,8 +781,8 @@ def prefill_into_slots(
             _write_slots(cache_v[i], rows, positions, v)
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, True)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid)
 
     logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
     return logits, cache_k, cache_v
@@ -707,6 +798,8 @@ def prefill_extend_slots(
     cache_k: torch.Tensor,  # [L, NUM_SLOTS, CAP, K, D]
     cache_v: torch.Tensor,
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Dense chunked prefill: append a chunk of prompt tokens to slots that
     already hold `start_pos` tokens. Each layer writes the chunk's K/V into
@@ -717,7 +810,7 @@ def prefill_extend_slots(
     fp32, cache_k, cache_v)."""
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
-                         all_logits=False, per_row=True)
+                         all_logits=False, per_row=True, ffn=ffn)
 
 
 def verify_step(
@@ -731,6 +824,8 @@ def verify_step(
     cache_v: torch.Tensor,
     window: int | None = None,  # context-window bucket (>= max start + K + 1)
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """Speculative verification over the dense slot cache: verify_step_paged's
     contract with flash_extend at T = K+1 over the slot rows. The engine
@@ -741,12 +836,12 @@ def verify_step(
     del window
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
-                         all_logits=True, per_row=False)
+                         all_logits=True, per_row=False, ffn=ffn)
 
 
 def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool):
+                  per_row: bool, ffn: FeedForward):
     """The body of prefill_extend_slots and verify_step (see
     `_extend_pages`); `slot_ids=None` takes the cache rows in order."""
     b, t = input_ids.shape
@@ -755,8 +850,9 @@ def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
     inv_freq = _rope_freqs(cfg, dev)
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
     chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
-    positions = start_pos[:, None] + torch.arange(t, device=dev,
-                                                  dtype=torch.int32)[None, :]
+    offs = torch.arange(t, device=dev, dtype=torch.int32)[None, :]
+    positions = start_pos[:, None] + offs
+    token_valid = offs < chunk_lens[:, None]
     write_pos = torch.clamp(positions, max=capacity - 1)
     slots = (torch.arange(b, device=dev) if slot_ids is None
              else slot_ids.to(dev).long())
@@ -775,8 +871,8 @@ def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                                         cache_rows(cache_v[i]), positions,
                                         chunk_lens)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, per_row)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid)
 
     logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
     return logits, cache_k, cache_v
@@ -791,6 +887,8 @@ def decode_step(
     cache_v: torch.Tensor,
     window: int | None = None,  # context-window bucket (>= max seq + 1)
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
+    *,
+    ffn: FeedForward = DENSE_FFN,
 ):
     """One dense decode step across all slots. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer writes slot b's one-token KV at
@@ -816,8 +914,8 @@ def decode_step(
             return gqa_attention_decode(q, cache_k[i], cache_v[i], kv_lens,
                                         window=window)
 
-        x = _layer_step(cfg, _layer(params, cfg, i), x, positions, inv_freq,
-                        attn_fn, lora_idx, False)
+        x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
+                        inv_freq, attn_fn, lora_idx, False, ffn)
 
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache_k, cache_v

@@ -1,0 +1,245 @@
+"""Mixtral-family sparse-MoE decoder (Mixtral-8x7B, Qwen-MoE-class):
+counterpart of `llmlb_tpu/models/mixtral.py`.
+
+The Llama skeleton of `models/llama.py` (the same attention, KV layouts and
+entry points) with the dense SwiGLU swapped for top-k routed experts
+(`ops/moe.py`), passed to llama's entry points as their `ffn`. Leaves as the
+reference's: `router` [L, E, X], `we_gate` / `we_up` [L, X, E, F], `we_down`
+[L, X, F, E], and with int8 experts `<name>_scale` [L, X, out].
+
+Two regimes, chosen per call from the padded shape, as the reference
+chooses them:
+
+- exact (every expert on every token, `moe_dense_exact`) when B * T <= 4 *
+  num_experts, and ALWAYS in decode and verify: a row's tokens then never
+  depend on which other rows share the batch;
+- capacity dispatch (`moe_dispatch_combine`) for larger prefill and extend
+  groups, at default_capacity of the padded B * T, with `token_valid`
+  keeping padding out of the capacity contest. The router and the expert
+  buffers see the whole group, so a row prefilled alone and in a group (or
+  a prefix hit's suffix and its cold run) may differ where a token was
+  dropped, as in the reference.
+
+The router product runs in the model dtype (bf16 on the card, then fp32
+for the top-k), per row in a prefill group like the projections
+(`_rowwise`). Adapters (LoRA) apply to the attention projections only: the
+expert FFNs carry no pools. There is no `encode`: the family serves no
+embeddings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import torch
+
+from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.models.llama import (  # noqa: F401  (the family's API)
+    FeedForward,
+    LlamaConfig,
+    Params,
+    _rowwise,
+    fill_params,
+    init_kv_cache,
+    init_kv_pages,
+)
+from llmlb_tpu_torch.ops.moe import (
+    default_capacity,
+    moe_dense_exact,
+    moe_dispatch_combine,
+)
+from llmlb_tpu_torch.quant import SCALE_SUFFIX
+
+EXPERT_NAMES = ("we_gate", "we_up", "we_down")
+# the leaves a layer adds to the attention's (llama._layer's ffn_names)
+FFN_NAMES = ("router",) + EXPERT_NAMES
+# The family's facts (llama.py's contract): adapters pool the attention's
+# projections only, as the reference's MoE engine; the HF names of the
+# router and the experts (`{e}`: per expert; w1 / w3 / w2 are gate / up /
+# down); the capacity dispatch couples the rows of a prefill group.
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+HF_FFN_NAMES = {
+    "router": "block_sparse_moe.gate.weight",
+    "we_gate": "block_sparse_moe.experts.{e}.w1.weight",
+    "we_up": "block_sparse_moe.experts.{e}.w3.weight",
+    "we_down": "block_sparse_moe.experts.{e}.w2.weight",
+}
+PREFILL_COUPLES_ROWS = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtralConfig(LlamaConfig):
+    num_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+
+    @classmethod
+    def from_hf_config(cls, hf: dict, dtype=torch.bfloat16) -> "MixtralConfig":
+        base = LlamaConfig.from_hf_config(hf, dtype)
+        fields = {f.name: getattr(base, f.name)
+                  for f in dataclasses.fields(base)}
+        return cls(
+            **fields,
+            num_experts=hf.get("num_local_experts", hf.get("num_experts", 8)),
+            experts_per_token=hf.get("num_experts_per_tok", 2),
+        )
+
+
+def hf_config_fields(cfg: MixtralConfig) -> dict:
+    """The keys of a HF `config.json` this family adds to the dense ones,
+    which from_hf_config reads back."""
+    return {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+            "num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.experts_per_token}
+
+
+def param_shapes(cfg: MixtralConfig, quantized: tuple[str, ...] = ()
+                 ) -> dict[str, tuple[tuple[int, ...], int]]:
+    """Leaf name -> (shape, fan_in), llama.param_shapes' contract: the
+    attention, norm and vocab leaves of the dense family, the router and
+    the stacked experts in place of wg / wu / wd. A quantized expert's
+    scale is [L, X, out]."""
+    shapes = llama.param_shapes(cfg)
+    for name in ("wg", "wu", "wd"):
+        del shapes[name]
+    e, f, n, x = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+                  cfg.num_experts)
+    shapes.update({
+        "router": ((n, e, x), e),
+        "we_gate": ((n, x, e, f), e),
+        "we_up": ((n, x, e, f), e),
+        "we_down": ((n, x, f, e), f),
+    })
+    for name in quantized:
+        shape = shapes[name][0]
+        shapes[name + SCALE_SUFFIX] = (shape[:-2] + shape[-1:], 0)
+    return shapes
+
+
+def init_params(cfg: MixtralConfig, generator: torch.Generator,
+                device: torch.device | str,
+                quantize_weights: bool = False) -> Params:
+    """Random init, llama.init_params' scheme, one [in, out] matrix (a
+    layer's expert) at a time. With `quantize_weights` every projection and
+    expert is int8 from its first block on, so Mixtral-8x7B's 93 GB of bf16
+    never exists on the card: its int8 leaves are ~47 GB."""
+    return fill_params(param_shapes, cfg, generator, device,
+                       quantize_weights)
+
+
+def _moe_mlp(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
+             lora_idx, per_row: bool, *, exact: bool) -> torch.Tensor:
+    """h [B, T, E] -> [B, T, E] through the routed experts (`lora_idx` is
+    not used: the experts carry no adapter pools), inside a profiler range
+    named "moe" (profile_step's `moe` kind)."""
+    with torch.profiler.record_function("moe"):
+        return _moe_layer(cfg, lp, h, token_valid, per_row, exact)
+
+
+def _moe_layer(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
+               per_row: bool, exact: bool) -> torch.Tensor:
+    b, t, m = h.shape
+    s = b * t
+    router = lp["router"]
+    logits = _rowwise(h, lambda x2, out: torch.mm(x2, router, out=out),
+                      cfg.num_experts, h.dtype, per_row).reshape(s, -1)
+    scales = {f"w_{k}_scale": lp.get(f"we_{k}{SCALE_SUFFIX}")
+              for k in ("gate", "up", "down")}
+    flat = h.reshape(s, m)
+    if exact:
+        out = moe_dense_exact(flat, logits, lp["we_gate"], lp["we_up"],
+                              lp["we_down"],
+                              num_selected=cfg.experts_per_token, **scales)
+    else:
+        cap = default_capacity(s, cfg.num_experts, cfg.experts_per_token,
+                               cfg.capacity_factor)
+        out = moe_dispatch_combine(
+            flat, logits, lp["we_gate"], lp["we_up"], lp["we_down"],
+            num_selected=cfg.experts_per_token, capacity=cap,
+            token_valid=token_valid.reshape(s), **scales)
+    return out.reshape(b, t, m)
+
+
+def moe_ffn(cfg: MixtralConfig, exact: bool) -> FeedForward:
+    """The family's feed-forward for llama's entry points, in one regime."""
+    return FeedForward(FFN_NAMES, partial(_moe_mlp, cfg, exact=exact))
+
+
+def _group_ffn(cfg: MixtralConfig, input_ids: torch.Tensor) -> FeedForward:
+    """A prefill or extend group's regime: exact when the padded B * T is
+    at most 4 * num_experts, capacity dispatch otherwise."""
+    b, t = input_ids.shape
+    return moe_ffn(cfg, exact=b * t <= 4 * cfg.num_experts)
+
+
+# ---------------------------------------------------------------------------
+# Entry points: llama's contracts, see there
+# ---------------------------------------------------------------------------
+
+def prefill_into_pages(params, cfg: MixtralConfig, input_ids, prompt_lens,
+                       block_tables, cache_k, cache_v, lora_idx=None):
+    return llama.prefill_into_pages(params, cfg, input_ids, prompt_lens,
+                                    block_tables, cache_k, cache_v, lora_idx,
+                                    ffn=_group_ffn(cfg, input_ids))
+
+
+def prefill_extend_pages(params, cfg: MixtralConfig, input_ids, chunk_lens,
+                         start_pos, block_tables, cache_k, cache_v,
+                         lora_idx=None):
+    return llama.prefill_extend_pages(params, cfg, input_ids, chunk_lens,
+                                      start_pos, block_tables, cache_k,
+                                      cache_v, lora_idx,
+                                      ffn=_group_ffn(cfg, input_ids))
+
+
+def verify_step_paged(params, cfg: MixtralConfig, input_ids, chunk_lens,
+                      start_pos, block_tables, cache_k, cache_v, window=None,
+                      lora_idx=None):
+    """Exact MoE, as decode: capacity drops would make a draft's acceptance
+    depend on which other rows share the step."""
+    return llama.verify_step_paged(params, cfg, input_ids, chunk_lens,
+                                   start_pos, block_tables, cache_k, cache_v,
+                                   window, lora_idx,
+                                   ffn=moe_ffn(cfg, exact=True))
+
+
+def decode_step_paged(params, cfg: MixtralConfig, input_ids, seq_lens,
+                      cache_k, cache_v, block_tables, window=None,
+                      lora_idx=None):
+    """Always exact MoE: a row's tokens do not depend on the batch."""
+    return llama.decode_step_paged(params, cfg, input_ids, seq_lens, cache_k,
+                                   cache_v, block_tables, window, lora_idx,
+                                   ffn=moe_ffn(cfg, exact=True))
+
+
+def prefill_into_slots(params, cfg: MixtralConfig, input_ids, prompt_lens,
+                       slot_ids, cache_k, cache_v, lora_idx=None):
+    return llama.prefill_into_slots(params, cfg, input_ids, prompt_lens,
+                                    slot_ids, cache_k, cache_v, lora_idx,
+                                    ffn=_group_ffn(cfg, input_ids))
+
+
+def prefill_extend_slots(params, cfg: MixtralConfig, input_ids, chunk_lens,
+                         start_pos, slot_ids, cache_k, cache_v,
+                         lora_idx=None):
+    return llama.prefill_extend_slots(params, cfg, input_ids, chunk_lens,
+                                      start_pos, slot_ids, cache_k, cache_v,
+                                      lora_idx,
+                                      ffn=_group_ffn(cfg, input_ids))
+
+
+def verify_step(params, cfg: MixtralConfig, input_ids, chunk_lens, start_pos,
+                slot_ids, cache_k, cache_v, window=None, lora_idx=None):
+    """Exact MoE, as verify_step_paged."""
+    return llama.verify_step(params, cfg, input_ids, chunk_lens, start_pos,
+                             slot_ids, cache_k, cache_v, window, lora_idx,
+                             ffn=moe_ffn(cfg, exact=True))
+
+
+def decode_step(params, cfg: MixtralConfig, input_ids, seq_lens, cache_k,
+                cache_v, window=None, lora_idx=None):
+    """Always exact MoE, as decode_step_paged."""
+    return llama.decode_step(params, cfg, input_ids, seq_lens, cache_k,
+                             cache_v, window, lora_idx,
+                             ffn=moe_ffn(cfg, exact=True))

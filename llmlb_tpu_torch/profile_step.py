@@ -17,8 +17,12 @@ For each it prints the host wall time per dispatch (host clock around many
 back-to-back dispatches ending in a synchronize), the device time the
 profiler saw (`torch.profiler`, kernel durations summed), the device's idle
 share (1 - device / wall), the launches per dispatch, and the device time
-split into the port's attention kernels, its LoRA kernels, matrix
-products (cuBLAS) and everything else, with the top kernels by name. Beside
+split into the port's attention kernels, its LoRA kernels, the MoE layer
+(`moe`: every kernel inside models/mixtral.py's "moe" profiler range on
+the device timeline, the router, top-k, dispatch and combine and the
+expert products with their int8 widening; eager dispatches only, since a
+graph replay records no range), matrix products (cuBLAS) and everything
+else, with the top kernels by name. Beside
 them, under "clocks", the card's SM clock, power draw, power limit and
 temperature as `nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit,
 temperature.gpu` read them on a thread while the dispatch ran: a card held
@@ -27,6 +31,10 @@ below its clock by power or heat runs every kernel slower.
 Run on the card from the repository root:
 
     python -m llmlb_tpu_torch.profile_step --preset llama-3-8b
+
+`--preset mixtral-8x7b --quantize weights` profiles the MoE family (int8
+experts: its bf16 weights do not fit the card); the weights are filled as
+int8 a matrix at a time, as the engine fills them.
 
 `--quantize all` (or `weights`, `kv`) profiles the int8 engine: the same
 seed-0 weights quantized on the card one layer at a time, and int8 pools.
@@ -64,6 +72,7 @@ and prints no timing (there is no device to time).
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import subprocess
@@ -82,12 +91,12 @@ from llmlb_tpu_torch.engine.decode_graph import (
 )
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.lora.manager import LORA_A, LORA_B
-from llmlb_tpu_torch.lora.store import HF_TARGET_MAP, lora_target_dims
-from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.lora.store import lora_target_dims
+from llmlb_tpu_torch.models import family_for
 from llmlb_tpu_torch.ops import cuda_attention
 from llmlb_tpu_torch.ops.attention import pool_shape
 from llmlb_tpu_torch.ops.sampling import sample_tokens
-from llmlb_tpu_torch.quant import parse_quant_mode, quantize_params
+from llmlb_tpu_torch.quant import parse_quant_mode
 
 ROWS = 8  # the engine's default slots
 BURST = 8  # the engine's decode burst on the card
@@ -104,6 +113,9 @@ ATTENTION_KERNELS = ("paged_decode_kernel", "flash_prefill_kernel",
                      "paged_extend_tc_kernel", "paged_extend_quant_tc_kernel")
 LORA_KERNELS = ("bgmv_cluster_kernel",)  # csrc/lora_bgmv.cu
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
+
+
+MOE_RANGE = "moe"  # models/mixtral.py's record_function around the layer
 
 
 def _category(name: str) -> str:
@@ -183,11 +195,20 @@ def _profile(fn, reps: int) -> dict:
     by_cat: dict[str, float] = collections.defaultdict(float)
     by_name: dict[str, float] = collections.defaultdict(float)
     launches = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the MoE range shows on the device as an annotation spanning its
+    # kernels: a kernel that starts inside one is "moe"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == MOE_RANGE)
+    starts = [a for a, _ in spans]
+    for e in events:
+        if e.name == MOE_RANGE:
             continue
         us = e.time_range.elapsed_us()
-        by_cat[_category(e.name)] += us
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        inside = i >= 0 and e.time_range.start < spans[i][1]
+        by_cat["moe" if inside else _category(e.name)] += us
         by_name[e.name] += us
         launches += 1
     device_ms = sum(by_cat.values()) / reps / 1e3
@@ -204,13 +225,14 @@ def _profile(fn, reps: int) -> dict:
 
 
 def _lora_pool(cfg, n: int, device) -> dict[str, torch.Tensor]:
-    """Pool leaves [L, n+1, in, R] / [L, n+1, R, out] for all seven targets:
+    """Pool leaves [L, n+1, in, R] / [L, n+1, R, out] for every target of
+    the family (Llama: all seven projections; MoE: the attention's):
     row 0 zero (the identity), rows 1..n random, small enough that no logit
     overflows."""
     gen = torch.Generator(device=device).manual_seed(2)
     leaves = {}
     for tgt, (in_dim, out_dim) in lora_target_dims(
-            cfg, tuple(HF_TARGET_MAP.values())).items():
+            cfg, family_for(cfg).LORA_TARGETS).items():
         for suffix, shape in ((LORA_A, (in_dim, LORA_RANK)),
                               (LORA_B, (LORA_RANK, out_dim))):
             pool = torch.randn((cfg.num_layers, n + 1, *shape), generator=gen,
@@ -232,6 +254,7 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
     toks = torch.randint(0, 256, (ROWS,), generator=gen, device=device,
                          dtype=torch.int32)
     dense = tables is None
+    fam = family_for(cfg)
     capacity = (ck.shape[2] if dense
                 else tables.shape[1] * pool_shape(ck)[2])
     slots = torch.arange(ROWS, device=device)
@@ -242,11 +265,11 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
 
         def step():
             if dense:
-                logits, _, _ = llama.decode_step(params, cfg, toks, lens, ck,
-                                                 cv, window=window,
-                                                 lora_idx=lora_idx)
+                logits, _, _ = fam.decode_step(params, cfg, toks, lens, ck,
+                                               cv, window=window,
+                                               lora_idx=lora_idx)
             else:
-                logits, _, _ = llama.decode_step_paged(
+                logits, _, _ = fam.decode_step_paged(
                     params, cfg, toks, lens, ck, cv, tables, window=window,
                     lora_idx=lora_idx)
             sample_tokens(logits, gen, temps, top_p, top_k)
@@ -287,11 +310,11 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
                           device=device)
         lidx = None if lora_idx is None else lora_idx[-rows:]
         if dense:
-            return lambda: llama.prefill_into_slots(
+            return lambda: fam.prefill_into_slots(
                 params, cfg, ids, lens, slots[:rows], ck, cv, lora_idx=lidx)
-        return lambda: llama.prefill_into_pages(params, cfg, ids, lens,
-                                                tables[:rows], ck, cv,
-                                                lora_idx=lidx)
+        return lambda: fam.prefill_into_pages(params, cfg, ids, lens,
+                                              tables[:rows], ck, cv,
+                                              lora_idx=lidx)
 
     def extend(start, chunk):
         ids = torch.randint(0, 256, (1, chunk), generator=gen, device=device)
@@ -300,11 +323,11 @@ def _dispatches(cfg, params, ck, cv, tables, device, short_ctx, long_ctx,
         # the chunk's row takes an adapter when there is one
         lidx = None if lora_idx is None else lora_idx[-1:]
         if dense:
-            return lambda: llama.prefill_extend_slots(
+            return lambda: fam.prefill_extend_slots(
                 params, cfg, ids, n, s, slots[:1], ck, cv, lora_idx=lidx)
-        return lambda: llama.prefill_extend_pages(params, cfg, ids, n, s,
-                                                  tables[:1], ck, cv,
-                                                  lora_idx=lidx)
+        return lambda: fam.prefill_extend_pages(params, cfg, ids, n, s,
+                                                tables[:1], ck, cv,
+                                                lora_idx=lidx)
 
     def verify(ctx, graph):
         """One verify step over every row (a K+1-token chunk each, the
@@ -381,6 +404,7 @@ def _buckets(cfg, params, ck, cv, tables, device, largest, on_card) -> dict:
     hit = (n - 1) // align * align
     gen = torch.Generator(device=device).manual_seed(3)
     prompt = torch.randint(0, 256, (n,), generator=gen, device=device)
+    fam = family_for(cfg)
 
     def chunk(start, length, bucket):
         ids = torch.zeros((1, bucket), dtype=torch.int64, device=device)
@@ -388,12 +412,12 @@ def _buckets(cfg, params, ck, cv, tables, device, largest, on_card) -> dict:
         lens = torch.tensor([length], dtype=torch.int32, device=device)
         at = torch.tensor([start], dtype=torch.int32, device=device)
         if tables is None:
-            out = llama.prefill_extend_slots(
+            out = fam.prefill_extend_slots(
                 params, cfg, ids, lens, at,
                 torch.zeros(1, dtype=torch.int64, device=device), ck, cv)
         else:
-            out = llama.prefill_extend_pages(params, cfg, ids, lens, at,
-                                             tables[:1], ck, cv)
+            out = fam.prefill_extend_pages(params, cfg, ids, lens, at,
+                                           tables[:1], ck, cv)
         return out[0][0].float()
 
     starts = list(range(0, n, largest))
@@ -459,10 +483,11 @@ def main(argv: list[str] | None = None) -> int:
             timeout=60, check=True).stdout.strip().splitlines()[0]
         print(smi, flush=True)
 
-    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                               device)
-    if quant.weights:
-        params = quantize_params(params)
+    fam = family_for(cfg)
+    # int8 weights filled a matrix at a time (the engine's init): the same
+    # codes as quantize_params of the model-dtype init
+    params = fam.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             device, quantize_weights=quant.weights)
     lora_idx = None
     if args.lora:
         # adapter leaves join after quantization, as in the engine
@@ -470,10 +495,10 @@ def main(argv: list[str] | None = None) -> int:
         lora_idx = torch.arange(ROWS, dtype=torch.int32,
                                 device=device) % (args.lora + 1)
     if args.kv_layout == "dense":
-        ck, cv = llama.init_kv_cache(cfg, ROWS, capacity, device)
+        ck, cv = fam.init_kv_cache(cfg, ROWS, capacity, device)
         tables = None
     else:
-        ck, cv = llama.init_kv_pages(cfg, ROWS * ppn + 1, page, device,
+        ck, cv = fam.init_kv_pages(cfg, ROWS * ppn + 1, page, device,
                                      quantized=quant.kv)
         tables = (torch.arange(ROWS * ppn, dtype=torch.int32, device=device)
                   + 1).reshape(ROWS, ppn)

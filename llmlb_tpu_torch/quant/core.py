@@ -99,7 +99,8 @@ def _is_int8(x) -> bool:
     return np.dtype(x.dtype) == np.int8
 
 
-def _absmax_int8(x: torch.Tensor, axis: int):
+def absmax_int8(x: torch.Tensor, axis: int):
+    """(int8 codes, float32 scales) of x, reduced over `axis`."""
     xf = x.float()
     scale = torch.clamp(xf.abs().amax(dim=axis), min=_EPS) / _QMAX
     q = torch.clamp(torch.round(xf / scale.unsqueeze(axis)), -_QMAX, _QMAX)
@@ -118,7 +119,7 @@ def quantize_channelwise(w, axis: int = -2):
     axis of the [..., in, out] layout). Returns (int8 values with w's shape,
     float32 scales with `axis` removed)."""
     t, was_numpy = _as_tensor(w)
-    return _out(*_absmax_int8(t, axis), was_numpy)
+    return _out(*absmax_int8(t, axis), was_numpy)
 
 
 def dequantize_channelwise(q, scale, dtype=None, axis: int = -2):
@@ -133,22 +134,27 @@ def dequantize_channelwise(q, scale, dtype=None, axis: int = -2):
 
 
 def _quantize_by_layer(w: torch.Tensor):
-    """quantize_channelwise of a stacked [L, in, out] tensor, one layer at a
-    time on its device, so the fp32 temporaries stay one layer's size (a
-    whole-leaf fp32 copy of Llama-3-8B's `wg` is 7.5 GB)."""
+    """quantize_channelwise of a stacked [..., in, out] tensor, one [in,
+    out] matrix (a layer, or a layer's expert) at a time on its device, so
+    the fp32 temporaries stay one matrix's size (a whole-leaf fp32 copy of
+    Llama-3-8B's `wg` is 7.5 GB, one layer of Mixtral-8x7B's experts
+    1.9 GB)."""
     codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scales = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
                          device=w.device)
-    for i in range(w.shape[0]):
-        codes[i], scales[i] = _absmax_int8(w[i], -2)
+    mats = w.reshape(-1, *w.shape[-2:])
+    codes_m = codes.view(-1, *w.shape[-2:])
+    scales_m = scales.view(-1, w.shape[-1])
+    for i in range(mats.shape[0]):
+        codes_m[i], scales_m[i] = absmax_int8(mats[i], -2)
     return codes, scales
 
 
 def quantize_params(params: dict, names=WEIGHT_QUANT_NAMES) -> dict:
     """Quantize the projection weights of a params dict, adding
     `<name>_scale` companions; returns a new dict. Stacked tensors quantize
-    one layer at a time (the same codes). Idempotent: leaves that already
-    carry a scale, or are already int8, pass through."""
+    one [in, out] matrix at a time (the same codes). Idempotent: leaves
+    that already carry a scale, or are already int8, pass through."""
     out = dict(params)
     for name in names:
         v = out.get(name)
@@ -169,7 +175,7 @@ def quantize_kv(kv):
     """Quantize K or V vectors on write: absmax over the trailing head_dim
     axis. kv [..., D] -> (int8 [..., D], float32 [...])."""
     t, was_numpy = _as_tensor(kv)
-    return _out(*_absmax_int8(t, -1), was_numpy)
+    return _out(*absmax_int8(t, -1), was_numpy)
 
 
 def dequantize_kv(q, scale, dtype):

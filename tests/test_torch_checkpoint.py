@@ -20,8 +20,10 @@ them with a chat template.
 - `load_config` agrees with the JAX package's field for field on the
   published `config.json` values of Llama-3-8B, Llama-3.1-8B (llama3 rope
   scaling) and Qwen2.5-0.5B (qkv bias, tied embeddings), each equal to the
-  port's preset; a Mixtral config is refused naming ROADMAP A17, and an
-  unsupported rope scaling as the reference refuses it.
+  port's preset; Mixtral-8x7B's loads as the reference's MixtralConfig,
+  and an unsupported rope scaling is refused as the reference refuses it.
+- A tiny Mixtral checkpoint loads as the reference's weights, in bf16 and
+  int8.
 - `HFTokenizer` encodes, decodes and renders the chat template as the
   reference's does.
 - `main(["--checkpoint", dir, "--device", "cpu", ...])` serves a chat
@@ -268,11 +270,31 @@ def test_load_config_agrees_with_the_reference(tmp_path, hf, preset):
         got, hf["model_type"]))) == got
 
 
-def test_mixtral_and_unknown_rope_scaling_are_refused(tmp_path):
-    mixtral = {**LLAMA_3_8B, "model_type": "mixtral", "num_local_experts": 8,
-               "num_experts_per_tok": 2}
-    with pytest.raises(NotImplementedError, match="A17"):
-        load_config(_write_config(tmp_path / "mixtral", mixtral))
+MIXTRAL_8X7B = {**LLAMA_3_8B, "architectures": ["MixtralForCausalLM"],
+                "model_type": "mixtral", "vocab_size": 32000,
+                "rope_theta": 1000000.0, "max_position_embeddings": 32768,
+                "num_local_experts": 8, "num_experts_per_tok": 2}
+
+
+def test_mixtral_config_loads_as_the_references(tmp_path):
+    """Mixtral-8x7B's published config.json loads as a MixtralConfig equal
+    field for field to the reference's from_hf_config, and equal to the
+    port's preset."""
+    from llmlb_tpu_torch.models.mixtral import MixtralConfig
+
+    path = _write_config(tmp_path / "mixtral", MIXTRAL_8X7B)
+    got, want = load_config(path), jax_weights.load_config(path)
+    assert isinstance(got, MixtralConfig)
+    assert type(want).__name__ == "MixtralConfig"
+    assert got == get_preset("mixtral-8x7b")
+    for field in dataclasses.fields(got):
+        if field.name != "dtype":
+            assert getattr(got, field.name) == getattr(want, field.name), \
+                field.name
+    assert load_config(_write_config(tmp_path / "w", hf_config(got))) == got
+
+
+def test_unknown_rope_scaling_is_refused(tmp_path):
     yarn = {**LLAMA_3_8B, "rope_scaling": {"rope_type": "yarn",
                                            "factor": 4.0}}
     path = _write_config(tmp_path / "yarn", yarn)
@@ -281,6 +303,36 @@ def test_mixtral_and_unknown_rope_scaling_are_refused(tmp_path):
     with pytest.raises(NotImplementedError) as theirs:
         jax_weights.load_config(path)
     assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_mixtral_checkpoint_is_the_references(tmp_path, quantize):
+    """A tiny Mixtral HF checkpoint (block_sparse_moe.gate, experts.{e}.w1 /
+    w3 / w2) written from the reference's debug-moe-tiny weights loads as
+    those weights bit for bit, and as the JAX package's load of the same
+    directory; with int8 weights, as both packages' quantize_params."""
+    from llmlb_tpu.models import mixtral as jmixtral
+
+    cfg, jcfg = get_preset("debug-moe-tiny"), jax_preset("debug-moe-tiny")
+    jparams = {k: np.asarray(v) for k, v in jmixtral.init_params(
+        jcfg, jax.random.PRNGKey(0)).items()}
+    tensors = hf_tensors(jparams, cfg)
+    assert "model.layers.1.block_sparse_moe.experts.3.w2.weight" in tensors
+    save_sharded(tensors, str(tmp_path), shards=2)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(hf_config(cfg), f)
+    assert load_config(str(tmp_path), dtype=torch.float32) == cfg
+    got = load_checkpoint(str(tmp_path), cfg, device="cpu",
+                          quantize_weights=quantize)
+    want = params_from_numpy(jparams, cfg, "cpu")
+    ref = jax_weights.load_checkpoint(str(tmp_path), jcfg,
+                                      quantize_weights=quantize)
+    if quantize:
+        assert got["we_gate"].dtype == torch.int8
+        assert tuple(got["we_down_scale"].shape) == (2, 4, 64)
+        want = quantize_params(want)
+    _assert_same(got, want)
+    _assert_same(got, ref)
 
 
 # ------------------------------------------------------------- tokenizer

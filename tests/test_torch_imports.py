@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "structured.json_schema", "structured.openai_api",
                  "engine.stepstats", "engine.flightrec", "engine.metrics",
                  "engine.telemetry", "engine.profiling", "engine.cuda_probe",
-                 "engine.dispatch_check"):
+                 "engine.dispatch_check", "ops.moe", "models.mixtral",
+                 "models"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
