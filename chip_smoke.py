@@ -306,6 +306,7 @@ import dataclasses
 import json
 import queue
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -5270,6 +5271,294 @@ def _budget_block(core, prompts, long_prompt, dev: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------- disaggregation
+
+DISAGG_CHATS = 6  # chat prompts served together on each core
+DISAGG_DECODERS = 6  # the isolation run's decoders, of DISAGG_DECODER_TOKENS
+DISAGG_DECODER_TOKENS = 128
+DISAGG_LONGS = 3  # ~1500-token prompts arriving beside the decoders
+DISAGG_LONG_TOKENS = 4
+DISAGG_HEAD = 60  # _fresh_head offsets of the block's prompts: misses
+DISAGG_SEEDED = dict(temperature=0.8, top_p=0.95, seed=4242)
+DISAGG_CHAT_TOKENS = 32  # each chat's and each handoff's greedy ids
+
+
+def _disagg_ids(core, prompts, n: int, **sampling) -> list[list[int]]:
+    """The ids of requests submitted together (greedy unless `sampling`
+    says otherwise)."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    sampling.setdefault("temperature", 0.0)
+    reqs = [Request(prompt_ids=list(p),
+                    sampling=SamplingParams(max_tokens=n, **sampling))
+            for p in prompts]
+    for r in reqs:
+        core.submit(r)
+    return [_collect(r)[0] for r in reqs]
+
+
+def _disagg_isolation(core, decoders, longs) -> dict:
+    """DISAGG_DECODERS greedy decoders; once each has its first fetch, the
+    long prompts arrive. The decoders' largest gap between consecutive
+    fetches from then to their end, their ITL p50 over it (each fetch's gap
+    over its ids), the prefill dispatches by loop over the run, and the
+    request ids."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    def req(p, n):
+        r = Request(prompt_ids=list(p), sampling=SamplingParams(
+            max_tokens=n, temperature=0.0))
+        r.events = _StampedEvents()
+        return r
+
+    ledger0 = dict(core.prefill_dispatch_by_loop)
+    decs = [req(p, DISAGG_DECODER_TOKENS) for p in decoders]
+    for r in decs:
+        core.submit(r)
+    t_end = time.monotonic() + 300
+    while min(len(r.events.stamps) for r in decs) < 1:
+        if time.monotonic() > t_end:
+            raise AssertionError("disagg: the decoders stall")
+        time.sleep(0.002)
+    t0 = time.monotonic()
+    lreqs = [req(p, DISAGG_LONG_TOKENS) for p in longs]
+    for r in lreqs:
+        core.submit(r)
+    outs = [_st_collect(r) for r in decs + lreqs]
+    gaps, itls = [], []
+    for r in decs:
+        fetches = _st_fetches(list(r.events.stamps))
+        before = [f for f in fetches if f[1] < t0][-1:]
+        seq = before + [f for f in fetches if f[1] >= t0]
+        for (_, a), (c, b) in zip(seq, seq[1:]):
+            gaps.append(b - a)
+            itls.append((b - a) / c)
+    ledger = {k: v - ledger0[k] for k, v in core.prefill_dispatch_by_loop.items()}
+    return dict(max_gap_ms=max(gaps) * 1e3,
+                itl_p50_ms=statistics.median(itls) * 1e3,
+                prefill_by_loop=ledger, rids=[r.request_id for r in decs + lreqs],
+                ids=[o[0] for o in outs])
+
+
+def _handoff_http(pre_base: str, dec_base: str, body: dict,
+                  land: bool) -> dict:
+    """POST /v1/handoff/prefill, then /v1/handoff with the envelope (less
+    its KV pages unless `land`), read to its end: the adopted ids, the
+    envelope's bytes, the prefill POST's wall, and the first new id's time
+    after the adopt POST."""
+    t0 = time.perf_counter()
+    with _post(pre_base + "/v1/handoff/prefill", body) as resp:
+        out = json.loads(resp.read())
+    prefill_s = time.perf_counter() - t0
+    envelope = out["handoff"]
+    if out["finish"] is not None or "kv_pages" not in envelope:
+        raise AssertionError(f"disagg: /v1/handoff/prefill answered finish "
+                             f"{out['finish']}, keys {sorted(envelope)}")
+    nbytes = len(json.dumps(envelope).encode())
+    if not land:
+        envelope = {k: v for k, v in envelope.items() if k != "kv_pages"}
+    committed = len(envelope["committed_ids"])
+    ids, finish, first_new = [], None, None
+    t0 = time.perf_counter()
+    with _post(dec_base + "/v1/handoff", {"handoff": envelope, "stream": True,
+                                          "llmlb_replay": True}) as resp:
+        for data in _sse_lines(resp):
+            if data == b"[DONE]":
+                continue
+            obj = json.loads(data)
+            if obj.get("object") == "llmlb.replay":
+                ids.extend(obj["tokens"])
+                if first_new is None and len(ids) > committed:
+                    first_new = time.perf_counter() - t0
+            for c in obj.get("choices") or []:
+                finish = c.get("finish_reason") or finish
+    return dict(ids=ids, finish=finish, committed=committed,
+                envelope_bytes=nbytes, prefill_post_s=prefill_s,
+                first_new_s=first_new)
+
+
+def _disagg_block(core, engine, prompt: list[int], long_prompt: list[int],
+                  stats: dict, dev: dict) -> dict:
+    """A14 over the phase's params (every engine shares the serving core's
+    weights), after its counts. The block's launches are counted from 0,
+    the serving core's comparison runs taken back out (_Uncounted), and
+    each kernel of the path must launch.
+
+    (a) An in-process `role="split"` EngineCore with the serving defaults
+    (8 slots: a prefill pool of 2): its greedy ids for the 124-token and
+    the ~1500-token prompt are the serving core's (`stats`), those of
+    DISAGG_CHATS chats served together and of one seeded row are the
+    serving core's for the same traffic, bit for bit. Then the isolation
+    run on it and on the serving core: no prefill dispatch on the decode
+    loop or the main loop, and at least decoders + long prompts handoffs;
+    the decoders' largest fetch gap and ITL p50 on each, and the staged to
+    adopted latency p50 from the flight records.
+
+    (b) A `role="prefill"` and a `role="decode"` engine behind two HTTP
+    servers: a chat prefilled on the first (POST /v1/handoff/prefill, one
+    committed id) and adopted on the second (POST /v1/handoff), replayed
+    (the envelope without its pages: the adopter counts them absent) and
+    landed (with them: the adopter runs no prefill dispatch); both give
+    the serving core's ids."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    out: dict = {}
+    chats = [engine.encode_chat([{"role": "user", "content":
+                                  f"Disagg chat {i}: a haiku about pages."}])
+             for i in range(DISAGG_CHATS)]
+    seeded = _fresh_head(prompt, DISAGG_HEAD + 20)
+    decoders = [_fresh_head(prompt, DISAGG_HEAD + i)
+                for i in range(DISAGG_DECODERS)]
+    longs = [_fresh_head(long_prompt, DISAGG_HEAD + 10 + i)
+             for i in range(DISAGG_LONGS)]
+    chat_msgs = [{"role": "user",
+                  "content": "Disagg handoff: tell me about paged attention."}]
+    with _Uncounted():
+        want_chats = _disagg_ids(core, chats, DISAGG_CHAT_TOKENS)
+        want_seeded = _disagg_ids(core, [seeded], DISAGG_CHAT_TOKENS,
+                                  **DISAGG_SEEDED)[0]
+        want_handoff = _disagg_ids(core, [engine.encode_chat(chat_msgs)],
+                                   DISAGG_CHAT_TOKENS)[0]
+        _wait_idle(core)
+        both = _disagg_isolation(core, decoders, longs)
+    ca.reset_launch_counts()
+
+    split = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                       role="split")
+    split.start()
+    try:
+        pools = (len(split.split.prefill_pool), len(split.split.decode_pool))
+        got = {
+            "124": _disagg_ids(split, [prompt], len(stats["ids"]))[0],
+            "long": _disagg_ids(split, [long_prompt],
+                                len(stats["long_ids"]))[0],
+            "chats": _disagg_ids(split, chats, DISAGG_CHAT_TOKENS),
+            "seeded": _disagg_ids(split, [seeded], DISAGG_CHAT_TOKENS,
+                                  **DISAGG_SEEDED)[0]}
+        want = {"124": stats["ids"], "long": stats["long_ids"],
+                "chats": want_chats, "seeded": want_seeded}
+        for k in want:
+            if got[k] != want[k]:
+                raise AssertionError(f"disagg: the split core's {k} ids part "
+                                     "from the serving core's")
+        h0 = split.metrics.handoff_total["in_process"]
+        iso = _disagg_isolation(split, decoders, longs)
+        handoffs = split.metrics.handoff_total["in_process"] - h0
+        ledger = iso["prefill_by_loop"]
+        if (ledger["decode"] or ledger["main"] or not ledger["prefill"]
+                or handoffs < DISAGG_DECODERS + DISAGG_LONGS):
+            raise AssertionError(f"disagg: prefill dispatches by loop "
+                                 f"{ledger}, {handoffs} handoffs")
+        if split.decode_dispatch_by_loop["main"] or split.decode_dispatch_by_loop[
+                "prefill"]:
+            raise AssertionError("disagg: decode dispatches off the decode "
+                                 f"loop: {split.decode_dispatch_by_loop}")
+        staged = []
+        for rid in iso["rids"]:
+            tl = split.flightrec.timeline(rid) or {"events": []}
+            staged += [e["attrs"]["staged_s"] for e in tl["events"]
+                       if e["event"] == "adopted"]
+        iso_same = sum(a == b for a, b in zip(iso["ids"], both["ids"]))
+        out.update(split_pools=pools, split_handoffs=handoffs,
+                   prefill_by_loop=ledger,
+                   decode_by_loop=dict(split.decode_dispatch_by_loop),
+                   max_gap_ms=iso["max_gap_ms"], itl_p50_ms=iso["itl_p50_ms"],
+                   both_max_gap_ms=both["max_gap_ms"],
+                   both_itl_p50_ms=both["itl_p50_ms"],
+                   staged_p50_ms=statistics.median(staged) * 1e3,
+                   staged_n=len(staged))
+        log(f"disagg [{dev['smi']}]: split core (prefill pool "
+            f"{pools[0]}, decode pool {pools[1]}): greedy ids of the "
+            f"{len(prompt)}-token prompt ({len(got['124'])}), the "
+            f"{len(long_prompt)}-token prompt ({len(got['long'])}), "
+            f"{DISAGG_CHATS} chats served together ({DISAGG_CHAT_TOKENS} "
+            "each) and one seeded row are the serving core's bit for bit")
+        log(f"disagg [{dev['smi']}]: {DISAGG_DECODERS} decoders x "
+            f"{DISAGG_DECODER_TOKENS} ids with {DISAGG_LONGS} "
+            f"{len(longs[0])}-token prompts arriving: prefill dispatches by "
+            f"loop {ledger}, decode dispatches by loop "
+            f"{out['decode_by_loop']}, {handoffs} in-process handoffs; "
+            f"largest decoder fetch gap {iso['max_gap_ms']:.1f} ms split, "
+            f"{both['max_gap_ms']:.1f} ms both; decoder ITL p50 "
+            f"{iso['itl_p50_ms']:.2f} ms split, {both['itl_p50_ms']:.2f} ms "
+            f"both; staged to adopted p50 {out['staged_p50_ms']:.1f} ms over "
+            f"{len(staged)} handoffs; {iso_same} of "
+            f"{len(iso['ids'])} streams the serving core's")
+    finally:
+        split.stop()
+        del split
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    engines, servers = [], []
+    try:
+        for role in ("prefill", "decode"):
+            e = Engine("llama-3-8b", EngineCore(
+                core.cfg, core.params, device=core.device, seed=0,
+                num_slots=4, slot_capacity=CAPACITY, eos_id=-1, role=role),
+                engine.tokenizer)
+            e.core.start()
+            engines.append(e)
+            servers.append(start_server(e))
+        pre_base, dec_base = ("http://%s:%d" % s.server_address[:2]
+                              for s, _ in servers)
+        adopter = engines[1].core
+        body = {"model": "llama-3-8b", "temperature": 0,
+                "max_tokens": DISAGG_CHAT_TOKENS, "messages": chat_msgs}
+        for land in (False, True):
+            name = "landed" if land else "replayed"
+            d0 = adopter.prefill_dispatches
+            r = _handoff_http(pre_base, dec_base, body, land)
+            prefills = adopter.prefill_dispatches - d0
+            if (r["ids"], r["finish"]) != (want_handoff, "length"):
+                raise AssertionError(
+                    f"disagg: the {name} handoff's ids share "
+                    f"{_shared(r['ids'], want_handoff)} of "
+                    f"{len(want_handoff)} with the serving core's")
+            if (prefills == 0) != land:
+                raise AssertionError(f"disagg: the {name} adoption ran "
+                                     f"{prefills} prefill dispatches")
+            out[name] = {k: r[k] for k in ("envelope_bytes", "prefill_post_s",
+                                           "first_new_s")}
+            out[name]["adopter_prefills"] = prefills
+            log(f"disagg [{dev['smi']}]: cross-process handoff, {name}: "
+                f"envelope {r['envelope_bytes']} bytes ({r['committed']} "
+                f"committed id), POST /v1/handoff/prefill "
+                f"{r['prefill_post_s'] * 1e3:.1f} ms, first new id "
+                f"{r['first_new_s'] * 1e3:.1f} ms after the POST "
+                f"/v1/handoff; {prefills} adopter prefill dispatches; "
+                f"{len(r['ids'])} ids the serving core's")
+        out["handoff_totals"] = [e.core.metrics.handoff_counts()[0]
+                                 for e in engines]
+    finally:
+        for s, th in servers:
+            s.shutdown()
+            s.server_close()
+            th.join(timeout=30)
+        for e in engines:
+            e.shutdown()
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(ca.LAUNCHES)
+    out["launches"] = launches
+    missing = [k for k in BF16_PATH if launches[k] <= 0]
+    stray = [k for k, n in launches.items() if k not in BF16_PATH and n]
+    log(f"disagg: launches over the block's path {launches}")
+    if missing or stray:
+        raise AssertionError(f"disagg: kernels never launched {missing}, of "
+                             f"another path {stray}")
+    return out
+
+
 # ------------------------------------------------------------ observability
 
 OBS_TOKENS = 1100  # each 8-row decode's greedy ids: 137 bursts, more than
@@ -5926,6 +6215,11 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
                 block_s, "budget", _budget_block, core,
                 [_fresh_head(long_prompts[0][:BUDGET_DECODER_TOKENS], i + 1)
                  for i in range(SLOTS)], long_prompts[0], dev)
+            # disaggregation: a split core and two role engines over these
+            # params, their launches counted from 0 as the block's path
+            over["disagg"] = _timed(block_s, "disagg", _disagg_block, core,
+                                    engine, prompt, long_prompts[0], stats,
+                                    dev)
         if structured_ids is not None:
             over["structured"] = _timed(block_s, "structured",
                                         _structured_dense, core, dev,
@@ -6164,6 +6458,55 @@ def _mix_graph_vs_eager(core, prompt: list[int], dev: dict,
         torch.cuda.empty_cache()
 
 
+MIX_SPLIT_TOKENS = 16  # greedy ids of the split core's request
+
+
+def _mix_split(core, prompt: list[int], ids: list[int], dev: dict,
+               core_kwargs: dict) -> dict:
+    """A14's MoE handoff: one greedy request of MIX_SPLIT_TOKENS ids through
+    a `role="split"` core over the phase's params (int8 weights, the two
+    adapters' pools), after the phase's counts. Its ids must be the phase
+    core's for the same prompt served alone (`ids`): both prefill it in a
+    group of one. Its launches are its own (_Uncounted), and must cover
+    the path's kernels but the extend (a one-shot prompt)."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    split = EngineCore(core.cfg, core.params, device=core.device, seed=0,
+                       num_slots=SLOTS, slot_capacity=CAPACITY, eos_id=-1,
+                       role="split", **core_kwargs)
+    split.start()
+    try:
+        with _Uncounted() as unc:
+            got, ttft, _ = _mix_request(split, prompt, MIX_SPLIT_TOKENS)
+        ledger = dict(split.prefill_dispatch_by_loop)
+        handoffs = split.metrics.handoff_total["in_process"]
+    finally:
+        split.stop()
+        del split
+        gc.collect()
+        torch.cuda.empty_cache()
+    if got != ids[:MIX_SPLIT_TOKENS]:
+        raise AssertionError(f"serve mixtral: the split core's ids share "
+                             f"{_shared(got, ids)} of {MIX_SPLIT_TOKENS} with "
+                             "the phase core's")
+    missing = [k for k in MIXTRAL_PATH
+               if k != "paged_flash_extend" and unc.launches.get(k, 0) <= 0]
+    if ledger["decode"] or handoffs != 1 or missing:
+        raise AssertionError(f"serve mixtral: split prefill dispatches by "
+                             f"loop {ledger}, {handoffs} handoffs, kernels "
+                             f"never launched {missing}")
+    log(f"serve mixtral [{dev['smi']}]: a split core's {MIX_SPLIT_TOKENS} "
+        f"greedy ids of the {len(prompt)}-token prompt are the phase core's "
+        f"(one in-process handoff, prefill dispatches by loop {ledger}, TTFT "
+        f"{ttft * 1e3:.1f} ms); its launches {unc.launches}")
+    return {"ttft_s": ttft, "prefill_by_loop": ledger,
+            "launches": unc.launches}
+
+
 def phase_serve_mixtral(dev: dict) -> dict:
     """Serve Mixtral-8x7B at full width and depth (32 layers, 8 experts,
     top-2) with int8 weights, random from seed 0 and filled as int8 a matrix
@@ -6393,6 +6736,9 @@ def phase_serve_mixtral(dev: dict) -> dict:
             t1 = time.perf_counter()
             stats.update(_mix_graph_vs_eager(core, prompt, dev, core_kwargs))
             block_s["graph_eager"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            stats["split"] = _mix_split(core, prompt, ids, dev, core_kwargs)
+            block_s["split"] = time.perf_counter() - t1
             stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             stats["block_s"] = {k: round(v, 1) for k, v in block_s.items()}
             log(f"serve mixtral: peak {stats['peak_gib']:.2f} GiB allocated; "
@@ -6624,7 +6970,10 @@ def main(argv: list[str] | None = None) -> int:
                    if "spec" in st.get("overload", {}) else {}),
                 **({"spec_graphs": st["overload"]["spec_graphs"]["replay_ms"],
                     "budget": st["overload"]["budget"]}
-                   if "budget" in st.get("overload", {}) else {})}
+                   if "budget" in st.get("overload", {}) else {}),
+                **({"disagg": {k: v for k, v in st["overload"][
+                    "disagg"].items() if k != "launches"}}
+                   if "disagg" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "mixtral": {
             k: v for k, v in stats_mix.items() if k != "launches"},
         "tree": str(tree), "card": dev["smi"]}))

@@ -8,12 +8,14 @@ request inside the engine, every lifecycle edge the scheduler crosses:
   queued           landed on a priority-class queue (class + position)
   prefill_chunk    one prompt-KV fill dispatch (tokens, cached-prefix
                    tokens reused from the prefix cache)
-  staged           split-mode prefill complete (disaggregation; not
-                   emitted by the port yet)
+  staged           split-mode prefill complete: the row waits for a
+                   decode slot (tokens, slot)
   handoff_emitted  committed tokens wrapped into a cross-process handoff
-                   (disaggregation; not emitted by the port yet)
-  adopted          this engine adopted a stream another engine started
-                   (/v1/resume)
+                   (/v1/handoff/prefill)
+  adopted          this engine adopted a stream: a split handoff
+                   (in_process, staged seconds), or one another engine
+                   started (/v1/handoff, /v1/resume: committed tokens,
+                   wire latency)
   parked           slot preempted (reason: preempt | pages | drain |
                    migrate) with its generated-token count
   resumed          a parked request re-activated (replay, or page restore

@@ -9,11 +9,11 @@ them from `EngineCore.stats()`, so `/metrics`, `/api/health` and
 `core.stats()` cannot disagree. What no other class counts lives here:
 requests by outcome, tokens, the latency and step histograms, the decode
 dispatch tallies, the adapters' load histogram and per-adapter requests,
-and the step-phase histograms.
+the step-phase histograms, and the disaggregation's handoffs by kind, their
+latency and the staged backlog.
 
-Not rendered (no port counterpart yet): the disaggregation series
-(`llmlb_engine_handoff_*`, `llmlb_engine_queue_depth_role`) and the
-context-parallel fallback is always 0 (the port prefills on one device).
+The context-parallel fallback is always 0 (the port prefills on one
+device).
 """
 
 from __future__ import annotations
@@ -126,6 +126,15 @@ class EngineMetrics:
         self.lora_requests_total: dict[str, int] = {}
         self.step_phase: dict[str, Histogram] = {
             p: Histogram(PHASE_BUCKETS) for p in PHASES}
+        # Disaggregated prefill/decode: handoffs by kind (in_process, split
+        # mode's page-id exchange; emitted, a prefill engine handed a stream
+        # away; adopted, a decode engine took one), the latency between a
+        # request's prefill completing and its adoption, and the staged
+        # requests waiting for a decode slot now.
+        self.handoff_total: dict[str, int] = {
+            "in_process": 0, "emitted": 0, "adopted": 0}
+        self.handoff_latency = Histogram(STEP_BUCKETS)
+        self.handoff_backlog = 0
 
     # ------------------------------------------------------------ recorders
 
@@ -175,6 +184,25 @@ class EngineMetrics:
                 if hist is not None and seconds > 0.0:
                     hist.observe(seconds)
 
+    def record_handoff(self, kind: str, latency_s: float | None = None) -> None:
+        """One prefill-to-decode handoff of `kind`; `latency_s` is the
+        prefill-complete to adoption gap (None for "emitted": the prefill
+        side cannot see the adoption)."""
+        with self._lock:
+            if kind in self.handoff_total:
+                self.handoff_total[kind] += 1
+            if latency_s is not None and latency_s >= 0.0:
+                self.handoff_latency.observe(latency_s)
+
+    def set_handoff_backlog(self, n: int) -> None:
+        with self._lock:
+            self.handoff_backlog = n
+
+    def handoff_counts(self) -> tuple[dict[str, int], int]:
+        """(handoffs by kind, the staged backlog), read together."""
+        with self._lock:
+            return dict(self.handoff_total), self.handoff_backlog
+
     def record_lora_load(self, seconds: float) -> None:
         with self._lock:
             self.lora_load.observe(seconds)
@@ -200,8 +228,8 @@ class EngineMetrics:
     # ----------------------------------------------------------- exposition
 
     def summary(self, stats, lora: dict | None = None) -> dict:
-        """Compact JSON figures for /api/health, the reference's keys (the
-        handoff ones excepted). `stats` is `EngineCore.stats()`, `lora` its
+        """Compact JSON figures for /api/health, the reference's keys.
+        `stats` is `EngineCore.stats()`, `lora` its
         lora_info()."""
         pc, kv, st, sp = stats.prefix, stats.kv, stats.structured, stats.spec
         lora = lora or {}
@@ -233,6 +261,9 @@ class EngineMetrics:
                 "preemptions_total": stats.preemptions_total,
                 "preempt_resumes_total": stats.preempt_resumes_total,
                 "deadline_shed_total": stats.deadline_shed_total,
+                "handoff_total": dict(self.handoff_total),
+                "handoff_backlog": self.handoff_backlog,
+                "handoff_latency_p50_s": self.handoff_latency.percentile(50),
                 "drain_state": int(stats.draining),
                 "drain_parked_total": stats.drain_parked_total,
                 "kv_ship_total": kv.kv_ship_total,
@@ -310,8 +341,12 @@ class EngineMetrics:
                  stats.preempt_resumes_total),
                 ("llmlb_engine_deadline_shed_total",
                  stats.deadline_shed_total)))
+            lines.append("# TYPE llmlb_engine_handoff_total counter")
+            for kind, n in self.handoff_total.items():
+                lines.append(f'llmlb_engine_handoff_total{{kind="{kind}"}} {n}')
             _series(lines, "gauge", (
-                ("llmlb_engine_drain_state", int(stats.draining)),))
+                ("llmlb_engine_handoff_backlog", self.handoff_backlog),
+                ("llmlb_engine_drain_state", int(stats.draining))))
             _series(lines, "counter", (
                 ("llmlb_engine_drain_parked_total", stats.drain_parked_total),
                 ("llmlb_engine_kv_ship_total", kv.kv_ship_total),
@@ -344,6 +379,14 @@ class EngineMetrics:
                         (sched.get("queued_by_class") or {}).items()):
                     lines.append(f'llmlb_engine_queue_depth_class'
                                  f'{{priority="{name}"}} {depth}')
+                by_role = sched.get("queued_by_role")
+                if by_role:
+                    # split engines only: work waiting for a prefill slot,
+                    # and staged work waiting for a decode slot
+                    lines.append("# TYPE llmlb_engine_queue_depth_role gauge")
+                    for name, depth in sorted(by_role.items()):
+                        lines.append(f'llmlb_engine_queue_depth_role'
+                                     f'{{role="{name}"}} {depth}')
             if lora is not None and lora.get("enabled"):
                 _series(lines, "gauge", (
                     ("llmlb_engine_lora_loaded",
@@ -441,7 +484,9 @@ class EngineMetrics:
                     ("llmlb_engine_prefill_step_seconds", self.prefill_step),
                     ("llmlb_engine_decode_step_seconds", self.decode_step),
                     ("llmlb_engine_schema_compile_seconds",
-                     self.schema_compile)):
+                     self.schema_compile),
+                    ("llmlb_engine_handoff_latency_seconds",
+                     self.handoff_latency)):
                 lines.append(f"# TYPE {name} histogram")
                 _render_histogram(lines, name, hist)
             # one family labelled by phase; empty phases render too, so

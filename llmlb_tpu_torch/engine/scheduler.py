@@ -170,9 +170,23 @@ of a request writes a flight-recorder event (engine/flightrec.py,
 and `metrics` (engine/metrics.py) keeps the latency and step histograms;
 `perf_info()` is the live roofline from the records' decode window.
 
-Left out of this slice (see ROADMAP.md): context-parallel prefill,
-disaggregation and split-mode preemption (and with them the handoff's page
-export, drafter and series).
+Disaggregation (`role=` / LLMLB_ROLE, "both" by default, as in the
+reference). "split" runs a prefill pool and a decode pool of slots as two
+step-loop threads over the one page pool (llmlb_tpu_torch/disagg/split.py):
+a prefill-loop activation stages the row instead (`_activate_group`), and
+the handoff pump adopts it into a decode slot by moving its block-table
+row; the decode loop decodes its pool only. Every prefill and decode
+dispatch is counted by the loop that ran it (`prefill_dispatch_by_loop`,
+`decode_dispatch_by_loop`: "main", "prefill", "decode", or "handoff" for an
+adoption), so the split's invariant, no prefill on the decode loop, is
+read off a ledger. "prefill" and "decode" serve the cross-process handoff
+(the server's /v1/handoff routes): a request with `export_kv` that finishes
+on its "length" budget leaves its pages' bytes on `kv_export`
+(`_kv_export_payload`), for the decode engine to land. Split needs the
+paged layout and at least two slots, and turns KV shipping and the
+offload tier off, as in the reference.
+
+Left out (see ROADMAP.md): context-parallel prefill.
 """
 
 from __future__ import annotations
@@ -191,6 +205,8 @@ import numpy as np
 import torch
 
 from llmlb_tpu_torch.device import resolve_device
+from llmlb_tpu_torch.disagg import normalize_role
+from llmlb_tpu_torch.disagg.split import SplitRuntime
 from llmlb_tpu_torch.engine.decode_graph import (
     BurstGraphs,
     BurstState,
@@ -319,6 +335,11 @@ class Request:
     # The token DFA of sampling.constraint, compiled by the service before
     # the submit (or by the core at admission, `_prepare_constraint`).
     compiled_constraint: TokenConstraint | None = None
+    # A handoff's prefill side (the service's `prefill_handoff`) asks for
+    # this request's KV pages at its budgeted "length" finish, before they
+    # free: the serialized payload lands on `kv_export`.
+    export_kv: bool = False
+    kv_export: dict | None = None
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -360,6 +381,13 @@ class _Slot:
     spec_k: int = 0
     # monotonic time of the row's last emitted token (0: none yet)
     last_emit_at: float = 0.0
+    # Split mode: a prefill-pool row whose prompt KV has landed waits here
+    # for a decode slot, its final logits row held on the device (the first
+    # token samples from it at adoption), since `handoff_ready_at`
+    # (monotonic).
+    handoff_ready: bool = False
+    handoff_logits: torch.Tensor | None = None
+    handoff_ready_at: float = 0.0
 
     def clear(self) -> None:
         self.request = None
@@ -376,6 +404,9 @@ class _Slot:
         self.drafter = None
         self.spec_k = 0
         self.last_emit_at = 0.0
+        self.handoff_ready = False
+        self.handoff_logits = None
+        self.handoff_ready_at = 0.0
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -574,8 +605,17 @@ class EngineCore:
         spec_max_draft: int | None = None,
         spec_ngram: int | None = None,
         prefill_chunk_budget: int | None = None,
+        role: str | None = None,
+        disagg_prefill_slots: int | None = None,
     ):
         self.device = resolve_device(device)
+        # The serving role: "both" (the combined loop), "split" (a prefill
+        # pool and a decode pool in this process, built at the end of
+        # __init__ once the slots exist), or "prefill" / "decode", which
+        # the server advertises and serves (the cross-process handoff).
+        self.role = normalize_role(role if role is not None
+                                   else os.environ.get("LLMLB_ROLE"))
+        self.split: SplitRuntime | None = None
         # one CUDA graph per decode burst key: on by default on the card
         # (the JAX engine's fused_decode); the CPU never captures
         if decode_graphs is None:
@@ -802,8 +842,17 @@ class EngineCore:
                      kv_cache_bytes(cfg, num_slots, self.slot_capacity) / 2**30,
                      self.device)
 
-        # Decode burst: k decode+sample steps per host sync. 8 on the card;
-        # 1 on the CPU, like the reference off its accelerator.
+        # Decode burst: k decode+sample steps per host sync, from the kwarg,
+        # then LLMLB_DECODE_BURST, then 8 on the card and 1 on the CPU, like
+        # the reference off its accelerator.
+        if decode_burst is None:
+            env = os.environ.get("LLMLB_DECODE_BURST")
+            if env:
+                try:
+                    decode_burst = max(1, int(env))
+                except ValueError:
+                    log.warning("LLMLB_DECODE_BURST=%r is not an integer; "
+                                "using the auto default", env)
         if decode_burst is None:
             decode_burst = 8 if self.device.type == "cuda" else 1
         self.decode_burst = max(1, int(decode_burst))
@@ -917,7 +966,9 @@ class EngineCore:
         if kv_ship is None:
             kv_ship = os.environ.get("LLMLB_KV_SHIP", "1").lower() not in (
                 "0", "false", "off", "no")
-        self.kv_ship = bool(kv_ship) and self.page_pool is not None
+        # split mode ships nothing: a handoff moves its block-table row
+        self.kv_ship = (bool(kv_ship) and self.page_pool is not None
+                        and self.role != "split")
         # exports of parked streams by gateway id, taken once
         self._kv_exports: dict[str, dict] = {}
         if kv_offload_bytes is None:
@@ -930,7 +981,8 @@ class EngineCore:
                 kv_offload_bytes = 0
         self.kv_offload: KVOffloadTier | None = (
             KVOffloadTier(kv_offload_bytes)
-            if kv_offload_bytes > 0 and self.page_pool is not None
+            if (kv_offload_bytes > 0 and self.page_pool is not None
+                and self.role != "split")
             else None)
         if self.kv_offload is not None:
             log.info("KV offload tier: %.1f MiB host-RAM budget",
@@ -984,16 +1036,39 @@ class EngineCore:
         self._d_mask: torch.Tensor | None = None
         self._mask_dirty_rows: set[int] = set()
 
+        # The loop each thread belongs to ("main" for the combined loop;
+        # split mode tags its two threads "prefill" and "decode", and the
+        # adoption "handoff"), and the dispatches each loop ran: prefill
+        # dispatches, and decode and verify steps' model calls.
+        self._tls = threading.local()
+        self.prefill_dispatch_by_loop: dict[str, int] = {
+            "main": 0, "prefill": 0, "decode": 0, "handoff": 0}
+        self.decode_dispatch_by_loop: dict[str, int] = {
+            "main": 0, "prefill": 0, "decode": 0, "handoff": 0}
+        if self.role == "split":
+            if self.page_pool is None:
+                raise ValueError(
+                    "--role split requires the paged KV layout: the handoff "
+                    "is a block-table page-id exchange")
+            self.split = SplitRuntime(self, disagg_prefill_slots)
+
     # ------------------------------------------------------------------ public
 
     def start(self) -> None:
         self._running = True
+        if self.split is not None:
+            self.split.start()
+            # call_in_loop's work runs on the prefill loop, under the lock
+            self._thread = self.split.threads[0]
+            return
         self._thread = threading.Thread(target=self._loop,
                                         name="engine-step-loop", daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
         self._running = False
+        if self.split is not None:
+            self.split.join(timeout=30)
         if self._thread is not None:
             self._thread.join(timeout=30)
         # terminal events for everything still in flight so waiters unblock
@@ -1163,14 +1238,32 @@ class EngineCore:
     def sched_info(self) -> dict:
         """The `sched` block of /api/health and /api/system: the prefill
         chunk budget, queue depths by class and the overload-protection
-        counters."""
-        return {
+        counters; in split mode also the depths by role (work waiting for
+        a prefill slot, and staged work waiting for a decode slot)."""
+        info = {
             "prefill_chunk_budget": self.prefill_chunk_budget,
             "queued_by_class": self.queue_class_depths(),
             "preemptions_total": self.preemptions_total,
             "preempt_resumes_total": self.preempt_resumes_total,
             "deadline_shed_total": self.deadline_shed_total,
         }
+        if self.split is not None:
+            info["queued_by_role"] = {
+                "prefill": sum(info["queued_by_class"].values()),
+                "decode": self.split.backlog(),
+            }
+        return info
+
+    def disagg_info(self) -> dict:
+        """The `disagg` block of /api/health and /api/system: the served
+        role, the split's pool sizes, and the handoff counters."""
+        handoffs, backlog = self.metrics.handoff_counts()
+        info = {"role": self.role, "split": self.split is not None,
+                "handoff_total": handoffs, "handoff_backlog": backlog}
+        if self.split is not None:
+            info["prefill_slots"] = len(self.split.prefill_pool)
+            info["decode_slots"] = len(self.split.decode_pool)
+        return info
 
     # ------------------------------------------------------------- drain
 
@@ -1401,6 +1494,16 @@ class EngineCore:
 
     # ------------------------------------------------------------------- loop
 
+    def _loop_tag(self) -> str:
+        return getattr(self._tls, "tag", "main")
+
+    def _note_prefill_dispatch(self) -> None:
+        """Count one prefill dispatch, in total and by the loop that ran
+        it: split mode's invariant (no prefill on the decode loop) is read
+        off this ledger."""
+        self.prefill_dispatches += 1
+        self.prefill_dispatch_by_loop[self._loop_tag()] += 1
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -1437,6 +1540,7 @@ class EngineCore:
             request_ids = {str(i): gateway_rid(self.slots[i].request.request_id)
                            for i in slots if self.slots[i].request is not None}
         if kind in ("decode", "verify") and dispatches > 0:
+            self.decode_dispatch_by_loop[self._loop_tag()] += dispatches
             self.metrics.record_decode_dispatches(dispatches, fused=fused)
         device_ms = (events[0].elapsed_time(events[1])
                      if events is not None and waited else None)
@@ -1516,7 +1620,10 @@ class EngineCore:
 
     def _free_slots(self) -> list[int]:
         """Unoccupied slots, less the dense layout's pinned prefix donors
-        (paged donors pin pages, not slots)."""
+        (paged donors pin pages, not slots). Split mode admits into the
+        prefill pool only: the decode pool fills by adoption."""
+        if self.split is not None:
+            return self.split.free_prefill_slots()
         pinned = (self.prefix_cache.pinned_slots()
                   if self.prefix_cache is not None else ())
         return [i for i, s in enumerate(self.slots)
@@ -1862,9 +1969,11 @@ class EngineCore:
             # pin no slot; page pressure evicts in _try_reserve_pages.
             if queued and self._evict_one_prefix():
                 free = self._free_slots()
-        if not free and queued:
+        if not free and queued and self.split is None:
             # Slot pressure: a queued request of a more important class
-            # than some decoding row parks the least important one.
+            # than some decoding row parks the least important one. (Split
+            # mode's preemption point is the adoption: parking a decoding
+            # row frees no prefill slot.)
             head = self._head_priority()
             if head is not None:
                 victims = self._preempt_candidates(head)
@@ -2102,7 +2211,7 @@ class EngineCore:
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()
-        self.prefill_dispatches += 1
+        self._note_prefill_dispatch()
         # the host wall of the launches: the host never waits for a prefill
         self.metrics.record_prefill_step(time.monotonic() - prefill_start)
         if self.flightrec.enabled:
@@ -2119,7 +2228,8 @@ class EngineCore:
     def _advance_prefill(self) -> bool:
         """Feed ONE chunk of ONE prefilling slot's prompt into the pool,
         rotating among prefilling slots."""
-        prefilling = [i for i, s in enumerate(self.slots) if s.prefilling]
+        prefilling = [i for i, s in enumerate(self.slots)
+                      if s.prefilling and not s.handoff_ready]
         if not prefilling:
             return False
         slot_id = prefilling[self._prefill_rr % len(prefilling)]
@@ -2175,7 +2285,7 @@ class EngineCore:
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()
-        self.prefill_dispatches += 1
+        self._note_prefill_dispatch()
         self.metrics.record_prefill_step(time.monotonic() - prefill_start)
         slot.prefill_pos = start + chunk_len
         self._fr_emit(request, "prefill_chunk", tokens=chunk_len,
@@ -2218,7 +2328,14 @@ class EngineCore:
                         logits: torch.Tensor) -> None:
         """Sample each row's first token on the device and scatter the
         sampling params, lengths and first tokens into the per-slot device
-        state. Padding rows repeat the last real row."""
+        state. Padding rows repeat the last real row. In split mode a
+        prefill-loop activation stages the group instead, and the handoff
+        pump adopts each row into a decode slot, coming back here under the
+        "handoff" tag."""
+        if self.split is not None and self._loop_tag() == "prefill":
+            self.split.stage_group(group, logits)
+            self.split.pump_handoffs()
+            return
         count_nan_rows(self._d_nan_rows, logits)
         # every insert path funnels through here (or _insert_restored): the
         # cursor and mask row go in before the first token is sampled, and
@@ -2338,8 +2455,10 @@ class EngineCore:
         return self.slot_capacity
 
     def _decode_active(self) -> bool:
-        active = [i for i, s in enumerate(self.slots)
-                  if s.request is not None and not s.prefilling]
+        pool = (self.split.decode_pool if self.split is not None
+                else range(self.num_slots))
+        active = [i for i in pool if self.slots[i].request is not None
+                  and not self.slots[i].prefilling]
         if not active:
             # the occupancy gauge would otherwise freeze at the last batch
             self.metrics.set_batch_occupancy(0)
@@ -2804,6 +2923,9 @@ class EngineCore:
                 and not state.is_accepting):
             # cut short before the grammar accepted
             self._count("constraint_violations_total")
+        if finish == "length" and request.export_kv and self.kv_ship:
+            # a handoff's prefill side: the pages leave before they free
+            request.kv_export = self._kv_export_payload(slot_id, request)
         if finish is not None:
             self._finish_slot(slot_id, finish, donate=True)
 
@@ -2990,6 +3112,25 @@ class EngineCore:
     def _capture_kv(self, pages: list[int], tokens: int) -> KVPages:
         return KVPages(header=self._kv_header(tokens, len(pages)),
                        sections=self._gather_kv_sections(pages))
+
+    def _kv_export_payload(self, slot_id: int,
+                           request: Request) -> dict | None:
+        """The serialized pages of a finishing row's KV (the /v1/handoff
+        envelope's `kv_pages`), or None when it holds none. The tokens are
+        the host's seq_len, as a park's spill counts them: nothing the
+        burst wrote past the finish."""
+        tokens = int(self._seq_lens[slot_id])
+        if tokens <= 0 or not self._slot_pages[slot_id]:
+            return None
+        pages = self._slot_pages[slot_id][:self._pages_for_tokens(tokens)]
+        t0 = time.monotonic()
+        kvp = self._capture_kv(pages, tokens)
+        payload = serialize_kv_pages(kvp.header, kvp.sections)
+        dt = time.monotonic() - t0
+        self._record_kv_ship(kvp.nbytes, dt)
+        self._fr_emit(request, "kv_shipped", tokens=tokens, pages=len(pages),
+                      bytes=kvp.nbytes, seconds=round(dt, 6))
+        return payload
 
     def take_kv_export(self, gateway_id: str) -> dict | None:
         """Take a parked stream's export (POST /v1/kv/export): handed over

@@ -17,6 +17,17 @@ Counterpart of the serving subset of `llmlb_tpu/engine/server.py`:
   takes the original chat body plus `committed_ids` (and optionally the
   origin's `kv_pages`) and streams the full completion, continued
   token-identical from the committed tokens;
+- disaggregated prefill/decode, with the reference's routes and shapes:
+  `POST /v1/handoff/prefill` (a chat body plus `handoff_tokens`, 1..64,
+  default LLMLB_DISAGG_HANDOFF_TOKENS or 1; 409 on `--role decode`)
+  prefills and commits that many tokens and answers `{"object":
+  "llmlb.handoff", "handoff": <wire payload>, "finish", ...}`, the payload
+  carrying the row's KV pages when the engine ships them; `POST
+  /v1/handoff` (`{"handoff": <payload>, "stream", "model", "tool_name"}`)
+  adopts it and answers the full completion, streamed or not (a malformed
+  payload is a 400). `--role` (both, split, prefill, decode) is advertised
+  as /v1/models' `prefill` / `decode` capabilities and `role` key, and as
+  the `disagg` block of /api/health and /api/system;
 - KV page shipping: `POST /v1/kv/export {"request_id", "park"}` hands over
   a parked stream's serialized KV pages once (with `"park": true` it first
   asks the step loop to park that stream, polling up to 2 s for the
@@ -101,6 +112,12 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llmlb_tpu_torch import __version__
+from llmlb_tpu_torch.disagg import (
+    ROLES,
+    HandoffError,
+    handoff_payload,
+    parse_handoff,
+)
 from llmlb_tpu_torch.engine.cuda_probe import guard_backend_init
 from llmlb_tpu_torch.engine.profiling import ProfileError, ProfileManager
 from llmlb_tpu_torch.engine.scheduler import SamplingParams
@@ -207,6 +224,23 @@ def _speculative_from(body: dict) -> dict | None:
                 "'speculative.max_draft_tokens' must be a positive integer")
         out["max_draft_tokens"] = k
     return out or None
+
+
+def _handoff_tokens_from(body: dict) -> int:
+    """The tokens the prefill side commits before handing off: the body's
+    `handoff_tokens`, else LLMLB_DISAGG_HANDOFF_TOKENS, else 1, within
+    1..64 (the window rides the wire; a large one only moves decode work
+    onto the prefill engine), as the reference validates it."""
+    raw = body.get("handoff_tokens")
+    if raw is None:
+        raw = os.environ.get("LLMLB_DISAGG_HANDOFF_TOKENS", 1)
+    try:
+        k = int(raw)
+    except (TypeError, ValueError):
+        raise ValueError("'handoff_tokens' must be an integer") from None
+    if isinstance(body.get("handoff_tokens"), bool) or not 1 <= k <= 64:
+        raise ValueError("'handoff_tokens' must be between 1 and 64")
+    return k
 
 
 def _stops_from(body: dict) -> list[str]:
@@ -468,6 +502,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "kv_transfer": engine.core.kv_transfer_info(),
                 "structured": engine.core.structured_info(),
                 "spec": engine.core.spec_info(),
+                "disagg": engine.core.disagg_info(),
                 "draining": self.server.drain.info(),
                 "perf": engine.core.perf_info(),
             })
@@ -623,6 +658,8 @@ class _Handler(BaseHTTPRequestHandler):
     _POST_ROUTES = {
         "/v1/chat/completions": "_chat",
         "/v1/resume": "_resume",
+        "/v1/handoff/prefill": "_handoff_prefill",
+        "/v1/handoff": "_handoff",
         "/v1/kv/export": "_kv_export",
         "/v1/completions": "_completions",
         "/v1/responses": "_responses",
@@ -648,7 +685,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "type": "overloaded_error", "code": "draining"}},
                 headers={"Retry-After": str(drain.retry_after_s())})
             return
-        body = self._body(KV_BODY_BYTES if path == "/v1/resume"
+        body = self._body(KV_BODY_BYTES if path in ("/v1/resume",
+                                                     "/v1/handoff")
                           else MAX_BODY_BYTES)
         if body is None:
             return
@@ -765,6 +803,84 @@ class _Handler(BaseHTTPRequestHandler):
                 prompt_ids, committed, sampling, stops,
                 request_id=self._request_id(),
                 kv_pages=kv_pages if isinstance(kv_pages, dict) else None)
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        self._answer_chat(body, deltas, model, len(prompt_ids), tool_name)
+
+    def _handoff_prefill(self, body: dict) -> None:
+        """POST /v1/handoff/prefill: the prefill half of the cross-process
+        handoff. A chat body plus `handoff_tokens`; the engine prefills and
+        commits that many tokens, and the answer's `handoff` is the wire
+        payload for a decode engine's /v1/handoff, which streams the full
+        completion. `finish` is null while the stream has more to generate,
+        else its natural finish inside the window (the adopter then
+        reproduces it), so a caller needs one shape."""
+        engine = self.server.engine
+        if engine.core.role == "decode":
+            self._error(409, "this engine serves --role decode; it adopts "
+                        "handoffs (/v1/handoff) but does not originate them")
+            return
+        try:
+            prompt_ids, sampling, stops, tool_name, model = self._parse_chat(
+                body)
+            emit = _handoff_tokens_from(body)
+        except (ValueError, TypeError) as e:
+            self._error(400, str(e))
+            return
+        rid = self._request_id()
+        try:
+            committed, finish, kv_pages = engine.prefill_handoff(
+                prompt_ids, sampling, emit_tokens=emit, request_id=rid)
+        except EngineError as e:
+            self._error(500, str(e), "server_error")
+            return
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        payload = handoff_payload(
+            prompt_ids, committed, sampling, stop=stops, request_id=rid,
+            kv_pages=kv_pages if finish is None else None)
+        self._json(200, {"object": "llmlb.handoff", "model": model,
+                         "handoff": payload, "finish": finish,
+                         "tool_name": tool_name,
+                         "usage": _usage(len(prompt_ids), len(committed))})
+
+    def _handoff(self, body: dict) -> None:
+        """POST /v1/handoff: adopt a stream a prefill engine started.
+        `{"handoff": <wire payload>, "stream", "model", "tool_name"}`. The
+        stream continues by the exact resume (or lands the payload's
+        `kv_pages` when this pool can take them), token-identical to an
+        uninterrupted run, and the answer carries the full completion in
+        the chat shape. The X-Request-Deadline-Ms header (the gateway's
+        remaining budget) overrides the wire's deadline."""
+        engine = self.server.engine
+        try:
+            prompt_ids, committed, sampling, stops, wire_rid, t0 = (
+                parse_handoff(body.get("handoff")))
+        except HandoffError as e:
+            self._error(400, str(e))
+            return
+        tool_name = body.get("tool_name")
+        if tool_name is not None and not isinstance(tool_name, str):
+            self._error(400, "'tool_name' must be a string")
+            return
+        model = body.get("model") or engine.model_id
+        rid = self._request_id() or wire_rid
+        try:
+            deadline = _deadline_from(self.headers)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        if deadline is not None:
+            sampling.deadline_ms = deadline
+        # anything but an object is no attachment: the adoption replays
+        kv_pages = body["handoff"].get("kv_pages")
+        try:
+            deltas = engine.adopt_stream(
+                prompt_ids, committed, sampling, stops, request_id=rid,
+                kv_pages=kv_pages if isinstance(kv_pages, dict) else None,
+                emitted_at=t0)
         except (ValueError, TypeError) as e:
             self._error(400, str(e))
             return
@@ -1100,11 +1216,18 @@ def _models(engine: Engine) -> list[dict]:
     ("this endpoint can load any adapter of its store"), then one
     `base:adapter` entry per RESIDENT adapter (without `embeddings`: the
     encode forward applies no adapter), so the gateway routes adapter
-    traffic where it is already loaded. Not advertised: the disaggregation
-    roles' `prefill` / `decode` (ROADMAP A14)."""
+    traffic where it is already loaded. The serving role rides the
+    capabilities, `prefill` and `decode` (both for "both" and "split"),
+    and every entry's `role` key: the gateway's role-aware routing reads
+    them."""
     caps = ["chat_completion", "structured_outputs"]
     if engine.supports_embeddings():
         caps.append("embeddings")
+    role = engine.core.role
+    if role in ("both", "split", "prefill"):
+        caps.append("prefill")
+    if role in ("both", "split", "decode"):
+        caps.append("decode")
     lora = engine.core.lora
     if lora is not None:
         caps.append("lora")
@@ -1113,12 +1236,12 @@ def _models(engine: Engine) -> list[dict]:
         return {"id": model_id, "object": "model", "created": 0,
                 "owned_by": "llmlb_tpu_torch", "capabilities": caps}
 
-    data = [entry(engine.model_id, list(caps))]
+    data = [{**entry(engine.model_id, list(caps)), "role": role}]
     if lora is not None:
         for name in lora.resident_names():
             data.append({**entry(f"{engine.model_id}:{name}",
                                  [c for c in caps if c != "embeddings"]),
-                         "lora": name})
+                         "role": role, "lora": name})
     return data
 
 
@@ -1222,6 +1345,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="most prefix donors held at once (default num_slots // 2, "
              "always leaving one serving slot)")
     parser.add_argument(
+        "--min-prefix-len", type=int, default=None,
+        help="shortest prompt prefix worth caching, in tokens (default: "
+             "the cache's alignment)")
+    parser.add_argument(
+        "--role", choices=ROLES, default=None,
+        help="serving role (default both; also via LLMLB_ROLE): 'split' runs "
+             "a prefill pool and a decode pool as two step loops over one "
+             "paged KV pool, handing a request off by its block-table row; "
+             "'prefill' / 'decode' advertise a cross-process role to the "
+             "gateway, which prefills on a prefill engine "
+             "(/v1/handoff/prefill) and hands the stream to a decode engine "
+             "(/v1/handoff)")
+    parser.add_argument(
+        "--disagg-prefill-slots", type=int, default=None,
+        help="slots of the prefill pool under --role split (default "
+             "num_slots // 4, at least 1; also via "
+             "LLMLB_DISAGG_PREFILL_SLOTS); the rest form the decode pool")
+    parser.add_argument(
         "--spec-decode", choices=("on", "off"), default=None,
         help="speculative decoding default for requests without their own "
              "'speculative' knob (default off; also via LLMLB_SPEC_DECODE): "
@@ -1237,10 +1378,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: list[str] | None = None) -> None:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+def core_kwargs_from(args: argparse.Namespace) -> dict:
+    """The EngineCore keywords of parsed server arguments (flags left unset
+    leave the core's own default or environment variable in charge)."""
     core_kwargs = dict(num_slots=args.num_slots,
                        slot_capacity=args.slot_capacity, seed=args.seed,
                        kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
@@ -1253,6 +1393,13 @@ def main(argv: list[str] | None = None) -> None:
         core_kwargs["prefix_cache"] = args.prefix_cache == "on"
     if args.prefix_cache_slots is not None:
         core_kwargs["prefix_cache_slots"] = max(0, args.prefix_cache_slots)
+    if args.min_prefix_len is not None:
+        core_kwargs["min_prefix_len"] = max(1, args.min_prefix_len)
+    if args.role is not None:
+        core_kwargs["role"] = args.role
+    if args.disagg_prefill_slots is not None:
+        core_kwargs["disagg_prefill_slots"] = max(
+            1, args.disagg_prefill_slots)
     if args.prefill_buckets:
         core_kwargs["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
@@ -1264,6 +1411,14 @@ def main(argv: list[str] | None = None) -> None:
         core_kwargs["spec_max_draft"] = max(1, args.spec_max_draft)
     if args.spec_ngram is not None:
         core_kwargs["spec_ngram"] = max(1, args.spec_ngram)
+    return core_kwargs
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    core_kwargs = core_kwargs_from(args)
     if not args.device.startswith("cpu"):
         # before the first in-process CUDA call: a card that does not come
         # up exits here with the probe's evidence, never on the CPU

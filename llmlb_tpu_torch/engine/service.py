@@ -2,20 +2,22 @@
 
 Counterpart of `Engine` in `llmlb_tpu/engine/service.py`: chat templating,
 token encode/decode, stop-sequence handling and usage accounting over the
-core's thread-side event queues, the adoption of a stream another engine
-started (`adopt_stream`, behind /v1/resume, landing its KV pages when the
-origin shipped them) and the embedding forward
-(`embed`, behind /v1/embeddings). The port's HTTP server runs one thread per
-connection, so `stream` and `adopt_stream` are plain generators (the
-reference's are async), and a request's grammar constraint compiles on the
-caller's thread before the submit (the reference's executor): never on the
-step loop.
+core's thread-side event queues, the prefill side of a cross-process
+handoff (`prefill_handoff`, behind /v1/handoff/prefill), the adoption of a
+stream another engine started (`adopt_stream`, behind /v1/handoff and
+/v1/resume, landing its KV pages when the origin shipped them) and the
+embedding forward (`embed`, behind /v1/embeddings). The port's HTTP server
+runs one thread per connection, so `stream` and `adopt_stream` are plain
+generators and `prefill_handoff` a plain function (the reference's are
+async), and a request's grammar constraint compiles on the caller's thread
+before the submit (the reference's executor): never on the step loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 import uuid
 from typing import Iterator
 
@@ -173,6 +175,59 @@ class Engine:
             return None
         return self.constraint_compiler.compile_spec(sampling.constraint)
 
+    def prefill_handoff(
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams,
+        emit_tokens: int = 1,
+        request_id: str | None = None,
+    ) -> tuple[list[int], str | None, dict | None]:
+        """The prefill side of the cross-process handoff: admission and
+        prefill, then the first `emit_tokens` tokens committed, then stop.
+        Returns (committed ids, finish reason, kv_pages). The finish is
+        None when the request has more to generate (the handoff: the caller
+        wraps the ids in a wire payload for a decode engine to adopt), else
+        its natural finish ("stop", "length") inside the window. kv_pages
+        is the row's serialized KV pages in the handoff case when this
+        engine ships pages, else None. Token-level on purpose: the adopter
+        owns detokenization and stop sequences, so it sees the token
+        sequence an uninterrupted run would."""
+        k = max(1, int(emit_tokens))
+        bounded = dataclasses.replace(
+            sampling, max_tokens=min(sampling.max_tokens, k))
+        request = Request(prompt_ids=list(prompt_ids), sampling=bounded,
+                          request_id=_request_id(request_id),
+                          compiled_constraint=self._compile(sampling))
+        # the budgeted finish serializes the row's pages before they free
+        request.export_kv = self.core.kv_ship
+        self._submit(request)
+        committed: list[int] = []
+        finish: str | None = None
+        try:
+            while True:
+                kind, value = request.events.get()
+                if kind == "error":
+                    raise EngineError(str(value))
+                if kind == "token":
+                    committed.append(int(value))
+                else:  # done
+                    finish = str(value)
+                    break
+        finally:
+            if finish is None:
+                request.cancel()
+        if (finish == "length" and len(committed) >= k
+                and sampling.max_tokens > k):
+            # cut at the window, not a real finish: the stream goes on on
+            # whichever engine adopts it
+            self.core.metrics.record_handoff("emitted")
+            if self.core.flightrec.enabled:
+                self.core.flightrec.emit(request.request_id,
+                                         "handoff_emitted",
+                                         tokens=len(committed))
+            return committed, None, request.kv_export
+        return committed, finish, None
+
     def adopt_stream(
         self,
         prompt_ids: list[int],
@@ -181,6 +236,7 @@ class Engine:
         stop: list[str] | None = None,
         request_id: str | None = None,
         kv_pages: dict | None = None,
+        emitted_at: float = 0.0,
     ) -> Iterator[StreamDelta]:
         """Continue a stream another engine started (or this one, before a
         failover): `committed_ids` are the tokens its client already holds.
@@ -201,12 +257,23 @@ class Engine:
         reached) ends here without a submit. A constrained stream's grammar
         cursor is rebuilt by walking the committed tokens, and a speculating
         one's drafter is indexed over the prompt and the committed tokens
-        (the origin's drafter at the handoff point)."""
+        (the origin's drafter at the handoff point). Every adoption counts
+        as an "adopted" handoff, with its latency since `emitted_at`, the
+        wire's wall-clock stamp (/v1/handoff; 0 for /v1/resume, which has
+        none)."""
         committed = [int(t) for t in committed_ids]
         bad = [t for t in committed if not 0 <= t < self.core.cfg.vocab_size]
         if bad:
             raise ValueError(f"committed token id {bad[0]} out of range for "
                              f"vocab size {self.core.cfg.vocab_size}")
+        # the wire stamp is time.time(): the latency stays in that clock
+        latency = max(0.0, time.time() - emitted_at) if emitted_at else None
+        self.core.metrics.record_handoff("adopted", latency)
+        if request_id and self.core.flightrec.enabled:
+            attrs = {"committed": len(committed)}
+            if latency is not None:
+                attrs["wire_latency_s"] = round(latency, 6)
+            self.core.flightrec.emit(request_id, "adopted", **attrs)
         detok = IncrementalDetokenizer(self.tokenizer)
         text = "".join(detok.push(t) for t in committed)
         hit = _find_stop(text, [s for s in (stop or []) if s])
@@ -233,9 +300,6 @@ class Engine:
                                spec_k=spec_k),
             kv_restore=self._kv_restore_of(kv_pages, committed),
             compiled_constraint=compiled)
-        if request_id and self.core.flightrec.enabled:
-            self.core.flightrec.emit(request_id, "adopted",
-                                     committed=len(committed))
         self._submit(request)
         return self._deltas(request, stop, committed)
 
@@ -494,6 +558,8 @@ class Engine:
             "structured": self.core.structured_info(),
             # speculative decoding: the knobs and acceptance figures
             "spec": self.core.spec_info(),
+            # disaggregation: the role, the split's pools, the handoffs
+            "disagg": self.core.disagg_info(),
             # live roofline: MFU and memory-bandwidth utilization against
             # the device's spec-sheet peaks
             "perf": self.core.perf_info(),

@@ -214,8 +214,11 @@ def test_models_advertise_embeddings(server):
     base, _engine = server
     with urllib.request.urlopen(base + "/v1/models", timeout=30) as resp:
         models = json.loads(resp.read())["data"]
+    # the reference's list for a combined engine (role "both"), the
+    # disaggregation roles included
     assert models[0]["capabilities"] == ["chat_completion", "structured_outputs",
-                                         "embeddings"]
+                                         "embeddings", "prefill", "decode"]
+    assert models[0]["role"] == "both"
 
 
 # ----------------------------------------------------------- completions

@@ -363,3 +363,27 @@ async def test_gateway_proxies_chat_to_the_port(server, jax_chat_stream,
         assert chunks[-2]["choices"][0]["finish_reason"] == "length"
         assert chunks[-1]["usage"]["completion_tokens"] == MAX_TOKENS
     assert whole["usage"]["completion_tokens"] == MAX_TOKENS
+
+
+@pytest.mark.parametrize("env,kwarg,want,warns", [
+    ("3", None, 3, False),
+    ("0", None, 1, False),
+    ("3", 2, 2, False),
+    ("fast", None, 1, True),
+    (None, None, 1, False),
+])
+def test_decode_burst_reads_the_environment(monkeypatch, caplog, env, kwarg,
+                                            want, warns):
+    """LLMLB_DECODE_BURST sets the burst when the keyword does not, as in
+    the reference: a non-integer warns and takes the default (1 on the
+    CPU)."""
+    if env is None:
+        monkeypatch.delenv("LLMLB_DECODE_BURST", raising=False)
+    else:
+        monkeypatch.setenv("LLMLB_DECODE_BURST", env)
+    with caplog.at_level("WARNING", logger="llmlb_tpu_torch.engine.scheduler"):
+        core = EngineCore(get_preset("debug-tiny"), device="cpu",
+                          num_slots=2, slot_capacity=64,
+                          prefill_buckets=(16,), decode_burst=kwarg)
+    assert core.decode_burst == want
+    assert ("LLMLB_DECODE_BURST" in caplog.text) == warns

@@ -307,7 +307,8 @@ def _full_render(stats) -> str:
         perf={"available": True, "mfu": 0.1, "hbm_bw_utilization": 0.2,
               "flops_per_token": 1.0, "bytes_per_token": 2.0},
         quant={"mode": "off", "param_bytes": 0},
-        sched={"queued_by_class": {"high": 0, "normal": 0, "low": 0}},
+        sched={"queued_by_class": {"high": 0, "normal": 0, "low": 0},
+               "queued_by_role": {"prefill": 0, "decode": 0}},
         lora={"enabled": True, "resident": [], "available": [],
               "max_adapters": 1},
         flightrec={"enabled": True},
@@ -321,8 +322,8 @@ def _full_render(stats) -> str:
 def test_render_emits_only_reference_series_all_documented():
     """Every family the port renders is one the reference renders, under
     its name, and is documented in docs/monitoring/README.md (the
-    reference's check_metrics_docs rule); the port leaves out only the
-    disaggregation series."""
+    reference's check_metrics_docs rule), and the port renders every one
+    of them (the role queue depths with a split engine's `sched`)."""
     from llmlb_tpu_torch.engine.scheduler import EngineStats
     from scripts.check_metrics_docs import DOCS, undocumented
 
@@ -332,10 +333,7 @@ def test_render_emits_only_reference_series_all_documented():
     names = _families(text)
     ref = _ref_series()
     assert names <= ref, names - ref
-    assert ref - names == {"llmlb_engine_handoff_total",
-                           "llmlb_engine_handoff_backlog",
-                           "llmlb_engine_handoff_latency_seconds",
-                           "llmlb_engine_queue_depth_role"}
+    assert ref - names == set()
     assert undocumented(names, DOCS.read_text()) == []
     # Prometheus text: every sample line is `name{labels} value`
     for line in text.splitlines():
@@ -438,7 +436,7 @@ async def test_routes_carry_the_reference_shapes(ref_engine, port_server):
     counters; the port's records add `device_ms`), the same lifecycle in
     the timeline, the reference's series in /metrics, and /api/health's
     `gpu`, `perf` and `metrics` blocks the reference's `tpu`, `perf` and
-    `metrics` (less the handoff keys) key for key."""
+    `metrics` key for key."""
     engine, base = port_server
     rid = "gw-obs-routes-1"
     ref = await _ref_routes(ref_engine, rid)
@@ -472,10 +470,8 @@ async def test_routes_carry_the_reference_shapes(ref_engine, port_server):
     pnames, rnames = _families(port["/metrics"][1]), _families(
         ref["/metrics"][1])
     assert pnames <= _ref_series()
-    # the engines' own blocks: the same families, less the handoff ones
-    assert pnames == rnames - {"llmlb_engine_handoff_total",
-                               "llmlb_engine_handoff_backlog",
-                               "llmlb_engine_handoff_latency_seconds"}
+    # the engines' own blocks: the same families
+    assert pnames == rnames
 
     rh, ph = ref["/api/health"][1], port["/api/health"][1]
     tpu, gpu = rh["tpu"], ph["gpu"]
@@ -488,8 +484,7 @@ async def test_routes_carry_the_reference_shapes(ref_engine, port_server):
     assert gpu["hbm_used_bytes"] == tpu["hbm_used_bytes"] == 0
     assert gpu["chip_count"] == 1  # one card an engine; JAX's CPU mesh has 8
     assert set(ph["perf"]) == set(rh["perf"])
-    assert set(ph["metrics"]) == set(rh["metrics"]) - {
-        "handoff_total", "handoff_backlog", "handoff_latency_p50_s"}
+    assert set(ph["metrics"]) == set(rh["metrics"])
     assert ph["metrics"]["tokens_total"] == engine.core.stats().total_tokens
     assert ref["/api/system"][1]["perf"]["available"] is False
     assert set(port["/api/system"][1]["perf"]) == set(

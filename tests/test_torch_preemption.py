@@ -10,7 +10,11 @@ engine's uninterrupted streams for the same weights and prompts:
 - a priority-2 victim on a one-slot engine parked by a priority-0 arrival,
   greedy and seeded, paged and dense, with an adapter, and with a prompt
   longer than the largest bucket (chunked on resume as when cold): its
-  stream is the JAX engine's;
+  stream is the JAX engine's; and on a split engine (`role="split"`, one
+  prefill and one decode slot, with and without speculation), where the
+  arrival's adoption parks the victim mid-generation, which resumes
+  through the prefill pool and hands off a second time, as the reference's
+  `split` and `split-spec` cases do;
 - a page pool too small for two growing rows: the loser parks instead of
   finishing with "length" (the reference itself fails this today);
 - the resumed row's forced tail writes the KV rows the uninterrupted run
@@ -119,7 +123,18 @@ def _core(weights, num_slots=1, **kw):
 
 
 def _step(core) -> None:
-    """One iteration of the step loop's body, on this thread."""
+    """One iteration of the step loop's body, on this thread (of both split
+    loops' bodies, each under its thread's tag, for a split engine)."""
+    if core.split is not None:
+        core._tls.tag = "prefill"
+        core.split.pump_handoffs()
+        core._try_insert()
+        core._advance_prefill()
+        core._tls.tag = "decode"
+        core._decode_active()
+        core.split.pump_handoffs()
+        core._tls.tag = "main"
+        return
     if core._drain_park_requested:
         core._drain_park_requested = False
         core._drain_park_all()
@@ -256,18 +271,27 @@ def test_sched_info(cold_core):
 
 PARK_CASES = [("paged", "greedy"), ("paged", "seeded"), ("dense", "greedy"),
               ("dense", "seeded"), ("paged", "greedy-lora"),
-              ("paged", "seeded-lora"), ("dense", "greedy-long")]
+              ("paged", "seeded-lora"), ("dense", "greedy-long"),
+              ("split", "greedy"), ("split", "seeded"),
+              ("split-spec", "greedy"), ("split-spec", "seeded")]
+# the engines of the layouts beside the two KV layouts: one prefill and one
+# decode slot, so the arrival's adoption is the preemption point
+SPLIT_KW = {"split": dict(role="split", disagg_prefill_slots=1, num_slots=2),
+            "split-spec": dict(role="split", disagg_prefill_slots=1,
+                               num_slots=2, spec_decode=True)}
 
 
 @pytest.mark.parametrize("layout,case", PARK_CASES,
                          ids=[f"{a}-{b}" for a, b in PARK_CASES])
 def test_priority_park_resume_is_the_jax_stream(weights, lora_dir,
                                                 jax_streams, layout, case):
-    """One slot: the priority-2 victim decodes 5 tokens, a priority-0
-    request arrives and parks it, and its resumed stream is the JAX
-    engine's uninterrupted one."""
+    """One decoding slot: the priority-2 victim decodes 5 tokens, a
+    priority-0 request arrives and parks it, and its resumed stream is the
+    JAX engine's uninterrupted one. On a split engine the victim hands off
+    twice: once cold, once after its resume through the prefill pool."""
     prompt, sampling, adapter = CASES[case]
-    core = _core(weights, kv_layout=layout,
+    kw = SPLIT_KW.get(layout, {"kv_layout": layout})
+    core = _core(weights, **kw,
                  **({"lora_dir": lora_dir, "lora_rank_cap": 8}
                     if adapter else {}))
     victim = core.submit(_req(prompt, 2, lora=adapter, **sampling))
@@ -281,6 +305,11 @@ def test_priority_park_resume_is_the_jax_stream(weights, lora_dir,
     if adapter:
         assert core.lora_info()["active"] == {}
         assert jax_streams[case] != jax_streams[case.replace("-lora", "")]
+    if core.split is not None:
+        # the victim twice, the arrival once; no prefill on the decode loop
+        assert core.metrics.handoff_total["in_process"] == 3
+        assert core.prefill_dispatch_by_loop["decode"] == 0
+        assert core.page_pool.available() == core.page_pool.total
 
 
 def test_same_class_waits_instead_of_parking(weights):

@@ -13,8 +13,9 @@ tool call is answered in the `tool_calls` shape; "required" with several
 tools is served unconstrained, and the malformed tool shapes get the
 reference `_forced_tool`'s messages.
 The length and stop fields are read under every name the reference reads
-(`max_output_tokens`, `stop_sequences`). One debug-tiny server on the CPU
-serves every case.
+(`max_output_tokens`, `stop_sequences`). The engine flags the reference
+takes (`--min-prefix-len`, `--role`, `--disagg-prefill-slots`) parse and
+reach the core. One debug-tiny server on the CPU serves every case.
 """
 
 import json
@@ -26,6 +27,8 @@ import pytest
 from llmlb_tpu.engine import server as jax_server
 from llmlb_tpu.structured.openai_api import _forced_tool, inspect_request
 from llmlb_tpu_torch.engine import server as port_server
+from llmlb_tpu_torch.engine.presets import get_preset
+from llmlb_tpu_torch.engine.scheduler import EngineCore
 from llmlb_tpu_torch.engine.server import start_server
 from llmlb_tpu_torch.engine.service import Engine
 
@@ -252,3 +255,30 @@ def test_accepted_values_ride_on_the_sampling_params():
     default = port_server._sampling_from(CHAT)
     assert (default.priority, default.speculative, default.deadline_ms) == (
         1, None, None)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--min-prefix-len", "64"], 64),
+    (["--min-prefix-len", "0"], 1),
+    ([], None),
+])
+def test_min_prefix_len_reaches_the_core(argv, want):
+    """--min-prefix-len parses, as the reference's flag does, and reaches
+    EngineCore.min_prefix_len as max(1, n); unset, the core's default (the
+    cache's alignment) stands."""
+    args = port_server.build_parser().parse_args(["--device", "cpu", *argv])
+    core = EngineCore(get_preset("debug-tiny"), device="cpu",
+                      **port_server.core_kwargs_from(args))
+    assert core.min_prefix_len == (want or core.prefix_align)
+    assert core.prefix_cache.min_len == core.min_prefix_len
+
+
+def test_role_flags_reach_the_core():
+    args = port_server.build_parser().parse_args(
+        ["--device", "cpu", "--role", "split", "--disagg-prefill-slots", "0"])
+    core = EngineCore(get_preset("debug-tiny"), device="cpu",
+                      **port_server.core_kwargs_from(args))
+    assert core.role == "split"
+    assert len(core.split.prefill_pool) == 1  # max(1, n), as the reference
+    with pytest.raises(SystemExit):
+        port_server.build_parser().parse_args(["--role", "shard"])
