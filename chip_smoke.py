@@ -294,6 +294,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
              gathers), every flash_prefill, paged_flash_extend_quant and
              paged_flash_decode_quant call within the bf16 limit of its
              plain version on the same inputs.
+12. multimodal — the three services of the port's server, random from seed
+             0, in fp32 as the reference serves them (no Pallas kernel lies
+             on this path: convolutions, products and FFTs are PyTorch
+             calls). (a) Whisper-large-v3 at full width and depth (its
+             published config.json through WhisperConfig.from_hf_config:
+             d_model 1280, 32 + 32 layers, 20 heads, 128 mels, vocab 51866,
+             1.55 B parameters): a 10 s chirp through
+             transcribe_wav_bytes with max_tokens 64 (mel, encoder and
+             per-token decoder ms, wall, real-time factor, weights and peak
+             GiB logged); the greedy ids must be the argmax of one
+             teacher-forced decoder_logits pass over them (the smallest
+             top-2 margin logged); at full width and 2 layers the card's
+             mel (over the chirp and three seeded tone mixes), encoder
+             states and first-step logits within stated fp32 limits of the
+             CPU's. (a), (c) and (d) start from PyTorch's own TF32
+             switches (cuDNN's on), as a server process does, so the
+             models' own fp32 guard is what the checks cover; the mel and
+             the encoder states are also read under a TF32 control. (b) TTS at TtsConfig(): a 200-character
+             text (mel ms, Griffin-Lim ms, seconds of audio a second); two
+             card runs give the same WAV bytes; the mel and the vocoder's
+             audio of the same mel within a stated limit of the CPU's. (c)
+             DDIM at DiffusionConfig(), 20 steps with guidance: n = 1 and
+             n = 4 (seconds an image); the starting noise within
+             _threefry.normal's bound of the CPU's draw (the share of
+             draws bit for bit logged); one UNet call on the same inputs
+             within 1e-4 of its largest |eps| of the CPU's; n = 1 images
+             at four seeds within a stated limit of the CPU's (the sampler
+             amplifies a UNet's fp32 differences); the UNet call and one
+             image also read under TF32 convolutions, the control. (d) Over HTTP: the port's server
+             in-process with the three services beside the bf16
+             Llama-3-8B serving core: /v1/models lists the three with
+             their capabilities, speech answers a WAV, a multipart
+             transcription JSON, images two PNGs; a server without the
+             services answers 404; cuDNN's TF32, on when the requests
+             began, is off after them.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -302,6 +337,7 @@ The second-to-last line is one JSON object {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import queue
@@ -6870,6 +6906,473 @@ def phase_mixtral_bf16(dev: dict) -> dict:
             "init_s": init_s, "gib": gib}
 
 
+# ----------------------------------------------------------------- multimodal
+
+# openai/whisper-large-v3's config.json: the fields
+# WhisperConfig.from_hf_config reads (1.55 B parameters, fp32 as served)
+WHISPER_LARGE_V3 = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
+                    "encoder_layers": 32, "decoder_layers": 32,
+                    "encoder_attention_heads": 20,
+                    "decoder_attention_heads": 20,
+                    "max_source_positions": 1500, "max_target_positions": 448,
+                    "decoder_start_token_id": 50258, "eos_token_id": 50257}
+MM_AUDIO_S = 10.0  # the chirp's seconds (1000 mel frames, bucket 1024)
+MM_ASR_TOKENS = 64
+MM_CHECK_LAYERS = 2  # the card-versus-CPU whisper check's depth
+MM_TTS_TEXT = ("The port speaks: a quick brown fox jumps over the lazy dog "
+               "while the card renders every frame of its mel spectrogram, "
+               "then Griffin-Lim turns the magnitudes back into a waveform "
+               "of sixteen thousand samples a second.")[:200]
+MM_PROMPT = "a red square on a blue field"
+MM_STEPS, MM_SEED = 20, 1234
+MM_IMAGE_SEEDS = (MM_SEED, 7, 42, 2024)  # the card-vs-CPU image readings
+MM_MEL_SEEDS = (1, 2, 3)  # seeded tone mixes beside the chirp
+# fp32 on both sides: sums in another order. Whisper's encoder states are
+# layer-normed (~unit scale), its logits ~N(0, 1): 1e-4 and 1e-3 are ~100x
+# the sum-order error of 1280- and 5120-term fp32 sums. The log-mel keeps
+# bins down to 1e-8 of the peak power, where a float32 FFT's error (~1e-7
+# of the peak amplitude) is ~1e-3 of the bin's amplitude: (log10 + 4) / 4
+# moves by up to ~1e-3 / ln(10) / 2, so 1e-3. The TTS mel (|x| up to ~3)
+# and the vocoder's audio (peak 0.95): 1e-4 (the port and the reference
+# differed by 3.3e-6 and 1.3e-6 on the CPU at TtsConfig()). One UNet call
+# on the same inputs: 1e-4 of its largest |eps|. A whole DDIM run
+# amplifies: x0 = (x - sqrt(1 - a) eps) / sqrt(a) divides by sqrt(alpha_bar)
+# ~ 0.0064 at its first steps, and on the CPU a 1e-6 relative change of
+# every UNet output moved the final image by 1.1e-3.
+# Readings on an H100 (PERF.md, section 6), fp32 / the TF32 control: the mel
+# over four signals 8.0e-5..1.16e-4 / 1.36e-4 (TF32 products: this check
+# cannot tell them apart); encoder states 3.7e-6 / 6.17e-4 (TF32
+# convolutions); one UNet call 3.24e-6 / 9.16e-4; the image at four seeds
+# 7.1e-3..2.55e-2 / 1.48. The image limit, 0.1, is 3.9x the largest fp32
+# reading and 15x under TF32's.
+MM_MEL_ATOL, MM_WHISPER_ENC_ATOL, MM_WHISPER_LOGIT_ATOL = 1e-3, 1e-4, 1e-3
+MM_TTS_ATOL, MM_EPS_REL, MM_IMAGE_ATOL = 1e-4, 1e-4, 0.1
+MM_NOISE_ATOL = 1e-6  # _threefry.normal's stated bound
+
+
+def _chirp(seconds: float, rate: int = 16000):
+    """A 200 Hz -> 4 kHz linear chirp at half scale (float32)."""
+    import numpy as np
+
+    t = np.arange(int(seconds * rate)) / rate
+    f0, f1 = 200.0, 4000.0
+    phase = 2 * np.pi * (f0 * t + (f1 - f0) * t ** 2 / (2 * seconds))
+    return (0.5 * np.sin(phase)).astype(np.float32)
+
+
+def _mel_signal(seed: int, seconds: float = MM_AUDIO_S, rate: int = 16000):
+    """Three seeded tones (100 Hz - 6 kHz, amplitudes 0.01 - 0.3) over a
+    noise floor 60 dB below them: a wide dynamic range, as speech has."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    x = sum(a * np.sin(2 * np.pi * f * t + ph) for a, f, ph in zip(
+        rng.uniform(0.01, 0.3, 3), rng.uniform(100, 6000, 3),
+        rng.uniform(0, 2 * np.pi, 3)))
+    return (x + 1e-3 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def _tf32_defaults() -> None:
+    """PyTorch's own TF32 switches, as a server process starts with them:
+    cuDNN's on, cuBLAS's off. phase_device turned both off for the
+    kernels' checks; the multimodal models must keep their convolutions in
+    fp32 by themselves (models/_common.py fp32_convolutions)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@contextlib.contextmanager
+def _tf32_control(convs_of=None, matmul: bool = False):
+    """The control a card-vs-CPU limit is read against: cuDNN's fp32
+    convolutions in TF32 with the model module `convs_of`'s fp32 guard
+    lifted, and (matmul) cuBLAS's fp32 products in TF32; the switches and
+    the guard restored after."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    guard = convs_of.fp32_convolutions if convs_of else None
+    if convs_of:
+        convs_of.fp32_convolutions = lambda x: None
+        torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        if convs_of:
+            convs_of.fp32_convolutions = guard
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _mm_whisper(dev: dict) -> tuple:
+    """(a): Whisper-large-v3 at full width and depth, random from seed 0."""
+    import dataclasses
+
+    import torch
+
+    from llmlb_tpu_torch.engine.asr import AsrEngine, decode_wav
+    from llmlb_tpu_torch.engine.tts import encode_wav
+    from llmlb_tpu_torch.models import whisper
+    from llmlb_tpu_torch.models._common import param_bytes
+
+    smi = dev["smi"]
+    _tf32_defaults()
+    cfg = whisper.WhisperConfig.from_hf_config(WHISPER_LARGE_V3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    asr = AsrEngine.from_random(cfg, model_id="whisper-large-v3", seed=0,
+                                device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gib = param_bytes(asr.params) / 2**30
+    wav = encode_wav(_chirp(MM_AUDIO_S))
+    asr.transcribe_wav_bytes(wav, max_tokens=4)  # warm-up: cuBLAS, cuFFT
+    t0 = time.perf_counter()
+    text = asr.transcribe_wav_bytes(wav, max_tokens=MM_ASR_TOKENS)
+    wall = time.perf_counter() - t0
+    tm, ids = asr.last_timings, asr.last_tokens
+    if text != " ".join(map(str, ids)) or not ids:
+        raise AssertionError(f"multimodal asr: text {text!r}, ids {ids}")
+    steps_ms = [s * 1e3 for s in tm["step_s"]]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"multimodal asr [{smi}]: whisper-large-v3 ({whisper.num_params(cfg)} "
+        f"params, {gib:.2f} GiB fp32, init {init_s:.1f} s): a "
+        f"{MM_AUDIO_S:.0f} s chirp -> {len(ids)} ids in {wall * 1e3:.1f} ms "
+        f"(real-time factor {wall / MM_AUDIO_S:.4f}); mel "
+        f"{tm['mel_s'] * 1e3:.2f} ms, encoder {tm['encoder_s'] * 1e3:.2f} ms, "
+        f"decoder step ms min {min(steps_ms):.2f} / median "
+        f"{statistics.median(steps_ms):.2f} / max {max(steps_ms):.2f} "
+        f"(the whole decoder re-run a token, lengths padded to 8..128); "
+        f"peak {peak:.2f} GiB")
+    # the greedy ids are the argmax of one teacher-forced pass over them
+    audio, rate = decode_wav(wav)
+    mel = asr._mel_for(audio)
+    enc = whisper.encode_audio(asr.params, cfg, mel[None])
+    prompt = whisper.prompt_tokens(cfg)
+    seq = torch.tensor([prompt + ids], device="cuda")
+    logits = whisper.decoder_logits(asr.params, cfg, seq, enc)[0]
+    tail = logits[len(prompt) - 1:]
+    forced = tail.argmax(-1).tolist()
+    want = ids + ([cfg.eot_token] if len(ids) < MM_ASR_TOKENS else [])
+    top2 = tail.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    if forced[:len(want)] != want:
+        raise AssertionError(f"multimodal asr: greedy ids {want} are not the "
+                             f"teacher-forced argmax {forced}")
+    log(f"multimodal asr: the {len(ids)} greedy ids are the teacher-forced "
+        f"pass's argmax; smallest top-2 margin {margin:.5f}")
+    # the log-mel over the chirp and seeded tone mixes, and the chirp's
+    # with the filterbank product in TF32 (the control)
+    mel_errs = []
+    for a in [audio] + [_mel_signal(s) for s in MM_MEL_SEEDS]:
+        a = torch.from_numpy(a)
+        mel_errs.append(_max_diff(
+            whisper.log_mel_spectrogram(a.cuda(), cfg.n_mels),
+            whisper.log_mel_spectrogram(a, cfg.n_mels)))
+    with _tf32_control(matmul=True):
+        mel_tf32 = _max_diff(
+            whisper.log_mel_spectrogram(torch.from_numpy(audio).cuda(),
+                                        cfg.n_mels),
+            whisper.log_mel_spectrogram(torch.from_numpy(audio), cfg.n_mels))
+    mel_err = max(mel_errs)
+    del enc, logits
+    torch.cuda.empty_cache()
+
+    # full width, MM_CHECK_LAYERS layers: the card against the CPU
+    small = dataclasses.replace(cfg, encoder_layers=MM_CHECK_LAYERS,
+                                decoder_layers=MM_CHECK_LAYERS)
+    p_cpu = whisper.init_params(small, torch.Generator().manual_seed(1), "cpu")
+    p_gpu = whisper.params_from_numpy(p_cpu, small, "cuda")
+    m = mel.cpu()[None]
+    enc_c = whisper.encode_audio(p_cpu, small, m)
+    enc_g = whisper.encode_audio(p_gpu, small, m.cuda())
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    toks[0, :len(prompt)] = torch.tensor(prompt)
+    first_c = whisper.decoder_logits(p_cpu, small, toks, enc_c)[0, len(prompt) - 1]
+    first_g = whisper.decoder_logits(p_gpu, small, toks.cuda(),
+                                     enc_g)[0, len(prompt) - 1]
+    enc_err, logit_err = _max_diff(enc_g, enc_c), _max_diff(first_g, first_c)
+    with _tf32_control(convs_of=whisper):
+        enc_tf32 = _max_diff(whisper.encode_audio(p_gpu, small, m.cuda()),
+                             enc_c)
+    ok = (mel_err <= MM_MEL_ATOL and enc_err <= MM_WHISPER_ENC_ATOL
+          and logit_err <= MM_WHISPER_LOGIT_ATOL
+          and int(first_g.argmax()) == int(first_c.argmax()))
+    log(f"multimodal asr: card vs CPU at full width, {MM_CHECK_LAYERS} "
+        f"layers: mel max_abs_err {mel_err:.3g} (limit {MM_MEL_ATOL}; "
+        f"{len(mel_errs)} signals "
+        f"{', '.join(f'{e:.3g}' for e in mel_errs)}; TF32 products "
+        f"{mel_tf32:.3g}), encoder states "
+        f"{enc_err:.3g} (limit {MM_WHISPER_ENC_ATOL}; TF32 convolutions "
+        f"{enc_tf32:.3g}), first-step logits "
+        f"{logit_err:.3g} (limit {MM_WHISPER_LOGIT_ATOL}), argmax "
+        f"{int(first_g.argmax())} / {int(first_c.argmax())}")
+    if not ok:
+        raise AssertionError("multimodal asr: the card's whisper is not the "
+                             "CPU's within the stated limits")
+    del p_gpu, enc_g
+    torch.cuda.empty_cache()
+    return {"asr_wall_s": wall, "rtf": wall / MM_AUDIO_S,
+            "mel_ms": tm["mel_s"] * 1e3, "encoder_ms": tm["encoder_s"] * 1e3,
+            "decoder_step_ms_median": statistics.median(steps_ms),
+            "asr_tokens": len(ids), "whisper_gib": gib,
+            "whisper_peak_gib": peak, "asr_margin": margin,
+            "whisper_err": [mel_err, enc_err, logit_err],
+            "mel_errs": mel_errs, "mel_tf32": mel_tf32,
+            "encoder_tf32": enc_tf32}, asr
+
+
+def _mm_tts(dev: dict) -> dict:
+    """(b): TTS at TtsConfig(), random from seed 0."""
+    import numpy as np
+    import torch
+
+    from llmlb_tpu_torch.engine.asr import decode_wav
+    from llmlb_tpu_torch.engine.tts import TtsEngine
+    from llmlb_tpu_torch.models import tts
+
+    cfg = tts.TtsConfig()
+    eng = TtsEngine.from_random(cfg, model_id="tts", seed=0, device="cuda")
+    eng.synthesize("warm up")
+    wav1 = eng.synthesize(MM_TTS_TEXT)
+    tm = dict(eng.last_timings)
+    t0 = time.perf_counter()
+    wav2 = eng.synthesize(MM_TTS_TEXT)
+    wall = time.perf_counter() - t0
+    if wav1 != wav2:
+        raise AssertionError("multimodal tts: two card runs of one text gave "
+                             "different WAV bytes")
+    audio, rate = decode_wav(wav1)
+    rate_x = tm["audio_s"] / (tm["mel_s"] + tm["vocoder_s"])
+    log(f"multimodal tts [{dev['smi']}]: TtsConfig() ({len(MM_TTS_TEXT)} "
+        f"chars, bucket 256, 2048 frames): mel {tm['mel_s'] * 1e3:.2f} ms, "
+        f"Griffin-Lim (24 rounds) {tm['vocoder_s'] * 1e3:.2f} ms, "
+        f"{tm['audio_s']:.2f} s of audio: {rate_x:.1f} s of audio a second "
+        f"(request wall {wall * 1e3:.1f} ms); two runs' WAV bytes equal")
+    data = MM_TTS_TEXT.encode()
+    ids = np.zeros((1, 256), np.int32)
+    ids[0, :len(data)] = np.frombuffer(data, np.uint8)
+    args = (torch.from_numpy(ids), torch.tensor([len(data)]),
+            torch.tensor([tts.voice_id("alloy")]))
+    p_cpu = tts.params_from_numpy(eng.params, cfg, "cpu")
+    mel_g = tts.synthesize_mel(eng.params, cfg, *(a.cuda() for a in args))[0]
+    mel_c = tts.synthesize_mel(p_cpu, cfg, *args)[0]
+    audio_g = tts.griffin_lim(mel_g)
+    audio_c = tts.griffin_lim(mel_g.cpu())
+    mel_err, audio_err = _max_diff(mel_g, mel_c), _max_diff(audio_g, audio_c)
+    log(f"multimodal tts: card vs CPU: mel max_abs_err {mel_err:.3g}, "
+        f"Griffin-Lim audio of the same mel {audio_err:.3g} (limit "
+        f"{MM_TTS_ATOL} each); WAV {len(audio)} samples at {rate} Hz")
+    if mel_err > MM_TTS_ATOL or audio_err > MM_TTS_ATOL:
+        raise AssertionError("multimodal tts: the card is not the CPU within "
+                             "the stated limit")
+    return {"engine": eng, "tts_mel_ms": tm["mel_s"] * 1e3,
+            "tts_vocoder_ms": tm["vocoder_s"] * 1e3,
+            "tts_audio_s_per_s": rate_x, "tts_err": [mel_err, audio_err]}
+
+
+def _mm_image(dev: dict) -> dict:
+    """(c): DDIM at DiffusionConfig(), 20 steps, random from seed 0."""
+    import numpy as np
+    import torch
+
+    from llmlb_tpu_torch.engine.image import ImageEngine, to_uint8
+    from llmlb_tpu_torch.models import diffusion
+
+    _tf32_defaults()
+    cfg = diffusion.DiffusionConfig()
+    eng = ImageEngine.from_random(cfg, model_id="diffusion", seed=0,
+                                  sample_steps=MM_STEPS, device="cuda")
+    eng.sample(MM_PROMPT, 1, seed=0)  # warm-up: cuDNN's algorithm choice
+    per_image, images = {}, {}
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images[n] = eng.sample(MM_PROMPT, n, seed=MM_SEED)
+        torch.cuda.synchronize()
+        per_image[n] = (time.perf_counter() - t0) / n
+    noise_g = diffusion.initial_noise(cfg, MM_SEED, 4, "cuda")
+    noise_c = diffusion.initial_noise(cfg, MM_SEED, 4, "cpu")
+    noise_err = _max_diff(noise_g, noise_c)
+    noise_eq = float((noise_g.cpu() == noise_c).float().mean())
+    cpu = ImageEngine(cfg, diffusion.params_from_numpy(eng.params, cfg, "cpu"),
+                      sample_steps=MM_STEPS, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.sample(MM_PROMPT, 1, seed=MM_SEED)
+    cpu_s = time.perf_counter() - t0
+    # one UNet call (the first step's, conditional and not) on the same
+    # inputs on both sides: no sampler between them
+    ids, lens = cpu.prompt_ids(MM_PROMPT)
+    ids, lens = ids.expand(2, -1), torch.cat([lens, torch.zeros_like(lens)])
+    t = torch.full((2,), diffusion._ddim_schedule(cfg, MM_STEPS)[0][0],
+                   dtype=torch.int32)
+    x = noise_c[:1].expand(2, -1, -1, -1)
+    eps_c = diffusion.unet_eps(cpu.params, cfg, x, t, ids, lens)
+    eps_g = diffusion.unet_eps(eng.params, cfg, x.cuda(), t.cuda(),
+                               ids.cuda(), lens.cuda())
+    eps_rel = _max_diff(eps_g, eps_c) / float(eps_c.abs().max())
+    img_errs = [_max_diff(images[1], want)] + [
+        _max_diff(eng.sample(MM_PROMPT, 1, seed=s),
+                  cpu.sample(MM_PROMPT, 1, seed=s))
+        for s in MM_IMAGE_SEEDS if s != MM_SEED]
+    img_err = max(img_errs)
+    with _tf32_control(convs_of=diffusion):  # the control
+        eps_tf32 = _max_diff(diffusion.unet_eps(
+            eng.params, cfg, x.cuda(), t.cuda(), ids.cuda(), lens.cuda()),
+            eps_c) / float(eps_c.abs().max())
+        img_tf32 = _max_diff(eng.sample(MM_PROMPT, 1, seed=MM_SEED), want)
+    px = np.abs(to_uint8(images[1]).astype(int)
+                - to_uint8(want).astype(int)).max()
+    png = eng.generate(MM_PROMPT, 1, seed=MM_SEED)[0]
+    log(f"multimodal image [{dev['smi']}]: DiffusionConfig() (64 px, base "
+        f"64, mults (1, 2, 4)), {MM_STEPS} DDIM steps with guidance: "
+        f"{per_image[1]:.3f} s an image at n = 1, {per_image[4]:.3f} s an "
+        f"image at n = 4 (the CPU: {cpu_s:.2f} s at n = 1); starting noise "
+        f"card vs CPU max_abs_err {noise_err:.3g} (limit {MM_NOISE_ATOL}), "
+        f"{noise_eq:.4f} of draws bit for bit; one UNet call vs the CPU's "
+        f"{eps_rel:.3g} of its largest |eps| (limit {MM_EPS_REL}; TF32 "
+        f"convolutions {eps_tf32:.3g}); n = 1 images vs the CPU's "
+        f"{img_err:.3g} (limit {MM_IMAGE_ATOL}; seeds {MM_IMAGE_SEEDS}: "
+        f"{', '.join(f'{e:.3g}' for e in img_errs)}; TF32 convolutions "
+        f"{img_tf32:.3g}), seed {MM_SEED}'s pixels within {px} levels; "
+        f"PNG {len(png)} bytes")
+    if noise_err > MM_NOISE_ATOL or eps_rel > MM_EPS_REL or \
+            img_err > MM_IMAGE_ATOL or png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("multimodal image: the card is not the CPU "
+                             "within the stated limits")
+    return {"engine": eng, "image_s_n1": per_image[1],
+            "image_s_n4": per_image[4], "image_err": img_err,
+            "image_errs": img_errs, "image_tf32": img_tf32,
+            "eps_rel": eps_rel, "eps_tf32": eps_tf32,
+            "noise_err": noise_err, "noise_bit_equal": noise_eq}
+
+
+def _mm_http(dev: dict, asr, tts_eng, image) -> dict:
+    """(d): the port's server in-process with the three services beside
+    the bf16 Llama-3-8B serving core; /v1/models, the three routes, and a
+    404 from a server without them."""
+    import base64
+    import io
+    import wave
+
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tts import encode_wav
+
+    import torch
+
+    engine = Engine.from_preset("llama-3-8b", device="cuda", eos_id=-1)
+    _tf32_defaults()
+    srv, thread = start_server(engine, asr=asr, tts=tts_eng, image=image)
+    bare, bare_thread = start_server(engine)
+    base = "http://%s:%d" % srv.server_address[:2]
+    bare_base = "http://%s:%d" % bare.server_address[:2]
+    times = {}
+    try:
+        with urllib.request.urlopen(base + "/v1/models", timeout=60) as r:
+            caps = {m["id"]: m["capabilities"]
+                    for m in json.loads(r.read())["data"]}
+        want = {asr.model_id: ["audio_transcription"],
+                tts_eng.model_id: ["audio_speech"],
+                image.model_id: ["image_generation"]}
+        if any(caps.get(k) != v for k, v in want.items()) or \
+                "llama-3-8b" not in caps:
+            raise AssertionError(f"multimodal http: /v1/models {caps}")
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            base + "/v1/audio/speech", headers={"Content-Type":
+                                                "application/json"},
+            data=json.dumps({"input": "Hello from the card.",
+                             "voice": "nova"}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            speech, ctype = r.read(), r.headers.get("Content-Type")
+        times["speech_s"] = time.perf_counter() - t0
+        with wave.open(io.BytesIO(speech), "rb") as wf:
+            frames = wf.getnframes()
+            if ctype != "audio/wav" or wf.getframerate() != 16000 or not frames:
+                raise AssertionError("multimodal http: speech is no WAV")
+        boundary = "chip-smoke-boundary"
+        form = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                'name="file"; filename="chirp.wav"\r\nContent-Type: '
+                "audio/wav\r\n\r\n").encode() + encode_wav(_chirp(2.0))
+        form += (f"\r\n--{boundary}\r\nContent-Disposition: form-data; "
+                 f'name="model"\r\n\r\n{asr.model_id}\r\n'
+                 f"--{boundary}--\r\n").encode()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            base + "/v1/audio/transcriptions", data=form,
+            headers={"Content-Type":
+                     f"multipart/form-data; boundary={boundary}"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            text = json.loads(r.read())["text"]
+        times["transcription_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _post(base + "/v1/images/generations",
+                   {"prompt": MM_PROMPT, "n": 2}, timeout=300) as r:
+            body = json.loads(r.read())
+        times["images_s"] = time.perf_counter() - t0
+        pngs = [base64.b64decode(d["b64_json"]) for d in body["data"]]
+        if len(pngs) != 2 or any(p[:8] != b"\x89PNG\r\n\x1a\n" for p in pngs):
+            raise AssertionError("multimodal http: images are no PNGs")
+        absent = []
+        for path, payload in (("/v1/audio/speech", {"input": "x"}),
+                              ("/v1/images/generations", {"prompt": "x"})):
+            try:
+                with _post(bare_base + path, payload, timeout=60) as r:
+                    absent.append(r.status)
+            except urllib.error.HTTPError as e:
+                absent.append(e.code)
+        if absent != [404, 404]:
+            raise AssertionError(f"multimodal http: absent services {absent}")
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("multimodal http: the served convolutions "
+                                 "left cuDNN's TF32 on")
+    finally:
+        for s, th in ((srv, thread), (bare, bare_thread)):
+            s.shutdown()
+            s.server_close()
+            th.join(timeout=10)
+        engine.shutdown()
+    log(f"multimodal http [{dev['smi']}]: /v1/models lists the three "
+        f"services beside llama-3-8b (bf16); speech {times['speech_s']:.2f} s "
+        f"({frames} samples), transcription of 2 s {times['transcription_s']:.2f}"
+        f" s ({len(text.split())} ids), 2 images {times['images_s']:.2f} s; "
+        "a server without them answers 404, 404; the served convolutions "
+        "turned cuDNN's TF32 off (PyTorch's default on before them)")
+    return times
+
+
+def phase_multimodal(dev: dict) -> dict:
+    """Whisper-large-v3 transcription, TTS with Griffin-Lim and DDIM image
+    generation on the card, each held against the CPU, then served over
+    HTTP beside the bf16 serving core."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, asr = _mm_whisper(dev)
+    tts_out = _mm_tts(dev)
+    image_out = _mm_image(dev)
+    tts_eng, image = tts_out.pop("engine"), image_out.pop("engine")
+    out.update(tts_out)
+    out.update(image_out)
+    out["http"] = _mm_http(dev, asr, tts_eng, image)
+    del asr, tts_eng, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=None,
@@ -6940,6 +7443,8 @@ def main(argv: list[str] | None = None) -> int:
             kv_layout="dense")
         stats_mix = run("serve mixtral", phase_serve_mixtral, dev)
         stats_mix["bf16"] = run("mixtral bf16", phase_mixtral_bf16, dev)
+        stats_mm = (None if args.serve_only
+                    else run("multimodal", phase_multimodal, dev))
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
@@ -6976,7 +7481,7 @@ def main(argv: list[str] | None = None) -> int:
                    if "disagg" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "mixtral": {
             k: v for k, v in stats_mix.items() if k != "launches"},
-        "tree": str(tree), "card": dev["smi"]}))
+        "multimodal": stats_mm, "tree": str(tree), "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,
                 "flash_extend": stats_dense,
                 **{n: stats_int8 for n in INT8_PATH if n != "flash_prefill"}}

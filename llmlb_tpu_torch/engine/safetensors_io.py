@@ -39,27 +39,32 @@ _TORCH_CODES = {torch.float32: "F32", torch.float16: "F16",
 _ITEMSIZE = {"F32": 4, "F16": 2, "BF16": 2}
 
 
+def read_header(path: str) -> tuple[dict, int]:
+    """({name: {"dtype", "shape", "data_offsets"}}, the data's start) of a
+    .safetensors file, `__metadata__` left out; any dtype code is kept."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
 class SafetensorsFile:
     """Lazy reader of one .safetensors file."""
 
     def __init__(self, path: str):
         self.path = path
-        with open(path, "rb") as f:
-            (n,) = struct.unpack("<Q", f.read(8))
-            header = json.loads(f.read(n))
-        self._data_start = 8 + n
-        header.pop("__metadata__", None)
-        for name, entry in header.items():
-            if entry["dtype"] not in _NP_DTYPES:
-                raise ValueError(f"{self.path}: tensor {name!r} has dtype "
-                                 f"{entry['dtype']} (F32, F16 or BF16 read)")
-        self._header = header
+        # a tensor of another dtype is listed, and refused when read
+        self._header, self._data_start = read_header(path)
 
     def keys(self) -> list[str]:
         return list(self._header)
 
     def _raw(self, name: str) -> tuple[np.ndarray, str]:
         entry = self._header[name]
+        if entry["dtype"] not in _NP_DTYPES:
+            raise ValueError(f"{self.path}: tensor {name!r} has dtype "
+                             f"{entry['dtype']} (F32, F16 or BF16 read)")
         dtype = _NP_DTYPES[entry["dtype"]]
         begin, end = entry["data_offsets"]
         shape = tuple(entry["shape"])

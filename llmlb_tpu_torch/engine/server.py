@@ -81,6 +81,16 @@ call's id and name, then the arguments as fragments) with finish_reason
 `"tool_calls"` where the grammar ended the call. `/api/health` and
 `/api/system` carry the `structured` block.
 
+Multimodal services, as the reference serves them beside the chat model
+(`--asr`, `--tts`, `--image`: a checkpoint directory or "random"): POST
+/v1/audio/transcriptions (multipart/form-data with a WAV `file` part, parsed
+with the stdlib's email parser) answers `{"text": ...}`, POST
+/v1/audio/speech (`{"input", "voice", "speed"}`) a PCM16 WAV, POST
+/v1/images/generations (`{"prompt", "n"}`) `{"created", "data":
+[{"b64_json"}]}`; each answers 404 when its service is not loaded and the
+reference's 400s on a bad request; /v1/models lists each service with its
+capability (`audio_transcription`, `audio_speech`, `image_generation`).
+
 Multi-LoRA (`--lora-dir`): a request names an adapter with the `lora` field
 or a `model:adapter` suffix (the suffix only on a LoRA-enabled engine);
 unknown, unservable or conflicting adapters are 400s naming `lora`.
@@ -99,6 +109,8 @@ DIR` for adapters).
 from __future__ import annotations
 
 import argparse
+import email.parser
+import email.policy
 import json
 import logging
 import os
@@ -382,8 +394,11 @@ class DrainController:
 class EngineHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
 
-    def __init__(self, address: tuple[str, int], engine: Engine):
+    def __init__(self, address: tuple[str, int], engine: Engine, *,
+                 asr=None, tts=None, image=None):
         self.engine = engine
+        # the multimodal services (engine/asr.py, tts.py, image.py), or None
+        self.asr, self.tts, self.image = asr, tts, image
         self.drain = DrainController(engine)
         # one profiler per engine; it starts and stops on the step loop
         core = engine.core
@@ -454,6 +469,28 @@ class _Handler(BaseHTTPRequestHandler):
             return None
         return body
 
+    def _form(self) -> dict | None:
+        """A multipart/form-data body as {field name: bytes}, or None
+        after answering 4xx (the reference's 400 for another type)."""
+        ctype = self.headers.get("Content-Type") or ""
+        if not ctype.startswith("multipart/"):
+            self._error(400, "multipart/form-data body required")
+            return None
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            self._error(413, "request body too large")
+            return None
+        msg = email.parser.BytesParser(policy=email.policy.HTTP).parsebytes(
+            b"Content-Type: " + ctype.encode("latin-1") + b"\r\n\r\n"
+            + self.rfile.read(length))
+        fields = {}
+        if msg.is_multipart():
+            for part in msg.iter_parts():
+                name = part.get_param("name", header="content-disposition")
+                if name is not None:
+                    fields[name] = part.get_payload(decode=True) or b""
+        return fields
+
     # ----------------------------------------------------------------- routes
 
     def do_GET(self):
@@ -476,7 +513,8 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._profile_artifact(path[len("/api/profile/"):])
         elif path == "/v1/models":
-            self._json(200, {"object": "list", "data": _models(engine)})
+            self._json(200, {"object": "list",
+                             "data": _models(engine, self.server)})
         elif path == "/api/health":
             body = engine.health()
             drain = self.server.drain
@@ -665,6 +703,17 @@ class _Handler(BaseHTTPRequestHandler):
         "/v1/responses": "_responses",
         "/v1/embeddings": "_embeddings",
         "/api/drain": "_drain_control",
+        "/v1/audio/transcriptions": "_transcriptions",
+        "/v1/audio/speech": "_speech",
+        "/v1/images/generations": "_images",
+    }
+    # route -> (the server's service attribute, the 404's message)
+    _SERVICES = {
+        "/v1/audio/transcriptions": (
+            "asr", "no transcription model is loaded on this engine"),
+        "/v1/audio/speech": ("tts", "no speech model is loaded on this engine"),
+        "/v1/images/generations": (
+            "image", "no image model is loaded on this engine"),
     }
 
     def do_POST(self):
@@ -676,6 +725,10 @@ class _Handler(BaseHTTPRequestHandler):
         if route is None:
             self._error(404, f"no route for POST {path}")
             return
+        service = self._SERVICES.get(path)
+        if service is not None and getattr(self.server, service[0]) is None:
+            self._error(404, service[1])
+            return
         drain = self.server.drain
         # the export is exempt from the drain: it exists for that window
         admitted = path.startswith("/v1/") and path != "/v1/kv/export"
@@ -685,9 +738,12 @@ class _Handler(BaseHTTPRequestHandler):
                 "type": "overloaded_error", "code": "draining"}},
                 headers={"Retry-After": str(drain.retry_after_s())})
             return
-        body = self._body(KV_BODY_BYTES if path in ("/v1/resume",
-                                                     "/v1/handoff")
-                          else MAX_BODY_BYTES)
+        if path == "/v1/audio/transcriptions":  # multipart, not JSON
+            body = self._form()
+        else:
+            body = self._body(KV_BODY_BYTES if path in ("/v1/resume",
+                                                         "/v1/handoff")
+                              else MAX_BODY_BYTES)
         if body is None:
             return
         if not admitted:
@@ -1206,8 +1262,60 @@ class _Handler(BaseHTTPRequestHandler):
                       "total_tokens": prompt_tokens},
         })
 
+    def _transcriptions(self, fields: dict) -> None:
+        """OpenAI /v1/audio/transcriptions: the WAV `file` part -> text
+        (the other parts, model and language among them, are read and
+        ignored, as in the reference)."""
+        data = fields.get("file")
+        if not data:
+            self._error(400, "'file' part is required")
+            return
+        try:
+            text = self.server.asr.transcribe_wav_bytes(data)
+        except (ValueError, EOFError) as e:
+            self._error(400, f"could not decode audio: {e}")
+            return
+        self._json(200, {"text": text})
 
-def _models(engine: Engine) -> list[dict]:
+    def _speech(self, body: dict) -> None:
+        """OpenAI /v1/audio/speech: {input, voice, speed} -> WAV bytes."""
+        text = body.get("input")
+        if not isinstance(text, str) or not text:
+            self._error(400, "'input' is required")
+            return
+        voice = str(body.get("voice", "alloy"))
+        try:
+            speed = float(body.get("speed", 1.0))
+            wav = self.server.tts.synthesize(text, voice, speed)
+        except (TypeError, ValueError) as e:
+            self._error(400, str(e))
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "audio/wav")
+        self.send_header("Content-Length", str(len(wav)))
+        self.end_headers()
+        self.wfile.write(wav)
+
+    def _images(self, body: dict) -> None:
+        """OpenAI /v1/images/generations: {prompt, n} -> base64 PNGs."""
+        prompt = body.get("prompt")
+        if not isinstance(prompt, str) or not prompt:
+            self._error(400, "'prompt' is required")
+            return
+        n = body.get("n", 1)
+        if not isinstance(n, int) or not 1 <= n <= 10:
+            self._error(400, "'n' must be between 1 and 10")
+            return
+        try:
+            images = self.server.image.generate_b64(prompt, n)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        self._json(200, {"created": int(time.time()),
+                         "data": [{"b64_json": b} for b in images]})
+
+
+def _models(engine: Engine, services=None) -> list[dict]:
     """The /v1/models entries, with the reference's capabilities: the base
     model, with `structured_outputs` (grammar-constrained decoding; the
     gateway steers constrained requests by it), `embeddings` when the
@@ -1219,7 +1327,8 @@ def _models(engine: Engine) -> list[dict]:
     traffic where it is already loaded. The serving role rides the
     capabilities, `prefill` and `decode` (both for "both" and "split"),
     and every entry's `role` key: the gateway's role-aware routing reads
-    them."""
+    them. `services` (the server) adds an entry for each multimodal
+    service it holds, with its one capability."""
     caps = ["chat_completion", "structured_outputs"]
     if engine.supports_embeddings():
         caps.append("embeddings")
@@ -1242,6 +1351,11 @@ def _models(engine: Engine) -> list[dict]:
             data.append({**entry(f"{engine.model_id}:{name}",
                                  [c for c in caps if c != "embeddings"]),
                          "role": role, "lora": name})
+    for attr, cap in (("asr", "audio_transcription"), ("tts", "audio_speech"),
+                      ("image", "image_generation")):
+        service = getattr(services, attr, None)
+        if service is not None:
+            data.append(entry(service.model_id, [cap]))
     return data
 
 
@@ -1262,12 +1376,15 @@ def _parse_lora(engine: Engine, body: dict) -> tuple[str | None, str | None]:
     return adapter, base
 
 
-def start_server(engine: Engine, host: str = "127.0.0.1",
-                 port: int = 0) -> tuple[EngineHTTPServer, threading.Thread]:
-    """Serve `engine` from a background thread; port 0 picks a free port
-    (read it from `server.server_address`). Stop with server.shutdown();
+def start_server(engine: Engine, host: str = "127.0.0.1", port: int = 0, *,
+                 asr=None, tts=None,
+                 image=None) -> tuple[EngineHTTPServer, threading.Thread]:
+    """Serve `engine` (and the multimodal services given) from a
+    background thread; port 0 picks a free port (read it from
+    `server.server_address`). Stop with server.shutdown();
     `server.drain.start(grace_s)` drains first."""
-    server = EngineHTTPServer((host, port), engine)
+    server = EngineHTTPServer((host, port), engine, asr=asr, tts=tts,
+                              image=image)
     thread = threading.Thread(target=server.serve_forever,
                               name="engine-http", daemon=True)
     thread.start()
@@ -1375,7 +1492,34 @@ def build_parser() -> argparse.ArgumentParser:
         "--spec-ngram", type=int, default=None,
         help="longest n-gram the prompt-lookup drafter matches on (default "
              "3; also via LLMLB_SPEC_NGRAM)")
+    # modality services (checkpoint dir, or "random" for test weights)
+    parser.add_argument("--asr", default=None,
+                        help="whisper checkpoint dir or 'random'")
+    parser.add_argument("--tts", default=None,
+                        help="TTS checkpoint dir or 'random'")
+    parser.add_argument("--image", default=None,
+                        help="diffusion checkpoint dir or 'random'")
     return parser
+
+
+def services_from(args: argparse.Namespace) -> dict:
+    """The multimodal services the --asr, --tts and --image flags name (a
+    checkpoint directory, or "random" for the reference's small random
+    models), on the server's device."""
+    from llmlb_tpu_torch.engine.asr import AsrEngine
+    from llmlb_tpu_torch.engine.image import ImageEngine
+    from llmlb_tpu_torch.engine.tts import TtsEngine
+
+    services = {}
+    for name, cls in (("asr", AsrEngine), ("tts", TtsEngine),
+                      ("image", ImageEngine)):
+        where = getattr(args, name)
+        if where:
+            services[name] = (cls.from_random(device=args.device)
+                              if where == "random"
+                              else cls.from_checkpoint(where,
+                                                       device=args.device))
+    return services
 
 
 def core_kwargs_from(args: argparse.Namespace) -> dict:
@@ -1430,7 +1574,8 @@ def main(argv: list[str] | None = None) -> None:
     else:
         engine = Engine.from_preset(args.preset, model_id=args.model_id,
                                     device=args.device, **core_kwargs)
-    server = EngineHTTPServer((args.host, args.port), engine)
+    server = EngineHTTPServer((args.host, args.port), engine,
+                              **services_from(args))
 
     def drain_then_stop() -> None:
         server.drain.start()

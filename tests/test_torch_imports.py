@@ -55,7 +55,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "engine.stepstats", "engine.flightrec", "engine.metrics",
                  "engine.telemetry", "engine.profiling", "engine.cuda_probe",
                  "engine.dispatch_check", "ops.moe", "models.mixtral",
-                 "models", "disagg", "disagg.wire", "disagg.split"):
+                 "models", "disagg", "disagg.wire", "disagg.split",
+                 "models.whisper", "models.tts", "models.diffusion",
+                 "models._common",
+                 "engine.asr", "engine.tts", "engine.image",
+                 "tools.ingest_probe"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

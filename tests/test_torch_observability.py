@@ -603,7 +603,10 @@ def test_slow_step_names_its_requests(port_server):
 def test_recording_costs_under_one_percent_of_a_step(port_server):
     """StepRecorder.observe + the phase histograms, and one flight-recorder
     emit, each timed alone against the port engine's measured mean decode
-    step (the CPU debug engine's, far shorter than the card's)."""
+    step (the CPU debug engine's, far shorter than the card's). Each cost
+    is the fastest of several timed rounds: what a call costs is its floor,
+    and the floor does not rise when other processes take the CPU from a
+    round (the tests run in parallel workers)."""
     from llmlb_tpu_torch.engine.scheduler import SamplingParams
 
     engine, _ = port_server
@@ -613,19 +616,30 @@ def test_recording_costs_under_one_percent_of_a_step(port_server):
     rec, metrics = ss.StepRecorder(), port_metrics.EngineMetrics()
     phases = {"plan": 1e-5, "host_sync": 1e-6, "dispatch": 1e-3,
               "compute": 1e-4, "fetch": 1e-4, "emit": 1e-4}
-    n = 2000
-    t0 = time.perf_counter()
-    for _ in range(n):
-        rec.observe("decode", phases, active_slots=2, tokens=2)
-        metrics.record_step_phases(phases)
-    per_step = (time.perf_counter() - t0) / n
-    assert per_step < 0.01 * mean_step_s, (per_step, mean_step_s)
     flight = _recorder(fr)
-    t0 = time.perf_counter()
-    for i in range(n):
-        flight.emit(f"r{i % 64}.aabbccdd", "prefill_chunk", tokens=16,
-                    cached_tokens=0)
-    per_emit = (time.perf_counter() - t0) / n
+    n, rounds = 400, 7
+
+    def record():
+        for _ in range(n):
+            rec.observe("decode", phases, active_slots=2, tokens=2)
+            metrics.record_step_phases(phases)
+
+    def emit():
+        for i in range(n):
+            flight.emit(f"r{i % 64}.aabbccdd", "prefill_chunk", tokens=16,
+                        cached_tokens=0)
+
+    def floor_per_call(fn) -> float:
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) / n)
+        return min(times)
+
+    per_step = floor_per_call(record)
+    assert per_step < 0.01 * mean_step_s, (per_step, mean_step_s)
+    per_emit = floor_per_call(emit)
     assert per_emit < 0.01 * mean_step_s, (per_emit, mean_step_s)
 
 
