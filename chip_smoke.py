@@ -329,6 +329,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
              transcription JSON, images two PNGs; a server without the
              services answers 404; cuDNN's TF32, on when the requests
              began, is off after them.
+13. multi-device — one world of two ranks spawned from this script
+             (`--md-rank`), joined through the port's LLMLB_COORDINATOR /
+             LLMLB_NUM_HOSTS / LLMLB_HOST_ID: with one card both share it
+             over gloo (NCCL refuses two ranks on one device; every
+             collective then passes through host memory), with two or
+             more one rank a card over NCCL. Rank 0 serves HTTP through
+             the port's server, rank 1 is a follower. Three sub-phases, each
+             a lockstep engine (4 slots, capacity 2048, eager bursts,
+             greedy, random weights of seed 0): tp=2 over Llama-3-8B bf16
+             paged at full width and depth (16 q / 4 KV heads, ffn 7168 a
+             rank), three chats over HTTP, then the three chats and the
+             1503-token prompt (chunked) on the core; sp=2 over Llama-3-8B,
+             the 1503-token prompt in one ring pass (CP bucket 2048), its
+             KV read back from the pages; ep=2 over Mixtral at full width
+             and MIX_BF16_LAYERS layers (4 of 8 experts a rank), a chat
+             and a ~600-token prompt (capacity dispatch in prefill, exact
+             MoE in decode). Before the ranks start, #1-#3 are held
+             against their plain versions at a tp=2 rank's shapes, and a
+             one-card engine of each model serves the same prompts (first
+             logits, 16 greedy ids, the one-card top-2 margins along each
+             stream, the fp32 computation of the same weights) and is
+             freed. Every rank's ids must equal the leader's; the
+             leader's greedy ids one card's up to the first position where
+             the one-card margin is below the measured logit difference;
+             its first logits (and the ring's KV, layer 0 also elementwise
+             within the bf16 limit) as accurate as one card's: at most
+             MD_ACCURACY x one card's RMS-relative distance from the fp32
+             computation (the elementwise reading against one card's is
+             logged); each kernel of a sub-phase's path launched on every
+             rank, the launches added to the `kernels` line; the sub-phase
+             seconds and the collectives' calls, bytes and host seconds
+             logged. `--multi-device-only` runs the device, build and this
+             phase alone.
+
+`--ids-only` serves the bf16 serve phase's timed prompts on a one-card
+engine of the serve phases' configuration (random weights of seed 0,
+graphs on) and prints their greedy ids as a JSON line: with `--tree` it
+holds a one-rank engine of this tree to another tree's bit for bit.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -7373,6 +7411,602 @@ def phase_multimodal(dev: dict) -> dict:
     return out
 
 
+def phase_ids() -> dict:
+    """The greedy ids of the bf16 serve phase's timed prompts (the 124-token
+    chat, 64 ids; the 1503-token prompt, LONG_TOKENS ids) on a one-card
+    engine of the serve phases' configuration, random weights of seed 0
+    (which the serve phase's checkpoint holds bit for bit), graphs on."""
+    from llmlb_tpu_torch.engine.service import Engine
+
+    engine = Engine.from_preset("llama-3-8b", device="cuda", seed=0,
+                                num_slots=SLOTS, slot_capacity=CAPACITY,
+                                eos_id=-1)
+    try:
+        long_text = " ".join(f"w{i % 97}" for i in range(380))
+        prompt = engine.encode_chat([{"role": "user", "content": "x" * 100}])
+        long_prompt = engine.encode_chat([{"role": "user", "content":
+                                           _first_word(long_text, 1)}])
+        ids = _timed_core_request(engine.core, prompt, 64)[0]
+        long_ids = _timed_core_request(engine.core, long_prompt,
+                                       LONG_TOKENS)[0]
+    finally:
+        engine.shutdown()
+    return {"ids": ids, "long_ids": long_ids, "prompt_tokens":
+            [len(prompt), len(long_prompt)]}
+
+
+# --------------------------------------------------- multi-device (A18)
+
+MD_TOKENS = 16  # greedy ids of each request of the multi-device phase
+# the one-card references and the ranks' engines alike: greedy, no prefix
+# cache, eager bursts (a gloo mesh's collectives cannot be captured); the
+# 1503-token prompt's ring pass runs at the CP bucket 2048
+MD_KW = dict(num_slots=4, slot_capacity=2048, eos_id=-1, seed=0,
+             prefix_cache=False, decode_graphs=False)
+MD_CHATS = ("Describe a page table in one line.", "What does a ring pass?",
+            "Name three primes.")
+MD_MIX_WORDS = 150  # the Mixtral prompt: ~600 tokens, chunked at 512
+# A rank's result is held as accurate as one card's: its RMS-relative
+# distance from the fp32 computation of the same weights at most twice one
+# card's own (a bf16 run of a 32-layer random model lies ~1-2% from fp32,
+# and a tp mesh rounds its products at other points than one card; a wrong
+# head, expert or position is off by ~100%). MD_FLOOR keeps the ratio
+# finite where one card matches fp32 closely.
+MD_ACCURACY = 2.0
+MD_FLOOR = 2.0**-9
+MD_PATH = {"tp": BF16_PATH, "sp": ("flash_prefill", "paged_flash_decode"),
+           "ep": BF16_PATH}
+
+
+def _md_prompts() -> dict:
+    """The phase's prompts (token ids through the chat template): the three
+    chats and the 1503-token prompt (Llama), a chat and a ~600-token prompt
+    (Mixtral)."""
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(128256)
+
+    def chat(text):
+        return tok.encode(tok.apply_chat_template(
+            [{"role": "user", "content": text}]))
+
+    long_text = " ".join(f"w{i % 97}" for i in range(380))
+    mix_text = " ".join(f"m{i % 89}" for i in range(MD_MIX_WORDS))
+    return {"llama": [chat(c) for c in MD_CHATS] + [chat(long_text)],
+            "mixtral": [chat(MD_CHATS[0]), chat(mix_text)]}
+
+
+def _md_cfg(sub: str):
+    import dataclasses
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+
+    if sub == "ep":
+        return dataclasses.replace(get_preset("mixtral-8x7b"),
+                                   num_layers=MIX_BF16_LAYERS)
+    return get_preset("llama-3-8b")
+
+
+class _KVSpy:
+    """The KV of one prompt as its slot's pages hold it when the slot
+    activates (after its last chunk, or the ring pass): [L, n, K, D] K and
+    V on the host. Wraps the core's _activate_group until close()."""
+
+    def __init__(self, core, prompt: list[int]):
+        self.core, self.kv = core, None
+        # a spy set before this one (an instance attribute) comes back on
+        # close()
+        self.prev = core.__dict__.get("_activate_group")
+        activate = core._activate_group
+
+        def spy(group, slot_ids, lens, logits):
+            for slot_id, request, n in group:
+                if request.prompt_ids == prompt:
+                    pages = core._slot_pages[slot_id]
+                    self.kv = [c[:, pages].flatten(1, 2)[:, :n].cpu()
+                               for c in (core.cache_k, core.cache_v)]
+            activate(group, slot_ids, lens, logits)
+
+        core._activate_group = spy
+
+    def close(self) -> None:
+        if self.prev is None:
+            del self.core._activate_group
+        else:
+            self.core._activate_group = self.prev
+
+
+def _md_margins(core, prompt: list[int], ids: list[int]):
+    """One card's top-2 logit margins along a greedy stream: the prompt
+    prefilled in one dispatch into a scratch pool, then the stream's ids
+    (but the last) as one verify chunk, logits at every position."""
+    import torch
+
+    cfg, fam = core.model_cfg, core.family
+    n, t = len(prompt), len(ids) - 1
+    ps = core.kv_page_size
+    pages = -(-(n + t + 1) // ps)
+    ck, cv = fam.init_kv_pages(cfg, pages + 1, ps, "cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, pages + 1, **i32)[None]
+    first, _, _ = fam.prefill_into_pages(
+        core.params, cfg, torch.tensor([prompt], device="cuda"),
+        torch.tensor([n], **i32), tables, ck, cv)
+    rest, _, _ = fam.verify_step_paged(
+        core.params, cfg, torch.tensor([ids[:-1]], device="cuda"),
+        torch.tensor([t], **i32), torch.tensor([n], **i32), tables, ck, cv)
+    logits = torch.cat([first[:, None], rest], dim=1)[0]
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu()
+
+
+def _md_fp32(core, prompts: list[list[int]], kv_of: int | None):
+    """The fp32 computation of the same weights, the yardstick both the
+    one-card run and the ranks are measured by: the bf16 leaves widened to
+    fp32 a leaf at a time (the engine's own leaves go as they widen, so it
+    is spent after), each prompt prefilled alone in one fp32 dispatch;
+    its last-position logits, and with `kv_of` that prompt's KV [L, n, K,
+    D] fp32 on the host."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(core.model_cfg, dtype=torch.float32)
+    fam, params = core.family, {}
+    for name in list(core.params):
+        params[name] = core.params.pop(name).float()
+    ps = core.kv_page_size
+    i32 = dict(dtype=torch.int32, device="cuda")
+    logits, kv = [], None
+    for i, p in enumerate(prompts):
+        pages = -(-len(p) // ps)
+        ck, cv = fam.init_kv_pages(cfg, pages + 1, ps, "cuda")
+        out, _, _ = fam.prefill_into_pages(
+            params, cfg, torch.tensor([p], device="cuda"),
+            torch.tensor([len(p)], **i32),
+            torch.arange(1, pages + 1, **i32)[None], ck, cv)
+        logits.append(out[0].cpu())
+        if i == kv_of:
+            kv = [c[:, 1:].flatten(1, 2)[:, :len(p)].cpu() for c in (ck, cv)]
+        del ck, cv
+    del params
+    return logits, kv
+
+
+def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None):
+    """The one-card run a sub-phase is held against: a one-rank engine of
+    MD_KW over `prompts` submitted together; each prompt's first-step
+    logits and MD_TOKENS greedy ids, the top-2 margins along each stream,
+    with `kv_of` that prompt's KV, and the fp32 computation's logits and
+    KV (`_md_fp32`). The engine is freed after."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import (EngineCore, Request,
+                                                  SamplingParams)
+
+    t0 = time.perf_counter()
+    core = EngineCore(_md_cfg(sub), None, device="cuda", **MD_KW)
+    spy = _LogitSpy(core)
+    kv = _KVSpy(core, prompts[kv_of]) if kv_of is not None else None
+    core.start()
+    try:
+        reqs = [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
+            temperature=0.0, max_tokens=MD_TOKENS))) for p in prompts]
+        ids = [_md_drain(r) for r in reqs]
+    finally:
+        core.stop()
+        if kv is not None:
+            kv.close()
+        spy.close()
+    ref = {"ids": ids,
+           "logits": [spy.get(p, None)[0].cpu() for p in prompts],
+           "margins": [_md_margins(core, p, i) for p, i in zip(prompts, ids)],
+           "kv": kv.kv if kv is not None else None}
+    ref["fp32"], ref["fp32_kv"] = _md_fp32(core, prompts, kv_of)
+    ref["seconds"] = time.perf_counter() - t0
+    del core, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _md_drain(req, timeout: float = 600) -> list[int]:
+    ids = []
+    while True:
+        kind, value = req.events.get(timeout=timeout)
+        if kind == "token":
+            ids.append(int(value))
+        elif kind == "done":
+            return ids
+        else:
+            raise RuntimeError(f"engine error: {value}")
+
+
+def _md_kernel_checks() -> None:
+    """Kernels #1-#3 against their plain versions at a tp=2 rank's shapes:
+    half the heads (16 q, 4 KV), through the phase's check helper."""
+    import torch
+
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    h, kv = H // 2, KV // 2
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    bf16 = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    plens_host = [512, 300, 129, 1]
+    plens = torch.tensor(plens_host, dtype=torch.int32, device="cuda")
+    q, k, v = randn((4, 512, h, D)), randn((4, 512, kv, D)), randn(
+        (4, 512, kv, D))
+    _check(f"flash_prefill bf16 [4,512,{h},128] kv {kv} (a tp=2 rank)",
+           ca.flash_prefill(q, k, v, plens),
+           ca.flash_prefill_reference(q, k, v, plens), rel=BF16_REL,
+           rows=plens_host)
+    ppn = 2048 // PAGE
+    kp, vp = _pool(torch, gen, 4 * ppn + 1, bf16, kv=kv)
+    tables = (torch.randperm(4 * ppn, generator=gen, device="cuda") + 1
+              ).reshape(4, ppn).to(torch.int32).contiguous()
+    lens = torch.tensor([1519, 1000, 77, 1], dtype=torch.int32, device="cuda")
+    qd = randn((4, h, D))
+    _check(f"paged_flash_decode bf16 [4,{h},128] kv {kv} (a tp=2 rank)",
+           ca.paged_flash_decode(qd, kp, vp, tables, lens, pages=ppn),
+           ca.paged_flash_decode_reference(qd, kp, vp, tables, lens,
+                                           pages=ppn), rel=BF16_REL)
+    qe = randn((1, 512, h, D))
+    start = torch.tensor([1024], dtype=torch.int32, device="cuda")
+    chunk = torch.tensor([479], dtype=torch.int32, device="cuda")
+    _check(f"paged_flash_extend bf16 [1,512,{h},128] kv {kv} start 1024 "
+           "(a tp=2 rank)",
+           ca.paged_flash_extend(qe, kp, vp, tables[:1].contiguous(), start,
+                                 chunk),
+           ca.paged_flash_extend_reference(qe, kp, vp, tables[:1].contiguous(),
+                                           start, chunk),
+           rel=BF16_REL, rows=[479])
+    torch.cuda.synchronize()
+
+
+def _md_mirror(core) -> list:
+    """The requests a rank queues from the tick plans (a follower's are its
+    shadows), in plan order."""
+    seen = []
+    apply = core._apply_plan
+
+    def apply_and_keep(plan, local):
+        before = core.pending.qsize()
+        apply(plan, local)
+        with core.pending.mutex:
+            seen.extend(list(core.pending.queue)[before:])
+
+    core._apply_plan = apply_and_keep
+    return seen
+
+
+def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
+    """One sub-phase on this rank: a lockstep engine over the sub-phase's
+    mesh (tp=2, sp=2 or ep=2), the leader serving HTTP (the chats) and
+    then the prompts on its core; every rank's launches, the ids of every
+    request it mirrored, and on the leader the first-step logits and, for
+    sp, the long prompt's KV as the pages hold it."""
+    import gc
+
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import (EngineCore, Request,
+                                                  SamplingParams)
+    from llmlb_tpu_torch.engine.server import start_server
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = _md_cfg(sub)
+    axes = {"tp": MeshConfig(tp=2), "sp": MeshConfig(sp=2, tp=1),
+            "ep": MeshConfig(ep=2, tp=1)}[sub]
+    t0 = time.perf_counter()
+    core = EngineCore(cfg, None, device="cuda", mesh_config=axes, **MD_KW)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = Engine("llama-3-8b" if sub != "ep" else "mixtral", core,
+                    ByteTokenizer(cfg.vocab_size))
+    seen = _md_mirror(core)
+    passes = [0]
+    ring = core._cp_prefill_into_slot
+
+    def counted(*args):
+        passes[0] += 1
+        return ring(*args)
+
+    core._cp_prefill_into_slot = counted
+    leader = rank == 0
+    spy = _LogitSpy(core) if leader else None
+    kv = _KVSpy(core, prompts[-1]) if leader and sub == "sp" else None
+    ca.reset_launch_counts()
+    core.mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+    t1 = time.perf_counter()
+    core.start()
+    http = []
+    if leader:
+        server, _ = start_server(engine)
+        base = "http://%s:%d" % server.server_address[:2]
+        try:
+            for c in (MD_CHATS if sub == "tp" else MD_CHATS[:1]):
+                out = _chat(base, c, 8, False, model=engine.model_id)
+                http.append(out["usage"]["completion_tokens"])
+            reqs = [core.submit(Request(prompt_ids=list(p),
+                                        sampling=SamplingParams(
+                                            temperature=0.0,
+                                            max_tokens=MD_TOKENS)))
+                    for p in prompts]
+            # their ids stay in the events, read with every rank's below
+            t_end = time.monotonic() + 600
+            while not all(r.finished_at is not None for r in reqs):
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"multi-device {sub}: requests "
+                                         "did not finish")
+                time.sleep(0.005)
+        finally:
+            server.shutdown()
+            engine.shutdown()  # the stop rides the plan to the followers
+    else:
+        core._thread.join()
+        engine.shutdown()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    streams = []
+    for r in seen:
+        ids = []
+        while not r.events.empty():
+            kind, value = r.events.get()
+            if kind == "token":
+                ids.append(int(value))
+        streams.append(ids)
+    out = {"launches": dict(ca.LAUNCHES), "streams": streams, "http": http,
+           "init_s": init_s, "serve_s": serve_s,
+           "collectives": dict(core.mesh.stats), "mesh": dict(core.mesh.shape),
+           "backend": core.mesh.backend,
+           "local": (core.model_cfg.num_heads, core.model_cfg.num_kv_heads,
+                     core.model_cfg.intermediate_size,
+                     tuple(core.params["we_gate"].shape[:2])
+                     if sub == "ep" else None),
+           "param_gib": core.param_bytes / 2**30, "ring_passes": passes[0]}
+    if leader:
+        out["logits"] = [spy.get(p, None)[0].cpu() for p in prompts]
+        out["kv"] = kv.kv if kv is not None else None
+    # the engine goes with this frame (its spies and wrappers point at it)
+    del engine, core, spy, kv, ring, counted, seen
+    gc.collect()
+    return out
+
+
+def md_rank_main(rank: int, world: int, port: int, backend: str, src: str,
+                 dst: str) -> None:
+    """A rank of the multi-device phase: joins the world through the
+    port's LLMLB_* variables (`init_from_env`), runs the three sub-phases
+    in order and pickles its results to `dst`."""
+    import gc
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from llmlb_tpu_torch.parallel.distributed import init_from_env
+
+    os.environ.update(LLMLB_COORDINATOR=f"127.0.0.1:{port}",
+                      LLMLB_NUM_HOSTS=str(world), LLMLB_HOST_ID=str(rank),
+                      LLMLB_MESH_BACKEND=backend, LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert init_from_env("cuda")
+    with open(src, "rb") as f:
+        prompts = pickle.load(f)
+    out = {}
+    for sub in ("tp", "sp", "ep"):
+        out[sub] = _md_sub(sub, rank, prompts["mixtral" if sub == "ep"
+                                              else "llama"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[sub]["left_gib"] = torch.cuda.memory_allocated() / 2**30
+        print(f"rank {rank} {sub}: init {out[sub]['init_s']:.1f} s, serve "
+              f"{out[sub]['serve_s']:.1f} s, {out[sub]['left_gib']:.2f} GiB "
+              "left after", flush=True)
+    with open(dst, "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _rms_rel(g, r) -> float:
+    return float((g.float() - r.float()).norm() / r.float().norm())
+
+
+def _md_hold(label: str, ref: dict, leader: dict, n: int) -> dict:
+    """A sub-phase's leader against the one-card run. Each prompt's
+    first-step logits: read against one card's elementwise (max |diff|,
+    and whether the bf16 limit 2^-6 (|ref| + rms(ref)) holds), and HELD as
+    accurate as one card's: their RMS-relative distance from the fp32
+    computation of the same weights at most MD_ACCURACY times one card's
+    own. The greedy ids equal one card's up to the first position where
+    the one-card top-2 margin is below the measured logit difference (the
+    rule the spec block holds its partings to)."""
+    errs, rows = [], []
+    for i, (g, r, t) in enumerate(zip(leader["logits"], ref["logits"],
+                                      ref["fp32"])):
+        err, ok = _within(g[None], r[None], 0.0, BF16_REL, None)
+        errs.append(err)
+        mine, one = _rms_rel(g, t), _rms_rel(r, t)
+        rows.append({"max_abs": err, "bf16_elementwise": ok,
+                     "rms_rel_fp32": mine, "one_card_rms_rel_fp32": one})
+        if mine > MD_ACCURACY * max(one, MD_FLOOR):
+            raise AssertionError(
+                f"multi-device {label}: prompt {i}'s first-step logits are "
+                f"{mine:.3e} (RMS-relative) from the fp32 computation, one "
+                f"card's {one:.3e}: over {MD_ACCURACY}x")
+    diff = max(errs)
+    got = leader["streams"][-n:]
+    shared = [_shared(a, b) for a, b in zip(got, ref["ids"])]
+    parts = [(i, p, float(ref["margins"][i][p])) for i, p in
+             enumerate(shared) if p < min(len(got[i]), len(ref["ids"][i]))]
+    bad = [x for x in parts if x[2] >= diff]
+    log(f"multi-device {label}: first-step logits against one card's, max "
+        f"|diff| {[f'{e:.3e}' for e in errs]}, within the elementwise bf16 "
+        f"limit {[x['bf16_elementwise'] for x in rows]}; RMS-relative from "
+        f"the fp32 computation {[round(x['rms_rel_fp32'], 5) for x in rows]}"
+        f", one card's {[round(x['one_card_rms_rel_fp32'], 5) for x in rows]}"
+        f" (held at <= {MD_ACCURACY}x); greedy ids shared with one card "
+        f"{shared} of {MD_TOKENS}; partings (prompt, position, one-card "
+        f"top-2 margin) {[(i, p, f'{m:.4f}') for i, p, m in parts]}")
+    if bad:
+        raise AssertionError(f"multi-device {label}: a parting at a margin "
+                             f"not below the logit difference {diff:.4f}: "
+                             f"{bad}")
+    return {"logit_diff": diff, "logits": rows, "shared": shared,
+            "partings": parts}
+
+
+def _md_kv_check(got: list, ref: list, fp32: list, n: int) -> dict:
+    """The ring pass's KV as the pages hold it, [L, n, K, D] each for K and
+    V, against one card's chunked prefill's: layer 0's cells, made from the
+    same embedding rows, elementwise within the bf16 limit (every position
+    in its own cell); every layer as accurate as one card's, its
+    RMS-relative distance from the fp32 computation's KV at most
+    MD_ACCURACY times one card's (the later layers carry the two runs'
+    attention roundings)."""
+    out = {}
+    for what, g, w, t in zip("KV", got, ref, fp32):
+        g, w, t = g.float(), w.float(), t.float()
+        err0, ok0 = _within(g[0], w[0], 0.0, BF16_REL, None)
+        tn = t.flatten(1).norm(dim=1)
+        mine = ((g - t).flatten(1).norm(dim=1) / tn).tolist()
+        one = ((w - t).flatten(1).norm(dim=1) / tn).tolist()
+        ratio = [a / max(b, MD_FLOOR) for a, b in zip(mine, one)]
+        worst = ratio.index(max(ratio))
+        out[what] = {"layer0_max_abs": err0,
+                     "max_abs": (g - w).abs().max().item(),
+                     "worst_layer": worst, "rms_rel_fp32": mine[worst],
+                     "one_card_rms_rel_fp32": one[worst]}
+        if not ok0 or max(ratio) > MD_ACCURACY:
+            raise AssertionError(
+                f"multi-device sp: the {n}-token prompt's {what} in the "
+                f"pages: layer 0 max |diff| from one card's {err0:.3e} "
+                f"({'ok' if ok0 else 'FAIL'}); layer {worst} {mine[worst]:.3e}"
+                f" from the fp32 KV against one card's {one[worst]:.3e}")
+    return out
+
+
+def phase_multi_device(dev: dict) -> dict:
+    """Multi-rank serving on the card (A18): three sub-phases in one world
+    of two ranks spawned from this script, rank 0 serving HTTP through the
+    port's server with LLMLB_COORDINATOR set and rank 1 a follower: tp=2
+    and sp=2 over Llama-3-8B bf16 paged at full width and depth, ep=2 over
+    Mixtral at full width and MIX_BF16_LAYERS layers (capacity dispatch in
+    prefill, exact MoE in decode), random weights of seed 0. With one card
+    both ranks share it over gloo (NCCL refuses two ranks on one device);
+    with two or more, one rank a card over NCCL. Each is held against a
+    one-card engine on the same requests, run first here and freed before
+    the ranks start; every rank's ids must equal the leader's. Returns the
+    launches summed over the ranks and sub-phases, and the numbers."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from llmlb_tpu_torch.parallel.distributed import spawn_world
+
+    t0 = time.perf_counter()
+    _md_kernel_checks()
+    prompts = _md_prompts()
+    n_long = len(prompts["llama"][-1])
+    refs = {"llama": _md_reference("tp", prompts["llama"],
+                                   len(prompts["llama"]) - 1),
+            "mixtral": _md_reference("ep", prompts["mixtral"], None)}
+    log(f"multi-device: one-card references in "
+        f"{refs['llama']['seconds']:.1f} s (Llama-3-8B, prompts of "
+        f"{[len(p) for p in prompts['llama']]} tokens) and "
+        f"{refs['mixtral']['seconds']:.1f} s (Mixtral, "
+        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]})")
+    backend = "nccl" if dev["count"] >= 2 else "gloo"
+    world = 2
+    t_ranks = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = f"{tmp}/prompts.pkl"
+        with open(src, "wb") as f:
+            pickle.dump(prompts, f)
+        outs = spawn_world(
+            lambda rank, port: [sys.executable, str(Path(__file__).resolve()),
+                                "--md-rank", str(rank), str(world), str(port),
+                                backend, src, f"{tmp}/rank{rank}.pkl"],
+            world, timeout_s=900)
+        for r, (_, stdout, _) in enumerate(outs):
+            for line in stdout.splitlines():
+                log(f"  {line}")
+        bad = [(r, rc, err) for r, (rc, _, err) in enumerate(outs) if rc]
+        if bad:
+            raise AssertionError("multi-device: " + "\n".join(
+                f"rank {r} exited {rc}:\n{err[-3000:]}" for r, rc, err in bad))
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    ranks_s = time.perf_counter() - t_ranks
+    launches: dict[str, int] = {}
+    report = {"backend": backend, "world": world, "subphases": {}}
+    for sub in ("tp", "sp", "ep"):
+        lead = ranks[0][sub]
+        ref = refs["mixtral" if sub == "ep" else "llama"]
+        n = len(prompts["mixtral" if sub == "ep" else "llama"])
+        for r in range(1, world):
+            if ranks[r][sub]["streams"][-n:] != lead["streams"][-n:]:
+                raise AssertionError(f"multi-device {sub}: rank {r}'s ids "
+                                     "differ from the leader's")
+        per_rank = [{k: v for k, v in x[sub]["launches"].items() if v}
+                    for x in ranks]
+        missing = [k for k in MD_PATH[sub]
+                   if any(pr.get(k, 0) == 0 for pr in per_rank)]
+        if missing:
+            raise AssertionError(f"multi-device {sub}: kernels never "
+                                 f"launched on a rank: {missing}")
+        for pr in per_rank:
+            for k, v in pr.items():
+                launches[k] = launches.get(k, 0) + v
+        held = _md_hold(sub, ref, lead, n)
+        rings = [x[sub]["ring_passes"] for x in ranks]
+        if rings != [1 if sub == "sp" else 0] * world:
+            raise AssertionError(f"multi-device {sub}: ring passes {rings}")
+        if sub == "sp":
+            held["kv_err"] = _md_kv_check(lead["kv"], ref["kv"],
+                                          ref["fp32_kv"], n_long)
+        col = [x[sub]["collectives"] for x in ranks]
+        log(f"multi-device {sub} [{dev['smi']}]: mesh {lead['mesh']} over "
+            f"{lead['backend']}; rank heads/kv/ffn/experts {lead['local']}, "
+            f"params {lead['param_gib']:.2f} GiB a rank; engine init "
+            f"{[round(x[sub]['init_s'], 1) for x in ranks]} s, serving "
+            f"{[round(x[sub]['serve_s'], 1) for x in ranks]} s (HTTP chats "
+            f"{lead['http']} tokens, then {n} prompts x {MD_TOKENS} ids on "
+            f"the core); collectives a rank (calls, MiB, host s) "
+            f"{[(c['calls'], round(c['bytes'] / 2**20, 1), round(c['seconds'], 2)) for c in col]}; "
+            f"launches a rank {per_rank}"
+            + (f"; the {n_long}-token prompt's KV in the pages: layer 0 "
+               f"within the bf16 limit of one card's, every layer as "
+               f"accurate as one card's ({held['kv_err']})"
+               if sub == "sp" else ""))
+        report["subphases"][sub] = {
+            "init_s": [x[sub]["init_s"] for x in ranks],
+            "serve_s": [x[sub]["serve_s"] for x in ranks],
+            "collectives": col, "launches": per_rank,
+            **{k: v for k, v in held.items() if k != "partings"},
+            "partings": [(i, p, round(m, 4)) for i, p, m in held["partings"]]}
+    report["ranks_s"] = ranks_s
+    report["seconds"] = time.perf_counter() - t0
+    log(f"multi-device: {report['seconds']:.1f} s ({ranks_s:.1f} s the ranks' "
+        f"world, backend {backend}); launches summed over ranks {launches}")
+    report["launches"] = launches
+    return report
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=None,
@@ -7381,6 +8015,17 @@ def main(argv: list[str] | None = None) -> int:
                              "shipping, to time two trees in one call)")
     parser.add_argument("--serve-only", action="store_true",
                         help="run the device, build and serve phases only")
+    parser.add_argument("--ids-only", action="store_true",
+                        help="print the bf16 serve phase's timed prompts' "
+                             "greedy ids on a one-card engine (with --tree, "
+                             "another checkout's)")
+    parser.add_argument("--multi-device-only", action="store_true",
+                        help="run the device, build and multi-device phases "
+                             "only")
+    parser.add_argument("--md-rank", nargs=6, default=None,
+                        metavar=("RANK", "WORLD", "PORT", "BACKEND", "IN",
+                                 "OUT"),
+                        help="(internal) one rank of the multi-device phase")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -7409,6 +8054,11 @@ def main(argv: list[str] | None = None) -> int:
               f"{tree}", file=sys.stderr)
         return 2
 
+    if args.md_rank is not None:
+        rank, world, port, backend, src, dst = args.md_rank
+        md_rank_main(int(rank), int(world), int(port), backend, src, dst)
+        return 0
+
     t_start = time.perf_counter()
     phase = "device"
     kernels = []
@@ -7425,6 +8075,18 @@ def main(argv: list[str] | None = None) -> int:
     try:
         dev = run("device", phase_device)
         run("build", phase_build)
+        if args.ids_only:
+            log(json.dumps({"bf16_ids": phase_ids(), "tree": str(tree)}))
+            return 0
+        if args.multi_device_only:
+            md = run("multi-device", phase_multi_device, dev)
+            log(f"total {time.perf_counter() - t_start:.1f} s; by phase {took}")
+            log(json.dumps({"multi_device": {k: v for k, v in md.items()
+                                             if k != "subphases"}}))
+            log(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": dev["kind"],
+                "count": dev["count"]}}))
+            return 0
         if not args.serve_only:
             kernels = run("kernels", phase_kernels)
             run("unembed", phase_unembed)
@@ -7445,6 +8107,8 @@ def main(argv: list[str] | None = None) -> int:
         stats_mix["bf16"] = run("mixtral bf16", phase_mixtral_bf16, dev)
         stats_mm = (None if args.serve_only
                     else run("multimodal", phase_multimodal, dev))
+        stats_md = (None if args.serve_only
+                    else run("multi-device", phase_multi_device, dev))
     except BaseException:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
@@ -7481,12 +8145,17 @@ def main(argv: list[str] | None = None) -> int:
                    if "disagg" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "mixtral": {
             k: v for k, v in stats_mix.items() if k != "launches"},
-        "multimodal": stats_mm, "tree": str(tree), "card": dev["smi"]}))
+        "multimodal": stats_mm,
+        "multi_device": stats_md and {k: v for k, v in stats_md.items()
+                                      if k != "launches"},
+        "tree": str(tree), "card": dev["smi"]}))
     own_path = {"lora_delta": stats_lora, "flash_decode": stats_dense,
                 "flash_extend": stats_dense,
                 **{n: stats_int8 for n in INT8_PATH if n != "flash_prefill"}}
     for k in kernels:  # each kernel's count from the path it belongs to
         k["launches"] = own_path.get(k["name"], stats)["launches"][k["name"]]
+        if stats_md is not None:  # with the multi-device ranks' launches
+            k["launches"] += stats_md["launches"].get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase {took}")

@@ -122,6 +122,10 @@ class BurstState:
     verify_active: torch.Tensor | None = None
     verify_out: torch.Tensor | None = None
     verify_mask: torch.Tensor | None = None
+    # the rank's mesh (parallel/mesh.py) the forwards' collectives join;
+    # None on one rank. A captured burst records its collectives, which
+    # only NCCL's allow: the engine refuses graphs on a gloo mesh.
+    mesh: Any = None
 
 
 def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
@@ -144,11 +148,12 @@ def burst_body(s: BurstState, window: int, seeded: bool,
         if s.block_tables is not None:
             logits, _, _ = family.decode_step_paged(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
-                s.block_tables, window=window, lora_idx=s.lora_idx)
+                s.block_tables, window=window, lora_idx=s.lora_idx,
+                mesh=s.mesh)
         else:
             logits, _, _ = family.decode_step(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
-                window=window, lora_idx=s.lora_idx)
+                window=window, lora_idx=s.lora_idx, mesh=s.mesh)
         count_nan_rows(s.nan_rows, logits)
         bias = (grammar_bias(s.gram_table, gs) if gs is not None
                 else s.mask_bias if mode == "mask" else None)
@@ -182,11 +187,11 @@ def verify_body(s: BurstState, window: int, seeded: bool,
     if s.block_tables is not None:
         logits, _, _ = family.verify_step_paged(
             s.params, s.cfg, ids, lens, start, s.block_tables, s.cache_k,
-            s.cache_v, window=window, lora_idx=s.lora_idx)
+            s.cache_v, window=window, lora_idx=s.lora_idx, mesh=s.mesh)
     else:
         logits, _, _ = family.verify_step(
             s.params, s.cfg, ids, lens, start, None, s.cache_k, s.cache_v,
-            window=window, lora_idx=s.lora_idx)
+            window=window, lora_idx=s.lora_idx, mesh=s.mesh)
     count_nan_rows(s.nan_rows, logits)
     b, k1 = ids.shape
     bias = None

@@ -186,7 +186,25 @@ on its "length" budget leaves its pages' bytes on `kv_export`
 paged layout and at least two slots, and turns KV shipping and the
 offload tier off, as in the reference.
 
-Left out (see ROADMAP.md): context-parallel prefill.
+Multi-rank serving (`mesh_config=`, parallel/): with a torch.distributed
+world of more than one rank, the engine's params are each rank's shard of
+a (dp, sp, ep, tp) mesh (`family.shard_params`; the mesh by default as the
+reference resolves it: ep = gcd(world, experts) for MoE, then tp =
+default_tp), and the model's entry points run with the mesh, whose
+collectives join the ranks. Every rank runs this loop in lockstep
+(engine/multihost.py): the leader (rank 0) takes requests through
+`submit` into an intake queue, and at the top of each iteration broadcasts
+a plan (new requests, cancellations, stop; `_lockstep_tick`); every rank
+applies it, so all ranks make the same scheduling decisions and dispatch
+the same forwards. Cancellations act only through the plan
+(`_is_cancelled`), deadlines are shed at the leader only
+(`_collect_plan`), and KV shipping, the offload tier, `--role split`,
+LoRA and dp > 1 (ROADMAP A18b) are refused or off. On an sp > 1 mesh a
+prompt longer than the largest bucket prefills in one ring-attention pass
+(`_cp_prefill_into_slot`, models/llama.py `make_context_parallel_prefill`)
+instead of chunks. On one rank (no process group) every collective is the
+identity and the model's entry points get `mesh=None`: the one-rank engine
+runs as it did.
 """
 
 from __future__ import annotations
@@ -225,6 +243,7 @@ from llmlb_tpu_torch.engine.kv_transfer import (
     serialize_kv_pages,
 )
 from llmlb_tpu_torch.engine.metrics import EngineMetrics
+from llmlb_tpu_torch.engine.multihost import _MAX_PLAN_BYTES, StepCoordinator
 from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
 from llmlb_tpu_torch.engine.stepstats import StepRecorder
@@ -239,6 +258,7 @@ from llmlb_tpu_torch.models import family_for
 from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.ops.grammar import GrammarTables
 from llmlb_tpu_torch.ops.sampling import sample_tokens
+from llmlb_tpu_torch.parallel.mesh import MeshConfig, build_mesh, default_tp
 from llmlb_tpu_torch.quant import (
     SCALE_SUFFIX,
     kv_cell_bytes,
@@ -607,6 +627,7 @@ class EngineCore:
         prefill_chunk_budget: int | None = None,
         role: str | None = None,
         disagg_prefill_slots: int | None = None,
+        mesh_config: MeshConfig | None = None,
     ):
         self.device = resolve_device(device)
         # The serving role: "both" (the combined loop), "split" (a prefill
@@ -618,16 +639,33 @@ class EngineCore:
         self.split: SplitRuntime | None = None
         # one CUDA graph per decode burst key: on by default on the card
         # (the JAX engine's fused_decode); the CPU never captures
-        if decode_graphs is None:
-            decode_graphs = self.device.type == "cuda"
-        if decode_graphs and self.device.type != "cuda":
-            raise ValueError("decode_graphs needs the CUDA card; the engine "
-                             f"runs on {self.device}")
-        self.decode_graphs = bool(decode_graphs)
         self.cfg = cfg
         # the model family's module (models/llama.py or models/mixtral.py):
         # every init and dispatch below goes through it
         self.family = family_for(cfg)
+        # The mesh of ranks (one rank without a process group), the
+        # rank's local view of the config (its heads, ffn width) that its
+        # KV and forwards use, and the mesh the entry points get (None on
+        # one rank, so the one-rank engine runs exactly as before).
+        self.mesh = self._build_mesh(cfg, mesh_config)
+        self.model_cfg = self.family.local_config(cfg, self.mesh)
+        self._model_mesh = None if self.mesh.trivial else self.mesh
+        if decode_graphs is None:
+            decode_graphs = self.device.type == "cuda" and self.mesh.capturable
+            if self.device.type == "cuda" and not self.mesh.capturable:
+                log.warning("decode graphs off: the %s mesh's collectives "
+                            "cannot be captured in a CUDA graph",
+                            self.mesh.backend)
+        if decode_graphs and not self.mesh.capturable:
+            raise ValueError(
+                f"decode_graphs=True needs collectives a CUDA graph can "
+                f"capture (NCCL); this mesh's backend is {self.mesh.backend}, "
+                "whose collectives go through host memory: pass "
+                "decode_graphs=False")
+        if decode_graphs and self.device.type != "cuda":
+            raise ValueError("decode_graphs needs the CUDA card; the engine "
+                             f"runs on {self.device}")
+        self.decode_graphs = bool(decode_graphs)
         # Observability: latency and step histograms, the step records
         # (always on, a few clock reads a step) and the flight recorder
         # (LLMLB_FLIGHTREC=0 turns it off before its first clock read).
@@ -750,14 +788,18 @@ class EngineCore:
         self._prefix_pinned_pages = 0
 
         self.init_seconds: float | None = None  # the random init's, if any
+        sharded = False
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             t_init = time.perf_counter()
             # int8 weights are filled and quantized a matrix at a time:
             # Mixtral-8x7B's bf16 leaves (93 GB) would not fit the card
+            # on a mesh each rank keeps its shard of each leaf as it fills
             params = self.family.init_params(
-                cfg, gen, self.device, quantize_weights=self.quant.weights)
+                cfg, gen, self.device, quantize_weights=self.quant.weights,
+                mesh=self._model_mesh)
+            sharded = not self.mesh.trivial
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.init_seconds = time.perf_counter() - t_init
@@ -772,6 +814,10 @@ class EngineCore:
             # on the device, one layer at a time; an already-quantized
             # pytree passes through
             params = quantize_params(params)
+        if not (self.mesh.trivial or sharded):
+            # each rank keeps its shard of the full leaves (quantized
+            # whole: a row-parallel weight's scale spans every rank's rows)
+            params = self.family.shard_params(params, cfg, self.mesh)
 
         # Multi-LoRA: the adapter pool leaves join the params AFTER weight
         # quantization (adapters stay in the model dtype over int8 bases).
@@ -780,6 +826,11 @@ class EngineCore:
             lora_dir = os.environ.get("LLMLB_LORA_DIR") or None
         self.lora: LoraManager | None = None
         if lora_dir:
+            if not self.mesh.trivial:
+                raise ValueError(
+                    "--lora-dir is single-host only for now: followers have "
+                    "no deterministic mirror of the leader's adapter pool "
+                    "slot assignment")
             if lora_max_adapters is None:
                 lora_max_adapters = int(os.environ.get(
                     "LLMLB_LORA_MAX_ADAPTERS", "8"))
@@ -802,8 +853,13 @@ class EngineCore:
         self.params = params
         # parameter count without the scale and adapter-pool leaves; bytes
         # with them
-        self.n_params = sum(p.numel() for k, p in params.items()
-                            if not (k.endswith(SCALE_SUFFIX) or "_lora_" in k))
+        # the full model's count on a mesh (a rank holds a shard of it)
+        self.n_params = (sum(p.numel() for k, p in params.items()
+                             if not (k.endswith(SCALE_SUFFIX)
+                                     or "_lora_" in k))
+                         if self.mesh.trivial else
+                         sum(math.prod(shape) for shape, _ in
+                             self.family.param_shapes(cfg).values()))
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in params.values())
 
@@ -822,24 +878,25 @@ class EngineCore:
         if kv_layout == "paged":
             self.page_pool = PagePool(self.kv_num_pages)
             self.cache_k, self.cache_v = self.family.init_kv_pages(
-                cfg, self.kv_num_pages, self.kv_page_size, self.device,
-                quantized=self.quant.kv)
+                self.model_cfg, self.kv_num_pages, self.kv_page_size,
+                self.device, quantized=self.quant.kv)
             self._d_block_tables = self._to_device(self._block_tables)
             log.info(
                 "KV cache: paged%s, %d pages x %d tokens (%d slots, %d "
                 "pages/slot) = %.2f GiB on %s",
                 " int8" if self.quant.kv else "", self.kv_num_pages,
                 self.kv_page_size, num_slots, self.pages_per_slot,
-                kv_pool_bytes(cfg, self.kv_num_pages, self.kv_page_size,
-                              self.quant.kv) / 2**30,
+                kv_pool_bytes(self.model_cfg, self.kv_num_pages,
+                              self.kv_page_size, self.quant.kv) / 2**30,
                 self.device,
             )
         else:
             self.cache_k, self.cache_v = self.family.init_kv_cache(
-                cfg, num_slots, self.slot_capacity, self.device)
+                self.model_cfg, num_slots, self.slot_capacity, self.device)
             log.info("KV cache: dense, %d slots x %d capacity = %.2f GiB on %s",
                      num_slots, self.slot_capacity,
-                     kv_cache_bytes(cfg, num_slots, self.slot_capacity) / 2**30,
+                     kv_cache_bytes(self.model_cfg, num_slots,
+                                    self.slot_capacity) / 2**30,
                      self.device)
 
         # Decode burst: k decode+sample steps per host sync, from the kwarg,
@@ -910,7 +967,8 @@ class EngineCore:
         self._d_verify_mask: torch.Tensor | None = None
         self._spec_masked_prev: set[int] = set()
         self._burst_state = BurstState(
-            params=self.params, cfg=cfg, cache_k=self.cache_k,
+            params=self.params, cfg=self.model_cfg, mesh=self._model_mesh,
+            cache_k=self.cache_k,
             cache_v=self.cache_v, block_tables=self._d_block_tables,
             last_tokens=self._d_last_tokens, seq_lens=self._d_seq_lens,
             tokens=self._d_tokens, temps=self._d_temps,
@@ -968,7 +1026,7 @@ class EngineCore:
                 "0", "false", "off", "no")
         # split mode ships nothing: a handoff moves its block-table row
         self.kv_ship = (bool(kv_ship) and self.page_pool is not None
-                        and self.role != "split")
+                        and self.role != "split" and self.mesh.trivial)
         # exports of parked streams by gateway id, taken once
         self._kv_exports: dict[str, dict] = {}
         if kv_offload_bytes is None:
@@ -982,7 +1040,7 @@ class EngineCore:
         self.kv_offload: KVOffloadTier | None = (
             KVOffloadTier(kv_offload_bytes)
             if (kv_offload_bytes > 0 and self.page_pool is not None
-                and self.role != "split")
+                and self.role != "split" and self.mesh.trivial)
             else None)
         if self.kv_offload is not None:
             log.info("KV offload tier: %.1f MiB host-RAM budget",
@@ -1045,12 +1103,56 @@ class EngineCore:
             "main": 0, "prefill": 0, "decode": 0, "handoff": 0}
         self.decode_dispatch_by_loop: dict[str, int] = {
             "main": 0, "prefill": 0, "decode": 0, "handoff": 0}
+        # Multi-rank lockstep (engine/multihost.py): the leader's intake and
+        # its budget-spilled backlog, mirrored into `pending` on every rank
+        # by the tick plan; cancellations act through the plan only.
+        self.coordinator: StepCoordinator | None = None
+        self._stop_requested = False
+        self._cancelled_effective: set[str] = set()
+        self._intake: queue.SimpleQueue[Request] = queue.SimpleQueue()
+        self._plan_backlog: list[Request] = []
+        # context-parallel prefill (sp > 1): built at the first long prompt
+        self._use_cp_prefill = self.mesh.shape["sp"] > 1
+        self._cp_prefill_fn = None
+        if not self.mesh.trivial:
+            if self.role == "split":
+                raise ValueError(
+                    "--role split is single-host only (multihost lockstep "
+                    "has no split-mode handoff mirror)")
+            self.coordinator = StepCoordinator(self.mesh)
+            log.info("multihost lockstep: %s of %d ranks, mesh %s",
+                     "leader" if self.coordinator.is_leader else "follower",
+                     self.mesh.world, self.mesh.shape)
         if self.role == "split":
             if self.page_pool is None:
                 raise ValueError(
                     "--role split requires the paged KV layout: the handoff "
                     "is a block-table page-id exchange")
             self.split = SplitRuntime(self, disagg_prefill_slots)
+
+    @staticmethod
+    def _build_mesh(cfg: LlamaConfig, mesh_config: MeshConfig | None):
+        """The engine's mesh over the torch.distributed world (one rank
+        without a process group). The default resolves as the reference's:
+        ep = gcd(ranks, experts) for MoE, tp = default_tp of the rest, dp
+        what is left; dp > 1 inside one engine is refused (A18b)."""
+        import torch.distributed as dist
+
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if mesh_config is None:
+            ep = 1
+            if getattr(cfg, "num_experts", 0) > 1:
+                ep = math.gcd(world, cfg.num_experts)
+            tp = default_tp(world // ep, cfg.num_heads, cfg.num_kv_heads)
+            mesh_config = MeshConfig(dp=world // (ep * tp), ep=ep, tp=tp)
+        mesh = build_mesh(mesh_config, world=world)
+        if mesh.shape["dp"] > 1:
+            raise ValueError(
+                f"mesh {mesh.shape}: dp > 1 inside one engine (batch rows "
+                "split across dp groups) is not served yet (ROADMAP A18b); "
+                "run one engine per replica")
+        return mesh
 
     # ------------------------------------------------------------------ public
 
@@ -1066,11 +1168,20 @@ class EngineCore:
         self._thread.start()
 
     def stop(self) -> None:
-        self._running = False
+        if self.coordinator is not None and self.coordinator.is_leader:
+            # the shutdown rides the tick plan, so the followers leave their
+            # loops too (flipping _running here would strand them blocked
+            # in the next exchange)
+            self._stop_requested = True
+            if self._thread is None or not self._thread.is_alive():
+                self._running = False
+        else:
+            self._running = False
         if self.split is not None:
             self.split.join(timeout=30)
         if self._thread is not None:
             self._thread.join(timeout=30)
+        self._running = False
         # terminal events for everything still in flight so waiters unblock
         self._fail_all("engine shutting down")
         self._run_calls(RuntimeError("engine shutting down"))
@@ -1144,7 +1255,12 @@ class EngineCore:
             self.total_requests += 1
         self._fr_emit(request, "admitted", prompt_tokens=n,
                       queue_depth=self.pending.qsize())
-        self.pending.put(request)
+        if self.coordinator is not None:
+            # multi-rank: requests enter through the tick plan, so every
+            # rank mirrors the same queue in the same order
+            self._intake.put(request)
+        else:
+            self.pending.put(request)
         return request
 
     @property
@@ -1158,6 +1274,10 @@ class EngineCore:
             len(q) for q in self._class_queues.values())
         if self._held_request is not None:
             queued += 1
+        if self.coordinator is not None:
+            # the leader's intake and the plan's spilled backlog are queued
+            # work the gateway's placement must see
+            queued += self._intake.qsize() + len(self._plan_backlog)
         return EngineStats(
             num_slots=self.num_slots, active_slots=active, queued=queued,
             total_requests=self.total_requests, total_tokens=self.total_tokens,
@@ -1454,14 +1574,16 @@ class EngineCore:
         flops_tok = model_flops_per_token(self.cfg, self.n_params)
         # the measured parameter bytes (int8 codes and scales when weights
         # are quantized) and the pool's actual cell size
+        # every rank's parameter bytes: a token reads each rank's shard
+        n_chips = self.mesh.world
         bytes_tok = model_bytes_per_token(
             self.cfg, self.n_params, mean_ctx, batch=batch,
-            weight_bytes=self.param_bytes,
+            weight_bytes=self.param_bytes * n_chips,
             kv_cell_bytes=kv_cell_bytes(self.cfg.head_dim_, self.quant.kv,
                                         self.cfg.dtype.itemsize))
         info = {
             "device_kind": kind,
-            "n_chips": 1,
+            "n_chips": n_chips,
             "n_params": self.n_params,
             "quantize": self.quant.mode,
             "flops_per_token": flops_tok,
@@ -1483,9 +1605,9 @@ class EngineCore:
             # int8-weight engines against the int8 column, the reference's
             # rule (the port widens int8 weights to bf16 today)
             peak = spec.int8_flops if self.quant.weights else spec.peak_flops
-            info["mfu"] = round(flops_tok * tok_per_s / peak, 6)
+            info["mfu"] = round(flops_tok * tok_per_s / (peak * n_chips), 6)
             info["hbm_bw_utilization"] = round(
-                bytes_tok * tok_per_s / spec.peak_hbm_bw, 6)
+                bytes_tok * tok_per_s / (spec.peak_hbm_bw * n_chips), 6)
         return info
 
     def nan_logit_rows(self) -> int:
@@ -1573,6 +1695,10 @@ class EngineCore:
         while self._running:
             did_work = False
             try:
+                if self.coordinator is not None:
+                    self._lockstep_tick()
+                    if not self._running:
+                        break
                 if self._drain_park_requested:
                     self._drain_park_requested = False
                     self._drain_park_all()
@@ -1611,6 +1737,100 @@ class EngineCore:
         self._seq_lens[:] = 0
         self._d_seq_lens.zero_()
         self._d_last_tokens.zero_()
+
+    # ------------------------------------------------------ multi-rank plans
+
+    def _is_cancelled(self, request: Request) -> bool:
+        """One rank reads the live flag; a lockstep mesh reads the plan's
+        mirrored set, so every rank sees a cancellation on the same tick."""
+        if self.coordinator is None:
+            return request.cancelled
+        return request.request_id in self._cancelled_effective
+
+    def _collect_plan(self) -> dict:
+        """Leader: drain the intake into this tick's plan and gather the
+        cancellations. A request cancelled or past its deadline before any
+        plan ends here, on the leader alone (no rank runs a forward for
+        it), and the plan's payload is bounded here: a batch over budget
+        spills to the next tick's backlog in arrival order, and a single
+        request too large for any plan ends with an error, never a raise
+        mid-broadcast."""
+        budget = _MAX_PLAN_BYTES // 8  # ~int tokens, pickled with overhead
+        candidates = self._plan_backlog
+        self._plan_backlog = []
+        while True:
+            try:
+                candidates.append(self._intake.get_nowait())
+            except queue.Empty:
+                break
+        new = []
+        tokens = 0
+        for idx, req in enumerate(candidates):
+            if req.cancelled:
+                self._finish(req, "done", "cancelled")
+                continue
+            if req.deadline_expired():
+                self.deadline_shed_total += 1
+                self._finish(req, "error", "deadline exceeded before prefill",
+                             event="shed", reason="deadline")
+                continue
+            n = len(req.prompt_ids)
+            if n > budget:
+                self._finish(req, "error", "prompt too large for a tick plan")
+                continue
+            if tokens + n > budget:
+                self._plan_backlog = candidates[idx:]
+                break
+            tokens += n
+            new.append(req)
+        in_flight = [s.request for s in self.slots if s.request is not None]
+        if self._held_request is not None:
+            in_flight.append(self._held_request)
+        with self.pending.mutex:
+            in_flight += list(self.pending.queue)
+        for q in self._class_queues.values():
+            in_flight += list(q)
+        cancelled = [r.request_id for r in in_flight
+                     if r.cancelled
+                     and r.request_id not in self._cancelled_effective]
+        return {"new": new, "cancelled": cancelled,
+                "stop": self._stop_requested}
+
+    def _plan_wire(self, plan: dict) -> dict:
+        """The wire form of a plan: payloads in place of Request objects."""
+        return {
+            "new": [{"request_id": r.request_id,
+                     "prompt_ids": list(r.prompt_ids),
+                     "sampling": dataclasses.asdict(r.sampling)}
+                    for r in plan["new"]],
+            "cancelled": plan["cancelled"],
+            "stop": plan["stop"],
+        }
+
+    def _apply_plan(self, plan: dict, local: dict | None) -> None:
+        """Every rank: queue this tick's requests in plan order (the leader
+        its real Requests, followers shadows whose events go unread) and
+        mirror the cancellations and the stop."""
+        if local is not None:
+            for req in local["new"]:
+                self.pending.put(req)
+        else:
+            for payload in plan["new"]:
+                self.pending.put(Request(
+                    prompt_ids=payload["prompt_ids"],
+                    sampling=SamplingParams(**payload["sampling"]),
+                    request_id=payload["request_id"]))
+        self._cancelled_effective |= set(plan["cancelled"])
+        if plan["stop"]:
+            self._running = False
+
+    def _lockstep_tick(self) -> None:
+        local = None
+        wire = None
+        if self.coordinator.is_leader:
+            local = self._collect_plan()
+            wire = self._plan_wire(local)
+        self._apply_plan(self.coordinator.exchange(wire), local)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -1755,7 +1975,9 @@ class EngineCore:
         """Deadline shedding at admission: a request past its deadline ends
         with an error before it costs a prefill. A resumed request is never
         shed: its client already holds part of the stream."""
-        if request.parked is not None or not request.deadline_expired():
+        if (self.coordinator is not None or request.parked is not None
+                or not request.deadline_expired()):
+            # multi-rank: the leader sheds in _collect_plan, before the plan
             return False
         self.deadline_shed_total += 1
         self._finish(request, "error", "deadline exceeded before prefill",
@@ -1803,6 +2025,7 @@ class EngineCore:
         the message; or `event` with `attrs` alone: "shed" for a
         deadline), its count, and the release of its adapter."""
         request.finished_at = time.monotonic()
+        self._cancelled_effective.discard(request.request_id)
         self._release_lora(request)
         if self.kv_offload is not None:
             # a parked spill of a request that ended is dead bytes
@@ -1995,7 +2218,7 @@ class EngineCore:
             request = self._pop_request()
             if request is None:
                 break
-            if request.cancelled:
+            if self._is_cancelled(request):
                 self._finish(request, "done", "cancelled")
                 handled = True
                 continue
@@ -2058,7 +2281,7 @@ class EngineCore:
                 hit = self.prefix_cache.match(request.prompt_ids,
                                               max_len=n - 1,
                                               ns=request.sampling.lora)
-                if hit is not None:
+                if hit is not None and not self._prefer_cp_over(hit[1], n):
                     entry, use_len = hit
                     # Paged: the shared head rides the donor's pages, only
                     # the suffix needs fresh ones. The donor stays pinned
@@ -2097,7 +2320,12 @@ class EngineCore:
             slot_id = free.pop(0)
             self._assign_slot_pages(slot_id, (), pages)
             if n > max_oneshot:
-                self._insert_long(slot_id, request)
+                if self._cp_capable(request):
+                    # one ring-attention pass over the sp ranks fills the
+                    # whole prompt's KV
+                    self._cp_prefill_into_slot(slot_id, request, n)
+                else:
+                    self._insert_long(slot_id, request)
                 handled = True
                 inserted += 1
                 continue
@@ -2136,6 +2364,82 @@ class EngineCore:
         slot.prefill_pos = start
         self._seq_lens[slot_id] = 0
         self._d_seq_lens[slot_id] = self.slot_capacity - 1
+
+    def _cp_capable(self, request: Request) -> bool:
+        """Whether a long prompt prefills in one ring-attention pass (an
+        sp > 1 mesh and a family with a context-parallel prefill). A
+        resumed row takes the chunked path: its prompt replays in the
+        uninterrupted run's chunks. (The reference's LoRA fallback to
+        chunks cannot arise: an sp > 1 mesh has ranks, which refuse
+        adapters, so lora_cp_fallback_total stays 0.)"""
+        if not (self._use_cp_prefill and hasattr(
+                self.family, "make_context_parallel_prefill")):
+            return False
+        n = len(request.prompt_ids)
+        return request.parked is None and self._cp_bucket_for(n) >= n
+
+    def _prefer_cp_over(self, use_len: int, n: int) -> bool:
+        """On an sp > 1 mesh a long prompt prefills in ONE ring pass, while
+        a cache hit's suffix goes through chunks: take the hit only when it
+        covers at least half the prompt."""
+        return (self._use_cp_prefill
+                and hasattr(self.family, "make_context_parallel_prefill")
+                and n > self._chunk_bucket and use_len < n // 2)
+
+    def _cp_bucket_for(self, n: int) -> int:
+        """The ring pass's padded length: the next power of two from the
+        largest bucket, capped at the slot capacity rounded down to a
+        multiple of sp (every rank holds T / sp tokens)."""
+        sp = self.mesh.shape["sp"]
+        b = max(self.prefill_buckets[-1], 1)
+        while b < n:
+            b *= 2
+        return min(b, self.slot_capacity - self.slot_capacity % sp)
+
+    def _cp_prefill_into_slot(self, slot_id: int, request: Request,
+                              n: int) -> None:
+        """One-shot ring-attention prefill of a long prompt over the sp
+        ranks; its KV (gathered over sp on every rank) is written into the
+        slot's pages or row, and the slot activates on the last token's
+        logits. The slot is claimed before the dispatch, so a failure
+        reaches the request through _fail_all."""
+        if self._cp_prefill_fn is None:
+            self._cp_prefill_fn = self.family.make_context_parallel_prefill(
+                self.model_cfg, self.mesh)
+        slot = self.slots[slot_id]
+        slot.request = request
+        slot.generated = 0
+        ids = np.zeros((1, self._cp_bucket_for(n)), np.int64)
+        ids[0, :n] = request.prompt_ids
+        prefill_start = time.monotonic()
+        t_dispatch = time.perf_counter()
+        events = self._timing_events()
+        logits, k_all, v_all = self._cp_prefill_fn(
+            self.params, self._to_device(ids),
+            self._to_device(np.asarray([n], np.int32)))
+        if self.page_pool is not None:
+            self._sync_block_tables()
+            self.family.scatter_prefill_kv(
+                self.cache_k, self.cache_v, k_all[:, :, :n], v_all[:, :, :n],
+                block_table=self._d_block_tables[slot_id])
+        else:
+            self.family.scatter_prefill_kv(
+                self.cache_k, self.cache_v, k_all[:, :, :n], v_all[:, :, :n],
+                slot=slot_id)
+        if events is not None:
+            events[1].record()
+        t_done = time.perf_counter()
+        self._note_prefill_dispatch()
+        self.metrics.record_prefill_step(time.monotonic() - prefill_start)
+        self._fr_emit(request, "prefill_chunk", tokens=n, cached_tokens=0,
+                      cp=True)
+        self._activate_group([(slot_id, request, n)],
+                             np.asarray([slot_id], np.int64),
+                             np.asarray([n], np.int32), logits)
+        self._record_step(
+            "prefill", {"dispatch": t_done - t_dispatch,
+                        "emit": time.perf_counter() - t_done},
+            active_slots=1, tokens=n, slots=[slot_id], events=events)
 
     def _insert_cached(self, slot_id: int, request: Request,
                        entry: PrefixEntry, use_len: int,
@@ -2197,16 +2501,18 @@ class EngineCore:
         if self.page_pool is not None:
             self._sync_block_tables()
             logits, _, _ = self.family.prefill_into_pages(
-                self.params, self.cfg, self._to_device(ids),
+                self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(lens),
                 self._to_device(self._block_tables[slot_ids]),
                 self.cache_k, self.cache_v, lora_idx=lora_idx,
+                mesh=self._model_mesh,
             )
         else:
             logits, _, _ = self.family.prefill_into_slots(
-                self.params, self.cfg, self._to_device(ids),
+                self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(lens), self._to_device(slot_ids),
                 self.cache_k, self.cache_v, lora_idx=lora_idx,
+                mesh=self._model_mesh,
             )
         if events is not None:
             events[1].record()
@@ -2236,7 +2542,7 @@ class EngineCore:
         self._prefill_rr += 1
         slot = self.slots[slot_id]
         request = slot.request
-        if request.cancelled:
+        if self._is_cancelled(request):
             self._finish_slot(slot_id, "cancelled")
             return True
         prompt = request.prompt_ids
@@ -2271,17 +2577,19 @@ class EngineCore:
         prefill_start = time.monotonic()
         t_dispatch = time.perf_counter()
         events = self._timing_events()
-        args = (self.params, self.cfg, self._to_device(ids),
+        args = (self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(np.asarray([chunk_len], np.int32)),
                 self._to_device(np.asarray([start], np.int32)))
         if self.page_pool is not None:
             logits, _, _ = self.family.prefill_extend_pages(
                 *args, self._to_device(self._block_tables[slot_id:slot_id + 1]),
-                self.cache_k, self.cache_v, lora_idx=lora_idx)
+                self.cache_k, self.cache_v, lora_idx=lora_idx,
+                mesh=self._model_mesh)
         else:
             logits, _, _ = self.family.prefill_extend_slots(
                 *args, self._to_device(np.asarray([slot_id], np.int64)),
-                self.cache_k, self.cache_v, lora_idx=lora_idx)
+                self.cache_k, self.cache_v, lora_idx=lora_idx,
+                mesh=self._model_mesh)
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()
@@ -2869,7 +3177,7 @@ class EngineCore:
                     # a committed token fed back: its KV is written, it was
                     # emitted before the park
                     slot.forced.pop(0)
-                    if slot.request.cancelled:
+                    if self._is_cancelled(slot.request):
                         self._finish_slot(i, "cancelled")
                     continue
                 self._emit(i, int(tokens[t, i]))
@@ -2884,7 +3192,7 @@ class EngineCore:
         inter-token latency of every token but a row's first."""
         slot = self.slots[slot_id]
         request = slot.request
-        if request.cancelled:
+        if self._is_cancelled(request):
             self._finish_slot(slot_id, "cancelled")
             return
         slot.generated += 1
@@ -2934,8 +3242,11 @@ class EngineCore:
     def _prepare_constraint(self, request: Request) -> None:
         """A constrained request carries its compiled token DFA before it
         claims a slot: the service compiles it off the step loop; this is
-        the fallback for core-level submitters. Raises for uncompilable
-        specs (the caller ends the request with the error)."""
+        the fallback for core-level submitters and for a multi-rank
+        follower, whose shadow carries only the spec: a cold schema
+        compiles here, on its loop, while the leader compiles it in its
+        service, and the compiler's LRU makes that once a schema. Raises for
+        uncompilable specs (the caller ends the request with the error)."""
         if (request.compiled_constraint is None
                 and request.sampling.constraint is not None):
             if self.constraint_compiler is None:

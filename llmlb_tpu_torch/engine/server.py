@@ -98,6 +98,15 @@ unknown, unservable or conflicting adapters are 400s naming `lora`.
 `base:adapter` entry per resident adapter; `/api/health` and `/api/system`
 carry a `lora` block.
 
+Multi-rank serving (parallel/, engine/multihost.py): with
+LLMLB_COORDINATOR=host:port, LLMLB_NUM_HOSTS=N and LLMLB_HOST_ID=i (or
+LLMLB_DISTRIBUTED=1 under torchrun) one process a rank joins a
+torch.distributed world before the engine is built (NCCL on the cards,
+gloo on the CPU; LLMLB_MESH_BACKEND=gloo lets ranks share a card), every
+rank with the same flags. Rank 0 serves HTTP; a follower runs the
+lockstep loop only, binds no port, and exits when the leader stops.
+`/api/health`'s `engine` block carries the `mesh`.
+
 Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
 card, random weights), or `--checkpoint DIR` to serve a HF checkpoint with
 its own tokenizer (`transformers` needed); `--device cpu` for the plain
@@ -135,6 +144,7 @@ from llmlb_tpu_torch.engine.profiling import ProfileError, ProfileManager
 from llmlb_tpu_torch.engine.scheduler import SamplingParams
 from llmlb_tpu_torch.engine.service import Engine, EngineError
 from llmlb_tpu_torch.lora import adapter_from_body
+from llmlb_tpu_torch.parallel.distributed import init_from_env
 from llmlb_tpu_torch.structured import inspect_request
 
 log = logging.getLogger("llmlb_tpu_torch.engine.server")
@@ -1567,6 +1577,10 @@ def main(argv: list[str] | None = None) -> None:
         # before the first in-process CUDA call: a card that does not come
         # up exits here with the probe's evidence, never on the CPU
         guard_backend_init(args.init_timeout)
+    # Multi-rank bring-up before the engine exists (it reads the world
+    # size); a no-op unless LLMLB_COORDINATOR / LLMLB_NUM_HOSTS /
+    # LLMLB_HOST_ID or LLMLB_DISTRIBUTED are set.
+    init_from_env(args.device)
     if args.checkpoint:
         engine = Engine.from_checkpoint(args.checkpoint,
                                         model_id=args.model_id,
@@ -1574,6 +1588,16 @@ def main(argv: list[str] | None = None) -> None:
     else:
         engine = Engine.from_preset(args.preset, model_id=args.model_id,
                                     device=args.device, **core_kwargs)
+    coordinator = engine.core.coordinator
+    if coordinator is not None and not coordinator.is_leader:
+        # A follower rank: its step thread runs the lockstep loop, running
+        # the forwards the leader plans; HTTP belongs to the leader. It
+        # returns when the leader's plan says stop.
+        log.info("multi-rank follower %d: serving loop only (the leader "
+                 "owns HTTP)", engine.core.mesh.rank)
+        engine.core._thread.join()
+        engine.shutdown()
+        return
     server = EngineHTTPServer((args.host, args.port), engine,
                               **services_from(args))
 

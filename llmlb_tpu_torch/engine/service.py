@@ -472,6 +472,11 @@ class Engine:
         if len(batch_ids) > self.MAX_EMBED_INPUTS:
             raise ValueError(f"at most {self.MAX_EMBED_INPUTS} inputs per "
                              f"request (got {len(batch_ids)})")
+        if self.core.coordinator is not None:
+            # a forward on the leader alone would leave the followers out
+            # of its collectives
+            raise ValueError("embeddings are not served by a multi-rank "
+                             "engine yet")
         longest = max(len(x) for x in batch_ids)
         limit = self.core.cfg.max_position_embeddings
         if longest > limit:
@@ -509,7 +514,7 @@ class Engine:
                     lens[r] = len(batch_ids[i])
                 vecs = self.core.call_in_loop(
                     lambda ids=ids, lens=lens: self.core.family.encode(
-                        self.core.params, self.core.cfg,
+                        self.core.params, self.core.model_cfg,
                         torch.from_numpy(ids).to(dev),
                         torch.from_numpy(lens).to(dev)).cpu())
                 for r, vec in zip(chunk, vecs.tolist()):
@@ -534,6 +539,8 @@ class Engine:
                 "total_tokens": stats.total_tokens,
                 "uptime_s": round(stats.uptime_s, 3),
                 "decode_burst": self.core.decode_burst,
+                # the engine's mesh of ranks, as the reference reports it
+                "mesh": dict(self.core.mesh.shape),
                 # the prefix cache's counters (the reference's metric names)
                 # and the dense hits' row copies
                 **dataclasses.asdict(stats.prefix),

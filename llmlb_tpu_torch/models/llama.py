@@ -34,10 +34,19 @@ work by shape alone, and the elementwise ops and norms are per row.
 
 Every entry point takes the family's feed-forward as `ffn` (a
 `FeedForward`: the layer's leaves and `mlp_fn(lp, h, token_valid, lora_idx,
-per_row)`, the reference's mlp_fn seam): the dense SwiGLU by default,
+per_row, mesh)`, the reference's mlp_fn seam): the dense SwiGLU by default,
 routed experts for `models/mixtral.py`. `token_valid` marks the prompt or
 chunk tokens of a prefill or extend (None in decode), so routing can keep
 padding out.
+
+Multi-rank (parallel/): every entry point takes the rank's `mesh` (None
+on one rank: nothing below changes) with the rank's shard of the params
+(`shard_params`, by the reference's `param_logical_axes`) and its local
+view of the config (`local_config`: its heads and ffn width). On a tp mesh
+wq / wk / wv / wg / wu are column-parallel and wo / wd row-parallel, their
+fp32 partials summed over tp before the one round; the embedding and the
+vocab projection are vocab-sharded (rows summed, fp32 logits gathered).
+`make_context_parallel_prefill` runs a long prompt split over sp.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -66,6 +75,8 @@ from llmlb_tpu_torch.ops.attention import (
 from llmlb_tpu_torch.ops.lora import lora_delta_add
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
+from llmlb_tpu_torch.parallel.mesh import Mesh, validate_tp
+from llmlb_tpu_torch.parallel.sharding import ShardingRules, shard_leaf
 from llmlb_tpu_torch.quant import SCALE_SUFFIX, WEIGHT_QUANT_NAMES, quantize_kv
 from llmlb_tpu_torch.quant.core import absmax_int8
 
@@ -196,7 +207,8 @@ def param_shapes(cfg: LlamaConfig, quantized: tuple[str, ...] = ()
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: torch.device | str,
-                quantize_weights: bool = False) -> Params:
+                quantize_weights: bool = False,
+                mesh: Mesh | None = None) -> Params:
     """Random init with the reference's scheme: normal * fan_in**-0.5 for
     the matrices, ones for the norms, zeros for the biases. Stacked leaves
     are filled one layer (or, for the vocab matrices, one row block) at a
@@ -205,17 +217,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     weights across with engine.weights.params_from_numpy instead.
     `quantize_weights` gives the projections as int8 with their scales,
     each block quantized right after its round to cfg.dtype: the codes of
-    quantize_params over the cfg.dtype init, without the cfg.dtype leaf."""
-    return fill_params(param_shapes, cfg, generator, device, quantize_weights)
+    quantize_params over the cfg.dtype init, without the cfg.dtype leaf.
+    With a `mesh` every rank draws the same full leaves and keeps its shard
+    of each as it is filled (shard_params' slices), so at most one full
+    leaf exists at a time."""
+    return fill_params(param_shapes, cfg, generator, device, quantize_weights,
+                       keep=_sharder(cfg, mesh, param_logical_axes(cfg)))
 
 
 def fill_params(shapes_fn, cfg: LlamaConfig, generator: torch.Generator,
                 device: torch.device | str,
-                quantize_weights: bool = False) -> Params:
+                quantize_weights: bool = False, keep=None) -> Params:
     """init_params of a family whose `shapes_fn(cfg, quantized)` gives its
     leaves (param_shapes' contract): a stacked matrix leaf [..., in, out]
     is filled one [in, out] block at a time (a layer, or a layer's expert),
-    which with `quantize_weights` quantizes per output channel at once."""
+    which with `quantize_weights` quantizes per output channel at once.
+    `keep(name, leaf)`, when given, replaces each leaf once it is whole (a
+    rank's shard)."""
+    keep = keep or (lambda name, x: x)
     quantized = tuple(n for n in WEIGHT_QUANT_NAMES if quantize_weights
                       and n in shapes_fn(cfg))
     params: Params = {}
@@ -224,7 +243,8 @@ def fill_params(shapes_fn, cfg: LlamaConfig, generator: torch.Generator,
             continue  # made beside its weight
         if fan_in == 0:
             fill = torch.zeros if name.startswith("b") else torch.ones
-            params[name] = fill(shape, dtype=cfg.dtype, device=device)
+            params[name] = keep(name, fill(shape, dtype=cfg.dtype,
+                                           device=device))
             continue
         q = name in quantized
         out = torch.empty(shape, dtype=torch.int8 if q else cfg.dtype,
@@ -249,8 +269,122 @@ def fill_params(shapes_fn, cfg: LlamaConfig, generator: torch.Generator,
                 scale_rows[i:i + step].copy_(s)
             else:
                 block.copy_(noise * fan_in**-0.5)
-        params[name] = out
+        params[name] = keep(name, out)
+        if q:
+            params[name + SCALE_SUFFIX] = keep(name + SCALE_SUFFIX, scale)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Sharding over a mesh (parallel/): the reference's logical axes and rules
+# ---------------------------------------------------------------------------
+
+def param_logical_axes(cfg: LlamaConfig) -> dict[str, tuple]:
+    """Logical sharding axes per param leaf (parallel/sharding.py), the
+    reference's: int8 scales take their weight's axes less the input one,
+    adapter pools keep the weight's input (A) or output (B) axis."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "wg": ("layers", "embed", "ffn"),
+        "wu": ("layers", "embed", "ffn"),
+        "wd": ("layers", "ffn", "embed"),
+        "ln_attn": ("layers", "embed"),
+        "ln_mlp": ("layers", "embed"),
+        "ln_final": ("embed",),
+    }
+    if cfg.attention_bias:
+        axes["bq"] = ("layers", "heads")
+        axes["bk"] = ("layers", "kv_heads")
+        axes["bv"] = ("layers", "kv_heads")
+    if not cfg.tie_word_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+        axes[name + SCALE_SUFFIX] = (axes[name][0], axes[name][2])
+    for name in LORA_TARGETS:
+        w_axes = axes[name]
+        axes[name + LORA_A] = (w_axes[0], None, w_axes[1], None)
+        axes[name + LORA_B] = (w_axes[0], None, None, w_axes[2])
+    return axes
+
+
+def shard_rules_for(cfg: LlamaConfig, tp: int) -> ShardingRules:
+    """Default rules; kv heads replicate when tp exceeds the kv head count."""
+    validate_tp(cfg.num_heads, cfg.num_kv_heads, tp)
+    if cfg.intermediate_size % tp != 0:
+        raise ValueError(
+            f"intermediate_size={cfg.intermediate_size} not divisible by tp={tp}"
+        )
+    kv_shardable = cfg.num_kv_heads % tp == 0
+    return ShardingRules(kv_heads="tp" if kv_shardable else None)
+
+
+def param_shardings(cfg: LlamaConfig, mesh: Mesh,
+                    rules: ShardingRules | None = None
+                    ) -> dict[str, tuple[str | None, ...]]:
+    """Leaf name -> the mesh axis of each dim (the reference's
+    NamedShardings, as PartitionSpec tuples)."""
+    rules = rules or shard_rules_for(cfg, mesh.shape["tp"])
+    return {name: rules.spec(*axes)
+            for name, axes in param_logical_axes(cfg).items()}
+
+
+def local_config(cfg: LlamaConfig, mesh: Mesh) -> LlamaConfig:
+    """The config a rank computes with: its share of the heads, the KV
+    heads it holds (one when tp exceeds their count: the one its q heads
+    read) and its share of the ffn width. A rank's KV caches are made from
+    it, so they hold its KV heads: the reference's cache and pool
+    shardings (kv heads over tp, replicated over sp). head_dim is pinned, so rope and
+    the attention scale keep the full model's; the vocab, the layers and
+    the experts keep their global counts."""
+    tp = mesh.shape["tp"]
+    if tp == 1:
+        return cfg
+    shard_rules_for(cfg, tp)
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=max(1, cfg.num_kv_heads // tp), head_dim=cfg.head_dim_,
+        intermediate_size=cfg.intermediate_size // tp)
+
+
+_KV_LEAVES = ("wk", "wv", "bk", "bv", "wk" + SCALE_SUFFIX, "wv" + SCALE_SUFFIX)
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh: Mesh,
+                 logical_axes: dict[str, tuple] | None = None) -> Params:
+    """This rank's params from the full ones: each leaf's `rank_slice` by
+    its logical axes (the block JAX places on the device at this mesh
+    coordinate), copied so the full leaf can go. Where tp exceeds the KV
+    head count the reference replicates wk / wv; a rank here keeps only
+    the KV head its own q heads read (local q head i reads local KV head
+    i // group in the kernels)."""
+    keep = _sharder(cfg, mesh, logical_axes or param_logical_axes(cfg))
+    if keep is None:
+        return params
+    return {name: keep(name, full) for name, full in params.items()}
+
+
+def _sharder(cfg: LlamaConfig, mesh: Mesh | None, axes: dict[str, tuple]):
+    """`(name, full leaf) -> this rank's copy of its shard` (shard_params'
+    rule), or None on one rank."""
+    if mesh is None or mesh.trivial:
+        return None
+    rules = shard_rules_for(cfg, mesh.shape["tp"])
+    tp = mesh.shape["tp"]
+    replicated_kv = tp > 1 and cfg.num_kv_heads % tp != 0
+
+    def keep(name: str, full: torch.Tensor) -> torch.Tensor:
+        x = shard_leaf(full, axes[name], rules, mesh)
+        if replicated_kv and name in _KV_LEAVES:
+            d = cfg.head_dim_
+            head = mesh.coord["tp"] // (tp // cfg.num_kv_heads)
+            x = x.narrow(x.dim() - 1, head * d, d)
+        return x.clone()
+
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +487,7 @@ def _rowwise(x: torch.Tensor, product, n_out: int, dtype: torch.dtype,
 
 def _proj(lp: Params, name: str, x: torch.Tensor,
           lora_idx: torch.Tensor | None = None, *,
-          per_row: bool = False) -> torch.Tensor:
+          per_row: bool = False, reduce=None) -> torch.Tensor:
     """`x @ W` (rows as `_rowwise` groups them, by `per_row`). An int8 W
     takes its per-output-channel scale on the fp32 output, as the reference
     does: the
@@ -365,14 +499,19 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
     With `lora_idx` and this projection's adapter pools in the layer slice,
     each row's fp32 LoRA delta, rounded to the output's dtype, is added to
     the output after the dequant (`lora_delta_add`: in place, one launch on
-    the card); row 0 adds exactly 0.0."""
+    the card); row 0 adds exactly 0.0.
+
+    `reduce` (a row-parallel product on a tp mesh: this rank holds a slice
+    of W's input rows) sums the ranks' fp32 partials before the scale and
+    the one round to x's dtype, so a tp mesh rounds once, as one card
+    does."""
     w = lp[name]
     scale = lp.get(name + SCALE_SUFFIX)
-    if scale is None:
-        if w.dtype == torch.int8:
-            raise TypeError(f"param {name!r} is int8 but its {name}"
-                            f"{SCALE_SUFFIX} companion is missing from the "
-                            "layer slice")
+    if scale is None and w.dtype == torch.int8:
+        raise TypeError(f"param {name!r} is int8 but its {name}"
+                        f"{SCALE_SUFFIX} companion is missing from the "
+                        "layer slice")
+    if scale is None and reduce is None:
         y = _rowwise(x, lambda x2, out: torch.mm(x2, w, out=out), w.shape[-1],
                      x.dtype, per_row)
     else:
@@ -388,7 +527,9 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
             def product(x2, out):
                 return torch.mm(x2.float(), wf, out=out)
         y32 = _rowwise(x, product, w.shape[-1], torch.float32, per_row)
-        y = (y32 * scale).to(x.dtype)
+        if reduce is not None:
+            y32 = reduce(y32)
+        y = (y32 if scale is None else y32 * scale).to(x.dtype)
     if lora_idx is not None and name + LORA_A in lp:
         y = lora_delta_add(y, x, lp[name + LORA_A], lp[name + LORA_B],
                            lora_idx)
@@ -411,20 +552,30 @@ def _qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, lora_idx,
             v.reshape(b, t, cfg.num_kv_heads, d))
 
 
+def _tp_reduce(mesh: Mesh | None):
+    """The row-parallel products' reduction over tp (None: one rank)."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return None
+    return lambda y: mesh.all_reduce(y, "tp")
+
+
 def _mlp(lp: Params, x: torch.Tensor, token_valid, lora_idx,
-         per_row: bool) -> torch.Tensor:
+         per_row: bool, mesh: Mesh | None = None) -> torch.Tensor:
     """The dense SwiGLU feed-forward (`token_valid` is not needed: every
-    token's product is its own)."""
+    token's product is its own). On a tp mesh wg / wu are column-parallel
+    and wd row-parallel, reduced over tp."""
     gate = _proj(lp, "wg", x, lora_idx, per_row=per_row)
     up = _proj(lp, "wu", x, lora_idx, per_row=per_row)
-    return _proj(lp, "wd", F.silu(gate) * up, lora_idx, per_row=per_row)
+    return _proj(lp, "wd", F.silu(gate) * up, lora_idx, per_row=per_row,
+                 reduce=_tp_reduce(mesh))
 
 
 class FeedForward(NamedTuple):
     """A family's feed-forward: the stacked leaves it adds to a layer, and
-    `mlp_fn(lp, h, token_valid, lora_idx, per_row)` -> [B, T, E] (the
+    `mlp_fn(lp, h, token_valid, lora_idx, per_row, mesh)` -> [B, T, E] (the
     reference's mlp_fn; `token_valid` [B, T] bool marks the non-padding
-    tokens of a prefill or extend and is None in decode)."""
+    tokens of a prefill or extend and is None in decode; `mesh` is the
+    rank's mesh, None on one rank)."""
 
     names: tuple[str, ...]
     mlp_fn: Callable
@@ -434,9 +585,12 @@ DENSE_FFN = FeedForward(("wg", "wu", "wd"), _mlp)
 
 
 def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
-                inv_freq, attn_fn, lora_idx, per_row: bool):
+                inv_freq, attn_fn, lora_idx, per_row: bool,
+                mesh: Mesh | None = None):
     """Pre-norm attention sub-block: norm -> qkv -> rope -> attn_fn -> wo
-    residual. `attn_fn(q, k, v)` writes the KV and attends."""
+    residual. `attn_fn(q, k, v)` writes the KV and attends. On a tp mesh
+    `cfg` is the rank's local view (its heads), wq / wk / wv are
+    column-parallel and wo row-parallel, reduced over tp."""
     b, t, _ = x.shape
     h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
     q, k, v = _qkv(cfg, lp, h, lora_idx, per_row)
@@ -444,20 +598,20 @@ def _attn_block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
     k = apply_rope(k, positions, inv_freq)
     attn = attn_fn(q, k, v)
     return x + _proj(lp, "wo", attn.reshape(b, t, -1), lora_idx,
-                     per_row=per_row)
+                     per_row=per_row, reduce=_tp_reduce(mesh))
 
 
 def _layer_step(cfg: LlamaConfig, lp: Params, x: torch.Tensor, positions,
                 inv_freq, attn_fn, lora_idx, per_row: bool, ffn: FeedForward,
-                token_valid=None) -> torch.Tensor:
+                token_valid=None, mesh: Mesh | None = None) -> torch.Tensor:
     """One decoder layer: the attention sub-block, then the feed-forward
     residual (`ffn.mlp_fn`). `per_row`: each batch row's projections run
     alone on the card (the prefill entry points), or all rows in one
     product (decode, verify)."""
     x = _attn_block(cfg, lp, x, positions, inv_freq, attn_fn, lora_idx,
-                    per_row)
+                    per_row, mesh)
     return x + ffn.mlp_fn(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_eps),
-                          token_valid, lora_idx, per_row)
+                          token_valid, lora_idx, per_row, mesh)
 
 
 
@@ -466,7 +620,26 @@ def _lora_rows(lora_idx, dev) -> torch.Tensor | None:
                                                      dtype=torch.int32)
 
 
-def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _embed(params: Params, input_ids: torch.Tensor,
+           mesh: Mesh | None = None) -> torch.Tensor:
+    """The embedding rows of `input_ids`. On a tp mesh the table is
+    vocab-sharded, as the reference's: a rank looks up the ids in its
+    slice, zeros elsewhere, and the sum over tp (one nonzero row a token)
+    gives every rank the exact rows."""
+    emb = params["embed"]
+    ids = input_ids.long()
+    if mesh is None or mesh.shape["tp"] == 1:
+        return emb[ids]
+    n = emb.shape[0]
+    local = ids - mesh.coord["tp"] * n
+    hit = (local >= 0) & (local < n)
+    rows = emb[torch.clamp(local, 0, n - 1)]
+    return mesh.all_reduce(torch.where(hit[..., None], rows,
+                                       torch.zeros_like(rows)), "tp")
+
+
+def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor,
+             mesh: Mesh | None = None) -> torch.Tensor:
     """Final norm and vocab projection -> fp32 logits [B, V]: model-dtype
     inputs, fp32 accumulation and fp32 output, as the reference's
     preferred_element_type=float32. On the card a bf16 model takes cuBLAS's
@@ -475,9 +648,17 @@ def _unembed(cfg: LlamaConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     widens the operands instead (the same values). On the card the rows go
     through the product in blocks of UNEMBED_ROWS (the last one padded with
     zero rows), so a row's logits do not depend on how many rows came with
-    it."""
+    it. On a tp mesh the vocab matrix is this rank's vocab slice; the
+    fp32 logit slices are all-gathered over tp, so every rank holds the
+    same logits, bit for bit."""
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if mesh is not None and mesh.shape["tp"] > 1:
+        return mesh.all_gather(_vocab_product(x, head), "tp", dim=-1)
+    return _vocab_product(x, head)
+
+
+def _vocab_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         return x.float() @ head.float()
     n = x.shape[0]
@@ -498,14 +679,16 @@ def _last_rows(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor,
-                  chunk_lens: torch.Tensor, all_logits: bool) -> torch.Tensor:
+                  chunk_lens: torch.Tensor, all_logits: bool,
+                  mesh: Mesh | None = None) -> torch.Tensor:
     """An extend's logits: at every chunk position [B, T, V] (a verify:
     B * T rows through the unembed's blocks), or at each chunk's last valid
     position [B, V]."""
     if all_logits:
         b, t, e = x.shape
-        return _unembed(cfg, params, x.reshape(b * t, e)).reshape(b, t, -1)
-    return _unembed(cfg, params, _last_rows(x, chunk_lens))
+        return _unembed(cfg, params, x.reshape(b * t, e),
+                        mesh).reshape(b, t, -1)
+    return _unembed(cfg, params, _last_rows(x, chunk_lens), mesh)
 
 
 def _rope_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
@@ -532,6 +715,7 @@ def prefill_into_pages(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Prefill B prompts and scatter their KV through the block tables into
     the global page pool. Returns (last_logits [B, V] fp32, cache_k,
@@ -552,7 +736,7 @@ def prefill_into_pages(
     token_valid = positions < prompt_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
 
-    x = params["embed"][input_ids.long()]  # [B, T, E]
+    x = _embed(params, input_ids, mesh)  # [B, T, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             _write_pool(_pool_layer(cache_k, i), page, off, k)
@@ -560,9 +744,10 @@ def prefill_into_pages(
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid)
+                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid,
+                        mesh)
 
-    logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
+    logits = _unembed(cfg, params, _last_rows(x, prompt_lens), mesh)
     return logits, cache_k, cache_v
 
 
@@ -578,6 +763,7 @@ def prefill_extend_pages(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Paged chunked prefill: append a chunk of prompt tokens to rows that
     already hold `start_pos` tokens, attending over everything so far
@@ -586,7 +772,8 @@ def prefill_extend_pages(
     cells. Returns (chunk-last logits [B, V] fp32, cache_k, cache_v)."""
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
-                         all_logits=False, per_row=True, ffn=ffn)
+                         all_logits=False, per_row=True, ffn=ffn,
+                         mesh=mesh)
 
 
 def verify_step_paged(
@@ -602,6 +789,7 @@ def verify_step_paged(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Paged speculative verification: one extend over every row scores the
     last committed token plus up to K drafts and returns the logits at EVERY
@@ -616,12 +804,13 @@ def verify_step_paged(
     del window
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
-                         all_logits=True, per_row=False, ffn=ffn)
+                         all_logits=True, per_row=False, ffn=ffn,
+                         mesh=mesh)
 
 
 def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool, ffn: FeedForward):
+                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None):
     """The body of prefill_extend_pages and verify_step_paged:
     `all_logits` returns [B, T, V] (every chunk position) in place of the
     chunk-last [B, V]; `per_row` groups the projections (`_rowwise`)."""
@@ -639,7 +828,7 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                             torch.clamp(positions, max=capacity - 1), ps)
     lora_idx = _lora_rows(lora_idx, dev)
 
-    x = params["embed"][input_ids.long()]  # [B, T, E]
+    x = _embed(params, input_ids, mesh)  # [B, T, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
@@ -649,9 +838,10 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                                           chunk_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid)
+                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid,
+                        mesh)
 
-    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
+    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits, mesh)
     return logits, cache_k, cache_v
 
 
@@ -667,6 +857,7 @@ def decode_step_paged(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """One paged decode step across all rows. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer's one-token KV lands at page
@@ -685,7 +876,7 @@ def decode_step_paged(
     kv_lens = (write_pos + 1).to(torch.int32)
     lora_idx = _lora_rows(lora_idx, dev)
 
-    x = params["embed"][input_ids.long()][:, None, :]  # [B, 1, E]
+    x = _embed(params, input_ids, mesh)[:, None, :]  # [B, 1, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             ck, cv = _pool_layer(cache_k, i), _pool_layer(cache_v, i)
@@ -695,9 +886,9 @@ def decode_step_paged(
                                           window=window)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, False, ffn)
+                        inv_freq, attn_fn, lora_idx, False, ffn, None, mesh)
 
-    logits = _unembed(cfg, params, x[:, 0])
+    logits = _unembed(cfg, params, x[:, 0], mesh)
     return logits, cache_k, cache_v
 
 
@@ -706,6 +897,8 @@ def encode(
     cfg: LlamaConfig,
     input_ids: torch.Tensor,  # [B, T] int, right-padded
     prompt_lens: torch.Tensor,  # [B] int32
+    *,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """Text-embedding forward (/v1/embeddings), the reference's `encode`: a
     full pass that writes no KV (attention through gqa_attention_prefill,
@@ -724,10 +917,11 @@ def encode(
     def attn_fn(q, k, v):
         return gqa_attention_prefill(q, k, v, prompt_lens)
 
-    x = params["embed"][input_ids.long()]  # [B, T, E]
+    x = _embed(params, input_ids, mesh)  # [B, T, E]
     for i in range(cfg.num_layers):
         x = _layer_step(cfg, _layer(params, cfg, i, DENSE_FFN.names), x,
-                        positions, inv_freq, attn_fn, None, True, DENSE_FFN)
+                        positions, inv_freq, attn_fn, None, True, DENSE_FFN,
+                        None, mesh)
     x = rms_norm(x, params["ln_final"], cfg.rms_eps).float()
     out = []
     for r, n in enumerate(prompt_lens.tolist()):
@@ -760,6 +954,7 @@ def prefill_into_slots(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Prefill B prompts (flash_prefill over their fresh K/V) and scatter
     their KV into rows `slot_ids` of the live slot cache, positions 0..T-1.
@@ -774,7 +969,7 @@ def prefill_into_slots(
     token_valid = positions < prompt_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
 
-    x = params["embed"][input_ids.long()]  # [B, T, E]
+    x = _embed(params, input_ids, mesh)  # [B, T, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             _write_slots(cache_k[i], rows, positions, k)
@@ -782,9 +977,10 @@ def prefill_into_slots(
             return gqa_attention_prefill(q, k, v, prompt_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid)
+                        inv_freq, attn_fn, lora_idx, True, ffn, token_valid,
+                        mesh)
 
-    logits = _unembed(cfg, params, _last_rows(x, prompt_lens))
+    logits = _unembed(cfg, params, _last_rows(x, prompt_lens), mesh)
     return logits, cache_k, cache_v
 
 
@@ -800,6 +996,7 @@ def prefill_extend_slots(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Dense chunked prefill: append a chunk of prompt tokens to slots that
     already hold `start_pos` tokens. Each layer writes the chunk's K/V into
@@ -810,7 +1007,8 @@ def prefill_extend_slots(
     fp32, cache_k, cache_v)."""
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
-                         all_logits=False, per_row=True, ffn=ffn)
+                         all_logits=False, per_row=True, ffn=ffn,
+                         mesh=mesh)
 
 
 def verify_step(
@@ -826,6 +1024,7 @@ def verify_step(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """Speculative verification over the dense slot cache: verify_step_paged's
     contract with flash_extend at T = K+1 over the slot rows. The engine
@@ -836,12 +1035,13 @@ def verify_step(
     del window
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
-                         all_logits=True, per_row=False, ffn=ffn)
+                         all_logits=True, per_row=False, ffn=ffn,
+                         mesh=mesh)
 
 
 def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool, ffn: FeedForward):
+                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None):
     """The body of prefill_extend_slots and verify_step (see
     `_extend_pages`); `slot_ids=None` takes the cache rows in order."""
     b, t = input_ids.shape
@@ -862,7 +1062,7 @@ def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
     def cache_rows(cache):
         return cache if slot_ids is None else cache[slots]
 
-    x = params["embed"][input_ids.long()]  # [B, T, E]
+    x = _embed(params, input_ids, mesh)  # [B, T, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             _write_slots(cache_k[i], rows, write_pos, k)
@@ -872,9 +1072,10 @@ def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                                         chunk_lens)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid)
+                        inv_freq, attn_fn, lora_idx, per_row, ffn, token_valid,
+                        mesh)
 
-    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits)
+    logits = _chunk_logits(cfg, params, x, chunk_lens, all_logits, mesh)
     return logits, cache_k, cache_v
 
 
@@ -889,6 +1090,7 @@ def decode_step(
     lora_idx: torch.Tensor | None = None,  # [B] int32 adapter pool rows
     *,
     ffn: FeedForward = DENSE_FFN,
+    mesh: Mesh | None = None,
 ):
     """One dense decode step across all slots. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer writes slot b's one-token KV at
@@ -906,7 +1108,7 @@ def decode_step(
     kv_lens = (write_pos + 1).to(torch.int32)
     lora_idx = _lora_rows(lora_idx, dev)
 
-    x = params["embed"][input_ids.long()][:, None, :]  # [B, 1, E]
+    x = _embed(params, input_ids, mesh)[:, None, :]  # [B, 1, E]
     for i in range(cfg.num_layers):
         def attn_fn(q, k, v, i=i):
             _write_slots(cache_k[i], rows, write_pos, k[:, 0])
@@ -915,7 +1117,84 @@ def decode_step(
                                         window=window)
 
         x = _layer_step(cfg, _layer(params, cfg, i, ffn.names), x, positions,
-                        inv_freq, attn_fn, lora_idx, False, ffn)
+                        inv_freq, attn_fn, lora_idx, False, ffn, None, mesh)
 
-    logits = _unembed(cfg, params, x[:, 0])
+    logits = _unembed(cfg, params, x[:, 0], mesh)
     return logits, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Context-parallel prefill: the sequence split over the mesh's sp axis
+# ---------------------------------------------------------------------------
+
+def scatter_prefill_kv(cache_k, cache_v, k_all: torch.Tensor,
+                       v_all: torch.Tensor, *,
+                       block_table: torch.Tensor | None = None,
+                       slot: int | None = None) -> None:
+    """Write one prompt's K/V [L, 1, n, K, D] (positions 0..n-1) into the
+    caches in place: through a slot's block-table row [PPN] into the page
+    pool (an int8 pair quantizes on write), or into row `slot` of the dense
+    slot cache."""
+    n = k_all.shape[2]
+    if block_table is not None:
+        pos = torch.arange(n, device=k_all.device)[None]
+        page, off = _page_cells(block_table[None], pos,
+                                pool_shape(cache_k)[2])
+        for i in range(k_all.shape[0]):
+            _write_pool(_pool_layer(cache_k, i), page, off, k_all[i])
+            _write_pool(_pool_layer(cache_v, i), page, off, v_all[i])
+        return
+    cache_k[:, slot, :n] = k_all[:, 0].to(cache_k.dtype)
+    cache_v[:, slot, :n] = v_all[:, 0].to(cache_v.dtype)
+
+
+def make_context_parallel_prefill(cfg: LlamaConfig, mesh: Mesh):
+    """Long-context prefill with the token axis split over `sp` ranks
+    (ring attention, ops/ring_attention.py): the reference's
+    `make_context_parallel_prefill`. `cfg` is the rank's local view (a tp
+    mesh's share of the heads).
+
+    Returns `fn(params, input_ids [B, T], prompt_lens [B]) -> (last_logits
+    [B, V] fp32, k_all [L, B, T, K, D], v_all)`, T a multiple of sp. Each
+    rank embeds, projects and normalises its own T/sp tokens; attention
+    runs through the ring; each layer's K/V chunks are all-gathered over
+    sp, since the engine's cache is replicated over sp. The last token's
+    hidden row comes from the rank that holds position n - 1 (the sum over
+    sp of one nonzero row: exact), and every rank unembeds it."""
+    from llmlb_tpu_torch.ops.ring_attention import ring_prefill_attention
+
+    sp = mesh.shape["sp"]
+
+    def fn(params: Params, input_ids: torch.Tensor, prompt_lens: torch.Tensor):
+        b, t = input_ids.shape
+        if t % sp:
+            raise ValueError(f"seq len {t} not divisible by sp={sp}")
+        c = t // sp
+        dev = input_ids.device
+        r = mesh.coord["sp"]
+        lens = prompt_lens.to(device=dev, dtype=torch.int32)
+        inv_freq = _rope_freqs(cfg, dev)
+        positions = (r * c + torch.arange(c, device=dev))[None, :].expand(b, c)
+        ids = input_ids[:, r * c:(r + 1) * c]
+        token_valid = positions < lens[:, None]
+        ks, vs = [], []
+        x = _embed(params, ids, mesh)  # [B, C, E]
+        for i in range(cfg.num_layers):
+            def attn_fn(q, k, v):
+                ks.append(mesh.all_gather(k, "sp", dim=1))
+                vs.append(mesh.all_gather(v, "sp", dim=1))
+                return ring_prefill_attention(q, k, v, lens, mesh, seq_len=t)
+
+            x = _layer_step(cfg, _layer(params, cfg, i), x, positions,
+                            inv_freq, attn_fn, None, True, DENSE_FFN,
+                            token_valid, mesh)
+        last = lens.long() - 1 - r * c
+        mine = (last >= 0) & (last < c)
+        rows = x[torch.arange(b, device=dev), torch.clamp(last, 0, c - 1)]
+        x_last = mesh.all_reduce(
+            torch.where(mine[:, None], rows, torch.zeros_like(rows)), "sp")
+        logits = _unembed(cfg, params, x_last, mesh)
+        return (logits, torch.stack(ks).to(cfg.dtype),
+                torch.stack(vs).to(cfg.dtype))
+
+    return fn

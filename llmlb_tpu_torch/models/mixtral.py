@@ -25,6 +25,11 @@ for the top-k), per row in a prefill group like the projections
 (`_rowwise`). Adapters (LoRA) apply to the attention projections only: the
 expert FFNs carry no pools. There is no `encode`: the family serves no
 embeddings.
+
+On a mesh the experts are split over `ep` and each expert's ffn width over
+`tp` (the reference's `param_logical_axes`); the router is replicated, so
+every rank routes every token and runs its own experts' share, and the
+partial sums are reduced over ep and tp (ops/moe.py).
 """
 
 from __future__ import annotations
@@ -43,12 +48,17 @@ from llmlb_tpu_torch.models.llama import (  # noqa: F401  (the family's API)
     fill_params,
     init_kv_cache,
     init_kv_pages,
+    local_config,
+    scatter_prefill_kv,
+    shard_rules_for,
 )
 from llmlb_tpu_torch.ops.moe import (
     default_capacity,
     moe_dense_exact,
     moe_dispatch_combine,
 )
+from llmlb_tpu_torch.parallel.mesh import Mesh
+from llmlb_tpu_torch.parallel.sharding import ShardingRules
 from llmlb_tpu_torch.quant import SCALE_SUFFIX
 
 EXPERT_NAMES = ("we_gate", "we_up", "we_down")
@@ -119,26 +129,74 @@ def param_shapes(cfg: MixtralConfig, quantized: tuple[str, ...] = ()
 
 def init_params(cfg: MixtralConfig, generator: torch.Generator,
                 device: torch.device | str,
-                quantize_weights: bool = False) -> Params:
+                quantize_weights: bool = False,
+                mesh: Mesh | None = None) -> Params:
     """Random init, llama.init_params' scheme, one [in, out] matrix (a
     layer's expert) at a time. With `quantize_weights` every projection and
     expert is int8 from its first block on, so Mixtral-8x7B's 93 GB of bf16
-    never exists on the card: its int8 leaves are ~47 GB."""
+    never exists on the card: its int8 leaves are ~47 GB. With a `mesh`
+    each rank keeps its shard of each leaf as it is filled."""
+    if mesh is not None and not mesh.trivial:
+        _check_ep(cfg, mesh)
     return fill_params(param_shapes, cfg, generator, device,
-                       quantize_weights)
+                       quantize_weights,
+                       keep=llama._sharder(cfg, mesh, param_logical_axes(cfg)))
+
+
+def param_logical_axes(cfg: MixtralConfig) -> dict[str, tuple]:
+    """Logical sharding axes per leaf, the reference's: the dense family's
+    attention, norm and vocab leaves, the router replicated, the experts
+    over `experts` (ep) and their width over `ffn` (tp)."""
+    axes = llama.param_logical_axes(cfg)
+    for name in ("wg", "wu", "wd"):
+        for suffix in ("", SCALE_SUFFIX, "_lora_a", "_lora_b"):
+            axes.pop(name + suffix, None)
+    axes.update({
+        "router": ("layers", "embed", None),
+        "we_gate": ("layers", "experts", "embed", "ffn"),
+        "we_up": ("layers", "experts", "embed", "ffn"),
+        "we_down": ("layers", "experts", "ffn", "embed"),
+    })
+    for name in EXPERT_NAMES:
+        w_axes = axes[name]
+        axes[name + SCALE_SUFFIX] = (w_axes[0], w_axes[1], w_axes[3])
+    return axes
+
+
+def param_shardings(cfg: MixtralConfig, mesh: Mesh,
+                    rules: ShardingRules | None = None
+                    ) -> dict[str, tuple[str | None, ...]]:
+    """Leaf name -> the mesh axis of each dim (llama.param_shardings)."""
+    rules = rules or shard_rules_for(cfg, mesh.shape["tp"])
+    return {name: rules.spec(*axes)
+            for name, axes in param_logical_axes(cfg).items()}
+
+
+def shard_params(params: Params, cfg: MixtralConfig, mesh: Mesh) -> Params:
+    """This rank's leaves (llama.shard_params, by this family's axes)."""
+    _check_ep(cfg, mesh)
+    return llama.shard_params(params, cfg, mesh, param_logical_axes(cfg))
+
+
+def _check_ep(cfg: MixtralConfig, mesh: Mesh) -> None:
+    if cfg.num_experts % mesh.shape["ep"]:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible by "
+                         f"ep={mesh.shape['ep']}")
 
 
 def _moe_mlp(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
-             lora_idx, per_row: bool, *, exact: bool) -> torch.Tensor:
+             lora_idx, per_row: bool, mesh: Mesh | None = None, *,
+             exact: bool) -> torch.Tensor:
     """h [B, T, E] -> [B, T, E] through the routed experts (`lora_idx` is
     not used: the experts carry no adapter pools), inside a profiler range
     named "moe" (profile_step's `moe` kind)."""
     with torch.profiler.record_function("moe"):
-        return _moe_layer(cfg, lp, h, token_valid, per_row, exact)
+        return _moe_layer(cfg, lp, h, token_valid, per_row, exact, mesh)
 
 
 def _moe_layer(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
-               per_row: bool, exact: bool) -> torch.Tensor:
+               per_row: bool, exact: bool,
+               mesh: Mesh | None = None) -> torch.Tensor:
     b, t, m = h.shape
     s = b * t
     router = lp["router"]
@@ -147,17 +205,25 @@ def _moe_layer(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
     scales = {f"w_{k}_scale": lp.get(f"we_{k}{SCALE_SUFFIX}")
               for k in ("gate", "up", "down")}
     flat = h.reshape(s, m)
+    split = {}
+    if mesh is not None and not mesh.trivial:
+        split["expert_offset"] = mesh.coord["ep"] * lp["we_gate"].shape[0]
+        axes = ("ep", "tp") if exact else "ep"
+        split["reduce"] = lambda y: mesh.all_reduce(y, axes)
+        if not exact:
+            split["reduce_ffn"] = lambda y: mesh.all_reduce(y, "tp")
     if exact:
         out = moe_dense_exact(flat, logits, lp["we_gate"], lp["we_up"],
                               lp["we_down"],
-                              num_selected=cfg.experts_per_token, **scales)
+                              num_selected=cfg.experts_per_token, **scales,
+                              **split)
     else:
         cap = default_capacity(s, cfg.num_experts, cfg.experts_per_token,
                                cfg.capacity_factor)
         out = moe_dispatch_combine(
             flat, logits, lp["we_gate"], lp["we_up"], lp["we_down"],
             num_selected=cfg.experts_per_token, capacity=cap,
-            token_valid=token_valid.reshape(s), **scales)
+            token_valid=token_valid.reshape(s), **scales, **split)
     return out.reshape(b, t, m)
 
 
@@ -178,68 +244,68 @@ def _group_ffn(cfg: MixtralConfig, input_ids: torch.Tensor) -> FeedForward:
 # ---------------------------------------------------------------------------
 
 def prefill_into_pages(params, cfg: MixtralConfig, input_ids, prompt_lens,
-                       block_tables, cache_k, cache_v, lora_idx=None):
+                       block_tables, cache_k, cache_v, lora_idx=None, *, mesh=None):
     return llama.prefill_into_pages(params, cfg, input_ids, prompt_lens,
                                     block_tables, cache_k, cache_v, lora_idx,
-                                    ffn=_group_ffn(cfg, input_ids))
+                                    ffn=_group_ffn(cfg, input_ids), mesh=mesh)
 
 
 def prefill_extend_pages(params, cfg: MixtralConfig, input_ids, chunk_lens,
                          start_pos, block_tables, cache_k, cache_v,
-                         lora_idx=None):
+                         lora_idx=None, *, mesh=None):
     return llama.prefill_extend_pages(params, cfg, input_ids, chunk_lens,
                                       start_pos, block_tables, cache_k,
                                       cache_v, lora_idx,
-                                      ffn=_group_ffn(cfg, input_ids))
+                                      ffn=_group_ffn(cfg, input_ids), mesh=mesh)
 
 
 def verify_step_paged(params, cfg: MixtralConfig, input_ids, chunk_lens,
                       start_pos, block_tables, cache_k, cache_v, window=None,
-                      lora_idx=None):
+                      lora_idx=None, *, mesh=None):
     """Exact MoE, as decode: capacity drops would make a draft's acceptance
     depend on which other rows share the step."""
     return llama.verify_step_paged(params, cfg, input_ids, chunk_lens,
                                    start_pos, block_tables, cache_k, cache_v,
                                    window, lora_idx,
-                                   ffn=moe_ffn(cfg, exact=True))
+                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh)
 
 
 def decode_step_paged(params, cfg: MixtralConfig, input_ids, seq_lens,
                       cache_k, cache_v, block_tables, window=None,
-                      lora_idx=None):
+                      lora_idx=None, *, mesh=None):
     """Always exact MoE: a row's tokens do not depend on the batch."""
     return llama.decode_step_paged(params, cfg, input_ids, seq_lens, cache_k,
                                    cache_v, block_tables, window, lora_idx,
-                                   ffn=moe_ffn(cfg, exact=True))
+                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh)
 
 
 def prefill_into_slots(params, cfg: MixtralConfig, input_ids, prompt_lens,
-                       slot_ids, cache_k, cache_v, lora_idx=None):
+                       slot_ids, cache_k, cache_v, lora_idx=None, *, mesh=None):
     return llama.prefill_into_slots(params, cfg, input_ids, prompt_lens,
                                     slot_ids, cache_k, cache_v, lora_idx,
-                                    ffn=_group_ffn(cfg, input_ids))
+                                    ffn=_group_ffn(cfg, input_ids), mesh=mesh)
 
 
 def prefill_extend_slots(params, cfg: MixtralConfig, input_ids, chunk_lens,
                          start_pos, slot_ids, cache_k, cache_v,
-                         lora_idx=None):
+                         lora_idx=None, *, mesh=None):
     return llama.prefill_extend_slots(params, cfg, input_ids, chunk_lens,
                                       start_pos, slot_ids, cache_k, cache_v,
                                       lora_idx,
-                                      ffn=_group_ffn(cfg, input_ids))
+                                      ffn=_group_ffn(cfg, input_ids), mesh=mesh)
 
 
 def verify_step(params, cfg: MixtralConfig, input_ids, chunk_lens, start_pos,
-                slot_ids, cache_k, cache_v, window=None, lora_idx=None):
+                slot_ids, cache_k, cache_v, window=None, lora_idx=None, *, mesh=None):
     """Exact MoE, as verify_step_paged."""
     return llama.verify_step(params, cfg, input_ids, chunk_lens, start_pos,
                              slot_ids, cache_k, cache_v, window, lora_idx,
-                             ffn=moe_ffn(cfg, exact=True))
+                             ffn=moe_ffn(cfg, exact=True), mesh=mesh)
 
 
 def decode_step(params, cfg: MixtralConfig, input_ids, seq_lens, cache_k,
-                cache_v, window=None, lora_idx=None):
+                cache_v, window=None, lora_idx=None, *, mesh=None):
     """Always exact MoE, as decode_step_paged."""
     return llama.decode_step(params, cfg, input_ids, seq_lens, cache_k,
                              cache_v, window, lora_idx,
-                             ffn=moe_ffn(cfg, exact=True))
+                             ffn=moe_ffn(cfg, exact=True), mesh=mesh)

@@ -23,6 +23,17 @@ einsums outside any Pallas kernel, so here the products are library calls
 
 int8 experts carry per-output-channel scales [E, out], applied to the fp32
 output of the product (`_expert_mm`), as the reference applies them.
+
+On an expert-parallel mesh a rank holds experts [expert_offset,
+expert_offset + E_local) (and, on a tp mesh, a slice of each one's ffn
+width). The router is replicated, so every rank routes every token over
+all experts and computes every capacity slot; it runs only its own
+experts' products and returns its partial sum, which `reduce` (over ep,
+and over tp in the exact form) sums across ranks in fp32 before the round
+to x's dtype. The sum equals the reference's dispatch/combine all-to-alls.
+In the capacity form an expert's down product is a sum over the ffn
+width, so on a tp mesh `reduce_ffn` sums it across tp before its round to
+x's dtype, where the reference rounds it.
 """
 
 from __future__ import annotations
@@ -109,6 +120,9 @@ def moe_dispatch_combine(
     w_up_scale: torch.Tensor | None = None,  # [E, F]
     w_down_scale: torch.Tensor | None = None,  # [E, M]
     indexed: bool | None = None,
+    expert_offset: int = 0,  # the first of this rank's experts
+    reduce=None,  # fp32 [S, M] partial -> its sum over the expert ranks
+    reduce_ffn=None,  # fp32 [E, C, M] partial -> its sum over tp
 ) -> torch.Tensor:
     """SwiGLU expert MLPs over the tokens the capacity dispatch keeps.
     Returns [S, M] in x's dtype. The dtypes follow the reference's casts:
@@ -119,16 +133,21 @@ def moe_dispatch_combine(
     reference's one-hot products."""
     s, m = x.shape
     e = w_gate.shape[0]
+    e_all = router_logits.shape[-1]
     weights, gate_idx = top_k_routing(router_logits, num_selected)
-    pos, in_cap = capacity_slots(gate_idx, e, capacity, token_valid)
+    pos, in_cap = capacity_slots(gate_idx, e_all, capacity, token_valid)
     if indexed is None:
         indexed = x.device.type == "cuda"
 
     if indexed:
         sel = gate_idx[..., None]
         kept = in_cap.gather(2, sel)[..., 0]  # [S, k]
+        local_idx = gate_idx - expert_offset
+        if e != e_all:  # only this rank's experts
+            kept = kept & (local_idx >= 0) & (local_idx < e)
         # slot e * C + pos of a kept pair, the trash row e * C otherwise
-        dest = torch.where(kept, gate_idx * capacity + pos.gather(2, sel)[..., 0],
+        dest = torch.where(kept, local_idx * capacity
+                           + pos.gather(2, sel)[..., 0],
                            e * capacity).reshape(-1)
         buf = x.new_zeros((e * capacity + 1, m))
         buf.index_copy_(0, dest, x[:, None, :].expand(s, num_selected, m)
@@ -137,6 +156,7 @@ def moe_dispatch_combine(
     else:
         slot_oh = _one_hot(torch.where(in_cap, pos, capacity), capacity,
                            x.dtype)  # [S, k, E, C]; dropped pairs: zeros
+        slot_oh = slot_oh[:, :, expert_offset:expert_offset + e]
         dispatch = slot_oh.sum(dim=1)  # [S, E, C]
         combine = (slot_oh * weights[:, :, None, None].to(x.dtype)).sum(dim=1)
         expert_in = torch.einsum("sec,sm->ecm", dispatch.float(),
@@ -144,7 +164,10 @@ def moe_dispatch_combine(
 
     h = (F.silu(_expert_mm(expert_in, w_gate, w_gate_scale).to(x.dtype))
          * _expert_mm(expert_in, w_up, w_up_scale).to(x.dtype))
-    expert_out = _expert_mm(h, w_down, w_down_scale).to(x.dtype)  # [E, C, M]
+    expert_out = _expert_mm(h, w_down, w_down_scale)  # [E, C, M] fp32
+    if reduce_ffn is not None:
+        expert_out = reduce_ffn(expert_out)
+    expert_out = expert_out.to(x.dtype)
 
     if indexed:
         rows = torch.cat([expert_out.reshape(e * capacity, m),
@@ -155,6 +178,8 @@ def moe_dispatch_combine(
     else:
         out = torch.einsum("sec,ecm->sm", combine.float(),
                            expert_out.float())
+    if reduce is not None:
+        out = reduce(out)
     return out.to(x.dtype)
 
 
@@ -169,6 +194,8 @@ def moe_dense_exact(
     w_gate_scale: torch.Tensor | None = None,
     w_up_scale: torch.Tensor | None = None,
     w_down_scale: torch.Tensor | None = None,
+    expert_offset: int = 0,  # the first of this rank's experts
+    reduce=None,  # fp32 [S, M] partial -> its sum over the ep and tp ranks
 ) -> torch.Tensor:
     """Exact top-k MoE: every expert runs on every token and the combine
     masks the rest, in fp32 (E/k times the routed products: the right trade
@@ -177,13 +204,17 @@ def moe_dense_exact(
     Returns [S, M] in x's dtype."""
     weights, gate_idx = top_k_routing(router_logits, num_selected)
     e = w_gate.shape[0]
-    combine = (_one_hot(gate_idx, e, torch.float32)
+    combine = (_one_hot(gate_idx, router_logits.shape[-1], torch.float32)
                * weights[..., None]).sum(dim=1)  # [S, E]
+    combine = combine[:, expert_offset:expert_offset + e]
     xe = x.unsqueeze(0).expand(e, -1, -1)
     h = (F.silu(_expert_mm(xe, w_gate, w_gate_scale).to(x.dtype))
          * _expert_mm(xe, w_up, w_up_scale).to(x.dtype))
     expert_out = _expert_mm(h, w_down, w_down_scale)  # [E, S, M] fp32
-    return torch.einsum("se,esm->sm", combine, expert_out).to(x.dtype)
+    out = torch.einsum("se,esm->sm", combine, expert_out)
+    if reduce is not None:
+        out = reduce(out)
+    return out.to(x.dtype)
 
 
 def default_capacity(tokens: int, num_experts: int, num_selected: int,

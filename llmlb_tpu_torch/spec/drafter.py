@@ -20,8 +20,8 @@ itself — it finds the most recent strictly-earlier occurrence.
 
 Determinism matters beyond reproducibility: in the reference's multihost
 lockstep every host drafts from the same mirrored token history, so
-identical proposals (and verify dispatches) fall out for free; the port has
-no multihost engine yet (ROADMAP A18).
+identical proposals (and verify dispatches) fall out for free, and so in the
+port's (engine/multihost.py): a follower drafts from its mirrored history.
 """
 
 from __future__ import annotations

@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "models.whisper", "models.tts", "models.diffusion",
                  "models._common",
                  "engine.asr", "engine.tts", "engine.image",
-                 "tools.ingest_probe"):
+                 "tools.ingest_probe", "parallel", "parallel.mesh",
+                 "parallel.sharding", "parallel.distributed",
+                 "engine.multihost", "ops.ring_attention"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -1,0 +1,401 @@
+"""The spawned ranks of the port's multi-rank tests (tests/test_torch_*).
+
+Each multi-rank test file spawns ONE world of gloo CPU processes through
+`run_world`; every rank runs the file's worker function here, which runs
+all of that file's cases and returns a result the test (the parent, which
+also runs the JAX side) compares. Workers import only the port and numpy:
+`python -m tests.torch_mesh_workers <worker> <rank> <world> <port> <in>
+<out>`, inputs and results pickled.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+from llmlb_tpu_torch.parallel.distributed import spawn_world, worker_init
+
+WORKER_TIMEOUT_S = 150.0
+
+
+def run_world(worker: str, world: int, inputs: dict,
+              timeout_s: float = WORKER_TIMEOUT_S, env: dict | None = None
+              ) -> list:
+    """Spawn `world` ranks running `worker` on `inputs`; returns each rank's
+    result. Raises with the failing ranks' stderr."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.pkl")
+        with open(src, "wb") as f:
+            pickle.dump(inputs, f)
+
+        def argv(rank, port):
+            return [sys.executable, "-m", "tests.torch_mesh_workers", worker,
+                    str(rank), str(world), str(port), src,
+                    os.path.join(tmp, f"out{rank}.pkl")]
+
+        full_env = dict(os.environ if env is None else env)
+        full_env["PYTHONPATH"] = repo + os.pathsep + full_env.get(
+            "PYTHONPATH", "")
+        outs = spawn_world(argv, world, timeout_s=timeout_s, env=full_env)
+        bad = [(r, rc, err) for r, (rc, _, err) in enumerate(outs) if rc]
+        if bad:
+            raise AssertionError("\n".join(
+                f"rank {r} exited {rc}:\n{err[-4000:]}" for r, rc, err in bad))
+        results = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"out{rank}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def start_world(worker: str, world: int, inputs: dict, **kwargs):
+    """`run_world` on a thread, so the parent's JAX side runs meanwhile;
+    `.result()` gives the ranks' results (or raises their failure)."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(run_world, worker, world, inputs, **kwargs)
+    pool.shutdown(wait=False)
+    return future
+
+
+# ---------------------------------------------------------------- helpers
+
+
+def _params(inputs: dict, cfg):
+    from llmlb_tpu_torch.engine.weights import params_from_numpy
+
+    return params_from_numpy(inputs["weights"], cfg, device="cpu")
+
+
+def _mirror(core) -> list:
+    """Record the requests every rank queues from the tick plans (on a
+    follower: the shadows), so a rank's ids can be read back."""
+    seen = []
+    apply = core._apply_plan
+
+    def apply_and_keep(plan, local):
+        before = core.pending.qsize()
+        apply(plan, local)
+        with core.pending.mutex:
+            seen.extend(list(core.pending.queue)[before:])
+
+    core._apply_plan = apply_and_keep
+    return seen
+
+
+def _wait(cond, timeout=60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError("worker wait timed out")
+        time.sleep(0.005)
+
+
+def _serve(core, rank: int, prompts: list, sampling: list,
+           cancel_after: dict | None = None) -> list:
+    """Run one lockstep engine over `prompts` and stop it through the plan:
+    the leader submits, waits for every request to end and stops (the
+    shutdown rides the plan); a follower's loop ends on that plan. Every
+    rank returns, in plan order, the (ids, finish) of each request it
+    mirrored (a follower's are its shadows). `cancel_after` {index: n}:
+    the leader cancels that request once n of its tokens arrived."""
+    from llmlb_tpu_torch.engine.scheduler import Request
+
+    seen = _mirror(core)
+    core.start()
+    if rank == 0:
+        reqs = [Request(prompt_ids=list(p), sampling=s)
+                for p, s in zip(prompts, sampling)]
+        for r in reqs:
+            core.submit(r)
+        for i, n in (cancel_after or {}).items():
+            _wait(lambda: reqs[i].events.qsize() >= n)
+            reqs[i].cancel()
+        _wait(lambda: all(r.finished_at is not None for r in reqs))
+        core.stop()
+    else:
+        core._thread.join()
+        core.stop()
+    out = []
+    for r in seen:
+        toks, end = [], None
+        while not r.events.empty():
+            kind, val = r.events.get()
+            if kind == "token":
+                toks.append(int(val))
+            else:
+                end = (kind, val)
+        out.append((toks, end))
+    return out
+
+
+def _sampling(max_tokens: int, **kw):
+    from llmlb_tpu_torch.engine.scheduler import SamplingParams
+
+    return SamplingParams(temperature=0.0, max_tokens=max_tokens, **kw)
+
+
+def _mesh(**axes):
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(**{"dp": 1, "sp": 1, "ep": 1, "tp": 1,
+                                    **axes}))
+
+
+# ---------------------------------------------------------------- workers
+
+
+def tp_engine(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_tp_engine: lockstep engines on a tp=2 mesh over the JAX
+    package's debug-tiny weights: paged, dense, int8 weights and KV, a
+    cancel through the plan, and speculation on."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+
+    cfg = get_preset("debug-tiny")
+    params = _params(inputs, cfg)
+    prompts, mt = inputs["prompts"], inputs["max_tokens"]
+    kw = dict(num_slots=4, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=-1, seed=0, device="cpu",
+              prefix_cache=False)
+    greedy = [_sampling(mt)] * len(prompts)
+    out = {}
+    for name, extra in (("paged", {}), ("dense", {"kv_layout": "dense"}),
+                        ("int8", {"quantize": "all"})):
+        core = EngineCore(cfg, params, **kw, **extra)
+        out[name] = _serve(core, rank, prompts, greedy)
+        out[name + "_mesh"] = dict(core.mesh.shape)
+    core = EngineCore(cfg, params, **kw)
+    out["cancel"] = _serve(core, rank, prompts[:2],
+                           [_sampling(60), _sampling(mt)],
+                           cancel_after={0: 3})
+    core = EngineCore(cfg, params, **kw)
+    spec = _sampling(mt, speculative={"enabled": True,
+                                      "max_draft_tokens": 4})
+    out["spec"] = _serve(core, rank, prompts, [spec] * len(prompts))
+    out["spec_counters"] = dataclasses.asdict(core.stats().spec)
+    return out
+
+
+def ring(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_ring_attention: the ring at sp=4 and at sp=2 x tp=2 on
+    this rank's chunk (and heads), the context-parallel prefill on the
+    JAX package's weights, and two lockstep engines: sp=2 x tp=2 (the long
+    prompt in one ring pass) and tp=4 (KV heads replicated)."""
+    import dataclasses as dc
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.ops.ring_attention import ring_prefill_attention
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    out = {}
+    for name, axes in (("sp4", {"sp": 4}), ("sp2tp2", {"sp": 2, "tp": 2})):
+        q, k, v, lens = (torch.from_numpy(a) for a in inputs[name])
+        mesh = _mesh(**axes)
+        t = q.shape[1]
+        c = t // mesh.shape["sp"]
+        r, j, tp = mesh.coord["sp"], mesh.coord["tp"], mesh.shape["tp"]
+        hq, hk = q.shape[2] // tp, k.shape[2] // tp
+        sl = slice(r * c, (r + 1) * c)
+        got = ring_prefill_attention(
+            q[:, sl, j * hq:(j + 1) * hq], k[:, sl, j * hk:(j + 1) * hk],
+            v[:, sl, j * hk:(j + 1) * hk], lens, mesh, seq_len=t)
+        out[name] = (dict(mesh.coord), got.numpy())
+
+    cfg = dc.replace(get_preset("debug-tiny"), num_kv_heads=2)
+    params = _params(inputs, cfg)
+    mesh = _mesh(sp=2, tp=2)
+    fn = llama.make_context_parallel_prefill(llama.local_config(cfg, mesh),
+                                             mesh)
+    ids, lens = (torch.from_numpy(a) for a in inputs["cp_ids"])
+    logits, k_all, v_all = fn(llama.shard_params(params, cfg, mesh), ids,
+                              lens)
+    out["cp"] = (dict(mesh.coord), logits.numpy(), k_all.numpy(),
+                 v_all.numpy())
+
+    kw = dict(num_slots=2, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=-1, seed=0, device="cpu",
+              prefix_cache=False)
+    prompts, mt = inputs["prompts"], inputs["max_tokens"]
+    greedy = [_sampling(mt)] * len(prompts)
+    core = EngineCore(cfg, params, mesh_config=MeshConfig(sp=2, tp=2), **kw)
+    assert core._use_cp_prefill
+    out["cp_engine"] = _serve(core, rank, prompts, greedy)
+    out["cp_engine_prefills"] = core.prefill_dispatches
+    core = EngineCore(cfg, params, mesh_config=MeshConfig(tp=4), **kw)
+    out["tp4_local_heads"] = (core.model_cfg.num_heads,
+                              core.model_cfg.num_kv_heads,
+                              tuple(core.params["wk"].shape))
+    out["tp4_engine"] = _serve(core, rank, prompts, greedy)
+    return out
+
+
+def moe_ep(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_moe_ep: Mixtral-tiny on an ep=2 mesh over the JAX
+    package's weights: a prefill group in the capacity form, one in the
+    exact form, and a decode step (exact); then the `--worker` self-test
+    step of parallel/distributed.py in this world."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.models import mixtral
+    from llmlb_tpu_torch.parallel.distributed import moe_selftest_step
+
+    cfg = get_preset("debug-moe-tiny")
+    mesh = _mesh(ep=2)
+    params = mixtral.shard_params(_params(inputs, cfg), cfg, mesh)
+    out = {"experts": tuple(params["we_gate"].shape)}
+    for name in ("capacity", "exact"):
+        ids, lens = (torch.from_numpy(a) for a in inputs[name])
+        b, t = ids.shape
+        ck, cv = mixtral.init_kv_cache(cfg, b, 32, "cpu")
+        logits, ck, cv = mixtral.prefill_into_slots(
+            params, cfg, ids, lens, torch.arange(b), ck, cv, mesh=mesh)
+        tok = torch.from_numpy(inputs[name + "_next"])
+        dec, _, _ = mixtral.decode_step(params, cfg, tok, lens, ck, cv,
+                                        mesh=mesh)
+        out[name] = (logits.numpy(), dec.numpy())
+    out["selftest"] = moe_selftest_step(rank, world)
+    return out
+
+
+def multihost(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_multihost: StepCoordinator round trips (and an oversized
+    plan), the plan budget's spill, the lockstep self-test engine of
+    parallel/distributed.py (`--engine-worker`), the refusals under a
+    coordinator, and the port's server on both ranks: the leader serves
+    HTTP, the follower binds no port (both are given the same one)."""
+    import signal
+
+    from llmlb_tpu_torch.engine import multihost as mh
+    from llmlb_tpu_torch.engine import scheduler
+    from llmlb_tpu_torch.engine import server as port_server
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore, Request
+    from llmlb_tpu_torch.parallel.distributed import engine_selftest_tokens
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    out = {}
+    coord = mh.StepCoordinator(_mesh(tp=2))
+    out["round_trips"] = [coord.exchange(p if rank == 0 else None)
+                          for p in inputs["plans"]]
+    bound = mh._MAX_PLAN_BYTES
+    mh._MAX_PLAN_BYTES = 256
+    try:
+        if rank == 0:
+            try:
+                coord.exchange({"blob": "x" * 1000})
+                out["oversize"] = None
+            except ValueError as e:
+                out["oversize"] = str(e)
+    finally:
+        mh._MAX_PLAN_BYTES = bound
+    out["after_oversize"] = coord.exchange({"ok": 1} if rank == 0 else None)
+
+    cfg = get_preset("debug-tiny")
+    kw = dict(num_slots=2, slot_capacity=64, prefill_buckets=(16,),
+              eos_id=-1, seed=0, device="cpu")
+    core = EngineCore(cfg, **kw, kv_offload_bytes=1 << 20)
+    out["ship_offload"] = (core.kv_ship, core.kv_offload)
+    out["n_chips"] = core.perf_info()["n_chips"]
+    if rank == 0:
+        plan_bytes = scheduler._MAX_PLAN_BYTES
+        scheduler._MAX_PLAN_BYTES = 8 * 30  # a budget of 30 prompt tokens
+        try:
+            for n in (12, 12, 12, 31):
+                core.submit(Request(prompt_ids=[1] * n,
+                                    sampling=_sampling(2)))
+            first = core._collect_plan()
+            backlog = len(core._plan_backlog)
+            second = core._collect_plan()
+        finally:
+            scheduler._MAX_PLAN_BYTES = plan_bytes
+        out["spill"] = ([len(r.prompt_ids) for r in first["new"]], backlog,
+                        [len(r.prompt_ids) for r in second["new"]])
+        big = core._plan_backlog  # the 31-token prompt was refused, not kept
+        out["spill_left"] = len(big)
+
+    out["engine_selftest"] = engine_selftest_tokens(rank)
+
+    refusals = {}
+    for name, extra in (
+            ("split", {"role": "split"}),
+            ("lora", {"lora_dir": inputs["lora_dir"]}),
+            ("dp", {"mesh_config": MeshConfig(dp=2, tp=1)}),
+            ("graphs", {"decode_graphs": True})):
+        try:
+            EngineCore(cfg, **kw, **extra)
+            refusals[name] = None
+        except ValueError as e:
+            refusals[name] = str(e)
+    out["refusals"] = refusals
+
+    port = inputs["port"]
+    seen = {}
+    if rank == 0:
+        def drive():
+            base = f"http://127.0.0.1:{port}"
+            _wait(lambda: _up(base + "/api/health"), timeout=60)
+            body = json_bytes({"model": "debug-tiny", "prompt": "hello",
+                               "max_tokens": 4, "temperature": 0})
+            req = urllib.request.Request(
+                base + "/v1/completions", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                seen["completion"] = r.status
+            with urllib.request.urlopen(base + "/api/health",
+                                        timeout=30) as r:
+                import json
+
+                seen["mesh"] = json.loads(r.read())["engine"]["mesh"]
+            signal.raise_signal(signal.SIGINT)
+
+        threading.Thread(target=drive, daemon=True).start()
+    port_server.main(["--preset", "debug-tiny", "--device", "cpu",
+                      "--port", str(port), "--num-slots", "2",
+                      "--slot-capacity", "128", "--kv-page-size", "16"])
+    out["server"] = seen
+    return out
+
+
+def _up(url: str) -> bool:
+    try:
+        with urllib.request.urlopen(url, timeout=2) as r:
+            return r.status == 200
+    except OSError:
+        return False
+
+
+def json_bytes(obj) -> bytes:
+    import json
+
+    return json.dumps(obj).encode()
+
+
+WORKERS = {"tp_engine": tp_engine, "ring": ring, "moe_ep": moe_ep,
+           "multihost": multihost}
+
+
+if __name__ == "__main__":
+    name, rank, world, port, src, dst = sys.argv[1:7]
+    rank, world = int(rank), int(world)
+    worker_init(rank, world, int(port))
+    with open(src, "rb") as f:
+        inputs = pickle.load(f)
+    result = WORKERS[name](rank, world, inputs)
+    with open(dst, "wb") as f:
+        pickle.dump(result, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
