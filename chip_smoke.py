@@ -335,7 +335,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              over gloo (NCCL refuses two ranks on one device; every
              collective then passes through host memory), with two or
              more one rank a card over NCCL. Rank 0 serves HTTP through
-             the port's server, rank 1 is a follower. Three sub-phases, each
+             the port's server, rank 1 is a follower. Five sub-phases, each
              a lockstep engine (4 slots, capacity 2048, eager bursts,
              greedy, random weights of seed 0): tp=2 over Llama-3-8B bf16
              paged at full width and depth (16 q / 4 KV heads, ffn 7168 a
@@ -345,12 +345,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
              KV read back from the pages; ep=2 over Mixtral at full width
              and MIX_BF16_LAYERS layers (4 of 8 experts a rank), a chat
              and a ~600-token prompt (capacity dispatch in prefill, exact
-             MoE in decode). Before the ranks start, #1-#3 are held
-             against their plain versions at a tp=2 rank's shapes, and a
-             one-card engine of each model serves the same prompts (first
-             logits, 16 greedy ids, the one-card top-2 margins along each
-             stream, the fp32 computation of the same weights) and is
-             freed. Every rank's ids must equal the leader's; the
+             MoE in decode); dp=2 over Llama-3-8B (each rank the whole
+             model and its dp group's slots, the page pool replicated by
+             the dp exchange), the tp sub-phase's traffic, then a prefix
+             hit across dp groups (a fresh 1503-token prompt cold in
+             group 0, then again in group 1, reading group 0's pages:
+             ids and first logits bit for bit its cold run), the long
+             prompt's pages on the rank that did not write them equal to
+             the writer's bit for bit, and whether the ids, logits and KV
+             are one card's bits (logged); lora: tp=2 over Llama-3-8B
+             with the LoRA serve phase's two adapters (the pools sharded
+             like their weights), a chat with an adapter over HTTP, then
+             an adapter-free, an acme and a beta row, beta's loaded cold
+             while the others decode; every rank the same pool rows, the
+             adapter-free row the tp sub-phase's bit for bit. Before the
+             ranks start, #1-#3 are held against their plain versions at
+             a tp=2 rank's shapes, #6 at each target's tp=2 rank shapes,
+             and a one-card engine of each model (and a one-card LoRA
+             engine) serves the same prompts (first logits, 16 greedy
+             ids, the one-card top-2 margins along each stream, the fp32
+             computation of the same weights) and is freed. Every rank's
+             ids must equal the leader's; the
              leader's greedy ids one card's up to the first position where
              the one-card margin is below the measured logit difference;
              its first logits (and the ring's KV, layer 0 also elementwise
@@ -7455,7 +7470,15 @@ MD_MIX_WORDS = 150  # the Mixtral prompt: ~600 tokens, chunked at 512
 MD_ACCURACY = 2.0
 MD_FLOOR = 2.0**-9
 MD_PATH = {"tp": BF16_PATH, "sp": ("flash_prefill", "paged_flash_decode"),
-           "ep": BF16_PATH}
+           "ep": BF16_PATH, "dp": BF16_PATH,
+           "lora": ("flash_prefill", "paged_flash_decode", "lora_delta")}
+# the LoRA sub-phase's rows: (chat, adapter); the last row's adapter loads
+# cold while the others decode
+MD_LORA_ROWS = ((0, None), (1, "acme"), (2, "beta"))
+# each sub-phase's mesh, and the chats it sends over HTTP first (lora: one,
+# with an adapter)
+MD_SUBS = ("tp", "sp", "ep", "dp", "lora")
+MD_HTTP = {"tp": 3, "sp": 1, "ep": 1, "dp": 3, "lora": 1}
 
 
 def _md_prompts() -> dict:
@@ -7473,7 +7496,11 @@ def _md_prompts() -> dict:
     long_text = " ".join(f"w{i % 97}" for i in range(380))
     mix_text = " ".join(f"m{i % 89}" for i in range(MD_MIX_WORDS))
     return {"llama": [chat(c) for c in MD_CHATS] + [chat(long_text)],
-            "mixtral": [chat(MD_CHATS[0]), chat(mix_text)]}
+            "mixtral": [chat(MD_CHATS[0]), chat(mix_text)],
+            # the dp sub-phase's prefix-hit prompt: the long prompt at the
+            # same length with a head of its own
+            "dp_q": chat(_first_word(long_text, 7)),
+            "lora": [chat(MD_CHATS[i]) for i, _ in MD_LORA_ROWS]}
 
 
 def _md_cfg(sub: str):
@@ -7502,6 +7529,7 @@ class _KVSpy:
         def spy(group, slot_ids, lens, logits):
             for slot_id, request, n in group:
                 if request.prompt_ids == prompt:
+                    self.slot = slot_id
                     pages = core._slot_pages[slot_id]
                     self.kv = [c[:, pages].flatten(1, 2)[:, :n].cpu()
                                for c in (core.cache_k, core.cache_v)]
@@ -7516,10 +7544,22 @@ class _KVSpy:
             self.core._activate_group = self.prev
 
 
-def _md_margins(core, prompt: list[int], ids: list[int]):
+def _md_lora_idx(core, adapter: str | None):
+    """A one-row adapter index for the entry points (None without a pool)."""
+    import torch
+
+    if core.lora is None:
+        return None
+    return torch.tensor([core.lora.slot_of(adapter)], dtype=torch.int32,
+                        device="cuda")
+
+
+def _md_margins(core, prompt: list[int], ids: list[int],
+                adapter: str | None = None):
     """One card's top-2 logit margins along a greedy stream: the prompt
     prefilled in one dispatch into a scratch pool, then the stream's ids
-    (but the last) as one verify chunk, logits at every position."""
+    (but the last) as one verify chunk, logits at every position (with
+    the row's adapter, on a LoRA engine)."""
     import torch
 
     cfg, fam = core.model_cfg, core.family
@@ -7529,24 +7569,28 @@ def _md_margins(core, prompt: list[int], ids: list[int]):
     ck, cv = fam.init_kv_pages(cfg, pages + 1, ps, "cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
     tables = torch.arange(1, pages + 1, **i32)[None]
+    lidx = _md_lora_idx(core, adapter)
     first, _, _ = fam.prefill_into_pages(
         core.params, cfg, torch.tensor([prompt], device="cuda"),
-        torch.tensor([n], **i32), tables, ck, cv)
+        torch.tensor([n], **i32), tables, ck, cv, lora_idx=lidx)
     rest, _, _ = fam.verify_step_paged(
         core.params, cfg, torch.tensor([ids[:-1]], device="cuda"),
-        torch.tensor([t], **i32), torch.tensor([n], **i32), tables, ck, cv)
+        torch.tensor([t], **i32), torch.tensor([n], **i32), tables, ck, cv,
+        lora_idx=lidx)
     logits = torch.cat([first[:, None], rest], dim=1)[0]
     top2 = logits.topk(2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]).cpu()
 
 
-def _md_fp32(core, prompts: list[list[int]], kv_of: int | None):
+def _md_fp32(core, prompts: list[list[int]], kv_of: int | None,
+             adapters=None):
     """The fp32 computation of the same weights, the yardstick both the
     one-card run and the ranks are measured by: the bf16 leaves widened to
     fp32 a leaf at a time (the engine's own leaves go as they widen, so it
-    is spent after), each prompt prefilled alone in one fp32 dispatch;
-    its last-position logits, and with `kv_of` that prompt's KV [L, n, K,
-    D] fp32 on the host."""
+    is spent after), each prompt prefilled alone in one fp32 dispatch
+    (with its adapter of `adapters`, on a LoRA engine); its last-position
+    logits, and with `kv_of` that prompt's KV [L, n, K, D] fp32 on the
+    host."""
     import dataclasses
 
     import torch
@@ -7564,7 +7608,8 @@ def _md_fp32(core, prompts: list[list[int]], kv_of: int | None):
         out, _, _ = fam.prefill_into_pages(
             params, cfg, torch.tensor([p], device="cuda"),
             torch.tensor([len(p)], **i32),
-            torch.arange(1, pages + 1, **i32)[None], ck, cv)
+            torch.arange(1, pages + 1, **i32)[None], ck, cv,
+            lora_idx=_md_lora_idx(core, adapters[i] if adapters else None))
         logits.append(out[0].cpu())
         if i == kv_of:
             kv = [c[:, 1:].flatten(1, 2)[:, :len(p)].cpu() for c in (ck, cv)]
@@ -7573,12 +7618,14 @@ def _md_fp32(core, prompts: list[list[int]], kv_of: int | None):
     return logits, kv
 
 
-def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None):
+def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None,
+                  adapters=None, lora_dir: str | None = None):
     """The one-card run a sub-phase is held against: a one-rank engine of
-    MD_KW over `prompts` submitted together; each prompt's first-step
-    logits and MD_TOKENS greedy ids, the top-2 margins along each stream,
-    with `kv_of` that prompt's KV, and the fp32 computation's logits and
-    KV (`_md_fp32`). The engine is freed after."""
+    MD_KW over `prompts` submitted together (each with its adapter of
+    `adapters`, served from `lora_dir`); each prompt's first-step logits
+    and MD_TOKENS greedy ids, the top-2 margins along each stream, with
+    `kv_of` that prompt's KV, and the fp32 computation's logits and KV
+    (`_md_fp32`). The engine is freed after."""
     import gc
 
     import torch
@@ -7586,14 +7633,17 @@ def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None):
     from llmlb_tpu_torch.engine.scheduler import (EngineCore, Request,
                                                   SamplingParams)
 
+    adapters = adapters or [None] * len(prompts)
     t0 = time.perf_counter()
-    core = EngineCore(_md_cfg(sub), None, device="cuda", **MD_KW)
+    core = EngineCore(_md_cfg(sub), None, device="cuda", lora_dir=lora_dir,
+                      **MD_KW)
     spy = _LogitSpy(core)
     kv = _KVSpy(core, prompts[kv_of]) if kv_of is not None else None
     core.start()
     try:
         reqs = [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
-            temperature=0.0, max_tokens=MD_TOKENS))) for p in prompts]
+            temperature=0.0, max_tokens=MD_TOKENS, lora=a)))
+            for p, a in zip(prompts, adapters)]
         ids = [_md_drain(r) for r in reqs]
     finally:
         core.stop()
@@ -7601,10 +7651,12 @@ def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None):
             kv.close()
         spy.close()
     ref = {"ids": ids,
-           "logits": [spy.get(p, None)[0].cpu() for p in prompts],
-           "margins": [_md_margins(core, p, i) for p, i in zip(prompts, ids)],
+           "logits": [spy.get(p, a)[0].cpu()
+                      for p, a in zip(prompts, adapters)],
+           "margins": [_md_margins(core, p, i, a)
+                       for p, i, a in zip(prompts, ids, adapters)],
            "kv": kv.kv if kv is not None else None}
-    ref["fp32"], ref["fp32_kv"] = _md_fp32(core, prompts, kv_of)
+    ref["fp32"], ref["fp32_kv"] = _md_fp32(core, prompts, kv_of, adapters)
     ref["seconds"] = time.perf_counter() - t0
     del core, spy
     gc.collect()
@@ -7669,6 +7721,54 @@ def _md_kernel_checks() -> None:
     torch.cuda.synchronize()
 
 
+def _md_lora_checks() -> None:
+    """Kernel #6 against its plain version at a tp=2 rank's shapes of
+    Llama-3-8B, rank 16, decode (4, 1) and chunk (4, 128) rows: the
+    column-parallel targets (wq, wk, wv, wg, wu: IN whole, OUT halved)
+    add the delta into the output in place (mode b, bit for bit against y
+    + mode a rounded); the row-parallel ones (wo, wd: IN halved) give the
+    fp32 partial delta (mode a) that joins the partial product."""
+    import torch
+
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.lora import lora_target_dims
+    from llmlb_tpu_torch.ops import lora
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    idx = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device="cuda")
+    dims = lora_target_dims(get_preset("llama-3-8b"), ("wq", "wk", "wv", "wo",
+                                                        "wg", "wu", "wd"))
+    for tgt, (in_dim, out_dim) in dims.items():
+        row_parallel = tgt in ("wo", "wd")
+        if row_parallel:
+            in_dim //= 2
+        else:
+            out_dim //= 2
+        a = (torch.randn((3, in_dim, 16), generator=gen, device="cuda")
+             * in_dim**-0.5).to(bf16)
+        b = (torch.randn((3, 16, out_dim), generator=gen, device="cuda")
+             * 0.25).to(bf16)
+        a[0], b[0] = 0, 0
+        for t in (1, 128):
+            x = torch.randn((4, t, in_dim), generator=gen,
+                            device="cuda").to(bf16)
+            tag = (f"lora_delta bf16 {tgt} x [4,{t},{in_dim}] -> {out_dim} "
+                   f"(a tp=2 rank, {'row' if row_parallel else 'column'}"
+                   "-parallel)")
+            got = lora.lora_delta(x, a, b, idx)
+            _check(tag + " mode (a)", got,
+                   lora.lora_delta_reference(x, a, b, idx), rel=LORA_REL)
+            if not row_parallel:
+                y = torch.randn((4, t, out_dim), generator=gen,
+                                device="cuda").to(bf16)
+                fused = lora.lora_delta_add(y.clone(), x, a, b, idx)
+                if not torch.equal(fused, y + got.to(bf16)):
+                    raise AssertionError(f"{tag}: mode (b) is not y + "
+                                         "delta.to(dtype) bit for bit")
+    torch.cuda.synchronize()
+
+
 def _md_mirror(core) -> list:
     """The requests a rank queues from the tick plans (a follower's are its
     shadows), in plan order."""
@@ -7685,12 +7785,15 @@ def _md_mirror(core) -> list:
     return seen
 
 
-def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
+def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     """One sub-phase on this rank: a lockstep engine over the sub-phase's
-    mesh (tp=2, sp=2 or ep=2), the leader serving HTTP (the chats) and
-    then the prompts on its core; every rank's launches, the ids of every
-    request it mirrored, and on the leader the first-step logits and, for
-    sp, the long prompt's KV as the pages hold it."""
+    mesh (tp=2, sp=2, ep=2, dp=2 or tp=2 with two adapters), the leader
+    serving HTTP (the chats) and then the sub-phase's prompts on its core
+    (dp: then the prefix hit across groups; lora: the last row's adapter
+    loaded cold mid-run); every rank's launches, the ids of every request
+    it mirrored, and on the leader the first-step logits and, for sp and
+    dp, the long prompt's KV as the pages hold it (dp: a digest on every
+    rank)."""
     import gc
 
     import torch
@@ -7703,11 +7806,19 @@ def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
     from llmlb_tpu_torch.ops import cuda_attention as ca
     from llmlb_tpu_torch.parallel.mesh import MeshConfig
 
+    import hashlib
+
     cfg = _md_cfg(sub)
     axes = {"tp": MeshConfig(tp=2), "sp": MeshConfig(sp=2, tp=1),
-            "ep": MeshConfig(ep=2, tp=1)}[sub]
+            "ep": MeshConfig(ep=2, tp=1), "dp": MeshConfig(dp=2, tp=1),
+            "lora": MeshConfig(tp=2)}[sub]
+    kw = dict(MD_KW)
+    if sub == "dp":
+        kw["prefix_cache"] = True  # the cross-group hit
+    if sub == "lora":
+        kw["lora_dir"] = prompts["lora_dir"]
     t0 = time.perf_counter()
-    core = EngineCore(cfg, None, device="cuda", mesh_config=axes, **MD_KW)
+    core = EngineCore(cfg, None, device="cuda", mesh_config=axes, **kw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     engine = Engine("llama-3-8b" if sub != "ep" else "mixtral", core,
@@ -7722,32 +7833,57 @@ def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
 
     core._cp_prefill_into_slot = counted
     leader = rank == 0
-    spy = _LogitSpy(core) if leader else None
-    kv = _KVSpy(core, prompts[-1]) if leader and sub == "sp" else None
+    held = prompts["lora"] if sub == "lora" else prompts[
+        "mixtral" if sub == "ep" else "llama"]
+    adapters = ([a for _, a in MD_LORA_ROWS] if sub == "lora"
+                else [None] * len(held))
+    spy = _LogitSpy(core) if leader or sub == "dp" else None
+    # the long prompt's KV as the pages hold it: the leader's for sp, every
+    # rank's for dp (the exchange's copy against its writer's)
+    kv = (_KVSpy(core, held[-1])
+          if (leader and sub == "sp") or sub == "dp" else None)
     ca.reset_launch_counts()
     core.mesh.stats.update(calls=0, bytes=0, seconds=0.0)
     t1 = time.perf_counter()
     core.start()
     http = []
+
+    def submit(rows):
+        return [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
+            temperature=0.0, max_tokens=MD_TOKENS, lora=a))) for p, a in rows]
+
+    def wait(reqs, until=lambda r: r.finished_at is not None):
+        t_end = time.monotonic() + 600
+        while not all(until(r) for r in reqs):
+            if time.monotonic() > t_end:
+                raise AssertionError(f"multi-device {sub}: requests did "
+                                     "not finish")
+            time.sleep(0.005)
+
     if leader:
         server, _ = start_server(engine)
         base = "http://%s:%d" % server.server_address[:2]
         try:
-            for c in (MD_CHATS if sub == "tp" else MD_CHATS[:1]):
-                out = _chat(base, c, 8, False, model=engine.model_id)
+            for c in MD_CHATS[:MD_HTTP[sub]]:
+                out = _chat(base, c, 8, False, model=engine.model_id,
+                            lora="acme" if sub == "lora" else None)
                 http.append(out["usage"]["completion_tokens"])
-            reqs = [core.submit(Request(prompt_ids=list(p),
-                                        sampling=SamplingParams(
-                                            temperature=0.0,
-                                            max_tokens=MD_TOKENS)))
-                    for p in prompts]
             # their ids stay in the events, read with every rank's below
-            t_end = time.monotonic() + 600
-            while not all(r.finished_at is not None for r in reqs):
-                if time.monotonic() > t_end:
-                    raise AssertionError(f"multi-device {sub}: requests "
-                                         "did not finish")
-                time.sleep(0.005)
+            if sub == "lora":
+                # the last row's adapter loads cold while the others decode
+                first = submit(list(zip(held, adapters))[:-1])
+                wait(first, lambda r: r.events.qsize() >= 2)
+                wait(first + submit([(held[-1], adapters[-1])]))
+            else:
+                wait(submit(zip(held, adapters)))
+            if sub == "dp":
+                # a prefix hit across dp groups: the fresh long prompt
+                # cold, alone (slot 0, group 0, which writes its pages and
+                # donates its head), then again beside two chats (slots 0
+                # and 1): it lands in slot 2, group 1, and hits
+                wait(submit([(prompts["dp_q"], None)]))
+                wait(submit([(held[0], None), (held[1], None),
+                             (prompts["dp_q"], None)]))
         finally:
             server.shutdown()
             engine.shutdown()  # the stop rides the plan to the followers
@@ -7764,7 +7900,9 @@ def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
             if kind == "token":
                 ids.append(int(value))
         streams.append(ids)
+    h = MD_HTTP[sub]
     out = {"launches": dict(ca.LAUNCHES), "streams": streams, "http": http,
+           "held": streams[h:h + len(held)],
            "init_s": init_s, "serve_s": serve_s,
            "collectives": dict(core.mesh.stats), "mesh": dict(core.mesh.shape),
            "backend": core.mesh.backend,
@@ -7774,8 +7912,29 @@ def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
                      if sub == "ep" else None),
            "param_gib": core.param_bytes / 2**30, "ring_passes": passes[0]}
     if leader:
-        out["logits"] = [spy.get(p, None)[0].cpu() for p in prompts]
+        out["logits"] = [spy.get(p, a)[0].cpu()
+                         for p, a in zip(held, adapters)]
         out["kv"] = kv.kv if kv is not None else None
+    if sub == "dp":
+        # the long prompt's pages on this rank (its group wrote them, or
+        # the dp exchange copied them), and the hit prompt's two runs
+        out["kv_sha"] = [hashlib.sha256(t.view(torch.uint8).numpy()
+                                        .tobytes()).hexdigest()
+                         for t in kv.kv]
+        out["kv_writer"] = core._slot_groups[kv.slot]
+        q = spy.get(prompts["dp_q"], None)
+        out["q_logits_equal"] = len(q) == 2 and torch.equal(q[0], q[1])
+        out["q_ids"] = [streams[h + len(held)], streams[-1]]
+        out["prefix"] = dataclasses.asdict(core.stats().prefix)
+        out["dp_slots"] = [core._slot_groups.count(g) for g in range(2)]
+    if sub == "lora":
+        out["lora_rows"] = {n: core.lora.slot_of(n)
+                            for n in core.lora.resident_names()}
+        out["lora_info"] = {k: v for k, v in core.lora_info().items()
+                            if k in ("loads_total", "evictions_total",
+                                     "active")}
+        out["pool_shapes"] = {k: tuple(v.shape) for k, v in core.params.items()
+                              if "_lora_" in k and k.startswith(("wk", "wd"))}
     # the engine goes with this frame (its spies and wrappers point at it)
     del engine, core, spy, kv, ring, counted, seen
     gc.collect()
@@ -7785,8 +7944,8 @@ def _md_sub(sub: str, rank: int, prompts: list[list[int]]) -> dict:
 def md_rank_main(rank: int, world: int, port: int, backend: str, src: str,
                  dst: str) -> None:
     """A rank of the multi-device phase: joins the world through the
-    port's LLMLB_* variables (`init_from_env`), runs the three sub-phases
-    in order and pickles its results to `dst`."""
+    port's LLMLB_* variables (`init_from_env`), runs the sub-phases of
+    MD_SUBS in order and pickles its results to `dst`."""
     import gc
     import os
     import pickle
@@ -7805,9 +7964,8 @@ def md_rank_main(rank: int, world: int, port: int, backend: str, src: str,
     with open(src, "rb") as f:
         prompts = pickle.load(f)
     out = {}
-    for sub in ("tp", "sp", "ep"):
-        out[sub] = _md_sub(sub, rank, prompts["mixtral" if sub == "ep"
-                                              else "llama"])
+    for sub in MD_SUBS:
+        out[sub] = _md_sub(sub, rank, prompts)
         gc.collect()
         torch.cuda.empty_cache()
         out[sub]["left_gib"] = torch.cuda.memory_allocated() / 2**30
@@ -7846,7 +8004,7 @@ def _md_hold(label: str, ref: dict, leader: dict, n: int) -> dict:
                 f"{mine:.3e} (RMS-relative) from the fp32 computation, one "
                 f"card's {one:.3e}: over {MD_ACCURACY}x")
     diff = max(errs)
-    got = leader["streams"][-n:]
+    got = leader["held"]
     shared = [_shared(a, b) for a, b in zip(got, ref["ids"])]
     parts = [(i, p, float(ref["margins"][i][p])) for i, p in
              enumerate(shared) if p < min(len(got[i]), len(ref["ids"][i]))]
@@ -7867,7 +8025,81 @@ def _md_hold(label: str, ref: dict, leader: dict, n: int) -> dict:
             "partings": parts}
 
 
-def _md_kv_check(got: list, ref: list, fp32: list, n: int) -> dict:
+def _md_dp_checks(ranks: list, ref: dict, n_long: int) -> dict:
+    """The dp sub-phase's own checks. The long prompt's pages: the rank
+    whose group did not write them holds the writer's bits (a digest of
+    each rank's K and V). The prefix hit across groups: the same ids and
+    first-step logits as its cold run, bit for bit, on every rank. Whether
+    the leader's ids and first-step logits are one card's bits (read, not
+    held: a dp group's decode products take B / dp rows, one card's B, and
+    cuBLAS picks its sums by M)."""
+    import torch
+
+    lead = ranks[0]["dp"]
+    shas = [x["dp"]["kv_sha"] for x in ranks]
+    writer = lead["kv_writer"]
+    if any(s != shas[writer] for s in shas):
+        raise AssertionError(f"multi-device dp: the {n_long}-token prompt's "
+                             f"pages differ between the writer (group "
+                             f"{writer}) and the other rank: {shas}")
+    for r, x in enumerate(ranks):
+        cold, hit = x["dp"]["q_ids"]
+        if cold != hit or not x["dp"]["q_logits_equal"]:
+            raise AssertionError(
+                f"multi-device dp: rank {r}: the prefix hit across groups "
+                f"is not its cold run (ids equal {cold == hit}, first "
+                f"logits equal {x['dp']['q_logits_equal']})")
+    hits = lead["prefix"]["prefix_hits_total"]
+    if hits < 1:
+        raise AssertionError(f"multi-device dp: no prefix hit ({lead['prefix']})")
+    ids_bits = [a == b for a, b in zip(lead["held"], ref["ids"])]
+    logit_bits = [bool(torch.equal(a, b))
+                  for a, b in zip(lead["logits"], ref["logits"])]
+    kv_bits = [bool(torch.equal(a, b)) for a, b in zip(lead["kv"], ref["kv"])]
+    log(f"multi-device dp: the {n_long}-token prompt's pages (written by "
+        f"group {writer}) equal on both ranks bit for bit ({shas[0][0][:12]}"
+        f"..., {shas[0][1][:12]}...); the prefix hit across groups "
+        f"({hits} hit(s), {lead['prefix']['prefix_cached_tokens_total']} "
+        f"cached tokens) equals its cold run bit for bit, ids and first "
+        f"logits, on every rank; one card's bits? ids {ids_bits}, first-step"
+        f" logits {logit_bits}, the long prompt's KV {kv_bits}; dp slots "
+        f"{lead['dp_slots']}")
+    return {"kv_writer": writer, "prefix_hits": hits,
+            "one_card_ids": ids_bits, "one_card_logits": logit_bits,
+            "one_card_kv": kv_bits}
+
+
+def _md_lora_hold(ranks: list) -> dict:
+    """The lora sub-phase's own checks: every rank put each adapter in the
+    same pool row (the cold one loaded mid-run too); the adapter-free row
+    of the mixed batch equals the tp=2 engine without --lora-dir (the tp
+    sub-phase, the same chat), ids and first-step logits bit for bit."""
+    import torch
+
+    lead, tp = ranks[0]["lora"], ranks[0]["tp"]
+    rows = [x["lora"]["lora_rows"] for x in ranks]
+    if any(r != rows[0] for r in rows):
+        raise AssertionError(f"multi-device lora: pool rows differ across "
+                             f"ranks: {rows}")
+    free = [i for i, (_, a) in enumerate(MD_LORA_ROWS) if a is None]
+    for i in free:
+        chat = MD_LORA_ROWS[i][0]
+        same_ids = lead["held"][i] == tp["held"][chat]
+        same_logits = bool(torch.equal(lead["logits"][i], tp["logits"][chat]))
+        if not (same_ids and same_logits):
+            raise AssertionError(
+                f"multi-device lora: adapter-free row {i} differs from the "
+                f"tp=2 engine without adapters (ids {same_ids}, first "
+                f"logits {same_logits})")
+    log(f"multi-device lora: pool rows {rows[0]} on every rank, "
+        f"{lead['lora_info']}; rank shards {lead['pool_shapes']}; "
+        f"adapter-free row(s) {free} equal the tp=2 engine without "
+        "--lora-dir bit for bit (ids and first-step logits)")
+    return {"lora_rows": rows[0], "lora_info": lead["lora_info"]}
+
+
+def _md_kv_check(got: list, ref: list, fp32: list, n: int,
+                 sub: str = "sp") -> dict:
     """The ring pass's KV as the pages hold it, [L, n, K, D] each for K and
     V, against one card's chunked prefill's: layer 0's cells, made from the
     same embedding rows, elementwise within the bf16 limit (every position
@@ -7890,7 +8122,7 @@ def _md_kv_check(got: list, ref: list, fp32: list, n: int) -> dict:
                      "one_card_rms_rel_fp32": one[worst]}
         if not ok0 or max(ratio) > MD_ACCURACY:
             raise AssertionError(
-                f"multi-device sp: the {n}-token prompt's {what} in the "
+                f"multi-device {sub}: the {n}-token prompt's {what} in the "
                 f"pages: layer 0 max |diff| from one card's {err0:.3e} "
                 f"({'ok' if ok0 else 'FAIL'}); layer {worst} {mine[worst]:.3e}"
                 f" from the fp32 KV against one card's {one[worst]:.3e}")
@@ -7916,22 +8148,36 @@ def phase_multi_device(dev: dict) -> dict:
 
     from llmlb_tpu_torch.parallel.distributed import spawn_world
 
+    from llmlb_tpu_torch.kernels import build
+    from llmlb_tpu_torch.lora import save_adapter
+
     t0 = time.perf_counter()
     _md_kernel_checks()
+    _md_lora_checks()
     prompts = _md_prompts()
     n_long = len(prompts["llama"][-1])
+    adapters = [a for _, a in MD_LORA_ROWS]
+    lora_tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    prompts["lora_dir"] = lora_tmp.name
+    for name, rank, targets in ADAPTERS:
+        save_adapter(lora_tmp.name, name, _md_cfg("lora"), rank=rank,
+                     targets=targets, scale=ADAPTER_SCALE)
     refs = {"llama": _md_reference("tp", prompts["llama"],
                                    len(prompts["llama"]) - 1),
-            "mixtral": _md_reference("ep", prompts["mixtral"], None)}
+            "mixtral": _md_reference("ep", prompts["mixtral"], None),
+            "lora": _md_reference("lora", prompts["lora"], None, adapters,
+                                  lora_tmp.name)}
     log(f"multi-device: one-card references in "
         f"{refs['llama']['seconds']:.1f} s (Llama-3-8B, prompts of "
-        f"{[len(p) for p in prompts['llama']]} tokens) and "
+        f"{[len(p) for p in prompts['llama']]} tokens), "
         f"{refs['mixtral']['seconds']:.1f} s (Mixtral, "
-        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]})")
+        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]})"
+        f" and {refs['lora']['seconds']:.1f} s (Llama-3-8B with adapters "
+        f"{adapters})")
     backend = "nccl" if dev["count"] >= 2 else "gloo"
     world = 2
     t_ranks = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, lora_tmp:
         src = f"{tmp}/prompts.pkl"
         with open(src, "wb") as f:
             pickle.dump(prompts, f)
@@ -7954,12 +8200,13 @@ def phase_multi_device(dev: dict) -> dict:
     ranks_s = time.perf_counter() - t_ranks
     launches: dict[str, int] = {}
     report = {"backend": backend, "world": world, "subphases": {}}
-    for sub in ("tp", "sp", "ep"):
+    for sub in MD_SUBS:
         lead = ranks[0][sub]
-        ref = refs["mixtral" if sub == "ep" else "llama"]
-        n = len(prompts["mixtral" if sub == "ep" else "llama"])
+        ref = refs[{"ep": "mixtral", "lora": "lora"}.get(sub, "llama")]
+        n = len(lead["held"])
+        h = MD_HTTP[sub]  # the leader's HTTP streams went to its clients
         for r in range(1, world):
-            if ranks[r][sub]["streams"][-n:] != lead["streams"][-n:]:
+            if ranks[r][sub]["streams"][h:] != lead["streams"][h:]:
                 raise AssertionError(f"multi-device {sub}: rank {r}'s ids "
                                      "differ from the leader's")
         per_rank = [{k: v for k, v in x[sub]["launches"].items() if v}
@@ -7976,9 +8223,13 @@ def phase_multi_device(dev: dict) -> dict:
         rings = [x[sub]["ring_passes"] for x in ranks]
         if rings != [1 if sub == "sp" else 0] * world:
             raise AssertionError(f"multi-device {sub}: ring passes {rings}")
-        if sub == "sp":
+        if sub in ("sp", "dp"):
             held["kv_err"] = _md_kv_check(lead["kv"], ref["kv"],
-                                          ref["fp32_kv"], n_long)
+                                          ref["fp32_kv"], n_long, sub)
+        if sub == "dp":
+            held.update(_md_dp_checks(ranks, ref, n_long))
+        if sub == "lora":
+            held.update(_md_lora_hold(ranks))
         col = [x[sub]["collectives"] for x in ranks]
         log(f"multi-device {sub} [{dev['smi']}]: mesh {lead['mesh']} over "
             f"{lead['backend']}; rank heads/kv/ffn/experts {lead['local']}, "
@@ -7992,7 +8243,7 @@ def phase_multi_device(dev: dict) -> dict:
             + (f"; the {n_long}-token prompt's KV in the pages: layer 0 "
                f"within the bf16 limit of one card's, every layer as "
                f"accurate as one card's ({held['kv_err']})"
-               if sub == "sp" else ""))
+               if sub in ("sp", "dp") else ""))
         report["subphases"][sub] = {
             "init_s": [x[sub]["init_s"] for x in ranks],
             "serve_s": [x[sub]["serve_s"] for x in ranks],

@@ -126,6 +126,17 @@ class BurstState:
     # None on one rank. A captured burst records its collectives, which
     # only NCCL's allow: the engine refuses graphs on a gloo mesh.
     mesh: Any = None
+    # at dp > 1 the slots' dp groups (parallel/mesh.py DpRows): a rank's
+    # forward runs its group's rows, then the dp exchange
+    dp_rows: Any = None
+
+
+def _mesh_kw(s: BurstState) -> dict:
+    """The mesh keywords of a forward: the mesh, and the dp rows when the
+    mesh has dp groups (an MoE family, refused at dp, never takes them)."""
+    if s.dp_rows is None:
+        return {"mesh": s.mesh}
+    return {"mesh": s.mesh, "dp_rows": s.dp_rows}
 
 
 def count_nan_rows(nan_rows: torch.Tensor, logits: torch.Tensor) -> None:
@@ -143,17 +154,17 @@ def burst_body(s: BurstState, window: int, seeded: bool,
     last, lens = s.last_tokens, s.seq_lens
     gs = s.gram_state if mode == "grammar" else None
     family = family_for(s.cfg)
+    kw = _mesh_kw(s)
     s.tokens[0].copy_(last)
     for step in range(1, s.tokens.shape[0]):
         if s.block_tables is not None:
             logits, _, _ = family.decode_step_paged(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
-                s.block_tables, window=window, lora_idx=s.lora_idx,
-                mesh=s.mesh)
+                s.block_tables, window=window, lora_idx=s.lora_idx, **kw)
         else:
             logits, _, _ = family.decode_step(
                 s.params, s.cfg, last, lens, s.cache_k, s.cache_v,
-                window=window, lora_idx=s.lora_idx, mesh=s.mesh)
+                window=window, lora_idx=s.lora_idx, **kw)
         count_nan_rows(s.nan_rows, logits)
         bias = (grammar_bias(s.gram_table, gs) if gs is not None
                 else s.mask_bias if mode == "mask" else None)
@@ -187,11 +198,11 @@ def verify_body(s: BurstState, window: int, seeded: bool,
     if s.block_tables is not None:
         logits, _, _ = family.verify_step_paged(
             s.params, s.cfg, ids, lens, start, s.block_tables, s.cache_k,
-            s.cache_v, window=window, lora_idx=s.lora_idx, mesh=s.mesh)
+            s.cache_v, window=window, lora_idx=s.lora_idx, **_mesh_kw(s))
     else:
         logits, _, _ = family.verify_step(
             s.params, s.cfg, ids, lens, start, None, s.cache_k, s.cache_v,
-            window=window, lora_idx=s.lora_idx, mesh=s.mesh)
+            window=window, lora_idx=s.lora_idx, **_mesh_kw(s))
     count_nan_rows(s.nan_rows, logits)
     b, k1 = ids.shape
     bias = None

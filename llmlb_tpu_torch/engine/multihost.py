@@ -13,7 +13,13 @@ serving loop needs a control plane:
 - every rank then runs the identical scheduler logic on mirrored state, so
   the sequence of forwards (prefill / chunk / decode / sample) is the same
   everywhere, and the sampling generators stay in lockstep because they
-  advance with the same draws from the same seed.
+  advance with the same draws from the same seed;
+- adapters ride the plan too: a planned request carries its adapter's
+  name, and every rank pins it when it applies the plan, in plan order
+  (the leader does not pin at submit on a mesh), and unpins it at the
+  request's terminal event, which every rank reaches on the same tick. So
+  every rank's pool loads, places and evicts the same adapters in the
+  same rows (the scheduler's `_plan_acquire`).
 
 The broadcast is two-phase (length, then the padded payload), as the
 reference's, because a broadcast needs the same buffer size on every rank

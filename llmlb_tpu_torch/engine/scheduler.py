@@ -188,23 +188,32 @@ offload tier off, as in the reference.
 
 Multi-rank serving (`mesh_config=`, parallel/): with a torch.distributed
 world of more than one rank, the engine's params are each rank's shard of
-a (dp, sp, ep, tp) mesh (`family.shard_params`; the mesh by default as the
-reference resolves it: ep = gcd(world, experts) for MoE, then tp =
-default_tp), and the model's entry points run with the mesh, whose
-collectives join the ranks. Every rank runs this loop in lockstep
-(engine/multihost.py): the leader (rank 0) takes requests through
-`submit` into an intake queue, and at the top of each iteration broadcasts
-a plan (new requests, cancellations, stop; `_lockstep_tick`); every rank
-applies it, so all ranks make the same scheduling decisions and dispatch
-the same forwards. Cancellations act only through the plan
+a (dp, sp, ep, tp) mesh (`family.shard_params`; the mesh laid as the
+reference lays it, parallel/distributed.py `engine_mesh`: by default ep =
+gcd(ranks of a host, experts) for MoE, then tp = default_tp within the
+host, dp the rest, multiplied across hosts), and the model's entry points
+run with the mesh, whose collectives join the ranks. Every rank runs this
+loop in lockstep (engine/multihost.py): the leader (rank 0) takes requests
+through `submit` into an intake queue, and at the top of each iteration
+broadcasts a plan (new requests, cancellations, stop; `_lockstep_tick`);
+every rank applies it, so all ranks make the same scheduling decisions and
+dispatch the same forwards. Cancellations act only through the plan
 (`_is_cancelled`), deadlines are shed at the leader only
-(`_collect_plan`), and KV shipping, the offload tier, `--role split`,
-LoRA and dp > 1 (ROADMAP A18b) are refused or off. On an sp > 1 mesh a
-prompt longer than the largest bucket prefills in one ring-attention pass
-(`_cp_prefill_into_slot`, models/llama.py `make_context_parallel_prefill`)
-instead of chunks. On one rank (no process group) every collective is the
-identity and the model's entry points get `mesh=None`: the one-rank engine
-runs as it did.
+(`_collect_plan`), adapters are pinned in plan order on every rank
+(`_plan_acquire`; `--lora-dir` is refused across hosts, as the
+reference), and KV shipping, the offload tier and `--role split` are off
+or refused (A18c). At dp > 1 (the Llama family; an MoE is refused, A18c)
+slot s belongs to dp group `_slot_groups[s]`, and every dispatch passes
+its rows' groups (`_mesh_kw`): a group computes its own rows, and one
+collective over dp a dispatch gives every rank the batch's logits (the
+sampler runs unchanged over the whole batch on every rank) and, paged,
+the KV cells each group wrote (the pool is replicated over dp, so a
+prefix hit, a park and resume or a chunk reads any page); the dense cache
+holds a group's slots. On an sp > 1 mesh a prompt longer than the
+largest bucket prefills in one ring-attention pass (`_cp_prefill_into_slot`,
+models/llama.py `make_context_parallel_prefill`) instead of chunks. On one
+rank (no process group) every collective is the identity and the model's
+entry points get `mesh=None`: the one-rank engine runs as it did.
 """
 
 from __future__ import annotations
@@ -258,7 +267,8 @@ from llmlb_tpu_torch.models import family_for
 from llmlb_tpu_torch.models.llama import LlamaConfig
 from llmlb_tpu_torch.ops.grammar import GrammarTables
 from llmlb_tpu_torch.ops.sampling import sample_tokens
-from llmlb_tpu_torch.parallel.mesh import MeshConfig, build_mesh, default_tp
+from llmlb_tpu_torch.parallel.distributed import engine_mesh, ranks_per_host
+from llmlb_tpu_torch.parallel.mesh import MeshConfig, slot_groups
 from llmlb_tpu_torch.quant import (
     SCALE_SUFFIX,
     kv_cell_bytes,
@@ -752,13 +762,32 @@ class EngineCore:
         # Page size: 128 tokens by default, clamped into the slot capacity.
         self.kv_page_size = max(1, min(kv_page_size or 128, self.slot_capacity))
         self.pages_per_slot = -(-self.slot_capacity // self.kv_page_size)
-        # Default pool: every slot's full capacity plus the trash page.
+        # dp groups: slot s belongs to group slot_groups(...)[s]; a group
+        # computes its own rows of every dispatch. The dense cache holds a
+        # group's slots (so dp must divide them, as the reference's
+        # sharding demands); the page pool is replicated over dp.
+        dp = self.mesh.shape["dp"]
+        self._slot_groups = slot_groups(num_slots, dp)
+        if dp > 1 and kv_layout == "dense" and num_slots % dp:
+            raise ValueError(
+                f"the dense slot cache shards its {num_slots} slots over "
+                f"dp={dp}, which must divide them (the paged layout takes "
+                "any slot count)")
+        # Default pool: every slot's full capacity plus the trash page; at
+        # dp the reference's per-device dense budget, ceil(slots / dp)
+        # slots' pages plus the trash page.
         self.kv_num_pages = 0
         if kv_layout == "paged":
             self.kv_num_pages = max(
-                int(kv_pages or num_slots * self.pages_per_slot + 1),
+                int(kv_pages or -(-num_slots // dp) * self.pages_per_slot + 1),
                 self.pages_per_slot + 1,
             )
+            if dp > 1:
+                log.info(
+                    "paged KV pool replicates over dp=%d; defaulting to the "
+                    "per-device dense budget (%d pages) — raise --kv-pages "
+                    "to trade HBM for aggregate capacity", dp,
+                    self.kv_num_pages)
 
         # Prefix KV cache, resolved as the reference resolves it. Matched
         # lengths align DOWN to the smallest prefill bucket, and paged to
@@ -826,7 +855,9 @@ class EngineCore:
             lora_dir = os.environ.get("LLMLB_LORA_DIR") or None
         self.lora: LoraManager | None = None
         if lora_dir:
-            if not self.mesh.trivial:
+            if ranks_per_host(self.mesh.world) < self.mesh.world:
+                # the reference refuses adapters across processes; one
+                # host's ranks mirror the pool through the tick plan
                 raise ValueError(
                     "--lora-dir is single-host only for now: followers have "
                     "no deterministic mirror of the leader's adapter pool "
@@ -838,9 +869,14 @@ class EngineCore:
                 lora_rank_cap = int(os.environ.get("LLMLB_LORA_RANK_CAP", "16"))
             # its targets follow the family (an MoE engine pools the
             # attention projections only, as the reference)
+            # on a mesh each rank holds its shard of the pools, by the
+            # family's axes (A as its weight's input, B as its output)
+            shard = (None if self.mesh.trivial else
+                     lambda name, full: self.family.shard_params(
+                         {name: full}, cfg, self.mesh)[name])
             self.lora = LoraManager(cfg, lora_dir=lora_dir,
                                     max_adapters=lora_max_adapters,
-                                    rank_cap=lora_rank_cap)
+                                    rank_cap=lora_rank_cap, shard=shard)
             params = {**params,
                       **self.lora.init_pool_leaves(cfg.dtype, self.device)}
             self.lora.attach(params)
@@ -891,11 +927,13 @@ class EngineCore:
                 self.device,
             )
         else:
+            # a rank holds its dp group's slots
+            local_slots = num_slots // dp
             self.cache_k, self.cache_v = self.family.init_kv_cache(
-                self.model_cfg, num_slots, self.slot_capacity, self.device)
+                self.model_cfg, local_slots, self.slot_capacity, self.device)
             log.info("KV cache: dense, %d slots x %d capacity = %.2f GiB on %s",
-                     num_slots, self.slot_capacity,
-                     kv_cache_bytes(self.model_cfg, num_slots,
+                     local_slots, self.slot_capacity,
+                     kv_cache_bytes(self.model_cfg, local_slots,
                                     self.slot_capacity) / 2**30,
                      self.device)
 
@@ -982,7 +1020,8 @@ class EngineCore:
             verify_lens=vin[nk:nk + num_slots],
             verify_start=vin[nk + num_slots:nk + 2 * num_slots],
             verify_active=vin[nk + 2 * num_slots:],
-            verify_out=self._d_verify_out)
+            verify_out=self._d_verify_out,
+            dp_rows=self.mesh.dp_rows(self._slot_groups))
         # the bursts' and the verify steps' graphs share one capture
         # function (one memory pool)
         capture = (cuda_capture(self.device, self._generator)
@@ -1113,6 +1152,7 @@ class EngineCore:
         self._plan_backlog: list[Request] = []
         # context-parallel prefill (sp > 1): built at the first long prompt
         self._use_cp_prefill = self.mesh.shape["sp"] > 1
+        self.lora_cp_fallback_total = 0
         self._cp_prefill_fn = None
         if not self.mesh.trivial:
             if self.role == "split":
@@ -1133,26 +1173,30 @@ class EngineCore:
     @staticmethod
     def _build_mesh(cfg: LlamaConfig, mesh_config: MeshConfig | None):
         """The engine's mesh over the torch.distributed world (one rank
-        without a process group). The default resolves as the reference's:
-        ep = gcd(ranks, experts) for MoE, tp = default_tp of the rest, dp
-        what is left; dp > 1 inside one engine is refused (A18b)."""
-        import torch.distributed as dist
-
-        world = (dist.get_world_size()
-                 if dist.is_available() and dist.is_initialized() else 1)
-        if mesh_config is None:
-            ep = 1
-            if getattr(cfg, "num_experts", 0) > 1:
-                ep = math.gcd(world, cfg.num_experts)
-            tp = default_tp(world // ep, cfg.num_heads, cfg.num_kv_heads)
-            mesh_config = MeshConfig(dp=world // (ep * tp), ep=ep, tp=tp)
-        mesh = build_mesh(mesh_config, world=world)
-        if mesh.shape["dp"] > 1:
+        without a process group), laid as the reference lays it
+        (parallel/distributed.py `engine_mesh`): the default sizes ep and tp
+        within one host's ranks, dp takes the rest and multiplies across
+        hosts. dp > 1 splits the batch rows into dp groups, for the Llama
+        family; an MoE's capacity dispatch runs over the whole batch's
+        tokens, so an MoE engine at dp > 1 is refused (A18c)."""
+        mesh = engine_mesh(cfg, mesh_config)
+        if mesh.shape["dp"] > 1 and getattr(cfg, "num_experts", 0) > 1:
             raise ValueError(
-                f"mesh {mesh.shape}: dp > 1 inside one engine (batch rows "
-                "split across dp groups) is not served yet (ROADMAP A18b); "
-                "run one engine per replica")
+                f"mesh {mesh.shape}: dp > 1 inside one MoE engine is not "
+                "served yet (ROADMAP A18c): the reference's capacity "
+                "dispatch runs over the whole batch's tokens, which a "
+                "dp group's own rows would not reproduce; give the ranks "
+                "to ep or tp, or run one engine per replica")
         return mesh
+
+    def _mesh_kw(self, slot_ids) -> dict:
+        """The mesh keywords of a dispatch over `slot_ids` (its batch rows
+        in order): the mesh (None on one rank), and at dp > 1 the rows'
+        dp groups."""
+        rows = self.mesh.dp_rows([self._slot_groups[s] for s in slot_ids])
+        if rows is None:
+            return {"mesh": self._model_mesh}
+        return {"mesh": self._model_mesh, "dp_rows": rows}
 
     # ------------------------------------------------------------------ public
 
@@ -1429,6 +1473,10 @@ class EngineCore:
         if self.lora is None:
             raise ValueError("'lora' adapters are not enabled on this engine "
                              "(start it with --lora-dir)")
+        if self.coordinator is not None:
+            # a mesh: every rank pins in tick-plan order (_apply_plan)
+            self.lora.validate(name)
+            return
         t0 = time.perf_counter()
         self.lora.acquire(name, request.request_id)
         # once per call: the submit's re-acquire of an adapter the service
@@ -1458,9 +1506,9 @@ class EngineCore:
         """The multi-LoRA block of /api/health and /api/system."""
         if self.lora is None:
             return {"enabled": False}
-        # no context-parallel prefill in the port: no LoRA prompt falls
-        # back from it
-        return {**self.lora.info(), "cp_fallback_total": 0}
+        # LoRA prompts that took chunks on an sp > 1 mesh (_cp_capable)
+        return {**self.lora.info(),
+                "cp_fallback_total": self.lora_cp_fallback_total}
 
     def _kv_dtype(self) -> str:
         return ("int8" if self.quant.kv
@@ -1574,7 +1622,9 @@ class EngineCore:
         flops_tok = model_flops_per_token(self.cfg, self.n_params)
         # the measured parameter bytes (int8 codes and scales when weights
         # are quantized) and the pool's actual cell size
-        # every rank's parameter bytes: a token reads each rank's shard
+        # every rank's parameter bytes over every row: a token reads its
+        # dp group's shards, (world / dp) ranks' bytes over its group's
+        # batch / dp rows, which is the same share
         n_chips = self.mesh.world
         bytes_tok = model_bytes_per_token(
             self.cfg, self.n_params, mean_ctx, batch=batch,
@@ -1812,17 +1862,37 @@ class EngineCore:
         its real Requests, followers shadows whose events go unread) and
         mirror the cancellations and the stop."""
         if local is not None:
-            for req in local["new"]:
-                self.pending.put(req)
+            new = local["new"]
         else:
-            for payload in plan["new"]:
-                self.pending.put(Request(
-                    prompt_ids=payload["prompt_ids"],
-                    sampling=SamplingParams(**payload["sampling"]),
-                    request_id=payload["request_id"]))
+            new = [Request(prompt_ids=payload["prompt_ids"],
+                           sampling=SamplingParams(**payload["sampling"]),
+                           request_id=payload["request_id"])
+                   for payload in plan["new"]]
+        for req in new:
+            if not self._plan_acquire(req):
+                continue
+            self.pending.put(req)
         self._cancelled_effective |= set(plan["cancelled"])
         if plan["stop"]:
             self._running = False
+
+    def _plan_acquire(self, request: Request) -> bool:
+        """Pin a planned request's adapter, on every rank in plan order, so
+        every rank loads it into the same pool row and evicts the same
+        idle one (the pool's state is a function of the plans). A refusal
+        (a pool full of adapters in use) ends the request on every rank
+        alike. False when it ended."""
+        if self.lora is None or not request.sampling.lora:
+            return True
+        t0 = time.perf_counter()
+        try:
+            self.lora.acquire(request.sampling.lora, request.request_id)
+        except ValueError as e:
+            self._finish(request, "error", str(e))
+            return False
+        self._fr_emit(request, "lora_acquire", adapter=request.sampling.lora,
+                      wait_s=round(time.perf_counter() - t0, 6))
+        return True
 
     def _lockstep_tick(self) -> None:
         local = None
@@ -2369,14 +2439,26 @@ class EngineCore:
         """Whether a long prompt prefills in one ring-attention pass (an
         sp > 1 mesh and a family with a context-parallel prefill). A
         resumed row takes the chunked path: its prompt replays in the
-        uninterrupted run's chunks. (The reference's LoRA fallback to
-        chunks cannot arise: an sp > 1 mesh has ranks, which refuse
-        adapters, so lora_cp_fallback_total stays 0.)"""
+        uninterrupted run's chunks. So does a request with an adapter, as
+        in the reference: the ring pass carries no adapter rows (counted
+        in lora_cp_fallback_total, warned once)."""
         if not (self._use_cp_prefill and hasattr(
                 self.family, "make_context_parallel_prefill")):
             return False
         n = len(request.prompt_ids)
-        return request.parked is None and self._cp_bucket_for(n) >= n
+        if request.parked is not None or self._cp_bucket_for(n) < n:
+            return False
+        if self.lora is not None and request.sampling.lora:
+            self.lora_cp_fallback_total += 1
+            if self.lora_cp_fallback_total == 1:
+                log.warning(
+                    "LoRA request %s (adapter %r, %d prompt tokens) fell "
+                    "back from context-parallel to chunked prefill: the CP "
+                    "pass carries no adapter indices. Further fallbacks "
+                    "count on llmlb_engine_lora_cp_fallback_total.",
+                    request.request_id, request.sampling.lora, n)
+            return False
+        return True
 
     def _prefer_cp_over(self, use_len: int, n: int) -> bool:
         """On an sp > 1 mesh a long prompt prefills in ONE ring pass, while
@@ -2414,18 +2496,36 @@ class EngineCore:
         prefill_start = time.monotonic()
         t_dispatch = time.perf_counter()
         events = self._timing_events()
-        logits, k_all, v_all = self._cp_prefill_fn(
-            self.params, self._to_device(ids),
-            self._to_device(np.asarray([n], np.int32)))
+        # at dp the slot's group runs the ring (over its sp ranks), and the
+        # dp exchange brings the logits and the written pages to the rest
+        rows = self.mesh.dp_rows([self._slot_groups[slot_id]])
         if self.page_pool is not None:
             self._sync_block_tables()
-            self.family.scatter_prefill_kv(
-                self.cache_k, self.cache_v, k_all[:, :, :n], v_all[:, :, :n],
-                block_table=self._d_block_tables[slot_id])
+        if rows is None or rows.mine:
+            logits, k_all, v_all = self._cp_prefill_fn(
+                self.params, self._to_device(ids),
+                self._to_device(np.asarray([n], np.int32)))
+            if self.page_pool is not None:
+                self.family.scatter_prefill_kv(
+                    self.cache_k, self.cache_v, k_all[:, :, :n],
+                    v_all[:, :, :n], block_table=self._d_block_tables[slot_id])
+            else:
+                self.family.scatter_prefill_kv(
+                    self.cache_k, self.cache_v, k_all[:, :, :n],
+                    v_all[:, :, :n], slot=slot_id - self.family.dp_slot_offset(
+                        self.cache_k, self._model_mesh))
         else:
-            self.family.scatter_prefill_kv(
-                self.cache_k, self.cache_v, k_all[:, :, :n], v_all[:, :, :n],
-                slot=slot_id)
+            logits = torch.zeros((0, self.cfg.vocab_size),
+                                 dtype=torch.float32, device=self.device)
+        if rows is not None:
+            cells = None
+            if self.page_pool is not None:
+                pos = torch.arange(n, device=self.device)[None]
+                cells = self.family.page_cells(
+                    self._d_block_tables[slot_id:slot_id + 1], pos,
+                    self.kv_page_size)
+            logits = self.family.dp_exchange(
+                rows, self.mesh, logits, (self.cache_k, self.cache_v), cells)
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()
@@ -2459,9 +2559,10 @@ class EngineCore:
             shared = entry.pages[:use_len // self.kv_page_size]
             self._assign_slot_pages(slot_id, shared, fresh)
         else:
-            for cache in (self.cache_k, self.cache_v):
-                cache[:, slot_id, :use_len].copy_(
-                    cache[:, entry.slot, :use_len])
+            # at dp a donor in another group's slots comes over dp
+            self.family.copy_slot_prefix(self.cache_k, self.cache_v, slot_id,
+                                         entry.slot, use_len,
+                                         self._model_mesh)
             self.prefix_counters.kv_copy_dispatches += 1
         self.prefix_counters.prefix_hits_total += 1
         self.prefix_counters.prefix_cached_tokens_total += use_len
@@ -2498,22 +2599,19 @@ class EngineCore:
         prefill_start = time.monotonic()
         t_dispatch = time.perf_counter()
         events = self._timing_events()
+        mesh_kw = self._mesh_kw(slot_ids)
         if self.page_pool is not None:
             self._sync_block_tables()
             logits, _, _ = self.family.prefill_into_pages(
                 self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(lens),
                 self._to_device(self._block_tables[slot_ids]),
-                self.cache_k, self.cache_v, lora_idx=lora_idx,
-                mesh=self._model_mesh,
-            )
+                self.cache_k, self.cache_v, lora_idx=lora_idx, **mesh_kw)
         else:
             logits, _, _ = self.family.prefill_into_slots(
                 self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(lens), self._to_device(slot_ids),
-                self.cache_k, self.cache_v, lora_idx=lora_idx,
-                mesh=self._model_mesh,
-            )
+                self.cache_k, self.cache_v, lora_idx=lora_idx, **mesh_kw)
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()
@@ -2580,16 +2678,15 @@ class EngineCore:
         args = (self.params, self.model_cfg, self._to_device(ids),
                 self._to_device(np.asarray([chunk_len], np.int32)),
                 self._to_device(np.asarray([start], np.int32)))
+        mesh_kw = self._mesh_kw([slot_id])
         if self.page_pool is not None:
             logits, _, _ = self.family.prefill_extend_pages(
                 *args, self._to_device(self._block_tables[slot_id:slot_id + 1]),
-                self.cache_k, self.cache_v, lora_idx=lora_idx,
-                mesh=self._model_mesh)
+                self.cache_k, self.cache_v, lora_idx=lora_idx, **mesh_kw)
         else:
             logits, _, _ = self.family.prefill_extend_slots(
                 *args, self._to_device(np.asarray([slot_id], np.int64)),
-                self.cache_k, self.cache_v, lora_idx=lora_idx,
-                mesh=self._model_mesh)
+                self.cache_k, self.cache_v, lora_idx=lora_idx, **mesh_kw)
         if events is not None:
             events[1].record()
         t_done = time.perf_counter()

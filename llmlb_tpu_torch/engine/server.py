@@ -105,7 +105,12 @@ torch.distributed world before the engine is built (NCCL on the cards,
 gloo on the CPU; LLMLB_MESH_BACKEND=gloo lets ranks share a card), every
 rank with the same flags. Rank 0 serves HTTP; a follower runs the
 lockstep loop only, binds no port, and exits when the leader stops.
-`/api/health`'s `engine` block carries the `mesh`.
+Ranks per host are torchrun's LOCAL_WORLD_SIZE, else the whole world (the
+LLMLB_COORDINATOR ranks share one host); the default mesh sizes ep and tp
+within a host and multiplies dp across hosts, as the reference. A dp > 1
+mesh splits the batch's slots into dp groups; `--lora-dir` serves on one
+host's ranks and is refused across hosts. `/api/health`'s `engine` block
+carries the `mesh` and `dp_slots` (each dp group's slots).
 
 Run: `python -m llmlb_tpu_torch.engine.server --preset llama-3-8b` (on the
 card, random weights), or `--checkpoint DIR` to serve a HF checkpoint with

@@ -539,8 +539,11 @@ class Engine:
                 "total_tokens": stats.total_tokens,
                 "uptime_s": round(stats.uptime_s, 3),
                 "decode_burst": self.core.decode_burst,
-                # the engine's mesh of ranks, as the reference reports it
+                # the engine's mesh of ranks, as the reference reports it,
+                # and the slots of each dp group (the batch rows it computes)
                 "mesh": dict(self.core.mesh.shape),
+                "dp_slots": [self.core._slot_groups.count(g) for g in
+                             range(self.core.mesh.shape["dp"])],
                 # the prefix cache's counters (the reference's metric names)
                 # and the dense hits' row copies
                 **dataclasses.asdict(stats.prefix),

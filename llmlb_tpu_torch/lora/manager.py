@@ -24,6 +24,16 @@ so no request can name the row before its values are all on the card.
 `slot_of`, which the step loop calls, takes no lock. The row writes hold
 `device_lock`, which the engine's decode graphs hold around each capture and
 replay, so an upload from an HTTP thread never interleaves with them.
+
+On a mesh of ranks (one host's; across hosts the engine refuses adapters,
+as the reference) each rank holds its shard of every pool leaf (`shard`:
+the family's `shard_params` rule, the reference's axes: A keeps its
+weight's input axis, B its output axis), copied contiguous, and reads its
+shard of each adapter from the same directory. The engine acquires in
+tick-plan order on every rank and releases at the terminal events every
+rank mirrors, and the LRU orders by a count of acquires, not a clock, so
+every rank loads the same adapter into the same row and evicts the same
+one.
 """
 
 from __future__ import annotations
@@ -57,8 +67,12 @@ class LoraManager:
         lora_dir: str,
         max_adapters: int = 8,
         rank_cap: int = 16,
+        shard=None,
     ):
         self.cfg = cfg
+        # (leaf name, full tensor) -> this rank's contiguous shard; None on
+        # one rank
+        self.shard = shard
         self.lora_dir = lora_dir
         self.max_adapters = max(1, int(max_adapters))
         self.rank_cap = max(1, int(rank_cap))
@@ -77,7 +91,9 @@ class LoraManager:
         self._free_rows = list(range(1, self.max_adapters + 1))
         self._refcounts: dict[str, int] = {}
         self._acquired: dict[str, str] = {}  # request token -> adapter name
-        self._last_used: dict[str, float] = {}
+        # the acquire count at each adapter's last acquire: the LRU order
+        self._last_used: dict[str, int] = {}
+        self._acquires = 0
         self.loads_total = 0
         self.evictions_total = 0
         # the engine's EngineMetrics (its load histogram and per-adapter
@@ -94,10 +110,14 @@ class LoraManager:
         leaves: dict[str, torch.Tensor] = {}
         for tgt, (in_dim, out_dim) in lora_target_dims(self.cfg,
                                                        self.targets).items():
-            leaves[tgt + LORA_A] = torch.zeros(
-                (layers, n, in_dim, self.rank_cap), dtype=dtype, device=device)
-            leaves[tgt + LORA_B] = torch.zeros(
-                (layers, n, self.rank_cap, out_dim), dtype=dtype, device=device)
+            for leaf, shape in ((tgt + LORA_A, (layers, n, in_dim,
+                                                 self.rank_cap)),
+                                (tgt + LORA_B, (layers, n, self.rank_cap,
+                                                out_dim))):
+                if self.shard is not None:
+                    shape = self.shard(leaf, torch.empty(shape,
+                                                         device="meta")).shape
+                leaves[leaf] = torch.zeros(shape, dtype=dtype, device=device)
         return leaves
 
     def attach(self, params: dict[str, torch.Tensor]) -> None:
@@ -158,7 +178,8 @@ class LoraManager:
             row = self._ensure_resident(info)
             self._acquired[token] = name
             self._refcounts[name] = self._refcounts.get(name, 0) + 1
-            self._last_used[name] = time.monotonic()
+            self._acquires += 1
+            self._last_used[name] = self._acquires
             if self.metrics is not None:
                 self.metrics.record_lora_request(name)
             return row
@@ -228,8 +249,8 @@ class LoraManager:
         for name in self._resident:
             if self._refcounts.get(name, 0) > 0:
                 continue
-            if victim is None or (self._last_used.get(name, 0.0)
-                                  < self._last_used.get(victim, 0.0)):
+            if victim is None or (self._last_used.get(name, 0)
+                                  < self._last_used.get(victim, 0)):
                 victim = name
         if victim is None:
             return None
@@ -259,8 +280,10 @@ class LoraManager:
                     dst = self.params[leaf][:, row]
                     if value is None:
                         dst.zero_()
-                    else:
-                        dst.copy_(value)
+                        continue
+                    if self.shard is not None:
+                        value = self.shard(leaf, value[:, None])[:, 0]
+                    dst.copy_(value)
             if some.device.type == "cuda":
                 torch.cuda.synchronize(some.device)
 

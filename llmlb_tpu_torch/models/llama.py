@@ -46,7 +46,16 @@ view of the config (`local_config`: its heads and ffn width). On a tp mesh
 wq / wk / wv / wg / wu are column-parallel and wo / wd row-parallel, their
 fp32 partials summed over tp before the one round; the embedding and the
 vocab projection are vocab-sharded (rows summed, fp32 logits gathered).
-`make_context_parallel_prefill` runs a long prompt split over sp.
+`make_context_parallel_prefill` runs a long prompt split over sp. On a dp
+mesh the entry points take `dp_rows` (parallel/mesh.py `DpRows`): each
+dp group computes only its own rows of the batch, and one collective over
+dp (`dp_exchange`) gives every rank the whole batch's fp32 logits and, in
+the paged layout, copies the KV cells each group wrote into every rank's
+pool (the pool is replicated over dp, as the reference's). The dense slot
+cache holds only the group's slots (the slot axis over dp), so nothing is
+exchanged there. Adapter pools shard like their weights: on a row-parallel
+target (wo, wd) a rank's partial delta (x_s A_s) B joins the fp32 partial
+product before the tp sum that follows it.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -72,10 +81,10 @@ from llmlb_tpu_torch.ops.attention import (
     paged_attention_extend,
     pool_shape,
 )
-from llmlb_tpu_torch.ops.lora import lora_delta_add
+from llmlb_tpu_torch.ops.lora import lora_delta, lora_delta_add
 from llmlb_tpu_torch.ops.norms import rms_norm
 from llmlb_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_frequencies
-from llmlb_tpu_torch.parallel.mesh import Mesh, validate_tp
+from llmlb_tpu_torch.parallel.mesh import DpRows, Mesh, validate_tp
 from llmlb_tpu_torch.parallel.sharding import ShardingRules, shard_leaf
 from llmlb_tpu_torch.quant import SCALE_SUFFIX, WEIGHT_QUANT_NAMES, quantize_kv
 from llmlb_tpu_torch.quant.core import absmax_int8
@@ -350,7 +359,8 @@ def local_config(cfg: LlamaConfig, mesh: Mesh) -> LlamaConfig:
         intermediate_size=cfg.intermediate_size // tp)
 
 
-_KV_LEAVES = ("wk", "wv", "bk", "bv", "wk" + SCALE_SUFFIX, "wv" + SCALE_SUFFIX)
+_KV_LEAVES = ("wk", "wv", "bk", "bv", "wk" + SCALE_SUFFIX, "wv" + SCALE_SUFFIX,
+              "wk" + LORA_B, "wv" + LORA_B)
 
 
 def shard_params(params: Params, cfg: LlamaConfig, mesh: Mesh,
@@ -504,13 +514,19 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
     `reduce` (a row-parallel product on a tp mesh: this rank holds a slice
     of W's input rows) sums the ranks' fp32 partials before the scale and
     the one round to x's dtype, so a tp mesh rounds once, as one card
-    does."""
+    does. With an adapter on such a product (A holds the same input rows)
+    each rank's partial delta (x_s A_s) B is added to its scaled partial
+    and the sum is rounded once: no collective of its own. The reference
+    all-reduces the rank-R middle x A instead, and one card rounds the
+    delta and the product apart; the sums' order differs, not the
+    function."""
     w = lp[name]
     scale = lp.get(name + SCALE_SUFFIX)
     if scale is None and w.dtype == torch.int8:
         raise TypeError(f"param {name!r} is int8 but its {name}"
                         f"{SCALE_SUFFIX} companion is missing from the "
                         "layer slice")
+    lora = lora_idx is not None and name + LORA_A in lp
     if scale is None and reduce is None:
         y = _rowwise(x, lambda x2, out: torch.mm(x2, w, out=out), w.shape[-1],
                      x.dtype, per_row)
@@ -527,10 +543,17 @@ def _proj(lp: Params, name: str, x: torch.Tensor,
             def product(x2, out):
                 return torch.mm(x2.float(), wf, out=out)
         y32 = _rowwise(x, product, w.shape[-1], torch.float32, per_row)
+        if reduce is not None and lora:
+            # a row-parallel target: this rank's partial delta (x_s A_s) B
+            # joins its partial product, scaled, before the one tp sum
+            part = y32 if scale is None else y32 * scale
+            return reduce(part + lora_delta(x, lp[name + LORA_A],
+                                            lp[name + LORA_B], lora_idx)
+                          ).to(x.dtype)
         if reduce is not None:
             y32 = reduce(y32)
         y = (y32 if scale is None else y32 * scale).to(x.dtype)
-    if lora_idx is not None and name + LORA_A in lp:
+    if lora:
         y = lora_delta_add(y, x, lp[name + LORA_A], lp[name + LORA_B],
                            lora_idx)
     return y
@@ -696,12 +719,109 @@ def _rope_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
                             device=device)
 
 
-def _page_cells(block_tables: torch.Tensor, positions: torch.Tensor,
-                page_size: int):
+def page_cells(block_tables: torch.Tensor, positions: torch.Tensor,
+               page_size: int):
     """Physical (page, offset) of logical positions [B, T]. Table columns
     past the end clamp to the last, as the reference's gather does."""
     col = torch.clamp(positions // page_size, max=block_tables.shape[1] - 1)
     return torch.gather(block_tables, 1, col.long()), positions % page_size
+
+
+# ---------------------------------------------------------------------------
+# Data parallel: each dp group computes its own rows (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+def _pool_members(pool) -> list[torch.Tensor]:
+    """The tensors of a pool or slot cache (both of an int8 pair)."""
+    return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+
+
+def _on_dp_rows(run, rows: DpRows, mesh: Mesh, batch: dict, *, tail: tuple,
+                pools: tuple, cells=None):
+    """An entry point at dp: `run(**batch)` on this group's rows (every
+    batch tensor, or None, indexed by them; not called when the group has
+    none), then `dp_exchange`. `tail` is a row's logits shape, `cells` the
+    (page, offset) [B, T] the dispatch writes in the paged layout (None in
+    the dense one). Returns (the whole batch's logits, *pools)."""
+    dev = next(v for v in batch.values() if v is not None).device
+    if rows.mine:
+        idx = rows.index(dev)
+        logits, _, _ = run(**{k: None if v is None else v.to(dev)[idx]
+                              for k, v in batch.items()})
+    else:
+        logits = torch.zeros((0, *tail), dtype=torch.float32, device=dev)
+    return (dp_exchange(rows, mesh, logits, pools, cells), *pools)
+
+
+def dp_exchange(rows: DpRows, mesh: Mesh, logits: torch.Tensor,
+                pools: tuple = (), cells=None) -> torch.Tensor:
+    """The dp exchange of one dispatch, one collective over dp: this group's
+    fp32 logits [rows.mine, ...] and, with `cells` (page, offset) [B, T] of
+    the dispatch's paged writes, the values its rows wrote there in every
+    pool tensor (int8 codes with their scales: a copy, not a recompute).
+    Every other group's cells are written into this rank's pools, so each
+    rank's pool holds every page. Returns the whole batch's logits [B, ...]
+    in batch order, the same bits on every rank."""
+    dev = logits.device
+    parts = [logits.float()]
+    if cells is not None:
+        page, off = (c.long() for c in cells)
+        mine = rows.index(dev)
+        for pool in pools:
+            for t in _pool_members(pool):
+                parts.append(t[:, page[mine], off[mine]].movedim(1, 0))
+    got = mesh.gather_rows(parts, rows)
+    full = torch.empty((len(rows.groups), *logits.shape[1:]),
+                       dtype=torch.float32, device=dev)
+    for g, members in enumerate(rows.members):
+        if not members:
+            continue
+        at = rows.index(dev, g)
+        full[at] = got[g][0]
+        if cells is None or g == rows.me:
+            continue
+        vals = iter(got[g][1:])
+        for pool in pools:
+            for t in _pool_members(pool):
+                t[:, page[at], off[at]] = next(vals).movedim(0, 1)
+    return full
+
+
+def dp_slot_offset(cache: torch.Tensor, mesh: Mesh | None) -> int:
+    """The first slot of this rank's rows of a dense slot cache (which holds
+    its dp group's slots only: slot s is local row s - offset)."""
+    if mesh is None or mesh.shape["dp"] == 1:
+        return 0
+    return mesh.coord["dp"] * cache.shape[1]
+
+
+def copy_slot_prefix(cache_k: torch.Tensor, cache_v: torch.Tensor, dst: int,
+                     src: int, n: int, mesh: Mesh | None = None) -> None:
+    """Copy positions [0, n) of slot `src` into slot `dst` of the dense slot
+    cache (a prefix-cache hit). On a dp mesh a rank holds its group's
+    slots only; a copy across groups goes over dp: the source group's rows
+    reach every rank in one collective, and the target group writes
+    them."""
+    caches = (cache_k, cache_v)
+    if mesh is None or mesh.shape["dp"] == 1:
+        for c in caches:
+            c[:, dst, :n].copy_(c[:, src, :n])
+        return
+    per, me = cache_k.shape[1], mesh.coord["dp"]
+    gd, gs = dst // per, src // per
+    if gd == gs:
+        if me == gd:
+            for c in caches:
+                c[:, dst - gd * per, :n].copy_(c[:, src - gs * per, :n])
+        return
+    rows = DpRows([gs], mesh.shape["dp"], me)
+    parts = [c[:, src - gs * per, :n][None] if me == gs
+             else c.new_empty((0, c.shape[0], n, *c.shape[3:]))
+             for c in caches]
+    got = mesh.gather_rows(parts, rows)[gs]
+    if me == gd:
+        for c, v in zip(caches, got):
+            c[:, dst - gd * per, :n].copy_(v[0])
 
 
 def prefill_into_pages(
@@ -716,10 +836,12 @@ def prefill_into_pages(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Prefill B prompts and scatter their KV through the block tables into
     the global page pool. Returns (last_logits [B, V] fp32, cache_k,
-    cache_v), the pools updated in place.
+    cache_v), the pools updated in place. `dp_rows`: this dp group's rows
+    only, then the dp exchange (`_on_dp_rows`).
 
     HANDOFF CONTRACT (kept from the reference): row i of `last_logits` is the
     FINAL-position logits of prompt i, and every KV row lands at its absolute
@@ -728,10 +850,19 @@ def prefill_into_pages(
     the sequence token-identically."""
     b, t = input_ids.shape
     dev = input_ids.device
-    inv_freq = _rope_freqs(cfg, dev)
     positions = torch.arange(t, device=dev)[None, :].expand(b, t)
-    page, off = _page_cells(block_tables, positions,
-                            pool_shape(cache_k)[2])
+    page, off = page_cells(block_tables, positions,
+                           pool_shape(cache_k)[2])
+    if dp_rows is not None:
+        return _on_dp_rows(
+            lambda ids, lens, tables, lora: prefill_into_pages(
+                params, cfg, ids, lens, tables, cache_k, cache_v, lora,
+                ffn=ffn, mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=prompt_lens,
+                                tables=block_tables, lora=lora_idx),
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v),
+            cells=(page, off))
+    inv_freq = _rope_freqs(cfg, dev)
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
     token_valid = positions < prompt_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
@@ -764,6 +895,7 @@ def prefill_extend_pages(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Paged chunked prefill: append a chunk of prompt tokens to rows that
     already hold `start_pos` tokens, attending over everything so far
@@ -773,7 +905,7 @@ def prefill_extend_pages(
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
                          all_logits=False, per_row=True, ffn=ffn,
-                         mesh=mesh)
+                         mesh=mesh, dp_rows=dp_rows)
 
 
 def verify_step_paged(
@@ -790,6 +922,7 @@ def verify_step_paged(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Paged speculative verification: one extend over every row scores the
     last committed token plus up to K drafts and returns the logits at EVERY
@@ -805,12 +938,13 @@ def verify_step_paged(
     return _extend_pages(params, cfg, input_ids, chunk_lens, start_pos,
                          block_tables, cache_k, cache_v, lora_idx,
                          all_logits=True, per_row=False, ffn=ffn,
-                         mesh=mesh)
+                         mesh=mesh, dp_rows=dp_rows)
 
 
 def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None):
+                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None,
+                  dp_rows: DpRows | None = None):
     """The body of prefill_extend_pages and verify_step_paged:
     `all_logits` returns [B, T, V] (every chunk position) in place of the
     chunk-last [B, V]; `per_row` groups the projections (`_rowwise`)."""
@@ -818,14 +952,24 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
     dev = input_ids.device
     ps = pool_shape(cache_k)[2]
     capacity = block_tables.shape[1] * ps
-    inv_freq = _rope_freqs(cfg, dev)
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
     chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
     offs = torch.arange(t, device=dev, dtype=torch.int32)[None, :]
     positions = start_pos[:, None] + offs
+    page, off = page_cells(block_tables,
+                           torch.clamp(positions, max=capacity - 1), ps)
+    if dp_rows is not None:
+        return _on_dp_rows(
+            lambda ids, lens, start, tables, lora: _extend_pages(
+                params, cfg, ids, lens, start, tables, cache_k, cache_v, lora,
+                all_logits=all_logits, per_row=per_row, ffn=ffn, mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=chunk_lens,
+                                start=start_pos, tables=block_tables,
+                                lora=lora_idx),
+            tail=((t, cfg.vocab_size) if all_logits else (cfg.vocab_size,)),
+            pools=(cache_k, cache_v), cells=(page, off))
+    inv_freq = _rope_freqs(cfg, dev)
     token_valid = offs < chunk_lens[:, None]
-    page, off = _page_cells(block_tables,
-                            torch.clamp(positions, max=capacity - 1), ps)
     lora_idx = _lora_rows(lora_idx, dev)
 
     x = _embed(params, input_ids, mesh)  # [B, T, E]
@@ -858,6 +1002,7 @@ def decode_step_paged(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """One paged decode step across all rows. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer's one-token KV lands at page
@@ -868,11 +1013,20 @@ def decode_step_paged(
     dev = input_ids.device
     ps = pool_shape(cache_k)[2]
     capacity = block_tables.shape[1] * ps
-    inv_freq = _rope_freqs(cfg, dev)
     write_pos = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32),
                             max=capacity - 1)
     positions = write_pos[:, None]  # [B, 1]
-    page, off = _page_cells(block_tables, positions, ps)
+    page, off = page_cells(block_tables, positions, ps)
+    if dp_rows is not None:
+        return _on_dp_rows(
+            lambda ids, lens, tables, lora: decode_step_paged(
+                params, cfg, ids, lens, cache_k, cache_v, tables, window,
+                lora, ffn=ffn, mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=seq_lens,
+                                tables=block_tables, lora=lora_idx),
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v),
+            cells=(page, off))
+    inv_freq = _rope_freqs(cfg, dev)
     kv_lens = (write_pos + 1).to(torch.int32)
     lora_idx = _lora_rows(lora_idx, dev)
 
@@ -955,11 +1109,23 @@ def prefill_into_slots(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Prefill B prompts (flash_prefill over their fresh K/V) and scatter
     their KV into rows `slot_ids` of the live slot cache, positions 0..T-1.
     Returns (last_logits [B, V] fp32, cache_k, cache_v), the caches updated
-    in place. Padding rows that repeat a slot write identical cells."""
+    in place. Padding rows that repeat a slot write identical cells.
+    `dp_rows`: this group's rows only, into its own slots' rows."""
+    if dp_rows is not None:
+        base = dp_slot_offset(cache_k, mesh)
+        return _on_dp_rows(
+            lambda ids, lens, slots, lora: prefill_into_slots(
+                params, cfg, ids, lens, slots - base, cache_k, cache_v, lora,
+                ffn=ffn, mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=prompt_lens,
+                                slots=slot_ids.to(input_ids.device),
+                                lora=lora_idx),
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v))
     b, t = input_ids.shape
     dev = input_ids.device
     inv_freq = _rope_freqs(cfg, dev)
@@ -997,6 +1163,7 @@ def prefill_extend_slots(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Dense chunked prefill: append a chunk of prompt tokens to slots that
     already hold `start_pos` tokens. Each layer writes the chunk's K/V into
@@ -1008,7 +1175,7 @@ def prefill_extend_slots(
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
                          all_logits=False, per_row=True, ffn=ffn,
-                         mesh=mesh)
+                         mesh=mesh, dp_rows=dp_rows)
 
 
 def verify_step(
@@ -1025,6 +1192,7 @@ def verify_step(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """Speculative verification over the dense slot cache: verify_step_paged's
     contract with flash_extend at T = K+1 over the slot rows. The engine
@@ -1036,15 +1204,32 @@ def verify_step(
     return _extend_slots(params, cfg, input_ids, chunk_lens, start_pos,
                          slot_ids, cache_k, cache_v, lora_idx,
                          all_logits=True, per_row=False, ffn=ffn,
-                         mesh=mesh)
+                         mesh=mesh, dp_rows=dp_rows)
 
 
 def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                   cache_k, cache_v, lora_idx, *, all_logits: bool,
-                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None):
+                  per_row: bool, ffn: FeedForward, mesh: Mesh | None = None,
+                  dp_rows: DpRows | None = None):
     """The body of prefill_extend_slots and verify_step (see
-    `_extend_pages`); `slot_ids=None` takes the cache rows in order."""
+    `_extend_pages`); `slot_ids=None` takes the cache rows in order (at
+    dp: this group's rows are its slots, the local rows in order)."""
     b, t = input_ids.shape
+    if dp_rows is not None:
+        base = dp_slot_offset(cache_k, mesh)
+        return _on_dp_rows(
+            lambda ids, lens, start, slots, lora: _extend_slots(
+                params, cfg, ids, lens, start,
+                None if slots is None else slots - base, cache_k, cache_v,
+                lora, all_logits=all_logits, per_row=per_row, ffn=ffn,
+                mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=chunk_lens,
+                                start=start_pos,
+                                slots=(None if slot_ids is None else
+                                       slot_ids.to(input_ids.device).long()),
+                                lora=lora_idx),
+            tail=((t, cfg.vocab_size) if all_logits else (cfg.vocab_size,)),
+            pools=(cache_k, cache_v))
     dev = input_ids.device
     capacity = cache_k.shape[2]
     inv_freq = _rope_freqs(cfg, dev)
@@ -1091,12 +1276,21 @@ def decode_step(
     *,
     ffn: FeedForward = DENSE_FFN,
     mesh: Mesh | None = None,
+    dp_rows: DpRows | None = None,
 ):
     """One dense decode step across all slots. Returns (logits [B, V] fp32,
     cache_k, cache_v). Each layer writes slot b's one-token KV at
     min(seq_lens[b], cap - 1) (freed slots keep counting; the clamp keeps
     their garbage in their own row) before flash_decode reads the row over
-    `window` cells."""
+    `window` cells. At dp a rank's rows are its group's slots, which its
+    cache holds in order."""
+    if dp_rows is not None:
+        return _on_dp_rows(
+            lambda ids, lens, lora: decode_step(
+                params, cfg, ids, lens, cache_k, cache_v, window, lora,
+                ffn=ffn, mesh=mesh),
+            dp_rows, mesh, dict(ids=input_ids, lens=seq_lens, lora=lora_idx),
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v))
     b = input_ids.shape[0]
     dev = input_ids.device
     capacity = cache_k.shape[2]
@@ -1138,8 +1332,8 @@ def scatter_prefill_kv(cache_k, cache_v, k_all: torch.Tensor,
     n = k_all.shape[2]
     if block_table is not None:
         pos = torch.arange(n, device=k_all.device)[None]
-        page, off = _page_cells(block_table[None], pos,
-                                pool_shape(cache_k)[2])
+        page, off = page_cells(block_table[None], pos,
+                               pool_shape(cache_k)[2])
         for i in range(k_all.shape[0]):
             _write_pool(_pool_layer(cache_k, i), page, off, k_all[i])
             _write_pool(_pool_layer(cache_v, i), page, off, v_all[i])

@@ -45,6 +45,7 @@ from llmlb_tpu_torch.models.llama import (  # noqa: F401  (the family's API)
     LlamaConfig,
     Params,
     _rowwise,
+    copy_slot_prefix,
     fill_params,
     init_kv_cache,
     init_kv_pages,

@@ -11,6 +11,11 @@ spawned self-test worlds. Counterpart of `llmlb_tpu/parallel/distributed.py`.
   the mesh then moves CUDA tensors through host memory.
 - `build_hybrid_mesh()` lays the axes that may span hosts (dp replicas, ep
   experts) outside the ones that stay within a host (sp, tp).
+- `ranks_per_host()` reads how many ranks share a host: torchrun's
+  LOCAL_WORLD_SIZE, else the whole world (LLMLB_COORDINATOR ranks all run
+  on one host: LOCAL_RANK defaults to the host id, one card each).
+  `engine_mesh()` is the engine's mesh over the world, resolved host by
+  host as the reference resolves it.
 
 Spawned CPU self-test worlds: `python -m llmlb_tpu_torch.parallel.distributed
 --selftest` runs the sharded Mixtral-tiny step on an ep mesh of two
@@ -20,6 +25,7 @@ processes (`--worker`); `--engine-worker` runs a lockstep EngineCore.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import socket
 import subprocess
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 
 from llmlb_tpu_torch.device import rank_device
-from llmlb_tpu_torch.parallel.mesh import Mesh, MeshConfig
+from llmlb_tpu_torch.parallel.mesh import (Mesh, MeshConfig, build_mesh,
+                                           default_tp)
 
 log = logging.getLogger("llmlb_tpu_torch.parallel.distributed")
 
@@ -81,6 +88,56 @@ def init_from_env(device: str | None = None) -> bool:
     kwargs = {} if world is None else {"world_size": world, "rank": rank}
     dist.init_process_group(backend, init_method=init, **kwargs)
     return True
+
+
+def ranks_per_host(world: int) -> int:
+    """The ranks of a host: LOCAL_WORLD_SIZE (torchrun sets it), else all
+    `world` ranks (the LLMLB_COORDINATOR arrangement, every rank on one
+    host). It must divide the world: hosts hold equal shares."""
+    env = os.environ.get("LOCAL_WORLD_SIZE", "").strip()
+    n = int(env) if env else world
+    if n < 1 or world % n:
+        raise ValueError(f"LOCAL_WORLD_SIZE={env!r} does not divide the "
+                         f"world of {world} ranks")
+    return n
+
+
+def default_mesh_config(cfg, n_local: int) -> MeshConfig:
+    """The reference's default mesh of one host's `n_local` ranks
+    (`llmlb_tpu/engine/scheduler.py`, "device" read as "rank"): ep =
+    gcd(n_local, experts) for an MoE, tp = default_tp of what is left, dp
+    the rest. Across hosts dp multiplies by the host count
+    (`engine_mesh`), so ep and tp never leave a host."""
+    ep = 1
+    if getattr(cfg, "num_experts", 0) > 1:
+        ep = math.gcd(n_local, cfg.num_experts)
+    tp = default_tp(n_local // ep, cfg.num_heads, cfg.num_kv_heads)
+    return MeshConfig(dp=n_local // (ep * tp), ep=ep, tp=tp)
+
+
+def engine_mesh(cfg, mesh_config: MeshConfig | None = None, *,
+                world: int | None = None, rank: int | None = None,
+                per_host: int | None = None) -> Mesh:
+    """The engine's mesh over the world (default: the initialised one, else
+    one rank), as the reference lays it: `mesh_config` (default:
+    `default_mesh_config` of one host's ranks) sizes the axes within a
+    host; over more than one host the mesh is `build_hybrid_mesh` with dp
+    multiplied by the host count, so sp, ep and tp stay within a host,
+    default or explicit. One host: `build_mesh`, as before."""
+    import torch.distributed as dist
+
+    ready = dist.is_available() and dist.is_initialized()
+    if world is None:
+        world = dist.get_world_size() if ready else 1
+    if per_host is None:
+        per_host = ranks_per_host(world)
+    hosts = world // per_host
+    if mesh_config is None:
+        mesh_config = default_mesh_config(cfg, per_host)
+    if hosts > 1:
+        return build_hybrid_mesh(mesh_config, dcn_dp=hosts, world=world,
+                                 rank=rank)
+    return build_mesh(mesh_config, world=world, rank=rank)
 
 
 def build_hybrid_mesh(ici: MeshConfig, *, dcn_dp: int = 1, dcn_ep: int = 1,

@@ -2,8 +2,13 @@
 
 The engine scales over a mesh of ranks with the reference's named axes:
 
-    dp — data parallel (independent request batches; A18b: not served
-         inside one engine yet)
+    dp — data parallel: one engine's batch rows split into dp groups (the
+         ranks of one dp coordinate). Slot s belongs to group
+         s // ceil(slots / dp), the block GSPMD gives the reference's
+         dp-sharded batch axis (`slot_groups`); a group computes only its
+         own rows of a dispatch (`DpRows`), and one collective over dp a
+         dispatch gives every rank the whole batch's logits, and the KV
+         cells each group wrote (`gather_rows`)
     sp — sequence parallel (ring attention over sequence chunks for a long
          prompt's prefill, ops/ring_attention.py)
     ep — expert parallel (the MoE expert dim split across ranks)
@@ -16,7 +21,8 @@ inserts the collectives. Here a rank is one process holding one card (or,
 in the tests, one CPU process): `Mesh` knows this rank's coordinate on
 each axis and keeps one torch.distributed process group per axis, and the
 model code calls the collectives it needs by name (`all_reduce`,
-`all_gather`, `ppermute`, `broadcast_bytes`). On a world of one rank
+`all_gather`, `ppermute`, `broadcast_bytes`, `gather_rows`). On a world
+of one rank
 every collective is the identity and no process group exists.
 
 Determinism: ranks of a lockstep engine sample with the same generator,
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import time
 
 import numpy as np
@@ -285,6 +292,78 @@ class Mesh:
             buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
         dist.broadcast(buf, src=0, group=group)
         return buf.numpy().tobytes()
+
+
+    def dp_rows(self, groups) -> "DpRows | None":
+        """The `DpRows` of a dispatch whose batch row i belongs to dp group
+        groups[i]; None on a mesh without dp (every rank computes every
+        row)."""
+        if self.shape["dp"] == 1:
+            return None
+        return DpRows(groups, self.shape["dp"], self.coord["dp"])
+
+    def gather_rows(self, parts: list[torch.Tensor], rows: "DpRows"
+                    ) -> list[list[torch.Tensor]]:
+        """Every dp group's rows of `parts` on every rank, in ONE collective
+        over dp. Each part's leading dim is this group's rows (`rows.mine`,
+        possibly none); its other dims and dtype are the same on every
+        rank. The parts go as bytes, each padded to `rows.width` rows, in
+        one buffer; returns, for each group g, its parts with
+        len(rows.members[g]) rows, in the order given."""
+        width = rows.width
+        sizes = [math.prod(p.shape[1:]) * p.element_size() for p in parts]
+        flat = []
+        for p, nb in zip(parts, sizes):
+            b = p.contiguous().reshape(p.shape[0], nb // p.element_size()
+                                       ).view(torch.uint8)
+            if p.shape[0] < width:
+                b = torch.cat([b, b.new_zeros((width - p.shape[0], nb))])
+            flat.append(b)
+        every = self.all_gather(torch.cat(flat, dim=1), "dp", dim=0)
+        out = []
+        for g, members in enumerate(rows.members):
+            block = every[g * width:g * width + len(members)]
+            got, at = [], 0
+            for p, nb in zip(parts, sizes):
+                got.append(block[:, at:at + nb].contiguous().view(p.dtype)
+                           .reshape(len(members), *p.shape[1:]))
+                at += nb
+            out.append(got)
+        return out
+
+
+def slot_groups(num_slots: int, dp: int) -> list[int]:
+    """The dp group of each slot: blocks of ceil(num_slots / dp) consecutive
+    slots, the block GSPMD gives a dp-sharded axis (when dp does not divide
+    num_slots the last groups are shorter, or empty)."""
+    per = -(-num_slots // dp)
+    return [s // per for s in range(num_slots)]
+
+
+class DpRows:
+    """Which rows of one dispatch's batch each dp group computes: `groups`
+    (row i's dp group), `members` (each group's rows, in batch order),
+    `mine` (this rank's group's rows) and `width` (the most rows a group
+    has: `Mesh.gather_rows` pads to it). Made on the host from the
+    scheduler's slots, the same on every rank."""
+
+    def __init__(self, groups, dp: int, me: int):
+        self.groups = tuple(int(g) for g in groups)
+        self.me = me
+        self.members = [[i for i, g in enumerate(self.groups) if g == d]
+                        for d in range(dp)]
+        self.mine = self.members[me]
+        self.width = max(len(m) for m in self.members)
+        self._index: dict = {}
+
+    def index(self, device, group: int | None = None) -> torch.Tensor:
+        """Group `group`'s rows (default: this rank's) as an int64 index on
+        `device`, made once."""
+        key = (str(device), self.me if group is None else group)
+        if key not in self._index:
+            self._index[key] = torch.tensor(self.members[key[1]],
+                                            dtype=torch.int64, device=device)
+        return self._index[key]
 
 
 def _axes(axes) -> tuple[str, ...]:

@@ -23,6 +23,9 @@ from llmlb_tpu_torch.parallel.mesh import Mesh
 class ShardingRules:
     """Maps logical axis names to mesh axis names (or None = replicated)."""
 
+    # the batch / slot axis: dp groups own blocks of slots (mesh.py
+    # `slot_groups`); the dense slot cache is split on it, the page pool
+    # (shared by every slot) is not
     batch: str | None = "dp"
     # attention heads / MLP hidden width — the Megatron tp axis
     heads: str | None = "tp"

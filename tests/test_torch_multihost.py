@@ -141,11 +141,15 @@ PLANS = [
 ]
 
 
+DP_PROMPTS = [[5, 9, 14, 200, 31, 7], [11] * 9]
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return run_world("multihost", 2, {
         "plans": PLANS, "port": fresh_port(),
-        "lora_dir": str(tmp_path_factory.mktemp("adapters"))})
+        "lora_dir": str(tmp_path_factory.mktemp("adapters")),
+        "dp_prompts": DP_PROMPTS})
 
 
 def test_step_coordinator_round_trips(ranks):
@@ -184,14 +188,34 @@ def test_engine_worker_mode_matches_one_rank_engine(ranks):
 
 
 def test_refusals_under_a_coordinator(ranks):
+    """What a coordinator still refuses: split, graphs on gloo, adapters
+    across hosts (the reference's wording; one host's ranks serve them,
+    tests/test_torch_lora_mesh.py), and an MoE engine at dp > 1 (A18c).
+    dp > 1 inside one Llama engine is served: its greedy ids are a
+    one-rank engine's, on both ranks."""
+    cfg = get_preset("debug-tiny")
+    core = EngineCore(cfg, num_slots=2, slot_capacity=64,
+                      prefill_buckets=(16,), eos_id=-1, seed=0, device="cpu")
+    core.start()
+    try:
+        reqs = [core.submit(Request(prompt_ids=p, sampling=SamplingParams(
+            temperature=0.0, max_tokens=4))) for p in DP_PROMPTS]
+        one_rank = distributed.collect_tokens(reqs)
+    finally:
+        core.stop()
     for r in ranks:
         ref = r["refusals"]
         assert "--role split is single-host only" in ref["split"]
-        assert "--lora-dir is single-host only" in ref["lora"]
-        assert "A18b" in ref["dp"]
+        assert ref["lora"] == (
+            "--lora-dir is single-host only for now: followers have no "
+            "deterministic mirror of the leader's adapter pool slot "
+            "assignment")
+        assert "A18c" in ref["moe_dp"] and "dp > 1" in ref["moe_dp"]
         assert "decode_graphs=True" in ref["graphs"] and "gloo" in ref["graphs"]
         assert r["ship_offload"] == (False, None)
         assert r["n_chips"] == 2
+        assert r["dp_mesh"] == {"dp": 2, "sp": 1, "ep": 1, "tp": 1}
+        assert [ids for ids, _ in r["dp_served"]] == one_rank
 
 
 def test_follower_server_binds_no_port(ranks):

@@ -331,15 +331,33 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
     refusals = {}
     for name, extra in (
             ("split", {"role": "split"}),
-            ("lora", {"lora_dir": inputs["lora_dir"]}),
-            ("dp", {"mesh_config": MeshConfig(dp=2, tp=1)}),
             ("graphs", {"decode_graphs": True})):
         try:
             EngineCore(cfg, **kw, **extra)
             refusals[name] = None
         except ValueError as e:
             refusals[name] = str(e)
+    # adapters across hosts (one rank a host), and an MoE engine at dp
+    for name, env, conf, extra in (
+            ("lora", {"LOCAL_WORLD_SIZE": "1"}, cfg,
+             {"lora_dir": inputs["lora_dir"]}),
+            ("moe_dp", {}, get_preset("debug-moe-tiny"),
+             {"mesh_config": MeshConfig(dp=2, tp=1)})):
+        os.environ.update(env)
+        try:
+            EngineCore(conf, **kw, **extra)
+            refusals[name] = None
+        except ValueError as e:
+            refusals[name] = str(e)
+        finally:
+            for k in env:
+                del os.environ[k]
     out["refusals"] = refusals
+    # dp > 1 inside one engine is served: two dp groups of one slot each
+    core = EngineCore(cfg, **kw, mesh_config=MeshConfig(dp=2, tp=1))
+    out["dp_mesh"] = dict(core.mesh.shape)
+    out["dp_served"] = _serve(core, rank, inputs["dp_prompts"],
+                              [_sampling(4)] * len(inputs["dp_prompts"]))
 
     port = inputs["port"]
     seen = {}
@@ -383,8 +401,207 @@ def json_bytes(obj) -> bytes:
     return json.dumps(obj).encode()
 
 
+def _tokens(req) -> list[int]:
+    out = []
+    while not req.events.empty():
+        kind, val = req.events.get()
+        if kind == "token":
+            out.append(int(val))
+    return out
+
+
+def _cross_group_hit(core, rank: int, head: list, tails: list,
+                     mt: int) -> dict:
+    """test_torch_dp_engine: a prefix-cache hit whose prefix KV another dp
+    group wrote. The leader serves head + tails[0] alone (it lands in slot
+    0, group 0, and donates its head), then two long requests that hold
+    slots 0 and 1 (a dense donor pins slot 0: they take 1 and 2), and then
+    head + tails[1], which lands in the first free slot, of group 1, and
+    hits. Every rank records each request's slot and ids in plan order."""
+    from llmlb_tpu_torch.engine.scheduler import Request
+
+    seen = _mirror(core)
+    slots = {}
+    activate = core._activate_group
+
+    def spy(group, slot_ids, lens, logits):
+        for slot_id, request, _n in group:
+            slots[request.request_id] = slot_id
+        activate(group, slot_ids, lens, logits)
+
+    core._activate_group = spy
+    core.start()
+    if rank == 0:
+        first = core.submit(Request(prompt_ids=head + tails[0],
+                                    sampling=_sampling(mt)))
+        _wait(lambda: first.finished_at is not None)
+        long = [core.submit(Request(prompt_ids=[3 + i] * 20,
+                                    sampling=_sampling(60)))
+                for i in range(2)]
+        _wait(lambda: all(r.events.qsize() >= 2 for r in long))
+        hit = core.submit(Request(prompt_ids=head + tails[1],
+                                  sampling=_sampling(mt)))
+        _wait(lambda: all(r.finished_at is not None for r in [hit, *long]))
+        core.stop()
+    else:
+        core._thread.join()
+        core.stop()
+    return {"ids": [_tokens(r) for r in seen],
+            "slots": [slots.get(r.request_id) for r in seen],
+            "groups": list(core._slot_groups),
+            "hits": core.stats().prefix.prefix_hits_total}
+
+
+def dp_engine(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_dp_engine: lockstep engines with dp groups over the JAX
+    package's debug-tiny weights. A world of two ranks: dp=2 paged (the
+    default pool) and dense, int8, a cancel through the plan, speculation,
+    the cross-group prefix hit against its cold run, and a slot count dp
+    does not divide. A world of four: dp=2 x tp=2 paged and dense, and
+    dp=2 x sp=2 (the long prompt through the ring of its group)."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = get_preset("debug-tiny")
+    params = _params(inputs, cfg)
+    prompts, mt = inputs["prompts"], inputs["max_tokens"]
+    kw = dict(num_slots=4, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=-1, seed=0, device="cpu",
+              prefix_cache=False)
+    greedy = [_sampling(mt)] * len(prompts)
+    out = {}
+    if world == 4:
+        for name, mesh, extra in (
+                ("dp2tp2", MeshConfig(dp=2, tp=2), {}),
+                ("dp2tp2_dense", MeshConfig(dp=2, tp=2),
+                 {"kv_layout": "dense"}),
+                ("dp2sp2", MeshConfig(dp=2, sp=2, tp=1), {})):
+            core = EngineCore(cfg, params, mesh_config=mesh, **kw, **extra)
+            out[name] = _serve(core, rank, prompts, greedy)
+            out[name + "_mesh"] = dict(core.mesh.shape)
+            out[name + "_coord"] = dict(core.mesh.coord)
+        return out
+    dp2 = MeshConfig(dp=2, tp=1)
+    for name, extra in (("paged", {}), ("dense", {"kv_layout": "dense"}),
+                        ("int8", {"quantize": "all"})):
+        core = EngineCore(cfg, params, mesh_config=dp2, **kw, **extra)
+        out[name] = _serve(core, rank, prompts, greedy)
+        out[name + "_mesh"] = dict(core.mesh.shape)
+        out[name + "_pages"] = core.kv_num_pages
+        out[name + "_cache"] = (tuple(core.cache_k.shape)
+                                if name == "dense" else None)
+    core = EngineCore(cfg, params, mesh_config=dp2, **kw)
+    out["cancel"] = _serve(core, rank, prompts[:2],
+                           [_sampling(60), _sampling(mt)],
+                           cancel_after={0: 3})
+    core = EngineCore(cfg, params, mesh_config=dp2, **kw)
+    spec = _sampling(mt, speculative={"enabled": True,
+                                      "max_draft_tokens": 4})
+    out["spec"] = _serve(core, rank, prompts, [spec] * len(prompts))
+    out["spec_counters"] = dataclasses.asdict(core.stats().spec)
+    head, tails = inputs["hit_head"], inputs["hit_tails"]
+    for layout in ("paged", "dense"):
+        core = EngineCore(cfg, params, mesh_config=dp2,
+                          **{**kw, "prefix_cache": True, "kv_layout": layout})
+        out["hit_" + layout] = _cross_group_hit(core, rank, head, tails, mt)
+        core = EngineCore(cfg, params, mesh_config=dp2,
+                          **{**kw, "kv_layout": layout})
+        out["cold_" + layout] = _serve(core, rank, [head + tails[1]],
+                                       [_sampling(mt)])
+    core = EngineCore(cfg, params, mesh_config=dp2, **{**kw, "num_slots": 3})
+    out["three_slots"] = _serve(core, rank, prompts, greedy)
+    out["three_slots_groups"] = list(core._slot_groups)
+    out["three_slots_pages"] = core.kv_num_pages
+    try:
+        EngineCore(cfg, params, mesh_config=dp2,
+                   **{**kw, "num_slots": 3, "kv_layout": "dense"})
+        out["three_slots_dense"] = None
+    except ValueError as e:
+        out["three_slots_dense"] = str(e)
+    return out
+
+
+def lora_mesh(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_lora_mesh: a lockstep tp=2 engine with --lora-dir over the
+    JAX package's debug-tiny weights and the parent's adapters: a mixed
+    batch of adapter and adapter-free rows, then a request whose adapter
+    loads cold while another decodes; the pool rows each rank assigned;
+    the paged entry points on this rank's shards with the engine's pool
+    rows; the same batch on a tp=2 engine without adapters."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore, Request
+    from llmlb_tpu_torch.models import llama
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = get_preset("debug-tiny")
+    params = _params(inputs, cfg)
+    prompts, adapters, mt = (inputs["prompts"], inputs["adapters"],
+                             inputs["max_tokens"])
+    kw = dict(num_slots=4, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=-1, seed=0, device="cpu",
+              prefix_cache=False, mesh_config=MeshConfig(tp=2))
+    out = {}
+    core = EngineCore(cfg, params, lora_dir=inputs["lora_dir"],
+                      lora_rank_cap=8, lora_max_adapters=2, **kw)
+    out["leaf_shapes"] = {k: tuple(v.shape) for k, v in core.params.items()
+                          if "_lora_" in k}
+    seen = _mirror(core)
+    core.start()
+    if rank == 0:
+        mixed = [core.submit(Request(prompt_ids=list(p),
+                                     sampling=_sampling(mt, lora=a)))
+                 for p, a in zip(prompts, adapters)]
+        _wait(lambda: all(r.finished_at is not None for r in mixed))
+    # a cold load mid-run: "gamma" is not resident; it loads (evicting the
+    # idle adapter acquired least recently) while another request decodes
+    if rank == 0:
+        busy = core.submit(Request(prompt_ids=prompts[0],
+                                   sampling=_sampling(30)))
+        _wait(lambda: busy.events.qsize() >= 2)
+        cold = core.submit(Request(prompt_ids=prompts[1],
+                                   sampling=_sampling(mt, lora="gamma")))
+        _wait(lambda: all(r.finished_at is not None for r in (busy, cold)))
+        core.stop()
+    else:
+        core._thread.join()
+        core.stop()
+    n = len(prompts)
+    out["mixed"] = [(_tokens(r), None) for r in seen[:n]]
+    out["cold"] = [_tokens(r) for r in seen[n:]]
+    out["rows_after"] = {n: core.lora.slot_of(n)
+                         for n in core.lora.resident_names()}
+    out["lora_info"] = {k: v for k, v in core.lora_info().items()
+                        if k in ("loads_total", "evictions_total", "active")}
+    # the paged entry points with this rank's shards: rows of no adapter
+    # and of each resident one, at the rows the engine put them in
+    ids, lens, tables = (torch.from_numpy(a) for a in inputs["entry"])
+    names = [None, *core.lora.resident_names()]
+    out["entry_rows"] = {n: core.lora.slot_of(n) for n in names}
+    lidx = torch.tensor([core.lora.slot_of(n) for n in names],
+                        dtype=torch.int32)
+    ck, cv = llama.init_kv_pages(core.model_cfg, 12, 8, "cpu")
+    logits, ck, cv = llama.prefill_into_pages(
+        core.params, core.model_cfg, ids, lens, tables, ck, cv,
+        lora_idx=lidx, mesh=core.mesh)
+    out["entry_logits"] = logits.numpy()
+    core = EngineCore(cfg, params, **kw)
+    out["plain"] = _serve(core, rank, prompts,
+                          [_sampling(mt)] * len(prompts))
+    # an sp=2 mesh: the long prompt's adapter keeps it off the ring pass
+    # (which carries no adapter rows), on the chunked path
+    core = EngineCore(cfg, params, lora_dir=inputs["lora_dir"],
+                      lora_rank_cap=8, lora_max_adapters=2,
+                      **{**kw, "mesh_config": MeshConfig(sp=2, tp=1)})
+    out["sp_long"] = _serve(core, rank, [prompts[3]],
+                            [_sampling(mt, lora=adapters[3])])
+    out["sp_fallbacks"] = core.lora_info()["cp_fallback_total"]
+    return out
+
+
 WORKERS = {"tp_engine": tp_engine, "ring": ring, "moe_ep": moe_ep,
-           "multihost": multihost}
+           "multihost": multihost, "dp_engine": dp_engine,
+           "lora_mesh": lora_mesh}
 
 
 if __name__ == "__main__":
