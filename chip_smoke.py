@@ -338,10 +338,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the port's server, rank 1 is a follower. Five sub-phases, each
              a lockstep engine (4 slots, capacity 2048, eager bursts,
              greedy, random weights of seed 0): tp=2 over Llama-3-8B bf16
-             paged at full width and depth (16 q / 4 KV heads, ffn 7168 a
-             rank), three chats over HTTP, then the three chats and the
-             1503-token prompt (chunked) on the core; sp=2 over Llama-3-8B,
-             the 1503-token prompt in one ring pass (CP bucket 2048), its
+             paged at full width and MD_CUT_LAYERS of its 32 layers (16 q
+             / 4 KV heads, ffn 7168 a rank), three chats over HTTP, then the three chats and the
+             1503-token prompt (chunked) on the core; sp=2 over Llama-3-8B
+             (dp and lora too at MD_CUT_LAYERS), the 1503-token prompt in one ring pass (CP bucket 2048), its
              KV read back from the pages; ep=2 over Mixtral at full width
              and MIX_BF16_LAYERS layers (4 of 8 experts a rank), a chat
              and a ~600-token prompt (capacity dispatch in prefill, exact
@@ -375,8 +375,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
              logged); each kernel of a sub-phase's path launched on every
              rank, the launches added to the `kernels` line; the sub-phase
              seconds and the collectives' calls, bytes and host seconds
-             logged. `--multi-device-only` runs the device, build and this
-             phase alone.
+             logged. Then two sub-phases of the leader's actions (A18c),
+             tp=2 over Llama-3-8B at full width and depth: leader (an offload tier of 512 MiB),
+             over HTTP a streamed chat, its /v1/resume with 16 committed
+             ids (the uninterrupted ids bit for bit), a migration of a
+             ~600-token row (POST /v1/kv/export {"park": true}, then
+             /v1/resume with its kv_pages landed: the uninterrupted ids,
+             and each rank's landed pages its own pages at the park by
+             sha256), a priority park spilled into the tier and restored
+             from it (its solo run's ids; the tier's info alike on both
+             ranks), /v1/embeddings of two inputs (as accurate as one
+             card's, a one-card engine at full depth, against the fp32
+             computation, #1 launched on both ranks), and last /api/drain (both ranks park the same rows,
+             the leader serves their exports); split (--role split, 2
+             prefill and 2 decode slots): two chats decoding when the
+             1503-token prompt arrives, every rank's ids the leader's and
+             the leader sub-phase's combined engine's, no prefill dispatch
+             on any rank's decode loop. `--multi-device-only` runs the
+             device, build and this phase alone.
 
 `--ids-only` serves the bf16 serve phase's timed prompts on a one-card
 engine of the serve phases' configuration (random weights of seed 0,
@@ -7478,7 +7494,20 @@ MD_LORA_ROWS = ((0, None), (1, "acme"), (2, "beta"))
 # each sub-phase's mesh, and the chats it sends over HTTP first (lora: one,
 # with an adapter)
 MD_SUBS = ("tp", "sp", "ep", "dp", "lora")
+# the depth of the Llama sub-phases of MD_SUBS and their one-card
+# references (full width): the whole script then keeps headroom under its
+# time limit; the leader's actions run at full depth
+MD_CUT_LAYERS = 8
 MD_HTTP = {"tp": 3, "sp": 1, "ep": 1, "dp": 3, "lora": 1}
+# the leader's actions on one host's ranks (A18c): two sub-phases at tp=2
+# over Llama-3-8B; the leader's host tier, counted over whole pages
+MD_LEADER_SUBS = ("leader", "split")
+MD_OFFLOAD_BYTES = 512 << 20
+MD_RESUME_TOKENS, MD_RESUME_AT = 24, 16  # the chat and its committed ids
+MD_MIGRATE_AT = 8  # the migrated row's committed ids before its park
+MD_PARK_TOKENS, MD_PARK_AFTER = 16, 6  # the priority park's victim
+# the embeddings' two inputs: a chat's ids and the long prompt's head
+MD_EMBED_LENS = (None, 600)
 
 
 def _md_prompts() -> dict:
@@ -7500,7 +7529,15 @@ def _md_prompts() -> dict:
             # the dp sub-phase's prefix-hit prompt: the long prompt at the
             # same length with a head of its own
             "dp_q": chat(_first_word(long_text, 7)),
-            "lora": [chat(MD_CHATS[i]) for i, _ in MD_LORA_ROWS]}
+            "lora": [chat(MD_CHATS[i]) for i, _ in MD_LORA_ROWS],
+            # the leader sub-phase's: the migrated row (~600 tokens), the
+            # priority park's rows, the embeddings' inputs
+            "migrate_text": "Migrate: " + " ".join(
+                f"g{i % 83}" for i in range(MD_MIX_WORDS)),
+            "park": [chat(f"Priority row {i}: count the planets.")
+                     for i in range(5)],
+            "embed": [chat(MD_CHATS[1]),
+                      chat(long_text)[:MD_EMBED_LENS[1]]]}
 
 
 def _md_cfg(sub: str):
@@ -7511,6 +7548,9 @@ def _md_cfg(sub: str):
     if sub == "ep":
         return dataclasses.replace(get_preset("mixtral-8x7b"),
                                    num_layers=MIX_BF16_LAYERS)
+    if sub in MD_SUBS:
+        return dataclasses.replace(get_preset("llama-3-8b"),
+                                   num_layers=MD_CUT_LAYERS)
     return get_preset("llama-3-8b")
 
 
@@ -7582,15 +7622,33 @@ def _md_margins(core, prompt: list[int], ids: list[int],
     return (top2[:, 0] - top2[:, 1]).cpu()
 
 
+def _md_encode(core, params, cfg, batch: list[list[int]]) -> list:
+    """Each input's embedding vector as the service computes it (its row
+    padded to its own power-of-two bucket, 16 and up), on the host."""
+    import torch
+
+    out = []
+    for ids in batch:
+        bucket = 16
+        while bucket < len(ids):
+            bucket *= 2
+        row = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+        row[0, :len(ids)] = torch.tensor(ids, device="cuda")
+        out.append(core.family.encode(
+            params, cfg, row, torch.tensor([len(ids)], dtype=torch.int32,
+                                           device="cuda"))[0].cpu())
+    return out
+
+
 def _md_fp32(core, prompts: list[list[int]], kv_of: int | None,
-             adapters=None):
+             adapters=None, embed=()):
     """The fp32 computation of the same weights, the yardstick both the
     one-card run and the ranks are measured by: the bf16 leaves widened to
     fp32 a leaf at a time (the engine's own leaves go as they widen, so it
     is spent after), each prompt prefilled alone in one fp32 dispatch
     (with its adapter of `adapters`, on a LoRA engine); its last-position
-    logits, and with `kv_of` that prompt's KV [L, n, K, D] fp32 on the
-    host."""
+    logits, with `kv_of` that prompt's KV [L, n, K, D] fp32 on the host,
+    and the embedding vectors of the `embed` inputs."""
     import dataclasses
 
     import torch
@@ -7614,18 +7672,20 @@ def _md_fp32(core, prompts: list[list[int]], kv_of: int | None,
         if i == kv_of:
             kv = [c[:, 1:].flatten(1, 2)[:, :len(p)].cpu() for c in (ck, cv)]
         del ck, cv
+    vectors = _md_encode(core, params, cfg, embed)
     del params
-    return logits, kv
+    return logits, kv, vectors
 
 
 def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None,
-                  adapters=None, lora_dir: str | None = None):
+                  adapters=None, lora_dir: str | None = None, embed=()):
     """The one-card run a sub-phase is held against: a one-rank engine of
     MD_KW over `prompts` submitted together (each with its adapter of
     `adapters`, served from `lora_dir`); each prompt's first-step logits
     and MD_TOKENS greedy ids, the top-2 margins along each stream, with
     `kv_of` that prompt's KV, and the fp32 computation's logits and KV
-    (`_md_fp32`). The engine is freed after."""
+    (`_md_fp32`), and the embedding vectors of the `embed` inputs, one
+    card's and the fp32 computation's. The engine is freed after."""
     import gc
 
     import torch
@@ -7655,8 +7715,10 @@ def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None,
                       for p, a in zip(prompts, adapters)],
            "margins": [_md_margins(core, p, i, a)
                        for p, i, a in zip(prompts, ids, adapters)],
-           "kv": kv.kv if kv is not None else None}
-    ref["fp32"], ref["fp32_kv"] = _md_fp32(core, prompts, kv_of, adapters)
+           "kv": kv.kv if kv is not None else None,
+           "embed": _md_encode(core, core.params, core.model_cfg, embed)}
+    ref["fp32"], ref["fp32_kv"], ref["fp32_embed"] = _md_fp32(
+        core, prompts, kv_of, adapters, embed)
     ref["seconds"] = time.perf_counter() - t0
     del core, spy
     gc.collect()
@@ -7941,11 +8003,327 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     return out
 
 
+class _MdRecorder:
+    """What every rank of a leader's-actions sub-phase records, each on its
+    own core: the ids each request emitted (by engine request id), its
+    parks (gateway id, reason, committed ids), the sha256 of its own KV
+    rows at a migration park and after each wire payload lands, and #1's
+    launches inside the encode forwards. Wraps the core's methods as
+    instance attributes."""
+
+    def __init__(self, core):
+        from llmlb_tpu_torch.engine.flightrec import gateway_rid
+        from llmlb_tpu_torch.ops import cuda_attention as ca
+
+        self.ids: dict[str, list[int]] = {}
+        self.parks: list = []
+        # a migration park's rows, copied on the card and hashed after the
+        # sub-phase (not in the park's wait for its export)
+        self.park_rows: list = []
+        self.land_sha: list = []
+        self.encode_prefills = 0
+        # ms from a migration's park request to its export held (leader)
+        self.park_to_export_ms: list[float] = []
+        asked: list[float] = []
+        emit, park, request_park = (core._emit, core._park_slot,
+                                    core.request_park)
+        spill, land, encode = (core._spill_parked_slot, core._land_kv_pages,
+                               core._encode)
+
+        def on_emit(slot_id, token):
+            rid = core.slots[slot_id].request.request_id
+            self.ids.setdefault(rid, []).append(int(token))
+            emit(slot_id, token)
+
+        def on_park(slot_id, reason="preempt"):
+            slot = core.slots[slot_id]
+            self.parks.append((gateway_rid(slot.request.request_id), reason,
+                               len(slot.out_tokens)))
+            park(slot_id, reason)
+
+        def on_request_park(gateway_id):
+            asked.append(time.perf_counter())
+            request_park(gateway_id)
+
+        def on_spill(slot_id, request, reason):
+            if reason == "migrate":
+                tokens = int(core._seq_lens[slot_id])
+                self.park_rows.append(_md_rows(
+                    core, core._slot_pages[slot_id], tokens))
+            spill(slot_id, request, reason)
+            if reason == "migrate" and asked:
+                self.park_to_export_ms.append(
+                    (time.perf_counter() - asked.pop(0)) * 1e3)
+
+        def on_land(kvp, fresh):
+            land(kvp, fresh)
+            if kvp.source == "wire":
+                self.land_sha.append(_md_sha(_md_rows(core, fresh,
+                                                      kvp.header.tokens)))
+
+        def on_encode(ids, lens):
+            before = ca.LAUNCHES.get("flash_prefill", 0)
+            out = encode(ids, lens)
+            self.encode_prefills += ca.LAUNCHES.get("flash_prefill",
+                                                    0) - before
+            return out
+
+        core._emit, core._park_slot = on_emit, on_park
+        core._spill_parked_slot, core._land_kv_pages = on_spill, on_land
+        core._encode, core.request_park = on_encode, on_request_park
+
+
+def _md_rows(core, pages: list[int], tokens: int) -> list:
+    """A copy on the card of this rank's K and V rows [0, tokens) over
+    `pages`."""
+    return [c[:, pages].flatten(1, 2)[:, :tokens].contiguous()
+            for c in (core.cache_k, core.cache_v)]
+
+
+def _md_sha(rows: list) -> list[str]:
+    """sha256 of each of `rows` (`_md_rows`)."""
+    import hashlib
+
+    import torch
+
+    return [hashlib.sha256(r.view(torch.uint8).cpu().numpy().tobytes())
+            .hexdigest() for r in rows]
+
+
+def _md_engine(rank: int, **extra):
+    """A lockstep tp=2 Llama-3-8B engine of MD_KW (and `extra`) with the
+    service over it, its recorder, and its launch and collective counts
+    from 0; (core, engine, recorder, init seconds)."""
+    import torch
+
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = _md_cfg("leader")
+    t0 = time.perf_counter()
+    core = EngineCore(cfg, None, device="cuda", mesh_config=MeshConfig(tp=2),
+                      **{**MD_KW, **extra})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = Engine("llama-3-8b", core, ByteTokenizer(cfg.vocab_size))
+    rec = _MdRecorder(core)
+    ca.reset_launch_counts()
+    core.mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+    return core, engine, rec, init_s
+
+
+def _md_result(core, rec, init_s: float, serve_s: float) -> dict:
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    return {"launches": dict(ca.LAUNCHES), "ids": rec.ids,
+            "parks": rec.parks,
+            "park_sha": [_md_sha(rows) for rows in rec.park_rows],
+            "land_sha": rec.land_sha, "encode_prefills": rec.encode_prefills,
+            "park_to_export_ms": rec.park_to_export_ms,
+            "collectives": dict(core.mesh.stats), "init_s": init_s,
+            "serve_s": serve_s, "mesh": dict(core.mesh.shape),
+            "backend": core.mesh.backend,
+            "offload": (core.kv_offload.info() if core.kv_offload is not None
+                        else None),
+            "ledger": (dict(core.prefill_dispatch_by_loop),
+                       dict(core.decode_dispatch_by_loop))}
+
+
+def _md_submit(core, prompts: list, max_tokens: int, priority: int = 1,
+                 rids=None) -> list:
+    """Submit greedy requests to the core; returns them."""
+    from llmlb_tpu_torch.engine.scheduler import Request, SamplingParams
+
+    reqs = []
+    for i, p in enumerate(prompts):
+        req = Request(prompt_ids=list(p), sampling=SamplingParams(
+            temperature=0.0, max_tokens=max_tokens, priority=priority))
+        if rids is not None:
+            req.request_id = rids[i]
+        reqs.append(core.submit(req))
+    return reqs
+
+
+def _md_wait(reqs, n: int, what: str) -> None:
+    """Until every request holds n ids (or ended)."""
+    t_end = time.monotonic() + 600
+    while not all(r.events.qsize() >= n or r.finished_at for r in reqs):
+        if time.monotonic() > t_end:
+            raise AssertionError(f"multi-device {what}: requests stalled")
+        time.sleep(0.005)
+
+
+def _md_combined(core, prompts: dict, what: str) -> list:
+    """The split sub-phase's traffic on `core`: two chats decoding when the
+    1503-token prompt arrives; their ids."""
+    chats = _md_submit(core, prompts["llama"][:2], MD_TOKENS)
+    _md_wait(chats, 2, what)
+    long = _md_submit(core, prompts["llama"][-1:], MD_TOKENS)
+    return [_md_drain(r) for r in chats + long]
+
+
+def _md_leader(rank: int, prompts: dict) -> dict:
+    """The leader sub-phase on this rank: a tp=2 engine with the host tier;
+    the leader serves HTTP and drives the blocks (the rank raises where
+    the leader's own ids part), every rank records (`_MdRecorder`)."""
+    import http.client
+
+    import torch
+
+    from llmlb_tpu_torch.engine.server import start_server
+
+    # bursts of 2 steps: /v1/kv/export polls for its park for 2 s, and a
+    # tp=2 step of a gloo mesh on one card takes ~0.2 s of host round
+    # trips (the park waits for the burst in flight, then the ~620-token
+    # row's heads are gathered and base64-encoded; the recorder logs that
+    # wait as `park_to_export_ms`)
+    core, engine, rec, init_s = _md_engine(
+        rank, kv_offload_bytes=MD_OFFLOAD_BYTES, decode_burst=2)
+    t1 = time.perf_counter()
+    core.start()
+    out: dict = {}
+    if rank == 0:
+        server, _ = start_server(engine)
+        base = "http://%s:%d" % server.server_address[:2]
+        secs = out["block_s"] = {}
+        try:
+            t = time.perf_counter()
+            out["combined"] = _md_combined(core, prompts, "leader")
+            secs["combined"] = time.perf_counter() - t
+            # a streamed chat, then its resume with 16 committed ids
+            t = time.perf_counter()
+            body = _armed("Resume on the mesh: count to ten.",
+                          MD_RESUME_TOKENS, None)
+            full, _ = _stream_ids(base, "/v1/chat/completions", body)
+            again, _ = _stream_ids(base, "/v1/resume", {
+                **body, "committed_ids": full[:MD_RESUME_AT]})
+            if len(full) != MD_RESUME_TOKENS or again != full:
+                raise AssertionError(
+                    f"multi-device leader: /v1/resume after {MD_RESUME_AT} "
+                    f"committed ids gives {_shared(again, full)} of the "
+                    f"uninterrupted {len(full)} ids")
+            secs["resume"] = time.perf_counter() - t
+            # a migration: the row parked by /v1/kv/export, then resumed
+            # with its pages landed
+            t = time.perf_counter()
+            body = _armed(prompts["migrate_text"], MD_RESUME_TOKENS, None)
+            full_m, _ = _stream_ids(base, "/v1/chat/completions", body)
+            host, port = base[len("http://"):].split(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=600)
+            conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                         {"Content-Type": "application/json",
+                          "X-Request-Id": "mdmig"})
+            committed: list[int] = []
+            for data in _sse_lines(conn.getresponse()):
+                obj = json.loads(data)
+                if obj.get("object") == "llmlb.replay":
+                    committed.extend(obj["tokens"])
+                    if len(committed) >= MD_MIGRATE_AT:
+                        break
+            t_exp = time.perf_counter()
+            with _post(base + "/v1/kv/export", {"request_id": "mdmig",
+                                                "park": True}) as r:
+                pages = json.loads(r.read())["kv_pages"]
+            export_ms = (time.perf_counter() - t_exp) * 1e3
+            conn.close()
+            _wait_idle(core)
+            moved, _ = _stream_ids(base, "/v1/resume", {
+                **body, "committed_ids": committed, "kv_pages": pages})
+            if moved != full_m or committed != full_m[:len(committed)]:
+                raise AssertionError(
+                    f"multi-device leader: the migrated row gives "
+                    f"{_shared(moved, full_m)} of the uninterrupted "
+                    f"{len(full_m)} ids")
+            out["migrate"] = {"committed": len(committed),
+                              "tokens": pages["tokens"],
+                              "b64_mib": len(pages["data"]) / 2**20,
+                              "export_ms": export_ms}
+            secs["migrate"] = time.perf_counter() - t
+            # a priority park into the tier, restored from it
+            t = time.perf_counter()
+            solo = _md_drain(_md_submit(core, prompts["park"][:1],
+                                          MD_PARK_TOKENS, 2)[0])
+            victim = _md_submit(core, prompts["park"][:1], MD_PARK_TOKENS,
+                                  2)[0]
+            others = _md_submit(core, prompts["park"][1:4], MD_PARK_TOKENS)
+            _md_wait([victim], MD_PARK_AFTER, "leader")
+            hi = _md_submit(core, prompts["park"][4:], 8, 0)
+            ids = _md_drain(victim)
+            for r in others + hi:
+                _md_drain(r)
+            tier = core.kv_offload.info()
+            if ids != solo or tier["hits"] < 1:
+                raise AssertionError(
+                    f"multi-device leader: the parked row gives "
+                    f"{_shared(ids, solo)} of its solo {len(solo)} ids; "
+                    f"tier {tier}")
+            secs["park"] = time.perf_counter() - t
+            # embeddings of two inputs
+            t = time.perf_counter()
+            with _post(base + "/v1/embeddings", {
+                    "model": "llama-3-8b", "input": prompts["embed"]}) as r:
+                out["embed"] = [d["embedding"]
+                                for d in json.loads(r.read())["data"]]
+            secs["embed"] = time.perf_counter() - t
+            # last, the drain: two rows decoding, a grace of 0.5 s
+            t = time.perf_counter()
+            rids = [f"mddrain{i}.{i:08x}" for i in range(2)]
+            rows = _md_submit(core, prompts["park"][1:3], 256, rids=rids)
+            _md_wait(rows, 4, "leader")
+            with _post(base + "/api/drain", {"grace_s": 0.5}) as r:
+                json.loads(r.read())
+            server.drain.wait(60)
+            exports = [core.take_kv_export(f"mddrain{i}") for i in range(2)]
+            out["drain"] = {"info": server.drain.info(),
+                            "exports": [e and e["tokens"] for e in exports]}
+            if any(e is None for e in exports):
+                raise AssertionError(f"multi-device leader: the drain's "
+                                     f"exports {out['drain']}")
+            secs["drain"] = time.perf_counter() - t
+        finally:
+            server.shutdown()
+            engine.shutdown()  # the stop rides the plan to the followers
+    else:
+        core._thread.join()
+        engine.shutdown()
+    torch.cuda.synchronize()
+    out.update(_md_result(core, rec, init_s, time.perf_counter() - t1))
+    return out
+
+
+def _md_split(rank: int, prompts: dict) -> dict:
+    """The split sub-phase on this rank: a tp=2 engine with --role split
+    (2 prefill and 2 decode slots); the leader drives the combined
+    sub-phase's traffic."""
+    import torch
+
+    core, engine, rec, init_s = _md_engine(rank, role="split",
+                                           disagg_prefill_slots=2)
+    t1 = time.perf_counter()
+    core.start()
+    out: dict = {}
+    if rank == 0:
+        try:
+            out["combined"] = _md_combined(core, prompts, "split")
+        finally:
+            engine.shutdown()
+    else:
+        core._thread.join()
+        engine.shutdown()
+    torch.cuda.synchronize()
+    out.update(_md_result(core, rec, init_s, time.perf_counter() - t1))
+    return out
+
+
 def md_rank_main(rank: int, world: int, port: int, backend: str, src: str,
                  dst: str) -> None:
     """A rank of the multi-device phase: joins the world through the
     port's LLMLB_* variables (`init_from_env`), runs the sub-phases of
-    MD_SUBS in order and pickles its results to `dst`."""
+    MD_SUBS, then MD_LEADER_SUBS, in order and pickles its results to
+    `dst`."""
     import gc
     import os
     import pickle
@@ -7964,8 +8342,10 @@ def md_rank_main(rank: int, world: int, port: int, backend: str, src: str,
     with open(src, "rb") as f:
         prompts = pickle.load(f)
     out = {}
-    for sub in MD_SUBS:
-        out[sub] = _md_sub(sub, rank, prompts)
+    run = {"leader": _md_leader, "split": _md_split}
+    for sub in MD_SUBS + MD_LEADER_SUBS:
+        out[sub] = (run[sub](rank, prompts) if sub in run
+                    else _md_sub(sub, rank, prompts))
         gc.collect()
         torch.cuda.empty_cache()
         out[sub]["left_gib"] = torch.cuda.memory_allocated() / 2**30
@@ -8129,11 +8509,120 @@ def _md_kv_check(got: list, ref: list, fp32: list, n: int,
     return out
 
 
+def _md_leader_checks(ranks: list, ref: dict, dev: dict,
+                      launches: dict) -> dict:
+    """The leader and split sub-phases across the ranks: every rank's ids,
+    parks and tier the leader's; each rank's landed pages its own pages at
+    the migration's park; the embeddings as accurate as one card's against
+    the fp32 computation, #1 launched in the encode forwards of every
+    rank; the split's ids the combined engine's, no prefill dispatch on
+    any rank's decode loop; each kernel of the path launched on every
+    rank (the launches added to `launches`). Returns the numbers."""
+    import torch
+
+    report = {}
+    for sub in MD_LEADER_SUBS:
+        lead = ranks[0][sub]
+        for what in ("ids", "parks", "offload"):
+            if any(x[sub][what] != lead[what] for x in ranks[1:]):
+                raise AssertionError(f"multi-device {sub}: a rank's {what} "
+                                     "differ from the leader's")
+        per_rank = [{k: v for k, v in x[sub]["launches"].items() if v}
+                    for x in ranks]
+        missing = [k for k in BF16_PATH
+                   if any(pr.get(k, 0) == 0 for pr in per_rank)]
+        if missing:
+            raise AssertionError(f"multi-device {sub}: kernels never "
+                                 f"launched on a rank: {missing}")
+        for pr in per_rank:
+            for k, v in pr.items():
+                launches[k] = launches.get(k, 0) + v
+        col = [x[sub]["collectives"] for x in ranks]
+        report[sub] = {"init_s": [x[sub]["init_s"] for x in ranks],
+                       "serve_s": [x[sub]["serve_s"] for x in ranks],
+                       "collectives": col, "launches": per_rank,
+                       "ledger": [x[sub]["ledger"] for x in ranks]}
+    lead = ranks[0]["leader"]
+    for r, x in enumerate(ranks):
+        got = x["leader"]
+        if got["land_sha"] != got["park_sha"] or len(got["land_sha"]) != 1:
+            raise AssertionError(
+                f"multi-device leader: rank {r}'s landed pages are not its "
+                f"pages at the park ({got['land_sha']} vs {got['park_sha']})")
+        if got["encode_prefills"] < 1:
+            raise AssertionError(f"multi-device leader: rank {r} launched "
+                                 "no flash_prefill in the encode forwards")
+    drained = [p for p in lead["parks"] if p[1] == "drain"]
+    if len(drained) != 2:
+        raise AssertionError(f"multi-device leader: the drain parked "
+                             f"{drained}")
+    embed = []
+    for i, (g, one, t) in enumerate(zip(lead["embed"], ref["embed"],
+                                        ref["fp32_embed"])):
+        g = torch.tensor(g)
+        mine, theirs = _rms_rel(g, t), _rms_rel(one, t)
+        embed.append({"rms_rel_fp32": mine, "one_card_rms_rel_fp32": theirs,
+                      "max_abs_one_card": (g - one.float()).abs().max().item()})
+        if mine > MD_ACCURACY * max(theirs, MD_FLOOR):
+            raise AssertionError(
+                f"multi-device leader: embedding {i} is {mine:.3e} "
+                f"(RMS-relative) from the fp32 computation, one card's "
+                f"{theirs:.3e}: over {MD_ACCURACY}x")
+    split = ranks[0]["split"]
+    if split["combined"] != lead["combined"]:
+        raise AssertionError(
+            f"multi-device split: ids shared with the combined engine "
+            f"{[_shared(a, b) for a, b in zip(split['combined'], lead['combined'])]}")
+    for r, x in enumerate(ranks):
+        prefill, _ = x["split"]["ledger"]
+        if prefill["decode"] != 0 or prefill["prefill"] < 1:
+            raise AssertionError(f"multi-device split: rank {r}'s prefill "
+                                 f"dispatches by loop {prefill}")
+    report["leader"].update(block_s=lead["block_s"], migrate=lead["migrate"],
+                            park_to_export_ms=lead["park_to_export_ms"],
+                            drain=lead["drain"], embed=embed,
+                            offload=lead["offload"],
+                            encode_prefills=[x["leader"]["encode_prefills"]
+                                             for x in ranks])
+    for sub in MD_LEADER_SUBS:
+        rep = report[sub]
+        log(f"multi-device {sub} [{dev['smi']}]: mesh "
+            f"{ranks[0][sub]['mesh']} over {ranks[0][sub]['backend']}; "
+            f"engine init {[round(v, 1) for v in rep['init_s']]} s, serving "
+            f"{[round(v, 1) for v in rep['serve_s']]} s; collectives a rank "
+            f"(calls, MiB, host s) "
+            f"{[(c['calls'], round(c['bytes'] / 2**20, 1), round(c['seconds'], 2)) for c in rep['collectives']]}; "
+            f"launches a rank {rep['launches']}; dispatches by loop "
+            f"(prefill, decode) {rep['ledger']}")
+    mig = lead["migrate"]
+    embed_diff = ["%.3e" % e["max_abs_one_card"] for e in embed]
+    blocks = {k: round(v, 1) for k, v in lead["block_s"].items()}
+    log(f"multi-device leader: blocks {blocks} s; "
+        f"/v1/resume after {MD_RESUME_AT} committed ids the uninterrupted "
+        f"{MD_RESUME_TOKENS}; the migration after {mig['committed']} ids "
+        f"({mig['tokens']} tokens of KV, {mig['b64_mib']:.1f} MiB base64, "
+        f"export POST {mig['export_ms']:.1f} ms, of it "
+        f"{lead['park_to_export_ms']} ms from the park request to the "
+        f"export held) the uninterrupted ids, "
+        f"each rank's landed pages its own at the park (sha256); the "
+        f"priority park restored from the tier ({lead['offload']}, alike "
+        f"on every rank); embeddings RMS-relative from fp32 "
+        f"{[round(e['rms_rel_fp32'], 6) for e in embed]}, one card's "
+        f"{[round(e['one_card_rms_rel_fp32'], 6) for e in embed]}, max "
+        f"|diff| from one card's {embed_diff}, #1 in the "
+        f"encode forwards {report['leader']['encode_prefills']}; the drain "
+        f"parked {len(drained)} rows on every rank, exports of "
+        f"{lead['drain']['exports']} tokens; split: the combined engine's "
+        f"ids, no prefill dispatch on any decode loop")
+    return report
+
+
 def phase_multi_device(dev: dict) -> dict:
     """Multi-rank serving on the card (A18): three sub-phases in one world
     of two ranks spawned from this script, rank 0 serving HTTP through the
     port's server with LLMLB_COORDINATOR set and rank 1 a follower: tp=2
-    and sp=2 over Llama-3-8B bf16 paged at full width and depth, ep=2 over
+    and sp=2 over Llama-3-8B bf16 paged at full width and MD_CUT_LAYERS
+    layers, ep=2 over
     Mixtral at full width and MIX_BF16_LAYERS layers (capacity dispatch in
     prefill, exact MoE in decode), random weights of seed 0. With one card
     both ranks share it over gloo (NCCL refuses two ranks on one device);
@@ -8166,14 +8655,18 @@ def phase_multi_device(dev: dict) -> dict:
                                    len(prompts["llama"]) - 1),
             "mixtral": _md_reference("ep", prompts["mixtral"], None),
             "lora": _md_reference("lora", prompts["lora"], None, adapters,
-                                  lora_tmp.name)}
+                                  lora_tmp.name),
+            "leader": _md_reference("leader", [], None,
+                                    embed=prompts["embed"])}
     log(f"multi-device: one-card references in "
-        f"{refs['llama']['seconds']:.1f} s (Llama-3-8B, prompts of "
-        f"{[len(p) for p in prompts['llama']]} tokens), "
+        f"{refs['llama']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
+        f"layers, prompts of {[len(p) for p in prompts['llama']]} tokens), "
         f"{refs['mixtral']['seconds']:.1f} s (Mixtral, "
-        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]})"
-        f" and {refs['lora']['seconds']:.1f} s (Llama-3-8B with adapters "
-        f"{adapters})")
+        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]}),"
+        f" {refs['lora']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
+        f"layers, with adapters {adapters}) and "
+        f"{refs['leader']['seconds']:.1f} s (Llama-3-8B, 32 layers, the "
+        f"embeddings)")
     backend = "nccl" if dev["count"] >= 2 else "gloo"
     world = 2
     t_ranks = time.perf_counter()
@@ -8250,6 +8743,8 @@ def phase_multi_device(dev: dict) -> dict:
             "collectives": col, "launches": per_rank,
             **{k: v for k, v in held.items() if k != "partings"},
             "partings": [(i, p, round(m, 4)) for i, p, m in held["partings"]]}
+    report["subphases"].update(_md_leader_checks(ranks, refs["leader"], dev,
+                                                 launches))
     report["ranks_s"] = ranks_s
     report["seconds"] = time.perf_counter() - t0
     log(f"multi-device: {report['seconds']:.1f} s ({ranks_s:.1f} s the ranks' "

@@ -6,7 +6,7 @@ pool and runs one step-loop thread per pool:
 
 - The prefill loop owns admission (`_try_insert`) and chunked prefill
   (`_advance_prefill`), and runs the work other threads hand the engine
-  (`call_in_loop`). When a slot's prompt KV has landed, the slot is STAGED
+  (`call_in_loop`, and `encode`'s forwards). When a slot's prompt KV has landed, the slot is STAGED
   (`stage_group`): its final logits row is held on the device instead of
   sampled, and its device seq_len is parked at capacity - 1.
 - The handoff pump (`pump_handoffs`) adopts staged requests into free
@@ -38,6 +38,16 @@ which later resumes through the prefill pool and hands off again.
 
 As in the reference, the split loops do not serve the drain's parks and
 flush or a migration's park request.
+
+On a mesh of one host's ranks (engine/multihost.py), every rank must run
+the same lock sections in the same order, which the leader's two threads
+set by timing. So the leader's split runs as above, and each lock section
+it enters ("admit": the calls, the pump and admission; "advance": one
+prefill chunk; "decode": a burst and the pump) is named in the tick plan
+it broadcasts on entering (`_section`); a follower runs one thread that
+takes each plan and runs the section it names, under that loop's tag, so
+the dispatch ledgers read alike on every rank. The pump adopts staged
+rows in staging order (`handoff_seq`), never by a clock.
 """
 
 from __future__ import annotations
@@ -78,6 +88,11 @@ class SplitRuntime:
         self.prefill_pool: tuple[int, ...] = tuple(range(p))
         self.decode_pool: tuple[int, ...] = tuple(range(p, n))
         self.lock = threading.Lock()
+        # the lock sections by name: (loop tag, body)
+        self._sections = {"admit": ("prefill", self._admit),
+                          "advance": ("prefill", self._advance),
+                          "decode": ("decode", self._decode)}
+        self._staged = 0  # rows staged so far: the pump's order
         # the decode loop raises this before taking the lock, and the
         # prefill loop backs off while it is up
         self._decode_wants = threading.Event()
@@ -89,12 +104,18 @@ class SplitRuntime:
     # ------------------------------------------------------------------ loops
 
     def start(self) -> None:
-        self.threads = [
-            threading.Thread(target=self._prefill_loop,
-                             name="engine-prefill-pool", daemon=True),
-            threading.Thread(target=self._decode_loop,
-                             name="engine-decode-pool", daemon=True),
-        ]
+        coordinator = self.core.coordinator
+        if coordinator is not None and not coordinator.is_leader:
+            self.threads = [threading.Thread(target=self._follower_loop,
+                                             name="engine-split-follower",
+                                             daemon=True)]
+        else:
+            self.threads = [
+                threading.Thread(target=self._prefill_loop,
+                                 name="engine-prefill-pool", daemon=True),
+                threading.Thread(target=self._decode_loop,
+                                 name="engine-decode-pool", daemon=True),
+            ]
         for t in self.threads:
             t.start()
 
@@ -120,6 +141,42 @@ class SplitRuntime:
             core._fail_all("engine step error")
             core._reset_caches()
 
+    def _section(self, name: str, entered=None) -> bool:
+        """Run one lock section; on a mesh the leader names it in a tick
+        plan first, so every rank runs the sections in this order.
+        `entered` runs once the lock is held (the turnstile's flag)."""
+        core = self.core
+        with self.lock:
+            if entered is not None:
+                entered()
+            if core.coordinator is not None:
+                if not core._running:
+                    return False  # the other thread's plan carried the stop
+                core._lockstep_tick(section=name)
+                if not core._running:
+                    return False
+            return self._sections[name][1]()
+
+    def _admit(self) -> bool:
+        core = self.core
+        if core.coordinator is None:
+            core._take_calls()
+        did = core._run_calls()
+        did |= core._run_plan_calls()
+        did |= self.pump_handoffs()
+        did |= core._try_insert()
+        return did
+
+    def _advance(self) -> bool:
+        return self.core._advance_prefill()
+
+    def _decode(self) -> bool:
+        did = self.core._decode_active()
+        # a finished or parked row frees a decode slot: adopt the oldest
+        # staged request before the next burst
+        did |= self.pump_handoffs()
+        return did
+
     def _prefill_loop(self) -> None:
         core = self.core
         self._enter("prefill")
@@ -127,13 +184,9 @@ class SplitRuntime:
             did = False
             try:
                 self._yield_to_decode()
-                with self.lock:
-                    did |= core._run_calls()
-                    did |= self.pump_handoffs()
-                    did |= core._try_insert()
+                did |= self._section("admit")
                 self._yield_to_decode()
-                with self.lock:
-                    did |= core._advance_prefill()
+                did |= self._section("advance")
             except Exception:  # boundary: fail the requests, keep serving
                 self._fail_reset()
             if not did:
@@ -147,19 +200,31 @@ class SplitRuntime:
             try:
                 self._decode_wants.set()
                 try:
-                    with self.lock:
-                        self._decode_wants.clear()
-                        did |= core._decode_active()
-                        # a finished or parked row frees a decode slot:
-                        # adopt the oldest staged request before the next
-                        # burst
-                        did |= self.pump_handoffs()
+                    did |= self._section("decode",
+                                         entered=self._decode_wants.clear)
                 finally:
                     self._decode_wants.clear()
             except Exception:  # boundary: fail the requests, keep serving
                 self._fail_reset()
             if not did:
                 time.sleep(0.001)
+
+    def _follower_loop(self) -> None:
+        """A follower rank: each tick plan names the section the leader
+        runs; run it here, under its loop's tag."""
+        core = self.core
+        self._enter("prefill")
+        while core._running:
+            try:
+                with self.lock:
+                    name = core._lockstep_tick()
+                    if not core._running:
+                        break
+                    tag, body = self._sections[name]
+                    core._tls.tag = tag
+                    body()
+            except Exception:  # boundary: fail the requests, keep serving
+                self._fail_reset()
 
     # -------------------------------------------------------------- admission
 
@@ -191,6 +256,8 @@ class SplitRuntime:
             slot.handoff_ready = True
             slot.handoff_logits = logits[row:row + 1]
             slot.handoff_ready_at = now
+            slot.handoff_seq = self._staged
+            self._staged += 1
             core._seq_lens[slot_id] = 0
             rows.append(slot_id)
             core._fr_emit(request, "staged", tokens=n, slot=slot_id)
@@ -246,7 +313,7 @@ class SplitRuntime:
 
     def pump_handoffs(self) -> bool:
         """Adopt staged requests into decode slots, the most important
-        class first, then by readiness, then by slot id. Strictly ordered:
+        class first, then in staging order, then by slot id. Strictly ordered:
         a blocked head blocks everything behind it, so a later request
         cannot take the slot an earlier one is owed."""
         core = self.core
@@ -255,11 +322,11 @@ class SplitRuntime:
             core.metrics.set_handoff_backlog(0)
             return False
         ready.sort(key=lambda i: (core._priority_of(core.slots[i].request),
-                                  core.slots[i].handoff_ready_at, i))
+                                  core.slots[i].handoff_seq, i))
         progress = False
         for i in ready:
             request = core.slots[i].request
-            if request.cancelled:
+            if core._is_cancelled(request):
                 core._finish_slot(i, "cancelled")
                 progress = True
                 continue

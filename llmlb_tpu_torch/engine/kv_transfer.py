@@ -96,7 +96,11 @@ _HEADER_FIELDS = tuple(f.name for f in dataclasses.fields(KVWireHeader))
 class KVPages:
     """Parsed, validated page payload: host numpy sections ready to land in
     a pool. ``source`` tags where it came from: "wire" (a resume payload)
-    or "offload" (the host-RAM tier)."""
+    or "offload" (the host-RAM tier). On a mesh of ranks the header always
+    names the whole model's KV heads, while the sections hold what this
+    rank keeps: its own heads for the tier's copies, all of them on the
+    leader for a wire payload, none on a follower (the leader sends the
+    bytes over the mesh when they land)."""
 
     header: KVWireHeader
     sections: dict[str, np.ndarray]
@@ -104,7 +108,12 @@ class KVPages:
 
     @property
     def nbytes(self) -> int:
-        return sum(a.nbytes for a in self.sections.values())
+        """The bytes of the whole payload, as the header sizes it: what one
+        rank of the whole model would hold, whichever share this copy
+        holds. The offload tier charges it, so every rank of a mesh admits
+        and evicts alike."""
+        return sum(int(np.prod(shape)) * _np_dtype(dtype).itemsize
+                   for shape, dtype in expected_sections(self.header).values())
 
 
 def expected_sections(header: KVWireHeader) -> dict[str, tuple[tuple, str]]:

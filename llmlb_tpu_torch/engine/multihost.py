@@ -35,6 +35,10 @@ from llmlb_tpu_torch.parallel.mesh import Mesh
 _MAX_PLAN_BYTES = 64 * 1024 * 1024  # sanity bound: a plan is requests, not data
 
 
+class PlanTooLarge(ValueError):
+    """A plan over `_MAX_PLAN_BYTES`, refused before the broadcast."""
+
+
 class StepCoordinator:
     """Per-tick plan broadcast from the leader to every follower."""
 
@@ -49,5 +53,5 @@ class StepCoordinator:
         synchronization point that keeps ranks in lockstep."""
         payload = pickle.dumps(plan) if self.is_leader else None
         if payload is not None and len(payload) > _MAX_PLAN_BYTES:
-            raise ValueError(f"tick plan too large: {len(payload)} bytes")
+            raise PlanTooLarge(f"tick plan too large: {len(payload)} bytes")
         return pickle.loads(self.mesh.broadcast_bytes(payload))

@@ -201,8 +201,21 @@ dispatch the same forwards. Cancellations act only through the plan
 (`_is_cancelled`), deadlines are shed at the leader only
 (`_collect_plan`), adapters are pinned in plan order on every rank
 (`_plan_acquire`; `--lora-dir` is refused across hosts, as the
-reference), and KV shipping, the offload tier and `--role split` are off
-or refused (A18c). At dp > 1 (the Llama family; an MoE is refused, A18c)
+reference). Everything else the leader's HTTP threads set rides the plan
+too, so it acts on the same tick on every rank: a new request's parked
+state (an adoption's committed ids: each rank rebuilds the grammar cursor
+and the drafter), its shipped pages' header and its handoff export flag,
+the drain and its parks and flush, a migration's parks, and the encode
+forwards of /v1/embeddings (`encode`, whose work items every rank runs).
+KV shipping, the offload tier and `--role split` serve on one host's
+ranks, as the reference's one-process mesh serves them, and are off or
+refused across hosts: an export gathers the row's KV heads over tp to
+the leader (`Mesh.gather_heads`), which writes the whole model's KVSH
+payload; a landed payload goes from the leader to every rank over the
+mesh (`Mesh.broadcast`), each keeping its heads; the offload tier holds
+each rank's share, charged at the whole payload's bytes, so every rank's
+tier admits and evicts alike. At dp > 1 (the Llama family; an MoE is
+refused, A18c)
 slot s belongs to dp group `_slot_groups[s]`, and every dispatch passes
 its rows' groups (`_mesh_kw`): a group computes its own rows, and one
 collective over dp a dispatch gives every rank the batch's logits (the
@@ -248,11 +261,16 @@ from llmlb_tpu_torch.engine.kv_transfer import (
     KV_WIRE_VERSION,
     KVPages,
     KVWireHeader,
+    expected_sections,
     kv_compat_reason,
     serialize_kv_pages,
 )
 from llmlb_tpu_torch.engine.metrics import EngineMetrics
-from llmlb_tpu_torch.engine.multihost import _MAX_PLAN_BYTES, StepCoordinator
+from llmlb_tpu_torch.engine.multihost import (
+    _MAX_PLAN_BYTES,
+    PlanTooLarge,
+    StepCoordinator,
+)
 from llmlb_tpu_torch.engine.paging import PagePool
 from llmlb_tpu_torch.engine.prefix_cache import PrefixCache, PrefixEntry
 from llmlb_tpu_torch.engine.stepstats import StepRecorder
@@ -418,6 +436,7 @@ class _Slot:
     handoff_ready: bool = False
     handoff_logits: torch.Tensor | None = None
     handoff_ready_at: float = 0.0
+    handoff_seq: int = 0  # its place in the staging order
 
     def clear(self) -> None:
         self.request = None
@@ -437,6 +456,7 @@ class _Slot:
         self.handoff_ready = False
         self.handoff_logits = None
         self.handoff_ready_at = 0.0
+        self.handoff_seq = 0
 
 
 def kv_cache_bytes(cfg: LlamaConfig, num_slots: int, slot_capacity: int) -> int:
@@ -1063,9 +1083,12 @@ class EngineCore:
         if kv_ship is None:
             kv_ship = os.environ.get("LLMLB_KV_SHIP", "1").lower() not in (
                 "0", "false", "off", "no")
-        # split mode ships nothing: a handoff moves its block-table row
+        # split mode ships nothing: a handoff moves its block-table row;
+        # across hosts neither serves, as in the reference (a mesh of one
+        # host's ranks moves the pages over its collectives)
+        one_host = ranks_per_host(self.mesh.world) >= self.mesh.world
         self.kv_ship = (bool(kv_ship) and self.page_pool is not None
-                        and self.role != "split" and self.mesh.trivial)
+                        and self.role != "split" and one_host)
         # exports of parked streams by gateway id, taken once
         self._kv_exports: dict[str, dict] = {}
         if kv_offload_bytes is None:
@@ -1079,7 +1102,7 @@ class EngineCore:
         self.kv_offload: KVOffloadTier | None = (
             KVOffloadTier(kv_offload_bytes)
             if (kv_offload_bytes > 0 and self.page_pool is not None
-                and self.role != "split" and self.mesh.trivial)
+                and self.role != "split" and one_host)
             else None)
         if self.kv_offload is not None:
             log.info("KV offload tier: %.1f MiB host-RAM budget",
@@ -1150,15 +1173,23 @@ class EngineCore:
         self._cancelled_effective: set[str] = set()
         self._intake: queue.SimpleQueue[Request] = queue.SimpleQueue()
         self._plan_backlog: list[Request] = []
+        # what the loop acts on this tick, from the plan: the drain as the
+        # plan last carried it, the loop's flags (drain park, migration
+        # parks, drain flush); and the forwards queued by `encode` and this
+        # tick's, each (inputs, done, box): a follower's carry no caller
+        self._plan_draining = False
+        self._tick_flags: tuple[bool, set[str], bool] = (False, set(), False)
+        self._plan_calls: collections.deque = collections.deque()
+        self._tick_calls: list = []
         # context-parallel prefill (sp > 1): built at the first long prompt
         self._use_cp_prefill = self.mesh.shape["sp"] > 1
         self.lora_cp_fallback_total = 0
         self._cp_prefill_fn = None
         if not self.mesh.trivial:
-            if self.role == "split":
+            if self.role == "split" and not one_host:
                 raise ValueError(
-                    "--role split is single-host only (multihost lockstep "
-                    "has no split-mode handoff mirror)")
+                    "--role split is single-host only (a split across hosts "
+                    "has no handoff mirror; one host's ranks run it)")
             self.coordinator = StepCoordinator(self.mesh)
             log.info("multihost lockstep: %s of %d ranks, mesh %s",
                      "leader" if self.coordinator.is_leader else "follower",
@@ -1229,6 +1260,7 @@ class EngineCore:
         # terminal events for everything still in flight so waiters unblock
         self._fail_all("engine shutting down")
         self._run_calls(RuntimeError("engine shutting down"))
+        self._refuse_plan_calls(RuntimeError("engine shutting down"))
         with self._lock:
             self._kv_exports.clear()
 
@@ -1250,6 +1282,83 @@ class EngineCore:
         if "error" in box:
             raise box["error"]
         return box["value"]
+
+    def encode(self, ids: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+        """The family's encode forward (/v1/embeddings) of one padded batch
+        (ids [B, T], lens [B]) as [B, E] fp32 on the host, run on the step
+        loop's thread between iterations: queued for the loop's next tick,
+        which on a mesh carries it to every rank in the tick plan; the
+        leader's result (or exception) comes back here. Runs inline on one
+        rank when the loop is not running."""
+        thread = self._thread
+        looping = (self._running and thread is not None
+                   and thread.is_alive())
+        if self.coordinator is None:
+            if not looping or threading.current_thread() is thread:
+                return self._encode(ids, lens)
+        elif not self.coordinator.is_leader or not looping:
+            raise RuntimeError("a planned forward needs the leader's running "
+                               "step loop")
+        done = threading.Event()
+        box: dict = {}
+        self._plan_calls.append(((ids, lens), done, box))
+        while not done.wait(0.5):
+            if not thread.is_alive():  # stopped after the append
+                self._refuse_plan_calls(RuntimeError("engine shutting down"))
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def _encode(self, ids: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+        return self.family.encode(self.params, self.model_cfg,
+                                  self._to_device(ids), self._to_device(lens),
+                                  mesh=self._model_mesh).cpu()
+
+    def _take_calls(self) -> None:
+        """One rank: every queued forward runs at this tick."""
+        while True:
+            try:
+                self._tick_calls.append(self._plan_calls.popleft())
+            except IndexError:
+                return
+
+    def _run_plan_calls(self) -> bool:
+        """Run this tick's forwards (on a mesh every rank, in plan order);
+        the leader hands each result to its caller (a follower's calls
+        have none)."""
+        calls, self._tick_calls = self._tick_calls, []
+        for args, done, box in calls:
+            try:
+                value = self._encode(*args)
+                if box is not None:
+                    box["value"] = value
+            except Exception as e:  # boundary: the caller re-raises it
+                if box is None:
+                    log.exception("a planned encode failed on a follower")
+                else:
+                    box["error"] = e
+            finally:
+                if done is not None:
+                    done.set()
+        return bool(calls)
+
+    @staticmethod
+    def _refuse_calls(calls: list, error: BaseException) -> None:
+        for _, done, box in calls:
+            if box is not None:
+                box["error"] = error
+                done.set()
+
+    def _refuse_plan_calls(self, error: BaseException) -> None:
+        """Fail the forwards not run yet (queued or this tick's) with
+        `error`."""
+        calls, self._tick_calls = self._tick_calls, []
+        while True:
+            try:
+                calls.append(self._plan_calls.popleft())
+            except IndexError:
+                break
+        self._refuse_calls(calls, error)
 
     def _run_calls(self, refuse: BaseException | None = None) -> bool:
         """Run (or, with `refuse`, fail) the calls queued by call_in_loop."""
@@ -1453,6 +1562,34 @@ class EngineCore:
         the stream to another engine while this one serves everyone else.
         The set is swapped out only by the loop thread."""
         self._park_rids.add(gateway_id)
+
+    @property
+    def _loop_draining(self) -> bool:
+        """The drain as the step loop reads it: the live flag on one rank;
+        on a mesh the plan's, so every rank stops admitting on one tick."""
+        return self.draining if self.coordinator is None else (
+            self._plan_draining)
+
+    def _take_loop_flags(self) -> tuple[bool, set[str], bool]:
+        """Take (and reset) what other threads asked of the loop: the
+        drain park, the migration parks, the drain flush. The leader of a
+        mesh takes them into the tick plan; one rank acts on them at
+        once."""
+        park_all = self._drain_park_requested
+        self._drain_park_requested = False
+        rids, self._park_rids = self._park_rids, set()
+        flush = self._drain_flush_requested
+        self._drain_flush_requested = False
+        return park_all, rids, flush
+
+    def _act_on_flags(self, park_all: bool, rids: set[str],
+                      flush: bool) -> None:
+        if park_all:
+            self._drain_park_all()
+        if rids:
+            self._park_requested(rids)
+        if flush:
+            self._drain_flush_all()
 
     def decode_graph_info(self) -> dict:
         """The decode graphs: keys captured, replays, eager bursts, capture
@@ -1743,34 +1880,39 @@ class EngineCore:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while self._running:
-            did_work = False
             try:
-                if self.coordinator is not None:
-                    self._lockstep_tick()
-                    if not self._running:
-                        break
-                if self._drain_park_requested:
-                    self._drain_park_requested = False
-                    self._drain_park_all()
-                if self._park_rids:
-                    rids, self._park_rids = self._park_rids, set()
-                    self._park_requested(rids)
-                if self._drain_flush_requested:
-                    self._drain_flush_requested = False
-                    self._drain_flush_all()
-                did_work |= self._run_calls()
-                did_work |= self._try_insert()
-                # At most ONE prefill chunk per iteration: decode steps run
-                # between chunks, so active slots keep emitting tokens during
-                # a long prompt's prefill.
-                did_work |= self._advance_prefill()
-                did_work |= self._decode_active()
+                did_work = self._iteration()
             except Exception:  # boundary: fail the requests, keep serving
                 log.exception("engine step failed; resetting engine state")
                 self._fail_all("engine step error")
                 self._reset_caches()
+                did_work = False
             if not did_work:
                 time.sleep(0.001)
+
+    def _iteration(self) -> bool:
+        """One pass of the step loop; whether it did any work. On a mesh it
+        starts with the tick plan's exchange, and the loop's flags and the
+        forwards come from the plan, so every rank acts on them at this
+        tick."""
+        if self.coordinator is not None:
+            self._lockstep_tick()
+            if not self._running:
+                return False
+            flags, self._tick_flags = self._tick_flags, (False, set(), False)
+        else:
+            flags = self._take_loop_flags()
+            self._take_calls()
+        self._act_on_flags(*flags)
+        did_work = self._run_plan_calls()
+        did_work |= self._run_calls()
+        did_work |= self._try_insert()
+        # At most ONE prefill chunk per iteration: decode steps run between
+        # chunks, so active slots keep emitting tokens during a long
+        # prompt's prefill.
+        did_work |= self._advance_prefill()
+        did_work |= self._decode_active()
+        return did_work
 
     def _reset_caches(self) -> None:
         # the zeroed cache holds no prefix any more
@@ -1797,15 +1939,20 @@ class EngineCore:
             return request.cancelled
         return request.request_id in self._cancelled_effective
 
-    def _collect_plan(self) -> dict:
+    def _collect_plan(self, section: str | None = None) -> dict:
         """Leader: drain the intake into this tick's plan and gather the
-        cancellations. A request cancelled or past its deadline before any
-        plan ends here, on the leader alone (no rank runs a forward for
-        it), and the plan's payload is bounded here: a batch over budget
-        spills to the next tick's backlog in arrival order, and a single
-        request too large for any plan ends with an error, never a raise
+        cancellations, the drain, the loop's flags and the planned
+        forwards (`section`: the split's lock section this tick runs). A
+        request cancelled or past its deadline before any plan ends here,
+        on the leader alone (no rank runs a forward for it), and the
+        plan's payload is bounded here: its requests' ids and its
+        forwards' inputs share one budget, what is over it waits for the
+        next tick in arrival order, and a single request or forward too
+        large for any plan ends with an error, never a raise
         mid-broadcast."""
-        budget = _MAX_PLAN_BYTES // 8  # ~int tokens, pickled with overhead
+        # ~ids: a request's are pickled ints (at most 5 bytes each), a
+        # forward's an int32 array, so the plan's other items have room
+        budget = _MAX_PLAN_BYTES // 8
         candidates = self._plan_backlog
         self._plan_backlog = []
         while True:
@@ -1825,6 +1972,8 @@ class EngineCore:
                              event="shed", reason="deadline")
                 continue
             n = len(req.prompt_ids)
+            if req.parked is not None:
+                n += len(req.parked.tokens)
             if n > budget:
                 self._finish(req, "error", "prompt too large for a tick plan")
                 continue
@@ -1843,38 +1992,137 @@ class EngineCore:
         cancelled = [r.request_id for r in in_flight
                      if r.cancelled
                      and r.request_id not in self._cancelled_effective]
+        # the loop's flags (a split engine serves none of them: C8) and the
+        # planned forwards (on the split's prefill side only)
+        flags = ((False, set(), False) if self.split is not None
+                 else self._take_loop_flags())
+        calls = []
+        while section in (None, "admit"):
+            try:
+                call = self._plan_calls.popleft()
+            except IndexError:
+                break
+            n = sum(a.size for a in call[0])
+            if n > budget:
+                self._refuse_calls([call], ValueError(
+                    f"a forward of {n} ids is too large for a tick plan"))
+                continue
+            if tokens + n > budget:
+                self._plan_calls.appendleft(call)
+                break
+            tokens += n
+            calls.append(call)
         return {"new": new, "cancelled": cancelled,
-                "stop": self._stop_requested}
+                "stop": self._stop_requested, "draining": self.draining,
+                "flags": flags, "calls": calls, "section": section}
 
     def _plan_wire(self, plan: dict) -> dict:
-        """The wire form of a plan: payloads in place of Request objects."""
+        """The wire form of a plan: payloads in place of Request objects and
+        of the callers waiting on the planned forwards."""
         return {
-            "new": [{"request_id": r.request_id,
-                     "prompt_ids": list(r.prompt_ids),
-                     "sampling": dataclasses.asdict(r.sampling)}
-                    for r in plan["new"]],
+            "new": [EngineCore._request_wire(r) for r in plan["new"]],
             "cancelled": plan["cancelled"],
             "stop": plan["stop"],
+            "draining": plan["draining"],
+            "flags": (plan["flags"][0], sorted(plan["flags"][1]),
+                      plan["flags"][2]),
+            "calls": [args for args, _, _ in plan["calls"]],
+            "section": plan["section"],
         }
+
+    @staticmethod
+    def _request_wire(r: Request) -> dict:
+        """A new request as the plan carries it: its id, prompt and
+        sampling (the handoff's emit window is its max_tokens), and what
+        the leader's service set on it: an adoption's committed ids and
+        generation count, the header of its shipped pages (the bytes go
+        over the mesh when they land), and the handoff's export flag."""
+        wire = {"request_id": r.request_id, "prompt_ids": list(r.prompt_ids),
+                "sampling": dataclasses.asdict(r.sampling)}
+        if r.parked is not None:
+            wire["parked"] = {"generated": r.parked.generated,
+                              "tokens": list(r.parked.tokens)}
+        if r.kv_restore is not None:
+            wire["kv_restore"] = dataclasses.asdict(r.kv_restore.header)
+        if r.export_kv:
+            wire["export_kv"] = True
+        return wire
+
+    def _shadow(self, payload: dict) -> Request:
+        """A follower's copy of a planned request (its events go unread):
+        an adoption's parked state rebuilt here, the grammar cursor and the
+        drafter from its committed ids, as the leader's service built them;
+        shipped pages as their header alone."""
+        req = Request(prompt_ids=payload["prompt_ids"],
+                      sampling=SamplingParams(**payload["sampling"]),
+                      request_id=payload["request_id"],
+                      export_kv=payload.get("export_kv", False))
+        parked = payload.get("parked")
+        if parked is not None:
+            try:
+                self._prepare_constraint(req)
+            except Exception:  # boundary: admission ends it with the error
+                pass
+            req.parked = self.adopted_state(
+                req.prompt_ids, parked["tokens"], req.sampling,
+                req.compiled_constraint, generated=parked["generated"])
+        header = payload.get("kv_restore")
+        if header is not None:
+            req.kv_restore = KVPages(header=KVWireHeader(**header),
+                                     sections={})
+        return req
+
+    def adopted_state(self, prompt_ids, committed: list[int],
+                      sampling: SamplingParams, compiled=None, *,
+                      generated: int | None = None) -> ParkedState:
+        """The parked state of a stream adopted at its `committed` ids, as
+        the reference's adopt_stream builds it (and every rank of a mesh
+        from the plan): the grammar cursor walked over the committed ids
+        (a start-state cursor would mask the continuation as if at the
+        start of the string) and, for a speculating request, the drafter
+        indexed over the prompt and the committed ids with its budget."""
+        cursor = None
+        if compiled is not None:
+            cursor = ConstraintState(compiled)
+            for t in committed:
+                cursor.advance(t)
+        spec_k = self.spec_budget(sampling)
+        drafter = None
+        if spec_k:
+            drafter = PromptLookupDrafter(prompt_ids,
+                                          max_ngram=self.spec.max_ngram,
+                                          min_ngram=self.spec.min_ngram)
+            for t in committed:
+                drafter.append(int(t))
+        return ParkedState(
+            generated=len(committed) if generated is None else generated,
+            tokens=list(committed), constraint=cursor, drafter=drafter,
+            spec_k=spec_k)
 
     def _apply_plan(self, plan: dict, local: dict | None) -> None:
         """Every rank: queue this tick's requests in plan order (the leader
-        its real Requests, followers shadows whose events go unread) and
-        mirror the cancellations and the stop."""
+        its real Requests, followers shadows whose events go unread),
+        mirror the cancellations, the drain, the stop, and keep the loop's
+        flags and the planned forwards for this tick."""
         if local is not None:
-            new = local["new"]
+            new, calls = local["new"], local["calls"]
         else:
-            new = [Request(prompt_ids=payload["prompt_ids"],
-                           sampling=SamplingParams(**payload["sampling"]),
-                           request_id=payload["request_id"])
-                   for payload in plan["new"]]
+            new = [self._shadow(payload) for payload in plan["new"]]
+            calls = [(args, None, None) for args in plan["calls"]]
         for req in new:
             if not self._plan_acquire(req):
                 continue
             self.pending.put(req)
         self._cancelled_effective |= set(plan["cancelled"])
+        self._plan_draining = plan["draining"]
+        if local is None:
+            self.draining = plan["draining"]
+        park_all, rids, flush = plan["flags"]
+        self._tick_flags = (park_all, set(rids), flush)
+        self._tick_calls = calls
         if plan["stop"]:
             self._running = False
+            self._refuse_plan_calls(RuntimeError("engine shutting down"))
 
     def _plan_acquire(self, request: Request) -> bool:
         """Pin a planned request's adapter, on every rank in plan order, so
@@ -1894,13 +2142,35 @@ class EngineCore:
                       wait_s=round(time.perf_counter() - t0, 6))
         return True
 
-    def _lockstep_tick(self) -> None:
-        local = None
-        wire = None
-        if self.coordinator.is_leader:
-            local = self._collect_plan()
-            wire = self._plan_wire(local)
-        self._apply_plan(self.coordinator.exchange(wire), local)
+    def _lockstep_tick(self, section: str | None = None) -> str | None:
+        """One exchange of the tick plan, applied on every rank. A split
+        engine names the lock section the leader runs next (`section`);
+        returns the plan's, which a follower runs."""
+        if not self.coordinator.is_leader:
+            plan = self.coordinator.exchange(None)
+            self._apply_plan(plan, None)
+            return plan["section"]
+        local = self._collect_plan(section)
+        try:
+            plan = self.coordinator.exchange(self._plan_wire(local))
+        except PlanTooLarge as e:
+            # refused before a byte went out: this plan's requests and
+            # forwards end here, and the rest of it goes without them
+            self._drop_planned(local, str(e))
+            local = dict(local, new=[], calls=[])
+            plan = self.coordinator.exchange(self._plan_wire(local))
+        except BaseException:
+            self._drop_planned(local, "engine step error")
+            raise
+        self._apply_plan(plan, local)
+        return plan["section"]
+
+    def _drop_planned(self, local: dict, message: str) -> None:
+        """End a collected plan's requests and forwards that no rank will
+        apply, on the leader, whose callers wait on them."""
+        for req in local["new"]:
+            self._finish(req, "error", message)
+        self._refuse_calls(local["calls"], RuntimeError(message))
 
     def _bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -2247,7 +2517,7 @@ class EngineCore:
     def _try_insert(self) -> bool:
         self._prefill_spent_iter = 0  # the first call of every iteration
         plan_start = time.perf_counter()
-        if self.draining:
+        if self._loop_draining:
             # nothing new is admitted or re-activated: parked work stays
             # queued until the drain's flush
             return False
@@ -3504,36 +3774,45 @@ class EngineCore:
                     "v_q": self.cache_v["q"], "v_s": self.cache_v["s"]}
         return {"k": self.cache_k, "v": self.cache_v}
 
-    def _gather_kv_sections(self, pages: list[int]) -> dict[str, np.ndarray]:
+    def _gather_kv_sections(self, pages: list[int], *,
+                            whole: bool = False) -> dict[str, np.ndarray]:
         """The named pool pages as host wire sections [L, P', PS, K, D]
         (int8 pools: codes and scales): one index_select over each pool and
         one device-to-host copy per section. A plain read: the pool is
-        untouched, so gathering before a free is safe."""
+        untouched, so gathering before a free is safe. This rank's KV
+        heads, or with `whole` the model's, gathered over tp in head order
+        (a collective: every rank of the mesh calls it)."""
         idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
         out = {}
         for name, pool in self._pool_sections().items():
-            t = pool.index_select(1, idx).cpu()
+            t = pool.index_select(1, idx)
+            if whole:
+                t = self.mesh.gather_heads(t, 3, self.cfg.num_kv_heads)
+            t = t.cpu()
             out[name] = (t.view(torch.int16) if t.dtype == torch.bfloat16
                          else t).numpy()
         return out
 
-    def _capture_kv(self, pages: list[int], tokens: int) -> KVPages:
+    def _capture_kv(self, pages: list[int], tokens: int, *,
+                    whole: bool = False) -> KVPages:
         return KVPages(header=self._kv_header(tokens, len(pages)),
-                       sections=self._gather_kv_sections(pages))
+                       sections=self._gather_kv_sections(pages, whole=whole))
 
     def _kv_export_payload(self, slot_id: int,
                            request: Request) -> dict | None:
         """The serialized pages of a finishing row's KV (the /v1/handoff
         envelope's `kv_pages`), or None when it holds none. The tokens are
         the host's seq_len, as a park's spill counts them: nothing the
-        burst wrote past the finish."""
+        burst wrote past the finish. On a mesh every rank gathers its heads
+        to the leader, which alone serializes (a follower returns None)."""
         tokens = int(self._seq_lens[slot_id])
         if tokens <= 0 or not self._slot_pages[slot_id]:
             return None
         pages = self._slot_pages[slot_id][:self._pages_for_tokens(tokens)]
         t0 = time.monotonic()
-        kvp = self._capture_kv(pages, tokens)
-        payload = serialize_kv_pages(kvp.header, kvp.sections)
+        kvp = self._capture_kv(pages, tokens, whole=True)
+        payload = (serialize_kv_pages(kvp.header, kvp.sections)
+                   if self.mesh.is_leader else None)
         dt = time.monotonic() - t0
         self._record_kv_ship(kvp.nbytes, dt)
         self._fr_emit(request, "kv_shipped", tokens=tokens, pages=len(pages),
@@ -3550,16 +3829,33 @@ class EngineCore:
         """Land the first len(fresh) shipped pages into pool pages `fresh`:
         one host-to-device copy and one index_copy_ per section. (The
         reference pads the page list to a power of two for XLA's program
-        cache; the land is not captured here, so it pads nothing.)"""
+        cache; the land is not captured here, so it pads nothing.) On a
+        mesh a wire payload is the leader's, of the model's every KV head:
+        its pages go to every rank in one broadcast a section, and each
+        keeps its own heads; the offload tier's copies are this rank's own
+        share already."""
         n = len(fresh)
         idx = torch.as_tensor(fresh, dtype=torch.int64, device=self.device)
+        over_mesh = not self.mesh.trivial and kvp.source == "wire"
+        shapes = expected_sections(kvp.header)
+        heads = self.mesh.kv_heads(self.cfg.num_kv_heads)
         for name, pool in self._pool_sections().items():
-            # writable and contiguous (a wire section is a read-only view)
-            rows = np.require(kvp.sections[name][:, :n],
-                              requirements=["C", "W"])
-            src = torch.from_numpy(rows)
-            if pool.dtype == torch.bfloat16:
-                src = src.view(torch.bfloat16)
+            if over_mesh:
+                shape = (shapes[name][0][0], n, *shapes[name][0][2:])
+                src = None
+                if self.mesh.is_leader:
+                    src = torch.from_numpy(np.ascontiguousarray(
+                        kvp.sections[name][:, :n])).view(pool.dtype)
+                src = self.mesh.broadcast(src, shape, pool.dtype,
+                                          self.device)[:, :, :, heads]
+            else:
+                # writable and contiguous (a wire section is a read-only
+                # view)
+                rows = np.require(kvp.sections[name][:, :n],
+                                  requirements=["C", "W"])
+                src = torch.from_numpy(rows)
+                if pool.dtype == torch.bfloat16:
+                    src = src.view(torch.bfloat16)
             pool.index_copy_(1, idx, src.to(self.device))
 
     def _insert_restored(self, slot_id: int, request: Request,
@@ -3644,20 +3940,34 @@ class EngineCore:
         pages = self._slot_pages[slot_id][:self._pages_for_tokens(tokens)]
         nbytes = len(pages) * kv_page_bytes(self.cfg, self.kv_page_size,
                                             self.quant.kv)
-        want_export = self.kv_ship and (self.draining or reason == "migrate")
+        want_export = self.kv_ship and (self._loop_draining
+                                        or reason == "migrate")
         tier = self.kv_offload
         want_tier = tier is not None and tier.would_admit(nbytes)
         if not (want_export or want_tier):
             return
         t0 = time.monotonic()
-        kvp = self._capture_kv(pages, tokens)
+        # the tier keeps this rank's heads; an export the model's, gathered
+        # over tp to the leader, which alone serializes it
+        if want_export and self.mesh.shape["tp"] > 1:
+            whole = self._capture_kv(pages, tokens, whole=True)
+            kvp = whole
+            if want_tier:
+                heads = self.mesh.kv_heads(self.cfg.num_kv_heads)
+                kvp = KVPages(header=whole.header, sections={
+                    name: np.ascontiguousarray(a[:, :, :, heads])
+                    for name, a in whole.sections.items()})
+        else:
+            kvp = whole = self._capture_kv(pages, tokens)
         kvp.source = "offload"
         self._record_kv_ship(kvp.nbytes, time.monotonic() - t0)
         dest = []
         if want_export:
-            payload = serialize_kv_pages(kvp.header, kvp.sections)
-            with self._lock:
-                self._kv_exports[gateway_rid(request.request_id)] = payload
+            if self.mesh.is_leader:
+                payload = serialize_kv_pages(whole.header, whole.sections)
+                with self._lock:
+                    self._kv_exports[gateway_rid(request.request_id)] = (
+                        payload)
             dest.append("export")
         if want_tier and tier.put_parked(request.request_id, kvp):
             dest.append("offload")

@@ -31,7 +31,6 @@ from llmlb_tpu_torch.engine.kv_transfer import (
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.engine.scheduler import (
     EngineCore,
-    ParkedState,
     Request,
     SamplingParams,
 )
@@ -44,8 +43,7 @@ from llmlb_tpu_torch.engine.tokenizer import (
 )
 from llmlb_tpu_torch.engine.weights import load_checkpoint, load_config
 from llmlb_tpu_torch.quant import parse_quant_mode
-from llmlb_tpu_torch.spec import PromptLookupDrafter
-from llmlb_tpu_torch.structured import ConstraintCompiler, ConstraintState
+from llmlb_tpu_torch.structured import ConstraintCompiler
 
 
 class EngineError(RuntimeError):
@@ -284,39 +282,17 @@ class Engine:
                 prompt_tokens=len(prompt_ids),
                 completion_tokens=len(committed), token_ids=committed)])
         compiled = self._compile(sampling)
-        cursor = None
-        if compiled is not None:
-            # at its handoff position: a start-state cursor would mask the
-            # continuation as if at the beginning of the string
-            cursor = ConstraintState(compiled)
-            for t in committed:
-                cursor.advance(t)
-        drafter, spec_k = self._drafter_of(prompt_ids, committed, sampling)
+        # the cursor at its handoff position and the drafter, as every rank
+        # of a mesh rebuilds them from the tick plan
         request = Request(
             prompt_ids=list(prompt_ids), sampling=sampling,
             request_id=_request_id(request_id),
-            parked=ParkedState(generated=len(committed), tokens=committed,
-                               constraint=cursor, drafter=drafter,
-                               spec_k=spec_k),
+            parked=self.core.adopted_state(prompt_ids, committed, sampling,
+                                           compiled),
             kv_restore=self._kv_restore_of(kv_pages, committed),
             compiled_constraint=compiled)
         self._submit(request)
         return self._deltas(request, stop, committed)
-
-    def _drafter_of(self, prompt_ids, committed: list[int],
-                    sampling: SamplingParams):
-        """(drafter, draft budget) of an adopted stream, as the reference's
-        adopt_stream builds them: (None, 0) unless the request speculates;
-        the drafter indexes prompt and committed tokens."""
-        spec_k = self.core.spec_budget(sampling)
-        if not spec_k:
-            return None, 0
-        spec = self.core.spec
-        drafter = PromptLookupDrafter(prompt_ids, max_ngram=spec.max_ngram,
-                                      min_ngram=spec.min_ngram)
-        for t in committed:
-            drafter.append(int(t))
-        return drafter, spec_k
 
     def _kv_restore_of(self, kv_pages: dict | None, committed: list[int]):
         """The parsed pages an adoption lands, or None after counting the
@@ -450,6 +426,9 @@ class Engine:
     # One encode forward takes at most this many rows, and a request at
     # most MAX_EMBED_INPUTS inputs (OpenAI's limit), as in the reference.
     _EMBED_CHUNK = 64
+    # padded ids in one forward, at most: a forward rides a tick plan on a
+    # mesh, whose budget (engine/multihost.py) it must fit
+    _EMBED_IDS = 1 << 20
     MAX_EMBED_INPUTS = 2048
 
     def supports_embeddings(self) -> bool:
@@ -472,11 +451,6 @@ class Engine:
         if len(batch_ids) > self.MAX_EMBED_INPUTS:
             raise ValueError(f"at most {self.MAX_EMBED_INPUTS} inputs per "
                              f"request (got {len(batch_ids)})")
-        if self.core.coordinator is not None:
-            # a forward on the leader alone would leave the followers out
-            # of its collectives
-            raise ValueError("embeddings are not served by a multi-rank "
-                             "engine yet")
         longest = max(len(x) for x in batch_ids)
         limit = self.core.cfg.max_position_embeddings
         if longest > limit:
@@ -491,11 +465,13 @@ class Engine:
         return self._embed_sync(batch_ids)
 
     def _embed_sync(self, batch_ids: list[list[int]]) -> list[list[float]]:
-        """Encode forwards of at most _EMBED_CHUNK rows, each row padded to
-        its OWN power-of-two bucket (16 and up), one forward per bucket: a
-        row's vector then depends on no other input of the request (on the
-        card, cuBLAS picks a product's sums by its shape). The forwards run
-        on the step loop's thread, between its iterations."""
+        """Encode forwards of at most _EMBED_CHUNK rows and _EMBED_IDS
+        padded ids, each row padded to its OWN power-of-two bucket (16 and
+        up), one forward per bucket: a row's vector then depends on no
+        other input of the request (on the card, cuBLAS picks a product's
+        sums by its shape). The forwards run
+        on the step loop's thread, between its iterations (on a mesh on
+        every rank, from the tick plan: `EngineCore.encode`)."""
         out: list[list[float] | None] = [None] * len(batch_ids)
         by_bucket: dict[int, list[int]] = {}
         for i, toks in enumerate(batch_ids):
@@ -503,20 +479,16 @@ class Engine:
             while bucket < len(toks):
                 bucket *= 2
             by_bucket.setdefault(bucket, []).append(i)
-        dev = self.core.device
         for bucket, rows in sorted(by_bucket.items()):
-            for start in range(0, len(rows), self._EMBED_CHUNK):
-                chunk = rows[start:start + self._EMBED_CHUNK]
-                ids = np.zeros((len(chunk), bucket), np.int64)
+            step = max(1, min(self._EMBED_CHUNK, self._EMBED_IDS // bucket))
+            for start in range(0, len(rows), step):
+                chunk = rows[start:start + step]
+                ids = np.zeros((len(chunk), bucket), np.int32)
                 lens = np.zeros((len(chunk),), np.int32)
                 for r, i in enumerate(chunk):
                     ids[r, :len(batch_ids[i])] = batch_ids[i]
                     lens[r] = len(batch_ids[i])
-                vecs = self.core.call_in_loop(
-                    lambda ids=ids, lens=lens: self.core.family.encode(
-                        self.core.params, self.core.model_cfg,
-                        torch.from_numpy(ids).to(dev),
-                        torch.from_numpy(lens).to(dev)).cpu())
+                vecs = self.core.encode(ids, lens)
                 for r, vec in zip(chunk, vecs.tolist()):
                     out[r] = vec
         return out

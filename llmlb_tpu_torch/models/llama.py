@@ -390,7 +390,7 @@ def _sharder(cfg: LlamaConfig, mesh: Mesh | None, axes: dict[str, tuple]):
         x = shard_leaf(full, axes[name], rules, mesh)
         if replicated_kv and name in _KV_LEAVES:
             d = cfg.head_dim_
-            head = mesh.coord["tp"] // (tp // cfg.num_kv_heads)
+            head = mesh.kv_heads(cfg.num_kv_heads).start
             x = x.narrow(x.dim() - 1, head * d, d)
         return x.clone()
 

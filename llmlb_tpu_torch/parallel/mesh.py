@@ -21,8 +21,8 @@ inserts the collectives. Here a rank is one process holding one card (or,
 in the tests, one CPU process): `Mesh` knows this rank's coordinate on
 each axis and keeps one torch.distributed process group per axis, and the
 model code calls the collectives it needs by name (`all_reduce`,
-`all_gather`, `ppermute`, `broadcast_bytes`, `gather_rows`). On a world
-of one rank
+`all_gather`, `ppermute`, `broadcast_bytes`, `gather_rows`; the engine's
+KV page moves `gather_heads` and `broadcast`). On a world of one rank
 every collective is the identity and no process group exists.
 
 Determinism: ranks of a lockstep engine sample with the same generator,
@@ -273,6 +273,62 @@ class Mesh:
         self.stats["calls"] += 1
         self.stats["bytes"] += sent.numel() * sent.element_size()
         self.stats["seconds"] += time.perf_counter() - t0
+
+    def broadcast(self, x: torch.Tensor | None, shape, dtype,
+                  device) -> torch.Tensor:
+        """The leader's tensor `x` (others pass None) on every rank of the
+        world, of `shape` and `dtype`, on `device`: one broadcast from
+        rank 0 on the mesh's backend (gloo's through host memory, NCCL's
+        on the card)."""
+        if self.trivial:
+            return x.to(device)
+        if not self.connected:
+            raise RuntimeError("broadcast on a mesh with no process groups")
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        where = "cpu" if self.backend == "gloo" else device
+        buf = (x.to(where).contiguous() if self.is_leader
+               else torch.empty(shape, dtype=dtype, device=where))
+        dist.broadcast(buf, src=0)
+        self._count(buf, t0)
+        return buf.to(device)
+
+    def gather_heads(self, x: torch.Tensor, dim: int,
+                     num_heads: int) -> torch.Tensor:
+        """The whole `num_heads` heads of `x` on every rank, in head order,
+        from each tp rank's own along `dim` (`kv_heads`): one all_gather
+        over tp, of bytes. Where tp exceeds num_heads a head is held by
+        several ranks, and the first of them gives it."""
+        tp = self.shape["tp"]
+        if tp == 1:
+            return x
+        heads = x.movedim(dim, 0).contiguous()
+        rows = heads.reshape(heads.shape[0], -1).view(torch.uint8)
+        every = self.all_gather(rows, "tp", dim=0)
+        if tp > num_heads:
+            first: dict[int, int] = {}
+            for c in range(tp):
+                first.setdefault(self.kv_heads(num_heads, c).start, c)
+            every = every[sorted(first.values())]
+        return (every.contiguous().view(x.dtype)
+                .reshape(num_heads, *heads.shape[1:]).movedim(0, dim))
+
+    def kv_heads(self, num_heads: int, coord: int | None = None) -> slice:
+        """The KV heads the rank at tp `coord` (default: this rank) holds of
+        `num_heads`: its block of them over tp, or, where tp exceeds their
+        count, the one its q heads read. The one rule of the KV heads'
+        layout: the shards (models/llama.py `shard_params`), the pages and
+        their exports read it here."""
+        tp = self.shape["tp"]
+        if tp == 1:
+            return slice(0, num_heads)
+        c = self.coord["tp"] if coord is None else coord
+        if num_heads >= tp:
+            per = num_heads // tp
+            return slice(c * per, (c + 1) * per)
+        head = c // (tp // num_heads)
+        return slice(head, head + 1)
 
     def broadcast_bytes(self, payload: bytes | None) -> bytes:
         """Rank 0's `payload` on every rank (others pass None): its length,

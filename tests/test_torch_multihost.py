@@ -83,7 +83,8 @@ def test_speculative_and_constraint_ride_the_wire_verbatim():
 
 def test_plan_wire_matches_engine_implementation():
     req = Request(prompt_ids=[1, 2], sampling=_probe_params())
-    plan = {"new": [req], "cancelled": [], "stop": False}
+    plan = {"new": [req], "cancelled": [], "stop": False, "draining": False,
+            "flags": (False, set(), False), "calls": [], "section": None}
     wire = EngineCore._plan_wire(None, plan)  # self unused in _plan_wire
     assert wire["new"][0]["sampling"] == dataclasses.asdict(req.sampling)
     assert SamplingParams(**wire["new"][0]["sampling"]) == req.sampling
@@ -188,9 +189,11 @@ def test_engine_worker_mode_matches_one_rank_engine(ranks):
 
 
 def test_refusals_under_a_coordinator(ranks):
-    """What a coordinator still refuses: split, graphs on gloo, adapters
-    across hosts (the reference's wording; one host's ranks serve them,
-    tests/test_torch_lora_mesh.py), and an MoE engine at dp > 1 (A18c).
+    """What a coordinator still refuses: graphs on gloo, adapters and a
+    split across hosts (the reference's wording; one host's ranks serve
+    them, tests/test_torch_lora_mesh.py and tests/test_torch_mesh_leader.py),
+    and an MoE engine at dp > 1 (A18c). One host's ranks serve --role
+    split, KV shipping and the offload tier, which stay off across hosts.
     dp > 1 inside one Llama engine is served: its greedy ids are a
     one-rank engine's, on both ranks."""
     cfg = get_preset("debug-tiny")
@@ -205,14 +208,16 @@ def test_refusals_under_a_coordinator(ranks):
         core.stop()
     for r in ranks:
         ref = r["refusals"]
-        assert "--role split is single-host only" in ref["split"]
+        assert ref["split"] is None
+        assert "--role split is single-host only" in ref["split_hosts"]
         assert ref["lora"] == (
             "--lora-dir is single-host only for now: followers have no "
             "deterministic mirror of the leader's adapter pool slot "
             "assignment")
         assert "A18c" in ref["moe_dp"] and "dp > 1" in ref["moe_dp"]
         assert "decode_graphs=True" in ref["graphs"] and "gloo" in ref["graphs"]
-        assert r["ship_offload"] == (False, None)
+        assert r["ship_offload"] == (True, 1 << 20)
+        assert r["ship_offload_hosts"] == (False, None)
         assert r["n_chips"] == 2
         assert r["dp_mesh"] == {"dp": 2, "sp": 1, "ep": 1, "tp": 1}
         assert [ids for ids, _ in r["dp_served"]] == one_rank

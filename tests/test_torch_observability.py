@@ -651,9 +651,18 @@ def test_engine_records_every_dispatch_kind(port_server):
     from llmlb_tpu_torch.engine.scheduler import SamplingParams
 
     engine, _ = port_server
-    engine.complete(list(range(1, 40)), SamplingParams(temperature=0.0,
-                                                       max_tokens=5),
-                    request_id="gw-kinds-1")
+    # The slow-step detector stays disarmed for this request: on a loaded
+    # host a step past its floor (20 ms) adds a slow_step event to the
+    # timeline, which this test does not drive (the slow-step test does).
+    stats = engine.core.step_stats
+    old = stats.slow_ratio, stats.slow_floor_s
+    stats.slow_ratio = stats.slow_floor_s = float("inf")
+    try:
+        engine.complete(list(range(1, 40)), SamplingParams(temperature=0.0,
+                                                           max_tokens=5),
+                        request_id="gw-kinds-1")
+    finally:
+        stats.slow_ratio, stats.slow_floor_s = old
     recs = engine.core.step_stats.snapshot(limit=64)["records"]
     mine = [r for r in recs if "gw-kinds-1" in r["request_ids"].values()]
     kinds = [r["kind"] for r in reversed(mine)]

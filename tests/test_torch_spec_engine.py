@@ -412,12 +412,14 @@ def test_adopted_stream_gets_a_drafter_over_prompt_and_committed(weights):
     full = _serve(engine.core, [_req(PROMPT, dict(temperature=0.0), None,
                                      max_tokens=24)])[0][0]
     committed = full[:6]
-    drafter, k = engine._drafter_of(PROMPT, committed, sampling)
+    state = engine.core.adopted_state(PROMPT, committed, sampling)
+    drafter, k = state.drafter, state.spec_k
     ref = PromptLookupDrafter(PROMPT + committed)
     assert k == 4 and drafter.tokens == ref.tokens
     assert drafter.propose(4) == ref.propose(4)
-    assert engine._drafter_of(PROMPT, committed, SamplingParams(
-        speculative={"enabled": False})) == (None, 0)
+    off = engine.core.adopted_state(PROMPT, committed, SamplingParams(
+        speculative={"enabled": False}))
+    assert (off.drafter, off.spec_k) == (None, 0)
     engine.core.start()
     try:
         deltas = list(engine.adopt_stream(PROMPT, committed, sampling))

@@ -306,8 +306,12 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
     cfg = get_preset("debug-tiny")
     kw = dict(num_slots=2, slot_capacity=64, prefill_buckets=(16,),
               eos_id=-1, seed=0, device="cpu")
+    def ship_offload(core):
+        tier = core.kv_offload
+        return core.kv_ship, tier.budget_bytes if tier is not None else None
+
     core = EngineCore(cfg, **kw, kv_offload_bytes=1 << 20)
-    out["ship_offload"] = (core.kv_ship, core.kv_offload)
+    out["ship_offload"] = ship_offload(core)
     out["n_chips"] = core.perf_info()["n_chips"]
     if rank == 0:
         plan_bytes = scheduler._MAX_PLAN_BYTES
@@ -337,10 +341,13 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
             refusals[name] = None
         except ValueError as e:
             refusals[name] = str(e)
-    # adapters across hosts (one rank a host), and an MoE engine at dp
+    # adapters and a split across hosts (one rank a host), and an MoE
+    # engine at dp
     for name, env, conf, extra in (
             ("lora", {"LOCAL_WORLD_SIZE": "1"}, cfg,
              {"lora_dir": inputs["lora_dir"]}),
+            ("split_hosts", {"LOCAL_WORLD_SIZE": "1"}, cfg,
+             {"role": "split"}),
             ("moe_dp", {}, get_preset("debug-moe-tiny"),
              {"mesh_config": MeshConfig(dp=2, tp=1)})):
         os.environ.update(env)
@@ -352,6 +359,13 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
         finally:
             for k in env:
                 del os.environ[k]
+    # across hosts the pages stay put, as in the reference
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    try:
+        out["ship_offload_hosts"] = ship_offload(
+            EngineCore(cfg, **kw, kv_offload_bytes=1 << 20))
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
     out["refusals"] = refusals
     # dp > 1 inside one engine is served: two dp groups of one slot each
     core = EngineCore(cfg, **kw, mesh_config=MeshConfig(dp=2, tp=1))
@@ -599,9 +613,327 @@ def lora_mesh(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def _stream_ids(deltas) -> list[int]:
+    """Every id a service stream's deltas carry (an adoption's committed
+    ids come first)."""
+    return [t for d in deltas for t in d.token_ids]
+
+
+def _drive(core, rank: int, script, limit: int = 4000) -> list:
+    """Run a lockstep engine's loop on this thread, one iteration at a
+    time: before each, the leader runs `script(tick)`, whose True ends the
+    run (the stop rides that tick's plan); a follower iterates until the
+    plan stops it. Returns this rank's parks, (tick, slot, reason,
+    committed ids), in order."""
+    parks, tick = [], [0]
+    park = core._park_slot
+
+    def logged(slot_id, reason="preempt"):
+        parks.append((tick[0], slot_id, reason,
+                      len(core.slots[slot_id].out_tokens)))
+        park(slot_id, reason)
+
+    core._park_slot = logged
+    core._running = True
+    while core._running:
+        if rank == 0 and script(tick[0]):
+            core._stop_requested = True
+        core._iteration()
+        tick[0] += 1
+        if tick[0] > limit:
+            raise TimeoutError("driven engine did not stop")
+    return parks
+
+
+def _slot_of(core, request):
+    return next((i for i, s in enumerate(core.slots) if s.request is request),
+                None)
+
+
+def _local_rows(core, pages: list[int], tokens: int) -> dict:
+    """This rank's pool rows [0, tokens) over `pages`, by wire section, as
+    raw bytes."""
+    out = {}
+    for name, a in core._gather_kv_sections(pages).items():
+        flat = a.reshape(a.shape[0], a.shape[1] * a.shape[2], *a.shape[3:])
+        out[name] = flat[:, :tokens].tobytes()
+    return out
+
+
+def _migrate(core, rank: int, prompt: list, mt: int, park_at: int) -> dict:
+    """A migration park, driven: the leader parks the stream once it has
+    `park_at` ids (POST /v1/kv/export {"park": true}) and takes the export;
+    the row, requeued, comes back from the offload tier and finishes. Every
+    rank's parks, its own KV rows at the park, its tier's info and
+    counters; the leader's export and ids."""
+    from llmlb_tpu_torch.engine.scheduler import Request
+
+    seen = _mirror(core)
+    req = Request(prompt_ids=list(prompt), sampling=_sampling(mt),
+                  request_id="mig.0123abcd")
+    state: dict = {}
+    rows = {}
+    spill = core._spill_parked_slot
+
+    def spy(slot_id, request, reason):
+        tokens = int(core._seq_lens[slot_id])
+        rows["tokens"] = tokens
+        rows["rows"] = _local_rows(core, core._slot_pages[slot_id], tokens)
+        spill(slot_id, request, reason)
+
+    core._spill_parked_slot = spy
+
+    def script(tick):
+        if tick == 0:
+            core.submit(req)
+        slot = _slot_of(core, req)
+        if ("parked" not in state and slot is not None
+                and len(core.slots[slot].out_tokens) >= park_at):
+            core.request_park("mig")
+            state["parked"] = True
+        elif "parked" in state and "payload" not in state:
+            state["payload"] = core.take_kv_export("mig")
+        return req.finished_at is not None
+
+    parks = _drive(core, rank, script)
+    out = {"parks": parks, "rows": rows,
+           "ids": _tokens(seen[0]) if seen else None,
+           "offload": core.kv_offload.info(),
+           "transfer": {k: v for k, v in core.kv_transfer_info().items()
+                        if k in ("ship_total", "ship_bytes_total",
+                                 "restored_total", "restored_bytes_total")},
+           "prefills": core.prefill_dispatches}
+    if rank == 0:
+        out["payload"] = state.get("payload")
+    return out
+
+
+def _drain_parks(core, rank: int, prompts: list, mt: int,
+                 after: int) -> dict:
+    """A drain, driven: two rows decode; once both hold `after` ids the
+    leader begins the drain and asks for its park, a tick later for its
+    flush, and takes the parks' exports. Every rank's parks and each
+    request's ids and end; the leader's exports."""
+    from llmlb_tpu_torch.engine.scheduler import Request
+
+    seen = _mirror(core)
+    reqs = [Request(prompt_ids=list(p), sampling=_sampling(mt),
+                    request_id=f"dr{i}.0123abcd")
+            for i, p in enumerate(prompts)]
+    state: dict = {}
+
+    def script(tick):
+        if tick == 0:
+            for r in reqs:
+                core.submit(r)
+        slots = [_slot_of(core, r) for r in reqs]
+        if "drain" not in state:
+            if all(s is not None and len(core.slots[s].out_tokens) >= after
+                   for s in slots):
+                core.begin_drain()
+                core.request_drain_park()
+                state["drain"] = tick
+        elif "flush" not in state:
+            core.request_drain_flush()
+            state["flush"] = tick
+        else:
+            state["exports"] = [core.take_kv_export(f"dr{i}")
+                                for i in range(len(reqs))]
+            return True
+        return False
+
+    parks = _drive(core, rank, script)
+    ends = []
+    for r in seen:
+        toks, end = [], None
+        while not r.events.empty():
+            kind, val = r.events.get()
+            if kind == "token":
+                toks.append(int(val))
+            else:
+                end = (kind, val)
+        ends.append((toks, end))
+    out = {"parks": parks, "ends": ends, "drain_tick": state.get("drain"),
+           "draining": core.draining}
+    if rank == 0:
+        out["exports"] = state["exports"]
+    return out
+
+
+def _served(core, rank: int, body) -> list:
+    """Run `body(engine)` on the leader of a started lockstep engine (with
+    the service over it) and stop; a follower's loop ends on that plan.
+    Returns the ids of every request this rank mirrored (the leader's are
+    read by its streams: empty)."""
+    from llmlb_tpu_torch.engine.service import Engine
+    from llmlb_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    engine = Engine("debug-tiny", core, ByteTokenizer(core.cfg.vocab_size))
+    seen = _mirror(core)
+    core.start()
+    result = None
+    if rank == 0:
+        try:
+            result = body(engine)
+        finally:
+            engine.shutdown()
+    else:
+        core._thread.join()
+        engine.shutdown()
+    return result, [_tokens(r) for r in seen]
+
+
+def _embed_spill(core, rank: int, rows: list) -> tuple:
+    """Three embeddings queued before one tick, under a plan budget that
+    holds one 64-id forward: two of one row each, and one whose forward
+    (a 128-id row) no plan holds. Returns the leader's answers (each
+    vector, or the error) and this rank's encode forwards as (tick,
+    shape)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llmlb_tpu_torch.engine import scheduler
+
+    ticks = [0]
+    exchange = core.coordinator.exchange
+
+    def counted(plan):
+        ticks[0] += 1
+        return exchange(plan)
+
+    core.coordinator.exchange = counted
+    ran = []
+    encode = core._encode
+
+    def spy(ids, lens):
+        ran.append((ticks[0], tuple(ids.shape)))
+        return encode(ids, lens)
+
+    core._encode = spy
+    gate = threading.Event()
+    collect = core._collect_plan
+
+    def gated(section=None):
+        gate.wait()
+        return collect(section)
+
+    core._collect_plan = gated
+
+    def body(engine):
+        budget = scheduler._MAX_PLAN_BYTES
+        scheduler._MAX_PLAN_BYTES = 8 * 100  # 100 ids: one 64-id forward
+        try:
+            with ThreadPoolExecutor(3) as pool:
+                futs = [pool.submit(engine.embed, [row]) for row in rows]
+                _wait(lambda: len(core._plan_calls) == len(rows))
+                gate.set()
+                answers = []
+                for fut in futs:
+                    try:
+                        answers.append(fut.result(timeout=60)[0])
+                    except ValueError as e:
+                        answers.append(str(e))
+                return answers
+        finally:
+            gate.set()
+            scheduler._MAX_PLAN_BYTES = budget
+
+    answers, _ = _served(core, rank, body)
+    return answers, ran
+
+
+def mesh_leader(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_mesh_leader: the leader's actions on a lockstep engine of
+    one host's ranks over the JAX package's debug-tiny weights, at tp=2
+    (`inputs["axes"]` "tp") or dp=2 ("dp": the resume and the drain):
+    adoptions with committed ids (plain and under a schema), a migration
+    park exported and restored from the offload tier (fp32 and int8
+    pools), its export and a drain's landed by adoptions, the drain's park
+    and flush, embeddings (and forwards over the plan's budget), and a
+    split engine."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = get_preset("debug-tiny")
+    params = _params(inputs, cfg)
+    prompts, mt = inputs["prompts"], inputs["max_tokens"]
+    axes = MeshConfig(tp=2) if inputs["axes"] == "tp" else MeshConfig(
+        dp=2, tp=1)
+    kw = dict(num_slots=4, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=inputs["eos"], seed=0, device="cpu",
+              prefix_cache=False, mesh_config=axes)
+    spec, smt = inputs["schema"], inputs["schema_tokens"]
+    out = {}
+
+    def resume(engine):
+        got = {"plain": _stream_ids(engine.stream(prompts["a"],
+                                                  _sampling(mt)))}
+        got["schema"] = _stream_ids(engine.stream(
+            prompts["s"], _sampling(smt, constraint=spec)))
+        got["resumed"] = _stream_ids(engine.adopt_stream(
+            prompts["a"], got["plain"][:5], _sampling(mt)))
+        got["resumed_schema"] = _stream_ids(engine.adopt_stream(
+            prompts["s"], got["schema"][:4], _sampling(smt, constraint=spec)))
+        return got
+
+    core = EngineCore(cfg, params, **kw)
+    out["mesh"] = dict(core.mesh.shape)
+    out["resume"] = _served(core, rank, resume)
+    out["drain"] = _drain_parks(EngineCore(cfg, params, **kw), rank,
+                                [prompts["a"], prompts["b"]], mt, 4)
+    if inputs["axes"] == "dp":
+        return out
+    for name, quant in (("migrate", None), ("migrate_int8", "kv")):
+        core = EngineCore(cfg, params, quantize=quant,
+                          kv_offload_bytes=inputs["offload_bytes"], **kw)
+        out[name] = _migrate(core, rank, prompts["m"], mt, inputs["park_at"])
+
+    # the migration's export and the first drained row's, each landed by an
+    # adoption; every rank's landed rows
+    mig = out["migrate"]
+    exports = (mig.get("payload"), (out["drain"].get("exports") or [None])[0])
+    core = EngineCore(cfg, params, **kw)
+    landed = []
+    land = core._land_kv_pages
+
+    def spy(kvp, fresh):
+        land(kvp, fresh)
+        landed.append(_local_rows(core, fresh, kvp.header.tokens))
+
+    core._land_kv_pages = spy
+
+    def adopt(engine):
+        lead = out["drain"]["ends"][0][0]
+        n_mig = exports[0]["tokens"] + 1 - len(prompts["m"])
+        return [_stream_ids(engine.adopt_stream(
+                    prompts["m"], mig["ids"][:n_mig], _sampling(mt),
+                    kv_pages=exports[0])),
+                _stream_ids(engine.adopt_stream(
+                    prompts["a"], lead, _sampling(mt), kv_pages=exports[1]))]
+
+    out["land"] = _served(core, rank, adopt)
+    out["landed_rows"] = landed
+    out["land_prefills"] = core.prefill_dispatches
+    out["land_restored"] = core.kv_transfer_info()["restored_total"]
+
+    out["embed"] = _served(EngineCore(cfg, params, **kw), rank,
+                           lambda engine: engine.embed(inputs["embed"]))
+    out["embed_spill"] = _embed_spill(
+        EngineCore(cfg, params, **kw), rank,
+        [inputs["embed"][1], inputs["embed"][1], list(range(120))])
+    split = EngineCore(cfg, params, role="split", disagg_prefill_slots=2,
+                       **kw)
+    out["split"] = _served(split, rank, lambda engine: [
+        _stream_ids(d) for d in [engine.stream(prompts[k], _sampling(mt))
+                                 for k in ("a", "b", "long")]])
+    out["split_ledger"] = (dict(split.prefill_dispatch_by_loop),
+                           dict(split.decode_dispatch_by_loop))
+    return out
+
+
 WORKERS = {"tp_engine": tp_engine, "ring": ring, "moe_ep": moe_ep,
            "multihost": multihost, "dp_engine": dp_engine,
-           "lora_mesh": lora_mesh}
+           "lora_mesh": lora_mesh, "mesh_leader": mesh_leader}
 
 
 if __name__ == "__main__":
