@@ -335,7 +335,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              over gloo (NCCL refuses two ranks on one device; every
              collective then passes through host memory), with two or
              more one rank a card over NCCL. Rank 0 serves HTTP through
-             the port's server, rank 1 is a follower. Five sub-phases, each
+             the port's server, rank 1 is a follower. Six sub-phases, each
              a lockstep engine (4 slots, capacity 2048, eager bursts,
              greedy, random weights of seed 0): tp=2 over Llama-3-8B bf16
              paged at full width and MD_CUT_LAYERS of its 32 layers (16 q
@@ -353,7 +353,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
              ids and first logits bit for bit its cold run), the long
              prompt's pages on the rank that did not write them equal to
              the writer's bit for bit, and whether the ids, logits and KV
-             are one card's bits (logged); lora: tp=2 over Llama-3-8B
+             are one card's bits (logged); moe_dp: dp=2 over Mixtral at
+             full width and MIX_BF16_LAYERS layers (each rank the whole
+             model, ~25 GB), MD_MOE_ROWS ~200-token prompts queued before
+             the loop starts: one prefill group over both dp groups in the
+             capacity regime (4 x 256 tokens), whose MoE layers gather the
+             groups' hidden rows over dp and run the whole batch's
+             dispatch on every rank; then the ep sub-phase's ~600-token
+             prompt in a slot of each dp group and its chat (chunks: #3
+             on both ranks); the group's capacity drops a layer
+             (`_Drops`) more than zero, alike on both ranks and one card's
+             for the same batch (the ep sub-phase's one-card engine serves
+             the group queued at once after its own prompts, and the fp32
+             computation prefills the group in one dispatch), and whether
+             ids and logits are one card's bits (logged); lora: tp=2 over
+             Llama-3-8B
              with the LoRA serve phase's two adapters (the pools sharded
              like their weights), a chat with an adapter over HTTP, then
              an adapter-free, an acme and a beta row, beta's loaded cold
@@ -6398,6 +6412,7 @@ class _Drops:
         from llmlb_tpu_torch.ops.moe import capacity_drops
 
         self.calls: list[int] = []
+        self.tokens: list[int] = []  # each call's B * T (padding in)
         self.checked = 0
         orig = self.orig = mixtral.moe_dispatch_combine
 
@@ -6407,6 +6422,7 @@ class _Drops:
 
             self.calls.append(capacity_drops(logits, num_selected, capacity,
                                              token_valid))
+            self.tokens.append(logits.shape[0])
             out = orig(x, logits, *w, num_selected=num_selected,
                        capacity=capacity, token_valid=token_valid, **kw)
             if check:
@@ -6425,7 +6441,7 @@ class _Drops:
 
     def take(self) -> list[int]:
         """The drops of each layer call since the last take."""
-        out, self.calls = self.calls, []
+        out, self.calls, self.tokens = self.calls, [], []
         return out
 
     def close(self) -> None:
@@ -7486,19 +7502,25 @@ MD_MIX_WORDS = 150  # the Mixtral prompt: ~600 tokens, chunked at 512
 MD_ACCURACY = 2.0
 MD_FLOOR = 2.0**-9
 MD_PATH = {"tp": BF16_PATH, "sp": ("flash_prefill", "paged_flash_decode"),
-           "ep": BF16_PATH, "dp": BF16_PATH,
+           "ep": BF16_PATH, "dp": BF16_PATH, "moe_dp": BF16_PATH,
            "lora": ("flash_prefill", "paged_flash_decode", "lora_delta")}
 # the LoRA sub-phase's rows: (chat, adapter); the last row's adapter loads
 # cold while the others decode
 MD_LORA_ROWS = ((0, None), (1, "acme"), (2, "beta"))
 # each sub-phase's mesh, and the chats it sends over HTTP first (lora: one,
-# with an adapter)
-MD_SUBS = ("tp", "sp", "ep", "dp", "lora")
+# with an adapter; moe_dp none: its group is queued before the loop starts)
+MD_SUBS = ("tp", "sp", "ep", "dp", "moe_dp", "lora")
 # the depth of the Llama sub-phases of MD_SUBS and their one-card
 # references (full width): the whole script then keeps headroom under its
 # time limit; the leader's actions run at full depth
 MD_CUT_LAYERS = 8
-MD_HTTP = {"tp": 3, "sp": 1, "ep": 1, "dp": 3, "lora": 1}
+MD_HTTP = {"tp": 3, "sp": 1, "ep": 1, "dp": 3, "moe_dp": 0, "lora": 1}
+# the MoE dp sub-phase's group: MD_MOE_ROWS prompts of ~200 tokens (bucket
+# 256), one prefill group over both dp groups in the capacity regime
+MD_MOE_ROWS, MD_MOE_WORDS = 4, 55
+# then the ep sub-phase's prompts (by index): the long one, the chat, the
+# long one again, in slots 0, 1 and 2 (dp groups 0, 0, 1)
+MD_MOE_AFTER = (1, 0, 1)
 # the leader's actions on one host's ranks (A18c): two sub-phases at tp=2
 # over Llama-3-8B; the leader's host tier, counted over whole pages
 MD_LEADER_SUBS = ("leader", "split")
@@ -7526,6 +7548,11 @@ def _md_prompts() -> dict:
     mix_text = " ".join(f"m{i % 89}" for i in range(MD_MIX_WORDS))
     return {"llama": [chat(c) for c in MD_CHATS] + [chat(long_text)],
             "mixtral": [chat(MD_CHATS[0]), chat(mix_text)],
+            # the moe_dp sub-phase's group (short, repetitive rows: an
+            # expert's share of the batch's tokens passes its capacity)
+            "moe_dp": [chat(f"Row {i}: " + " ".join(
+                f"d{j * (i + 1) % 7}" for j in range(MD_MOE_WORDS)))
+                for i in range(MD_MOE_ROWS)],
             # the dp sub-phase's prefix-hit prompt: the long prompt at the
             # same length with a head of its own
             "dp_q": chat(_first_word(long_text, 7)),
@@ -7545,7 +7572,7 @@ def _md_cfg(sub: str):
 
     from llmlb_tpu_torch.engine.presets import get_preset
 
-    if sub == "ep":
+    if sub in ("ep", "moe_dp"):
         return dataclasses.replace(get_preset("mixtral-8x7b"),
                                    num_layers=MIX_BF16_LAYERS)
     if sub in MD_SUBS:
@@ -7594,32 +7621,54 @@ def _md_lora_idx(core, adapter: str | None):
                         device="cuda")
 
 
-def _md_margins(core, prompt: list[int], ids: list[int],
-                adapter: str | None = None):
-    """One card's top-2 logit margins along a greedy stream: the prompt
-    prefilled in one dispatch into a scratch pool, then the stream's ids
-    (but the last) as one verify chunk, logits at every position (with
-    the row's adapter, on a LoRA engine)."""
+def _md_group(core, prompts: list[list[int]]):
+    """The rows of one prefill dispatch of `prompts` as the scheduler lays
+    out a group: the count padded to a power of two by repeating the last
+    row, at the bucket of the longest (one prompt: its own length); (ids
+    [B, T], lens [B]) on the card."""
+    import torch
+
+    rows = list(prompts)
+    while len(rows) & (len(rows) - 1):
+        rows.append(rows[-1])
+    t = (core._bucket_for(max(map(len, rows))) if len(prompts) > 1
+         else len(rows[0]))
+    ids = torch.zeros((len(rows), t), dtype=torch.int64, device="cuda")
+    for i, p in enumerate(rows):
+        ids[i, :len(p)] = torch.tensor(p, device="cuda")
+    return ids, torch.tensor([len(p) for p in rows], dtype=torch.int32,
+                             device="cuda")
+
+
+def _md_margins(core, prompts: list[list[int]], streams: list[list[int]],
+                adapter: str | None = None) -> list:
+    """One card's top-2 logit margins along greedy streams: the prompts
+    prefilled in one dispatch into a scratch pool (`_md_group`: a group
+    queued together, whose capacity dispatch couples its rows in an MoE),
+    then each stream's ids (but the last) as one verify chunk, logits at
+    every position (with the row's adapter, on a LoRA engine)."""
     import torch
 
     cfg, fam = core.model_cfg, core.family
-    n, t = len(prompt), len(ids) - 1
+    ids, lens = _md_group(core, prompts)
+    t = len(streams[0]) - 1
     ps = core.kv_page_size
-    pages = -(-(n + t + 1) // ps)
-    ck, cv = fam.init_kv_pages(cfg, pages + 1, ps, "cuda")
+    per = -(-(ids.shape[1] + t + 1) // ps)
+    b = ids.shape[0]
+    ck, cv = fam.init_kv_pages(cfg, b * per + 1, ps, "cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
-    tables = torch.arange(1, pages + 1, **i32)[None]
+    tables = torch.arange(1, b * per + 1, **i32).view(b, per)
     lidx = _md_lora_idx(core, adapter)
-    first, _, _ = fam.prefill_into_pages(
-        core.params, cfg, torch.tensor([prompt], device="cuda"),
-        torch.tensor([n], **i32), tables, ck, cv, lora_idx=lidx)
+    lidx = None if lidx is None else lidx.expand(b).contiguous()
+    first, _, _ = fam.prefill_into_pages(core.params, cfg, ids, lens, tables,
+                                         ck, cv, lora_idx=lidx)
+    tail = [streams[min(i, len(streams) - 1)][:-1] for i in range(b)]
     rest, _, _ = fam.verify_step_paged(
-        core.params, cfg, torch.tensor([ids[:-1]], device="cuda"),
-        torch.tensor([t], **i32), torch.tensor([n], **i32), tables, ck, cv,
-        lora_idx=lidx)
-    logits = torch.cat([first[:, None], rest], dim=1)[0]
+        core.params, cfg, torch.tensor(tail, device="cuda"),
+        torch.full((b,), t, **i32), lens, tables, ck, cv, lora_idx=lidx)
+    logits = torch.cat([first[:, None], rest], dim=1)[:len(prompts)]
     top2 = logits.topk(2, dim=-1).values
-    return (top2[:, 0] - top2[:, 1]).cpu()
+    return list((top2[..., 0] - top2[..., 1]).cpu())
 
 
 def _md_encode(core, params, cfg, batch: list[list[int]]) -> list:
@@ -7641,12 +7690,13 @@ def _md_encode(core, params, cfg, batch: list[list[int]]) -> list:
 
 
 def _md_fp32(core, prompts: list[list[int]], kv_of: int | None,
-             adapters=None, embed=()):
+             adapters=None, embed=(), together=()):
     """The fp32 computation of the same weights, the yardstick both the
     one-card run and the ranks are measured by: the bf16 leaves widened to
     fp32 a leaf at a time (the engine's own leaves go as they widen, so it
     is spent after), each prompt prefilled alone in one fp32 dispatch
-    (with its adapter of `adapters`, on a LoRA engine); its last-position
+    (with its adapter of `adapters`, on a LoRA engine), then the
+    `together` prompts in one dispatch (`_md_group`); their last-position
     logits, with `kv_of` that prompt's KV [L, n, K, D] fp32 on the host,
     and the embedding vectors of the `embed` inputs."""
     import dataclasses
@@ -7672,20 +7722,33 @@ def _md_fp32(core, prompts: list[list[int]], kv_of: int | None,
         if i == kv_of:
             kv = [c[:, 1:].flatten(1, 2)[:, :len(p)].cpu() for c in (ck, cv)]
         del ck, cv
+    if together:
+        ids, lens = _md_group(core, together)
+        b, per = ids.shape[0], -(-ids.shape[1] // ps)
+        ck, cv = fam.init_kv_pages(cfg, b * per + 1, ps, "cuda")
+        out, _, _ = fam.prefill_into_pages(
+            params, cfg, ids, lens,
+            torch.arange(1, b * per + 1, **i32).view(b, per), ck, cv)
+        logits += list(out[:len(together)].cpu())
+        del ck, cv
     vectors = _md_encode(core, params, cfg, embed)
     del params
     return logits, kv, vectors
 
 
 def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None,
-                  adapters=None, lora_dir: str | None = None, embed=()):
+                  adapters=None, lora_dir: str | None = None, embed=(),
+                  together=()):
     """The one-card run a sub-phase is held against: a one-rank engine of
     MD_KW over `prompts` submitted together (each with its adapter of
-    `adapters`, served from `lora_dir`); each prompt's first-step logits
-    and MD_TOKENS greedy ids, the top-2 margins along each stream, with
-    `kv_of` that prompt's KV, and the fp32 computation's logits and KV
-    (`_md_fp32`), and the embedding vectors of the `embed` inputs, one
-    card's and the fp32 computation's. The engine is freed after."""
+    `adapters`, served from `lora_dir`), then the `together` prompts
+    queued at once from the step loop's thread, so they prefill in one
+    dispatch, with their capacity drops a layer (`_Drops`); each prompt's
+    first-step logits and MD_TOKENS greedy ids, the top-2 margins along
+    each stream, with `kv_of` that prompt's KV, and the fp32
+    computation's logits and KV (`_md_fp32`), and the embedding vectors
+    of the `embed` inputs, one card's and the fp32 computation's. The
+    engine is freed after."""
     import gc
 
     import torch
@@ -7705,20 +7768,35 @@ def _md_reference(sub: str, prompts: list[list[int]], kv_of: int | None,
             temperature=0.0, max_tokens=MD_TOKENS, lora=a)))
             for p, a in zip(prompts, adapters)]
         ids = [_md_drain(r) for r in reqs]
+        drops = []
+        if together:
+            counter = _Drops()
+            try:
+                late = core.call_in_loop(lambda: [core.submit(Request(
+                    prompt_ids=list(p), sampling=SamplingParams(
+                        temperature=0.0, max_tokens=MD_TOKENS)))
+                    for p in together])
+                ids += [_md_drain(r) for r in late]
+            finally:
+                counter.close()
+            drops = counter.take()
     finally:
         core.stop()
         if kv is not None:
             kv.close()
         spy.close()
-    ref = {"ids": ids,
+    ref = {"ids": ids, "drops": drops,
            "logits": [spy.get(p, a)[0].cpu()
-                      for p, a in zip(prompts, adapters)],
-           "margins": [_md_margins(core, p, i, a)
+                      for p, a in zip(list(prompts) + list(together),
+                                      adapters + [None] * len(together))],
+           "margins": [_md_margins(core, [p], [i], a)[0]
                        for p, i, a in zip(prompts, ids, adapters)],
            "kv": kv.kv if kv is not None else None,
            "embed": _md_encode(core, core.params, core.model_cfg, embed)}
+    if together:
+        ref["margins"] += _md_margins(core, list(together), ids[len(prompts):])
     ref["fp32"], ref["fp32_kv"], ref["fp32_embed"] = _md_fp32(
-        core, prompts, kv_of, adapters, embed)
+        core, prompts, kv_of, adapters, embed, together)
     ref["seconds"] = time.perf_counter() - t0
     del core, spy
     gc.collect()
@@ -7849,13 +7927,16 @@ def _md_mirror(core) -> list:
 
 def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     """One sub-phase on this rank: a lockstep engine over the sub-phase's
-    mesh (tp=2, sp=2, ep=2, dp=2 or tp=2 with two adapters), the leader
-    serving HTTP (the chats) and then the sub-phase's prompts on its core
-    (dp: then the prefix hit across groups; lora: the last row's adapter
-    loaded cold mid-run); every rank's launches, the ids of every request
-    it mirrored, and on the leader the first-step logits and, for sp and
-    dp, the long prompt's KV as the pages hold it (dp: a digest on every
-    rank)."""
+    mesh (tp=2, sp=2, ep=2, dp=2, dp=2 over Mixtral or tp=2 with two
+    adapters), the leader serving HTTP (the chats) and then the
+    sub-phase's prompts on its core (dp: then the prefix hit across
+    groups; moe_dp: its group queued before the loop starts, then the
+    Mixtral prompts of MD_MOE_AFTER; lora: the last row's adapter loaded cold
+    mid-run); every rank's launches, the ids of every request it
+    mirrored, and on the leader the first-step logits and, for sp and dp,
+    the long prompt's KV as the pages hold it (dp: a digest on every
+    rank; moe_dp: every rank's capacity drops a layer of the group's
+    dispatch)."""
     import gc
 
     import torch
@@ -7873,7 +7954,7 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     cfg = _md_cfg(sub)
     axes = {"tp": MeshConfig(tp=2), "sp": MeshConfig(sp=2, tp=1),
             "ep": MeshConfig(ep=2, tp=1), "dp": MeshConfig(dp=2, tp=1),
-            "lora": MeshConfig(tp=2)}[sub]
+            "moe_dp": MeshConfig(dp=2, tp=1), "lora": MeshConfig(tp=2)}[sub]
     kw = dict(MD_KW)
     if sub == "dp":
         kw["prefix_cache"] = True  # the cross-group hit
@@ -7883,7 +7964,8 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     core = EngineCore(cfg, None, device="cuda", mesh_config=axes, **kw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    engine = Engine("llama-3-8b" if sub != "ep" else "mixtral", core,
+    moe = sub in ("ep", "moe_dp")
+    engine = Engine("mixtral" if moe else "llama-3-8b", core,
                     ByteTokenizer(cfg.vocab_size))
     seen = _md_mirror(core)
     passes = [0]
@@ -7895,8 +7977,10 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
 
     core._cp_prefill_into_slot = counted
     leader = rank == 0
-    held = prompts["lora"] if sub == "lora" else prompts[
-        "mixtral" if sub == "ep" else "llama"]
+    held = {"lora": prompts["lora"], "ep": prompts["mixtral"],
+            "moe_dp": prompts["moe_dp"] + [prompts["mixtral"][i]
+                                           for i in MD_MOE_AFTER]}.get(
+                sub, prompts["llama"])
     adapters = ([a for _, a in MD_LORA_ROWS] if sub == "lora"
                 else [None] * len(held))
     spy = _LogitSpy(core) if leader or sub == "dp" else None
@@ -7904,15 +7988,33 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
     # rank's for dp (the exchange's copy against its writer's)
     kv = (_KVSpy(core, held[-1])
           if (leader and sub == "sp") or sub == "dp" else None)
+    drops = _Drops() if sub == "moe_dp" else None
+    # the MoE layers' gathers over dp: their share of the collectives
+    gathers = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    gather = core.mesh.gather_batch
+
+    def timed_gather(parts, rows):
+        before = dict(core.mesh.stats)
+        got = gather(parts, rows)
+        for k in gathers:
+            gathers[k] += core.mesh.stats[k] - before[k]
+        return got
+
+    core.mesh.gather_batch = timed_gather
     ca.reset_launch_counts()
     core.mesh.stats.update(calls=0, bytes=0, seconds=0.0)
     t1 = time.perf_counter()
-    core.start()
-    http = []
 
     def submit(rows):
         return [core.submit(Request(prompt_ids=list(p), sampling=SamplingParams(
             temperature=0.0, max_tokens=MD_TOKENS, lora=a))) for p, a in rows]
+
+    # the MoE group rides the first tick plan, so every rank prefills it in
+    # one dispatch (the one-card reference queues it at once too)
+    group = (submit([(p, None) for p in prompts["moe_dp"]])
+             if leader and sub == "moe_dp" else None)
+    core.start()
+    http = []
 
     def wait(reqs, until=lambda r: r.finished_at is not None):
         t_end = time.monotonic() + 600
@@ -7936,6 +8038,11 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
                 first = submit(list(zip(held, adapters))[:-1])
                 wait(first, lambda r: r.events.qsize() >= 2)
                 wait(first + submit([(held[-1], adapters[-1])]))
+            elif sub == "moe_dp":
+                # then the long prompt in slots 0 (group 0) and 2 (group
+                # 1), the chat between: chunks (#3) on every rank
+                wait(group)
+                wait(submit([(p, None) for p in held[MD_MOE_ROWS:]]))
             else:
                 wait(submit(zip(held, adapters)))
             if sub == "dp":
@@ -7954,6 +8061,8 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
         engine.shutdown()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t1
+    if drops is not None:
+        drops.close()
     streams = []
     for r in seen:
         ids = []
@@ -7971,7 +8080,7 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
            "local": (core.model_cfg.num_heads, core.model_cfg.num_kv_heads,
                      core.model_cfg.intermediate_size,
                      tuple(core.params["we_gate"].shape[:2])
-                     if sub == "ep" else None),
+                     if moe else None),
            "param_gib": core.param_bytes / 2**30, "ring_passes": passes[0]}
     if leader:
         out["logits"] = [spy.get(p, a)[0].cpu()
@@ -7989,6 +8098,11 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
         out["q_ids"] = [streams[h + len(held)], streams[-1]]
         out["prefix"] = dataclasses.asdict(core.stats().prefix)
         out["dp_slots"] = [core._slot_groups.count(g) for g in range(2)]
+    if sub == "moe_dp":
+        # the group's dispatch is the engine's first in the capacity regime
+        out["drops"] = drops.calls[:cfg.num_layers]
+        out["drop_tokens"] = drops.tokens[:cfg.num_layers]
+        out["gathers"] = gathers
     if sub == "lora":
         out["lora_rows"] = {n: core.lora.slot_of(n)
                             for n in core.lora.resident_names()}
@@ -7998,7 +8112,7 @@ def _md_sub(sub: str, rank: int, prompts: dict) -> dict:
         out["pool_shapes"] = {k: tuple(v.shape) for k, v in core.params.items()
                               if "_lora_" in k and k.startswith(("wk", "wd"))}
     # the engine goes with this frame (its spies and wrappers point at it)
-    del engine, core, spy, kv, ring, counted, seen
+    del engine, core, spy, kv, ring, counted, seen, drops, gather
     gc.collect()
     return out
 
@@ -8449,6 +8563,45 @@ def _md_dp_checks(ranks: list, ref: dict, n_long: int) -> dict:
             "one_card_kv": kv_bits}
 
 
+def _md_pick(ref: dict, idx: list[int]) -> dict:
+    """The one-card run of the prompts at `idx` of a reference's."""
+    return {**ref, **{k: [ref[k][i] for i in idx]
+                      for k in ("ids", "logits", "margins", "fp32")}}
+
+
+def _md_moe_dp_checks(ranks: list, ref: dict) -> dict:
+    """The moe_dp sub-phase's own checks: its group's capacity dispatch,
+    whose rows span both dp groups, ran over the whole batch on every
+    rank: each layer's capacity drops (`_Drops`, of B * T tokens) more
+    than zero in all, the same on both ranks, and one card's for the same
+    batch. Whether the leader's ids and first-step logits are one card's
+    bits (read, not held)."""
+    import torch
+
+    lead = ranks[0]["moe_dp"]
+    drops = [x["moe_dp"]["drops"] for x in ranks]
+    if sum(drops[0]) == 0 or any(d != drops[0] for d in drops) or (
+            drops[0] != ref["drops"]):
+        raise AssertionError(
+            f"multi-device moe_dp: the group's capacity drops a layer, "
+            f"ranks {drops} (of {lead['drop_tokens']} tokens), one card "
+            f"{ref['drops']}: want more than zero, alike on every rank and "
+            "one card's")
+    ids_bits = [a == b for a, b in zip(lead["held"], ref["ids"])]
+    logit_bits = [bool(torch.equal(a, b))
+                  for a, b in zip(lead["logits"], ref["logits"])]
+    gathers = [x["moe_dp"]["gathers"] for x in ranks]
+    read = [(g["calls"], round(g["bytes"] / 2**20, 2), round(g["seconds"], 3))
+            for g in gathers]
+    log(f"multi-device moe_dp: the group's capacity drops a layer {drops[0]}"
+        f" of {lead['drop_tokens'][0]} tokens (B * T) on every rank, one "
+        f"card's; the MoE layers' gathers over dp a rank (calls, MiB, host "
+        f"s) {read}; one card's bits? ids {ids_bits}, first-step logits "
+        f"{logit_bits}")
+    return {"drops": drops[0], "gathers": gathers, "one_card_ids": ids_bits,
+            "one_card_logits": logit_bits}
+
+
 def _md_lora_hold(ranks: list) -> dict:
     """The lora sub-phase's own checks: every rank put each adapter in the
     same pool row (the cold one loaded mid-run too); the adapter-free row
@@ -8618,15 +8771,13 @@ def _md_leader_checks(ranks: list, ref: dict, dev: dict,
 
 
 def phase_multi_device(dev: dict) -> dict:
-    """Multi-rank serving on the card (A18): three sub-phases in one world
-    of two ranks spawned from this script, rank 0 serving HTTP through the
-    port's server with LLMLB_COORDINATOR set and rank 1 a follower: tp=2
-    and sp=2 over Llama-3-8B bf16 paged at full width and MD_CUT_LAYERS
-    layers, ep=2 over
-    Mixtral at full width and MIX_BF16_LAYERS layers (capacity dispatch in
-    prefill, exact MoE in decode), random weights of seed 0. With one card
-    both ranks share it over gloo (NCCL refuses two ranks on one device);
-    with two or more, one rank a card over NCCL. Each is held against a
+    """Multi-rank serving on the card (A18): the sub-phases of MD_SUBS and
+    MD_LEADER_SUBS in one world of two ranks spawned from this script,
+    rank 0 serving HTTP through the port's server with LLMLB_COORDINATOR
+    set and rank 1 a follower (see the module docstring, phase 13), random
+    weights of seed 0. With one card both ranks share it over gloo (NCCL
+    refuses two ranks on one device); with two or more, one rank a card
+    over NCCL. Each is held against a
     one-card engine on the same requests, run first here and freed before
     the ranks start; every rank's ids must equal the leader's. Returns the
     launches summed over the ranks and sub-phases, and the numbers."""
@@ -8653,16 +8804,25 @@ def phase_multi_device(dev: dict) -> dict:
                      targets=targets, scale=ADAPTER_SCALE)
     refs = {"llama": _md_reference("tp", prompts["llama"],
                                    len(prompts["llama"]) - 1),
-            "mixtral": _md_reference("ep", prompts["mixtral"], None),
+            # the ep sub-phase's prompts, then the moe_dp group queued at once
+            "mixtral": _md_reference("ep", prompts["mixtral"], None,
+                                     together=prompts["moe_dp"]),
             "lora": _md_reference("lora", prompts["lora"], None, adapters,
                                   lora_tmp.name),
             "leader": _md_reference("leader", [], None,
                                     embed=prompts["embed"])}
+    # moe_dp's one-card run: the group, then the ep sub-phase's prompts
+    refs["moe_dp"] = _md_pick(refs["mixtral"],
+                              [2 + i for i in range(MD_MOE_ROWS)]
+                              + list(MD_MOE_AFTER))
     log(f"multi-device: one-card references in "
         f"{refs['llama']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
         f"layers, prompts of {[len(p) for p in prompts['llama']]} tokens), "
         f"{refs['mixtral']['seconds']:.1f} s (Mixtral, "
-        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]}),"
+        f"{MIX_BF16_LAYERS} layers, {[len(p) for p in prompts['mixtral']]},"
+        f" then the moe_dp group {[len(p) for p in prompts['moe_dp']]} "
+        f"queued at once, its capacity drops a layer "
+        f"{refs['mixtral']['drops']}),"
         f" {refs['lora']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
         f"layers, with adapters {adapters}) and "
         f"{refs['leader']['seconds']:.1f} s (Llama-3-8B, 32 layers, the "
@@ -8695,7 +8855,8 @@ def phase_multi_device(dev: dict) -> dict:
     report = {"backend": backend, "world": world, "subphases": {}}
     for sub in MD_SUBS:
         lead = ranks[0][sub]
-        ref = refs[{"ep": "mixtral", "lora": "lora"}.get(sub, "llama")]
+        ref = refs[{"ep": "mixtral", "moe_dp": "moe_dp",
+                    "lora": "lora"}.get(sub, "llama")]
         n = len(lead["held"])
         h = MD_HTTP[sub]  # the leader's HTTP streams went to its clients
         for r in range(1, world):
@@ -8721,6 +8882,8 @@ def phase_multi_device(dev: dict) -> dict:
                                           ref["fp32_kv"], n_long, sub)
         if sub == "dp":
             held.update(_md_dp_checks(ranks, ref, n_long))
+        if sub == "moe_dp":
+            held.update(_md_moe_dp_checks(ranks, ref))
         if sub == "lora":
             held.update(_md_lora_hold(ranks))
         col = [x[sub]["collectives"] for x in ranks]

@@ -214,17 +214,18 @@ the leader (`Mesh.gather_heads`), which writes the whole model's KVSH
 payload; a landed payload goes from the leader to every rank over the
 mesh (`Mesh.broadcast`), each keeping its heads; the offload tier holds
 each rank's share, charged at the whole payload's bytes, so every rank's
-tier admits and evicts alike. At dp > 1 (the Llama family; an MoE is
-refused, A18c)
-slot s belongs to dp group `_slot_groups[s]`, and every dispatch passes
-its rows' groups (`_mesh_kw`): a group computes its own rows, and one
-collective over dp a dispatch gives every rank the batch's logits (the
-sampler runs unchanged over the whole batch on every rank) and, paged,
-the KV cells each group wrote (the pool is replicated over dp, so a
-prefix hit, a park and resume or a chunk reads any page); the dense cache
-holds a group's slots. On an sp > 1 mesh a prompt longer than the
-largest bucket prefills in one ring-attention pass (`_cp_prefill_into_slot`,
-models/llama.py `make_context_parallel_prefill`) instead of chunks. On one
+tier admits and evicts alike. At dp > 1 slot s belongs to dp group
+`_slot_groups[s]`, and every dispatch passes its rows' groups
+(`_mesh_kw`): a group computes its own rows, and one collective over dp a
+dispatch gives every rank the batch's logits (the sampler runs unchanged
+over the whole batch on every rank) and, paged, the KV cells each group
+wrote (the pool is replicated over dp, so a prefix hit, a park and resume
+or a chunk reads any page); the dense cache holds a group's slots. An
+MoE's capacity dispatch stays the whole batch's: a dispatch spanning dp
+groups gathers each layer's tokens over dp (models/mixtral.py). On an
+sp > 1 mesh a prompt longer than the largest bucket prefills in one
+ring-attention pass (`_cp_prefill_into_slot`, models/llama.py
+`make_context_parallel_prefill`) instead of chunks. On one
 rank (no process group) every collective is the identity and the model's
 entry points get `mesh=None`: the one-rank engine runs as it did.
 """
@@ -1207,18 +1208,8 @@ class EngineCore:
         without a process group), laid as the reference lays it
         (parallel/distributed.py `engine_mesh`): the default sizes ep and tp
         within one host's ranks, dp takes the rest and multiplies across
-        hosts. dp > 1 splits the batch rows into dp groups, for the Llama
-        family; an MoE's capacity dispatch runs over the whole batch's
-        tokens, so an MoE engine at dp > 1 is refused (A18c)."""
-        mesh = engine_mesh(cfg, mesh_config)
-        if mesh.shape["dp"] > 1 and getattr(cfg, "num_experts", 0) > 1:
-            raise ValueError(
-                f"mesh {mesh.shape}: dp > 1 inside one MoE engine is not "
-                "served yet (ROADMAP A18c): the reference's capacity "
-                "dispatch runs over the whole batch's tokens, which a "
-                "dp group's own rows would not reproduce; give the ranks "
-                "to ep or tp, or run one engine per replica")
-        return mesh
+        hosts. dp > 1 splits the batch rows into dp groups."""
+        return engine_mesh(cfg, mesh_config)
 
     def _mesh_kw(self, slot_ids) -> dict:
         """The mesh keywords of a dispatch over `slot_ids` (its batch rows

@@ -53,9 +53,12 @@ dp (`dp_exchange`) gives every rank the whole batch's fp32 logits and, in
 the paged layout, copies the KV cells each group wrote into every rank's
 pool (the pool is replicated over dp, as the reference's). The dense slot
 cache holds only the group's slots (the slot axis over dp), so nothing is
-exchanged there. Adapter pools shard like their weights: on a row-parallel
-target (wo, wd) a rank's partial delta (x_s A_s) B joins the fp32 partial
-product before the tp sum that follows it.
+exchanged there. A feed-forward may couple the rows (models/mixtral.py's
+capacity dispatch gathers them over dp); a group with none of the rows
+then joins its collectives (`FeedForward.join`). Adapter pools shard like
+their weights: on a row-parallel target (wo, wd) a rank's partial delta
+(x_s A_s) B joins the fp32 partial product before the tp sum that follows
+it.
 
 int8 quantization (`llmlb_tpu_torch/quant`), as in the reference: a pool
 may be a {"q": int8 [L, P, PS, K, D], "s": float32 [L, P, PS, K]} pair,
@@ -598,10 +601,13 @@ class FeedForward(NamedTuple):
     `mlp_fn(lp, h, token_valid, lora_idx, per_row, mesh)` -> [B, T, E] (the
     reference's mlp_fn; `token_valid` [B, T] bool marks the non-padding
     tokens of a prefill or extend and is None in decode; `mesh` is the
-    rank's mesh, None on one rank)."""
+    rank's mesh, None on one rank). `join()`, where set, takes a dp
+    group's part in the collectives `mlp_fn` makes over dp when the group
+    has none of a dispatch's rows (`_on_dp_rows`)."""
 
     names: tuple[str, ...]
     mlp_fn: Callable
+    join: Callable | None = None
 
 
 DENSE_FFN = FeedForward(("wg", "wu", "wd"), _mlp)
@@ -737,18 +743,21 @@ def _pool_members(pool) -> list[torch.Tensor]:
 
 
 def _on_dp_rows(run, rows: DpRows, mesh: Mesh, batch: dict, *, tail: tuple,
-                pools: tuple, cells=None):
+                pools: tuple, cells=None, join=None):
     """An entry point at dp: `run(**batch)` on this group's rows (every
     batch tensor, or None, indexed by them; not called when the group has
-    none), then `dp_exchange`. `tail` is a row's logits shape, `cells` the
-    (page, offset) [B, T] the dispatch writes in the paged layout (None in
-    the dense one). Returns (the whole batch's logits, *pools)."""
+    none: then `join()`, the feed-forward's, where it has one), then
+    `dp_exchange`. `tail` is a row's logits shape, `cells` the (page,
+    offset) [B, T] the dispatch writes in the paged layout (None in the
+    dense one). Returns (the whole batch's logits, *pools)."""
     dev = next(v for v in batch.values() if v is not None).device
     if rows.mine:
         idx = rows.index(dev)
         logits, _, _ = run(**{k: None if v is None else v.to(dev)[idx]
                               for k, v in batch.items()})
     else:
+        if join is not None:
+            join()
         logits = torch.zeros((0, *tail), dtype=torch.float32, device=dev)
     return (dp_exchange(rows, mesh, logits, pools, cells), *pools)
 
@@ -861,7 +870,7 @@ def prefill_into_pages(
             dp_rows, mesh, dict(ids=input_ids, lens=prompt_lens,
                                 tables=block_tables, lora=lora_idx),
             tail=(cfg.vocab_size,), pools=(cache_k, cache_v),
-            cells=(page, off))
+            cells=(page, off), join=ffn.join)
     inv_freq = _rope_freqs(cfg, dev)
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
     token_valid = positions < prompt_lens[:, None]
@@ -967,7 +976,7 @@ def _extend_pages(params, cfg, input_ids, chunk_lens, start_pos, block_tables,
                                 start=start_pos, tables=block_tables,
                                 lora=lora_idx),
             tail=((t, cfg.vocab_size) if all_logits else (cfg.vocab_size,)),
-            pools=(cache_k, cache_v), cells=(page, off))
+            pools=(cache_k, cache_v), cells=(page, off), join=ffn.join)
     inv_freq = _rope_freqs(cfg, dev)
     token_valid = offs < chunk_lens[:, None]
     lora_idx = _lora_rows(lora_idx, dev)
@@ -1025,7 +1034,7 @@ def decode_step_paged(
             dp_rows, mesh, dict(ids=input_ids, lens=seq_lens,
                                 tables=block_tables, lora=lora_idx),
             tail=(cfg.vocab_size,), pools=(cache_k, cache_v),
-            cells=(page, off))
+            cells=(page, off), join=ffn.join)
     inv_freq = _rope_freqs(cfg, dev)
     kv_lens = (write_pos + 1).to(torch.int32)
     lora_idx = _lora_rows(lora_idx, dev)
@@ -1125,7 +1134,7 @@ def prefill_into_slots(
             dp_rows, mesh, dict(ids=input_ids, lens=prompt_lens,
                                 slots=slot_ids.to(input_ids.device),
                                 lora=lora_idx),
-            tail=(cfg.vocab_size,), pools=(cache_k, cache_v))
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v), join=ffn.join)
     b, t = input_ids.shape
     dev = input_ids.device
     inv_freq = _rope_freqs(cfg, dev)
@@ -1229,7 +1238,7 @@ def _extend_slots(params, cfg, input_ids, chunk_lens, start_pos, slot_ids,
                                        slot_ids.to(input_ids.device).long()),
                                 lora=lora_idx),
             tail=((t, cfg.vocab_size) if all_logits else (cfg.vocab_size,)),
-            pools=(cache_k, cache_v))
+            pools=(cache_k, cache_v), join=ffn.join)
     dev = input_ids.device
     capacity = cache_k.shape[2]
     inv_freq = _rope_freqs(cfg, dev)
@@ -1290,7 +1299,7 @@ def decode_step(
                 params, cfg, ids, lens, cache_k, cache_v, window, lora,
                 ffn=ffn, mesh=mesh),
             dp_rows, mesh, dict(ids=input_ids, lens=seq_lens, lora=lora_idx),
-            tail=(cfg.vocab_size,), pools=(cache_k, cache_v))
+            tail=(cfg.vocab_size,), pools=(cache_k, cache_v), join=ffn.join)
     b = input_ids.shape[0]
     dev = input_ids.device
     capacity = cache_k.shape[2]

@@ -20,6 +20,20 @@ chooses them:
   a prefix hit's suffix and its cold run) may differ where a token was
   dropped, as in the reference.
 
+At dp > 1 a dp group computes only its own rows of a dispatch (llama.py
+`_on_dp_rows`), but the regime and the capacity dispatch stay the whole
+dispatch's, as the reference's GSPMD program runs its capacity scan over
+the flattened B * T whatever shards the batch (its expert buffers are
+sharded over ep only, so replicated over dp). When a capacity dispatch's
+rows span more than one dp group, each MoE layer gathers every group's
+normed hidden rows and `token_valid` over dp in batch order (one
+collective, `Mesh.gather_batch`), every rank runs the whole batch's
+dispatch at the whole batch's capacity, and keeps its own rows of the
+output; a group with no rows of the dispatch joins those gathers with none
+(`_join_gathers`). When every row is in one group that group's rows are
+the whole batch, so it runs alone as on one rank. Which (token, choice)
+pairs are dropped is then the one-rank engine's, whatever the split.
+
 The router product runs in the model dtype (bf16 on the card, then fp32
 for the top-k), per row in a prefill group like the projections
 (`_rowwise`). Adapters (LoRA) apply to the attention projections only: the
@@ -58,7 +72,7 @@ from llmlb_tpu_torch.ops.moe import (
     moe_dense_exact,
     moe_dispatch_combine,
 )
-from llmlb_tpu_torch.parallel.mesh import Mesh
+from llmlb_tpu_torch.parallel.mesh import DpRows, Mesh
 from llmlb_tpu_torch.parallel.sharding import ShardingRules
 from llmlb_tpu_torch.quant import SCALE_SUFFIX
 
@@ -187,17 +201,24 @@ def _check_ep(cfg: MixtralConfig, mesh: Mesh) -> None:
 
 def _moe_mlp(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
              lora_idx, per_row: bool, mesh: Mesh | None = None, *,
-             exact: bool) -> torch.Tensor:
+             exact: bool, dp: DpRows | None = None) -> torch.Tensor:
     """h [B, T, E] -> [B, T, E] through the routed experts (`lora_idx` is
     not used: the experts carry no adapter pools), inside a profiler range
-    named "moe" (profile_step's `moe` kind)."""
+    named "moe" (profile_step's `moe` kind). `dp`: the rows of a capacity
+    dispatch that spans dp groups (h holds this group's)."""
     with torch.profiler.record_function("moe"):
-        return _moe_layer(cfg, lp, h, token_valid, per_row, exact, mesh)
+        return _moe_layer(cfg, lp, h, token_valid, per_row, exact, mesh, dp)
 
 
 def _moe_layer(cfg: MixtralConfig, lp: Params, h: torch.Tensor, token_valid,
-               per_row: bool, exact: bool,
-               mesh: Mesh | None = None) -> torch.Tensor:
+               per_row: bool, exact: bool, mesh: Mesh | None = None,
+               dp: DpRows | None = None) -> torch.Tensor:
+    if dp is not None:
+        # every group's rows in batch order: the one-rank dispatch's tokens,
+        # capacity and priority on every rank; this group keeps its rows
+        h_all, valid_all = mesh.gather_batch([h, token_valid], dp)
+        out = _moe_layer(cfg, lp, h_all, valid_all, per_row, exact, mesh)
+        return out[dp.index(h.device)]
     b, t, m = h.shape
     s = b * t
     router = lp["router"]
@@ -233,11 +254,34 @@ def moe_ffn(cfg: MixtralConfig, exact: bool) -> FeedForward:
     return FeedForward(FFN_NAMES, partial(_moe_mlp, cfg, exact=exact))
 
 
-def _group_ffn(cfg: MixtralConfig, input_ids: torch.Tensor) -> FeedForward:
-    """A prefill or extend group's regime: exact when the padded B * T is
-    at most 4 * num_experts, capacity dispatch otherwise."""
+def _group_ffn(cfg: MixtralConfig, params: Params, input_ids: torch.Tensor,
+               dp_rows: DpRows | None, mesh: Mesh | None) -> FeedForward:
+    """A prefill or extend group's regime, from the whole dispatch's padded
+    B * T (`input_ids` before any dp group takes its rows): exact when it
+    is at most 4 * num_experts, capacity dispatch otherwise. A capacity
+    dispatch whose rows span dp groups gathers each layer's tokens over dp
+    (the module's docstring); one whose rows are all in one group runs on
+    that group alone, its rows being the whole batch."""
     b, t = input_ids.shape
-    return moe_ffn(cfg, exact=b * t <= 4 * cfg.num_experts)
+    exact = b * t <= 4 * cfg.num_experts
+    if exact or dp_rows is None or sum(map(bool, dp_rows.members)) < 2:
+        return moe_ffn(cfg, exact)
+    return FeedForward(
+        FFN_NAMES, partial(_moe_mlp, cfg, exact=False, dp=dp_rows),
+        join=partial(_join_gathers, cfg, mesh, dp_rows, t,
+                     params["embed"].dtype, input_ids.device))
+
+
+def _join_gathers(cfg: MixtralConfig, mesh: Mesh, dp: DpRows, t: int, dtype,
+                  device) -> None:
+    """A dp group with none of a spanning capacity dispatch's rows: its
+    part, with no rows, in each MoE layer's gather of hidden rows [0, T, M]
+    (the model's dtype) and token_valid [0, T], so the other groups'
+    collectives complete."""
+    h = torch.empty((0, t, cfg.hidden_size), dtype=dtype, device=device)
+    valid = torch.empty((0, t), dtype=torch.bool, device=device)
+    for _ in range(cfg.num_layers):
+        mesh.gather_rows([h, valid], dp)
 
 
 # ---------------------------------------------------------------------------
@@ -245,68 +289,80 @@ def _group_ffn(cfg: MixtralConfig, input_ids: torch.Tensor) -> FeedForward:
 # ---------------------------------------------------------------------------
 
 def prefill_into_pages(params, cfg: MixtralConfig, input_ids, prompt_lens,
-                       block_tables, cache_k, cache_v, lora_idx=None, *, mesh=None):
-    return llama.prefill_into_pages(params, cfg, input_ids, prompt_lens,
-                                    block_tables, cache_k, cache_v, lora_idx,
-                                    ffn=_group_ffn(cfg, input_ids), mesh=mesh)
+                       block_tables, cache_k, cache_v, lora_idx=None, *,
+                       mesh=None, dp_rows=None):
+    return llama.prefill_into_pages(
+        params, cfg, input_ids, prompt_lens, block_tables, cache_k, cache_v,
+        lora_idx, ffn=_group_ffn(cfg, params, input_ids, dp_rows, mesh),
+        mesh=mesh, dp_rows=dp_rows)
 
 
 def prefill_extend_pages(params, cfg: MixtralConfig, input_ids, chunk_lens,
                          start_pos, block_tables, cache_k, cache_v,
-                         lora_idx=None, *, mesh=None):
-    return llama.prefill_extend_pages(params, cfg, input_ids, chunk_lens,
-                                      start_pos, block_tables, cache_k,
-                                      cache_v, lora_idx,
-                                      ffn=_group_ffn(cfg, input_ids), mesh=mesh)
+                         lora_idx=None, *, mesh=None, dp_rows=None):
+    return llama.prefill_extend_pages(
+        params, cfg, input_ids, chunk_lens, start_pos, block_tables, cache_k,
+        cache_v, lora_idx,
+        ffn=_group_ffn(cfg, params, input_ids, dp_rows, mesh), mesh=mesh,
+        dp_rows=dp_rows)
 
 
 def verify_step_paged(params, cfg: MixtralConfig, input_ids, chunk_lens,
                       start_pos, block_tables, cache_k, cache_v, window=None,
-                      lora_idx=None, *, mesh=None):
+                      lora_idx=None, *, mesh=None, dp_rows=None):
     """Exact MoE, as decode: capacity drops would make a draft's acceptance
     depend on which other rows share the step."""
     return llama.verify_step_paged(params, cfg, input_ids, chunk_lens,
                                    start_pos, block_tables, cache_k, cache_v,
                                    window, lora_idx,
-                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh)
+                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh,
+                                   dp_rows=dp_rows)
 
 
 def decode_step_paged(params, cfg: MixtralConfig, input_ids, seq_lens,
                       cache_k, cache_v, block_tables, window=None,
-                      lora_idx=None, *, mesh=None):
+                      lora_idx=None, *, mesh=None, dp_rows=None):
     """Always exact MoE: a row's tokens do not depend on the batch."""
     return llama.decode_step_paged(params, cfg, input_ids, seq_lens, cache_k,
                                    cache_v, block_tables, window, lora_idx,
-                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh)
+                                   ffn=moe_ffn(cfg, exact=True), mesh=mesh,
+                                   dp_rows=dp_rows)
 
 
 def prefill_into_slots(params, cfg: MixtralConfig, input_ids, prompt_lens,
-                       slot_ids, cache_k, cache_v, lora_idx=None, *, mesh=None):
-    return llama.prefill_into_slots(params, cfg, input_ids, prompt_lens,
-                                    slot_ids, cache_k, cache_v, lora_idx,
-                                    ffn=_group_ffn(cfg, input_ids), mesh=mesh)
+                       slot_ids, cache_k, cache_v, lora_idx=None, *,
+                       mesh=None, dp_rows=None):
+    return llama.prefill_into_slots(
+        params, cfg, input_ids, prompt_lens, slot_ids, cache_k, cache_v,
+        lora_idx, ffn=_group_ffn(cfg, params, input_ids, dp_rows, mesh),
+        mesh=mesh, dp_rows=dp_rows)
 
 
 def prefill_extend_slots(params, cfg: MixtralConfig, input_ids, chunk_lens,
                          start_pos, slot_ids, cache_k, cache_v,
-                         lora_idx=None, *, mesh=None):
-    return llama.prefill_extend_slots(params, cfg, input_ids, chunk_lens,
-                                      start_pos, slot_ids, cache_k, cache_v,
-                                      lora_idx,
-                                      ffn=_group_ffn(cfg, input_ids), mesh=mesh)
+                         lora_idx=None, *, mesh=None, dp_rows=None):
+    return llama.prefill_extend_slots(
+        params, cfg, input_ids, chunk_lens, start_pos, slot_ids, cache_k,
+        cache_v, lora_idx,
+        ffn=_group_ffn(cfg, params, input_ids, dp_rows, mesh), mesh=mesh,
+        dp_rows=dp_rows)
 
 
 def verify_step(params, cfg: MixtralConfig, input_ids, chunk_lens, start_pos,
-                slot_ids, cache_k, cache_v, window=None, lora_idx=None, *, mesh=None):
+                slot_ids, cache_k, cache_v, window=None, lora_idx=None, *,
+                mesh=None, dp_rows=None):
     """Exact MoE, as verify_step_paged."""
     return llama.verify_step(params, cfg, input_ids, chunk_lens, start_pos,
                              slot_ids, cache_k, cache_v, window, lora_idx,
-                             ffn=moe_ffn(cfg, exact=True), mesh=mesh)
+                             ffn=moe_ffn(cfg, exact=True), mesh=mesh,
+                             dp_rows=dp_rows)
 
 
 def decode_step(params, cfg: MixtralConfig, input_ids, seq_lens, cache_k,
-                cache_v, window=None, lora_idx=None, *, mesh=None):
+                cache_v, window=None, lora_idx=None, *, mesh=None,
+                dp_rows=None):
     """Always exact MoE, as decode_step_paged."""
     return llama.decode_step(params, cfg, input_ids, seq_lens, cache_k,
                              cache_v, window, lora_idx,
-                             ffn=moe_ffn(cfg, exact=True), mesh=mesh)
+                             ffn=moe_ffn(cfg, exact=True), mesh=mesh,
+                             dp_rows=dp_rows)

@@ -387,6 +387,21 @@ class Mesh:
             out.append(got)
         return out
 
+    def gather_batch(self, parts: list[torch.Tensor], rows: "DpRows"
+                     ) -> list[torch.Tensor]:
+        """`gather_rows` laid out in batch order: each part's rows of every
+        dp group, [len(rows.groups), ...] on every rank, row i the one
+        group rows.groups[i] gave (the same one collective)."""
+        got = self.gather_rows(parts, rows)
+        dev = parts[0].device
+        out = [p.new_empty((len(rows.groups), *p.shape[1:])) for p in parts]
+        for g, members in enumerate(rows.members):
+            if members:
+                at = rows.index(dev, g)
+                for whole, part in zip(out, got[g]):
+                    whole[at] = part
+        return out
+
 
 def slot_groups(num_slots: int, dp: int) -> list[int]:
     """The dp group of each slot: blocks of ceil(num_slots / dp) consecutive

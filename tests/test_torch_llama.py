@@ -5,7 +5,15 @@ params_from_numpy), same inputs made from a seed with numpy, both sides in
 fp32 on the CPU. Tolerances: logits within 1e-4 absolute (fp32 through two
 layers and a 512-way vocab projection, summed in a different order); pool
 cells at valid positions within 1e-5 (one projection plus rope).
+
+The prefill, extend and decode checks run on debug-tiny and on two variants
+of it that carry the presets' other model options: qwen2.5-0.5b's qkv bias
+with tied embeddings (the biases drawn at random: the reference's
+init_params makes them zero), and llama-3.1-8b's rope scaling and theta,
+with original_max_position 16 so that the scaling acts at these lengths.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -14,21 +22,42 @@ import torch
 
 from llmlb_tpu.engine.presets import get_preset as jax_preset
 from llmlb_tpu.models import llama as jllama
+from llmlb_tpu.ops.rope import RopeScaling as JaxRopeScaling
 from llmlb_tpu_torch.engine.presets import get_preset
 from llmlb_tpu_torch.engine.weights import params_from_numpy
 from llmlb_tpu_torch.models import llama
+from llmlb_tpu_torch.ops.rope import RopeScaling
 
 PS, PPN, NUM_PAGES = 8, 4, 12
 # distinct scattered pages per row; page 0 stays the trash page
 TABLES = np.array([[3, 7, 1, 10], [5, 2, 9, 0]], np.int32)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_preset("debug-tiny")
+# llama-3.1-8b's scaling at an original context debug-tiny's lengths pass
+SCALING = dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+               original_max_position=16)
+VARIANTS = {
+    "base": ({}, {}),
+    "bias_tied": ({"attention_bias": True, "tie_word_embeddings": True},) * 2,
+    "rope_scaling": ({"rope_theta": 500000.0,
+                      "rope_scaling": JaxRopeScaling(**SCALING)},
+                     {"rope_theta": 500000.0,
+                      "rope_scaling": RopeScaling(**SCALING)}),
+}
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def models(request):
+    jax_opts, opts = VARIANTS[request.param]
+    jcfg = dataclasses.replace(jax_preset("debug-tiny"), **jax_opts)
     np_params = {k: np.asarray(v)
                  for k, v in jllama.init_params(jcfg, jax.random.PRNGKey(0)).items()}
-    cfg = get_preset("debug-tiny")
+    rng = np.random.default_rng(4)
+    for name in ("bq", "bk", "bv"):
+        if name in np_params:
+            np_params[name] = rng.standard_normal(
+                np_params[name].shape).astype(np.float32)
+    cfg = dataclasses.replace(get_preset("debug-tiny"), **opts)
     return jcfg, np_params, cfg, params_from_numpy(np_params, cfg, "cpu")
 
 

@@ -191,11 +191,11 @@ def test_engine_worker_mode_matches_one_rank_engine(ranks):
 def test_refusals_under_a_coordinator(ranks):
     """What a coordinator still refuses: graphs on gloo, adapters and a
     split across hosts (the reference's wording; one host's ranks serve
-    them, tests/test_torch_lora_mesh.py and tests/test_torch_mesh_leader.py),
-    and an MoE engine at dp > 1 (A18c). One host's ranks serve --role
-    split, KV shipping and the offload tier, which stay off across hosts.
-    dp > 1 inside one Llama engine is served: its greedy ids are a
-    one-rank engine's, on both ranks."""
+    them, tests/test_torch_lora_mesh.py and tests/test_torch_mesh_leader.py).
+    An MoE engine at dp > 1 builds (test_moe_serves_at_dp_and_across_hosts).
+    One host's ranks serve --role split, KV shipping and the offload tier,
+    which stay off across hosts. dp > 1 inside one Llama engine is served:
+    its greedy ids are a one-rank engine's, on both ranks."""
     cfg = get_preset("debug-tiny")
     core = EngineCore(cfg, num_slots=2, slot_capacity=64,
                       prefill_buckets=(16,), eos_id=-1, seed=0, device="cpu")
@@ -214,13 +214,36 @@ def test_refusals_under_a_coordinator(ranks):
             "--lora-dir is single-host only for now: followers have no "
             "deterministic mirror of the leader's adapter pool slot "
             "assignment")
-        assert "A18c" in ref["moe_dp"] and "dp > 1" in ref["moe_dp"]
+        assert ref["moe_dp"] is None
         assert "decode_graphs=True" in ref["graphs"] and "gloo" in ref["graphs"]
         assert r["ship_offload"] == (True, 1 << 20)
         assert r["ship_offload_hosts"] == (False, None)
         assert r["n_chips"] == 2
         assert r["dp_mesh"] == {"dp": 2, "sp": 1, "ep": 1, "tp": 1}
         assert [ids for ids, _ in r["dp_served"]] == one_rank
+
+
+def test_moe_serves_at_dp_and_across_hosts(ranks):
+    """A debug-moe-tiny engine at dp=2 (the two prompts one prefill group
+    over both dp groups, in the capacity regime) and on Mixtral's default
+    mesh across hosts (one rank a host: dp=2, ep=1, the reference's rule,
+    KV shipping and the tier off) gives a one-rank engine's greedy ids on
+    both ranks."""
+    cfg = get_preset("debug-moe-tiny")
+    core = EngineCore(cfg, num_slots=2, slot_capacity=64,
+                      prefill_buckets=(16,), eos_id=-1, seed=0, device="cpu")
+    core.start()
+    try:
+        reqs = [core.submit(Request(prompt_ids=p, sampling=SamplingParams(
+            temperature=0.0, max_tokens=4))) for p in DP_PROMPTS]
+        one_rank = distributed.collect_tokens(reqs)
+    finally:
+        core.stop()
+    for r in ranks:
+        assert [ids for ids, _ in r["moe_dp_served"]] == one_rank
+        assert r["moe_hosts_mesh"] == {"dp": 2, "sp": 1, "ep": 1, "tp": 1}
+        assert r["moe_hosts_ship_offload"] == (False, None)
+        assert [ids for ids, _ in r["moe_hosts_served"]] == one_rank
 
 
 def test_follower_server_binds_no_port(ranks):

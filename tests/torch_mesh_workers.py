@@ -127,17 +127,19 @@ def _serve(core, rank: int, prompts: list, sampling: list,
     else:
         core._thread.join()
         core.stop()
-    out = []
-    for r in seen:
-        toks, end = [], None
-        while not r.events.empty():
-            kind, val = r.events.get()
-            if kind == "token":
-                toks.append(int(val))
-            else:
-                end = (kind, val)
-        out.append((toks, end))
-    return out
+    return [_outcome(r) for r in seen]
+
+
+def _outcome(request) -> tuple:
+    """(ids, end event) of a request whose stream ended."""
+    toks, end = [], None
+    while not request.events.empty():
+        kind, val = request.events.get()
+        if kind == "token":
+            toks.append(int(val))
+        else:
+            end = (kind, val)
+    return toks, end
 
 
 def _sampling(max_tokens: int, **kw):
@@ -341,8 +343,8 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
             refusals[name] = None
         except ValueError as e:
             refusals[name] = str(e)
-    # adapters and a split across hosts (one rank a host), and an MoE
-    # engine at dp
+    # adapters and a split across hosts (one rank a host); an MoE engine at
+    # dp builds
     for name, env, conf, extra in (
             ("lora", {"LOCAL_WORLD_SIZE": "1"}, cfg,
              {"lora_dir": inputs["lora_dir"]}),
@@ -372,6 +374,21 @@ def multihost(rank: int, world: int, inputs: dict) -> dict:
     out["dp_mesh"] = dict(core.mesh.shape)
     out["dp_served"] = _serve(core, rank, inputs["dp_prompts"],
                               [_sampling(4)] * len(inputs["dp_prompts"]))
+    # an MoE engine at dp=2 serves (its prefill group spans both groups in
+    # the capacity regime), and so does Mixtral's default mesh across hosts
+    # (one rank a host: dp=2, ep=1), with KV shipping and the tier off
+    moe = get_preset("debug-moe-tiny")
+    greedy = [_sampling(4)] * len(inputs["dp_prompts"])
+    core = EngineCore(moe, **kw, mesh_config=MeshConfig(dp=2, tp=1))
+    out["moe_dp_served"] = _serve(core, rank, inputs["dp_prompts"], greedy)
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    try:
+        core = EngineCore(moe, **kw, kv_offload_bytes=1 << 20)
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    out["moe_hosts_mesh"] = dict(core.mesh.shape)
+    out["moe_hosts_ship_offload"] = ship_offload(core)
+    out["moe_hosts_served"] = _serve(core, rank, inputs["dp_prompts"], greedy)
 
     port = inputs["port"]
     seen = {}
@@ -743,16 +760,7 @@ def _drain_parks(core, rank: int, prompts: list, mt: int,
         return False
 
     parks = _drive(core, rank, script)
-    ends = []
-    for r in seen:
-        toks, end = [], None
-        while not r.events.empty():
-            kind, val = r.events.get()
-            if kind == "token":
-                toks.append(int(val))
-            else:
-                end = (kind, val)
-        ends.append((toks, end))
+    ends = [_outcome(r) for r in seen]
     out = {"parks": parks, "ends": ends, "drain_tick": state.get("drain"),
            "draining": core.draining}
     if rank == 0:
@@ -931,9 +939,105 @@ def mesh_leader(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def _rounds(core, rank: int, rounds: list) -> list:
+    """Serve `rounds` of (prompt, sampling) on a lockstep engine driven by
+    hand (`_drive`): the leader submits a round's requests at one tick, so
+    they ride one tick plan and every rank inserts them together (an MoE
+    engine's capacity dispatch then sees the batch a one-rank engine fed
+    the same rounds sees), and the next round once each of them ended.
+    Every rank returns the (ids, end) of each request it mirrored, in plan
+    order."""
+    from llmlb_tpu_torch.engine.scheduler import Request
+
+    seen = _mirror(core)
+    live: list = []
+    left = list(rounds)
+
+    def script(tick):
+        if any(r.finished_at is None for r in live):
+            return False
+        if not left:
+            return True
+        live[:] = [core.submit(Request(prompt_ids=list(p), sampling=s))
+                   for p, s in left.pop(0)]
+        return False
+
+    _drive(core, rank, script)
+    return [_outcome(r) for r in seen]
+
+
+def moe_dp(rank: int, world: int, inputs: dict) -> dict:
+    """test_torch_moe_dp: lockstep debug-moe-tiny engines with dp groups
+    over the JAX package's Mixtral weights, serving `inputs["rounds"]`
+    (round 0 a group queued together, whose prefill group spans the dp
+    groups in the capacity regime). A world of two: dp=2 paged, dense and
+    int8 weights, and the cross-group prefix hit beside its cold run
+    (paged and dense). A world of four: dp=2 x ep=2 paged, and dp=4 paged
+    on `inputs["trio"]` (three prompts queued together: one group holds
+    none of the spanning group's rows and joins its gathers). Each case
+    records this rank's spanning gathers and joins."""
+    from llmlb_tpu_torch.engine.presets import get_preset
+    from llmlb_tpu_torch.engine.scheduler import EngineCore
+    from llmlb_tpu_torch.models import mixtral
+    from llmlb_tpu_torch.parallel.mesh import Mesh, MeshConfig
+
+    cfg = get_preset("debug-moe-tiny")
+    params = _params(inputs, cfg)
+    kw = dict(num_slots=4, slot_capacity=128, prefill_buckets=(16, 32),
+              kv_page_size=16, eos_id=-1, seed=0, device="cpu",
+              prefix_cache=False)
+    mt = inputs["max_tokens"]
+    spec = {"enabled": True, "max_draft_tokens": 4}
+
+    def rounds(name):
+        return [[(p, _sampling(mt, **({"speculative": spec} if s else {})))
+                 for p, s in r] for r in inputs[name]]
+
+    counts = {"gathers": 0, "joins": 0}
+    gather, join = Mesh.gather_batch, mixtral._join_gathers
+
+    def counted_gather(self, parts, rows):
+        counts["gathers"] += 1
+        return gather(self, parts, rows)
+
+    def counted_join(*args):
+        counts["joins"] += 1
+        return join(*args)
+
+    Mesh.gather_batch, mixtral._join_gathers = counted_gather, counted_join
+    if world == 4:
+        cases = (("dp2ep2", MeshConfig(dp=2, ep=2, tp=1), {}, "rounds"),
+                 ("dp4", MeshConfig(dp=4, tp=1), {}, "trio"))
+    else:
+        dp2 = MeshConfig(dp=2, tp=1)
+        cases = (("paged", dp2, {}, "rounds"),
+                 ("dense", dp2, {"kv_layout": "dense"}, "rounds"),
+                 ("int8", dp2, {"quantize": "weights"}, "rounds"))
+    out = {}
+    for name, mesh, extra, traffic in cases:
+        counts.update(gathers=0, joins=0)
+        core = EngineCore(cfg, params, mesh_config=mesh, **kw, **extra)
+        out[name] = _rounds(core, rank, rounds(traffic))
+        out[name + "_mesh"] = dict(core.mesh.shape)
+        out[name + "_counts"] = dict(counts)
+    if world == 4:
+        return out
+    head, tails = inputs["hit_head"], inputs["hit_tails"]
+    for layout in ("paged", "dense"):
+        core = EngineCore(cfg, params, mesh_config=dp2,
+                          **{**kw, "prefix_cache": True, "kv_layout": layout})
+        out["hit_" + layout] = _cross_group_hit(core, rank, head, tails, mt)
+        core = EngineCore(cfg, params, mesh_config=dp2,
+                          **{**kw, "kv_layout": layout})
+        out["cold_" + layout] = _serve(core, rank, [head + tails[1]],
+                                       [_sampling(mt)])
+    return out
+
+
 WORKERS = {"tp_engine": tp_engine, "ring": ring, "moe_ep": moe_ep,
            "multihost": multihost, "dp_engine": dp_engine,
-           "lora_mesh": lora_mesh, "mesh_leader": mesh_leader}
+           "lora_mesh": lora_mesh, "mesh_leader": mesh_leader,
+           "moe_dp": moe_dp}
 
 
 if __name__ == "__main__":
