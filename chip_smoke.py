@@ -112,6 +112,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
              resume; the reference design's gap (prompt + committed as one
              prefill) and the resume latency are logged, and in bf16 the
              latency of adoptions of 16 and 128 committed tokens.
+             In bf16 then the port's gateway, counted with the main path:
+             `python -m llmlb_tpu_torch.gateway.server serve` as a
+             subprocess (its own data dir, a known admin password) in
+             front of this phase's server: the registration detects the
+             engine as `tpu` and syncs llama-3-8b; a greedy 64-token chat
+             streamed and not and /v1/responses through the gateway carry
+             the direct path's ids, text and usage; the same server,
+             registered a second time under http://localhost:PORT, has
+             its stream cut by the `engine_abort` fault rule half-way and
+             the gateway resumes it on the first registration to the
+             uncut text (one resume in /metrics); the TTFT of 1-token
+             streams through the gateway against direct (median of 5).
              Then speculative decoding, per request, on the same core and
              counted with the main path: 1 row, then 8, of 64 greedy ids
              with speculation off, on (the prompt-lookup drafter), under a
@@ -2144,7 +2156,8 @@ def _post(url: str, body: dict, timeout: float = 600,
 
 
 def _chat(base: str, content: str, max_tokens: int, stream: bool,
-          model: str = "llama-3-8b", lora: str | None = None) -> dict:
+          model: str = "llama-3-8b", lora: str | None = None,
+          headers: dict | None = None) -> dict:
     """One greedy chat request; returns {text, usage, finish, model} after
     checking the response shape."""
     body = {"model": model, "temperature": 0, "max_tokens": max_tokens,
@@ -2152,7 +2165,8 @@ def _chat(base: str, content: str, max_tokens: int, stream: bool,
             "messages": [{"role": "user", "content": content}]}
     if lora is not None:
         body["lora"] = lora
-    with _post(base + "/v1/chat/completions", body) as resp:
+    with _post(base + "/v1/chat/completions", body,
+               headers=headers) as resp:
         if not stream:
             out = json.loads(resp.read())
             assert out["object"] == "chat.completion", out
@@ -3434,6 +3448,195 @@ def _endpoints(base: str, core, dev: dict) -> dict:
         f"{batch_ms:.1f} ms, one in {one_ms:.1f} ms (HTTP included); unit "
         f"vectors, each the same bits alone as in the batch")
     return {"embed_batch_ms": batch_ms, "embed_one_ms": one_ms}
+
+
+GATEWAY_PASSWORD = "gateway-smoke-1"
+
+
+def _gw_json(url: str, body: dict | None = None,
+             headers: dict | None = None) -> dict:
+    """GET (no body) or POST `url` on the gateway; the JSON it answers."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def _start_gateway(data_dir: str, faults: list[dict]):
+    """`python -m llmlb_tpu_torch.gateway.server serve` on a free port of
+    127.0.0.1, from the tree the port was imported from; returns the
+    process and its base URL once it listens."""
+    import os
+
+    import llmlb_tpu_torch
+
+    root = Path(llmlb_tpu_torch.__file__).resolve().parents[1]
+    log_path = Path(data_dir) / "gateway.log"
+    env = {**os.environ, "LLMLB_DATA_DIR": data_dir,
+           "LLMLB_ADMIN_PASSWORD": GATEWAY_PASSWORD,
+           "LLMLB_FAULTS": json.dumps(faults)}
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "llmlb_tpu_torch.gateway.server", "serve",
+             "--host", "127.0.0.1", "--port", "0"],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+)",
+                      log_path.read_text())
+        if m:
+            return proc, f"http://127.0.0.1:{m.group(1)}"
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    proc.kill()
+    proc.wait()
+    raise AssertionError(f"the gateway did not start: "
+                         f"{log_path.read_text()[-2000:]}")
+
+
+def _ttft_1(url: str, content: str, headers: dict | None = None) -> float:
+    """Seconds to the first frame after the role delta of a greedy 1-token
+    chat stream: the frame the first sampled token produces."""
+    body = {"model": "llama-3-8b", "temperature": 0, "max_tokens": 1,
+            "stream": True, "messages": [{"role": "user", "content": content}]}
+    t0 = time.perf_counter()
+    seen = []
+    with _post(url + "/v1/chat/completions", body, headers=headers) as resp:
+        for _ in _sse_lines(resp):
+            seen.append(time.perf_counter() - t0)
+    if len(seen) < 3:
+        raise AssertionError(f"a 1-token stream gave {len(seen)} frames")
+    return seen[1]
+
+
+def _gateway_block(engine, base: str, dev: dict) -> dict:
+    """The port's gateway (llmlb_tpu_torch/gateway/) in front of this
+    phase's engine server, as a subprocess on the standard library: the
+    registration detects the engine as `tpu` and syncs its model; a greedy
+    64-token chat streamed and not and /v1/responses through the gateway
+    carry the direct path's ids, text and usage; a second registration of
+    the same server (http://localhost:PORT) has its stream cut half-way by
+    the `engine_abort` fault rule and the gateway resumes it on the first
+    to the uncut text; TTFT of 1-token streams through the gateway against
+    direct, median of 5 each, interleaved."""
+    import tempfile
+
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    core = engine.core
+    t0 = time.perf_counter()
+    before = dict(ca.LAUNCHES)
+    cut_text = "Gateway resume: list the planets in order."
+    with _post(base + "/v1/chat/completions",
+               _armed(cut_text, 64, None)) as resp:
+        armed_bytes = len(resp.read())
+    uncut = _chat(base, cut_text, 64, True)
+    port = base.rsplit(":", 1)[1]
+    faults = [{"kind": "engine_abort", "endpoint": "localhost",
+               "path": "/v1/chat", "after_bytes": armed_bytes // 2,
+               "max_fires": 1}]
+    with tempfile.TemporaryDirectory(prefix="llmlb-gw-") as data_dir:
+        proc, gw = _start_gateway(data_dir, faults)
+        try:
+            start_s = time.perf_counter() - t0
+            token = _gw_json(gw + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            key = _gw_json(gw + "/api/api-keys", {"name": "smoke"},
+                           admin)["api_key"]
+            inf = {"Authorization": f"Bearer {key}"}
+            ep = _gw_json(gw + "/api/endpoints", {
+                "base_url": base, "name": "serve-bf16"}, admin)
+            models = [m["model_id"] for m in ep.get("models") or []]
+            if (ep["endpoint_type"], ep["status"]) != ("tpu", "online") or \
+                    models != ["llama-3-8b"]:
+                raise AssertionError(f"gateway registration: {ep}")
+            content = "Gateway check: describe a GPU in one line."
+            spy = _EmitSpy(core)
+            try:
+                pairs = {}
+                for stream in (True, False):
+                    direct = _chat(base, content, 64, stream)
+                    d_ids = spy.last()
+                    via = _chat(gw, content, 64, stream, headers=inf)
+                    pairs[stream] = (direct, via, d_ids, spy.last())
+                body = {"model": "llama-3-8b", "temperature": 0,
+                        "max_output_tokens": 64, "input": content}
+                r_direct = _gw_json(base + "/v1/responses", body)
+                rd_ids = spy.last()
+                r_via = _gw_json(gw + "/v1/responses", body, inf)
+                rv_ids = spy.last()
+            finally:
+                spy.close()
+            for stream, (direct, via, d_ids, v_ids) in pairs.items():
+                if via != direct or v_ids != d_ids or len(d_ids) != 64:
+                    raise AssertionError(
+                        f"gateway chat (stream={stream}): {via['usage']} "
+                        f"against {direct['usage']}; ids share "
+                        f"{_shared(v_ids, d_ids)} of {len(d_ids)}")
+            if pairs[True][2] != pairs[False][2]:
+                raise AssertionError("streamed and plain chats differ")
+
+            def out(r):
+                return ([c.get("text") for o in r["output"]
+                         for c in o.get("content") or []], r["usage"])
+
+            if out(r_via) != out(r_direct) or rv_ids != rd_ids:
+                raise AssertionError(f"gateway /v1/responses: {out(r_via)} "
+                                     f"against {out(r_direct)}")
+            # the cut: a second registration of this server, unmeasured so
+            # chosen first, cut half-way; the resume lands on the first
+            ep2 = _gw_json(gw + "/api/endpoints", {
+                "base_url": f"http://localhost:{port}",
+                "name": "resume-origin"}, admin)
+            if ep2["endpoint_type"] != "tpu":
+                raise AssertionError(f"second registration: {ep2}")
+            resumed = _chat(gw, cut_text, 64, True, headers=inf)
+            with urllib.request.urlopen(gw + "/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            if resumed != uncut:
+                raise AssertionError(f"the resumed stream: {resumed} against "
+                                     f"the uncut {uncut}")
+            if ('llmlb_gateway_stream_resumes_total{outcome="success"} 1'
+                    not in metrics):
+                raise AssertionError("the gateway booked no resume: " + " ".join(
+                    ln for ln in metrics.splitlines() if "resume" in ln))
+            # TTFT, interleaved, fresh heads (no prefix-cache hits)
+            direct_t, via_t = [], []
+            for i in range(5):
+                direct_t.append(_ttft_1(base, f"TTFT probe {i}a: say hi."))
+                via_t.append(_ttft_1(gw, f"TTFT probe {i}b: say hi.", inf))
+            health = _gw_json(gw + "/api/health")
+        finally:
+            proc.terminate()
+            code = proc.wait(timeout=60)
+        if code != 0:
+            raise AssertionError(f"the gateway exited with {code}")
+    launches = {k: ca.LAUNCHES[k] - before.get(k, 0) for k in BF16_PATH}
+    if not launches["flash_prefill"] or not launches["paged_flash_decode"]:
+        raise AssertionError(f"gateway traffic launched {launches}")
+    stats = {"start_s": round(start_s, 3),
+             "ttft_direct_ms": statistics.median(direct_t) * 1e3,
+             "ttft_gateway_ms": statistics.median(via_t) * 1e3,
+             "ttft_direct_all_ms": [t * 1e3 for t in direct_t],
+             "ttft_gateway_all_ms": [t * 1e3 for t in via_t],
+             "launches": launches,
+             "breakers": {e["name"]: e["breaker"]["state"]
+                          for e in health["endpoints"]}}
+    log(f"serve bf16 [{dev['smi']}]: gateway: registered as tpu with "
+        f"llama-3-8b synced; chat (streamed and not) and /v1/responses "
+        f"through it carry the direct path's 64 ids, text and usage; a "
+        f"stream cut at {armed_bytes // 2} of ~{armed_bytes} bytes resumed "
+        f"on the other registration to the uncut text; launches {launches}")
+    log(f"serve bf16 [{dev['smi']}]: gateway TTFT (1-token stream, median of "
+        f"5) {stats['ttft_gateway_ms']:.2f} ms through the gateway against "
+        f"{stats['ttft_direct_ms']:.2f} ms direct (all: gateway "
+        f"{[round(t, 2) for t in stats['ttft_gateway_all_ms']]}, direct "
+        f"{[round(t, 2) for t in stats['ttft_direct_all_ms']]}); gateway up "
+        f"in {start_s:.2f} s; the block {time.perf_counter() - t0:.1f} s")
+    return stats
 
 
 def _drain_block(server, label: str) -> dict:
@@ -6262,6 +6465,8 @@ def phase_serve(dev: dict, label: str, path: tuple[str, ...],
         if label == "bf16":
             over.update(_timed(block_s, "endpoints", _endpoints, base, core,
                                dev))
+            over["gateway"] = _timed(block_s, "gateway", _gateway_block,
+                                     engine, base, dev)
         # speculative decoding on this core, per request, counted with the
         # main path: the whole block in bf16, one stub request elsewhere
         if label == "bf16":
@@ -9051,7 +9256,10 @@ def main(argv: list[str] | None = None) -> int:
                    if "budget" in st.get("overload", {}) else {}),
                 **({"disagg": {k: v for k, v in st["overload"][
                     "disagg"].items() if k != "launches"}}
-                   if "disagg" in st.get("overload", {}) else {})}
+                   if "disagg" in st.get("overload", {}) else {}),
+                **({"gateway": {k: v for k, v in st["overload"][
+                    "gateway"].items() if k != "launches"}}
+                   if "gateway" in st.get("overload", {}) else {})}
         for label, st in serves.items()}, "mixtral": {
             k: v for k, v in stats_mix.items() if k != "launches"},
         "multimodal": stats_mm,

@@ -1,0 +1,9 @@
+"""The port's gateway: the reference gateway's serving path
+(llmlb_tpu/gateway/) at one worker, on the Python standard library.
+
+Module names follow the reference, so each module's counterpart is found by
+name. `http` is new: the part of aiohttp the reference is written against,
+on asyncio streams, so the gateway needs no package beyond the standard
+library. Entry point:
+`python -m llmlb_tpu_torch.gateway.server serve`.
+"""

@@ -1,0 +1,435 @@
+"""Gateway application: the serving path's routes + middleware stack.
+
+The port's counterpart of llmlb_tpu/gateway/app.py: the OpenAI surface
+(/v1/chat/completions, /v1/completions, /v1/responses, /v1/embeddings,
+/v1/models), login, endpoint registration and API keys, request traces,
+/health, /api/health and /metrics, behind the reference's middlewares in
+its order less the audit log: tracing (outermost) → inference gate → CSRF →
+auth (JWT / API key / x-api-key) → handler. The reference's other routes
+(Anthropic, media, cloud, model registry, dashboard, benchmarks, users,
+audit, settings, updates) come with the slices that port them.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+from llmlb_tpu_torch.gateway.http import web
+
+from llmlb_tpu_torch.gateway import api_admin, api_openai, tracing
+from llmlb_tpu_torch.gateway.app_state import AppState, gateway_exposition
+from llmlb_tpu_torch.gateway.auth import (
+    CSRF_COOKIE,
+    JWT_COOKIE,
+    AuthError,
+    verify_jwt,
+)
+from llmlb_tpu_torch.gateway.tracing import REQUEST_ID_HEADER, mint_request_id
+from llmlb_tpu_torch.gateway.types import Permission
+
+log = logging.getLogger("llmlb_tpu_torch.gateway.app")
+
+MAX_BODY_BYTES = 20 * 1024 * 1024  # parity: api/mod.rs:58
+
+PUBLIC_PATHS = {
+    ("POST", "/api/auth/login"),
+    ("GET", "/health"),
+    ("GET", "/api/health"),  # fleet health + breaker state, same stance
+    ("GET", "/metrics"),  # Prometheus scrape, same stance as the engine's
+    ("GET", "/"),
+}
+
+# method+prefix → permission required when authenticating with an API key
+_API_KEY_PERMS: list[tuple[str, str, Permission]] = [
+    ("GET", "/api/endpoints", Permission.ENDPOINTS_READ),
+    ("*", "/api/endpoints", Permission.ENDPOINTS_MANAGE),
+    ("GET", "/api/traces", Permission.METRICS_READ),
+]
+
+
+def _is_traced_path(path: str) -> bool:
+    """Inference paths get full lifecycle traces (every request gets an id)."""
+    return path.startswith("/v1/") or (
+        path.startswith("/api/endpoints/")
+        and path.endswith("/chat/completions")
+    )
+
+
+def _route_label(request: web.Request) -> str | None:
+    """Matched route pattern (e.g. '/v1/chat/completions') — a bounded label
+    set; unmatched requests return None and are not counted."""
+    resource = getattr(request.match_info.route, "resource", None)
+    return getattr(resource, "canonical", None)
+
+
+@web.middleware
+async def tracing_middleware(request: web.Request, handler):
+    """Outermost: mints/reuses X-Request-Id, echoes it on every response
+    (success and error paths), records the lifecycle trace for inference
+    requests, and counts requests/errors per route in GatewayMetrics."""
+    state: AppState = request.app["state"]
+    rid = mint_request_id(request.headers.get(REQUEST_ID_HEADER))
+    request["request_id"] = rid
+    trace = None
+    if _is_traced_path(request.path):
+        trace = state.traces.start(rid, request.method, request.path)
+        # auth covers the middleware stack up to the handler; the inference
+        # handlers close it on entry, finish() closes it on rejection.
+        trace.begin("auth")
+        request["trace"] = trace
+    status = 500
+    error = None
+    try:
+        response = await handler(request)
+        status = response.status
+        if not response.prepared:  # streamed responses set it pre-prepare
+            response.headers[REQUEST_ID_HEADER] = rid
+        return response
+    except web.HTTPException as e:
+        status = e.status
+        e.headers[REQUEST_ID_HEADER] = rid
+        raise
+    except Exception as e:
+        error = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        if trace is not None:
+            state.traces.finish(trace, status, error)
+        route = _route_label(request)
+        if route is not None and request.path != "/metrics":
+            state.metrics.record_request(route, status)
+
+
+@web.middleware
+async def gate_middleware(request: web.Request, handler):
+    """Inference gate: during update drain, /v1/* rejects with 503+Retry-After
+    (inference_gate.rs:200-230); otherwise counts the request in flight for the
+    full (streaming) response lifetime."""
+    state: AppState = request.app["state"]
+    # Playground proxy is inference too (reference gates it: api/mod.rs:460-479).
+    is_inference = request.path.startswith("/v1/") or (
+        request.path.startswith("/api/endpoints/")
+        and request.path.endswith("/chat/completions")
+    )
+    if is_inference:
+        if state.gate.rejecting:
+            return web.json_response(
+                {"error": {"message": "server is draining for update",
+                           "type": "server_error", "code": "draining"}},
+                status=503,
+                headers={"Retry-After": "30"},
+            )
+        with state.gate.track():
+            return await handler(request)
+    return await handler(request)
+
+
+def _required_api_key_perm(method: str, path: str) -> Permission | None:
+    for m, prefix, perm in _API_KEY_PERMS:
+        if path.startswith(prefix) and (m == "*" or m == method):
+            return perm
+    return None
+
+
+def _origin_matches(request: web.Request) -> bool:
+    """Origin/Referer must match the Host the request arrived on (parity:
+    auth/middleware.rs origin_matches). Missing both headers fails closed."""
+    origin = request.headers.get("Origin")
+    if origin is None:
+        referer = request.headers.get("Referer")
+        if referer and "://" in referer:
+            scheme, _, rest = referer.partition("://")
+            origin = f"{scheme}://{rest.split('/', 1)[0]}"
+    if not origin or "://" not in origin:
+        return False
+    host = request.headers.get("X-Forwarded-Host", request.host)
+    host = host.split(",")[0].strip()
+    proto = request.headers.get(
+        "X-Forwarded-Proto", request.scheme or "http"
+    ).split(",")[0].strip()
+
+    def norm(scheme: str, authority: str) -> tuple[str, str, str]:
+        scheme = scheme.lower()
+        authority = authority.lower().rstrip(".")
+        default_port = {"http": "80", "https": "443"}.get(scheme, "")
+        if authority.startswith("["):  # bracketed IPv6: [::1] or [::1]:8080
+            h, _, rest = authority.partition("]")
+            h += "]"
+            p = rest[1:] if rest.startswith(":") else default_port
+        elif ":" in authority:
+            h, _, p = authority.rpartition(":")
+        else:
+            h, p = authority, default_port
+        return scheme, h.rstrip("."), p or default_port
+
+    o_scheme, _, o_rest = origin.partition("://")
+    return norm(o_scheme, o_rest.split("/", 1)[0]) == norm(proto, host)
+
+
+@web.middleware
+async def csrf_middleware(request: web.Request, handler):
+    """Double-submit CSRF for cookie-authenticated state changes (parity:
+    auth/middleware.rs:431-479 csrf_protect_middleware). Header-authenticated
+    requests (Authorization / x-api-key) are exempt — only the browser cookie
+    session is forgeable cross-site."""
+    if request.method not in ("POST", "PUT", "PATCH", "DELETE"):
+        return await handler(request)
+    if not request.path.startswith("/api/"):
+        return await handler(request)
+    if (request.method, request.path) in PUBLIC_PATHS:
+        return await handler(request)  # login establishes the session
+    if "Authorization" in request.headers or "x-api-key" in request.headers:
+        return await handler(request)
+    if request.cookies.get(JWT_COOKIE) is None:
+        return await handler(request)  # not a cookie session; auth will 401
+
+    cookie_token = request.cookies.get(CSRF_COOKIE)
+    if not cookie_token:
+        return web.json_response({"error": "missing CSRF cookie"}, status=403)
+    header_token = request.headers.get("x-csrf-token")
+    if not header_token:
+        return web.json_response({"error": "missing CSRF header"}, status=403)
+    if cookie_token != header_token:
+        return web.json_response({"error": "invalid CSRF token"}, status=403)
+    if not _origin_matches(request):
+        return web.json_response(
+            {"error": "origin validation failed"}, status=403
+        )
+    return await handler(request)
+
+
+@web.middleware
+async def auth_middleware(request: web.Request, handler):
+    state: AppState = request.app["state"]
+    method, path = request.method, request.path
+
+    if method == "OPTIONS" or (method, path) in PUBLIC_PATHS:
+        return await handler(request)
+
+    # ---- credential extraction
+    bearer = None
+    authz = request.headers.get("Authorization", "")
+    if authz.startswith("Bearer "):
+        bearer = authz[7:].strip()
+    # Dashboard cookie session — accepted only on the /api/* surface, where
+    # csrf_middleware guards state changes. /v1/* stays header-auth-only so a
+    # cross-site form POST can never ride the browser cookie into inference.
+    if not bearer and path.startswith("/api/"):
+        bearer = request.cookies.get(JWT_COOKIE)
+    anthropic_key = request.headers.get("x-api-key")  # Anthropic-style
+
+    auth_ctx: dict | None = None
+    if bearer and bearer.startswith("sk_"):
+        key = state.api_keys.verify(bearer)
+        if key:
+            auth_ctx = {
+                "actor": f"key:{key.name}", "actor_type": "api_key",
+                "api_key_id": key.id, "user_id": key.user_id,
+                "permissions": set(key.permissions), "role": None,
+            }
+    elif bearer:
+        try:
+            payload = verify_jwt(state.jwt_secret, bearer)
+            auth_ctx = {
+                "actor": payload.get("username"), "actor_type": "jwt",
+                "user_id": payload.get("sub"), "api_key_id": None,
+                "permissions": None, "role": payload.get("role"),
+            }
+        except AuthError:
+            auth_ctx = None
+    if auth_ctx is None and anthropic_key and anthropic_key.startswith("sk_"):
+        key = state.api_keys.verify(anthropic_key)
+        if key:
+            auth_ctx = {
+                "actor": f"key:{key.name}", "actor_type": "api_key",
+                "api_key_id": key.id, "user_id": key.user_id,
+                "permissions": set(key.permissions), "role": None,
+            }
+
+    if auth_ctx is None:
+        if path.startswith("/v1/"):
+            return web.json_response(
+                {"error": {"message": "missing or invalid API key",
+                           "type": "authentication_error", "code": None}},
+                status=401,
+            )
+        return web.json_response({"error": "authentication required"}, status=401)
+
+    request["auth"] = auth_ctx
+
+    # ---- authorization
+    if path.startswith("/v1/"):
+        if auth_ctx["actor_type"] == "api_key":
+            needed = (
+                Permission.OPENAI_MODELS_READ
+                if path.startswith("/v1/models") and method == "GET"
+                else Permission.OPENAI_INFERENCE
+            )
+            perms = auth_ctx["permissions"] or set()
+            if needed not in perms and Permission.OPENAI_INFERENCE not in perms:
+                return web.json_response(
+                    {"error": {"message": f"API key lacks {needed.value}",
+                               "type": "permission_error", "code": None}},
+                    status=403,
+                )
+        return await handler(request)
+
+    # /api/* surface
+    if auth_ctx["actor_type"] == "api_key":
+        needed = _required_api_key_perm(method, path)
+        if needed is None or needed not in (auth_ctx["permissions"] or set()):
+            return web.json_response(
+                {"error": f"API key lacks permission for {method} {path}"},
+                status=403,
+            )
+        return await handler(request)
+
+    # JWT: viewers read, admins everything; self-service paths exempt
+    if auth_ctx["role"] != "admin":
+        self_service = path in (
+            "/api/auth/me", "/api/auth/change-password", "/api/api-keys"
+        ) or path.startswith("/api/api-keys/")
+        if method not in ("GET", "HEAD") and not self_service:
+            return web.json_response(
+                {"error": "admin role required"}, status=403
+            )
+    return await handler(request)
+
+
+def create_app(state: AppState) -> web.Application:
+    app = web.Application(
+        client_max_size=MAX_BODY_BYTES,
+        middlewares=[
+            tracing_middleware, gate_middleware, csrf_middleware,
+            auth_middleware,
+        ],
+    )
+    app["state"] = state
+    r = app.router
+
+    # ---- OpenAI surface (api/mod.rs:523-535)
+    r.add_post("/v1/chat/completions", api_openai.chat_completions)
+    r.add_post("/v1/completions", api_openai.completions)
+    r.add_post("/v1/embeddings", api_openai.embeddings)
+    r.add_post("/v1/responses", api_openai.responses)
+    r.add_get("/v1/models", api_openai.list_models)
+    r.add_get("/v1/models/{model_id:.+}", api_openai.get_model)
+
+    # ---- auth
+    r.add_post("/api/auth/login", api_admin.login)
+    r.add_post("/api/auth/logout", api_admin.logout)
+    r.add_get("/api/auth/me", api_admin.me)
+
+    # ---- endpoints admin
+    r.add_get("/api/endpoints", api_admin.list_endpoints)
+    r.add_post("/api/endpoints", api_admin.create_endpoint)
+    r.add_get("/api/endpoints/{endpoint_id}", api_admin.get_endpoint)
+    r.add_post("/api/endpoints/{endpoint_id}/test", api_admin.test_endpoint)
+    r.add_post("/api/endpoints/{endpoint_id}/sync", api_admin.sync_endpoint)
+
+    # ---- API keys
+    r.add_get("/api/api-keys", api_admin.list_api_keys)
+    r.add_post("/api/api-keys", api_admin.create_api_key)
+    r.add_delete("/api/api-keys/{key_id}", api_admin.revoke_api_key)
+
+    # ---- observability: request traces + gateway-wide Prometheus metrics
+    r.add_get("/api/traces", tracing.list_traces)
+    r.add_get("/api/traces/{trace_id}", tracing.get_trace)
+    r.add_get("/metrics", _gateway_metrics)
+
+    # ---- liveness + root
+    r.add_get("/health", _health)
+    r.add_get("/api/health", _api_health)
+    r.add_get("/", _root)
+
+    async def on_shutdown(app):
+        await state.close()
+
+    app.on_shutdown.append(on_shutdown)
+    return app
+
+
+async def _health(request: web.Request) -> web.Response:
+    return web.json_response({"status": "ok"})
+
+
+async def _api_health(request: web.Request) -> web.Response:
+    """GET /api/health — fleet-level health: per-endpoint status as the
+    scheduler sees it right now (pull-checker status AND in-band breaker
+    state + outcome counters), admission pressure, and the retry budget.
+    The gateway-side counterpart of the engine's /api/health.
+
+    Public (same stance as /metrics, which already exposes endpoint names
+    and breaker states as labels) — but only names, never endpoint ids:
+    ids are admin-API identifiers and stay behind auth."""
+    state: AppState = request.app["state"]
+    endpoints = []
+    for ep in state.registry.list_all():
+        breaker = (state.resilience.breaker_info(ep.id)
+                   if state.resilience is not None
+                   else {"state": ep.breaker_state})
+        endpoints.append({
+            "name": ep.name,
+            "status": ep.status.value,
+            # serving role from the last engine probe (docs/disaggregation.md)
+            "role": ep.accelerator.role or "both",
+            # graceful-drain advertisement from the last probe: a draining
+            # engine is online but ejected from selection
+            # (docs/deployment.md)
+            "draining": ep.accelerator.draining,
+            "breaker": breaker,
+            "latency_ms": ep.latency_ms,
+            "consecutive_probe_failures": ep.consecutive_failures,
+            "outcomes": state.load_manager.endpoint_outcomes(ep.id),
+            "active_requests": state.load_manager.active_count(ep.id),
+        })
+    online = sum(1 for e in endpoints if e["status"] == "online")
+    serving = sum(
+        1 for e in endpoints
+        if (e["status"] == "online" and e["breaker"]["state"] != "open"
+            and not e["draining"])
+    )
+    body = {
+        "status": "ok" if serving or not endpoints else "degraded",
+        "uptime_s": round(time.time() - state.started_at, 1),
+        "endpoints_online": online,
+        "endpoints_serving": serving,  # online AND breaker not open
+        "endpoints": endpoints,
+        "admission": {
+            "queue_depth": state.admission.queue_depth(),
+            "active_requests": state.load_manager.total_active(),
+            "wfq_enabled": state.admission.wfq_enabled,
+        },
+    }
+    if state.ratelimit is not None and state.ratelimit.enabled:
+        body["ratelimit"] = state.ratelimit.snapshot()
+    if state.resilience is not None:
+        cfg = state.resilience.config
+        body["resilience"] = {
+            "enabled": cfg.enabled,
+            "max_attempts": cfg.max_attempts,
+            "breaker_failure_threshold": cfg.breaker_failure_threshold,
+            "breaker_open_s": cfg.breaker_open_s,
+            "retry_budget": state.resilience.budget.snapshot(),
+        }
+    if state.faults is not None:
+        body["faults"] = state.faults.snapshot()
+    return web.json_response(body)
+
+
+async def _gateway_metrics(request: web.Request) -> web.Response:
+    """GET /metrics — gateway-wide Prometheus exposition: per-model/endpoint
+    TTFT, e2e, and queue-wait histograms, per-route counters, plus
+    scrape-time gauges owned by the balancer and admission queue."""
+    state: AppState = request.app["state"]
+    return web.Response(text=gateway_exposition(state),
+                        content_type="text/plain", charset="utf-8")
+
+
+async def _root(request: web.Request) -> web.Response:
+    return web.json_response({
+        "name": "llmlb_tpu",
+        "endpoints": ["/v1/chat/completions", "/v1/responses", "/v1/models",
+                      "/api/endpoints"],
+    })

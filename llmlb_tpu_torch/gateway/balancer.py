@@ -1,0 +1,826 @@
+"""LoadManager: TPS-EMA scheduling, request leases, in-memory request history.
+
+Behavior parity with the reference scheduler (reference balancer/mod.rs):
+- Per-(endpoint, model, api_kind) tokens/sec tracked as an EMA with α=0.2
+  (balancer/types.rs:98-121); endpoints with higher measured TPS are preferred.
+- Endpoints with no measurement yet score +inf so they get probed first;
+  ties (incl. all-unmeasured) break round-robin (balancer/mod.rs:1955-1984).
+- RequestLease is an RAII guard: active count increments on acquire and is
+  always released — explicitly via complete()/fail(), or by the finalizer if
+  the holder forgets (balancer/lease.rs Drop semantics).
+- 60-minute in-memory request history ring for dashboards (types.rs:22),
+  seeded from the DB at boot.
+- TPU-aware extension (no reference counterpart): measured TPS scores are
+  multiplied by a telemetry penalty computed from the endpoint's last health
+  probe — HBM pressure above HBM_PRESSURE_KNEE fades the score toward zero,
+  and a non-empty engine admission queue divides it by (1 + depth). Unmeasured
+  endpoints still probe first, but telemetry breaks ties among them before
+  round-robin does.
+- Prefix-affinity routing (no reference counterpart): requests whose prompt
+  head hashes to a recently-routed prefix stick to the endpoint that last
+  served it, so the engine-side prefix KV cache (engine/prefix_cache.py)
+  actually gets hit. Two modes (LLMLB_AFFINITY):
+    * ``lru`` (default single-worker): learned bounded LRU map with TTL —
+      the historical behavior, bit-identical to pre-multi-worker gateways.
+    * ``ring`` (default with --workers > 1): rendezvous/consistent hashing
+      over the live endpoint set — every worker maps the same prompt head
+      to the same endpoint with zero coordination, steering survives worker
+      restarts, and endpoint churn remaps only ~1/E of keys.
+  Both fall back to normal scoring whenever the sticky endpoint is
+  unhealthy, absent, or at its cap.
+
+The reference's gossip replication of TPS samples, affinity pins and its
+prefix-heat map serves sibling workers; this gateway runs one worker, so
+that state stays local and the replication comes with multi-worker serving.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import bisect
+import dataclasses
+import hashlib
+import os
+import threading
+import time
+import typing
+from collections import OrderedDict, defaultdict, deque
+
+from llmlb_tpu_torch.gateway.config import QueueConfig
+from llmlb_tpu_torch.gateway.types import Endpoint, TpsApiKind
+
+TPS_EMA_ALPHA = 0.2  # parity: balancer/types.rs:109
+HISTORY_WINDOW_S = 3600.0  # parity: 60-min window, balancer/types.rs:22
+METRICS_STALE_S = 120.0
+
+# Telemetry-aware placement: above this HBM fill fraction an endpoint's score
+# fades linearly, reaching TELEMETRY_MIN_PENALTY at 100% full. A KV-cache-bound
+# engine near HBM capacity will soon reject or thrash; prefer its peers.
+HBM_PRESSURE_KNEE = 0.85
+TELEMETRY_MIN_PENALTY = 0.05
+
+# Prefix-affinity routing: the tpu:// engine keeps a prefix KV cache
+# (engine/prefix_cache.py), so two requests sharing a system prompt are far
+# cheaper on the SAME engine than split across two. The gateway hashes the
+# head of each prompt and remembers which endpoint last served that hash;
+# the next request with the same hash is steered there as long as the
+# endpoint is a live candidate under its admission cap — otherwise selection
+# falls back to the normal TPS/telemetry scoring and the hash is re-pinned
+# to whatever endpoint wins. The map is bounded (LRU) and entries expire,
+# so a dead prefix never pins routing forever.
+PREFIX_AFFINITY_CAPACITY = 4096
+PREFIX_AFFINITY_TTL_S = 600.0
+PREFIX_AFFINITY_CHARS = 512  # ≈ the first 128 prompt tokens
+# Heads shorter than this can never clear the engine's minimum cacheable
+# prefix (the smallest prefill bucket — 32 tokens ≈ 128 chars on the default
+# config), so pinning them would override TPS/telemetry placement for zero
+# cache benefit — short prompts keep the old scoring.
+PREFIX_AFFINITY_MIN_CHARS = 128
+
+
+def prefix_affinity_hash(model: str, text: str,
+                         lora: str | None = None) -> str | None:
+    """Stable hash of a prompt's head (+ model, so two models' identical
+    system prompts don't collide onto one engine's cache; + LoRA adapter
+    id — under multi-LoRA the prompt KV depends on the adapter's wq/wk/wv
+    deltas, so two adapters sharing a system prompt must pin and warm
+    caches independently, docs/lora.md). None for heads too short to
+    benefit from prefix reuse. lora=None hashes exactly as before, so
+    adapter-free affinity keys are unchanged."""
+    if len(text) < PREFIX_AFFINITY_MIN_CHARS:
+        return None
+    head = text[:PREFIX_AFFINITY_CHARS]
+    key = (f"{model}\x00{head}" if lora is None
+           else f"{model}\x00lora={lora}\x00{head}")
+    return hashlib.sha1(key.encode("utf-8", "replace")).hexdigest()
+
+
+AFFINITY_MODES = ("lru", "ring")
+
+
+def hrw_weight(prefix_hash: str, endpoint_id: str) -> int:
+    """Rendezvous (highest-random-weight) score of one (key, endpoint)
+    pair: the first 8 bytes of sha256("hash|endpoint") as a big-endian
+    integer. The reference's native twin (router_core.cpp hrw_select)
+    computes the same bytes."""
+    digest = hashlib.sha256(
+        f"{prefix_hash}|{endpoint_id}".encode()
+    ).digest()
+    return int.from_bytes(digest[:8], "big")
+
+
+def hrw_owner(prefix_hash: str, endpoint_ids: list[str]) -> str | None:
+    """Consistent-hash owner of a prefix over the live endpoint set.
+
+    Pure function of (key, set): every worker computes the same owner with
+    no shared state, a restart loses nothing, and removing one endpoint
+    remaps only the keys it owned (~1/E) — the property a mod-N hash lacks.
+    Ties (astronomically unlikely) break toward the smallest endpoint id.
+    """
+    best: str | None = None
+    best_w = -1
+    for eid in endpoint_ids:
+        w = hrw_weight(prefix_hash, eid)
+        if w > best_w or (w == best_w and (best is None or eid < best)):
+            best, best_w = eid, w
+    return best
+
+
+def default_affinity_mode(worker_count: int = 1) -> str:
+    """LLMLB_AFFINITY beats the worker-count default: ring when several
+    workers must agree without coordination, lru (the historical,
+    bit-identical behavior) for a single worker."""
+    raw = (os.environ.get("LLMLB_AFFINITY") or "").strip().lower()
+    if raw in AFFINITY_MODES:
+        return raw
+    return "ring" if worker_count > 1 else "lru"
+
+
+def telemetry_penalty(ep: Endpoint, now: float | None = None) -> float:
+    """Multiplicative demotion factor in (0, 1] from the endpoint's last
+    health-probe telemetry. 1.0 = unloaded, no telemetry, or telemetry older
+    than METRICS_STALE_S (a snapshot from a probe that has since stopped
+    reporting must not demote an endpoint forever)."""
+    acc = ep.accelerator
+    if acc is None:
+        return 1.0
+    if acc.sampled_at <= 0:
+        return 1.0
+    if ((now if now is not None else time.time()) - acc.sampled_at
+            > METRICS_STALE_S):
+        return 1.0
+    p = 1.0
+    pressure = acc.hbm_pressure
+    if pressure is not None and pressure > HBM_PRESSURE_KNEE:
+        span = 1.0 - HBM_PRESSURE_KNEE
+        frac = min(1.0, (pressure - HBM_PRESSURE_KNEE) / span)
+        p *= max(TELEMETRY_MIN_PENALTY, 1.0 - frac * (1.0 - TELEMETRY_MIN_PENALTY))
+    if acc.queue_depth > 0:
+        p /= 1.0 + acc.queue_depth
+    return p
+
+
+@dataclasses.dataclass
+class ModelTpsState:
+    """EMA of tokens/sec for one (endpoint, model, api_kind)."""
+
+    ema_tps: float = 0.0
+    samples: int = 0
+    last_update: float = 0.0
+
+    def update(self, tokens: int, duration_s: float, now: float | None = None) -> None:
+        if duration_s <= 0 or tokens <= 0:
+            return
+        tps = tokens / duration_s
+        if self.samples == 0:
+            self.ema_tps = tps
+        else:
+            self.ema_tps = TPS_EMA_ALPHA * tps + (1 - TPS_EMA_ALPHA) * self.ema_tps
+        self.samples += 1
+        self.last_update = now if now is not None else time.time()
+
+
+@dataclasses.dataclass
+class RequestRecord:
+    ts: float
+    endpoint_id: str
+    model: str
+    api_kind: TpsApiKind
+    status_code: int
+    duration_ms: float
+    prompt_tokens: int = 0
+    completion_tokens: int = 0
+
+
+class RequestLease:
+    """Active-request guard. Release exactly once; idempotent on double release."""
+
+    def __init__(self, manager: "LoadManager", endpoint_id: str, model: str,
+                 api_kind: TpsApiKind):
+        self.manager = manager
+        self.endpoint_id = endpoint_id
+        self.model = model
+        self.api_kind = api_kind
+        self.started_at = time.monotonic()
+        self._released = False
+
+    def complete(self) -> None:
+        """Request handed off successfully (e.g. stream started)."""
+        self._release()
+
+    def complete_with_tokens(self, prompt_tokens: int, completion_tokens: int) -> None:
+        duration = time.monotonic() - self.started_at
+        self.manager.update_tps(
+            self.endpoint_id, self.model, self.api_kind,
+            completion_tokens, duration,
+        )
+        self._release()
+
+    def fail(self) -> None:
+        self._release()
+
+    def _release(self) -> None:
+        if not self._released:
+            self._released = True
+            self.manager._release_active(self.endpoint_id)
+
+    def __del__(self):  # Drop-safety: never leak an active count
+        self._release()
+
+    def __enter__(self) -> "RequestLease":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._release()
+
+
+class LoadManager:
+    def __init__(self, queue_config: QueueConfig | None = None,
+                 affinity_mode: str | None = None):
+        self.queue_config = queue_config or QueueConfig()
+        self.affinity_mode = (affinity_mode if affinity_mode in AFFINITY_MODES
+                              else default_affinity_mode())
+        self._lock = threading.Lock()
+        # (endpoint_id, model, api_kind) -> ModelTpsState
+        self._tps: dict[tuple[str, str, str], ModelTpsState] = {}
+        self._active: dict[str, int] = defaultdict(int)
+        self._rr_counter: dict[str, int] = defaultdict(int)  # round-robin per model
+        self._history: deque[RequestRecord] = deque()
+        self._total_requests = 0
+        # (model, prefix_hash) -> (endpoint_id, recorded_at); recorded_at
+        # drives the TTL. Bounded LRU.
+        self._affinity: OrderedDict[
+            tuple[str, str], tuple[str, float]
+        ] = OrderedDict()
+        self._affinity_hits = 0
+        self._affinity_misses = 0
+        self._affinity_evictions = 0
+        # In-band per-endpoint outcome stats (resilience layer feeds these;
+        # stream interruptions land here too — before this, a stream that
+        # died mid-flight never counted against its endpoint because the
+        # lease completes at stream start). Independent of the breaker:
+        # surfaced in /api/health and stats() even with resilience disabled.
+        self._endpoint_outcomes: dict[str, dict] = {}
+        # ResilienceManager | None (set by app_state): selection consults
+        # allow() so breaker-open endpoints are ejected immediately, and
+        # reports admissions via on_admit() (half-open probe accounting).
+        self.resilience = None
+        # Called (outside the lock) with the endpoint id each time a lease is
+        # released — the AdmissionQueue uses it to wake parked waiters instead
+        # of having them poll (parity: balancer/mod.rs:2273-2427 notify path).
+        self.on_release: typing.Callable[[str], None] | None = None
+
+    # ------------------------------------------------------------------- TPS
+
+    def update_tps(
+        self, endpoint_id: str, model: str, api_kind: TpsApiKind,
+        tokens: int, duration_s: float,
+    ) -> None:
+        if duration_s <= 0 or tokens <= 0:
+            return  # rejected samples must not create phantom tracked keys
+        with self._lock:
+            key = (endpoint_id, model, api_kind.value)
+            state = self._tps.setdefault(key, ModelTpsState())
+            state.update(tokens, duration_s)
+
+    def seed_tps(self, endpoint_id: str, model: str, api_kind: TpsApiKind,
+                 ema_tps: float, samples: int = 1) -> None:
+        """Warm-start from persisted daily stats at boot (bootstrap parity)."""
+        with self._lock:
+            self._tps[(endpoint_id, model, api_kind.value)] = ModelTpsState(
+                ema_tps=ema_tps, samples=samples, last_update=time.time()
+            )
+
+    def get_tps(self, endpoint_id: str, model: str,
+                api_kind: TpsApiKind) -> float | None:
+        with self._lock:
+            state = self._tps.get((endpoint_id, model, api_kind.value))
+            return state.ema_tps if state and state.samples else None
+
+    def clear_tps_for_endpoint(self, endpoint_id: str) -> None:
+        """On failure: a recovered endpoint must re-learn (balancer/mod.rs:1791).
+        Prefix affinities pinned to it are dropped too — its engine restarts
+        with a cold prefix cache, so stickiness buys nothing and would keep
+        steering shared-prefix traffic at a flapping endpoint."""
+        with self._lock:
+            for key in [k for k, v in self._affinity.items()
+                        if v[0] == endpoint_id]:
+                del self._affinity[key]
+            self._tps = {
+                k: v for k, v in self._tps.items() if k[0] != endpoint_id
+            }
+
+    def tps_snapshot(self) -> dict[str, dict]:
+        with self._lock:
+            return {
+                f"{eid}:{model}:{kind}": {
+                    "ema_tps": round(s.ema_tps, 3),
+                    "samples": s.samples,
+                    "last_update": s.last_update,
+                }
+                for (eid, model, kind), s in self._tps.items()
+            }
+
+    # ------------------------------------------------------- prefix affinity
+
+    def _affinity_peek_locked(self, model: str, prefix_hash: str) -> str | None:
+        key = (model, prefix_hash)
+        got = self._affinity.get(key)
+        if got is None:
+            return None
+        endpoint_id, ts = got
+        if time.time() - ts > PREFIX_AFFINITY_TTL_S:
+            del self._affinity[key]
+            return None
+        return endpoint_id
+
+    def _affinity_note_locked(self, model: str, prefix_hash: str,
+                              endpoint_id: str) -> None:
+        key = (model, prefix_hash)
+        self._affinity[key] = (endpoint_id, time.time())
+        self._affinity.move_to_end(key)
+        while len(self._affinity) > PREFIX_AFFINITY_CAPACITY:
+            self._affinity.popitem(last=False)
+            self._affinity_evictions += 1
+
+    def _affinity_endpoint(self, model: str,
+                           prefix_hash: str | None) -> str | None:
+        if prefix_hash is None:
+            return None
+        with self._lock:
+            return self._affinity_peek_locked(model, prefix_hash)
+
+    def _hrw_owner(self, prefix_hash: str, endpoint_ids: list[str]) -> str | None:
+        return hrw_owner(prefix_hash, endpoint_ids)
+
+    def _sticky_endpoint_id(self, endpoints: list[Endpoint], model: str,
+                            prefix_hash: str | None) -> str | None:
+        """The endpoint this prefix should steer to, by affinity mode: the
+        learned LRU pin, or the consistent-hash owner over the candidate
+        set (post-breaker, pre-cap)."""
+        if prefix_hash is None:
+            return None
+        if self.affinity_mode == "ring":
+            return self._hrw_owner(prefix_hash, [ep.id for ep in endpoints])
+        return self._affinity_endpoint(model, prefix_hash)
+
+    def _affinity_record(self, model: str, prefix_hash: str | None,
+                         endpoint_id: str, *, hit: bool) -> None:
+        if prefix_hash is None:
+            return
+        with self._lock:
+            if self.affinity_mode == "lru":
+                self._affinity_note_locked(model, prefix_hash, endpoint_id)
+            if hit:
+                self._affinity_hits += 1
+            else:
+                self._affinity_misses += 1
+
+    def affinity_stats(self) -> dict:
+        """Prefix-affinity figures for the gateway /metrics exposition."""
+        with self._lock:
+            return {
+                "entries": len(self._affinity),
+                "hits_total": self._affinity_hits,
+                "misses_total": self._affinity_misses,
+                "evictions_total": self._affinity_evictions,
+            }
+
+    # ------------------------------------------------------ endpoint outcomes
+
+    def _outcomes_for(self, endpoint_id: str) -> dict:
+        """Caller holds self._lock."""
+        return self._endpoint_outcomes.setdefault(endpoint_id, {
+            "successes": 0, "failures": 0, "stream_interruptions": 0,
+            "consecutive_failures": 0, "last_failure_ts": None,
+        })
+
+    def note_endpoint_success(self, endpoint_id: str) -> None:
+        with self._lock:
+            o = self._outcomes_for(endpoint_id)
+            o["successes"] += 1
+            o["consecutive_failures"] = 0
+
+    def note_endpoint_failure(self, endpoint_id: str, *,
+                              stream_interruption: bool = False) -> None:
+        with self._lock:
+            o = self._outcomes_for(endpoint_id)
+            o["failures"] += 1
+            if stream_interruption:
+                o["stream_interruptions"] += 1
+            o["consecutive_failures"] += 1
+            o["last_failure_ts"] = time.time()
+
+    def endpoint_outcomes(self, endpoint_id: str | None = None) -> dict:
+        """In-band outcome counters, per endpoint or the whole map. Pure
+        read: never inserts (scrape paths must not grow the map)."""
+        with self._lock:
+            if endpoint_id is not None:
+                o = self._endpoint_outcomes.get(endpoint_id)
+                return dict(o) if o is not None else {
+                    "successes": 0, "failures": 0, "stream_interruptions": 0,
+                    "consecutive_failures": 0, "last_failure_ts": None,
+                }
+            return {eid: dict(o) for eid, o in self._endpoint_outcomes.items()}
+
+    def drop_endpoint_outcomes(self, endpoint_id: str) -> None:
+        """Endpoint deleted: stop carrying its counters (ids churn on
+        re-registration; dead entries would inflate stats() forever)."""
+        with self._lock:
+            self._endpoint_outcomes.pop(endpoint_id, None)
+
+    # -------------------------------------------------------------- selection
+
+    def _permitted(self, endpoints: list[Endpoint]) -> list[Endpoint]:
+        """Drop endpoints whose circuit breaker refuses traffic right now,
+        and endpoints whose last health probe advertised a graceful drain
+        (docs/deployment.md) — both reduce the candidate set, never the 404
+        decision: a model whose endpoints are all ejected queues and 503s.
+        No resilience manager wired (unit tests, resilience disabled) means
+        no breaker filtering; the drain filter always applies."""
+        out = [ep for ep in endpoints
+               if ep.accelerator is None or not ep.accelerator.draining]
+        if self.resilience is None:
+            return out
+        return [ep for ep in out if self.resilience.allow(ep.id)]
+
+    def _note_admitted(self, endpoint_id: str) -> None:
+        if self.resilience is not None:
+            self.resilience.on_admit(endpoint_id)
+
+    def select_endpoint(
+        self,
+        endpoints: list[Endpoint],
+        model: str,
+        api_kind: TpsApiKind = TpsApiKind.CHAT,
+        prefix_hash: str | None = None,
+    ) -> Endpoint | None:
+        """Pick the best endpoint: prefix affinity first (the endpoint that
+        last served this prompt head, while it is a live candidate under its
+        cap), then telemetry-weighted measured-TPS desc; unmeasured first
+        (probe), telemetry then round-robin among equals; full endpoints
+        (admission cap) excluded; breaker-open endpoints ejected."""
+        endpoints = self._permitted(endpoints)
+        if not endpoints:
+            return None
+        with self._lock:
+            return self._select_locked(endpoints, model, api_kind,
+                                       prefix_hash)
+
+    def _select_locked(
+        self, endpoints: list[Endpoint], model: str, api_kind: TpsApiKind,
+        prefix_hash: str | None = None,
+    ) -> Endpoint | None:
+        cap = self.queue_config.max_active_per_endpoint
+        candidates = [
+            ep for ep in endpoints if self._active[ep.id] < cap
+        ]
+        if not candidates:
+            return None
+
+        if prefix_hash is not None:
+            if self.affinity_mode == "ring":
+                # Consistent-hash owner over the permitted set (not just the
+                # under-cap candidates): an at-cap owner counts a miss and
+                # falls through to scoring rather than silently remapping —
+                # the key snaps back the moment capacity frees.
+                owner = self._hrw_owner(prefix_hash,
+                                        [ep.id for ep in endpoints])
+                for ep in candidates:
+                    if ep.id == owner:
+                        self._affinity_hits += 1
+                        return ep
+                self._affinity_misses += 1
+            else:
+                sticky_id = self._affinity_peek_locked(model, prefix_hash)
+                for ep in candidates:
+                    if ep.id == sticky_id:
+                        self._affinity_note_locked(model, prefix_hash, ep.id)
+                        self._affinity_hits += 1
+                        return ep
+
+        now = time.time()
+        scored: list[tuple[float, float, Endpoint]] = []
+        for ep in candidates:
+            pen = telemetry_penalty(ep, now)
+            state = self._tps.get((ep.id, model, api_kind.value))
+            if state is None or state.samples == 0:
+                s = float("inf")  # unmeasured: probe first
+            else:
+                s = state.ema_tps * pen
+            scored.append((s, pen, ep))
+
+        best = max(s for s, _, _ in scored)
+        top = [(pen, ep) for s, pen, ep in scored if s == best]
+        if len(top) > 1:
+            # inf ties (all unmeasured) and exact-score ties: let telemetry
+            # discriminate before falling back to round-robin.
+            best_pen = max(pen for pen, _ in top)
+            top = [(pen, ep) for pen, ep in top if pen == best_pen]
+        idx = self._rr_counter[model] % len(top)
+        self._rr_counter[model] += 1
+        chosen = top[idx][1]
+        if prefix_hash is not None and self.affinity_mode == "lru":
+            self._affinity_note_locked(model, prefix_hash, chosen.id)
+            self._affinity_misses += 1
+        return chosen
+
+    def try_admit(
+        self, endpoints: list[Endpoint], model: str, api_kind: TpsApiKind,
+        prefix_hash: str | None = None,
+    ) -> tuple[Endpoint, RequestLease] | None:
+        """Atomic select + lease under one lock: concurrent admissions cannot
+        both pick the last free slot of an endpoint (the select-then-begin
+        two-step had that race)."""
+        endpoints = self._permitted(endpoints)
+        if not endpoints:
+            return None
+        with self._lock:
+            chosen = self._select_locked(endpoints, model, api_kind,
+                                         prefix_hash)
+            if chosen is None:
+                return None
+            self._active[chosen.id] += 1
+            self._total_requests += 1
+        self._note_admitted(chosen.id)
+        return chosen, RequestLease(self, chosen.id, model, api_kind)
+
+    def begin_request(
+        self, endpoint: Endpoint, model: str, api_kind: TpsApiKind
+    ) -> RequestLease:
+        # No _note_admitted here: begin_request callers (playground proxy)
+        # target one explicit endpoint, bypass breaker-filtered selection,
+        # and never report outcomes — consuming a half-open probe slot from
+        # this path would wedge the breaker with no outcome to resolve it.
+        with self._lock:
+            self._active[endpoint.id] += 1
+            self._total_requests += 1
+        return RequestLease(self, endpoint.id, model, api_kind)
+
+    def _release_active(self, endpoint_id: str) -> None:
+        with self._lock:
+            if self._active[endpoint_id] > 0:
+                self._active[endpoint_id] -= 1
+        cb = self.on_release
+        if cb is not None:
+            try:
+                cb(endpoint_id)
+            except Exception:  # allow-silent: a broken listener must
+                pass               # not poison releases
+
+    def active_count(self, endpoint_id: str) -> int:
+        with self._lock:
+            return self._active[endpoint_id]
+
+    def total_active(self) -> int:
+        with self._lock:
+            return sum(self._active.values())
+
+    # --------------------------------------------------------------- history
+
+    def record_request(self, record: RequestRecord) -> None:
+        with self._lock:
+            self._history.append(record)
+            cutoff = time.time() - HISTORY_WINDOW_S
+            while self._history and self._history[0].ts < cutoff:
+                self._history.popleft()
+
+    def history_minute_buckets(self) -> list[dict]:
+        """Requests/errors/tokens per minute over the window (dashboard feed)."""
+        with self._lock:
+            buckets: dict[int, dict] = {}
+            for r in self._history:
+                minute = int(r.ts // 60) * 60
+                b = buckets.setdefault(
+                    minute,
+                    {"ts": minute, "requests": 0, "errors": 0,
+                     "prompt_tokens": 0, "completion_tokens": 0},
+                )
+                b["requests"] += 1
+                if r.status_code >= 400:
+                    b["errors"] += 1
+                b["prompt_tokens"] += r.prompt_tokens
+                b["completion_tokens"] += r.completion_tokens
+            return [buckets[k] for k in sorted(buckets)]
+
+    def stats(self) -> dict:
+        with self._lock:
+            outcome_totals = {
+                "endpoint_failures_total": sum(
+                    o["failures"] for o in self._endpoint_outcomes.values()
+                ),
+                "stream_interruptions_total": sum(
+                    o["stream_interruptions"]
+                    for o in self._endpoint_outcomes.values()
+                ),
+            }
+        with self._lock:
+            return {
+                "total_requests": self._total_requests,
+                "active_requests": sum(self._active.values()),
+                "history_size": len(self._history),
+                "tracked_tps_keys": len(self._tps),
+                **outcome_totals,
+            }
+
+
+@dataclasses.dataclass
+class WaitResult:
+    """Outcome of a queued admission wait (parity: balancer/types.rs
+    WaitResult / AdmissionDecision)."""
+
+    admitted: bool
+    endpoint: Endpoint | None = None
+    lease: RequestLease | None = None
+    queue_position: int = 0  # 1-based position held while waiting (0 = fast path)
+    waited_s: float = 0.0
+
+
+# Parked waiters re-check capacity at least this often even without a release
+# wake — covers endpoints that register/recover mid-wait (no release fires).
+RECHECK_INTERVAL_S = 1.0
+
+
+class _Ticket:
+    __slots__ = ("future", "vtime", "seq", "tenant")
+
+    def __init__(self, vtime: float = 0.0, seq: int = 0,
+                 tenant: str | None = None):
+        self.future: "asyncio.Future | None" = None
+        self.vtime = vtime
+        self.seq = seq
+        self.tenant = tenant
+
+
+class AdmissionQueue:
+    """Notify-based admission: waiters park on futures that lease releases
+    wake, replacing a 50 ms poll loop (parity: the reference's notify-based
+    begin_request/WaitResult machinery, balancer/mod.rs:2273-2427).
+
+    Weighted fair queuing (docs/scheduling.md): each parked ticket carries a
+    virtual finish time — ``max(vclock, tenant's last vtime) + 1/weight`` —
+    and the queue is kept sorted by it. A release wakes every parked waiter
+    IN THAT ORDER (the event loop runs their retries in wake order, so the
+    smallest-vtime ticket gets first claim on the freed slot): a tenant that
+    queued 50 requests advances its own virtual clock 50 steps, so another
+    tenant's next request slots in right behind the greedy tenant's FIRST
+    ticket, not its fiftieth — each tenant saturates only its own share of
+    the contended queue. With one tenant (or ``wfq_enabled=False`` via
+    LLMLB_WFQ=0) the order degenerates to exact arrival FIFO, the historical
+    behavior. Wakes arriving from other threads (e.g. a lease released by a
+    GC finalizer) are marshalled onto the owning event loop with
+    call_soon_threadsafe.
+    """
+
+    def __init__(self, manager: LoadManager):
+        self.manager = manager
+        self._tickets: list[_Ticket] = []  # sorted by (vtime, seq)
+        self._loop: "asyncio.AbstractEventLoop | None" = None
+        # GatewayMetrics, attached by app_state: counts admission
+        # re-attempts by parked waiters, labeled by API kind.
+        self.metrics = None
+        # WFQ state: app_state loads weights from LLMLB_WFQ_WEIGHTS and the
+        # enable flag from LLMLB_WFQ (default on).
+        self.wfq_enabled = True
+        self.weights: dict[str, float] = {}
+        self._vclock = 0.0
+        self._seq = 0
+        self._tenant_vtime: dict[str, float] = {}
+        manager.on_release = self._on_release
+
+    def weight_for(self, tenant_name: str | None) -> float:
+        return self.weights.get(tenant_name or "", 1.0)
+
+    # ---------------------------------------------------------------- waking
+
+    def _on_release(self, endpoint_id: str) -> None:
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if running is loop:
+            self._wake_all()
+        else:
+            try:
+                loop.call_soon_threadsafe(self._wake_all)
+            except RuntimeError:
+                pass  # loop shut down mid-release
+
+    def _wake_all(self) -> None:
+        for t in self._tickets:
+            if t.future is not None and not t.future.done():
+                t.future.set_result(None)
+
+    # --------------------------------------------------------------- waiting
+
+    def position(self, ticket: _Ticket) -> int:
+        try:
+            return self._tickets.index(ticket) + 1
+        except ValueError:
+            return 0
+
+    def queue_depth(self) -> int:
+        return len(self._tickets)
+
+    def _enqueue(self, tenant: str | None, weight: float) -> _Ticket:
+        """Assign the ticket's virtual finish time and insert in vtime
+        order. FIFO mode (wfq_enabled=False) stamps the arrival sequence
+        instead — bit-identical to the historical queue."""
+        self._seq += 1
+        if not self.wfq_enabled:
+            ticket = _Ticket(vtime=float(self._seq), seq=self._seq,
+                             tenant=tenant)
+        else:
+            key = tenant or ""
+            vtime = max(self._vclock, self._tenant_vtime.get(key, 0.0))
+            vtime += 1.0 / max(0.01, weight)
+            self._tenant_vtime[key] = vtime
+            ticket = _Ticket(vtime=vtime, seq=self._seq, tenant=tenant)
+        bisect.insort(self._tickets, ticket,
+                      key=lambda t: (t.vtime, t.seq))
+        return ticket
+
+    def _dequeue(self, ticket: _Ticket, serviced: bool) -> None:
+        try:
+            self._tickets.remove(ticket)
+        except ValueError:
+            return
+        if serviced and self.wfq_enabled:
+            self._vclock = max(self._vclock, ticket.vtime)
+        if not any(t.tenant == ticket.tenant for t in self._tickets):
+            # Last queued ticket for this tenant: drop its clock entry
+            # unconditionally. Serviced tickets already advanced _vclock, so
+            # the entry is redundant; UNserviced exits (queue timeout,
+            # deadline shed, disconnect) incurred no fairness debt — keeping
+            # a vtime ahead of the vclock would both penalize the tenant's
+            # next request for work it never received and leak one map entry
+            # per tenant whose last wait timed out (ip-keyed tenants make
+            # that unbounded under exactly the overload that forms queues).
+            self._tenant_vtime.pop(ticket.tenant or "", None)
+
+    async def admit(
+        self,
+        get_endpoints,
+        model: str,
+        api_kind: TpsApiKind,
+        timeout_s: float | None = None,
+        prefix_hash: str | None = None,
+        tenant: str | None = None,
+        weight: float = 1.0,
+    ) -> WaitResult:
+        """Admit onto the best endpoint, parking until a slot frees or the
+        queue timeout passes. `get_endpoints` is re-invoked on every retry so
+        registry changes (recovered/added endpoints) are picked up.
+        `prefix_hash` biases selection toward the endpoint whose prefix KV
+        cache is warm for this prompt head. `tenant`/`weight` feed the
+        weighted-fair queue order — the uncontended fast path below never
+        touches WFQ state, so fairness costs nothing until there is a queue."""
+        start = time.monotonic()
+        got = self.manager.try_admit(get_endpoints(), model, api_kind,
+                                     prefix_hash)
+        if got is not None:
+            return WaitResult(admitted=True, endpoint=got[0], lease=got[1])
+
+        if timeout_s is None:
+            timeout_s = self.manager.queue_config.queue_timeout_s
+        self._loop = asyncio.get_running_loop()
+        deadline = start + timeout_s
+        ticket = self._enqueue(tenant, weight)
+        serviced = False
+        try:
+            while True:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return WaitResult(
+                        admitted=False,
+                        queue_position=self.position(ticket),
+                        waited_s=time.monotonic() - start,
+                    )
+                ticket.future = self._loop.create_future()
+                try:
+                    # The release notification is the fast path; the bounded
+                    # wait is a slow safety tick so capacity that appears
+                    # WITHOUT a release (an endpoint registering or
+                    # recovering mid-wait) is still noticed promptly.
+                    await asyncio.wait_for(
+                        ticket.future,
+                        timeout=min(remaining, RECHECK_INTERVAL_S),
+                    )
+                except asyncio.TimeoutError:
+                    pass  # fall through to retry; deadline checked at top
+                if self.metrics is not None:
+                    self.metrics.record_retry(api_kind.value)
+                got = self.manager.try_admit(get_endpoints(), model, api_kind,
+                                             prefix_hash)
+                if got is not None:
+                    serviced = True
+                    return WaitResult(
+                        admitted=True, endpoint=got[0], lease=got[1],
+                        queue_position=self.position(ticket),
+                        waited_s=time.monotonic() - start,
+                    )
+        finally:
+            self._dequeue(ticket, serviced)

@@ -17,14 +17,26 @@ from llmlb_tpu_torch.lora.api import (
     adapter_from_body,
     split_model_adapter,
 )
-from llmlb_tpu_torch.lora.manager import LoraManager
-from llmlb_tpu_torch.lora.store import (
-    AdapterInfo,
-    discover_adapters,
-    load_adapter_tensors,
-    lora_target_dims,
-    save_adapter,
-)
+
+# The manager and the store import torch; they load on first use, so the
+# gateway (which reads only `api`) runs without torch.
+_LAZY = {
+    "LoraManager": "llmlb_tpu_torch.lora.manager",
+    "AdapterInfo": "llmlb_tpu_torch.lora.store",
+    "discover_adapters": "llmlb_tpu_torch.lora.store",
+    "load_adapter_tensors": "llmlb_tpu_torch.lora.store",
+    "lora_target_dims": "llmlb_tpu_torch.lora.store",
+    "save_adapter": "llmlb_tpu_torch.lora.store",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "AdapterInfo",

@@ -61,7 +61,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "engine.asr", "engine.tts", "engine.image",
                  "tools.ingest_probe", "parallel", "parallel.mesh",
                  "parallel.sharding", "parallel.distributed",
-                 "engine.multihost", "ops.ring_attention"):
+                 "engine.multihost", "ops.ring_attention",
+                 "disagg.gateway", "lora.gateway", "gateway",
+                 "gateway.http", "gateway.types", "gateway.config",
+                 "gateway.db", "gateway.auth", "gateway.registry",
+                 "gateway.model_names", "gateway.detection",
+                 "gateway.model_sync", "gateway.engine_metadata",
+                 "gateway.health", "gateway.balancer",
+                 "gateway.faults", "gateway.resilience", "gateway.sanitize",
+                 "gateway.token_accounting", "gateway.tracing",
+                 "gateway.metrics", "gateway.replay", "gateway.gate",
+                 "gateway.ratelimit", "gateway.api_openai",
+                 "gateway.api_admin", "gateway.app_state", "gateway.app",
+                 "gateway.server"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -74,6 +86,57 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if _is_forbidden(m)] == []
+
+
+def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
+    """`python -m llmlb_tpu_torch.gateway.server serve` with aiohttp,
+    argon2, jax and llmlb_tpu made unimportable (as on the card's machine)
+    starts, answers /health, stops on SIGTERM, and never loads torch or
+    tiktoken (whose first use fetches a BPE file over the network)."""
+    import os
+    import signal
+    import urllib.request
+
+    code = (
+        "import atexit, json, runpy, sys\n"
+        "for n in ('aiohttp', 'argon2', 'jax', 'llmlb_tpu'):\n"
+        "    sys.modules[n] = None\n"
+        "watch = ('torch', 'tiktoken', 'aiohttp', 'argon2', 'jax',\n"
+        "         'llmlb_tpu')\n"
+        "atexit.register(lambda: print(json.dumps(sorted(\n"
+        "    m for m, v in sys.modules.items()\n"
+        "    if v is not None and m.split('.')[0] in watch)), flush=True))\n"
+        "sys.argv = ['server', 'serve', '--host', '127.0.0.1', '--port', '0']\n"
+        "runpy.run_module('llmlb_tpu_torch.gateway.server',\n"
+        "                 run_name='__main__')\n"
+    )
+    env = {**os.environ, "LLMLB_DATA_DIR": str(tmp_path),
+           "LLMLB_ADMIN_PASSWORD": "adminpass1"}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        port = None
+        for _ in range(200):
+            line = proc.stderr.readline()
+            if not line:
+                break
+            if "listening on" in line:
+                port = int(line.rsplit(":", 1)[1])
+                break
+        assert port, proc.stderr.read() if proc.poll() is not None else ""
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1]) == []
+    assert (tmp_path / "llmlb.db").exists()
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
