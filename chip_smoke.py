@@ -115,15 +115,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
              In bf16 then the port's gateway, counted with the main path:
              `python -m llmlb_tpu_torch.gateway.server serve` as a
              subprocess (its own data dir, a known admin password) in
-             front of this phase's server: the registration detects the
-             engine as `tpu` and syncs llama-3-8b; a greedy 64-token chat
-             streamed and not and /v1/responses through the gateway carry
-             the direct path's ids, text and usage; the same server,
-             registered a second time under http://localhost:PORT, has
-             its stream cut by the `engine_abort` fault rule half-way and
-             the gateway resumes it on the first registration to the
-             uncut text (one resume in /metrics); the TTFT of 1-token
-             streams through the gateway against direct (median of 5).
+             front of this phase's server, its cloud providers and Hugging
+             Face API a local mock (no request leaves the machine): the
+             registration detects the engine as `tpu` and syncs
+             llama-3-8b; a greedy 64-token chat streamed and not,
+             /v1/responses and /v1/messages streamed and not through the
+             gateway carry the direct path's ids, text and usage
+             (/v1/messages: usage mapped, stop_reason max_tokens, one
+             well-formed event stream, and its own launches of
+             flash_prefill and paged_flash_decode); the same server,
+             registered a second time under http://localhost:PORT, has a
+             chat stream and then a /v1/messages stream cut by the
+             `engine_abort` fault rule half-way and the gateway resumes
+             each on the first registration to the uncut text and ids
+             (two resumes in /metrics); an `openai:` and an `anthropic:`
+             chat reach the mock and /api/metrics/cloud counts them; a
+             model registered from the mock's repo serves its manifest;
+             an invitation registers a user; the second registration is
+             renamed and deleted; the audit log's chain verifies; the
+             TTFT of 1-token streams through the gateway (the audit
+             middleware on its path) against direct (median of 5).
              Then speculative decoding, per request, on the same core and
              counted with the main path: 1 row, then 8, of 64 greedy ids
              with speculation off, on (the prompt-lookup drafter), under a
@@ -340,7 +351,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              their capabilities, speech answers a WAV, a multipart
              transcription JSON, images two PNGs; a server without the
              services answers 404; cuDNN's TF32, on when the requests
-             began, is off after them.
+             began, is off after them. Then the port's gateway (a
+             subprocess) in front of that server: the registration syncs
+             its four models with their capabilities, speech through it
+             gives the direct WAV bytes, the 2 s chirp's transcription the
+             direct text, images two PNGs (compared by bytes with the
+             direct ones where two direct calls repeat; the service draws
+             a new seed per request, so they do not).
 13. multi-device — one world of two ranks spawned from this script
              (`--md-rank`), joined through the port's LLMLB_COORDINATOR /
              LLMLB_NUM_HOSTS / LLMLB_HOST_ID: with one card both share it
@@ -3463,10 +3480,99 @@ def _gw_json(url: str, body: dict | None = None,
         return json.loads(resp.read())
 
 
-def _start_gateway(data_dir: str, faults: list[dict]):
+CLOUD_KEY = "sk-smoke-cloud"
+
+
+class _CloudMock:
+    """Stand-ins on 127.0.0.1 for the cloud providers' chat APIs (OpenAI's
+    /v1/chat/completions, Anthropic's /v1/messages) and the Hugging Face
+    model API, so that the gateway's `openai:` and `anthropic:` models and
+    its model registry run without a request leaving the machine. `hits`
+    counts the requests each answered."""
+
+    REPO = "org/llama-3-8b"
+
+    def __init__(self):
+        from collections import Counter
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        hits = self.hits = Counter()
+        repo = self.REPO
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _json(self, obj, status=200):
+                data = json.dumps(obj).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                if self.path == f"/api/models/{repo}":
+                    hits["hf"] += 1
+                    return self._json({"id": repo, "siblings": [
+                        {"rfilename": f} for f in (
+                            "config.json", "tokenizer.json",
+                            "model-00001-of-00002.safetensors",
+                            "model-00002-of-00002.safetensors")]})
+                self._json({"error": "not found"}, 404)
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers.get("Content-Length", 0))) or b"{}")
+                if (self.path == "/v1/chat/completions" and
+                        self.headers.get("Authorization")
+                        == f"Bearer {CLOUD_KEY}"):
+                    hits["openai"] += 1
+                    return self._json({
+                        "id": "chatcmpl-mock", "object": "chat.completion",
+                        "model": body["model"], "choices": [{
+                            "index": 0, "finish_reason": "stop",
+                            "message": {"role": "assistant",
+                                        "content": "from the openai mock"}}],
+                        "usage": {"prompt_tokens": 3, "completion_tokens": 4,
+                                  "total_tokens": 7}})
+                if (self.path == "/v1/messages" and
+                        self.headers.get("x-api-key") == CLOUD_KEY):
+                    hits["anthropic"] += 1
+                    return self._json({
+                        "id": "msg_mock", "type": "message",
+                        "role": "assistant", "model": body["model"],
+                        "content": [{"type": "text",
+                                     "text": "from the anthropic mock"}],
+                        "stop_reason": "end_turn", "stop_sequence": None,
+                        "usage": {"input_tokens": 3, "output_tokens": 4}})
+                self._json({"error": "refused"}, 401)
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = "http://127.0.0.1:%d" % self.srv.server_address[1]
+
+    def env(self) -> dict:
+        """The gateway's environment for the providers and the registry."""
+        return {"LLMLB_OPENAI_BASE_URL": self.url,
+                "LLMLB_ANTHROPIC_BASE_URL": self.url,
+                "LLMLB_GOOGLE_BASE_URL": self.url, "HF_BASE_URL": self.url,
+                "OPENAI_API_KEY": CLOUD_KEY, "ANTHROPIC_API_KEY": CLOUD_KEY}
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+
+
+def _start_gateway(data_dir: str, faults: list[dict],
+                   env: dict | None = None):
     """`python -m llmlb_tpu_torch.gateway.server serve` on a free port of
-    127.0.0.1, from the tree the port was imported from; returns the
-    process and its base URL once it listens."""
+    127.0.0.1, from the tree the port was imported from, with `env` added
+    to its environment; returns the process and its base URL once it
+    listens."""
     import os
 
     import llmlb_tpu_torch
@@ -3475,7 +3581,7 @@ def _start_gateway(data_dir: str, faults: list[dict]):
     log_path = Path(data_dir) / "gateway.log"
     env = {**os.environ, "LLMLB_DATA_DIR": data_dir,
            "LLMLB_ADMIN_PASSWORD": GATEWAY_PASSWORD,
-           "LLMLB_FAULTS": json.dumps(faults)}
+           "LLMLB_FAULTS": json.dumps(faults), **(env or {})}
     with open(log_path, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "llmlb_tpu_torch.gateway.server", "serve",
@@ -3496,6 +3602,90 @@ def _start_gateway(data_dir: str, faults: list[dict]):
                          f"{log_path.read_text()[-2000:]}")
 
 
+def _gw_call(method: str, url: str, body: dict | None = None,
+             headers: dict | None = None) -> tuple[int, dict]:
+    """Any method on the gateway: (status, the JSON it answers), also on
+    an error status."""
+    req = urllib.request.Request(
+        url, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def _messages(base: str, content: str, max_tokens: int, stream: bool,
+              headers: dict | None = None) -> dict:
+    """One greedy /v1/messages request; returns {text, usage, stop,
+    events} after checking the response's shape: a streamed one must be
+    one message (one message_start first, content blocks opened, fed and
+    closed in index order, message_delta, then one message_stop last, no
+    error event)."""
+    body = {"model": "llama-3-8b", "temperature": 0, "max_tokens": max_tokens,
+            "stream": stream,
+            "messages": [{"role": "user", "content": content}]}
+    with _post(base + "/v1/messages", body, headers=headers) as resp:
+        raw = resp.read()
+    if not stream:
+        out = json.loads(raw)
+        if out.get("type") != "message" or out.get("role") != "assistant":
+            raise AssertionError(f"/v1/messages: {out}")
+        return {"text": "".join(b["text"] for b in out["content"]
+                                if b["type"] == "text"),
+                "usage": out["usage"], "stop": out["stop_reason"],
+                "events": 0}
+    events = []
+    for block in raw.split(b"\n\n"):
+        if not block.strip():
+            continue
+        name = data = None
+        for line in block.split(b"\n"):
+            if line.startswith(b"event:"):
+                name = line[len(b"event:"):].strip().decode()
+            elif line.startswith(b"data:"):
+                data = json.loads(line[len(b"data:"):])
+        events.append((name, data))
+    names = [n for n, _ in events]
+    bad = (names[:1] != ["message_start"] or names[-2:] != ["message_delta",
+                                                            "message_stop"]
+           or names.count("message_start") != 1 or "error" in names
+           or names.count("message_stop") != 1)
+    open_idx, next_idx = None, 0
+    for name, data in events:
+        bad |= not isinstance(data, dict) or data.get("type") != name
+        if name == "content_block_start":
+            bad |= open_idx is not None or data["index"] != next_idx
+            open_idx, next_idx = data["index"], next_idx + 1
+        elif name in ("content_block_delta", "content_block_stop"):
+            bad |= data["index"] != open_idx
+            if name == "content_block_stop":
+                open_idx = None
+    if bad or open_idx is not None:
+        raise AssertionError(f"/v1/messages: a malformed event stream {names}")
+    delta = events[-2][1]
+    return {"text": "".join(d["delta"]["text"] for n, d in events
+                            if n == "content_block_delta"),
+            "usage": delta["usage"], "stop": delta["delta"]["stop_reason"],
+            "events": len(events)}
+
+
+def _armed_text(base: str, content: str, max_tokens: int) -> tuple[int, str]:
+    """(bytes, text) of an armed greedy chat stream read to its end."""
+    with _post(base + "/v1/chat/completions",
+               _armed(content, max_tokens, None)) as resp:
+        raw = resp.read()
+    text = []
+    for line in raw.split(b"\n"):
+        if line.startswith(b"data: {"):
+            obj = json.loads(line[len(b"data: "):])
+            for c in obj.get("choices") or []:
+                text.append((c.get("delta") or {}).get("content") or "")
+    return len(raw), "".join(text)
+
+
 def _ttft_1(url: str, content: str, headers: dict | None = None) -> float:
     """Seconds to the first frame after the role delta of a greedy 1-token
     chat stream: the frame the first sampled token produces."""
@@ -3513,14 +3703,19 @@ def _ttft_1(url: str, content: str, headers: dict | None = None) -> float:
 
 def _gateway_block(engine, base: str, dev: dict) -> dict:
     """The port's gateway (llmlb_tpu_torch/gateway/) in front of this
-    phase's engine server, as a subprocess on the standard library: the
-    registration detects the engine as `tpu` and syncs its model; a greedy
-    64-token chat streamed and not and /v1/responses through the gateway
-    carry the direct path's ids, text and usage; a second registration of
-    the same server (http://localhost:PORT) has its stream cut half-way by
-    the `engine_abort` fault rule and the gateway resumes it on the first
-    to the uncut text; TTFT of 1-token streams through the gateway against
-    direct, median of 5 each, interleaved."""
+    phase's engine server, as a subprocess on the standard library, its
+    cloud providers and Hugging Face API a local mock: the registration
+    detects the engine as `tpu` and syncs its model; a greedy 64-token chat
+    streamed and not, /v1/responses and /v1/messages streamed and not
+    through the gateway carry the direct path's ids, text and usage; a
+    second registration of the same server (http://localhost:PORT) has a
+    chat stream, then a /v1/messages stream, cut half-way by the
+    `engine_abort` fault rule, and the gateway resumes each on the first to
+    the uncut text; an `openai:` and an `anthropic:` model reach the mock;
+    a model is registered from the mock's repo and its manifest served; an
+    invitation registers a user, the second registration is renamed and
+    deleted, and the audit log's chain verifies; TTFT of 1-token streams
+    through the gateway against direct, median of 5 each, interleaved."""
     import tempfile
 
     from llmlb_tpu_torch.ops import cuda_attention as ca
@@ -3529,16 +3724,27 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
     t0 = time.perf_counter()
     before = dict(ca.LAUNCHES)
     cut_text = "Gateway resume: list the planets in order."
-    with _post(base + "/v1/chat/completions",
-               _armed(cut_text, 64, None)) as resp:
-        armed_bytes = len(resp.read())
+    armed_bytes, _ = _armed_text(base, cut_text, 64)
     uncut = _chat(base, cut_text, 64, True)
+    msg_cut_text = "Gateway messages resume: name the oceans."
+    spy = _EmitSpy(core)
+    try:
+        msg_bytes, msg_uncut = _armed_text(base, msg_cut_text, 64)
+        msg_uncut_ids = spy.last()
+    finally:
+        spy.close()
     port = base.rsplit(":", 1)[1]
+    # both rules match the second registration only; the second fires on
+    # its second chat stream (the /v1/messages one), once
     faults = [{"kind": "engine_abort", "endpoint": "localhost",
                "path": "/v1/chat", "after_bytes": armed_bytes // 2,
-               "max_fires": 1}]
+               "max_fires": 1},
+              {"kind": "engine_abort", "endpoint": "localhost",
+               "path": "/v1/chat", "after_bytes": msg_bytes // 2,
+               "every_n": 2, "max_fires": 1}]
+    mock = _CloudMock()
     with tempfile.TemporaryDirectory(prefix="llmlb-gw-") as data_dir:
-        proc, gw = _start_gateway(data_dir, faults)
+        proc, gw = _start_gateway(data_dir, faults, mock.env())
         try:
             start_s = time.perf_counter() - t0
             token = _gw_json(gw + "/api/auth/login", {
@@ -3554,6 +3760,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
                     models != ["llama-3-8b"]:
                 raise AssertionError(f"gateway registration: {ep}")
             content = "Gateway check: describe a GPU in one line."
+            msg_content = "Gateway messages: describe a river in one line."
             spy = _EmitSpy(core)
             try:
                 pairs = {}
@@ -3568,6 +3775,15 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
                 rd_ids = spy.last()
                 r_via = _gw_json(gw + "/v1/responses", body, inf)
                 rv_ids = spy.last()
+                m_direct = _chat(base, msg_content, 64, False)
+                md_ids = spy.last()
+                msg_before = dict(ca.LAUNCHES)
+                msgs = {}
+                for stream in (False, True):
+                    msgs[stream] = (_messages(gw, msg_content, 64, stream,
+                                              inf), spy.last())
+                msg_launches = {k: ca.LAUNCHES[k] - msg_before.get(k, 0)
+                                for k in BF16_PATH}
             finally:
                 spy.close()
             for stream, (direct, via, d_ids, v_ids) in pairs.items():
@@ -3586,23 +3802,53 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
             if out(r_via) != out(r_direct) or rv_ids != rd_ids:
                 raise AssertionError(f"gateway /v1/responses: {out(r_via)} "
                                      f"against {out(r_direct)}")
-            # the cut: a second registration of this server, unmeasured so
-            # chosen first, cut half-way; the resume lands on the first
+            want = {"input_tokens": m_direct["usage"]["prompt_tokens"],
+                    "output_tokens": m_direct["usage"]["completion_tokens"]}
+            for stream, (msg, ids) in msgs.items():
+                if (msg["text"], msg["stop"], msg["usage"], ids) != (
+                        m_direct["text"], "max_tokens", want, md_ids) or \
+                        len(md_ids) != 64:
+                    raise AssertionError(
+                        f"gateway /v1/messages (stream={stream}): "
+                        f"{msg['stop']} {msg['usage']} against {want}; ids "
+                        f"share {_shared(ids, md_ids)} of {len(md_ids)}")
+            # the cuts: a second registration of this server, unmeasured so
+            # chosen first, cut half-way; each resume lands on the first
             ep2 = _gw_json(gw + "/api/endpoints", {
                 "base_url": f"http://localhost:{port}",
                 "name": "resume-origin"}, admin)
             if ep2["endpoint_type"] != "tpu":
                 raise AssertionError(f"second registration: {ep2}")
             resumed = _chat(gw, cut_text, 64, True, headers=inf)
+            spy = _EmitSpy(core)
+            try:
+                msg_resumed = _messages(gw, msg_cut_text, 64, True, inf)
+                cut_ids = list(spy.ids.values())
+            finally:
+                spy.close()
             with urllib.request.urlopen(gw + "/metrics", timeout=60) as r:
                 metrics = r.read().decode()
             if resumed != uncut:
                 raise AssertionError(f"the resumed stream: {resumed} against "
                                      f"the uncut {uncut}")
-            if ('llmlb_gateway_stream_resumes_total{outcome="success"} 1'
+            # the origin's ids up to the cut, then the adopter's, are the
+            # uncut stream's (the random weights' text is mostly empty:
+            # ids above the byte range decode to nothing)
+            spliced = len(cut_ids) == 2 and any(
+                cut_ids[0][:c] + cut_ids[1] == msg_uncut_ids
+                for c in range(1, len(cut_ids[0]) + 1))
+            if (msg_resumed["text"], msg_resumed["stop"],
+                    msg_resumed["usage"].get("output_tokens")) != (
+                    msg_uncut, "max_tokens", 64) or not spliced:
+                raise AssertionError(
+                    f"the resumed /v1/messages stream: {msg_resumed['text']!r}"
+                    f" {msg_resumed['usage']} against the uncut {msg_uncut!r};"
+                    f" ids {[len(i) for i in cut_ids]}, spliced {spliced}")
+            if ('llmlb_gateway_stream_resumes_total{outcome="success"} 2'
                     not in metrics):
                 raise AssertionError("the gateway booked no resume: " + " ".join(
                     ln for ln in metrics.splitlines() if "resume" in ln))
+            admin_s = _admin_block(gw, admin, inf, ep2["id"], mock)
             # TTFT, interleaved, fresh heads (no prefix-cache hits)
             direct_t, via_t = [], []
             for i in range(5):
@@ -3612,24 +3858,33 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
         finally:
             proc.terminate()
             code = proc.wait(timeout=60)
+            mock.close()
         if code != 0:
             raise AssertionError(f"the gateway exited with {code}")
     launches = {k: ca.LAUNCHES[k] - before.get(k, 0) for k in BF16_PATH}
     if not launches["flash_prefill"] or not launches["paged_flash_decode"]:
         raise AssertionError(f"gateway traffic launched {launches}")
+    if not msg_launches["flash_prefill"] or \
+            not msg_launches["paged_flash_decode"]:
+        raise AssertionError(f"/v1/messages traffic launched {msg_launches}")
     stats = {"start_s": round(start_s, 3),
              "ttft_direct_ms": statistics.median(direct_t) * 1e3,
              "ttft_gateway_ms": statistics.median(via_t) * 1e3,
              "ttft_direct_all_ms": [t * 1e3 for t in direct_t],
              "ttft_gateway_all_ms": [t * 1e3 for t in via_t],
-             "launches": launches,
+             "launches": launches, "messages_launches": msg_launches,
+             "admin_s": admin_s,
              "breakers": {e["name"]: e["breaker"]["state"]
                           for e in health["endpoints"]}}
     log(f"serve bf16 [{dev['smi']}]: gateway: registered as tpu with "
-        f"llama-3-8b synced; chat (streamed and not) and /v1/responses "
-        f"through it carry the direct path's 64 ids, text and usage; a "
-        f"stream cut at {armed_bytes // 2} of ~{armed_bytes} bytes resumed "
-        f"on the other registration to the uncut text; launches {launches}")
+        f"llama-3-8b synced; chat (streamed and not), /v1/responses and "
+        f"/v1/messages (streamed, {msgs[True][0]['events']} events, and not) "
+        f"through it carry the direct path's 64 ids, text and usage; a chat "
+        f"stream cut at {armed_bytes // 2} of ~{armed_bytes} bytes and a "
+        f"/v1/messages stream cut at {msg_bytes // 2} of ~{msg_bytes} resumed "
+        f"on the other registration to the uncut text (its ids: "
+        f"{len(cut_ids[1])} of 64 from the adopter); launches {launches}, "
+        f"/v1/messages {msg_launches}")
     log(f"serve bf16 [{dev['smi']}]: gateway TTFT (1-token stream, median of "
         f"5) {stats['ttft_gateway_ms']:.2f} ms through the gateway against "
         f"{stats['ttft_direct_ms']:.2f} ms direct (all: gateway "
@@ -3637,6 +3892,82 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
         f"{[round(t, 2) for t in stats['ttft_direct_all_ms']]}); gateway up "
         f"in {start_s:.2f} s; the block {time.perf_counter() - t0:.1f} s")
     return stats
+
+
+def _admin_block(gw: str, admin: dict, inf: dict, second_id: str,
+                 mock: _CloudMock) -> float:
+    """The gateway's client and operator API beside inference: one
+    `openai:` and one `anthropic:` chat reach the mock and are counted in
+    /api/metrics/cloud, and an `anthropic:` /v1/messages request passes
+    through to it (the reference counts only the chat path); a model registered from the mock's repo has its
+    manifest; an invitation registers a user who logs in; the second
+    registration is renamed, then deleted; the audit log holds the block's
+    /v1/messages requests and its chain verifies. Returns its seconds."""
+    t0 = time.perf_counter()
+    r = _gw_json(gw + "/v1/chat/completions", {
+        "model": "openai:gpt-mock", "messages": [
+            {"role": "user", "content": "hi"}]}, inf)
+    if r["choices"][0]["message"]["content"] != "from the openai mock":
+        raise AssertionError(f"openai: {r}")
+    r = _gw_json(gw + "/v1/chat/completions", {
+        "model": "anthropic:claude-mock", "messages": [
+            {"role": "user", "content": "hi"}]}, inf)
+    if r["choices"][0]["message"]["content"] != "from the anthropic mock":
+        raise AssertionError(f"anthropic: {r}")
+    r = _gw_json(gw + "/v1/messages", {
+        "model": "anthropic:claude-mock", "max_tokens": 8,
+        "messages": [{"role": "user", "content": "hi"}]}, inf)
+    if r["content"][0]["text"] != "from the anthropic mock":
+        raise AssertionError(f"anthropic /v1/messages: {r}")
+    with urllib.request.urlopen(urllib.request.Request(
+            gw + "/api/metrics/cloud", headers=admin), timeout=60) as resp:
+        cloud = resp.read().decode()
+    for provider in ("openai", "anthropic"):
+        line = (f'llmlb_cloud_requests_total{{provider="{provider}",'
+                f'status="200"}} 1')
+        if line not in cloud or mock.hits[provider] != 1 + (
+                provider == "anthropic"):
+            raise AssertionError(f"cloud metrics: {cloud!r}, {mock.hits}")
+    status, reg = _gw_call("POST", gw + "/api/models/register",
+                           {"repo": _CloudMock.REPO}, admin)
+    status2, manifest = _gw_call(
+        "GET", gw + "/api/models/registry/llama-3-8b/manifest.json",
+        headers=admin)
+    if (status, reg.get("format"), reg.get("files"), status2) != (
+            201, "safetensors", 4, 200) or \
+            manifest["source_repo"] != _CloudMock.REPO:
+        raise AssertionError(f"registry: {status} {reg}, {status2} {manifest}")
+    status, inv = _gw_call("POST", gw + "/api/invitations",
+                           {"role": "viewer"}, admin)
+    status2, user = _gw_call("POST", gw + "/api/auth/register", {
+        "code": inv.get("code"), "username": "smoke-viewer",
+        "password": "viewer-pass-1"})
+    token = _gw_json(gw + "/api/auth/login", {
+        "username": "smoke-viewer", "password": "viewer-pass-1"})["token"]
+    if (status, status2, user.get("user", {}).get("role")) != (
+            201, 201, "viewer") or not token:
+        raise AssertionError(f"invitation: {status} {inv}, {status2} {user}")
+    status, renamed = _gw_call("PUT", gw + f"/api/endpoints/{second_id}",
+                               {"name": "resume-renamed"}, admin)
+    status2, deleted = _gw_call("DELETE",
+                                gw + f"/api/endpoints/{second_id}",
+                                headers=admin)
+    listed = [e["name"] for e in _gw_call("GET", gw + "/api/endpoints",
+                                          headers=admin)[1]["endpoints"]]
+    if (status, renamed.get("name"), status2, deleted, listed) != (
+            200, "resume-renamed", 200, {"deleted": second_id},
+            ["serve-bf16"]):
+        raise AssertionError(f"endpoint update/delete: {renamed} {deleted} "
+                             f"{listed}")
+    status, verify = _gw_call("POST", gw + "/api/audit-log/verify", {}, admin)
+    status2, log_ = _gw_call("GET", gw + "/api/audit-log?path=/v1/messages",
+                             headers=admin)
+    paths = [e["path"] for e in log_["entries"]]
+    if (status, verify, status2) != (200, {"ok": True, "error": None}, 200) \
+            or len(paths) < 4:
+        raise AssertionError(f"audit: {verify}, {len(paths)} /v1/messages "
+                             "entries")
+    return time.perf_counter() - t0
 
 
 def _drain_block(server, label: str) -> dict:
@@ -7548,7 +7879,8 @@ def _mm_image(dev: dict) -> dict:
 def _mm_http(dev: dict, asr, tts_eng, image) -> dict:
     """(d): the port's server in-process with the three services beside
     the bf16 Llama-3-8B serving core; /v1/models, the three routes, and a
-    404 from a server without them."""
+    404 from a server without them; then the port's gateway in front of
+    it (_mm_gateway)."""
     import base64
     import io
     import wave
@@ -7625,6 +7957,8 @@ def _mm_http(dev: dict, asr, tts_eng, image) -> dict:
         if torch.backends.cudnn.allow_tf32:
             raise AssertionError("multimodal http: the served convolutions "
                                  "left cuDNN's TF32 on")
+        times["gateway"] = _mm_gateway(dev, base, form, boundary, speech,
+                                       text, pngs, want)
     finally:
         for s, th in ((srv, thread), (bare, bare_thread)):
             s.shutdown()
@@ -7638,6 +7972,93 @@ def _mm_http(dev: dict, asr, tts_eng, image) -> dict:
         "a server without them answers 404, 404; the served convolutions "
         "turned cuDNN's TF32 off (PyTorch's default on before them)")
     return times
+
+
+def _mm_gateway(dev: dict, base: str, form: bytes, boundary: str,
+                speech: bytes, text: str, pngs: list[bytes],
+                want: dict) -> dict:
+    """The port's gateway (a subprocess) in front of the multimodal server:
+    the registration syncs its four models with their capabilities; speech
+    through it gives the direct request's WAV bytes, the 2 s chirp's
+    transcription the direct text, and images two PNGs, equal to the
+    direct ones where two direct calls are equal."""
+    import base64
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="llmlb-gw-mm-") as data_dir:
+        proc, gw = _start_gateway(data_dir, [])
+        try:
+            token = _gw_json(gw + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            key = _gw_json(gw + "/api/api-keys", {"name": "mm"},
+                           admin)["api_key"]
+            inf = {"Authorization": f"Bearer {key}"}
+            ep = _gw_json(gw + "/api/endpoints", {
+                "base_url": base, "name": "multimodal"}, admin)
+            synced = {m["model_id"]: m["capabilities"]
+                      for m in ep.get("models") or []}
+            if ep["endpoint_type"] != "tpu" or len(synced) != 4 or any(
+                    synced.get(k) != v for k, v in want.items()) or \
+                    "chat_completion" not in synced.get("llama-3-8b", []):
+                raise AssertionError(f"multimodal gateway: registration "
+                                     f"{ep['endpoint_type']} {synced}")
+            req = urllib.request.Request(
+                gw + "/v1/audio/speech", headers={
+                    "Content-Type": "application/json", **inf},
+                data=json.dumps({"input": "Hello from the card.",
+                                 "voice": "nova"}).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                via_speech = r.read()
+            t1 = time.perf_counter()
+            req = urllib.request.Request(
+                gw + "/v1/audio/transcriptions", data=form, headers={
+                    "Content-Type":
+                    f"multipart/form-data; boundary={boundary}", **inf})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                via_text = json.loads(r.read())["text"]
+            transcription_s = time.perf_counter() - t1
+            with _post(base + "/v1/images/generations",
+                       {"prompt": MM_PROMPT, "n": 2}, timeout=300) as r:
+                again = [base64.b64decode(d["b64_json"])
+                         for d in json.loads(r.read())["data"]]
+            with _post(gw + "/v1/images/generations",
+                       {"prompt": MM_PROMPT, "n": 2}, headers=inf,
+                       timeout=300) as r:
+                via_pngs = [base64.b64decode(d["b64_json"])
+                            for d in json.loads(r.read())["data"]]
+        finally:
+            proc.terminate()
+            code = proc.wait(timeout=60)
+        if code != 0:
+            raise AssertionError(f"the multimodal gateway exited with {code}")
+    if via_speech != speech:
+        raise AssertionError("multimodal gateway: speech differs from the "
+                             "direct request's WAV bytes")
+    if via_text != text:
+        raise AssertionError(f"multimodal gateway: transcription {via_text!r}"
+                             f" against the direct {text!r}")
+    if len(via_pngs) != 2 or any(p[:8] != b"\x89PNG\r\n\x1a\n"
+                                 for p in via_pngs):
+        raise AssertionError("multimodal gateway: images are no PNGs")
+    direct_equal = again == pngs
+    if direct_equal and via_pngs != pngs:
+        raise AssertionError("multimodal gateway: images differ from the "
+                             "direct ones, which two direct calls repeat")
+    out = {"wall_s": time.perf_counter() - t0,
+           "transcription_s": transcription_s,
+           "images_direct_repeat": direct_equal,
+           "images_equal_direct": via_pngs == pngs}
+    log(f"multimodal gateway [{dev['smi']}]: the port's gateway in front of "
+        f"the server synced its 4 models with their capabilities; speech "
+        f"through it is the direct WAV bytes, the 2 s chirp's transcription "
+        f"the direct text ({transcription_s:.2f} s), images 2 PNGs "
+        + ("equal to the direct ones (two direct calls repeat)"
+           if direct_equal else "(two direct calls differ, so not compared "
+           "by bytes)")
+        + f"; the sub-phase {out['wall_s']:.1f} s")
+    return out
 
 
 def phase_multimodal(dev: dict) -> dict:

@@ -1,10 +1,11 @@
-"""Admin /api/* surface of the serving path: login, logout and me; the
-endpoint list, registration, detail, connection test and model sync; API
-keys.
+"""Admin /api/* surface: endpoints CRUD + auth + users + keys + invitations +
+audit queries + settings + system info.
 
-The port's part of llmlb_tpu/gateway/api_admin.py, handler for handler.
-The reference's endpoint update and delete, users, invitations, audit log,
-settings and system handlers come in later slices.
+The port's copy of llmlb_tpu/gateway/api_admin.py, handler for handler, less
+the tray's two handlers (the tray is not ported). `system_info` answers
+`"update": null`: the update manager is not ported either. Endpoint
+registration, update and delete publish no dashboard events (the event bus
+comes with the dashboard).
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ import time
 from llmlb_tpu_torch.gateway import http
 from llmlb_tpu_torch.gateway.http import web
 
+from llmlb_tpu_torch import __version__
 from llmlb_tpu_torch.gateway.auth import (
     CSRF_COOKIE,
     JWT_COOKIE,
+    AuthError,
     UnsupportedPasswordHash,
     create_jwt,
 )
@@ -33,6 +36,7 @@ from llmlb_tpu_torch.gateway.types import (
     EndpointStatus,
     EndpointType,
     Permission,
+    Role,
 )
 
 
@@ -99,6 +103,27 @@ async def get_endpoint(request: web.Request) -> web.Response:
     return web.json_response(endpoint_to_json(ep, state.registry.models_for(ep.id)))
 
 
+async def get_endpoint_system_info(request: web.Request) -> web.Response:
+    """Live device/system probe of one endpoint's runtime (reference
+    system_info/mod.rs dispatch; llama.cpp /slots + /metrics, TPU
+    /api/health, Ollama /api/version + /api/ps, xLLM /api/system)."""
+    from llmlb_tpu_torch.gateway.system_info import (
+        get_endpoint_system_info as probe,
+    )
+
+    state = request.app["state"]
+    ep = state.registry.get(request.match_info["endpoint_id"])
+    if ep is None:
+        return _json_error(404, "endpoint not found")
+    info = await probe(ep, state.http)
+    return web.json_response({
+        "endpoint_id": ep.id,
+        "endpoint_type": ep.endpoint_type.value,
+        "available": info is not None,
+        "info": info,
+    })
+
+
 async def create_endpoint(request: web.Request) -> web.Response:
     state = request.app["state"]
     try:
@@ -142,6 +167,44 @@ async def create_endpoint(request: web.Request) -> web.Response:
     )
 
 
+async def update_endpoint(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    ep = state.registry.get(request.match_info["endpoint_id"])
+    if ep is None:
+        return _json_error(404, "endpoint not found")
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    if "name" in body:
+        ep.name = str(body["name"])
+    if "base_url" in body:
+        ep.base_url = str(body["base_url"])
+    if "api_key" in body:
+        ep.api_key = body["api_key"] or None
+    if "endpoint_type" in body:
+        try:
+            ep.endpoint_type = EndpointType(body["endpoint_type"])
+        except ValueError:
+            return _json_error(400, "unknown endpoint_type")
+    state.registry.update(ep)
+    return web.json_response(endpoint_to_json(ep))
+
+
+async def delete_endpoint(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    endpoint_id = request.match_info["endpoint_id"]
+    ep = state.registry.get(endpoint_id)
+    if not state.registry.remove(endpoint_id):
+        return _json_error(404, "endpoint not found")
+    state.load_manager.clear_tps_for_endpoint(endpoint_id)
+    state.load_manager.drop_endpoint_outcomes(endpoint_id)
+    if state.resilience is not None:
+        state.resilience.forget(endpoint_id,
+                                endpoint_name=ep.name if ep else None)
+    return web.json_response({"deleted": endpoint_id})
+
+
 async def test_endpoint(request: web.Request) -> web.Response:
     """Connection test: probe + report (api/endpoints.rs run_connection_test)."""
     state = request.app["state"]
@@ -179,6 +242,19 @@ async def sync_endpoint(request: web.Request) -> web.Response:
     return web.json_response({
         "synced": True, "added": added, "removed": removed,
         "models": [m.model_id for m in state.registry.models_for(ep.id)],
+    })
+
+
+async def endpoint_health_history(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    endpoint_id = request.match_info["endpoint_id"]
+    rows = state.db.list_health_checks(endpoint_id, limit=200)
+    return web.json_response({
+        "checks": [
+            {"ok": bool(r["ok"]), "latency_ms": r["latency_ms"],
+             "error": r["error"], "checked_at": r["checked_at"]}
+            for r in rows
+        ]
     })
 
 
@@ -239,6 +315,107 @@ async def me(request: web.Request) -> web.Response:
     })
 
 
+async def change_password(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    auth = request.get("auth") or {}
+    if not auth.get("user_id"):
+        return _json_error(401, "not authenticated")
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    user = state.users.get(auth["user_id"])
+    try:
+        ok = user is not None and state.users.authenticate(
+            user.username, body.get("current_password") or ""
+        )
+    except UnsupportedPasswordHash as e:
+        return _json_error(401, str(e))
+    if not ok:
+        return _json_error(401, "current password incorrect")
+    try:
+        state.users.change_password(user.id, body.get("new_password") or "")
+    except AuthError as e:
+        return _json_error(400, str(e))
+    return web.json_response({"changed": True})
+
+
+async def register_with_invitation(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    try:
+        user = state.invitations.redeem(
+            body.get("code") or "", body.get("username") or "",
+            body.get("password") or "", state.users,
+        )
+    except AuthError as e:
+        return _json_error(400, str(e))
+    token = create_jwt(state.jwt_secret, user.id, user.username, user.role)
+    return web.json_response({"token": token, "user": {
+        "id": user.id, "username": user.username, "role": user.role.value,
+    }}, status=201)
+
+
+# -------------------------------------------------------------------- users
+
+
+async def list_users(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    return web.json_response({"users": [
+        {"id": u.id, "username": u.username, "role": u.role.value,
+         "must_change_password": u.must_change_password,
+         "created_at": u.created_at}
+        for u in state.users.list()
+    ]})
+
+
+async def create_user(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    try:
+        role = Role(body.get("role", "viewer"))
+        user = state.users.create(
+            body.get("username") or "", body.get("password") or "", role
+        )
+    except (AuthError, ValueError) as e:
+        return _json_error(400, str(e))
+    return web.json_response(
+        {"id": user.id, "username": user.username, "role": user.role.value},
+        status=201,
+    )
+
+
+async def delete_user(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    auth = request.get("auth") or {}
+    user_id = request.match_info["user_id"]
+    if auth.get("user_id") == user_id:
+        return _json_error(400, "cannot delete your own account")
+    if not state.users.delete(user_id):
+        return _json_error(404, "user not found")
+    return web.json_response({"deleted": user_id})
+
+
+async def set_user_role(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    try:
+        body = await request.json()
+        role = Role(body.get("role"))
+    except Exception:
+        return _json_error(400, "invalid role")
+    user_id = request.match_info["user_id"]
+    if state.users.get(user_id) is None:
+        return _json_error(404, "user not found")
+    state.users.set_role(user_id, role)
+    return web.json_response({"id": user_id, "role": role.value})
+
+
 # ----------------------------------------------------------------- api keys
 
 
@@ -287,3 +464,113 @@ async def revoke_api_key(request: web.Request) -> web.Response:
     if not state.api_keys.revoke(request.match_info["key_id"]):
         return _json_error(404, "api key not found")
     return web.json_response({"revoked": request.match_info["key_id"]})
+
+
+# -------------------------------------------------------------- invitations
+
+
+async def list_invitations(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    return web.json_response({"invitations": state.invitations.list()})
+
+
+async def create_invitation(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    auth = request.get("auth") or {}
+    try:
+        body = await request.json() if request.can_read_body else {}
+    except Exception:
+        body = {}
+    try:
+        role = Role(body.get("role", "viewer"))
+    except ValueError:
+        return _json_error(400, "invalid role")
+    inv = state.invitations.create(auth.get("user_id") or "", role)
+    return web.json_response(inv, status=201)
+
+
+async def delete_invitation(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    if not state.invitations.delete(request.match_info["invitation_id"]):
+        return _json_error(404, "invitation not found")
+    return web.json_response({"deleted": request.match_info["invitation_id"]})
+
+
+# -------------------------------------------------------------------- audit
+
+
+async def query_audit_log(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    q = request.query
+    entries = state.audit.search(
+        q=q.get("q"), actor=q.get("actor"), path_prefix=q.get("path"),
+        since=float(q["since"]) if "since" in q else None,
+        until=float(q["until"]) if "until" in q else None,
+        limit=min(int(q.get("limit", 100)), 1000),
+        offset=int(q.get("offset", 0)),
+    )
+    return web.json_response({"entries": entries})
+
+
+async def verify_audit_chain(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    state.audit.flush()
+    ok, err = state.audit.verify()
+    return web.json_response({"ok": ok, "error": err})
+
+
+# ----------------------------------------------------------------- settings
+
+
+def parse_ip_alert_threshold(value: str) -> int:
+    """Integer >= 1, or ValueError (the dashboard's validator,
+    llmlb_tpu/gateway/api_dashboard.py)."""
+    parsed = int(value)  # raises ValueError on non-integers
+    if parsed < 1:
+        raise ValueError("ip_alert_threshold must be an integer >= 1")
+    return parsed
+
+
+async def get_settings(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    settings = {
+        k: v for k, v in state.db.list_settings().items()
+        if not k.startswith("auth.")  # never expose secrets
+    }
+    return web.json_response({"settings": settings})
+
+
+async def update_setting(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    try:
+        body = await request.json()
+        key, value = str(body["key"]), str(body["value"])
+    except Exception:
+        return _json_error(400, "body must have 'key' and 'value'")
+    if key.startswith("auth."):
+        return _json_error(400, "auth.* settings are not writable via API")
+    if key == "ip_alert_threshold":
+        try:
+            parse_ip_alert_threshold(value)
+        except ValueError:
+            return _json_error(400, "ip_alert_threshold must be an integer >= 1")
+    state.db.set_setting(key, value)
+    return web.json_response({"key": key, "value": value})
+
+
+# ------------------------------------------------------------------- system
+
+
+async def system_info(request: web.Request) -> web.Response:
+    state = request.app["state"]
+    return web.json_response({
+        "name": "llmlb_tpu",
+        "version": __version__,
+        "uptime_s": round(time.time() - state.started_at, 1),
+        "update": None,
+        "gate": {
+            "rejecting": state.gate.rejecting,
+            "in_flight": state.gate.in_flight,
+        },
+    })
+

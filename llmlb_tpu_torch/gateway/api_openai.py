@@ -1,11 +1,9 @@
 """OpenAI-compatible proxy handlers: the gateway's hot path.
 
-The port's copy of llmlb_tpu/gateway/api_openai.py. Left for later slices:
-cloud-prefixed models (`openai:`, `google:`, `anthropic:`, api_cloud.py),
-which this gateway treats as any model no endpoint serves, and the
-rebalancer's planned stream migration (rebalance.py). Streams still resume
-after a cut (`_acquire_resume`), with the origin's KV pages when it can
-export them.
+The port's copy of llmlb_tpu/gateway/api_openai.py. Left for a later slice:
+the rebalancer's planned stream migration (rebalance.py). Streams still
+resume after a cut (`_acquire_resume`), with the origin's KV pages when it
+can export them.
 
 Parity with reference api/openai.rs (chat_completions :155, proxy_openai_post
 :761-1341, list_models :261) and api/proxy.rs (SSE passthrough with TPS
@@ -68,6 +66,8 @@ from llmlb_tpu_torch.structured import inspect_request as inspect_structured
 
 log = logging.getLogger("llmlb_tpu_torch.gateway.openai")
 
+CLOUD_PREFIXES = ("openai:", "google:", "anthropic:")
+
 def error_response(status: int, message: str,
                    err_type: str = "invalid_request_error",
                    headers: dict | None = None) -> web.Response:
@@ -76,6 +76,13 @@ def error_response(status: int, message: str,
         status=status,
         headers=headers,
     )
+
+
+def parse_cloud_prefix(model: str) -> tuple[str | None, str]:
+    for prefix in CLOUD_PREFIXES:
+        if model.startswith(prefix):
+            return prefix[:-1], model[len(prefix):]
+    return None, model
 
 
 def affinity_text_from_body(body: dict) -> str:
@@ -512,6 +519,14 @@ async def proxy_openai_post(
     model = body.get("model")
     if not model or not isinstance(model, str):
         return error_response(400, "'model' is required")
+
+    provider, bare_model = parse_cloud_prefix(model)
+    if provider is not None:
+        from llmlb_tpu_torch.gateway.api_cloud import proxy_cloud_request
+
+        return await proxy_cloud_request(
+            request, provider, bare_model, body, path
+        )
 
     canonical = to_canonical(model)
     if trace is not None:

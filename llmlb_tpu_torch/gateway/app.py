@@ -1,13 +1,16 @@
-"""Gateway application: the serving path's routes + middleware stack.
+"""Gateway application: route tree + middleware stack.
 
 The port's counterpart of llmlb_tpu/gateway/app.py: the OpenAI surface
-(/v1/chat/completions, /v1/completions, /v1/responses, /v1/embeddings,
-/v1/models), login, endpoint registration and API keys, request traces,
-/health, /api/health and /metrics, behind the reference's middlewares in
-its order less the audit log: tracing (outermost) → inference gate → CSRF →
-auth (JWT / API key / x-api-key) → handler. The reference's other routes
-(Anthropic, media, cloud, model registry, dashboard, benchmarks, users,
-audit, settings, updates) come with the slices that port them.
+(chat, completions, responses, embeddings, models, audio, images, and the
+`openai:` / `google:` / `anthropic:` cloud prefixes), the Anthropic
+/v1/messages, auth with users and invitations, endpoints admin, API keys,
+the model registry and HF catalog, per-endpoint model management and the
+playground proxy, the audit log, settings, system info, cloud metrics,
+request traces, /health, /api/health and /metrics, behind the reference's
+middlewares in its order: tracing (outermost) → audit → inference gate →
+CSRF → auth (JWT / API key / x-api-key) → handler. The reference's
+dashboard (its data routes, WebSocket and static bundle), benchmarks, tray
+and update routes come with the slices that port them.
 """
 
 from __future__ import annotations
@@ -17,8 +20,17 @@ import time
 
 from llmlb_tpu_torch.gateway.http import web
 
-from llmlb_tpu_torch.gateway import api_admin, api_openai, tracing
+from llmlb_tpu_torch.gateway import (
+    api_admin,
+    api_anthropic,
+    api_cloud,
+    api_media,
+    api_models,
+    api_openai,
+    tracing,
+)
 from llmlb_tpu_torch.gateway.app_state import AppState, gateway_exposition
+from llmlb_tpu_torch.gateway.audit import AuditEntry
 from llmlb_tpu_torch.gateway.auth import (
     CSRF_COOKIE,
     JWT_COOKIE,
@@ -34,6 +46,7 @@ MAX_BODY_BYTES = 20 * 1024 * 1024  # parity: api/mod.rs:58
 
 PUBLIC_PATHS = {
     ("POST", "/api/auth/login"),
+    ("POST", "/api/auth/register"),
     ("GET", "/health"),
     ("GET", "/api/health"),  # fleet health + breaker state, same stance
     ("GET", "/metrics"),  # Prometheus scrape, same stance as the engine's
@@ -44,6 +57,14 @@ PUBLIC_PATHS = {
 _API_KEY_PERMS: list[tuple[str, str, Permission]] = [
     ("GET", "/api/endpoints", Permission.ENDPOINTS_READ),
     ("*", "/api/endpoints", Permission.ENDPOINTS_MANAGE),
+    ("*", "/api/users", Permission.USERS_MANAGE),
+    ("*", "/api/invitations", Permission.INVITATIONS_MANAGE),
+    ("GET", "/api/audit", Permission.LOGS_READ),
+    ("GET", "/api/dashboard/logs", Permission.LOGS_READ),
+    ("GET", "/api/dashboard", Permission.METRICS_READ),
+    ("GET", "/api/metrics", Permission.METRICS_READ),
+    ("GET", "/api/models/registry", Permission.REGISTRY_READ),
+    ("GET", "/api/benchmarks", Permission.METRICS_READ),
     ("GET", "/api/traces", Permission.METRICS_READ),
 ]
 
@@ -99,6 +120,40 @@ async def tracing_middleware(request: web.Request, handler):
         route = _route_label(request)
         if route is not None and request.path != "/metrics":
             state.metrics.record_request(route, status)
+
+
+@web.middleware
+async def audit_middleware(request: web.Request, handler):
+    """Directly inside tracing: every request lands in the tamper-evident
+    audit log."""
+    state: AppState = request.app["state"]
+    start = time.monotonic()
+    status = 500
+    detail = None
+    try:
+        response = await handler(request)
+        status = response.status
+        return response
+    except web.HTTPException as e:
+        status = e.status
+        raise
+    except Exception as e:
+        detail = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        if request.path != "/ws/dashboard":
+            auth = request.get("auth") or {}
+            state.audit.record(AuditEntry(
+                ts=time.time(),
+                method=request.method,
+                path=request.path,
+                status=status,
+                duration_ms=(time.monotonic() - start) * 1000.0,
+                actor=auth.get("actor"),
+                actor_type=auth.get("actor_type", "anonymous"),
+                ip=request.remote,
+                detail=detail,
+            ))
 
 
 @web.middleware
@@ -178,7 +233,7 @@ async def csrf_middleware(request: web.Request, handler):
     if not request.path.startswith("/api/"):
         return await handler(request)
     if (request.method, request.path) in PUBLIC_PATHS:
-        return await handler(request)  # login establishes the session
+        return await handler(request)  # login/register establish the session
     if "Authorization" in request.headers or "x-api-key" in request.headers:
         return await handler(request)
     if request.cookies.get(JWT_COOKIE) is None:
@@ -301,8 +356,8 @@ def create_app(state: AppState) -> web.Application:
     app = web.Application(
         client_max_size=MAX_BODY_BYTES,
         middlewares=[
-            tracing_middleware, gate_middleware, csrf_middleware,
-            auth_middleware,
+            tracing_middleware, audit_middleware, gate_middleware,
+            csrf_middleware, auth_middleware,
         ],
     )
     app["state"] = state
@@ -315,23 +370,92 @@ def create_app(state: AppState) -> web.Application:
     r.add_post("/v1/responses", api_openai.responses)
     r.add_get("/v1/models", api_openai.list_models)
     r.add_get("/v1/models/{model_id:.+}", api_openai.get_model)
+    r.add_post("/v1/audio/transcriptions", api_media.audio_transcriptions)
+    r.add_post("/v1/audio/speech", api_media.audio_speech)
+    r.add_post("/v1/images/generations", api_media.images_generations)
+    r.add_post("/v1/images/edits", api_media.images_edits)
+    r.add_post("/v1/images/variations", api_media.images_variations)
+
+    # ---- Anthropic surface (api/mod.rs:553)
+    r.add_post("/v1/messages", api_anthropic.messages)
 
     # ---- auth
     r.add_post("/api/auth/login", api_admin.login)
     r.add_post("/api/auth/logout", api_admin.logout)
+    r.add_post("/api/auth/register", api_admin.register_with_invitation)
     r.add_get("/api/auth/me", api_admin.me)
+    r.add_post("/api/auth/change-password", api_admin.change_password)
 
     # ---- endpoints admin
     r.add_get("/api/endpoints", api_admin.list_endpoints)
     r.add_post("/api/endpoints", api_admin.create_endpoint)
     r.add_get("/api/endpoints/{endpoint_id}", api_admin.get_endpoint)
+    r.add_get(
+        "/api/endpoints/{endpoint_id}/system-info",
+        api_admin.get_endpoint_system_info,
+    )
+    r.add_put("/api/endpoints/{endpoint_id}", api_admin.update_endpoint)
+    r.add_delete("/api/endpoints/{endpoint_id}", api_admin.delete_endpoint)
     r.add_post("/api/endpoints/{endpoint_id}/test", api_admin.test_endpoint)
     r.add_post("/api/endpoints/{endpoint_id}/sync", api_admin.sync_endpoint)
+    r.add_get(
+        "/api/endpoints/{endpoint_id}/health",
+        api_admin.endpoint_health_history,
+    )
 
-    # ---- API keys
+    # ---- users / keys / invitations
+    r.add_get("/api/users", api_admin.list_users)
+    r.add_post("/api/users", api_admin.create_user)
+    r.add_delete("/api/users/{user_id}", api_admin.delete_user)
+    r.add_put("/api/users/{user_id}/role", api_admin.set_user_role)
     r.add_get("/api/api-keys", api_admin.list_api_keys)
     r.add_post("/api/api-keys", api_admin.create_api_key)
     r.add_delete("/api/api-keys/{key_id}", api_admin.revoke_api_key)
+    r.add_get("/api/invitations", api_admin.list_invitations)
+    r.add_post("/api/invitations", api_admin.create_invitation)
+    r.add_delete(
+        "/api/invitations/{invitation_id}", api_admin.delete_invitation
+    )
+
+    # ---- audit / settings / system
+    # ---- model registry + catalog + per-endpoint model management
+    r.add_post("/api/models/register", api_models.register_model)
+    r.add_get("/api/models", api_models.list_registered_models)
+    r.add_delete("/api/models/{name}", api_models.delete_registered_model)
+    r.add_get(
+        "/api/models/registry/{model}/manifest.json",
+        api_models.get_model_manifest,
+    )
+    r.add_get("/api/catalog/search", api_models.catalog_search)
+    r.add_post(
+        "/api/endpoints/{endpoint_id}/models/download",
+        api_models.download_endpoint_model,
+    )
+    r.add_get(
+        "/api/endpoints/models/download/{task_id}",
+        api_models.download_progress,
+    )
+    r.add_delete(
+        "/api/endpoints/{endpoint_id}/models/{model}",
+        api_models.delete_endpoint_model,
+    )
+    r.add_get(
+        "/api/endpoints/{endpoint_id}/models/{model}/info",
+        api_models.endpoint_model_info,
+    )
+    r.add_post(
+        "/api/endpoints/{endpoint_id}/chat/completions",
+        api_models.playground_chat_proxy,
+    )
+
+    r.add_get("/api/audit-log", api_admin.query_audit_log)
+    r.add_post("/api/audit-log/verify", api_admin.verify_audit_chain)
+    r.add_get("/api/dashboard/settings", api_admin.get_settings)
+    r.add_put("/api/dashboard/settings", api_admin.update_setting)
+    r.add_get("/api/system", api_admin.system_info)
+
+    # ---- cloud metrics
+    r.add_get("/api/metrics/cloud", api_cloud.cloud_metrics_handler)
 
     # ---- observability: request traces + gateway-wide Prometheus metrics
     r.add_get("/api/traces", tracing.list_traces)
@@ -431,5 +555,5 @@ async def _root(request: web.Request) -> web.Response:
     return web.json_response({
         "name": "llmlb_tpu",
         "endpoints": ["/v1/chat/completions", "/v1/responses", "/v1/models",
-                      "/api/endpoints"],
+                      "/v1/messages", "/api/endpoints"],
     })

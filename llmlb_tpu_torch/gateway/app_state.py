@@ -3,9 +3,10 @@
 The port's counterpart of llmlb_tpu/gateway/app_state.py at one worker: DB +
 schema, registry cache load, LoadManager seeding from daily stats, the shared
 HTTP client (gateway/http.py), admin bootstrap, JWT secret provisioning,
-breakers and retry budget, rate limits, health checker, history retention.
-The reference's audit log, dashboard event bus, gossip bus, metrics spool,
-rebalancer, update manager and tray come with the slices that port them.
+the audit log (its chain verified at start and hourly), breakers and retry
+budget, rate limits, health checker, history retention. The reference's
+dashboard event bus, gossip bus, metrics spool, rebalancer, update manager
+and tray come with the slices that port them.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ import time
 
 from llmlb_tpu_torch.gateway import http
 
+from llmlb_tpu_torch.gateway.audit import AuditLog
 from llmlb_tpu_torch.gateway.auth import (
     ApiKeyStore,
+    InvitationStore,
     UserStore,
     ensure_admin_exists,
 )
@@ -178,8 +181,10 @@ class AppState:
     load_manager: LoadManager
     admission: AdmissionQueue
     gate: InferenceGate
+    audit: AuditLog
     users: UserStore
     api_keys: ApiKeyStore
+    invitations: InvitationStore
     jwt_secret: str
     http: http.ClientSession
     metrics: GatewayMetrics
@@ -206,6 +211,7 @@ class AppState:
             await self.health_checker.stop()
         if self.history is not None:
             await self.history.stop()
+        await self.audit.stop()
         await self.http.close()
         self.db.close()
 
@@ -231,6 +237,7 @@ async def build_app_state(
     admission.wfq_enabled = env_bool("LLMLB_WFQ", True)
     admission.weights = wfq_weights_from_env()
     gate = InferenceGate()
+    audit = AuditLog(db)
     # SLO targets ride inside the metrics registry: every proxy path that
     # finishes a successful request judges it there (record_slo)
     metrics = GatewayMetrics(slo=SloConfig.from_env())
@@ -240,6 +247,7 @@ async def build_app_state(
     users = UserStore(db)
     api_keys = ApiKeyStore(db, cache_ttl_s=env_float(
         "LLMLB_AUTH_CACHE_TTL", 0.0))
+    invitations = InvitationStore(db)
 
     # admin bootstrap (reference auth/bootstrap.rs)
     admin, generated = ensure_admin_exists(
@@ -262,6 +270,11 @@ async def build_app_state(
             (secrets.token_urlsafe(32), time.time()),
         )
         jwt_secret = db.get_setting("auth.jwt_secret")
+
+    # startup audit chain verification (bootstrap.rs:211-265)
+    ok, err = audit.verify()
+    if not ok:
+        log.error("AUDIT CHAIN VERIFICATION FAILED: %s", err)
 
     client = http.ClientSession(
         connector=http.TCPConnector(limit_per_host=32, keepalive_timeout=60)
@@ -287,8 +300,9 @@ async def build_app_state(
 
     state = AppState(
         config=config, db=db, registry=registry, load_manager=load_manager,
-        admission=admission, gate=gate, users=users, api_keys=api_keys,
-        jwt_secret=jwt_secret, http=client, metrics=metrics, traces=traces,
+        admission=admission, gate=gate, audit=audit, users=users,
+        api_keys=api_keys, invitations=invitations, jwt_secret=jwt_secret,
+        http=client, metrics=metrics, traces=traces,
         resilience=resilience, faults=faults, ratelimit=ratelimit,
         history=history,
     )
@@ -296,6 +310,7 @@ async def build_app_state(
     _seed_tps_from_daily_stats(state)
 
     if start_background:
+        audit.start()
         history.start()
         checker = EndpointHealthChecker(
             registry, load_manager, db, client,
@@ -356,13 +371,16 @@ def gateway_exposition(state: AppState) -> str:
 
 
 async def _maintenance_loop(state: AppState) -> None:
-    """Hourly: request-history retention cleanup (reference: cleanup task
-    bootstrap.rs:161)."""
+    """Hourly: request-history retention cleanup + periodic audit verify
+    (reference: cleanup task bootstrap.rs:161, audit verify :211-265)."""
     while True:
         await asyncio.sleep(3600)
         try:
             cutoff = time.time() - state.config.request_history_retention_days * 86400
             state.db.execute("DELETE FROM request_history WHERE ts < ?", (cutoff,))
+            ok, err = state.audit.verify()
+            if not ok:
+                log.error("periodic audit verification failed: %s", err)
         except Exception:
             log.exception("maintenance cycle failed")
 

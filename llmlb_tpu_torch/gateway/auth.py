@@ -1,4 +1,5 @@
-"""Authentication: JWT, passwords, API keys, the bootstrap admin.
+"""Authentication: JWT, passwords, users, API keys, invitations, the
+bootstrap admin.
 
 The port's counterpart of llmlb_tpu/gateway/auth.py. JWT is HS256 over
 hmac/sha256 and API keys are stored as SHA-256 hashes with a display
@@ -215,6 +216,27 @@ class UserStore:
         row = self.db.query_one("SELECT * FROM users WHERE username=?", (username,))
         return self._to_user(row) if row else None
 
+    def list(self) -> list[User]:
+        return [self._to_user(r) for r in self.db.query("SELECT * FROM users")]
+
+    def change_password(self, user_id: str, new_password: str) -> None:
+        validate_password_policy(new_password)
+        self.db.execute(
+            """UPDATE users SET password_hash=?, must_change_password=0,
+               updated_at=? WHERE id=?""",
+            (hash_password(new_password), time.time(), user_id),
+        )
+
+    def set_role(self, user_id: str, role: Role) -> None:
+        self.db.execute(
+            "UPDATE users SET role=?, updated_at=? WHERE id=?",
+            (role.value, time.time(), user_id),
+        )
+
+    def delete(self, user_id: str) -> bool:
+        cur = self.db.execute("DELETE FROM users WHERE id=?", (user_id,))
+        return cur.rowcount > 0
+
     @staticmethod
     def _to_user(row) -> User:
         return User(
@@ -398,3 +420,50 @@ class ApiKeyStore:
             created_at=row["created_at"], revoked=bool(row["revoked"]),
             expires_at=row["expires_at"], last_used_at=row["last_used_at"],
         )
+
+
+# ---------------------------------------------------------------- invitations
+
+
+class InvitationStore:
+    def __init__(self, db: Database):
+        self.db = db
+
+    def create(
+        self, created_by: str, role: Role = Role.VIEWER,
+        ttl_s: float | None = 7 * 86400,
+    ) -> dict:
+        code = secrets.token_urlsafe(16)
+        inv_id = uuid.uuid4().hex
+        now = time.time()
+        self.db.execute(
+            """INSERT INTO invitations (id, code, role, created_by, created_at,
+               expires_at) VALUES (?,?,?,?,?,?)""",
+            (inv_id, code, role.value, created_by, now,
+             now + ttl_s if ttl_s else None),
+        )
+        return {"id": inv_id, "code": code, "role": role.value,
+                "expires_at": now + ttl_s if ttl_s else None}
+
+    def redeem(self, code: str, username: str, password: str,
+               users: UserStore) -> User:
+        row = self.db.query_one(
+            "SELECT * FROM invitations WHERE code=?", (code,)
+        )
+        if row is None or row["used_at"] is not None:
+            raise AuthError("invalid or used invitation code")
+        if row["expires_at"] is not None and row["expires_at"] < time.time():
+            raise AuthError("invitation expired")
+        user = users.create(username, password, Role(row["role"]))
+        self.db.execute(
+            "UPDATE invitations SET used_by=?, used_at=? WHERE id=?",
+            (user.id, time.time(), row["id"]),
+        )
+        return user
+
+    def list(self) -> list[dict]:
+        return [dict(r) for r in self.db.query("SELECT * FROM invitations")]
+
+    def delete(self, inv_id: str) -> bool:
+        cur = self.db.execute("DELETE FROM invitations WHERE id=?", (inv_id,))
+        return cur.rowcount > 0

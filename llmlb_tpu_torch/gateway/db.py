@@ -1,12 +1,13 @@
 """SQLite persistence layer: the port's counterpart of
 llmlb_tpu/gateway/db.py.
 
-The reference's schema for the tables the serving path touches (users, API
-keys, endpoints and their models, health checks, request history, daily
-stats, settings), column for column, so either gateway opens the other's
-database. The reference's other tables (registered models, invitations,
-the audit log, download tasks) come with the modules that use them.
-Single connection in WAL mode guarded by a lock.
+The reference's schema, column for column and index for index, so either
+gateway opens the other's database: users, API keys, endpoints and their
+models, health checks, request history, daily stats, settings, registered
+models, invitations, the audit log and its batches, download tasks, and the
+audit log's FTS5 index (kept out of the schema, as in the reference, so a
+sqlite build without fts5 still opens it). Single connection in WAL mode
+guarded by a lock.
 """
 
 from __future__ import annotations
@@ -96,6 +97,16 @@ CREATE TABLE IF NOT EXISTS endpoint_health_checks (
 CREATE INDEX IF NOT EXISTS idx_health_checks_endpoint
     ON endpoint_health_checks(endpoint_id, checked_at);
 
+CREATE TABLE IF NOT EXISTS registered_models (
+    id TEXT PRIMARY KEY,
+    name TEXT NOT NULL UNIQUE,
+    source_repo TEXT,
+    format TEXT,
+    capabilities TEXT NOT NULL DEFAULT '[]',
+    manifest TEXT,
+    created_at REAL NOT NULL
+);
+
 CREATE TABLE IF NOT EXISTS request_history (
     id TEXT PRIMARY KEY,
     ts REAL NOT NULL,
@@ -137,6 +148,73 @@ CREATE TABLE IF NOT EXISTS settings (
     value TEXT NOT NULL,
     updated_at REAL NOT NULL
 );
+
+CREATE TABLE IF NOT EXISTS invitations (
+    id TEXT PRIMARY KEY,
+    code TEXT NOT NULL UNIQUE,
+    role TEXT NOT NULL DEFAULT 'viewer',
+    created_by TEXT,
+    created_at REAL NOT NULL,
+    expires_at REAL,
+    used_by TEXT,
+    used_at REAL
+);
+
+CREATE TABLE IF NOT EXISTS audit_log (
+    id INTEGER PRIMARY KEY AUTOINCREMENT,
+    ts REAL NOT NULL,
+    method TEXT NOT NULL,
+    path TEXT NOT NULL,
+    status INTEGER NOT NULL,
+    duration_ms REAL NOT NULL,
+    actor TEXT,
+    actor_type TEXT,
+    ip TEXT,
+    detail TEXT,
+    batch_id INTEGER
+);
+CREATE INDEX IF NOT EXISTS idx_audit_log_ts ON audit_log(ts);
+CREATE INDEX IF NOT EXISTS idx_audit_log_batch ON audit_log(batch_id);
+
+CREATE TABLE IF NOT EXISTS audit_batches (
+    id INTEGER PRIMARY KEY AUTOINCREMENT,
+    batch_hash TEXT NOT NULL,
+    prev_hash TEXT NOT NULL,
+    entry_count INTEGER NOT NULL,
+    created_at REAL NOT NULL
+);
+
+CREATE TABLE IF NOT EXISTS download_tasks (
+    id TEXT PRIMARY KEY,
+    endpoint_id TEXT NOT NULL,
+    model TEXT NOT NULL,
+    status TEXT NOT NULL DEFAULT 'pending',
+    progress REAL NOT NULL DEFAULT 0,
+    error TEXT,
+    created_at REAL NOT NULL,
+    updated_at REAL NOT NULL
+);
+"""
+
+
+# Full-text audit search (parity: db/audit_log.rs:82-98 FTS5 table+triggers).
+# Kept out of SCHEMA so a sqlite build without the fts5 module still boots
+# (AuditLog.search falls back to LIKE when Database.fts_enabled is False).
+# External-content table: rows live in audit_log; triggers keep FTS in sync,
+# including deletes from the 90-day archiver.
+FTS_SCHEMA = """
+CREATE VIRTUAL TABLE IF NOT EXISTS audit_log_fts USING fts5(
+    path, actor, detail,
+    content='audit_log', content_rowid='id'
+);
+CREATE TRIGGER IF NOT EXISTS audit_log_fts_ai AFTER INSERT ON audit_log BEGIN
+    INSERT INTO audit_log_fts(rowid, path, actor, detail)
+    VALUES (new.id, new.path, new.actor, new.detail);
+END;
+CREATE TRIGGER IF NOT EXISTS audit_log_fts_ad AFTER DELETE ON audit_log BEGIN
+    INSERT INTO audit_log_fts(audit_log_fts, rowid, path, actor, detail)
+    VALUES ('delete', old.id, old.path, old.actor, old.detail);
+END;
 """
 
 
@@ -216,6 +294,28 @@ class Database:
                     if "locked" not in str(e) or attempt == 49:
                         raise
                     time.sleep(0.1)
+            try:
+                # Backfill on upgrade: a DB that predates the FTS table has
+                # unindexed rows — searches would miss them and the delete
+                # trigger would corrupt the external-content index when the
+                # archiver removes a never-indexed rowid. (count(*) can't
+                # detect this: on external-content tables it reads the
+                # content table, so test table existence instead.)
+                fts_is_new = not self._conn.execute(
+                    "SELECT 1 FROM sqlite_master WHERE name='audit_log_fts'"
+                ).fetchone()
+                self._conn.executescript(FTS_SCHEMA)
+                self.fts_enabled = True
+                has_rows = self._conn.execute(
+                    "SELECT 1 FROM audit_log LIMIT 1"
+                ).fetchone()
+                if fts_is_new and has_rows:
+                    self._conn.execute(
+                        "INSERT INTO audit_log_fts(audit_log_fts) "
+                        "VALUES('rebuild')"
+                    )
+            except sqlite3.OperationalError:
+                self.fts_enabled = False
 
     def close(self) -> None:
         with self._lock:
@@ -355,6 +455,17 @@ class Database:
             (endpoint_id, int(ok), latency_ms, error, checked_at),
         )
 
+    def list_health_checks(
+        self, endpoint_id: str, limit: int = 100
+    ) -> list[sqlite3.Row]:
+        return self.query(
+            """SELECT * FROM endpoint_health_checks WHERE endpoint_id=?
+               ORDER BY checked_at DESC LIMIT ?""",
+            (endpoint_id, limit),
+        )
+
+    # --------------------------------------------------------------- settings
+
     def get_setting(self, key: str) -> str | None:
         row = self.query_one("SELECT value FROM settings WHERE key=?", (key,))
         return row["value"] if row else None
@@ -367,3 +478,62 @@ class Database:
             (key, value, time.time()),
         )
 
+    def list_settings(self) -> dict[str, str]:
+        return {r["key"]: r["value"] for r in self.query("SELECT * FROM settings")}
+
+    # ------------------------------------------------- registered models
+    # Parity: reference db/models.rs — metadata+manifest only, no weights
+    # (api/models.rs:1021 register, :1167 manifest serving).
+
+    def register_model(self, name: str, source_repo: str | None,
+                       format_: str | None, capabilities: list[str],
+                       manifest: dict) -> str:
+        model_id = uuid.uuid4().hex
+        self.execute(
+            """INSERT INTO registered_models
+               (id, name, source_repo, format, capabilities, manifest, created_at)
+               VALUES (?,?,?,?,?,?,?)
+               ON CONFLICT(name) DO UPDATE SET source_repo=excluded.source_repo,
+               format=excluded.format, capabilities=excluded.capabilities,
+               manifest=excluded.manifest""",
+            (model_id, name, source_repo, format_, json.dumps(capabilities),
+             json.dumps(manifest), time.time()),
+        )
+        # On re-registration the UPDATE path keeps the existing row's id, so
+        # return the id actually stored rather than the freshly generated one.
+        row = self.query_one(
+            "SELECT id FROM registered_models WHERE name=?", (name,))
+        return row["id"] if row else model_id
+
+    def list_registered_models(self) -> list[dict]:
+        return [
+            {
+                "id": r["id"], "name": r["name"],
+                "source_repo": r["source_repo"], "format": r["format"],
+                "capabilities": json.loads(r["capabilities"] or "[]"),
+                "created_at": r["created_at"],
+            }
+            for r in self.query(
+                "SELECT * FROM registered_models ORDER BY created_at DESC"
+            )
+        ]
+
+    def get_registered_model(self, name: str) -> dict | None:
+        r = self.query_one(
+            "SELECT * FROM registered_models WHERE name=?", (name,)
+        )
+        if r is None:
+            return None
+        return {
+            "id": r["id"], "name": r["name"], "source_repo": r["source_repo"],
+            "format": r["format"],
+            "capabilities": json.loads(r["capabilities"] or "[]"),
+            "manifest": json.loads(r["manifest"] or "null"),
+            "created_at": r["created_at"],
+        }
+
+    def delete_registered_model(self, name: str) -> bool:
+        cur = self.execute(
+            "DELETE FROM registered_models WHERE name=?", (name,)
+        )
+        return cur.rowcount > 0

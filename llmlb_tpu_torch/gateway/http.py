@@ -12,11 +12,13 @@ and gets the subset they use from here:
   `json_response`, `StreamResponse` (`prepare`, `write`, `write_eof`, each
   write flushed as one chunk), `HTTPException`, `AppRunner` and `TCPSite`.
   HTTP/1.1 with keep-alive; request bodies by `Content-Length` or chunked,
-  read when the handler asks for them.
+  read when the handler asks for them; `Request.multipart()` reads a
+  multipart/form-data body part by part (see the multipart section).
 - client: `ClientSession` over a pool of keep-alive connections
   (`TCPConnector`), `ClientTimeout` (total, connect / sock_connect,
   sock_read), and a response whose `content.iter_any()` yields the body as
   it arrives (`Content-Length`, chunked, or until the server closes).
+  `data=FormData(...)` sends a form, multipart when it carries a file.
 - errors under aiohttp's names and bases, so that `except
   (http.ClientError, asyncio.TimeoutError, OSError)` catches what it
   catches in the reference: a refused connect is a `ClientConnectorError`
@@ -576,13 +578,31 @@ class Request(collections.abc.MutableMapping):
             return "close" not in conn
         return "keep-alive" in conn
 
+    @property
+    def content_type(self) -> str:
+        """The body's media type, lower case and without parameters
+        (aiohttp's default when the header is absent)."""
+        raw = self.headers.get("Content-Type")
+        if not raw:
+            return "application/octet-stream"
+        return raw.split(";", 1)[0].strip().lower()
+
+    @property
+    def can_read_body(self) -> bool:
+        return self._body is None and self.body_exists
+
+    async def multipart(self) -> "MultipartReader":
+        return MultipartReader(self)
+
     async def read(self) -> bytes:
+        return await self._read_body(self.app._client_max_size)
+
+    async def _read_body(self, cap: int | None) -> bytes:
         if self._body is not None:
             return self._body
         if self._continue_pending:
             self._continue_pending = False
             self._conn.writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-        cap = self.app._client_max_size
         parts, size = [], 0
         try:
             while True:
@@ -1354,6 +1374,9 @@ class ClientSession:
     def post(self, url: str, **kw) -> _RequestContextManager:
         return self.request("POST", url, **kw)
 
+    def delete(self, url: str, **kw) -> _RequestContextManager:
+        return self.request("DELETE", url, **kw)
+
     async def _request(self, method: str, url: str, *, json=None, data=None,
                        headers=None, timeout=None, params=None,
                        allow_redirects: bool = True) -> ClientResponse:
@@ -1381,6 +1404,9 @@ class ClientSession:
         if json is not None:
             body = _json.dumps(json).encode("utf-8")
             hdrs.setdefault("Content-Type", "application/json")
+        elif isinstance(data, FormData):
+            body, ctype = data.encode()
+            hdrs.setdefault("Content-Type", ctype)
         elif data is not None:
             body = data.encode("utf-8") if isinstance(data, str) else bytes(data)
         host_hdr = split.hostname if split.port is None else \
@@ -1459,6 +1485,216 @@ class ClientSession:
 class _StaleConnection(Exception):
     """A pooled keep-alive connection the server had already closed: the
     request is sent again once on a fresh connection."""
+
+
+# ---------------------------------------------------------------- multipart
+#
+# multipart/form-data both ways, for the media routes: `Request.multipart()`
+# on the server, `FormData` for the client. The server side buffers the
+# whole body before it yields the first part (the media handlers buffer
+# every part anyway, to re-send them on failover); like aiohttp's
+# `multipart()` it is not capped by the application's client_max_size. A
+# body that ends before the closing delimiter, has no starting delimiter or
+# no boundary raises ValueError.
+
+
+def _header_params(value: str) -> tuple[str, dict[str, str]]:
+    """`main; k=v; k2="quoted; v"` → ("main", {k: v, k2: "quoted; v"})."""
+    items, cur, quoted, i = [], [], False, 0
+    while i < len(value):
+        c = value[i]
+        if quoted and c == "\\" and i + 1 < len(value):
+            cur.append(c + value[i + 1])
+            i += 2
+            continue
+        if c == '"':
+            quoted = not quoted
+        if c == ";" and not quoted:
+            items.append("".join(cur))
+            cur = []
+        else:
+            cur.append(c)
+        i += 1
+    items.append("".join(cur))
+    params = {}
+    for item in items[1:]:
+        k, sep, v = item.partition("=")
+        if not sep:
+            continue
+        v = v.strip()
+        if len(v) >= 2 and v[0] == v[-1] == '"':
+            v = re.sub(r"\\(.)", r"\1", v[1:-1])
+        params[k.strip().lower()] = v
+    return items[0].strip().lower(), params
+
+
+def _disposition_param(params: dict[str, str], key: str) -> str | None:
+    ext = params.get(key + "*")  # RFC 5987: charset'lang'percent-encoded
+    if ext is not None and ext.count("'") >= 2:
+        charset, _, rest = ext.partition("'")
+        try:
+            return urllib.parse.unquote(rest.partition("'")[2],
+                                        encoding=charset or "utf-8")
+        except LookupError:  # a charset Python does not know
+            raise ValueError(f"unknown charset {charset!r}") from None
+    return params.get(key)
+
+
+class BodyPartReader:
+    """One part of a form: `name`, `filename`, `headers`, `read()`."""
+
+    def __init__(self, headers: CIMultiDict, data: bytes):
+        self.headers = headers
+        self._data = data
+        _, params = _header_params(headers.get("Content-Disposition", ""))
+        self.name = _disposition_param(params, "name")
+        self.filename = _disposition_param(params, "filename")
+
+    async def read(self, *, decode: bool = False) -> bytearray:
+        """The part's bytes; `decode=True` undoes a base64 or
+        quoted-printable Content-Transfer-Encoding."""
+        data = self._data
+        if decode:
+            import base64
+            import binascii
+
+            cte = self.headers.get("Content-Transfer-Encoding", "").lower()
+            if cte == "base64":
+                data = base64.b64decode(b"".join(data.split()))
+            elif cte == "quoted-printable":
+                data = binascii.a2b_qp(data)
+            elif cte not in ("", "binary", "8bit", "7bit"):
+                raise RuntimeError(f"unknown content transfer encoding: {cte}")
+        return bytearray(data)
+
+
+def _parse_part_headers(raw: bytes) -> CIMultiDict:
+    headers = CIMultiDict()
+    for line in raw.split(b"\r\n"):
+        if not line:
+            continue
+        name, sep, value = line.partition(b":")
+        if not sep:
+            raise ValueError(f"malformed part header {line[:80]!r}")
+        headers.add(name.strip().decode("latin-1"),
+                    value.strip().decode("utf-8", errors="replace"))
+    return headers
+
+
+def parse_multipart(body: bytes, content_type: str) -> list[BodyPartReader]:
+    """Every part of a multipart body, in order."""
+    _, params = _header_params(content_type)
+    boundary = params.get("boundary")
+    if not boundary:
+        raise ValueError(f"boundary missed for Content-Type: {content_type}")
+    delim = b"--" + boundary.encode("latin-1")
+    if body.startswith(delim):
+        pos = len(delim)
+    else:
+        at = body.find(b"\r\n" + delim)
+        if at < 0:
+            raise ValueError(f"Could not find starting boundary {delim!r}")
+        pos = at + 2 + len(delim)
+    parts = []
+    while True:
+        if body.startswith(b"--", pos):
+            return parts
+        eol = body.find(b"\r\n", pos)
+        if eol < 0 or body[pos:eol].strip(b" \t"):
+            raise ValueError("Reading after EOF")
+        start = eol + 2
+        end = body.find(b"\r\n" + delim, start)
+        if end < 0:
+            raise ValueError("Reading after EOF")
+        chunk = body[start:end]
+        if chunk.startswith(b"\r\n"):  # no headers
+            headers, data = CIMultiDict(), chunk[2:]
+        else:
+            head, sep, data = chunk.partition(b"\r\n\r\n")
+            if not sep:
+                raise ValueError("malformed part: no blank line after "
+                                 "its headers")
+            headers = _parse_part_headers(head)
+        parts.append(BodyPartReader(headers, data))
+        pos = end + 2 + len(delim)
+
+
+class MultipartReader:
+    """`async for part in await request.multipart()`, as in aiohttp."""
+
+    def __init__(self, request: "Request"):
+        self._request = request
+        self._parts: list[BodyPartReader] | None = None
+
+    async def next(self) -> BodyPartReader | None:
+        if self._parts is None:
+            try:
+                body = await self._request._read_body(None)
+            except HTTPBadRequest as e:  # the body ended before its length
+                raise ValueError(e.text) from None
+            self._parts = parse_multipart(
+                body, self._request.headers.get("Content-Type", ""))
+        return self._parts.pop(0) if self._parts else None
+
+    def __aiter__(self) -> "MultipartReader":
+        return self
+
+    async def __anext__(self) -> BodyPartReader:
+        part = await self.next()
+        if part is None:
+            raise StopAsyncIteration
+        return part
+
+
+def _quote_param(value: str) -> str:
+    return (value.replace("\\", "%5C").replace('"', "%22")
+            .replace("\r", "%0D").replace("\n", "%0A"))
+
+
+class FormData:
+    """aiohttp's FormData: fields in order, sent as multipart/form-data when
+    any carries a file name, a content type or bytes (bytes without a file
+    name take the field's name as one, as aiohttp 3 does), else as
+    application/x-www-form-urlencoded."""
+
+    def __init__(self):
+        self._fields: list[tuple[str, object, str | None, str | None]] = []
+        self.is_multipart = False
+
+    def add_field(self, name: str, value, *, content_type: str | None = None,
+                  filename: str | None = None) -> None:
+        if isinstance(value, (bytes, bytearray, memoryview)) and \
+                filename is None:
+            filename = name
+        if filename is not None or content_type is not None:
+            self.is_multipart = True
+        self._fields.append((name, value, filename, content_type))
+
+    def encode(self) -> tuple[bytes, str]:
+        """(body, Content-Type)."""
+        if not self.is_multipart:
+            body = urllib.parse.urlencode(
+                [(n, v) for n, v, _, _ in self._fields], doseq=True)
+            return body.encode(), "application/x-www-form-urlencoded"
+        import uuid
+
+        boundary = uuid.uuid4().hex
+        out = []
+        for name, value, filename, ctype in self._fields:
+            if isinstance(value, str):
+                data = value.encode("utf-8")
+                ctype = ctype or "text/plain; charset=utf-8"
+            else:
+                data = bytes(value)
+                ctype = ctype or "application/octet-stream"
+            disp = f'form-data; name="{_quote_param(name)}"'
+            if filename is not None:
+                disp += f'; filename="{_quote_param(filename)}"'
+            out.append(f"--{boundary}\r\nContent-Type: {ctype}\r\n"
+                       f"Content-Disposition: {disp}\r\n\r\n"
+                       .encode("utf-8") + data + b"\r\n")
+        out.append(f"--{boundary}--\r\n".encode())
+        return b"".join(out), f"multipart/form-data; boundary={boundary}"
 
 
 web = sys.modules[__name__]

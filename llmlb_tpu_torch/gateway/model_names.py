@@ -86,6 +86,31 @@ for canonical, aliases in _KNOWN.items():
     for alias in aliases.values():
         _ALIAS_TO_CANONICAL[alias.lower()] = canonical
 
+# family token -> HF org, for repo guessing on unknown names
+# (same job as the reference's HF-repo guess tables, models/mapping.rs)
+_FAMILY_ORGS = [
+    ("llama", "meta-llama"),
+    ("tinyllama", "TinyLlama"),
+    ("mixtral", "mistralai"),
+    ("mistral", "mistralai"),
+    ("qwen", "Qwen"),
+    ("gemma", "google"),
+    ("phi", "microsoft"),
+    ("deepseek", "deepseek-ai"),
+    ("whisper", "openai"),
+    ("gpt-oss", "openai"),
+    ("stable-diffusion", "stabilityai"),
+    ("sdxl", "stabilityai"),
+    ("bge", "BAAI"),
+    ("nomic-embed", "nomic-ai"),
+]
+
+_ALIAS_TO_CANONICAL: dict[str, str] = {}
+for canonical, aliases in _KNOWN.items():
+    _ALIAS_TO_CANONICAL[canonical.lower()] = canonical
+    for alias in aliases.values():
+        _ALIAS_TO_CANONICAL[alias.lower()] = canonical
+
 _QUANT_SUFFIX = re.compile(
     r"[-_.](q[2-8](_[a-z0-9_]+)?|fp16|f16|bf16|int[48]|awq|gptq|gguf)$", re.I
 )
@@ -118,3 +143,17 @@ def to_engine_name(canonical: str, endpoint_type: str) -> str:
     if aliases and endpoint_type in aliases:
         return aliases[endpoint_type]
     return canonical
+
+
+def guess_hf_repo(name: str) -> str | None:
+    """Best-effort HF repo id for a bare model name: exact/alias table first,
+    then family→org heuristics (catalog + download-flow helper)."""
+    canonical = to_canonical(name)
+    if "/" in canonical:
+        return canonical
+    lowered = strip_quant_suffix(canonical.lower().removesuffix(".gguf"))
+    for token, org in _FAMILY_ORGS:
+        if lowered.startswith(token) or f"-{token}" in lowered:
+            bare = lowered.replace(":", "-")
+            return f"{org}/{bare}"
+    return None

@@ -73,7 +73,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "gateway.metrics", "gateway.replay", "gateway.gate",
                  "gateway.ratelimit", "gateway.api_openai",
                  "gateway.api_admin", "gateway.app_state", "gateway.app",
-                 "gateway.server"):
+                 "gateway.server", "gateway.api_anthropic",
+                 "gateway.api_media", "gateway.api_cloud",
+                 "gateway.api_models", "gateway.audit",
+                 "gateway.system_info"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -91,8 +94,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
     """`python -m llmlb_tpu_torch.gateway.server serve` with aiohttp,
     argon2, jax and llmlb_tpu made unimportable (as on the card's machine)
-    starts, answers /health, stops on SIGTERM, and never loads torch or
-    tiktoken (whose first use fetches a BPE file over the network)."""
+    starts, answers /health, logs in and verifies its audit chain (the
+    audit middleware recorded both requests), stops on SIGTERM, and never
+    loads torch or tiktoken (whose first use fetches a BPE file over the
+    network)."""
     import os
     import signal
     import urllib.request
@@ -125,9 +130,28 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
                 port = int(line.rsplit(":", 1)[1])
                 break
         assert port, proc.stderr.read() if proc.poll() is not None else ""
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
-                                    timeout=30) as r:
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
             assert json.loads(r.read()) == {"status": "ok"}
+
+        def post(path, body, headers=None):
+            req = urllib.request.Request(
+                base + path, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json",
+                         **(headers or {})})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())
+
+        token = post("/api/auth/login", {"username": "admin",
+                                         "password": "adminpass1"})["token"]
+        admin = {"Authorization": f"Bearer {token}"}
+        assert post("/api/audit-log/verify", {}, admin) == {
+            "ok": True, "error": None}
+        req = urllib.request.Request(base + "/api/audit-log", headers=admin)
+        with urllib.request.urlopen(req, timeout=30) as r:
+            paths = [e["path"] for e in json.loads(r.read())["entries"]]
+        # newest first; verify flushed the two before it
+        assert paths[-2:] == ["/api/auth/login", "/health"]
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=60)
     finally:
