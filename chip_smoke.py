@@ -134,7 +134,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
              an invitation registers a user; the second registration is
              renamed and deleted; the audit log's chain verifies; the
              TTFT of 1-token streams through the gateway (the audit
-             middleware on its path) against direct (median of 5).
+             middleware on its path) against direct (median of 5). The
+             dashboard, all through that gateway: /ws/dashboard, opened
+             with the admin JWT before the first registration by a
+             standard-library client of this script (its
+             Sec-WebSocket-Accept checked, a masked close at the end),
+             carries both EndpointRegistered, the EndpointRemoved, a
+             TelemetryUpdated with the card's memory, MetricsUpdated,
+             TpsUpdated and one TraceCompleted for each /v1/* request the
+             gateway counted; a TPS benchmark (POST /api/benchmarks/tps,
+             16 requests of 32 tokens at concurrency 4) completes with 16
+             successes on the registration, launching flash_prefill and
+             paged_flash_decode; /api/dashboard/overview counts the
+             requests and the one online endpoint, model-tps has the
+             chat key, /dashboard and its assets are the port's bytes,
+             /api/dashboard/logs/lb tails the gateway's own log (its
+             LLMLB_LOG_DIR in the block's data directory), and /metrics
+             shows no dropped event.
              Then speculative decoding, per request, on the same core and
              counted with the main path: 1 row, then 8, of 64 greedy ids
              with speculation off, on (the prompt-lookup drafter), under a
@@ -3580,6 +3596,7 @@ def _start_gateway(data_dir: str, faults: list[dict],
     root = Path(llmlb_tpu_torch.__file__).resolve().parents[1]
     log_path = Path(data_dir) / "gateway.log"
     env = {**os.environ, "LLMLB_DATA_DIR": data_dir,
+           "LLMLB_LOG_DIR": os.path.join(data_dir, "logs"),
            "LLMLB_ADMIN_PASSWORD": GATEWAY_PASSWORD,
            "LLMLB_FAULTS": json.dumps(faults), **(env or {})}
     with open(log_path, "w") as out:
@@ -3743,6 +3760,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
                "path": "/v1/chat", "after_bytes": msg_bytes // 2,
                "every_n": 2, "max_fires": 1}]
     mock = _CloudMock()
+    feed = None
     with tempfile.TemporaryDirectory(prefix="llmlb-gw-") as data_dir:
         proc, gw = _start_gateway(data_dir, faults, mock.env())
         try:
@@ -3753,6 +3771,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
             key = _gw_json(gw + "/api/api-keys", {"name": "smoke"},
                            admin)["api_key"]
             inf = {"Authorization": f"Bearer {key}"}
+            feed = _WsClient(gw, "/ws/dashboard", token)
             ep = _gw_json(gw + "/api/endpoints", {
                 "base_url": base, "name": "serve-bf16"}, admin)
             models = [m["model_id"] for m in ep.get("models") or []]
@@ -3855,7 +3874,10 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
                 direct_t.append(_ttft_1(base, f"TTFT probe {i}a: say hi."))
                 via_t.append(_ttft_1(gw, f"TTFT probe {i}b: say hi.", inf))
             health = _gw_json(gw + "/api/health")
+            dash = _dashboard_block(gw, admin, feed, ep["id"], dev)
         finally:
+            if feed is not None:
+                feed.close()
             proc.terminate()
             code = proc.wait(timeout=60)
             mock.close()
@@ -3873,7 +3895,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
              "ttft_direct_all_ms": [t * 1e3 for t in direct_t],
              "ttft_gateway_all_ms": [t * 1e3 for t in via_t],
              "launches": launches, "messages_launches": msg_launches,
-             "admin_s": admin_s,
+             "admin_s": admin_s, "dashboard": dash,
              "breakers": {e["name"]: e["breaker"]["state"]
                           for e in health["endpoints"]}}
     log(f"serve bf16 [{dev['smi']}]: gateway: registered as tpu with "
@@ -3892,6 +3914,234 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
         f"{[round(t, 2) for t in stats['ttft_direct_all_ms']]}); gateway up "
         f"in {start_s:.2f} s; the block {time.perf_counter() - t0:.1f} s")
     return stats
+
+
+class _WsClient:
+    """A WebSocket client on the standard library alone (not the port's
+    gateway/http.py, so that it checks that server independently): the
+    RFC 6455 handshake with its Sec-WebSocket-Accept checked, a thread
+    reading server frames (text events kept in order, pings answered with
+    masked pongs), and a masked close frame at the end."""
+
+    GUID = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+    def __init__(self, base: str, path: str, token: str):
+        import base64
+        import hashlib
+        import os
+        import socket
+
+        host, port = base.split("://", 1)[1].rsplit(":", 1)
+        self.sock = socket.create_connection((host, int(port)), timeout=60)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+            f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+            f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+            f"Authorization: Bearer {token}\r\n\r\n".encode())
+        self.buf = b""
+        while b"\r\n\r\n" not in self.buf:
+            chunk = self.sock.recv(4096)
+            if not chunk:
+                raise AssertionError(f"/ws: closed in the handshake "
+                                     f"{self.buf!r}")
+            self.buf += chunk
+        head, self.buf = self.buf.split(b"\r\n\r\n", 1)
+        lines = head.decode("latin-1").split("\r\n")
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (ln.partition(":") for ln in lines[1:])}
+        want = base64.b64encode(hashlib.sha1(
+            key.encode() + self.GUID).digest()).decode()
+        if not lines[0].startswith("HTTP/1.1 101") or \
+                headers.get("sec-websocket-accept") != want or \
+                headers.get("upgrade", "").lower() != "websocket":
+            raise AssertionError(f"/ws handshake: {lines}")
+        self.events: list[dict] = []
+        self.close_code: int | None = None
+        self.pings = 0
+        self.lock = threading.Lock()
+        self.thread = threading.Thread(target=self._pump, daemon=True)
+        self.thread.start()
+
+    def _exact(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise EOFError
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def _send(self, opcode: int, payload: bytes) -> None:
+        import os
+        import struct
+
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x80 | opcode]) + (
+            bytes([0x80 | n]) if n < 126 else
+            bytes([0x80 | 126]) + struct.pack("!H", n))
+        body = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+        with self.lock:
+            self.sock.sendall(head + mask + body)
+
+    def _pump(self) -> None:
+        import struct
+
+        parts: list[bytes] = []
+        try:
+            while True:
+                b0, b1 = self._exact(2)
+                if b1 & 0x80:
+                    raise AssertionError("/ws: a masked server frame")
+                n = b1 & 0x7F
+                if n == 126:
+                    n = struct.unpack("!H", self._exact(2))[0]
+                elif n == 127:
+                    n = struct.unpack("!Q", self._exact(8))[0]
+                payload, opcode = self._exact(n), b0 & 0x0F
+                if opcode == 0x9:
+                    self.pings += 1
+                    self._send(0xA, payload)
+                elif opcode == 0x8:
+                    self.close_code = struct.unpack("!H", payload[:2])[0] \
+                        if len(payload) >= 2 else 1005
+                    return
+                elif opcode in (0x0, 0x1):
+                    parts.append(payload)
+                    if b0 & 0x80:
+                        self.events.append(json.loads(b"".join(parts)))
+                        parts = []
+        except (EOFError, OSError):
+            return
+
+    def wait_for(self, done, timeout: float = 15.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not done(list(self.events)) and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+    def close(self) -> int | None:
+        """A masked close with 1000; the server's close code back."""
+        import struct
+
+        try:
+            self._send(0x8, struct.pack("!H", 1000))
+        except OSError:
+            pass
+        self.thread.join(timeout=15)
+        self.sock.close()
+        return self.close_code
+
+
+def _dashboard_block(gw: str, admin: dict, feed: "_WsClient",
+                     endpoint_id: str, dev: dict) -> dict:
+    """The dashboard and the TPS benchmark through the gateway, after the
+    block's traffic; the socket's events checked last. Returns its
+    figures."""
+    import llmlb_tpu_torch
+
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    t0 = time.perf_counter()
+    before = dict(ca.LAUNCHES)
+    status, run = _gw_call("POST", gw + "/api/benchmarks/tps", {
+        "model": "llama-3-8b", "requests": 16, "concurrency": 4,
+        "max_tokens": 32}, admin)
+    if status != 202:
+        raise AssertionError(f"benchmark start: {status} {run}")
+    deadline = time.monotonic() + 120
+    while run.get("status") != "completed" and time.monotonic() < deadline:
+        time.sleep(0.1)
+        run = _gw_call("GET", gw + f"/api/benchmarks/tps/{run['run_id']}",
+                       headers=admin)[1]
+    bench_s = time.perf_counter() - t0
+    launches = {k: ca.LAUNCHES[k] - before.get(k, 0) for k in BF16_PATH}
+    per = run.get("per_endpoint") or {}
+    if (run.get("status"), run.get("succeeded"), run.get("failed"),
+            list(per), per.get(endpoint_id, {}).get("requests")) != (
+            "completed", 16, 0, [endpoint_id], 16):
+        raise AssertionError(f"the TPS benchmark: {run}")
+    if not launches["flash_prefill"] or not launches["paged_flash_decode"]:
+        raise AssertionError(f"the TPS benchmark launched {launches}")
+    log(f"serve bf16 [{dev['smi']}]: gateway TPS benchmark (16 requests x "
+        f"32 tokens, concurrency 4, temperature 0.7): "
+        f"{run['throughput_rps']} req/s, latency p50 "
+        f"{run['latency_ms']['p50']} p90 {run['latency_ms']['p90']} p99 "
+        f"{run['latency_ms']['p99']} ms, mean_tps "
+        f"{per[endpoint_id]['mean_tps']} tok/s a request, "
+        f"{run['duration_s']} s; launches {launches}")
+
+    # the dashboard's data routes, its SPA and its log tail
+    overview = _gw_call("GET", gw + "/api/dashboard/overview",
+                        headers=admin)[1]
+    tps = _gw_call("GET", gw + "/api/dashboard/model-tps", headers=admin)[1]
+    tail = _gw_call("GET", gw + "/api/dashboard/logs/lb?lines=2000",
+                    headers=admin)[1]
+    with urllib.request.urlopen(gw + "/metrics", timeout=60) as r:
+        metrics = r.read().decode()
+    v1_requests = sum(
+        int(float(ln.rsplit(" ", 1)[1])) for ln in metrics.splitlines()
+        if ln.startswith('llmlb_gateway_requests_total{route="/v1/'))
+    static = Path(llmlb_tpu_torch.__file__).parent / "gateway" / \
+        "dashboard_static"
+    for name in ("", "/index.html", "/app.js", "/views.js", "/charts.js",
+                 "/style.css"):
+        with urllib.request.urlopen(gw + "/dashboard" + name,
+                                    timeout=60) as r:
+            body = r.read()
+        want = (static / (name.lstrip("/") or "index.html")).read_bytes()
+        if r.status != 200 or body != want:
+            raise AssertionError(f"/dashboard{name}: {r.status}, "
+                                 f"{len(body)} bytes against {len(want)}")
+    if overview["endpoints"] != {"total": 1, "online": 1} or \
+            overview["requests"]["today"] < 12:
+        raise AssertionError(f"dashboard overview: {overview}")
+    if not any(k.endswith(":llama-3-8b:chat") for k in tps["tps"]):
+        raise AssertionError(f"dashboard model-tps: {tps}")
+    if not tail["available"] or "/logs/" not in tail["path"] or not any(
+            "gateway listening on 127.0.0.1:" in ln for ln in tail["lines"]):
+        raise AssertionError(f"dashboard log tail: {tail['path']}, "
+                             f"{len(tail['lines'])} lines")
+    if "llmlb_gateway_dropped_events_total 0\n" not in metrics:
+        raise AssertionError("dropped events: " + " ".join(
+            ln for ln in metrics.splitlines() if "dropped_events" in ln))
+
+    # the socket: every event the block's actions published
+    def traces(evs):
+        return [e for e in evs if e["type"] == "TraceCompleted"
+                and e["data"]["path"].startswith("/v1/")]
+
+    feed.wait_for(lambda evs: len(traces(evs)) >= v1_requests)
+    code = feed.close()
+    evs = feed.events
+    kinds = [e["type"] for e in evs]
+    card = [e["data"]["tpu"] for e in evs if e["type"] == "TelemetryUpdated"
+            and e["data"]["tpu"].get("hbm_total_bytes", 0) > 0]
+    counts = {k: kinds.count(k) for k in sorted(set(kinds))}
+    if (kinds.count("EndpointRegistered"), kinds.count("EndpointRemoved"),
+            len(traces(evs)), code) != (2, 1, v1_requests, 1000) or \
+            not card or not counts.get("MetricsUpdated") or \
+            not counts.get("TpsUpdated"):
+        raise AssertionError(f"/ws/dashboard events {counts}, /v1 traces "
+                             f"{len(traces(evs))} of {v1_requests}, close "
+                             f"{code}")
+    log(f"serve bf16 [{dev['smi']}]: gateway dashboard: /ws/dashboard "
+        f"carried {counts} ({len(traces(evs))} TraceCompleted for the "
+        f"{v1_requests} /v1 requests the gateway counted; telemetry "
+        f"{card[-1]['hbm_used_bytes']} of {card[-1]['hbm_total_bytes']} "
+        f"bytes, {card[-1]['accelerator']}), closed with {code}; overview "
+        f"{overview['requests']['today']} requests today on "
+        f"{overview['endpoints']['online']} online endpoint; /dashboard and "
+        f"its 5 files the port's bytes; the log tail {len(tail['lines'])} "
+        f"lines of {tail['path']}; dropped events 0; the dashboard block "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"bench_s": round(bench_s, 3), "launches": launches,
+            "throughput_rps": run["throughput_rps"],
+            "latency_ms": run["latency_ms"],
+            "mean_tps": per[endpoint_id]["mean_tps"],
+            "duration_s": run["duration_s"], "events": counts,
+            "v1_requests": v1_requests,
+            "seconds": round(time.perf_counter() - t0, 3)}
 
 
 def _admin_block(gw: str, admin: dict, inf: dict, second_id: str,

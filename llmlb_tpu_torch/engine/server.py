@@ -1575,8 +1575,12 @@ def core_kwargs_from(args: argparse.Namespace) -> dict:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # the gateway's logging subsystem (level, format and the worker field
+    # from the environment), without its file sink: an engine's stderr is
+    # kept by whatever supervises it
+    from llmlb_tpu_torch.gateway.logging_setup import init_logging
+
+    init_logging(file_sink=False)
     core_kwargs = core_kwargs_from(args)
     if not args.device.startswith("cpu"):
         # before the first in-process CUDA call: a card that does not come

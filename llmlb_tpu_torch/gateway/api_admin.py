@@ -4,8 +4,8 @@ audit queries + settings + system info.
 The port's copy of llmlb_tpu/gateway/api_admin.py, handler for handler, less
 the tray's two handlers (the tray is not ported). `system_info` answers
 `"update": null`: the update manager is not ported either. Endpoint
-registration, update and delete publish no dashboard events (the event bus
-comes with the dashboard).
+registration and delete publish `EndpointRegistered` and `EndpointRemoved`
+on the dashboard's event bus, as the reference's.
 """
 
 from __future__ import annotations
@@ -158,6 +158,9 @@ async def create_endpoint(request: web.Request) -> web.Response:
         state.registry.add(ep)
     except ValueError as e:
         return _json_error(409, str(e))
+    state.events.publish(
+        "EndpointRegistered", {"endpoint_id": ep.id, "name": ep.name}
+    )
     # immediate first health check + model sync (registration UX parity)
     if state.health_checker is not None:
         await state.health_checker.check_endpoint(ep)
@@ -202,6 +205,7 @@ async def delete_endpoint(request: web.Request) -> web.Response:
     if state.resilience is not None:
         state.resilience.forget(endpoint_id,
                                 endpoint_name=ep.name if ep else None)
+    state.events.publish("EndpointRemoved", {"endpoint_id": endpoint_id})
     return web.json_response({"deleted": endpoint_id})
 
 
@@ -522,15 +526,6 @@ async def verify_audit_chain(request: web.Request) -> web.Response:
 # ----------------------------------------------------------------- settings
 
 
-def parse_ip_alert_threshold(value: str) -> int:
-    """Integer >= 1, or ValueError (the dashboard's validator,
-    llmlb_tpu/gateway/api_dashboard.py)."""
-    parsed = int(value)  # raises ValueError on non-integers
-    if parsed < 1:
-        raise ValueError("ip_alert_threshold must be an integer >= 1")
-    return parsed
-
-
 async def get_settings(request: web.Request) -> web.Response:
     state = request.app["state"]
     settings = {
@@ -550,6 +545,8 @@ async def update_setting(request: web.Request) -> web.Response:
     if key.startswith("auth."):
         return _json_error(400, "auth.* settings are not writable via API")
     if key == "ip_alert_threshold":
+        from llmlb_tpu_torch.gateway.api_dashboard import parse_ip_alert_threshold
+
         try:
             parse_ip_alert_threshold(value)
         except ValueError:

@@ -935,6 +935,7 @@ async def proxy_openai_post(
             state.metrics.record_slo(canonical,
                                      time.monotonic() - started, None,
                                      priority=prio)
+        state.events.publish("MetricsUpdated", {"endpoint_id": endpoint.id})
         return web.Response(
             body=raw, status=200,
             content_type="application/json",
@@ -1428,6 +1429,11 @@ async def _forward_stream(
         if ct > 0:
             state.load_manager.update_tps(
                 endpoint.id, model, api_kind, ct, duration_s
+            )
+            state.events.publish(
+                "TpsUpdated",
+                {"endpoint_id": endpoint.id, "model": model,
+                 "tps": round(ct / duration_s, 2) if duration_s > 0 else None},
             )
         _record(state, endpoint=endpoint, model=model, api_kind=api_kind,
                 path=path, status=status, started=started, prompt_tokens=pt,

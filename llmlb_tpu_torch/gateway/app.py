@@ -5,17 +5,19 @@ The port's counterpart of llmlb_tpu/gateway/app.py: the OpenAI surface
 `openai:` / `google:` / `anthropic:` cloud prefixes), the Anthropic
 /v1/messages, auth with users and invitations, endpoints admin, API keys,
 the model registry and HF catalog, per-endpoint model management and the
-playground proxy, the audit log, settings, system info, cloud metrics,
-request traces, /health, /api/health and /metrics, behind the reference's
+playground proxy, the audit log, settings, system info, the dashboard's
+data routes, its WebSocket (/ws/dashboard) and its static SPA (/dashboard,
+the port's copy of the bundle), the TPS benchmarks, cloud metrics, request
+traces, /health, /api/health and /metrics, behind the reference's
 middlewares in its order: tracing (outermost) → audit → inference gate →
-CSRF → auth (JWT / API key / x-api-key) → handler. The reference's
-dashboard (its data routes, WebSocket and static bundle), benchmarks, tray
-and update routes come with the slices that port them.
+CSRF → auth (JWT / API key / x-api-key) → handler. The reference's tray
+and update routes come with the slice that ports them.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 from llmlb_tpu_torch.gateway.http import web
@@ -23,7 +25,9 @@ from llmlb_tpu_torch.gateway.http import web
 from llmlb_tpu_torch.gateway import (
     api_admin,
     api_anthropic,
+    api_benchmarks,
     api_cloud,
+    api_dashboard,
     api_media,
     api_models,
     api_openai,
@@ -259,7 +263,11 @@ async def auth_middleware(request: web.Request, handler):
     state: AppState = request.app["state"]
     method, path = request.method, request.path
 
-    if method == "OPTIONS" or (method, path) in PUBLIC_PATHS:
+    if method == "OPTIONS" or (method, path) in PUBLIC_PATHS or path.startswith(
+        "/dashboard"
+    ):
+        return await handler(request)
+    if path == "/ws/dashboard":  # WS does its own token auth (query/cookie)
         return await handler(request)
 
     # ---- credential extraction
@@ -454,7 +462,30 @@ def create_app(state: AppState) -> web.Application:
     r.add_put("/api/dashboard/settings", api_admin.update_setting)
     r.add_get("/api/system", api_admin.system_info)
 
-    # ---- cloud metrics
+    # ---- dashboard data + WS
+    r.add_get("/api/dashboard/overview", api_dashboard.overview)
+    r.add_get(
+        "/api/dashboard/request-history", api_dashboard.request_history_minutes
+    )
+    r.add_get("/api/dashboard/requests", api_dashboard.request_records)
+    r.add_get(
+        "/api/dashboard/requests/{record_id}",
+        api_dashboard.request_record_detail,
+    )
+    r.add_get("/api/dashboard/token-stats", api_dashboard.token_stats)
+    r.add_get(
+        "/api/dashboard/endpoints/{endpoint_id}/stats",
+        api_dashboard.endpoint_stats,
+    )
+    r.add_get("/api/dashboard/model-tps", api_dashboard.model_tps)
+    r.add_get("/api/dashboard/clients", api_dashboard.client_analytics)
+    r.add_get("/api/dashboard/logs/lb", api_dashboard.tail_lb_logs)
+    r.add_get("/ws/dashboard", api_dashboard.dashboard_ws)
+
+    # ---- benchmarks + cloud metrics
+    r.add_post("/api/benchmarks/tps", api_benchmarks.start_tps_benchmark)
+    r.add_get("/api/benchmarks/tps", api_benchmarks.list_tps_benchmarks)
+    r.add_get("/api/benchmarks/tps/{run_id}", api_benchmarks.get_tps_benchmark)
     r.add_get("/api/metrics/cloud", api_cloud.cloud_metrics_handler)
 
     # ---- observability: request traces + gateway-wide Prometheus metrics
@@ -466,6 +497,13 @@ def create_app(state: AppState) -> web.Application:
     r.add_get("/health", _health)
     r.add_get("/api/health", _api_health)
     r.add_get("/", _root)
+
+    # ---- dashboard SPA (static bundle, embedded in the reference binary)
+    static_dir = os.path.join(os.path.dirname(__file__), "dashboard_static")
+    if os.path.isdir(static_dir):
+        r.add_get("/dashboard", _dashboard_index)
+        r.add_get("/dashboard/{tail:.*}", _dashboard_asset)
+        app["dashboard_static"] = static_dir
 
     async def on_shutdown(app):
         await state.close()
@@ -545,7 +583,8 @@ async def _api_health(request: web.Request) -> web.Response:
 async def _gateway_metrics(request: web.Request) -> web.Response:
     """GET /metrics — gateway-wide Prometheus exposition: per-model/endpoint
     TTFT, e2e, and queue-wait histograms, per-route counters, plus
-    scrape-time gauges owned by the balancer and admission queue."""
+    scrape-time gauges owned by the balancer, admission queue and event
+    bus."""
     state: AppState = request.app["state"]
     return web.Response(text=gateway_exposition(state),
                         content_type="text/plain", charset="utf-8")
@@ -555,5 +594,23 @@ async def _root(request: web.Request) -> web.Response:
     return web.json_response({
         "name": "llmlb_tpu",
         "endpoints": ["/v1/chat/completions", "/v1/responses", "/v1/models",
-                      "/v1/messages", "/api/endpoints"],
+                      "/v1/messages", "/api/endpoints", "/dashboard"],
     })
+
+
+async def _dashboard_index(request: web.Request) -> web.FileResponse:
+    return web.FileResponse(
+        os.path.join(request.app["dashboard_static"], "index.html")
+    )
+
+
+async def _dashboard_asset(request: web.Request) -> web.StreamResponse:
+    static_dir = os.path.abspath(request.app["dashboard_static"])
+    tail = request.match_info["tail"] or "index.html"
+    full = os.path.normpath(os.path.join(static_dir, tail))
+    # containment by path components: a sibling directory whose name
+    # starts with the bundle's would pass a string-prefix check
+    if os.path.commonpath([full, static_dir]) != static_dir or \
+            not os.path.isfile(full):
+        return await _dashboard_index(request)  # SPA fallback
+    return web.FileResponse(full)

@@ -3,10 +3,12 @@
 The port's counterpart of llmlb_tpu/gateway/app_state.py at one worker: DB +
 schema, registry cache load, LoadManager seeding from daily stats, the shared
 HTTP client (gateway/http.py), admin bootstrap, JWT secret provisioning,
-the audit log (its chain verified at start and hourly), breakers and retry
-budget, rate limits, health checker, history retention. The reference's
-dashboard event bus, gossip bus, metrics spool, rebalancer, update manager
-and tray come with the slices that port them.
+the dashboard event bus (handed to the trace store, the breakers and the
+health checker, as the reference's), the audit log (its chain verified at
+start and hourly), breakers and retry budget, rate limits, health checker,
+history retention. The reference's gossip bus and metrics spool (multi-worker
+serving), rebalancer, update manager and tray come with the slices that
+port them.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from llmlb_tpu_torch.gateway.config import (
     wfq_weights_from_env,
 )
 from llmlb_tpu_torch.gateway.db import Database
+from llmlb_tpu_torch.gateway.events import DashboardEventBus
 from llmlb_tpu_torch.gateway.faults import FaultInjector
 from llmlb_tpu_torch.gateway.gate import InferenceGate
 from llmlb_tpu_torch.gateway.health import EndpointHealthChecker
@@ -180,6 +183,7 @@ class AppState:
     registry: EndpointRegistry
     load_manager: LoadManager
     admission: AdmissionQueue
+    events: DashboardEventBus
     gate: InferenceGate
     audit: AuditLog
     users: UserStore
@@ -236,13 +240,15 @@ async def build_app_state(
     # historical pure-FIFO order.
     admission.wfq_enabled = env_bool("LLMLB_WFQ", True)
     admission.weights = wfq_weights_from_env()
+    events = DashboardEventBus()
     gate = InferenceGate()
     audit = AuditLog(db)
     # SLO targets ride inside the metrics registry: every proxy path that
     # finishes a successful request judges it there (record_slo)
     metrics = GatewayMetrics(slo=SloConfig.from_env())
     admission.metrics = metrics  # admission-retry counter (balancer.py)
-    traces = TraceStore(capacity=env_int("LLMLB_TRACE_BUFFER", 256))
+    traces = TraceStore(capacity=env_int("LLMLB_TRACE_BUFFER", 256),
+                        events=events)
 
     users = UserStore(db)
     api_keys = ApiKeyStore(db, cache_ttl_s=env_float(
@@ -285,7 +291,8 @@ async def build_app_state(
     # fault injector is None unless LLMLB_FAULTS configures rules (or a
     # chaos test installs them) — zero hot-path cost otherwise.
     resilience = ResilienceManager(
-        ResilienceConfig.from_env(), metrics=metrics, registry=registry,
+        ResilienceConfig.from_env(), metrics=metrics, events=events,
+        registry=registry,
     )
     load_manager.resilience = resilience
     faults = FaultInjector.from_env()
@@ -300,7 +307,8 @@ async def build_app_state(
 
     state = AppState(
         config=config, db=db, registry=registry, load_manager=load_manager,
-        admission=admission, gate=gate, audit=audit, users=users,
+        admission=admission, events=events, gate=gate, audit=audit,
+        users=users,
         api_keys=api_keys, invitations=invitations, jwt_secret=jwt_secret,
         http=client, metrics=metrics, traces=traces,
         resilience=resilience, faults=faults, ratelimit=ratelimit,
@@ -313,7 +321,7 @@ async def build_app_state(
         audit.start()
         history.start()
         checker = EndpointHealthChecker(
-            registry, load_manager, db, client,
+            registry, load_manager, db, client, events,
             interval_s=config.health_check_interval_s,
             timeout_s=config.health_check_timeout_s,
             resilience=resilience,
@@ -352,9 +360,12 @@ def _seed_tps_from_daily_stats(state: AppState) -> None:
 
 def gateway_exposition(state: AppState) -> str:
     """The gateway's full Prometheus text exposition: GatewayMetrics series
-    plus scrape-time figures owned by the balancer and admission queue."""
+    plus scrape-time figures owned by the balancer, admission queue and
+    event bus."""
     affinity = state.load_manager.affinity_stats()
     counters = {
+        "llmlb_gateway_dropped_events_total":
+            state.events.dropped_events_total(),
         "llmlb_gateway_prefix_affinity_hits_total": affinity["hits_total"],
         "llmlb_gateway_prefix_affinity_misses_total":
             affinity["misses_total"],

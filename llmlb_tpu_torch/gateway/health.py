@@ -10,8 +10,9 @@ TPU extension: tpu/xllm endpoints are probed at /api/health and their chip/HBM
 telemetry flows into the registry (the reference read GPU fields, :515). The
 port reads the same fields from the port's engine (`/api/health`'s `gpu`
 block, with its `engine`, `disagg`, `draining` and `lora` blocks).
-The port's copy of llmlb_tpu/gateway/health.py, less its dashboard events
-and gossip pushes (they come with the dashboard and multi-worker slices).
+The port's copy of llmlb_tpu/gateway/health.py, with its dashboard events
+(`EndpointStatusChanged`, `TelemetryUpdated`), less its gossip pushes
+(they come with multi-worker serving).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from llmlb_tpu_torch.gateway import http
 from llmlb_tpu_torch.gateway.balancer import LoadManager
 from llmlb_tpu_torch.gateway.db import Database
 from llmlb_tpu_torch.gateway.detection import detect_endpoint_type
+from llmlb_tpu_torch.gateway.events import DashboardEventBus
 from llmlb_tpu_torch.gateway.model_sync import sync_endpoint_models
 from llmlb_tpu_torch.gateway.registry import EndpointRegistry
 from llmlb_tpu_torch.gateway.types import (
@@ -109,6 +111,7 @@ class EndpointHealthChecker:
         load_manager: LoadManager,
         db: Database,
         session: http.ClientSession,
+        events: DashboardEventBus | None = None,
         interval_s: float = 30.0,
         timeout_s: float = 5.0,
         resilience=None,
@@ -117,6 +120,7 @@ class EndpointHealthChecker:
         self.load_manager = load_manager
         self.db = db
         self.session = session
+        self.events = events
         self.interval_s = interval_s
         self.timeout_s = timeout_s
         # ResilienceManager | None: in-band breaker state reconciles with
@@ -250,6 +254,22 @@ class EndpointHealthChecker:
         self.db.record_health_check(
             ep.id, result.ok, result.latency_ms, result.error, result.checked_at
         )
+        new_ep = self.registry.get(ep.id)
+        if self.events and new_ep and new_ep.status != prev_status:
+            self.events.publish(
+                "EndpointStatusChanged",
+                {
+                    "endpoint_id": ep.id,
+                    "name": ep.name,
+                    "from": prev_status.value,
+                    "to": new_ep.status.value,
+                },
+            )
+        if self.events and result.accelerator:
+            self.events.publish(
+                "TelemetryUpdated",
+                {"endpoint_id": ep.id, "tpu": vars(result.accelerator)},
+            )
         return result
 
     def _sync_lora_models(self, ep: Endpoint, acc) -> None:

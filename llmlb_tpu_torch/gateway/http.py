@@ -10,10 +10,13 @@ and gets the subset they use from here:
   outermost), `Request` (`json()`, `read()`, `headers`, `query`,
   `match_info`, `remote`, `cookies`, per-request storage), `Response`,
   `json_response`, `StreamResponse` (`prepare`, `write`, `write_eof`, each
-  write flushed as one chunk), `HTTPException`, `AppRunner` and `TCPSite`.
-  HTTP/1.1 with keep-alive; request bodies by `Content-Length` or chunked,
-  read when the handler asks for them; `Request.multipart()` reads a
-  multipart/form-data body part by part (see the multipart section).
+  write flushed as one chunk), `FileResponse`, `HTTPException` and its
+  4xx subclasses, `AppRunner` and `TCPSite`. HTTP/1.1 with keep-alive;
+  request bodies by `Content-Length` or chunked, read when the handler
+  asks for them; `Request.multipart()` reads a multipart/form-data body
+  part by part (see the multipart section); `WebSocketResponse` takes the
+  connection over after a 101 (see the websocket section), and
+  `AppRunner.cleanup` closes open sockets with 1001.
 - client: `ClientSession` over a pool of keep-alive connections
   (`TCPConnector`), `ClientTimeout` (total, connect / sock_connect,
   sock_read), and a response whose `content.iter_any()` yields the body as
@@ -34,16 +37,23 @@ by `web.json_response` reads as it does in the reference.
 from __future__ import annotations
 
 import asyncio
+import base64
 import collections.abc
+import enum
+import hashlib
 import http as _stdhttp
 import http.cookies
 import json as _json
 import logging
+import mimetypes
+import os
 import re
 import socket
 import ssl as _ssl
+import struct
 import sys
 import time
+import typing
 import urllib.parse
 from email.utils import formatdate
 
@@ -206,6 +216,14 @@ class HTTPException(Exception):
 
 class HTTPBadRequest(HTTPException):
     status_code = 400
+
+
+class HTTPUnauthorized(HTTPException):
+    status_code = 401
+
+
+class HTTPForbidden(HTTPException):
+    status_code = 403
 
 
 class HTTPNotFound(HTTPException):
@@ -815,6 +833,40 @@ def json_response(data=None, *, text: str | None = None, body=None,
                     charset="utf-8" if text is not None else None)
 
 
+class FileResponse(Response):
+    """aiohttp's FileResponse for small files: the file is read whole when
+    the response is prepared, its content type guessed from its name as
+    aiohttp guesses it (a fresh `mimetypes.MimeTypes()`, not the system's
+    tables), and a missing file answers 404 with no body."""
+
+    _types: "mimetypes.MimeTypes | None" = None
+
+    def __init__(self, path, *, status: int = 200,
+                 reason: str | None = None, headers=None):
+        super().__init__(status=status, reason=reason, headers=headers)
+        self._path = os.fspath(path)
+
+    async def prepare(self, request: Request) -> "FileResponse":
+        if self._prepared:
+            return self
+        try:
+            with open(self._path, "rb") as f:
+                self.body = f.read()
+            mtime = os.stat(self._path).st_mtime
+        except (FileNotFoundError, IsADirectoryError, NotADirectoryError):
+            self.status, self.body = 404, b""
+            return await super().prepare(request)
+        if FileResponse._types is None:
+            FileResponse._types = mimetypes.MimeTypes()
+        if "Content-Type" not in self.headers:
+            self.headers["Content-Type"] = (
+                FileResponse._types.guess_type(self._path)[0]
+                or "application/octet-stream")
+        self.headers["Last-Modified"] = formatdate(mtime, usegmt=True)
+        self.headers["Accept-Ranges"] = "bytes"
+        return await super().prepare(request)
+
+
 class _ServerConnection:
     def __init__(self, reader, writer):
         self.reader = reader
@@ -823,6 +875,11 @@ class _ServerConnection:
         self.peer = peer[0] if isinstance(peer, tuple) else None
         self.broken = False
         self.head_sent = False  # the current response's head is written
+        self.server: "_ServerState | None" = None
+        self.task: asyncio.Task | None = None
+        # set once a handler upgrades the connection (WebSocketResponse):
+        # no more HTTP is read on it
+        self.ws: "WebSocketResponse | None" = None
 
 
 def _error_response(status: int, text: str | None = None) -> Response:
@@ -838,6 +895,7 @@ class _ServerState:
         self.keepalive_timeout = keepalive_timeout
         self.connections: set[asyncio.Task] = set()
         self.idle: set[asyncio.StreamWriter] = set()
+        self.sockets: set[_ServerConnection] = set()  # upgraded to WebSocket
         self.closing = False
 
     async def handle(self, reader: asyncio.StreamReader,
@@ -845,6 +903,7 @@ class _ServerState:
         task = asyncio.current_task()
         self.connections.add(task)
         conn = _ServerConnection(reader, writer)
+        conn.server, conn.task = self, task
         try:
             await self._serve(conn)
         except (ConnectionError, asyncio.IncompleteReadError):
@@ -854,6 +913,7 @@ class _ServerState:
         finally:
             self.connections.discard(task)
             self.idle.discard(writer)
+            self.sockets.discard(conn)
             try:
                 writer.close()
             except Exception:  # allow-silent: closing a dead socket
@@ -892,7 +952,7 @@ class _ServerState:
                 await self._send_plain(conn, _error_response(400, str(e)))
                 return
             resp = await self._dispatch(request)
-            if resp is None:
+            if resp is None or conn.ws is not None:
                 return
             keep = (request.keep_alive and not resp.force_close_connection
                     and not conn.broken)
@@ -978,6 +1038,23 @@ class AppRunner:
         st.closing = True
         for w in list(st.idle):
             w.close()
+        # open WebSockets get a close frame with 1001 (going away) and a
+        # short wait for the peer's; their handlers are then cancelled,
+        # not waited for
+        sockets = list(st.sockets)
+        if sockets:
+            _, late = await asyncio.wait(
+                [asyncio.ensure_future(c.ws.close(
+                    code=WSCloseCode.GOING_AWAY, message=b"server shutdown"))
+                 for c in sockets],
+                timeout=min(st.shutdown_timeout, 2.0))
+            for t in late:
+                t.cancel()
+            for c in sockets:
+                c.ws._close_transport()
+                for t in c.ws._tasks + [c.task]:
+                    if t is not None:
+                        t.cancel()
         pending = list(st.connections)
         if pending:
             done, still = await asyncio.wait(pending,
@@ -1695,6 +1772,418 @@ class FormData:
                        .encode("utf-8") + data + b"\r\n")
         out.append(f"--{boundary}--\r\n".encode())
         return b"".join(out), f"multipart/form-data; boundary={boundary}"
+
+
+# ---------------------------------------------------------------- websocket
+#
+# The server side of RFC 6455, as much of aiohttp's `WebSocketResponse` as
+# the dashboard's socket uses: the handshake (`Upgrade: websocket`,
+# `Connection: upgrade`, `Sec-WebSocket-Version: 13`, a 16-byte key;
+# aiohttp's 400s otherwise) answered with 101, then frames both ways on
+# the same connection, which the server loop no longer reads as HTTP.
+# Server frames go unmasked with 7-, 16- or 64-bit lengths. A reader task
+# takes the client's frames: each must be masked (else the socket closes
+# with 1002, as for any protocol error), fragments are joined (4 MiB at
+# most, aiohttp's default, else 1009), a ping is answered with a pong, and
+# a close frame is echoed with 1000 (aiohttp's echo) before the transport
+# closes. `heartbeat` pings when nothing has arrived for that long and
+# closes the socket, as aiohttp does, when nothing arrives within half of
+# it after. No extensions (the client's offer of compression is declined
+# by not answering it) and no subprotocols.
+
+_WS_GUID = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+_WS_MAX_MSG_SIZE = 4 * 1024 * 1024
+_WS_CLOSE_TIMEOUT = 10.0  # aiohttp's wait for the peer's close frame
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    CLOSING = 0x100
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    GOING_AWAY = 1001
+    PROTOCOL_ERROR = 1002
+    UNSUPPORTED_DATA = 1003
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    POLICY_VIOLATION = 1008
+    MESSAGE_TOO_BIG = 1009
+    MANDATORY_EXTENSION = 1010
+    INTERNAL_ERROR = 1011
+    SERVICE_RESTART = 1012
+    TRY_AGAIN_LATER = 1013
+    BAD_GATEWAY = 1014
+
+
+# codes a close frame may carry below 3000 (RFC 6455 7.4.1)
+_WS_CLOSE_CODES = {int(c) for c in WSCloseCode} - {1006}
+
+
+class WSMessage(typing.NamedTuple):
+    """aiohttp's WSMessage: `data` is the text, the bytes, a close code or
+    an exception by type, `extra` a close reason."""
+
+    type: WSMsgType
+    data: typing.Any
+    extra: typing.Any
+
+
+WS_CLOSED_MESSAGE = WSMessage(WSMsgType.CLOSED, None, None)
+WS_CLOSING_MESSAGE = WSMessage(WSMsgType.CLOSING, None, None)
+
+
+class WebSocketError(Exception):
+    def __init__(self, code: int, message: str):
+        self.code = code
+        super().__init__(code, message)
+
+    def __str__(self) -> str:
+        return self.args[1]
+
+
+def _ws_frame(opcode: int, payload: bytes) -> bytes:
+    """One unmasked (server) frame."""
+    n = len(payload)
+    b0 = 0x80 | opcode
+    if n < 126:
+        head = struct.pack("!BB", b0, n)
+    elif n < 65536:
+        head = struct.pack("!BBH", b0, 126, n)
+    else:
+        head = struct.pack("!BBQ", b0, 127, n)
+    return head + payload
+
+
+def _ws_unmask(data: bytes, mask: bytes) -> bytes:
+    n = len(data)
+    if not n:
+        return b""
+    key = (mask * (n // 4 + 1))[:n]
+    return (int.from_bytes(data, "big")
+            ^ int.from_bytes(key, "big")).to_bytes(n, "big")
+
+
+async def _ws_read_frame(reader: asyncio.StreamReader) -> tuple[int, bool,
+                                                                bytes]:
+    """(opcode, fin, payload) of one client frame; WebSocketError for a
+    frame the server must refuse, IncompleteReadError at EOF."""
+    b0, b1 = await reader.readexactly(2)
+    fin, opcode, n = bool(b0 & 0x80), b0 & 0x0F, b1 & 0x7F
+    if b0 & 0x70:
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             "Received frame with non-zero reserved bits")
+    if not b1 & 0x80:
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             "Received an unmasked frame from the client")
+    if opcode not in (0x0, 0x1, 0x2, 0x8, 0x9, 0xA):
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             f"Unexpected opcode={opcode!r}")
+    if n == 126:
+        n = struct.unpack("!H", await reader.readexactly(2))[0]
+    elif n == 127:
+        n = struct.unpack("!Q", await reader.readexactly(8))[0]
+    if opcode >= 0x8 and (not fin or n > 125):
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             "Control frame fragmented or longer than 125")
+    if n > _WS_MAX_MSG_SIZE:
+        raise WebSocketError(WSCloseCode.MESSAGE_TOO_BIG,
+                             f"Message size {n} exceeds limit "
+                             f"{_WS_MAX_MSG_SIZE}")
+    mask = await reader.readexactly(4)
+    return opcode, fin, _ws_unmask(await reader.readexactly(n), mask)
+
+
+class WebSocketResponse(StreamResponse):
+    def __init__(self, *, heartbeat: float | None = None):
+        super().__init__(status=101)
+        self._heartbeat = heartbeat
+        self._closed = False    # our close frame sent, or the socket lost
+        self._closing = False   # the peer's close frame received
+        self._close_code: int | None = None
+        self._messages: asyncio.Queue | None = None
+        self._peer_done: asyncio.Event | None = None  # the reader ended
+        self._waiting = False
+        self._last_seen = 0.0
+        self._tasks: list[asyncio.Task] = []
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def close_code(self) -> int | None:
+        return self._close_code
+
+    def _handshake(self, request: Request) -> CIMultiDict:
+        h = request.headers
+        if request.method != "GET":
+            raise HTTPMethodNotAllowed(request.method, ["GET"])
+        if h.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(text=(
+                f"No WebSocket UPGRADE hdr: {h.get('Upgrade')}\n Can "
+                '"Upgrade" only to "WebSocket".'))
+        if "upgrade" not in h.get("Connection", "").lower():
+            raise HTTPBadRequest(
+                text=f"No CONNECTION upgrade hdr: {h.get('Connection')}")
+        version = h.get("Sec-WebSocket-Version", "")
+        if version != "13":
+            raise HTTPBadRequest(text=f"Unsupported version: {version}",
+                                 headers={"Sec-WebSocket-Version": "13"})
+        key = h.get("Sec-WebSocket-Key")
+        try:
+            if not key or len(base64.b64decode(key, validate=True)) != 16:
+                raise ValueError(key)
+        except ValueError:  # binascii.Error too
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}") from None
+        accept = base64.b64encode(
+            hashlib.sha1(key.encode() + _WS_GUID).digest()).decode()
+        return CIMultiDict({"Upgrade": "websocket", "Connection": "upgrade",
+                            "Sec-WebSocket-Accept": accept})
+
+    async def prepare(self, request: Request) -> "WebSocketResponse":
+        if self._prepared:
+            return self
+        self.headers.update(self._handshake(request))
+        self.headers.setdefault("Date", formatdate(usegmt=True))
+        self.headers.setdefault("Server", SERVER_NAME)
+        conn = request._conn
+        self._request, self._writer = request, conn.writer
+        self._prepared = True
+        conn.head_sent = True
+        conn.ws = self
+        if conn.server is not None:
+            conn.server.sockets.add(conn)
+        self._write_raw(_encode_head("HTTP/1.1 101 Switching Protocols",
+                                     self.headers))
+        await self._drain()
+        self._last_seen = asyncio.get_running_loop().time()
+        self._messages = asyncio.Queue(64)
+        self._peer_done = asyncio.Event()
+        self._tasks.append(asyncio.create_task(self._read_loop(conn.reader)))
+        if self._heartbeat:
+            self._tasks.append(asyncio.create_task(self._heartbeat_loop()))
+        return self
+
+    def _send_frame(self, opcode: int, payload: bytes) -> None:
+        self._write_raw(_ws_frame(opcode, payload))
+
+    def _close_transport(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+
+    def _deliver(self, msg: WSMessage) -> None:
+        """A message for a receiver blocked now (the queue is empty while
+        one waits); dropped when the queue is full, where none can be."""
+        if not self._messages.full():
+            self._messages.put_nowait(msg)
+
+    async def _read_loop(self, reader: asyncio.StreamReader) -> None:
+        loop = asyncio.get_running_loop()
+        parts: list[bytes] = []
+        first_op = None
+        try:
+            while True:
+                opcode, fin, payload = await _ws_read_frame(reader)
+                self._last_seen = loop.time()
+                if opcode == WSMsgType.PING:
+                    self._send_frame(WSMsgType.PONG, payload)
+                    continue
+                if opcode == WSMsgType.PONG:
+                    continue
+                if opcode == WSMsgType.CLOSE:
+                    await self._on_close_frame(payload)
+                    return
+                if opcode == WSMsgType.CONTINUATION:
+                    if first_op is None:
+                        raise WebSocketError(
+                            WSCloseCode.PROTOCOL_ERROR,
+                            "Continuation frame for non started message")
+                elif first_op is not None:
+                    raise WebSocketError(
+                        WSCloseCode.PROTOCOL_ERROR,
+                        "The opcode in non-fin frame is expected to be "
+                        f"zero, got {opcode!r}")
+                else:
+                    first_op = opcode
+                parts.append(payload)
+                size = sum(map(len, parts))
+                if size > _WS_MAX_MSG_SIZE:
+                    raise WebSocketError(
+                        WSCloseCode.MESSAGE_TOO_BIG,
+                        f"Message size {size} exceeds limit "
+                        f"{_WS_MAX_MSG_SIZE}")
+                if not fin:
+                    continue
+                data, op, parts, first_op = b"".join(parts), first_op, [], None
+                if op == WSMsgType.TEXT:
+                    try:
+                        msg = WSMessage(WSMsgType.TEXT, data.decode("utf-8"),
+                                        None)
+                    except UnicodeDecodeError:
+                        raise WebSocketError(
+                            WSCloseCode.INVALID_TEXT,
+                            "Invalid UTF-8 text message") from None
+                else:
+                    msg = WSMessage(WSMsgType.BINARY, data, None)
+                await self._messages.put(msg)
+        except WebSocketError as e:
+            if not self._closed:
+                self._closed = True
+                self._close_code = e.code
+                try:
+                    self._send_frame(WSMsgType.CLOSE,
+                                     struct.pack("!H", e.code))
+                    await self._drain()
+                except ConnectionError:
+                    pass
+            self._close_transport()
+            self._deliver(WSMessage(WSMsgType.ERROR, e, None))
+        except (asyncio.IncompleteReadError, ConnectionError):
+            if not self._closed:
+                self._closed = True
+                self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            self._deliver(WS_CLOSED_MESSAGE)
+        finally:
+            self._peer_done.set()
+
+    async def _on_close_frame(self, payload: bytes) -> None:
+        if len(payload) >= 2:
+            code = struct.unpack("!H", payload[:2])[0]
+            if code < 3000 and code not in _WS_CLOSE_CODES or code >= 5000:
+                raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                     f"Invalid close code: {code}")
+            try:
+                reason = payload[2:].decode("utf-8")
+            except UnicodeDecodeError:
+                raise WebSocketError(WSCloseCode.INVALID_TEXT,
+                                     "Invalid UTF-8 text message") from None
+        elif payload:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                 f"Invalid close frame: {payload!r}")
+        else:
+            code, reason = 0, ""
+        self._closing = True
+        self._close_code = code
+        if not self._closed:
+            self._closed = True
+            try:
+                self._send_frame(WSMsgType.CLOSE,
+                                 struct.pack("!H", WSCloseCode.OK))
+                await self._drain()
+            except ConnectionError:
+                pass
+            self._close_transport()
+        self._deliver(WSMessage(WSMsgType.CLOSE, code, reason))
+
+    async def _heartbeat_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        hb = self._heartbeat
+        while not self._closed:
+            wait = self._last_seen + hb - loop.time()
+            if wait > 0:
+                await asyncio.sleep(wait)
+                continue
+            sent = loop.time()
+            try:
+                self._send_frame(WSMsgType.PING, b"")
+            except ConnectionError:
+                return
+            await asyncio.sleep(hb / 2.0)
+            if self._closed or self._last_seen >= sent:
+                continue
+            # no pong (nor anything else) within half a heartbeat
+            self._closed = True
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            self._deliver(WSMessage(WSMsgType.ERROR, asyncio.TimeoutError(
+                f"No PONG received after {hb / 2.0} seconds"), None))
+            return
+
+    async def receive(self) -> WSMessage:
+        if self._messages is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._waiting:
+            raise RuntimeError("Concurrent call to receive() is not allowed")
+        if self._messages.empty():
+            if self._closed and (self._peer_done.is_set() or
+                                 not self._closing):
+                return WS_CLOSED_MESSAGE
+            if self._closing:
+                return WS_CLOSING_MESSAGE
+        self._waiting = True
+        try:
+            return await self._messages.get()
+        finally:
+            self._waiting = False
+
+    def __aiter__(self) -> "WebSocketResponse":
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING,
+                        WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
+
+    async def send_str(self, data: str) -> None:
+        if self._writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed:
+            raise ConnectionResetError("Cannot write to closing transport")
+        self._send_frame(WSMsgType.TEXT, data.encode("utf-8"))
+        await self._drain()
+
+    async def close(self, *, code: int = WSCloseCode.OK,
+                    message: bytes = b"") -> bool:
+        """Send a close frame and wait up to 10 s for the peer's (the reader
+        takes it), then close the transport. False if already closed."""
+        if self._writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed:
+            return False
+        self._closed = True
+        try:
+            self._send_frame(WSMsgType.CLOSE,
+                             struct.pack("!H", code) + bytes(message))
+            await self._drain()
+        except ConnectionError:
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            return True
+        if self._waiting:  # wake a receiver, as aiohttp's CLOSING does
+            self._deliver(WS_CLOSING_MESSAGE)
+        if not self._closing:
+            try:
+                await asyncio.wait_for(self._peer_done.wait(),
+                                       _WS_CLOSE_TIMEOUT)
+            except asyncio.TimeoutError:
+                self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            except asyncio.CancelledError:
+                self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+                self._close_transport()
+                raise
+        self._close_transport()
+        return True
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        if self._eof:
+            return
+        if self._prepared:
+            await self.close()
+        for t in self._tasks:
+            t.cancel()
+        self._eof = True
 
 
 web = sys.modules[__name__]

@@ -164,9 +164,10 @@ class ResilienceManager:
     """
 
     def __init__(self, config: ResilienceConfig | None = None, *,
-                 metrics=None, registry=None):
+                 metrics=None, events=None, registry=None):
         self.config = config or ResilienceConfig()
         self.metrics = metrics  # GatewayMetrics | None
+        self.events = events  # DashboardEventBus | None
         self.registry = registry  # EndpointRegistry | None
         self.budget = RetryBudget(
             self.config.retry_budget_ratio,
@@ -180,7 +181,7 @@ class ResilienceManager:
 
     def _transition(self, endpoint_id: str, b: _Breaker,
                     to: BreakerState, reason: str | None = None) -> None:
-        """Caller holds the lock. The sinks (metrics/registry) use
+        """Caller holds the lock. The sinks (metrics/events/registry) use
         their own locks and never call back into this manager, so invoking
         them under our lock cannot deadlock."""
         frm = b.state
@@ -214,6 +215,14 @@ class ResilienceManager:
             self.metrics.set_breaker_state(
                 name, BREAKER_STATE_CODE[to]
             )
+        if self.events is not None:
+            self.events.publish("BreakerStateChanged", {
+                "endpoint_id": endpoint_id,
+                "name": name,
+                "from": frm.value,
+                "to": to.value,
+                "reason": reason,
+            })
 
     # -------------------------------------------------------------- selection
 

@@ -6,10 +6,14 @@ standard library (gateway/http.py):
     python -m llmlb_tpu_torch.gateway.server serve [--host H] [--port P]
 
 Configuration is the reference's environment (`LLMLB_PORT`,
-`LLMLB_DATA_DIR`, `LLMLB_ADMIN_PASSWORD`, ... see config.py). SIGINT or
-SIGTERM drains in-flight inference for up to 30 s, then stops; a second
-signal stops at once. The reference's multi-worker supervisor, instance
-lock, update manager, tray and assistant come with later slices.
+`LLMLB_DATA_DIR`, `LLMLB_ADMIN_PASSWORD`, ... see config.py); logs go to
+stderr and to a daily-rotated file under `LLMLB_LOG_DIR`
+(logging_setup.py), which `/api/dashboard/logs/lb` tails. The dashboard is
+served at `/dashboard`. SIGINT or SIGTERM drains in-flight inference for
+up to 30 s (open dashboard sockets close with 1001 at once), then stops; a
+second signal stops at once. The reference's multi-worker supervisor and
+gossip, instance lock, update manager, tray and assistant come with later
+slices.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from llmlb_tpu_torch.gateway.app import create_app
 from llmlb_tpu_torch.gateway.app_state import build_app_state
 from llmlb_tpu_torch.gateway.config import ServerConfig
 from llmlb_tpu_torch.gateway.http import web
+from llmlb_tpu_torch.gateway.logging_setup import init_logging
 
 log = logging.getLogger("llmlb_tpu_torch.gateway.server")
 
@@ -107,11 +112,10 @@ def main(argv: list[str] | None = None) -> None:
                             "'listening on HOST:PORT' names it)")
     args = parser.parse_args(argv)
 
+    # stderr + daily-rotated file sink (reference logging.rs:41-182)
+    init_logging()
+
     config = ServerConfig.from_env()
-    logging.basicConfig(
-        level=config.log_level.upper(),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
     if args.command not in (None, "serve"):
         parser.error(f"unknown command {args.command!r}")
     overrides = {}

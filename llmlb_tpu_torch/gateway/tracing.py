@@ -19,9 +19,9 @@ engine's ``GET /api/requests/{id}/timeline`` and merged into one causally
 ordered event list. ``?format=chrome`` exports the same merge as Chrome
 trace-event JSON loadable in Perfetto (chrome://tracing).
 
-The port's copy of llmlb_tpu/gateway/tracing.py at one worker: the
-reference's trace spool (sibling workers answering for each other) and its
-dashboard events come with multi-worker serving and the dashboard.
+The port's copy of llmlb_tpu/gateway/tracing.py at one worker, with its
+``TraceCompleted`` events: the reference's trace spool (sibling workers
+answering for each other) comes with multi-worker serving.
 
 No reference counterpart: the reference router only logs per-request
 lines. This is the shared spine later perf PRs measure themselves
@@ -205,9 +205,10 @@ class TraceStore:
     """Bounded ring of completed traces + the in-flight set. Thread-safe:
     completion may be observed from bench/scrape threads."""
 
-    def __init__(self, capacity: int = 256,
+    def __init__(self, capacity: int = 256, events=None,
                  timeline_interval: int | None = None):
         self.capacity = max(1, capacity)
+        self._events = events  # DashboardEventBus | None
         self._lock = threading.Lock()
         self._active: "OrderedDict[str, RequestTrace]" = OrderedDict()
         self._done: deque[RequestTrace] = deque(maxlen=self.capacity)
@@ -255,6 +256,15 @@ class TraceStore:
             if self._active.get(trace.trace_id) is trace:
                 del self._active[trace.trace_id]
             self._done.append(trace)
+        if self._events is not None:
+            self._events.publish("TraceCompleted", {
+                "trace_id": trace.trace_id,
+                "path": trace.path,
+                "model": trace.model,
+                "endpoint_id": trace.endpoint_id,
+                "status": status,
+                "duration_ms": trace.duration_ms,
+            })
 
     def get(self, trace_id: str) -> dict | None:
         with self._lock:

@@ -5,7 +5,10 @@ stack.
   gives the JAX gateway-in-front-of-JAX-engine's greedy text, stop reason
   and usage on the same debug-tiny weights, plain and streamed (a
   well-formed Anthropic event stream), and the playground proxy gives the
-  JAX stack's chat.
+  JAX stack's chat. A TPS benchmark of 4 requests x 8 tokens through each
+  gateway completes with 4 successes and the JAX stack's record keys and
+  counts (the benchmark samples at temperature 0.7 with no seed, so its
+  text is not compared).
 - Media: one port engine server with the small random ASR, TTS and image
   services (`from_random`) registered in the JAX gateway and in the port's
   gateway: each syncs its three models with their capabilities, and
@@ -104,7 +107,22 @@ async def _messages(base: str, engine_url: str) -> dict:
                          headers=admin)
         play = await r.json()
         assert r.status == 200, play
+        r = await s.post(base + "/api/benchmarks/tps", json={
+            "model": "debug-tiny", "requests": 4, "concurrency": 2,
+            "max_tokens": 8}, headers=admin)
+        run_id = (await r.json())["run_id"]
+        for _ in range(1200):
+            r = await s.get(base + f"/api/benchmarks/tps/{run_id}",
+                            headers=admin)
+            run = await r.json()
+            if run["status"] != "running":
+                break
+            await asyncio.sleep(0.05)
     return {
+        "tps_run": (run["status"], sorted(run), run["requests"],
+                    run["succeeded"], run["failed"], run["errors"],
+                    {ep["name"] if k == ep["id"] else k: v["requests"]
+                     for k, v in run["per_endpoint"].items()}),
         "plain": ([b["text"] for b in plain["content"]],
                   plain["stop_reason"], plain["usage"]),
         "stream": _anthropic_stream(raw),
@@ -144,6 +162,8 @@ async def test_messages_full_path_matches_the_jax_stack(weights):
         assert usage["output_tokens"] == MAX_TOKENS
         assert ours["plain"][2]["output_tokens"] == MAX_TOKENS
         assert ours["playground"][1]["completion_tokens"] == MAX_TOKENS
+        assert ours["tps_run"][0] == "completed"
+        assert ours["tps_run"][2:] == (4, 4, 0, [], {"engine": 4})
     finally:
         await gw.close()
         await port.close()

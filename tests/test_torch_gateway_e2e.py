@@ -205,8 +205,8 @@ class _PortGateway:
             start_background=False)
         st = self.state
         st.health_checker = EndpointHealthChecker(
-            st.registry, st.load_manager, st.db, st.http, interval_s=3600,
-            timeout_s=5.0, resilience=st.resilience)
+            st.registry, st.load_manager, st.db, st.http, st.events,
+            interval_s=3600, timeout_s=5.0, resilience=st.resilience)
         self.runner = web.AppRunner(create_app(st), shutdown_timeout=1.0)
         await self.runner.setup()
         await web.TCPSite(self.runner, "127.0.0.1", 0).start()

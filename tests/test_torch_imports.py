@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "gateway.server", "gateway.api_anthropic",
                  "gateway.api_media", "gateway.api_cloud",
                  "gateway.api_models", "gateway.audit",
-                 "gateway.system_info"):
+                 "gateway.system_info", "gateway.events",
+                 "gateway.api_dashboard", "gateway.api_benchmarks",
+                 "gateway.logging_setup"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -95,7 +97,8 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
     """`python -m llmlb_tpu_torch.gateway.server serve` with aiohttp,
     argon2, jax and llmlb_tpu made unimportable (as on the card's machine)
     starts, answers /health, logs in and verifies its audit chain (the
-    audit middleware recorded both requests), stops on SIGTERM, and never
+    audit middleware recorded both requests), serves the dashboard and
+    tails its own log file under LLMLB_LOG_DIR, stops on SIGTERM, and never
     loads torch or tiktoken (whose first use fetches a BPE file over the
     network)."""
     import os
@@ -116,7 +119,8 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
         "                 run_name='__main__')\n"
     )
     env = {**os.environ, "LLMLB_DATA_DIR": str(tmp_path),
-           "LLMLB_ADMIN_PASSWORD": "adminpass1"}
+           "LLMLB_ADMIN_PASSWORD": "adminpass1",
+           "LLMLB_LOG_DIR": str(tmp_path / "logs")}
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -152,6 +156,16 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
             paths = [e["path"] for e in json.loads(r.read())["entries"]]
         # newest first; verify flushed the two before it
         assert paths[-2:] == ["/api/auth/login", "/health"]
+        with urllib.request.urlopen(base + "/dashboard", timeout=30) as r:
+            assert r.read() == (REPO / "llmlb_tpu_torch" / "gateway" /
+                                "dashboard_static" / "index.html").read_bytes()
+        req = urllib.request.Request(base + "/api/dashboard/logs/lb",
+                                     headers=admin)
+        with urllib.request.urlopen(req, timeout=30) as r:
+            tail = json.loads(r.read())
+        assert tail["path"] == str(tmp_path / "logs" / "llmlb.log")
+        assert any("w0 llmlb_tpu_torch.gateway.server: llmlb_tpu_torch "
+                   "gateway listening on" in ln for ln in tail["lines"])
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=60)
     finally:
