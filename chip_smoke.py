@@ -150,7 +150,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
              chat key, /dashboard and its assets are the port's bytes,
              /api/dashboard/logs/lb tails the gateway's own log (its
              LLMLB_LOG_DIR in the block's data directory), and /metrics
-             shows no dropped event.
+             shows no dropped event. Then the multi-worker sub-block:
+             `serve --workers 2` on a free fixed port (two forked workers
+             on one SO_REUSEPORT port, gossiping over unix sockets in the
+             sub-block's data directory), the engine registered through
+             one worker until both list it online with llama-3-8b; six
+             greedy 64-token chats of the block's content, three streamed
+             and three not, each on a fresh connection, carry the direct
+             path's ids (more if one worker served none, until each served
+             one); the merged /metrics has request series under
+             worker="0" and worker="1"; 12 lookups of one chat's trace on
+             fresh connections all answer 200; both workers sent and
+             received gossip and refused none; SIGTERM to the supervisor
+             exits 0 and no worker outlives it (a `multi_worker` line).
              Then speculative decoding, per request, on the same core and
              counted with the main path: 1 row, then 8, of 64 greedy ids
              with speculation off, on (the prompt-lookup drafter), under a
@@ -3889,13 +3901,15 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
     if not msg_launches["flash_prefill"] or \
             not msg_launches["paged_flash_decode"]:
         raise AssertionError(f"/v1/messages traffic launched {msg_launches}")
+    multi = _multi_worker_block(engine, base, dev, content, pairs[True][0],
+                                pairs[True][2])
     stats = {"start_s": round(start_s, 3),
              "ttft_direct_ms": statistics.median(direct_t) * 1e3,
              "ttft_gateway_ms": statistics.median(via_t) * 1e3,
              "ttft_direct_all_ms": [t * 1e3 for t in direct_t],
              "ttft_gateway_all_ms": [t * 1e3 for t in via_t],
              "launches": launches, "messages_launches": msg_launches,
-             "admin_s": admin_s, "dashboard": dash,
+             "admin_s": admin_s, "dashboard": dash, "multi_worker": multi,
              "breakers": {e["name"]: e["breaker"]["state"]
                           for e in health["endpoints"]}}
     log(f"serve bf16 [{dev['smi']}]: gateway: registered as tpu with "
@@ -3913,6 +3927,227 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
         f"{[round(t, 2) for t in stats['ttft_gateway_all_ms']]}, direct "
         f"{[round(t, 2) for t in stats['ttft_direct_all_ms']]}); gateway up "
         f"in {start_s:.2f} s; the block {time.perf_counter() - t0:.1f} s")
+    return stats
+
+
+def _children(pid: int) -> list[int]:
+    """The live processes whose parent is `pid` (read from /proc)."""
+    import os
+
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def _multi_worker_block(engine, base: str, dev: dict, content: str,
+                        direct: dict, d_ids: list[int]) -> dict:
+    """`python -m llmlb_tpu_torch.gateway.server serve --workers 2` in
+    front of this phase's engine server, on a free fixed port: both workers
+    list the engine registered through one of them; six greedy 64-token
+    chats of the gateway block's `content` (three streamed, three not, each
+    on a fresh connection) carry the direct path's ids `d_ids` and its
+    text and usage, more chats if one worker served none; the merged
+    /metrics has request series of both workers; 12 lookups of one chat's
+    trace on fresh connections answer 200; both workers' gossip sent and
+    received, none refused; SIGTERM: the supervisor exits 0 and no worker
+    outlives it."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    import llmlb_tpu_torch
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    core = engine.core
+    t0 = time.perf_counter()
+    before = dict(ca.LAUNCHES)
+    root = Path(llmlb_tpu_torch.__file__).resolve().parents[1]
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    gw = f"http://127.0.0.1:{port}"
+    with tempfile.TemporaryDirectory(prefix="llmlb-mw-") as data_dir:
+        env = {**os.environ, "LLMLB_DATA_DIR": data_dir,
+               "LLMLB_LOG_DIR": os.path.join(data_dir, "logs"),
+               "LLMLB_GOSSIP_DIR": os.path.join(data_dir, "gossip"),
+               "LLMLB_ADMIN_PASSWORD": GATEWAY_PASSWORD,
+               "LLMLB_HEALTH_CHECK_INTERVAL": "0.5",
+               "LLMLB_METRICS_SPOOL_SECS": "0.5"}
+        env.pop("LLMLB_FAULTS", None)
+        log_path = Path(data_dir) / "gateway.log"
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "llmlb_tpu_torch.gateway.server",
+                 "serve", "--host", "127.0.0.1", "--port", str(port),
+                 "--workers", "2"],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        kids: list[int] = []
+
+        def until(pred, what: str, timeout_s: float = 60.0):
+            deadline = time.monotonic() + timeout_s
+            while True:
+                got = pred()
+                if got:
+                    return got
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"multi-worker gateway: {what}: "
+                        f"{log_path.read_text()[-2000:]}")
+                time.sleep(0.02)
+
+        def up() -> bool:
+            try:
+                with urllib.request.urlopen(gw + "/health", timeout=5) as r:
+                    return r.status == 200
+            except OSError:
+                return False
+
+        def by_worker(what: str) -> dict:
+            """/api/health from each worker (fresh connections)."""
+            seen: dict = {}
+
+            def both():
+                h = _gw_json(gw + "/api/health")
+                seen[h["worker"]["index"]] = h
+                return len(seen) == 2 and h["worker"]["count"] == 2
+            until(both, what)
+            return seen
+
+        try:
+            until(up, "never answered /health")
+            start_s = time.perf_counter() - t0
+            kids = until(lambda: len(_children(proc.pid)) == 2
+                         and _children(proc.pid), "two workers")
+            token = _gw_json(gw + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            key = _gw_json(gw + "/api/api-keys", {"name": "smoke-mw"},
+                           admin)["api_key"]
+            inf = {"Authorization": f"Bearer {key}"}
+            ep = _gw_json(gw + "/api/endpoints", {
+                "base_url": base, "name": "serve-bf16-mw"}, admin)
+
+            def listed():
+                seen = by_worker("the engine listed")
+                return all(any(e["name"] == "serve-bf16-mw"
+                               and e["status"] == "online"
+                               for e in h["endpoints"])
+                           for h in seen.values())
+            until(listed, "a worker never listed the engine online")
+            listed_s = time.perf_counter() - t0
+            def scrape(route: str | None) -> dict:
+                with urllib.request.urlopen(gw + "/metrics",
+                                            timeout=60) as r:
+                    text = r.read().decode()
+                return {w: int(sum(
+                    float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                    if ln.startswith("llmlb_gateway_requests_total{")
+                    and (route is None or f'route="{route}"' in ln)
+                    and f'worker="{w}"' in ln)) for w in ("0", "1")}
+
+            def settled() -> dict:
+                """Chats by worker once the sibling's spool has them all."""
+                got: dict = {}
+
+                def all_in():
+                    got.update(scrape("/v1/chat/completions"))
+                    return sum(got.values()) == len(chats)
+                until(all_in, "the merged /metrics never counted the chats",
+                      timeout_s=20.0)
+                return got
+
+            spy = _EmitSpy(core)
+            chats: list[bool] = []
+            try:
+                def chat() -> str:
+                    n = len(chats)
+                    stream = n % 2 == 0
+                    rid = f"smoke-mw-{n}"
+                    via = _chat(gw, content, 64, stream,
+                                headers={**inf, "X-Request-Id": rid})
+                    v_ids = spy.last()
+                    if via != direct or v_ids != d_ids:
+                        raise AssertionError(
+                            f"multi-worker chat {n} (stream={stream}): "
+                            f"{via['usage']} against {direct['usage']}; ids "
+                            f"share {_shared(v_ids, d_ids)} of {len(d_ids)}")
+                    chats.append(stream)
+                    return rid
+
+                for _ in range(6):
+                    rid = chat()
+                served = settled()
+                # one worker served none of the six: more, until each has
+                while not all(served.values()):
+                    if len(chats) >= 16:
+                        raise AssertionError(
+                            f"multi-worker chats served {served}")
+                    rid = chat()
+                    served = settled()
+            finally:
+                spy.close()
+            chats_s = time.perf_counter() - t0
+            requests = scrape(None)
+            if not all(requests.values()):
+                raise AssertionError(f"merged /metrics: {requests}")
+            lookups = []
+            for _ in range(12):
+                status, got = _gw_call("GET", gw + f"/api/traces/{rid}",
+                                       headers=admin)
+                lookups.append(status)
+                if status != 200 or got.get("trace_id") != rid:
+                    raise AssertionError(f"trace lookup: {status} {got}")
+            gossip = {i: {k: h["gossip"][k] for k in (
+                "sent_total", "received_total", "recv_rejected_total",
+                "send_errors_total", "peers")}
+                for i, h in by_worker("gossip stats").items()}
+            for g in gossip.values():
+                if not (g["sent_total"] > 0 and g["received_total"] > 0
+                        and g["recv_rejected_total"] == 0
+                        and g["peers"] == 1):
+                    raise AssertionError(f"multi-worker gossip: {gossip}")
+            stop_t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+            stop_s = time.perf_counter() - stop_t
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        left = [pid for pid in kids if os.path.exists(f"/proc/{pid}")]
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+        if code != 0 or left:
+            raise AssertionError(f"multi-worker gateway: exit {code}, "
+                                 f"workers left {left}: "
+                                 f"{log_path.read_text()[-2000:]}")
+    launches = {k: ca.LAUNCHES[k] - before.get(k, 0) for k in BF16_PATH}
+    if not launches["flash_prefill"] or not launches["paged_flash_decode"]:
+        raise AssertionError(f"multi-worker traffic launched {launches}")
+    stats = {"seconds": round(time.perf_counter() - t0, 3),
+             "start_s": round(start_s, 3), "listed_s": round(listed_s, 3),
+             "stop_s": round(stop_s, 3),
+             "chats_s": round(chats_s, 3),
+             "chats": len(chats), "streamed": sum(chats),
+             "ids_equal_direct": len(chats),
+             "chats_by_worker": served, "requests_by_worker": requests,
+             "trace_lookups_200": lookups.count(200),
+             "gossip": {str(i): g for i, g in sorted(gossip.items())},
+             # "online": worker 0 took the registration and probed at once;
+             # "pending": worker 1 took it and worker 0's loop probed it
+             "registration": ep["status"], "launches": launches}
+    log(f"serve bf16 [{dev['smi']}]: multi_worker {json.dumps(stats)}")
     return stats
 
 

@@ -1,5 +1,6 @@
-"""The port's gateway: the reference gateway's serving path
-(llmlb_tpu/gateway/) at one worker, on the Python standard library.
+"""The port's gateway: the reference gateway (llmlb_tpu/gateway/) on the
+Python standard library, at one worker or several (`--workers N`: forked
+workers on one SO_REUSEPORT port, their routing state gossiped).
 
 Module names follow the reference, so each module's counterpart is found by
 name. `http` is new: the part of aiohttp the reference is written against,

@@ -33,7 +33,13 @@ from llmlb_tpu_torch.gateway import (
     api_openai,
     tracing,
 )
-from llmlb_tpu_torch.gateway.app_state import AppState, gateway_exposition
+from llmlb_tpu_torch.gateway.app_state import (
+    METRICS_SPOOL_DEFAULT_S,
+    AppState,
+    gateway_exposition,
+    read_peer_metrics,
+    write_metrics_spool,
+)
 from llmlb_tpu_torch.gateway.audit import AuditEntry
 from llmlb_tpu_torch.gateway.auth import (
     CSRF_COOKIE,
@@ -41,6 +47,8 @@ from llmlb_tpu_torch.gateway.auth import (
     AuthError,
     verify_jwt,
 )
+from llmlb_tpu_torch.gateway.config import env_float
+from llmlb_tpu_torch.gateway.metrics import label_exposition
 from llmlb_tpu_torch.gateway.tracing import REQUEST_ID_HEADER, mint_request_id
 from llmlb_tpu_torch.gateway.types import Permission
 
@@ -566,6 +574,13 @@ async def _api_health(request: web.Request) -> web.Response:
     }
     if state.ratelimit is not None and state.ratelimit.enabled:
         body["ratelimit"] = state.ratelimit.snapshot()
+    if state.worker.multi:
+        body["worker"] = {"index": state.worker.index,
+                          "count": state.worker.count}
+    # a single-worker host federated over the mesh still has peers worth
+    # showing (docs/deployment.md cross-host topology)
+    if state.gossip is not None:
+        body["gossip"] = state.gossip.stats()
     if state.resilience is not None:
         cfg = state.resilience.config
         body["resilience"] = {
@@ -584,10 +599,27 @@ async def _gateway_metrics(request: web.Request) -> web.Response:
     """GET /metrics — gateway-wide Prometheus exposition: per-model/endpoint
     TTFT, e2e, and queue-wait histograms, per-route counters, plus
     scrape-time gauges owned by the balancer, admission queue and event
-    bus."""
+    bus.
+
+    Multi-worker: SO_REUSEPORT hands the scrape to ONE arbitrary worker, so
+    the serving worker labels its own series worker="i", refreshes its
+    spool, and appends its siblings' spooled (already-labeled) series —
+    Prometheus sees the whole group on every scrape, attributable per
+    worker (docs/deployment.md)."""
     state: AppState = request.app["state"]
-    return web.Response(text=gateway_exposition(state),
-                        content_type="text/plain", charset="utf-8")
+    text = gateway_exposition(state)
+    if state.worker.multi:
+        text = label_exposition(text, "worker", state.worker.label)
+        try:
+            # scrape-fresh spool for whoever serves the next scrape, from
+            # the text already rendered above (no second exposition build)
+            write_metrics_spool(state, labeled_text=text)
+        except OSError:
+            pass
+        interval = env_float("LLMLB_METRICS_SPOOL_SECS",
+                             METRICS_SPOOL_DEFAULT_S)
+        text += read_peer_metrics(state, max_age_s=3 * interval + 2.0)
+    return web.Response(text=text, content_type="text/plain", charset="utf-8")
 
 
 async def _root(request: web.Request) -> web.Response:

@@ -1,14 +1,16 @@
 """AppState: shared state injected into all handlers + bootstrap sequence.
 
-The port's counterpart of llmlb_tpu/gateway/app_state.py at one worker: DB +
-schema, registry cache load, LoadManager seeding from daily stats, the shared
-HTTP client (gateway/http.py), admin bootstrap, JWT secret provisioning,
-the dashboard event bus (handed to the trace store, the breakers and the
-health checker, as the reference's), the audit log (its chain verified at
-start and hourly), breakers and retry budget, rate limits, health checker,
-history retention. The reference's gossip bus and metrics spool (multi-worker
-serving), rebalancer, update manager and tray come with the slices that
-port them.
+The port's counterpart of llmlb_tpu/gateway/app_state.py: DB + schema,
+registry cache load, LoadManager seeding from daily stats, the shared HTTP
+client (gateway/http.py), admin bootstrap, JWT secret provisioning, the
+dashboard event bus (handed to the trace store, the breakers and the health
+checker, as the reference's), the audit log (its chain verified at start and
+hourly), breakers and retry budget, rate limits, health checker, history
+retention; with several workers (gateway/worker.py) the gossip bus that
+replicates the routing state between them, the trace spool and the metrics
+spool, and the health checker and maintenance on the primary only. The
+reference's rebalancer (and the `migrate` subscription that feeds it),
+update manager and tray come with the slices that port them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import asyncio
 import dataclasses
 import datetime
 import logging
+import os
 import secrets
 import threading
 import time
@@ -50,6 +53,13 @@ from llmlb_tpu_torch.gateway.db import Database
 from llmlb_tpu_torch.gateway.events import DashboardEventBus
 from llmlb_tpu_torch.gateway.faults import FaultInjector
 from llmlb_tpu_torch.gateway.gate import InferenceGate
+from llmlb_tpu_torch.gateway.gossip import (
+    MEMBER_KEY_PREFIX,
+    GossipBus,
+    GossipFaults,
+    MeshConfig,
+    default_gossip_dir,
+)
 from llmlb_tpu_torch.gateway.health import EndpointHealthChecker
 from llmlb_tpu_torch.gateway.metrics import GatewayMetrics
 from llmlb_tpu_torch.gateway.ratelimit import RateLimiter
@@ -57,6 +67,7 @@ from llmlb_tpu_torch.gateway.registry import EndpointRegistry
 from llmlb_tpu_torch.gateway.resilience import ResilienceManager
 from llmlb_tpu_torch.gateway.tracing import TraceStore
 from llmlb_tpu_torch.gateway.types import TpsApiKind
+from llmlb_tpu_torch.gateway.worker import WorkerInfo, current_worker
 
 log = logging.getLogger("llmlb_tpu_torch.gateway")
 
@@ -199,6 +210,8 @@ class AppState:
     # always constructed — zero hot-path work unless limits are configured.
     ratelimit: RateLimiter | None = None
     health_checker: EndpointHealthChecker | None = None
+    worker: WorkerInfo = dataclasses.field(default_factory=WorkerInfo)
+    gossip: GossipBus | None = None  # multi-worker state replication
     history: "HistoryWriter | None" = None
     started_at: float = dataclasses.field(default_factory=time.time)
     _tasks: list[asyncio.Task] = dataclasses.field(default_factory=list)
@@ -215,6 +228,8 @@ class AppState:
             await self.health_checker.stop()
         if self.history is not None:
             await self.history.stop()
+        if self.gossip is not None:
+            self.gossip.close()
         await self.audit.stop()
         await self.http.close()
         self.db.close()
@@ -225,14 +240,18 @@ async def build_app_state(
     *,
     db: Database | None = None,
     start_background: bool = True,
+    worker: WorkerInfo | None = None,
 ) -> AppState:
     config = config or ServerConfig.from_env()
     if db is None:
         db = Database(config.database_url or ":memory:")
+    if worker is None:
+        worker = current_worker()
 
     registry = EndpointRegistry(db)
     load_manager = LoadManager(
-        QueueConfig.from_env(), affinity_mode=default_affinity_mode(1),
+        QueueConfig.from_env(),
+        affinity_mode=default_affinity_mode(worker.count),
     )
     admission = AdmissionQueue(load_manager)
     # Weighted fair queuing (docs/scheduling.md): per-tenant virtual-time
@@ -247,12 +266,19 @@ async def build_app_state(
     # finishes a successful request judges it there (record_slo)
     metrics = GatewayMetrics(slo=SloConfig.from_env())
     admission.metrics = metrics  # admission-retry counter (balancer.py)
-    traces = TraceStore(capacity=env_int("LLMLB_TRACE_BUFFER", 256),
-                        events=events)
+    # Multi-worker: spool completed traces to the gossip dir so ANY worker
+    # answers /api/traces/{id} regardless of which sibling served the
+    # request (same sibling-merge pattern as the /metrics spool below).
+    traces = TraceStore(
+        capacity=env_int("LLMLB_TRACE_BUFFER", 256), events=events,
+        spool_dir=(default_gossip_dir(config.port) if worker.multi else None),
+    )
 
     users = UserStore(db)
     api_keys = ApiKeyStore(db, cache_ttl_s=env_float(
-        "LLMLB_AUTH_CACHE_TTL", 0.0))
+        "LLMLB_AUTH_CACHE_TTL",
+        ApiKeyStore.MULTI_WORKER_DEFAULT_TTL_S if worker.multi else 0.0,
+    ))
     invitations = InvitationStore(db)
 
     # admin bootstrap (reference auth/bootstrap.rs)
@@ -267,6 +293,9 @@ async def build_app_state(
         )
 
     # JWT secret: env > persisted setting > fresh random (persisted).
+    # Insert-if-absent then re-read: N workers booting concurrently must all
+    # adopt ONE secret, or a session minted by worker A would 401 on
+    # worker B behind the shared SO_REUSEPORT port.
     jwt_secret = config.jwt_secret or db.get_setting("auth.jwt_secret")
     if not jwt_secret:
         db.execute(
@@ -296,12 +325,19 @@ async def build_app_state(
     )
     load_manager.resilience = resilience
     faults = FaultInjector.from_env()
-    ratelimit = RateLimiter(RateLimitConfig.from_env())
-    # Per-request history/daily-stat writes: synchronous, or batched when
-    # LLMLB_HISTORY_FLUSH_SECS opts in.
+
+    # Per-API-key rate limits: worker-local conservative shares by default
+    # (limits divide by the worker count — the group never exceeds the
+    # configured rate); promoted to fleet-global buckets below when the
+    # gossip bus starts (attach_gossip).
+    ratelimit = RateLimiter(RateLimitConfig.from_env(), workers=worker.count)
+
+    # Per-request history/daily-stat writes: synchronous single-worker (the
+    # historical behavior), batched when N workers share the WAL file or
+    # when LLMLB_HISTORY_FLUSH_SECS opts in explicitly.
     flush_s = env_float("LLMLB_HISTORY_FLUSH_SECS", 0.0)
     history = HistoryWriter(
-        db, batched=flush_s > 0,
+        db, batched=worker.multi or flush_s > 0,
         flush_interval_s=flush_s if flush_s > 0 else 0.5,
     )
 
@@ -312,27 +348,129 @@ async def build_app_state(
         api_keys=api_keys, invitations=invitations, jwt_secret=jwt_secret,
         http=client, metrics=metrics, traces=traces,
         resilience=resilience, faults=faults, ratelimit=ratelimit,
-        history=history,
+        worker=worker, history=history,
     )
 
     _seed_tps_from_daily_stats(state)
 
+    # Gossip replication between sibling workers — and, when
+    # LLMLB_GOSSIP_BIND configures the mesh, across hosts (LLMLB_GOSSIP=0
+    # disables both; a single-worker gateway with no mesh has no peers and
+    # skips it entirely). All replicated state is advisory: breakers, TPS,
+    # retry budget, affinity pins, adapter residency, heat, rate-limit
+    # spend, registry cache coherence — each converges locally without it.
+    mesh = MeshConfig.from_env()
+    if (worker.multi or mesh.enabled) and env_bool("LLMLB_GOSSIP", True):
+        state.gossip = await _start_gossip(state, mesh)
+
     if start_background:
         audit.start()
         history.start()
-        checker = EndpointHealthChecker(
-            registry, load_manager, db, client, events,
-            interval_s=config.health_check_interval_s,
-            timeout_s=config.health_check_timeout_s,
-            resilience=resilience,
-        )
-        checker.start()
-        state.health_checker = checker
-        state._tasks.append(
-            asyncio.create_task(_maintenance_loop(state),
-                                name="gw-maintenance")
-        )
+        if worker.multi:
+            interval = env_float(
+                "LLMLB_METRICS_SPOOL_SECS", METRICS_SPOOL_DEFAULT_S
+            )
+            state._tasks.append(asyncio.create_task(
+                _metrics_spool_loop(state, max(0.2, interval)),
+                name="metrics-spool",
+            ))
+        # Single-writer discipline (docs/deployment.md): the pull health
+        # checker and the hourly maintenance loop run in the elected
+        # primary worker only — N workers probing every engine would
+        # multiply fleet-wide probe load by N for zero information.
+        if worker.is_primary:
+            checker = EndpointHealthChecker(
+                registry, load_manager, db, client, events,
+                interval_s=config.health_check_interval_s,
+                timeout_s=config.health_check_timeout_s,
+                resilience=resilience,
+            )
+            checker.start()
+            checker.gossip = state.gossip  # residency push (health.py)
+            state.health_checker = checker
+            state._tasks.append(
+                asyncio.create_task(_maintenance_loop(state),
+                                    name="gw-maintenance")
+            )
     return state
+
+
+async def _start_gossip(state: AppState,
+                        mesh: MeshConfig | None = None) -> GossipBus:
+    """Bind this worker's bus socket (plus the UDP/TCP mesh when configured)
+    and wire every replicated-state hook. Receivers apply via
+    ``apply_remote_*`` entry points that never re-publish, so a two-worker
+    group cannot ping-pong a message forever. Conflict resolution is the
+    (seq, origin) version in ``m["ver"]`` — never the wall stamp. The
+    rebalancer's `migrate` directives have no subscriber until the port
+    has the rebalancer."""
+    mesh = mesh or MeshConfig.from_env()
+    db = state.db
+    membership = register = None
+    if mesh.enabled:
+        # Membership from the endpoint-registry database: every host
+        # persists its advertised mesh address under a settings key, so any
+        # host that can reach the shared DB finds the fleet without config.
+        def membership() -> dict:
+            return {
+                key[len(MEMBER_KEY_PREFIX):]: value
+                for key, value in db.list_settings().items()
+                if key.startswith(MEMBER_KEY_PREFIX) and value
+            }
+
+        def register(origin: str, advertise: str) -> None:
+            db.set_setting(MEMBER_KEY_PREFIX + origin, advertise)
+
+    bus = GossipBus(
+        default_gossip_dir(state.config.port), state.worker.index,
+        expected_peers=state.worker.count - 1,
+        mesh=mesh, faults=GossipFaults.from_env(),
+        membership=membership, register=register,
+    )
+    await bus.start()
+    lm = state.load_manager
+    resilience = state.resilience
+    registry = state.registry
+    bus.on_lag = state.metrics.observe_gossip_lag
+
+    lm.gossip = bus
+    bus.subscribe("tps", lambda d, m: lm.apply_remote_tps(
+        d["eid"], d["model"], d["kind"], float(d["ema"]),
+        int(d.get("samples", 1)), m["ver"],
+    ))
+    bus.subscribe("tps_clear", lambda d, m: lm.apply_remote_tps_clear(
+        d["eid"], m["ver"],
+    ))
+    bus.subscribe("affinity", lambda d, m: lm.apply_remote_affinity(
+        d["model"], d["hash"], d["eid"], m["ver"],
+    ))
+    bus.subscribe("heat", lambda d, m: lm.apply_remote_heat(
+        d["model"], d.get("entries") or {}, m["ver"],
+    ))
+    if resilience is not None:
+        resilience.gossip = bus
+        resilience.budget.on_spend = lambda: bus.publish("retry_spend", {})
+        bus.subscribe("breaker", lambda d, m: resilience.apply_remote_breaker(
+            d["eid"], d["to"], float(d.get("remaining_s", 0.0)),
+            d.get("reason"), m["ver"],
+        ))
+        bus.subscribe(
+            "retry_spend",
+            lambda d, m: resilience.budget.note_remote_spend(),
+        )
+    registry.on_mutate = lambda: bus.publish("registry", {})
+    bus.subscribe("registry", lambda d, m: registry.reload())
+    # Event-driven adapter residency: the primary's probe loop pushes
+    # resident-set changes; siblings patch their model cache immediately
+    # instead of waiting out a full registry reload round.
+    bus.subscribe("residency", lambda d, m: registry.apply_residency(
+        d["eid"], list((d.get("adapters") or {})),
+    ))
+    # Global token buckets: admission spend replicates fleet-wide so a
+    # tenant at rps=N is admitted ≈N across all workers, not N×workers.
+    if state.ratelimit is not None and state.ratelimit.enabled:
+        state.ratelimit.attach_gossip(bus)
+    return bus
 
 
 def _seed_tps_from_daily_stats(state: AppState) -> None:
@@ -360,8 +498,8 @@ def _seed_tps_from_daily_stats(state: AppState) -> None:
 
 def gateway_exposition(state: AppState) -> str:
     """The gateway's full Prometheus text exposition: GatewayMetrics series
-    plus scrape-time figures owned by the balancer, admission queue and
-    event bus."""
+    plus scrape-time figures owned by the balancer, admission queue, event
+    bus, and (multi-worker) the gossip bus."""
     affinity = state.load_manager.affinity_stats()
     counters = {
         "llmlb_gateway_dropped_events_total":
@@ -378,7 +516,100 @@ def gateway_exposition(state: AppState) -> str:
         "llmlb_gateway_traces_buffered": len(state.traces),
         "llmlb_gateway_prefix_affinity_entries": affinity["entries"],
     }
+    if state.gossip is not None:
+        gs = state.gossip.stats()
+        counters["llmlb_gateway_gossip_messages_sent_total"] = gs["sent_total"]
+        counters["llmlb_gateway_gossip_messages_received_total"] = (
+            gs["received_total"]
+        )
+        counters["llmlb_gateway_gossip_send_errors_total"] = (
+            gs["send_errors_total"]
+        )
+        counters["llmlb_gateway_gossip_rejected_total"] = (
+            gs["recv_rejected_total"]
+        )
+        counters["llmlb_gateway_gossip_fault_dropped_total"] = (
+            gs["fault_dropped_total"]
+        )
+        gauges["llmlb_gateway_gossip_peers"] = (
+            gs["peers"] + gs["mesh_peers"]
+        )
+        gauges["llmlb_gateway_gossip_partition_suspected"] = (
+            1 if gs["partition_suspected"] else 0
+        )
+        if gs["lag_s"] is not None:
+            gauges["llmlb_gateway_gossip_lag_seconds"] = round(gs["lag_s"], 6)
     return state.metrics.render(counters=counters, gauges=gauges)
+
+
+# Each worker spools its worker-labeled exposition to a shared file this
+# often; the worker that receives a /metrics scrape (SO_REUSEPORT picks one
+# arbitrarily) merges its siblings' spools, so Prometheus always sees the
+# whole group no matter which accept queue the scrape landed in.
+METRICS_SPOOL_DEFAULT_S = 5.0
+
+
+def _metrics_spool_path(state: AppState, index: int) -> str:
+    return os.path.join(
+        default_gossip_dir(state.config.port), f"metrics-w{index}.prom"
+    )
+
+
+def write_metrics_spool(state: AppState,
+                        labeled_text: str | None = None) -> None:
+    """Spool this worker's worker-labeled exposition for siblings to
+    merge. The /metrics handler passes the text it just rendered so a
+    scrape builds the exposition once, not twice."""
+    from llmlb_tpu_torch.gateway.metrics import label_exposition
+
+    path = _metrics_spool_path(state, state.worker.index)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if labeled_text is None:
+        labeled_text = label_exposition(
+            gateway_exposition(state), "worker", state.worker.label
+        )
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        f.write(labeled_text)
+    os.replace(tmp, path)  # atomic: a scrape never reads a torn file
+
+
+def read_peer_metrics(state: AppState, max_age_s: float) -> str:
+    """Concatenated sibling expositions (comment lines stripped — the
+    serving worker's own exposition already declared the families; Prom
+    treats the peers' samples as additional series via their worker
+    label). Stale spools (dead worker) age out instead of freezing."""
+    import glob as _glob
+
+    own = _metrics_spool_path(state, state.worker.index)
+    parts: list[str] = []
+    now = time.time()
+    for path in sorted(_glob.glob(
+        os.path.join(default_gossip_dir(state.config.port), "metrics-w*.prom")
+    )):
+        if path == own:
+            continue
+        try:
+            if now - os.path.getmtime(path) > max_age_s:
+                continue
+            with open(path) as f:
+                text = f.read()
+        except OSError:
+            continue
+        parts.append("\n".join(
+            line for line in text.splitlines()
+            if line and not line.startswith("#")
+        ))
+    return ("\n".join(parts) + "\n") if parts else ""
+
+
+async def _metrics_spool_loop(state: AppState, interval_s: float) -> None:
+    while True:
+        try:
+            write_metrics_spool(state)
+        except Exception:
+            log.exception("metrics spool write failed")
+        await asyncio.sleep(interval_s)
 
 
 async def _maintenance_loop(state: AppState) -> None:

@@ -28,10 +28,13 @@ Behavior parity with the reference scheduler (reference balancer/mod.rs):
       restarts, and endpoint churn remaps only ~1/E of keys.
   Both fall back to normal scoring whenever the sticky endpoint is
   unhealthy, absent, or at its cap.
+- Gossip replication (gateway/gossip.py, multi-worker): TPS EMA samples and
+  (in lru mode) affinity pins publish to sibling workers and apply
+  last-writer-wins; a worker that misses updates only places requests
+  slightly worse until its own measurements converge.
 
-The reference's gossip replication of TPS samples, affinity pins and its
-prefix-heat map serves sibling workers; this gateway runs one worker, so
-that state stays local and the replication comes with multi-worker serving.
+The port's copy of llmlb_tpu/gateway/balancer.py's Python core (the
+reference's native router core is not ported yet).
 """
 
 from __future__ import annotations
@@ -46,12 +49,23 @@ import time
 import typing
 from collections import OrderedDict, defaultdict, deque
 
-from llmlb_tpu_torch.gateway.config import QueueConfig
+from llmlb_tpu_torch.gateway.config import QueueConfig, env_bool
+from llmlb_tpu_torch.gateway.gossip import SeqClock, Version, newer
 from llmlb_tpu_torch.gateway.types import Endpoint, TpsApiKind
 
 TPS_EMA_ALPHA = 0.2  # parity: balancer/types.rs:109
 HISTORY_WINDOW_S = 3600.0  # parity: 60-min window, balancer/types.rs:22
 METRICS_STALE_S = 120.0
+
+# Gossip: one TPS message per tracked key at most this often — the EMA moves
+# slowly, and per-request fan-out would put a datagram on the bus for every
+# completion.
+TPS_GOSSIP_MIN_INTERVAL_S = 1.0
+
+# Prefix-heat gossip: batch locally observed (hash → endpoint, hits) deltas
+# and flush at most this often, so a hot shared prefix costs one datagram
+# per interval, not one per request.
+HEAT_GOSSIP_MIN_INTERVAL_S = 1.0
 
 # Telemetry-aware placement: above this HBM fill fraction an endpoint's score
 # fades linearly, reaching TELEMETRY_MIN_PENALTY at 100% full. A KV-cache-bound
@@ -241,20 +255,44 @@ class LoadManager:
         self.affinity_mode = (affinity_mode if affinity_mode in AFFINITY_MODES
                               else default_affinity_mode())
         self._lock = threading.Lock()
+        # GossipBus | None (set by app_state in multi-worker mode): TPS
+        # samples and lru-mode affinity pins replicate to sibling workers.
+        # Advisory only — every consumer of this state tolerates staleness.
+        self.gossip = None
+        self._tps_pub_ts: dict[tuple[str, str, str], float] = {}
         # (endpoint_id, model, api_kind) -> ModelTpsState
         self._tps: dict[tuple[str, str, str], ModelTpsState] = {}
+        # Seq-LWW versions (gossip.newer): per-key (seq, origin) stamps for
+        # TPS/affinity state plus per-endpoint clear tombstones, so a
+        # delayed datagram from before a clear can never resurrect stale
+        # state — wall stamps don't order across hosts. The local clock is
+        # the fallback when no bus is attached (single worker).
+        self._local_clock = SeqClock()
+        self._tps_ver: dict[tuple[str, str, str], Version] = {}
+        self._clear_ver: dict[str, Version] = {}
         self._active: dict[str, int] = defaultdict(int)
         self._rr_counter: dict[str, int] = defaultdict(int)  # round-robin per model
         self._history: deque[RequestRecord] = deque()
         self._total_requests = 0
-        # (model, prefix_hash) -> (endpoint_id, recorded_at); recorded_at
-        # drives the TTL. Bounded LRU.
+        # (model, prefix_hash) -> (endpoint_id, recorded_at, version);
+        # recorded_at is LOCAL receipt time (TTL only — skew-free),
+        # version is the seq-LWW stamp. Bounded LRU.
         self._affinity: OrderedDict[
-            tuple[str, str], tuple[str, float]
+            tuple[str, str], tuple[str, float, Version]
         ] = OrderedDict()
         self._affinity_hits = 0
         self._affinity_misses = 0
         self._affinity_evictions = 0
+        # Prefix-heat map (LLMLB_AFFINITY_HEAT, ring mode): which endpoint
+        # ACTUALLY holds each hot prefix cached, learned locally and over
+        # gossip — ring selection prefers a live under-cap holder before
+        # the rendezvous owner, so steering follows real cache contents
+        # after endpoint churn/migration instead of pure hash topology.
+        # (model, prefix_hash) -> [endpoint_id, hits, version]; bounded LRU.
+        self.affinity_heat = env_bool("LLMLB_AFFINITY_HEAT", False)
+        self._heat: OrderedDict[tuple[str, str], list] = OrderedDict()
+        self._heat_pending: dict[str, dict[str, list]] = {}
+        self._heat_pub_ts = 0.0
         # In-band per-endpoint outcome stats (resilience layer feeds these;
         # stream interruptions land here too — before this, a stream that
         # died mid-flight never counted against its endpoint because the
@@ -282,6 +320,72 @@ class LoadManager:
             key = (endpoint_id, model, api_kind.value)
             state = self._tps.setdefault(key, ModelTpsState())
             state.update(tokens, duration_s)
+        self._stamp_tps(endpoint_id, model, api_kind.value)
+        self._maybe_gossip_tps(endpoint_id, model, api_kind.value)
+
+    def _stamp_tps(self, endpoint_id: str, model: str, kind: str) -> None:
+        """A local in-band measurement outranks every gossip message this
+        worker has already witnessed (Lamport: the tick is causally after
+        them) — a delayed stale datagram can never override it."""
+        ver = self._next_ver()
+        with self._lock:
+            self._tps_ver[(endpoint_id, model, kind)] = ver
+
+    # --------------------------------------------------------- tps replication
+
+    def _next_ver(self) -> Version:
+        """Allocate a fresh seq-LWW version: the bus's Lamport clock when
+        gossip is attached (so local stamps and wire stamps share one
+        order), a process-local clock otherwise."""
+        g = self.gossip
+        if g is not None:
+            return g.next_version()
+        return (self._local_clock.tick(), "local")
+
+    def _tps_info(self, endpoint_id: str, model: str,
+                  kind: str) -> tuple[float, int, float] | None:
+        """(ema, samples, last_update) for one key."""
+        with self._lock:
+            state = self._tps.get((endpoint_id, model, kind))
+            if state is None or state.samples == 0:
+                return None
+            return state.ema_tps, state.samples, state.last_update
+
+    def _maybe_gossip_tps(self, endpoint_id: str, model: str,
+                          kind: str) -> None:
+        g = self.gossip
+        if g is None:
+            return
+        key = (endpoint_id, model, kind)
+        now = time.monotonic()
+        if now - self._tps_pub_ts.get(key, 0.0) < TPS_GOSSIP_MIN_INTERVAL_S:
+            return
+        self._tps_pub_ts[key] = now
+        info = self._tps_info(endpoint_id, model, kind)
+        if info is None:
+            return
+        ema, samples, _last = info
+        g.publish("tps", {"eid": endpoint_id, "model": model, "kind": kind,
+                          "ema": ema, "samples": samples})
+
+    def apply_remote_tps(self, endpoint_id: str, model: str, kind: str,
+                         ema: float, samples: int, ver: Version) -> None:
+        """A sibling worker's EMA, applied seq-LWW: not newer than this
+        worker's own stamp (or the endpoint's clear tombstone) is dropped —
+        wall stamps skew across hosts and silently resurrected stale state;
+        (seq, origin) versions don't. Never re-gossips."""
+        ver = tuple(ver)
+        key = (endpoint_id, model, kind)
+        with self._lock:
+            if not newer(ver, self._clear_ver.get(endpoint_id)):
+                return
+            if not newer(ver, self._tps_ver.get(key)):
+                return
+            self._tps_ver[key] = ver
+            self._tps[key] = ModelTpsState(
+                ema_tps=ema, samples=max(1, samples),
+                last_update=time.time(),
+            )
 
     def seed_tps(self, endpoint_id: str, model: str, api_kind: TpsApiKind,
                  ema_tps: float, samples: int = 1) -> None:
@@ -297,15 +401,42 @@ class LoadManager:
             state = self._tps.get((endpoint_id, model, api_kind.value))
             return state.ema_tps if state and state.samples else None
 
-    def clear_tps_for_endpoint(self, endpoint_id: str) -> None:
+    def clear_tps_for_endpoint(self, endpoint_id: str,
+                               _publish: bool = True) -> None:
         """On failure: a recovered endpoint must re-learn (balancer/mod.rs:1791).
         Prefix affinities pinned to it are dropped too — its engine restarts
         with a cold prefix cache, so stickiness buys nothing and would keep
-        steering shared-prefix traffic at a flapping endpoint."""
+        steering shared-prefix traffic at a flapping endpoint. The clear
+        gossips to sibling workers (the pull checker that noticed the
+        failure runs in one elected worker only)."""
+        ver = self._next_ver()
+        self._clear_endpoint_state(endpoint_id, ver)
+        if _publish and self.gossip is not None:
+            self.gossip.publish("tps_clear", {"eid": endpoint_id},
+                                seq=ver[0])
+
+    def apply_remote_tps_clear(self, endpoint_id: str, ver: Version) -> None:
+        """A sibling's clear, tombstoned with the WIRE version: any tps or
+        affinity datagram published before the clear (lower version) is
+        dropped on arrival — no stale-state resurrection, however delayed
+        or reordered the transport got. Never re-gossips."""
+        ver = tuple(ver)
         with self._lock:
+            if not newer(ver, self._clear_ver.get(endpoint_id)):
+                return
+        self._clear_endpoint_state(endpoint_id, ver)
+
+    def _clear_endpoint_state(self, endpoint_id: str, ver: Version) -> None:
+        with self._lock:
+            self._clear_ver[endpoint_id] = ver
             for key in [k for k, v in self._affinity.items()
                         if v[0] == endpoint_id]:
                 del self._affinity[key]
+            for key in [k for k in self._tps_ver if k[0] == endpoint_id]:
+                del self._tps_ver[key]
+            for key in [k for k, v in self._heat.items()
+                        if v[0] == endpoint_id]:
+                del self._heat[key]
             self._tps = {
                 k: v for k, v in self._tps.items() if k[0] != endpoint_id
             }
@@ -328,20 +459,119 @@ class LoadManager:
         got = self._affinity.get(key)
         if got is None:
             return None
-        endpoint_id, ts = got
+        endpoint_id, ts, _ver = got
         if time.time() - ts > PREFIX_AFFINITY_TTL_S:
             del self._affinity[key]
             return None
         return endpoint_id
 
     def _affinity_note_locked(self, model: str, prefix_hash: str,
-                              endpoint_id: str) -> None:
+                              endpoint_id: str) -> bool:
+        """Returns True when the pin is new or moved to another endpoint
+        (the only cases worth gossiping — refreshes are noise)."""
         key = (model, prefix_hash)
-        self._affinity[key] = (endpoint_id, time.time())
+        prev = self._affinity.get(key)
+        self._affinity[key] = (endpoint_id, time.time(), self._next_ver())
         self._affinity.move_to_end(key)
         while len(self._affinity) > PREFIX_AFFINITY_CAPACITY:
             self._affinity.popitem(last=False)
             self._affinity_evictions += 1
+        return prev is None or prev[0] != endpoint_id
+
+    def _gossip_affinity(self, model: str, prefix_hash: str,
+                         endpoint_id: str) -> None:
+        if self.gossip is not None:
+            self.gossip.publish("affinity", {
+                "model": model, "hash": prefix_hash, "eid": endpoint_id,
+            })
+
+    def apply_remote_affinity(self, model: str, prefix_hash: str,
+                              endpoint_id: str, ver: Version) -> None:
+        """A sibling worker pinned this prefix (lru mode only — ring mode
+        needs no replication, the hash IS the agreement). Seq-LWW on the
+        wire version; TTL runs on LOCAL receipt time (remote wall stamps
+        would expire early/late under cross-host skew). Never counted as
+        hit/miss, never re-gossiped."""
+        if self.affinity_mode != "lru":
+            return
+        ver = tuple(ver)
+        with self._lock:
+            if not newer(ver, self._clear_ver.get(endpoint_id)):
+                return
+            key = (model, prefix_hash)
+            cur = self._affinity.get(key)
+            if cur is not None and not newer(ver, cur[2]):
+                return
+            self._affinity[key] = (endpoint_id, time.time(), ver)
+            self._affinity.move_to_end(key)
+            while len(self._affinity) > PREFIX_AFFINITY_CAPACITY:
+                self._affinity.popitem(last=False)
+                self._affinity_evictions += 1
+
+    # ----------------------------------------------------------- prefix heat
+
+    def _heat_note_locked(self, model: str, prefix_hash: str,
+                          endpoint_id: str) -> None:
+        """One request for this prefix actually served by `endpoint_id` —
+        its KV cache now (still) holds the prefix. Caller holds _lock."""
+        key = (model, prefix_hash)
+        entry = self._heat.get(key)
+        if entry is not None and entry[0] == endpoint_id:
+            entry[1] += 1
+        else:
+            entry = [endpoint_id, 1, self._next_ver()]
+            self._heat[key] = entry
+        self._heat.move_to_end(key)
+        while len(self._heat) > PREFIX_AFFINITY_CAPACITY:
+            self._heat.popitem(last=False)
+        self._heat_pending.setdefault(model, {})[prefix_hash] = [
+            endpoint_id, entry[1],
+        ]
+
+    def _maybe_gossip_heat(self) -> None:
+        """Flush batched heat deltas at most once per interval (call sites
+        must NOT hold _lock — publish writes to sockets)."""
+        g = self.gossip
+        if g is None or not self.affinity_heat:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if (not self._heat_pending
+                    or now - self._heat_pub_ts < HEAT_GOSSIP_MIN_INTERVAL_S):
+                return
+            self._heat_pub_ts = now
+            pending, self._heat_pending = self._heat_pending, {}
+        for model, entries in pending.items():
+            g.publish("heat", {"model": model, "entries": entries})
+
+    def apply_remote_heat(self, model: str, entries: dict,
+                          ver: Version) -> None:
+        """A sibling's heat deltas: seq-LWW per entry, hit counts merge
+        monotonically when both workers agree on the holder. Never
+        re-gossips."""
+        ver = tuple(ver)
+        with self._lock:
+            for prefix_hash, value in entries.items():
+                if not (isinstance(value, (list, tuple)) and len(value) >= 2):
+                    continue
+                eid, hits = str(value[0]), int(value[1])
+                if not newer(ver, self._clear_ver.get(eid)):
+                    continue
+                key = (model, str(prefix_hash))
+                cur = self._heat.get(key)
+                if cur is not None and cur[0] == eid:
+                    cur[1] = max(cur[1], hits)
+                    cur[2] = max(cur[2], ver)
+                elif cur is None or newer(ver, cur[2]):
+                    self._heat[key] = [eid, hits, ver]
+                self._heat.move_to_end(key)
+            while len(self._heat) > PREFIX_AFFINITY_CAPACITY:
+                self._heat.popitem(last=False)
+
+    def _heat_endpoint_locked(self, model: str,
+                              prefix_hash: str) -> str | None:
+        entry = self._heat.get((model, prefix_hash))
+        return entry[0] if entry is not None else None
 
     def _affinity_endpoint(self, model: str,
                            prefix_hash: str | None) -> str | None:
@@ -361,6 +591,14 @@ class LoadManager:
         if prefix_hash is None:
             return None
         if self.affinity_mode == "ring":
+            if self.affinity_heat:
+                # steer by what is ACTUALLY cached where, when known: a
+                # migrated/churned prefix keeps hitting its warm engine
+                # instead of the (cold) rendezvous owner
+                with self._lock:
+                    hot = self._heat_endpoint_locked(model, prefix_hash)
+                if hot is not None and any(ep.id == hot for ep in endpoints):
+                    return hot
             return self._hrw_owner(prefix_hash, [ep.id for ep in endpoints])
         return self._affinity_endpoint(model, prefix_hash)
 
@@ -368,13 +606,20 @@ class LoadManager:
                          endpoint_id: str, *, hit: bool) -> None:
         if prefix_hash is None:
             return
+        changed = False
         with self._lock:
             if self.affinity_mode == "lru":
-                self._affinity_note_locked(model, prefix_hash, endpoint_id)
+                changed = self._affinity_note_locked(model, prefix_hash,
+                                                     endpoint_id)
+            if self.affinity_heat:
+                self._heat_note_locked(model, prefix_hash, endpoint_id)
             if hit:
                 self._affinity_hits += 1
             else:
                 self._affinity_misses += 1
+        if changed:
+            self._gossip_affinity(model, prefix_hash, endpoint_id)
+        self._maybe_gossip_heat()
 
     def affinity_stats(self) -> dict:
         """Prefix-affinity figures for the gateway /metrics exposition."""
@@ -384,6 +629,7 @@ class LoadManager:
                 "hits_total": self._affinity_hits,
                 "misses_total": self._affinity_misses,
                 "evictions_total": self._affinity_evictions,
+                "heat_entries": len(self._heat),
             }
 
     # ------------------------------------------------------ endpoint outcomes
@@ -483,11 +729,21 @@ class LoadManager:
                 # Consistent-hash owner over the permitted set (not just the
                 # under-cap candidates): an at-cap owner counts a miss and
                 # falls through to scoring rather than silently remapping —
-                # the key snaps back the moment capacity frees.
-                owner = self._hrw_owner(prefix_hash,
-                                        [ep.id for ep in endpoints])
+                # the key snaps back the moment capacity frees. With the
+                # heat map on, a live under-cap endpoint KNOWN to hold the
+                # prefix cached outranks the hash owner.
+                owner = None
+                if self.affinity_heat:
+                    owner = self._heat_endpoint_locked(model, prefix_hash)
+                    if not any(ep.id == owner for ep in candidates):
+                        owner = None
+                if owner is None:
+                    owner = self._hrw_owner(prefix_hash,
+                                            [ep.id for ep in endpoints])
                 for ep in candidates:
                     if ep.id == owner:
+                        if self.affinity_heat:
+                            self._heat_note_locked(model, prefix_hash, ep.id)
                         self._affinity_hits += 1
                         return ep
                 self._affinity_misses += 1
@@ -521,8 +777,12 @@ class LoadManager:
         self._rr_counter[model] += 1
         chosen = top[idx][1]
         if prefix_hash is not None and self.affinity_mode == "lru":
-            self._affinity_note_locked(model, prefix_hash, chosen.id)
+            changed = self._affinity_note_locked(model, prefix_hash, chosen.id)
             self._affinity_misses += 1
+            if changed:
+                # publish-under-lock is safe: gossip sends are non-blocking
+                # datagram writes, never an event-loop round trip
+                self._gossip_affinity(model, prefix_hash, chosen.id)
         return chosen
 
     def try_admit(

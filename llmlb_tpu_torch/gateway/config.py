@@ -205,8 +205,12 @@ class RateLimitConfig:
         LLMLB_RATELIMIT_OVERRIDES  JSON per-key overrides, e.g.
                                    {"bulk-batch": {"rps": 1, "tpm": 6000}}
 
-    One worker enforces the full limits; the reference's multi-worker
-    modes come with multi-worker serving.
+    Multi-worker: with the gossip bus up, buckets are fleet-GLOBAL — each
+    worker enforces the full limit and replicates its admitted spends as
+    `rl_spend` deltas (RateLimiter.attach_gossip), so a tenant at rps=N is
+    admitted ≈N across all workers and mesh-federated hosts. With gossip
+    disabled, limits divide by the worker count (each worker enforces
+    limit/N) — conservative, like retry budgets.
     """
 
     requests_per_s: float = 0.0

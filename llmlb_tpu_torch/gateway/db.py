@@ -273,7 +273,9 @@ class Database:
         )
         self._conn.row_factory = sqlite3.Row
         self._conn.execute("PRAGMA foreign_keys=ON")
-        # writers queue on the file lock instead of throwing SQLITE_BUSY
+        # Multi-worker serving (gateway/worker.py) gives each process its
+        # own connection to one WAL file; writers queue on the file lock
+        # instead of throwing SQLITE_BUSY at the first collision.
         self._conn.execute("PRAGMA busy_timeout=5000")
         # WAL + synchronous=NORMAL is the documented SQLite pairing: commits
         # skip the per-transaction fsync (the WAL is still fsynced at
@@ -284,8 +286,11 @@ class Database:
         self._conn.execute("PRAGMA synchronous=NORMAL")
         self._lock = threading.RLock()
         with self._lock:
-            # two processes opening one file at once: the WAL-mode switch
-            # needs a moment of exclusivity, so schema init retries briefly
+            # N forked workers initialize the same file concurrently at
+            # boot; executescript's implicit transaction handling can
+            # surface SQLITE_BUSY despite busy_timeout (the WAL-mode switch
+            # needs a moment of exclusivity), so schema init retries
+            # briefly instead of killing the worker.
             for attempt in range(50):
                 try:
                     self._conn.executescript(SCHEMA)

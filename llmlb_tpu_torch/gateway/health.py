@@ -11,8 +11,8 @@ telemetry flows into the registry (the reference read GPU fields, :515). The
 port reads the same fields from the port's engine (`/api/health`'s `gpu`
 block, with its `engine`, `disagg`, `draining` and `lora` blocks).
 The port's copy of llmlb_tpu/gateway/health.py, with its dashboard events
-(`EndpointStatusChanged`, `TelemetryUpdated`), less its gossip pushes
-(they come with multi-worker serving).
+(`EndpointStatusChanged`, `TelemetryUpdated`) and its gossip push of
+resident adapters (`residency`, from the primary worker that probes).
 """
 
 from __future__ import annotations
@@ -127,6 +127,10 @@ class EndpointHealthChecker:
         # this pull checker — a good probe fast-forwards an open breaker to
         # half-open, a recovered-from-offline endpoint gets a fresh breaker.
         self.resilience = resilience
+        # GossipBus | None (wired by app_state): resident-adapter changes
+        # push to sibling workers the moment a probe observes them, instead
+        # of each sibling waiting out its own registry reload.
+        self.gossip = None
         self._task: asyncio.Task | None = None
 
     def start(self) -> None:
@@ -303,6 +307,14 @@ class EndpointHealthChecker:
         if current == set(wanted):
             return
         self.registry.sync_models(ep.id, base + list(wanted.values()))
+        # Event-driven residency (docs/lora.md): the resident set CHANGED —
+        # push it so siblings (and mesh peers) patch their caches now, one
+        # gossip hop instead of one probe/reload interval.
+        if self.gossip is not None:
+            self.gossip.publish("residency", {
+                "eid": ep.id,
+                "adapters": {name: 1 for name in acc.lora_loaded},
+            })
 
     async def _on_recovery(self, ep: Endpoint) -> None:
         """Re-detect type (it may have been swapped) and resync models."""

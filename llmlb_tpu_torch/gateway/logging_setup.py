@@ -11,8 +11,9 @@ log-tail API (reference api/logs.rs:52).
 The port's copy of llmlb_tpu/gateway/logging_setup.py: the same
 environment (`LLMLB_LOG_DIR`, `LLMLB_LOG_LEVEL`, `LLMLB_LOG_RETENTION`,
 `LLMLB_LOG_FORMAT`), the same default directory and file name, and the
-`worker` field (`LLMLB_WORKER_INDEX`, 0 at one worker). The port's
-gateway installs it with its file sink, the port's engine server without.
+`worker` field (`LLMLB_WORKER_INDEX`, set in each forked worker; 0 at one
+worker). The port's gateway installs it with its file sink (in the primary
+worker alone under `--workers N`), the port's engine server without.
 """
 
 from __future__ import annotations

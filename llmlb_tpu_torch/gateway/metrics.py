@@ -24,6 +24,10 @@ resilience-layer series (gateway/resilience.py):
   llmlb_gateway_breaker_state{endpoint}                  gauge (0/1/2)
   llmlb_gateway_stream_interruptions_total{model,endpoint} counter
   llmlb_gateway_faults_injected_total{kind}              counter
+multi-worker series (gateway/gossip.py):
+  llmlb_gateway_gossip_delay_seconds                     histogram
+  (plus the gossip counters, gossip_peers and gossip_partition_suspected,
+   scrape-time figures injected by app_state.gateway_exposition)
 SLO goodput series (targets from SloConfig, docs/profiling.md):
   llmlb_gateway_slo_eligible_total{model}   counter (requests judged)
   llmlb_gateway_slo_met_total{model}        counter (met every target)
@@ -92,6 +96,10 @@ E2E_BUCKETS = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                60.0, 120.0)
 QUEUE_WAIT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                       5.0, 10.0, 30.0)
+# One-way gossip delivery delay: sub-ms on a unix socket, tens of ms across
+# hosts, seconds when a delay fault or congested mesh is in play.
+GOSSIP_LAG_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                      1.0, 2.5, 5.0)
 
 
 def _escape(value: str) -> str:
@@ -122,6 +130,9 @@ class GatewayMetrics:
         self._breaker_state: dict[str, int] = {}
         self._stream_interruptions: dict[tuple[str, str], int] = defaultdict(int)
         self._faults_injected: dict[str, int] = defaultdict(int)
+        # one-way gossip delivery delay per received message (wall-clock
+        # derived, diagnostic only — see gossip.py module docstring)
+        self._gossip_lag = Histogram(GOSSIP_LAG_BUCKETS)
         # structured outputs (llmlb_tpu/structured): requests that asked for
         # grammar-constrained decoding, by kind, and requests rejected 400
         # at gateway-side validation (malformed / unsupported schema)
@@ -227,6 +238,11 @@ class GatewayMetrics:
     def record_fault_injected(self, kind: str) -> None:
         with self._lock:
             self._faults_injected[kind] += 1
+
+    def observe_gossip_lag(self, seconds: float) -> None:
+        """One-way delivery delay of one received gossip message."""
+        with self._lock:
+            self._gossip_lag.observe(max(0.0, seconds))
 
     def record_structured_request(self, kind: str) -> None:
         """One request asking for constrained decoding; `kind` is
@@ -473,6 +489,28 @@ class GatewayMetrics:
                 lines.append(
                     f'llmlb_gateway_faults_injected_total'
                     f'{{kind="{_escape(kind)}"}} {n}'
+                )
+            lines.append("# TYPE llmlb_gateway_gossip_delay_seconds histogram")
+            if self._gossip_lag.n > 0:
+                cumulative = 0
+                for i, edge in enumerate(self._gossip_lag.edges):
+                    cumulative += self._gossip_lag.counts[i]
+                    lines.append(
+                        f'llmlb_gateway_gossip_delay_seconds_bucket'
+                        f'{{le="{edge}"}} {cumulative}'
+                    )
+                cumulative += self._gossip_lag.counts[-1]
+                lines.append(
+                    f'llmlb_gateway_gossip_delay_seconds_bucket'
+                    f'{{le="+Inf"}} {cumulative}'
+                )
+                lines.append(
+                    f"llmlb_gateway_gossip_delay_seconds_sum "
+                    f"{self._gossip_lag.total}"
+                )
+                lines.append(
+                    f"llmlb_gateway_gossip_delay_seconds_count "
+                    f"{self._gossip_lag.n}"
                 )
             lines.append(
                 "# TYPE llmlb_gateway_structured_requests_total counter"

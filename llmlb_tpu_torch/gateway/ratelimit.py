@@ -11,9 +11,21 @@ else's work. Two buckets per tenant:
   negative — a tenant that just streamed a huge completion throttles its
   own NEXT request, not the one already running).
 
-The reference's multi-worker modes (a per-worker share of each limit, or
-fleet-global buckets over its gossip bus) come with multi-worker serving;
-one worker enforces the full limits.
+Two enforcement modes:
+
+- **Local share** (no gossip): each worker enforces ``limit / workers`` —
+  conservative like retry budgets: the group as a whole can never admit
+  more than the configured rate, and SO_REUSEPORT's accept spreading makes
+  the per-worker share an even split in practice (docs/deployment.md).
+- **Global buckets** (gossip attached via ``attach_gossip``): every worker
+  holds FULL-limit buckets and batches its admissions into ``rl_spend``
+  gossip; receivers charge their own buckets by the delta (unconditionally
+  — levels may go negative), so a tenant at rps=N is admitted ≈N across
+  the whole fleet instead of N×workers. Gossip loss only makes the limit
+  temporarily more generous, never unsafe for correctness — and the bus
+  dropping entirely degrades to independent full-limit workers, which the
+  operator sees on the gossip_partition_suspected gauge. LLMLB_GOSSIP=0
+  keeps the conservative local-share mode.
 
 No reference counterpart: the reference gateway admits whoever shows up
 first (ROADMAP open item 5 names this as the missing overload story).
@@ -25,6 +37,11 @@ import threading
 import time
 
 from llmlb_tpu_torch.gateway.config import RateLimitConfig
+
+# Global mode: batch locally admitted spends and flush to the bus at most
+# this often (plus the bus heartbeat as a floor when traffic is idle) — one
+# datagram per interval per worker, not one per request.
+RL_SPEND_FLUSH_S = 0.25
 
 
 class TokenBucket:
@@ -81,21 +98,48 @@ class RateLimiter:
     # the map does not grow one pair per key ever seen.
     IDLE_EVICT_S = 900.0
 
-    def __init__(self, config: RateLimitConfig):
+    def __init__(self, config: RateLimitConfig, workers: int = 1):
         self.config = config
+        self.workers = max(1, int(workers))
         self._lock = threading.Lock()
         # tenant id -> (rps bucket | None, tpm bucket | None, last_used)
         self._buckets: dict[str, list] = {}
+        # Global mode (attach_gossip): the bus, plus spends admitted here
+        # since the last flush — tenant -> [requests, tokens, key_name].
+        self.gossip = None
+        self._pending: dict[str, list] = {}
+        self._last_flush = time.monotonic()
+        self.remote_spends_applied = 0  # datagrams folded in (snapshot)
 
     @property
     def enabled(self) -> bool:
         return self.config.enabled
 
+    @property
+    def global_mode(self) -> bool:
+        return self.gossip is not None
+
+    def attach_gossip(self, bus) -> None:
+        """Switch to fleet-global buckets: full limits locally, admissions
+        replicated as rl_spend deltas. Resets tracked tenants — their
+        buckets were sized for the per-worker share."""
+        with self._lock:
+            self.gossip = bus
+            self._buckets.clear()
+            self._pending.clear()
+        bus.subscribe("rl_spend",
+                      lambda d, m: self.apply_remote_spend(d["spends"]))
+        # traffic-idle flush floor: pending spends never wait past one
+        # heartbeat even if this worker admits nothing else
+        bus.on_heartbeat.append(self.flush_spends)
+
     def _limits_for(self, name: str | None) -> tuple[float, float, float]:
         """(rps, burst, tpm) for a tenant, overrides by key name first. A
         key PRESENT in the override wins even at 0 ("unlimited" — how a
         trusted key is exempted from the global default); an ABSENT key
-        inherits the global."""
+        inherits the global. Local-share mode divides by the worker count
+        (each worker enforces its share); global mode uses full limits and
+        relies on gossiped spends."""
         cfg = self.config
         rps, burst, tpm = cfg.requests_per_s, cfg.burst, cfg.tokens_per_min
         ov = cfg.overrides.get(name or "")
@@ -103,7 +147,8 @@ class RateLimiter:
             rps = float(ov["rps"]) if "rps" in ov else rps
             burst = float(ov["burst"]) if "burst" in ov else burst
             tpm = float(ov["tpm"]) if "tpm" in ov else tpm
-        return rps, max(0.0, burst), tpm
+        w = 1 if self.global_mode else self.workers
+        return rps / w, (burst / w if burst > 0 else 0.0), tpm / w
 
     def _pair(self, tenant: str, name: str | None):
         got = self._buckets.get(tenant)
@@ -144,6 +189,9 @@ class RateLimiter:
                     if rps_bucket is not None:
                         rps_bucket.level += 1.0  # roll back the paired debit
                     return RateVerdict(False, wait, "tokens")
+            if self.global_mode:
+                self._note_spend_locked(tenant, name, 1, max(0, est_tokens))
+        self.flush_spends()
         return _ALLOW
 
     def charge_tokens(self, tenant: str, tokens: int,
@@ -156,6 +204,56 @@ class RateLimiter:
             _, tpm_bucket, _ = self._pair(tenant, name)
             if tpm_bucket is not None:
                 tpm_bucket.charge(float(tokens))
+            if self.global_mode:
+                self._note_spend_locked(tenant, name, 0, tokens)
+        self.flush_spends()
+
+    # ---------------------------------------------------- global replication
+
+    def _note_spend_locked(self, tenant: str, name: str | None,
+                           reqs: int, tokens: int) -> None:
+        entry = self._pending.setdefault(tenant, [0, 0, name or ""])
+        entry[0] += reqs
+        entry[1] += tokens
+
+    def flush_spends(self, force: bool = False) -> None:
+        """Publish batched spend deltas when the interval elapsed (or
+        forced by tests/shutdown). Never called with the lock held —
+        publish writes to sockets."""
+        g = self.gossip
+        if g is None:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if not self._pending:
+                return
+            if not force and now - self._last_flush < RL_SPEND_FLUSH_S:
+                return
+            self._last_flush = now
+            pending, self._pending = self._pending, {}
+        g.publish("rl_spend", {
+            "spends": {t: list(v) for t, v in pending.items()},
+        })
+
+    def apply_remote_spend(self, spends: dict) -> None:
+        """A sibling's admitted spends: unconditional charges against our
+        own full-limit buckets (levels may go negative — exactly how the
+        post-paid completion debit already works), so the NEXT local
+        admission sees fleet-wide consumption. Never re-gossips."""
+        if not self.enabled or not isinstance(spends, dict):
+            return
+        with self._lock:
+            self.remote_spends_applied += 1
+            for tenant, value in spends.items():
+                if not (isinstance(value, (list, tuple)) and len(value) >= 2):
+                    continue
+                reqs, tokens = float(value[0]), float(value[1])
+                name = (str(value[2]) or None) if len(value) > 2 else None
+                rps_bucket, tpm_bucket, _ = self._pair(str(tenant), name)
+                if rps_bucket is not None and reqs > 0:
+                    rps_bucket.charge(reqs)
+                if tpm_bucket is not None and tokens > 0:
+                    tpm_bucket.charge(tokens)
 
     def snapshot(self) -> dict:
         """Live figures for /api/health."""
@@ -163,10 +261,9 @@ class RateLimiter:
             return {
                 "enabled": self.enabled,
                 "tenants_tracked": len(self._buckets),
-                # the reference's multi-worker fields, at one worker
-                "global": False,
-                "workers_divisor": 1,
-                "remote_spends_applied": 0,
+                "global": self.global_mode,
+                "workers_divisor": 1 if self.global_mode else self.workers,
+                "remote_spends_applied": self.remote_spends_applied,
                 "defaults": {
                     "rps": self.config.requests_per_s,
                     "burst": self.config.burst,

@@ -27,6 +27,11 @@ class EndpointRegistry:
         self._lock = threading.RLock()
         self._endpoints: dict[str, Endpoint] = {}
         self._models: dict[str, list[EndpointModel]] = {}  # endpoint_id -> models
+        # Called (no args) after every durable mutation; app_state wires it
+        # to the gossip bus in multi-worker mode so sibling workers reload
+        # their cache from the shared DB (~1 RTT instead of never — each
+        # worker's cache is otherwise only seeded at its own boot).
+        self.on_mutate = None
         self._load()
 
     def _load(self) -> None:
@@ -35,6 +40,20 @@ class EndpointRegistry:
             self._models = {}
             for m in self.db.list_endpoint_models():
                 self._models.setdefault(m.endpoint_id, []).append(m)
+
+    def reload(self) -> None:
+        """Re-seed the cache from the DB (a sibling worker mutated it).
+        Transient cache-only fields (breaker_state) are re-mirrored by the
+        resilience layer on its next transition; never fires on_mutate."""
+        self._load()
+
+    def _notify_mutation(self) -> None:
+        cb = self.on_mutate
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # allow-silent: a broken listener must not
+                pass           # poison registry mutations
 
     # ------------------------------------------------------------------ CRUD
 
@@ -45,6 +64,7 @@ class EndpointRegistry:
                     raise ValueError(f"endpoint URL already registered: {endpoint.url}")
             self.db.upsert_endpoint(endpoint)
             self._endpoints[endpoint.id] = endpoint
+        self._notify_mutation()
         return endpoint
 
     def update(self, endpoint: Endpoint) -> None:
@@ -52,6 +72,7 @@ class EndpointRegistry:
             endpoint.updated_at = time.time()
             self.db.upsert_endpoint(endpoint)
             self._endpoints[endpoint.id] = endpoint
+        self._notify_mutation()
 
     def remove(self, endpoint_id: str) -> bool:
         with self._lock:
@@ -60,6 +81,7 @@ class EndpointRegistry:
             self.db.delete_endpoint(endpoint_id)
             self._endpoints.pop(endpoint_id, None)
             self._models.pop(endpoint_id, None)
+        self._notify_mutation()
         return True
 
     def get(self, endpoint_id: str) -> Endpoint | None:
@@ -91,6 +113,7 @@ class EndpointRegistry:
             ep = self._endpoints.get(endpoint_id)
             if ep is None:
                 return None
+            status_changed = ep.status != status
             ep.status = status
             if latency_ms is not None:
                 ep.latency_ms = latency_ms
@@ -101,6 +124,11 @@ class EndpointRegistry:
             ep.last_checked_at = time.time()
             ep.updated_at = time.time()
             self.db.upsert_endpoint(ep)
+        # notify siblings on status flips only — every 30 s probe rewrites
+        # latency/telemetry, and a reload per probe per worker is pure churn
+        # (stale telemetry between flips degrades steering, not correctness)
+        if status_changed:
+            self._notify_mutation()
         return ep
 
     def set_breaker_state(self, endpoint_id: str, state: str) -> None:
@@ -121,6 +149,7 @@ class EndpointRegistry:
             ep.endpoint_type = endpoint_type
             ep.updated_at = time.time()
             self.db.upsert_endpoint(ep)
+        self._notify_mutation()
 
     # ----------------------------------------------------------------- models
 
@@ -128,6 +157,37 @@ class EndpointRegistry:
         with self._lock:
             self.db.replace_endpoint_models(endpoint_id, models)
             self._models[endpoint_id] = list(models)
+        self._notify_mutation()
+
+    def apply_residency(self, endpoint_id: str, adapters: list[str]) -> None:
+        """Patch the cached `base:adapter` model entries for an endpoint to
+        exactly `adapters` — the gossip fast path for adapter residency
+        (health._sync_lora_models pushes changes the moment a probe sees
+        them). Cache-only like set_breaker_state: the primary's sync_models
+        already persisted the truth to the shared DB, and a full reload
+        rides the `registry` gossip behind this message anyway — this just
+        closes the window where a sibling routes on a stale resident set."""
+        with self._lock:
+            models = self._models.get(endpoint_id)
+            if not models:
+                return
+            base = [m for m in models if ":" not in m.model_id]
+            lora_base = [m for m in base
+                         if Capability.LORA in m.capabilities]
+            if not lora_base:
+                return
+            wanted: dict[str, EndpointModel] = {}
+            for m in lora_base:
+                for name in adapters:
+                    mid = f"{m.model_id}:{name}"
+                    wanted[mid] = EndpointModel(
+                        endpoint_id=endpoint_id,
+                        model_id=mid,
+                        canonical_name=f"{m.canonical_name}:{name}",
+                        capabilities=list(m.capabilities),
+                        context_length=m.context_length,
+                    )
+            self._models[endpoint_id] = base + list(wanted.values())
 
     def models_for(self, endpoint_id: str) -> list[EndpointModel]:
         with self._lock:

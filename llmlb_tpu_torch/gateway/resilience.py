@@ -50,6 +50,7 @@ from llmlb_tpu_torch.gateway.faults import (
     InjectedHTTPResponse,
     StreamCutResponse,
 )
+from llmlb_tpu_torch.gateway.gossip import SeqClock, newer
 
 RETRYABLE_EXCEPTIONS = (http.ClientError, asyncio.TimeoutError, OSError)
 
@@ -80,7 +81,7 @@ class _Breaker:
 
     __slots__ = ("state", "consecutive_failures", "opened_at", "open_until",
                  "trip_streak", "probes_in_flight", "probe_started_at",
-                 "last_failure_reason")
+                 "last_failure_reason", "last_change_ver")
 
     def __init__(self):
         self.state = BreakerState.CLOSED
@@ -91,6 +92,11 @@ class _Breaker:
         self.probes_in_flight = 0
         self.probe_started_at = 0.0
         self.last_failure_reason: str | None = None
+        # (seq, origin) stamp of the last applied transition (local or
+        # remote): the seq-LWW ordering key for cross-worker gossip — wall
+        # stamps skewed across hosts and could resurrect a stale OPEN
+        # (gossip.newer); None until the first transition.
+        self.last_change_ver: tuple | None = None
 
 
 class RetryBudget:
@@ -106,6 +112,13 @@ class RetryBudget:
         self._lock = threading.Lock()
         self._requests: list[float] = []
         self._retries: list[float] = []
+        # Called (spend count is rare — failures only) after a successful
+        # local spend; app_state wires this to gossip so sibling workers
+        # count the retry against their own window too. Request volume
+        # stays worker-local on purpose: replicating every request would
+        # put a datagram on the bus per request, and a per-worker request
+        # denominator only makes the budget MORE conservative.
+        self.on_spend = None
 
     def _trim(self, now: float) -> None:
         cutoff = now - self.window_s
@@ -138,7 +151,20 @@ class RetryBudget:
             if len(self._retries) >= cap:
                 return False
             self._retries.append(now)
+        cb = self.on_spend
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # allow-silent: gossip publish is best-effort
+                pass
         return True
+
+    def note_remote_spend(self) -> None:
+        """A sibling worker spent a retry: count it against this window so
+        the fleet-wide retry volume honors one budget, not N."""
+        with self._lock:
+            self._trim(time.monotonic())
+            self._retries.append(time.monotonic())
 
     def snapshot(self) -> dict:
         now = time.monotonic()
@@ -176,6 +202,19 @@ class ResilienceManager:
         )
         self._lock = threading.Lock()
         self._breakers: dict[str, _Breaker] = {}
+        # GossipBus | None (set by app_state): transitions replicate to
+        # sibling workers so a breaker tripped here ejects the endpoint
+        # everywhere within ~1 RTT. Advisory — with gossip off, every worker
+        # still converges on its own in-band failures.
+        self.gossip = None
+        self._applying_remote = False  # loop guard: remote applies don't re-gossip
+        self._local_clock = SeqClock()  # version source when no bus attached
+
+    def _next_ver(self):
+        g = self.gossip
+        if g is not None:
+            return g.next_version()
+        return (self._local_clock.tick(), "local")
 
     # ------------------------------------------------------------ transitions
 
@@ -188,6 +227,8 @@ class ResilienceManager:
         if frm == to:
             return
         b.state = to
+        ver = self._next_ver()
+        b.last_change_ver = ver
         if to == BreakerState.OPEN:
             now = time.monotonic()
             b.opened_at = now
@@ -223,6 +264,69 @@ class ResilienceManager:
                 "to": to.value,
                 "reason": reason,
             })
+        if self.gossip is not None and not self._applying_remote:
+            # the wire version IS the local stamp (seq=ver[0]): a delayed
+            # echo of an older remote transition can never outrank this one
+            self.gossip.publish("breaker", {
+                "eid": endpoint_id,
+                "to": to.value,
+                "reason": reason,
+                # ship the remaining open interval, not the deadline —
+                # peers rebuild the deadline on their own monotonic clock
+                "remaining_s": (
+                    round(max(0.0, b.open_until - time.monotonic()), 3)
+                    if to == BreakerState.OPEN else 0.0
+                ),
+            }, seq=ver[0])
+
+    def apply_remote_breaker(self, endpoint_id: str, to: str,
+                             remaining_s: float, reason: str | None,
+                             ver: tuple) -> None:
+        """A sibling worker's breaker transition, applied seq-LWW.
+
+        OPEN ejects the endpoint here with the peer's remaining interval (so
+        the whole group reopens together); CLOSED/HALF_OPEN relax a local
+        open breaker (the peer had direct probe evidence). Purely advisory:
+        a dropped message only delays ejection until this worker's own
+        failures trip its local breaker, and correctness (request outcomes,
+        retries) never consults the peer state directly."""
+        if not self.config.enabled:
+            return
+        try:
+            target = BreakerState(to)
+        except ValueError:
+            return
+        if (self.registry is not None
+                and self.registry.get(endpoint_id) is None):
+            return  # deleted endpoint: never resurrect its breaker
+        ver = tuple(ver)
+        with self._lock:
+            b = self._breakers.setdefault(endpoint_id, _Breaker())
+            if not newer(ver, b.last_change_ver):
+                return  # stale: this worker already knows something newer
+            self._applying_remote = True
+            try:
+                if target == BreakerState.OPEN:
+                    if b.state != BreakerState.OPEN:
+                        self._transition(endpoint_id, b, BreakerState.OPEN,
+                                         f"gossip: {reason}")
+                        # override the locally computed interval with the
+                        # tripping worker's remaining window
+                        b.open_until = time.monotonic() + max(0.0, remaining_s)
+                elif target == BreakerState.HALF_OPEN:
+                    if b.state == BreakerState.OPEN:
+                        self._transition(endpoint_id, b,
+                                         BreakerState.HALF_OPEN,
+                                         f"gossip: {reason}")
+                elif b.state != BreakerState.CLOSED:
+                    self._transition(endpoint_id, b, BreakerState.CLOSED,
+                                     f"gossip: {reason}")
+                # adopt the WIRE version: this worker's state now equals the
+                # sender's, so anything newer than the sender's stamp (and
+                # only that) should supersede it here too
+                b.last_change_ver = ver
+            finally:
+                self._applying_remote = False
 
     # -------------------------------------------------------------- selection
 

@@ -19,9 +19,12 @@ engine's ``GET /api/requests/{id}/timeline`` and merged into one causally
 ordered event list. ``?format=chrome`` exports the same merge as Chrome
 trace-event JSON loadable in Perfetto (chrome://tracing).
 
-The port's copy of llmlb_tpu/gateway/tracing.py at one worker, with its
-``TraceCompleted`` events: the reference's trace spool (sibling workers
-answering for each other) comes with multi-worker serving.
+Multi-worker lookup: SO_REUSEPORT hands ``/api/traces/{id}`` to an
+arbitrary worker, which 404s when a sibling served the request. With a
+spool directory configured (the gossip dir, automatic under multi-worker),
+completed traces are spooled as one JSON file each and any worker answers
+for any sibling — the /metrics spool's sibling-merge pattern. The port's
+copy of llmlb_tpu/gateway/tracing.py, with its ``TraceCompleted`` events.
 
 No reference counterpart: the reference router only logs per-request
 lines. This is the shared spine later perf PRs measure themselves
@@ -30,6 +33,7 @@ against — TTFT vs queue wait vs engine step time, per request.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import threading
@@ -203,15 +207,26 @@ class RequestTrace:
 
 class TraceStore:
     """Bounded ring of completed traces + the in-flight set. Thread-safe:
-    completion may be observed from bench/scrape threads."""
+    completion may be observed from bench/scrape threads.
+
+    `spool_dir` (multi-worker): completed traces are additionally written
+    as one JSON file each so sibling workers sharing the directory can
+    answer `/api/traces/{id}` for requests they never served."""
+
+    SPOOL_RETENTION_S = 600.0
+    _SPOOL_PRUNE_EVERY = 64
 
     def __init__(self, capacity: int = 256, events=None,
-                 timeline_interval: int | None = None):
+                 timeline_interval: int | None = None,
+                 spool_dir: str | None = None):
         self.capacity = max(1, capacity)
         self._events = events  # DashboardEventBus | None
         self._lock = threading.Lock()
         self._active: "OrderedDict[str, RequestTrace]" = OrderedDict()
         self._done: deque[RequestTrace] = deque(maxlen=self.capacity)
+        self.spool_dir = spool_dir
+        self.spool_errors_total = 0
+        self._spool_writes = 0
         # token-timeline sampling: every Nth streamed request carries marks
         # (1 = all streams, 0 = none; LLMLB_TRACE_TIMELINE_SAMPLE)
         if timeline_interval is None:
@@ -256,6 +271,8 @@ class TraceStore:
             if self._active.get(trace.trace_id) is trace:
                 del self._active[trace.trace_id]
             self._done.append(trace)
+        if self.spool_dir:
+            self._spool(trace)
         if self._events is not None:
             self._events.publish("TraceCompleted", {
                 "trace_id": trace.trace_id,
@@ -278,7 +295,71 @@ class TraceStore:
                     d = t.to_dict()
                     d["in_flight"] = False
                     return d
-        return None
+        # sibling-worker fallback: a spooled trace another worker finished
+        return self._read_spool(trace_id)
+
+    # -------------------------------------------------------------- spooling
+
+    def _spool_path(self, trace_id: str) -> str:
+        return os.path.join(self.spool_dir, f"trace-{trace_id}.json")
+
+    def _spool(self, trace: RequestTrace) -> None:
+        """Write one completed trace atomically (tmp + rename: a sibling's
+        concurrent read never sees a torn file). Spool failures count, not
+        crash — the in-memory ring stays authoritative."""
+        try:
+            os.makedirs(self.spool_dir, exist_ok=True)
+            path = self._spool_path(trace.trace_id)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            body = trace.to_dict()
+            body["in_flight"] = False
+            with open(tmp, "w") as f:
+                json.dump(body, f, separators=(",", ":"))
+            os.replace(tmp, path)
+        except (OSError, TypeError, ValueError):
+            self.spool_errors_total += 1
+            return
+        self._spool_writes += 1
+        if self._spool_writes % self._SPOOL_PRUNE_EVERY == 0:
+            self._prune_spool()
+
+    def _prune_spool(self) -> None:
+        horizon = time.time() - self.SPOOL_RETENTION_S
+        try:
+            names = os.listdir(self.spool_dir)
+        except OSError:
+            return
+        for name in names:
+            if not name.startswith("trace-"):
+                continue
+            p = os.path.join(self.spool_dir, name)
+            try:
+                if os.path.getmtime(p) < horizon:
+                    os.unlink(p)
+            except OSError:
+                continue  # allow-silent: a sibling's sweep got there first
+
+    def _read_spool(self, trace_id: str) -> dict | None:
+        if not self.spool_dir or not _ID_RE.match(trace_id):
+            return None
+        try:
+            with open(self._spool_path(trace_id)) as f:
+                body = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if not isinstance(body, dict) or body.get("trace_id") != trace_id:
+            return None
+        body["spooled"] = True
+        return body
+
+    def list(self, limit: int = 100) -> list[dict]:
+        """Most-recent-first completed traces (non-positive limit: none)."""
+        if limit <= 0:
+            return []
+        with self._lock:
+            out = [t.to_dict() for t in list(self._done)[-limit:]]
+        out.reverse()
+        return out
 
 
 def observe_first_token(state, trace, model: str, endpoint_name: str,

@@ -68,6 +68,14 @@ def _env(monkeypatch):
     monkeypatch.setitem(sys.modules, "tiktoken", None)
     monkeypatch.setenv("LLMLB_BREAKER_FAILURE_THRESHOLD", "2")
     monkeypatch.setenv("LLMLB_RETRY_BACKOFF_BASE", "0")
+    # Nothing the session compares may depend on the host's speed: a
+    # request on a loaded host must not miss an SLO target in one gateway
+    # and meet it in the other (the overview's slo_met_total and
+    # goodput_ratio), and a tripped breaker must not reach its half-open
+    # time in one session only.
+    monkeypatch.setenv("LLMLB_SLO_TTFT_MS", "3600000")
+    monkeypatch.setenv("LLMLB_SLO_ITL_MS", "3600000")
+    monkeypatch.setenv("LLMLB_BREAKER_OPEN_SECS", "3600")
     monkeypatch.setattr(ref_bench.STORE, "runs", {})
     monkeypatch.setattr(api_benchmarks.STORE, "runs", {})
 
@@ -220,11 +228,15 @@ async def _session(base: str, stub_a: str, stub_flaky: str,
             "model": STUB_MODEL, "requests": 4, "concurrency": 2,
             "max_tokens": 3}, headers=admin)
         ids[run["run_id"]] = "run"
-        for _ in range(400):
+        # wait on the run itself, not on a fixed number of polls
+        deadline = asyncio.get_running_loop().time() + 120
+        while True:
             async with s.get(base + f"/api/benchmarks/tps/{run['run_id']}",
                              headers=admin) as r:
                 if (await r.json())["status"] == "completed":
                     break
+            assert asyncio.get_running_loop().time() < deadline, \
+                "the TPS run never completed"
             await asyncio.sleep(0.025)
         await call("GET", f"/api/benchmarks/tps/{run['run_id']}",
                    headers=admin)
@@ -341,7 +353,12 @@ async def test_scripted_dashboard_session_matches_the_jax_gateway(
                                 for i in range(3)])
         kinds = [e[0] for e in ours[1]]
         assert kinds.count("EndpointRegistered") == 2
-        assert kinds.count("TelemetryUpdated") == 2
+        # one TelemetryUpdated for each probe that happened (registration
+        # probes each endpoint once; the checker does not loop here)
+        probes = port.state.db.query_one(
+            "SELECT COUNT(*) AS n FROM endpoint_health_checks")["n"]
+        assert probes == 2
+        assert kinds.count("TelemetryUpdated") == probes
         assert ("BreakerStateChanged", {
             "endpoint_id": "<flaky>", "name": "flaky", "from": "closed",
             "to": "open", "reason": "failure threshold: connect_error"}) \

@@ -78,7 +78,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "gateway.api_models", "gateway.audit",
                  "gateway.system_info", "gateway.events",
                  "gateway.api_dashboard", "gateway.api_benchmarks",
-                 "gateway.logging_setup"):
+                 "gateway.logging_setup", "gateway.worker",
+                 "gateway.gossip"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -175,6 +176,33 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
     assert proc.returncode == 0, err
     assert json.loads(out.strip().splitlines()[-1]) == []
     assert (tmp_path / "llmlb.db").exists()
+
+
+def test_gateway_workers_import_no_torch():
+    """Every module of the gateway, the multi-worker supervisor
+    (gateway/worker.py) and the gossip bus (gateway/gossip.py) among them,
+    imports with torch, jax and llmlb_tpu unimportable: a worker the
+    supervisor forks never holds a CUDA context it could not use.
+    tests/test_torch_gateway_multiworker.py serves `--workers 2` so."""
+    gateway = [m for m in _port_modules()
+               if m.startswith("llmlb_tpu_torch.gateway")]
+    assert {"llmlb_tpu_torch.gateway.worker",
+            "llmlb_tpu_torch.gateway.gossip"} <= set(gateway)
+    code = (
+        "import importlib, json, sys\n"
+        "for n in ('torch', 'jax', 'llmlb_tpu', 'aiohttp', 'argon2'):\n"
+        "    sys.modules[n] = None\n"
+        f"for m in {gateway!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m, v in sys.modules.items()\n"
+        "                        if v is not None)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if m.split(".")[0] in (
+        "torch", "jax", "llmlb_tpu", "aiohttp", "argon2", "tiktoken")] == []
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
