@@ -15,7 +15,13 @@ in one call on one card:
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — the card's name and power limit (nvidia-smi), TF32 off.
-2. build   — compile llmlb_tpu_torch/csrc/*.cu with nvcc for sm_90a.
+2. build   — compile llmlb_tpu_torch/csrc/*.cu with nvcc for sm_90a, and
+             the gateway's native library (llmlb_tpu_torch/native/*.cpp,
+             g++), held against its Python twins: the router core on a
+             seeded 400-step trace, the SSE scanner on fuzzed chunk
+             boundaries, the chain hash and the constant-time compare.
+             Every gateway the script starts must run on it (its process
+             maps the library).
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              in bf16 and fp32 at the serving shapes of Llama-3-8B and in fp32
              at debug-tiny's widths, show that the limit rejects the plain
@@ -195,6 +201,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
              first new token's latency beside the replay's (the same resume
              without pages) are logged. The second engine's launches are
              taken out of the counts and logged on a line of their own.
+             In bf16 then the rebalance sub-block: the port's gateway in
+             this process in front of both servers, the second registered
+             first and warmed (an SLO miss: goodput 0), then the serving
+             one; a greedy 64-token chat stream through it starts on the
+             serving core and, after 16 ids, the health checker probes
+             and the planner ticks twice (bands 0.1 / 0.05): one hotspot
+             directive, and the pump parks the stream, ships its pages
+             and splices the second engine's continuation; the client's
+             text and usage are the direct path's, the adopter's
+             committed plus new ids the direct ids with no prefill
+             dispatch and no prefill or extend launch there, /metrics
+             counts hotspot/success 1 and no resume; then the second
+             engine drains and a stream directed to it is refused and
+             stays on its origin with the direct ids.
              After the counts, the offload tier on a small engine (6
              pages, 2 GiB of host budget): a prefix evicted under page
              pressure and asked for again restores from host RAM, its
@@ -447,7 +467,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              rank, the launches added to the `kernels` line; the sub-phase
              seconds and the collectives' calls, bytes and host seconds
              logged. Then two sub-phases of the leader's actions (A18c),
-             tp=2 over Llama-3-8B at full width and depth: leader (an offload tier of 512 MiB),
+             tp=2 over Llama-3-8B at full width and MD_CUT_LAYERS of its
+             32 layers: leader (an offload tier of 512 MiB),
              over HTTP a streamed chat, its /v1/resume with 16 committed
              ids (the uninterrupted ids bit for bit), a migration of a
              ~600-token row (POST /v1/kv/export {"park": true}, then
@@ -456,7 +477,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              sha256), a priority park spilled into the tier and restored
              from it (its solo run's ids; the tier's info alike on both
              ranks), /v1/embeddings of two inputs (as accurate as one
-             card's, a one-card engine at full depth, against the fp32
+             card's, a one-card engine at the same depth, against the fp32
              computation, #1 launched on both ranks), and last /api/drain (both ranks park the same rows,
              the leader serves their exports); split (--role split, 2
              prefill and 2 decode slots): two chats decoding when the
@@ -628,6 +649,152 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    _native_checks()
+
+
+def _sse_fuzz_stream(rng) -> bytes:
+    """A random SSE stream: content, usage (both dialects) and Responses
+    deltas, three separators, comments and empty data lines, [DONE] or
+    not (the reference's parity fuzz, tests/test_native.py)."""
+    raw = b""
+    for i in range(rng.randrange(1, 12)):
+        roll = rng.random()
+        if roll < 0.5:
+            frame = {"choices": [{"delta": {
+                "content": f"tok{i}" * rng.randrange(1, 4)}}]}
+        elif roll < 0.65:
+            frame = {"choices": [], "usage": {
+                "prompt_tokens": rng.randrange(0, 500),
+                "completion_tokens": rng.randrange(0, 500)}}
+        elif roll < 0.75:
+            frame = {"type": "response.output_text.delta",
+                     "delta": "x" * rng.randrange(1, 30)}
+        elif roll < 0.85:
+            frame = {"choices": [{"delta": {}}], "usage": {
+                "input_tokens": rng.randrange(0, 99),
+                "output_tokens": rng.randrange(0, 99)}}
+        else:
+            frame = {"choices": [{"delta": {"content": 'q"u\\o✓te'}}]}
+        raw += (rng.choice([b"data: ", b"data:", b"data:  "])
+                + json.dumps(frame).encode()
+                + rng.choice([b"\n\n", b"\r\n\r\n", b"\n"]))
+        if rng.random() < 0.2:
+            raw += rng.choice([b": keepalive\n", b"event: ping\n", b"\n",
+                               b"data:\n"])
+    if rng.random() < 0.8:
+        raw += b"data: [DONE]\n\n"
+    return raw
+
+
+def _native_checks() -> None:
+    """Build the gateway's native library from this checkout's sources
+    (g++, into llmlb_tpu_torch/_build/) and hold it against its Python
+    twins: the router core on the reference's seeded trace (400 steps of
+    TPS samples, admissions under a cap of 3, lease ends and clears; every
+    selection, active count and EMA), the SSE scanner on 50 streams split
+    at random boundaries, the chain hash against hashlib and the
+    constant-time compare against hmac."""
+    import hashlib
+    import hmac
+    import random
+
+    from llmlb_tpu_torch import native
+    from llmlb_tpu_torch.gateway import balancer, config, types
+    from llmlb_tpu_torch.gateway.token_accounting import (
+        StreamingTokenAccumulator,
+    )
+
+    t0 = time.perf_counter()
+    if not native.ensure_native_built() or native.load_native() is None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{native.BUILD_INFO}")
+    info = native.BUILD_INFO
+    log(f"native build: {info.get('seconds', 0.0):.2f} s (g++ "
+        f"{' '.join(native.CXXFLAGS)}, cached={info.get('cached')}), "
+        f"{Path(info['path']).name}")
+    qc = config.QueueConfig(max_active_per_endpoint=3)
+    nat = balancer.LoadManager(qc, use_native=True)
+    py = balancer.LoadManager(qc, use_native=False)
+    if nat._rc is None:
+        raise AssertionError("the native router core did not load")
+    eps = [types.Endpoint(name=f"e{i}", base_url=f"http://e{i}:1",
+                          id=f"ep{i}",
+                          endpoint_type=types.EndpointType.OPENAI_COMPATIBLE,
+                          status=types.EndpointStatus.ONLINE)
+           for i in range(4)]
+    chat = types.TpsApiKind.CHAT
+    rng, leases, admits = random.Random(7), [], 0
+    for step in range(400):
+        op = rng.random()
+        if op < 0.35:
+            eid, model = f"ep{rng.randrange(4)}", rng.choice(["m0", "m1"])
+            tokens, dur = rng.randrange(1, 500), rng.uniform(0.01, 3.0)
+            for lm in (nat, py):
+                lm.update_tps(eid, model, chat, tokens, dur)
+        elif op < 0.7:
+            model = rng.choice(["m0", "m1"])
+            a, b = (lm.try_admit(eps, model, chat) for lm in (nat, py))
+            if (a and a[0].id) != (b and b[0].id):
+                raise AssertionError(f"router core: step {step} admitted "
+                                     f"{a and a[0].id} against {b and b[0].id}")
+            if a is not None:
+                admits += 1
+                leases.append((a[1], b[1]))
+        elif op < 0.9:
+            if leases:
+                for lease in leases.pop(rng.randrange(len(leases))):
+                    lease.complete()
+        else:
+            eid = f"ep{rng.randrange(4)}"
+            for lm in (nat, py):
+                lm.clear_tps_for_endpoint(eid)
+        for ep in eps:
+            got = [(lm.active_count(ep.id),
+                    [lm.get_tps(ep.id, m, chat) for m in ("m0", "m1")])
+                   for lm in (nat, py)]
+            same = got[0][0] == got[1][0] and all(
+                (x is None) == (y is None) and (x is None or abs(x - y)
+                                                <= 1e-12 * abs(y))
+                for x, y in zip(got[0][1], got[1][1]))
+            if not same:
+                raise AssertionError(f"router core: step {step} {ep.id} "
+                                     f"{got[0]} against {got[1]}")
+    frames = 0
+    rng = random.Random(0xC0FFEE)
+    for case in range(50):
+        stream = _sse_fuzz_stream(rng)
+        scanner, acc = native.NativeSseScanner(), StreamingTokenAccumulator()
+        acc._native, acc._raw = None, None  # the Python splitter
+        pos = 0
+        while pos < len(stream):
+            step = rng.randrange(1, 24)
+            scanner.feed(stream[pos:pos + step])
+            acc._feed_python(stream[pos:pos + step])
+            pos += step
+        usage_ok = (acc._usage in (None, (0, 0))
+                    or scanner.usage() == acc._usage)
+        if scanner.frames != acc._chunks_seen or not usage_ok:
+            raise AssertionError(f"SSE scanner: case {case}: "
+                                 f"{scanner.frames} frames, usage "
+                                 f"{scanner.usage()} against "
+                                 f"{acc._chunks_seen}, {acc._usage}")
+        frames += scanner.frames
+    prev = "0" * 64
+    for entries in ([b'["a",1]', "unicode-é".encode()], [],
+                    [b"x" * 100_000, b"y"]):
+        want = hashlib.sha256(prev.encode() + b"".join(entries)).hexdigest()
+        if native.native_chain_hash(prev, entries) != want:
+            raise AssertionError("chain hash differs from hashlib")
+    for a, b in ((b"", b""), (b"sk_" + b"x" * 43, b"sk_" + b"x" * 43),
+                 (b"sk_" + b"x" * 43, b"sk_" + b"x" * 42 + b"y"),
+                 (b"\x00\x01", b"\x00\x02"), (b"abc", b"abcd")):
+        if native.native_ct_equal(a, b) is not hmac.compare_digest(a, b):
+            raise AssertionError(f"ct_equal({a!r}, {b!r})")
+    log(f"native core: the router core's 400-step trace ({admits} "
+        f"admissions) equal to the Python core's, the SSE scanner's "
+        f"{frames} frames over 50 fuzzed streams the Python splitter's, the "
+        f"chain hash hashlib's, ct_equal hmac's; "
+        f"{time.perf_counter() - t0:.2f} s with the build")
 
 
 def _pool(torch, gen, pages, dtype, kv=KV, d=D, page=PAGE):
@@ -3600,7 +3767,7 @@ def _start_gateway(data_dir: str, faults: list[dict],
     """`python -m llmlb_tpu_torch.gateway.server serve` on a free port of
     127.0.0.1, from the tree the port was imported from, with `env` added
     to its environment; returns the process and its base URL once it
-    listens."""
+    listens, after checking that it runs on the native core."""
     import os
 
     import llmlb_tpu_torch
@@ -3620,8 +3787,13 @@ def _start_gateway(data_dir: str, faults: list[dict],
     while time.monotonic() < deadline:
         m = re.search(r"listening on 127\.0\.0\.1:(\d+)",
                       log_path.read_text())
-        if m:
+        if m and _runs_native(proc.pid):
             return proc, f"http://127.0.0.1:{m.group(1)}"
+        if m:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("the gateway runs on the Python twins: it "
+                                 "has no native library mapped")
         if proc.poll() is not None:
             break
         time.sleep(0.05)
@@ -4046,6 +4218,11 @@ def _multi_worker_block(engine, base: str, dev: dict, content: str,
                            for h in seen.values())
             until(listed, "a worker never listed the engine online")
             listed_s = time.perf_counter() - t0
+            python_twins = [pid for pid in kids if not _runs_native(pid)]
+            if python_twins:
+                raise AssertionError(f"multi-worker gateway: workers "
+                                     f"{python_twins} run on the Python "
+                                     "twins (no native library mapped)")
             def scrape(route: str | None) -> dict:
                 with urllib.request.urlopen(gw + "/metrics",
                                             timeout=60) as r:
@@ -4146,7 +4323,8 @@ def _multi_worker_block(engine, base: str, dev: dict, content: str,
              "gossip": {str(i): g for i, g in sorted(gossip.items())},
              # "online": worker 0 took the registration and probed at once;
              # "pending": worker 1 took it and worker 0's loop probed it
-             "registration": ep["status"], "launches": launches}
+             "registration": ep["status"], "native_workers": len(kids),
+             "launches": launches}
     log(f"serve bf16 [{dev['smi']}]: multi_worker {json.dumps(stats)}")
     return stats
 
@@ -5011,14 +5189,407 @@ def _offload_block(core, label: str, dev: dict, core_kwargs: dict) -> dict:
     return {"counts": counts, "restore_first_ms": restore_ms}
 
 
+# ------------------------------------------------------ live-stream rebalance
+
+REBALANCE_TOKENS = 64  # the moved stream's greedy ids
+REBALANCE_AFTER = 16  # its ids on the origin before the planner ticks
+# The reference's own knobs: the planner and the probe tick only when the
+# block asks (its loop and the probe loop sleep an hour); one live stream
+# of 8 slots (0.125) is above the high band, an idle engine at the low
+# band; every request misses a 1 us TTFT target, so goodput is 0 and the
+# SLO gate is open. A 1 s stream window: a new stream's last migration
+# stamp is 0.0 on the monotonic clock, so with the default 60 s window no
+# stream moves on a host up less than a minute (ROADMAP C21).
+REBALANCE_ENV = {"LLMLB_REBALANCE": "1", "LLMLB_REBALANCE_INTERVAL": "3600",
+                 "LLMLB_HEALTH_CHECK_INTERVAL": "3600",
+                 "LLMLB_REBALANCE_HIGH": "0.1", "LLMLB_REBALANCE_LOW": "0.05",
+                 "LLMLB_REBALANCE_STREAM_WINDOW": "1",
+                 "LLMLB_SLO_TTFT_MS": "0.001", "LLMLB_FAULTS": "[]"}
+
+
+def _runs_native(pid: int) -> bool:
+    """Whether process `pid` has the port's native library of this
+    checkout mapped: a gateway's router core, SSE scanner and audit chain
+    then run on it (a gateway whose library was missing runs on the Python
+    twins and maps none)."""
+    from llmlb_tpu_torch import native
+
+    with open(f"/proc/{pid}/maps") as f:
+        return str(native.lib_path()) in f.read()
+
+
+class _ByThread:
+    """The port's kernel launches inside the block by the thread that made
+    them (each engine launches on its own step-loop thread; a graph replay
+    adds its capture's launches there)."""
+
+    def __enter__(self):
+        from llmlb_tpu_torch.kernels import build
+
+        self.build, self.counts = build, {}
+        launch, add = build.launch, build.add_launches
+
+        def mine() -> dict:
+            return self.counts.setdefault(threading.get_ident(), {})
+
+        def counted_launch(name, *args):
+            launch(name, *args)
+            mine()[name] = mine().get(name, 0) + 1
+
+        def counted_add(counts, times=1):
+            add(counts, times)
+            for k, n in counts.items():
+                mine()[k] = mine().get(k, 0) + times * n
+
+        self._saved = launch, add
+        build.launch, build.add_launches = counted_launch, counted_add
+        return self
+
+    def __exit__(self, *exc):
+        self.build.launch, self.build.add_launches = self._saved
+
+    def of(self, core) -> dict:
+        return {k: n for k, n in self.counts.get(core._thread.ident,
+                                                 {}).items() if n}
+
+
+class _StreamIds:
+    """By gateway request id, on one core: the committed ids an adopted
+    request came in with, the ids the core emitted, and when it emitted
+    its first. Wraps the core's submit and _emit until close()."""
+
+    def __init__(self, core):
+        from llmlb_tpu_torch.engine.flightrec import gateway_rid
+
+        self.core, self.parked, self.ids, self.first = core, {}, {}, {}
+        submit, emit = core.submit, core._emit
+
+        def watched(request):
+            if request.parked is not None:
+                self.parked[gateway_rid(request.request_id)] = list(
+                    request.parked.tokens)
+            return submit(request)
+
+        def spy(slot_id, token):
+            rid = gateway_rid(core.slots[slot_id].request.request_id)
+            self.first.setdefault(rid, time.perf_counter())
+            self.ids.setdefault(rid, []).append(token)
+            emit(slot_id, token)
+
+        core.submit, core._emit = watched, spy
+
+    def close(self) -> None:
+        del self.core.submit, self.core._emit
+
+
+class _InProcGateway:
+    """The port's gateway in this process, on an event loop of its own
+    thread, built as `serve` builds it (build_app_state on the primary of
+    one worker: health checker, maintenance and rebalancer started) with
+    `env` added to the environment while it reads its configuration."""
+
+    def __init__(self, data_dir: str, env: dict):
+        import asyncio
+        import os
+
+        from llmlb_tpu_torch.gateway.app import create_app
+        from llmlb_tpu_torch.gateway.app_state import build_app_state
+        from llmlb_tpu_torch.gateway.config import ServerConfig
+        from llmlb_tpu_torch.gateway.http import web
+        from llmlb_tpu_torch.gateway.worker import WorkerInfo
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        env = {"LLMLB_DATA_DIR": data_dir,
+               "LLMLB_LOG_DIR": os.path.join(data_dir, "logs"),
+               "LLMLB_ADMIN_PASSWORD": GATEWAY_PASSWORD, **env}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+
+        async def up():
+            state = await build_app_state(ServerConfig.from_env(),
+                                          worker=WorkerInfo(0, 1))
+            runner = web.AppRunner(create_app(state), shutdown_timeout=1.0)
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", 0).start()
+            return state, runner
+
+        try:
+            self.state, self.runner = self.run(up())
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        self.url = "http://127.0.0.1:%d" % self.runner.addresses[0][1]
+
+    def run(self, coro, timeout: float = 600):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self) -> None:
+        try:
+            self.run(self.runner.cleanup(), 60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=30)
+            self.loop.close()
+
+
+def _moved_stream(gw, inf: dict, content: str, origin_ids: "_StreamIds",
+                  act) -> tuple[dict, str]:
+    """A greedy REBALANCE_TOKENS chat stream through `gw` on a thread of
+    its own; once the origin has emitted REBALANCE_AFTER of its ids,
+    `act(rid)` runs. Returns the stream's {text, usage, finish, model}
+    and its request id."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_chat, gw.url, content, REBALANCE_TOKENS, True,
+                          headers=inf)
+        deadline = time.monotonic() + 120
+        rid = None
+        while time.monotonic() < deadline and not fut.done():
+            streams = gw.state.streams  # the gateway's thread writes it
+            with streams._lock:
+                live = list(streams._streams)
+            rid = rid or (live[0] if live else None)
+            if rid is not None and len(origin_ids.ids.get(rid, ())) >= \
+                    REBALANCE_AFTER:
+                break
+            time.sleep(0.002)
+        if rid is None or fut.done():
+            raise AssertionError(
+                f"rebalance: the stream ended or never registered before "
+                f"{REBALANCE_AFTER} ids (rid {rid})")
+        act(rid)
+        return fut.result(timeout=600), rid
+
+
+def _rebalance_block(core, engine, base: str, adopter, adopter_base: str,
+                     dev: dict) -> dict:
+    """The port's gateway (in this process, on the native core built from
+    this checkout) in front of the serving engine and the second one: the
+    second is registered first and serves a 4-token warm-up (an SLO miss:
+    goodput 0), then the serving engine (unmeasured: it takes the next
+    stream). A greedy REBALANCE_TOKENS chat stream starts on the serving
+    core; after REBALANCE_AFTER ids the health checker probes both engines
+    and the planner ticks twice (hysteresis): one hotspot directive, and
+    the pump moves the live stream through POST /v1/kv/export {"park":
+    true} and /v1/resume with the pages. The client's stream is one
+    stream with the direct path's text and usage; the origin's ids are a
+    prefix of the direct ids, the adopter's committed ids plus its own are
+    all of them, with no prefill dispatch and no prefill or extend launch
+    there; /metrics counts hotspot/success 1 and no resume. Then the second
+    engine drains and a second stream, directed to it, is refused: it stays
+    on its origin with the direct path's ids, hotspot/refused 1. The
+    adopter's launches are taken out of the counts."""
+    import os
+    import tempfile
+
+    from llmlb_tpu_torch.gateway.token_accounting import (
+        StreamingTokenAccumulator,
+    )
+
+    t0 = time.perf_counter()
+    _wait_idle(core)
+    _wait_idle(adopter)
+    contents = ["Rebalance check: count the moons of Jupiter.",
+                "Rebalance refusal: name the rivers of Europe."]
+    spy = _EmitSpy(core)
+    try:
+        direct = []
+        for content in contents:
+            direct.append((_chat(base, content, REBALANCE_TOKENS, True),
+                           spy.last()))
+    finally:
+        spy.close()
+    ids = (_StreamIds(core), _StreamIds(adopter))
+    parks: list[float] = []
+    request_park = core.request_park
+
+    def stamped_park(rid):
+        parks.append(time.perf_counter())
+        request_park(rid)
+
+    core.request_park = stamped_park
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="llmlb-rb-") as data_dir, \
+            _ByThread() as by_thread:
+        gw = _InProcGateway(data_dir, REBALANCE_ENV)
+        try:
+            st, rb = gw.state, gw.state.rebalancer
+            native = {"router": st.load_manager._rc is not None,
+                      "sse": StreamingTokenAccumulator()._native is not None,
+                      "mapped": _runs_native(os.getpid())}
+            if not all(native.values()) or rb is None:
+                raise AssertionError(f"rebalance: the gateway runs on the "
+                                     f"Python twins ({native}) or has no "
+                                     f"planner ({rb})")
+            token = _gw_json(gw.url + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            inf = {"Authorization": "Bearer " + _gw_json(
+                gw.url + "/api/api-keys", {"name": "smoke-rb"},
+                admin)["api_key"]}
+            target = _gw_json(gw.url + "/api/endpoints", {
+                "base_url": adopter_base, "name": "rebalance-target"}, admin)
+            warm = _chat(gw.url, "Rebalance warm-up.", 4, False, headers=inf)
+            origin = _gw_json(gw.url + "/api/endpoints", {
+                "base_url": base, "name": "rebalance-origin"}, admin)
+            for ep in (target, origin):
+                if (ep["endpoint_type"], ep["status"]) != ("tpu", "online"):
+                    raise AssertionError(f"rebalance registration: {ep}")
+            before = adopter.prefill_dispatches
+            plan: dict = {}
+
+            def tick(rid):
+                async def probe_and_tick():
+                    await st.health_checker.check_all()
+                    scores = {ep.id: rb.score(ep) for ep in rb._resumable()}
+                    rb.tick()
+                    first = rb.directives_total
+                    rb.tick()
+                    return scores, first
+                handle = st.streams._streams[rid]
+                plan.update(origin=handle.endpoint_id,
+                            adopter_before=by_thread.of(adopter),
+                            tick_t=time.perf_counter(),
+                            ids_at_tick=len(ids[0].ids.get(rid, ())))
+                plan["scores"], plan["first_tick"] = gw.run(probe_and_tick())
+                plan["directives"] = rb.directives_total
+                plan["tick_ms"] = (time.perf_counter() - plan["tick_t"]) * 1e3
+                plan["ids_after_tick"] = len(ids[0].ids.get(rid, ()))
+
+            moved, rid = _moved_stream(gw, inf, contents[0], ids[0], tick)
+            prefills = adopter.prefill_dispatches - before
+            summary = st.metrics.summary()
+            with urllib.request.urlopen(gw.url + "/metrics",
+                                        timeout=60) as r:
+                metrics = r.read().decode()
+            d_out, d_ids = direct[0]
+            got_origin = ids[0].ids.get(rid, [])
+            committed = ids[1].parked.get(rid)
+            adopted = ids[1].ids.get(rid, [])
+            # the adopter's launches from the tick on (its warm-up
+            # request's prefill was before)
+            adopter_launches = {
+                k: n - plan["adopter_before"].get(k, 0)
+                for k, n in by_thread.of(adopter).items()
+                if n != plan["adopter_before"].get(k, 0)}
+            bad = [k for k in adopter_launches if k not in DECODE_KERNELS]
+            if (plan["origin"] != origin["id"] or plan["first_tick"] != 0
+                    or plan["directives"] != 1):
+                raise AssertionError(f"rebalance: the stream started on "
+                                     f"{plan['origin']} (origin "
+                                     f"{origin['id']}); planner {plan}")
+            if (moved != d_out or got_origin != d_ids[:len(got_origin)]
+                    or committed is None
+                    or committed + adopted != d_ids or prefills or bad):
+                raise AssertionError(
+                    f"rebalance: the moved stream {moved['usage']} against "
+                    f"the direct {d_out['usage']}; origin ids "
+                    f"{len(got_origin)}, adopter committed "
+                    f"{committed and len(committed)} + {len(adopted)} "
+                    f"(equal: {(committed or []) + adopted == d_ids}); "
+                    f"adopter prefills {prefills}, launches "
+                    f"{adopter_launches}; migrations "
+                    f"{summary['rebalance_migrations']}, resumes "
+                    f"{summary['stream_resumes']}; plan {plan}; adopter "
+                    f"requests {list(ids[1].ids)} parked "
+                    f"{list(ids[1].parked)}; parks {len(parks)}")
+            want = ('llmlb_gateway_rebalance_migrations_total'
+                    '{reason="hotspot",outcome="success"} 1')
+            if want not in metrics or summary["stream_resumes"] != {} or \
+                    summary["rebalance_migrations"] != {"hotspot/success": 1}:
+                raise AssertionError(
+                    "rebalance: /metrics " + " ".join(
+                        ln for ln in metrics.splitlines()
+                        if "rebalance" in ln or "resume" in ln))
+            park_ms = (ids[1].first[rid] - parks[-1]) * 1e3
+            out.update(committed=len(committed), adopted=len(adopted),
+                       origin_ids=len(got_origin),
+                       ids_at_tick=plan["ids_at_tick"],
+                       tick_to_first_ms=(ids[1].first[rid] - plan["tick_t"])
+                       * 1e3,
+                       park_to_first_adopted_ms=park_ms,
+                       scores={("origin" if k == origin["id"] else "target"):
+                               round(v, 4) for k, v in plan["scores"].items()},
+                       warm_usage=warm["usage"],
+                       adopter_launches=adopter_launches, native=native)
+            # the refusal: the second engine drains, so it refuses adopts
+            _post(adopter_base + "/api/drain", {"grace_s": 0}).read()
+            gw.run(st.health_checker.check_all())
+            before_ids = len(ids[0].ids)
+
+            def direct_it(rid):
+                handle = st.streams._streams[rid]
+                plan["refused_origin"] = handle.endpoint_id
+
+                async def mark():
+                    return st.streams.apply_directive(
+                        handle.endpoint_id, target["id"], "hotspot", 1, 2)
+                plan["marked"] = gw.run(mark())
+
+            kept, rid2 = _moved_stream(gw, inf, contents[1], ids[0],
+                                       direct_it)
+            summary = st.metrics.summary()
+            d_out, d_ids = direct[1]
+            if (plan["refused_origin"] != origin["id"] or plan["marked"] != 1
+                    or kept != d_out or ids[0].ids.get(rid2) != d_ids
+                    or rid2 in ids[1].ids or len(ids[0].ids) != before_ids + 1
+                    or summary["rebalance_migrations"] != {
+                        "hotspot/success": 1, "hotspot/refused": 1}
+                    or summary["stream_resumes"] != {}):
+                raise AssertionError(
+                    f"rebalance refusal: {plan}; kept {kept['usage']} "
+                    f"against {d_out['usage']}; origin ids "
+                    f"{len(ids[0].ids.get(rid2) or [])}; "
+                    f"{summary['rebalance_migrations']} "
+                    f"{summary['stream_resumes']}")
+        finally:
+            del core.request_park
+            for spy_ in ids:
+                spy_.close()
+            gw.close()
+    launches = {"origin": by_thread.of(core), "adopter": by_thread.of(adopter)}
+    # the adopter's launches are not the main path's
+    by_thread.build.add_launches(launches["adopter"], times=-1)
+    out.update(launches=launches, seconds=time.perf_counter() - t0)
+    log(f"serve bf16 [{dev['smi']}]: rebalance: the port's gateway (native "
+        f"router core, SSE scanner and chain hash: {native}) moved a live "
+        f"{REBALANCE_TOKENS}-token stream from the serving engine to the "
+        f"second one after {out['ids_at_tick']} ids on the planner's own "
+        f"ticks (scores {out['scores']}, bands 0.1/0.05, goodput 0): the "
+        f"adopter took {out['committed']} committed ids with the shipped "
+        f"pages and emitted {out['adopted']}, 0 prefill dispatches; the "
+        f"client's text and usage the direct path's; park to first adopted "
+        f"token {park_ms:.1f} ms (tick to it {out['tick_to_first_ms']:.1f} "
+        f"ms); /metrics hotspot/success 1, no resume; a second stream "
+        f"directed to the drained engine was refused and stayed on its "
+        f"origin with the direct ids (hotspot/refused 1)")
+    log(f"serve bf16 [{dev['smi']}]: rebalance launches: origin "
+        f"{launches['origin']}, adopter {launches['adopter']} (taken out of "
+        f"the counts)")
+    log(f"serve bf16 [{dev['smi']}]: rebalance sub-block took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def _kv_ship(core, engine, base: str, label: str, dev: dict,
              core_kwargs: dict, sweep: bool) -> dict:
     """KV shipping on the serving core: a second EngineCore over the same
     params tensors (no weight copy; its own KV pool) behind a server of
     its own takes the migrations of SHIP_AFTER committed ids (16; and 128
-    with `sweep`). The serving core's launches (the streams it serves and
-    parks, the export's gather) stay counted; the adopter's are taken out
-    and logged on a line of their own."""
+    with `sweep`); in bf16 then the rebalance sub-block, the port's
+    gateway in front of both servers. The serving core's launches (the
+    streams it serves and parks, the export's gather) stay counted; the
+    adopter's are taken out and logged on a line of their own."""
     import gc
 
     import torch
@@ -5049,6 +5620,12 @@ def _kv_ship(core, engine, base: str, label: str, dev: dict,
             _migration(core, adopter, base, adopter_base, engine.encode_chat,
                        label, c, dev)
             for c in (SHIP_AFTER if sweep else SHIP_AFTER[:1])]
+        if label == "bf16":
+            # the gateway's planner moves a live stream the same way (its
+            # adopter launches are taken out inside; the second engine
+            # ends drained)
+            out["rebalance"] = _rebalance_block(core, engine, base, adopter,
+                                                adopter_base, dev)
         total = dict(warm.launches)
         for mig in out["migrations"]:
             for part in mig["adopter_launches"].values():
@@ -8621,9 +9198,10 @@ MD_LORA_ROWS = ((0, None), (1, "acme"), (2, "beta"))
 # each sub-phase's mesh, and the chats it sends over HTTP first (lora: one,
 # with an adapter; moe_dp none: its group is queued before the loop starts)
 MD_SUBS = ("tp", "sp", "ep", "dp", "moe_dp", "lora")
-# the depth of the Llama sub-phases of MD_SUBS and their one-card
-# references (full width): the whole script then keeps headroom under its
-# time limit; the leader's actions run at full depth
+# the depth of the Llama sub-phases of MD_SUBS and MD_LEADER_SUBS and their
+# one-card references (full width): the whole script then keeps headroom
+# under its time limit (the leader's actions ran at full depth until the
+# gateway's rebalance block and native build joined the proof)
 MD_CUT_LAYERS = 8
 MD_HTTP = {"tp": 3, "sp": 1, "ep": 1, "dp": 3, "moe_dp": 0, "lora": 1}
 # the MoE dp sub-phase's group: MD_MOE_ROWS prompts of ~200 tokens (bucket
@@ -8686,10 +9264,8 @@ def _md_cfg(sub: str):
     if sub in ("ep", "moe_dp"):
         return dataclasses.replace(get_preset("mixtral-8x7b"),
                                    num_layers=MIX_BF16_LAYERS)
-    if sub in MD_SUBS:
-        return dataclasses.replace(get_preset("llama-3-8b"),
-                                   num_layers=MD_CUT_LAYERS)
-    return get_preset("llama-3-8b")
+    return dataclasses.replace(get_preset("llama-3-8b"),
+                               num_layers=MD_CUT_LAYERS)
 
 
 class _KVSpy:
@@ -9936,8 +10512,8 @@ def phase_multi_device(dev: dict) -> dict:
         f"{refs['mixtral']['drops']}),"
         f" {refs['lora']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
         f"layers, with adapters {adapters}) and "
-        f"{refs['leader']['seconds']:.1f} s (Llama-3-8B, 32 layers, the "
-        f"embeddings)")
+        f"{refs['leader']['seconds']:.1f} s (Llama-3-8B, {MD_CUT_LAYERS} "
+        f"layers, the embeddings)")
     backend = "nccl" if dev["count"] >= 2 else "gloo"
     world = 2
     t_ranks = time.perf_counter()

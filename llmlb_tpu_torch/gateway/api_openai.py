@@ -1,9 +1,10 @@
 """OpenAI-compatible proxy handlers: the gateway's hot path.
 
-The port's copy of llmlb_tpu/gateway/api_openai.py. Left for a later slice:
-the rebalancer's planned stream migration (rebalance.py). Streams still
-resume after a cut (`_acquire_resume`), with the origin's KV pages when it
-can export them.
+The port's copy of llmlb_tpu/gateway/api_openai.py, on the port's HTTP
+client (gateway/http.py). Armed streams resume after a cut
+(`_acquire_resume`), with the origin's KV pages when it can export them,
+and move between two healthy engines when the rebalancer says so
+(`_migrate_stream`, gateway/rebalance.py).
 
 Parity with reference api/openai.rs (chat_completions :155, proxy_openai_post
 :761-1341, list_models :261) and api/proxy.rs (SSE passthrough with TPS
@@ -60,6 +61,7 @@ from llmlb_tpu_torch.gateway.tracing import (
 from llmlb_tpu_torch.gateway.types import (
     Capability,
     Endpoint,
+    EndpointStatus,
     TpsApiKind,
 )
 from llmlb_tpu_torch.structured import inspect_request as inspect_structured
@@ -1056,13 +1058,20 @@ def stream_write_guard(state: AppState, resp, endpoint,
                             stall_rules)
 
 
-async def _fetch_kv_export(state: AppState, replay: ReplayState):
+async def _fetch_kv_export(state: AppState, replay: ReplayState,
+                           park: bool = False):
     """Collect the cut stream's serialized KV pages from its origin engine
     (POST /v1/kv/export, docs/kv-cache.md) so the resume moves bytes
     instead of re-prefilling. Strictly best-effort with a short clock: a
     SIGKILL'd origin refuses the connect, an old build 404s, a finished
     drain holds nothing — every such case returns None fast and the
-    token-identical replay path proceeds exactly as before."""
+    token-identical replay path proceeds exactly as before.
+
+    ``park=True`` is the proactive-migration variant (gateway/rebalance.py):
+    the origin is LIVE, so the engine first parks the decoding slot (KV
+    spilled, request requeued) and then serves the export. A refusal leaves
+    the origin stream untouched — the parked copy re-inserts and keeps
+    streaming on the same connection."""
     origin = replay.origin
     if origin is None or not replay.rid or not replay.committed:
         return None
@@ -1070,6 +1079,8 @@ async def _fetch_kv_export(state: AppState, replay: ReplayState):
     if origin.api_key:
         headers["Authorization"] = f"Bearer {origin.api_key}"
     body_json = {"request_id": replay.rid}
+    if park:
+        body_json["park"] = True
     timeout = http.ClientTimeout(total=5, sock_connect=2)
     try:
         resp = await upstream_post(
@@ -1202,6 +1213,77 @@ async def _acquire_resume(
         return resumed, endpoint, iterator, first_chunk
 
 
+async def _migrate_stream(state: AppState, replay: ReplayState,
+                          target_id: str, model: str):
+    """Planner-directed live migration (gateway/rebalance.py): park the
+    stream on its healthy origin (POST /v1/kv/export {"park": true}),
+    collect the KV snapshot, and open a token-identical continuation on
+    the rebalancer's pinned target — the exact /v1/resume machinery the
+    reactive cut path uses, minus every failure-side effect. Returns
+    ``((upstream, endpoint, iterator, first_chunk), "success")`` or
+    ``(None, "aborted"|"refused")``: "aborted" means the migration never
+    touched the origin's stream (ineligible target, origin would not
+    park), "refused" means the target rejected the adopt — in which case
+    the origin's parked copy re-inserts and keeps streaming on the SAME
+    connection, so either failure is client-invisible. Unlike
+    _acquire_resume this books no endpoint failures, spends no retry
+    budget and counts nothing in stream_resumes: both engines are
+    healthy, and a refusal is planner feedback, not sickness."""
+    origin = replay.origin
+    target = state.registry.get(target_id)
+    if (target is None or origin is None or target.id == origin.id
+            or target.status != EndpointStatus.ONLINE
+            or target.endpoint_type.value not in RESUMABLE_ENDPOINT_TYPES):
+        return None, "aborted"
+    engine_model = None
+    for m in state.registry.models_for(target.id):
+        if model in (m.canonical_name, m.model_id):
+            engine_model = m.model_id
+            break
+    if engine_model is None:
+        return None, "aborted"  # target does not serve this model
+    if (replay.deadline_at is not None
+            and replay.deadline_at - time.monotonic() <= 0):
+        return None, "aborted"
+    pages = await _fetch_kv_export(state, replay, park=True)
+    if pages is None:
+        return None, "aborted"
+    headers = {"Content-Type": "application/json"}
+    if target.api_key:
+        headers["Authorization"] = f"Bearer {target.api_key}"
+    if replay.rid:
+        headers[REQUEST_ID_HEADER] = replay.rid
+    if replay.deadline_at is not None:
+        remaining_ms = (replay.deadline_at - time.monotonic()) * 1000.0
+        headers["X-Request-Deadline-Ms"] = str(max(1, int(remaining_ms)))
+    timeout = http.ClientTimeout(
+        total=state.config.inference_timeout_s, sock_connect=10
+    )
+    try:
+        resumed = await upstream_post(
+            state, target, "/v1/resume",
+            json=replay.resume_body(engine_model, kv_pages=pages),
+            headers=headers, timeout=timeout,
+        )
+    except RETRYABLE_EXCEPTIONS:
+        return None, "refused"
+    if resumed.status != 200:
+        resumed.release()
+        return None, "refused"
+    iterator = resumed.content.iter_any()
+    try:
+        first_chunk = await iterator.__anext__()
+    except StopAsyncIteration:
+        resumed.release()
+        return None, "refused"
+    except (http.ClientError, asyncio.TimeoutError, OSError,
+            ConnectionResetError):
+        resumed.release()
+        return None, "refused"
+    replay.origin = target  # a later cut asks THIS engine for pages
+    return (resumed, target, iterator, first_chunk), "success"
+
+
 def _replay_frame_out(replay: ReplayState, splicer: "ChunkSplicer | None",
                       frame: bytes) -> bytes | None:
     """One complete upstream SSE frame → the bytes to forward to the client
@@ -1281,6 +1363,10 @@ async def _forward_stream(
     # breaker + interruption counters at the moment of the cut), the finally
     # block must not book anything for it again.
     outcome_booked = False
+    # Rebalancer visibility (gateway/rebalance.py): armed streams register
+    # in the worker's StreamDirectory so migration directives can find
+    # them; None when LLMLB_REBALANCE=0 or the stream is not resumable.
+    handle = None
     try:
         if first_chunk is not None:
             observe_first_token(state, trace, model, endpoint.name,
@@ -1332,6 +1418,9 @@ async def _forward_stream(
                 splicer: ChunkSplicer | None = None
                 chunk = first_chunk
                 terminal_sent = False
+                if state.streams is not None and replay.rid:
+                    handle = state.streams.register(
+                        replay.rid, model, endpoint.id)
                 while True:
                     for frame in splitter.push(chunk):
                         out = _replay_frame_out(replay, splicer, frame)
@@ -1343,6 +1432,37 @@ async def _forward_stream(
                             terminal_sent = True
                         if timeline is not None and b"data:" in out:
                             timeline.mark()
+                    # Frame boundary: a pending rebalance directive moves
+                    # this stream NOW — park on the (healthy) origin, adopt
+                    # on the planner's target, splice. Any failure leaves
+                    # the origin stream pumping exactly as before.
+                    migrated = None
+                    if handle is not None and not terminal_sent:
+                        directive = state.streams.claim(handle)
+                        if directive is not None:
+                            target_id, why, _did = directive
+                            migrated, outcome = await _migrate_stream(
+                                state, replay, target_id, model)
+                            state.streams.note_outcome(
+                                handle, success=migrated is not None,
+                                target=target_id)
+                            state.metrics.record_rebalance_migration(
+                                why, outcome)
+                            if trace is not None:
+                                trace.mark("stream_migrate", reason=why,
+                                           outcome=outcome,
+                                           target=target_id)
+                    if migrated is not None:
+                        upstream.release()
+                        upstream, endpoint, iterator, chunk = migrated
+                        next_chunk = iterator.__anext__
+                        # same splice mechanics as the reactive cut below:
+                        # the adopter re-reports the full committed run and
+                        # the splicer forwards only the unseen suffix
+                        splitter = FrameSplitter()
+                        splicer = ChunkSplicer(replay)
+                        replay.mark_ledger_stale()
+                        continue
                     try:
                         chunk = await next_chunk()
                     except StopAsyncIteration:
@@ -1372,6 +1492,11 @@ async def _forward_stream(
                         upstream.release()
                         upstream, endpoint, iterator, chunk = resumed
                         next_chunk = iterator.__anext__
+                        if handle is not None:
+                            # keep the directory honest: a reactive resume
+                            # re-homed this stream (not a migration — no
+                            # window stamp, no migration count)
+                            handle.endpoint_id = endpoint.id
                         # snapshot the forwarded offsets BEFORE resetting
                         # the ledger: the adopter re-reports the full
                         # committed sequence for a possible second cut
@@ -1403,6 +1528,9 @@ async def _forward_stream(
     finally:
         guard.close()
         upstream.release()
+        if state.streams is not None:
+            # a directive racing this natural finish dies here un-acted-on
+            state.streams.unregister(handle)
         if trace is not None:
             trace.end("decode")
             trace.end("proxy")

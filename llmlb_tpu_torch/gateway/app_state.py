@@ -8,9 +8,11 @@ checker, as the reference's), the audit log (its chain verified at start and
 hourly), breakers and retry budget, rate limits, health checker, history
 retention; with several workers (gateway/worker.py) the gossip bus that
 replicates the routing state between them, the trace spool and the metrics
-spool, and the health checker and maintenance on the primary only. The
-reference's rebalancer (and the `migrate` subscription that feeds it),
-update manager and tray come with the slices that port them.
+spool, and the health checker, maintenance and the live-stream
+rebalancer (gateway/rebalance.py) on the primary only; every worker keeps
+the directory of its live streams, which the rebalancer's `migrate`
+directives reach over gossip. The reference's update manager and tray come
+with the slices that port them.
 """
 
 from __future__ import annotations
@@ -63,6 +65,11 @@ from llmlb_tpu_torch.gateway.gossip import (
 from llmlb_tpu_torch.gateway.health import EndpointHealthChecker
 from llmlb_tpu_torch.gateway.metrics import GatewayMetrics
 from llmlb_tpu_torch.gateway.ratelimit import RateLimiter
+from llmlb_tpu_torch.gateway.rebalance import (
+    RebalanceConfig,
+    Rebalancer,
+    StreamDirectory,
+)
 from llmlb_tpu_torch.gateway.registry import EndpointRegistry
 from llmlb_tpu_torch.gateway.resilience import ResilienceManager
 from llmlb_tpu_torch.gateway.tracing import TraceStore
@@ -213,6 +220,12 @@ class AppState:
     worker: WorkerInfo = dataclasses.field(default_factory=WorkerInfo)
     gossip: GossipBus | None = None  # multi-worker state replication
     history: "HistoryWriter | None" = None
+    # Fleet rebalancing (gateway/rebalance.py): every worker tracks its live
+    # streams in `streams`; the elected primary additionally runs the
+    # planner loop in `rebalancer`. LLMLB_REBALANCE=0 leaves the directory
+    # inert (register returns None) and the planner unconstructed.
+    streams: StreamDirectory | None = None
+    rebalancer: Rebalancer | None = None
     started_at: float = dataclasses.field(default_factory=time.time)
     _tasks: list[asyncio.Task] = dataclasses.field(default_factory=list)
 
@@ -224,6 +237,8 @@ class AppState:
                 await t
             except (asyncio.CancelledError, Exception):
                 pass  # allow-silent: shutdown teardown of cancelled tasks
+        if self.rebalancer is not None:
+            await self.rebalancer.stop()
         if self.health_checker:
             await self.health_checker.stop()
         if self.history is not None:
@@ -341,6 +356,10 @@ async def build_app_state(
         flush_interval_s=flush_s if flush_s > 0 else 0.5,
     )
 
+    # Live-stream directory: every worker tracks the streams it is pumping
+    # so rebalance directives (local or gossiped) can find them.
+    streams = StreamDirectory(RebalanceConfig.from_env())
+
     state = AppState(
         config=config, db=db, registry=registry, load_manager=load_manager,
         admission=admission, events=events, gate=gate, audit=audit,
@@ -348,7 +367,7 @@ async def build_app_state(
         api_keys=api_keys, invitations=invitations, jwt_secret=jwt_secret,
         http=client, metrics=metrics, traces=traces,
         resilience=resilience, faults=faults, ratelimit=ratelimit,
-        worker=worker, history=history,
+        worker=worker, history=history, streams=streams,
     )
 
     _seed_tps_from_daily_stats(state)
@@ -375,9 +394,9 @@ async def build_app_state(
                 name="metrics-spool",
             ))
         # Single-writer discipline (docs/deployment.md): the pull health
-        # checker and the hourly maintenance loop run in the elected
-        # primary worker only — N workers probing every engine would
-        # multiply fleet-wide probe load by N for zero information.
+        # checker, the hourly maintenance loop and the rebalancer run in
+        # the elected primary worker only — N workers probing every engine
+        # would multiply fleet-wide probe load by N for zero information.
         if worker.is_primary:
             checker = EndpointHealthChecker(
                 registry, load_manager, db, client, events,
@@ -392,6 +411,14 @@ async def build_app_state(
                 asyncio.create_task(_maintenance_loop(state),
                                     name="gw-maintenance")
             )
+            # Proactive rebalancer (gateway/rebalance.py): same primary-only
+            # single-writer discipline as the probe loop it reads from.
+            rb = Rebalancer(
+                registry, load_manager, streams, metrics=metrics,
+                gossip=state.gossip, config=streams.config,
+            )
+            rb.start()
+            state.rebalancer = rb
     return state
 
 
@@ -401,9 +428,7 @@ async def _start_gossip(state: AppState,
     and wire every replicated-state hook. Receivers apply via
     ``apply_remote_*`` entry points that never re-publish, so a two-worker
     group cannot ping-pong a message forever. Conflict resolution is the
-    (seq, origin) version in ``m["ver"]`` — never the wall stamp. The
-    rebalancer's `migrate` directives have no subscriber until the port
-    has the rebalancer."""
+    (seq, origin) version in ``m["ver"]`` — never the wall stamp."""
     mesh = mesh or MeshConfig.from_env()
     db = state.db
     membership = register = None
@@ -470,6 +495,14 @@ async def _start_gossip(state: AppState,
     # tenant at rps=N is admitted ≈N across all workers, not N×workers.
     if state.ratelimit is not None and state.ratelimit.enabled:
         state.ratelimit.attach_gossip(bus)
+    # Rebalance directives from the (possibly remote) primary: mark up to
+    # max_streams of OUR live streams on the source endpoint for migration.
+    streams = state.streams
+    if streams is not None and streams.config.enabled:
+        bus.subscribe("migrate", lambda d, m: streams.apply_directive(
+            d["eid"], d["target"], d.get("reason") or "hotspot",
+            int(d.get("max_streams", 1)), int(d.get("directive_id", 0)),
+        ))
     return bus
 
 
@@ -539,6 +572,12 @@ def gateway_exposition(state: AppState) -> str:
         )
         if gs["lag_s"] is not None:
             gauges["llmlb_gateway_gossip_lag_seconds"] = round(gs["lag_s"], 6)
+    if state.rebalancer is not None:
+        rb = state.rebalancer.snapshot()
+        counters["llmlb_gateway_rebalance_directives_total"] = (
+            rb["directives_total"]
+        )
+        gauges["llmlb_gateway_rebalance_inflight"] = rb["inflight"]
     return state.metrics.render(counters=counters, gauges=gauges)
 
 

@@ -6,10 +6,10 @@ batches, verified at startup and periodically per bootstrap.rs:211-265).
 Each flushed batch's hash covers its entries plus the previous batch hash, so
 any retro-edit of a persisted entry breaks verification from that batch on.
 
-The port's copy of llmlb_tpu/gateway/audit.py. `batch_hash` is the
-reference's Python path (the reference first tries its native core, which
-computes the same digest), so a chain either gateway wrote verifies in the
-other.
+The port's copy of llmlb_tpu/gateway/audit.py. `batch_hash` tries the
+native chain hash (llmlb_tpu_torch/native/hash_chain.cpp) first and falls
+back to hashlib, the same digest either way, so a chain either gateway
+wrote verifies in the other.
 """
 
 from __future__ import annotations
@@ -63,10 +63,19 @@ class AuditEntry:
 
 
 def batch_hash(prev_hash: str, entries: list[AuditEntry]) -> str:
+    canon = [e.canonical().encode() for e in entries]
+    try:
+        from llmlb_tpu_torch.native import native_chain_hash
+
+        digest = native_chain_hash(prev_hash, canon)
+        if digest is not None:
+            return digest
+    except Exception:  # allow-silent: native lib unavailable/broken —
+        pass               # the identical Python path below serves
     h = hashlib.sha256()
     h.update(prev_hash.encode())
-    for e in entries:
-        h.update(e.canonical().encode())
+    for c in canon:
+        h.update(c)
     return h.hexdigest()
 
 

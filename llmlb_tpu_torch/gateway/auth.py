@@ -40,8 +40,8 @@ def constant_time_equal(a: bytes, b: bytes) -> bool:
 
     hmac.compare_digest is already compiled constant-time C and beats a
     ctypes FFI round trip for digest-sized inputs, so it IS the hot path.
-    native/router_core.cpp's ct_equal is the C twin for native-first
-    callers, held bit-compatible by tests/test_native.py's parity case —
+    llmlb_tpu_torch/native/router_core.cpp's ct_equal is the C twin for
+    native-first callers, held bit-compatible by tests/test_torch_native.py —
     this wrapper exists so every auth compare goes through one audited
     entry point rather than ad-hoc == comparisons."""
     return hmac.compare_digest(a, b)

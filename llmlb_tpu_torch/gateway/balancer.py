@@ -33,8 +33,9 @@ Behavior parity with the reference scheduler (reference balancer/mod.rs):
   last-writer-wins; a worker that misses updates only places requests
   slightly worse until its own measurements converge.
 
-The port's copy of llmlb_tpu/gateway/balancer.py's Python core (the
-reference's native router core is not ported yet).
+The port's copy of llmlb_tpu/gateway/balancer.py: the Python core and the
+native router core (llmlb_tpu_torch/native/router_core.cpp), which the port
+builds from its own sources.
 """
 
 from __future__ import annotations
@@ -56,16 +57,6 @@ from llmlb_tpu_torch.gateway.types import Endpoint, TpsApiKind
 TPS_EMA_ALPHA = 0.2  # parity: balancer/types.rs:109
 HISTORY_WINDOW_S = 3600.0  # parity: 60-min window, balancer/types.rs:22
 METRICS_STALE_S = 120.0
-
-# Gossip: one TPS message per tracked key at most this often — the EMA moves
-# slowly, and per-request fan-out would put a datagram on the bus for every
-# completion.
-TPS_GOSSIP_MIN_INTERVAL_S = 1.0
-
-# Prefix-heat gossip: batch locally observed (hash → endpoint, hits) deltas
-# and flush at most this often, so a hot shared prefix costs one datagram
-# per interval, not one per request.
-HEAT_GOSSIP_MIN_INTERVAL_S = 1.0
 
 # Telemetry-aware placement: above this HBM fill fraction an endpoint's score
 # fades linearly, reaching TELEMETRY_MIN_PENALTY at 100% full. A KV-cache-bound
@@ -109,14 +100,24 @@ def prefix_affinity_hash(model: str, text: str,
     return hashlib.sha1(key.encode("utf-8", "replace")).hexdigest()
 
 
+# Gossip: one TPS message per tracked key at most this often — the EMA moves
+# slowly, and per-request fan-out would put a datagram on the bus for every
+# completion.
+TPS_GOSSIP_MIN_INTERVAL_S = 1.0
+
+# Prefix-heat gossip: batch locally observed (hash → endpoint, hits) deltas
+# and flush at most this often, so a hot shared prefix costs one datagram
+# per interval, not one per request.
+HEAT_GOSSIP_MIN_INTERVAL_S = 1.0
+
 AFFINITY_MODES = ("lru", "ring")
 
 
 def hrw_weight(prefix_hash: str, endpoint_id: str) -> int:
     """Rendezvous (highest-random-weight) score of one (key, endpoint)
     pair: the first 8 bytes of sha256("hash|endpoint") as a big-endian
-    integer. The reference's native twin (router_core.cpp hrw_select)
-    computes the same bytes."""
+    integer. The native twin (router_core.cpp hrw_select) computes the
+    same bytes, so Python and C++ agree bit for bit."""
     digest = hashlib.sha256(
         f"{prefix_hash}|{endpoint_id}".encode()
     ).digest()
@@ -250,18 +251,17 @@ class RequestLease:
 
 class LoadManager:
     def __init__(self, queue_config: QueueConfig | None = None,
+                 use_native: bool | None = None,
                  affinity_mode: str | None = None):
         self.queue_config = queue_config or QueueConfig()
         self.affinity_mode = (affinity_mode if affinity_mode in AFFINITY_MODES
                               else default_affinity_mode())
-        self._lock = threading.Lock()
         # GossipBus | None (set by app_state in multi-worker mode): TPS
         # samples and lru-mode affinity pins replicate to sibling workers.
         # Advisory only — every consumer of this state tolerates staleness.
         self.gossip = None
         self._tps_pub_ts: dict[tuple[str, str, str], float] = {}
-        # (endpoint_id, model, api_kind) -> ModelTpsState
-        self._tps: dict[tuple[str, str, str], ModelTpsState] = {}
+        self._lock = threading.Lock()
         # Seq-LWW versions (gossip.newer): per-key (seq, origin) stamps for
         # TPS/affinity state plus per-endpoint clear tombstones, so a
         # delayed datagram from before a clear can never resurrect stale
@@ -270,6 +270,8 @@ class LoadManager:
         self._local_clock = SeqClock()
         self._tps_ver: dict[tuple[str, str, str], Version] = {}
         self._clear_ver: dict[str, Version] = {}
+        # (endpoint_id, model, api_kind) -> ModelTpsState
+        self._tps: dict[tuple[str, str, str], ModelTpsState] = {}
         self._active: dict[str, int] = defaultdict(int)
         self._rr_counter: dict[str, int] = defaultdict(int)  # round-robin per model
         self._history: deque[RequestRecord] = deque()
@@ -307,6 +309,30 @@ class LoadManager:
         # released — the AdmissionQueue uses it to wake parked waiters instead
         # of having them poll (parity: balancer/mod.rs:2273-2427 notify path).
         self.on_release: typing.Callable[[str], None] | None = None
+        # Native scheduler core (native/router_core.cpp): the same state
+        # machine in C++, selection-for-selection identical to the Python
+        # path below (tested side by side). Python remains the fallback and
+        # the behavioral reference. LLMLB_NATIVE_ROUTER=0 disables.
+        self._rc = None
+        self._hrw_native = None
+        if use_native is None:
+            use_native = os.environ.get(
+                "LLMLB_NATIVE_ROUTER", "1"
+            ).lower() not in ("0", "false")
+        if use_native:
+            try:
+                from llmlb_tpu_torch.native import NativeRouterCore
+
+                self._rc = NativeRouterCore(TPS_EMA_ALPHA)
+            except (RuntimeError, OSError):
+                self._rc = None
+            try:
+                from llmlb_tpu_torch.native import native_hrw_available, native_hrw_select
+
+                if native_hrw_available():
+                    self._hrw_native = native_hrw_select
+            except ImportError:
+                self._hrw_native = None
 
     # ------------------------------------------------------------------- TPS
 
@@ -314,6 +340,12 @@ class LoadManager:
         self, endpoint_id: str, model: str, api_kind: TpsApiKind,
         tokens: int, duration_s: float,
     ) -> None:
+        if self._rc is not None:
+            self._rc.update_tps(endpoint_id, model, api_kind.value,
+                                tokens, duration_s, time.time())
+            self._stamp_tps(endpoint_id, model, api_kind.value)
+            self._maybe_gossip_tps(endpoint_id, model, api_kind.value)
+            return
         if duration_s <= 0 or tokens <= 0:
             return  # rejected samples must not create phantom tracked keys
         with self._lock:
@@ -344,7 +376,9 @@ class LoadManager:
 
     def _tps_info(self, endpoint_id: str, model: str,
                   kind: str) -> tuple[float, int, float] | None:
-        """(ema, samples, last_update) for one key."""
+        """(ema, samples, last_update) for one key, whichever core holds it."""
+        if self._rc is not None:
+            return self._rc.tps_info(endpoint_id, model, kind)
         with self._lock:
             state = self._tps.get((endpoint_id, model, kind))
             if state is None or state.samples == 0:
@@ -382,14 +416,24 @@ class LoadManager:
             if not newer(ver, self._tps_ver.get(key)):
                 return
             self._tps_ver[key] = ver
-            self._tps[key] = ModelTpsState(
-                ema_tps=ema, samples=max(1, samples),
-                last_update=time.time(),
-            )
+            if self._rc is None:
+                self._tps[key] = ModelTpsState(
+                    ema_tps=ema, samples=max(1, samples),
+                    last_update=time.time(),
+                )
+        if self._rc is not None:
+            # local wall only feeds the native core's same-process staleness
+            # bookkeeping; cross-worker ordering was decided above
+            self._rc.seed_tps(endpoint_id, model, kind, ema,
+                              max(1, samples), time.time())
 
     def seed_tps(self, endpoint_id: str, model: str, api_kind: TpsApiKind,
                  ema_tps: float, samples: int = 1) -> None:
         """Warm-start from persisted daily stats at boot (bootstrap parity)."""
+        if self._rc is not None:
+            self._rc.seed_tps(endpoint_id, model, api_kind.value,
+                              ema_tps, samples, time.time())
+            return
         with self._lock:
             self._tps[(endpoint_id, model, api_kind.value)] = ModelTpsState(
                 ema_tps=ema_tps, samples=samples, last_update=time.time()
@@ -397,6 +441,8 @@ class LoadManager:
 
     def get_tps(self, endpoint_id: str, model: str,
                 api_kind: TpsApiKind) -> float | None:
+        if self._rc is not None:
+            return self._rc.get_tps(endpoint_id, model, api_kind.value)
         with self._lock:
             state = self._tps.get((endpoint_id, model, api_kind.value))
             return state.ema_tps if state and state.samples else None
@@ -437,11 +483,17 @@ class LoadManager:
             for key in [k for k, v in self._heat.items()
                         if v[0] == endpoint_id]:
                 del self._heat[key]
-            self._tps = {
-                k: v for k, v in self._tps.items() if k[0] != endpoint_id
-            }
+        if self._rc is not None:
+            self._rc.clear_endpoint(endpoint_id)
+        else:
+            with self._lock:
+                self._tps = {
+                    k: v for k, v in self._tps.items() if k[0] != endpoint_id
+                }
 
     def tps_snapshot(self) -> dict[str, dict]:
+        if self._rc is not None:
+            return self._rc.snapshot()
         with self._lock:
             return {
                 f"{eid}:{model}:{kind}": {
@@ -581,6 +633,11 @@ class LoadManager:
             return self._affinity_peek_locked(model, prefix_hash)
 
     def _hrw_owner(self, prefix_hash: str, endpoint_ids: list[str]) -> str | None:
+        if self._hrw_native is not None:
+            idx = self._hrw_native(prefix_hash, endpoint_ids)
+            if 0 <= idx < len(endpoint_ids):
+                return endpoint_ids[idx]
+            return None
         return hrw_owner(prefix_hash, endpoint_ids)
 
     def _sticky_endpoint_id(self, endpoints: list[Endpoint], model: str,
@@ -709,9 +766,45 @@ class LoadManager:
         endpoints = self._permitted(endpoints)
         if not endpoints:
             return None
+        if self._rc is not None:
+            sticky = self._affinity_sticky_rc(endpoints, model, prefix_hash)
+            if sticky is not None:
+                return sticky
+            idx = self._rc_select(endpoints, model, api_kind, admit=False)
+            if idx < 0:
+                return None
+            self._affinity_record(model, prefix_hash, endpoints[idx].id,
+                                  hit=False)
+            return endpoints[idx]
         with self._lock:
             return self._select_locked(endpoints, model, api_kind,
                                        prefix_hash)
+
+    def _affinity_sticky_rc(self, endpoints: list[Endpoint], model: str,
+                            prefix_hash: str | None) -> Endpoint | None:
+        """Native-router path: affinity (LRU map or consistent-hash owner)
+        steers before delegating to the C++ scorer. Only honors an endpoint
+        that is still a candidate and under its admission cap."""
+        eid = self._sticky_endpoint_id(endpoints, model, prefix_hash)
+        if eid is None:
+            return None
+        cap = self.queue_config.max_active_per_endpoint
+        for ep in endpoints:
+            if ep.id == eid and self._rc.active(eid) < cap:
+                self._affinity_record(model, prefix_hash, eid, hit=True)
+                return ep
+        return None
+
+    def _rc_select(self, endpoints: list[Endpoint], model: str,
+                   api_kind: TpsApiKind, *, admit: bool) -> int:
+        now = time.time()
+        return self._rc.select(
+            model, api_kind.value,
+            [ep.id for ep in endpoints],
+            [telemetry_penalty(ep, now) for ep in endpoints],
+            self.queue_config.max_active_per_endpoint,
+            admit,
+        )
 
     def _select_locked(
         self, endpoints: list[Endpoint], model: str, api_kind: TpsApiKind,
@@ -795,6 +888,30 @@ class LoadManager:
         endpoints = self._permitted(endpoints)
         if not endpoints:
             return None
+        if self._rc is not None:
+            eid = self._sticky_endpoint_id(endpoints, model, prefix_hash)
+            sticky = next((ep for ep in endpoints if ep.id == eid), None)
+            if sticky is not None:
+                # atomic cap-check + begin in the native core, scoped to the
+                # sticky endpoint alone; at-cap falls through to full scoring
+                got = self._rc.select(
+                    model, api_kind.value, [sticky.id],
+                    [telemetry_penalty(sticky)],
+                    self.queue_config.max_active_per_endpoint, True,
+                )
+                if got == 0:
+                    self._affinity_record(model, prefix_hash, sticky.id,
+                                          hit=True)
+                    self._note_admitted(sticky.id)
+                    return sticky, RequestLease(self, sticky.id, model,
+                                                api_kind)
+            idx = self._rc_select(endpoints, model, api_kind, admit=True)
+            if idx < 0:
+                return None
+            chosen = endpoints[idx]
+            self._affinity_record(model, prefix_hash, chosen.id, hit=False)
+            self._note_admitted(chosen.id)
+            return chosen, RequestLease(self, chosen.id, model, api_kind)
         with self._lock:
             chosen = self._select_locked(endpoints, model, api_kind,
                                          prefix_hash)
@@ -812,15 +929,21 @@ class LoadManager:
         # target one explicit endpoint, bypass breaker-filtered selection,
         # and never report outcomes — consuming a half-open probe slot from
         # this path would wedge the breaker with no outcome to resolve it.
+        if self._rc is not None:
+            self._rc.begin(endpoint.id)
+            return RequestLease(self, endpoint.id, model, api_kind)
         with self._lock:
             self._active[endpoint.id] += 1
             self._total_requests += 1
         return RequestLease(self, endpoint.id, model, api_kind)
 
     def _release_active(self, endpoint_id: str) -> None:
-        with self._lock:
-            if self._active[endpoint_id] > 0:
-                self._active[endpoint_id] -= 1
+        if self._rc is not None:
+            self._rc.release(endpoint_id)
+        else:
+            with self._lock:
+                if self._active[endpoint_id] > 0:
+                    self._active[endpoint_id] -= 1
         cb = self.on_release
         if cb is not None:
             try:
@@ -829,10 +952,14 @@ class LoadManager:
                 pass               # not poison releases
 
     def active_count(self, endpoint_id: str) -> int:
+        if self._rc is not None:
+            return self._rc.active(endpoint_id)
         with self._lock:
             return self._active[endpoint_id]
 
     def total_active(self) -> int:
+        if self._rc is not None:
+            return self._rc.total_active()
         with self._lock:
             return sum(self._active.values())
 
@@ -873,6 +1000,17 @@ class LoadManager:
                     o["stream_interruptions"]
                     for o in self._endpoint_outcomes.values()
                 ),
+            }
+        if self._rc is not None:
+            with self._lock:
+                history_size = len(self._history)
+            return {
+                "total_requests": self._rc.total_requests(),
+                "active_requests": self._rc.total_active(),
+                "history_size": history_size,
+                "tracked_tps_keys": self._rc.tracked_keys(),
+                "native_router": True,
+                **outcome_totals,
             }
         with self._lock:
             return {

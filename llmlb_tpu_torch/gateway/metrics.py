@@ -24,7 +24,8 @@ resilience-layer series (gateway/resilience.py):
   llmlb_gateway_breaker_state{endpoint}                  gauge (0/1/2)
   llmlb_gateway_stream_interruptions_total{model,endpoint} counter
   llmlb_gateway_faults_injected_total{kind}              counter
-multi-worker series (gateway/gossip.py):
+fleet series (gateway/rebalance.py, gateway/gossip.py):
+  llmlb_gateway_rebalance_migrations_total{reason,outcome} counter
   llmlb_gateway_gossip_delay_seconds                     histogram
   (plus the gossip counters, gossip_peers and gossip_partition_suspected,
    scrape-time figures injected by app_state.gateway_exposition)
@@ -130,6 +131,11 @@ class GatewayMetrics:
         self._breaker_state: dict[str, int] = {}
         self._stream_interruptions: dict[tuple[str, str], int] = defaultdict(int)
         self._faults_injected: dict[str, int] = defaultdict(int)
+        # fleet rebalancing (gateway/rebalance.py): proactive live-stream
+        # migrations by (reason=hotspot|drain|restart, outcome=success|
+        # aborted|refused|skipped) — distinct from stream_resumes, which
+        # counts REACTIVE failure recovery
+        self._rebalance_migrations: dict[tuple[str, str], int] = defaultdict(int)
         # one-way gossip delivery delay per received message (wall-clock
         # derived, diagnostic only — see gossip.py module docstring)
         self._gossip_lag = Histogram(GOSSIP_LAG_BUCKETS)
@@ -238,6 +244,15 @@ class GatewayMetrics:
     def record_fault_injected(self, kind: str) -> None:
         with self._lock:
             self._faults_injected[kind] += 1
+
+    def record_rebalance_migration(self, reason: str, outcome: str) -> None:
+        """One proactive migration attempt resolved by the rebalancer;
+        reason is hotspot / drain / restart, outcome is success (stream now
+        lives on the target), refused (target would not adopt; stream stayed
+        put), aborted (mid-flight failure, fell back to the reactive resume
+        path) or skipped (budget / window guard)."""
+        with self._lock:
+            self._rebalance_migrations[(reason, outcome)] += 1
 
     def observe_gossip_lag(self, seconds: float) -> None:
         """One-way delivery delay of one received gossip message."""
@@ -391,6 +406,11 @@ class GatewayMetrics:
                 "stream_write_timeouts_total":
                     sum(self._stream_write_timeouts.values()),
                 "stream_resumes": dict(self._stream_resumes),
+                "rebalance_migrations": {
+                    f"{reason}/{outcome}": n
+                    for (reason, outcome), n
+                    in sorted(self._rebalance_migrations.items())
+                },
                 "stream_resumed_tokens_total":
                     sum(self._stream_resumed_tokens.values()),
                 "goodput_by_priority": {
@@ -489,6 +509,17 @@ class GatewayMetrics:
                 lines.append(
                     f'llmlb_gateway_faults_injected_total'
                     f'{{kind="{_escape(kind)}"}} {n}'
+                )
+            lines.append(
+                "# TYPE llmlb_gateway_rebalance_migrations_total counter"
+            )
+            for (reason, outcome), n in sorted(
+                self._rebalance_migrations.items()
+            ):
+                lines.append(
+                    f'llmlb_gateway_rebalance_migrations_total'
+                    f'{{reason="{_escape(reason)}",'
+                    f'outcome="{_escape(outcome)}"}} {n}'
                 )
             lines.append("# TYPE llmlb_gateway_gossip_delay_seconds histogram")
             if self._gossip_lag.n > 0:

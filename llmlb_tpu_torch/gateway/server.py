@@ -12,7 +12,8 @@ stderr and to a daily-rotated file under `LLMLB_LOG_DIR`
 (logging_setup.py), which `/api/dashboard/logs/lb` tails. The dashboard is
 served at `/dashboard`. SIGINT or SIGTERM drains in-flight inference for
 up to 30 s (open dashboard sockets close with 1001 at once), then stops; a
-second signal stops at once.
+second signal stops at once. At start (before any worker forks) it builds
+the native library (llmlb_tpu_torch/native/) if it is not built yet.
 
 Multi-worker serving (``--workers N`` / ``LLMLB_WORKERS``): a supervisor
 forks N shared-nothing gateway processes that share the listen port via
@@ -20,7 +21,7 @@ SO_REUSEPORT; see gateway/worker.py and docs/deployment.md. N > 1 needs a
 fixed port (port 0 would give each worker an ephemeral port of its own).
 The workers gossip over unix sockets under ``LLMLB_GOSSIP_DIR`` (default
 ``$LLMLB_DATA_DIR/gossip/<port>``); the elected primary (worker 0) runs the
-health checker and maintenance and keeps the log file. SIGTERM to the
+health checker, maintenance and the rebalancer and keeps the log file. SIGTERM to the
 supervisor reaches every worker; each drains, and the supervisor exits 0.
 The reference's instance lock, uvloop knob, update manager, tray and
 assistant come with later slices.
@@ -61,6 +62,10 @@ async def run_server(config: ServerConfig | None = None, *,
     if config.database_url:
         os.makedirs(os.path.dirname(config.database_url) or ".",
                     exist_ok=True)
+
+    from llmlb_tpu_torch.native import ensure_native_built
+
+    ensure_native_built()  # blocking build belongs here, not in a request path
     state = await build_app_state(config, worker=worker)
     app = create_app(state)
     stop_event = asyncio.Event()
@@ -124,13 +129,18 @@ async def run_server(config: ServerConfig | None = None, *,
 
 
 def serve_multi_worker(config: ServerConfig, workers: int) -> int:
-    """Supervisor path: fork the workers and wait. Each child re-inits
-    logging with its worker id (the file sink stays primary-only — N
-    TimedRotatingFileHandlers would race the midnight rotation) and runs
-    the ordinary run_server. Returns the supervisor's exit code."""
+    """Supervisor path: build the native library once (N children racing
+    the compiler would each wait on the build lock), fork the workers, and
+    wait. Each child re-inits logging with its worker id (the file sink
+    stays primary-only — N TimedRotatingFileHandlers would race the
+    midnight rotation) and runs the ordinary run_server. Returns the
+    supervisor's exit code."""
+    from llmlb_tpu_torch.native import ensure_native_built
+
     if config.database_url:
         os.makedirs(os.path.dirname(config.database_url) or ".",
                     exist_ok=True)
+    ensure_native_built()
 
     def child_main(worker: WorkerInfo) -> int:
         init_logging(file_sink=worker.is_primary)

@@ -4,12 +4,12 @@ Parity with reference token/mod.rs: a streaming accumulator that line-splits
 SSE as bytes pass through untouched and captures `usage` when the upstream
 provides it (our engines always do; so do OpenAI-compatible servers with
 stream_options.include_usage), otherwise accumulates content text and
-estimates. The port's copy of llmlb_tpu/gateway/token_accounting.py with the
-Python splitter only (the reference's C++ twin, native/sse_scan.cpp, is
-queued), and one difference: the reference estimates with tiktoken's
-cl100k_base, whose BPE file tiktoken downloads on first use; the port never
-fetches anything, so it estimates at ~4 characters a token, the reference's
-own fallback (ROADMAP C15).
+estimates. The port's copy of llmlb_tpu/gateway/token_accounting.py: a C++
+twin of the hot SSE line-splitter lives in llmlb_tpu_torch/native/
+(sse_scan.cpp, used when built). One difference: the reference estimates
+with tiktoken's cl100k_base, whose BPE file tiktoken downloads on first
+use; the port never fetches anything, so it estimates at ~4 characters a
+token, the reference's own fallback (ROADMAP C15).
 """
 
 from __future__ import annotations
@@ -36,15 +36,43 @@ def extract_usage_from_response(body: dict) -> tuple[int, int] | None:
 
 
 class StreamingTokenAccumulator:
-    """Feed raw SSE bytes; get usage (reported or estimated) at stream end."""
+    """Feed raw SSE bytes; get usage (reported or estimated) at stream end.
+
+    When the C++ scanner (native/sse_scan.cpp) is available, the hot path is
+    one native call per chunk; raw bytes are retained so the content-text
+    estimation fallback can run in Python at finalize time only if the
+    upstream never reported usage.
+    """
 
     def __init__(self):
         self._buffer = b""
         self._content_parts: list[str] = []
         self._usage: tuple[int, int] | None = None
         self._chunks_seen = 0
+        self._native = None
+        self._raw: list[bytes] | None = None
+        try:
+            from llmlb_tpu_torch.native import NativeSseScanner
+
+            self._native = NativeSseScanner()
+            self._raw = []
+        except Exception:
+            self._native = None
 
     def feed(self, chunk: bytes) -> None:
+        if self._native is not None:
+            self._native.feed(chunk)
+            # retain raw bytes only until a usage object shows up — once the
+            # upstream has reported, the estimation fallback can never run
+            if self._raw is not None:
+                if self._native.usage() is not None:
+                    self._raw = None
+                else:
+                    self._raw.append(chunk)
+            return
+        self._feed_python(chunk)
+
+    def _feed_python(self, chunk: bytes) -> None:
         self._buffer += chunk
         while b"\n" in self._buffer:
             line, self._buffer = self._buffer.split(b"\n", 1)
@@ -84,6 +112,16 @@ class StreamingTokenAccumulator:
 
     def finalize(self, prompt_text: str = "") -> tuple[int, int, bool]:
         """Returns (prompt_tokens, completion_tokens, was_reported)."""
+        if self._native is not None:
+            usage = self._native.usage()
+            if usage is not None:
+                return usage[0], usage[1], True
+            # no reported usage: replay retained bytes through the Python
+            # parser (off the hot path) to estimate from content text
+            raw, self._raw = self._raw or [], []
+            self._native = None
+            for chunk in raw:
+                self._feed_python(chunk)
         if self._usage is not None:
             return self._usage[0], self._usage[1], True
         return (
@@ -94,4 +132,6 @@ class StreamingTokenAccumulator:
 
     @property
     def chunks_seen(self) -> int:
+        if self._native is not None:
+            return self._native.frames
         return self._chunks_seen

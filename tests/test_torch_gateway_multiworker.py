@@ -14,6 +14,8 @@ hooks) held against the JAX gateway's.
 - The supervisor (run_supervisor) in a child process: SIGTERM reaches
   every worker and the supervisor exits 0; one worker's own death takes
   the group down with its code.
+- `serve --workers 2 --port 0` is a parser error and forks nothing
+  (ROADMAP C20).
 - The real thing, once: `python -m llmlb_tpu_torch.gateway.server serve
   --workers 2` on one fixed port, with torch, aiohttp, argon2, jax and
   llmlb_tpu unimportable in it (a worker that imported any of them would
@@ -70,9 +72,9 @@ def pkg(request):
 
 
 def _load_manager(pkg, **kw):
-    if pkg.balancer is ref_balancer:
-        kw["use_native"] = False  # the port has the Python core only
-    return pkg.balancer.LoadManager(**kw)
+    # the Python core, as the reference's own case (both packages' native
+    # cores are held against each other in tests/test_torch_native.py)
+    return pkg.balancer.LoadManager(use_native=False, **kw)
 
 
 # ------------------------------------------------------------------- breaker
@@ -527,6 +529,33 @@ def _children(pid: int) -> list[int]:
         if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
             out.append(int(d))
     return out
+
+
+def test_two_workers_on_port_zero_is_a_parser_error(tmp_path):
+    """`serve --workers 2 --port 0` is refused by the parser before anything
+    forks or builds (ROADMAP C20): port 0 would give each worker an
+    ephemeral port of its own. The reference has no such check."""
+    import os
+
+    code = textwrap.dedent("""
+        import os, runpy, sys
+        def hook(name, args):
+            if name == "os.fork":
+                print("FORKED", flush=True)
+        sys.addaudithook(hook)
+        sys.argv = ["server", "serve", "--workers", "2", "--port", "0"]
+        runpy.run_module("llmlb_tpu_torch.gateway.server",
+                         run_name="__main__")
+    """)
+    env = {**os.environ, "LLMLB_DATA_DIR": str(tmp_path),
+           "LLMLB_ADMIN_PASSWORD": "adminpass1",
+           "LLMLB_LOG_DIR": str(tmp_path / "logs")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 2, out.stderr
+    assert "--workers > 1 needs a fixed --port" in out.stderr
+    assert "FORKED" not in out.stdout and "listening" not in out.stderr
+    assert not (tmp_path / "gossip").exists()
 
 
 def test_serve_two_workers_on_one_port(tmp_path):

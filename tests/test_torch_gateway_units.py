@@ -4,7 +4,7 @@ Each case feeds the same inputs, or the same seeded script of events, to
 the reference module (llmlb_tpu/gateway/) and to its port
 (llmlb_tpu_torch/gateway/) and requires the same results:
 
-- the LoadManager (the reference's Python core, `use_native=False`) under
+- the LoadManager (both packages' Python cores, `use_native=False`) under
   seeded admit / complete / fail / TPS / clear scripts, in both affinity
   modes: each selection, the active counts, the TPS EMAs and the affinity
   counters; `prefix_affinity_hash` and the HRW owner;
@@ -77,14 +77,26 @@ def _outcomes(lm):
 @pytest.mark.parametrize("seed,mode", [(s, m) for s in range(4)
                                        for m in ("lru", "ring")])
 def test_load_manager_scripts_match(seed, mode, monkeypatch):
+    """The Python cores of both packages on one seeded script (the native
+    cores are held against each other in tests/test_torch_native.py)."""
+    load_manager_script(seed, mode, monkeypatch, native=False)
+
+
+def load_manager_script(seed, mode, monkeypatch, *, native: bool):
+    """A seeded script of admissions, selections (with and without a
+    prompt head), lease ends, TPS samples, failures and clears through the
+    JAX package's LoadManager and the port's, both on their Python cores or
+    both on their native ones: every choice and every counter must agree."""
     clock = _Clock()
     monkeypatch.setattr(time, "time", clock)
     monkeypatch.setattr(time, "monotonic", clock)
     qc = dict(max_queue_size=10, queue_timeout_s=1.0,
               max_active_per_endpoint=3)
     ref = ref_balancer.LoadManager(ref_config.QueueConfig(**qc),
-                                   use_native=False, affinity_mode=mode)
-    ours = balancer.LoadManager(config.QueueConfig(**qc), affinity_mode=mode)
+                                   use_native=native, affinity_mode=mode)
+    ours = balancer.LoadManager(config.QueueConfig(**qc),
+                                use_native=native, affinity_mode=mode)
+    assert (ref._rc is not None, ours._rc is not None) == (native, native)
     ref_eps = _endpoints(ref_types, random.Random(seed))
     our_eps = _endpoints(types, random.Random(seed))
     rng = random.Random(1000 + seed)

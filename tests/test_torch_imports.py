@@ -79,7 +79,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "gateway.system_info", "gateway.events",
                  "gateway.api_dashboard", "gateway.api_benchmarks",
                  "gateway.logging_setup", "gateway.worker",
-                 "gateway.gossip"):
+                 "gateway.gossip", "gateway.rebalance", "native"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
