@@ -169,6 +169,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
              fresh connections all answer 200; both workers sent and
              received gossip and refused none; SIGTERM to the supervisor
              exits 0 and no worker outlives it (a `multi_worker` line).
+             Then the update sub-block (`_update_block`): a gateway on a
+             free fixed port P with updates from a local release stub
+             (v9.9.9, a 4 MiB asset) and the tray on; `status` names it
+             and a second `serve --port P` is refused by the instance
+             lock; a greedy 64-token chat stream through it (paced on the
+             engine so that it is live) runs through an update check, the
+             tray's offer and a normal apply (/api/system `draining`, a
+             new chat 503 with Retry-After) to the direct path's ids,
+             text and usage; the gateway exits 0, app.bin swapped with
+             its .bak and the marker, the lock gone; restarted on P with
+             LLMLB_UVLOOP=1, its watch clears the marker; `assistant
+             curl` chats through it as a direct chat does; `stop` ends
+             it (an `update` line).
              Then speculative decoding, per request, on the same core and
              counted with the main path: 1 row, then 8, of 64 greedy ids
              with speculation off, on (the prompt-lookup drafter), under a
@@ -3763,11 +3776,11 @@ class _CloudMock:
 
 
 def _start_gateway(data_dir: str, faults: list[dict],
-                   env: dict | None = None):
-    """`python -m llmlb_tpu_torch.gateway.server serve` on a free port of
-    127.0.0.1, from the tree the port was imported from, with `env` added
-    to its environment; returns the process and its base URL once it
-    listens, after checking that it runs on the native core."""
+                   env: dict | None = None, port: int = 0):
+    """`python -m llmlb_tpu_torch.gateway.server serve` on `port` of
+    127.0.0.1 (0: a free one), from the tree the port was imported from,
+    with `env` added to its environment; returns the process and its base
+    URL once it listens, after checking that it runs on the native core."""
     import os
 
     import llmlb_tpu_torch
@@ -3781,7 +3794,7 @@ def _start_gateway(data_dir: str, faults: list[dict],
     with open(log_path, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "llmlb_tpu_torch.gateway.server", "serve",
-             "--host", "127.0.0.1", "--port", "0"],
+             "--host", "127.0.0.1", "--port", str(port)],
             cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline:
@@ -4075,6 +4088,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
         raise AssertionError(f"/v1/messages traffic launched {msg_launches}")
     multi = _multi_worker_block(engine, base, dev, content, pairs[True][0],
                                 pairs[True][2])
+    update = _update_block(engine, base, dev)
     stats = {"start_s": round(start_s, 3),
              "ttft_direct_ms": statistics.median(direct_t) * 1e3,
              "ttft_gateway_ms": statistics.median(via_t) * 1e3,
@@ -4082,6 +4096,7 @@ def _gateway_block(engine, base: str, dev: dict) -> dict:
              "ttft_gateway_all_ms": [t * 1e3 for t in via_t],
              "launches": launches, "messages_launches": msg_launches,
              "admin_s": admin_s, "dashboard": dash, "multi_worker": multi,
+             "update": update,
              "breakers": {e["name"]: e["breaker"]["state"]
                           for e in health["endpoints"]}}
     log(f"serve bf16 [{dev['smi']}]: gateway: registered as tpu with "
@@ -4326,6 +4341,407 @@ def _multi_worker_block(engine, base: str, dev: dict, content: str,
              "registration": ep["status"], "native_workers": len(kids),
              "launches": launches}
     log(f"serve bf16 [{dev['smi']}]: multi_worker {json.dumps(stats)}")
+    return stats
+
+
+class _ReleaseStub:
+    """A GitHub Releases stand-in on 127.0.0.1 (the standard library's
+    server on a thread), so that the gateway's self-update runs with no
+    request leaving the machine: the latest release of acme/llmlb-tpu is
+    v9.9.9 with one asset, app.bin, of `size` seeded bytes. `hits` counts
+    the requests it answered, by route."""
+
+    def __init__(self, size: int):
+        import random
+        from collections import Counter
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.asset = random.Random(9).randbytes(size)
+        hits = self.hits = Counter()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, body: bytes, ctype: str):
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/repos/acme/llmlb-tpu/releases/latest":
+                    hits["release"] += 1
+                    return self._send(json.dumps({
+                        "tag_name": "v9.9.9", "body": "smoke release",
+                        "assets": [{"name": "app.bin",
+                                    "browser_download_url":
+                                        outer.url + "/assets/app.bin"}],
+                    }).encode(), "application/json")
+                if self.path == "/assets/app.bin":
+                    hits["asset"] += 1
+                    return self._send(outer.asset, "application/octet-stream")
+                self.send_error(404)
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = "http://127.0.0.1:%d" % self.srv.server_address[1]
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+
+
+UPDATE_ASSET_BYTES = 4 * 1024 * 1024 + 13
+UPDATE_PACE_S = 0.015
+
+
+def _update_block(engine, base: str, dev: dict) -> dict:
+    """The gateway's self-update, instance lock, tray and assistant in
+    front of this phase's engine server, on a free fixed port P with a data
+    directory of its own and a release stub (`_ReleaseStub`) for the
+    GitHub API: `status` names the gateway's pid; a second `serve --port P`
+    on that directory exits non-zero naming the lock while the first still
+    answers /health; a greedy 64-token chat stream through the gateway
+    (its ids paced by UPDATE_PACE_S a token on the engine, so that it is
+    still live when the apply drains) runs on, after its first frames and
+    4 ids,
+    through an update check that finds v9.9.9 (the tray's menu offers it
+    and its notifications say "Update available") and a normal apply:
+    while it is live /api/system reads `draining` and a new
+    /v1/chat/completions gets 503 with Retry-After; it ends with the direct
+    path's 64 ids, text and usage; the gateway then exits 0 by itself,
+    leaving the stub's bytes in app.bin, the old ones in app.bin.bak, the
+    marker naming v9.9.9 and no lock file. Playing the supervisor, the
+    block starts it again on P (LLMLB_UVLOOP=1: uvloop where the machine
+    has it, else the fallback's warning); its post-restart watch clears
+    the marker after three healthy probes and /api/system's history
+    records `post_restart: healthy`; `assistant curl` runs a greedy
+    16-token chat through it with the key from LLMLB_API_KEY, equal to a
+    direct chat of the prompt; `stop --port P` ends it with exit 0 and
+    `status` then prints "not running". The block's traffic launches
+    flash_prefill and paged_flash_decode."""
+    import os
+    import socket
+    import tempfile
+
+    import llmlb_tpu_torch
+    from llmlb_tpu_torch.ops import cuda_attention as ca
+
+    core = engine.core
+    t0 = time.perf_counter()
+    before = dict(ca.LAUNCHES)
+    root = Path(llmlb_tpu_torch.__file__).resolve().parents[1]
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    gw = f"http://127.0.0.1:{port}"
+    stub = _ReleaseStub(UPDATE_ASSET_BYTES)
+    old = b"the artifact before the update\n" * 1000
+    try:
+        import uvloop  # noqa: F401
+
+        has_uvloop = True
+    except ImportError:
+        has_uvloop = False
+    content = "Update drain: describe a lighthouse in one line."
+    spy = _EmitSpy(core)
+    try:
+        direct = _chat(base, content, 64, True)
+        d_ids = spy.last()
+        a_content = "Assistant check: name a colour."
+        a_direct = _chat(base, a_content, 16, False)
+        a_ids = spy.last()
+    finally:
+        spy.close()
+    if len(d_ids) != 64 or len(a_ids) != 16:
+        raise AssertionError(f"direct chats gave {len(d_ids)} and "
+                             f"{len(a_ids)} ids")
+    procs: list = []
+    with tempfile.TemporaryDirectory(prefix="llmlb-up-") as data_dir:
+        artifact = Path(data_dir) / "app.bin"
+        artifact.write_bytes(old)
+        env = {"LLMLB_UPDATE_REPO": "acme/llmlb-tpu",
+               "LLMLB_UPDATE_API_BASE": stub.url,
+               "LLMLB_UPDATE_ARTIFACT": str(artifact), "LLMLB_TRAY": "1"}
+        cli_env = {**os.environ, "LLMLB_DATA_DIR": data_dir,
+                   "LLMLB_PORT": str(port), "LLMLB_ROUTER_URL": gw}
+
+        def cli(*args: str) -> subprocess.CompletedProcess:
+            return subprocess.run(
+                [sys.executable, "-m", "llmlb_tpu_torch.gateway.server",
+                 *args], cwd=root, env=cli_env, capture_output=True,
+                text=True, timeout=120)
+
+        try:
+            proc, _ = _start_gateway(data_dir, [], env, port=port)
+            procs.append(proc)
+            start_s = time.perf_counter() - t0
+            # the lock: status names the holder, a second serve is refused
+            status = cli("status").stdout.strip()
+            if status != f"running: pid={proc.pid} port={port}":
+                raise AssertionError(f"status: {status!r}")
+            second = subprocess.run(
+                [sys.executable, "-m", "llmlb_tpu_torch.gateway.server",
+                 "serve", "--host", "127.0.0.1", "--port", str(port)],
+                cwd=root, env={**cli_env, "LLMLB_LOG_DIR": os.path.join(
+                    data_dir, "logs2"), "LLMLB_ADMIN_PASSWORD":
+                    GATEWAY_PASSWORD, **env},
+                capture_output=True, text=True, timeout=120)
+            refusal = (f"another llmlb instance (pid {proc.pid}) already "
+                       f"holds port {port}")
+            if second.returncode == 0 or refusal not in second.stderr:
+                raise AssertionError(f"a second serve on port {port}: exit "
+                                     f"{second.returncode}, "
+                                     f"{second.stderr[-1500:]}")
+            if _gw_call("GET", gw + "/health") != (200, {"status": "ok"}):
+                raise AssertionError("the first gateway stopped answering")
+            token = _gw_json(gw + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            key = _gw_json(gw + "/api/api-keys", {"name": "smoke-up"},
+                           admin)["api_key"]
+            inf = {"Authorization": f"Bearer {key}"}
+            ep = _gw_json(gw + "/api/endpoints", {
+                "base_url": base, "name": "serve-bf16-up"}, admin)
+            if (ep["endpoint_type"], ep["status"]) != ("tpu", "online"):
+                raise AssertionError(f"registration: {ep}")
+
+            # the drained update of a live stream
+            frames: list[bytes] = []
+            ended = threading.Event()
+            failed: list[BaseException] = []
+
+            def stream() -> None:
+                try:
+                    body = {"model": "llama-3-8b", "temperature": 0,
+                            "max_tokens": 64, "stream": True,
+                            "messages": [{"role": "user",
+                                          "content": content}]}
+                    with _post(gw + "/v1/chat/completions", body,
+                               headers=inf) as resp:
+                        for data in _sse_lines(resp):
+                            frames.append(data)
+                except BaseException as e:  # re-raised on the main thread
+                    failed.append(e)
+                finally:
+                    ended.set()
+
+            spy = _EmitSpy(core)
+            paced = core._emit
+
+            def pace(slot_id, tok):
+                paced(slot_id, tok)
+                time.sleep(UPDATE_PACE_S)
+
+            core._emit = pace
+            try:
+                reader = threading.Thread(target=stream, daemon=True)
+                reader.start()
+
+                def emitted() -> int:
+                    return len(spy.last()) if spy.ids else 0
+
+                # its first frames (on random weights most ids decode to no
+                # text, so the engine's ids say how far it has gone)
+                deadline = time.monotonic() + 600
+                while not (frames and emitted() >= 4) and not ended.is_set():
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the stream never started")
+                    time.sleep(0.002)
+                if ended.is_set():
+                    raise AssertionError(f"the stream ended before the "
+                                         f"update: {failed or frames[-3:]}")
+                check = _gw_json(gw + "/api/system/update/check", {}, admin)
+                if (check.get("available"), check.get("version")) != (
+                        True, "v9.9.9"):
+                    raise AssertionError(f"update check: {check}")
+                tray = _gw_json(gw + "/api/system/tray", headers=admin)
+                note_deadline = time.monotonic() + 10
+                while not tray["notifications"] and \
+                        time.monotonic() < note_deadline:
+                    time.sleep(0.02)
+                    tray = _gw_json(gw + "/api/system/tray", headers=admin)
+                item = tray["menu"][1]
+                if item != {"id": "update", "enabled": True, "label":
+                            "Update to v9.9.9 available — apply"} or [
+                        n["title"] for n in tray["notifications"]] != [
+                        "Update available"]:
+                    raise AssertionError(f"tray: {tray}")
+                apply_t = time.perf_counter()
+                ids_at_apply = emitted()
+                code, applied = _gw_call("POST",
+                                         gw + "/api/system/update/apply", {},
+                                         admin)
+                if code != 202 or applied.get("applying") is not True:
+                    raise AssertionError(f"apply: {code} {applied}")
+                seen = None
+                while seen != "draining" and not ended.is_set():
+                    seen = _gw_json(gw + "/api/system",
+                                    headers=admin)["update"]["state"]
+                    time.sleep(0.002)
+                live_at_drain = not ended.is_set()
+                ids_at_drain = emitted()
+                req = urllib.request.Request(
+                    gw + "/v1/chat/completions", data=json.dumps({
+                        "model": "llama-3-8b", "max_tokens": 4,
+                        "messages": [{"role": "user", "content": "hi"}]
+                    }).encode(), headers={"Content-Type": "application/json",
+                                          **inf})
+                try:
+                    urllib.request.urlopen(req, timeout=60).close()
+                    rejected = (200, None)
+                except urllib.error.HTTPError as e:
+                    rejected = (e.code, e.headers.get("Retry-After"))
+                live_at_503 = not ended.is_set()
+                reader.join(timeout=600)
+                gone = proc.wait(timeout=120)
+                exit_s = time.perf_counter() - apply_t
+            finally:
+                spy.close()
+            if failed:
+                raise failed[0]
+            v_ids = spy.last()
+            if not (live_at_drain and live_at_503 and seen == "draining"):
+                raise AssertionError(
+                    f"the stream was not live through the drain: state "
+                    f"{seen}, live at draining {live_at_drain}, at the 503 "
+                    f"{live_at_503}")
+            if rejected[0] != 503 or not rejected[1]:
+                raise AssertionError(f"a new chat while draining: {rejected}")
+            chunks = [json.loads(f) for f in frames if f != b"[DONE]"]
+            text = "".join(c["choices"][0]["delta"].get("content", "")
+                           for c in chunks if c["choices"])
+            if (frames[-1:] != [b"[DONE]"] or v_ids != d_ids
+                    or text != direct["text"]
+                    or chunks[-1].get("usage") != direct["usage"]):
+                raise AssertionError(
+                    f"the drained stream: ids share {_shared(v_ids, d_ids)} "
+                    f"of {len(d_ids)}, usage {chunks[-1].get('usage')} "
+                    f"against {direct['usage']}")
+            if gone != 0:
+                raise AssertionError(f"the gateway exited with {gone} after "
+                                     "the apply")
+            marker = json.loads((Path(data_dir) /
+                                 "update_pending.json").read_text())
+            bak = Path(str(artifact) + ".bak")
+            lock = Path(data_dir) / f"llmlb-{port}.lock"
+            if (artifact.read_bytes() != stub.asset or not bak.exists()
+                    or bak.read_bytes() != old
+                    or marker.get("version") != "v9.9.9" or lock.exists()):
+                raise AssertionError(
+                    f"after the apply: app.bin {artifact.stat().st_size} "
+                    f"bytes, .bak {bak.exists()}, marker {marker}, lock "
+                    f"{lock.exists()}")
+
+            # the supervisor's restart, on uvloop where the machine has it
+            restart_t = time.perf_counter()
+            proc, _ = _start_gateway(data_dir, [],
+                                     {**env, "LLMLB_UVLOOP": "1"}, port=port)
+            procs.append(proc)
+            marker_path = Path(data_dir) / "update_pending.json"
+            deadline = time.monotonic() + 60
+            while marker_path.exists():
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    raise AssertionError("the restarted gateway kept the "
+                                         "marker")
+                time.sleep(0.02)
+            cleared_s = time.perf_counter() - restart_t
+            gw_log = (Path(data_dir) / "gateway.log").read_text()
+            loop_line = next((ln.split(": ", 1)[-1] for ln in
+                              gw_log.splitlines() if "uvloop" in ln), None)
+            want_line = ("uvloop event loop policy installed" if has_uvloop
+                         else "LLMLB_UVLOOP=1 but uvloop is not installed; "
+                              "using the stdlib asyncio event loop")
+            if loop_line != want_line:
+                raise AssertionError(f"uvloop ({has_uvloop}): the gateway "
+                                     f"logged {loop_line!r}")
+            token = _gw_json(gw + "/api/auth/login", {
+                "username": "admin", "password": GATEWAY_PASSWORD})["token"]
+            admin = {"Authorization": f"Bearer {token}"}
+            system = _gw_json(gw + "/api/system", headers=admin)
+            history = [{k: v for k, v in h.items() if k != "ts"}
+                       for h in system["update"]["history"]]
+            if {"version": "v9.9.9", "post_restart": "healthy"} not in history:
+                raise AssertionError(f"restarted: history {history}")
+            deadline = time.monotonic() + 60
+            while not any(e["name"] == "serve-bf16-up"
+                          and e["status"] == "online" for e in
+                          _gw_json(gw + "/api/endpoints",
+                                   headers=admin)["endpoints"]):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the restarted gateway never listed "
+                                         "the engine online")
+                time.sleep(0.05)
+
+            # the assistant, its key from the environment
+            body = json.dumps({"model": "llama-3-8b", "temperature": 0,
+                               "max_tokens": 16, "messages": [
+                                   {"role": "user", "content": a_content}]})
+            spy = _EmitSpy(core)
+            try:
+                cli_env["LLMLB_API_KEY"] = key
+                ran = cli("assistant", "curl",
+                          f"curl {gw}/v1/chat/completions -d '{body}'")
+                del cli_env["LLMLB_API_KEY"]
+                via_ids = spy.last() if spy.ids else []
+            finally:
+                spy.close()
+            try:
+                out = json.loads(ran.stdout)
+                reply = json.loads(out["body"])
+            except (ValueError, KeyError) as e:
+                raise AssertionError(f"assistant: exit {ran.returncode}, "
+                                     f"{ran.stdout[-800:]} "
+                                     f"{ran.stderr[-800:]}") from e
+            if (ran.returncode, out["status"]) != (0, 200) or key in \
+                    ran.stdout or via_ids != a_ids or (
+                    reply["choices"][0]["message"]["content"],
+                    reply["usage"]) != (a_direct["text"], a_direct["usage"]):
+                raise AssertionError(
+                    f"assistant chat: exit {ran.returncode}, status "
+                    f"{out['status']}, usage {reply.get('usage')} against "
+                    f"{a_direct['usage']}, ids share "
+                    f"{_shared(via_ids, a_ids)} of 16")
+
+            # stop
+            stop_t = time.perf_counter()
+            stopped = cli("stop", "--port", str(port)).stdout.strip()
+            code = proc.wait(timeout=120)
+            stop_s = time.perf_counter() - stop_t
+            after = cli("status").stdout.strip()
+            if (stopped, code, after) != ("stopped", 0, "not running"):
+                raise AssertionError(f"stop: {stopped!r}, exit {code}, "
+                                     f"status {after!r}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            stub.close()
+    launches = {k: ca.LAUNCHES[k] - before.get(k, 0) for k in BF16_PATH}
+    if not launches["flash_prefill"] or not launches["paged_flash_decode"]:
+        raise AssertionError(f"the update block launched {launches}")
+    stats = {"seconds": round(time.perf_counter() - t0, 3),
+             "start_s": round(start_s, 3),
+             "apply_to_exit_s": round(exit_s, 3),
+             "restart_to_cleared_s": round(cleared_s, 3),
+             "stop_s": round(stop_s, 3),
+             "drained_ids_equal_direct": v_ids == d_ids,
+             "drained_ids": len(v_ids), "frames": len(frames),
+             "ids_at_apply": ids_at_apply, "ids_at_drain": ids_at_drain,
+             "rejected_while_draining": list(rejected),
+             "asset_bytes": len(stub.asset), "stub_hits": dict(stub.hits),
+             "uvloop": has_uvloop, "uvloop_line": loop_line,
+             "assistant_ids_equal_direct": via_ids == a_ids,
+             "launches": launches}
+    log(f"serve bf16 [{dev['smi']}]: update {json.dumps(stats)}")
     return stats
 
 

@@ -1,9 +1,9 @@
 """Admin /api/* surface: endpoints CRUD + auth + users + keys + invitations +
 audit queries + settings + system info.
 
-The port's copy of llmlb_tpu/gateway/api_admin.py, handler for handler, less
-the tray's two handlers (the tray is not ported). `system_info` answers
-`"update": null`: the update manager is not ported either. Endpoint
+The port's copy of llmlb_tpu/gateway/api_admin.py, handler for handler:
+`system_info` carries the update manager's status (gateway/update.py),
+`tray_status` and `tray_activate` the tray's (gateway/tray.py). Endpoint
 registration and delete publish `EndpointRegistered` and `EndpointRemoved`
 on the dashboard's event bus, as the reference's.
 """
@@ -560,14 +560,40 @@ async def update_setting(request: web.Request) -> web.Response:
 
 async def system_info(request: web.Request) -> web.Response:
     state = request.app["state"]
+    update = None
+    if state.update_manager is not None:
+        update = state.update_manager.status()
     return web.json_response({
         "name": "llmlb_tpu",
         "version": __version__,
         "uptime_s": round(time.time() - state.started_at, 1),
-        "update": None,
+        "update": update,
         "gate": {
             "rejecting": state.gate.rejecting,
             "in_flight": state.gate.in_flight,
         },
     })
 
+
+async def tray_status(request: web.Request) -> web.Response:
+    """Tray menu + notifications (headless backends expose them here since
+    there is no desktop shell to draw in — gui/tray.rs equivalent surface)."""
+    state = request.app["state"]
+    if state.tray is None:
+        return web.json_response({"enabled": False})
+    return web.json_response({"enabled": True, **state.tray.status()})
+
+
+async def tray_activate(request: web.Request) -> web.Response:
+    """Dispatch a tray menu click (the reference's tray→update-manager proxy,
+    reachable over HTTP because the backend is headless)."""
+    state = request.app["state"]
+    if state.tray is None:
+        return _json_error(404, "tray is not enabled (set LLMLB_TRAY=1)")
+    try:
+        body = await request.json()
+        item = str(body["item"])
+    except Exception:
+        return _json_error(400, "body must have 'item'")
+    result = await state.tray.activate(item)
+    return web.json_response(result, status=200 if result.get("ok") else 400)

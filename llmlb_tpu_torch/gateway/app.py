@@ -8,10 +8,10 @@ the model registry and HF catalog, per-endpoint model management and the
 playground proxy, the audit log, settings, system info, the dashboard's
 data routes, its WebSocket (/ws/dashboard) and its static SPA (/dashboard,
 the port's copy of the bundle), the TPS benchmarks, cloud metrics, request
-traces, /health, /api/health and /metrics, behind the reference's
-middlewares in its order: tracing (outermost) → audit → inference gate →
-CSRF → auth (JWT / API key / x-api-key) → handler. The reference's tray
-and update routes come with the slice that ports them.
+traces, the tray (/api/system/tray*) and the self-update lifecycle
+(/api/system/update/*), /health, /api/health and /metrics, behind the
+reference's middlewares in its order: tracing (outermost) → audit →
+inference gate → CSRF → auth (JWT / API key / x-api-key) → handler.
 """
 
 from __future__ import annotations
@@ -469,6 +469,8 @@ def create_app(state: AppState) -> web.Application:
     r.add_get("/api/dashboard/settings", api_admin.get_settings)
     r.add_put("/api/dashboard/settings", api_admin.update_setting)
     r.add_get("/api/system", api_admin.system_info)
+    r.add_get("/api/system/tray", api_admin.tray_status)
+    r.add_post("/api/system/tray/activate", api_admin.tray_activate)
 
     # ---- dashboard data + WS
     r.add_get("/api/dashboard/overview", api_dashboard.overview)
@@ -500,6 +502,12 @@ def create_app(state: AppState) -> web.Application:
     r.add_get("/api/traces", tracing.list_traces)
     r.add_get("/api/traces/{trace_id}", tracing.get_trace)
     r.add_get("/metrics", _gateway_metrics)
+
+    # ---- update lifecycle
+    r.add_post("/api/system/update/check", _update_check)
+    r.add_post("/api/system/update/apply", _update_apply)
+    r.add_post("/api/system/update/cancel", _update_cancel)
+    r.add_put("/api/system/update/schedule", _update_schedule)
 
     # ---- liveness + root
     r.add_get("/health", _health)
@@ -646,3 +654,49 @@ async def _dashboard_asset(request: web.Request) -> web.StreamResponse:
             not os.path.isfile(full):
         return await _dashboard_index(request)  # SPA fallback
     return web.FileResponse(full)
+
+
+async def _update_check(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    if state.update_manager is None:
+        return web.json_response({"error": "updates not configured"}, status=501)
+    return web.json_response(await state.update_manager.check(force=True))
+
+
+async def _update_apply(request: web.Request) -> web.Response:
+    from llmlb_tpu_torch.gateway.update import ApplyMode
+
+    state: AppState = request.app["state"]
+    if state.update_manager is None:
+        return web.json_response({"error": "updates not configured"}, status=501)
+    try:
+        body = await request.json() if request.can_read_body else {}
+    except Exception:
+        body = {}
+    mode = ApplyMode.FORCE if body.get("force") else ApplyMode.NORMAL
+    started = state.update_manager.request_apply(mode)
+    return web.json_response(
+        {"applying": started, **state.update_manager.status()},
+        status=202 if started else 409,
+    )
+
+
+async def _update_cancel(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    if state.update_manager is None:
+        return web.json_response({"error": "updates not configured"}, status=501)
+    return web.json_response({"cancelled": state.update_manager.cancel_drain()})
+
+
+async def _update_schedule(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    if state.update_manager is None:
+        return web.json_response({"error": "updates not configured"}, status=501)
+    try:
+        body = await request.json()
+        state.update_manager.set_schedule(
+            body.get("mode", "immediate"), body.get("at_time")
+        )
+    except Exception as e:
+        return web.json_response({"error": str(e)}, status=400)
+    return web.json_response(state.update_manager.status())

@@ -11,8 +11,9 @@ replicates the routing state between them, the trace spool and the metrics
 spool, and the health checker, maintenance and the live-stream
 rebalancer (gateway/rebalance.py) on the primary only; every worker keeps
 the directory of its live streams, which the rebalancer's `migrate`
-directives reach over gossip. The reference's update manager and tray come
-with the slices that port them.
+directives reach over gossip. `server.run_server` attaches the update
+manager (gateway/update.py) and, with LLMLB_TRAY=1, the tray
+(gateway/tray.py).
 """
 
 from __future__ import annotations
@@ -219,6 +220,8 @@ class AppState:
     health_checker: EndpointHealthChecker | None = None
     worker: WorkerInfo = dataclasses.field(default_factory=WorkerInfo)
     gossip: GossipBus | None = None  # multi-worker state replication
+    update_manager: object | None = None  # set by gateway.update
+    tray: object | None = None  # TrayController when LLMLB_TRAY=1
     history: "HistoryWriter | None" = None
     # Fleet rebalancing (gateway/rebalance.py): every worker tracks its live
     # streams in `streams`; the elected primary additionally runs the

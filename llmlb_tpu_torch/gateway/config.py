@@ -1,5 +1,9 @@
 """Environment-based configuration: the port's copy of
-llmlb_tpu/gateway/config.py with the knobs the serving path reads.
+llmlb_tpu/gateway/config.py.
+
+It leaves out the reference's `auto_sync_interval_s`
+(LLMLB_AUTO_SYNC_INTERVAL), a setting that nothing in either package reads
+(ROADMAP C24): the port parses only settings that it acts on.
 
 Same variable names and defaults as the reference (reference config.rs:28-77;
 README LLMLB_* table), so a reference deployment's env carries over.
@@ -288,6 +292,7 @@ class ServerConfig:
     inference_timeout_s: float = 300.0
     admin_username: str = "admin"
     admin_password: str | None = None
+    update_drain_timeout_s: float = 300.0
     # Slow-loris protection: an SSE write that cannot reach the client
     # within this many seconds aborts the stream (freeing the engine slot)
     # instead of pinning it for the full inference timeout. 0 disables.
@@ -323,6 +328,7 @@ class ServerConfig:
             inference_timeout_s=env_float("LLMLB_INFERENCE_TIMEOUT", 300.0),
             admin_username=env_str("LLMLB_ADMIN_USERNAME", "admin") or "admin",
             admin_password=env_str("LLMLB_ADMIN_PASSWORD"),
+            update_drain_timeout_s=env_float("LLMLB_UPDATE_DRAIN_TIMEOUT", 300.0),
             stream_write_timeout_s=env_float(
                 "LLMLB_STREAM_WRITE_TIMEOUT", 30.0
             ),

@@ -5,8 +5,8 @@ events/mod.rs:20-122 (tokio::broadcast): bounded per-subscriber queues;
 slow subscribers drop oldest events rather than block publishers. Event
 names match the reference set plus accelerator telemetry
 (`TelemetryUpdated`, whose `tpu` key carries the card's figures on the
-port's engines). `UpdateStateChanged` has no publisher until the update
-manager is ported.
+port's engines). The update manager (gateway/update.py) publishes
+`UpdateStateChanged`, which the tray (gateway/tray.py) follows.
 """
 
 from __future__ import annotations

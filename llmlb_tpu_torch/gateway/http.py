@@ -20,7 +20,8 @@ and gets the subset they use from here:
 - client: `ClientSession` over a pool of keep-alive connections
   (`TCPConnector`), `ClientTimeout` (total, connect / sock_connect,
   sock_read), and a response whose `content.iter_any()` yields the body as
-  it arrives (`Content-Length`, chunked, or until the server closes).
+  it arrives (`Content-Length`, chunked, or until the server closes), and
+  `content.iter_chunked(n)` the same in chunks of at most n bytes.
   `data=FormData(...)` sends a form, multipart when it carries a file.
 - errors under aiohttp's names and bases, so that `except
   (http.ClientError, asyncio.TimeoutError, OSError)` catches what it
@@ -1266,7 +1267,8 @@ class TCPConnector:
 
 class StreamReader:
     """The response body as aiohttp's `resp.content`: `iter_any()` yields
-    the bytes as they arrive, `read()` returns them all."""
+    the bytes as they arrive, `iter_chunked(n)` the same in pieces of at
+    most n bytes, `read()` returns them all."""
 
     def __init__(self, resp: "ClientResponse"):
         self._resp = resp
@@ -1300,6 +1302,19 @@ class StreamReader:
             data = await self.readany()
             if not data:
                 return
+            yield data
+
+    async def iter_chunked(self, n: int):
+        """The body as it arrives, in chunks of at most `n` bytes (as
+        aiohttp's: a chunk may be shorter, so count bytes, not chunks)."""
+        if n <= 0:
+            raise ValueError("chunk size must be positive")
+        while True:
+            data = await self.readany()
+            if not data:
+                return
+            if len(data) > n:
+                data, self._buf = data[:n], data[n:]
             yield data
 
 

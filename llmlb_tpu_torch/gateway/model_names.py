@@ -145,6 +145,34 @@ def to_engine_name(canonical: str, endpoint_type: str) -> str:
     return canonical
 
 
+def parse_engine_tag(name: str) -> dict:
+    """Decompose an engine-style name ('llama3.1:8b-instruct-q4_K_M' or a
+    GGUF filename) into family / size / variant / quant — the shape the
+    reference's quant-suffix parser produces (api/model_name.rs)."""
+    base = name
+    if base.lower().endswith(".gguf"):
+        base = base[:-5]
+    quant = None
+    m = _QUANT_SUFFIX.search(base)
+    if m:
+        quant = m.group(1)
+        base = strip_quant_suffix(base)
+    family, _, tag = base.partition(":")
+    size = None
+    variant = []
+    for part in re.split(r"[-_.]", tag) if tag else []:
+        if re.fullmatch(r"\d+(\.\d+)?[bBmM]", part):
+            size = part.lower()
+        elif part:
+            variant.append(part.lower())
+    return {
+        "family": family.lower(),
+        "size": size,
+        "variant": "-".join(variant) or None,
+        "quant": quant.lower() if quant else None,
+    }
+
+
 def guess_hf_repo(name: str) -> str | None:
     """Best-effort HF repo id for a bare model name: exact/alias table first,
     then family→org heuristics (catalog + download-flow helper)."""

@@ -17,8 +17,8 @@ Single-writer discipline for the things that must not run N times:
     (the primary, index 0) — otherwise N workers multiply probe load
     on every engine;
   * the hourly maintenance loop (history retention, audit verify) runs on
-    the primary only (the reference's update manager, which the port has
-    not yet, does too);
+    the primary only, as do the update manager's background checks, the
+    tray and the post-restart health watch (server.py);
   * SQLite stays safe for the remaining cross-worker writes (request
     history, daily stats, audit batches) via WAL + busy_timeout and an
     atomic audit flush transaction (db.py / audit.py).

@@ -373,3 +373,66 @@ def test_frame_splitter_matches_the_reference(seed):
     assert got == [ref.push(c) for c in chunks]
     assert b"".join(f for fs in got for f in fs) == stream[:stream.rindex(
         b"\n\n") + 2]
+
+
+_PIECES = [1, 65536, 100_000, 3, 70_000, 0, 12_345]
+
+
+def _body(size: int) -> bytes:
+    return random.Random(size).randbytes(size)
+
+
+def _bodies_app() -> web.Application:
+    async def fixed(request):
+        return web.Response(body=_body(int(request.match_info["n"])),
+                            content_type="application/octet-stream")
+
+    async def chunked(request):
+        resp = web.StreamResponse()
+        await resp.prepare(request)
+        for size in _PIECES:
+            if size:
+                await resp.write(_body(size))
+            await asyncio.sleep(0)
+        await resp.write_eof()
+        return resp
+
+    app = web.Application()
+    app.router.add_get("/fixed/{n}", fixed)
+    app.router.add_get("/chunked", chunked)
+    return app
+
+
+@pytest.mark.parametrize("path,n", [
+    ("/fixed/0", 1024),                # an empty body
+    ("/fixed/100", 1024),              # shorter than n
+    ("/fixed/12288", 4096),            # an exact multiple of n
+    ("/fixed/300007", 1 << 16),        # the update download's chunk size
+    ("/chunked", 1 << 16),             # a chunked transfer
+    ("/chunked", 1000),
+])
+async def test_iter_chunked_matches_aiohttp(path, n):
+    """`content.iter_chunked(n)` yields the body in chunks of at most n
+    bytes, as aiohttp's does on the same served body: the same bytes in
+    all, never an empty chunk. How many chunks each client yields follows
+    how the bytes arrived, so counts are not compared."""
+    import aiohttp
+
+    runner, base = await _serve(_bodies_app())
+    want = (b"".join(_body(s) for s in _PIECES) if path == "/chunked"
+            else _body(int(path.rsplit("/", 1)[1])))
+    try:
+        got = {}
+        for name, session in (("port", gh.ClientSession),
+                              ("aiohttp", aiohttp.ClientSession)):
+            async with session() as s:
+                async with s.get(base + path) as r:
+                    assert r.status == 200
+                    assert ("Transfer-Encoding" in r.headers) == (
+                        path == "/chunked")
+                    chunks = [c async for c in r.content.iter_chunked(n)]
+            assert all(0 < len(c) <= n for c in chunks), name
+            got[name] = b"".join(chunks)
+        assert got["port"] == got["aiohttp"] == want
+    finally:
+        await runner.cleanup()

@@ -8,7 +8,10 @@ the reference module (llmlb_tpu/gateway/) and to its port
   seeded admit / complete / fail / TPS / clear scripts, in both affinity
   modes: each selection, the active counts, the TPS EMAs and the affinity
   counters; `prefix_affinity_hash` and the HRW owner;
-- `to_canonical` / `to_engine_name`, `sanitize_request_body`;
+- `to_canonical` / `to_engine_name`, `parse_engine_tag` (on the reference's
+  cases and a seeded grid of names), `sanitize_request_body`;
+- `maybe_install_uvloop`'s fallback (uvloop is not installed here) and
+  `ServerConfig.from_env()`'s fields and values;
 - usage extraction from response bodies and SSE streams;
 - the breaker's transitions and the retry budget under one scripted clock;
 - `ReplayState` accounting and `ChunkSplicer` output over seeded resumes.
@@ -176,6 +179,109 @@ def test_model_names_match(name):
     for kind in types.EndpointType:
         assert (model_names.to_engine_name(name, kind.value)
                 == ref_names.to_engine_name(name, kind.value))
+
+
+def _engine_tag_grid(seed: int, n: int) -> list[str]:
+    """Seeded engine-style names: with and without a tag, a size only,
+    variants, quant suffixes, a `.gguf` suffix."""
+    rng = random.Random(seed)
+    families = ["llama3.1", "Meta-Llama-3", "mistral", "qwen2.5", "gemma-2",
+                "phi3", "Mixtral", "tinyllama"]
+    sizes = ["8b", "70B", "0.5b", "1.1B", "7b", "8x7b", "350m", "", ""]
+    variants = ["instruct", "chat", "it", "", "", "text-v1.5", "Base"]
+    quants = ["q4_K_M", "Q5_K_S", "q8_0", "Q4_0", "fp16", "bf16", "int8",
+              "awq", "gptq", "F16", "", ""]
+    names = []
+    for _ in range(n):
+        tag = "-".join(p for p in (rng.choice(sizes), rng.choice(variants),
+                                   rng.choice(quants)) if p)
+        name = rng.choice(families)
+        if tag:
+            name += rng.choice([":", ":", "-", "."]) + tag
+        if rng.random() < 0.3:
+            name += rng.choice([".gguf", ".GGUF"])
+        names.append(name)
+    return names
+
+
+@pytest.mark.parametrize("name", [
+    "llama3.1:8b-instruct-q4_K_M", "Meta-Llama-3-8B-Instruct.Q5_K_S.gguf",
+    "mistral:7b", "llama3", "qwen2.5:0.5b", "model:", ":8b", "",
+    "MODEL.GGUF", "llama:8b.instruct_q8_0", "a:b:c-7b",
+] + _engine_tag_grid(0, 24))
+def test_parse_engine_tag_matches(name):
+    assert model_names.parse_engine_tag(name) == \
+        ref_names.parse_engine_tag(name)
+
+
+def test_parse_engine_tag_reference_cases():
+    """tests/gateway/test_core_units.py's cases, on the port."""
+    p = model_names.parse_engine_tag("llama3.1:8b-instruct-q4_K_M")
+    assert p == {"family": "llama3.1", "size": "8b", "variant": "instruct",
+                 "quant": "q4_k_m"}
+    p = model_names.parse_engine_tag("Meta-Llama-3-8B-Instruct.Q5_K_S.gguf")
+    assert p["quant"] == "q5_k_s"
+    p = model_names.parse_engine_tag("mistral:7b")
+    assert p["size"] == "7b" and p["variant"] is None
+
+
+def test_maybe_install_uvloop_falls_back(monkeypatch, caplog):
+    """uvloop is off unless LLMLB_UVLOOP=1; asked for where it is not
+    installed, both packages warn and keep the standard event loop."""
+    import asyncio
+    import logging
+    import sys
+
+    from llmlb_tpu.gateway import server as ref_server
+    from llmlb_tpu_torch.gateway import server
+
+    policy = asyncio.get_event_loop_policy()
+    monkeypatch.delenv("LLMLB_UVLOOP", raising=False)
+    with caplog.at_level(logging.WARNING):
+        assert server.maybe_install_uvloop() is False
+        assert caplog.records == []
+        monkeypatch.setenv("LLMLB_UVLOOP", "1")
+        monkeypatch.setitem(sys.modules, "uvloop", None)
+        assert server.maybe_install_uvloop() is False
+        assert ref_server.maybe_install_uvloop() is False
+    assert asyncio.get_event_loop_policy() is policy
+    warned = [(r.name, r.getMessage()) for r in caplog.records]
+    assert warned == [
+        ("llmlb_tpu_torch.gateway.server", "LLMLB_UVLOOP=1 but uvloop is not "
+         "installed; using the stdlib asyncio event loop"),
+        ("llmlb_tpu.gateway.server", "LLMLB_UVLOOP=1 but uvloop is not "
+         "installed; using the stdlib asyncio event loop")]
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"LLMLB_UPDATE_DRAIN_TIMEOUT": "12.5", "LLMLB_AUTO_SYNC_INTERVAL": "42",
+     "LLMLB_PORT": "4567", "LLMLB_DATA_DIR": "/srv/llmlb",
+     "LLMLB_HEALTH_CHECK_INTERVAL": "0.5", "LLMLB_STREAM_RESUME": "0"},
+    {"LLMLB_UPDATE_DRAIN_TIMEOUT": "not-a-number",
+     "LLMLB_AUTO_SYNC_INTERVAL": "-1"},
+], ids=["defaults", "set", "malformed"])
+def test_server_config_from_env_matches(env, monkeypatch):
+    """`ServerConfig.from_env()` gives the reference's fields and values
+    under the same environment, the update drain timeout among them. The
+    one field left out is the reference's `auto_sync_interval_s`, which
+    nothing in either package reads (ROADMAP C24)."""
+    import os
+
+    for k in list(os.environ):
+        if k.startswith("LLMLB_"):
+            monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = dataclasses.asdict(config.ServerConfig.from_env())
+    want = dataclasses.asdict(ref_config.ServerConfig.from_env())
+    unread = want.pop("auto_sync_interval_s")
+    assert "auto_sync_interval_s" not in got
+    assert got == want
+    if env.get("LLMLB_PORT"):
+        assert (got["update_drain_timeout_s"], unread) == (12.5, 42.0)
+    elif not env:
+        assert (got["update_drain_timeout_s"], unread) == (300.0, 300.0)
 
 
 @pytest.mark.parametrize("body", [

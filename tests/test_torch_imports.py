@@ -79,7 +79,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "gateway.system_info", "gateway.events",
                  "gateway.api_dashboard", "gateway.api_benchmarks",
                  "gateway.logging_setup", "gateway.worker",
-                 "gateway.gossip", "gateway.rebalance", "native"):
+                 "gateway.gossip", "gateway.rebalance", "native",
+                 "gateway.update", "gateway.update_source", "gateway.lock",
+                 "gateway.tray", "gateway.assistant"):
         assert f"llmlb_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -176,6 +178,19 @@ def test_gateway_serves_without_aiohttp_argon2_jax_or_torch(tmp_path):
     assert proc.returncode == 0, err
     assert json.loads(out.strip().splitlines()[-1]) == []
     assert (tmp_path / "llmlb.db").exists()
+
+
+def test_gateway_has_every_module_of_the_reference():
+    """The port's gateway has a counterpart of each of the reference
+    gateway's files; its only file of its own is http.py (the aiohttp
+    subset on the standard library)."""
+    def files(pkg):
+        return {p.name for p in (REPO / pkg / "gateway").iterdir()
+                if p.suffix == ".py" or p.name == "dashboard_static"}
+
+    ours, ref = files("llmlb_tpu_torch"), files("llmlb_tpu")
+    assert ref - ours == set()
+    assert ours - ref == {"http.py"}
 
 
 def test_gateway_workers_import_no_torch():
